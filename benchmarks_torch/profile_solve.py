@@ -1,14 +1,21 @@
 """Where the time of the 801 x 801 plasma solve goes on the card.
 
-    python3 benchmarks_torch/profile_solve.py
+    python3 benchmarks_torch/profile_solve.py                      # one slab
+    python3 benchmarks_torch/profile_solve.py --n-subdomains 16 --double-sweep
 
 Needs one CUDA card and nvcc.  Times the solve and its parts with CUDA
 events, then traces one solve with torch.profiler and prints the device time
-by kernel.  One JSON line per measurement.
+by kernel, the device's idle share of the solve and the host's time per
+preconditioner apply (in all, and by Python function under cProfile).  One
+JSON line per measurement.
 """
 
+import argparse
+import cProfile
 import json
+import pstats
 import sys
+import time
 from pathlib import Path
 
 import numpy as np
@@ -16,7 +23,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain  # noqa: E402
+from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.models import plasma2d  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E402
@@ -24,50 +31,140 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E40
     cuda_time_ms as time_ms,
 )
 
+DIRS = ((1.0, 0.0), (0.0, 1.0))
+KW = dict(rtol=1e-6, restart=20, maxiter=12)
+
+
+def host_ms(fn, repeats: int) -> float:
+    """Host milliseconds to ENQUEUE ``fn()`` (no synchronisation inside the
+    timed region; the stream is drained before and after)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / repeats
+    torch.cuda.synchronize()
+    return ms
+
+
+def host_profile(fn, top: int = 14) -> list:
+    """Where the host spends one enqueue of ``fn()``: the ``top`` functions
+    by their own time under cProfile (which inflates every Python call, so
+    read the shares, not the sum)."""
+    fn()
+    torch.cuda.synchronize()
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    stats = pstats.Stats(prof).stats           # (file, line, name) -> (cc, nc, tt, ct, callers)
+    rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:top]
+    return [dict(function=f"{Path(k[0]).name}:{k[1]}:{k[2]}"[-60:], calls=v[1],
+                 own_ms=1e3 * v[2], cumulative_ms=1e3 * v[3]) for k, v in rows]
+
+
+def one_slab_parts(p, r, cols, rhs):
+    """The parts of one preconditioner apply on the one-slab path."""
+    pc = p.precond
+    fac = pc.slabs.pfac
+    part = subdomain.partition_source(pc.slabs, pc.a_s.matvec(cols))
+    rows = tk._to_rows_b(fac, part)
+    y4 = tk.forward_substitution(fac, fac.slab_ids, rows)
+    x4 = tk.backward_substitution(fac, fac.slab_ids, y4)
+    return dict(
+        to_rows=lambda: tk._to_rows_b(fac, part),
+        thomas_forward=lambda: tk.forward_substitution(fac, fac.slab_ids, rows),
+        thomas_backward=lambda: tk.backward_substitution(fac, fac.slab_ids, y4),
+        from_rows=lambda: tk._from_rows_b(x4, fac.n, part.dtype, fac.m),
+    )
+
+
+def sweep_parts(p, r, cols, rhs):
+    """The parts of one double-sweep apply: the two sweeps, the residual of
+    the sparsified system between them, and one local solve of each kind."""
+    pc = p.precond
+    slabs, fac = pc.slabs, pc.slabs.pfac
+    sp = pc.a_s.matvec(cols)
+    u = sweeps.gs_sweep(slabs, sp)
+    err_t = pc._transpose_flat(pc.msp.matvec(u) - sp)
+    s = slabs.n_subs // 2
+    rhs_s = subdomain.partition_source(slabs, sp)[s]
+    _, y_c, t_c = tk.solve_cached(fac, s, rhs_s, slabs.trace_tail)
+    return dict(
+        gs_sweep=lambda: sweeps.gs_sweep(slabs, sp),
+        gs_sweep_transposed=lambda: sweeps.gs_sweep(pc.slabs_t, err_t),
+        msp_residual_and_transposes=lambda: pc._transpose_flat(
+            pc._transpose_flat(pc.msp.matvec(u) - sp).contiguous()),
+        partition_source=lambda: subdomain.partition_source(slabs, sp),
+        gather_interior=lambda: subdomain.gather_interior(
+            slabs, subdomain.partition_source(slabs, sp)),
+        local_solve_cached=lambda: tk.solve_cached(fac, s, rhs_s, slabs.trace_tail),
+        local_solve_resume=lambda: tk.solve_resume(fac, s, rhs_s, y_c, t_c, slabs.trace_tail),
+    )
+
 
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n-subdomains", type=int, default=1)
+    ap.add_argument("--double-sweep", action="store_true")
+    args = ap.parse_args()
+
     print(card_name_and_power_limit())
-    p = plasma2d.build_problem(h=1 / 800, n_subdomains=1, npml=10, dtype=torch.complex64,
-                               double_sweep=False, pivot_dtype="pallas")
-    print(json.dumps(dict(setup_seconds=p.setup_seconds)))
-    kw = dict(rtol=1e-6, restart=20, maxiter=12)
+    p = plasma2d.build_problem(h=1 / 800, n_subdomains=args.n_subdomains, npml=10,
+                               dtype=torch.complex64, double_sweep=args.double_sweep,
+                               pivot_dtype="pallas")
+    print(json.dumps(dict(n_subdomains=args.n_subdomains, double_sweep=args.double_sweep,
+                          setup_seconds=p.setup_seconds,
+                          peak_memory_bytes=torch.cuda.max_memory_allocated())))
     pc, op = p.precond, p.op
-    fac = pc.slabs.pfac
-    s_idx = torch.zeros(1, dtype=torch.int32, device=fac.lband.device)
+    solve_ms = {}
     for r in (1, 2):
-        dirs = np.asarray([[1.0, 0.0], [0.0, 1.0]][:r])
+        dirs = np.asarray(DIRS[:r])
         rhs = plasma2d.incident_rhs(p, dirs)                   # (r, N)
         cols = rhs.T.contiguous() if r > 1 else rhs[0]          # preconditioner layout
-        sp = pc.a_s.matvec(cols)
-        part = subdomain.partition_source(pc.slabs, sp)
-        rows = tk._to_rows_b(fac, part)
-        y4 = tk.forward_substitution(fac, s_idx, rows)
-        x4 = tk.backward_substitution(fac, s_idx, y4)
         parts = dict(
             incident_rhs=lambda: plasma2d.incident_rhs(p, dirs),
             operator_apply=lambda: op.apply(rhs),
             stencil_matvec=lambda: pc.a_s.matvec(cols),
-            to_rows=lambda: tk._to_rows_b(fac, part),
-            thomas_forward=lambda: tk.forward_substitution(fac, s_idx, rows),
-            thomas_backward=lambda: tk.backward_substitution(fac, s_idx, y4),
-            from_rows=lambda: tk._from_rows_b(x4, fac.n, part.dtype, fac.m),
+            **(sweep_parts if args.double_sweep else one_slab_parts)(p, r, cols, rhs),
             preconditioner_apply=lambda: pc.apply(cols),
-            solve=(lambda: plasma2d.solve(p, (1.0, 0.0), **kw)) if r == 1
-            else (lambda: plasma2d.solve_batched(p, ((1.0, 0.0), (0.0, 1.0)), **kw)),
+            solve=(lambda: plasma2d.solve(p, DIRS[0], **KW)) if r == 1
+            else (lambda: plasma2d.solve_batched(p, DIRS, **KW)),
         )
-        print(json.dumps(dict(r=r, ms={k: time_ms(f, 5) for k, f in parts.items()})), flush=True)
+        ms = {k: time_ms(f, 5) for k, f in parts.items()}
+        solve_ms[r] = ms["solve"]
+        print(json.dumps(dict(r=r, ms=ms,
+                              host_enqueue_ms=dict(
+                                  preconditioner_apply=host_ms(parts["preconditioner_apply"], 5),
+                                  operator_apply=host_ms(parts["operator_apply"], 5)))),
+              flush=True)
+        print(json.dumps(dict(r=r, host_profile_of_preconditioner_apply=host_profile(
+            parts["preconditioner_apply"]))), flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        plasma2d.solve(p, (1.0, 0.0), **kw)
+    for r in (1, 2):
+        run = ((lambda: plasma2d.solve(p, DIRS[0], **KW)) if r == 1
+               else (lambda: plasma2d.solve_batched(p, DIRS, **KW)))
+        run()
         torch.cuda.synchronize()
-    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:14]
-    total = sum(e.device_time_total for e in prof.key_averages() if e.device_type.name == "CUDA")
-    print(json.dumps(dict(
-        profiler_device_ms_total=total / 1e3,
-        top=[dict(name=e.key[:60], ms=e.device_time_total / 1e3, calls=e.count) for e in rows],
-    )), flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, info = run()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        total = sum(e.device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: -e.device_time_total)[:12]
+        print(json.dumps(dict(
+            r=r, iterations=np.asarray(info.n_iterations).tolist(),
+            solve_wall_ms_under_profiler=wall_ms, profiler_device_ms_total=total,
+            device_idle_share_under_profiler=1.0 - total / wall_ms,
+            solve_ms=solve_ms[r], device_idle_share=1.0 - total / solve_ms[r],
+            top=[dict(name=e.key[:60], ms=e.device_time_total / 1e3, calls=e.count) for e in top],
+        )), flush=True)
 
 
 if __name__ == "__main__":

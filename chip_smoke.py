@@ -8,11 +8,13 @@ Run from the repository root with no arguments::
 It needs one CUDA card and ``nvcc`` and exits non-zero without them.  It
 builds the substitution kernels from ``fast_solver_lippmann_schwinger_tpu_torch/
 csrc`` into ``build/``, holds each kernel against its plain PyTorch version,
-drives the port's main path (the 801 x 801, k = 800 plasma scattering solve
-on the one-slab exact-solve path, single and two-direction) through the
-entry points a user calls, and then holds and times each kernel at each of
-those two paths' own shapes (r = 1 and r = 2 right-hand sides) on the
-solve's own pivot planes.
+and drives the port's two main paths through the entry points a user calls,
+each single and two-direction: the 801 x 801, k = 800 plasma scattering solve
+on the one-slab exact-solve path, and the same solve with 16 slabs and the
+alternating bi-directional sweep (the reference's own configuration).  After
+each path it holds and times every kernel of that path at the path's own
+shapes (r = 1 and r = 2 right-hand sides; for the sweeps one slab picked among
+16, full, truncated and resumed passes) on the solve's own pivot planes.
 Each phase prints one JSON line; any failed check raises, so the exit code
 is non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -26,6 +28,7 @@ import time
 import numpy as np
 import torch
 
+from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps
 from fast_solver_lippmann_schwinger_tpu_torch.models import plasma2d
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (
@@ -38,24 +41,34 @@ PEAK_BYTES_PER_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12         # float32 outside the tensor cores
 
 KERNEL_TOL = 1e-4              # of the max-norm; f32 summation order only
-JAX_TPU_ITERATIONS = 6         # recorded by the JAX package for this solve
+JAX_TPU_ITERATIONS = 6         # recorded by the JAX package for either solve
+SOLVE_KW = dict(rtol=1e-6, restart=20, maxiter=12)
 
 WRAPPERS = {
     "thomas_forward": tk.forward_substitution,
+    "thomas_forward_cached": tk.forward_substitution_cached,
     "thomas_backward": tk.backward_substitution,
 }
+_PORT = "fast_solver_lippmann_schwinger_tpu_torch/csrc/"
+_TPU = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_thomas.py"
+# kernel -> route, name in a trace, source, and the TPU kernel body it
+# replaces at r = 1 and at r = 2 (file:line)
 KERNEL_INFO = {
     "thomas_forward": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, false>",
-        source="fast_solver_lippmann_schwinger_tpu_torch/csrc/thomas_fwd.cu",
-        replaces="fast_solver_lippmann_schwinger_tpu/sparse/pallas_thomas.py:610",
+        route="cuda", kernel="thomas::pass_kernel<R, false, false>",
+        source=_PORT + "thomas_fwd.cu", replaces={1: f"{_TPU}:610", 2: f"{_TPU}:610"},
+    ),
+    "thomas_forward_cached": dict(
+        route="cuda", kernel="thomas::pass_kernel<R, false, true>",
+        source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:221", 2: f"{_TPU}:546"},
     ),
     "thomas_backward": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, true>",
-        source="fast_solver_lippmann_schwinger_tpu_torch/csrc/thomas_bwd.cu",
-        replaces="fast_solver_lippmann_schwinger_tpu/sparse/pallas_thomas.py:626",
+        route="cuda", kernel="thomas::pass_kernel<R, true, false>",
+        source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:626", 2: f"{_TPU}:626"},
     ),
 }
+# on the sweeps' single-RHS path the backward kernel stands for _bwd_kernel
+SWEEP_BACKWARD_R1 = f"{_TPU}:241"
 
 
 def emit(phase: str, **fields):
@@ -112,7 +125,7 @@ def phase_device() -> str:
 def phase_build():
     t0 = time.perf_counter()
     logs = tk.build_kernels(verbose=True)
-    for name in ("thomas_fwd", "thomas_bwd"):
+    for name in tk._KERNELS:
         tk._library(name)
     seconds = time.perf_counter() - t0
     usage = sorted({
@@ -152,7 +165,7 @@ def phase_kernels(device):
     S, m, n = 2, 64, 801
     fac = random_factorization(rng, S, m, n, device)
     s_idx = torch.tensor([1, 0], dtype=torch.int32, device=device)
-    worst = {"thomas_forward": 0.0, "thomas_backward": 0.0}
+    worst = {name: 0.0 for name in WRAPPERS}
     cases = []
     for r in (1, 2):
         for start, tail in ((0, 0), (5, 0), (0, 7), (3, 9)):
@@ -171,6 +184,25 @@ def phase_kernels(device):
             worst["thomas_forward"] = max(worst["thomas_forward"], e_f)
             worst["thomas_backward"] = max(worst["thomas_backward"], e_b)
             cases.append(dict(r=r, start=start, tail=tail, fwd=e_f, bwd=e_b))
+        # the cached forward kernel: a carry in (also at start = 0), y and t
+        # stacks out, written in place on lines >= start only
+        t_init = torch.zeros((S, 2 * r, fac.ld), device=device)
+        t_init[..., :n] = torch.from_numpy(rng.standard_normal((S, 2 * r, n)).astype(np.float32)).to(device)
+        for start, carry in ((0, None), (0, t_init), (40, t_init)):
+            out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+            y_k, t_k = tk.forward_substitution_cached(fac, s_idx, b4, carry, start=start, out=out)
+            torch.cuda.synchronize()
+            zero = torch.zeros_like(t_init)
+            y_p, t_p = tk.forward_substitution_cached_plain(
+                fac, s_idx, b4, zero if carry is None else carry, start=start)
+            _, e_y = rel_err(y_k[:, start:], y_p[:, start:])
+            _, e_t = rel_err(t_k[:, start:], t_p[:, start:])
+            check(bool((y_k[:, :start] == 7.0).all()) and bool((t_k[:, :start] == -7.0).all()),
+                  "the cached forward kernel leaves the lines above its start alone")
+            check(bool(torch.isfinite(t_k[:, start:]).all()), "cached forward output is finite")
+            worst["thomas_forward_cached"] = max(worst["thomas_forward_cached"], e_y, e_t)
+            cases.append(dict(r=r, start=start, t_init=carry is not None, fwd_cached_y=e_y,
+                              fwd_cached_t=e_t))
     # times of the last case's shape with start = tail = 0 (S = 2, r = 2)
     y_k = tk.forward_substitution(fac, s_idx, b4)
     line_bytes = 2 * fac.ld * fac.ld * 2 + 2 * 3 * fac.ld * 4 + 2 * (2 * r * fac.ld * 4)
@@ -179,6 +211,9 @@ def phase_kernels(device):
         "thomas_forward": dict(
             kernel_ms=time_ms(lambda: tk.forward_substitution(fac, s_idx, b4), 5),
             plain_ms=time_ms(lambda: tk.forward_substitution_plain(fac, s_idx, b4), 2)),
+        "thomas_forward_cached": dict(
+            kernel_ms=time_ms(lambda: tk.forward_substitution_cached(fac, s_idx, b4, t_init), 5),
+            plain_ms=time_ms(lambda: tk.forward_substitution_cached_plain(fac, s_idx, b4, t_init), 2)),
         "thomas_backward": dict(
             kernel_ms=time_ms(lambda: tk.backward_substitution(fac, s_idx, y_k), 5),
             plain_ms=time_ms(lambda: tk.backward_substitution_plain(fac, s_idx, y_k), 2)),
@@ -190,37 +225,45 @@ def phase_kernels(device):
         check(err <= KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain version ({err})")
 
 
-def phase_small_reference(device):
-    """Kernel path against the dense full-precision path on a small grid."""
-    kw = dict(h=1 / 40, n_subdomains=1, npml=6, double_sweep=False, device=device)
+def phase_small_reference(device, n_subdomains: int, double_sweep: bool, rtol: float):
+    """Kernel path (complex64, stopped at ``rtol``) against the dense
+    full-precision path (complex128) on a small grid, for one configuration."""
+    kw = dict(h=1 / 40, n_subdomains=n_subdomains, npml=6, double_sweep=double_sweep,
+              device=device)
     p_k = plasma2d.build_problem(dtype=torch.complex64, pivot_dtype="pallas", **kw)
     p_f = plasma2d.build_problem(dtype=torch.complex128, pivot_dtype="full", **kw)
-    x_k, i_k = plasma2d.solve(p_k, rtol=1e-6, restart=20, maxiter=12)
-    x_f, i_f = plasma2d.solve(p_f, rtol=1e-6, restart=20, maxiter=12)
+    x_k, i_k = plasma2d.solve(p_k, **dict(SOLVE_KW, rtol=rtol))
+    x_f, i_f = plasma2d.solve(p_f, **SOLVE_KW)
     _, err = rel_err(x_k.to(torch.complex128), x_f)
-    emit("small_reference", n=p_k.grid.n, iterations=[int(i_k.n_iterations), int(i_f.n_iterations)],
+    emit("small_reference", n=p_k.grid.n, n_subdomains=n_subdomains, double_sweep=double_sweep,
+         rtol=[rtol, SOLVE_KW["rtol"]],
+         iterations=[int(i_k.n_iterations), int(i_f.n_iterations)],
+         true_residual=[float(i_k.true_residual), float(i_f.true_residual)],
          rel_err_vs_dense_complex128=err, tolerance=1e-4)
     check(bool(i_k.converged) and bool(i_f.converged), "small solves converged")
     check(err <= 1e-4, f"kernel-path solution within 1e-4 of the dense path ({err})")
 
 
-def phase_solve(device):
+def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_kernels,
+                repeats: int):
+    """Build one 801 x 801 problem through ``plasma2d.build_problem`` and run
+    ``plasma2d.solve`` on it; ``path_kernels`` must all have launched."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     problem = plasma2d.build_problem(
-        h=1.0 / 800.0, n_subdomains=1, npml=10, dtype=torch.complex64,
-        double_sweep=False, pivot_dtype="pallas", device=device,
+        h=1.0 / 800.0, n_subdomains=n_subdomains, npml=10, dtype=torch.complex64,
+        double_sweep=double_sweep, pivot_dtype="pallas", device=device,
     )
     setup_s = time.perf_counter() - t0
-    kw = dict(rtol=1e-6, restart=20, maxiter=12)
 
-    plasma2d.solve(problem, (1.0, 0.0), **kw)          # warm-up
+    plasma2d.solve(problem, (1.0, 0.0), **SOLVE_KW)          # warm-up
     torch.cuda.synchronize()
     (x, info), times, counts = timed_solves(
-        lambda: plasma2d.solve(problem, (1.0, 0.0), **kw))
+        lambda: plasma2d.solve(problem, (1.0, 0.0), **SOLVE_KW), repeats)
     n_it = int(info.n_iterations)
     emit(
-        "solve", grid=[problem.grid.m, problem.grid.n], k=problem.k,
+        name, grid=[problem.grid.m, problem.grid.n], k=problem.k,
+        n_subdomains=n_subdomains, double_sweep=double_sweep,
         setup_seconds=problem.setup_seconds, setup_total_seconds=setup_s,
         solve_ms=sorted(times)[len(times) // 2], solve_ms_runs=times, iterations=n_it,
         jax_tpu_iterations=JAX_TPU_ITERATIONS, converged=bool(info.converged),
@@ -230,49 +273,93 @@ def phase_solve(device):
     )
     check(tuple(x.shape) == (problem.grid.size,), "solution shape")
     check(bool(torch.isfinite(torch.view_as_real(x)).all()), "solution is finite")
-    check(bool(info.converged), "801^2 solve converged")
+    check(bool(info.converged), f"801^2 {name} converged")
     check(float(info.true_residual) <= 1e-3, "true residual <= 1e-3")
-    check(all(c > 0 for c in counts.values()), f"both kernels launched on the main path ({counts})")
+    check(all(counts[k] > 0 for k in path_kernels),
+          f"every kernel of the path launched in {name} ({counts})")
     return problem, counts
 
 
 DIRECTIONS = ((1.0, 0.0), (0.0, 1.0))
 
 
-def phase_solve_batched(problem):
-    kw = dict(rtol=1e-6, restart=20, maxiter=12)
+def phase_solve_batched(problem, name: str, path_kernels, repeats: int):
     dirs = DIRECTIONS
-    plasma2d.solve_batched(problem, dirs, **kw)        # warm-up
+    plasma2d.solve_batched(problem, dirs, **SOLVE_KW)        # warm-up
     torch.cuda.synchronize()
     (x, info), times, counts = timed_solves(
-        lambda: plasma2d.solve_batched(problem, dirs, **kw))
+        lambda: plasma2d.solve_batched(problem, dirs, **SOLVE_KW), repeats)
     ms = sorted(times)[len(times) // 2]
     emit(
-        "solve_batched", directions=dirs, solve_ms=ms, solve_ms_runs=times,
+        name, directions=dirs, solve_ms=ms, solve_ms_runs=times,
         ms_per_direction=ms / len(dirs),
         iterations=[int(v) for v in info.n_iterations],
+        jax_tpu_iterations=[JAX_TPU_ITERATIONS] * len(dirs),
         converged=[bool(v) for v in info.converged],
         true_residual=[float(v) for v in info.true_residual], launches=counts,
     )
     check(tuple(x.shape) == (len(dirs), problem.grid.size), "batched solution shape")
-    check(bool(info.converged.all()), "both directions converged")
+    check(bool(info.converged.all()), f"both directions converged in {name}")
     check(float(info.true_residual.max()) <= 1e-3, "batched true residuals <= 1e-3")
-    check(all(c > 0 for c in counts.values()), f"both kernels launched in the batched solve ({counts})")
+    check(all(counts[k] > 0 for k in path_kernels),
+          f"every kernel of the path launched in {name} ({counts})")
     return counts
 
 
+def pass_bound(lines: int, ld: int, r: int, stacks: int):
+    """Least time for ``lines`` lines of a substitution pass: two bf16 planes,
+    the band and ``stacks`` row stacks of 2r x ld floats per line (right-hand
+    rows in, y/t/x rows out), plus the carry and the slab index, against the
+    card's memory rate; the products against its float32 rate."""
+    row = 2 * r * ld * 4
+    line_bytes = 2 * ld * ld * 2 + 2 * 3 * ld * 4 + stacks * row
+    bytes_ms = 1e3 * (lines * line_bytes + row + 4) / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * lines * 2 * (2 * (2 * r) * ld * ld) / PEAK_F32_FLOPS
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def library_pass_ms(rows: torch.Tensor, dense_re, dense_im, lines) -> float:
+    """Yardstick: a loop of library bf16 matrix products of one (2r, ld) row
+    block with the dense planes of ``lines`` (no band term, no dependency)."""
+    rows_bf16 = rows.to(torch.bfloat16)
+
+    def loop():
+        for j in lines:
+            torch.matmul(rows_bf16, dense_re[j])
+            torch.matmul(rows_bf16, dense_im[j])
+
+    return time_ms(loop, 2)
+
+
+def kernel_entry(name, r, path, launches, kernel, plain, bound, library_ms, shape,
+                 variant="", replaces=None) -> dict:
+    """Hold one kernel against its plain version on the same inputs and time
+    both; ``kernel``/``plain`` return the tensor (or tuple) to compare."""
+    got, want = kernel(), plain()
+    got, want = (torch.cat(got), torch.cat(want)) if isinstance(got, tuple) else (got, want)
+    abs_err, err = rel_err(got, want)
+    check(err <= KERNEL_TOL,
+          f"{name}{variant} at the shape of {path} (r={r}) within {KERNEL_TOL} ({err})")
+    info = dict(KERNEL_INFO[name])
+    info["replaces"] = replaces or info["replaces"][r]
+    return dict(
+        name=f"{name}{variant}_r{r}", **info, path=path, launches=launches,
+        max_abs_err=abs_err, max_rel_err=err, tolerance_rel=KERNEL_TOL,
+        ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
+        bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms, shape=shape,
+    )
+
+
 def phase_kernel_times(problem, path_counts: dict) -> list:
-    """Each kernel at the shapes of each driven path (S = 1, m = n = 801;
+    """Each kernel at the shapes of the one-slab paths (S = 1, m = n = 801;
     r = 1 for ``solve``, r = 2 for ``solve_batched``) on the solve's own pivot
     planes and right-hand sides: kernel against plain version, their times,
-    the bound, and a loop of library bf16 matrix products over the same
-    planes as a yardstick.  ``path_counts[r]`` holds the launch counts read
-    after the path with r right-hand sides."""
+    the bound, and the library yardstick.  ``path_counts[r]`` holds the launch
+    counts read after the path with r right-hand sides."""
     pc = problem.precond
     fac = pc.slabs.pfac
-    dev = fac.lband.device
     m, n, ld = fac.m, fac.n, fac.ld
-    s_idx = torch.zeros(1, dtype=torch.int32, device=dev)
+    s_idx = fac.slab_ids
     dense_re = tk.dense_planes(fac.cinv_t_re[0])       # (m, ld, ld) copies for
     dense_im = tk.dense_planes(fac.cinv_t_im[0])       # the library yardstick
     kernels = []
@@ -282,22 +369,7 @@ def phase_kernel_times(problem, path_counts: dict) -> list:
         b = pc.a_s.matvec(rhs.T.contiguous()).reshape(1, m, n, r)
         b4 = tk._to_rows_b(fac, b)
         y4 = tk.forward_substitution(fac, s_idx, b4)
-
-        line_bytes = 2 * ld * ld * 2 + 2 * 3 * ld * 4 + 2 * (2 * r * ld * 4)
-        line_flops = 2 * (2 * (2 * r) * ld * ld)
-        bytes_ms = 1e3 * (m * line_bytes + 4) / PEAK_BYTES_PER_S
-        flops_ms = 1e3 * m * line_flops / PEAK_F32_FLOPS
-        bound_ms = max(bytes_ms, flops_ms)
-        bound_by = "bytes" if bytes_ms >= flops_ms else "operations"
-
-        rows_bf16 = b4[0, 0].to(torch.bfloat16)
-
-        def library_loop():
-            for j in range(m):
-                torch.matmul(rows_bf16, dense_re[j])
-                torch.matmul(rows_bf16, dense_im[j])
-
-        library_ms = time_ms(library_loop, 2)
+        library_ms = library_pass_ms(b4[0, 0], dense_re, dense_im, range(m))
         runs = {
             "thomas_forward": (
                 lambda: tk.forward_substitution(fac, s_idx, b4),
@@ -309,17 +381,135 @@ def phase_kernel_times(problem, path_counts: dict) -> list:
             ),
         }
         for name, (kernel, plain) in runs.items():
-            abs_err, err = rel_err(kernel(), plain())
-            check(err <= KERNEL_TOL,
-                  f"{name} at the shape of {path} (r={r}) within {KERNEL_TOL} ({err})")
-            kernels.append(dict(
-                name=f"{name}_r{r}", **KERNEL_INFO[name], path=path,
-                launches=path_counts[r][name],
-                max_abs_err=abs_err, max_rel_err=err, tolerance_rel=KERNEL_TOL,
-                ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                shape=dict(S=1, m=m, n=n, ld=ld, r=r),
-            ))
+            kernels.append(kernel_entry(
+                name, r, path, path_counts[r][name], kernel, plain,
+                pass_bound(m, ld, r, stacks=2), library_ms,
+                dict(B=1, S=1, m=m, n=n, ld=ld, r=r)))
+    return kernels
+
+
+def phase_sweeps(problem) -> dict:
+    """One Gauss-Seidel and one block-Jacobi sweep over the 16 slabs at full
+    width on the solve's own right-hand side.  The Jacobi sweep is the path
+    that runs the plain forward kernel at one batch row per slab."""
+    pc = problem.precond
+    b = pc.a_s.matvec(plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0])
+    reset_counts()
+    u_gs = sweeps.gs_sweep(pc.slabs, b)
+    torch.cuda.synchronize()
+    counts_gs = read_counts()
+    reset_counts()
+    u_j = sweeps.jacobi_sweep(pc.slabs, b)
+    torch.cuda.synchronize()
+    counts_j = read_counts()
+    res = {}
+    for name, u in (("gs_sweep", u_gs), ("jacobi_sweep", u_j)):
+        check(bool(torch.isfinite(torch.view_as_real(u)).all()), f"{name} output is finite")
+        res[name] = float(torch.linalg.vector_norm(pc.msp.matvec(u) - b)
+                          / torch.linalg.vector_norm(b))
+    emit("sweeps", n_subdomains=pc.slabs.n_subs, m1_max=pc.slabs.m1_max,
+         trace_tail=pc.slabs.trace_tail, residual_of_msp=res,
+         gs_sweep_ms=time_ms(lambda: sweeps.gs_sweep(pc.slabs, b), 3),
+         jacobi_sweep_ms=time_ms(lambda: sweeps.jacobi_sweep(pc.slabs, b), 3),
+         launches=dict(gs_sweep=counts_gs, jacobi_sweep=counts_j))
+    check(all(c > 0 for c in counts_j.values()), f"jacobi_sweep runs all three kernels ({counts_j})")
+    return counts_j
+
+
+def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) -> list:
+    """Each kernel at the shapes of the 16-slab sweep paths, on the solve's own
+    planes: one batch row, a slab picked among 16, m = m1_max lines; the cached
+    forward pass in full and resumed at ``m - trace_tail``; the backward pass
+    in full and truncated to ``trace_tail``; r = 1 for ``solve``, r = 2 for
+    ``solve_batched``.  Then the batched pair at one batch row per slab
+    (``jacobi_sweep``).  Also reports whether a resumed solve equals the full
+    solve of the same right-hand side bit for bit."""
+    pc = problem.precond
+    slabs = pc.slabs
+    fac = slabs.pfac
+    S, m, n, ld, tail = fac.n_slabs, fac.m, fac.n, fac.ld, slabs.trace_tail
+    j0 = m - tail
+    slab = S // 2                                       # an inner slab
+    s_idx = fac.slab_ids[slab : slab + 1]
+    dense_re = tk.dense_planes(fac.cinv_t_re[slab])
+    dense_im = tk.dense_planes(fac.cinv_t_im[slab])
+    kernels, resume_checks = [], []
+    for r, path in ((1, "sweep_solve"), (2, "sweep_solve_batched")):
+        rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:r]))     # (r, N)
+        cols = rhs.T.contiguous() if r > 1 else rhs[0]
+        part = subdomain.partition_source(slabs, pc.a_s.matvec(cols))        # (S, m, n[, r])
+        b4 = tk._to_rows_b(fac, part[slab : slab + 1])
+        y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4)
+        # the up pass's right-hand side: new rows on the last `tail` lines
+        b4_up = b4.clone()
+        b4_up[:, j0:] += y4[:, j0:].flip(1)
+        t_init = t4[:, j0 - 1].contiguous()
+        shape = dict(B=1, S=S, slab=slab, m=m, n=n, ld=ld, r=r)
+        lib_full = library_pass_ms(b4[0, 0], dense_re, dense_im, range(m))
+        lib_tail = library_pass_ms(b4[0, 0], dense_re, dense_im, range(j0, m))
+        counts = path_counts[r]
+
+        # a resumed pass writes lines >= j0 of the stacks it is handed
+        out_k, out_p = (y4.clone(), t4.clone()), (y4.clone(), t4.clone())
+
+        def resumed(fn, out):
+            y, t = fn(fac, s_idx, b4_up, t_init, start=j0, out=out)
+            return y[:, j0:], t[:, j0:]
+
+        zero = torch.zeros_like(t_init)
+        replaces_bwd = SWEEP_BACKWARD_R1 if r == 1 else None
+        kernels += [
+            kernel_entry(
+                "thomas_forward_cached", r, path, counts["thomas_forward_cached"],
+                lambda: tk.forward_substitution_cached(fac, s_idx, b4),
+                lambda: tk.forward_substitution_cached_plain(fac, s_idx, b4, zero),
+                pass_bound(m, ld, r, stacks=3), lib_full, shape),
+            kernel_entry(
+                "thomas_forward_cached", r, path, counts["thomas_forward_cached"],
+                lambda: resumed(tk.forward_substitution_cached, out_k),
+                lambda: resumed(tk.forward_substitution_cached_plain, out_p),
+                pass_bound(tail, ld, r, stacks=3), lib_tail, dict(shape, start=j0),
+                variant="_resumed"),
+            kernel_entry(
+                "thomas_backward", r, path, counts["thomas_backward"],
+                lambda: tk.backward_substitution(fac, s_idx, y4),
+                lambda: tk.backward_substitution_plain(fac, s_idx, y4),
+                pass_bound(m, ld, r, stacks=2), lib_full, shape,
+                variant="_slab", replaces=replaces_bwd),
+            kernel_entry(
+                "thomas_backward", r, path, counts["thomas_backward"],
+                lambda: tk.backward_substitution(fac, s_idx, y4, tail=tail),
+                lambda: tk.backward_substitution_plain(fac, s_idx, y4, tail=tail),
+                pass_bound(tail, ld, r, stacks=2), lib_tail, dict(shape, tail=tail),
+                variant="_slab_tail", replaces=replaces_bwd),
+        ]
+        # solve_resume against solve on the same right-hand side
+        rhs_slab = part[slab]
+        _, y_c, t_c = tk.solve_cached(fac, slab, rhs_slab, tail)
+        rhs_up = rhs_slab.clone()
+        rhs_up[j0:] += rhs_slab[:tail].flip(0) + 1.0
+        x_res = tk.solve_resume(fac, slab, rhs_up, y_c, t_c, tail)
+        x_full = tk.solve(fac, slab, rhs_up)
+        _, err = rel_err(x_res, x_full)
+        resume_checks.append(dict(r=r, bit_equal=bool(torch.equal(x_res, x_full)), rel_err=err))
+        check(err <= KERNEL_TOL, f"solve_resume within {KERNEL_TOL} of solve (r={r}: {err})")
+    emit("resume_equals_full_solve", slab=slab, resume=tail, cases=resume_checks)
+
+    # the batched pair with one batch row per slab (jacobi_sweep's solve_all)
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
+    b4 = tk._to_rows_b(fac, subdomain.partition_source(slabs, pc.a_s.matvec(rhs)))
+    y4 = tk.forward_substitution(fac, fac.slab_ids, b4)
+    shape = dict(B=S, S=S, m=m, n=n, ld=ld, r=1)
+    bound = pass_bound(S * m, ld, 1, stacks=2)
+    runs = {
+        "thomas_forward": (lambda: tk.forward_substitution(fac, fac.slab_ids, b4),
+                           lambda: tk.forward_substitution_plain(fac, fac.slab_ids, b4)),
+        "thomas_backward": (lambda: tk.backward_substitution(fac, fac.slab_ids, y4),
+                            lambda: tk.backward_substitution_plain(fac, fac.slab_ids, y4)),
+    }
+    for name, (kernel, plain) in runs.items():
+        kernels.append(kernel_entry(name, 1, "jacobi_sweep", jacobi_counts[name], kernel, plain,
+                                    bound, None, shape, variant="_all_slabs"))
     return kernels
 
 
@@ -332,10 +522,26 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     phase_kernels(device)
-    phase_small_reference(device)
-    problem, counts = phase_solve(device)
-    counts_batched = phase_solve_batched(problem)
+    phase_small_reference(device, n_subdomains=1, double_sweep=False, rtol=1e-6)
+    # on a 41 x 41 grid the complex64 double-sweep solve reaches the float32
+    # rounding floor of an apply at 1e-6: its last iteration would be noise
+    phase_small_reference(device, n_subdomains=3, double_sweep=True, rtol=1e-5)
+
+    # path 1: one slab, the sweep is the exact solve of the sparsified system
+    pair = ("thomas_forward", "thomas_backward")
+    problem, counts = phase_solve(device, "solve", 1, False, pair, repeats=3)
+    counts_batched = phase_solve_batched(problem, "solve_batched", pair, repeats=3)
     kernels = phase_kernel_times(problem, {1: counts, 2: counts_batched})
+    del problem
+    torch.cuda.empty_cache()
+
+    # path 2: 16 slabs, alternating bi-directional sweep
+    pair = ("thomas_forward_cached", "thomas_backward")
+    problem, counts = phase_solve(device, "sweep_solve", 16, True, pair, repeats=3)
+    counts_batched = phase_solve_batched(problem, "sweep_solve_batched", pair, repeats=3)
+    jacobi_counts = phase_sweeps(problem)
+    kernels += phase_sweep_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts)
+
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

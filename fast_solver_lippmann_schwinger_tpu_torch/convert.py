@@ -25,6 +25,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import (
     to_tensor,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import SlabSystem
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import DoubleSweepPreconditioner
 from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import LippmannSchwinger2D
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import BlockTridiagFactorization
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
@@ -115,13 +116,23 @@ def thomas_factorization(cinv_t_re, cinv_t_im, lband, uband, scale, n,
     )
 
 
-def slab_system(fields: dict, fac: BlockTridiagFactorization,
+def slab_system(fields: dict, fac: BlockTridiagFactorization | None = None,
                 pfac: ThomasFactorization | None = None,
                 device=None) -> SlabSystem:
     """``SlabSystem`` from a dict of the JAX slab system's fields as numpy
-    arrays / Python scalars (every dataclass field but ``fac`` and ``pfac``,
-    which are converted separately and passed in)."""
+    arrays / Python scalars.
+
+    ``fac`` and ``pfac`` are either converted separately and passed in, or
+    ride in the dict: ``fields["fac"]`` a dict of the arguments of
+    :func:`block_tridiag_factorization` (``cinv``, ``lband``, ``uband``) and
+    ``fields["pfac"]`` ``None`` or a dict of those of
+    :func:`thomas_factorization`.
+    """
     device = resolve_device(device)
+    if fac is None:
+        fac = block_tridiag_factorization(**fields["fac"], device=device)
+        if fields.get("pfac") is not None:
+            pfac = thomas_factorization(**fields["pfac"], device=device)
     dtype = _complex_dtype(fields["h_stencils"])
     out = {}
     for f in dataclasses.fields(SlabSystem):
@@ -137,3 +148,17 @@ def slab_system(fields: dict, fac: BlockTridiagFactorization,
         else:
             out[f.name] = torch.tensor(np.asarray(v, np.int64), device=device)
     return SlabSystem(fac=fac, pfac=pfac, **out)
+
+
+def double_sweep_preconditioner(slabs: dict, slabs_t: dict, msp_values, a_s_values,
+                                device=None) -> DoubleSweepPreconditioner:
+    """``DoubleSweepPreconditioner`` from the JAX one's parts: the two slab
+    systems as dicts for :func:`slab_system` (with their ``fac`` and ``pfac``
+    entries) and the (m, n, 3, 3) stencil fields of ``msp`` and ``a_s``."""
+    device = resolve_device(device)
+    return DoubleSweepPreconditioner(
+        slabs=slab_system(slabs, device=device),
+        slabs_t=slab_system(slabs_t, device=device),
+        msp=stencil_matrix_2d(msp_values, device=device),
+        a_s=stencil_matrix_2d(a_s_values, device=device),
+    )

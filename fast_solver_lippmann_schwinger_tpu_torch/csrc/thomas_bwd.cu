@@ -7,7 +7,7 @@
 //     x_j = C_j^{-1} (y_j - U_j . x_{j+1}),     x_m = 0,
 //
 // where m_eff = m for a full pass or `tail` when only the last lines are
-// wanted.  The kernel is thomas::pass_kernel<R, true>, the backward
+// wanted.  The kernel is thomas::pass_kernel<R, true, false>, the backward
 // instantiation of the body in thomas_line.cuh, which also describes the
 // design (one cooperative launch per pass, grid barrier per line, 8-lane
 // tiles, staged plane columns), the limits (r <= 2) and the bound.  The carry needs no scratch here: x_{j+1} is
@@ -35,6 +35,7 @@ extern "C" int thomas_backward(
   a.cre = cre;
   a.cim = cim;
   a.s_idx = s_idx;
+  a.t_init = nullptr;
   a.kept = nullptr;
   a.out = x;
   a.batch = batch;

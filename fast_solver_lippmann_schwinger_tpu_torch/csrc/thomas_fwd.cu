@@ -6,7 +6,7 @@
 //
 //     y_j = b_j - L_j . t_{j-1},     t_j = C_j^{-1} y_j,     t_{start-1} = 0,
 //
-// keeping the y stack.  The kernel is thomas::pass_kernel<R, false>, the
+// keeping the y stack.  The kernel is thomas::pass_kernel<R, false, false>, the
 // forward instantiation of the body in thomas_line.cuh, which also describes
 // the design (one cooperative launch per pass, grid barrier per line, 8-lane
 // tiles, staged plane columns), the limits (r <= 2) and the bound.  The carry t lives in a two-slot
@@ -35,6 +35,7 @@ extern "C" int thomas_forward(
   a.cre = cre;
   a.cim = cim;
   a.s_idx = s_idx;
+  a.t_init = nullptr;
   a.kept = y;
   a.out = carry;
   a.batch = batch;

@@ -1,17 +1,25 @@
-// Block-Thomas substitution pass: the body of the forward and the backward
-// kernel, pass_kernel<R, false> and pass_kernel<R, true>, which thomas_fwd.cu
-// and thomas_bwd.cu instantiate and launch.  The two directions differ only
-// in the order of the lines and in where the carry lives, so they share this
-// one body; the direction is a template parameter, so that each is a kernel
-// of its own (and has its own name in a profiler's trace).
+// Block-Thomas substitution pass: the body of the three substitution kernels
+//
+//     pass_kernel<R, false, false>   forward pass           thomas_fwd.cu
+//     pass_kernel<R, true,  false>   backward pass          thomas_bwd.cu
+//     pass_kernel<R, false, true>    cached forward pass    thomas_fwd_cached.cu
+//
+// which those files instantiate and launch.  The passes differ only in the
+// order of the lines and in where the carry comes from and goes to, so they
+// share this one body; direction and caching are template parameters, so that
+// each is a kernel of its own (and has its own name in a profiler's trace).
 //
 // Per line j and batch row b (slab s = s_idx[b]) a pass computes
 //
 //     w = rhs_j - band_j . prev          complex 3-tap band, re/im rows
 //     t = C_j^{-1} w                     [Wr; Wi] @ Cinv^T, bf16 planes
 //
-// where prev is the t of the line before (forward: j-1, backward: j+1) and
-// zero at the pass's first line.  Numerics contract of the JAX package's
+// where prev is the t of the line before (forward: j-1, backward: j+1).  At
+// the pass's first line prev is zero, except in the cached forward pass,
+// which takes it from the caller (t_init) and so can resume a pass that an
+// earlier launch left off.  The cached pass also keeps every t_j: its t stack
+// is both an output and the place the carry lives in, as the x stack is for
+// the backward pass.  Numerics contract of the JAX package's
 // Pallas kernels (sparse/pallas_thomas.py: _band_apply_multi,
 // _pivot_dot_multi): bf16 pivot planes widened to f32, f32 multiply-add and
 // accumulation, f32 carries and bands, complex arithmetic as separate re/im
@@ -92,10 +100,14 @@ struct PassArgs {
   const uint16_t* cre;     // (S, m, ld/8, ld, 8) bf16 bits, tile-major
   const uint16_t* cim;     //   transposed pivot, real and imaginary plane
   const int* s_idx;        // (B,) slab of each batch row
-  float* kept;             // forward: y stack (B, m, 2r, ld), w is kept here;
+  const float* t_init;     // cached forward: (B, 2r, ld) carry into line `first`;
+                           //   else unused
+  float* kept;             // forward, cached forward: y stack (B, m, 2r, ld),
+                           //   w is kept here (lines of the pass only);
                            //   backward: unused
   float* out;              // forward: carry scratch (2, B, 2r, ld);
-                           //   backward: x stack (B, count, 2r, ld)
+                           //   cached forward: t stack (B, m, 2r, ld), lines of
+                           //   the pass only; backward: x stack (B, count, 2r, ld)
   int batch, m, n, ld;
   int first;               // first line of the pass (zero carry before it)
   int count;               // number of lines: first, first+1, ... in a forward
@@ -149,8 +161,9 @@ __host__ __device__ constexpr size_t smem_bytes(int n, int ld) {
                           kWarps * 2 * R * kLanes);
 }
 
-// R = number of right-hand sides r (rows are 2R); kBackward = bottom-up pass.
-template <int R, bool kBackward>
+// R = number of right-hand sides r (rows are 2R); kBackward = bottom-up pass;
+// kCached = forward pass that starts from t_init and keeps the t stack.
+template <int R, bool kBackward, bool kCached>
 __global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int n = a.n, ld = a.ld, ldp = ld + 8;
@@ -205,13 +218,17 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
     const bool more = q + 1 < nitem;
     if (more) next = item_at<kBackward>(a, q + 1, tiles_blk, tiles_row);
     const int j = it.j, b = it.b, o0 = it.o0;
-    const bool carry_in = j != a.first && !kNoBandStep;
+    const bool carry_in = (kCached || j != a.first) && !kNoBandStep;
     const float* prev;
     float* t_out;
     if (kBackward) {         // x stack holds lines first-count+1 .. first
       float* x = a.out + ((size_t)b * a.count + (j - (a.first - a.count + 1))) * row;
       t_out = x;
       prev = x + row;
+    } else if (kCached) {    // t stack holds lines first .. m-1; t_init before them
+      float* t = a.out + ((size_t)b * a.m + j) * row;
+      t_out = t;
+      prev = j == a.first ? a.t_init + (size_t)b * row : t - row;
     } else {                 // two-slot ping-pong carry
       t_out = a.out + ((size_t)(j & 1) * a.batch + b) * row;
       prev = a.out + ((size_t)((j - 1) & 1) * a.batch + b) * row;
@@ -355,10 +372,12 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
   }
 }
 
-template <int R, bool kBackward>
+template <int R, bool kBackward, bool kCached>
 inline cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
-  auto kernel = pass_kernel<R, kBackward>;
+  auto kernel = pass_kernel<R, kBackward, kCached>;
   const size_t smem = smem_bytes<R>(a.n, a.ld);
+  // These queries run on every launch; keeping their results per shape did
+  // not change the host's time per launch on an H100 (PERF.md).
   int dev = 0, sms = 0, per_sm = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -380,13 +399,13 @@ inline cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
                                      params, smem, stream);
 }
 
-template <bool kBackward>
+template <bool kBackward, bool kCached = false>
 inline cudaError_t run_pass(int r, const PassArgs& a, cudaStream_t stream) {
   if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 ||
       r < 1 || r > kMaxRhs || a.count < 1 || a.first < 0 || a.first >= a.m)
     return cudaErrorInvalidValue;
-  return r == 1 ? launch_pass<1, kBackward>(a, stream)
-                : launch_pass<2, kBackward>(a, stream);
+  return r == 1 ? launch_pass<1, kBackward, kCached>(a, stream)
+                : launch_pass<2, kBackward, kCached>(a, stream);
 }
 
 }  // namespace thomas

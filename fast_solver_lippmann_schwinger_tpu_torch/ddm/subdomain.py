@@ -20,6 +20,8 @@ package's ``ddm/subdomain.py``; the host numpy part carries over whole.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -96,6 +98,18 @@ def absorbing_nu(nu_slab: np.ndarray, y1: np.ndarray, h: float, k: float,
     return filt[:, None] * (nu_slab - (shift_factor * k) * 1j * shift[:, None])
 
 
+class SlabTraceLines(NamedTuple):
+    """Host copies of a slab system's per-slab trace lines and flags, as
+    tuples of Python ints and bools indexed by slab."""
+
+    l0: tuple
+    l1: tuple
+    ln: tuple
+    lnp: tuple
+    has_top: tuple
+    has_bot: tuple
+
+
 @dataclasses.dataclass(frozen=True)
 class SlabSystem:
     """All slabs of one sweep direction, batched and end-padded."""
@@ -135,6 +149,15 @@ class SlabSystem:
     # optional kernel layout of ``fac`` (sparse/thomas_kernels.py); when
     # present the sweeps run the bf16 substitution kernels
     pfac: thomas_kernels.ThomasFactorization | None = None
+
+    @functools.cached_property
+    def host(self) -> SlabTraceLines:
+        """The trace lines and flags on the host, read back once.  The sweeps
+        walk the slabs in a Python loop; indexing or branching on the device
+        tensors there would stall the stream once per slab and trace."""
+        return SlabTraceLines(*(
+            tuple(getattr(self, name).tolist()) for name in SlabTraceLines._fields
+        ))
 
 
 def attach_pallas(slabs: SlabSystem, storage: str = "bf16",
@@ -188,7 +211,8 @@ def build_slab_system(
     if pivot_dtype not in ("full", "pallas"):
         raise NotImplementedError(
             f"pivot_dtype={pivot_dtype!r} is not ported yet (ROADMAP.md, "
-            "Queue 1 slices 4 and 7, Queue 2 for the int8 kernels)"
+            "Queue 1: the rest of the multi-slab slice and the banded formats; "
+            "Queue 2 for the int8 kernels)"
         )
     if cache_dir is not None:
         raise NotImplementedError(

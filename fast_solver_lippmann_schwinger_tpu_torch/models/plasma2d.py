@@ -1,12 +1,14 @@
-"""2D plasma scattering on the one-slab exact-solve path.
+"""2D plasma scattering with the alternating bi-directional sweep.
 
 Counterpart of the JAX package's ``models/plasma2d.py``, the equivalent of
 the reference's headline example script ``tests/plasma_example.jl`` (h = 1/800,
-k = 800, npml = 10, Greengard-Vico operator), parameterized so tests run it
-scaled down.  Ported so far: ``n_subdomains=1, double_sweep=False``, where
-the preconditioner is the exact block-Thomas solve of the sparsified system,
-with ``pivot_dtype="pallas"`` (bf16 pivot planes through the CUDA
-substitution kernels) or ``"full"`` (dense pivots in the working dtype).
+k = 800, 16 slabs, npml = 10, Greengard-Vico operator,
+``doublePreconditioner`` with ``maxIter = 0``), parameterized so tests run it
+scaled down.  ``double_sweep=False`` gives the single-direction sweep, which
+with ``n_subdomains=1`` is the exact block-Thomas solve of the sparsified
+system.  Pivots are ``"pallas"`` (bf16 pivot planes through the CUDA
+substitution kernels) or ``"full"`` (dense pivots in the working dtype); the
+other pivot formats of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -23,7 +25,10 @@ from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import (
     attach_pallas,
     build_slab_system,
 )
-from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import SingleSweepPreconditioner
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import (
+    DoubleSweepPreconditioner,
+    SingleSweepPreconditioner,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.models import media
 from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import (
     LippmannSchwinger2D,
@@ -38,41 +43,50 @@ class Plasma2DProblem:
     grid: Grid2D
     k: float
     op: LippmannSchwinger2D
-    precond: SingleSweepPreconditioner
+    precond: SingleSweepPreconditioner | DoubleSweepPreconditioner
     nu: np.ndarray
     # wall seconds of each setup phase (symbol, stencils, factorization,
-    # packing), synchronised on the device at each boundary
+    # packing, and with the double sweep factorization_t and packing_t of the
+    # transposed slab system), synchronised on the device at each boundary
     setup_seconds: dict = dataclasses.field(default_factory=dict)
 
 
 def build_problem(
     h: float = 1.0 / 800.0,
-    n_subdomains: int = 1,
+    n_subdomains: int = 16,
     npml: int = 10,
     dtype: torch.dtype = torch.complex64,
-    double_sweep: bool = False,
+    double_sweep: bool = True,
     pivot_dtype: str = "pallas",
+    pivot_dtype_t: str | None = None,
     use_pallas: bool = False,
     device=None,
 ) -> Plasma2DProblem:
     """Set the plasma problem up on ``device`` (the CUDA card when ``None``;
     raises without one).
 
-    ``double_sweep=True`` (the alternating bi-directional sweep) and
-    ``use_pallas=True`` (the stencil matvec kernel) are not ported yet.
+    ``double_sweep=False`` uses the single-direction GS sweep composite
+    (reference ``Preconditioner``/``GSPreconditioner`` family): half the
+    factorization memory, a few more GMRES iterations.  ``pivot_dtype_t`` sets
+    a different pivot storage for the transposed (x-direction) sweep; ``None``
+    means ``pivot_dtype``.  ``use_pallas=True`` (the stencil matvec kernel) is
+    not ported yet.
+
+    Each direction is factored with dense pivots in the working dtype first
+    and, for ``"pallas"``, packed into bf16 planes right away, so that the
+    dense pivots of one direction are freed before the other is factored.
     """
-    if double_sweep:
-        raise NotImplementedError(
-            "the double sweep is not ported yet (ROADMAP.md, Queue 1, slice 4)"
-        )
     if use_pallas:
         raise NotImplementedError(
             "the stencil matvec kernel is not ported yet (ROADMAP.md, Queue 2)"
         )
-    if pivot_dtype not in ("full", "pallas"):
-        raise NotImplementedError(
-            f"pivot_dtype={pivot_dtype!r} is not ported yet (ROADMAP.md)"
-        )
+    if pivot_dtype_t is None:
+        pivot_dtype_t = pivot_dtype
+    for mode in (pivot_dtype, pivot_dtype_t):
+        if mode not in ("full", "pallas"):
+            raise NotImplementedError(
+                f"pivot_dtype={mode!r} is not ported yet (ROADMAP.md, Queue 1)"
+            )
     device = resolve_device(device)
 
     def lap(t0):
@@ -99,19 +113,33 @@ def build_problem(
     )
     seconds["stencils"] = lap(t0)
 
-    t0 = time.perf_counter()
-    slabs = build_slab_system(
-        a_st, ag_st, nu, grid.x, grid.y, h, k, n_subdomains, npml=npml,
-        a_host=a_np, ag_host=ag_np, pivot_dtype="full", device=device,
-    )
-    seconds["factorization"] = lap(t0)
+    def slab_system(a, ag, nu_dir, x, y, a_host, ag_host, mode, suffix):
+        t0 = time.perf_counter()
+        slabs = build_slab_system(
+            a, ag, nu_dir, x, y, h, k, n_subdomains, npml=npml,
+            a_host=a_host, ag_host=ag_host, pivot_dtype="full", device=device,
+        )
+        seconds["factorization" + suffix] = lap(t0)
+        t0 = time.perf_counter()
+        if mode == "pallas":
+            slabs = attach_pallas(slabs, keep_dense=False)
+        seconds["packing" + suffix] = lap(t0)
+        return slabs
 
-    t0 = time.perf_counter()
-    if pivot_dtype == "pallas":
-        slabs = attach_pallas(slabs, keep_dense=False)
-    seconds["packing"] = lap(t0)
-
-    precond = SingleSweepPreconditioner(slabs=slabs, a_s=a_st)
+    slabs = slab_system(a_st, ag_st, nu, grid.x, grid.y, a_np, ag_np, pivot_dtype, "")
+    if not double_sweep:
+        precond = SingleSweepPreconditioner(slabs=slabs, a_s=a_st)
+    else:
+        # the x-direction sweep: the same construction on the transposed
+        # stencil fields and medium (tests/plasma_example.jl:103-114)
+        slabs_t = slab_system(
+            a_st.transpose(), ag_st.transpose(), nu.T, grid.y, grid.x,
+            a_np.transpose(1, 0, 3, 2), ag_np.transpose(1, 0, 3, 2), pivot_dtype_t, "_t",
+        )
+        precond = DoubleSweepPreconditioner(
+            slabs=slabs, slabs_t=slabs_t,
+            msp=stencils.build_msp_2d(a_st, ag_st, nu, k), a_s=a_st,
+        )
     return Plasma2DProblem(grid=grid, k=k, op=op, precond=precond, nu=nu,
                            setup_seconds=seconds)
 
@@ -151,7 +179,7 @@ def solve_batched(problem: Plasma2DProblem,
     The reference loops directions serially
     (``tests/plasma_example.jl:160,172``).  The substitution passes are
     memory bound on streaming the per-line pivot inverses, and the batched
-    preconditioner (``SingleSweepPreconditioner.apply_batch``) carries all R
+    preconditioner (``apply_batch``) carries all R
     right-hand sides through each pass at once: every pivot plane is read
     once per pass for the WHOLE batch instead of once per direction.
 

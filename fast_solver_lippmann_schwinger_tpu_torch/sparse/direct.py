@@ -11,8 +11,9 @@ dense full-precision factorization.
 The factorization is a Python loop over grid lines whose per-step work is one
 dense n x n inversion (``torch.linalg.inv``; a library call in the JAX
 package too) and runs once at setup.  The substitution loops here are the
-full-precision oracle; the hot path runs the bf16 kernels of
-``sparse/thomas_kernels.py``.  Every function takes optional leading batch
+full-precision oracle and the ``pivot_dtype="full"`` path of the sweeps (with
+the tail, support, cached and resumed solves that the multi-slab sweeps need);
+the hot path runs the bf16 kernels of ``sparse/thomas_kernels.py``.  Every function takes optional leading batch
 axes on the factorization (all slabs of a sweep are factored at once).
 """
 
@@ -56,10 +57,10 @@ def band_matvec(band: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """
     n = v.shape[0]
     vp = F.pad(v, (0, 0) * (v.ndim - 1) + (1, 1))
-    out = torch.zeros_like(v)
-    for d in range(3):
-        out = out + band[:, d].reshape((n,) + (1,) * (v.ndim - 1)) * vp[d : d + n]
-    return out
+    # windows[i, ..., d] = v[i + d - 1]: one product and one sum over the
+    # three taps (four device calls in all; the sweeps call this per trace)
+    windows = vp.unfold(0, 3, 1)
+    return (band.reshape((n,) + (1,) * (v.ndim - 1) + (3,)) * windows).sum(-1)
 
 
 def _band_mul_right(mat: torch.Tensor, band: torch.Tensor) -> torch.Tensor:
@@ -141,19 +142,22 @@ def _as_line_stack(fac, b):
     return b
 
 
-def _fwd_scan(fac, bg, start: int = 0):
+def _fwd_scan(fac, bg, start: int = 0, t_start=None, collect_t: bool = False):
     """Forward substitution ``y_j = b_j - L_j t_{j-1}``, ``t_j = C_j^{-1} y_j``
-    over lines ``start..m-1`` with a zero carry at ``start``; returns the y
-    stack over those lines."""
+    over lines ``start..m-1`` from the carry ``t_start`` (zero when ``None``);
+    returns ``(y stack, t stack or None)`` over those lines."""
     m = fac.lband.shape[0]
     dtype = fac.lband.dtype
-    t_prev = torch.zeros(bg.shape[1:], dtype=dtype, device=bg.device)
-    ys = []
+    t_prev = (torch.zeros(bg.shape[1:], dtype=dtype, device=bg.device)
+              if t_start is None else t_start.to(dtype))
+    ys, ts = [], []
     for j in range(start, m):
         y_j = bg[j].to(dtype) - band_matvec(fac.lband[j], t_prev)
         t_prev = fac.cinv[j] @ y_j
         ys.append(y_j)
-    return torch.stack(ys, dim=0)
+        if collect_t:
+            ts.append(t_prev)
+    return torch.stack(ys, dim=0), (torch.stack(ts, dim=0) if collect_t else None)
 
 
 def _bwd_scan(fac, y, tail: int = 0):
@@ -185,15 +189,66 @@ def block_thomas_solve(fac: BlockTridiagFactorization, b: torch.Tensor,
     ``start`` asserts that the rhs is zero on lines ``< start``: the forward
     substitution then has ``y_j = t_j = 0`` there and begins at ``start`` with
     a zero carry (exact).  ``tail > 0`` materializes x only on the last
-    ``tail`` lines (zeros above).  Together they are the JAX package's
-    ``block_thomas_solve_support``.
+    ``tail`` lines (zeros above).  The shared body of
+    :func:`block_thomas_solve_tail` and :func:`block_thomas_solve_support`.
     """
     m = fac.lband.shape[0]
     bg = _as_line_stack(fac, b)
     if start <= 0 or start >= m:
-        y = _fwd_scan(fac, bg)
+        y, _ = _fwd_scan(fac, bg)
     else:
-        y_new = _fwd_scan(fac, bg, start=start)
+        y_new, _ = _fwd_scan(fac, bg, start=start)
         head = y_new.new_zeros((start,) + tuple(y_new.shape[1:]))
         y = torch.cat([head, y_new], dim=0)
     return _bwd_scan(fac, y, tail).reshape(b.shape)
+
+
+def block_thomas_solve_tail(fac: BlockTridiagFactorization, b: torch.Tensor,
+                            tail: int) -> torch.Tensor:
+    """Solve ``S x = b`` materializing x only on the LAST ``tail`` lines.
+
+    Used by the downward sweeps, which consume only the bottom-interface
+    traces of each local solve: the backward pass shrinks from m to about
+    2*npml steps (the forward pass still runs over all lines).
+    """
+    return block_thomas_solve(fac, b, tail=tail)
+
+
+def block_thomas_solve_support(fac: BlockTridiagFactorization, b: torch.Tensor,
+                               start: int = 0, tail: int = 0) -> torch.Tensor:
+    """Solve ``S x = b`` for a rhs KNOWN to be zero on lines ``< start``
+    (exact head start); ``tail`` truncates the backward pass as in
+    :func:`block_thomas_solve_tail`."""
+    return block_thomas_solve(fac, b, start=start, tail=tail)
+
+
+def block_thomas_solve_cached(fac: BlockTridiagFactorization, b: torch.Tensor,
+                              tail: int = 0):
+    """Tail-truncated solve that also returns the forward-pass stacks
+    ``(y, t)``, so that a later solve whose rhs differs only on the last lines
+    can resume the forward substitution (:func:`block_thomas_solve_resume`)."""
+    bg = _as_line_stack(fac, b)
+    y, t = _fwd_scan(fac, bg, collect_t=True)
+    return _bwd_scan(fac, y, tail).reshape(b.shape), y, t
+
+
+def block_thomas_solve_resume(fac: BlockTridiagFactorization, b: torch.Tensor,
+                              y_cached: torch.Tensor, t_cached: torch.Tensor,
+                              resume: int) -> torch.Tensor:
+    """Solve ``S x = b`` where ``b`` differs from a previously cached solve's
+    rhs only on the last ``resume`` lines.
+
+    The forward substitution restarts at line ``m - resume`` from the cached
+    carry, skipping about ``m - resume`` pivot applications; the result is
+    bit-identical to a full solve.  This is the up-sweep fast path: the upward
+    Gauss-Seidel rhs is the downward rhs plus interface traces injected at the
+    two bottom trace lines.
+    """
+    m = fac.lband.shape[0]
+    if resume <= 0 or resume >= m:
+        return block_thomas_solve(fac, b)
+    bg = _as_line_stack(fac, b)
+    j0 = m - resume
+    y_new, _ = _fwd_scan(fac, bg, start=j0, t_start=t_cached[j0 - 1])
+    y = torch.cat([y_cached[:j0].to(y_new.dtype), y_new], dim=0)
+    return _bwd_scan(fac, y).reshape(b.shape)

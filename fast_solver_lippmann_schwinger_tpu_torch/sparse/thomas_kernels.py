@@ -1,10 +1,16 @@
 """Block-Thomas substitution on bf16 pivot planes: CUDA kernels + plain twins.
 
-Counterpart of the JAX package's ``sparse/pallas_thomas.py`` for its batched
-multi-RHS pair ``_fwd_b`` / ``_bwd_b`` and their entry point ``solve_all``.
-The two TPU kernels are rewritten by hand for Hopper in CUDA C++
-(``csrc/thomas_fwd.cu``, ``csrc/thomas_bwd.cu``; the shared line routine and
-the design note are in ``csrc/thomas_line.cuh``).
+Counterpart of the JAX package's ``sparse/pallas_thomas.py`` for its dense
+bf16 layout: the batched multi-RHS pair ``_fwd_b`` / ``_bwd_b`` behind
+``solve_all``, and the one-slab kernels ``_fwd`` / ``_bwd`` / ``_fwd_bt``
+behind ``solve``, ``solve_cached``, ``solve_resume`` and ``solve_support``
+(the local solves of the multi-slab sweeps).  The TPU kernels are rewritten by
+hand for Hopper in CUDA C++: ``csrc/thomas_fwd.cu`` (forward pass),
+``csrc/thomas_fwd_cached.cu`` (forward pass that starts from a given carry and
+keeps the t stack: ``_fwd`` and ``_fwd_bt``) and ``csrc/thomas_bwd.cu``
+(backward pass: ``_bwd_b``, and ``_bwd`` at one batch row and one right-hand
+side); the shared line routine and the design note are in
+``csrc/thomas_line.cuh``.
 
 Storage (same numbers as the JAX package): pivot inverses are kept
 TRANSPOSED in bfloat16 real/imag planes, ``Cinv^T[i_in, o_out]``, so the
@@ -40,7 +46,13 @@ MAX_RHS = 2            # right-hand sides per kernel launch (csrc: kMaxRhs)
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _BUILD = Path(__file__).resolve().parents[2] / "build"
-_KERNELS = {"thomas_fwd": "thomas_forward", "thomas_bwd": "thomas_backward"}
+# source name -> (exported launcher, number of pointer arguments before the
+# six ints and the stream)
+_KERNELS = {
+    "thomas_fwd": ("thomas_forward", 7),
+    "thomas_bwd": ("thomas_backward", 6),
+    "thomas_fwd_cached": ("thomas_forward_cached", 8),
+}
 _libs: dict[str, ctypes.CDLL] = {}
 
 
@@ -62,6 +74,15 @@ class ThomasFactorization:
     lband: torch.Tensor       # (S, m, 2, 3, ld) f32 [re, im]
     uband: torch.Tensor       # (S, m, 2, 3, ld) f32
     n: int                    # true line length
+    # (S,) int32 ``arange`` on the factors' device: a one-slab solve passes the
+    # view ``slab_ids[s:s+1]`` to its kernels instead of copying a fresh index
+    # tensor to the card for every local solve of a sweep
+    slab_ids: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.slab_ids is None:
+            object.__setattr__(self, "slab_ids", torch.arange(
+                self.cinv_t_re.shape[0], dtype=torch.int32, device=self.lband.device))
 
     @property
     def n_slabs(self) -> int:
@@ -194,8 +215,8 @@ def _library(name: str) -> ctypes.CDLL:
     if name not in _libs:
         build_kernels()
         lib = ctypes.CDLL(str(_BUILD / f"lib{name}.so"))
-        fn = getattr(lib, _KERNELS[name])
-        n_ptr = 7 if name == "thomas_fwd" else 6
+        symbol, n_ptr = _KERNELS[name]
+        fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
         _libs[name] = lib
@@ -293,6 +314,22 @@ def forward_substitution_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
     return y4
 
 
+def forward_substitution_cached_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
+                                      b4: torch.Tensor, t_init: torch.Tensor,
+                                      start: int = 0, out=None):
+    """Plain version of :func:`forward_substitution_cached`."""
+    s = s_idx.long()
+    y4, t4 = out if out is not None else (torch.zeros_like(b4), torch.zeros_like(b4))
+    t = t_init.clone()
+    t[..., fac.n:] = 0          # padding lanes of the carry count as zero
+    for j in range(start, fac.m):
+        y = b4[:, j] - _band_apply_rows(fac.lband[s, j], t)
+        t = _pivot_dot_rows(y, fac.cinv_t_re[s, j], fac.cinv_t_im[s, j])
+        y4[:, j] = y
+        t4[:, j] = t
+    return y4, t4
+
+
 def backward_substitution_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
                                 y4: torch.Tensor, tail: int = 0) -> torch.Tensor:
     """Plain version of :func:`backward_substitution`."""
@@ -343,6 +380,51 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     return y4
 
 
+def forward_substitution_cached(fac: ThomasFactorization, s_idx: torch.Tensor,
+                                b4: torch.Tensor, t_init: torch.Tensor | None = None,
+                                start: int = 0, out=None):
+    """Batched forward substitution over lines ``start..m-1`` that starts from
+    the carry ``t_init`` (B, 2r, ld) = ``t_{start-1}`` (zero when ``None``) and
+    keeps both stacks: returns ``(y4, t4)``, each (B, m, 2r, ld), with
+    ``t_j = C_j^{-1} y_j``.
+
+    Lines ``< start``: the kernel neither reads nor writes them.  With
+    ``out=(y4, t4)`` (contiguous float32 tensors of ``b4``'s shape) lines
+    ``>= start`` are written IN PLACE into those and lines ``< start`` keep
+    what the caller put there (a resumed pass hands in a copy of the cached y
+    stack); without ``out`` both stacks are new and zero on lines ``< start``.
+    On the card it takes r = 1 or 2."""
+    B, r = _check_rows(fac, s_idx, b4)
+    if not 0 <= start < fac.m:
+        raise ValueError(f"start={start} outside [0, {fac.m})")
+    if t_init is None:
+        t_init = b4.new_zeros((B, 2 * r, fac.ld))
+    if out is None:
+        out = (torch.empty_like(b4), torch.empty_like(b4))
+        if start:
+            for stack in out:
+                stack[:, :start] = 0
+    for name, t, shape in (("t_init", t_init, (B, 2 * r, fac.ld)),
+                           ("out[0]", out[0], b4.shape), ("out[1]", out[1], b4.shape)):
+        if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+                or t.device != b4.device or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 tensor of shape "
+                             f"{tuple(shape)} on {b4.device}")
+    if not b4.is_cuda:
+        return forward_substitution_cached_plain(fac, s_idx, b4, t_init, start, out)
+    _check_rhs_count(r)
+    fn = _library("thomas_fwd_cached").thomas_forward_cached
+    err = fn(
+        b4.data_ptr(), fac.lband.data_ptr(), fac.cinv_t_re.data_ptr(),
+        fac.cinv_t_im.data_ptr(), s_idx.data_ptr(), t_init.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), B, fac.m, fac.n, fac.ld, r, start,
+        torch.cuda.current_stream(b4.device).cuda_stream,
+    )
+    _raise_on(err, "thomas_forward_cached", fac)
+    forward_substitution_cached.launches += 1
+    return out
+
+
 def backward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
                           y4: torch.Tensor, tail: int = 0) -> torch.Tensor:
     """Batched backward substitution ``x_j = C_j^{-1}(y_j - U_j x_{j+1})``
@@ -370,6 +452,7 @@ def backward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
 
 # launch counts: one per wrapper call that launched its kernel
 forward_substitution.launches = 0
+forward_substitution_cached.launches = 0
 backward_substitution.launches = 0
 
 
@@ -404,6 +487,7 @@ def solve_all(fac: ThomasFactorization, s_idx, b: torch.Tensor,
     truncates the backward pass (zeros above the last ``tail`` lines).
     On the card r is 1 or 2 (``MAX_RHS``).
     """
+    _dense_layout_only(fac)
     s = torch.as_tensor(s_idx, dtype=torch.int32, device=b.device).reshape(-1)
     m = fac.m
     if start >= m or start < 0:
@@ -413,3 +497,98 @@ def solve_all(fac: ThomasFactorization, s_idx, b: torch.Tensor,
     y4 = forward_substitution(fac, s, rows, start=start)
     x4 = backward_substitution(fac, s, y4, tail=tail)
     return _from_rows_b(x4, fac.n, b.dtype, m, off).reshape(b.shape)
+
+
+# ---------------------------------------------------------------------------
+# One-slab solves (the local solves of the multi-slab sweeps)
+#
+# ``b`` is (m, n) for one right-hand side or (m, n, r) for r of them, and
+# ``s_idx`` picks the slab: a Python int (no copy to the card) or an integer
+# tensor with one element.  As in the JAX package a 2-D ``b`` goes through the
+# single-RHS kernels (``_fwd``/``_bwd`` there; here the cached forward kernel
+# and the backward kernel at one batch row, r = 1), and (m, n, r) through the
+# multi-RHS kernels.
+# ---------------------------------------------------------------------------
+
+
+def _dense_layout_only(fac):
+    if hasattr(fac, "head_re"):
+        raise NotImplementedError(
+            "the banded+tail pivot layout is not ported yet (ROADMAP.md, "
+            "Queue 1 slice 7, Queue 2 item 6)"
+        )
+
+
+def _one_slab(fac: ThomasFactorization, s_idx) -> torch.Tensor:
+    if isinstance(s_idx, int):
+        return fac.slab_ids[s_idx : s_idx + 1]
+    return torch.as_tensor(s_idx, dtype=torch.int32, device=fac.lband.device).reshape(1)
+
+
+def _rows_of(fac: ThomasFactorization, b: torch.Tensor) -> torch.Tensor:
+    """One slab's (m, n) or (m, n, r) complex rhs -> (1, m, 2r, ld) rows."""
+    return _to_rows_b(fac, b[None] if b.ndim == 3 else b.reshape(1, fac.m, fac.n))
+
+
+def _backward_to_grid(fac, s, y4, b, tail: int = 0) -> torch.Tensor:
+    """Backward pass over the (1, m, 2r, ld) y stack, back to ``b``'s shape
+    and dtype (zeros above the last ``tail`` lines)."""
+    x4 = backward_substitution(fac, s, y4, tail=tail)
+    off = 0 if (tail <= 0 or tail >= fac.m) else fac.m - tail
+    return _from_rows_b(x4, fac.n, b.dtype, fac.m, off)[0].reshape(b.shape)
+
+
+def solve_support(fac: ThomasFactorization, s_idx, b: torch.Tensor,
+                  start: int = 0, tail: int = 0) -> torch.Tensor:
+    """``S x = b`` for slab ``s_idx`` with ``b`` zero on lines ``< start``
+    (``direct.block_thomas_solve_support``): the forward pass begins at
+    ``start`` with a zero carry, which is exact.  ``0 < tail < m``
+    materializes x only on the last ``tail`` lines (zeros above)."""
+    _dense_layout_only(fac)
+    s = _one_slab(fac, s_idx)
+    if not 0 <= start < fac.m:
+        start = 0
+    if b.ndim == 3:
+        return solve_all(fac, s, b[None], start=start, tail=tail)[0]
+    y4, _ = forward_substitution_cached(fac, s, _rows_of(fac, b), start=start)
+    return _backward_to_grid(fac, s, y4, b, tail)
+
+
+def solve(fac: ThomasFactorization, s_idx, b: torch.Tensor, tail: int = 0) -> torch.Tensor:
+    """``S x = b`` for slab ``s_idx``; semantics of
+    ``direct.block_thomas_solve(_tail)``."""
+    return solve_support(fac, s_idx, b, 0, tail)
+
+
+def solve_cached(fac: ThomasFactorization, s_idx, b: torch.Tensor, tail: int = 0):
+    """Tail solve plus the forward pass's caches
+    (``direct.block_thomas_solve_cached``): returns ``(x, y_cache, t_cache)``
+    with the caches (m, 2r, ld) float32 rows, for :func:`solve_resume`.
+    Multi-RHS streams each pivot plane once for all r columns."""
+    _dense_layout_only(fac)
+    s = _one_slab(fac, s_idx)
+    y4, t4 = forward_substitution_cached(fac, s, _rows_of(fac, b))
+    return _backward_to_grid(fac, s, y4, b, tail), y4[0], t4[0]
+
+
+def solve_resume(fac: ThomasFactorization, s_idx, b: torch.Tensor,
+                 y_cached: torch.Tensor, t_cached: torch.Tensor,
+                 resume: int) -> torch.Tensor:
+    """Solve where ``b`` differs from the cached solve's rhs only on the last
+    ``resume`` lines (``direct.block_thomas_solve_resume``): the forward pass
+    restarts at line ``m - resume`` from the carry ``t_cached[m - resume - 1]``
+    and the backward pass is a full one.  The caches are those of
+    :func:`solve_cached` for the same number of right-hand sides and are left
+    as they were.  ``resume <= 0`` or ``>= m`` is a full solve."""
+    _dense_layout_only(fac)
+    m = fac.m
+    if resume <= 0 or resume >= m:
+        return solve(fac, s_idx, b)
+    s = _one_slab(fac, s_idx)
+    j0 = m - resume
+    # lines < j0 of the y stack are the cached ones; those of the t stack are
+    # read by nothing
+    out = (y_cached[None].clone(), torch.empty_like(t_cached[None]))
+    y4, _ = forward_substitution_cached(
+        fac, s, _rows_of(fac, b), t_init=t_cached[None, j0 - 1], start=j0, out=out)
+    return _backward_to_grid(fac, s, y4, b)

@@ -90,15 +90,78 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
         raise AssertionError("plain version called for a CUDA tensor")
 
     monkeypatch.setattr(tk, "forward_substitution_plain", boom)
+    monkeypatch.setattr(tk, "forward_substitution_cached_plain", boom)
     monkeypatch.setattr(tk, "backward_substitution_plain", boom)
     rng = np.random.default_rng(0)
     fac = _random_factors(rng, 1, 4, 24, cuda_device)
-    b = _rhs(rng, (1, 4, 24))
-    x = tk.solve_all(fac, [0], torch.as_tensor(b, device=cuda_device))
+    b = torch.as_tensor(_rhs(rng, (1, 4, 24)), device=cuda_device)
+    x = tk.solve_all(fac, [0], b)
+    assert x.is_cuda and bool(torch.isfinite(torch.view_as_real(x)).all())
+    x, y_c, t_c = tk.solve_cached(fac, 0, b[0], tail=2)
+    x = tk.solve_resume(fac, 0, b[0], y_c, t_c, 2)
     assert x.is_cuda and bool(torch.isfinite(torch.view_as_real(x)).all())
 
 
-@pytest.mark.parametrize("entry", ["forward", "backward", "solve_all"])
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("start,carry", [(0, False), (0, True), (4, True)])
+def test_cached_forward_matches_plain(cuda_device, r, start, carry):
+    """y and t stacks, a carry in (also at start = 0), lines above the start
+    left alone; one launch per call."""
+    rng = np.random.default_rng(10 * r + start)
+    m, n, batch = 9, 45, 2
+    fac = _random_factors(rng, 2, m, n, cuda_device)
+    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, m, n, r)), device=cuda_device))
+    s_idx = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    t_init = None
+    if carry:
+        t_init = torch.zeros((batch, 2 * r, fac.ld), device=cuda_device)
+        t_init[..., :n] = torch.as_tensor(rng.standard_normal((batch, 2 * r, n)).astype(np.float32))
+    out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+    before = tk.forward_substitution_cached.launches
+    y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start, out=out)
+    torch.cuda.synchronize()
+    assert tk.forward_substitution_cached.launches == before + 1
+    y_p, t_p = tk.forward_substitution_cached(
+        _to_cpu(fac), s_idx.cpu(), b4.cpu(), None if t_init is None else t_init.cpu(), start=start)
+    for got, want in ((y4, y_p), (t4, t_p)):
+        torch.testing.assert_close(got[:, start:].cpu(), want[:, start:], rtol=0,
+                                   atol=TOL * float(want.abs().max()))
+    assert bool((y4[:, :start] == 7.0).all()) and bool((t4[:, :start] == -7.0).all())
+
+
+@pytest.mark.parametrize("r", [None, 2])
+def test_one_slab_solves_match_plain(cuda_device, r):
+    """``solve``, ``solve_support``, ``solve_cached`` and ``solve_resume`` on
+    the card against the same calls on the CPU (plain versions); a resumed
+    solve equals the full solve of the same right-hand side."""
+    rng = np.random.default_rng(3)
+    m, n, tail = 12, 45, 5
+    fac = _random_factors(rng, 3, m, n, cuda_device)
+    cpu = _to_cpu(fac)
+    shape = (m, n) if r is None else (m, n, r)
+    b = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    b_up = b.copy()
+    b_up[m - tail:] += 1.0
+    bs = b.copy()
+    bs[:3] = 0
+    d = lambda a: torch.as_tensor(a, device=cuda_device)      # noqa: E731
+    c = torch.as_tensor
+
+    def close(got, want):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+
+    close(tk.solve(fac, 2, d(b), tail=tail), tk.solve(cpu, 2, c(b), tail=tail))
+    close(tk.solve_support(fac, 1, d(bs), start=3), tk.solve_support(cpu, 1, c(bs), start=3))
+    x, y_c, t_c = tk.solve_cached(fac, 1, d(b), tail)
+    xp, y_p, t_p = tk.solve_cached(cpu, 1, c(b), tail)
+    close(x, xp), close(y_c, y_p), close(t_c, t_p)
+    got = tk.solve_resume(fac, 1, d(b_up), y_c, t_c, tail)
+    close(got, tk.solve_resume(cpu, 1, c(b_up), y_p, t_p, tail))
+    full = tk.solve(fac, 1, d(b_up))
+    torch.testing.assert_close(got, full, rtol=0, atol=TOL * float(full.abs().max()))
+
+
+@pytest.mark.parametrize("entry", ["forward", "forward_cached", "backward", "solve_all"])
 def test_too_many_right_hand_sides_raise(cuda_device, entry):
     """What the kernels do not take raises instead of falling back."""
     rng = np.random.default_rng(0)
@@ -109,13 +172,15 @@ def test_too_many_right_hand_sides_raise(cuda_device, entry):
     with pytest.raises(ValueError, match="right-hand sides"):
         if entry == "forward":
             tk.forward_substitution(fac, s_idx, rows)
+        elif entry == "forward_cached":
+            tk.forward_substitution_cached(fac, s_idx, rows)
         elif entry == "backward":
             tk.backward_substitution(fac, s_idx, rows)
         else:
             tk.solve_all(fac, [0], torch.as_tensor(_rhs(rng, (1, 4, 24, r)), device=cuda_device))
 
 
-@pytest.mark.parametrize("entry", ["forward", "backward"])
+@pytest.mark.parametrize("entry", ["forward", "forward_cached", "backward"])
 def test_line_too_long_raises(cuda_device, entry):
     """A line whose plane buffers do not fit in a block's shared memory is
     refused before any launch."""
@@ -125,7 +190,8 @@ def test_line_too_long_raises(cuda_device, entry):
     fac = tk.ThomasFactorization(planes, planes, bands, bands, n)
     s_idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
     rows = torch.zeros((1, 1, 2, n), device=cuda_device)
-    fn = tk.forward_substitution if entry == "forward" else tk.backward_substitution
+    fn = {"forward": tk.forward_substitution, "forward_cached": tk.forward_substitution_cached,
+          "backward": tk.backward_substitution}[entry]
     before = fn.launches
     with pytest.raises(ValueError, match="too long"):
         fn(fac, s_idx, rows)

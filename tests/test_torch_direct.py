@@ -111,3 +111,81 @@ def test_converted_factorization_solves(facs):
     b = np.random.default_rng(6).standard_normal((M, N)) + 0j
     _close(direct.block_thomas_solve(cf, torch.as_tensor(b)),
            jdirect.block_thomas_solve(jf, jnp.asarray(b)), 1e-13)
+
+
+# ---------------------------------------------------------------------------
+# The tail, support, cached and resumed solves of the multi-slab sweeps, on
+# the carried-over factorization (same pivots on both sides): 1e-12 of the
+# max-norm, complex128 matmul order being the only difference.
+# ---------------------------------------------------------------------------
+
+
+@pytest.fixture(scope="module")
+def carried(facs):
+    _, jf, _ = facs
+    cf = convert.block_tridiag_factorization(
+        np.asarray(jf.cinv), np.asarray(jf.lband), np.asarray(jf.uband), device="cpu"
+    )
+    return jf, cf
+
+
+def _rhs(seed, r):
+    rng = np.random.default_rng(seed)
+    shape = (M, N) if r is None else (M, N, r)
+    return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+
+@pytest.mark.parametrize("r", [None, 3])
+@pytest.mark.parametrize("tail", [0, 1, 3, M])
+def test_solve_tail_matches(carried, r, tail):
+    jf, cf = carried
+    b = _rhs(7, r)
+    want = jdirect.block_thomas_solve_tail(jf, jnp.asarray(b), tail)
+    got = direct.block_thomas_solve_tail(cf, torch.as_tensor(b), tail)
+    assert tuple(got.shape) == b.shape
+    _close(got, want, 1e-12)
+    if 0 < tail < M:
+        assert not got[: M - tail].any()
+
+
+@pytest.mark.parametrize("r", [None, 3])
+@pytest.mark.parametrize("start,tail", [(0, 0), (3, 0), (3, 2), (M - 1, 1), (M, 0)])
+def test_solve_support_matches(carried, r, start, tail):
+    jf, cf = carried
+    b = _rhs(8, r)
+    if start < M:
+        b[:start] = 0
+    want = jdirect.block_thomas_solve_support(jf, jnp.asarray(b), start=start, tail=tail)
+    got = direct.block_thomas_solve_support(cf, torch.as_tensor(b), start=start, tail=tail)
+    _close(got, want, 1e-12)
+
+
+@pytest.mark.parametrize("r", [None, 3])
+@pytest.mark.parametrize("tail", [0, 3])
+def test_solve_cached_matches(carried, r, tail):
+    jf, cf = carried
+    b = _rhs(9, r)
+    jx, jy, jt = jdirect.block_thomas_solve_cached(jf, jnp.asarray(b), tail)
+    x, y, t = direct.block_thomas_solve_cached(cf, torch.as_tensor(b), tail)
+    assert tuple(y.shape) == tuple(t.shape) == np.asarray(jy).shape
+    _close(x, jx, 1e-12)
+    _close(y, jy, 1e-12)
+    _close(t, jt, 1e-12)
+
+
+@pytest.mark.parametrize("r", [None, 3])
+@pytest.mark.parametrize("resume", [0, 1, 3, M - 1, M])
+def test_solve_resume_matches_and_equals_full_solve(carried, r, resume):
+    """The rhs of the resumed solve differs from the cached one's on the last
+    ``resume`` lines only; the result equals a full solve bit for bit."""
+    jf, cf = carried
+    b = _rhs(10, r)
+    b2 = b.copy()
+    if 0 < resume:
+        b2[M - resume:] += _rhs(11, r)[M - resume:]
+    _, jy, jt = jdirect.block_thomas_solve_cached(jf, jnp.asarray(b), 2)
+    _, y, t = direct.block_thomas_solve_cached(cf, torch.as_tensor(b), 2)
+    want = jdirect.block_thomas_solve_resume(jf, jnp.asarray(b2), jy, jt, resume)
+    got = direct.block_thomas_solve_resume(cf, torch.as_tensor(b2), y, t, resume)
+    _close(got, want, 1e-12)
+    assert torch.equal(got, direct.block_thomas_solve(cf, torch.as_tensor(b2)))

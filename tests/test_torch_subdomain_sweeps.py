@@ -1,10 +1,12 @@
-"""The port's slab systems and one-slab sweeps against the JAX package.
+"""The port's slab systems and one-slab sweeps against the JAX package (the
+multi-slab sweeps are in ``test_torch_multislab_sweeps.py``).
 
 Both sides are fed the SAME annihilator fields (carried over from the JAX
 package), so no SVD gauge enters the comparison.
 """
 
 import dataclasses
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -189,9 +191,13 @@ def test_single_sweep_preconditioner_matches(setup, mode):
 
 
 def test_attach_pallas_and_multi_slab_sweep_raises(setup):
+    """What of the multi-slab sweeps still raises: the banded+tail pivot layout
+    (the sweeps themselves are held against the JAX package in
+    ``test_torch_multislab_sweeps.py``)."""
     _, ts, _ = _build_both(setup, 2)
+    banded = dataclasses.replace(ts, pfac=types.SimpleNamespace(head_re=None))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweeps.gs_sweep(ts, torch.zeros(ts.m * ts.n, dtype=torch.complex128))
+        sweeps.gs_sweep(banded, torch.zeros(ts.m * ts.n, dtype=torch.complex128))
     kept = subdomain.attach_pallas(ts)
     assert isinstance(kept.pfac, tk.ThomasFactorization) and kept.fac.cinv.shape[-1] == ts.n
     assert kept.pfac.n_slabs == 2 and kept.pfac.m == ts.m1_max

@@ -6,6 +6,8 @@ kernels themselves are held against those plain versions on the card
 (``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -172,3 +174,158 @@ def test_convert_rejects_int8_scales_and_dirty_padding(factors):
         convert.thomas_factorization(dirty, *args[1:], device="cpu")
     with pytest.raises(TypeError):
         convert.thomas_factorization(args[0].astype(np.float32), *args[1:], device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# The one-slab entry points of the multi-slab sweeps: ``solve``,
+# ``solve_cached``, ``solve_resume`` and ``solve_support`` against the JAX
+# package's in interpret mode, on the same carried-over planes.  A 2-D ``b``
+# runs the single-RHS kernels there (``_fwd``/``_bwd``), (m, n, 2) the
+# multi-RHS ones (``_fwd_bt``/``_bwd_b``).  Tolerance 1e-5 of the max-norm:
+# f32 summation order is the only difference.
+# ---------------------------------------------------------------------------
+
+S3, M3, N3 = 3, 12, 20
+
+
+@pytest.fixture(scope="module")
+def slab_factors():
+    rng = np.random.default_rng(5)
+    v = rng.standard_normal((S3, M3, N3, 3, 3)) + 1j * rng.standard_normal((S3, M3, N3, 3, 3))
+    v[..., 1, 1] += 8.0
+    jf = jax.vmap(lambda w: jdirect.factor_stencil_2d(JStencilMatrix2D(values=w)))(jnp.asarray(v))
+    jpf = jpt.build_pallas_factorization(jf)
+    return jpf, _carry_over(jpf)
+
+
+def _one_rhs(seed, r):
+    rng = np.random.default_rng(seed)
+    shape = (M3, N3) if r is None else (M3, N3, r)
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+def _near(got, want, what=""):
+    want = np.asarray(want)
+    got = got.numpy() if isinstance(got, torch.Tensor) else got
+    assert got.shape == want.shape, what
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max(), err_msg=what)
+
+
+@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("tail", [0, 5, M3])
+def test_solve_matches_interpret_kernels(slab_factors, r, tail):
+    jpf, pf = slab_factors
+    b = _one_rhs(tail, r)
+    want = jpt.solve(jpf, 2, jnp.asarray(b), tail=tail, interpret=True)
+    got = tk.solve(pf, 2, torch.as_tensor(b), tail=tail)
+    assert got.dtype == torch.complex64
+    _near(got, want)
+    # the slab may also arrive as a tensor
+    _near(tk.solve(pf, torch.tensor(2), torch.as_tensor(b), tail=tail), want)
+
+
+@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("start,tail", [(0, 0), (3, 0), (3, 5), (M3 - 1, 0), (M3, 4)])
+def test_solve_support_matches_interpret_kernels(slab_factors, r, start, tail):
+    jpf, pf = slab_factors
+    b = _one_rhs(start, r)
+    if start < M3:
+        b[:start] = 0
+    want = jpt.solve_support(jpf, 1, jnp.asarray(b), start=start, tail=tail, interpret=True)
+    _near(tk.solve_support(pf, 1, torch.as_tensor(b), start=start, tail=tail), want)
+
+
+@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("tail", [0, 5])
+def test_solve_cached_matches_interpret_kernels(slab_factors, r, tail):
+    """x and both caches; the caches are compared on the true lanes."""
+    jpf, pf = slab_factors
+    b = _one_rhs(20 + tail, r)
+    jx, jy, jt = jpt.solve_cached(jpf, 0, jnp.asarray(b), tail=tail, interpret=True)
+    x, y, t = tk.solve_cached(pf, 0, torch.as_tensor(b), tail=tail)
+    _near(x, jx, "x")
+    rows = 2 if r is None else 2 * r
+    assert tuple(y.shape) == tuple(t.shape) == (M3, rows, pf.ld)
+    _near(y[..., :N3], np.asarray(jy)[..., :N3], "y cache")
+    _near(t[..., :N3], np.asarray(jt)[..., :N3], "t cache")
+    assert not y[..., N3:].any() and not t[..., N3:].any()
+
+
+@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("resume", [0, 1, 4, M3 - 1, M3])
+def test_solve_resume_matches_interpret_kernels(slab_factors, r, resume):
+    """The resumed solve against the JAX package's, and against a full solve
+    of the same right-hand side: the plain versions run the same operations
+    in the same order wherever the pass starts, so those two agree bit for
+    bit.  The caches are left as they were."""
+    jpf, pf = slab_factors
+    b = _one_rhs(30, r)
+    b2 = b.copy()
+    if resume > 0:
+        b2[M3 - resume:] += _one_rhs(31, r)[M3 - resume:]
+    _, jy, jt = jpt.solve_cached(jpf, 1, jnp.asarray(b), tail=3, interpret=True)
+    _, y, t = tk.solve_cached(pf, 1, torch.as_tensor(b), tail=3)
+    y0, t0 = y.clone(), t.clone()
+    want = jpt.solve_resume(jpf, 1, jnp.asarray(b2), jy, jt, resume, interpret=True)
+    got = tk.solve_resume(pf, 1, torch.as_tensor(b2), y, t, resume)
+    _near(got, want)
+    assert torch.equal(got, tk.solve(pf, 1, torch.as_tensor(b2)))
+    assert torch.equal(y, y0) and torch.equal(t, t0)
+
+
+@pytest.mark.parametrize("r", [1, 2])
+def test_cached_forward_pass_starts_from_a_carry_and_owns_its_lines_only(slab_factors, r):
+    """``start = 0`` with a non-zero ``t_init``, and a later start writing in
+    place into the caller's stacks: against the JAX package's ``_fwd_bt``."""
+    jpf, pf = slab_factors
+    rng = np.random.default_rng(r)
+    b = (rng.standard_normal((2, M3, N3, r)) + 1j * rng.standard_normal((2, M3, N3, r))).astype(np.complex64)
+    s_idx = np.array([2, 0], np.int32)
+    jb4 = jpt._to_rows_b(jpf, jnp.asarray(b))
+    b4 = tk._to_rows_b(pf, torch.as_tensor(b))
+    t_init = np.zeros((2, 2 * r, jpf.np_), np.float32)
+    t_init[..., :N3] = rng.standard_normal((2, 2 * r, N3))
+    for start in (0, 4):
+        jy, jt = jpt._fwd_bt(jpf, jnp.asarray(s_idx), jb4, jnp.asarray(t_init), start=start, interpret=True)
+        out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+        y4, t4 = tk.forward_substitution_cached(
+            pf, torch.as_tensor(s_idx), b4, torch.as_tensor(t_init[..., : pf.ld].copy()), start=start, out=out)
+        assert y4 is out[0] and t4 is out[1]
+        _near(y4[:, start:, :, :N3], np.asarray(jy)[..., :N3], "y")
+        _near(t4[:, start:, :, :N3], np.asarray(jt)[..., :N3], "t")
+        assert bool((y4[:, :start] == 7.0).all()) and bool((t4[:, :start] == -7.0).all())
+    # without buffers the stacks are new and zero above the start; no t_init
+    # means a zero carry, which is what the plain forward pass starts from
+    y4, t4 = tk.forward_substitution_cached(pf, torch.as_tensor(s_idx), b4, start=4)
+    assert not y4[:, :4].any() and not t4[:, :4].any()
+    assert torch.equal(y4, tk.forward_substitution(pf, torch.as_tensor(s_idx), b4, start=4))
+
+
+def test_cached_wrapper_validates_and_counts(slab_factors):
+    _, pf = slab_factors
+    s_idx = torch.zeros(1, dtype=torch.int32)
+    rows = torch.zeros((1, M3, 2, pf.ld))
+    before = tk.forward_substitution_cached.launches
+    tk.forward_substitution_cached(pf, s_idx, rows)
+    assert tk.forward_substitution_cached.launches == before   # plain path: no launch
+    with pytest.raises(ValueError, match="t_init"):
+        tk.forward_substitution_cached(pf, s_idx, rows, torch.zeros((1, 4, pf.ld)))
+    with pytest.raises(ValueError, match="t_init"):
+        tk.forward_substitution_cached(pf, s_idx, rows, torch.zeros((1, 2, pf.ld)).double())
+    with pytest.raises(ValueError, match="out"):
+        tk.forward_substitution_cached(pf, s_idx, rows, out=(rows, rows[:, 1:]))
+    with pytest.raises(ValueError, match="start"):
+        tk.forward_substitution_cached(pf, s_idx, rows, start=M3)
+    assert pf.slab_ids.dtype == torch.int32 and pf.slab_ids.tolist() == [0, 1, 2]
+
+
+@pytest.mark.parametrize("entry", ["solve", "solve_cached", "solve_resume", "solve_support", "solve_all"])
+def test_banded_tail_layout_is_not_ported(entry):
+    """The hybrid banded+tail layout of the JAX package (recognised by its
+    ``head_re`` planes) has no kernels in the port yet."""
+    fac = types.SimpleNamespace(head_re=None)
+    b = torch.zeros((M3, N3), dtype=torch.complex64)
+    args = {"solve": (fac, 0, b), "solve_cached": (fac, 0, b), "solve_support": (fac, 0, b),
+            "solve_resume": (fac, 0, b, None, None, 2), "solve_all": (fac, [0], b[None])}[entry]
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        getattr(tk, entry)(*args)

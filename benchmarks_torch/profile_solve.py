@@ -1,7 +1,9 @@
-"""Where the time of the 801 x 801 plasma solve goes on the card.
+"""Where the time of the 801 x 801 plasma solve, or of the 48^3 bump solve,
+goes on the card.
 
     python3 benchmarks_torch/profile_solve.py                      # one slab
     python3 benchmarks_torch/profile_solve.py --n-subdomains 16 --double-sweep
+    python3 benchmarks_torch/profile_solve.py --bump3d             # 48^3, bf16 planes
 
 Needs one CUDA card and nvcc.  Times the solve and its parts with CUDA
 events, then traces one solve with torch.profiler and prints the device time
@@ -24,7 +26,9 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps  # noqa: E402
-from fast_solver_lippmann_schwinger_tpu_torch.models import plasma2d  # noqa: E402
+from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, plasma2d  # noqa: E402
+from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched  # noqa: E402
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E402
     card_name_and_power_limit,
@@ -105,13 +109,92 @@ def sweep_parts(p, r, cols, rhs):
     )
 
 
+def bump3d_parts(p, r, cols):
+    """The parts of one sparsifying preconditioner apply on the 48^3 path."""
+    pc = p.precond
+    view = pc.factorization
+    st, n = view.stack, view.lsten.shape[2]
+    b = pc.a_s.matvec(cols).reshape(st.l1, st.mn, -1)
+    b4 = pk._rows_of(b, st.ld)
+    y4 = pk.plane_forward(st, b4, view.lrows, n)[0]
+    x4 = pk.plane_backward(st, y4, view.urows, n)
+    return dict(
+        to_rows=lambda: pk._rows_of(b, st.ld),
+        plane_forward=lambda: pk.plane_forward(st, b4, view.lrows, n),
+        plane_backward=lambda: pk.plane_backward(st, y4, view.urows, n),
+        from_rows=lambda: pk._unrows(x4, st.mn, b.dtype, b.shape),
+    )
+
+
+def profile_runs(runs: dict, solve_ms: dict):
+    """Trace one solve per entry of ``runs`` (r -> callable returning (x,
+    info)) with torch.profiler: device time by kernel and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for r, run in runs.items():
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, info = run()
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        total = sum(e.device_time_total for e in events) / 1e3
+        top = sorted(events, key=lambda e: -e.device_time_total)[:12]
+        print(json.dumps(dict(
+            r=r, iterations=np.asarray(info.n_iterations).tolist(),
+            solve_wall_ms_under_profiler=wall_ms, profiler_device_ms_total=total,
+            device_idle_share_under_profiler=1.0 - total / wall_ms,
+            solve_ms=solve_ms[r], device_idle_share=1.0 - total / solve_ms[r],
+            top=[dict(name=e.key[:60], ms=e.device_time_total / 1e3, calls=e.count) for e in top],
+        )), flush=True)
+
+
+def main_bump3d():
+    """The 48^3 bump solve on bf16 plane pivots: r = 1 (``solve``) and r = 2
+    (two sources, x and y plane waves, through ``apply_batch``)."""
+    kw = dict(rtol=1e-6, restart=20, maxiter=16)
+    p = bump3d.build_problem(h=1 / 48, dtype=torch.complex64, pivot_dtype="bf16_pallas")
+    print(json.dumps(dict(bump3d=True, setup_seconds=p.setup_seconds,
+                          peak_memory_bytes=torch.cuda.max_memory_allocated())))
+    pc, op = p.precond, p.op
+    X, Y, _ = p.grid.mesh()
+    u_y = torch.exp(1j * p.k * torch.as_tensor(Y.ravel(), device=p.rhs.device)).to(p.rhs.dtype)
+    rhs2 = torch.stack([p.rhs, -(op.apply(u_y) - u_y)])
+    runs = {1: lambda: bump3d.solve(p, **kw),
+            2: lambda: gmres_batched(op.apply, rhs2, preconditioner=pc.apply_batch, **kw)}
+    solve_ms = {}
+    for r in (1, 2):
+        rhs = rhs2[:r]
+        cols = rhs.T.contiguous() if r > 1 else rhs[0]
+        parts = dict(
+            operator_apply=lambda: op.apply(rhs),
+            stencil_matvec=lambda: pc.a_s.matvec(cols),
+            **bump3d_parts(p, r, cols),
+            preconditioner_apply=lambda: pc.apply(cols),
+            solve=runs[r],
+        )
+        ms = {k: time_ms(f, 5) for k, f in parts.items()}
+        solve_ms[r] = ms["solve"]
+        print(json.dumps(dict(r=r, ms=ms, host_enqueue_ms=dict(
+            preconditioner_apply=host_ms(parts["preconditioner_apply"], 5),
+            operator_apply=host_ms(parts["operator_apply"], 5)))), flush=True)
+        print(json.dumps(dict(r=r, host_profile_of_preconditioner_apply=host_profile(
+            parts["preconditioner_apply"]))), flush=True)
+    profile_runs(runs, solve_ms)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n-subdomains", type=int, default=1)
     ap.add_argument("--double-sweep", action="store_true")
+    ap.add_argument("--bump3d", action="store_true")
     args = ap.parse_args()
 
     print(card_name_and_power_limit())
+    if args.bump3d:
+        return main_bump3d()
     p = plasma2d.build_problem(h=1 / 800, n_subdomains=args.n_subdomains, npml=10,
                                dtype=torch.complex64, double_sweep=args.double_sweep,
                                pivot_dtype="pallas")
@@ -143,28 +226,8 @@ def main():
         print(json.dumps(dict(r=r, host_profile_of_preconditioner_apply=host_profile(
             parts["preconditioner_apply"]))), flush=True)
 
-    from torch.profiler import ProfilerActivity, profile
-
-    for r in (1, 2):
-        run = ((lambda: plasma2d.solve(p, DIRS[0], **KW)) if r == 1
-               else (lambda: plasma2d.solve_batched(p, DIRS, **KW)))
-        run()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            _, info = run()
-            torch.cuda.synchronize()
-            wall_ms = 1e3 * (time.perf_counter() - t0)
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        total = sum(e.device_time_total for e in events) / 1e3
-        top = sorted(events, key=lambda e: -e.device_time_total)[:12]
-        print(json.dumps(dict(
-            r=r, iterations=np.asarray(info.n_iterations).tolist(),
-            solve_wall_ms_under_profiler=wall_ms, profiler_device_ms_total=total,
-            device_idle_share_under_profiler=1.0 - total / wall_ms,
-            solve_ms=solve_ms[r], device_idle_share=1.0 - total / solve_ms[r],
-            top=[dict(name=e.key[:60], ms=e.device_time_total / 1e3, calls=e.count) for e in top],
-        )), flush=True)
+    profile_runs({1: lambda: plasma2d.solve(p, DIRS[0], **KW),
+                  2: lambda: plasma2d.solve_batched(p, DIRS, **KW)}, solve_ms)
 
 
 if __name__ == "__main__":

@@ -11,9 +11,8 @@ libraries go to ``build/ablation/``.  Prints microseconds per line for every
 case.
 """
 
-import ctypes
-import subprocess
 import sys
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import torch
@@ -21,6 +20,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E402
     card_name_and_power_limit,
@@ -47,25 +47,14 @@ CASES = [
 
 
 def ablated_libraries() -> dict:
-    """One build of the forward kernel per mask, all started together."""
-    work = ROOT / "build" / "ablation"
-    work.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for mask in sorted({mask for _, mask in CASES}):
-        so = work / f"libthomas_fwd_{mask}.so"
-        procs[mask] = (so, subprocess.Popen(
-            [tk._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-             "-shared", "-Xcompiler", "-fPIC", f"-DTHOMAS_ABLATE={mask}", "-o", str(so),
-             str(tk._CSRC / "thomas_fwd.cu")]))
-    libs = {}
-    for mask, (so, proc) in procs.items():
-        if proc.wait() != 0:
-            raise RuntimeError(f"nvcc failed for THOMAS_ABLATE={mask}")
-        lib = ctypes.CDLL(str(so))
-        lib.thomas_forward.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        lib.thomas_forward.restype = ctypes.c_int
-        libs[mask] = lib
-    return libs
+    """One build of the forward kernel per mask, all started together;
+    returns mask -> launcher."""
+    masks = sorted({mask for _, mask in CASES})
+    dirs = {mask: ROOT / "build" / "ablation" / str(mask) for mask in masks}
+    with ThreadPoolExecutor(len(masks)) as pool:     # each build is one nvcc
+        list(pool.map(lambda mask: cuda_build.build_kernels(
+            ["thomas_fwd"], defines={"THOMAS_ABLATE": mask}, build_dir=dirs[mask]), masks))
+    return {mask: cuda_build.load("thomas_fwd", build_dir=dirs[mask]) for mask in masks}
 
 
 def main():
@@ -90,7 +79,7 @@ def main():
         carry = torch.zeros((2, 1, 2 * r, ld), device=dev)
         for name, mask in CASES:
             def run():
-                err = libs[mask].thomas_forward(
+                err = libs[mask](
                     b4.data_ptr(), bands.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(),
                     s_idx.data_ptr(), y4.data_ptr(), carry.data_ptr(), 1, m, n, ld, r, 0,
                     torch.cuda.current_stream().cuda_stream)

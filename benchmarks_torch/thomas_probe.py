@@ -19,6 +19,7 @@ import torch
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
+from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E402
     card_name_and_power_limit,
@@ -89,7 +90,7 @@ def probe_launch_cost(fac, dev):
     launcher (no Python wrapper), host microseconds per enqueued launch (the
     stream is kept short by synchronising every 50 launches) and device
     microseconds per launch back to back."""
-    fn = tk._library("thomas_bwd").thomas_backward
+    fn = cuda_build.load("thomas_bwd")
     m, ld = fac.m, fac.ld
     y4 = torch.randn((1, m, 2, ld), device=dev)
     x4 = torch.empty((1, 1, 2, ld), device=dev)
@@ -119,7 +120,7 @@ def probe_launch_cost(fac, dev):
 def main():
     dev = torch.device("cuda", 0)
     print(card_name_and_power_limit())
-    logs = tk.build_kernels(verbose=True)
+    logs = cuda_build.build_kernels(verbose=True)
     for log in logs.values():
         print("\n".join(l for l in log.splitlines() if "registers" in l or "spill" in l))
     g = torch.Generator(device=dev).manual_seed(0)

@@ -6,21 +6,26 @@ Run from the repository root with no arguments::
     python3 chip_smoke.py
 
 It needs one CUDA card and ``nvcc`` and exits non-zero without them.  It
-builds the substitution kernels from ``fast_solver_lippmann_schwinger_tpu_torch/
-csrc`` into ``build/``, holds each kernel against its plain PyTorch version,
-and drives the port's two main paths through the entry points a user calls,
-each single and two-direction: the 801 x 801, k = 800 plasma scattering solve
-on the one-slab exact-solve path, and the same solve with 16 slabs and the
-alternating bi-directional sweep (the reference's own configuration).  After
-each path it holds and times every kernel of that path at the path's own
-shapes (r = 1 and r = 2 right-hand sides; for the sweeps one slab picked among
-16, full, truncated and resumed passes) on the solve's own pivot planes.
-Each phase prints one JSON line; any failed check raises, so the exit code
-is non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+builds every kernel from ``fast_solver_lippmann_schwinger_tpu_torch/csrc``
+into ``build/`` (one ``nvcc`` per source, all started together), holds each
+kernel against its plain PyTorch version, and drives the port's three paths
+through the entry points a user calls: the 801 x 801, k = 800 plasma
+scattering solve on the one-slab exact-solve path, the same solve with 16
+slabs and the alternating bi-directional sweep (the reference's own
+configuration), each single and two-direction, and the 48^3, k = 48 bump
+scattering solve with the sparsifying preconditioner on bf16 plane pivots
+(``examples/example3D.jl``), single and with two sources, beside the same
+solve on dense complex64 pivots.  After each path it holds and times every
+kernel of that path at the path's own shapes (r = 1 and r = 2 right-hand
+sides; for the sweeps one slab picked among 16, full, truncated and resumed
+passes; for the 3D solve the 48 planes of mn = 2304) on the solve's own pivot
+planes.  Each phase prints one JSON line; any failed check raises, so the
+exit code is non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import sys
 import time
@@ -29,7 +34,11 @@ import numpy as np
 import torch
 
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps
-from fast_solver_lippmann_schwinger_tpu_torch.models import plasma2d
+from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, plasma2d
+from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
+from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (
     card_name_and_power_limit,
@@ -48,9 +57,13 @@ WRAPPERS = {
     "thomas_forward": tk.forward_substitution,
     "thomas_forward_cached": tk.forward_substitution_cached,
     "thomas_backward": tk.backward_substitution,
+    "plane_forward": pk.plane_forward,
+    "plane_backward": pk.plane_backward,
+    "plane_apply": pk.plane_apply_rows,
 }
 _PORT = "fast_solver_lippmann_schwinger_tpu_torch/csrc/"
 _TPU = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_thomas.py"
+_TPU_PLANE = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_plane.py"
 # kernel -> route, name in a trace, source, and the TPU kernel body it
 # replaces at r = 1 and at r = 2 (file:line)
 KERNEL_INFO = {
@@ -65,6 +78,18 @@ KERNEL_INFO = {
     "thomas_backward": dict(
         route="cuda", kernel="thomas::pass_kernel<R, true, false>",
         source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:626", 2: f"{_TPU}:626"},
+    ),
+    "plane_forward": dict(
+        route="cuda", kernel="plane::pass_kernel<R, false>", source=_PORT + "plane_fwd.cu",
+        replaces={1: f"{_TPU_PLANE}:339", 2: f"{_TPU_PLANE}:339"},
+    ),
+    "plane_backward": dict(
+        route="cuda", kernel="plane::pass_kernel<R, true>", source=_PORT + "plane_bwd.cu",
+        replaces={1: f"{_TPU_PLANE}:366", 2: f"{_TPU_PLANE}:366"},
+    ),
+    "plane_apply": dict(
+        route="cuda", kernel="plane::apply_kernel<R>", source=_PORT + "plane_apply.cu",
+        replaces={1: f"{_TPU_PLANE}:140", 2: f"{_TPU_PLANE}:140"},
     ),
 }
 # on the sweeps' single-RHS path the backward kernel stands for _bwd_kernel
@@ -118,15 +143,22 @@ def phase_device() -> str:
         "device", name=torch.cuda.get_device_name(0),
         capability=list(torch.cuda.get_device_capability(0)),
         torch=torch.__version__, cuda=torch.version.cuda, nvidia_smi=smi,
+        # the 3D annihilator Grams subtract nearly equal float32 products:
+        # matmuls must run in full float32 (the port changes neither flag)
+        matmul_allow_tf32=torch.backends.cuda.matmul.allow_tf32,
+        float32_matmul_precision=torch.get_float32_matmul_precision(),
     )
+    check(not torch.backends.cuda.matmul.allow_tf32
+          and torch.get_float32_matmul_precision() == "highest",
+          "float32 matmuls run in full float32")
     return smi
 
 
 def phase_build():
     t0 = time.perf_counter()
-    logs = tk.build_kernels(verbose=True)
-    for name in tk._KERNELS:
-        tk._library(name)
+    logs = cuda_build.build_kernels(verbose=True)
+    for name in cuda_build.sources():
+        cuda_build.load(name)
     seconds = time.perf_counter() - t0
     usage = sorted({
         line.strip() for log in logs.values() for line in log.splitlines()
@@ -165,7 +197,7 @@ def phase_kernels(device):
     S, m, n = 2, 64, 801
     fac = random_factorization(rng, S, m, n, device)
     s_idx = torch.tensor([1, 0], dtype=torch.int32, device=device)
-    worst = {name: 0.0 for name in WRAPPERS}
+    worst = {name: 0.0 for name in WRAPPERS if name.startswith("thomas")}
     cases = []
     for r in (1, 2):
         for start, tail in ((0, 0), (5, 0), (0, 7), (3, 9)):
@@ -412,7 +444,8 @@ def phase_sweeps(problem) -> dict:
          gs_sweep_ms=time_ms(lambda: sweeps.gs_sweep(pc.slabs, b), 3),
          jacobi_sweep_ms=time_ms(lambda: sweeps.jacobi_sweep(pc.slabs, b), 3),
          launches=dict(gs_sweep=counts_gs, jacobi_sweep=counts_j))
-    check(all(c > 0 for c in counts_j.values()), f"jacobi_sweep runs all three kernels ({counts_j})")
+    check(all(c > 0 for name, c in counts_j.items() if name.startswith("thomas")),
+          f"jacobi_sweep runs all three 2D kernels ({counts_j})")
     return counts_j
 
 
@@ -512,6 +545,269 @@ def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) ->
                                     bound, None, shape, variant="_all_slabs"))
     return kernels
 
+# ---------------------------------------------------------------------------
+# The 3D path: the 48^3 bump solve on bf16 plane pivots
+# ---------------------------------------------------------------------------
+
+BUMP3D_H = 1.0 / 48.0
+BUMP3D_SOLVE_KW = dict(rtol=1e-6, restart=20, maxiter=16)
+JAX_ITERATIONS_3D_FULL_1E8 = 13     # RESULTS.md: full complex64 pivots, rtol 1e-8
+
+
+def random_plane_view(rng, l: int, m: int, n: int, device) -> pk.PlaneSlabView:
+    """Contracting random plane factors (||P|| ||S|| < 1) in the kernels'
+    layout, so that the passes' recurrences keep values O(1)."""
+    mn = m * n
+    ld = tk._round_up(mn, tk.LEAD_MULTIPLE)
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+
+    def planes(diag):
+        p = torch.zeros((l, ld, ld), dtype=torch.bfloat16, device=device)
+        p[:, :mn, :mn] = (0.1 / mn ** 0.5) * torch.randn((l, mn, mn), generator=g, device=device)
+        idx = torch.arange(mn, device=device)
+        p[:, idx, idx] += diag
+        return tk.tile_planes(p)
+
+    def sten():
+        s = rng.uniform(-0.05, 0.05, (l, m, n, 3, 3, 2)).astype(np.float32)
+        return torch.view_as_complex(torch.from_numpy(s)).to(device)
+
+    stack = pk.PlaneStack(p_re=planes(0.2), p_im=planes(0.0), mn=mn, l1=l)
+    return pk.PlaneSlabView(stack=stack, lsten=sten(), usten=sten())
+
+
+def phase_plane_kernels(device):
+    """The three plane kernels against their plain versions on a short
+    random stack at the 3D path's width (mn = 2304), r = 1 and 2: the forward
+    pass at start 0 and > 0, with and without a carry, with and without the
+    t stack (``collect_t``), planes above the start left alone; the backward
+    pass full and with a tail; one plane apply."""
+    rng = np.random.default_rng(1)
+    l, m, n = 6, 48, 48
+    view = random_plane_view(rng, l, m, n, device)
+    st, ld, mn = view.stack, view.stack.ld, view.stack.mn
+    worst = {name: 0.0 for name in ("plane_forward", "plane_backward", "plane_apply")}
+    cases = []
+    for r in (1, 2):
+        b4 = torch.zeros((l, 2 * r, ld), device=device)
+        b4[..., :mn] = torch.from_numpy(rng.standard_normal((l, 2 * r, mn)).astype(np.float32))
+        t_init = torch.zeros((2 * r, ld), device=device)
+        t_init[:, :mn] = torch.from_numpy(rng.standard_normal((2 * r, mn)).astype(np.float32))
+        for start, carry in ((0, None), (0, t_init), (3, None), (3, t_init)):
+            out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+            y_k, t_k = pk.plane_forward(st, b4, view.lrows, n, 0, start, carry, out=out)
+            y_k2, none = pk.plane_forward(st, b4, view.lrows, n, 0, start, carry,
+                                          collect_t=False)
+            torch.cuda.synchronize()
+            y_p, t_p = pk.plane_forward_plain(st, b4, view.lrows, n, 0, start, carry)
+            _, e_y = rel_err(y_k[start:], y_p[start:])
+            _, e_t = rel_err(t_k[start:], t_p[start:])
+            _, e_y2 = rel_err(y_k2[start:], y_p[start:])
+            check(bool((y_k[:start] == 7.0).all()) and bool((t_k[:start] == -7.0).all()),
+                  "the forward plane kernel leaves the planes above its start alone")
+            check(bool(torch.isfinite(t_k[start:]).all()), "plane forward output is finite")
+            check(none is None, "no t stack without collect_t")
+            worst["plane_forward"] = max(worst["plane_forward"], e_y, e_t, e_y2)
+            cases.append(dict(r=r, start=start, t_init=carry is not None, fwd_y=e_y, fwd_t=e_t,
+                              fwd_y_without_t_stack=e_y2))
+        y4 = pk.plane_forward(st, b4, view.lrows, n)[0]
+        for tail in (0, 2):
+            start = tail and l - tail
+            x_k = pk.plane_backward(st, y4, view.urows, n, 0, start)
+            torch.cuda.synchronize()
+            x_p = pk.plane_backward_plain(st, y4, view.urows, n, 0, start)
+            _, e_x = rel_err(x_k, x_p)
+            check(bool(torch.isfinite(x_k).all()) and not bool(x_k[:start].any()),
+                  "plane backward output is finite, zero above its tail")
+            worst["plane_backward"] = max(worst["plane_backward"], e_x)
+            cases.append(dict(r=r, tail=tail, bwd=e_x))
+        for k in (0, l - 1):
+            z_k = pk.plane_apply_rows(st, k, b4[k])
+            torch.cuda.synchronize()
+            _, e_a = rel_err(z_k, pk.plane_apply_rows_plain(st, k, b4[k]))
+            worst["plane_apply"] = max(worst["plane_apply"], e_a)
+            cases.append(dict(r=r, plane=k, apply=e_a))
+    emit("plane_kernels", shape=dict(l=l, m=m, n=n, mn=mn, ld=ld), tolerance=KERNEL_TOL,
+         max_rel_err=worst, cases=cases)
+    for name, err in worst.items():
+        check(err <= KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain version ({err})")
+
+
+def phase_small_reference_3d(device):
+    """The kernel path (complex64, bf16 plane pivots) against the dense path
+    (complex128, full pivots) on a 16^3 grid.  The complex64 solve stops at
+    rtol 1e-5: on this grid its preconditioned residual stalls at the float32
+    floor, about 1.5e-6 of its start (at 48^3 the floor is far below 1e-6)."""
+    p_k = bump3d.build_problem(h=1 / 16, dtype=torch.complex64, pivot_dtype="bf16_pallas",
+                               device=device)
+    p_f = bump3d.build_problem(h=1 / 16, dtype=torch.complex128, pivot_dtype="full",
+                               device=device)
+    x_k, i_k = bump3d.solve(p_k, rtol=1e-5, restart=20, maxiter=16)
+    x_f, i_f = bump3d.solve(p_f, rtol=1e-8, restart=20, maxiter=16)
+    _, err = rel_err(x_k.to(torch.complex128), x_f)
+    emit("small_reference_3d", n=p_k.grid.n, rtol=[1e-5, 1e-8],
+         iterations=[int(i_k.n_iterations), int(i_f.n_iterations)],
+         true_residual=[float(i_k.true_residual), float(i_f.true_residual)],
+         rel_err_vs_dense_complex128=err, tolerance=1e-4)
+    check(bool(i_k.converged) and bool(i_f.converged), "small 3D solves converged")
+    check(err <= 1e-4, f"3D kernel-path solution within 1e-4 of the dense path ({err})")
+
+
+def plane_wave_rhs(problem, axis: int) -> torch.Tensor:
+    """``-(M u - u)`` for the plane wave ``exp(i k x_axis)`` (axis 0: x, the
+    problem's own incident field; 1: y)."""
+    X, Y, _ = problem.grid.mesh()
+    coord = torch.as_tensor((X, Y)[axis].ravel(), device=problem.rhs.device)
+    u = torch.exp(1j * problem.k * coord).to(problem.rhs.dtype)
+    return -(problem.op.apply(u) - u)
+
+
+def phase_bump3d_solve(device, repeats: int = 3):
+    """``bump3d.build_problem(h=1/48, complex64, "sparsifying", "bf16_pallas")``
+    and ``bump3d.solve`` at rtol 1e-6: three timed solves after a warm-up,
+    then the joint two-source solve through ``apply_batch`` (r = 2).  Beside
+    it, the same problem on dense complex64 pivots at rtol 1e-8 (the JAX
+    package's recorded count) and at 1e-6."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = bump3d.build_problem(h=BUMP3D_H, dtype=torch.complex64, precond="sparsifying",
+                                   pivot_dtype="bf16_pallas", device=device)
+    setup_s = time.perf_counter() - t0
+    bump3d.solve(problem, **BUMP3D_SOLVE_KW)                  # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(
+        lambda: bump3d.solve(problem, **BUMP3D_SOLVE_KW), repeats)
+    peak = torch.cuda.max_memory_allocated()
+    n_it = int(info.n_iterations)
+
+    pc = problem.precond
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    (x2, info2), times2, counts2 = timed_solves(
+        lambda: gmres_batched(problem.op.apply, rhs2, preconditioner=pc.apply_batch,
+                              **BUMP3D_SOLVE_KW), repeats)
+
+    full = bump3d.build_problem(h=BUMP3D_H, dtype=torch.complex64, precond="sparsifying",
+                                pivot_dtype="full", device=device)
+    x8, info8 = bump3d.solve(full, rtol=1e-8, restart=20, maxiter=40)
+    _, info6 = bump3d.solve(full, **BUMP3D_SOLVE_KW)
+    _, err = rel_err(x, x8)
+    emit(
+        "bump3d_solve", grid=list(problem.grid.shape), k=problem.k, unknowns=problem.grid.size,
+        pivot_dtype="bf16_pallas", setup_seconds=problem.setup_seconds,
+        setup_total_seconds=setup_s, solve_ms=sorted(times)[len(times) // 2],
+        solve_ms_runs=times, iterations=n_it, converged=bool(info.converged),
+        residuals=[float(v) for v in info.residuals[: n_it + 1]],
+        true_residual=float(info.true_residual), peak_memory_bytes=peak, launches=counts,
+        two_sources=dict(solve_ms=sorted(times2)[len(times2) // 2], solve_ms_runs=times2,
+                         iterations=[int(v) for v in info2.n_iterations],
+                         converged=[bool(v) for v in info2.converged],
+                         true_residual=[float(v) for v in info2.true_residual],
+                         launches=counts2),
+        full_pivots=dict(
+            setup_seconds=full.setup_seconds,
+            rtol_1e8=dict(iterations=int(info8.n_iterations), converged=bool(info8.converged),
+                          jax_package_iterations=JAX_ITERATIONS_3D_FULL_1E8,
+                          residuals=[float(v) for v in
+                                     info8.residuals[: int(info8.n_iterations) + 1]],
+                          true_residual=float(info8.true_residual)),
+            rtol_1e6=dict(iterations=int(info6.n_iterations), converged=bool(info6.converged),
+                          true_residual=float(info6.true_residual))),
+        rel_err_vs_full_pivots_rtol_1e8=err,
+    )
+    check(tuple(x.shape) == (problem.grid.size,), "3D solution shape")
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), "3D solution is finite")
+    check(bool(info.converged) and n_it <= BUMP3D_SOLVE_KW["maxiter"],
+          f"48^3 solve converged within maxiter ({n_it})")
+    check(float(info.true_residual) <= 1e-3, "3D true residual <= 1e-3")
+    check(bool(info2.converged.all()) and float(info2.true_residual.max()) <= 1e-3,
+          "two-source 3D solve converged")
+    check(err <= 1e-3, f"bf16 solution within 1e-3 of the full-pivot one ({err})")
+    for c in (counts, counts2):
+        check(c["plane_forward"] > 0 and c["plane_backward"] > 0,
+              f"both fused plane kernels launched on the 3D path ({c})")
+    del full, x8
+    torch.cuda.empty_cache()
+    return problem, {1: counts, 2: counts2}
+
+
+def phase_plane_apply_path(problem) -> dict:
+    """One ``block_thomas_solve_3d`` at 48^3 through the per-plane branch
+    (``fused=False``: one plane apply per plane and pass) against the fused
+    branch on the same planes and right-hand sides, for r = 1 and 2.
+    Returns the launch counts of the per-plane solves by r."""
+    view = problem.precond.factorization
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    counts, errs = {}, {}
+    for r in (1, 2):
+        b = problem.precond.a_s.matvec(rhs2[:r].T.contiguous())[:, : r]
+        b = b[:, 0] if r == 1 else b
+        x_fused = direct.block_thomas_solve_3d(view, b)
+        reset_counts()
+        x_plane = direct.block_thomas_solve_3d(dataclasses.replace(view, fused=False), b)
+        torch.cuda.synchronize()
+        counts[r] = read_counts()
+        _, errs[r] = rel_err(x_plane, x_fused)
+    emit("plane_apply_path", planes=view.stack.l1, launches=counts, max_rel_err=errs,
+         tolerance=KERNEL_TOL)
+    for r in (1, 2):
+        check(counts[r]["plane_apply"] == 2 * view.stack.l1,
+              f"the per-plane branch launched plane_apply once per plane and pass ({counts})")
+        check(errs[r] <= KERNEL_TOL,
+              f"per-plane branch within {KERNEL_TOL} of the fused one (r={r}: {errs[r]})")
+    return counts
+
+
+def plane_bound(planes: int, ld: int, r: int, stacks: int, weights: bool = True):
+    """Least time for ``planes`` plane steps: two bf16 planes, the packed
+    weight rows and ``stacks`` row stacks of 2r x ld floats per plane, plus
+    the carry, against the card's memory rate; the products against its
+    float32 rate."""
+    row = 2 * r * ld * 4
+    plane_bytes = 2 * ld * ld * 2 + (2 * 9 * ld * 4 if weights else 0) + stacks * row
+    bytes_ms = 1e3 * (planes * plane_bytes + row) / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * planes * 2 * (2 * (2 * r) * ld * ld) / PEAK_F32_FLOPS
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def phase_plane_kernel_times(problem, path_counts: dict, apply_counts: dict) -> list:
+    """Each plane kernel at the 3D path's shapes (l = 48 planes of mn = 2304)
+    on the solve's own planes and right-hand sides: r = 1 (``solve``) and
+    r = 2 (``apply_batch`` of two sources); the plane apply at one plane,
+    with the launches of the per-plane solves (``apply_counts[r]``)."""
+    view = problem.precond.factorization
+    st = view.stack
+    l, ld, mn, n = st.l1, st.ld, st.mn, view.lsten.shape[2]
+    dense_re = tk.dense_planes(st.p_re)           # (l, ld, ld) copies for the
+    dense_im = tk.dense_planes(st.p_im)           # library yardstick
+    kernels = []
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    for r, path in ((1, "bump3d_solve"), (2, "bump3d_apply_batch")):
+        b = problem.precond.a_s.matvec(rhs2[:r].T.contiguous())          # (N, r)
+        b4 = pk._rows_of(b.reshape(l, mn, r), ld)
+        y4 = pk.plane_forward(st, b4, view.lrows, n)[0]
+        library_ms = library_pass_ms(b4[0], dense_re, dense_im, range(l))
+        shape = dict(l=l, mn=mn, ld=ld, r=r)
+        counts = path_counts[r]
+        kernels += [
+            kernel_entry("plane_forward", r, path, counts["plane_forward"],
+                         lambda: pk.plane_forward(st, b4, view.lrows, n),
+                         lambda: pk.plane_forward_plain(st, b4, view.lrows, n),
+                         plane_bound(l, ld, r, stacks=3), library_ms, shape),
+            kernel_entry("plane_backward", r, path, counts["plane_backward"],
+                         lambda: pk.plane_backward(st, y4, view.urows, n),
+                         lambda: pk.plane_backward_plain(st, y4, view.urows, n),
+                         plane_bound(l, ld, r, stacks=2), library_ms, shape),
+            kernel_entry("plane_apply", r, "plane_apply_path", apply_counts[r]["plane_apply"],
+                         lambda: pk.plane_apply_rows(st, l // 2, b4[l // 2]),
+                         lambda: pk.plane_apply_rows_plain(st, l // 2, b4[l // 2]),
+                         plane_bound(1, ld, r, stacks=2, weights=False),
+                         library_pass_ms(b4[0], dense_re, dense_im, range(1)),
+                         dict(shape, plane=l // 2)),
+        ]
+    del dense_re, dense_im
+    return kernels
+
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -541,6 +837,15 @@ def main() -> int:
     counts_batched = phase_solve_batched(problem, "sweep_solve_batched", pair, repeats=3)
     jacobi_counts = phase_sweeps(problem)
     kernels += phase_sweep_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts)
+    del problem
+    torch.cuda.empty_cache()
+
+    # path 3: the 48^3 bump solve through the fused plane kernels
+    phase_plane_kernels(device)
+    phase_small_reference_3d(device)
+    problem, counts3d = phase_bump3d_solve(device)
+    apply_counts = phase_plane_apply_path(problem)
+    kernels += phase_plane_kernel_times(problem, counts3d, apply_counts)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

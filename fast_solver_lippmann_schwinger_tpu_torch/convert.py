@@ -26,9 +26,26 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import (
 )
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import SlabSystem
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import DoubleSweepPreconditioner
-from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import LippmannSchwinger2D
-from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import BlockTridiagFactorization
-from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
+from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import (
+    LippmannSchwinger2D,
+    LippmannSchwinger3D,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.precond.sparsifying import (
+    SparsifyingPreconditioner3D,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
+    BlockTridiagFactorization,
+    BlockTridiagFactorization3D,
+    BlockTridiagFactorization3DBF16,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.plane_kernels import (
+    PlaneSlabView,
+    PlaneStack,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import (
+    StencilMatrix2D,
+    StencilMatrix3D,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
     LEAD_MULTIPLE,
     ThomasFactorization,
@@ -72,18 +89,31 @@ def block_tridiag_factorization(cinv, lband, uband,
     )
 
 
-def _bf16_planes(bits: np.ndarray, n: int, ld: int, device) -> torch.Tensor:
-    """(S, m, np, np) uint16 bf16 bit patterns -> tile-major bfloat16 planes
-    (S, m, ld/8, ld, 8), re-padded from the TPU's 128-lane padding to the
-    port's."""
+def _bf16(bits: np.ndarray) -> torch.Tensor:
+    """uint16 bf16 bit patterns -> a bfloat16 tensor of the same values."""
     bits = np.asarray(bits)
     if bits.dtype != np.uint16:
         raise TypeError(f"bf16 planes must arrive as uint16 bit patterns, got {bits.dtype}")
+    return torch.from_numpy(np.array(bits, copy=True).view(np.int16)).view(torch.bfloat16)
+
+
+def _bf16_planes(bits: np.ndarray, n: int, ld: int, device) -> torch.Tensor:
+    """(..., np, np) uint16 bf16 bit patterns -> tile-major bfloat16 planes
+    (..., ld/8, ld, 8), re-padded from the TPU's 128-lane padding to the
+    port's."""
+    bits = np.asarray(bits)
     if np.any(bits[..., n:, :]) or np.any(bits[..., :, n:]):
         raise ValueError("padding entries of the pivot planes must be zero")
-    t = torch.from_numpy(np.ascontiguousarray(bits[..., :n, :n]).view(np.int16))
-    t = t.view(torch.bfloat16)
+    t = _bf16(bits[..., :n, :n])
     return tile_planes(F.pad(t, (0, ld - n, 0, ld - n))).to(device)
+
+
+def _bf16_scales_only(scale):
+    scale = np.asarray(scale)
+    if scale.shape[-2] != 1 or not np.all(scale == 1.0):
+        raise NotImplementedError(
+            "int8 pivot storage is not ported yet (ROADMAP.md, Queue 2 item 8)"
+        )
 
 
 def thomas_factorization(cinv_t_re, cinv_t_im, lband, uband, scale, n,
@@ -97,11 +127,7 @@ def thomas_factorization(cinv_t_re, cinv_t_im, lband, uband, scale, n,
     storage: int8 storage is not ported yet.
     """
     device = resolve_device(device)
-    scale = np.asarray(scale)
-    if scale.shape[3] != 1 or not np.all(scale == 1.0):
-        raise NotImplementedError(
-            "int8 pivot storage is not ported yet (ROADMAP.md, Queue 2)"
-        )
+    _bf16_scales_only(scale)
     n = int(n)
     ld = _round_up(n, LEAD_MULTIPLE)
 
@@ -162,3 +188,78 @@ def double_sweep_preconditioner(slabs: dict, slabs_t: dict, msp_values, a_s_valu
         msp=stencil_matrix_2d(msp_values, device=device),
         a_s=stencil_matrix_2d(a_s_values, device=device),
     )
+
+
+# -----------------------------------------------------------------------------
+# 3D
+# -----------------------------------------------------------------------------
+
+
+def lippmann_schwinger_3d(symbol, nu, omega, n, m, l, quad_rule,
+                          device=None) -> LippmannSchwinger3D:
+    """``LippmannSchwinger3D`` from the JAX operator's fields."""
+    device = resolve_device(device)
+    dtype = _complex_dtype(symbol)
+    return LippmannSchwinger3D(
+        symbol=to_tensor(symbol, dtype, device),
+        nu=to_tensor(nu, real_dtype_of(dtype), device),
+        omega=float(omega), n=int(n), m=int(m), l=int(l), quad_rule=str(quad_rule),
+    )
+
+
+def stencil_matrix_3d(values, device=None) -> StencilMatrix3D:
+    """``StencilMatrix3D`` from a (l, m, n, 3, 3, 3) complex ``values`` array."""
+    device = resolve_device(device)
+    return StencilMatrix3D(values=to_tensor(values, _complex_dtype(values), device))
+
+
+def factorization_3d(lsten, usten, cinv=None, cinv_re=None, cinv_im=None, device=None):
+    """A 3D plane factorization from the JAX one's fields: full pivots
+    (``cinv`` complex) or bf16 pivots (``cinv_re``/``cinv_im`` as uint16 bit
+    patterns)."""
+    device = resolve_device(device)
+    dtype = _complex_dtype(lsten)
+    lsten, usten = to_tensor(lsten, dtype, device), to_tensor(usten, dtype, device)
+    if cinv is not None:
+        return BlockTridiagFactorization3D(cinv=to_tensor(cinv, dtype, device),
+                                           lsten=lsten, usten=usten)
+    return BlockTridiagFactorization3DBF16(cinv_re=_bf16(cinv_re).to(device),
+                                           cinv_im=_bf16(cinv_im).to(device),
+                                           lsten=lsten, usten=usten)
+
+
+def plane_stack(p_re, p_im, scale, mn, l1, device=None) -> PlaneStack:
+    """The kernels' plane stack from a ``PallasPlaneStack``'s fields:
+    ``p_re``/``p_im`` uint16 bit patterns of the (SL, np, np) bf16 planes
+    (128-lane padding, cropped here; the planes come out padded to
+    round_up(mn, 8) and tile-major), ``scale`` the all-ones scales of bf16
+    storage (int8 storage is not ported yet)."""
+    device = resolve_device(device)
+    _bf16_scales_only(scale)
+    mn = int(mn)
+    ld = _round_up(mn, LEAD_MULTIPLE)
+    return PlaneStack(p_re=_bf16_planes(p_re, mn, ld, device),
+                      p_im=_bf16_planes(p_im, mn, ld, device), mn=mn, l1=int(l1))
+
+
+def plane_slab_view(stack: dict, lsten, usten, base=0, device=None) -> PlaneSlabView:
+    """``PlaneSlabView`` from a JAX view's fields: ``stack`` a dict of the
+    arguments of :func:`plane_stack`."""
+    device = resolve_device(device)
+    dtype = _complex_dtype(lsten)
+    return PlaneSlabView(stack=plane_stack(**stack, device=device),
+                         lsten=to_tensor(lsten, dtype, device),
+                         usten=to_tensor(usten, dtype, device), base=int(base))
+
+
+def sparsifying_preconditioner_3d(factorization: dict, a_s_values,
+                                  device=None) -> SparsifyingPreconditioner3D:
+    """``SparsifyingPreconditioner3D`` from the JAX one's parts: the
+    factorization's fields as a dict (a plane view's, with ``stack``, for
+    :func:`plane_slab_view`; a dense or bf16 one's for
+    :func:`factorization_3d`) and the (l, m, n, 3, 3, 3) field of ``a_s``."""
+    device = resolve_device(device)
+    fac = (plane_slab_view(**factorization, device=device) if "stack" in factorization
+           else factorization_3d(**factorization, device=device))
+    return SparsifyingPreconditioner3D(factorization=fac,
+                                       a_s=stencil_matrix_3d(a_s_values, device=device))

@@ -57,3 +57,36 @@ class Grid2D:
         """(X, Y) each of shape (m, n): X varies along axis 1, Y along axis 0."""
         X, Y = np.meshgrid(self.x, self.y, indexing="xy")
         return X, Y
+
+
+@dataclasses.dataclass(frozen=True)
+class Grid3D:
+    """Uniform grid on ``[-a/2, a/2)^3`` (half-open like
+    ``examples/example3D.jl:27-29``: ``collect(-a/2:h:a/2-h)``), so n = 48
+    at h = 1/48."""
+
+    a: float
+    h: float
+
+    @property
+    def x(self) -> np.ndarray:
+        return np.arange(
+            -self.a / 2, self.a / 2 - self.h / 2, self.h, dtype=np.float64
+        )
+
+    @property
+    def n(self) -> int:
+        return self.x.shape[0]
+
+    @property
+    def shape(self):
+        return (self.n, self.n, self.n)
+
+    @property
+    def size(self) -> int:
+        return self.n ** 3
+
+    def mesh(self):
+        """(X, Y, Z) each (l, m, n): X fastest (axis 2), Z slowest (axis 0)."""
+        Z, Y, X = np.meshgrid(self.x, self.x, self.x, indexing="ij")
+        return X, Y, Z

@@ -1,0 +1,61 @@
+// Forward plane substitution of the 3D block-Thomas solve on Hopper (sm_90a).
+//
+// Replaces the TPU kernel sparse/pallas_plane.py:_fwd_slab_kernel (launched
+// by _fwd_slab_call) of the JAX package: for the planes p = start..l-1 of one
+// slab,
+//
+//     y_p = b_p - S_p(t_{p-1}),     t_p = y_p . P[base + p],     t_{start-1} = t_init,
+//
+// with S_p the 9-tap in-plane coupling stencil to plane p-1 (flat shifts
+// against packed weight rows) and P the transposed bf16 pivot plane.  It
+// keeps the y stack for the backward pass and, when the caller passes one,
+// the t stack, which is then also where the carry lives (plane p reads row
+// p-1 of the stack it writes row p of), so that a later pass can resume from
+// t_{start-1}; without a t stack the carry lives in a one-plane scratch.
+// Planes < start of y and t belong to the caller: the kernel neither reads
+// nor writes them.
+//
+// The kernel is plane::pass_kernel<R, false>, the forward instantiation of
+// the body in plane_pass.cuh, which describes the design (one cooperative
+// launch per pass, two grid barriers per plane: the stencil phase shared out
+// over the grid, then every block's output tiles against the whole y_p; pivot
+// columns streamed through a cp.async ring), the limits (r <= 2, ld <= 12448
+// at r = 2) and the bound.
+//
+// Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B against 3.35 TB/s
+// (0.304 ms for 48 planes at mn = 2304), plus the weight rows and the b, y
+// and t stacks (about 1 %).
+//
+// plane_forward launches only; it allocates nothing, does not synchronise,
+// and returns the launch's error code (0 on success).
+#include "plane_pass.cuh"
+
+extern "C" int plane_forward(
+    const float* b,          // (l, 2r, ld) right-hand rows
+    const float* w,          // (l, 2, 9, ld) weight rows of the couplings to plane p-1
+    const uint16_t* pre,     // (SL, ld/8, ld, 8) bf16, tile-major, transposed
+    const uint16_t* pim,
+    const float* t_init,     // (2r, ld) carry into plane `start`, or null (zero)
+    float* y,                // (l, 2r, ld); planes < start are not touched
+    float* t,                // (l, 2r, ld), or null; planes < start are not touched
+    float* carry,            // (2r, ld) scratch, used when t is null
+    int l, int mn, int n, int ld, int r, int base, int start, void* stream) {
+  plane::PassArgs a;
+  a.rhs = b;
+  a.w = w;
+  a.pre = pre;
+  a.pim = pim;
+  a.t_init = t_init;
+  a.kept = y;
+  a.out = t;
+  a.carry = carry;
+  a.l = l;
+  a.mn = mn;
+  a.n = n;
+  a.ld = ld;
+  a.base = base;
+  a.start = start;
+  cudaError_t err = plane::run_pass<false>(r, a, (cudaStream_t)stream);
+  if (err == cudaSuccess) err = cudaGetLastError();
+  return (int)err;
+}

@@ -5,6 +5,7 @@ coordinates (numpy, float64 — they are setup-time quantities):
 
 * ``plasma_2d``         — tokamak-shaped plasma profile,
                           ``tests/plasma_example.jl:53-68``
+* ``gaussian_bump_3d``  — truncated Gaussian bump, ``examples/example3D.jl``
 """
 
 from __future__ import annotations
@@ -36,3 +37,15 @@ def plasma_2d(x, y):
     phi = _plasma_phi(xs, ys)
     inner = -1.5 * (phi - 0.05) - _plasma_gaussians(xs, ys) * np.cos(0.9 * ys)
     return -np.where(phi > 0.05, inner, 0.0)
+
+
+def gaussian_bump_3d(x, y, z, amplitude: float = 0.3, width: float = 40.0,
+                     cutoff: float = 0.48):
+    """Gaussian bump cut off near the box faces (``examples/example3D.jl``)."""
+    return (
+        amplitude
+        * np.exp(-width * (x ** 2 + y ** 2 + z ** 2))
+        * (np.abs(x) < cutoff)
+        * (np.abs(y) < cutoff)
+        * (np.abs(z) < cutoff)
+    )

@@ -3,7 +3,8 @@
 ``M u = u + omega^2 * (G conv (nu .* u))`` applied via zero-padding, FFT,
 spectral multiply, inverse FFT, crop: the counterpart of the JAX package's
 ``ops/fastconv.py`` (reference ``FastM`` and its ``fastconvolution`` /
-``FFTconvolution`` applies, ``src/FastConvolution.jl:11-154``).
+``FFTconvolution`` applies, ``src/FastConvolution.jl:11-154``, and
+``FastM3D``, ``src/FastConvolution3D.jl:7-63``).
 
 Design notes:
 
@@ -154,3 +155,122 @@ def build_fast_convolution_2d(
         m=m,
         quad_rule=quad_rule.value,
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class LippmannSchwinger3D:
+    """3D analog (reference ``FastM3D``, ``src/FastConvolution3D.jl:7-63``)."""
+
+    symbol: torch.Tensor       # (le, me, ne) complex
+    nu: torch.Tensor           # (l, m, n) real
+    omega: float
+    n: int
+    m: int
+    l: int
+    quad_rule: str
+
+    @property
+    def shape(self):
+        return (self.l, self.m, self.n)
+
+    @property
+    def size(self):
+        return self.l * self.m * self.n
+
+    def convolve(self, b: torch.Tensor) -> torch.Tensor:
+        """``G conv b`` for one field, flat ``(l*m*n,)`` or ``(l, m, n)``, or
+        a batch with a leading axis, ``(R, l*m*n)`` / ``(R, l, m, n)``."""
+        l, m, n = self.l, self.m, self.n
+        le, me, ne = self.symbol.shape
+        cdtype = self.symbol.dtype
+        b4 = b.reshape(-1, l, m, n)
+        batch = b4.shape[0]
+        # pruned padding (see the 2D convolve), staged per axis: each FFT
+        # pass runs only over the slices that are live on its batch axes
+        x = torch.zeros((batch, l, m, ne), dtype=cdtype, device=b.device)
+        x[..., :n] = b4.to(cdtype)
+        x = torch.fft.fft(x, dim=3)
+        y = torch.zeros((batch, l, me, ne), dtype=cdtype, device=b.device)
+        y[:, :, :m] = x
+        y = torch.fft.fft(y, dim=2)
+        ext = torch.zeros((batch, le, me, ne), dtype=cdtype, device=b.device)
+        ext[:, :l] = y
+        spec = self.symbol * torch.fft.fft(ext, dim=1)
+        out = torch.fft.ifft(spec, dim=1)[:, :l]
+        out = torch.fft.ifft(out, dim=2)[:, :, :m]
+        out = torch.fft.ifft(out, dim=3)[..., :n]
+        return out.reshape(b.shape)
+
+    def apply(self, u: torch.Tensor) -> torch.Tensor:
+        """``M u = u + omega^2 (G conv (nu u))``; layouts as :meth:`convolve`."""
+        nu = self.nu.reshape(-1) if u.shape[-1] == self.size else self.nu
+        scaled = (nu * u).to(self.symbol.dtype)
+        return u + (self.omega ** 2) * self.convolve(scaled)
+
+    def __call__(self, u: torch.Tensor) -> torch.Tensor:
+        return self.apply(u)
+
+
+def build_fast_convolution_3d(
+    x: np.ndarray,
+    y: np.ndarray,
+    z: np.ndarray,
+    h: float,
+    k: float,
+    nu,
+    quad_rule: QuadRule | str = QuadRule.GREENGARD_VICO,
+    dtype: torch.dtype = torch.complex64,
+    pad_to_friendly: bool = True,
+    prefer_pow2: bool = False,
+    cache_dir: str | None = None,
+    device=None,
+) -> LippmannSchwinger3D:
+    """3D fast operator (reference ``buildFastConvolution3D``,
+    ``src/FastConvolution3D.jl:68-132``; Greengard-Vico only, as in the
+    reference's working path).  ``nu`` is a callable ``nu(X, Y, Z)`` or an
+    (l, m, n) array; ``prefer_pow2`` picks the extended-grid size class."""
+    device = resolve_device(device)
+    quad_rule = QuadRule(quad_rule)
+    if quad_rule != QuadRule.GREENGARD_VICO:
+        raise NotImplementedError("3D supports the Greengard-Vico rule")
+    if cache_dir is not None:
+        raise NotImplementedError(
+            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1 slice 9)"
+        )
+    n, m, l = len(x), len(y), len(z)
+    Z, Y, X = np.meshgrid(np.asarray(z), np.asarray(y), np.asarray(x), indexing="ij")
+    nu_arr = nu(X, Y, Z) if callable(nu) else np.asarray(nu).reshape(l, m, n)
+    if pad_to_friendly:
+        sym, _, _, _ = greens.gv_compact_kernel_3d(n, m, l, h, k, prefer_pow2=prefer_pow2)
+    else:
+        sym, _, _, _ = greens.gv_symbol_3d(n, m, l, h, k, ne=4 * n, me=4 * m, le=4 * l)
+    return LippmannSchwinger3D(
+        symbol=to_tensor(sym, dtype, device),
+        nu=to_tensor(nu_arr, real_dtype_of(dtype), device),
+        omega=float(k), n=n, m=m, l=l, quad_rule=quad_rule.value,
+    )
+
+
+def sample_g_columns(op, indices: np.ndarray, chunk: int = 64) -> torch.Tensor:
+    """Green's-matrix rows via unit-impulse convolutions, on the operator's
+    device.
+
+    ``G`` is symmetric, so row j == column j == ``G conv e_j``.  Counterpart
+    of ``sampleGConv`` / ``sampleG3D`` (``src/FastConvolution.jl:278-306``,
+    ``src/FastConvolution3D.jl:136-160``).  Impulses go through the batched
+    ``convolve`` in chunks, and a chunk is cut so that its extended-grid
+    intermediates (about 3 live copies per impulse) stay under 8 GB.
+
+    Returns (len(indices), op.size).
+    """
+    indices = np.asarray(indices, dtype=np.int64)
+    ext_bytes = op.symbol.numel() * op.symbol.element_size()
+    chunk = max(1, min(chunk, int(8e9 // max(3 * ext_bytes, 1))))
+    device = op.symbol.device
+    rows = torch.empty((indices.shape[0], op.size), dtype=op.symbol.dtype, device=device)
+    for c0 in range(0, indices.shape[0], chunk):
+        idx = torch.as_tensor(indices[c0 : c0 + chunk], device=device)
+        eye = torch.zeros((idx.shape[0], op.size), dtype=op.symbol.dtype, device=device)
+        eye[torch.arange(idx.shape[0], device=device), idx] = 1.0
+        rows[c0 : c0 + idx.shape[0]] = op.convolve(eye)
+    return rows

@@ -12,8 +12,8 @@ Reference counterparts:
   ``src/Functions.jl:40-42``, used at ``src/FastConvolution.jl:185-235``
 * dense row sampling ``sampleG`` — ``src/FastConvolution.jl:239-275``
 
-The trapezoidal circulant kernel and the 3D symbols of the JAX package's
-``ops/greens.py`` are not ported yet (``ROADMAP.md``).
+The trapezoidal circulant kernel of the JAX package's ``ops/greens.py`` is
+not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -207,6 +207,73 @@ def gv_compact_kernel_2d(n: int, m: int, h: float, k: float,
     ix = (np.arange(2 * n - 1) - (n - 1)) % ne
     circ[np.ix_(iy, ix)] = tab
     return np.fft.fft2(circ), ne, me
+
+
+def gtruncated_3d(L: float, k: float, s: np.ndarray) -> np.ndarray:
+    """3D truncated-kernel symbol (``src/Functions.jl:45-47``)."""
+    return (-1.0 + np.exp(1j * L * k) * (np.cos(L * s) - 1j * k * L * np.sinc(L * s / np.pi))) / (
+        k ** 2 - s ** 2
+    )
+
+
+def gv_symbol_3d(n: int, m: int, l: int, h: float, k: float,
+                 ne: int | None = None, me: int | None = None,
+                 le: int | None = None,
+                 truncation_factor: float = 1.8):
+    """3D Greengard-Vico symbol (``src/FastConvolution3D.jl:68-132``;
+    truncation radius factor 1.8 per ``:73``).
+
+    Returns (symbol (le, me, ne) complex128, unshifted order, ne, me, le).
+    """
+    ne = 4 * n if ne is None else ne
+    me = 4 * m if me is None else me
+    le = 4 * l if le is None else le
+    L = truncation_factor * n * h
+
+    kx = (2 * np.pi / (ne * h)) * (np.arange(ne) - ne // 2)
+    ky = (2 * np.pi / (me * h)) * (np.arange(me) - me // 2)
+    kz = (2 * np.pi / (le * h)) * (np.arange(le) - le // 2)
+    s = np.sqrt(
+        kx[None, None, :] ** 2 + ky[None, :, None] ** 2 + kz[:, None, None] ** 2
+    )
+    sym_shifted = gtruncated_3d(L, k, s)
+    return np.fft.ifftshift(sym_shifted), ne, me, le
+
+
+def gv_compact_kernel_3d(n: int, m: int, l: int, h: float, k: float,
+                         ne: int | None = None, me: int | None = None,
+                         le: int | None = None,
+                         truncation_factor: float = 1.8,
+                         prefer_pow2: bool = False):
+    """3D compact GV embedding (see :func:`gv_compact_kernel_2d`): the
+    support radius 1.8 n h covers sqrt(3) (n-1) h, so the (2n-1)^3 tap table
+    is complete and the extended grid shrinks from (4n)^3 to ~(2n)^3.
+
+    Returns (symbol (le, me, ne) complex128 unshifted, ne, me, le).
+    """
+    full, ne4, me4, le4 = gv_symbol_3d(
+        n, m, l, h, k, truncation_factor=truncation_factor
+    )
+    kern = np.fft.ifftn(full)
+    dx = np.arange(-(n - 1), n) % ne4
+    dy = np.arange(-(m - 1), m) % me4
+    dz = np.arange(-(l - 1), l) % le4
+    tab = kern[np.ix_(dz, dy, dx)]
+
+    ne = good_fft_size(2 * n - 1, prefer_pow2=prefer_pow2) if ne is None else ne
+    me = good_fft_size(2 * m - 1, prefer_pow2=prefer_pow2) if me is None else me
+    le = good_fft_size(2 * l - 1, prefer_pow2=prefer_pow2) if le is None else le
+    if ne < 2 * n - 1 or me < 2 * m - 1 or le < 2 * l - 1:
+        raise ValueError(
+            f"compact embedding needs (ne, me, le) >= "
+            f"({2 * n - 1}, {2 * m - 1}, {2 * l - 1}); got ({ne}, {me}, {le})"
+        )
+    circ = np.zeros((le, me, ne), dtype=np.complex128)
+    ix = (np.arange(2 * n - 1) - (n - 1)) % ne
+    iy = (np.arange(2 * m - 1) - (m - 1)) % me
+    iz = (np.arange(2 * l - 1) - (l - 1)) % le
+    circ[np.ix_(iz, iy, ix)] = tab
+    return np.fft.fftn(circ), ne, me, le
 
 
 # -----------------------------------------------------------------------------

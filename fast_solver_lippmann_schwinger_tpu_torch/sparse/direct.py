@@ -13,8 +13,14 @@ dense n x n inversion (``torch.linalg.inv``; a library call in the JAX
 package too) and runs once at setup.  The substitution loops here are the
 full-precision oracle and the ``pivot_dtype="full"`` path of the sweeps (with
 the tail, support, cached and resumed solves that the multi-slab sweeps need);
-the hot path runs the bf16 kernels of ``sparse/thomas_kernels.py``.  Every function takes optional leading batch
-axes on the factorization (all slabs of a sweep are factored at once).
+the hot path runs the bf16 kernels of ``sparse/thomas_kernels.py``.  Every 2D
+function takes optional leading batch axes on the factorization (all slabs of
+a sweep are factored at once).
+
+The 3D part blocks over z-planes: one dense (mn, mn) pivot inverse per plane
+(``factor_stencil_3d``) and 9-tap in-plane couplings between planes.  Its
+scans run on dense or bf16 pivots here, or, for a plane view of
+``sparse/plane_kernels.py``, through the plane kernels.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ import dataclasses
 import torch
 import torch.nn.functional as F
 
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import (
     StencilMatrix2D,
 )
@@ -252,3 +259,243 @@ def block_thomas_solve_resume(fac: BlockTridiagFactorization, b: torch.Tensor,
     y_new, _ = _fwd_scan(fac, bg, start=j0, t_start=t_cached[j0 - 1])
     y = torch.cat([y_cached[:j0].to(y_new.dtype), y_new], dim=0)
     return _bwd_scan(fac, y).reshape(b.shape)
+
+
+# -----------------------------------------------------------------------------
+# 3D: planes as blocks
+# -----------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTridiagFactorization3D:
+    """z-plane block factorization of a 3D stencil matrix.
+
+    Pivot blocks are dense (mn, mn) inverses; inter-plane couplings stay in
+    9-point stencil form ((l, m, n, 3, 3) fields).
+    """
+
+    cinv: torch.Tensor     # (l, mn, mn)
+    lsten: torch.Tensor    # (l, m, n, 3, 3) couplings to plane k-1
+    usten: torch.Tensor    # (l, m, n, 3, 3) couplings to plane k+1
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTridiagFactorization3DBF16:
+    """bf16-compressed plane pivots: half the memory of complex64 (the dense
+    plane inverses are the 3D memory wall: a 48^3 stack is 2.04 GB in
+    complex64).  Preconditioner-only use: the outer Krylov solve absorbs the
+    ~3-digit pivots."""
+
+    cinv_re: torch.Tensor  # (l, mn, mn) bfloat16
+    cinv_im: torch.Tensor  # (l, mn, mn) bfloat16
+    lsten: torch.Tensor    # (l, m, n, 3, 3)
+    usten: torch.Tensor    # (l, m, n, 3, 3)
+
+
+def _plane_stencil_matvec(sten: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Apply an (m, n, 3, 3) in-plane stencil to (m, n, ...) data."""
+    m, n = sten.shape[0], sten.shape[1]
+    extra = v.ndim - 2
+    vp = F.pad(v, (0, 0) * extra + (1, 1, 1, 1))
+    out = torch.zeros(v.shape, dtype=torch.result_type(sten, v), device=v.device)
+    for dj in range(3):
+        for di in range(3):
+            w = sten[:, :, dj, di].reshape((m, n) + (1,) * extra)
+            out = out + w * vp[dj : dj + m, di : di + n]
+    return out
+
+
+def _plane_stencil_to_dense(sten: torch.Tensor) -> torch.Tensor:
+    """Dense (mn, mn) matrix of a 9-point in-plane stencil, scattered from
+    the stencil's coefficients (the JAX package applies the stencil to the
+    columns of the identity; the entries are the same numbers)."""
+    m, n = sten.shape[0], sten.shape[1]
+    jj, ii = torch.meshgrid(torch.arange(m, device=sten.device),
+                            torch.arange(n, device=sten.device), indexing="ij")
+    dense = torch.zeros((m * n, m * n), dtype=sten.dtype, device=sten.device)
+    for dj in range(3):
+        for di in range(3):
+            tj, ti = jj + dj - 1, ii + di - 1
+            keep = (tj >= 0) & (tj < m) & (ti >= 0) & (ti < n)
+            dense[(jj * n + ii)[keep], (tj * n + ti)[keep]] = sten[:, :, dj, di][keep]
+    return dense
+
+
+def factor_stencil_3d(s, pivot_dtype: str = "full", pivot_band: int | None = None):
+    """Leading-axis plane block-Thomas factorization of a 3D stencil matrix
+    (``StencilMatrix3D``; blocks = planes orthogonal to ``values`` axis 0).
+
+    Schur recursion ``C_k = D_k - L_k C_{k-1}^{-1} U_{k-1}`` over the planes,
+    a Python loop with one ``torch.linalg.inv`` and one dense (mn, mn)
+    product per plane.  The loop carries ONE full plane; only the stored
+    stack is kept (``pivot_dtype="bf16"``: bf16 real and imaginary planes),
+    so peak memory is O(mn^2 + l * stored).  ``pivot_band`` is accepted and
+    ignored, as in the JAX package (banded 3D pivots were rejected by
+    measurement there).
+    """
+    del pivot_band
+    if pivot_dtype == "int8":
+        raise NotImplementedError(
+            "int8 plane pivots are not ported yet (ROADMAP.md, Queue 1 slice 5)"
+        )
+    if pivot_dtype not in ("full", "bf16"):
+        raise ValueError(f"unknown pivot_dtype {pivot_dtype!r}")
+    vals = s.values                       # (l, m, n, 3, 3, 3)
+    l, m, n = vals.shape[:3]
+    mn = m * n
+    dsten = vals[:, :, :, 1]
+    lsten = vals[:, :, :, 0].contiguous()
+    usten = vals[:, :, :, 2].contiguous()
+    if pivot_dtype == "bf16":
+        cre = torch.empty((l, mn, mn), dtype=torch.bfloat16, device=vals.device)
+        cim = torch.empty_like(cre)
+    else:
+        cinv_all = torch.empty((l, mn, mn), dtype=vals.dtype, device=vals.device)
+
+    cinv = None
+    for k in range(l):
+        c = _plane_stencil_to_dense(dsten[k])
+        if cinv is not None:
+            # (L_k C_{k-1}^{-1}): the L stencil on every column of the inverse
+            lcinv = _plane_stencil_matvec(lsten[k], cinv.reshape(m, n, mn)).reshape(mn, mn)
+            c = c - lcinv @ _plane_stencil_to_dense(usten[k - 1])
+        cinv = torch.linalg.inv(c)
+        if pivot_dtype == "bf16":
+            cre[k] = cinv.real.float().to(torch.bfloat16)
+            cim[k] = cinv.imag.float().to(torch.bfloat16)
+        else:
+            cinv_all[k] = cinv
+    if pivot_dtype == "bf16":
+        return BlockTridiagFactorization3DBF16(cinv_re=cre, cinv_im=cim, lsten=lsten,
+                                               usten=usten)
+    return BlockTridiagFactorization3D(cinv=cinv_all, lsten=lsten, usten=usten)
+
+
+def _pivot_apply_3d(fac, k: int, y: torch.Tensor) -> torch.Tensor:
+    """Apply plane pivot inverse ``C_k^{-1}`` to ``y`` (mn[, r]): dense
+    complex, bf16 planes (one f32 product per part, as the JAX package's
+    ``_pivot_apply``), or the kernels' plane stack (``plane_apply``)."""
+    if hasattr(fac, "stack"):
+        return plane_kernels.plane_apply(fac, k, y)
+    if hasattr(fac, "cinv_re"):
+        mn = y.shape[0]
+        ys = torch.stack([y.real.float(), y.imag.float()], dim=-1)   # (mn, ..., 2)
+        flat = ys.reshape(mn, -1)
+        zre = (fac.cinv_re[k].float() @ flat).reshape(ys.shape)
+        zim = (fac.cinv_im[k].float() @ flat).reshape(ys.shape)
+        return torch.complex(zre[..., 0] - zim[..., 1], zre[..., 1] + zim[..., 0]).to(y.dtype)
+    return fac.cinv[k] @ y
+
+
+def _as_plane_stack_3d(fac, b: torch.Tensor) -> torch.Tensor:
+    """Reshape ``b``, flat (l*m*n,), (l, mn), (l*m*n, r) or (l, mn, r), to an
+    (l, mn, ...) plane stack."""
+    l = fac.lsten.shape[0]
+    mn = fac.lsten.shape[1] * fac.lsten.shape[2]
+    if b.ndim == 1:
+        return b.reshape(l, mn)
+    if b.ndim == 2 and b.shape[0] == l * mn:
+        return b.reshape(l, mn, b.shape[1])
+    return b.reshape((l, mn) + tuple(b.shape[2:]))
+
+
+def _n_rhs(bg: torch.Tensor) -> int:
+    r = 1
+    for d in bg.shape[2:]:
+        r *= d
+    return r
+
+
+def _fused(fac, bg) -> bool:
+    """Whether a scan runs as one fused kernel pass: a plane view whose stack
+    the fused passes take (``plane_kernels.fused_fits``)."""
+    return (hasattr(fac, "stack") and fac.fused
+            and plane_kernels.fused_fits(fac.stack, _n_rhs(bg)))
+
+
+def _fwd_scan_3d(fac, bg, start: int = 0, t_start=None, collect_t: bool = False):
+    """3D forward substitution over z-planes ``start..l-1`` (see
+    :func:`_fwd_scan`); ``bg`` (l, mn[, r]).  A plane view runs the whole
+    pass as ONE fused kernel launch when its stack fits
+    (``plane_kernels.fwd_scan_fused``), else one ``plane_apply`` per plane."""
+    if _fused(fac, bg):
+        return plane_kernels.fwd_scan_fused(fac, bg, start=start, t_start=t_start,
+                                            collect_t=collect_t)
+    l = fac.lsten.shape[0]
+    m, n = fac.lsten.shape[1], fac.lsten.shape[2]
+    dtype = fac.lsten.dtype
+    t_prev = (torch.zeros(bg.shape[1:], dtype=dtype, device=bg.device)
+              if t_start is None else t_start.to(dtype))
+    ys, ts = [], []
+    for k in range(start, l):
+        tp = t_prev.reshape((m, n) + tuple(t_prev.shape[1:]))
+        y_k = bg[k].to(dtype) - _plane_stencil_matvec(fac.lsten[k], tp).reshape(t_prev.shape)
+        t_prev = _pivot_apply_3d(fac, k, y_k)
+        ys.append(y_k)
+        if collect_t:
+            ts.append(t_prev)
+    return torch.stack(ys), (torch.stack(ts) if collect_t else None)
+
+
+def _bwd_scan_3d(fac, y, tail: int = 0):
+    """3D backward substitution; ``tail > 0`` materializes only the last
+    planes (see :func:`_bwd_scan`)."""
+    if _fused(fac, y):
+        return plane_kernels.bwd_scan_fused(fac, y, tail=tail)
+    l = fac.lsten.shape[0]
+    m, n = fac.lsten.shape[1], fac.lsten.shape[2]
+    dtype = fac.lsten.dtype
+    full = tail <= 0 or tail >= l
+    start = 0 if full else l - tail
+    x_next = torch.zeros(y.shape[1:], dtype=dtype, device=y.device)
+    out = torch.zeros(tuple(y.shape), dtype=dtype, device=y.device)
+    for k in range(l - 1, start - 1, -1):
+        xn = x_next.reshape((m, n) + tuple(x_next.shape[1:]))
+        w = y[k] - _plane_stencil_matvec(fac.usten[k], xn).reshape(x_next.shape)
+        x_next = _pivot_apply_3d(fac, k, w)
+        out[k] = x_next
+    return out
+
+
+def block_thomas_solve_3d(fac, b: torch.Tensor) -> torch.Tensor:
+    """Solve via the 3D plane factorization; ``b`` may be flat, (l, mn), or
+    multi-RHS with a trailing column axis."""
+    bg = _as_plane_stack_3d(fac, b)
+    y, _ = _fwd_scan_3d(fac, bg)
+    return _bwd_scan_3d(fac, y).reshape(b.shape)
+
+
+def block_thomas_solve_support_3d(fac, b: torch.Tensor, start: int = 0,
+                                  tail: int = 0) -> torch.Tensor:
+    """3D solve for a rhs KNOWN to be zero on planes ``< start``; ``tail``
+    truncates the backward pass (see :func:`block_thomas_solve_support`)."""
+    l = fac.lsten.shape[0]
+    bg = _as_plane_stack_3d(fac, b)
+    if start <= 0 or start >= l:
+        y, _ = _fwd_scan_3d(fac, bg)
+    else:
+        y_new, _ = _fwd_scan_3d(fac, bg, start=start)
+        y = torch.cat([y_new.new_zeros((start,) + tuple(y_new.shape[1:])), y_new])
+    return _bwd_scan_3d(fac, y, tail).reshape(b.shape)
+
+
+def block_thomas_solve_cached_3d(fac, b: torch.Tensor, tail: int = 0):
+    """3D tail-truncated solve returning the forward-pass stacks
+    (see :func:`block_thomas_solve_cached`)."""
+    bg = _as_plane_stack_3d(fac, b)
+    y, t = _fwd_scan_3d(fac, bg, collect_t=True)
+    return _bwd_scan_3d(fac, y, tail).reshape(b.shape), y, t
+
+
+def block_thomas_solve_resume_3d(fac, b: torch.Tensor, y_cached: torch.Tensor,
+                                 t_cached: torch.Tensor, resume: int) -> torch.Tensor:
+    """3D solve resuming a cached forward pass (see
+    :func:`block_thomas_solve_resume`)."""
+    l = fac.lsten.shape[0]
+    if resume <= 0 or resume >= l:
+        return block_thomas_solve_3d(fac, b)
+    bg = _as_plane_stack_3d(fac, b)
+    k0 = l - resume
+    y_new, _ = _fwd_scan_3d(fac, bg, start=k0, t_start=t_cached[k0 - 1])
+    y = torch.cat([y_cached[:k0].to(y_new.dtype), y_new])
+    return _bwd_scan_3d(fac, y).reshape(b.shape)

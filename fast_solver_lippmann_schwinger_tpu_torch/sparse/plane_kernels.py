@@ -1,0 +1,474 @@
+"""Plane-pivot substitution for the 3D block-Thomas solves: CUDA kernels +
+plain twins.
+
+Counterpart of the JAX package's ``sparse/pallas_plane.py``.  A 3D stencil
+matrix is block tridiagonal over its z-planes; its factorization
+(``sparse/direct.py:factor_stencil_3d``) keeps one dense (mn x mn) pivot
+inverse per plane and the 9-tap in-plane couplings between planes.  The
+substitution passes stream those planes, and three TPU kernels are rewritten
+by hand for Hopper in CUDA C++:
+
+* ``csrc/plane_fwd.cu``: one whole forward pass over a slab's planes
+  (``_fwd_slab_kernel``), with ``start``, an initial carry and the t stack;
+* ``csrc/plane_bwd.cu``: one whole backward pass (``_bwd_slab_kernel``),
+  with ``tail``;
+* ``csrc/plane_apply.cu``: one plane apply ``[Yr; Yi] @ P[k]``
+  (``_plane_kernel``), the per-plane branch of the scans for stacks too wide
+  for the fused passes.
+
+The shared body and the design note are in ``csrc/plane_pass.cuh``.
+
+Storage (the port's own layout, as ``sparse/thomas_kernels.py``): the pivot
+inverses of all planes of all slabs form one flat stack, TRANSPOSED, in bf16
+real and imaginary planes, padded to ``ld = round_up(mn, 8)`` (not the TPU's
+128 lanes) and tile-major, ``p_re[s, t, i_in, l] = Re Cinv_s^T[i_in, 8 t + l]``.
+Right-hand sides ride as f32 rows stacked ``[re_0..re_{r-1};
+im_0..im_{r-1}]``; the in-plane coupling stencils as packed flat weight rows
+(``_pack_sten_rows``) that are zero wherever a tap leaves the plane.
+
+Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
+plain PyTorch version only for a tensor that lies on the CPU.  On the card the
+kernels take r = 1 or 2 right-hand sides.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
+    LEAD_MULTIPLE,
+    _round_up,
+    dense_planes,
+    tile_planes,
+)
+
+MAX_RHS = 2                  # right-hand sides per launch (csrc: kMaxRhs)
+TAPS = 9
+# shared memory a block of the fused passes needs (csrc: pass_smem_bytes): the
+# ring of 4 chunks x 2 planes x 256 rows x 16 B, the staged y_p (2r x ld
+# floats) and the reduction; an H100 grants a block at most 232,448 bytes
+_RING_BYTES = 4 * 2 * 256 * 16
+SMEM_PER_BLOCK = 232_448
+
+_P, _I = cuda_build.PTR, cuda_build.INT
+cuda_build.register("plane_fwd", "plane_forward", [_P] * 8 + [_I] * 7 + [_P])
+cuda_build.register("plane_bwd", "plane_backward", [_P] * 6 + [_I] * 7 + [_P])
+cuda_build.register("plane_apply", "plane_apply", [_P] * 4 + [_I] * 4 + [_P])
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneStack:
+    """Flat (slab * plane) stack of transposed plane-pivot inverses.
+
+    Counterpart of the JAX package's ``PallasPlaneStack`` with bf16 storage:
+    ``p_*[f]`` holds ``Cinv[f // l1][f % l1]`` transposed, tile-major
+    (see :func:`~.thomas_kernels.tile_planes`); padding is zero.
+    """
+
+    p_re: torch.Tensor    # (SL, ld/8, ld, 8) bfloat16
+    p_im: torch.Tensor
+    mn: int               # true plane size
+    l1: int               # planes per slab
+
+    @property
+    def ld(self) -> int:
+        return self.p_re.shape[2]
+
+    @property
+    def n_planes(self) -> int:
+        return self.p_re.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class PlaneSlabView:
+    """One slab's factorization view: the shared plane stack, this slab's
+    inter-plane couplings and its first plane in the stack.  Drop-in for the
+    ``direct.py`` 3D scans (which read ``lsten``/``usten`` and call
+    ``_pivot_apply_3d`` per plane).
+
+    ``lrows``/``urows`` are the couplings packed as the fused kernels read
+    them (:func:`_pack_sten_rows`), once, at construction.  ``fused=False``
+    sends the scans through the per-plane branch (one ``plane_apply`` per
+    plane) whatever the stack's width.
+    """
+
+    stack: PlaneStack
+    lsten: torch.Tensor           # (l1, m, n, 3, 3) couplings to plane p-1
+    usten: torch.Tensor           # (l1, m, n, 3, 3) couplings to plane p+1
+    base: int = 0                 # slab * l1
+    fused: bool = True
+    lrows: torch.Tensor | None = None    # (l1, 2, 9, ld) float32
+    urows: torch.Tensor | None = None
+
+    def __post_init__(self):
+        if self.lrows is None:
+            object.__setattr__(self, "lrows", _pack_sten_rows(self.lsten, self.stack.ld))
+        if self.urows is None:
+            object.__setattr__(self, "urows", _pack_sten_rows(self.usten, self.stack.ld))
+
+
+def build_plane_stack(fac, batched: bool = True) -> PlaneStack:
+    """Convert a 3D plane factorization (full or bf16 storage, with a leading
+    slab axis when ``batched``) to the kernels' stack layout.
+
+    Full pivots are rounded complex -> f32 -> bf16, as the JAX package
+    rounds them, so the planes are bit-equal to its stack away from the
+    padding.  Planes are packed one at a time, which bounds the temporaries.
+    """
+    if hasattr(fac, "q_re"):
+        raise NotImplementedError(
+            "int8 plane storage is not ported yet (ROADMAP.md, Queue 2 item 8)"
+        )
+    if hasattr(fac, "cinv_re"):
+        c_re, c_im = fac.cinv_re, fac.cinv_im
+    else:
+        c_re, c_im = fac.cinv, None
+    if not batched:
+        c_re = c_re[None]
+        c_im = None if c_im is None else c_im[None]
+    S, l1, mn = c_re.shape[0], c_re.shape[1], c_re.shape[2]
+    ld = _round_up(mn, LEAD_MULTIPLE)
+    tiles = ld // LEAD_MULTIPLE
+    device = c_re.device
+    p_re = torch.empty((S * l1, tiles, ld, LEAD_MULTIPLE), dtype=torch.bfloat16, device=device)
+    p_im = torch.empty_like(p_re)
+    dense = torch.zeros((ld, ld), dtype=torch.bfloat16, device=device)
+    for f in range(S * l1):
+        s, k = divmod(f, l1)
+        if c_im is None:
+            parts = (c_re[s, k].real.float(), c_re[s, k].imag.float())
+        else:
+            parts = (c_re[s, k], c_im[s, k])
+        for dst, part in zip((p_re, p_im), parts):
+            dense[:mn, :mn] = part.T.to(torch.bfloat16)
+            dst[f] = tile_planes(dense)
+    return PlaneStack(p_re=p_re, p_im=p_im, mn=mn, l1=l1)
+
+
+def plane_view(fac) -> PlaneSlabView:
+    """The view of one unbatched 3D factorization (full or bf16 pivots) with
+    its pivots packed as a plane stack."""
+    return PlaneSlabView(stack=build_plane_stack(fac, batched=False),
+                         lsten=fac.lsten, usten=fac.usten)
+
+
+def _pack_sten_rows(sten: torch.Tensor, ld: int) -> torch.Tensor:
+    """(P, a, b, 3, 3) complex in-plane coupling stencils -> (P, 2, 9, ld)
+    f32 flat weight rows, zeroed where tap targets fall outside the plane."""
+    P, a, b = sten.shape[0], sten.shape[1], sten.shape[2]
+    w = sten.permute(0, 3, 4, 1, 2)                  # (P, 3, 3, a, b)
+    jj = np.arange(a)[:, None]
+    ii = np.arange(b)[None, :]
+    masks = np.zeros((3, 3, a, b), bool)
+    for dj in range(3):
+        for di in range(3):
+            tj, ti = jj + dj - 1, ii + di - 1
+            masks[dj, di] = (tj >= 0) & (tj < a) & (ti >= 0) & (ti < b)
+    w = torch.where(torch.as_tensor(masks, device=sten.device)[None], w, 0)
+    w = w.reshape(P, TAPS, a * b)
+    w = torch.stack([w.real.float(), w.imag.float()], dim=1)   # (P, 2, 9, mn)
+    return F.pad(w, (0, ld - a * b)).contiguous()
+
+
+def _rows_of(bg: torch.Tensor, ld: int) -> torch.Tensor:
+    """(P, mn[, r]) complex -> (P, 2r, ld) f32 stacked [re rows; im rows]."""
+    P, mn = bg.shape[0], bg.shape[1]
+    b2 = bg.reshape(P, mn, -1)
+    rows = torch.cat([b2.real, b2.imag], dim=-1).float().transpose(1, 2)   # (P, 2r, mn)
+    return F.pad(rows, (0, ld - mn)).contiguous()
+
+
+def _unrows(rows: torch.Tensor, mn: int, dtype, shape) -> torch.Tensor:
+    r = rows.shape[1] // 2
+    x = torch.complex(rows[:, :r, :mn], rows[:, r:, :mn]).to(dtype)
+    return x.transpose(1, 2).reshape(shape)
+
+
+def fused_fits(stack: PlaneStack, r: int) -> bool:
+    """Whether the fused passes take ``r`` right-hand sides on this stack:
+    r <= 2, and the staged y_p with the pivot-column ring fits one block's
+    shared memory on an H100 (ld <= 12448 at r = 2, 24928 at r = 1).  Other
+    stacks go through the per-plane branch, which takes any width.  The
+    answer depends on shapes only, so the CPU and the card take the same
+    branch."""
+    smem = _RING_BYTES + 4 * 2 * r * stack.ld + 4 * 4 * 2 * r * LEAD_MULTIPLE
+    return r <= MAX_RHS and smem <= SMEM_PER_BLOCK
+
+
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU tests; yardstick on the card)
+# ---------------------------------------------------------------------------
+
+
+def _sten_apply_rows(w: torch.Tensor, t: torch.Tensor, n: int, mn: int):
+    """9-tap in-plane stencil on stacked [re; im] rows: w (2, 9, ld) packed by
+    :func:`_pack_sten_rows`, t (2r, ld); returns (accr, acci).  Lane f takes
+    ``t[f + dj n + di]``, zero outside [0, mn) (where the weight is zero)."""
+    r = t.shape[0] // 2
+    ld = t.shape[1]
+    tp = F.pad(t[:, :mn], (n + 1, ld - mn + n + 1))
+    accr = torch.zeros_like(t[:r])
+    acci = torch.zeros_like(t[:r])
+    d = 0
+    for dj in (-1, 0, 1):
+        for di in (-1, 0, 1):
+            off = n + 1 + dj * n + di
+            s = tp[:, off : off + ld]
+            sr, si = s[:r], s[r:]
+            wr, wi = w[0, d][None, :], w[1, d][None, :]
+            accr = accr + wr * sr - wi * si
+            acci = acci + wr * si + wi * sr
+            d += 1
+    return accr, acci
+
+
+def _dot_plane(y: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor) -> torch.Tensor:
+    """[Yr; Yi] @ P with complex recombination; y (2r, ld) f32, tile-major
+    (ld/8, ld, 8) bf16 planes widened to dense f32 copies."""
+    r = y.shape[0] // 2
+    z1 = y @ dense_planes(pre).float()
+    z2 = y @ dense_planes(pim).float()
+    return torch.cat([z1[:r] - z2[r:], z1[r:] + z2[:r]], dim=0)
+
+
+def plane_apply_rows_plain(stack: PlaneStack, idx: int, rows: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`plane_apply_rows`."""
+    return _dot_plane(rows, stack.p_re[idx], stack.p_im[idx])
+
+
+def plane_forward_plain(stack: PlaneStack, b4, w4, n: int, base: int = 0, start: int = 0,
+                        t_init=None, out=None, collect_t: bool = True):
+    """Plain version of :func:`plane_forward`: a Python loop over the planes
+    with ``torch.matmul``."""
+    if out is None:
+        out = (torch.zeros_like(b4), torch.zeros_like(b4) if collect_t else None)
+    y4, t4 = out
+    t = t_init
+    for p in range(start, b4.shape[0]):
+        y = b4[p].clone()
+        y[:, stack.mn:] = 0
+        if t is not None:
+            accr, acci = _sten_apply_rows(w4[p], t, n, stack.mn)
+            y = y - torch.cat([accr, acci], dim=0)
+        t = _dot_plane(y, stack.p_re[base + p], stack.p_im[base + p])
+        y4[p] = y
+        if t4 is not None:
+            t4[p] = t
+    return y4, t4
+
+
+def plane_backward_plain(stack: PlaneStack, y4, w4, n: int, base: int = 0, start: int = 0,
+                         out=None):
+    """Plain version of :func:`plane_backward`."""
+    x4 = out if out is not None else torch.zeros_like(y4)
+    x = None
+    for p in range(y4.shape[0] - 1, start - 1, -1):
+        w = y4[p].clone()
+        w[:, stack.mn:] = 0
+        if x is not None:
+            accr, acci = _sten_apply_rows(w4[p], x, n, stack.mn)
+            w = w - torch.cat([accr, acci], dim=0)
+        x = _dot_plane(w, stack.p_re[base + p], stack.p_im[base + p])
+        x4[p] = x
+    return x4
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_f32(name: str, t: torch.Tensor, shape, device):
+    if (t.dtype != torch.float32 or tuple(t.shape) != tuple(shape)
+            or t.device != device or not t.is_contiguous()):
+        raise ValueError(f"{name} must be a contiguous float32 tensor of shape "
+                         f"{tuple(shape)} on {device}")
+
+
+def _check_stack(stack: PlaneStack, device, planes: range):
+    for t in (stack.p_re, stack.p_im):
+        if t.dtype != torch.bfloat16 or t.device != device or not t.is_contiguous():
+            raise ValueError("pivot planes must be contiguous bfloat16 tensors on "
+                             f"{device}")
+    if planes and (planes.start < 0 or planes[-1] >= stack.n_planes):
+        raise ValueError(f"pivot planes {planes} outside the stack of {stack.n_planes}")
+
+
+def _check_rhs(rows: torch.Tensor, stack: PlaneStack) -> int:
+    if rows.ndim < 2 or rows.shape[-1] != stack.ld or rows.shape[-2] % 2:
+        raise ValueError(f"rows {tuple(rows.shape)} must be (..., 2r, {stack.ld})")
+    r = rows.shape[-2] // 2
+    if rows.is_cuda and not 1 <= r <= MAX_RHS:
+        raise ValueError(
+            f"the plane kernels take 1..{MAX_RHS} right-hand sides per call on the "
+            f"card, got {r}; more are queued in ROADMAP.md (Queue 2 item 9)"
+        )
+    return r
+
+
+def _raise_on(err: int, what: str):
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+def plane_apply_rows(stack: PlaneStack, idx: int, rows: torch.Tensor) -> torch.Tensor:
+    """``[Yr; Yi] @ P[idx]`` with complex recombination: rows (2r, ld) f32 ->
+    (2r, ld) f32.  ``idx`` is the flat plane index in the stack."""
+    r = _check_rhs(rows, stack)
+    _check_f32("rows", rows, (2 * r, stack.ld), rows.device)
+    _check_stack(stack, rows.device, range(idx, idx + 1))
+    if not rows.is_cuda:
+        return plane_apply_rows_plain(stack, idx, rows)
+    out = torch.empty_like(rows)
+    err = cuda_build.load("plane_apply")(
+        rows.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(), out.data_ptr(),
+        stack.mn, stack.ld, r, idx, torch.cuda.current_stream(rows.device).cuda_stream,
+    )
+    _raise_on(err, "plane_apply")
+    plane_apply_rows.launches += 1
+    return out
+
+
+def plane_forward(stack: PlaneStack, b4: torch.Tensor, w4: torch.Tensor, n: int,
+                  base: int = 0, start: int = 0, t_init: torch.Tensor | None = None,
+                  out=None, collect_t: bool = True):
+    """Forward substitution over planes ``start..l-1`` of one slab in ONE
+    launch: ``y_p = b_p - S_p(t_{p-1})``, ``t_p = y_p . P[base + p]``, from
+    the carry ``t_init`` (2r, ld) = ``t_{start-1}`` (zero when ``None``).
+
+    ``b4`` (l, 2r, ld) f32 rows, ``w4`` (l, 2, 9, ld) packed couplings to the
+    plane before, ``n`` the plane's fast axis.  Returns ``(y4, t4)``, each
+    (l, 2r, ld); ``t4`` is ``None`` unless ``collect_t`` (the kernel then
+    keeps its carry in a one-plane scratch).  Planes ``< start``: the kernel
+    neither reads nor writes them; with ``out=(y4, t4)`` (``t4`` a stack or
+    ``None``, which decides ``collect_t``) planes ``>= start`` are written IN
+    PLACE and the others keep what the caller put there, without ``out`` the
+    stacks are new and zero there.  Padding lanes of ``t_init`` count as
+    zero."""
+    r = _check_rhs(b4, stack)
+    l = b4.shape[0]
+    dev = b4.device
+    _check_f32("b4", b4, (l, 2 * r, stack.ld), dev)
+    _check_f32("w4", w4, (l, 2, TAPS, stack.ld), dev)
+    _check_stack(stack, dev, range(base + start, base + l))
+    if not 0 <= start < l:
+        raise ValueError(f"start={start} outside [0, {l})")
+    if t_init is not None:
+        _check_f32("t_init", t_init, (2 * r, stack.ld), dev)
+    if out is None:
+        out = (torch.empty_like(b4), torch.empty_like(b4) if collect_t else None)
+        if start:
+            for s in out:
+                if s is not None:
+                    s[:start] = 0
+    y4, t4 = out
+    _check_f32("out[0]", y4, b4.shape, dev)
+    if t4 is not None:
+        _check_f32("out[1]", t4, b4.shape, dev)
+    if not b4.is_cuda:
+        return plane_forward_plain(stack, b4, w4, n, base, start, t_init, out)
+    carry = None if t4 is not None else torch.empty((2 * r, stack.ld), dtype=torch.float32,
+                                                    device=dev)
+    err = cuda_build.load("plane_fwd")(
+        b4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
+        None if t_init is None else t_init.data_ptr(), y4.data_ptr(),
+        None if t4 is None else t4.data_ptr(), None if carry is None else carry.data_ptr(),
+        l, stack.mn, n, stack.ld, r, base, start, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "plane_forward")
+    plane_forward.launches += 1
+    return out
+
+
+def plane_backward(stack: PlaneStack, y4: torch.Tensor, w4: torch.Tensor, n: int,
+                   base: int = 0, start: int = 0, out=None) -> torch.Tensor:
+    """Backward substitution over planes ``l-1`` down to ``start`` of one slab
+    in ONE launch: ``x_p = (y_p - S'_p(x_{p+1})) . P[base + p]``, ``x_l = 0``.
+
+    ``w4`` holds the packed couplings to the plane after.  Returns the x
+    stack (l, 2r, ld): ``out`` written in place on planes ``>= start`` when
+    given, else a new stack that is zero on planes ``< start``."""
+    r = _check_rhs(y4, stack)
+    l = y4.shape[0]
+    dev = y4.device
+    _check_f32("y4", y4, (l, 2 * r, stack.ld), dev)
+    _check_f32("w4", w4, (l, 2, TAPS, stack.ld), dev)
+    _check_stack(stack, dev, range(base + start, base + l))
+    if not 0 <= start < l:
+        raise ValueError(f"start={start} outside [0, {l})")
+    if out is None:
+        out = torch.empty_like(y4)
+        if start:
+            out[:start] = 0
+    _check_f32("out", out, y4.shape, dev)
+    if not y4.is_cuda:
+        return plane_backward_plain(stack, y4, w4, n, base, start, out)
+    scratch = torch.empty((2 * r, stack.ld), dtype=torch.float32, device=dev)
+    err = cuda_build.load("plane_bwd")(
+        y4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
+        scratch.data_ptr(), out.data_ptr(), l, stack.mn, n, stack.ld, r, base, start,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "plane_backward")
+    plane_backward.launches += 1
+    return out
+
+
+# launch counts: one per wrapper call that launched its kernel
+plane_apply_rows.launches = 0
+plane_forward.launches = 0
+plane_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# The scans' entry points (``direct.py`` dispatches here for a view)
+# ---------------------------------------------------------------------------
+
+
+def plane_apply(view, k: int, y: torch.Tensor) -> torch.Tensor:
+    """``C_k^{-1} y`` through the stack; ``view`` is a :class:`PlaneSlabView`
+    (or a bare stack with base 0), ``k`` the plane index within the slab,
+    ``y`` (mn[, r]) complex."""
+    stack, base = (view.stack, view.base) if hasattr(view, "stack") else (view, 0)
+    mn = stack.mn
+    y2 = y.reshape(mn, -1)
+    r = y2.shape[1]
+    rows = _rows_of(y2[None], stack.ld)[0]
+    z = plane_apply_rows(stack, base + k, rows)
+    out = torch.complex(z[:r, :mn].T, z[r:, :mn].T).to(y.dtype)
+    return out.reshape(y.shape)
+
+
+def fwd_scan_fused(view: PlaneSlabView, bg: torch.Tensor, start: int = 0, t_start=None,
+                   collect_t: bool = False):
+    """Fused forward substitution over planes ``start..l-1`` of one slab:
+    drop-in for ``direct._fwd_scan_3d`` on a :class:`PlaneSlabView`; returns
+    ``(y stack, t stack or None)`` over those planes, in plane order."""
+    stack = view.stack
+    l = view.lsten.shape[0]
+    mn, ld = stack.mn, stack.ld
+    dtype = view.lsten.dtype
+    rows = _rows_of(bg, ld)
+    t0 = None if t_start is None else _rows_of(t_start[None], ld)[0]
+    y4, t4 = plane_forward(stack, rows, view.lrows, view.lsten.shape[2], view.base, start, t0,
+                           collect_t=collect_t)
+    shape = (l - start,) + tuple(bg.shape[1:])
+    y = _unrows(y4[start:], mn, dtype, shape)
+    return y, (_unrows(t4[start:], mn, dtype, shape) if collect_t else None)
+
+
+def bwd_scan_fused(view: PlaneSlabView, y: torch.Tensor, tail: int = 0) -> torch.Tensor:
+    """Fused backward substitution: drop-in for ``direct._bwd_scan_3d`` on a
+    :class:`PlaneSlabView`; ``0 < tail < l`` computes only the last planes
+    (zeros elsewhere, exact: the recursion starts at the true last plane)."""
+    stack = view.stack
+    l = view.usten.shape[0]
+    start = 0 if tail <= 0 or tail >= l else l - tail
+    x4 = plane_backward(stack, _rows_of(y, stack.ld), view.urows, view.usten.shape[2],
+                        view.base, start)
+    return _unrows(x4, stack.mn, view.usten.dtype, tuple(y.shape))

@@ -12,7 +12,8 @@ directly (``sparse/direct.py``).
 
 Offsets convention: ``values[j, i, dj, di]`` is the coefficient coupling node
 (row) ``(j, i)`` to node (column) ``(j + dj - 1, i + di - 1)``; j is the slab
-axis (y in 2D), i is x.
+axis (y in 2D), i is x.  In 3D (``StencilMatrix3D``) the rows are 3x3x3
+stencils, ``values[p, j, i, dk, dj, di]``, with p the z-plane.
 """
 
 from __future__ import annotations
@@ -108,4 +109,105 @@ class StencilMatrix2D:
                         jj, ii = j + dj - 1, i + di - 1
                         if 0 <= jj < m and 0 <= ii < n:
                             out[row, jj * n + ii] = vals[j, i, dj, di]
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class StencilMatrix3D:
+    """3x3x3 stencil rows on an (l, m, n) grid (27 classes in the reference,
+    ``src/SparsifyingMatrix3D.jl``): ``values[p, j, i, dk, dj, di]`` couples
+    node (p, j, i) to node (p + dk - 1, j + dj - 1, i + di - 1)."""
+
+    values: torch.Tensor   # (l, m, n, 3, 3, 3) complex
+
+    @property
+    def l(self) -> int:
+        return self.values.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.values.shape[1]
+
+    @property
+    def n(self) -> int:
+        return self.values.shape[2]
+
+    @property
+    def shape(self):
+        size = self.l * self.m * self.n
+        return (size, size)
+
+    def matvec(self, u: torch.Tensor) -> torch.Tensor:
+        """``y = S u``; u flat, (l, m, n), or with trailing RHS columns
+        (l*m*n, r) / (l, m, n, r).
+
+        One product of the stencil field with the 3x3x3 windows of the
+        zero-padded field and one sum over the 27 taps: three device calls
+        where 27 shifted multiply-adds would take 54 (the preconditioner
+        apply calls this once, and on the card its host time was the
+        largest part of the apply; ``PERF.md``)."""
+        l, m, n = self.l, self.m, self.n
+        extra = tuple(u.shape[1:] if u.ndim > 1 and u.shape[0] == l * m * n
+                      else u.shape[3:])
+        u3 = u.reshape((l, m, n) + extra)
+        up = F.pad(u3, (0, 0) * len(extra) + (1, 1, 1, 1, 1, 1))
+        # windows[p, j, i, ..., dk, dj, di] = u[p + dk - 1, j + dj - 1, i + di - 1, ...]
+        windows = up.unfold(0, 3, 1).unfold(1, 3, 1).unfold(2, 3, 1)
+        vals = self.values.reshape((l, m, n) + (1,) * len(extra) + (3, 3, 3))
+        return (vals * windows).sum((-3, -2, -1)).reshape(u.shape)
+
+    def __matmul__(self, u):
+        return self.matvec(u)
+
+    def matrix_transpose(self) -> "StencilMatrix3D":
+        """True matrix transpose: the coefficient coupling row node x to
+        column node x + o moves to row x + o, offset -o."""
+        l, m, n = self.l, self.m, self.n
+        vp = F.pad(self.values, (0, 0, 0, 0, 0, 0, 1, 1, 1, 1, 1, 1))
+        out = torch.zeros_like(self.values)
+        for dk in range(3):
+            for dj in range(3):
+                for di in range(3):
+                    out[:, :, :, dk, dj, di] = vp[
+                        dk : dk + l, dj : dj + m, di : di + n, 2 - dk, 2 - dj, 2 - di
+                    ]
+        return StencilMatrix3D(values=out)
+
+    def scale_columns(self, d: torch.Tensor) -> "StencilMatrix3D":
+        """``S @ diag(d)`` for a grid field d (l, m, n): column scaling
+        (``Msp = As + k^2 (AG) diag(nu)``)."""
+        l, m, n = self.l, self.m, self.n
+        dp = F.pad(d.reshape(l, m, n).to(self.values.dtype), (1, 1, 1, 1, 1, 1))
+        cols = torch.stack([
+            torch.stack([
+                torch.stack([dp[dk : dk + l, dj : dj + m, di : di + n] for di in range(3)],
+                            dim=-1)
+                for dj in range(3)
+            ], dim=-2)
+            for dk in range(3)
+        ], dim=-3)           # (l, m, n, 3, 3, 3) value of d at each column node
+        return StencilMatrix3D(values=self.values * cols)
+
+    def __add__(self, other: "StencilMatrix3D") -> "StencilMatrix3D":
+        return StencilMatrix3D(values=self.values + other.values)
+
+    def __mul__(self, scalar) -> "StencilMatrix3D":
+        return StencilMatrix3D(values=self.values * scalar)
+
+    __rmul__ = __mul__
+
+    def to_dense(self) -> np.ndarray:
+        """Dense (N, N) numpy matrix: test oracle only."""
+        l, m, n = self.l, self.m, self.n
+        vals = self.values.detach().cpu().numpy()
+        out = np.zeros((l * m * n, l * m * n), dtype=vals.dtype)
+        p, j, i = np.meshgrid(np.arange(l), np.arange(m), np.arange(n), indexing="ij")
+        for dk in range(3):
+            for dj in range(3):
+                for di in range(3):
+                    pp, jj, ii = p + dk - 1, j + dj - 1, i + di - 1
+                    keep = ((pp >= 0) & (pp < l) & (jj >= 0) & (jj < m)
+                            & (ii >= 0) & (ii < n))
+                    out[((p * m + j) * n + i)[keep], ((pp * m + jj) * n + ii)[keep]] = (
+                        vals[:, :, :, dk, dj, di][keep])
         return out

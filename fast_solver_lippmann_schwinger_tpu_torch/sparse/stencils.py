@@ -12,10 +12,10 @@ Classes are enumerated generically as products of per-axis categories
 (lo/mid/hi), each class's stencil row is computed once on the host from
 analytic Duan-Rokhlin Green's rows (float64 numpy/SciPy), and the result is
 scattered into a dense stencil field (``StencilMatrix2D``) by per-class
-masks: no COO/CSC assembly.  The JAX package's other sampler, unit impulses
-through the fast operator with the Gram matrices on the device
-(``build_annihilator_classes_conv``), serves its 3D path and is not ported
-yet (``ROADMAP.md``).
+masks: no COO/CSC assembly.  The other sampler, unit impulses through the
+fast operator with the Gram matrices on the device
+(``build_annihilator_classes_conv``), serves the 3D path (27 classes) and the
+``conv_op=`` branch in 2D.
 
 The annihilator row's overall phase/scale is arbitrary (an SVD gauge); it is
 consistent between ``A`` and ``A G`` rows, which is all the preconditioner
@@ -34,6 +34,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import resolve_device, to_t
 from fast_solver_lippmann_schwinger_tpu_torch.ops import greens
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import (
     StencilMatrix2D,
+    StencilMatrix3D,
 )
 
 # per-axis categories: (name, allowed offsets, representative index fn,
@@ -126,6 +127,91 @@ def build_annihilator_classes(
     return classes
 
 
+def _annihilator_from_gram(c_far: np.ndarray, g_near: np.ndarray):
+    """(a_row, ag_row) from the far-field Gram matrix and the near block.
+
+    The smallest-eigenvalue eigenvector of ``C = W W^H`` equals the last left
+    singular vector of ``W`` (up to phase: a gauge the preconditioner is
+    invariant to, see the module docstring).  Host ``eigh`` in complex128."""
+    c = np.asarray(c_far, dtype=np.complex128)
+    c = 0.5 * (c + np.conj(c.T))          # exact Hermitian for eigh
+    _, vecs = np.linalg.eigh(c)
+    a_row = np.conj(vecs[:, 0])
+    ag_row = a_row @ np.asarray(g_near, dtype=np.complex128)
+    return a_row, ag_row
+
+
+def _class_grams_device(rows, row_idx, col_idx, col_valid):
+    """Per class, the s_max x s_max far-field Gram ``C = G G^H - G_near
+    G_near^H`` and the near block ``G_near``, on the rows' device.
+
+    ``rows`` (U, N) never leaves the device: only the small Gram and near
+    blocks do.  The products run in the rows' own precision: the subtraction
+    is a cancellation, which is why the JAX package asks for
+    ``Precision.HIGHEST`` here and why the port leaves float32 matmuls in
+    full float32 (``torch.backends.cuda.matmul.allow_tf32`` False,
+    ``torch.get_float32_matmul_precision() == "highest"``, the defaults)."""
+    ncls, s_max = row_idx.shape
+    c_far = torch.empty((ncls, s_max, s_max), dtype=rows.dtype, device=rows.device)
+    g_near = torch.empty_like(c_far)
+    for c in range(ncls):
+        g = rows[row_idx[c]]                     # (s_max, N)
+        near = g[:, col_idx[c]]                  # (s_max, s_max)
+        # padded column slots repeat column 0: mask them so the near-field
+        # subtraction counts each true stencil column exactly once
+        near_m = torch.where(col_valid[c][None, :], near, torch.zeros_like(near))
+        c_far[c] = g @ g.conj().T - near_m @ near_m.conj().T
+        g_near[c] = near
+    return c_far, g_near
+
+
+def build_annihilator_classes_conv(conv_op, shape: Sequence[int]):
+    """Annihilator construction through a fast operator
+    (``entriesSparseAConv``/``entriesSparseA3D`` semantics,
+    ``src/SparsifyingMatrix2D.jl:104-201``,
+    ``src/SparsifyingMatrix3D.jl:1136-1408``): Green's rows are sampled by
+    unit impulses on the operator's device (``sample_g_columns``), each
+    class's far-field Gram accumulates there, and only the small Gram and
+    near blocks (27 x 27 x 27 at most) cross to the host for a complex128
+    ``eigh``."""
+    from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import sample_g_columns
+
+    shape = tuple(shape)
+    class_defs = _class_defs(shape)
+    uniq, inverse = _uniq_indices(class_defs)
+    rows = sample_g_columns(conv_op, uniq)          # (U, N) on the device
+
+    s_max = max(len(flat) for _, _, flat in class_defs)
+    ncls = len(class_defs)
+    row_idx = np.zeros((ncls, s_max), dtype=np.int64)
+    col_idx = np.zeros((ncls, s_max), dtype=np.int64)
+    col_valid = np.zeros((ncls, s_max), dtype=bool)
+    pos = 0
+    for c, (_, _, flat) in enumerate(class_defs):
+        s = len(flat)
+        row_idx[c, :s] = inverse[pos : pos + s]
+        col_idx[c, :s] = flat
+        col_valid[c, :s] = True
+        pos += s
+    # padding rows repeat entry 0; they only touch Gram/near entries at
+    # indices >= s, which the per-class [:s, :s] slice below never reads
+    dev = rows.device
+    c_far, g_near = _class_grams_device(
+        rows, torch.as_tensor(row_idx, device=dev), torch.as_tensor(col_idx, device=dev),
+        torch.as_tensor(col_valid, device=dev),
+    )
+    del rows
+    c_far_h = c_far.cpu().numpy()
+    g_near_h = g_near.cpu().numpy()
+
+    classes = []
+    for c, (cats, offsets, flat) in enumerate(class_defs):
+        s = len(flat)
+        a_row, ag_row = _annihilator_from_gram(c_far_h[c, :s, :s], g_near_h[c, :s, :s])
+        classes.append(dict(cats=cats, offsets=offsets, a_row=a_row, ag_row=ag_row))
+    return classes
+
+
 def _assemble_fields(classes, shape, stencil_extent=3):
     """Scatter per-class rows into dense stencil fields (numpy, setup time)."""
     ndim = len(shape)
@@ -171,9 +257,11 @@ def build_sparse_a_ag_2d(
 ):
     """Build the annihilator ``A`` and product ``A G`` as stencil fields.
 
-    Uses direct Duan-Rokhlin Hankel sampling on the host
-    (``entriesSparseA``/``entriesSparseG`` semantics,
-    ``src/SparsifyingMatrix2D.jl:5-102,205-275``).
+    With ``conv_op=None`` uses direct Duan-Rokhlin Hankel sampling on the
+    host (``entriesSparseA``/``entriesSparseG`` semantics,
+    ``src/SparsifyingMatrix2D.jl:5-102,205-275``); otherwise samples G by
+    unit impulses through the given fast operator (``entriesSparseAConv``,
+    ``:104-201,278-348``; :func:`build_annihilator_classes_conv`).
 
     With ``return_host=True`` also returns the host numpy fields
     ``(A, AG, a_np, ag_np)``, used by the DDM layer to avoid a device
@@ -182,21 +270,19 @@ def build_sparse_a_ag_2d(
     Returns (A, AG) as ``StencilMatrix2D`` on ``device``.
     """
     device = resolve_device(device)
-    if conv_op is not None:
-        raise NotImplementedError(
-            "impulse sampling through a fast operator is not ported yet "
-            "(ROADMAP.md, Queue 1, slice 3)"
-        )
     if cache_dir is not None:
         raise NotImplementedError(
             "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
         )
     n, m = len(x), len(y)
-    if d0 is None:
-        d0 = greens.duan_rokhlin_d0(k * h)
-    X, Y = np.meshgrid(np.asarray(x), np.asarray(y), indexing="xy")
-    sampler = _sampler_2d_trapezoidal(k, X, Y, d0, h)
-    classes = build_annihilator_classes(sampler, (m, n))
+    if conv_op is not None:
+        classes = build_annihilator_classes_conv(conv_op, (m, n))
+    else:
+        if d0 is None:
+            d0 = greens.duan_rokhlin_d0(k * h)
+        X, Y = np.meshgrid(np.asarray(x), np.asarray(y), indexing="xy")
+        sampler = _sampler_2d_trapezoidal(k, X, Y, d0, h)
+        classes = build_annihilator_classes(sampler, (m, n))
     a_field, ag_field = _assemble_fields(classes, (m, n))
     out = (
         StencilMatrix2D(values=to_tensor(a_field, dtype, device)),
@@ -207,5 +293,42 @@ def build_sparse_a_ag_2d(
 
 def build_msp_2d(a: StencilMatrix2D, ag: StencilMatrix2D, nu, k: float):
     """``Msp = A + k^2 (A G) diag(nu)`` (``examples/example.jl:67``)."""
+    nu_arr = to_tensor(np.asarray(nu), a.values.dtype, a.values.device)
+    return a + (k ** 2) * ag.scale_columns(nu_arr)
+
+
+# -----------------------------------------------------------------------------
+# 3D stencil fields
+# -----------------------------------------------------------------------------
+
+def build_sparse_a_ag_3d(
+    k: float,
+    conv_op,
+    dtype: torch.dtype = torch.complex64,
+    cache_dir: str | None = None,
+    device=None,
+):
+    """3D annihilator fields via impulse sampling through the 3D fast
+    operator (reference ``entriesSparseA3D``/``buildSparseA3DConv``/
+    ``buildSparseAG3DConv``, ``src/SparsifyingMatrix3D.jl:963-1659``).
+
+    Returns (A, AG) as ``StencilMatrix3D`` on ``device`` (the operator's
+    device when ``None``)."""
+    if cache_dir is not None:
+        raise NotImplementedError(
+            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1 slice 9)"
+        )
+    device = conv_op.symbol.device if device is None else resolve_device(device)
+    shape = (conv_op.l, conv_op.m, conv_op.n)
+    classes = build_annihilator_classes_conv(conv_op, shape)
+    a_field, ag_field = _assemble_fields(classes, shape)
+    return (
+        StencilMatrix3D(values=to_tensor(a_field, dtype, device)),
+        StencilMatrix3D(values=to_tensor(ag_field, dtype, device)),
+    )
+
+
+def build_msp_3d(a: StencilMatrix3D, ag: StencilMatrix3D, nu, k: float):
+    """``Msp = A + k^2 (A G) diag(nu)`` in 3D."""
     nu_arr = to_tensor(np.asarray(nu), a.values.dtype, a.values.device)
     return a + (k ** 2) * ag.scale_columns(nu_arr)

@@ -27,33 +27,26 @@ copies coalesce into whole cache lines.
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version only for a tensor that lies on the CPU.  The kernels
 are compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
-root on first use and loaded with ``ctypes``.
+root on first use and loaded with ``ctypes`` (``native/cuda_build.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import shutil
-import subprocess
-from pathlib import Path
 
 import torch
 import torch.nn.functional as F
 
+from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
+
 LEAD_MULTIPLE = 8      # bf16 values per 16-byte load
 MAX_RHS = 2            # right-hand sides per kernel launch (csrc: kMaxRhs)
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_BUILD = Path(__file__).resolve().parents[2] / "build"
-# source name -> (exported launcher, number of pointer arguments before the
-# six ints and the stream)
-_KERNELS = {
-    "thomas_fwd": ("thomas_forward", 7),
-    "thomas_bwd": ("thomas_backward", 6),
-    "thomas_fwd_cached": ("thomas_forward_cached", 8),
-}
-_libs: dict[str, ctypes.CDLL] = {}
+_P, _I = cuda_build.PTR, cuda_build.INT
+# each launcher takes its pointers, six ints and the stream
+cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 7 + [_I] * 6 + [_P])
+cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 6 + [_I] * 6 + [_P])
+cuda_build.register("thomas_fwd_cached", "thomas_forward_cached", [_P] * 8 + [_I] * 6 + [_P])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -151,76 +144,6 @@ def build_thomas_factorization(fac, batched: bool = True,
         cinv_t_re=cre, cinv_t_im=cim,
         lband=_band_pack(lband, ld), uband=_band_pack(uband, ld), n=n,
     )
-
-
-# ---------------------------------------------------------------------------
-# Building and loading the CUDA kernels
-# ---------------------------------------------------------------------------
-
-
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not Path(path).exists():
-        raise RuntimeError(
-            "nvcc not found: the substitution kernels are compiled from "
-            f"{_CSRC} on first use and need the CUDA toolkit"
-        )
-    return path
-
-
-def _stale(name: str) -> bool:
-    so = _BUILD / f"lib{name}.so"
-    if not so.exists():
-        return True
-    newest = max(p.stat().st_mtime for p in _CSRC.iterdir())
-    return so.stat().st_mtime < newest
-
-
-def build_kernels(verbose: bool = False) -> dict[str, str]:
-    """Compile every kernel source that is missing or older than ``csrc/``,
-    one ``nvcc`` per source, all started together.  Returns the compiler's
-    output per source (``-Xptxas -v`` resource usage when ``verbose``)."""
-    todo = [name for name in _KERNELS if _stale(name)]
-    if not todo:
-        return {}
-    nvcc = _nvcc()
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for name in todo:
-        cmd = [
-            nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-            "-O3", "-shared", "-Xcompiler", "-fPIC",
-            "-o", str(_BUILD / f"lib{name}.so"), str(_CSRC / f"{name}.cu"),
-        ]
-        if verbose:
-            cmd[1:1] = ["-Xptxas", "-v"]
-        procs[name] = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-    logs, failed = {}, []
-    for name, proc in procs.items():
-        logs[name], _ = proc.communicate()
-        if proc.returncode != 0:
-            failed.append(name)
-    if failed:
-        raise RuntimeError(
-            "nvcc failed for " + ", ".join(failed) + ":\n"
-            + "\n".join(logs[name] for name in failed)
-        )
-    return logs
-
-
-def _library(name: str) -> ctypes.CDLL:
-    """The loaded shared library of one kernel, built first if need be."""
-    if name not in _libs:
-        build_kernels()
-        lib = ctypes.CDLL(str(_BUILD / f"lib{name}.so"))
-        symbol, n_ptr = _KERNELS[name]
-        fn = getattr(lib, symbol)
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _libs[name] = lib
-    return _libs[name]
 
 
 def _check_rows(fac: ThomasFactorization, s_idx: torch.Tensor, rows: torch.Tensor):
@@ -364,7 +287,7 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     if not b4.is_cuda:
         return forward_substitution_plain(fac, s_idx, b4, start)
     _check_rhs_count(r)
-    fn = _library("thomas_fwd").thomas_forward
+    fn = cuda_build.load("thomas_fwd")
     y4 = torch.empty_like(b4)
     if start:
         y4[:, :start] = 0
@@ -413,7 +336,7 @@ def forward_substitution_cached(fac: ThomasFactorization, s_idx: torch.Tensor,
     if not b4.is_cuda:
         return forward_substitution_cached_plain(fac, s_idx, b4, t_init, start, out)
     _check_rhs_count(r)
-    fn = _library("thomas_fwd_cached").thomas_forward_cached
+    fn = cuda_build.load("thomas_fwd_cached")
     err = fn(
         b4.data_ptr(), fac.lband.data_ptr(), fac.cinv_t_re.data_ptr(),
         fac.cinv_t_im.data_ptr(), s_idx.data_ptr(), t_init.data_ptr(),
@@ -435,7 +358,7 @@ def backward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     if not y4.is_cuda:
         return backward_substitution_plain(fac, s_idx, y4, tail)
     _check_rhs_count(r)
-    fn = _library("thomas_bwd").thomas_backward
+    fn = cuda_build.load("thomas_bwd")
     m = fac.m
     m_eff = m if tail <= 0 or tail >= m else tail
     x4 = torch.empty((B, m_eff, 2 * r, fac.ld), dtype=torch.float32, device=y4.device)

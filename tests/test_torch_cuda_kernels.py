@@ -1,4 +1,5 @@
-"""The CUDA substitution kernels against their plain PyTorch versions.
+"""The CUDA substitution kernels (2D lines and 3D planes) against their plain
+PyTorch versions.
 
 These tests need a CUDA card and ``nvcc`` (a CUDA kernel has no CPU mode) and
 skip without them.  They import nothing of the JAX package, so they run on a
@@ -11,6 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+import dataclasses
+
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
 
 pytestmark = pytest.mark.cuda
@@ -196,3 +201,144 @@ def test_line_too_long_raises(cuda_device, entry):
     with pytest.raises(ValueError, match="too long"):
         fn(fac, s_idx, rows)
     assert fn.launches == before
+
+
+# ---------------------------------------------------------------------------
+# The plane kernels of the 3D solves
+# ---------------------------------------------------------------------------
+
+
+def _random_view(rng, l, m, n, device, slabs=1):
+    """Contracting random plane factors (||P|| ||S|| < 1) in the kernels'
+    layout: ``slabs`` slabs of ``l`` planes, the view of the last one."""
+    mn = m * n
+    ld = tk._round_up(mn, tk.LEAD_MULTIPLE)
+
+    def planes(diag):
+        p = torch.zeros((slabs * l, ld, ld), dtype=torch.bfloat16, device=device)
+        g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+        p[:, :mn, :mn] = (0.1 / mn ** 0.5) * torch.randn((slabs * l, mn, mn), generator=g,
+                                                         device=device)
+        idx = torch.arange(mn, device=device)
+        p[:, idx, idx] += diag
+        return tk.tile_planes(p)
+
+    def sten():
+        s = rng.uniform(-0.05, 0.05, (l, m, n, 3, 3)) + 1j * rng.uniform(-0.05, 0.05, (l, m, n, 3, 3))
+        return torch.as_tensor(s.astype(np.complex64), device=device)
+
+    stack = pk.PlaneStack(p_re=planes(0.2), p_im=planes(0.0), mn=mn, l1=l)
+    return pk.PlaneSlabView(stack=stack, lsten=sten(), usten=sten(), base=(slabs - 1) * l)
+
+
+def _view_to_cpu(view):
+    st = view.stack
+    return pk.PlaneSlabView(stack=pk.PlaneStack(st.p_re.cpu(), st.p_im.cpu(), st.mn, st.l1),
+                            lsten=view.lsten.cpu(), usten=view.usten.cpu(), base=view.base)
+
+
+def _close(got, want):
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("shape", [(5, 5, 7), (3, 48, 48)])
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("start,carry,tail,collect", [(0, False, 0, True), (0, True, 2, False),
+                                                      (2, True, 0, True), (2, False, 1, False)])
+def test_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, collect):
+    """Both fused passes at a small and at the 48^3 plane width (mn = 2304),
+    from a slab that is not the first of its stack, with and without the t
+    stack; planes above ``start`` of caller-given stacks are left alone; one
+    launch per call."""
+    rng = np.random.default_rng(r + 10 * start)
+    l, m, n = shape
+    view = _random_view(rng, l, m, n, cuda_device, slabs=2)
+    cpu = _view_to_cpu(view)
+    st, ld = view.stack, view.stack.ld
+    b = (rng.standard_normal((l, m * n, r)) + 1j * rng.standard_normal((l, m * n, r)))
+    b4 = pk._rows_of(torch.as_tensor(b.astype(np.complex64), device=cuda_device), ld)
+    t0 = None
+    if carry:
+        t0 = torch.zeros((2 * r, ld), device=cuda_device)
+        t0[:, : m * n] = torch.as_tensor(rng.standard_normal((2 * r, m * n)).astype(np.float32))
+    out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0) if collect else None)
+    before = (pk.plane_forward.launches, pk.plane_backward.launches)
+    y4, t4 = pk.plane_forward(st, b4, view.lrows, n, view.base, start, t0, out=out)
+    x4 = pk.plane_backward(st, y4, view.urows, n, view.base, start=tail and l - tail)
+    torch.cuda.synchronize()
+    assert (pk.plane_forward.launches, pk.plane_backward.launches) == (before[0] + 1,
+                                                                       before[1] + 1)
+    y_p, t_p = pk.plane_forward(cpu.stack, b4.cpu(), cpu.lrows, n, cpu.base, start,
+                                None if t0 is None else t0.cpu())
+    x_p = pk.plane_backward(cpu.stack, y4.cpu(), cpu.urows, n, cpu.base, start=tail and l - tail)
+    _close(y4[start:], y_p[start:])
+    _close(x4, x_p)
+    assert bool((y4[:start] == 7.0).all())
+    if collect:
+        _close(t4[start:], t_p[start:])
+        assert bool((t4[:start] == -7.0).all())
+    else:
+        assert t4 is None
+
+
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("mn", [35, 2304, 12456])
+def test_plane_apply_matches_plain(cuda_device, r, mn):
+    """One plane apply, also at a width the fused passes refuse at r = 2."""
+    rng = np.random.default_rng(mn + r)
+    view = _random_view(rng, 1, 1, mn, cuda_device)
+    rows = torch.as_tensor(rng.standard_normal((2 * r, view.stack.ld)).astype(np.float32),
+                           device=cuda_device)
+    rows[:, mn:] = 0
+    before = pk.plane_apply_rows.launches
+    got = pk.plane_apply_rows(view.stack, 0, rows)
+    torch.cuda.synchronize()
+    assert pk.plane_apply_rows.launches == before + 1
+    _close(got, pk.plane_apply_rows_plain(view.stack, 0, rows).cpu())
+    assert pk.fused_fits(view.stack, r) == (mn < 12456 or r == 1)
+
+
+def test_plane_solve_branches_agree(cuda_device):
+    """``block_thomas_solve_3d`` on a view: the fused branch (two launches)
+    and the per-plane branch (2 l launches of ``plane_apply``) agree, and
+    against the plain versions on the CPU."""
+    rng = np.random.default_rng(4)
+    l, m, n = 4, 6, 8
+    view = _random_view(rng, l, m, n, cuda_device)
+    b = torch.as_tensor((rng.standard_normal(l * m * n) + 1j * rng.standard_normal(l * m * n))
+                        .astype(np.complex64), device=cuda_device)
+    before = (pk.plane_forward.launches, pk.plane_backward.launches, pk.plane_apply_rows.launches)
+    x_fused = direct.block_thomas_solve_3d(view, b)
+    x_plane = direct.block_thomas_solve_3d(dataclasses.replace(view, fused=False), b)
+    after = (pk.plane_forward.launches, pk.plane_backward.launches, pk.plane_apply_rows.launches)
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 2 * l)
+    torch.testing.assert_close(x_plane, x_fused, rtol=0, atol=TOL * float(x_fused.abs().max()))
+    _close(x_fused, direct.block_thomas_solve_3d(_view_to_cpu(view), b.cpu()))
+
+
+def test_plane_kernels_never_call_plain_versions(cuda_device, monkeypatch):
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("plane_forward_plain", "plane_backward_plain", "plane_apply_rows_plain"):
+        monkeypatch.setattr(pk, name, boom)
+    rng = np.random.default_rng(0)
+    view = _random_view(rng, 3, 4, 5, cuda_device)
+    b = torch.as_tensor(np.ones((60, 2), np.complex64), device=cuda_device)
+    for v in (view, dataclasses.replace(view, fused=False)):
+        x = direct.block_thomas_solve_3d(v, b)
+        assert x.is_cuda and bool(torch.isfinite(torch.view_as_real(x)).all())
+
+
+@pytest.mark.parametrize("entry", ["forward", "backward", "apply"])
+def test_plane_kernels_refuse_three_right_hand_sides(cuda_device, entry):
+    rng = np.random.default_rng(0)
+    view = _random_view(rng, 2, 4, 5, cuda_device)
+    rows = torch.zeros((2, 6, view.stack.ld), device=cuda_device)
+    with pytest.raises(ValueError, match="right-hand sides"):
+        if entry == "forward":
+            pk.plane_forward(view.stack, rows, view.lrows, 5)
+        elif entry == "backward":
+            pk.plane_backward(view.stack, rows, view.urows, 5)
+        else:
+            pk.plane_apply_rows(view.stack, 0, rows[0])

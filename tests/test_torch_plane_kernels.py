@@ -1,0 +1,230 @@
+"""The plain versions of the plane kernels (one plane apply, the fused
+forward and backward passes) against the JAX package's Pallas kernels in
+interpret mode, on plane stacks carried across from the JAX package, and the
+3D scans through a plane view (support, cached, resumed; fused and per-plane
+branches).  The random stencil is ``tests/test_pallas_plane.py``'s
+(L, M, N = 6, 5, 7).
+
+Tolerances: the planes are the same bf16 numbers on both sides and every sum
+is f32, so the packages differ in summation order only: 1e-5 of the
+max-norm for one apply or pass, 2e-5 for a solve."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fast_solver_lippmann_schwinger_tpu.sparse import direct as jdirect
+from fast_solver_lippmann_schwinger_tpu.sparse import pallas_plane as pp
+from fast_solver_lippmann_schwinger_tpu.sparse.stencil_matrix import (
+    StencilMatrix3D as JStencilMatrix3D,
+)
+from fast_solver_lippmann_schwinger_tpu_torch import convert
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
+
+L, M, N = 6, 5, 7
+MN = M * N
+TOL = 1e-5
+
+
+def _relerr(a, b):
+    a, b = np.asarray(a), np.asarray(b)
+    return float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+
+
+def _rand(rng, shape):
+    return (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+
+
+@pytest.fixture(scope="module")
+def views():
+    """The JAX bf16 plane view and the port's view of the same planes."""
+    rng = np.random.default_rng(9)
+    vals = (rng.standard_normal((L, M, N, 3, 3, 3))
+            + 1j * rng.standard_normal((L, M, N, 3, 3, 3))).astype(np.complex64)
+    vals[:, :, :, 1, 1, 1] += 30.0
+    jfac = jdirect.factor_stencil_3d(JStencilMatrix3D(values=jnp.asarray(vals)), pivot_dtype="bf16")
+    stack = pp.build_plane_stack(jfac, batched=False)
+    jview = pp.PlaneSlabView(stack=stack, lsten=jfac.lsten, usten=jfac.usten,
+                             base=jnp.zeros((), jnp.int32))
+    tview = convert.plane_slab_view(
+        dict(p_re=np.asarray(stack.p_re).view(np.uint16), p_im=np.asarray(stack.p_im).view(np.uint16),
+             scale=np.asarray(stack.scale), mn=stack.mn, l1=stack.l1),
+        np.asarray(jfac.lsten), np.asarray(jfac.usten), device="cpu")
+    return jfac, jview, tview
+
+
+def test_stack_layout(views):
+    """The port's packing of the carried bf16 factorization equals the
+    carried JAX stack bit for bit; weight rows equal the JAX package's
+    packing with its 128-lane padding cut off."""
+    jfac, jview, tview = views
+    fac = convert.factorization_3d(
+        np.asarray(jfac.lsten), np.asarray(jfac.usten),
+        cinv_re=np.asarray(jfac.cinv_re).view(np.uint16),
+        cinv_im=np.asarray(jfac.cinv_im).view(np.uint16), device="cpu")
+    stack = pk.build_plane_stack(fac, batched=False)
+    assert (stack.mn, stack.l1, stack.ld, stack.n_planes) == (MN, L, 40, L)
+    assert tuple(stack.p_re.shape) == (L, 5, 40, 8)
+    for got, want in ((stack.p_re, tview.stack.p_re), (stack.p_im, tview.stack.p_im)):
+        assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    want = np.asarray(pp._pack_sten_rows(jfac.lsten, 128))
+    assert tuple(tview.lrows.shape) == (L, 2, 9, 40)
+    np.testing.assert_array_equal(tview.lrows.numpy(), want[..., :40])
+    assert not want[..., 40:].any()
+    # full pivots are rounded complex -> f32 -> bf16 as in the JAX package:
+    # complex pivots holding bf16 values pack to the same bits
+    def dense(p):
+        return pk.dense_planes(p[:2]).float()[:, :MN, :MN].mT
+
+    full = direct.BlockTridiagFactorization3D(
+        cinv=torch.complex(dense(tview.stack.p_re), dense(tview.stack.p_im)),
+        lsten=fac.lsten[:2], usten=fac.usten[:2])
+    packed = pk.build_plane_stack(full, batched=False)
+    assert torch.equal(packed.p_re.view(torch.int16), tview.stack.p_re[:2].view(torch.int16))
+    assert torch.equal(packed.p_im.view(torch.int16), tview.stack.p_im[:2].view(torch.int16))
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("k", [0, L - 1])
+def test_plane_apply_matches(views, r, k):
+    """Row 10: one plane apply, multi- and single-RHS."""
+    _, jview, tview = views
+    shape = (MN,) if r == 1 else (MN, r)
+    y = _rand(np.random.default_rng(2 + r), shape)
+    want = pp.plane_apply(jview, k, jnp.asarray(y))
+    got = pk.plane_apply(tview, k, torch.as_tensor(y))
+    assert got.shape == y.shape and _relerr(got, want) < TOL
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("start,with_t0", [(0, False), (0, True), (2, False), (3, True)])
+def test_forward_pass_matches(views, r, start, with_t0):
+    """Row 11: the fused forward pass, from ``start`` with and without a
+    carry, collecting the t stack."""
+    _, jview, tview = views
+    rng = np.random.default_rng(10 * r + start)
+    bg = _rand(rng, (L, MN) if r == 1 else (L, MN, r))
+    t0 = _rand(rng, bg.shape[1:]) if with_t0 else None
+    jy, jt = pp.fwd_scan_fused(jview, jnp.asarray(bg), start=start,
+                               t_start=None if t0 is None else jnp.asarray(t0), collect_t=True)
+    ty, tt = pk.fwd_scan_fused(tview, torch.as_tensor(bg), start=start,
+                               t_start=None if t0 is None else torch.as_tensor(t0), collect_t=True)
+    assert ty.shape == tuple(jy.shape) == (L - start,) + bg.shape[1:]
+    assert _relerr(ty, jy) < TOL and _relerr(tt, jt) < TOL
+    y_only, none = pk.fwd_scan_fused(tview, torch.as_tensor(bg), start=start,
+                                     t_start=None if t0 is None else torch.as_tensor(t0))
+    assert none is None and torch.equal(y_only, ty)
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("tail", [0, 2, L])
+def test_backward_pass_matches(views, r, tail):
+    """Row 12: the fused backward pass, full and truncated to ``tail``."""
+    _, jview, tview = views
+    y = _rand(np.random.default_rng(20 + r), (L, MN) if r == 1 else (L, MN, r))
+    want = pp.bwd_scan_fused(jview, jnp.asarray(y), tail=tail)
+    got = pk.bwd_scan_fused(tview, torch.as_tensor(y), tail=tail)
+    assert got.shape == tuple(want.shape) and _relerr(got, want) < TOL
+    if 0 < tail < L:
+        assert not got[: L - tail].any()
+
+
+def test_kernel_wrappers_in_place(views):
+    """The raw wrappers: planes above ``start`` of caller-given stacks are
+    left alone, and the padding lanes of a carry count as zero."""
+    _, _, tview = views
+    st, ld = tview.stack, tview.stack.ld
+    rng = np.random.default_rng(7)
+    b4 = pk._rows_of(torch.as_tensor(_rand(rng, (L, MN, 2))), ld)
+    t0 = torch.as_tensor(rng.standard_normal((4, ld)).astype(np.float32))
+    out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+    y4, t4 = pk.plane_forward(st, b4, tview.lrows, N, start=2, t_init=t0, out=out)
+    assert (y4[:2] == 7).all() and (t4[:2] == -7).all()
+    t0_clean = t0.clone()
+    t0_clean[:, MN:] = 0
+    y4b, t4b = pk.plane_forward(st, b4, tview.lrows, N, start=2, t_init=t0_clean)
+    assert torch.equal(y4[2:], y4b[2:]) and torch.equal(t4[2:], t4b[2:])
+    assert not y4b[2:, :, MN:].any() and not t4b[2:, :, MN:].any()
+    y4c, none = pk.plane_forward(st, b4, tview.lrows, N, start=2, t_init=t0, collect_t=False)
+    assert none is None and torch.equal(y4c[2:], y4[2:])
+    x4 = pk.plane_backward(st, y4b, tview.urows, N, start=3)
+    assert not x4[:3].any() and x4[3:].abs().max() > 0
+    # the launch counts move only where a kernel was launched
+    assert pk.plane_forward.launches == pk.plane_backward.launches == 0
+    with pytest.raises(ValueError):
+        pk.plane_forward(st, b4[:, :, :8], tview.lrows, N)
+    with pytest.raises(ValueError):
+        pk.plane_apply_rows(st, L, b4[0])
+
+
+def test_base_indexes_a_slab_of_a_batched_stack(views):
+    """A two-slab stack: the view of slab 1 (``base = l1``) solves with slab
+    1's planes."""
+    jfac, _, tview = views
+    fac = convert.factorization_3d(
+        np.asarray(jfac.lsten), np.asarray(jfac.usten),
+        cinv_re=np.asarray(jfac.cinv_re).view(np.uint16),
+        cinv_im=np.asarray(jfac.cinv_im).view(np.uint16), device="cpu")
+    two = dataclasses.replace(fac, cinv_re=torch.stack([2 * fac.cinv_re, fac.cinv_re]),
+                              cinv_im=torch.stack([2 * fac.cinv_im, fac.cinv_im]))
+    stack = pk.build_plane_stack(two, batched=True)
+    assert stack.n_planes == 2 * L and stack.l1 == L
+    view1 = pk.PlaneSlabView(stack=stack, lsten=fac.lsten, usten=fac.usten, base=L)
+    b = torch.as_tensor(_rand(np.random.default_rng(8), (L * MN,)))
+    want = direct.block_thomas_solve_3d(tview, b)
+    for v in (view1, dataclasses.replace(view1, fused=False)):
+        assert _relerr(direct.block_thomas_solve_3d(v, b), want) < TOL
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("fused", [True, False])
+def test_scan_variants_match(views, r, fused):
+    """Every entry point the sweeps use, through the port's view (fused or
+    per-plane branch), against the JAX view: support (start/tail), cached +
+    resume, multi-RHS.  At r = 3 the port takes the per-plane branch either
+    way (``fused_fits``)."""
+    _, jview, tview = views
+    view = dataclasses.replace(tview, fused=fused)
+    assert pk.fused_fits(tview.stack, r) == (r <= 2)
+    rng = np.random.default_rng(11 + r)
+    shape = (L * MN,) if r == 1 else (L * MN, r)
+    b = _rand(rng, shape)
+    bz = b.copy()
+    bz[: 2 * MN] = 0
+    tol = 2e-5
+    got = direct.block_thomas_solve_support_3d(view, torch.as_tensor(bz), start=2, tail=3)
+    want = jdirect.block_thomas_solve_support_3d(jview, jnp.asarray(bz), start=2, tail=3)
+    assert _relerr(got, want) < tol
+    tx, ty, tt = direct.block_thomas_solve_cached_3d(view, torch.as_tensor(b), 3)
+    jx, jy, jt = jdirect.block_thomas_solve_cached_3d(jview, jnp.asarray(b), 3)
+    for g, w in ((tx, jx), (ty, jy), (tt, jt)):
+        assert g.shape == tuple(w.shape) and _relerr(g, w) < tol
+    got = direct.block_thomas_solve_resume_3d(view, torch.as_tensor(b), ty, tt, 3)
+    want = jdirect.block_thomas_solve_resume_3d(jview, jnp.asarray(b), jy, jt, 3)
+    assert _relerr(got, want) < tol
+
+
+def test_fused_limits():
+    """The fused passes take r <= 2 and the widths whose staged y_p fits one
+    block's shared memory on an H100; 48^3 (mn = 2304) is well inside."""
+    def stack(ld):
+        return pk.PlaneStack(p_re=torch.empty((1, ld // 8, ld, 8)), p_im=None, mn=ld, l1=1)
+
+    assert pk.fused_fits(stack(2304), 1) and pk.fused_fits(stack(2304), 2)
+    assert pk.fused_fits(stack(12448), 2) and not pk.fused_fits(stack(12456), 2)
+    assert pk.fused_fits(stack(24928), 1) and not pk.fused_fits(stack(24936), 1)
+    assert not pk.fused_fits(stack(64), 3)
+
+
+def test_int8_storage_raises(views):
+    jfac, jview, _ = views
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        pk.build_plane_stack(type("F", (), {"q_re": None})(), batched=False)
+    st = jview.stack
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        convert.plane_stack(np.asarray(st.p_re).view(np.uint16), np.asarray(st.p_im).view(np.uint16),
+                            np.full((L, 2, 2, 128), 0.5, np.float32), MN, L, device="cpu")

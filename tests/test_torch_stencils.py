@@ -136,8 +136,8 @@ def test_msp_matches_on_carried_over_fields(fields):
 
 
 def test_unported_options_raise():
+    """``conv_op=`` sampling is ported (``tests/test_torch_stencils3d.py``);
+    ``cache_dir`` checkpointing is not."""
     grid = Grid2D(a=1.0, h=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stencils.build_sparse_a_ag_2d(10.0, grid.x, grid.y, 0.1, conv_op=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         stencils.build_sparse_a_ag_2d(10.0, grid.x, grid.y, 0.1, cache_dir="x", device="cpu")

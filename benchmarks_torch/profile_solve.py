@@ -1,9 +1,11 @@
-"""Where the time of the 801 x 801 plasma solve, or of the 48^3 bump solve,
-goes on the card.
+"""Where the time of the 801 x 801 plasma solve, of the 48^3 bump solve, or
+of the 96^3 bump solve with the z-slab sweep goes on the card.
 
     python3 benchmarks_torch/profile_solve.py                      # one slab
     python3 benchmarks_torch/profile_solve.py --n-subdomains 16 --double-sweep
     python3 benchmarks_torch/profile_solve.py --bump3d             # 48^3, bf16 planes
+    python3 benchmarks_torch/profile_solve.py --gs3d               # 96^3, int8 y-planes
+    python3 benchmarks_torch/profile_solve.py --gs3d --pivot-dtype yblock_bf16_pallas
 
 Needs one CUDA card and nvcc.  Times the solve and its parts with CUDA
 events, then traces one solve with torch.profiler and prints the device time
@@ -25,7 +27,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps  # noqa: E402
+from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, subdomain3d, sweeps  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, plasma2d  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk  # noqa: E402
@@ -126,6 +128,32 @@ def bump3d_parts(p, r, cols):
     )
 
 
+def gs3d_parts(p, r, cols):
+    """The parts of one z-slab sweep apply at 96^3: the sweep, the source
+    partition, and one local solve of an inner slab with its two fused
+    passes (y layout: the right-hand side transposed to y-major rows)."""
+    pc = p.precond
+    slabs = pc.slabs
+    sp = pc.a_s.matvec(cols)
+    rhs = subdomain3d.partition_source_3d(slabs, sp)
+    s = slabs.n_subs // 2
+    view = slabs.slab_facs[s]
+    st, n = view.stack, view.lsten.shape[2]
+    planes = view.lsten.shape[0]
+    b = rhs[s].reshape((slabs.l1_max, slabs.m, slabs.n, -1))
+    if slabs.pivot_layout == "y":
+        b = b.movedim(1, 0)
+    b4 = pk._rows_of(b.reshape(planes, st.mn, -1), st.ld)
+    y4 = pk.plane_forward(st, b4, view.lrows, n, view.base)[0]
+    return dict(
+        gs_sweep=lambda: subdomain3d.gs_sweep_3d(slabs, sp),
+        partition_source=lambda: subdomain3d.partition_source_3d(slabs, sp),
+        slab_solve=lambda: subdomain3d.slab_solve_3d(slabs, view, rhs[s]),
+        plane_forward=lambda: pk.plane_forward(st, b4, view.lrows, n, view.base),
+        plane_backward=lambda: pk.plane_backward(st, y4, view.urows, n, view.base),
+    )
+
+
 def profile_runs(runs: dict, solve_ms: dict):
     """Trace one solve per entry of ``runs`` (r -> callable returning (x,
     info)) with torch.profiler: device time by kernel and the idle share."""
@@ -151,13 +179,27 @@ def profile_runs(runs: dict, solve_ms: dict):
         )), flush=True)
 
 
-def main_bump3d():
-    """The 48^3 bump solve on bf16 plane pivots: r = 1 (``solve``) and r = 2
-    (two sources, x and y plane waves, through ``apply_batch``)."""
-    kw = dict(rtol=1e-6, restart=20, maxiter=16)
-    p = bump3d.build_problem(h=1 / 48, dtype=torch.complex64, pivot_dtype="bf16_pallas")
-    print(json.dumps(dict(bump3d=True, setup_seconds=p.setup_seconds,
-                          peak_memory_bytes=torch.cuda.max_memory_allocated())))
+def main_bump3d(gs3d: bool = False, pivot_dtype: str = "yblock_int8_pallas"):
+    """The 48^3 bump solve on bf16 plane pivots, or (``gs3d``) the 96^3 bump
+    solve with the z-slab sweep of the JAX package's ``ls3d_96`` benchmark
+    (6 slabs, npml = 8, ``pivot_dtype``): r = 1 (``solve``) and r = 2 (two
+    sources, x and y plane waves, through ``apply_batch``)."""
+    if gs3d:
+        kw = dict(rtol=1e-6, restart=20, maxiter=12)
+        p = bump3d.build_problem(h=1 / 96, dtype=torch.complex64, precond="gs",
+                                 n_subdomains=6, npml=8, pivot_dtype=pivot_dtype)
+        parts_of = gs3d_parts
+        stack_bytes = p.precond.slabs.pfac.nbytes
+    else:
+        kw = dict(rtol=1e-6, restart=20, maxiter=16)
+        p = bump3d.build_problem(h=1 / 48, dtype=torch.complex64, pivot_dtype="bf16_pallas")
+        parts_of = bump3d_parts
+        stack_bytes = p.precond.factorization.stack.nbytes
+    print(json.dumps(dict(bump3d=True, grid=list(p.grid.shape),
+                          precond="gs" if gs3d else "sparsifying",
+                          pivot_dtype=pivot_dtype if gs3d else "bf16_pallas",
+                          setup_seconds=p.setup_seconds, stack_bytes=stack_bytes,
+                          peak_memory_bytes=torch.cuda.max_memory_allocated())), flush=True)
     pc, op = p.precond, p.op
     X, Y, _ = p.grid.mesh()
     u_y = torch.exp(1j * p.k * torch.as_tensor(Y.ravel(), device=p.rhs.device)).to(p.rhs.dtype)
@@ -171,7 +213,7 @@ def main_bump3d():
         parts = dict(
             operator_apply=lambda: op.apply(rhs),
             stencil_matvec=lambda: pc.a_s.matvec(cols),
-            **bump3d_parts(p, r, cols),
+            **parts_of(p, r, cols),
             preconditioner_apply=lambda: pc.apply(cols),
             solve=runs[r],
         )
@@ -190,11 +232,14 @@ def main():
     ap.add_argument("--n-subdomains", type=int, default=1)
     ap.add_argument("--double-sweep", action="store_true")
     ap.add_argument("--bump3d", action="store_true")
+    ap.add_argument("--gs3d", action="store_true")
+    ap.add_argument("--pivot-dtype", default="yblock_int8_pallas",
+                    help="pivot storage of --gs3d")
     args = ap.parse_args()
 
     print(card_name_and_power_limit())
-    if args.bump3d:
-        return main_bump3d()
+    if args.bump3d or args.gs3d:
+        return main_bump3d(args.gs3d, args.pivot_dtype)
     p = plasma2d.build_problem(h=1 / 800, n_subdomains=args.n_subdomains, npml=10,
                                dtype=torch.complex64, double_sweep=args.double_sweep,
                                pivot_dtype="pallas")

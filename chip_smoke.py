@@ -19,7 +19,13 @@ solve on dense complex64 pivots.  After each path it holds and times every
 kernel of that path at the path's own shapes (r = 1 and r = 2 right-hand
 sides; for the sweeps one slab picked among 16, full, truncated and resumed
 passes; for the 3D solve the 48 planes of mn = 2304) on the solve's own pivot
-planes.  Each phase prints one JSON line; any failed check raises, so the
+planes.  The fourth path is the 96^3, k = 96 bump solve with the z-slab
+Gauss-Seidel sweep on int8 y-plane pivots (the JAX package's ``ls3d_96``
+benchmark: 6 slabs, npml = 8, ``yblock_int8_pallas``), single and with two
+sources, beside the same sweep on bf16 y-planes; before it the int8 plane
+kernels on random planes at its width, a small sweep solve on the card
+against the CPU, and the 48^3 sweep in the z layout (cached and resumed slab
+solves).  Each phase prints one JSON line; any failed check raises, so the
 exit code is non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -33,8 +39,9 @@ import time
 import numpy as np
 import torch
 
-from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps
-from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, plasma2d
+from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
+from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, subdomain3d, sweeps
+from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, media, plasma2d
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
@@ -80,18 +87,42 @@ KERNEL_INFO = {
         source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:626", 2: f"{_TPU}:626"},
     ),
     "plane_forward": dict(
-        route="cuda", kernel="plane::pass_kernel<R, false>", source=_PORT + "plane_fwd.cu",
+        route="cuda", kernel="plane::pass_kernel<R, false, Storage::kBf16>",
+        source=_PORT + "plane_fwd.cu",
         replaces={1: f"{_TPU_PLANE}:339", 2: f"{_TPU_PLANE}:339"},
     ),
     "plane_backward": dict(
-        route="cuda", kernel="plane::pass_kernel<R, true>", source=_PORT + "plane_bwd.cu",
+        route="cuda", kernel="plane::pass_kernel<R, true, Storage::kBf16>",
+        source=_PORT + "plane_bwd.cu",
         replaces={1: f"{_TPU_PLANE}:366", 2: f"{_TPU_PLANE}:366"},
     ),
     "plane_apply": dict(
-        route="cuda", kernel="plane::apply_kernel<R>", source=_PORT + "plane_apply.cu",
+        route="cuda", kernel="plane::apply_kernel<R, Storage::kBf16>",
+        source=_PORT + "plane_apply.cu",
+        replaces={1: f"{_TPU_PLANE}:140", 2: f"{_TPU_PLANE}:140"},
+    ),
+    # the int8 mode of rows 10-12: the TPU kernels' nb > 1 branch of
+    # _dot_plane (pallas_plane.py:314-326) inside the same bodies
+    "plane_forward_int8": dict(
+        route="cuda", kernel="plane::pass_kernel<R, false, Storage::kInt8>",
+        source=_PORT + "plane_fwd.cu",
+        replaces={1: f"{_TPU_PLANE}:339", 2: f"{_TPU_PLANE}:339"},
+    ),
+    "plane_backward_int8": dict(
+        route="cuda", kernel="plane::pass_kernel<R, true, Storage::kInt8>",
+        source=_PORT + "plane_bwd.cu",
+        replaces={1: f"{_TPU_PLANE}:366", 2: f"{_TPU_PLANE}:366"},
+    ),
+    "plane_apply_int8": dict(
+        route="cuda", kernel="plane::apply_kernel<R, Storage::kInt8>",
+        source=_PORT + "plane_apply.cu",
         replaces={1: f"{_TPU_PLANE}:140", 2: f"{_TPU_PLANE}:140"},
     ),
 }
+# the plane wrappers count their launches on int8 planes apart
+INT8_COUNTS = {"plane_forward_int8": pk.plane_forward,
+               "plane_backward_int8": pk.plane_backward,
+               "plane_apply_int8": pk.plane_apply_rows}
 # on the sweeps' single-RHS path the backward kernel stands for _bwd_kernel
 SWEEP_BACKWARD_R1 = f"{_TPU}:241"
 
@@ -108,10 +139,16 @@ def check(cond: bool, what: str):
 def reset_counts():
     for fn in WRAPPERS.values():
         fn.launches = 0
+    for fn in INT8_COUNTS.values():
+        fn.launches_int8 = 0
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    """Launches of each wrapper; ``plane_*`` count bf16 and int8 planes
+    together, ``plane_*_int8`` the int8 ones alone."""
+    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
+    counts.update({name: fn.launches_int8 for name, fn in INT8_COUNTS.items()})
+    return counts
 
 
 def timed_solves(fn, repeats: int = 3):
@@ -576,40 +613,42 @@ def random_plane_view(rng, l: int, m: int, n: int, device) -> pk.PlaneSlabView:
     return pk.PlaneSlabView(stack=stack, lsten=sten(), usten=sten())
 
 
-def phase_plane_kernels(device):
-    """The three plane kernels against their plain versions on a short
-    random stack at the 3D path's width (mn = 2304), r = 1 and 2: the forward
-    pass at start 0 and > 0, with and without a carry, with and without the
-    t stack (``collect_t``), planes above the start left alone; the backward
-    pass full and with a tail; one plane apply."""
-    rng = np.random.default_rng(1)
-    l, m, n = 6, 48, 48
-    view = random_plane_view(rng, l, m, n, device)
-    st, ld, mn = view.stack, view.stack.ld, view.stack.mn
-    worst = {name: 0.0 for name in ("plane_forward", "plane_backward", "plane_apply")}
+def plane_kernel_cases(view, starts, suffix: str = "") -> tuple[dict, list]:
+    """The three plane kernels against their plain versions on one view,
+    r = 1 and 2: the forward pass from each of ``starts``, with and without a
+    carry, with and without the t stack (``collect_t``), planes above the
+    start left alone; the backward pass full and with a tail of 2; one plane
+    apply at the first and last planes.  Returns the worst relative error by
+    kernel (names + ``suffix``) and every case."""
+    rng = np.random.default_rng(view.stack.mn)
+    st, ld, mn, l = view.stack, view.stack.ld, view.stack.mn, view.stack.l1
+    n = view.lsten.shape[2]
+    fwd, bwd, app = (f"plane_{k}{suffix}" for k in ("forward", "backward", "apply"))
+    worst = {fwd: 0.0, bwd: 0.0, app: 0.0}
     cases = []
     for r in (1, 2):
-        b4 = torch.zeros((l, 2 * r, ld), device=device)
+        b4 = torch.zeros((l, 2 * r, ld), device=st.p_re.device)
         b4[..., :mn] = torch.from_numpy(rng.standard_normal((l, 2 * r, mn)).astype(np.float32))
-        t_init = torch.zeros((2 * r, ld), device=device)
+        t_init = torch.zeros((2 * r, ld), device=st.p_re.device)
         t_init[:, :mn] = torch.from_numpy(rng.standard_normal((2 * r, mn)).astype(np.float32))
-        for start, carry in ((0, None), (0, t_init), (3, None), (3, t_init)):
-            out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
-            y_k, t_k = pk.plane_forward(st, b4, view.lrows, n, 0, start, carry, out=out)
-            y_k2, none = pk.plane_forward(st, b4, view.lrows, n, 0, start, carry,
-                                          collect_t=False)
-            torch.cuda.synchronize()
-            y_p, t_p = pk.plane_forward_plain(st, b4, view.lrows, n, 0, start, carry)
-            _, e_y = rel_err(y_k[start:], y_p[start:])
-            _, e_t = rel_err(t_k[start:], t_p[start:])
-            _, e_y2 = rel_err(y_k2[start:], y_p[start:])
-            check(bool((y_k[:start] == 7.0).all()) and bool((t_k[:start] == -7.0).all()),
-                  "the forward plane kernel leaves the planes above its start alone")
-            check(bool(torch.isfinite(t_k[start:]).all()), "plane forward output is finite")
-            check(none is None, "no t stack without collect_t")
-            worst["plane_forward"] = max(worst["plane_forward"], e_y, e_t, e_y2)
-            cases.append(dict(r=r, start=start, t_init=carry is not None, fwd_y=e_y, fwd_t=e_t,
-                              fwd_y_without_t_stack=e_y2))
+        for start in starts:
+            for carry in (None, t_init):
+                out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+                y_k, t_k = pk.plane_forward(st, b4, view.lrows, n, 0, start, carry, out=out)
+                y_k2, none = pk.plane_forward(st, b4, view.lrows, n, 0, start, carry,
+                                              collect_t=False)
+                torch.cuda.synchronize()
+                y_p, t_p = pk.plane_forward_plain(st, b4, view.lrows, n, 0, start, carry)
+                _, e_y = rel_err(y_k[start:], y_p[start:])
+                _, e_t = rel_err(t_k[start:], t_p[start:])
+                _, e_y2 = rel_err(y_k2[start:], y_p[start:])
+                check(bool((y_k[:start] == 7.0).all()) and bool((t_k[:start] == -7.0).all()),
+                      "the forward plane kernel leaves the planes above its start alone")
+                check(bool(torch.isfinite(t_k[start:]).all()), "plane forward output is finite")
+                check(none is None, "no t stack without collect_t")
+                worst[fwd] = max(worst[fwd], e_y, e_t, e_y2)
+                cases.append(dict(r=r, start=start, t_init=carry is not None, fwd_y=e_y,
+                                  fwd_t=e_t, fwd_y_without_t_stack=e_y2))
         y4 = pk.plane_forward(st, b4, view.lrows, n)[0]
         for tail in (0, 2):
             start = tail and l - tail
@@ -619,16 +658,26 @@ def phase_plane_kernels(device):
             _, e_x = rel_err(x_k, x_p)
             check(bool(torch.isfinite(x_k).all()) and not bool(x_k[:start].any()),
                   "plane backward output is finite, zero above its tail")
-            worst["plane_backward"] = max(worst["plane_backward"], e_x)
+            worst[bwd] = max(worst[bwd], e_x)
             cases.append(dict(r=r, tail=tail, bwd=e_x))
         for k in (0, l - 1):
             z_k = pk.plane_apply_rows(st, k, b4[k])
             torch.cuda.synchronize()
             _, e_a = rel_err(z_k, pk.plane_apply_rows_plain(st, k, b4[k]))
-            worst["plane_apply"] = max(worst["plane_apply"], e_a)
+            worst[app] = max(worst[app], e_a)
             cases.append(dict(r=r, plane=k, apply=e_a))
-    emit("plane_kernels", shape=dict(l=l, m=m, n=n, mn=mn, ld=ld), tolerance=KERNEL_TOL,
-         max_rel_err=worst, cases=cases)
+    return worst, cases
+
+
+def phase_plane_kernels(device):
+    """The three plane kernels against their plain versions on a short
+    random bf16 stack at the 48^3 path's width (6 planes, mn = 2304)."""
+    rng = np.random.default_rng(1)
+    l, m, n = 6, 48, 48
+    view = random_plane_view(rng, l, m, n, device)
+    worst, cases = plane_kernel_cases(view, (0, 3))
+    emit("plane_kernels", shape=dict(l=l, m=m, n=n, mn=view.stack.mn, ld=view.stack.ld),
+         tolerance=KERNEL_TOL, max_rel_err=worst, cases=cases)
     for name, err in worst.items():
         check(err <= KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain version ({err})")
 
@@ -757,13 +806,16 @@ def phase_plane_apply_path(problem) -> dict:
     return counts
 
 
-def plane_bound(planes: int, ld: int, r: int, stacks: int, weights: bool = True):
-    """Least time for ``planes`` plane steps: two bf16 planes, the packed
-    weight rows and ``stacks`` row stacks of 2r x ld floats per plane, plus
-    the carry, against the card's memory rate; the products against its
+def plane_bound(planes: int, ld: int, r: int, stacks: int, weights: bool = True,
+                storage: str = "bf16"):
+    """Least time for ``planes`` plane steps: two bf16 planes (or two int8
+    planes and their f32 scales, one per 128 input rows and output lane), the
+    packed weight rows and ``stacks`` row stacks of 2r x ld floats per plane,
+    plus the carry, against the card's memory rate; the products against its
     float32 rate."""
     row = 2 * r * ld * 4
-    plane_bytes = 2 * ld * ld * 2 + (2 * 9 * ld * 4 if weights else 0) + stacks * row
+    pivots = 2 * ld * ld * 2 if storage == "bf16" else 2 * ld * ld + 2 * (ld // 128) * ld * 4
+    plane_bytes = pivots + (2 * 9 * ld * 4 if weights else 0) + stacks * row
     bytes_ms = 1e3 * (planes * plane_bytes + row) / PEAK_BYTES_PER_S
     flops_ms = 1e3 * planes * 2 * (2 * (2 * r) * ld * ld) / PEAK_F32_FLOPS
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
@@ -808,6 +860,401 @@ def phase_plane_kernel_times(problem, path_counts: dict, apply_counts: dict) -> 
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# The 3D sweeps: the 96^3 z-slab Gauss-Seidel solve on int8 y-plane pivots
+# ---------------------------------------------------------------------------
+
+# bench.py's ls3d_96: bump3d.build_problem(h=1/96, precond="gs",
+# pivot_dtype="yblock_int8_pallas", n_subdomains=6, npml=8), restart=20,
+# maxiter=12
+GS96 = dict(h=1.0 / 96.0, n_subdomains=6, npml=8)
+GS96_SOLVE_KW = dict(rtol=1e-6, restart=20, maxiter=12)
+# RESULTS.md (round 5) and VERDICT.md (weak #2): the JAX package's int8 sweep
+# converges in 10 iterations at rtol 1e-6 on the left-preconditioned residual
+# with a TRUE relative residual of 3.6e-3.  The port does not reproduce that
+# gap (its true residual is near 1.5e-6 on int8 and on bf16 y-planes, PERF.md),
+# so it is held to the 1e-3 of the other paths; the JAX figures are printed
+# beside it for information only
+JAX_GS96_ITERATIONS = 10
+JAX_GS96_TRUE_RESIDUAL = 3.6e-3
+GS96_TRUE_RESIDUAL_LIMIT = 1e-3
+GS48 = dict(h=1.0 / 48.0, n_subdomains=4, npml=5)
+GS48_SOLVE_KW = dict(rtol=1e-6, restart=20, maxiter=16)
+# (l, m, n) of the random int8 stacks and the forward passes' starts
+INT8_CASES = (((96, 32, 96), (0, 40)), ((5, 10, 30), (0, 3)))
+LIBRARY_CALL_INT8 = ("bf16 torch.matmul over dense planes of the same shape (no PyTorch call "
+                     "multiplies int8 planes with block scales)")
+
+
+def random_int8_plane_view(rng, l: int, m: int, n: int, device) -> pk.PlaneSlabView:
+    """Contracting random plane factors (||P|| ||S|| < 1), quantized plane by
+    plane by the port's own ``direct._quantize_t_int8`` and packed into an
+    int8 stack."""
+    mn = m * n
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    stack = pk.empty_plane_stack(l, mn, l, "int8", device)
+
+    def sten():
+        s = rng.uniform(-0.05, 0.05, (l, m, n, 3, 3, 2)).astype(np.float32)
+        return torch.view_as_complex(torch.from_numpy(s)).to(device)
+
+    lsten, usten = sten(), sten()
+    eye = 0.2 * torch.eye(mn, device=device)
+    for k in range(l):
+        (q_re, s_re), (q_im, s_im) = (
+            direct._quantize_t_int8(d + (0.1 / mn ** 0.5) * torch.randn(
+                (mn, mn), generator=g, device=device)) for d in (eye, 0.0))
+        pk.pack_planes(stack, k, direct.BlockTridiagFactorization3DInt8(
+            q_re=q_re[None], q_im=q_im[None], s_re=s_re[None], s_im=s_im[None],
+            lsten=lsten[k : k + 1], usten=usten[k : k + 1]))
+    return pk.PlaneSlabView(stack=stack, lsten=lsten, usten=usten)
+
+
+def phase_plane_kernels_int8(device):
+    """The three plane kernels on int8 planes against their plain versions:
+    at the 96^3 sweep's shape (96 y-planes of 32 x 96, mn = ld = 3072, 24
+    scale blocks) and at a width that is not a multiple of 128 (5 planes of
+    10 x 30, mn = 300 in ld = 384)."""
+    rng = np.random.default_rng(2)
+    reset_counts()
+    worst, shapes = {}, []
+    for (l, m, n), starts in INT8_CASES:
+        view = random_int8_plane_view(rng, l, m, n, device)
+        w, cases = plane_kernel_cases(view, starts, "_int8")
+        worst = {k: max(v, worst.get(k, 0.0)) for k, v in w.items()}
+        shapes.append(dict(l=l, m=m, n=n, mn=view.stack.mn, ld=view.stack.ld, cases=cases))
+        del view
+        torch.cuda.empty_cache()
+    counts = read_counts()
+    emit("plane_kernels_int8", tolerance=KERNEL_TOL, max_rel_err=worst, shapes=shapes,
+         launches=counts)
+    for name, err in worst.items():
+        check(err <= KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain version ({err})")
+    check(all(counts[name] > 0 for name in INT8_COUNTS), f"the int8 kernels launched ({counts})")
+
+
+def phase_small_reference_gs3d(device):
+    """The z-slab sweep solve of a 16^3 bump (2 slabs, npml = 5), set up on
+    the CPU and moved to the card: the solve on the card (kernels) against
+    the same solve on the CPU (plain versions) on the same planes, for the
+    z layout on bf16 planes and the y layout on int8 planes.  Both stop at
+    rtol 1e-5: at 16^3 the complex64 solve meets its float32 floor near
+    1e-6."""
+    kw = dict(rtol=1e-5, restart=20, maxiter=16)
+    out = {}
+    for mode in ("bf16_pallas", "yblock_int8_pallas"):
+        p_cpu = bump3d.build_problem(h=1 / 16, dtype=torch.complex64, precond="gs",
+                                     n_subdomains=2, npml=5, pivot_dtype=mode, device="cpu")
+        p_card = move_to(p_cpu, device)
+        reset_counts()
+        x_k, i_k = bump3d.solve(p_card, **kw)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        x_c, i_c = bump3d.solve(p_cpu, **kw)
+        _, err = rel_err(x_k.cpu(), x_c)
+        out[mode] = dict(iterations=[int(i_k.n_iterations), int(i_c.n_iterations)],
+                         true_residual=[float(i_k.true_residual), float(i_c.true_residual)],
+                         rel_err_card_vs_cpu=err, launches=counts)
+        check(bool(i_k.converged) and bool(i_c.converged), f"small sweep solves converged ({mode})")
+        check(err <= 1e-4, f"card sweep solve within 1e-4 of the CPU one ({mode}: {err})")
+        pair = ("plane_forward_int8", "plane_backward_int8") if "int8" in mode else (
+            "plane_forward", "plane_backward")
+        check(all(counts[k] > 0 for k in pair), f"the {mode} sweep ran the fused kernels ({counts})")
+    emit("small_reference_gs3d", n=16, n_subdomains=2, npml=5, rtol=kw["rtol"],
+         tolerance=1e-4, cases=out)
+
+
+def slab_rows(slabs, rhs_s):
+    """One slab's right-hand side (l1_max, mn[, r]) as the rows its plane
+    view solves: y-major for the y layout (as ``slab_solve_3d``)."""
+    view = slabs.slab_facs[0]
+    b = rhs_s.reshape((slabs.l1_max, slabs.m, slabs.n, -1))
+    if slabs.pivot_layout == "y":
+        b = b.movedim(1, 0)
+    return pk._rows_of(b.reshape(view.lsten.shape[0], view.stack.mn, -1), view.stack.ld)
+
+
+def phase_gs3d_48_z(device, repeats: int = 3) -> list:
+    """``bump3d.build_problem(h=1/48, precond="gs", n_subdomains=4, npml=5,
+    pivot_dtype="bf16_pallas")``: the z layout, whose down solves keep the
+    forward stacks and truncate the backward pass to ``trace_tail`` planes and
+    whose up solves resume from them, so the fused passes run with start,
+    t_init, collect_t and tail on a real slab system.  ``solve`` at rtol 1e-6
+    (warm-up, median of 3).  Then, on an inner slab's own planes, the resumed
+    solve against the full one and the resumed and truncated passes against
+    their plain versions (kernels line entries)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = bump3d.build_problem(dtype=torch.complex64, precond="gs",
+                                   pivot_dtype="bf16_pallas", device=device, **GS48)
+    setup_s = time.perf_counter() - t0
+    bump3d.solve(problem, **GS48_SOLVE_KW)                    # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(
+        lambda: bump3d.solve(problem, **GS48_SOLVE_KW), repeats)
+    n_it = int(info.n_iterations)
+
+    pc = problem.precond
+    slabs = pc.slabs
+    s = 1
+    view = slabs.slab_facs[s]
+    st, n, base, tail = view.stack, view.lsten.shape[2], view.base, slabs.trace_tail
+    l = view.lsten.shape[0]
+    j0 = l - tail
+    rhs = subdomain3d.partition_source_3d(slabs, pc.a_s.matvec(problem.rhs))[s]
+    _, y_c, t_c = direct.block_thomas_solve_cached_3d(view, rhs, tail)
+    rhs_up = rhs.clone()
+    rhs_up[j0:] += rhs[:tail].flip(0) + 1.0                  # new sources on the last planes only
+    x_res = direct.block_thomas_solve_resume_3d(view, rhs_up, y_c, t_c, tail)
+    x_full = direct.block_thomas_solve_3d(view, rhs_up)
+    _, err_resume = rel_err(x_res, x_full)
+
+    b4 = slab_rows(slabs, rhs_up)
+    y4, t4 = pk.plane_forward(st, b4, view.lrows, n, base)
+    t_init = t4[j0 - 1].contiguous()
+    out_k, out_p = (y4.clone(), t4.clone()), (y4.clone(), t4.clone())
+
+    def resumed(fn, out):
+        y, t = fn(st, b4, view.lrows, n, base, j0, t_init, out=out)
+        return y[j0:], t[j0:]
+
+    dense_re = tk.dense_planes(st.p_re[base : base + l])
+    dense_im = tk.dense_planes(st.p_im[base : base + l])
+    shape = dict(slab=s, l=l, mn=st.mn, ld=st.ld, r=1)
+    kernels = [
+        kernel_entry("plane_forward", 1, "gs3d_48_z", counts["plane_forward"],
+                     lambda: resumed(pk.plane_forward, out_k),
+                     lambda: resumed(pk.plane_forward_plain, out_p),
+                     plane_bound(tail, st.ld, 1, stacks=3),
+                     library_pass_ms(b4[0], dense_re, dense_im, range(j0, l)),
+                     dict(shape, start=j0), variant="_resumed"),
+        kernel_entry("plane_backward", 1, "gs3d_48_z", counts["plane_backward"],
+                     lambda: pk.plane_backward(st, y4, view.urows, n, base, j0),
+                     lambda: pk.plane_backward_plain(st, y4, view.urows, n, base, j0),
+                     plane_bound(tail, st.ld, 1, stacks=2),
+                     library_pass_ms(b4[0], dense_re, dense_im, range(j0, l)),
+                     dict(shape, tail=tail), variant="_tail"),
+    ]
+    emit(
+        "gs3d_48_z", grid=list(problem.grid.shape), k=problem.k, pivot_dtype="bf16_pallas",
+        pivot_layout=slabs.pivot_layout, n_subdomains=slabs.n_subs, l1_max=slabs.l1_max,
+        trace_tail=tail, setup_seconds=problem.setup_seconds, setup_total_seconds=setup_s,
+        solve_ms=sorted(times)[len(times) // 2], solve_ms_runs=times, iterations=n_it,
+        converged=bool(info.converged), residuals=[float(v) for v in info.residuals[: n_it + 1]],
+        true_residual=float(info.true_residual), stack_bytes=st.nbytes,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+        resume_vs_full_solve_rel_err=err_resume,
+    )
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), "48^3 sweep solution is finite")
+    check(bool(info.converged), f"48^3 z-layout sweep converged within maxiter ({n_it})")
+    check(float(info.true_residual) <= 1e-3, "48^3 sweep true residual <= 1e-3")
+    check(counts["plane_forward"] > 0 and counts["plane_backward"] > 0,
+          f"the z-layout sweep ran both fused passes ({counts})")
+    check(err_resume <= KERNEL_TOL,
+          f"resumed slab solve within {KERNEL_TOL} of the full one ({err_resume})")
+    del problem, dense_re, dense_im
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_gs3d_96_solve(device, repeats: int = 3):
+    """The slice's path at full width, nothing cut: ``bump3d.build_problem(
+    h=1/96, complex64, precond="gs", n_subdomains=6, npml=8,
+    pivot_dtype="yblock_int8_pallas")``, ``solve`` at the JAX bench's budget
+    (warm-up, median of 3), then the joint two-source solve through
+    ``apply_batch`` (r = 2)."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = bump3d.build_problem(dtype=torch.complex64, precond="gs",
+                                   pivot_dtype="yblock_int8_pallas", device=device, **GS96)
+    setup_s = time.perf_counter() - t0
+    peak_setup = torch.cuda.max_memory_allocated()
+    bump3d.solve(problem, **GS96_SOLVE_KW)                    # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(
+        lambda: bump3d.solve(problem, **GS96_SOLVE_KW), repeats)
+    n_it = int(info.n_iterations)
+    pc = problem.precond
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    (x2, info2), times2, counts2 = timed_solves(
+        lambda: gmres_batched(problem.op.apply, rhs2, preconditioner=pc.apply_batch,
+                              **GS96_SOLVE_KW), repeats)
+    slabs = pc.slabs
+    emit(
+        "gs3d_96_solve", grid=list(problem.grid.shape), k=problem.k, unknowns=problem.grid.size,
+        pivot_dtype="yblock_int8_pallas", pivot_layout=slabs.pivot_layout,
+        n_subdomains=slabs.n_subs, npml=GS96["npml"], l1_max=slabs.l1_max,
+        plane_width=slabs.pfac.mn, planes=slabs.pfac.n_planes, stack_bytes=slabs.pfac.nbytes,
+        setup_seconds=problem.setup_seconds, setup_total_seconds=setup_s,
+        solve_ms=sorted(times)[len(times) // 2], solve_ms_runs=times, iterations=n_it,
+        jax_package_iterations=JAX_GS96_ITERATIONS, converged=bool(info.converged),
+        residuals=[float(v) for v in info.residuals[: n_it + 1]],
+        true_residual=float(info.true_residual),
+        true_residual_limit=GS96_TRUE_RESIDUAL_LIMIT,
+        jax_package_true_residual=JAX_GS96_TRUE_RESIDUAL,
+        true_residual_limit_why=(
+            "the 1e-3 of the other paths; the JAX package's own true residual at this "
+            f"configuration, {JAX_GS96_TRUE_RESIDUAL} with {JAX_GS96_ITERATIONS} iterations "
+            "(RESULTS.md round 5, VERDICT.md weak #2), is for information only"),
+        peak_memory_setup_bytes=peak_setup, peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        launches=counts,
+        two_sources=dict(solve_ms=sorted(times2)[len(times2) // 2], solve_ms_runs=times2,
+                         iterations=[int(v) for v in info2.n_iterations],
+                         converged=[bool(v) for v in info2.converged],
+                         true_residual=[float(v) for v in info2.true_residual],
+                         launches=counts2),
+    )
+    check(tuple(x.shape) == (problem.grid.size,), "96^3 solution shape")
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), "96^3 solution is finite")
+    check(bool(info.converged), f"96^3 int8 sweep solve converged within maxiter ({n_it})")
+    check(float(info.true_residual) <= GS96_TRUE_RESIDUAL_LIMIT,
+          f"96^3 true residual <= {GS96_TRUE_RESIDUAL_LIMIT} ({float(info.true_residual)})")
+    check(bool(torch.isfinite(torch.view_as_real(x2)).all()) and bool(info2.converged.all())
+          and float(info2.true_residual.max()) <= GS96_TRUE_RESIDUAL_LIMIT,
+          "two-source 96^3 solve converged")
+    for c in (counts, counts2):
+        check(c["plane_forward_int8"] > 0 and c["plane_backward_int8"] > 0,
+              f"both int8 fused plane kernels launched on the 96^3 path ({c})")
+    return problem, {1: counts, 2: counts2}
+
+
+def slab_rhs(problem, r: int, s: int):
+    """Slab ``s``'s share of the sweep's right-hand side ``As b`` for the
+    x-wave (r = 1) or the x- and y-waves (r = 2), and the slab's rows."""
+    pc = problem.precond
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    b = pc.a_s.matvec(rhs2[:r].T.contiguous())
+    rhs_s = subdomain3d.partition_source_3d(pc.slabs, b[:, 0] if r == 1 else b)[s]
+    return rhs_s, slab_rows(pc.slabs, rhs_s)
+
+
+def phase_plane_apply_path_int8(problem) -> dict:
+    """One slab solve of the 96^3 sweep (an inner slab, 96 y-planes) through
+    the per-plane branch (``fused=False``: the int8 plane apply once per
+    plane and pass) against the fused branch on the same planes, r = 1 and
+    2.  Returns the launch counts of the per-plane solves by r."""
+    slabs = problem.precond.slabs
+    s = slabs.n_subs // 2
+    view = slabs.slab_facs[s]
+    counts, errs = {}, {}
+    for r in (1, 2):
+        rhs_s, _ = slab_rhs(problem, r, s)
+        x_fused = subdomain3d.slab_solve_3d(slabs, view, rhs_s)
+        reset_counts()
+        x_plane = subdomain3d.slab_solve_3d(slabs, dataclasses.replace(view, fused=False), rhs_s)
+        torch.cuda.synchronize()
+        counts[r] = read_counts()
+        _, errs[r] = rel_err(x_plane, x_fused)
+    planes = view.lsten.shape[0]
+    emit("plane_apply_path_int8", slab=s, planes=planes, launches=counts, max_rel_err=errs,
+         tolerance=KERNEL_TOL)
+    for r in (1, 2):
+        check(counts[r]["plane_apply_int8"] == 2 * planes,
+              f"the per-plane branch launched the int8 plane apply once per plane and pass "
+              f"({counts})")
+        check(errs[r] <= KERNEL_TOL,
+              f"int8 per-plane branch within {KERNEL_TOL} of the fused one (r={r}: {errs[r]})")
+    return counts
+
+
+def sweep_kernel_times(problem, paths: dict, path_counts: dict, apply_counts=None) -> list:
+    """Each plane kernel of the problem's stack storage at the 96^3 path's
+    shapes (an inner slab's 96 y-planes of mn = ld = 3072) on the solve's own
+    planes and right-hand sides: the fused passes for each ``r`` of ``paths``
+    (r -> path name) with that path's launches ``path_counts[r]``; with
+    ``apply_counts``, the plane apply at one plane with the launches of the
+    per-plane solves."""
+    slabs = problem.precond.slabs
+    s = slabs.n_subs // 2
+    view = slabs.slab_facs[s]
+    st, n, base = view.stack, view.lsten.shape[2], view.base
+    l, ld, storage = view.lsten.shape[0], st.ld, st.storage
+    # int8 kernels have names of their own; the bf16 passes are those of the
+    # 48^3 path, here at the 96^3 sweep's shape
+    suffix, variant = ("_int8", "") if storage == "int8" else ("", "_gs96")
+    # the library yardstick's dense bf16 planes, of the same shape
+    dense_re = tk.dense_planes(st.p_re[base : base + l]).to(torch.bfloat16)
+    dense_im = tk.dense_planes(st.p_im[base : base + l]).to(torch.bfloat16)
+    kernels = []
+    for r, path in paths.items():
+        _, b4 = slab_rhs(problem, r, s)
+        y4 = pk.plane_forward(st, b4, view.lrows, n, base)[0]
+        library_ms = library_pass_ms(b4[0], dense_re, dense_im, range(l))
+        shape = dict(slab=s, l=l, mn=st.mn, ld=ld, r=r, storage=storage)
+        counts = path_counts[r]
+        entries = [
+            kernel_entry("plane_forward" + suffix, r, path, counts["plane_forward" + suffix],
+                         lambda: pk.plane_forward(st, b4, view.lrows, n, base),
+                         lambda: pk.plane_forward_plain(st, b4, view.lrows, n, base),
+                         plane_bound(l, ld, r, stacks=3, storage=storage), library_ms, shape,
+                         variant=variant),
+            kernel_entry("plane_backward" + suffix, r, path, counts["plane_backward" + suffix],
+                         lambda: pk.plane_backward(st, y4, view.urows, n, base),
+                         lambda: pk.plane_backward_plain(st, y4, view.urows, n, base),
+                         plane_bound(l, ld, r, stacks=2, storage=storage), library_ms, shape,
+                         variant=variant),
+        ]
+        if apply_counts is not None:
+            entries.append(kernel_entry(
+                "plane_apply" + suffix, r, "plane_apply_path" + suffix,
+                apply_counts[r]["plane_apply" + suffix],
+                lambda: pk.plane_apply_rows(st, base + l // 2, b4[l // 2]),
+                lambda: pk.plane_apply_rows_plain(st, base + l // 2, b4[l // 2]),
+                plane_bound(1, ld, r, stacks=2, weights=False, storage=storage),
+                library_pass_ms(b4[0], dense_re, dense_im, range(1)),
+                dict(shape, plane=l // 2), variant=variant))
+        if storage == "int8":
+            for e in entries:
+                e["library_call"] = LIBRARY_CALL_INT8
+        kernels += entries
+    del dense_re, dense_im
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_gs3d_96_bf16(problem, repeats: int = 1) -> list:
+    """The same operator and stencils with the slabs rebuilt on bf16
+    y-planes (``yblock_bf16_pallas``, 21.7 GB of planes) from the problem's
+    own ``a_s``/``ag_s``, the int8 slabs freed first: iterations and true
+    residual at the same budget, which says whether int8 storage is what
+    costs the true residual.  Then the bf16 fused passes on an inner slab's
+    96 y-planes against their plain versions (kernels line entries)."""
+    problem.precond = None
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    seconds = {}
+    X, Y, Z = problem.grid.mesh()
+    slabs = subdomain3d.build_slab_system_3d(
+        problem.a_s, problem.ag_s, media.gaussian_bump_3d(X, Y, Z), problem.grid.x,
+        problem.grid.h, problem.k, GS96["n_subdomains"], npml=GS96["npml"],
+        pivot_dtype="yblock_bf16_pallas", timings=seconds)
+    problem.precond = subdomain3d.SingleSweepPreconditioner3D(slabs=slabs, a_s=problem.a_s)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bump3d.solve(problem, **GS96_SOLVE_KW)                    # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(
+        lambda: bump3d.solve(problem, **GS96_SOLVE_KW), repeats)
+    n_it = int(info.n_iterations)
+    emit(
+        "gs3d_96_bf16", pivot_dtype="yblock_bf16_pallas", pivot_layout=slabs.pivot_layout,
+        stack_bytes=slabs.pfac.nbytes, setup_seconds=seconds,
+        setup_total_seconds=setup_s, solve_ms=sorted(times)[len(times) // 2],
+        solve_ms_runs=times, iterations=n_it, converged=bool(info.converged),
+        residuals=[float(v) for v in info.residuals[: n_it + 1]],
+        true_residual=float(info.true_residual), true_residual_limit=GS96_TRUE_RESIDUAL_LIMIT,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+    )
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), "96^3 bf16 solution is finite")
+    check(bool(info.converged), f"96^3 bf16 sweep solve converged within maxiter ({n_it})")
+    check(float(info.true_residual) <= GS96_TRUE_RESIDUAL_LIMIT,
+          f"96^3 bf16 true residual <= {GS96_TRUE_RESIDUAL_LIMIT} ({float(info.true_residual)})")
+    check(counts["plane_forward"] > 0 and counts["plane_backward"] > 0
+          and counts["plane_forward_int8"] == 0,
+          f"the bf16 sweep ran the bf16 fused kernels ({counts})")
+    return sweep_kernel_times(problem, {1: "gs3d_96_bf16"}, {1: counts})
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -846,6 +1293,18 @@ def main() -> int:
     problem, counts3d = phase_bump3d_solve(device)
     apply_counts = phase_plane_apply_path(problem)
     kernels += phase_plane_kernel_times(problem, counts3d, apply_counts)
+    del problem
+    torch.cuda.empty_cache()
+
+    # path 4: the 96^3 z-slab sweep through the int8 plane kernels
+    phase_plane_kernels_int8(device)
+    phase_small_reference_gs3d(device)
+    kernels += phase_gs3d_48_z(device)
+    problem, counts96 = phase_gs3d_96_solve(device)
+    apply_counts = phase_plane_apply_path_int8(problem)
+    kernels += sweep_kernel_times(problem, {1: "gs3d_96_solve", 2: "gs3d_96_apply_batch"},
+                                  counts96, apply_counts)
+    kernels += phase_gs3d_96_bf16(problem)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

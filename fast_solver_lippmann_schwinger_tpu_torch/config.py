@@ -6,6 +6,7 @@ path needs.  Working dtypes are ``torch.complex64`` / ``torch.complex128``.
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import numpy as np
@@ -55,3 +56,18 @@ def resolve_device(device=None) -> torch.device:
 def to_tensor(arr, dtype: torch.dtype, device) -> torch.Tensor:
     """Host numpy data -> tensor of ``dtype`` on ``device``."""
     return torch.tensor(np.asarray(arr), dtype=dtype, device=device)
+
+
+def move_to(obj, device):
+    """A copy of one of the port's frozen dataclasses of tensors (a problem,
+    a preconditioner, a slab system, a factorization) with every tensor moved
+    to ``device``; what is not a tensor is kept as it is.  Cached properties
+    are not copied: they are rebuilt on the new device when first read."""
+    if isinstance(obj, torch.Tensor):
+        return obj.to(device)
+    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
+        return dataclasses.replace(obj, **{
+            f.name: move_to(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj) if f.init
+        })
+    return obj

@@ -9,6 +9,7 @@ tests feed the same symbol, stencils, pivots and slab system to both packages.
 bfloat16 planes arrive as their raw bit patterns in a ``numpy.uint16`` array
 (``np.asarray(x).view(np.uint16)`` on the JAX side): numpy has no native
 bfloat16, and a float32 detour would hide whether the planes are bit-equal.
+int8 planes and their float32 scales arrive as they are.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import (
     to_tensor,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import SlabSystem
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain3d import SlabSystem3D
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import DoubleSweepPreconditioner
 from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import (
     LippmannSchwinger2D,
@@ -37,10 +39,13 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     BlockTridiagFactorization,
     BlockTridiagFactorization3D,
     BlockTridiagFactorization3DBF16,
+    BlockTridiagFactorization3DInt8,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.plane_kernels import (
+    INT8_BLOCK,
     PlaneSlabView,
     PlaneStack,
+    stack_ld,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import (
     StencilMatrix2D,
@@ -112,7 +117,8 @@ def _bf16_scales_only(scale):
     scale = np.asarray(scale)
     if scale.shape[-2] != 1 or not np.all(scale == 1.0):
         raise NotImplementedError(
-            "int8 pivot storage is not ported yet (ROADMAP.md, Queue 2 item 8)"
+            "int8 line pivots (pivot_dtype='pallas_int8') are not ported yet "
+            "(ROADMAP.md, Queue 2 item 8)"
         )
 
 
@@ -213,31 +219,70 @@ def stencil_matrix_3d(values, device=None) -> StencilMatrix3D:
     return StencilMatrix3D(values=to_tensor(values, _complex_dtype(values), device))
 
 
-def factorization_3d(lsten, usten, cinv=None, cinv_re=None, cinv_im=None, device=None):
+def factorization_3d(lsten, usten, cinv=None, cinv_re=None, cinv_im=None, q_re=None,
+                     q_im=None, s_re=None, s_im=None, device=None):
     """A 3D plane factorization from the JAX one's fields: full pivots
-    (``cinv`` complex) or bf16 pivots (``cinv_re``/``cinv_im`` as uint16 bit
-    patterns)."""
+    (``cinv`` complex), bf16 pivots (``cinv_re``/``cinv_im`` as uint16 bit
+    patterns) or int8 pivots (``q_re``/``q_im`` int8, ``s_re``/``s_im`` f32
+    scales, in the JAX package's transposed layout).  Leading slab axes are
+    kept as they are."""
     device = resolve_device(device)
     dtype = _complex_dtype(lsten)
     lsten, usten = to_tensor(lsten, dtype, device), to_tensor(usten, dtype, device)
     if cinv is not None:
         return BlockTridiagFactorization3D(cinv=to_tensor(cinv, dtype, device),
                                            lsten=lsten, usten=usten)
+    if q_re is not None:
+        def raw(a, want):
+            a = np.asarray(a)
+            if a.dtype != want:
+                raise TypeError(f"int8 pivots arrive as {want} arrays, got {a.dtype}")
+            return torch.from_numpy(np.array(a, copy=True)).to(device)
+
+        return BlockTridiagFactorization3DInt8(
+            q_re=raw(q_re, np.int8), q_im=raw(q_im, np.int8),
+            s_re=raw(s_re, np.float32), s_im=raw(s_im, np.float32), lsten=lsten, usten=usten)
     return BlockTridiagFactorization3DBF16(cinv_re=_bf16(cinv_re).to(device),
                                            cinv_im=_bf16(cinv_im).to(device),
                                            lsten=lsten, usten=usten)
 
 
+def _int8_stack(p_re, p_im, scale, mn, l1, device) -> PlaneStack:
+    """int8 planes (SL, np, np) ``[i_in, o_out]`` with (SL, 2, nb, np) scales
+    -> the port's tile-major layout at ld = np = round_up(mn, 128); the JAX
+    package's zero scales of padding lanes become ones."""
+    q_re, q_im, scale = np.asarray(p_re), np.asarray(p_im), np.asarray(scale, np.float32)
+    ld = stack_ld(mn, "int8")
+    if q_re.shape[-1] != ld or q_re.shape[-2] != ld or scale.shape[-2] != ld // INT8_BLOCK:
+        raise ValueError(f"int8 planes {q_re.shape} and scales {scale.shape} do not fit "
+                         f"mn = {mn}")
+    if np.any(q_re[..., mn:, :]) or np.any(q_re[..., :, mn:]) or np.any(q_im[..., mn:, :]) \
+            or np.any(q_im[..., :, mn:]):
+        raise ValueError("padding entries of the pivot planes must be zero")
+    sc = np.ones(scale.shape, np.float32)
+    sc[..., :mn] = scale[..., :mn]
+    sc = sc.reshape(scale.shape[:3] + (ld // LEAD_MULTIPLE, LEAD_MULTIPLE))
+    return PlaneStack(
+        p_re=tile_planes(torch.from_numpy(np.array(q_re, copy=True))).to(device),
+        p_im=tile_planes(torch.from_numpy(np.array(q_im, copy=True))).to(device),
+        scale=torch.from_numpy(np.ascontiguousarray(sc.transpose(0, 3, 2, 1, 4))).to(device),
+        mn=mn, l1=int(l1))
+
+
 def plane_stack(p_re, p_im, scale, mn, l1, device=None) -> PlaneStack:
-    """The kernels' plane stack from a ``PallasPlaneStack``'s fields:
-    ``p_re``/``p_im`` uint16 bit patterns of the (SL, np, np) bf16 planes
-    (128-lane padding, cropped here; the planes come out padded to
-    round_up(mn, 8) and tile-major), ``scale`` the all-ones scales of bf16
-    storage (int8 storage is not ported yet)."""
+    """The kernels' plane stack from a ``PallasPlaneStack``'s fields: bf16
+    planes as uint16 bit patterns of (SL, np, np) with the all-ones scales of
+    bf16 storage (128-lane padding, cropped here; the planes come out padded
+    to round_up(mn, 8) and tile-major), or int8 planes with their
+    (SL, 2, nb, np) scales (kept at np = round_up(mn, 128), tile-major)."""
     device = resolve_device(device)
-    _bf16_scales_only(scale)
     mn = int(mn)
-    ld = _round_up(mn, LEAD_MULTIPLE)
+    if np.asarray(p_re).dtype == np.int8:
+        return _int8_stack(p_re, p_im, scale, mn, l1, device)
+    scale = np.asarray(scale)
+    if scale.shape[-2] != 1 or not np.all(scale == 1.0):
+        raise ValueError("bf16 planes carry all-ones scales")
+    ld = stack_ld(mn, "bf16")
     return PlaneStack(p_re=_bf16_planes(p_re, mn, ld, device),
                       p_im=_bf16_planes(p_im, mn, ld, device), mn=mn, l1=int(l1))
 
@@ -263,3 +308,31 @@ def sparsifying_preconditioner_3d(factorization: dict, a_s_values,
            else factorization_3d(**factorization, device=device))
     return SparsifyingPreconditioner3D(factorization=fac,
                                        a_s=stencil_matrix_3d(a_s_values, device=device))
+
+
+def slab_system_3d(fields: dict, device=None) -> SlabSystem3D:
+    """``SlabSystem3D`` from a dict of the JAX slab system's fields as numpy
+    arrays / Python scalars: ``fields["fac"]`` a dict of the arguments of
+    :func:`factorization_3d` (batched, with the leading slab axis; for a
+    system with a plane stack the empty ``cinv`` placeholder), and
+    ``fields["pfac"]`` ``None`` or a dict of those of :func:`plane_stack`."""
+    device = resolve_device(device)
+    fac = factorization_3d(**fields["fac"], device=device)
+    pfac = None if fields.get("pfac") is None else plane_stack(**fields["pfac"], device=device)
+    dtype = _complex_dtype(fields["cpl_01"])
+    out = {}
+    for f in dataclasses.fields(SlabSystem3D):
+        if f.name in ("fac", "pfac"):
+            continue
+        v = fields[f.name]
+        if f.name in ("n", "m", "l", "n_subs", "l1_max", "trace_tail", "trace_head"):
+            out[f.name] = int(v)
+        elif f.name == "pivot_layout":
+            out[f.name] = str(v)
+        elif f.name in ("has_top", "has_bot", "src_valid"):
+            out[f.name] = torch.tensor(np.asarray(v, bool), device=device)
+        elif f.name.startswith("cpl_"):
+            out[f.name] = to_tensor(v, dtype, device)
+        else:
+            out[f.name] = torch.tensor(np.asarray(v, np.int64), device=device)
+    return SlabSystem3D(fac=fac, pfac=pfac, **out)

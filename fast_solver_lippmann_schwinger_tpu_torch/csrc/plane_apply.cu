@@ -6,19 +6,25 @@
 //     out = [Yr; Yi] @ P[idx]   with complex recombination
 //           out_re = Yr.Pre - Yi.Pim,   out_im = Yi.Pre + Yr.Pim,
 //
-// rows (2r, ld) f32 in and out, P the transposed bf16 pivot plane.  It is the
+// rows (2r, ld) f32 in and out, P the transposed pivot plane: bf16, or int8
+// with one f32 scale per (128-input-row block, output lane), the TPU kernel's
+// nb > 1 branch (pallas_plane.py:151-164).  It is the
 // per-plane branch of the 3D substitution scans, taken for stacks too wide for
 // the fused passes (plane_fwd.cu, plane_bwd.cu); the stencil couplings stay in
 // PyTorch there, as in the JAX package.
 //
-// The kernel is plane::apply_kernel<R> in plane_pass.cuh: one block per tile
-// of 8 output lanes (ld / 8 blocks, no barrier), the tile's pivot columns
+// The kernels are plane::apply_kernel<R, S> in plane_pass.cuh, for
+// S = Storage::kBf16 and Storage::kInt8: one block per tile of 8 output lanes
+// (ld / 8 blocks, no barrier), the tile's pivot columns (and int8 scales)
 // streamed through the same cp.async ring as the fused passes, the rows read
 // from global memory chunk by chunk, so shared memory does not depend on ld.
-// r <= 2 right-hand sides per launch.
+// r <= 2 right-hand sides per launch.  The int8 entries are dequantized
+// before the product, the fused kernels' order, where the TPU kernel scales
+// each 128-row partial product: f32 rounding apart, the same numbers.
 //
-// Bound: bytes.  2 x ld^2 x 2 B of planes (21.2 MB, 6.3 us at mn = 2304)
-// against 3.35 TB/s; the rows are 1 %.
+// Bound: bytes.  2 x ld^2 x 2 B of bf16 planes (21.2 MB, 6.3 us at
+// mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (19.5 MB, 5.8 us at
+// ld = 3072), against 3.35 TB/s; the rows are 1 %.
 //
 // plane_apply launches only; it allocates nothing, does not synchronise,
 // and returns the launch's error code (0 on success).
@@ -26,13 +32,16 @@
 
 extern "C" int plane_apply(
     const float* rows,       // (2r, ld)
-    const uint16_t* pre,     // (SL, ld/8, ld, 8) bf16, tile-major, transposed
-    const uint16_t* pim,
+    const void* pre,         // (SL, ld/8, ld, 8) bf16 or int8, tile-major, transposed
+    const void* pim,
+    const float* scale,      // int8: (SL, ld/8, ld/128, 2, 8) f32 scales; bf16: null
     float* out,              // (2r, ld)
     int mn, int ld, int r, int idx, void* stream) {
-  if (!plane::valid(mn, ld, r) || idx < 0) return (int)cudaErrorInvalidValue;
+  if (!plane::valid(mn, ld, r, scale) || idx < 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
   cudaError_t err =
-      r == 1 ? plane::launch_apply<1>(rows, pre, pim, out, ld, idx, (cudaStream_t)stream)
-             : plane::launch_apply<2>(rows, pre, pim, out, ld, idx, (cudaStream_t)stream);
+      scale != nullptr
+          ? plane::launch_apply_r<plane::Storage::kInt8>(r, rows, pre, pim, scale, out, ld, idx, st)
+          : plane::launch_apply_r<plane::Storage::kBf16>(r, rows, pre, pim, scale, out, ld, idx, st);
   return (int)err;
 }

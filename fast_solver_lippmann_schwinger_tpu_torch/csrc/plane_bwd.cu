@@ -7,18 +7,20 @@
 //     x_p = (y_p - S'_p(x_{p+1})) . P[base + p],     x_l = 0,
 //
 // with S'_p the 9-tap in-plane coupling stencil to plane p+1 and P the
-// transposed bf16 pivot plane.  start = l - tail computes only the last
+// transposed pivot plane: bf16, or int8 with one f32 scale per (128-input-row
+// block, output lane).  start = l - tail computes only the last
 // `tail` planes, which is exact: the recursion starts at the true last plane.
 // Planes < start of the x stack belong to the caller.
 //
-// The kernel is plane::pass_kernel<R, true>, the backward instantiation of
-// the body in plane_pass.cuh, which describes the design, the limits and the
-// bound.  The x stack is the carry (plane p reads row p+1); the stencil
+// The kernels are plane::pass_kernel<R, true, S>, the backward
+// instantiations of the body in plane_pass.cuh for S = Storage::kBf16 and
+// Storage::kInt8, which describes the design, the limits and the bound.  The x stack is the carry (plane p reads row p+1); the stencil
 // phase's result lives in a one-plane scratch between the two barriers.
 //
-// Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B against 3.35 TB/s
-// (0.304 ms for 48 planes at mn = 2304), plus the weight rows and the y and x
-// stacks (about 1 %).
+// Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B in bf16 (0.304 ms for
+// 48 planes at mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (0.56 ms
+// for 96 planes at ld = 3072), against 3.35 TB/s, plus the weight rows and
+// the y and x stacks (about 1 %).
 //
 // plane_backward launches only; it allocates nothing, does not synchronise,
 // and returns the launch's error code (0 on success).
@@ -27,8 +29,9 @@
 extern "C" int plane_backward(
     const float* y,          // (l, 2r, ld) rows of the forward pass
     const float* w,          // (l, 2, 9, ld) weight rows of the couplings to plane p+1
-    const uint16_t* pre,     // (SL, ld/8, ld, 8) bf16, tile-major, transposed
-    const uint16_t* pim,
+    const void* pre,         // (SL, ld/8, ld, 8) bf16 or int8, tile-major, transposed
+    const void* pim,
+    const float* scale,      // int8: (SL, ld/8, ld/128, 2, 8) f32 scales; bf16: null
     float* scratch,          // (2r, ld)
     float* x,                // (l, 2r, ld); planes < start are not touched
     int l, int mn, int n, int ld, int r, int base, int start, void* stream) {
@@ -37,6 +40,7 @@ extern "C" int plane_backward(
   a.w = w;
   a.pre = pre;
   a.pim = pim;
+  a.scale = scale;
   a.t_init = nullptr;
   a.kept = scratch;
   a.out = x;

@@ -7,7 +7,8 @@
 //     y_p = b_p - S_p(t_{p-1}),     t_p = y_p . P[base + p],     t_{start-1} = t_init,
 //
 // with S_p the 9-tap in-plane coupling stencil to plane p-1 (flat shifts
-// against packed weight rows) and P the transposed bf16 pivot plane.  It
+// against packed weight rows) and P the transposed pivot plane: bf16, or int8
+// with one f32 scale per (128-input-row block, output lane).  It
 // keeps the y stack for the backward pass and, when the caller passes one,
 // the t stack, which is then also where the carry lives (plane p reads row
 // p-1 of the stack it writes row p of), so that a later pass can resume from
@@ -15,16 +16,19 @@
 // Planes < start of y and t belong to the caller: the kernel neither reads
 // nor writes them.
 //
-// The kernel is plane::pass_kernel<R, false>, the forward instantiation of
-// the body in plane_pass.cuh, which describes the design (one cooperative
-// launch per pass, two grid barriers per plane: the stencil phase shared out
-// over the grid, then every block's output tiles against the whole y_p; pivot
-// columns streamed through a cp.async ring), the limits (r <= 2, ld <= 12448
-// at r = 2) and the bound.
+// The kernels are plane::pass_kernel<R, false, S>, the forward instantiations
+// of the body in plane_pass.cuh for S = Storage::kBf16 and Storage::kInt8
+// (the int8 mode of the TPU kernel's _dot_plane, pallas_plane.py:314-326),
+// which describes the design (one cooperative launch per pass, two grid
+// barriers per plane: the stencil phase shared out over the grid, then every
+// block's output tiles against the whole y_p; pivot columns, and int8 scales,
+// streamed through a cp.async ring), the limits (r <= 2, ld <= 12448 at
+// r = 2 in bf16) and the bound.
 //
-// Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B against 3.35 TB/s
-// (0.304 ms for 48 planes at mn = 2304), plus the weight rows and the b, y
-// and t stacks (about 1 %).
+// Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B in bf16 (0.304 ms for
+// 48 planes at mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (0.56 ms
+// for 96 planes at ld = 3072), against 3.35 TB/s, plus the weight rows and
+// the b, y and t stacks (about 1 %).
 //
 // plane_forward launches only; it allocates nothing, does not synchronise,
 // and returns the launch's error code (0 on success).
@@ -33,8 +37,9 @@
 extern "C" int plane_forward(
     const float* b,          // (l, 2r, ld) right-hand rows
     const float* w,          // (l, 2, 9, ld) weight rows of the couplings to plane p-1
-    const uint16_t* pre,     // (SL, ld/8, ld, 8) bf16, tile-major, transposed
-    const uint16_t* pim,
+    const void* pre,         // (SL, ld/8, ld, 8) bf16 or int8, tile-major, transposed
+    const void* pim,
+    const float* scale,      // int8: (SL, ld/8, ld/128, 2, 8) f32 scales; bf16: null
     const float* t_init,     // (2r, ld) carry into plane `start`, or null (zero)
     float* y,                // (l, 2r, ld); planes < start are not touched
     float* t,                // (l, 2r, ld), or null; planes < start are not touched
@@ -45,6 +50,7 @@ extern "C" int plane_forward(
   a.w = w;
   a.pre = pre;
   a.pim = pim;
+  a.scale = scale;
   a.t_init = t_init;
   a.kept = y;
   a.out = t;

@@ -1,12 +1,14 @@
-"""3D Gaussian-bump scattering with the sparsifying preconditioner.
+"""3D Gaussian-bump scattering with the sparsifying preconditioner or the
+z-slab Gauss-Seidel sweep.
 
 Counterpart of the JAX package's ``models/bump3d.py``, the equivalent of the
 reference's ``examples/example3D.jl`` (h = 1/48, k = 48, half-open grid,
 Greengard-Vico quadrature, impulse-sampled sparsifying preconditioner with
-PARDISO there; here the z-plane block-Thomas factorization).  With
-``pivot_dtype`` ending in ``"_pallas"`` the pivots are bf16 planes and every
+PARDISO there; here the z-plane block-Thomas factorization), and the JAX
+package's z-slab sweep (``precond="gs"``, ``ddm/subdomain3d.py``), which is
+what it runs at 96^3.  With ``pivot_dtype`` ending in ``"_pallas"`` every
 plane substitution runs through the CUDA plane kernels
-(``sparse/plane_kernels.py``); otherwise they are dense in the working dtype.
+(``sparse/plane_kernels.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +21,10 @@ import torch
 
 from fast_solver_lippmann_schwinger_tpu_torch.config import resolve_device
 from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid3D
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain3d import (
+    SingleSweepPreconditioner3D,
+    build_slab_system_3d,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.models import media
 from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import (
     LippmannSchwinger3D,
@@ -31,6 +37,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import stencils
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import factor_stencil_3d
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.plane_kernels import plane_view
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix3D
 
 
 @dataclasses.dataclass
@@ -38,12 +45,18 @@ class Bump3DProblem:
     grid: Grid3D
     k: float
     op: LippmannSchwinger3D
-    precond: Optional[SparsifyingPreconditioner3D]
+    precond: Optional[SparsifyingPreconditioner3D | SingleSweepPreconditioner3D]
     rhs: torch.Tensor
     u_inc: torch.Tensor
-    # wall seconds of each setup phase (symbol, stencils, msp, factorization,
-    # packing), synchronised on the device at each boundary
+    # wall seconds of each setup phase, synchronised on the device at each
+    # boundary: symbol, stencils, then msp, factorization, packing
+    # (sparsifying) or slabs, made of slab_fields, factorization, packing (gs)
     setup_seconds: dict = dataclasses.field(default_factory=dict)
+    # the sparsifying stencils A and AG, kept so that a sweep can be rebuilt
+    # on another pivot storage (``build_slab_system_3d``) without setting the
+    # operator and the stencils up again
+    a_s: Optional[StencilMatrix3D] = None
+    ag_s: Optional[StencilMatrix3D] = None
 
 
 def build_problem(
@@ -60,20 +73,30 @@ def build_problem(
     """Set the 3D bump problem up on ``device`` (the CUDA card when ``None``;
     raises without one).
 
-    ``precond="sparsifying"`` is the full-grid factorization of the
-    reference's ``examples/example3D.jl``.  ``pivot_dtype`` ending in
-    ``"_pallas"`` keeps bf16 plane pivots for the plane kernels (always bf16,
-    as in the JAX package, whatever the prefix); any other value keeps dense
-    pivots in ``dtype``.  The z-slab sweeps (``"gs"``) and polarized traces
-    (``"polarized_traces"``), with ``n_subdomains`` and ``npml``, and
-    ``cache_dir`` are not ported yet and raise.
+    ``precond``:
+
+    * ``"sparsifying"``: the full-grid factorization of the reference's
+      ``examples/example3D.jl``.  ``pivot_dtype`` ending in ``"_pallas"``
+      keeps bf16 plane pivots for the plane kernels (always bf16, as in the
+      JAX package, whatever the prefix); any other value keeps dense pivots
+      in ``dtype``.
+    * ``"gs"``: one Gauss-Seidel sweep over ``n_subdomains`` z-slabs with
+      ``npml`` absorbing planes (``ddm/subdomain3d.py``).  ``pivot_dtype`` is
+      one of ``"full"``, ``"bf16"``, ``"bf16_pallas"`` (z-plane pivots),
+      ``"yblock"``, ``"yblock_bf16"``, ``"yblock_bf16_pallas"``,
+      ``"yblock_int8"``, ``"yblock_int8_pallas"`` (y-plane pivots), or
+      ``"int8"``/``"int8_pallas"``; a ``"_pallas"`` suffix runs the plane
+      kernels on bf16 or int8 planes.  The JAX package's 96^3 benchmark is
+      ``h=1/96, n_subdomains=6, npml=8, pivot_dtype="yblock_int8_pallas"``.
+
+    Polarized traces (``"polarized_traces"``, ROADMAP.md Queue 1 slice 6) and
+    ``cache_dir`` (slice 9) are not ported yet and raise.
     """
-    if precond in ("gs", "polarized_traces"):
+    if precond == "polarized_traces":
         raise NotImplementedError(
-            f"precond={precond!r} is not ported yet (ROADMAP.md, Queue 1: slice 5 "
-            "for the 3D sweeps, slice 6 for polarized traces)"
+            "precond='polarized_traces' is not ported yet (ROADMAP.md, Queue 1 slice 6)"
         )
-    if precond != "sparsifying":
+    if precond not in ("sparsifying", "gs"):
         raise ValueError(f"unknown precond {precond!r}")
     if cache_dir is not None:
         raise NotImplementedError(
@@ -97,29 +120,49 @@ def build_problem(
                                    device=device)
     seconds["symbol"] = lap(t0)
 
-    pc = None
+    pc = a_st = ag_st = None
     if with_preconditioner:
         t0 = time.perf_counter()
         a_st, ag_st = stencils.build_sparse_a_ag_3d(k, op, dtype=dtype, device=device)
         seconds["stencils"] = lap(t0)
-        t0 = time.perf_counter()
-        msp = stencils.build_msp_3d(a_st, ag_st, nu, k)
-        seconds["msp"] = lap(t0)
-        # SparsifyingPreconditioner3D.build, phase by phase
-        use_pallas = pivot_dtype.endswith("_pallas")
-        t0 = time.perf_counter()
-        fac = factor_stencil_3d(msp, pivot_dtype="bf16" if use_pallas else "full")
-        seconds["factorization"] = lap(t0)
-        t0 = time.perf_counter()
-        if use_pallas:
-            fac = plane_view(fac)
-        seconds["packing"] = lap(t0)
-        pc = SparsifyingPreconditioner3D(factorization=fac, a_s=a_st)
+        if precond == "gs":
+            pc = _sweep(a_st, ag_st, nu, grid, k, n_subdomains, npml, pivot_dtype, seconds,
+                        lap)
+        else:
+            pc = _sparsifying(a_st, ag_st, nu, k, pivot_dtype, seconds, lap)
 
     u_inc = torch.exp(1j * k * torch.as_tensor(X.ravel(), device=device)).to(dtype)
     rhs = -(op.apply(u_inc) - u_inc)
     return Bump3DProblem(grid=grid, k=k, op=op, precond=pc, rhs=rhs, u_inc=u_inc,
-                         setup_seconds=seconds)
+                         setup_seconds=seconds, a_s=a_st, ag_s=ag_st)
+
+
+def _sweep(a_st, ag_st, nu, grid, k, n_subdomains, npml, pivot_dtype, seconds, lap):
+    """The z-slab sweep preconditioner; ``seconds`` receives ``slabs`` and
+    its parts (``build_slab_system_3d``'s ``timings``)."""
+    t0 = time.perf_counter()
+    parts = {}
+    slabs = build_slab_system_3d(a_st, ag_st, nu, grid.x, grid.h, k, n_subdomains, npml=npml,
+                                 pivot_dtype=pivot_dtype, timings=parts)
+    seconds["slabs"] = lap(t0)
+    seconds.update(parts)
+    return SingleSweepPreconditioner3D(slabs=slabs, a_s=a_st)
+
+
+def _sparsifying(a_st, ag_st, nu, k, pivot_dtype, seconds, lap):
+    """``SparsifyingPreconditioner3D.build``, phase by phase."""
+    t0 = time.perf_counter()
+    msp = stencils.build_msp_3d(a_st, ag_st, nu, k)
+    seconds["msp"] = lap(t0)
+    use_pallas = pivot_dtype.endswith("_pallas")
+    t0 = time.perf_counter()
+    fac = factor_stencil_3d(msp, pivot_dtype="bf16" if use_pallas else "full")
+    seconds["factorization"] = lap(t0)
+    t0 = time.perf_counter()
+    if use_pallas:
+        fac = plane_view(fac)
+    seconds["packing"] = lap(t0)
+    return SparsifyingPreconditioner3D(factorization=fac, a_s=a_st)
 
 
 def solve(problem: Bump3DProblem, rtol: float = 1e-8, restart: int = 20,

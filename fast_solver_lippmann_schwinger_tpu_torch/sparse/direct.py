@@ -19,7 +19,7 @@ a sweep are factored at once).
 
 The 3D part blocks over z-planes: one dense (mn, mn) pivot inverse per plane
 (``factor_stencil_3d``) and 9-tap in-plane couplings between planes.  Its
-scans run on dense or bf16 pivots here, or, for a plane view of
+scans run on dense, bf16 or int8 pivots here, or, for a plane view of
 ``sparse/plane_kernels.py``, through the plane kernels.
 """
 
@@ -31,6 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.plane_kernels import INT8_BLOCK
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import (
     StencilMatrix2D,
 )
@@ -292,6 +293,47 @@ class BlockTridiagFactorization3DBF16:
     usten: torch.Tensor    # (l, m, n, 3, 3)
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockTridiagFactorization3DInt8:
+    """int8 plane pivots with one f32 scale per (128-input block, output):
+    half the memory of bf16 (what fits the 96^3 y-blocked factorization of
+    the JAX package on its 16 GB chip).  Preconditioner-only use, as bf16.
+
+    The planes are stored TRANSPOSED, ``q_*[k, i, o] ~ Cinv_k[o, i] /
+    s_*[k, i // 128, o]``, with the input axis padded to a multiple of 128
+    (``_quantize_t_int8``): the JAX package's layout, so that its fields
+    carry across as they are."""
+
+    q_re: torch.Tensor     # (l, mn_pad, mn) int8, transposed
+    q_im: torch.Tensor
+    s_re: torch.Tensor     # (l, nb, mn) f32 per-(input-block, output) scales
+    s_im: torch.Tensor
+    lsten: torch.Tensor    # (l, m, n, 3, 3)
+    usten: torch.Tensor    # (l, m, n, 3, 3)
+
+
+def _quantize_t_int8(a: torch.Tensor):
+    """f32 (out, in) -> (int8 (in_pad, out) transposed, f32 (nb, out) scales),
+    bit for bit the JAX package's ``_quantize_t_int8``: per 128-row block of
+    the transposed plane and output lane, ``scale = absmax / 127`` (1 where
+    the block is zero), ``q = clip(round_half_even(a / scale), -127, 127)``;
+    the padded input rows are zero."""
+    out_n, in_n = a.shape
+    nb = -(-in_n // INT8_BLOCK)
+    at = F.pad(a.T, (0, 0, 0, nb * INT8_BLOCK - in_n))          # (in_pad, out)
+    ab = at.reshape(nb, INT8_BLOCK, out_n)
+    absmax = ab.abs().amax(dim=1)                                # (nb, out)
+    scale = torch.where(absmax > 0, absmax / 127.0, torch.ones_like(absmax))
+    q = torch.round(ab / scale[:, None, :]).clamp_(-127, 127).to(torch.int8)
+    return q.reshape(nb * INT8_BLOCK, out_n), scale
+
+
+def _compress_pivot_int8(cinv: torch.Tensor):
+    q_re, s_re = _quantize_t_int8(cinv.real.float())
+    q_im, s_im = _quantize_t_int8(cinv.imag.float())
+    return q_re, q_im, s_re, s_im
+
+
 def _plane_stencil_matvec(sten: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Apply an (m, n, 3, 3) in-plane stencil to (m, n, ...) data."""
     m, n = sten.shape[0], sten.shape[1]
@@ -328,17 +370,14 @@ def factor_stencil_3d(s, pivot_dtype: str = "full", pivot_band: int | None = Non
     Schur recursion ``C_k = D_k - L_k C_{k-1}^{-1} U_{k-1}`` over the planes,
     a Python loop with one ``torch.linalg.inv`` and one dense (mn, mn)
     product per plane.  The loop carries ONE full plane; only the stored
-    stack is kept (``pivot_dtype="bf16"``: bf16 real and imaginary planes),
-    so peak memory is O(mn^2 + l * stored).  ``pivot_band`` is accepted and
+    stack is kept (``pivot_dtype="bf16"``: bf16 real and imaginary planes;
+    ``"int8"``: each plane quantized in the loop, ``_quantize_t_int8``), so
+    peak memory is O(mn^2 + l * stored).  ``pivot_band`` is accepted and
     ignored, as in the JAX package (banded 3D pivots were rejected by
     measurement there).
     """
     del pivot_band
-    if pivot_dtype == "int8":
-        raise NotImplementedError(
-            "int8 plane pivots are not ported yet (ROADMAP.md, Queue 1 slice 5)"
-        )
-    if pivot_dtype not in ("full", "bf16"):
+    if pivot_dtype not in ("full", "bf16", "int8"):
         raise ValueError(f"unknown pivot_dtype {pivot_dtype!r}")
     vals = s.values                       # (l, m, n, 3, 3, 3)
     l, m, n = vals.shape[:3]
@@ -349,6 +388,10 @@ def factor_stencil_3d(s, pivot_dtype: str = "full", pivot_band: int | None = Non
     if pivot_dtype == "bf16":
         cre = torch.empty((l, mn, mn), dtype=torch.bfloat16, device=vals.device)
         cim = torch.empty_like(cre)
+    elif pivot_dtype == "int8":
+        nb = -(-mn // INT8_BLOCK)
+        q = torch.empty((2, l, nb * INT8_BLOCK, mn), dtype=torch.int8, device=vals.device)
+        sc = torch.empty((2, l, nb, mn), dtype=torch.float32, device=vals.device)
     else:
         cinv_all = torch.empty((l, mn, mn), dtype=vals.dtype, device=vals.device)
 
@@ -363,20 +406,28 @@ def factor_stencil_3d(s, pivot_dtype: str = "full", pivot_band: int | None = Non
         if pivot_dtype == "bf16":
             cre[k] = cinv.real.float().to(torch.bfloat16)
             cim[k] = cinv.imag.float().to(torch.bfloat16)
+        elif pivot_dtype == "int8":
+            q[0, k], q[1, k], sc[0, k], sc[1, k] = _compress_pivot_int8(cinv)
         else:
             cinv_all[k] = cinv
     if pivot_dtype == "bf16":
         return BlockTridiagFactorization3DBF16(cinv_re=cre, cinv_im=cim, lsten=lsten,
                                                usten=usten)
+    if pivot_dtype == "int8":
+        return BlockTridiagFactorization3DInt8(q_re=q[0], q_im=q[1], s_re=sc[0], s_im=sc[1],
+                                               lsten=lsten, usten=usten)
     return BlockTridiagFactorization3D(cinv=cinv_all, lsten=lsten, usten=usten)
 
 
 def _pivot_apply_3d(fac, k: int, y: torch.Tensor) -> torch.Tensor:
     """Apply plane pivot inverse ``C_k^{-1}`` to ``y`` (mn[, r]): dense
     complex, bf16 planes (one f32 product per part, as the JAX package's
-    ``_pivot_apply``), or the kernels' plane stack (``plane_apply``)."""
+    ``_pivot_apply``), int8 planes (``_int8_pivot_apply``), or the kernels'
+    plane stack (``plane_apply``)."""
     if hasattr(fac, "stack"):
         return plane_kernels.plane_apply(fac, k, y)
+    if hasattr(fac, "q_re"):
+        return _int8_pivot_apply(fac.q_re[k], fac.q_im[k], fac.s_re[k], fac.s_im[k], y)
     if hasattr(fac, "cinv_re"):
         mn = y.shape[0]
         ys = torch.stack([y.real.float(), y.imag.float()], dim=-1)   # (mn, ..., 2)
@@ -385,6 +436,26 @@ def _pivot_apply_3d(fac, k: int, y: torch.Tensor) -> torch.Tensor:
         zim = (fac.cinv_im[k].float() @ flat).reshape(ys.shape)
         return torch.complex(zre[..., 0] - zim[..., 1], zre[..., 1] + zim[..., 0]).to(y.dtype)
     return fac.cinv[k] @ y
+
+
+def _int8_pivot_apply(q_re, q_im, s_re, s_im, y: torch.Tensor) -> torch.Tensor:
+    """``C^{-1} y`` on one transposed int8 plane (the XLA order of the JAX
+    package's ``_pivot_apply``): each 128-row block of the contraction is one
+    f32 product, scaled AFTER it by its per-output scales, and the blocks are
+    summed; no dequantized plane is formed.  The blocks run as one batched
+    product here, so the sum over blocks is taken in another order."""
+    n = y.shape[0]
+    nb = s_re.shape[0]
+    ys = torch.stack([y.real.float(), y.imag.float()], dim=-1)     # (n, ..., 2)
+    flat = F.pad(ys.reshape(n, -1), (0, 0, 0, nb * INT8_BLOCK - n))
+    fb = flat.T.reshape(-1, nb, INT8_BLOCK).transpose(0, 1)         # (nb, r, B)
+
+    def part(q, sc):
+        z = torch.bmm(fb, q.reshape(nb, INT8_BLOCK, -1).float())    # (nb, r, n)
+        return (z * sc[:, None, :]).sum(dim=0).T.reshape(ys.shape)
+
+    zre, zim = part(q_re, s_re), part(q_im, s_im)
+    return torch.complex(zre[..., 0] - zim[..., 1], zre[..., 1] + zim[..., 0]).to(y.dtype)
 
 
 def _as_plane_stack_3d(fac, b: torch.Tensor) -> torch.Tensor:

@@ -16,19 +16,27 @@ by hand for Hopper in CUDA C++:
   (``_plane_kernel``), the per-plane branch of the scans for stacks too wide
   for the fused passes.
 
-The shared body and the design note are in ``csrc/plane_pass.cuh``.
+The shared body and the design note are in ``csrc/plane_pass.cuh``.  Each
+kernel has two storage modes, as the TPU kernels have:
 
-Storage (the port's own layout, as ``sparse/thomas_kernels.py``): the pivot
-inverses of all planes of all slabs form one flat stack, TRANSPOSED, in bf16
-real and imaginary planes, padded to ``ld = round_up(mn, 8)`` (not the TPU's
-128 lanes) and tile-major, ``p_re[s, t, i_in, l] = Re Cinv_s^T[i_in, 8 t + l]``.
+* **bf16**: the pivot inverses of all planes of all slabs form one flat
+  stack, TRANSPOSED, in bf16 real and imaginary planes, padded to
+  ``ld = round_up(mn, 8)`` (not the TPU's 128 lanes) and tile-major,
+  ``p_re[s, t, i_in, l] = Re Cinv_s^T[i_in, 8 t + l]``;
+* **int8**: the same layout in int8 with ``ld = round_up(mn, 128)``, and one
+  f32 scale per (128-row input block, output lane), tile-major too,
+  ``scale[s, t, b, part, l]`` (part 0: real, 1: imaginary); an entry counts
+  as ``q * scale[.., i_in // 128, ..]``.  The quantization is the JAX
+  package's (``direct._quantize_t_int8``).
+
 Right-hand sides ride as f32 rows stacked ``[re_0..re_{r-1};
 im_0..im_{r-1}]``; the in-plane coupling stencils as packed flat weight rows
 (``_pack_sten_rows``) that are zero wherever a tap leaves the plane.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version only for a tensor that lies on the CPU.  On the card the
-kernels take r = 1 or 2 right-hand sides.
+kernels take r = 1 or 2 right-hand sides.  Each wrapper counts its launches
+(``.launches``), and those on int8 planes also apart (``.launches_int8``).
 """
 
 from __future__ import annotations
@@ -49,31 +57,35 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
 
 MAX_RHS = 2                  # right-hand sides per launch (csrc: kMaxRhs)
 TAPS = 9
+INT8_BLOCK = 128             # input rows per int8 scale (csrc: kScaleBlock)
 # shared memory a block of the fused passes needs (csrc: pass_smem_bytes): the
-# ring of 4 chunks x 2 planes x 256 rows x 16 B, the staged y_p (2r x ld
-# floats) and the reduction; an H100 grants a block at most 232,448 bytes
-_RING_BYTES = 4 * 2 * 256 * 16
+# ring of 4 chunks x 2 planes x 4096 B (with 4 x 2 x 8 f32 scales per int8
+# chunk), the staged y_p (2r x ld floats) and the reduction; an H100 grants a
+# block at most 232,448 bytes
+_RING_BYTES = {"bf16": 4 * 2 * 4096, "int8": 4 * (2 * 4096 + 4 * 2 * 8 * 4)}
 SMEM_PER_BLOCK = 232_448
 
 _P, _I = cuda_build.PTR, cuda_build.INT
-cuda_build.register("plane_fwd", "plane_forward", [_P] * 8 + [_I] * 7 + [_P])
-cuda_build.register("plane_bwd", "plane_backward", [_P] * 6 + [_I] * 7 + [_P])
-cuda_build.register("plane_apply", "plane_apply", [_P] * 4 + [_I] * 4 + [_P])
+cuda_build.register("plane_fwd", "plane_forward", [_P] * 9 + [_I] * 7 + [_P])
+cuda_build.register("plane_bwd", "plane_backward", [_P] * 7 + [_I] * 7 + [_P])
+cuda_build.register("plane_apply", "plane_apply", [_P] * 5 + [_I] * 4 + [_P])
 
 
 @dataclasses.dataclass(frozen=True)
 class PlaneStack:
     """Flat (slab * plane) stack of transposed plane-pivot inverses.
 
-    Counterpart of the JAX package's ``PallasPlaneStack`` with bf16 storage:
-    ``p_*[f]`` holds ``Cinv[f // l1][f % l1]`` transposed, tile-major
-    (see :func:`~.thomas_kernels.tile_planes`); padding is zero.
+    Counterpart of the JAX package's ``PallasPlaneStack``: ``p_*[f]`` holds
+    ``Cinv[f // l1][f % l1]`` transposed, tile-major (see
+    :func:`~.thomas_kernels.tile_planes`), in bf16 (``scale`` is ``None``)
+    or in int8 with its scales; padding is zero (scale 1).
     """
 
-    p_re: torch.Tensor    # (SL, ld/8, ld, 8) bfloat16
+    p_re: torch.Tensor    # (SL, ld/8, ld, 8) bfloat16 or int8
     p_im: torch.Tensor
     mn: int               # true plane size
     l1: int               # planes per slab
+    scale: torch.Tensor | None = None    # int8: (SL, ld/8, ld/128, 2, 8) float32
 
     @property
     def ld(self) -> int:
@@ -82,6 +94,16 @@ class PlaneStack:
     @property
     def n_planes(self) -> int:
         return self.p_re.shape[0]
+
+    @property
+    def storage(self) -> str:
+        return "bf16" if self.scale is None else "int8"
+
+    @property
+    def nbytes(self) -> int:
+        """Device bytes of the planes and scales."""
+        return sum(t.numel() * t.element_size()
+                   for t in (self.p_re, self.p_im, self.scale) if t is not None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -112,47 +134,104 @@ class PlaneSlabView:
             object.__setattr__(self, "urows", _pack_sten_rows(self.usten, self.stack.ld))
 
 
-def build_plane_stack(fac, batched: bool = True) -> PlaneStack:
-    """Convert a 3D plane factorization (full or bf16 storage, with a leading
-    slab axis when ``batched``) to the kernels' stack layout.
+def stack_ld(mn: int, storage: str) -> int:
+    """Padded plane width of a stack: a multiple of 8 lanes (bf16) or of the
+    128-row scale blocks (int8)."""
+    return _round_up(mn, INT8_BLOCK if storage == "int8" else LEAD_MULTIPLE)
+
+
+def empty_plane_stack(n_planes: int, mn: int, l1: int, storage: str, device) -> PlaneStack:
+    """An uninitialised stack of ``n_planes`` planes, filled by
+    :func:`pack_planes`."""
+    if storage not in ("bf16", "int8"):
+        raise ValueError(f"unknown plane storage {storage!r}")
+    ld = stack_ld(mn, storage)
+    dtype = torch.bfloat16 if storage == "bf16" else torch.int8
+    shape = (n_planes, ld // LEAD_MULTIPLE, ld, LEAD_MULTIPLE)
+    scale = None
+    if storage == "int8":
+        scale = torch.empty((n_planes, ld // LEAD_MULTIPLE, ld // INT8_BLOCK, 2, LEAD_MULTIPLE),
+                            dtype=torch.float32, device=device)
+    return PlaneStack(p_re=torch.empty(shape, dtype=dtype, device=device),
+                      p_im=torch.empty(shape, dtype=dtype, device=device),
+                      mn=mn, l1=l1, scale=scale)
+
+
+def _tile_scales(s: torch.Tensor, ld: int) -> torch.Tensor:
+    """(nb, mn) scales of one plane part -> (ld/8, nb, 8), padding 1."""
+    s = F.pad(s, (0, ld - s.shape[-1]), value=1.0)
+    return s.reshape(s.shape[0], ld // LEAD_MULTIPLE, LEAD_MULTIPLE).transpose(0, 1)
+
+
+def pack_planes(stack: PlaneStack, first: int, fac) -> None:
+    """Write the planes of ONE unbatched 3D factorization (full, bf16 or int8
+    storage; full and bf16 into a bf16 stack, int8 into an int8 stack) into
+    ``stack`` from flat plane ``first`` on, in place, one plane at a time,
+    which bounds the temporaries to one dense plane.
 
     Full pivots are rounded complex -> f32 -> bf16, as the JAX package
     rounds them, so the planes are bit-equal to its stack away from the
-    padding.  Planes are packed one at a time, which bounds the temporaries.
-    """
-    if hasattr(fac, "q_re"):
-        raise NotImplementedError(
-            "int8 plane storage is not ported yet (ROADMAP.md, Queue 2 item 8)"
-        )
-    if hasattr(fac, "cinv_re"):
-        c_re, c_im = fac.cinv_re, fac.cinv_im
-    else:
-        c_re, c_im = fac.cinv, None
-    if not batched:
-        c_re = c_re[None]
-        c_im = None if c_im is None else c_im[None]
-    S, l1, mn = c_re.shape[0], c_re.shape[1], c_re.shape[2]
-    ld = _round_up(mn, LEAD_MULTIPLE)
-    tiles = ld // LEAD_MULTIPLE
-    device = c_re.device
-    p_re = torch.empty((S * l1, tiles, ld, LEAD_MULTIPLE), dtype=torch.bfloat16, device=device)
-    p_im = torch.empty_like(p_re)
-    dense = torch.zeros((ld, ld), dtype=torch.bfloat16, device=device)
-    for f in range(S * l1):
-        s, k = divmod(f, l1)
-        if c_im is None:
-            parts = (c_re[s, k].real.float(), c_re[s, k].imag.float())
+    padding.  int8 planes arrive already transposed with their input axis
+    padded to a multiple of 128 (``direct._quantize_t_int8``)."""
+    mn, ld = stack.mn, stack.ld
+    int8 = hasattr(fac, "q_re")
+    if int8 != (stack.storage == "int8"):
+        raise ValueError(f"a {'int8' if int8 else 'bf16/full'} factorization cannot be packed "
+                         f"into a {stack.storage} stack")
+    dense = torch.zeros((ld, ld), dtype=stack.p_re.dtype, device=stack.p_re.device)
+    for k in range(_pivots(fac)[0].shape[0]):
+        if int8:
+            parts = (fac.q_re[k], fac.q_im[k])
+            if tuple(parts[0].shape) != (ld, mn):
+                raise ValueError(f"int8 planes {tuple(parts[0].shape)} must be ({ld}, {mn})")
+            stack.scale[first + k, :, :, 0] = _tile_scales(fac.s_re[k], ld)
+            stack.scale[first + k, :, :, 1] = _tile_scales(fac.s_im[k], ld)
+        elif hasattr(fac, "cinv_re"):
+            parts = (fac.cinv_re[k].T, fac.cinv_im[k].T)
         else:
-            parts = (c_re[s, k], c_im[s, k])
-        for dst, part in zip((p_re, p_im), parts):
-            dense[:mn, :mn] = part.T.to(torch.bfloat16)
-            dst[f] = tile_planes(dense)
-    return PlaneStack(p_re=p_re, p_im=p_im, mn=mn, l1=l1)
+            parts = (fac.cinv[k].real.float().T, fac.cinv[k].imag.float().T)
+        for dst, part in zip((stack.p_re, stack.p_im), parts):
+            dense[: part.shape[0], :mn] = part.to(dense.dtype)
+            dst[first + k] = tile_planes(dense)
+
+
+def build_plane_stack(fac, batched: bool = True) -> PlaneStack:
+    """Convert a 3D plane factorization (full, bf16 or int8 storage, with a
+    leading slab axis when ``batched``) to the kernels' stack layout: full
+    and bf16 pivots to a bf16 stack, int8 pivots to an int8 stack.  Planes are
+    packed one at a time (:func:`pack_planes`), so the stack is never held
+    twice."""
+    pivots = _pivots(fac)
+    storage = "int8" if hasattr(fac, "q_re") else "bf16"
+    first = pivots[0] if batched else pivots[0][None]
+    S, l1, mn = first.shape[0], first.shape[1], first.shape[-1]
+    stack = empty_plane_stack(S * l1, mn, l1, storage, first.device)
+    for s in range(S):
+        slab = fac if not batched else dataclasses.replace(
+            fac, **{name: getattr(fac, name)[s] for name in _pivot_fields(fac)})
+        pack_planes(stack, s * l1, slab)
+    return stack
+
+
+def _pivot_fields(fac) -> tuple:
+    """Names of a 3D factorization's pivot fields, by storage."""
+    if hasattr(fac, "q_re"):
+        return ("q_re", "q_im", "s_re", "s_im")
+    return ("cinv_re", "cinv_im") if hasattr(fac, "cinv_re") else ("cinv",)
+
+
+def _pivots(fac) -> tuple:
+    return tuple(getattr(fac, name) for name in _pivot_fields(fac))
+
+
+def _slab_slice(fac, s: int):
+    """Slab ``s`` of a batched factorization (every field sliced)."""
+    return type(fac)(**{f.name: getattr(fac, f.name)[s] for f in dataclasses.fields(fac)})
 
 
 def plane_view(fac) -> PlaneSlabView:
-    """The view of one unbatched 3D factorization (full or bf16 pivots) with
-    its pivots packed as a plane stack."""
+    """The view of one unbatched 3D factorization (full, bf16 or int8 pivots)
+    with its pivots packed as a plane stack."""
     return PlaneSlabView(stack=build_plane_stack(fac, batched=False),
                          lsten=fac.lsten, usten=fac.usten)
 
@@ -191,12 +270,12 @@ def _unrows(rows: torch.Tensor, mn: int, dtype, shape) -> torch.Tensor:
 
 def fused_fits(stack: PlaneStack, r: int) -> bool:
     """Whether the fused passes take ``r`` right-hand sides on this stack:
-    r <= 2, and the staged y_p with the pivot-column ring fits one block's
-    shared memory on an H100 (ld <= 12448 at r = 2, 24928 at r = 1).  Other
-    stacks go through the per-plane branch, which takes any width.  The
-    answer depends on shapes only, so the CPU and the card take the same
-    branch."""
-    smem = _RING_BYTES + 4 * 2 * r * stack.ld + 4 * 4 * 2 * r * LEAD_MULTIPLE
+    r <= 2, and the staged y_p with the pivot-column ring (and its int8
+    scales) fits one block's shared memory on an H100 (bf16: ld <= 12448 at
+    r = 2, 24928 at r = 1; int8: 12288 and 24704).  Other stacks go through
+    the per-plane branch, which takes any width.  The answer depends on shapes
+    only, so the CPU and the card take the same branch."""
+    smem = _RING_BYTES[stack.storage] + 4 * 2 * r * stack.ld + 4 * 4 * 2 * r * LEAD_MULTIPLE
     return r <= MAX_RHS and smem <= SMEM_PER_BLOCK
 
 
@@ -227,18 +306,35 @@ def _sten_apply_rows(w: torch.Tensor, t: torch.Tensor, n: int, mn: int):
     return accr, acci
 
 
-def _dot_plane(y: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor) -> torch.Tensor:
+def _dequant(p: torch.Tensor, scale: torch.Tensor | None, part: int) -> torch.Tensor:
+    """One tile-major (ld/8, ld, 8) plane as a dense f32 (ld, ld) copy: bf16
+    widened, or int8 times its (ld/8, nb, 2, 8) scales, element by element."""
+    dense = dense_planes(p).float()
+    if scale is None:
+        return dense
+    s = scale[:, :, part].transpose(0, 1).reshape(scale.shape[1], -1)     # (nb, ld)
+    return dense * s.repeat_interleave(INT8_BLOCK, dim=0)
+
+
+def _dot_plane(y: torch.Tensor, pre: torch.Tensor, pim: torch.Tensor,
+               scale: torch.Tensor | None = None) -> torch.Tensor:
     """[Yr; Yi] @ P with complex recombination; y (2r, ld) f32, tile-major
-    (ld/8, ld, 8) bf16 planes widened to dense f32 copies."""
+    (ld/8, ld, 8) planes dequantized to dense f32 copies BEFORE the product
+    (the Pallas kernel's order, ``pallas_plane.py:_dot_plane``)."""
     r = y.shape[0] // 2
-    z1 = y @ dense_planes(pre).float()
-    z2 = y @ dense_planes(pim).float()
+    z1 = y @ _dequant(pre, scale, 0)
+    z2 = y @ _dequant(pim, scale, 1)
     return torch.cat([z1[:r] - z2[r:], z1[r:] + z2[:r]], dim=0)
+
+
+def _plane(stack: PlaneStack, idx: int):
+    return (stack.p_re[idx], stack.p_im[idx],
+            None if stack.scale is None else stack.scale[idx])
 
 
 def plane_apply_rows_plain(stack: PlaneStack, idx: int, rows: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`plane_apply_rows`."""
-    return _dot_plane(rows, stack.p_re[idx], stack.p_im[idx])
+    return _dot_plane(rows, *_plane(stack, idx))
 
 
 def plane_forward_plain(stack: PlaneStack, b4, w4, n: int, base: int = 0, start: int = 0,
@@ -255,7 +351,7 @@ def plane_forward_plain(stack: PlaneStack, b4, w4, n: int, base: int = 0, start:
         if t is not None:
             accr, acci = _sten_apply_rows(w4[p], t, n, stack.mn)
             y = y - torch.cat([accr, acci], dim=0)
-        t = _dot_plane(y, stack.p_re[base + p], stack.p_im[base + p])
+        t = _dot_plane(y, *_plane(stack, base + p))
         y4[p] = y
         if t4 is not None:
             t4[p] = t
@@ -273,7 +369,7 @@ def plane_backward_plain(stack: PlaneStack, y4, w4, n: int, base: int = 0, start
         if x is not None:
             accr, acci = _sten_apply_rows(w4[p], x, n, stack.mn)
             w = w - torch.cat([accr, acci], dim=0)
-        x = _dot_plane(w, stack.p_re[base + p], stack.p_im[base + p])
+        x = _dot_plane(w, *_plane(stack, base + p))
         x4[p] = x
     return x4
 
@@ -291,12 +387,30 @@ def _check_f32(name: str, t: torch.Tensor, shape, device):
 
 
 def _check_stack(stack: PlaneStack, device, planes: range):
+    dtype = torch.bfloat16 if stack.scale is None else torch.int8
     for t in (stack.p_re, stack.p_im):
-        if t.dtype != torch.bfloat16 or t.device != device or not t.is_contiguous():
-            raise ValueError("pivot planes must be contiguous bfloat16 tensors on "
-                             f"{device}")
+        if t.dtype != dtype or t.device != device or not t.is_contiguous():
+            raise ValueError(f"{stack.storage} pivot planes must be contiguous {dtype} "
+                             f"tensors on {device}")
+    if stack.ld % (LEAD_MULTIPLE if stack.scale is None else INT8_BLOCK):
+        raise ValueError(f"{stack.storage} planes of width {stack.ld} are not padded to "
+                         f"a multiple of the {stack.storage} tile")
+    if stack.scale is not None:
+        shape = (stack.n_planes, stack.ld // LEAD_MULTIPLE, stack.ld // INT8_BLOCK, 2,
+                 LEAD_MULTIPLE)
+        _check_f32("int8 scales", stack.scale, shape, device)
     if planes and (planes.start < 0 or planes[-1] >= stack.n_planes):
         raise ValueError(f"pivot planes {planes} outside the stack of {stack.n_planes}")
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _count(fn, stack: PlaneStack):
+    fn.launches += 1
+    if stack.scale is not None:
+        fn.launches_int8 += 1
 
 
 def _check_rhs(rows: torch.Tensor, stack: PlaneStack) -> int:
@@ -326,11 +440,12 @@ def plane_apply_rows(stack: PlaneStack, idx: int, rows: torch.Tensor) -> torch.T
         return plane_apply_rows_plain(stack, idx, rows)
     out = torch.empty_like(rows)
     err = cuda_build.load("plane_apply")(
-        rows.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(), out.data_ptr(),
-        stack.mn, stack.ld, r, idx, torch.cuda.current_stream(rows.device).cuda_stream,
+        rows.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(), _ptr(stack.scale),
+        out.data_ptr(), stack.mn, stack.ld, r, idx,
+        torch.cuda.current_stream(rows.device).cuda_stream,
     )
     _raise_on(err, "plane_apply")
-    plane_apply_rows.launches += 1
+    _count(plane_apply_rows, stack)
     return out
 
 
@@ -376,12 +491,11 @@ def plane_forward(stack: PlaneStack, b4: torch.Tensor, w4: torch.Tensor, n: int,
                                                     device=dev)
     err = cuda_build.load("plane_fwd")(
         b4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
-        None if t_init is None else t_init.data_ptr(), y4.data_ptr(),
-        None if t4 is None else t4.data_ptr(), None if carry is None else carry.data_ptr(),
+        _ptr(stack.scale), _ptr(t_init), y4.data_ptr(), _ptr(t4), _ptr(carry),
         l, stack.mn, n, stack.ld, r, base, start, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "plane_forward")
-    plane_forward.launches += 1
+    _count(plane_forward, stack)
     return out
 
 
@@ -411,18 +525,19 @@ def plane_backward(stack: PlaneStack, y4: torch.Tensor, w4: torch.Tensor, n: int
     scratch = torch.empty((2 * r, stack.ld), dtype=torch.float32, device=dev)
     err = cuda_build.load("plane_bwd")(
         y4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
-        scratch.data_ptr(), out.data_ptr(), l, stack.mn, n, stack.ld, r, base, start,
-        torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(stack.scale), scratch.data_ptr(), out.data_ptr(), l, stack.mn, n, stack.ld, r,
+        base, start, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "plane_backward")
-    plane_backward.launches += 1
+    _count(plane_backward, stack)
     return out
 
 
-# launch counts: one per wrapper call that launched its kernel
-plane_apply_rows.launches = 0
-plane_forward.launches = 0
-plane_backward.launches = 0
+# launch counts: one per wrapper call that launched its kernel, in all and on
+# int8 planes
+for _fn in (plane_apply_rows, plane_forward, plane_backward):
+    _fn.launches = 0
+    _fn.launches_int8 = 0
 
 
 # ---------------------------------------------------------------------------

@@ -14,6 +14,8 @@ import torch
 
 import dataclasses
 
+from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
+from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
@@ -342,3 +344,184 @@ def test_plane_kernels_refuse_three_right_hand_sides(cuda_device, entry):
             pk.plane_backward(view.stack, rows, view.urows, 5)
         else:
             pk.plane_apply_rows(view.stack, 0, rows[0])
+
+
+# ---------------------------------------------------------------------------
+# The int8 mode of the plane kernels (int8 planes with per-block f32 scales)
+# ---------------------------------------------------------------------------
+
+
+def _random_int8_view(rng, l, m, n, device, slabs=1):
+    """Contracting random plane factors quantized by the port's own
+    ``direct._quantize_t_int8`` and packed into an int8 stack: ``slabs``
+    slabs of ``l`` planes, the view of the last one."""
+    mn = m * n
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+
+    def plane():
+        p = (0.1 / mn ** 0.5) * torch.randn((mn, mn), generator=g, device=device)
+        p += 0.2 * torch.eye(mn, device=device)
+        return direct._quantize_t_int8(p)
+
+    def sten():
+        s = rng.uniform(-0.05, 0.05, (slabs, l, m, n, 3, 3, 2)).astype(np.float32)
+        return torch.view_as_complex(torch.as_tensor(s, device=device))
+
+    parts = [[plane() for _ in range(slabs * l)] for _ in range(2)]
+    q = [torch.stack([p[0] for p in ps]).reshape((slabs, l) + ps[0][0].shape) for ps in parts]
+    s = [torch.stack([p[1] for p in ps]).reshape((slabs, l) + ps[0][1].shape) for ps in parts]
+    fac = direct.BlockTridiagFactorization3DInt8(q_re=q[0], q_im=q[1], s_re=s[0], s_im=s[1],
+                                                 lsten=sten(), usten=sten())
+    stack = pk.build_plane_stack(fac)
+    return pk.PlaneSlabView(stack=stack, lsten=fac.lsten[-1], usten=fac.usten[-1],
+                            base=(slabs - 1) * l)
+
+
+def _int8_view_to_cpu(view):
+    return pk.PlaneSlabView(stack=dataclasses.replace(
+        view.stack, p_re=view.stack.p_re.cpu(), p_im=view.stack.p_im.cpu(),
+        scale=view.stack.scale.cpu()), lsten=view.lsten.cpu(), usten=view.usten.cpu(),
+        base=view.base)
+
+
+@pytest.mark.parametrize("shape", [(5, 5, 7), (3, 10, 30), (3, 32, 96)])
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("start,carry,tail,collect", [(0, False, 0, True), (0, True, 2, False),
+                                                      (2, True, 0, True), (2, False, 1, False)])
+def test_int8_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, collect):
+    """Both fused passes on int8 planes: padded widths (mn = 35 and 300 in
+    one and three 128-row scale blocks) and the 96^3 y-plane width
+    (mn = 3072 = 24 blocks), from the second slab of the stack, with and
+    without the t stack; one launch per call, counted as int8."""
+    rng = np.random.default_rng(r + 10 * start + shape[1])
+    l, m, n = shape
+    view = _random_int8_view(rng, l, m, n, cuda_device, slabs=2)
+    cpu = _int8_view_to_cpu(view)
+    st, ld = view.stack, view.stack.ld
+    assert st.storage == "int8" and ld % 128 == 0
+    b = (rng.standard_normal((l, m * n, r)) + 1j * rng.standard_normal((l, m * n, r)))
+    b4 = pk._rows_of(torch.as_tensor(b.astype(np.complex64), device=cuda_device), ld)
+    t0 = None
+    if carry:
+        t0 = torch.zeros((2 * r, ld), device=cuda_device)
+        t0[:, : m * n] = torch.as_tensor(rng.standard_normal((2 * r, m * n)).astype(np.float32))
+    out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0) if collect else None)
+    before = (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8)
+    y4, t4 = pk.plane_forward(st, b4, view.lrows, n, view.base, start, t0, out=out)
+    x4 = pk.plane_backward(st, y4, view.urows, n, view.base, start=tail and l - tail)
+    torch.cuda.synchronize()
+    assert (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8) == (
+        before[0] + 1, before[1] + 1)
+    y_p, t_p = pk.plane_forward(cpu.stack, b4.cpu(), cpu.lrows, n, cpu.base, start,
+                                None if t0 is None else t0.cpu())
+    x_p = pk.plane_backward(cpu.stack, y4.cpu(), cpu.urows, n, cpu.base, start=tail and l - tail)
+    _close(y4[start:], y_p[start:])
+    _close(x4, x_p)
+    assert bool((y4[:start] == 7.0).all())
+    if collect:
+        _close(t4[start:], t_p[start:])
+        assert bool((t4[:start] == -7.0).all())
+    else:
+        assert t4 is None
+
+
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("mn", [35, 3072, 12300])
+def test_int8_plane_apply_matches_plain(cuda_device, r, mn):
+    """One int8 plane apply, also at a width the fused int8 passes refuse at
+    r = 2 (ld = 12416 > 12288)."""
+    rng = np.random.default_rng(mn + r)
+    view = _random_int8_view(rng, 1, 1, mn, cuda_device)
+    rows = torch.as_tensor(rng.standard_normal((2 * r, view.stack.ld)).astype(np.float32),
+                           device=cuda_device)
+    rows[:, mn:] = 0
+    before = pk.plane_apply_rows.launches_int8
+    got = pk.plane_apply_rows(view.stack, 0, rows)
+    torch.cuda.synchronize()
+    assert pk.plane_apply_rows.launches_int8 == before + 1
+    _close(got, pk.plane_apply_rows_plain(view.stack, 0, rows).cpu())
+    assert pk.fused_fits(view.stack, r) == (mn < 12300 or r == 1)
+
+
+def test_int8_solve_branches_agree(cuda_device):
+    """``block_thomas_solve_3d`` on an int8 view: the fused branch and the
+    per-plane branch agree with each other and with the plain versions on
+    the CPU; no plain version is called for a CUDA tensor."""
+    rng = np.random.default_rng(5)
+    l, m, n = 4, 6, 30
+    view = _random_int8_view(rng, l, m, n, cuda_device)
+    b = torch.as_tensor((rng.standard_normal((l * m * n, 2))
+                         + 1j * rng.standard_normal((l * m * n, 2))).astype(np.complex64),
+                        device=cuda_device)
+    want = direct.block_thomas_solve_3d(_int8_view_to_cpu(view), b.cpu())
+    plain = {name: getattr(pk, name) for name in
+             ("plane_forward_plain", "plane_backward_plain", "plane_apply_rows_plain")}
+    try:
+        for name in plain:
+            setattr(pk, name, None)      # a call would raise TypeError
+        before = (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8,
+                  pk.plane_apply_rows.launches_int8)
+        x_fused = direct.block_thomas_solve_3d(view, b)
+        x_plane = direct.block_thomas_solve_3d(dataclasses.replace(view, fused=False), b)
+        after = (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8,
+                 pk.plane_apply_rows.launches_int8)
+    finally:
+        for name, fn in plain.items():
+            setattr(pk, name, fn)
+    assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 2 * l)
+    torch.testing.assert_close(x_plane, x_fused, rtol=0, atol=TOL * float(x_fused.abs().max()))
+    _close(x_fused, want)
+
+
+@pytest.mark.parametrize("entry", ["forward", "backward", "apply"])
+@pytest.mark.parametrize("fault", ["width", "scales", "rhs"])
+def test_int8_wrappers_raise_instead_of_falling_back(cuda_device, entry, fault):
+    """int8 planes the kernels cannot take raise before any launch: a width
+    that is not a multiple of the 128-row scale blocks, scales of the wrong
+    shape, three right-hand sides."""
+    rng = np.random.default_rng(0)
+    view = _random_int8_view(rng, 2, 4, 40, cuda_device)
+    st, r = view.stack, 1
+    if fault == "width":
+        ld = 168
+        st = dataclasses.replace(
+            st, p_re=torch.zeros((2, ld // 8, ld, 8), dtype=torch.int8, device=cuda_device),
+            p_im=torch.zeros((2, ld // 8, ld, 8), dtype=torch.int8, device=cuda_device),
+            scale=torch.ones((2, ld // 8, 1, 2, 8), device=cuda_device))
+    elif fault == "scales":
+        st = dataclasses.replace(st, scale=st.scale[:, :, :, :1].contiguous())
+    else:
+        r = 3
+    rows = torch.zeros((2, 2 * r, st.ld), device=cuda_device)
+    w = torch.zeros((2, 2, 9, st.ld), device=cuda_device)
+    fn = {"forward": pk.plane_forward, "backward": pk.plane_backward,
+          "apply": pk.plane_apply_rows}[entry]
+    before = (fn.launches, fn.launches_int8)
+    with pytest.raises(ValueError):
+        if entry == "apply":
+            fn(st, 0, rows[0])
+        else:
+            fn(st, rows, w, 40)
+    assert (fn.launches, fn.launches_int8) == before
+
+
+@pytest.mark.parametrize("mode", ["bf16_pallas", "yblock_int8_pallas"])
+def test_gs_sweep_on_card_matches_cpu(cuda_device, mode):
+    """The 3D z-slab sweep preconditioner of a small bump problem, built on
+    the CPU and moved to the card: one apply (two right-hand sides) through
+    the kernels against the same apply through the plain versions, two
+    launches of each fused pass per slab solve."""
+    problem = bump3d.build_problem(h=1 / 16, dtype=torch.complex64, precond="gs",
+                                   n_subdomains=2, npml=5, pivot_dtype=mode, device="cpu")
+    pc_cpu = problem.precond
+    pc = move_to(pc_cpu, cuda_device)
+    rng = np.random.default_rng(1)
+    b = (rng.standard_normal((2, problem.grid.size))
+         + 1j * rng.standard_normal((2, problem.grid.size))).astype(np.complex64)
+    before = (pk.plane_forward.launches, pk.plane_backward.launches)
+    got = pc.apply_batch(torch.as_tensor(b, device=cuda_device))
+    torch.cuda.synchronize()
+    slab_solves = 2 * pc.slabs.n_subs
+    assert (pk.plane_forward.launches - before[0], pk.plane_backward.launches - before[1]) == (
+        slab_solves, slab_solves)
+    _close(got, pc_cpu.apply_batch(torch.as_tensor(b)))

@@ -13,6 +13,7 @@ from fast_solver_lippmann_schwinger_tpu.sparse.stencil_matrix import (
 from fast_solver_lippmann_schwinger_tpu_torch import convert
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
+from torch_threads import few_threads  # noqa: F401
 
 M, N = 8, 11
 RTOL = 1e-9   # complex128 on both sides; LAPACK inversions differ in rounding only

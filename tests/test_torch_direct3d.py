@@ -14,6 +14,7 @@ from fast_solver_lippmann_schwinger_tpu.sparse.stencil_matrix import (
 )
 from fast_solver_lippmann_schwinger_tpu_torch import convert
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
+from torch_threads import few_threads  # noqa: F401
 
 L, M, N = 6, 5, 7
 MN = M * N
@@ -138,8 +139,11 @@ def test_bf16_solve_matches_on_carried_pivots(bf16, shape):
 
 
 def test_unported_pivot_modes_raise(c128):
+    """Every pivot storage of the JAX package's ``factor_stencil_3d`` is
+    ported (int8: ``tests/test_torch_int8_planes.py``); an unknown one
+    raises."""
     st = c128[1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        direct.factor_stencil_3d(st, pivot_dtype="int8")
+    assert isinstance(direct.factor_stencil_3d(st, pivot_dtype="int8"),
+                      direct.BlockTridiagFactorization3DInt8)
     with pytest.raises(ValueError):
         direct.factor_stencil_3d(st, pivot_dtype="fp8")

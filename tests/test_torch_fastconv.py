@@ -13,6 +13,7 @@ from fast_solver_lippmann_schwinger_tpu_torch import convert
 from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D
 from fast_solver_lippmann_schwinger_tpu_torch.models import media
 from fast_solver_lippmann_schwinger_tpu_torch.ops import fastconv, greens
+from torch_threads import few_threads  # noqa: F401
 
 H = 1.0 / 40.0
 

@@ -7,6 +7,7 @@ import torch
 
 from fast_solver_lippmann_schwinger_tpu.solver import gmres as jgmres
 from fast_solver_lippmann_schwinger_tpu_torch.solver import gmres as tgmres
+from torch_threads import few_threads  # noqa: F401
 
 N = 40
 

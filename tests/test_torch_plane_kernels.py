@@ -24,6 +24,8 @@ from fast_solver_lippmann_schwinger_tpu.sparse.stencil_matrix import (
 from fast_solver_lippmann_schwinger_tpu_torch import convert
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
+from torch_threads import few_threads  # noqa: F401
 
 L, M, N = 6, 5, 7
 MN = M * N
@@ -221,10 +223,20 @@ def test_fused_limits():
 
 
 def test_int8_storage_raises(views):
+    """int8 plane storage is ported (``tests/test_torch_int8_planes.py``).
+    What still raises: the int8 line pivots of the 2D kernels (ROADMAP.md
+    Queue 2 item 8), bf16 planes handed the scales of int8 storage, and int8
+    planes that are not transposed and padded to the 128-row scale blocks."""
     jfac, jview, _ = views
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pk.build_plane_stack(type("F", (), {"q_re": None})(), batched=False)
+        tk.build_thomas_factorization(None, storage="int8")
     st = jview.stack
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="all-ones"):
         convert.plane_stack(np.asarray(st.p_re).view(np.uint16), np.asarray(st.p_im).view(np.uint16),
                             np.full((L, 2, 2, 128), 0.5, np.float32), MN, L, device="cpu")
+    q = torch.zeros((1, MN, MN), dtype=torch.int8)
+    s = torch.ones((1, 1, MN))
+    fac = direct.BlockTridiagFactorization3DInt8(q_re=q, q_im=q, s_re=s, s_im=s,
+                                                 lsten=None, usten=None)
+    with pytest.raises(ValueError, match="must be"):
+        pk.build_plane_stack(fac, batched=False)

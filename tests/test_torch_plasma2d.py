@@ -13,6 +13,7 @@ import torch
 from fast_solver_lippmann_schwinger_tpu.models import plasma2d as jplasma2d
 from fast_solver_lippmann_schwinger_tpu_torch import convert, resolve_device
 from fast_solver_lippmann_schwinger_tpu_torch.models import plasma2d
+from torch_threads import few_threads  # noqa: F401
 
 KW = dict(h=1.0 / 40.0, n_subdomains=1, npml=6, double_sweep=False)
 SOLVE = dict(rtol=1e-6, restart=20, maxiter=12)

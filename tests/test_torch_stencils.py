@@ -14,6 +14,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D
 from fast_solver_lippmann_schwinger_tpu_torch.models import media
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import stencils
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
+from torch_threads import few_threads  # noqa: F401
 
 M, N = 7, 9
 

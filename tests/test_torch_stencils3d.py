@@ -16,6 +16,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D, Grid3D
 from fast_solver_lippmann_schwinger_tpu_torch.models import media
 from fast_solver_lippmann_schwinger_tpu_torch.ops import fastconv
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import stencils
+from torch_threads import few_threads  # noqa: F401
 
 L, M, N = 4, 5, 6
 H = 1.0 / 10.0

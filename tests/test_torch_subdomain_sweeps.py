@@ -21,6 +21,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps
 from fast_solver_lippmann_schwinger_tpu_torch.models import media
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
+from torch_threads import few_threads  # noqa: F401
 
 H, NPML = 1.0 / 30.0, 6
 HOST_FIELDS = ("l0", "l1", "ln", "lnp", "has_top", "has_bot", "src_line",

@@ -22,6 +22,7 @@ from fast_solver_lippmann_schwinger_tpu.sparse.stencil_matrix import (
 from fast_solver_lippmann_schwinger_tpu_torch import convert
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
+from torch_threads import few_threads  # noqa: F401
 
 M, N = 6, 13      # N is not a multiple of 8: the ragged edge is exercised
 

@@ -3,6 +3,8 @@ of the 96^3 bump solve with the z-slab sweep goes on the card.
 
     python3 benchmarks_torch/profile_solve.py                      # one slab
     python3 benchmarks_torch/profile_solve.py --n-subdomains 16 --double-sweep
+    python3 benchmarks_torch/profile_solve.py --n-subdomains 16 --double-sweep \
+        --pivot-dtype pallas_banded_tail                           # fused sweep kernels
     python3 benchmarks_torch/profile_solve.py --bump3d             # 48^3, bf16 planes
     python3 benchmarks_torch/profile_solve.py --gs3d               # 96^3, int8 y-planes
     python3 benchmarks_torch/profile_solve.py --gs3d --pivot-dtype yblock_bf16_pallas
@@ -100,6 +102,7 @@ def sweep_parts(p, r, cols, rhs):
     _, y_c, t_c = tk.solve_cached(fac, s, rhs_s, slabs.trace_tail)
     return dict(
         gs_sweep=lambda: sweeps.gs_sweep(slabs, sp),
+        gs_sweep_per_slab=lambda: sweeps._gs_sweep_per_slab(slabs, sp),
         gs_sweep_transposed=lambda: sweeps.gs_sweep(pc.slabs_t, err_t),
         msp_residual_and_transposes=lambda: pc._transpose_flat(
             pc._transpose_flat(pc.msp.matvec(u) - sp).contiguous()),
@@ -233,17 +236,20 @@ def main():
     ap.add_argument("--double-sweep", action="store_true")
     ap.add_argument("--bump3d", action="store_true")
     ap.add_argument("--gs3d", action="store_true")
-    ap.add_argument("--pivot-dtype", default="yblock_int8_pallas",
-                    help="pivot storage of --gs3d")
+    ap.add_argument("--pivot-dtype", default=None,
+                    help="pivot storage: 2D pallas (default) or pallas_banded_tail; "
+                         "--gs3d yblock_int8_pallas (default) or another 3D mode")
     args = ap.parse_args()
 
     print(card_name_and_power_limit())
     if args.bump3d or args.gs3d:
-        return main_bump3d(args.gs3d, args.pivot_dtype)
+        return main_bump3d(args.gs3d, args.pivot_dtype or "yblock_int8_pallas")
+    pivot_dtype = args.pivot_dtype or "pallas"
     p = plasma2d.build_problem(h=1 / 800, n_subdomains=args.n_subdomains, npml=10,
                                dtype=torch.complex64, double_sweep=args.double_sweep,
-                               pivot_dtype="pallas")
+                               pivot_dtype=pivot_dtype)
     print(json.dumps(dict(n_subdomains=args.n_subdomains, double_sweep=args.double_sweep,
+                          pivot_dtype=pivot_dtype,
                           setup_seconds=p.setup_seconds,
                           peak_memory_bytes=torch.cuda.max_memory_allocated())))
     pc, op = p.precond, p.op

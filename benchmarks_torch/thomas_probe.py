@@ -94,9 +94,10 @@ def probe_launch_cost(fac, dev):
     m, ld = fac.m, fac.ld
     y4 = torch.randn((1, m, 2, ld), device=dev)
     x4 = torch.empty((1, 1, 2, ld), device=dev)
-    args = (y4.data_ptr(), fac.uband.data_ptr(), fac.cinv_t_re.data_ptr(),
+    # dense planes: no head windows, tail_start = half = 0
+    args = (y4.data_ptr(), fac.uband.data_ptr(), 0, 0, fac.cinv_t_re.data_ptr(),
             fac.cinv_t_im.data_ptr(), fac.slab_ids.data_ptr(), x4.data_ptr(), 1, m, N, ld, 1, 1,
-            torch.cuda.current_stream().cuda_stream)
+            0, 0, torch.cuda.current_stream().cuda_stream)
 
     def launch():
         if fn(*args):

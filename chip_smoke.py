@@ -25,8 +25,14 @@ benchmark: 6 slabs, npml = 8, ``yblock_int8_pallas``), single and with two
 sources, beside the same sweep on bf16 y-planes; before it the int8 plane
 kernels on random planes at its width, a small sweep solve on the card
 against the CPU, and the 48^3 sweep in the z layout (cached and resumed slab
-solves).  Each phase prints one JSON line; any failed check raises, so the
-exit code is non-zero.  The last line is ``{"ok": true, "device": {...}}``.
+solves).  The fifth path is the 801 x 801 solve with 16 slabs and the double
+sweep again, on banded+tail pivots (``pivot_dtype="pallas_banded_tail"``, band
+width 201 by the w(n) rule), where every sweep direction is one launch of the
+fused sweep kernels and every other slab solve runs the hybrid substitution
+kernels; before it those four kernels on random factors and a 3-slab solve
+that holds the fused sweep against the per-slab one.  Each phase prints one
+JSON line; any failed check raises, so the exit code is non-zero.  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -46,6 +52,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (
     card_name_and_power_limit,
@@ -67,10 +74,13 @@ WRAPPERS = {
     "plane_forward": pk.plane_forward,
     "plane_backward": pk.plane_backward,
     "plane_apply": pk.plane_apply_rows,
+    "sweep_down": sk.sweep_down,
+    "sweep_up": sk.sweep_up,
 }
 _PORT = "fast_solver_lippmann_schwinger_tpu_torch/csrc/"
 _TPU = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_thomas.py"
 _TPU_PLANE = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_plane.py"
+_TPU_SWEEP = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_sweep.py"
 # kernel -> route, name in a trace, source, and the TPU kernel body it
 # replaces at r = 1 and at r = 2 (file:line)
 KERNEL_INFO = {
@@ -118,11 +128,36 @@ KERNEL_INFO = {
         source=_PORT + "plane_apply.cu",
         replaces={1: f"{_TPU_PLANE}:140", 2: f"{_TPU_PLANE}:140"},
     ),
+    # the banded+tail layout: the hybrid pair and the fused sweep kernels
+    "thomas_forward_ht": dict(
+        route="cuda", kernel="thomas::pass_kernel<R, false, true, true>",
+        source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:928", 2: f"{_TPU}:928"},
+    ),
+    "thomas_backward_ht": dict(
+        route="cuda", kernel="thomas::pass_kernel<R, true, false, true>",
+        source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:957", 2: f"{_TPU}:957"},
+    ),
+    "sweep_down": dict(
+        route="cuda", kernel="sweep::down_kernel<R>", source=_PORT + "sweep_fused.cu",
+        replaces={1: f"{_TPU_SWEEP}:86", 2: f"{_TPU_SWEEP}:86"},
+    ),
+    "sweep_up": dict(
+        route="cuda", kernel="sweep::up_kernel<R>", source=_PORT + "sweep_fused.cu",
+        replaces={1: f"{_TPU_SWEEP}:157", 2: f"{_TPU_SWEEP}:157"},
+    ),
 }
+# the 2D kernels by pivot layout: dense planes, banded+tail, fused sweeps
+DENSE_2D = ("thomas_forward", "thomas_forward_cached", "thomas_backward")
+HT_PAIR = ("thomas_forward_ht", "thomas_backward_ht")
+SWEEP_PAIR = ("sweep_down", "sweep_up")
 # the plane wrappers count their launches on int8 planes apart
 INT8_COUNTS = {"plane_forward_int8": pk.plane_forward,
                "plane_backward_int8": pk.plane_backward,
                "plane_apply_int8": pk.plane_apply_rows}
+# the cached forward and the backward wrapper count their launches on
+# banded+tail pivots apart, and only there
+HT_COUNTS = {"thomas_forward_ht": tk.forward_substitution_cached,
+             "thomas_backward_ht": tk.backward_substitution}
 # on the sweeps' single-RHS path the backward kernel stands for _bwd_kernel
 SWEEP_BACKWARD_R1 = f"{_TPU}:241"
 
@@ -141,13 +176,18 @@ def reset_counts():
         fn.launches = 0
     for fn in INT8_COUNTS.values():
         fn.launches_int8 = 0
+    for fn in HT_COUNTS.values():
+        fn.launches_ht = 0
 
 
 def read_counts() -> dict:
     """Launches of each wrapper; ``plane_*`` count bf16 and int8 planes
-    together, ``plane_*_int8`` the int8 ones alone."""
+    together, ``plane_*_int8`` the int8 ones alone; ``thomas_*_ht`` count the
+    substitution kernels on banded+tail pivots, the other ``thomas_*`` those
+    on dense planes."""
     counts = {name: fn.launches for name, fn in WRAPPERS.items()}
     counts.update({name: fn.launches_int8 for name, fn in INT8_COUNTS.items()})
+    counts.update({name: fn.launches_ht for name, fn in HT_COUNTS.items()})
     return counts
 
 
@@ -167,6 +207,18 @@ def timed_solves(fn, repeats: int = 3):
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return out, times, read_counts()
+
+
+def enqueue_ms(fn, repeats: int = 5) -> float:
+    """Host milliseconds to enqueue ``fn()`` (no synchronisation inside)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(repeats):
+        fn()
+    ms = 1e3 * (time.perf_counter() - t0) / repeats
+    torch.cuda.synchronize()
+    return ms
 
 
 def rel_err(a: torch.Tensor, ref: torch.Tensor):
@@ -234,7 +286,7 @@ def phase_kernels(device):
     S, m, n = 2, 64, 801
     fac = random_factorization(rng, S, m, n, device)
     s_idx = torch.tensor([1, 0], dtype=torch.int32, device=device)
-    worst = {name: 0.0 for name in WRAPPERS if name.startswith("thomas")}
+    worst = dict.fromkeys(DENSE_2D, 0.0)
     cases = []
     for r in (1, 2):
         for start, tail in ((0, 0), (5, 0), (0, 7), (3, 9)):
@@ -314,14 +366,16 @@ def phase_small_reference(device, n_subdomains: int, double_sweep: bool, rtol: f
 
 
 def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_kernels,
-                repeats: int):
+                repeats: int, pivot_dtype: str = "pallas", jax_iterations=JAX_TPU_ITERATIONS,
+                absent=()):
     """Build one 801 x 801 problem through ``plasma2d.build_problem`` and run
-    ``plasma2d.solve`` on it; ``path_kernels`` must all have launched."""
+    ``plasma2d.solve`` on it; ``path_kernels`` must all have launched, the
+    kernels of ``absent`` not at all."""
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     problem = plasma2d.build_problem(
         h=1.0 / 800.0, n_subdomains=n_subdomains, npml=10, dtype=torch.complex64,
-        double_sweep=double_sweep, pivot_dtype="pallas", device=device,
+        double_sweep=double_sweep, pivot_dtype=pivot_dtype, device=device,
     )
     setup_s = time.perf_counter() - t0
 
@@ -332,10 +386,10 @@ def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_k
     n_it = int(info.n_iterations)
     emit(
         name, grid=[problem.grid.m, problem.grid.n], k=problem.k,
-        n_subdomains=n_subdomains, double_sweep=double_sweep,
+        n_subdomains=n_subdomains, double_sweep=double_sweep, pivot_dtype=pivot_dtype,
         setup_seconds=problem.setup_seconds, setup_total_seconds=setup_s,
         solve_ms=sorted(times)[len(times) // 2], solve_ms_runs=times, iterations=n_it,
-        jax_tpu_iterations=JAX_TPU_ITERATIONS, converged=bool(info.converged),
+        jax_tpu_iterations=jax_iterations, converged=bool(info.converged),
         residuals=[float(v) for v in info.residuals[: n_it + 1]],
         true_residual=float(info.true_residual),
         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts,
@@ -346,13 +400,15 @@ def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_k
     check(float(info.true_residual) <= 1e-3, "true residual <= 1e-3")
     check(all(counts[k] > 0 for k in path_kernels),
           f"every kernel of the path launched in {name} ({counts})")
+    check(all(counts[k] == 0 for k in absent), f"no kernel of {absent} launched in {name}")
     return problem, counts
 
 
 DIRECTIONS = ((1.0, 0.0), (0.0, 1.0))
 
 
-def phase_solve_batched(problem, name: str, path_kernels, repeats: int):
+def phase_solve_batched(problem, name: str, path_kernels, repeats: int,
+                        jax_iterations=JAX_TPU_ITERATIONS, absent=()):
     dirs = DIRECTIONS
     plasma2d.solve_batched(problem, dirs, **SOLVE_KW)        # warm-up
     torch.cuda.synchronize()
@@ -363,7 +419,7 @@ def phase_solve_batched(problem, name: str, path_kernels, repeats: int):
         name, directions=dirs, solve_ms=ms, solve_ms_runs=times,
         ms_per_direction=ms / len(dirs),
         iterations=[int(v) for v in info.n_iterations],
-        jax_tpu_iterations=[JAX_TPU_ITERATIONS] * len(dirs),
+        jax_tpu_iterations=[jax_iterations] * len(dirs),
         converged=[bool(v) for v in info.converged],
         true_residual=[float(v) for v in info.true_residual], launches=counts,
     )
@@ -372,6 +428,7 @@ def phase_solve_batched(problem, name: str, path_kernels, repeats: int):
     check(float(info.true_residual.max()) <= 1e-3, "batched true residuals <= 1e-3")
     check(all(counts[k] > 0 for k in path_kernels),
           f"every kernel of the path launched in {name} ({counts})")
+    check(all(counts[k] == 0 for k in absent), f"no kernel of {absent} launched in {name}")
     return counts
 
 
@@ -405,7 +462,8 @@ def kernel_entry(name, r, path, launches, kernel, plain, bound, library_ms, shap
     """Hold one kernel against its plain version on the same inputs and time
     both; ``kernel``/``plain`` return the tensor (or tuple) to compare."""
     got, want = kernel(), plain()
-    got, want = (torch.cat(got), torch.cat(want)) if isinstance(got, tuple) else (got, want)
+    if isinstance(got, tuple):
+        got, want = (torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want))
     abs_err, err = rel_err(got, want)
     check(err <= KERNEL_TOL,
           f"{name}{variant} at the shape of {path} (r={r}) within {KERNEL_TOL} ({err})")
@@ -460,9 +518,11 @@ def phase_kernel_times(problem, path_counts: dict) -> list:
 def phase_sweeps(problem) -> dict:
     """One Gauss-Seidel and one block-Jacobi sweep over the 16 slabs at full
     width on the solve's own right-hand side.  The Jacobi sweep is the path
-    that runs the plain forward kernel at one batch row per slab."""
+    that runs the plain forward kernel at one batch row per slab.  Also the
+    times of a double-sweep apply (device, and the host's to enqueue it)."""
     pc = problem.precond
-    b = pc.a_s.matvec(plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0])
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
+    b = pc.a_s.matvec(rhs)
     reset_counts()
     u_gs = sweeps.gs_sweep(pc.slabs, b)
     torch.cuda.synchronize()
@@ -480,9 +540,11 @@ def phase_sweeps(problem) -> dict:
          trace_tail=pc.slabs.trace_tail, residual_of_msp=res,
          gs_sweep_ms=time_ms(lambda: sweeps.gs_sweep(pc.slabs, b), 3),
          jacobi_sweep_ms=time_ms(lambda: sweeps.jacobi_sweep(pc.slabs, b), 3),
+         apply_ms=time_ms(lambda: pc.apply(rhs), 3),
+         apply_enqueue_ms=enqueue_ms(lambda: pc.apply(rhs), 3),
          launches=dict(gs_sweep=counts_gs, jacobi_sweep=counts_j))
-    check(all(c > 0 for name, c in counts_j.items() if name.startswith("thomas")),
-          f"jacobi_sweep runs all three 2D kernels ({counts_j})")
+    check(all(counts_j[name] > 0 for name in DENSE_2D),
+          f"jacobi_sweep runs all three dense 2D kernels ({counts_j})")
     return counts_j
 
 
@@ -1256,6 +1318,406 @@ def phase_gs3d_96_bf16(problem, repeats: int = 1) -> list:
     return sweep_kernel_times(problem, {1: "gs3d_96_bf16"}, {1: counts})
 
 
+# ---------------------------------------------------------------------------
+# Path 5: the 801^2, 16-slab double sweep on banded+tail pivots
+# ---------------------------------------------------------------------------
+
+# RESULTS.md round 5: the JAX package's banded+tail hybrid at this configuration
+# takes 9 and 9 outer iterations on its TPU (dense bf16 pivots: 6 and 6); printed
+# for information only
+JAX_HT_ITERATIONS = 9
+# (S, m, n, width, tail lines) of the random hybrid factors; trace lines of a
+# 3-slab chain on them as build_slab_system sets them (l0, l1, ln, lnp)
+HT_RANDOM = (3, 20, 301, 41, 6)
+HT_TRACES = dict(l0=4, l1=5, ln=13, lnp=14)
+
+
+def random_banded_tail(rng, S: int, m: int, n: int, width: int, tail_lines: int,
+                       device) -> tk.BandedTailFactorization:
+    """Contracting random factors (||C|| ||band|| < 1) packed into the hybrid
+    layout by the port's own builder."""
+    def cplx(re, im):
+        return torch.complex(torch.from_numpy(re.astype(np.float32)),
+                             torch.from_numpy(im.astype(np.float32))).to(device)
+
+    cinv = cplx(*(0.1 * rng.standard_normal((2, S, m, n, n)) / np.sqrt(n)))
+    cinv = cinv + 0.2 * torch.eye(n, device=device)
+    lband, uband = (cplx(*rng.uniform(-0.2, 0.2, (2, S, m, n, 3))) for _ in range(2))
+    fac = direct.BlockTridiagFactorization(cinv=cinv, lband=lband, uband=uband)
+    return tk.build_banded_tail_factorization(fac, width=width, tail_lines=tail_lines)
+
+
+def random_rows(rng, shape, n: int, device) -> torch.Tensor:
+    """f32 rows (..., ld) with random true lanes and zero padding."""
+    rows = np.zeros(shape, np.float32)
+    rows[..., :n] = rng.standard_normal(shape[:-1] + (n,))
+    return torch.from_numpy(rows).to(device)
+
+
+def phase_ht_kernels(device):
+    """The four kernels of the banded+tail path against their plain versions on
+    random hybrid factors (S = 3, m = 20, n = 301, width 41, 6 tail lines), r =
+    1 and 2: the forward pass from a zero carry and from t_init, starting in
+    the head and in the tail; the backward pass full and truncated (inside the
+    tail lines and across into the head); the down and up sweep kernels on a
+    3-slab chain whose backward tail (8 lines) reaches into the head."""
+    rng = np.random.default_rng(3)
+    S, m, n, width, tail_lines = HT_RANDOM
+    fac = random_banded_tail(rng, S, m, n, width, tail_lines, device)
+    ld, ts = fac.ld, fac.tail_start
+    s_idx = torch.tensor([2, 0], dtype=torch.int32, device=device)
+    tr = HT_TRACES
+    tt = m - tr["ln"] + 1
+    meta = torch.tensor([[0, tr["l0"], tr["l0"]], [0, tr["l1"], tr["l1"]],
+                         [tr["ln"], tr["ln"], 0], [tr["lnp"], tr["lnp"], 0],
+                         [0, 1, 1], [1, 1, 0]], dtype=torch.int32, device=device)
+    worst = dict.fromkeys(HT_PAIR + SWEEP_PAIR, 0.0)
+    cases = []
+    reset_counts()
+    for r in (1, 2):
+        b4 = random_rows(rng, (2, m, 2 * r, ld), n, device)
+        t_init = random_rows(rng, (2, 2 * r, ld), n, device)
+        zero = torch.zeros_like(t_init)
+        for start, carry in ((0, None), (0, t_init), (9, t_init), (ts + 2, t_init)):
+            out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+            y_k, t_k = tk.forward_substitution_cached(fac, s_idx, b4, carry, start, out=out)
+            torch.cuda.synchronize()
+            y_p, t_p = tk.forward_substitution_ht_plain(
+                fac, s_idx, b4, zero if carry is None else carry, start)
+            _, e_y = rel_err(y_k[:, start:], y_p[:, start:])
+            _, e_t = rel_err(t_k[:, start:], t_p[:, start:])
+            check(bool((y_k[:, :start] == 7.0).all()) and bool((t_k[:, :start] == -7.0).all()),
+                  "the hybrid forward kernel leaves the lines above its start alone")
+            check(bool(torch.isfinite(t_k[:, start:]).all()), "hybrid forward output is finite")
+            worst["thomas_forward_ht"] = max(worst["thomas_forward_ht"], e_y, e_t)
+            cases.append(dict(r=r, start=start, t_init=carry is not None, fwd_y=e_y, fwd_t=e_t))
+        y4 = tk.forward_substitution_ht_plain(fac, s_idx, b4, zero)[0]
+        for tail in (0, tail_lines - 2, tail_lines + 3):
+            x_k = tk.backward_substitution(fac, s_idx, y4, tail)
+            torch.cuda.synchronize()
+            _, e_x = rel_err(x_k, tk.backward_substitution_ht_plain(fac, s_idx, y4, tail))
+            check(bool(torch.isfinite(x_k).all()), "hybrid backward output is finite")
+            worst["thomas_backward_ht"] = max(worst["thomas_backward_ht"], e_x)
+            cases.append(dict(r=r, tail=tail, bwd=e_x))
+        # the sweep kernels; the up kernel is held on the down kernel's outputs
+        bs = random_rows(rng, (S, m, 2 * r, ld), n, device)
+        cpl = [random_rows(rng, (S, 2, 3, ld), n, device) * 0.2 for _ in range(4)]
+        down_k = sk.sweep_down(fac, meta, bs, cpl[0], cpl[1], tt)
+        torch.cuda.synchronize()
+        down_p = sk.sweep_down_plain(fac, meta, bs, cpl[0], cpl[1], tt)
+        e_d = max(rel_err(k, p)[1] for k, p in zip(down_k, down_p))
+        u_k = sk.sweep_up(fac, meta, bs, cpl[2], cpl[3], *down_k, tt)
+        torch.cuda.synchronize()
+        _, e_u = rel_err(u_k, sk.sweep_up_plain(fac, meta, bs, cpl[2], cpl[3], *down_k, tt))
+        check(bool(torch.isfinite(u_k).all()), "fused sweep output is finite")
+        worst["sweep_down"] = max(worst["sweep_down"], e_d)
+        worst["sweep_up"] = max(worst["sweep_up"], e_u)
+        cases.append(dict(r=r, trace_tail=tt, sweep_down=e_d, sweep_up=e_u))
+    counts = read_counts()
+    emit("ht_kernels", shape=dict(S=S, m=m, n=n, ld=ld, width=fac.width, tail_start=ts,
+                                  trace_tail=tt), tolerance=KERNEL_TOL, max_rel_err=worst,
+         cases=cases, launches=counts)
+    for name, err in worst.items():
+        check(err <= KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain version ({err})")
+    check(all(counts[k] > 0 for k in HT_PAIR + SWEEP_PAIR), f"the four kernels launched ({counts})")
+
+
+def sweep_rows(problem, r: int, slabs=None):
+    """``As b`` of the incident fields (r = 1: the x-wave; 2: both) and its
+    per-slab rows in the kernels' layout."""
+    pc = problem.precond
+    slabs = slabs or pc.slabs
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:r]))
+    b = pc.a_s.matvec(rhs.T.contiguous() if r > 1 else rhs[0])
+    return b, tk._to_rows_b(slabs.pfac, subdomain.partition_source(slabs, b))
+
+
+def phase_small_reference_ht(device):
+    """The 3-slab, h = 1/40 double-sweep problem on banded+tail pivots (band
+    width 21): one ``gs_sweep`` through the fused kernels against the per-slab
+    sweep on the same layout (the hybrid pass kernels) and against the plain
+    fused sweep, then the solve, converged at rtol 1e-5 (the float32 floor of
+    this grid is near 1e-6)."""
+    problem = plasma2d.build_problem(h=1 / 40, n_subdomains=3, double_sweep=True,
+                                     pivot_dtype="pallas_banded_tail", pivot_band=21,
+                                     dtype=torch.complex64, device=device)
+    slabs = problem.precond.slabs
+    b, b4 = sweep_rows(problem, 1)
+    reset_counts()
+    u_fused = sweeps.gs_sweep(slabs, b)
+    torch.cuda.synchronize()
+    counts_fused = read_counts()
+    reset_counts()
+    u_slab = sweeps._gs_sweep_per_slab(slabs, b)
+    torch.cuda.synchronize()
+    counts_slab = read_counts()
+    tables = slabs.sweep_tables
+    u4 = sk.sweep_fused_plain(slabs.pfac, tables.meta, b4, tables, slabs.trace_tail)
+    u_plain = subdomain.gather_interior(
+        slabs, tk._from_rows_b(u4, slabs.n, b.dtype, slabs.m1_max)[..., 0])
+    _, e_slab = rel_err(u_fused, u_slab)
+    _, e_plain = rel_err(u_fused, u_plain)
+    x, info = plasma2d.solve(problem, (1.0, 0.0), rtol=1e-5, restart=20, maxiter=12)
+    emit("small_reference_ht", n=problem.grid.n, n_subdomains=3, width=slabs.pfac.width,
+         tail_start=slabs.pfac.tail_start, m1_max=slabs.m1_max, trace_tail=slabs.trace_tail,
+         fused_vs_per_slab=e_slab, fused_vs_plain=e_plain, tolerance=KERNEL_TOL,
+         launches=dict(fused=counts_fused, per_slab=counts_slab),
+         iterations=int(info.n_iterations), true_residual=float(info.true_residual))
+    check(e_slab <= KERNEL_TOL and e_plain <= KERNEL_TOL,
+          f"fused sweep within {KERNEL_TOL} of the per-slab and plain sweeps ({e_slab}, {e_plain})")
+    check(counts_fused["sweep_down"] == counts_fused["sweep_up"] == 1
+          and not any(counts_fused[k] for k in HT_PAIR + DENSE_2D),
+          f"gs_sweep ran the fused kernels only ({counts_fused})")
+    check(all(counts_slab[k] > 0 for k in HT_PAIR)
+          and not any(counts_slab[k] for k in SWEEP_PAIR + DENSE_2D),
+          f"the per-slab sweep ran the hybrid passes only ({counts_slab})")
+    check(bool(info.converged) and float(info.true_residual) <= 1e-3,
+          "small banded+tail solve converged")
+
+
+def phase_ht_sweeps(problem) -> dict:
+    """One ``gs_sweep`` (the fused kernels, two launches) and one
+    ``jacobi_sweep`` (the hybrid passes) at full width on the solve's own
+    right-hand side, at r = 1 and at r = 2 (both incident fields), and the
+    times of a double-sweep apply (device, and the host's to enqueue it) for
+    the fused and the per-slab route.  Returns the launch counts by path."""
+    pc = problem.precond
+    slabs = pc.slabs
+    b, _ = sweep_rows(problem, 1)
+    b2, _ = sweep_rows(problem, 2)
+    counts = {}
+    for path, fn in (("gs_sweep", lambda: sweeps.gs_sweep(slabs, b)),
+                     ("jacobi_sweep", lambda: sweeps.jacobi_sweep(slabs, b)),
+                     ("gs_sweep_r2", lambda: sweeps.gs_sweep(slabs, b2)),
+                     ("jacobi_sweep_r2", lambda: sweeps.jacobi_sweep(slabs, b2))):
+        reset_counts()
+        u = fn()
+        torch.cuda.synchronize()
+        counts[path] = read_counts()
+        check(bool(torch.isfinite(torch.view_as_real(u)).all()), f"{path} output is finite")
+    res = {name: float(torch.linalg.vector_norm(pc.msp.matvec(fn()) - b)
+                       / torch.linalg.vector_norm(b))
+           for name, fn in (("gs_sweep", lambda: sweeps.gs_sweep(slabs, b)),
+                            ("gs_sweep_per_slab", lambda: sweeps._gs_sweep_per_slab(slabs, b)),
+                            ("jacobi_sweep", lambda: sweeps.jacobi_sweep(slabs, b)))}
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
+
+    def apply_per_slab():
+        # the double-sweep apply with both sweeps on the per-slab route
+        sp = pc.a_s.matvec(rhs)
+        u = sweeps._gs_sweep_per_slab(pc.slabs, sp)
+        err = pc.msp.matvec(u) - sp
+        return u - pc._transpose_flat(sweeps._gs_sweep_per_slab(pc.slabs_t, pc._transpose_flat(err)))
+
+    times = dict(
+        gs_sweep_ms=time_ms(lambda: sweeps.gs_sweep(slabs, b), 5),
+        gs_sweep_per_slab_ms=time_ms(lambda: sweeps._gs_sweep_per_slab(slabs, b), 3),
+        jacobi_sweep_ms=time_ms(lambda: sweeps.jacobi_sweep(slabs, b), 3),
+        apply_ms=time_ms(lambda: pc.apply(rhs), 5),
+        apply_enqueue_ms=enqueue_ms(lambda: pc.apply(rhs)),
+        apply_per_slab_ms=time_ms(apply_per_slab, 3),
+        apply_per_slab_enqueue_ms=enqueue_ms(apply_per_slab, 3),
+    )
+    _, e_apply = rel_err(pc.apply(rhs), apply_per_slab())
+    emit("ht_sweeps", n_subdomains=slabs.n_subs, m1_max=slabs.m1_max,
+         trace_tail=slabs.trace_tail, tail_start=slabs.pfac.tail_start,
+         width=slabs.pfac.width, residual_of_msp=res, apply_fused_vs_per_slab=e_apply,
+         **times, launches=counts)
+    for path in ("gs_sweep", "gs_sweep_r2"):
+        c = counts[path]
+        check(c["sweep_down"] == c["sweep_up"] == 1
+              and not any(c[k] for k in HT_PAIR + DENSE_2D),
+              f"{path} launched the two fused kernels and nothing else ({c})")
+    for path in ("jacobi_sweep", "jacobi_sweep_r2"):
+        c = counts[path]
+        check(all(c[k] > 0 for k in HT_PAIR) and not any(c[k] for k in SWEEP_PAIR + DENSE_2D),
+              f"{path} ran the hybrid passes only ({c})")
+    check(e_apply <= 1e-3, f"fused and per-slab double-sweep applies agree ({e_apply})")
+    return counts
+
+
+def ht_line_rows(fac) -> tuple:
+    """(head, tail): the pivot entries one line needs, summed over its tiles
+    of 8 output lanes: a head tile's window rows that lie in [0, n), min(8t + 8
+    + half, n) - max(8t - half, 0), and a tail tile's n rows (the rest is zero
+    padding, which the kernels neither read nor multiply), times 8 lanes."""
+    n, half, lanes = fac.n, fac.half, tk.LEAD_MULTIPLE
+    tiles = fac.ld // lanes
+    head = sum(min(lanes * t + lanes + half, n) - max(lanes * t - half, 0)
+               for t in range(tiles))
+    return head * lanes, tiles * n * lanes
+
+
+def ht_plane_bytes(fac, lines) -> int:
+    """Bytes of the hybrid pivots of ``lines`` of one slab: each line's
+    entries (:func:`ht_line_rows`) in two bf16 planes."""
+    head, tail = ht_line_rows(fac)
+    return sum(2 * 2 * (head if j < fac.tail_start else tail) for j in lines)
+
+
+def ht_flops(fac, r: int, lines) -> int:
+    """Operations of the pivot products of ``lines`` (both planes, 2r rows, a
+    multiply and an add per entry)."""
+    head, tail = ht_line_rows(fac)
+    return sum(2 * 2 * 2 * r * (head if j < fac.tail_start else tail) for j in lines)
+
+
+def bound_of(nbytes: int, flops: int):
+    bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
+    flops_ms = 1e3 * flops / PEAK_F32_FLOPS
+    return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
+
+
+def ht_pass_bound(fac, r: int, lines, stacks: int, batch: int = 1):
+    """A hybrid pass over ``lines`` for ``batch`` rows of distinct slabs: each
+    line's pivots and band once, ``stacks`` row stacks per line, the carry."""
+    row = 2 * r * fac.ld * 4
+    nbytes = batch * (ht_plane_bytes(fac, lines) + len(lines) * (24 * fac.ld + stacks * row) + row)
+    return bound_of(nbytes, batch * ht_flops(fac, r, lines))
+
+
+def ht_sweep_bound(fac, r: int, tt: int, up: bool):
+    """One fused sweep direction over all slabs, each input read once and each
+    output written once: every line's pivots once (the down kernel's backward
+    pass re-reads its tail lines, not counted), the bands, rows and traces."""
+    S, m, ld = fac.n_slabs, fac.m, fac.ld
+    row = 2 * r * ld * 4
+    lines = range(m)
+    if up:    # bands: l of tt lines, u of m; rows: b of tt, the y cache of m - tt, t carry, u out
+        per_slab = (tt + m) * 24 * ld + (tt + (m - tt) + 1 + m) * row
+        flops = ht_flops(fac, r, range(m - tt, m)) + ht_flops(fac, r, lines)
+    else:     # bands: l of m, u of tt; rows: b in, y and t out
+        per_slab = (m + tt) * 24 * ld + 3 * m * row
+        flops = ht_flops(fac, r, lines) + ht_flops(fac, r, range(m - tt, m))
+    nbytes = S * (ht_plane_bytes(fac, lines) + per_slab + row + 2 * 24 * ld) + 6 * S * 4
+    return bound_of(nbytes, S * flops)
+
+
+def library_ht_ms(fac, rows: torch.Tensor, slab_lines, dense_re, dense_im) -> float:
+    """Yardstick: library bf16 products of one (2r, ld) row block with the
+    pivots of ``slab_lines`` ((slab, line) pairs): batched over tiles against
+    the head windows, dense against the tail planes (``dense_*[s, k]``, line
+    ``tail_start + k``); no band term, no dependency."""
+    wt = 8 + 2 * fac.half
+    win = torch.nn.functional.pad(rows, (fac.half, fac.half)).unfold(-1, wt, tk.LEAD_MULTIPLE)
+    win = win.transpose(0, 1).to(torch.bfloat16).contiguous()        # (tiles, 2r, wt)
+    rows_bf16 = rows.to(torch.bfloat16)
+    ts = fac.tail_start
+    ops = [(win, fac.head_re[s, j], fac.head_im[s, j]) if j < ts
+           else (rows_bf16, dense_re[s, j - ts], dense_im[s, j - ts]) for s, j in slab_lines]
+
+    def loop():
+        for a, p_re, p_im in ops:
+            torch.matmul(a, p_re)
+            torch.matmul(a, p_im)
+
+    return time_ms(loop, 2)
+
+
+def phase_ht_kernel_times(problem, path_counts: dict, sweep_counts: dict) -> list:
+    """Each kernel of the banded+tail path on the solve's own pivots and
+    right-hand sides, r = 1 (``solve``) and r = 2 (``solve_batched``): the
+    fused sweep kernels over the 16 slabs (with the solve's launches); the
+    hybrid passes at one inner slab, the forward pass in full and resumed at
+    ``m - trace_tail``, the backward pass in full and truncated to
+    ``trace_tail``, and at one batch row per slab (``jacobi_sweep``'s solves
+    of all slabs), each with ``jacobi_sweep``'s launches at its r."""
+    slabs = problem.precond.slabs
+    fac = slabs.pfac
+    S, m, n, ld, tt = fac.n_slabs, fac.m, fac.n, fac.ld, slabs.trace_tail
+    j0 = m - tt
+    slab = S // 2
+    s_idx = fac.slab_ids[slab : slab + 1]
+    tables = slabs.sweep_tables
+    dense_re, dense_im = tk.dense_planes(fac.tail_re), tk.dense_planes(fac.tail_im)
+    all_lines = [(s, j) for s in range(S) for j in range(m)]
+    kernels = []
+    for r, path in ((1, "ht_solve"), (2, "ht_solve_batched")):
+        _, b4s = sweep_rows(problem, r)
+        shape = dict(S=S, m=m, n=n, ld=ld, width=fac.width, tail_start=fac.tail_start,
+                     trace_tail=tt, r=r)
+        y4s, t4s, unps = sk.sweep_down(fac, tables.meta, b4s, tables.c01, tables.c10, tt)
+        lib_down = library_ht_ms(fac, b4s[0, 0], all_lines + [(s, j) for s in range(S)
+                                                              for j in range(j0, m)],
+                                 dense_re, dense_im)
+        lib_up = library_ht_ms(fac, b4s[0, 0], [(s, j) for s in range(S) for j in range(j0, m)]
+                               + all_lines, dense_re, dense_im)
+        kernels += [
+            kernel_entry("sweep_down", r, path, path_counts[r]["sweep_down"],
+                         lambda: sk.sweep_down(fac, tables.meta, b4s, tables.c01, tables.c10, tt),
+                         lambda: sk.sweep_down_plain(fac, tables.meta, b4s, tables.c01,
+                                                     tables.c10, tt),
+                         ht_sweep_bound(fac, r, tt, up=False), lib_down, shape),
+            kernel_entry("sweep_up", r, path, path_counts[r]["sweep_up"],
+                         lambda: sk.sweep_up(fac, tables.meta, b4s, tables.cnpn, tables.cnnp,
+                                             y4s, t4s, unps, tt),
+                         lambda: sk.sweep_up_plain(fac, tables.meta, b4s, tables.cnpn,
+                                                   tables.cnnp, y4s, t4s, unps, tt),
+                         ht_sweep_bound(fac, r, tt, up=True), lib_up, shape),
+        ]
+        # the hybrid passes at one inner slab, with jacobi_sweep's launches
+        counts = sweep_counts["jacobi_sweep" if r == 1 else "jacobi_sweep_r2"]
+        cpath = "ht_jacobi_sweep" if r == 1 else "ht_jacobi_sweep_r2"
+        b4 = b4s[slab : slab + 1].contiguous()
+        y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4)
+        b4_up = b4.clone()
+        b4_up[:, j0:] += y4[:, j0:].flip(1)
+        t_init = t4[:, j0 - 1].contiguous()
+        zero = torch.zeros_like(t_init)
+        out_k, out_p = (y4.clone(), t4.clone()), (y4.clone(), t4.clone())
+
+        def resumed(fn, out):
+            y, t = fn(fac, s_idx, b4_up, t_init, start=j0, out=out)
+            return y[:, j0:], t[:, j0:]
+
+        one = dict(shape, B=1, slab=slab)
+        lines, tail_lines = range(m), range(j0, m)
+        lib_full = library_ht_ms(fac, b4[0, 0], [(slab, j) for j in lines], dense_re, dense_im)
+        lib_tail = library_ht_ms(fac, b4[0, 0], [(slab, j) for j in tail_lines],
+                                 dense_re, dense_im)
+        kernels += [
+            kernel_entry("thomas_forward_ht", r, cpath, counts["thomas_forward_ht"],
+                         lambda: tk.forward_substitution_cached(fac, s_idx, b4),
+                         lambda: tk.forward_substitution_ht_plain(fac, s_idx, b4, zero),
+                         ht_pass_bound(fac, r, lines, 3), lib_full, one),
+            kernel_entry("thomas_forward_ht", r, cpath, counts["thomas_forward_ht"],
+                         lambda: resumed(tk.forward_substitution_cached, out_k),
+                         lambda: resumed(tk.forward_substitution_ht_plain, out_p),
+                         ht_pass_bound(fac, r, tail_lines, 3), lib_tail, dict(one, start=j0),
+                         variant="_resumed"),
+            kernel_entry("thomas_backward_ht", r, cpath, counts["thomas_backward_ht"],
+                         lambda: tk.backward_substitution(fac, s_idx, y4),
+                         lambda: tk.backward_substitution_ht_plain(fac, s_idx, y4),
+                         ht_pass_bound(fac, r, lines, 2), lib_full, one),
+            kernel_entry("thomas_backward_ht", r, cpath, counts["thomas_backward_ht"],
+                         lambda: tk.backward_substitution(fac, s_idx, y4, tail=tt),
+                         lambda: tk.backward_substitution_ht_plain(fac, s_idx, y4, tail=tt),
+                         ht_pass_bound(fac, r, tail_lines, 2), lib_tail, dict(one, tail=tt),
+                         variant="_tail"),
+        ]
+        if r == 1:      # jacobi_sweep's solves of all slabs at once
+            yall, _ = tk.forward_substitution_cached(fac, fac.slab_ids, b4s)
+            counts = sweep_counts["jacobi_sweep"]
+            kernels += [
+                kernel_entry("thomas_forward_ht", r, "ht_jacobi_sweep",
+                             counts["thomas_forward_ht"],
+                             lambda: tk.forward_substitution_cached(fac, fac.slab_ids, b4s),
+                             lambda: tk.forward_substitution_ht_plain(
+                                 fac, fac.slab_ids, b4s, torch.zeros_like(b4s[:, 0])),
+                             ht_pass_bound(fac, r, lines, 3, batch=S), None,
+                             dict(shape, B=S), variant="_all_slabs"),
+                kernel_entry("thomas_backward_ht", r, "ht_jacobi_sweep",
+                             counts["thomas_backward_ht"],
+                             lambda: tk.backward_substitution(fac, fac.slab_ids, yall),
+                             lambda: tk.backward_substitution_ht_plain(fac, fac.slab_ids, yall),
+                             ht_pass_bound(fac, r, lines, 2, batch=S), None,
+                             dict(shape, B=S), variant="_all_slabs"),
+            ]
+    del dense_re, dense_im
+    torch.cuda.empty_cache()
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -1305,6 +1767,21 @@ def main() -> int:
     kernels += sweep_kernel_times(problem, {1: "gs3d_96_solve", 2: "gs3d_96_apply_batch"},
                                   counts96, apply_counts)
     kernels += phase_gs3d_96_bf16(problem)
+    del problem
+    torch.cuda.empty_cache()
+
+    # path 5: 16 slabs, double sweep, banded+tail pivots: each sweep direction
+    # is one launch of a fused sweep kernel
+    phase_ht_kernels(device)
+    phase_small_reference_ht(device)
+    problem, counts = phase_solve(device, "ht_solve", 16, True, SWEEP_PAIR, repeats=3,
+                                  pivot_dtype="pallas_banded_tail",
+                                  jax_iterations=JAX_HT_ITERATIONS, absent=HT_PAIR + DENSE_2D)
+    counts_batched = phase_solve_batched(problem, "ht_solve_batched", SWEEP_PAIR, repeats=3,
+                                         jax_iterations=JAX_HT_ITERATIONS,
+                                         absent=HT_PAIR + DENSE_2D)
+    sweep_counts = phase_ht_sweeps(problem)
+    kernels += phase_ht_kernel_times(problem, {1: counts, 2: counts_batched}, sweep_counts)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

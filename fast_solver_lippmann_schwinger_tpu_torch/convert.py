@@ -53,6 +53,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import (
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
     LEAD_MULTIPLE,
+    BandedTailFactorization,
     ThomasFactorization,
     _round_up,
     tile_planes,
@@ -148,8 +149,51 @@ def thomas_factorization(cinv_t_re, cinv_t_im, lband, uband, scale, n,
     )
 
 
+def banded_tail_factorization(head_re, head_im, tail_re, tail_im, lband, uband, n,
+                              tail_start, halo, width, device=None) -> BandedTailFactorization:
+    """The hybrid kernel layout from a ``PallasFactorizationBandedTail``'s
+    fields.
+
+    ``head_re``/``head_im`` are uint16 bit patterns of the JAX package's
+    (S, tail_start, nb, 128 + 2 halo, 128) bf16 blocks: block p, window row w
+    holds input row ``128 p - halo + w`` for output lane ``128 p + o``.  They
+    are re-windowed into the port's tiles, ``[s, j, t, v, l]`` = input row
+    ``8 t - half + v``, output lane ``8 t + l``, bit for bit; every entry the
+    port's windows hold lies inside a JAX block.  ``tail_re``/``tail_im`` are
+    (S, m - tail_start, np, np) dense planes as for
+    :func:`thomas_factorization`; bands (S, m, 2, 3, np) float32.
+    """
+    device = resolve_device(device)
+    n, halo, width = int(n), int(halo), int(width)
+    half = width // 2
+    ld = _round_up(n, LEAD_MULTIPLE)
+    head_re, head_im = np.asarray(head_re), np.asarray(head_im)
+    if int(tail_start) != head_re.shape[1] or half > halo:
+        raise ValueError("head blocks do not match tail_start, halo and width")
+    t = np.arange(ld // LEAD_MULTIPLE)[:, None, None]
+    v = np.arange(LEAD_MULTIPLE + 2 * half)[None, :, None]
+    lane = np.arange(LEAD_MULTIPLE)[None, None, :]
+    out = LEAD_MULTIPLE * t + lane                       # output lane
+    p, o = out // 128, out % 128
+    w = (LEAD_MULTIPLE * t - half + v) - 128 * p + halo  # JAX window row
+    w, p, o = np.broadcast_arrays(w, p, o)
+
+    def window(bits):
+        return _bf16(np.ascontiguousarray(bits[:, :, p, w, o])).to(device)
+
+    def band(b):
+        b = torch.from_numpy(np.ascontiguousarray(np.asarray(b, np.float32)[..., :n]))
+        return F.pad(b, (0, ld - n)).contiguous().to(device)
+
+    return BandedTailFactorization(
+        head_re=window(head_re), head_im=window(head_im),
+        tail_re=_bf16_planes(tail_re, n, ld, device), tail_im=_bf16_planes(tail_im, n, ld, device),
+        lband=band(lband), uband=band(uband), n=n, half=half,
+    )
+
+
 def slab_system(fields: dict, fac: BlockTridiagFactorization | None = None,
-                pfac: ThomasFactorization | None = None,
+                pfac: ThomasFactorization | BandedTailFactorization | None = None,
                 device=None) -> SlabSystem:
     """``SlabSystem`` from a dict of the JAX slab system's fields as numpy
     arrays / Python scalars.
@@ -158,13 +202,16 @@ def slab_system(fields: dict, fac: BlockTridiagFactorization | None = None,
     ride in the dict: ``fields["fac"]`` a dict of the arguments of
     :func:`block_tridiag_factorization` (``cinv``, ``lband``, ``uband``) and
     ``fields["pfac"]`` ``None`` or a dict of those of
-    :func:`thomas_factorization`.
+    :func:`thomas_factorization` or, for the banded+tail layout (a dict with
+    ``head_re``), of :func:`banded_tail_factorization`.
     """
     device = resolve_device(device)
     if fac is None:
         fac = block_tridiag_factorization(**fields["fac"], device=device)
-        if fields.get("pfac") is not None:
-            pfac = thomas_factorization(**fields["pfac"], device=device)
+        p = fields.get("pfac")
+        if p is not None:
+            make = banded_tail_factorization if "head_re" in p else thomas_factorization
+            pfac = make(**p, device=device)
     dtype = _complex_dtype(fields["h_stencils"])
     out = {}
     for f in dataclasses.fields(SlabSystem):
@@ -186,7 +233,8 @@ def double_sweep_preconditioner(slabs: dict, slabs_t: dict, msp_values, a_s_valu
                                 device=None) -> DoubleSweepPreconditioner:
     """``DoubleSweepPreconditioner`` from the JAX one's parts: the two slab
     systems as dicts for :func:`slab_system` (with their ``fac`` and ``pfac``
-    entries) and the (m, n, 3, 3) stencil fields of ``msp`` and ``a_s``."""
+    entries, either kernel layout) and the (m, n, 3, 3) stencil fields of
+    ``msp`` and ``a_s``."""
     device = resolve_device(device)
     return DoubleSweepPreconditioner(
         slabs=slab_system(slabs, device=device),

@@ -29,7 +29,7 @@ extern "C" int thomas_forward(
     float* y,                // (B, m, 2r, ld); lines < start are not written
     float* carry,            // (2, B, 2r, ld) scratch
     int batch, int m, int n, int ld, int r, int start, void* stream) {
-  thomas::PassArgs a;
+  thomas::PassArgs a{};
   a.rhs = b;
   a.band = lband;
   a.cre = cre;

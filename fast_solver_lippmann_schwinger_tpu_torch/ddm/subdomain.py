@@ -146,9 +146,10 @@ class SlabSystem:
     # solves have zero rhs above it, so forward substitution can start there
     # with a zero carry
     trace_head: int = 0
-    # optional kernel layout of ``fac`` (sparse/thomas_kernels.py); when
-    # present the sweeps run the bf16 substitution kernels
-    pfac: thomas_kernels.ThomasFactorization | None = None
+    # optional kernel layout of ``fac`` (sparse/thomas_kernels.py): dense bf16
+    # planes or the banded+tail hybrid; when present the sweeps run the
+    # substitution kernels (and, on the hybrid layout, the fused sweep kernels)
+    pfac: thomas_kernels.ThomasFactorization | thomas_kernels.BandedTailFactorization | None = None
 
     @functools.cached_property
     def host(self) -> SlabTraceLines:
@@ -158,6 +159,51 @@ class SlabSystem:
         return SlabTraceLines(*(
             tuple(getattr(self, name).tolist()) for name in SlabTraceLines._fields
         ))
+
+    @functools.cached_property
+    def sweep_tables(self) -> SweepTables:
+        """The trace metadata and coupling rows of the fused sweep kernels
+        (``sparse/sweep_kernels.py``), built once, on the pivots' device."""
+        return build_sweep_tables(self)
+
+
+META_ROWS = ("l0", "l1", "ln", "lnp", "has_top", "has_bot")
+
+
+@dataclasses.dataclass(frozen=True)
+class SweepTables:
+    """What the fused sweep kernels read besides the rows and the pivots."""
+
+    meta: torch.Tensor      # (6, S) int32: l0, l1, ln, lnp, has_top, has_bot
+    c01: torch.Tensor       # (S, 2, 3, ld) f32 coupling rows: down injections
+    c10: torch.Tensor
+    cnpn: torch.Tensor      #   up injections
+    cnnp: torch.Tensor
+
+
+def _pack_cpl_rows(cpl: torch.Tensor, ld: int) -> torch.Tensor:
+    """(S, n, 3) complex coupling bands -> (S, 2, 3, ld) f32 rows."""
+    return thomas_kernels._band_pack(cpl[:, None], ld)[:, 0].contiguous()
+
+
+def build_sweep_tables(slabs: SlabSystem) -> SweepTables:
+    """The (6, S) trace metadata (0 where a trace line is absent: the flag is
+    the predicate) and the packed coupling rows.  The kernels hand the traces
+    from slab to slab, so each slab with an upper neighbour must be the lower
+    neighbour of the one above, as ``build_slab_system`` makes them."""
+    hs = slabs.host
+    S = slabs.n_subs
+    if list(hs.has_top) != [s > 0 for s in range(S)] or \
+            list(hs.has_bot) != [s < S - 1 for s in range(S)]:
+        raise ValueError("the fused sweep needs slabs chained top to bottom "
+                         f"(has_top={hs.has_top}, has_bot={hs.has_bot})")
+    ld = slabs.pfac.ld
+    meta = torch.tensor([[int(v) for v in getattr(hs, name)] for name in META_ROWS],
+                        dtype=torch.int32, device=slabs.pfac.lband.device)
+    return SweepTables(meta=meta, c01=_pack_cpl_rows(slabs.cpl_01, ld),
+                       c10=_pack_cpl_rows(slabs.cpl_10, ld),
+                       cnpn=_pack_cpl_rows(slabs.cpl_np_n, ld),
+                       cnnp=_pack_cpl_rows(slabs.cpl_n_np, ld))
 
 
 def attach_pallas(slabs: SlabSystem, storage: str = "bf16",
@@ -172,13 +218,32 @@ def attach_pallas(slabs: SlabSystem, storage: str = "bf16",
     ``pivot_dtype="pallas"`` means.
     """
     pfac = thomas_kernels.build_thomas_factorization(slabs.fac, storage=storage)
-    fac = slabs.fac
-    if not keep_dense:
-        fac = BlockTridiagFactorization(
-            cinv=fac.cinv.new_zeros(tuple(fac.cinv.shape[:2]) + (0, 0)),
-            lband=fac.lband, uband=fac.uband,
-        )
+    fac = slabs.fac if keep_dense else _bands_only(slabs.fac)
     return dataclasses.replace(slabs, fac=fac, pfac=pfac)
+
+
+def _bands_only(fac: BlockTridiagFactorization) -> BlockTridiagFactorization:
+    """``fac`` with an empty placeholder pivot stack: the bands (cheap) stay
+    for shape metadata and consumers of the bands."""
+    return BlockTridiagFactorization(
+        cinv=fac.cinv.new_zeros(tuple(fac.cinv.shape[:2]) + (0, 0)),
+        lband=fac.lband, uband=fac.uband,
+    )
+
+
+def attach_banded_tail(slabs: SlabSystem, pivot_band: int | None = None) -> SlabSystem:
+    """Return a copy of ``slabs`` whose pivots are ONLY the banded+tail hybrid
+    layout of the kernels (``pivot_dtype="pallas_banded_tail"``): band width
+    ``pivot_band`` (``None``: the w(n) rule, ``direct.default_band_width``)
+    on the head lines, dense bf16 planes on the last ``min(m1_max,
+    max(trace_tail + 4, 8))`` lines, whose pivot inverses are effectively
+    dense interface Green's functions; ``fac`` keeps the bands only.  The
+    sweeps then run the fused sweep kernels (``gs_sweep``) and the hybrid
+    substitution kernels (every other solve)."""
+    tail_keep = min(slabs.m1_max, max(slabs.trace_tail + 4, 8))
+    pfac = thomas_kernels.build_banded_tail_factorization(
+        slabs.fac, width=pivot_band, tail_lines=tail_keep)
+    return dataclasses.replace(slabs, fac=_bands_only(slabs.fac), pfac=pfac)
 
 
 def build_slab_system(
@@ -195,6 +260,7 @@ def build_slab_system(
     a_host: np.ndarray | None = None,
     ag_host: np.ndarray | None = None,
     pivot_dtype: str = "full",
+    pivot_band: int | None = None,
     cache_dir: str | None = None,
     device=None,
 ) -> SlabSystem:
@@ -204,15 +270,17 @@ def build_slab_system(
     rows supply the slab's artificial-boundary rows exactly as the
     ``Msp[1:2n,1:2n]`` overwrite at ``src/subdomains.jl:79-86``), ``nu`` is
     the (m, n) medium.  ``pivot_dtype`` is ``"full"`` (dense pivots in the
-    working dtype) or ``"pallas"`` (only the transposed bf16 planes of the
-    substitution kernels are kept).  The slabs live on the stencils' device
+    working dtype), ``"pallas"`` (only the transposed bf16 planes of the
+    substitution kernels are kept) or ``"pallas_banded_tail"`` (only the
+    banded+tail hybrid layout, band width ``pivot_band``; see
+    :func:`attach_banded_tail`).  The slabs live on the stencils' device
     unless ``device`` says otherwise.
     """
-    if pivot_dtype not in ("full", "pallas"):
+    if pivot_dtype not in ("full", "pallas", "pallas_banded_tail"):
         raise NotImplementedError(
             f"pivot_dtype={pivot_dtype!r} is not ported yet (ROADMAP.md, "
-            "Queue 1: the rest of the multi-slab slice and the banded formats; "
-            "Queue 2 for the int8 kernels)"
+            "Queue 1: the XLA-side bf16 and banded modes; Queue 2 item 8 for "
+            "pallas_int8)"
         )
     if cache_dir is not None:
         raise NotImplementedError(
@@ -375,6 +443,8 @@ def build_slab_system(
     )
     if pivot_dtype == "pallas":
         slabs = attach_pallas(slabs, keep_dense=False)
+    elif pivot_dtype == "pallas_banded_tail":
+        slabs = attach_banded_tail(slabs, pivot_band)
     return slabs
 
 

@@ -8,12 +8,12 @@ polarized-traces sweep ``precondGSOptimized``
 
 Each sweep is two Python loops over the slabs (down, then up); the only
 inter-slab data are four n-vectors of interface traces.  The local solves go
-through the bf16 substitution kernels (``sparse/thomas_kernels.py``) when the
-slab system carries their layout, else through the dense full-precision
+through the substitution kernels (``sparse/thomas_kernels.py``) when the slab
+system carries their layout, else through the dense full-precision
 factorization (``sparse/direct.py``).  The loops index and branch on the host
 copies of the trace lines (``SlabSystem.host``), so a sweep reads nothing back
-from the device.  The fused whole-sweep kernels of the banded+tail pivot
-layout are queued in ``ROADMAP.md``.
+from the device.  On the banded+tail pivot layout ``gs_sweep`` is instead two
+launches of the fused whole-sweep kernels (``sparse/sweep_kernels.py``).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import (
     gather_interior,
     partition_source,
 )
-from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels, thomas_kernels
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     band_matvec,
     block_thomas_solve,
@@ -74,7 +74,34 @@ def gs_sweep(slabs: SlabSystem, b: torch.Tensor) -> torch.Tensor:
     contract each streamed pivot plane against all r columns at once (the
     substitution is memory bound on exactly that traffic, so r right-hand
     sides cost barely more than one).
+
+    On the banded+tail pivot layout with a truncated sweep
+    (0 < trace_tail < m1_max) the whole sweep is the two fused kernels
+    (:func:`_gs_sweep_fused`), as in the JAX package.
     """
+    if (isinstance(slabs.pfac, thomas_kernels.BandedTailFactorization)
+            and 0 < slabs.trace_tail < slabs.m1_max):
+        return _gs_sweep_fused(slabs, b)
+    return _gs_sweep_per_slab(slabs, b)
+
+
+def _gs_sweep_fused(slabs: SlabSystem, b: torch.Tensor) -> torch.Tensor:
+    """:func:`gs_sweep` as two launches, down and up, of the fused sweep
+    kernels (the JAX package's ``pallas_sweep.gs_sweep_fused``)."""
+    pfac, tt, tables = slabs.pfac, slabs.trace_tail, slabs.sweep_tables
+    rhs0 = partition_source(slabs, b)                      # (S, m1_max, n[, r])
+    b4 = thomas_kernels._to_rows_b(pfac, rhs0)
+    y4, t4, unp = sweep_kernels.sweep_down(pfac, tables.meta, b4, tables.c01, tables.c10, tt)
+    u4 = sweep_kernels.sweep_up(pfac, tables.meta, b4, tables.cnpn, tables.cnnp,
+                                y4, t4, unp, tt)
+    u = thomas_kernels._from_rows_b(u4, pfac.n, rhs0.dtype, pfac.m).reshape(rhs0.shape)
+    return gather_interior(slabs, u)
+
+
+def _gs_sweep_per_slab(slabs: SlabSystem, b: torch.Tensor) -> torch.Tensor:
+    """:func:`gs_sweep` as Python loops of one-slab solves, on any pivot
+    layout (on the banded+tail one too: tests and ``chip_smoke.py`` hold the
+    fused kernels against it)."""
     rhs = partition_source(slabs, b)       # (S, m1_max, n[, r]); updated in place
     S, tail = slabs.n_subs, slabs.trace_tail
     if S == 1:

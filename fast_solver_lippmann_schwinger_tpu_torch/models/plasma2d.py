@@ -7,8 +7,10 @@ k = 800, 16 slabs, npml = 10, Greengard-Vico operator,
 scaled down.  ``double_sweep=False`` gives the single-direction sweep, which
 with ``n_subdomains=1`` is the exact block-Thomas solve of the sparsified
 system.  Pivots are ``"pallas"`` (bf16 pivot planes through the CUDA
-substitution kernels) or ``"full"`` (dense pivots in the working dtype); the
-other pivot formats of the JAX package are not ported yet.
+substitution kernels), ``"pallas_banded_tail"`` (banded head windows and dense
+bf16 tail planes through the hybrid substitution kernels and the fused sweep
+kernels) or ``"full"`` (dense pivots in the working dtype); the other pivot
+formats of the JAX package are not ported yet.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from fast_solver_lippmann_schwinger_tpu_torch.config import resolve_device
 from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import (
+    attach_banded_tail,
     attach_pallas,
     build_slab_system,
 )
@@ -59,6 +62,7 @@ def build_problem(
     double_sweep: bool = True,
     pivot_dtype: str = "pallas",
     pivot_dtype_t: str | None = None,
+    pivot_band: int | None = None,
     use_pallas: bool = False,
     device=None,
 ) -> Plasma2DProblem:
@@ -69,23 +73,27 @@ def build_problem(
     (reference ``Preconditioner``/``GSPreconditioner`` family): half the
     factorization memory, a few more GMRES iterations.  ``pivot_dtype_t`` sets
     a different pivot storage for the transposed (x-direction) sweep; ``None``
-    means ``pivot_dtype``.  ``use_pallas=True`` (the stencil matvec kernel) is
-    not ported yet.
+    means ``pivot_dtype``.  ``pivot_band`` is the kept band width of
+    ``"pallas_banded_tail"`` (``None``: the w(n) rule,
+    ``direct.default_band_width``).  ``use_pallas=True`` (the stencil matvec
+    kernel) is not ported yet.
 
     Each direction is factored with dense pivots in the working dtype first
-    and, for ``"pallas"``, packed into bf16 planes right away, so that the
-    dense pivots of one direction are freed before the other is factored.
+    and, for ``"pallas"`` and ``"pallas_banded_tail"``, packed into the
+    kernels' layout right away, slab by slab, so that the dense pivots of one
+    direction are freed before the other is factored.
     """
     if use_pallas:
         raise NotImplementedError(
-            "the stencil matvec kernel is not ported yet (ROADMAP.md, Queue 2)"
+            "the stencil matvec kernel is not ported yet (ROADMAP.md, Queue 2 item 5)"
         )
     if pivot_dtype_t is None:
         pivot_dtype_t = pivot_dtype
     for mode in (pivot_dtype, pivot_dtype_t):
-        if mode not in ("full", "pallas"):
+        if mode not in ("full", "pallas", "pallas_banded_tail"):
             raise NotImplementedError(
-                f"pivot_dtype={mode!r} is not ported yet (ROADMAP.md, Queue 1)"
+                f"pivot_dtype={mode!r} is not ported yet (ROADMAP.md, Queue 1: "
+                "pallas_int8 next, then the XLA-side bf16 and banded modes)"
             )
     device = resolve_device(device)
 
@@ -123,6 +131,8 @@ def build_problem(
         t0 = time.perf_counter()
         if mode == "pallas":
             slabs = attach_pallas(slabs, keep_dense=False)
+        elif mode == "pallas_banded_tail":
+            slabs = attach_banded_tail(slabs, pivot_band)
         seconds["packing" + suffix] = lap(t0)
         return slabs
 

@@ -137,6 +137,17 @@ def factor_stencil_2d(s: StencilMatrix2D) -> BlockTridiagFactorization:
     return factor_stencil_values(s.values)
 
 
+def default_band_width(n: int) -> int:
+    """Measured w(n) rule for banded pivot storage (the JAX package's
+    ``direct.default_band_width``): the band a line's pivot inverse keeps must
+    widen with the line length (w = 101 holds iteration parity at n = 201,
+    w = 201 is needed at n = 801, RESULTS.md round 4), so w ~ n/4, odd, at
+    least 33.  ``width=None`` of the banded+tail layout routes here.  The
+    XLA-side banded pivot modes that also use it are not ported (ROADMAP.md,
+    Queue 1 slice 7)."""
+    return min(max(n // 4, 33) | 1, 2 * n - 1)
+
+
 def _as_line_stack(fac, b):
     """Reshape ``b``, flat (m*n,), gridded (m, n), or multi-RHS
     (m, n, r) / (m*n, r), to a (m, n, ...) line stack."""

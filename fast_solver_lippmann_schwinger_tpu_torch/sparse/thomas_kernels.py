@@ -1,16 +1,19 @@
 """Block-Thomas substitution on bf16 pivot planes: CUDA kernels + plain twins.
 
-Counterpart of the JAX package's ``sparse/pallas_thomas.py`` for its dense
-bf16 layout: the batched multi-RHS pair ``_fwd_b`` / ``_bwd_b`` behind
+Counterpart of the JAX package's ``sparse/pallas_thomas.py``.  Its dense bf16
+layout: the batched multi-RHS pair ``_fwd_b`` / ``_bwd_b`` behind
 ``solve_all``, and the one-slab kernels ``_fwd`` / ``_bwd`` / ``_fwd_bt``
 behind ``solve``, ``solve_cached``, ``solve_resume`` and ``solve_support``
-(the local solves of the multi-slab sweeps).  The TPU kernels are rewritten by
-hand for Hopper in CUDA C++: ``csrc/thomas_fwd.cu`` (forward pass),
-``csrc/thomas_fwd_cached.cu`` (forward pass that starts from a given carry and
-keeps the t stack: ``_fwd`` and ``_fwd_bt``) and ``csrc/thomas_bwd.cu``
-(backward pass: ``_bwd_b``, and ``_bwd`` at one batch row and one right-hand
-side); the shared line routine and the design note are in
-``csrc/thomas_line.cuh``.
+(the local solves of the multi-slab sweeps).  Its banded+tail hybrid layout
+(``PallasFactorizationBandedTail``, here :class:`BandedTailFactorization`):
+the pair ``_fwd_ht`` / ``_bwd_ht`` behind the same entry points.  The TPU
+kernels are rewritten by hand for Hopper in CUDA C++: ``csrc/thomas_fwd.cu``
+(forward pass), ``csrc/thomas_fwd_cached.cu`` (forward pass that starts from a
+given carry and keeps the t stack: ``_fwd`` and ``_fwd_bt``, and ``_fwd_ht``
+on the hybrid layout), ``csrc/thomas_bwd.cu`` (backward pass: ``_bwd_b``,
+``_bwd`` at one batch row and one right-hand side, and ``_bwd_ht``); each
+launcher picks the layout's instantiation of the kernel.  The shared line
+step and the design note are in ``csrc/thomas_line.cuh``.
 
 Storage (same numbers as the JAX package): pivot inverses are kept
 TRANSPOSED in bfloat16 real/imag planes, ``Cinv^T[i_in, o_out]``, so the
@@ -22,7 +25,11 @@ TPU's 128-lane padding is not carried over: the leading dimension is
 stored TILE-MAJOR, ``cinv_t[s, j, t, i_in, l]`` = ``Cinv^T[i_in, 8 t + l]``:
 a kernel block owns one tile of 8 output lanes, and this way the 16-byte
 runs it reads (one per input row) lie back to back in memory, so a warp's
-copies coalesce into whole cache lines.
+copies coalesce into whole cache lines.  The hybrid layout keeps the same
+dense planes for its tail lines, and for its head lines one window per tile:
+``head[s, j, t, v, l]`` = ``Cinv^T[8 t - half + v, 8 t + l]`` for the
+``wt = 8 + 2 half`` input rows that reach the tile when only
+``|in - out| <= half`` is kept (zero outside ``[0, n)``).
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version only for a tensor that lies on the CPU.  The kernels
@@ -43,10 +50,10 @@ LEAD_MULTIPLE = 8      # bf16 values per 16-byte load
 MAX_RHS = 2            # right-hand sides per kernel launch (csrc: kMaxRhs)
 
 _P, _I = cuda_build.PTR, cuda_build.INT
-# each launcher takes its pointers, six ints and the stream
+# each launcher takes its pointers, its ints and the stream
 cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 7 + [_I] * 6 + [_P])
-cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 6 + [_I] * 6 + [_P])
-cuda_build.register("thomas_fwd_cached", "thomas_forward_cached", [_P] * 8 + [_I] * 6 + [_P])
+cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 8 + [_I] * 8 + [_P])
+cuda_build.register("thomas_fwd_cached", "thomas_forward_cached", [_P] * 10 + [_I] * 8 + [_P])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -88,6 +95,63 @@ class ThomasFactorization:
     @property
     def ld(self) -> int:
         return self.cinv_t_re.shape[3]
+
+    @property
+    def planes(self) -> tuple:
+        return (self.cinv_t_re, self.cinv_t_im)
+
+
+@dataclasses.dataclass(frozen=True)
+class BandedTailFactorization:
+    """Slab-stacked factors in the banded+tail hybrid layout of the kernels.
+
+    Counterpart of the JAX package's ``PallasFactorizationBandedTail``: lines
+    ``< tail_start`` keep only the band ``|in - out| <= half`` of their
+    transposed bf16 pivot inverse, as one window of ``wt = 8 + 2 half`` input
+    rows per tile of 8 output lanes (see the module note); the last ``m -
+    tail_start`` lines, whose inverses are effectively dense interface Green's
+    functions, keep dense tile-major planes as :class:`ThomasFactorization`
+    does.  Padding entries are zero.
+    """
+
+    head_re: torch.Tensor     # (S, tail_start, ld/8, wt, 8) bf16 head windows
+    head_im: torch.Tensor
+    tail_re: torch.Tensor     # (S, m - tail_start, ld/8, ld, 8) bf16 tail planes
+    tail_im: torch.Tensor
+    lband: torch.Tensor       # (S, m, 2, 3, ld) f32 [re, im]
+    uband: torch.Tensor       # (S, m, 2, 3, ld) f32
+    n: int                    # true line length
+    half: int                 # kept band half-width: width = 2 half + 1
+    slab_ids: torch.Tensor | None = None     # as ThomasFactorization.slab_ids
+
+    def __post_init__(self):
+        if self.slab_ids is None:
+            object.__setattr__(self, "slab_ids", torch.arange(
+                self.lband.shape[0], dtype=torch.int32, device=self.lband.device))
+
+    @property
+    def n_slabs(self) -> int:
+        return self.lband.shape[0]
+
+    @property
+    def m(self) -> int:
+        return self.lband.shape[1]
+
+    @property
+    def ld(self) -> int:
+        return self.lband.shape[4]
+
+    @property
+    def tail_start(self) -> int:
+        return self.head_re.shape[1]
+
+    @property
+    def width(self) -> int:
+        return 2 * self.half + 1
+
+    @property
+    def planes(self) -> tuple:
+        return (self.head_re, self.head_im, self.tail_re, self.tail_im)
 
 
 def tile_planes(p: torch.Tensor) -> torch.Tensor:
@@ -146,7 +210,72 @@ def build_thomas_factorization(fac, batched: bool = True,
     )
 
 
-def _check_rows(fac: ThomasFactorization, s_idx: torch.Tensor, rows: torch.Tensor):
+def head_windows(dense_t: torch.Tensor, n: int, half: int) -> torch.Tensor:
+    """Transposed pivots (..., n, n) ``[i_in, o_out]`` -> banded head windows
+    (..., ld/8, 8 + 2 half, 8) ``[t, v, l]`` = ``[8 t - half + v, 8 t + l]``,
+    zero where ``|in - out| > half`` and outside ``[0, n)``; same dtype."""
+    ld = _round_up(n, LEAD_MULTIPLE)
+    wt = LEAD_MULTIPLE + 2 * half
+    i = torch.arange(n, device=dense_t.device)
+    banded = torch.where((i[:, None] - i[None, :]).abs() <= half, dense_t,
+                         torch.zeros((), dtype=dense_t.dtype, device=dense_t.device))
+    # input rows padded by half on either side, output lanes to ld
+    padded = F.pad(banded, (0, ld - n, half, ld - n + half))   # (..., ld + 2 half, ld)
+    tiles = padded.reshape(padded.shape[:-1] + (ld // LEAD_MULTIPLE, LEAD_MULTIPLE))
+    # window t of tile t: rows 8 t .. 8 t + wt of the padded input axis
+    win = tiles.unfold(-3, wt, LEAD_MULTIPLE)          # (..., tiles_u, tiles, 8, wt)
+    win = torch.diagonal(win, dim1=-4, dim2=-3)        # (..., 8, wt, tiles)
+    return win.permute(*range(win.ndim - 3), -1, -2, -3).contiguous()
+
+
+def build_banded_tail_factorization(fac, width: int | None = None, tail_lines: int = 8,
+                                    batched: bool = True) -> BandedTailFactorization:
+    """Convert a (slab-batched) ``BlockTridiagFactorization`` with
+    full-precision pivots to the banded+tail layout, slab by slab.
+
+    Counterpart of ``build_pallas_banded_tail``: ``width=None`` applies the
+    w(n) rule of ``sparse/direct.py:default_band_width``; ``width`` is made odd and at
+    most ``2 n - 1``; ``tail_lines`` (clamped to ``1 .. m - 1``) trailing lines
+    keep dense planes.  Entries are rounded complex -> f32 -> bf16 as for the
+    dense layout, so they are bit-equal to the JAX package's away from the
+    padding.
+    """
+    cinv, lband, uband = fac.cinv, fac.lband, fac.uband
+    if not batched:
+        cinv, lband, uband = cinv[None], lband[None], uband[None]
+    S, m, n = cinv.shape[0], cinv.shape[1], cinv.shape[2]
+    if width is None:
+        # direct imports this module (through plane_kernels): import late
+        from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import default_band_width
+
+        width = default_band_width(n)
+    width = min(int(width) | 1, 2 * n - 1)
+    half = width // 2
+    tail_lines = int(min(max(tail_lines, 1), m - 1))
+    ts = m - tail_lines
+    ld = _round_up(n, LEAD_MULTIPLE)
+    tiles = ld // LEAD_MULTIPLE
+    wt = LEAD_MULTIPLE + 2 * half
+    dev = cinv.device
+    head = [torch.empty((S, ts, tiles, wt, LEAD_MULTIPLE), dtype=torch.bfloat16, device=dev)
+            for _ in range(2)]
+    tail = [torch.empty((S, m - ts, tiles, ld, LEAD_MULTIPLE), dtype=torch.bfloat16, device=dev)
+            for _ in range(2)]
+    cinv_t = cinv.transpose(-1, -2)
+    for s in range(S):      # slab by slab: bounds the temporaries
+        for k, part in enumerate((cinv_t[s].real, cinv_t[s].imag)):
+            f32 = part.float()
+            head[k][s] = head_windows(f32[:ts], n, half).to(torch.bfloat16)
+            dense = torch.zeros((m - ts, ld, ld), dtype=torch.bfloat16, device=dev)
+            dense[:, :n, :n] = f32[ts:].to(torch.bfloat16)
+            tail[k][s] = tile_planes(dense)
+    return BandedTailFactorization(
+        head_re=head[0], head_im=head[1], tail_re=tail[0], tail_im=tail[1],
+        lband=_band_pack(lband, ld), uband=_band_pack(uband, ld), n=n, half=half,
+    )
+
+
+def _check_rows(fac, s_idx: torch.Tensor, rows: torch.Tensor):
     """Validate what the kernels take; returns (batch, r)."""
     if rows.dtype != torch.float32 or rows.ndim != 4 or not rows.is_contiguous():
         raise ValueError("rows must be a contiguous (B, m, 2r, ld) float32 tensor")
@@ -158,11 +287,11 @@ def _check_rows(fac: ThomasFactorization, s_idx: torch.Tensor, rows: torch.Tenso
         )
     if s_idx.dtype != torch.int32 or tuple(s_idx.shape) != (B,):
         raise ValueError("s_idx must be an int32 tensor of shape (B,)")
-    for t in (s_idx, fac.cinv_t_re, fac.cinv_t_im, fac.lband, fac.uband):
+    for t in (s_idx, fac.lband, fac.uband) + fac.planes:
         if t.device != rows.device or not t.is_contiguous():
             raise ValueError("factorization, s_idx and rows must be contiguous "
                              "tensors on one device")
-    if fac.cinv_t_re.dtype != torch.bfloat16 or fac.cinv_t_im.dtype != torch.bfloat16:
+    if any(p.dtype != torch.bfloat16 for p in fac.planes):
         raise ValueError("pivot planes must be bfloat16")
     return B, r2 // 2
 
@@ -178,7 +307,7 @@ def _check_rhs_count(r: int):
 _INVALID_VALUE = 1     # cudaErrorInvalidValue
 
 
-def _raise_on(err: int, what: str, fac: ThomasFactorization):
+def _raise_on(err: int, what: str, fac):
     if err == _INVALID_VALUE:
         raise ValueError(
             f"{what} refused its arguments: most likely the line length "
@@ -237,25 +366,50 @@ def forward_substitution_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
     return y4
 
 
-def forward_substitution_cached_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
-                                      b4: torch.Tensor, t_init: torch.Tensor,
-                                      start: int = 0, out=None):
-    """Plain version of :func:`forward_substitution_cached`."""
+def _head_dot_rows(y: torch.Tensor, hre: torch.Tensor, him: torch.Tensor, half: int):
+    """[Yr; Yi] @ (banded Cinv^T) for (B, 2r, ld) rows and head windows
+    (B, ld/8, wt, 8): the 8 lanes of tile t from input rows 8 t - half ..
+    8 t + 7 + half, through f32 copies of the windows."""
+    B, r2, ld = y.shape
+    wt = hre.shape[-2]
+    win = F.pad(y, (half, half)).unfold(-1, wt, LEAD_MULTIPLE)     # (B, 2r, tiles, wt)
+    z1 = torch.einsum("bqtv,btvl->bqtl", win, hre.float()).reshape(B, r2, ld)
+    z2 = torch.einsum("bqtv,btvl->bqtl", win, him.float()).reshape(B, r2, ld)
+    r = r2 // 2
+    return torch.cat([z1[:, :r] - z2[:, r:], z1[:, r:] + z2[:, :r]], dim=1)
+
+
+def line_pivot_plain(fac, s: torch.Tensor, j: int, y: torch.Tensor) -> torch.Tensor:
+    """``t = C_j^{-1} y`` for (B, 2r, ld) rows of slabs ``s`` (one per batch
+    row), in either layout: a dense plane, or for the hybrid layout the head
+    window (``j < tail_start``) or the tail plane."""
+    if isinstance(fac, ThomasFactorization):
+        return _pivot_dot_rows(y, fac.cinv_t_re[s, j], fac.cinv_t_im[s, j])
+    if j < fac.tail_start:
+        return _head_dot_rows(y, fac.head_re[s, j], fac.head_im[s, j], fac.half)
+    k = j - fac.tail_start
+    return _pivot_dot_rows(y, fac.tail_re[s, k], fac.tail_im[s, k])
+
+
+def forward_substitution_cached_plain(fac, s_idx: torch.Tensor, b4: torch.Tensor,
+                                      t_init: torch.Tensor, start: int = 0, out=None):
+    """Plain version of :func:`forward_substitution_cached`, on either
+    layout."""
     s = s_idx.long()
     y4, t4 = out if out is not None else (torch.zeros_like(b4), torch.zeros_like(b4))
     t = t_init.clone()
     t[..., fac.n:] = 0          # padding lanes of the carry count as zero
     for j in range(start, fac.m):
         y = b4[:, j] - _band_apply_rows(fac.lband[s, j], t)
-        t = _pivot_dot_rows(y, fac.cinv_t_re[s, j], fac.cinv_t_im[s, j])
+        t = line_pivot_plain(fac, s, j, y)
         y4[:, j] = y
         t4[:, j] = t
     return y4, t4
 
 
-def backward_substitution_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
-                                y4: torch.Tensor, tail: int = 0) -> torch.Tensor:
-    """Plain version of :func:`backward_substitution`."""
+def backward_substitution_plain(fac, s_idx: torch.Tensor, y4: torch.Tensor,
+                                tail: int = 0) -> torch.Tensor:
+    """Plain version of :func:`backward_substitution`, on either layout."""
     s = s_idx.long()
     m = fac.m
     m_eff = m if tail <= 0 or tail >= m else tail
@@ -264,9 +418,16 @@ def backward_substitution_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
     x = torch.zeros_like(y4[:, 0])
     for j in range(m - 1, off - 1, -1):
         w = y4[:, j] - _band_apply_rows(fac.uband[s, j], x)
-        x = _pivot_dot_rows(w, fac.cinv_t_re[s, j], fac.cinv_t_im[s, j])
+        x = line_pivot_plain(fac, s, j, w)
         x4[:, j - off] = x
     return x4
+
+
+# the plain versions of the hybrid kernels (rows 6 and 7 of PERF.md) are the
+# same line loops: line_pivot_plain picks the layout's pivot per line; the
+# names say which kernel a caller holds them against
+forward_substitution_ht_plain = forward_substitution_cached_plain
+backward_substitution_ht_plain = backward_substitution_plain
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +441,11 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     ``t_j = C_j^{-1} y_j`` over lines ``start..m-1`` (zero carry at
     ``start``).  ``b4`` is (B, m, 2r, ld) f32 and batch row i uses slab
     ``s_idx[i]``.  Returns the full (B, m, 2r, ld) y stack, zero on lines
-    ``< start``.  On the card it takes r = 1 or 2."""
+    ``< start``.  Dense layout only (the hybrid one has the cached pass).  On
+    the card it takes r = 1 or 2."""
+    if not isinstance(fac, ThomasFactorization):
+        raise ValueError("forward_substitution takes dense planes; the banded+tail "
+                         "layout runs forward_substitution_cached")
     B, r = _check_rows(fac, s_idx, b4)
     if not 0 <= start < fac.m:
         raise ValueError(f"start={start} outside [0, {fac.m})")
@@ -303,20 +468,28 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     return y4
 
 
-def forward_substitution_cached(fac: ThomasFactorization, s_idx: torch.Tensor,
-                                b4: torch.Tensor, t_init: torch.Tensor | None = None,
-                                start: int = 0, out=None):
-    """Batched forward substitution over lines ``start..m-1`` that starts from
-    the carry ``t_init`` (B, 2r, ld) = ``t_{start-1}`` (zero when ``None``) and
-    keeps both stacks: returns ``(y4, t4)``, each (B, m, 2r, ld), with
-    ``t_j = C_j^{-1} y_j``.
+def _pivot_args(fac) -> tuple:
+    """The launchers' pivot operands of either layout: (head re, head im,
+    planes re, planes im) pointers, then tail_start and half; the dense layout
+    is tail_start = 0 with no head."""
+    if isinstance(fac, BandedTailFactorization):
+        return (fac.head_re.data_ptr(), fac.head_im.data_ptr(), fac.tail_re.data_ptr(),
+                fac.tail_im.data_ptr()), (fac.tail_start, fac.half)
+    return (0, 0, fac.cinv_t_re.data_ptr(), fac.cinv_t_im.data_ptr()), (0, 0)
 
-    Lines ``< start``: the kernel neither reads nor writes them.  With
-    ``out=(y4, t4)`` (contiguous float32 tensors of ``b4``'s shape) lines
-    ``>= start`` are written IN PLACE into those and lines ``< start`` keep
-    what the caller put there (a resumed pass hands in a copy of the cached y
-    stack); without ``out`` both stacks are new and zero on lines ``< start``.
-    On the card it takes r = 1 or 2."""
+
+def _count_launch(fn, fac):
+    """One more launch of ``fn``'s kernel: ``fn.launches`` counts those on
+    dense planes, ``fn.launches_ht`` those on the banded+tail layout."""
+    if isinstance(fac, BandedTailFactorization):
+        fn.launches_ht += 1
+    else:
+        fn.launches += 1
+
+
+def _cached_operands(fac, s_idx, b4, t_init, start, out):
+    """Checks the operands of a cached forward pass and fills in the missing
+    ones; returns (B, r, t_init, out)."""
     B, r = _check_rows(fac, s_idx, b4)
     if not 0 <= start < fac.m:
         raise ValueError(f"start={start} outside [0, {fac.m})")
@@ -333,27 +506,50 @@ def forward_substitution_cached(fac: ThomasFactorization, s_idx: torch.Tensor,
                 or t.device != b4.device or not t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous float32 tensor of shape "
                              f"{tuple(shape)} on {b4.device}")
+    return B, r, t_init, out
+
+
+def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
+                                t_init: torch.Tensor | None = None, start: int = 0,
+                                out=None):
+    """Batched forward substitution over lines ``start..m-1`` that starts from
+    the carry ``t_init`` (B, 2r, ld) = ``t_{start-1}`` (zero when ``None``) and
+    keeps both stacks: returns ``(y4, t4)``, each (B, m, 2r, ld), with
+    ``t_j = C_j^{-1} y_j``.
+
+    Either layout: on the hybrid one (the JAX package's ``_fwd_ht``) lines
+    ``< tail_start`` apply their banded head windows, the rest their dense
+    tail planes, and the carry crosses from one to the other as it is.
+
+    Lines ``< start``: the kernel neither reads nor writes them.  With
+    ``out=(y4, t4)`` (contiguous float32 tensors of ``b4``'s shape) lines
+    ``>= start`` are written IN PLACE into those and lines ``< start`` keep
+    what the caller put there (a resumed pass hands in a copy of the cached y
+    stack); without ``out`` both stacks are new and zero on lines ``< start``.
+    On the card it takes r = 1 or 2."""
+    B, r, t_init, out = _cached_operands(fac, s_idx, b4, t_init, start, out)
     if not b4.is_cuda:
         return forward_substitution_cached_plain(fac, s_idx, b4, t_init, start, out)
     _check_rhs_count(r)
     fn = cuda_build.load("thomas_fwd_cached")
+    pivots, layout = _pivot_args(fac)
     err = fn(
-        b4.data_ptr(), fac.lband.data_ptr(), fac.cinv_t_re.data_ptr(),
-        fac.cinv_t_im.data_ptr(), s_idx.data_ptr(), t_init.data_ptr(),
-        out[0].data_ptr(), out[1].data_ptr(), B, fac.m, fac.n, fac.ld, r, start,
+        b4.data_ptr(), fac.lband.data_ptr(), *pivots, s_idx.data_ptr(), t_init.data_ptr(),
+        out[0].data_ptr(), out[1].data_ptr(), B, fac.m, fac.n, fac.ld, r, start, *layout,
         torch.cuda.current_stream(b4.device).cuda_stream,
     )
     _raise_on(err, "thomas_forward_cached", fac)
-    forward_substitution_cached.launches += 1
+    _count_launch(forward_substitution_cached, fac)
     return out
 
 
-def backward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
-                          y4: torch.Tensor, tail: int = 0) -> torch.Tensor:
+def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
+                          tail: int = 0) -> torch.Tensor:
     """Batched backward substitution ``x_j = C_j^{-1}(y_j - U_j x_{j+1})``
     bottom-up over the FULL (B, m, 2r, ld) y stack; ``0 < tail < m``
     materializes only the last ``tail`` lines.  Returns (B, m_eff, 2r, ld).
-    On the card it takes r = 1 or 2."""
+    Either layout (the hybrid one is the JAX package's ``_bwd_ht``).  On the
+    card it takes r = 1 or 2."""
     B, r = _check_rows(fac, s_idx, y4)
     if not y4.is_cuda:
         return backward_substitution_plain(fac, s_idx, y4, tail)
@@ -362,21 +558,24 @@ def backward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     m = fac.m
     m_eff = m if tail <= 0 or tail >= m else tail
     x4 = torch.empty((B, m_eff, 2 * r, fac.ld), dtype=torch.float32, device=y4.device)
+    pivots, layout = _pivot_args(fac)
     err = fn(
-        y4.data_ptr(), fac.uband.data_ptr(), fac.cinv_t_re.data_ptr(),
-        fac.cinv_t_im.data_ptr(), s_idx.data_ptr(), x4.data_ptr(),
-        B, m, fac.n, fac.ld, r, m_eff,
+        y4.data_ptr(), fac.uband.data_ptr(), *pivots, s_idx.data_ptr(), x4.data_ptr(),
+        B, m, fac.n, fac.ld, r, m_eff, *layout,
         torch.cuda.current_stream(y4.device).cuda_stream,
     )
     _raise_on(err, "thomas_backward", fac)
-    backward_substitution.launches += 1
+    _count_launch(backward_substitution, fac)
     return x4
 
 
-# launch counts: one per wrapper call that launched its kernel
+# launch counts: one per wrapper call that launched its kernel (on the hybrid
+# layout in ``launches_ht``)
 forward_substitution.launches = 0
 forward_substitution_cached.launches = 0
+forward_substitution_cached.launches_ht = 0
 backward_substitution.launches = 0
+backward_substitution.launches_ht = 0
 
 
 def _to_rows_b(fac: ThomasFactorization, b: torch.Tensor) -> torch.Tensor:
@@ -402,22 +601,24 @@ def _from_rows_b(rows: torch.Tensor, n: int, dtype: torch.dtype, m: int,
     return out
 
 
-def solve_all(fac: ThomasFactorization, s_idx, b: torch.Tensor,
-              start: int = 0, tail: int = 0) -> torch.Tensor:
+def solve_all(fac, s_idx, b: torch.Tensor, start: int = 0, tail: int = 0) -> torch.Tensor:
     """Solve every slab's system at once: ``b`` is (S, m, n) or (S, m, n, r)
     complex with slab ``s_idx[i]``'s factors applied to batch row i.  ``start``
     asserts the rhs is zero on lines < start (exact head-start); ``tail``
     truncates the backward pass (zeros above the last ``tail`` lines).
-    On the card r is 1 or 2 (``MAX_RHS``).
+    On the card r is 1 or 2 (``MAX_RHS``).  Either layout: the hybrid one
+    runs the hybrid pair (the JAX package's ``_ht_solve_all``).
     """
-    _dense_layout_only(fac)
     s = torch.as_tensor(s_idx, dtype=torch.int32, device=b.device).reshape(-1)
     m = fac.m
     if start >= m or start < 0:
         start = 0
     off = 0 if (tail <= 0 or tail >= m) else m - tail
     rows = _to_rows_b(fac, b)
-    y4 = forward_substitution(fac, s, rows, start=start)
+    if isinstance(fac, BandedTailFactorization):     # the hybrid pass keeps its t stack
+        y4, _ = forward_substitution_cached(fac, s, rows, start=start)
+    else:
+        y4 = forward_substitution(fac, s, rows, start=start)
     x4 = backward_substitution(fac, s, y4, tail=tail)
     return _from_rows_b(x4, fac.n, b.dtype, m, off).reshape(b.shape)
 
@@ -430,25 +631,18 @@ def solve_all(fac: ThomasFactorization, s_idx, b: torch.Tensor,
 # tensor with one element.  As in the JAX package a 2-D ``b`` goes through the
 # single-RHS kernels (``_fwd``/``_bwd`` there; here the cached forward kernel
 # and the backward kernel at one batch row, r = 1), and (m, n, r) through the
-# multi-RHS kernels.
+# multi-RHS kernels.  On the hybrid layout every case runs the hybrid pair
+# (``_ht_solve_all``, ``_ht_solve_cached``, ``_ht_solve_resume`` there).
 # ---------------------------------------------------------------------------
 
 
-def _dense_layout_only(fac):
-    if hasattr(fac, "head_re"):
-        raise NotImplementedError(
-            "the banded+tail pivot layout is not ported yet (ROADMAP.md, "
-            "Queue 1 slice 7, Queue 2 item 6)"
-        )
-
-
-def _one_slab(fac: ThomasFactorization, s_idx) -> torch.Tensor:
+def _one_slab(fac, s_idx) -> torch.Tensor:
     if isinstance(s_idx, int):
         return fac.slab_ids[s_idx : s_idx + 1]
     return torch.as_tensor(s_idx, dtype=torch.int32, device=fac.lband.device).reshape(1)
 
 
-def _rows_of(fac: ThomasFactorization, b: torch.Tensor) -> torch.Tensor:
+def _rows_of(fac, b: torch.Tensor) -> torch.Tensor:
     """One slab's (m, n) or (m, n, r) complex rhs -> (1, m, 2r, ld) rows."""
     return _to_rows_b(fac, b[None] if b.ndim == 3 else b.reshape(1, fac.m, fac.n))
 
@@ -461,13 +655,11 @@ def _backward_to_grid(fac, s, y4, b, tail: int = 0) -> torch.Tensor:
     return _from_rows_b(x4, fac.n, b.dtype, fac.m, off)[0].reshape(b.shape)
 
 
-def solve_support(fac: ThomasFactorization, s_idx, b: torch.Tensor,
-                  start: int = 0, tail: int = 0) -> torch.Tensor:
+def solve_support(fac, s_idx, b: torch.Tensor, start: int = 0, tail: int = 0) -> torch.Tensor:
     """``S x = b`` for slab ``s_idx`` with ``b`` zero on lines ``< start``
     (``direct.block_thomas_solve_support``): the forward pass begins at
     ``start`` with a zero carry, which is exact.  ``0 < tail < m``
     materializes x only on the last ``tail`` lines (zeros above)."""
-    _dense_layout_only(fac)
     s = _one_slab(fac, s_idx)
     if not 0 <= start < fac.m:
         start = 0
@@ -477,33 +669,30 @@ def solve_support(fac: ThomasFactorization, s_idx, b: torch.Tensor,
     return _backward_to_grid(fac, s, y4, b, tail)
 
 
-def solve(fac: ThomasFactorization, s_idx, b: torch.Tensor, tail: int = 0) -> torch.Tensor:
+def solve(fac, s_idx, b: torch.Tensor, tail: int = 0) -> torch.Tensor:
     """``S x = b`` for slab ``s_idx``; semantics of
     ``direct.block_thomas_solve(_tail)``."""
     return solve_support(fac, s_idx, b, 0, tail)
 
 
-def solve_cached(fac: ThomasFactorization, s_idx, b: torch.Tensor, tail: int = 0):
+def solve_cached(fac, s_idx, b: torch.Tensor, tail: int = 0):
     """Tail solve plus the forward pass's caches
     (``direct.block_thomas_solve_cached``): returns ``(x, y_cache, t_cache)``
     with the caches (m, 2r, ld) float32 rows, for :func:`solve_resume`.
     Multi-RHS streams each pivot plane once for all r columns."""
-    _dense_layout_only(fac)
     s = _one_slab(fac, s_idx)
     y4, t4 = forward_substitution_cached(fac, s, _rows_of(fac, b))
     return _backward_to_grid(fac, s, y4, b, tail), y4[0], t4[0]
 
 
-def solve_resume(fac: ThomasFactorization, s_idx, b: torch.Tensor,
-                 y_cached: torch.Tensor, t_cached: torch.Tensor,
-                 resume: int) -> torch.Tensor:
+def solve_resume(fac, s_idx, b: torch.Tensor, y_cached: torch.Tensor,
+                 t_cached: torch.Tensor, resume: int) -> torch.Tensor:
     """Solve where ``b`` differs from the cached solve's rhs only on the last
     ``resume`` lines (``direct.block_thomas_solve_resume``): the forward pass
     restarts at line ``m - resume`` from the carry ``t_cached[m - resume - 1]``
     and the backward pass is a full one.  The caches are those of
     :func:`solve_cached` for the same number of right-hand sides and are left
     as they were.  ``resume <= 0`` or ``>= m`` is a full solve."""
-    _dense_layout_only(fac)
     m = fac.m
     if resume <= 0 or resume >= m:
         return solve(fac, s_idx, b)

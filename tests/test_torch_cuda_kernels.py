@@ -1,5 +1,5 @@
-"""The CUDA substitution kernels (2D lines and 3D planes) against their plain
-PyTorch versions.
+"""The CUDA substitution kernels (2D lines, dense and banded+tail, the fused
+2D sweep kernels, and 3D planes) against their plain PyTorch versions.
 
 These tests need a CUDA card and ``nvcc`` (a CUDA kernel has no CPU mode) and
 skip without them.  They import nothing of the JAX package, so they run on a
@@ -15,9 +15,11 @@ import torch
 import dataclasses
 
 from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
-from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d
+from fast_solver_lippmann_schwinger_tpu_torch.ddm import sweeps
+from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, plasma2d
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
 
 pytestmark = pytest.mark.cuda
@@ -525,3 +527,107 @@ def test_gs_sweep_on_card_matches_cpu(cuda_device, mode):
     assert (pk.plane_forward.launches - before[0], pk.plane_backward.launches - before[1]) == (
         slab_solves, slab_solves)
     _close(got, pc_cpu.apply_batch(torch.as_tensor(b)))
+
+
+# ---------------------------------------------------------------------------
+# The banded+tail layout: the hybrid passes and the fused sweep kernels
+# ---------------------------------------------------------------------------
+
+
+def _random_hybrid(rng, S, m, n, width, tail_lines):
+    """Contracting random factors (||C|| ||band|| < 1) in the hybrid layout,
+    on the CPU."""
+    cinv = (0.1 / np.sqrt(n)) * (rng.standard_normal((S, m, n, n))
+                                 + 1j * rng.standard_normal((S, m, n, n))) + 0.2 * np.eye(n)
+    bands = [rng.uniform(-0.2, 0.2, (S, m, n, 3)) + 1j * rng.uniform(-0.2, 0.2, (S, m, n, 3))
+             for _ in range(2)]
+    fac = direct.BlockTridiagFactorization(*(torch.as_tensor(a.astype(np.complex64))
+                                             for a in (cinv, *bands)))
+    return tk.build_banded_tail_factorization(fac, width=width, tail_lines=tail_lines)
+
+
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("start,carry,tail", [(0, False, 0), (0, True, 3), (5, True, 7),
+                                              (9, True, 0)])
+def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail):
+    """Forward from a zero carry or t_init, starting in the head or in the
+    tail; backward full, inside the tail lines or across into the head; n
+    not a multiple of 8, batch rows picking slabs out of order; one launch
+    per call, lines above the start left alone."""
+    rng = np.random.default_rng(100 + 10 * r + start)
+    m, n = 12, 45
+    fac = _random_hybrid(rng, 2, m, n, width=9, tail_lines=5)
+    card = move_to(fac, cuda_device)
+    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (2, m, n, r))))
+    s_idx = torch.tensor([1, 0], dtype=torch.int32)
+    t_init = torch.zeros((2, 2 * r, fac.ld))
+    if carry:
+        t_init[..., :n] = torch.as_tensor(rng.standard_normal((2, 2 * r, n)).astype(np.float32))
+    out = tuple(torch.full(b4.shape, v, device=cuda_device) for v in (7.0, -7.0))
+    fwd, bwd = tk.forward_substitution_cached, tk.backward_substitution
+    before = (fwd.launches_ht, bwd.launches_ht, fwd.launches, bwd.launches)
+    y4, t4 = fwd(card, s_idx.to(cuda_device), b4.to(cuda_device), t_init.to(cuda_device),
+                 start=start, out=out)
+    y_p, t_p = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start)
+    x4 = tk.backward_substitution(card, s_idx.to(cuda_device), y_p.to(cuda_device), tail=tail)
+    torch.cuda.synchronize()
+    # one launch each, counted as the hybrid layout's
+    assert (fwd.launches_ht, bwd.launches_ht, fwd.launches, bwd.launches) == (
+        before[0] + 1, before[1] + 1, before[2], before[3])
+    for got, want in ((y4[:, start:], y_p[:, start:]), (t4[:, start:], t_p[:, start:]),
+                      (x4, tk.backward_substitution(fac, s_idx, y_p, tail=tail))):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+    assert bool((y4[:, :start] == 7.0).all()) and bool((t4[:, :start] == -7.0).all())
+
+
+@pytest.mark.parametrize("r", [1, 2])
+def test_fused_sweep_matches_plain(cuda_device, r):
+    """The 3-slab double-sweep preconditioner on banded+tail pivots, built on
+    the CPU and moved to the card: one ``gs_sweep`` is one launch of each
+    fused kernel and agrees with the plain fused sweep on the CPU and with the
+    per-slab sweep (the hybrid passes) on the card."""
+    problem = plasma2d.build_problem(h=1 / 40, n_subdomains=3, double_sweep=True,
+                                     pivot_dtype="pallas_banded_tail", pivot_band=21,
+                                     dtype=torch.complex64, device="cpu")
+    slabs_cpu = problem.precond.slabs
+    slabs = move_to(slabs_cpu, cuda_device)
+    rng = np.random.default_rng(r)
+    shape = (problem.grid.size,) if r == 1 else (problem.grid.size, r)
+    b = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    fwd = tk.forward_substitution_cached
+    before = (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches_ht)
+    got = sweeps.gs_sweep(slabs, torch.as_tensor(b, device=cuda_device))
+    torch.cuda.synchronize()
+    assert (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches_ht) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = sweeps.gs_sweep(slabs_cpu, torch.as_tensor(b))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+    per_slab = sweeps._gs_sweep_per_slab(slabs, torch.as_tensor(b, device=cuda_device))
+    torch.testing.assert_close(got, per_slab, rtol=0, atol=TOL * float(per_slab.abs().max()))
+
+
+@pytest.mark.parametrize("entry", ["forward", "backward", "down", "up"])
+def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monkeypatch):
+    """Three right-hand sides are refused on the card, and a CUDA tensor never
+    reaches a plain version."""
+    def boom(*args, **kwargs):
+        raise AssertionError("plain version called for a CUDA tensor")
+
+    for name in ("forward_substitution_cached_plain", "backward_substitution_plain"):
+        monkeypatch.setattr(tk, name, boom)
+    monkeypatch.setattr(sk, "sweep_down_plain", boom)
+    monkeypatch.setattr(sk, "sweep_up_plain", boom)
+    rng = np.random.default_rng(4)
+    fac = move_to(_random_hybrid(rng, 3, 8, 24, width=5, tail_lines=3), cuda_device)
+    rows = torch.zeros((3, 8, 6, fac.ld), device=cuda_device)
+    s_idx = fac.slab_ids
+    meta = torch.tensor([[0, 1, 1], [0, 2, 2], [5, 5, 0], [6, 6, 0], [0, 1, 1], [1, 1, 0]],
+                        dtype=torch.int32, device=cuda_device)
+    cpl = torch.zeros((3, 2, 3, fac.ld), device=cuda_device)
+    calls = {"forward": lambda: tk.forward_substitution_cached(fac, s_idx, rows),
+             "backward": lambda: tk.backward_substitution(fac, s_idx, rows),
+             "down": lambda: sk.sweep_down(fac, meta, rows, cpl, cpl, 4),
+             "up": lambda: sk.sweep_up(fac, meta, rows, cpl, cpl, rows, rows,
+                                       rows[:, 0].contiguous(), 4)}
+    with pytest.raises(ValueError, match="right-hand sides"):
+        calls[entry]()

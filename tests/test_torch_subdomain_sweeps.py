@@ -6,7 +6,6 @@ package), so no SVD gauge enters the comparison.
 """
 
 import dataclasses
-import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -191,14 +190,24 @@ def test_single_sweep_preconditioner_matches(setup, mode):
     np.testing.assert_allclose(got_b[0].numpy(), got, rtol=0, atol=1e-5 * np.abs(got).max())
 
 
-def test_attach_pallas_and_multi_slab_sweep_raises(setup):
-    """What of the multi-slab sweeps still raises: the banded+tail pivot layout
-    (the sweeps themselves are held against the JAX package in
-    ``test_torch_multislab_sweeps.py``)."""
+def test_attach_pallas_and_multi_slab_sweep_raises(setup, monkeypatch):
+    """The kernel layouts a slab system takes: ``gs_sweep`` on the banded+tail
+    layout takes the fused route (the sweeps themselves are held against the
+    JAX package in ``test_torch_multislab_sweeps.py`` and
+    ``test_torch_banded_tail.py``), and ``attach_pallas`` keeps or drops the
+    dense pivots."""
     _, ts, _ = _build_both(setup, 2)
-    banded = dataclasses.replace(ts, pfac=types.SimpleNamespace(head_re=None))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        sweeps.gs_sweep(banded, torch.zeros(ts.m * ts.n, dtype=torch.complex128))
+    banded = subdomain.attach_banded_tail(ts, pivot_band=9)
+    assert isinstance(banded.pfac, tk.BandedTailFactorization) and banded.pfac.width == 9
+    assert tuple(banded.fac.cinv.shape) == (2, ts.m1_max, 0, 0)
+    assert 0 < banded.trace_tail < banded.m1_max
+    calls = []
+    monkeypatch.setattr(sweeps, "_gs_sweep_fused",
+                        lambda slabs, b: calls.append(slabs) or b)
+    b = torch.zeros(ts.m * ts.n, dtype=torch.complex128)
+    assert sweeps.gs_sweep(banded, b) is b and calls == [banded]
+    sweeps.gs_sweep(ts, b)          # the dense layout keeps the per-slab route
+    assert calls == [banded]
     kept = subdomain.attach_pallas(ts)
     assert isinstance(kept.pfac, tk.ThomasFactorization) and kept.fac.cinv.shape[-1] == ts.n
     assert kept.pfac.n_slabs == 2 and kept.pfac.m == ts.m1_max

@@ -6,7 +6,6 @@ kernels themselves are held against those plain versions on the card
 (``chip_smoke.py`` and ``tests/test_torch_cuda_kernels.py``).
 """
 
-import types
 
 import jax
 import jax.numpy as jnp
@@ -320,13 +319,36 @@ def test_cached_wrapper_validates_and_counts(slab_factors):
     assert pf.slab_ids.dtype == torch.int32 and pf.slab_ids.tolist() == [0, 1, 2]
 
 
+@pytest.fixture(scope="module")
+def full_width_pair():
+    """One factorization in the dense bf16 layout and in the banded+tail
+    layout at full width (every entry kept): the same bf16 entries, four tail
+    lines."""
+    rng = np.random.default_rng(6)
+    v = rng.standard_normal((S3, M3, N3, 3, 3)) + 1j * rng.standard_normal((S3, M3, N3, 3, 3))
+    v[..., 1, 1] += 8.0
+    tf = direct.factor_stencil_values(torch.as_tensor(v.astype(np.complex64)))
+    hybrid = tk.build_banded_tail_factorization(tf, width=2 * N3 - 1, tail_lines=4)
+    assert hybrid.tail_start == M3 - 4 and hybrid.half == N3 - 1
+    return tk.build_thomas_factorization(tf), hybrid
+
+
 @pytest.mark.parametrize("entry", ["solve", "solve_cached", "solve_resume", "solve_support", "solve_all"])
-def test_banded_tail_layout_is_not_ported(entry):
-    """The hybrid banded+tail layout of the JAX package (recognised by its
-    ``head_re`` planes) has no kernels in the port yet."""
-    fac = types.SimpleNamespace(head_re=None)
-    b = torch.zeros((M3, N3), dtype=torch.complex64)
-    args = {"solve": (fac, 0, b), "solve_cached": (fac, 0, b), "solve_support": (fac, 0, b),
-            "solve_resume": (fac, 0, b, None, None, 2), "solve_all": (fac, [0], b[None])}[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        getattr(tk, entry)(*args)
+def test_banded_tail_entry_points(full_width_pair, entry):
+    """Every entry point takes the hybrid layout (the JAX package's
+    ``PallasFactorizationBandedTail``) and, at full width, gives the dense bf16
+    layout's answer (``test_ht_full_width_matches_bf16``): 1e-5 of the
+    max-norm, the summation order of the head windows differing."""
+    dense, hybrid = full_width_pair
+    b = torch.as_tensor(_one_rhs(40, None))
+    b2 = torch.as_tensor(_one_rhs(41, 2))
+    b2[:3] = 0
+    runs = {
+        "solve": lambda f: tk.solve(f, 2, b, tail=5),
+        "solve_cached": lambda f: torch.cat([t.reshape(-1) for t in tk.solve_cached(f, 1, b2, 4)]),
+        "solve_resume": lambda f: tk.solve_resume(f, 0, b, *tk.solve_cached(f, 0, b2[..., 0], 3)[1:], 3),
+        "solve_support": lambda f: tk.solve_support(f, 1, b2, start=3, tail=6),
+        "solve_all": lambda f: tk.solve_all(f, [2, 0], torch.stack([b, b.flip(0)])),
+    }
+    want = runs[entry](dense)
+    _near(runs[entry](hybrid), want.numpy())

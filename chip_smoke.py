@@ -30,7 +30,14 @@ sweep again, on banded+tail pivots (``pivot_dtype="pallas_banded_tail"``, band
 width 201 by the w(n) rule), where every sweep direction is one launch of the
 fused sweep kernels and every other slab solve runs the hybrid substitution
 kernels; before it those four kernels on random factors and a 3-slab solve
-that holds the fused sweep against the per-slab one.  Each phase prints one
+that holds the fused sweep against the per-slab one.  The sixth path is the
+same 16-slab double sweep on int8 line pivots (``pivot_dtype="pallas_int8"``),
+whose slab solves run the int8 mode of the line kernels; before it those
+kernels on random int8 factors at r = 1, 2 and 3 and a 3-slab int8 solve on
+the card against the CPU.  The seventh is ``plasma2d.build_problem(
+use_pallas=True)`` with every other argument at its default (full pivots with
+bf16 kernel planes beside them), whose preconditioner applies run the stencil
+matvec kernel; before it that kernel on a random field.  Each phase prints one
 JSON line; any failed check raises, so the exit code is non-zero.  The last
 line is ``{"ok": true, "device": {...}}``.
 """
@@ -49,6 +56,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, subdomain3d, sweeps
 from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, media, plasma2d
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
+from fast_solver_lippmann_schwinger_tpu_torch.ops import stencil_kernels as stk
 from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
@@ -67,20 +75,32 @@ KERNEL_TOL = 1e-4              # of the max-norm; f32 summation order only
 JAX_TPU_ITERATIONS = 6         # recorded by the JAX package for either solve
 SOLVE_KW = dict(rtol=1e-6, restart=20, maxiter=12)
 
-WRAPPERS = {
-    "thomas_forward": tk.forward_substitution,
-    "thomas_forward_cached": tk.forward_substitution_cached,
-    "thomas_backward": tk.backward_substitution,
-    "plane_forward": pk.plane_forward,
-    "plane_backward": pk.plane_backward,
-    "plane_apply": pk.plane_apply_rows,
-    "sweep_down": sk.sweep_down,
-    "sweep_up": sk.sweep_up,
+# kernel -> (wrapper that launches it, key of the wrapper's ``launches`` by
+# pivot layout, or None where the wrapper has a single count)
+COUNTERS = {
+    "thomas_forward": (tk.forward_substitution, "bf16"),
+    "thomas_forward_cached": (tk.forward_substitution_cached, "bf16"),
+    "thomas_backward": (tk.backward_substitution, "bf16"),
+    "thomas_forward_int8": (tk.forward_substitution, "int8"),
+    "thomas_forward_cached_int8": (tk.forward_substitution_cached, "int8"),
+    "thomas_backward_int8": (tk.backward_substitution, "int8"),
+    "thomas_forward_ht": (tk.forward_substitution_cached, "ht"),
+    "thomas_backward_ht": (tk.backward_substitution, "ht"),
+    "plane_forward": (pk.plane_forward, "bf16"),
+    "plane_backward": (pk.plane_backward, "bf16"),
+    "plane_apply": (pk.plane_apply_rows, "bf16"),
+    "plane_forward_int8": (pk.plane_forward, "int8"),
+    "plane_backward_int8": (pk.plane_backward, "int8"),
+    "plane_apply_int8": (pk.plane_apply_rows, "int8"),
+    "sweep_down": (sk.sweep_down, None),
+    "sweep_up": (sk.sweep_up, None),
+    "stencil_matvec": (stk.stencil_matvec_2d, None),
 }
 _PORT = "fast_solver_lippmann_schwinger_tpu_torch/csrc/"
 _TPU = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_thomas.py"
 _TPU_PLANE = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_plane.py"
 _TPU_SWEEP = "fast_solver_lippmann_schwinger_tpu/sparse/pallas_sweep.py"
+_TPU_STENCIL = "fast_solver_lippmann_schwinger_tpu/ops/pallas_stencil.py"
 # kernel -> route, name in a trace, source, and the TPU kernel body it
 # replaces at r = 1 and at r = 2 (file:line)
 KERNEL_INFO = {
@@ -145,19 +165,31 @@ KERNEL_INFO = {
         route="cuda", kernel="sweep::up_kernel<R>", source=_PORT + "sweep_fused.cu",
         replaces={1: f"{_TPU_SWEEP}:157", 2: f"{_TPU_SWEEP}:157"},
     ),
+    # the int8 mode of rows 1-5: the nb > 1 branch of _scaled_dots
+    # (pallas_thomas.py:200-211) inside the same bodies
+    "thomas_forward_int8": dict(
+        route="cuda", kernel="thomas::pass_kernel<R, false, false, false, Storage::kInt8>",
+        source=_PORT + "thomas_fwd.cu", replaces={1: f"{_TPU}:610", 2: f"{_TPU}:610"},
+    ),
+    "thomas_forward_cached_int8": dict(
+        route="cuda", kernel="thomas::pass_kernel<R, false, true, false, Storage::kInt8>",
+        source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:221", 2: f"{_TPU}:546"},
+    ),
+    "thomas_backward_int8": dict(
+        route="cuda", kernel="thomas::pass_kernel<R, true, false, false, Storage::kInt8>",
+        source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:626", 2: f"{_TPU}:626"},
+    ),
+    "stencil_matvec": dict(
+        route="cuda", kernel="stencil::matvec_kernel", source=_PORT + "stencil_matvec.cu",
+        replaces={1: f"{_TPU_STENCIL}:75"},
+    ),
 }
 # the 2D kernels by pivot layout: dense planes, banded+tail, fused sweeps
 DENSE_2D = ("thomas_forward", "thomas_forward_cached", "thomas_backward")
 HT_PAIR = ("thomas_forward_ht", "thomas_backward_ht")
 SWEEP_PAIR = ("sweep_down", "sweep_up")
-# the plane wrappers count their launches on int8 planes apart
-INT8_COUNTS = {"plane_forward_int8": pk.plane_forward,
-               "plane_backward_int8": pk.plane_backward,
-               "plane_apply_int8": pk.plane_apply_rows}
-# the cached forward and the backward wrapper count their launches on
-# banded+tail pivots apart, and only there
-HT_COUNTS = {"thomas_forward_ht": tk.forward_substitution_cached,
-             "thomas_backward_ht": tk.backward_substitution}
+INT8_2D = ("thomas_forward_int8", "thomas_forward_cached_int8", "thomas_backward_int8")
+INT8_PLANE = ("plane_forward_int8", "plane_backward_int8", "plane_apply_int8")
 # on the sweeps' single-RHS path the backward kernel stands for _bwd_kernel
 SWEEP_BACKWARD_R1 = f"{_TPU}:241"
 
@@ -172,33 +204,33 @@ def check(cond: bool, what: str):
 
 
 def reset_counts():
-    for fn in WRAPPERS.values():
-        fn.launches = 0
-    for fn in INT8_COUNTS.values():
-        fn.launches_int8 = 0
-    for fn in HT_COUNTS.values():
-        fn.launches_ht = 0
+    for fn, key in COUNTERS.values():
+        if key is None:
+            fn.launches = 0
+        else:
+            fn.launches[key] = 0
 
 
 def read_counts() -> dict:
-    """Launches of each wrapper; ``plane_*`` count bf16 and int8 planes
-    together, ``plane_*_int8`` the int8 ones alone; ``thomas_*_ht`` count the
-    substitution kernels on banded+tail pivots, the other ``thomas_*`` those
-    on dense planes."""
-    counts = {name: fn.launches for name, fn in WRAPPERS.items()}
-    counts.update({name: fn.launches_int8 for name, fn in INT8_COUNTS.items()})
-    counts.update({name: fn.launches_ht for name, fn in HT_COUNTS.items()})
-    return counts
+    """Launches of each kernel (:data:`COUNTERS`): ``thomas_*`` on dense bf16
+    planes, ``thomas_*_int8`` on dense int8 planes, ``thomas_*_ht`` on
+    banded+tail pivots; ``plane_*`` on bf16 planes, ``plane_*_int8`` on int8
+    planes."""
+    return {name: fn.launches if key is None else fn.launches[key]
+            for name, (fn, key) in COUNTERS.items()}
 
 
-def timed_solves(fn, repeats: int = 3):
+def timed_solves(fn, repeats: int = 3, on_reset=None):
     """Run ``fn`` ``repeats`` times, each timed by CUDA events; the launch
-    counts are set to 0 just before the last run.  Returns the last result,
-    every run's milliseconds, and the last run's launch counts."""
+    counts are set to 0 just before the last run (and ``on_reset()`` called).
+    Returns the last result, every run's milliseconds, and the last run's
+    launch counts."""
     times = []
     for i in range(repeats):
         if i == repeats - 1:
             reset_counts()
+            if on_reset is not None:
+                on_reset()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -432,15 +464,17 @@ def phase_solve_batched(problem, name: str, path_kernels, repeats: int,
     return counts
 
 
-def pass_bound(lines: int, ld: int, r: int, stacks: int):
-    """Least time for ``lines`` lines of a substitution pass: two bf16 planes,
+def pass_bound(lines: int, n: int, ld: int, r: int, stacks: int):
+    """Least time for ``lines`` lines of a substitution pass: the n input rows
+    of two bf16 planes of ld output lanes (the kernels read no padding row),
     the band and ``stacks`` row stacks of 2r x ld floats per line (right-hand
     rows in, y/t/x rows out), plus the carry and the slab index, against the
-    card's memory rate; the products against its float32 rate."""
+    card's memory rate; the products of those entries against its float32
+    rate."""
     row = 2 * r * ld * 4
-    line_bytes = 2 * ld * ld * 2 + 2 * 3 * ld * 4 + stacks * row
+    line_bytes = 2 * n * ld * 2 + 2 * 3 * ld * 4 + stacks * row
     bytes_ms = 1e3 * (lines * line_bytes + row + 4) / PEAK_BYTES_PER_S
-    flops_ms = 1e3 * lines * 2 * (2 * (2 * r) * ld * ld) / PEAK_F32_FLOPS
+    flops_ms = 1e3 * lines * 2 * (2 * (2 * r) * n * ld) / PEAK_F32_FLOPS
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
@@ -510,7 +544,7 @@ def phase_kernel_times(problem, path_counts: dict) -> list:
         for name, (kernel, plain) in runs.items():
             kernels.append(kernel_entry(
                 name, r, path, path_counts[r][name], kernel, plain,
-                pass_bound(m, ld, r, stacks=2), library_ms,
+                pass_bound(m, n, ld, r, stacks=2), library_ms,
                 dict(B=1, S=1, m=m, n=n, ld=ld, r=r)))
     return kernels
 
@@ -595,24 +629,24 @@ def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) ->
                 "thomas_forward_cached", r, path, counts["thomas_forward_cached"],
                 lambda: tk.forward_substitution_cached(fac, s_idx, b4),
                 lambda: tk.forward_substitution_cached_plain(fac, s_idx, b4, zero),
-                pass_bound(m, ld, r, stacks=3), lib_full, shape),
+                pass_bound(m, n, ld, r, stacks=3), lib_full, shape),
             kernel_entry(
                 "thomas_forward_cached", r, path, counts["thomas_forward_cached"],
                 lambda: resumed(tk.forward_substitution_cached, out_k),
                 lambda: resumed(tk.forward_substitution_cached_plain, out_p),
-                pass_bound(tail, ld, r, stacks=3), lib_tail, dict(shape, start=j0),
+                pass_bound(tail, n, ld, r, stacks=3), lib_tail, dict(shape, start=j0),
                 variant="_resumed"),
             kernel_entry(
                 "thomas_backward", r, path, counts["thomas_backward"],
                 lambda: tk.backward_substitution(fac, s_idx, y4),
                 lambda: tk.backward_substitution_plain(fac, s_idx, y4),
-                pass_bound(m, ld, r, stacks=2), lib_full, shape,
+                pass_bound(m, n, ld, r, stacks=2), lib_full, shape,
                 variant="_slab", replaces=replaces_bwd),
             kernel_entry(
                 "thomas_backward", r, path, counts["thomas_backward"],
                 lambda: tk.backward_substitution(fac, s_idx, y4, tail=tail),
                 lambda: tk.backward_substitution_plain(fac, s_idx, y4, tail=tail),
-                pass_bound(tail, ld, r, stacks=2), lib_tail, dict(shape, tail=tail),
+                pass_bound(tail, n, ld, r, stacks=2), lib_tail, dict(shape, tail=tail),
                 variant="_slab_tail", replaces=replaces_bwd),
         ]
         # solve_resume against solve on the same right-hand side
@@ -632,7 +666,9 @@ def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) ->
     b4 = tk._to_rows_b(fac, subdomain.partition_source(slabs, pc.a_s.matvec(rhs)))
     y4 = tk.forward_substitution(fac, fac.slab_ids, b4)
     shape = dict(B=S, S=S, m=m, n=n, ld=ld, r=1)
-    bound = pass_bound(S * m, ld, 1, stacks=2)
+    bound = pass_bound(S * m, n, ld, 1, stacks=2)
+    # the same count of products of the same shapes, on one slab's planes
+    lib_all = library_pass_ms(b4[0, 0], dense_re, dense_im, list(range(m)) * S)
     runs = {
         "thomas_forward": (lambda: tk.forward_substitution(fac, fac.slab_ids, b4),
                            lambda: tk.forward_substitution_plain(fac, fac.slab_ids, b4)),
@@ -641,7 +677,7 @@ def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) ->
     }
     for name, (kernel, plain) in runs.items():
         kernels.append(kernel_entry(name, 1, "jacobi_sweep", jacobi_counts[name], kernel, plain,
-                                    bound, None, shape, variant="_all_slabs"))
+                                    bound, lib_all, shape, variant="_all_slabs"))
     return kernels
 
 # ---------------------------------------------------------------------------
@@ -992,7 +1028,7 @@ def phase_plane_kernels_int8(device):
          launches=counts)
     for name, err in worst.items():
         check(err <= KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain version ({err})")
-    check(all(counts[name] > 0 for name in INT8_COUNTS), f"the int8 kernels launched ({counts})")
+    check(all(counts[name] > 0 for name in INT8_PLANE), f"the int8 kernels launched ({counts})")
 
 
 def phase_small_reference_gs3d(device):
@@ -1698,24 +1734,426 @@ def phase_ht_kernel_times(problem, path_counts: dict, sweep_counts: dict) -> lis
         if r == 1:      # jacobi_sweep's solves of all slabs at once
             yall, _ = tk.forward_substitution_cached(fac, fac.slab_ids, b4s)
             counts = sweep_counts["jacobi_sweep"]
+            lib_all = library_ht_ms(fac, b4s[0, 0], all_lines, dense_re, dense_im)
             kernels += [
                 kernel_entry("thomas_forward_ht", r, "ht_jacobi_sweep",
                              counts["thomas_forward_ht"],
                              lambda: tk.forward_substitution_cached(fac, fac.slab_ids, b4s),
                              lambda: tk.forward_substitution_ht_plain(
                                  fac, fac.slab_ids, b4s, torch.zeros_like(b4s[:, 0])),
-                             ht_pass_bound(fac, r, lines, 3, batch=S), None,
+                             ht_pass_bound(fac, r, lines, 3, batch=S), lib_all,
                              dict(shape, B=S), variant="_all_slabs"),
                 kernel_entry("thomas_backward_ht", r, "ht_jacobi_sweep",
                              counts["thomas_backward_ht"],
                              lambda: tk.backward_substitution(fac, fac.slab_ids, yall),
                              lambda: tk.backward_substitution_ht_plain(fac, fac.slab_ids, yall),
-                             ht_pass_bound(fac, r, lines, 2, batch=S), None,
+                             ht_pass_bound(fac, r, lines, 2, batch=S), lib_all,
                              dict(shape, B=S), variant="_all_slabs"),
             ]
     del dense_re, dense_im
     torch.cuda.empty_cache()
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# Path 6: the 801^2, 16-slab double sweep on int8 line pivots
+# ---------------------------------------------------------------------------
+
+# RESULTS.md "Pivot-storage precision ladder": the JAX package's int8 line
+# pivots at this configuration take 11 and 11 outer iterations on its TPU (bf16
+# planes: 6 and 6); printed for information only
+JAX_INT8_ITERATIONS = 11
+# the one-slab kernel shapes of the int8 check: (S, m, lines resumed, tail)
+INT8_SLAB = (16, 70, 48, 22)
+
+
+def random_int8_factorization(rng, S: int, m: int, n: int, device) -> tk.ThomasFactorization:
+    """Contracting random factors (||C|| ||band|| < 1) quantized by the port's
+    own int8 packing, a chunk of lines at a time (bounds the temporaries)."""
+    ld = tk._round_up(n, tk.LEAD_MULTIPLE)
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+    tiles, nb = ld // tk.LEAD_MULTIPLE, tk.n_scale_blocks(ld)
+    q = [torch.empty((S, m, tiles, ld, tk.LEAD_MULTIPLE), dtype=torch.int8, device=device)
+         for _ in range(2)]
+    scale = torch.empty((S, m, tiles, nb, 2, tk.LEAD_MULTIPLE), device=device)
+    eye = torch.eye(n, device=device)
+    for s in range(S):
+        for j0 in range(0, m, 64):
+            j1 = min(j0 + 64, m)
+            parts = []
+            for k, diag in enumerate((0.2, 0.0)):
+                p = (0.1 / n ** 0.5) * torch.randn((j1 - j0, n, n), generator=g, device=device)
+                q[k][s, j0:j1], sc = tk.quantize_planes(p + diag * eye, ld)
+                parts.append(sc)
+            scale[s, j0:j1] = tk.tile_scales(*parts)
+    bands = [random_rows(rng, (S, m, 2, 3, ld), n, device) * 0.2 for _ in range(2)]
+    return tk.ThomasFactorization(q[0], q[1], bands[0], bands[1], n, scale=scale)
+
+
+def phase_int8_line_kernels(device):
+    """The three line kernels on int8 planes against their plain versions on
+    random factors at the path's shapes: S = 1, m = n = 801 (rows 1i-2i: the
+    forward pass from line 0 and from line 5, the backward pass full and over
+    the last 7 lines) and one slab among 16 of m = 70 (rows 3i-5i: the cached
+    forward pass in full and resumed at line 48, the backward pass in full and
+    over the last 22 lines), at r = 1, 2 and 3 (3 through the grouping, two
+    launches)."""
+    rng = np.random.default_rng(6)
+    worst = dict.fromkeys(INT8_2D, 0.0)
+    cases = []
+    reset_counts()
+    fac = random_int8_factorization(rng, 1, 801, 801, device)
+    s_idx = fac.slab_ids
+    for r in (1, 2, 3):
+        b4 = random_rows(rng, (1, 801, 2 * r, fac.ld), 801, device)
+        for start, tail in ((0, 0), (5, 7)):
+            y_k = tk.forward_substitution(fac, s_idx, b4, start=start)
+            x_k = tk.backward_substitution(fac, s_idx, y_k, tail=tail)
+            torch.cuda.synchronize()
+            _, e_f = rel_err(y_k, tk.forward_substitution_plain(fac, s_idx, b4, start))
+            _, e_b = rel_err(x_k, tk.backward_substitution_plain(fac, s_idx, y_k, tail))
+            check(bool(torch.isfinite(x_k).all()), "int8 kernel output is finite")
+            worst["thomas_forward_int8"] = max(worst["thomas_forward_int8"], e_f)
+            worst["thomas_backward_int8"] = max(worst["thomas_backward_int8"], e_b)
+            cases.append(dict(S=1, m=801, r=r, start=start, tail=tail, fwd=e_f, bwd=e_b))
+    del fac, b4, y_k, x_k
+    S, m, j0, tail = INT8_SLAB
+    fac = random_int8_factorization(rng, S, m, 801, device)
+    s_idx = fac.slab_ids[S // 2 : S // 2 + 1]
+    for r in (1, 2, 3):
+        b4 = random_rows(rng, (1, m, 2 * r, fac.ld), 801, device)
+        zero = torch.zeros_like(b4[:, 0])
+        y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4)
+        torch.cuda.synchronize()
+        y_p, t_p = tk.forward_substitution_cached_plain(fac, s_idx, b4, zero)
+        e_c = max(rel_err(y4, y_p)[1], rel_err(t4, t_p)[1])
+        b_up = b4.clone()
+        b_up[:, j0:] += y4[:, j0:].flip(1)
+        t_init = t4[:, j0 - 1].contiguous()
+        out_k, out_p = (y4.clone(), t4.clone()), (y4.clone(), t4.clone())
+        yr, tr = tk.forward_substitution_cached(fac, s_idx, b_up, t_init, start=j0, out=out_k)
+        torch.cuda.synchronize()
+        yr_p, tr_p = tk.forward_substitution_cached_plain(fac, s_idx, b_up, t_init, j0, out_p)
+        e_r = max(rel_err(yr[:, j0:], yr_p[:, j0:])[1], rel_err(tr[:, j0:], tr_p[:, j0:])[1])
+        e_b = 0.0
+        for tl in (0, tail):
+            x_k = tk.backward_substitution(fac, s_idx, y4, tail=tl)
+            torch.cuda.synchronize()
+            e_b = max(e_b, rel_err(x_k, tk.backward_substitution_plain(fac, s_idx, y4, tl))[1])
+        worst["thomas_forward_cached_int8"] = max(worst["thomas_forward_cached_int8"], e_c, e_r)
+        worst["thomas_backward_int8"] = max(worst["thomas_backward_int8"], e_b)
+        cases.append(dict(S=S, m=m, r=r, cached=e_c, resumed=e_r, start=j0, bwd=e_b, tail=tail))
+    counts = read_counts()
+    emit("int8_line_kernels", n=801, ld=fac.ld, scale_blocks=tk.n_scale_blocks(fac.ld),
+         tolerance=KERNEL_TOL, max_rel_err=worst, cases=cases, launches=counts)
+    for name, err in worst.items():
+        check(err <= KERNEL_TOL, f"{name} within {KERNEL_TOL} of its plain version ({err})")
+    check(all(counts[k] > 0 for k in INT8_2D) and not any(counts[k] for k in DENSE_2D),
+          f"the int8 kernels ran, and no bf16 line kernel ({counts})")
+    del fac
+    torch.cuda.empty_cache()
+
+
+def phase_small_reference_int8(device):
+    """The 3-slab, h = 1/40 double-sweep problem on int8 line pivots, set up on
+    the CPU and moved to the card: the solve on the card (the int8 kernels)
+    against the same solve on the CPU (plain versions) on the same planes, both
+    stopped at rtol 1e-5 (the float32 floor of this grid is near 1e-6)."""
+    kw = dict(rtol=1e-5, restart=20, maxiter=20)
+    p_cpu = plasma2d.build_problem(h=1 / 40, n_subdomains=3, npml=6, double_sweep=True,
+                                   pivot_dtype="pallas_int8", device="cpu")
+    p_card = move_to(p_cpu, device)
+    reset_counts()
+    x_k, i_k = plasma2d.solve(p_card, (1.0, 0.0), **kw)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    x_c, i_c = plasma2d.solve(p_cpu, (1.0, 0.0), **kw)
+    _, err = rel_err(x_k.cpu(), x_c)
+    emit("small_reference_int8", n=41, n_subdomains=3, rtol=kw["rtol"],
+         iterations=[int(i_k.n_iterations), int(i_c.n_iterations)],
+         true_residual=[float(i_k.true_residual), float(i_c.true_residual)],
+         rel_err_card_vs_cpu=err, tolerance=1e-4, launches=counts)
+    check(bool(i_k.converged) and bool(i_c.converged), "small int8 solves converged")
+    check(err <= 1e-4, f"card int8 solve within 1e-4 of the CPU one ({err})")
+    check(all(counts[k] > 0 for k in ("thomas_forward_cached_int8", "thomas_backward_int8"))
+          and not any(counts[k] for k in DENSE_2D), f"the int8 kernels ran ({counts})")
+
+
+def phase_int8_sweeps(problem) -> dict:
+    """``jacobi_sweep`` over both directions' slabs at r = 1 and 2 (the path
+    of rows 1i-2i: one batched launch over the 16 slabs per solve of all
+    slabs), a ``gs_sweep`` and an apply, with their times.  Returns the launch
+    counts by path."""
+    pc = problem.precond
+    counts, res = {}, {}
+    for r in (1, 2):
+        b, _ = sweep_rows(problem, r)
+        for name, slabs, vec in (("y", pc.slabs, b), ("x", pc.slabs_t, pc._transpose_flat(b))):
+            reset_counts()
+            u = sweeps.jacobi_sweep(slabs, vec)
+            torch.cuda.synchronize()
+            counts[f"jacobi_sweep_{name}_r{r}"] = read_counts()
+            check(bool(torch.isfinite(torch.view_as_real(u)).all()), "jacobi_sweep output is finite")
+    b, _ = sweep_rows(problem, 1)
+    for name, fn in (("gs_sweep", sweeps.gs_sweep), ("jacobi_sweep", sweeps.jacobi_sweep)):
+        res[name] = float(torch.linalg.vector_norm(pc.msp.matvec(fn(pc.slabs, b)) - b)
+                          / torch.linalg.vector_norm(b))
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
+    emit("int8_sweeps", n_subdomains=pc.slabs.n_subs, m1_max=pc.slabs.m1_max,
+         trace_tail=pc.slabs.trace_tail, storage=[pc.slabs.pfac.storage, pc.slabs_t.pfac.storage],
+         residual_of_msp=res,
+         gs_sweep_ms=time_ms(lambda: sweeps.gs_sweep(pc.slabs, b), 3),
+         jacobi_sweep_ms=time_ms(lambda: sweeps.jacobi_sweep(pc.slabs, b), 3),
+         apply_ms=time_ms(lambda: pc.apply(rhs), 3),
+         apply_enqueue_ms=enqueue_ms(lambda: pc.apply(rhs), 3), launches=counts)
+    for path, c in counts.items():
+        check(c["thomas_forward_int8"] > 0 and c["thomas_backward_int8"] > 0
+              and not any(c[k] for k in DENSE_2D + HT_PAIR + SWEEP_PAIR),
+              f"{path} ran the int8 pair and no other line kernel ({c})")
+    return counts
+
+
+def int8_pass_bound(lines: int, n: int, ld: int, r: int, stacks: int, batch: int = 1):
+    """Least time for ``lines`` lines of an int8 pass for ``batch`` rows of
+    distinct slabs: the n input rows of two int8 planes of ld output lanes
+    (the kernels read no padding row) and their scales, the band and
+    ``stacks`` row stacks per line, plus the carry, against the card's memory
+    rate; the products and the dequantization (one multiply per entry)
+    against its float32 rate."""
+    row = 2 * r * ld * 4
+    nb = tk.n_scale_blocks(ld)
+    line_bytes = 2 * n * ld + 2 * nb * ld * 4 + 2 * 3 * ld * 4 + stacks * row
+    nbytes = batch * (lines * line_bytes + row)
+    flops = batch * lines * (2 * 2 * (2 * r) * n * ld + 2 * n * ld)
+    return bound_of(nbytes, flops)
+
+
+def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict) -> list:
+    """Each int8 kernel on the solve's own planes and right-hand sides: at one
+    inner slab among 16 (m = 70), the cached forward pass in full and resumed
+    at ``m - trace_tail``, the backward pass in full and truncated to
+    ``trace_tail``, r = 1 (``int8_sweep_solve``) and r = 2
+    (``int8_sweep_solve_batched``); then the forward and backward passes at
+    one batch row per slab (``jacobi_sweep``'s solves of all slabs), r = 1
+    and 2.  The library yardstick is the bf16 ``torch.matmul`` of the same
+    rows with planes of the same shape."""
+    pc = problem.precond
+    slabs = pc.slabs
+    fac = slabs.pfac
+    S, m, n, ld, tail = fac.n_slabs, fac.m, fac.n, fac.ld, slabs.trace_tail
+    j0 = m - tail
+    slab = S // 2
+    s_idx = fac.slab_ids[slab : slab + 1]
+    dense_re = tk.dense_planes(fac.cinv_t_re[slab]).to(torch.bfloat16)
+    dense_im = tk.dense_planes(fac.cinv_t_im[slab]).to(torch.bfloat16)
+    kernels = []
+    for r, path in ((1, "int8_sweep_solve"), (2, "int8_sweep_solve_batched")):
+        _, b4s = sweep_rows(problem, r)
+        b4 = b4s[slab : slab + 1].contiguous()
+        y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4)
+        b4_up = b4.clone()
+        b4_up[:, j0:] += y4[:, j0:].flip(1)
+        t_init = t4[:, j0 - 1].contiguous()
+        zero = torch.zeros_like(t_init)
+        out_k, out_p = (y4.clone(), t4.clone()), (y4.clone(), t4.clone())
+
+        def resumed(fn, out):
+            y, t = fn(fac, s_idx, b4_up, t_init, start=j0, out=out)
+            return y[:, j0:], t[:, j0:]
+
+        shape = dict(B=1, S=S, slab=slab, m=m, n=n, ld=ld, r=r)
+        lib_full = library_pass_ms(b4[0, 0], dense_re, dense_im, range(m))
+        lib_tail = library_pass_ms(b4[0, 0], dense_re, dense_im, range(j0, m))
+        counts = path_counts[r]
+        replaces_bwd = SWEEP_BACKWARD_R1 if r == 1 else None
+        kernels += [
+            kernel_entry(
+                "thomas_forward_cached_int8", r, path, counts["thomas_forward_cached_int8"],
+                lambda: tk.forward_substitution_cached(fac, s_idx, b4),
+                lambda: tk.forward_substitution_cached_plain(fac, s_idx, b4, zero),
+                int8_pass_bound(m, n, ld, r, stacks=3), lib_full, shape),
+            kernel_entry(
+                "thomas_forward_cached_int8", r, path, counts["thomas_forward_cached_int8"],
+                lambda: resumed(tk.forward_substitution_cached, out_k),
+                lambda: resumed(tk.forward_substitution_cached_plain, out_p),
+                int8_pass_bound(tail, n, ld, r, stacks=3), lib_tail, dict(shape, start=j0),
+                variant="_resumed"),
+            kernel_entry(
+                "thomas_backward_int8", r, path, counts["thomas_backward_int8"],
+                lambda: tk.backward_substitution(fac, s_idx, y4),
+                lambda: tk.backward_substitution_plain(fac, s_idx, y4),
+                int8_pass_bound(m, n, ld, r, stacks=2), lib_full, shape,
+                variant="_slab", replaces=replaces_bwd),
+            kernel_entry(
+                "thomas_backward_int8", r, path, counts["thomas_backward_int8"],
+                lambda: tk.backward_substitution(fac, s_idx, y4, tail=tail),
+                lambda: tk.backward_substitution_plain(fac, s_idx, y4, tail=tail),
+                int8_pass_bound(tail, n, ld, r, stacks=2), lib_tail, dict(shape, tail=tail),
+                variant="_slab_tail", replaces=replaces_bwd),
+        ]
+        # the batched pair with one batch row per slab (jacobi_sweep's solve_all)
+        yall = tk.forward_substitution(fac, fac.slab_ids, b4s)
+        jc = jacobi_counts[f"jacobi_sweep_y_r{r}"]
+        shape_all = dict(B=S, S=S, m=m, n=n, ld=ld, r=r)
+        bound = int8_pass_bound(m, n, ld, r, stacks=2, batch=S)
+        # the same count of products of the same shapes, on one slab's planes
+        # (each slab's 70 lines of planes are 183 MB, past the L2 cache)
+        lib_all = library_pass_ms(b4[0, 0], dense_re, dense_im, list(range(m)) * S)
+        kernels += [
+            kernel_entry("thomas_forward_int8", r, f"int8_jacobi_sweep_r{r}",
+                         jc["thomas_forward_int8"],
+                         lambda: tk.forward_substitution(fac, fac.slab_ids, b4s),
+                         lambda: tk.forward_substitution_plain(fac, fac.slab_ids, b4s),
+                         bound, lib_all, shape_all),
+            kernel_entry("thomas_backward_int8", r, f"int8_jacobi_sweep_r{r}",
+                         jc["thomas_backward_int8"],
+                         lambda: tk.backward_substitution(fac, fac.slab_ids, yall),
+                         lambda: tk.backward_substitution_plain(fac, fac.slab_ids, yall),
+                         bound, lib_all, shape_all),
+        ]
+    del dense_re, dense_im
+    torch.cuda.empty_cache()
+    return kernels
+
+
+# ---------------------------------------------------------------------------
+# Path 7: build_problem(use_pallas=True), the stencil matvec kernel
+# ---------------------------------------------------------------------------
+
+# path 2 (dense bf16 planes, the same sweeps): 6 iterations (PERF.md)
+PATH2_ITERATIONS = 6
+
+
+def stencil_bound(m: int, n: int):
+    """The field (9 complex64 a node), u and y (one complex64 a node each),
+    each once, against the card's memory rate; 9 complex multiply-adds a
+    node against its float32 rate."""
+    return bound_of(m * n * (72 + 8 + 8), m * n * 9 * 8)
+
+
+def stencil_csr(values: torch.Tensor) -> torch.Tensor:
+    """The assembled (mn, mn) sparse CSR matrix of a (m, n, 3, 3) complex64
+    stencil field (taps that leave the grid dropped), for the library
+    yardstick; never used by the port."""
+    m, n = values.shape[:2]
+    dev = values.device
+    j = torch.arange(m, device=dev)[:, None].expand(m, n)
+    i = torch.arange(n, device=dev)[None, :].expand(m, n)
+    rows, cols, vals = [], [], []
+    for dj in range(3):
+        for di in range(3):
+            jj, ii = j + dj - 1, i + di - 1
+            keep = (jj >= 0) & (jj < m) & (ii >= 0) & (ii < n)
+            rows.append((j * n + i)[keep])
+            cols.append((jj * n + ii)[keep])
+            vals.append(values[:, :, dj, di][keep])
+    coo = torch.sparse_coo_tensor(torch.stack([torch.cat(rows), torch.cat(cols)]),
+                                  torch.cat(vals).to(torch.complex64), (m * n, m * n))
+    return coo.coalesce().to_sparse_csr()
+
+
+def stencil_entry(values, u, path: str, launches: int) -> dict:
+    """The stencil kernel held against its plain version on ``values`` and
+    ``u``, both timed, with the bound and the cuSPARSE CSR matvec of the same
+    matrix as the library yardstick."""
+    m, n = values.shape[:2]
+    csr = stencil_csr(values)
+    u_col = u.reshape(-1, 1).to(torch.complex64)
+    library_ms = time_ms(lambda: csr @ u_col, 20)
+    # the same matrix: the sums cancel (|S u| is far below |S| |u| for the
+    # annihilator stencils), so two summation orders differ near 2e-5
+    _, err = rel_err((csr @ u_col).reshape(-1), stk.stencil_matvec_2d_plain(values, u).reshape(-1))
+    check(err <= KERNEL_TOL, f"the CSR yardstick computes the same matvec ({err})")
+    del csr
+    return kernel_entry("stencil_matvec", 1, path, launches,
+                        lambda: stk.stencil_matvec_2d(values, u),
+                        lambda: stk.stencil_matvec_2d_plain(values, u),
+                        stencil_bound(m, n), library_ms, dict(m=m, n=n, dtype=str(values.dtype)))
+
+
+def phase_stencil_kernel(device):
+    """The stencil kernel against its plain version on a random complex64
+    field and u at 801^2, and on a complex128 one (computed in complex64,
+    returned in complex128)."""
+    g = torch.Generator(device=device).manual_seed(13)
+    out = {}
+    for dtype in (torch.complex64, torch.complex128):
+        values = torch.randn((801, 801, 3, 3), dtype=dtype, generator=g, device=device)
+        u = torch.randn((801 * 801,), dtype=dtype, generator=g, device=device)
+        got = stk.stencil_matvec_2d(values, u)
+        torch.cuda.synchronize()
+        _, err = rel_err(got, stk.stencil_matvec_2d_plain(values, u))
+        check(got.dtype == dtype and tuple(got.shape) == (801 * 801,), "stencil output shape")
+        check(err <= KERNEL_TOL, f"stencil kernel within {KERNEL_TOL} ({dtype}: {err})")
+        out[str(dtype)] = dict(max_rel_err=err, ms=time_ms(lambda: stk.stencil_matvec_2d(values, u), 20))
+    emit("stencil_kernel", m=801, n=801, tolerance=KERNEL_TOL, cases=out,
+         bound_ms=stencil_bound(801, 801)[0])
+
+
+class CountingPreconditioner:
+    """A preconditioner that counts its single-RHS applies."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.applies = 0
+
+    def apply(self, b):
+        self.applies += int(b.ndim == 1)
+        return self.inner.apply(b)
+
+    def apply_batch(self, b):
+        return self.inner.apply_batch(b)
+
+
+def phase_pallas_stencil_solve(device, repeats: int = 3) -> list:
+    """``plasma2d.build_problem(use_pallas=True)`` with every other argument
+    at its default (h = 1/800, 16 slabs, the double sweep, full pivots with
+    bf16 kernel planes attached to both directions), and ``solve`` on it: the
+    stencil kernel must launch once per single-RHS preconditioner apply, the
+    dense bf16 line kernels must run, nothing else.  Returns the stencil
+    kernel's entry, on the solve's own field."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = plasma2d.build_problem(use_pallas=True, device=device)
+    setup_s = time.perf_counter() - t0
+    pc = problem.precond
+    check(pc.a_s.use_pallas and not pc.msp.use_pallas, "the flag is on a_s only")
+    check(all(sl.pfac.storage == "bf16" and sl.fac.cinv.shape[-1] == sl.n
+              for sl in (pc.slabs, pc.slabs_t)), "full pivots with bf16 planes beside them")
+    counting = CountingPreconditioner(pc)
+    cproblem = dataclasses.replace(problem, precond=counting)
+
+    def reset_applies():
+        counting.applies = 0
+
+    plasma2d.solve(cproblem, (1.0, 0.0), **SOLVE_KW)          # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(
+        lambda: plasma2d.solve(cproblem, (1.0, 0.0), **SOLVE_KW), repeats, reset_applies)
+    n_it = int(info.n_iterations)
+    emit("pallas_stencil_solve", grid=[problem.grid.m, problem.grid.n], k=problem.k,
+         n_subdomains=pc.slabs.n_subs, pivot_dtype="full", use_pallas=True,
+         setup_seconds=problem.setup_seconds, setup_total_seconds=setup_s,
+         solve_ms=sorted(times)[len(times) // 2], solve_ms_runs=times, iterations=n_it,
+         path2_iterations=PATH2_ITERATIONS, converged=bool(info.converged),
+         residuals=[float(v) for v in info.residuals[: n_it + 1]],
+         true_residual=float(info.true_residual), single_rhs_applies=counting.applies,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts)
+    check(tuple(x.shape) == (problem.grid.size,), "solution shape")
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), "solution is finite")
+    check(bool(info.converged), "801^2 use_pallas solve converged")
+    check(float(info.true_residual) <= 1e-3, "true residual <= 1e-3")
+    check(counting.applies > 0 and counts["stencil_matvec"] == counting.applies,
+          f"one stencil launch per single-RHS apply ({counts['stencil_matvec']} against "
+          f"{counting.applies})")
+    check(all(counts[k] > 0 for k in ("thomas_forward_cached", "thomas_backward"))
+          and not any(counts[k] for k in INT8_2D + HT_PAIR + SWEEP_PAIR),
+          f"the sweeps ran the dense bf16 kernels only ({counts})")
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
+    entry = stencil_entry(pc.a_s.values, rhs, "pallas_stencil_solve", counts["stencil_matvec"])
+    del problem, cproblem, counting, pc
+    torch.cuda.empty_cache()
+    return [entry]
 
 
 def main() -> int:
@@ -1782,6 +2220,28 @@ def main() -> int:
                                          absent=HT_PAIR + DENSE_2D)
     sweep_counts = phase_ht_sweeps(problem)
     kernels += phase_ht_kernel_times(problem, {1: counts, 2: counts_batched}, sweep_counts)
+    del problem
+    torch.cuda.empty_cache()
+
+    # path 6: 16 slabs, double sweep, int8 line pivots: every local solve runs
+    # the int8 mode of the line kernels
+    phase_int8_line_kernels(device)
+    phase_small_reference_int8(device)
+    pair = ("thomas_forward_cached_int8", "thomas_backward_int8")
+    absent = DENSE_2D + HT_PAIR + SWEEP_PAIR
+    problem, counts = phase_solve(device, "int8_sweep_solve", 16, True, pair, repeats=3,
+                                  pivot_dtype="pallas_int8",
+                                  jax_iterations=JAX_INT8_ITERATIONS, absent=absent)
+    counts_batched = phase_solve_batched(problem, "int8_sweep_solve_batched", pair, repeats=3,
+                                         jax_iterations=JAX_INT8_ITERATIONS, absent=absent)
+    jacobi_counts = phase_int8_sweeps(problem)
+    kernels += phase_int8_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts)
+    del problem
+    torch.cuda.empty_cache()
+
+    # path 7: build_problem(use_pallas=True): the stencil matvec kernel
+    phase_stencil_kernel(device)
+    kernels += phase_pallas_stencil_solve(device)
 
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

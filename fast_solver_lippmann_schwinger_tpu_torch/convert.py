@@ -37,6 +37,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.precond.sparsifying import (
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     BlockTridiagFactorization,
+    BlockTridiagFactorizationBF16,
     BlockTridiagFactorization3D,
     BlockTridiagFactorization3DBF16,
     BlockTridiagFactorization3DInt8,
@@ -56,7 +57,9 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
     BandedTailFactorization,
     ThomasFactorization,
     _round_up,
+    n_scale_blocks,
     tile_planes,
+    tile_scales,
 )
 
 
@@ -95,6 +98,19 @@ def block_tridiag_factorization(cinv, lband, uband,
     )
 
 
+def block_tridiag_factorization_bf16(cinv_re, cinv_im, lband, uband,
+                                     device=None) -> BlockTridiagFactorizationBF16:
+    """bf16-plane factorization (``pivot_dtype="bf16"``) from the JAX one's
+    fields: ``cinv_re``/``cinv_im`` as uint16 bit patterns, the bands
+    complex; leading slab axes are kept as they are."""
+    device = resolve_device(device)
+    dtype = _complex_dtype(lband)
+    return BlockTridiagFactorizationBF16(
+        cinv_re=_bf16(cinv_re).to(device), cinv_im=_bf16(cinv_im).to(device),
+        lband=to_tensor(lband, dtype, device), uband=to_tensor(uband, dtype, device),
+    )
+
+
 def _bf16(bits: np.ndarray) -> torch.Tensor:
     """uint16 bf16 bit patterns -> a bfloat16 tensor of the same values."""
     bits = np.asarray(bits)
@@ -114,27 +130,36 @@ def _bf16_planes(bits: np.ndarray, n: int, ld: int, device) -> torch.Tensor:
     return tile_planes(F.pad(t, (0, ld - n, 0, ld - n))).to(device)
 
 
-def _bf16_scales_only(scale):
-    scale = np.asarray(scale)
-    if scale.shape[-2] != 1 or not np.all(scale == 1.0):
-        raise NotImplementedError(
-            "int8 line pivots (pivot_dtype='pallas_int8') are not ported yet "
-            "(ROADMAP.md, Queue 2 item 8)"
-        )
+def _int8_line_planes(q, scale, part: int, n: int, ld: int):
+    """(S, m, np, np) int8 planes ``[i_in, o_out]`` and their (S, m, 2, nb,
+    np) scales -> the port's tile-major int8 planes (S, m, ld/8, ld, 8) and
+    the part's scales (S, m, nb, ld), cropped from the 128-lane padding."""
+    q = np.asarray(q)
+    if q.dtype != np.int8:
+        raise TypeError(f"int8 planes arrive as int8 arrays, got {q.dtype}")
+    if np.any(q[..., n:, :]) or np.any(q[..., :, n:]):
+        raise ValueError("padding entries of the pivot planes must be zero")
+    sc = np.asarray(scale, np.float32)[:, :, part, :, :ld]
+    if sc.shape[-2] != n_scale_blocks(ld):
+        raise ValueError(f"int8 scales {np.shape(scale)} do not fit n = {n}")
+    planes = tile_planes(torch.from_numpy(np.ascontiguousarray(q[..., :ld, :ld])))
+    return planes, torch.from_numpy(np.ascontiguousarray(sc))
 
 
 def thomas_factorization(cinv_t_re, cinv_t_im, lband, uband, scale, n,
                          device=None) -> ThomasFactorization:
-    """The bf16 kernel layout from a ``PallasFactorization``'s fields.
+    """The kernel layout from a ``PallasFactorization``'s fields, bf16 or
+    int8.
 
-    ``cinv_t_re``/``cinv_t_im`` are uint16 bit patterns of the (S, m, np, np)
-    bf16 planes with ``np = round_up(n, 128)``; bands are (S, m, 2, 3, np)
-    float32.  The planes come out in the port's own tile-major layout.
-    ``scale`` must be the all-ones (nb = 1) scales of bf16
-    storage: int8 storage is not ported yet.
+    bf16: ``cinv_t_re``/``cinv_t_im`` are uint16 bit patterns of the
+    (S, m, np, np) planes with ``np = round_up(n, 128)``, and ``scale`` the
+    all-ones (nb = 1) scales of bf16 storage.  int8: the planes are int8
+    arrays and ``scale`` the (S, m, 2, nb, np) float32 scales.  Bands are
+    (S, m, 2, 3, np) float32.  The planes (and scales) come out in the port's
+    own tile-major layout at ``ld = round_up(n, 8)``, cropped from the
+    128-lane padding.
     """
     device = resolve_device(device)
-    _bf16_scales_only(scale)
     n = int(n)
     ld = _round_up(n, LEAD_MULTIPLE)
 
@@ -142,6 +167,17 @@ def thomas_factorization(cinv_t_re, cinv_t_im, lband, uband, scale, n,
         t = torch.from_numpy(np.ascontiguousarray(np.asarray(b, np.float32)[..., :n]))
         return F.pad(t, (0, ld - n)).contiguous().to(device)
 
+    if np.asarray(cinv_t_re).dtype == np.int8:
+        (pre, sre), (pim, sim) = (_int8_line_planes(q, scale, k, n, ld)
+                                  for k, q in enumerate((cinv_t_re, cinv_t_im)))
+        return ThomasFactorization(
+            cinv_t_re=pre.to(device), cinv_t_im=pim.to(device),
+            lband=band(lband), uband=band(uband), n=n,
+            scale=tile_scales(sre, sim).to(device),
+        )
+    scale = np.asarray(scale)
+    if scale.shape[-2] != 1 or not np.all(scale == 1.0):
+        raise ValueError("bf16 planes carry all-ones scales")
     return ThomasFactorization(
         cinv_t_re=_bf16_planes(cinv_t_re, n, ld, device),
         cinv_t_im=_bf16_planes(cinv_t_im, n, ld, device),
@@ -200,14 +236,18 @@ def slab_system(fields: dict, fac: BlockTridiagFactorization | None = None,
 
     ``fac`` and ``pfac`` are either converted separately and passed in, or
     ride in the dict: ``fields["fac"]`` a dict of the arguments of
-    :func:`block_tridiag_factorization` (``cinv``, ``lband``, ``uband``) and
-    ``fields["pfac"]`` ``None`` or a dict of those of
-    :func:`thomas_factorization` or, for the banded+tail layout (a dict with
-    ``head_re``), of :func:`banded_tail_factorization`.
+    :func:`block_tridiag_factorization` (``cinv``, ``lband``, ``uband``) or,
+    for bf16 pivots (a dict with ``cinv_re``), of
+    :func:`block_tridiag_factorization_bf16`, and ``fields["pfac"]`` ``None``
+    or a dict of those of :func:`thomas_factorization` (bf16 or int8) or, for
+    the banded+tail layout (a dict with ``head_re``), of
+    :func:`banded_tail_factorization`.
     """
     device = resolve_device(device)
     if fac is None:
-        fac = block_tridiag_factorization(**fields["fac"], device=device)
+        make_fac = (block_tridiag_factorization_bf16 if "cinv_re" in fields["fac"]
+                    else block_tridiag_factorization)
+        fac = make_fac(**fields["fac"], device=device)
         p = fields.get("pfac")
         if p is not None:
             make = banded_tail_factorization if "head_re" in p else thomas_factorization

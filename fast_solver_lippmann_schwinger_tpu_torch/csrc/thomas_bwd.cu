@@ -14,7 +14,8 @@
 // line; banded+tail pivots (tail_start > 0) apply the dense plane of line j
 // (j >= tail_start, index j - tail_start) or its banded head window (hre, him;
 // j < tail_start).  The two layouts are thomas::pass_kernel<R, true, false>
-// and pass_kernel<R, true, false, true>, instantiations of the body in
+// and pass_kernel<R, true, false, true>, and dense int8 planes (scale given)
+// pass_kernel<R, true, false, false, Storage::kInt8>, instantiations of the body in
 // thomas_line.cuh, which also describes the design (one cooperative launch
 // per pass, grid barrier per line, 8-lane tiles, staged plane columns), the
 // limits (r <= 2) and the bound.  The carry needs no scratch here: x_{j+1} is
@@ -33,8 +34,9 @@ extern "C" int thomas_backward(
     const float* uband,      // (S, m, 2, 3, ld)
     const uint16_t* hre,     // (S, tail_start, ld/8, 8 + 2 half, 8) bf16 head windows
     const uint16_t* him,     //   (banded+tail only)
-    const uint16_t* tre,     // (S, m - tail_start, ld/8, ld, 8) bf16 planes, tile-major
-    const uint16_t* tim,
+    const void* tre,         // (S, m - tail_start, ld/8, ld, 8) bf16 planes, tile-major,
+    const void* tim,         //   or dense int8 planes (S, m, ld/8, ld, 8)
+    const float* scale,      // int8: (S, m, ld/8, nb, 2, 8) scales; else null
     const int* s_idx,        // (B,)
     float* x,                // (B, m_eff, 2r, ld): lines m-m_eff .. m-1
     int batch, int m, int n, int ld, int r, int m_eff, int tail_start, int half,
@@ -45,6 +47,7 @@ extern "C" int thomas_backward(
   a.band = uband;
   a.cre = tre;
   a.cim = tim;
+  a.scale = scale;
   a.hre = hre;
   a.him = him;
   a.s_idx = s_idx;

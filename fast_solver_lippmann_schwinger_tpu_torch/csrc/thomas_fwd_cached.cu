@@ -25,7 +25,9 @@
 // other in mid-pass and its carry goes on as it is, and the cp.async
 // look-ahead stages whichever layout the next line has.  The two layouts are
 // two instantiations, thomas::pass_kernel<R, false, true> and
-// pass_kernel<R, false, true, true>, so a trace names them apart.  The body
+// pass_kernel<R, false, true, true>, so a trace names them apart.  Dense int8
+// planes (scale given: the TPU kernels' nb > 1 branch of _scaled_dots) are
+// pass_kernel<R, false, true, false, Storage::kInt8>.  The body
 // is in thomas_line.cuh, which describes the design (one cooperative launch
 // per pass, grid barrier per line, 8-lane tiles, staged plane columns: a head
 // tile stages only the rows of its window that lie in [0, n)), the limits
@@ -46,8 +48,9 @@ extern "C" int thomas_forward_cached(
     const float* lband,      // (S, m, 2, 3, ld)
     const uint16_t* hre,     // (S, tail_start, ld/8, 8 + 2 half, 8) bf16 head windows
     const uint16_t* him,     //   (banded+tail only)
-    const uint16_t* tre,     // (S, m - tail_start, ld/8, ld, 8) bf16 planes, tile-major
-    const uint16_t* tim,
+    const void* tre,         // (S, m - tail_start, ld/8, ld, 8) bf16 planes, tile-major,
+    const void* tim,         //   or dense int8 planes (S, m, ld/8, ld, 8)
+    const float* scale,      // int8: (S, m, ld/8, nb, 2, 8) scales; else null
     const int* s_idx,        // (B,)
     const float* t_init,     // (B, 2r, ld) carry into line `start`
     float* y,                // (B, m, 2r, ld); lines < start are not touched
@@ -60,6 +63,7 @@ extern "C" int thomas_forward_cached(
   a.band = lband;
   a.cre = tre;
   a.cim = tim;
+  a.scale = scale;
   a.hre = hre;
   a.him = him;
   a.s_idx = s_idx;

@@ -6,6 +6,8 @@
 //     pass_kernel<R, false, true,  true>    the cached forward    thomas_fwd_cached.cu
 //     pass_kernel<R, true,  false, true>      and backward passes   thomas_bwd.cu
 //                                             on banded+tail pivots
+//     pass_kernel<R, ..., false, kInt8>     the three dense passes  (the same files)
+//                                             on int8 pivot planes
 //     sweep::down_kernel<R>, up_kernel<R>   whole Gauss-Seidel    sweep_fused.cu
 //                                           sweep directions
 //
@@ -14,9 +16,9 @@
 // and in where each step's operands come from and go to.  So the step is one
 // device routine here, run_steps, and a kernel is a small "step map" that
 // tells it, for each of a block's work items, where the operands are (a
-// Tile).  Direction, caching and the pivot layout are template parameters, so
-// that each kernel is a kernel of its own (and has its own name in a
-// profiler's trace).
+// Tile).  Direction, caching, the pivot layout and the pivot storage (bf16,
+// or int8 with f32 scales) are template parameters, so that each kernel is a
+// kernel of its own (and has its own name in a profiler's trace).
 //
 // Per line j and batch row b (slab s) a step computes
 //
@@ -41,7 +43,10 @@
 //   banded head    head[s, j, t, v, l]       = Cinv^T[8 t - half + v, 8 t + l],
 //                  v < wt = 8 + 2 half: the window of input rows that reach the
 //                  tile when |in - out| <= half (rows outside [0, n) are zero
-//                  and are neither copied nor multiplied).
+//                  and are neither copied nor multiplied);
+//   int8 planes    the dense layout in int8, 8 bytes a row, with the scales
+//                  scale[s, j, t, b, part, l] (part 0 real, 1 imaginary) of
+//                  input block b = i_in / 128 and output lane 8 t + l.
 // In the banded+tail layout lines j < tail_start keep a head window and lines
 // j >= tail_start a dense plane (tail[s, j - tail_start]).  The step only sees
 // which input rows a tile's columns cover (Cols: rows i0 .. i0+cnt-1), so the
@@ -74,15 +79,37 @@
 // copy issued one item ahead would overtake its writing.  Rows written two or
 // more barriers back are staged ahead like the rest.
 //
-// Limits.  r = 1 or 2 right-hand sides per launch, and a line whose rows and
-// plane buffers fit in one block's shared memory (64 n bytes of planes plus
-// the rows: n up to about 1700 at r = 2 on an H100 for the passes, about 1300
-// for the sweep kernels, which also keep the injection's band and trace).
-// Anything else is refused with cudaErrorInvalidValue before a launch.
+// int8 planes (the JAX package's pallas_thomas.py:_scaled_dots, nb > 1).
+// Quantization as there: per 128-row input block and output lane, scale =
+// absmax / 127 and q = round(c / scale) clipped to +-127.  The planes keep the
+// dense tile-major layout at the same ld = round_up(n, 8) as bf16 (the last
+// scale block is partial; past row n it holds zeros, as the JAX package's
+// 128-lane padding does, so the scales are the same numbers), so rows, bands
+// and carries are shared with bf16 and a line's planes are 2 x ld^2 bytes
+// (1.31 MB at n = 801, against 1.61 MB at the 3D convention's ld = 896).  A
+// tile stages n rows of 8 bytes and its nb = ld / 128 (rounded up) x 2 x 8
+// scales in the same cp.async group.  A thread walks input rows tid,
+// tid + 128, ...: with 128 threads its k-th row lies in block k, so the 2 x 8
+// scales of an iteration are one broadcast read of shared memory.  Each entry
+// is dequantized before its product, as plane_pass.cuh does (the JAX kernel
+// scales each block's partial sum instead: the two differ in f32 rounding
+// only).  The bytes become floats by the byte-permute trick of
+// plane_pass.cuh (design note 4 there).  Banded+tail pivots and the fused
+// sweeps stay bf16 only, as in the JAX package.
+//
+// Limits.  r = 1 or 2 right-hand sides per launch (the wrappers run wider
+// batches as groups of at most two), and a line whose rows and plane buffers
+// fit in one block's shared memory (64 n bytes of bf16 planes, about 32 n of
+// int8 ones, plus the rows: n up to 1704 in bf16 and 2200 in int8 at r = 2 on
+// an H100 for the passes, about 1300 for the sweep kernels, which also keep
+// the injection's band and trace; measured by the card-only test
+// test_longest_line_fits).  Anything else is refused with
+// cudaErrorInvalidValue before a launch.
 //
 // Bound: bytes.  A dense line must read its two planes once, 2 x ld^2 x 2 B
 // (2.6 MB at n = 801, ld = 808), which the card's 3.35 TB/s moves in 0.78 us;
-// a head line its two windows, 2 x ld x wt x 2 B (0.67 MB at half = 100).  The
+// an int8 line 2 x ld^2 B plus its scales (1.31 MB, 0.39 us); a head line its
+// two windows, 2 x ld x wt x 2 B (0.67 MB at half = 100).  The
 // arithmetic (2 x 2r x 2 x rows x ld flop) is far below the f32 rate.  Each
 // plane byte is read exactly once per pass and serves all r right-hand sides.
 #pragma once
@@ -100,6 +127,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kLanes = 8;              // output lanes per tile (16 B of bf16)
 constexpr int kMaxRhs = 2;             // right-hand sides per launch
 constexpr int kCarryBatch = 8;         // float4 carry loads in flight per thread
+constexpr int kScaleBlock = 128;       // input rows per int8 scale
+static_assert(kThreads == kScaleBlock, "a thread's k-th input row lies in int8 block k");
+
+enum class Storage : int { kBf16 = 0, kInt8 = 1 };
 
 // Timing by ablation (benchmarks_torch/thomas_ablation.py): a build with
 // -DTHOMAS_ABLATE=<mask> leaves single phases of a line out.  Its results are
@@ -125,16 +156,30 @@ __device__ __forceinline__ void widen_bf16x8(const uint4 v, float* f) {
   f[7] = __uint_as_float(v.w & 0xffff0000u);
 }
 
+// 8 int8 values -> floats: (q ^ 0x80) = q + 128 as an unsigned byte, placed
+// in the low mantissa bits of 2^23 by one byte-permute; subtracting 2^23 + 128
+// leaves q exactly (plane_pass.cuh, design note 4)
+__device__ __forceinline__ void widen_s8x8(const uint2 v, float* f) {
+  const unsigned a = v.x ^ 0x80808080u, b = v.y ^ 0x80808080u;
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    f[k] = __uint_as_float(__byte_perm(a, 0x4B000000u, 0x7650u | k)) - 8388736.f;
+    f[4 + k] = __uint_as_float(__byte_perm(b, 0x4B000000u, 0x7650u | k)) - 8388736.f;
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
   const unsigned dst = (unsigned)__cvta_generic_to_shared(smem_dst);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
 
 // The pivot columns of one tile of one line: input rows i0 .. i0+cnt-1, one
-// run of 8 bf16 (16 B) per row, real and imaginary plane.
+// run of 8 values per row (16 B of bf16, 8 B of int8), real and imaginary
+// plane, and for int8 the tile's scales (nb x 2 x 8 floats; i0 = 0).
 struct Cols {
-  const uint16_t* re;
-  const uint16_t* im;
+  const unsigned char* re;
+  const unsigned char* im;
+  const float* scale;
   int i0, cnt;
 };
 
@@ -142,12 +187,13 @@ struct Cols {
 // keep a dense plane, index j - tail_start in (cre, cim), of S x (m -
 // tail_start) planes; lines j < tail_start a head window in (hre, him), of S x
 // tail_start windows.  The dense layout is tail_start = 0.
-__device__ __forceinline__ Cols tile_cols(const uint16_t* cre, const uint16_t* cim,
+__device__ __forceinline__ Cols tile_cols(const void* cre, const void* cim,
                                           const uint16_t* hre, const uint16_t* him,
                                           int s, int j, int t, int m, int n, int ld,
                                           int tail_start, int half) {
   const int tiles = ld / kLanes;
   Cols c;
+  c.scale = nullptr;
   if (j < tail_start) {
     const int lo = t * kLanes - half;                // window row 0
     const int hi = t * kLanes + kLanes + half;       // one past the last
@@ -155,16 +201,33 @@ __device__ __forceinline__ Cols tile_cols(const uint16_t* cre, const uint16_t* c
     c.cnt = (hi < n ? hi : n) - c.i0;
     const size_t off = ((((size_t)s * tail_start + j) * tiles + t) * (kLanes + 2 * half) +
                         (c.i0 - lo)) * kLanes;
-    c.re = hre + off;
-    c.im = him + off;
+    c.re = reinterpret_cast<const unsigned char*>(hre + off);
+    c.im = reinterpret_cast<const unsigned char*>(him + off);
   } else {
     const size_t off =
         (((size_t)s * (m - tail_start) + (j - tail_start)) * tiles + t) * (size_t)ld * kLanes;
-    c.re = cre + off;
-    c.im = cim + off;
+    c.re = static_cast<const unsigned char*>(cre) + 2 * off;
+    c.im = static_cast<const unsigned char*>(cim) + 2 * off;
     c.i0 = 0;
     c.cnt = n;
   }
+  return c;
+}
+
+// Where tile t of line j of slab s has its columns in int8 planes (S x m
+// dense planes, nb scale blocks of 128 input rows)
+__device__ __forceinline__ Cols tile_cols_int8(const void* cre, const void* cim,
+                                               const float* scale, int s, int j, int t, int m,
+                                               int n, int ld) {
+  const int tiles = ld / kLanes;
+  const int nb = (ld + kScaleBlock - 1) / kScaleBlock;
+  const size_t tile = ((size_t)s * m + j) * tiles + t;
+  Cols c;
+  c.re = static_cast<const unsigned char*>(cre) + tile * ld * kLanes;
+  c.im = static_cast<const unsigned char*>(cim) + tile * ld * kLanes;
+  c.scale = scale + tile * nb * 2 * kLanes;
+  c.i0 = 0;
+  c.cnt = n;
   return c;
 }
 
@@ -197,14 +260,28 @@ __device__ __forceinline__ Tile plain_tile(int o0, int step) {
   return tl;
 }
 
-// Shared memory of one block: the plane buffers (two buffers x two planes x n
-// rows of 16 bytes), then float rows.  Rows are ld floats wide; the carry and
-// trace rows have 4 zero floats on either side so that lanes -1 and ld read as
-// zero and float4 stores stay aligned.  kInject adds the injection's band and
-// trace.
-template <int R, bool kInject>
+// Bytes of one staged plane buffer: n rows of 16 bytes (bf16), or n rows of 8
+// bytes rounded up to whole 16-byte copies (int8)
+template <Storage S>
+__host__ __device__ constexpr size_t plane_buf_bytes(int n) {
+  return S == Storage::kInt8 ? (size_t)16 * ((n + 1) / 2) : (size_t)16 * n;
+}
+
+// Bytes of the staged scales of one buffer: nb blocks x 2 parts x 8 lanes
+template <Storage S>
+__host__ __device__ constexpr size_t scale_buf_bytes(int ld) {
+  return S == Storage::kInt8 ? sizeof(float) * 2 * kLanes * ((ld + kScaleBlock - 1) / kScaleBlock)
+                             : 0;
+}
+
+// Shared memory of one block: the plane buffers (two buffers x two planes),
+// the int8 scales (two buffers), then float rows.  Rows are ld floats wide;
+// the carry and trace rows have 4 zero floats on either side so that lanes -1
+// and ld read as zero and float4 stores stay aligned.  kInject adds the
+// injection's band and trace.
+template <int R, bool kInject, Storage S = Storage::kBf16>
 __host__ __device__ constexpr size_t smem_bytes(int n, int ld) {
-  return (size_t)64 * n +
+  return 4 * plane_buf_bytes<S>(n) + 2 * scale_buf_bytes<S>(ld) +
          sizeof(float) * ((size_t)(6 + 2 * 2 * R) * ld + (size_t)2 * R * (ld + 8) +
                           kWarps * 2 * R * kLanes +
                           (kInject ? (size_t)6 * ld + (size_t)2 * R * (ld + 8) : 0));
@@ -243,13 +320,17 @@ __device__ __forceinline__ void load_rows(float* dst, int pitch, const float* sr
 // The line steps of one block: items.tile(q) for q < nitem, in order, with a
 // grid barrier wherever the step changes.  Items is a step map:
 //     __device__ Tile tile(int q) const;   // the item's operands and step
-template <int R, bool kInject, class Items>
+template <int R, bool kInject, Storage S = Storage::kBf16, class Items>
 __device__ __forceinline__ void run_steps(const Items& items, int nitem, int n, int ld) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int ldp = ld + 8;
-  // staged[buf][plane][row]: one uint4 (8 bf16 lanes) per input row
-  uint4* staged = reinterpret_cast<uint4*>(smem_raw);
-  float* s_band = reinterpret_cast<float*>(smem_raw + (size_t)64 * n);
+  // staged[buf][plane]: one run of 8 lanes per input row (a uint4 of bf16 or
+  // a uint2 of int8), then for int8 s_scale[buf]: [block][part][lane]
+  const size_t pbytes = plane_buf_bytes<S>(n);
+  unsigned char* staged = smem_raw;
+  float* s_scale = reinterpret_cast<float*>(smem_raw + 4 * pbytes);
+  const int nsc = (int)(scale_buf_bytes<S>(ld) / sizeof(float));     // floats a buffer
+  float* s_band = reinterpret_cast<float*>(smem_raw + 4 * pbytes + 2 * scale_buf_bytes<S>(ld));
   float* s_rhs = s_band + 6 * ld;           // [2R][ld]
   float* w = s_rhs + 2 * R * ld;            // [2R][ld]
   float* s_prev = w + 2 * R * ld;           // [2R][4 + ld + 4]
@@ -270,14 +351,20 @@ __device__ __forceinline__ void run_steps(const Items& items, int nitem, int n, 
         for (int i = tid; i < 6 * ld4; i += kThreads) cp_async16(s_cpl + 4 * i, tl.cpl + 4 * i);
     }
     if (!kNoPlaneCopies) {
+      // 16-byte copies: one bf16 row, or two int8 rows (an odd count reads
+      // one padding row, which is zero and is not multiplied)
+      const int copies = S == Storage::kInt8 ? (tl.cols.cnt + 1) / 2 : tl.cols.cnt;
       const uint4* gre = reinterpret_cast<const uint4*>(tl.cols.re);
       const uint4* gim = reinterpret_cast<const uint4*>(tl.cols.im);
-      uint4* sre = staged + (size_t)buf * 2 * n;
-      uint4* sim = sre + n;
-      for (int i = tid; i < tl.cols.cnt; i += kThreads) {
+      uint4* sre = reinterpret_cast<uint4*>(staged + (size_t)buf * 2 * pbytes);
+      uint4* sim = reinterpret_cast<uint4*>(staged + (size_t)buf * 2 * pbytes + pbytes);
+      for (int i = tid; i < copies; i += kThreads) {
         cp_async16(sre + i, gre + i);
         cp_async16(sim + i, gim + i);
       }
+      if (S == Storage::kInt8)
+        for (int i = tid; i < nsc / 4; i += kThreads)
+          cp_async16(s_scale + buf * nsc + 4 * i, tl.cols.scale + 4 * i);
     }
     asm volatile("cp.async.commit_group;\n" ::);
   };
@@ -359,16 +446,28 @@ __device__ __forceinline__ void run_steps(const Items& items, int nitem, int n, 
 #pragma unroll
       for (int l = 0; l < kLanes; ++l) zre[qq][l] = zim[qq][l] = 0.f;
 
-    const uint4* pre = staged + (size_t)(q & 1) * 2 * n;   // one uint4 per
-    const uint4* pim = pre + n;                            //   input row
+    const unsigned char* pre = staged + (size_t)(q & 1) * 2 * pbytes;
+    const unsigned char* pim = pre + pbytes;
+    const float* sc = s_scale + (q & 1) * nsc;
     const float* wi = w + tl.cols.i0;
 #pragma unroll 4
     for (int i = tid; i < (kNoProducts ? 0 : tl.cols.cnt); i += kThreads) {
-      const uint4 vr = pre[i];
-      const uint4 vi = pim[i];
       float cr[kLanes], ci[kLanes];
-      widen_bf16x8(vr, cr);
-      widen_bf16x8(vi, ci);
+      if (S == Storage::kInt8) {
+        // input row i lies in scale block i / 128 (i0 = 0): the same block
+        // for the whole warp, a broadcast read
+        widen_s8x8(reinterpret_cast<const uint2*>(pre)[i], cr);
+        widen_s8x8(reinterpret_cast<const uint2*>(pim)[i], ci);
+        const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
+#pragma unroll
+        for (int l = 0; l < kLanes; ++l) {
+          cr[l] *= sb[l];
+          ci[l] *= sb[kLanes + l];
+        }
+      } else {
+        widen_bf16x8(reinterpret_cast<const uint4*>(pre)[i], cr);
+        widen_bf16x8(reinterpret_cast<const uint4*>(pim)[i], ci);
+      }
 #pragma unroll
       for (int qq = 0; qq < 2 * R; ++qq) {
         const float wq = wi[qq * ld + i];
@@ -464,10 +563,11 @@ inline cudaError_t launch_cooperative(Kernel kernel, const Args& a, size_t smem,
 struct PassArgs {
   const float* rhs;        // (B, m, 2r, ld) right-hand rows of the pass
   const float* band;       // (S, m, 2, 3, ld) [re, im] x tap x lane
-  const uint16_t* cre;     // dense layout: (S, m, ld/8, ld, 8) bf16 bits,
-  const uint16_t* cim;     //   tile-major, transposed pivot, real and imaginary
-                           //   plane; banded+tail: the tail planes
-                           //   (S, m - tail_start, ld/8, ld, 8)
+  const void* cre;         // dense layout: (S, m, ld/8, ld, 8) bf16 bits or
+  const void* cim;         //   int8, tile-major, transposed pivot, real and
+                           //   imaginary plane; banded+tail: the bf16 tail
+                           //   planes (S, m - tail_start, ld/8, ld, 8)
+  const float* scale;      // int8: (S, m, ld/8, nb, 2, 8) scales; else unused
   const uint16_t* hre;     // banded+tail: the head windows
   const uint16_t* him;     //   (S, tail_start, ld/8, 8 + 2 half, 8); else unused
   const int* s_idx;        // (B,) slab of each batch row
@@ -489,8 +589,8 @@ struct PassArgs {
 
 // R = number of right-hand sides r (rows are 2R); kBackward = bottom-up pass;
 // kCached = forward pass that starts from t_init and keeps the t stack;
-// kBanded = banded+tail pivot layout.
-template <int R, bool kBackward, bool kCached, bool kBanded>
+// kBanded = banded+tail pivot layout; S = storage of dense pivot planes.
+template <int R, bool kBackward, bool kCached, bool kBanded, Storage S>
 struct PassItems {
   PassArgs a;
   int tiles_blk, tiles_row;
@@ -504,8 +604,11 @@ struct PassItems {
     const int s = __ldg(a.s_idx + b);
     const size_t row = (size_t)2 * R * a.ld;      // floats per (batch row, line)
     Tile tl = plain_tile(t * kLanes, k);
-    tl.cols = tile_cols(a.cre, a.cim, a.hre, a.him, s, j, t, a.m, a.n, a.ld,
-                        kBanded ? a.tail_start : 0, kBanded ? a.half : 0);
+    if constexpr (S == Storage::kInt8)
+      tl.cols = tile_cols_int8(a.cre, a.cim, a.scale, s, j, t, a.m, a.n, a.ld);
+    else
+      tl.cols = tile_cols(a.cre, a.cim, a.hre, a.him, s, j, t, a.m, a.n, a.ld,
+                          kBanded ? a.tail_start : 0, kBanded ? a.half : 0);
     tl.band = a.band + ((size_t)s * a.m + j) * 6 * a.ld;
     tl.rhs = a.rhs + ((size_t)b * a.m + j) * row;
     if (kBackward) {         // x stack holds lines first-count+1 .. first
@@ -526,17 +629,18 @@ struct PassItems {
   }
 };
 
-template <int R, bool kBackward, bool kCached, bool kBanded = false>
+template <int R, bool kBackward, bool kCached, bool kBanded = false,
+          Storage S = Storage::kBf16>
 __global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
   const int tiles_row = a.ld / kLanes;
   const int total = a.batch * tiles_row;
   const int tiles_blk = (total - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const PassItems<R, kBackward, kCached, kBanded> items{a, tiles_blk, tiles_row};
-  run_steps<R, false>(items, a.count * tiles_blk, a.n, a.ld);
+  const PassItems<R, kBackward, kCached, kBanded, S> items{a, tiles_blk, tiles_row};
+  run_steps<R, false, S>(items, a.count * tiles_blk, a.n, a.ld);
 }
 
-template <bool kBackward, bool kCached = false, bool kBanded = false>
-inline cudaError_t run_pass(int r, const PassArgs& a, cudaStream_t stream) {
+template <bool kBackward, bool kCached, bool kBanded, Storage S>
+inline cudaError_t run_pass_as(int r, const PassArgs& a, cudaStream_t stream) {
   if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 ||
       r < 1 || r > kMaxRhs || a.count < 1 || a.first < 0 || a.first >= a.m)
     return cudaErrorInvalidValue;
@@ -544,10 +648,20 @@ inline cudaError_t run_pass(int r, const PassArgs& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   const int tiles = a.batch * (a.ld / kLanes);
   return r == 1
-             ? launch_cooperative(pass_kernel<1, kBackward, kCached, kBanded>, a,
-                                  smem_bytes<1, false>(a.n, a.ld), tiles, stream)
-             : launch_cooperative(pass_kernel<2, kBackward, kCached, kBanded>, a,
-                                  smem_bytes<2, false>(a.n, a.ld), tiles, stream);
+             ? launch_cooperative(pass_kernel<1, kBackward, kCached, kBanded, S>, a,
+                                  smem_bytes<1, false, S>(a.n, a.ld), tiles, stream)
+             : launch_cooperative(pass_kernel<2, kBackward, kCached, kBanded, S>, a,
+                                  smem_bytes<2, false, S>(a.n, a.ld), tiles, stream);
+}
+
+// Launches a pass on the layout the arguments name: int8 planes when scales
+// are given (dense layout only), banded+tail when kBanded, else dense bf16
+template <bool kBackward, bool kCached = false, bool kBanded = false>
+inline cudaError_t run_pass(int r, const PassArgs& a, cudaStream_t stream) {
+  if (a.scale != nullptr)
+    return kBanded ? cudaErrorInvalidValue
+                   : run_pass_as<kBackward, kCached, false, Storage::kInt8>(r, a, stream);
+  return run_pass_as<kBackward, kCached, kBanded, Storage::kBf16>(r, a, stream);
 }
 
 }  // namespace thomas

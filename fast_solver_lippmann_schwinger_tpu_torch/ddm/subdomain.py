@@ -30,6 +30,8 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import resolve_device, to_t
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     BlockTridiagFactorization,
+    BlockTridiagFactorizationBF16,
+    compress_factorization,
     factor_stencil_values,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
@@ -115,7 +117,8 @@ class SlabSystem:
     """All slabs of one sweep direction, batched and end-padded."""
 
     h_stencils: torch.Tensor        # (S, m1_max, n, 3, 3) local matrices
-    fac: BlockTridiagFactorization  # batched: cinv (S, m1_max, n, n), ...
+    # batched: cinv (S, m1_max, n, n), ...; or bf16 planes (pivot_dtype="bf16")
+    fac: BlockTridiagFactorization | BlockTridiagFactorizationBF16
     # trace-line indices (0-based local lines); 0 where absent (see has_*)
     l0: torch.Tensor                # (S,)
     l1: torch.Tensor
@@ -147,8 +150,9 @@ class SlabSystem:
     # with a zero carry
     trace_head: int = 0
     # optional kernel layout of ``fac`` (sparse/thomas_kernels.py): dense bf16
-    # planes or the banded+tail hybrid; when present the sweeps run the
-    # substitution kernels (and, on the hybrid layout, the fused sweep kernels)
+    # or int8 planes, or the banded+tail hybrid; when present the sweeps run
+    # the substitution kernels (and, on the hybrid layout, the fused sweep
+    # kernels)
     pfac: thomas_kernels.ThomasFactorization | thomas_kernels.BandedTailFactorization | None = None
 
     @functools.cached_property
@@ -209,14 +213,20 @@ def build_sweep_tables(slabs: SlabSystem) -> SweepTables:
 def attach_pallas(slabs: SlabSystem, storage: str = "bf16",
                   keep_dense: bool = True) -> SlabSystem:
     """Return a copy of ``slabs`` with the kernel solve layout attached
-    (sweeps then dispatch to ``sparse/thomas_kernels.py``).  Keeps the name
-    of its JAX counterpart, as the pivot mode ``"pallas"`` does.
+    (sweeps then dispatch to ``sparse/thomas_kernels.py``), packed from
+    ``slabs.fac`` (full or bf16 pivots) in ``storage`` "bf16" or "int8".
+    Keeps the name of its JAX counterpart, as the pivot mode ``"pallas"``
+    does.
 
-    ``keep_dense=False`` stores ONLY the padded/transposed bf16 planes:
-    ``fac`` keeps the bands (cheap) with an empty placeholder pivot stack, so
-    shape metadata and consumers of the bands still work.  This is what
-    ``pivot_dtype="pallas"`` means.
+    ``keep_dense=False`` stores ONLY the padded/transposed planes: ``fac``
+    keeps the bands (cheap) with an empty placeholder pivot stack, so shape
+    metadata and consumers of the bands still work.  This is what
+    ``pivot_dtype="pallas"`` and ``"pallas_int8"`` mean.
     """
+    if hasattr(slabs.fac, "cinv") and slabs.fac.cinv.shape[-1] == 0:
+        # the JAX package would re-pack the empty placeholder pivots here
+        raise ValueError("attach_pallas packs the slab system's own pivots, and these "
+                         "are only a placeholder beside a kernel layout")
     pfac = thomas_kernels.build_thomas_factorization(slabs.fac, storage=storage)
     fac = slabs.fac if keep_dense else _bands_only(slabs.fac)
     return dataclasses.replace(slabs, fac=fac, pfac=pfac)
@@ -226,7 +236,7 @@ def _bands_only(fac: BlockTridiagFactorization) -> BlockTridiagFactorization:
     """``fac`` with an empty placeholder pivot stack: the bands (cheap) stay
     for shape metadata and consumers of the bands."""
     return BlockTridiagFactorization(
-        cinv=fac.cinv.new_zeros(tuple(fac.cinv.shape[:2]) + (0, 0)),
+        cinv=fac.lband.new_zeros(tuple(fac.lband.shape[:2]) + (0, 0)),
         lband=fac.lband, uband=fac.uband,
     )
 
@@ -246,6 +256,31 @@ def attach_banded_tail(slabs: SlabSystem, pivot_band: int | None = None) -> Slab
     return dataclasses.replace(slabs, fac=_bands_only(slabs.fac), pfac=pfac)
 
 
+# pivot modes of build_slab_system; the others of the JAX package are queued
+# in ROADMAP.md (Queue 1)
+PIVOT_MODES = ("full", "bf16", "pallas", "pallas_int8", "pallas_banded_tail")
+
+
+def pack_pivots(slabs: SlabSystem, pivot_dtype: str, pivot_band: int | None = None) -> SlabSystem:
+    """The slab system of ``pivot_dtype`` from one with full pivots: as it
+    is (``"full"``), bf16 planes for the plain solves (``"bf16"``), only the
+    bf16 or int8 planes of the substitution kernels (``"pallas"``,
+    ``"pallas_int8"``), or only the banded+tail layout
+    (``"pallas_banded_tail"``, band width ``pivot_band``)."""
+    if pivot_dtype not in PIVOT_MODES:
+        raise NotImplementedError(
+            f"pivot_dtype={pivot_dtype!r} is not ported yet (ROADMAP.md, Queue 1: "
+            "the XLA-side banded modes)")
+    if pivot_dtype == "bf16":
+        return dataclasses.replace(slabs, fac=compress_factorization(slabs.fac))
+    if pivot_dtype in ("pallas", "pallas_int8"):
+        storage = "int8" if pivot_dtype == "pallas_int8" else "bf16"
+        return attach_pallas(slabs, storage=storage, keep_dense=False)
+    if pivot_dtype == "pallas_banded_tail":
+        return attach_banded_tail(slabs, pivot_band)
+    return slabs
+
+
 def build_slab_system(
     a_st: StencilMatrix2D,
     ag_st: StencilMatrix2D,
@@ -261,6 +296,7 @@ def build_slab_system(
     ag_host: np.ndarray | None = None,
     pivot_dtype: str = "full",
     pivot_band: int | None = None,
+    pivot_rank: int | None = None,
     cache_dir: str | None = None,
     device=None,
 ) -> SlabSystem:
@@ -269,18 +305,23 @@ def build_slab_system(
     ``a_st``/``ag_st`` are the global annihilator fields (their boundary-class
     rows supply the slab's artificial-boundary rows exactly as the
     ``Msp[1:2n,1:2n]`` overwrite at ``src/subdomains.jl:79-86``), ``nu`` is
-    the (m, n) medium.  ``pivot_dtype`` is ``"full"`` (dense pivots in the
-    working dtype), ``"pallas"`` (only the transposed bf16 planes of the
-    substitution kernels are kept) or ``"pallas_banded_tail"`` (only the
-    banded+tail hybrid layout, band width ``pivot_band``; see
-    :func:`attach_banded_tail`).  The slabs live on the stencils' device
-    unless ``device`` says otherwise.
+    the (m, n) medium.  ``pivot_dtype`` is one of :data:`PIVOT_MODES`, see
+    :func:`pack_pivots`: ``"full"`` (dense pivots in the working dtype),
+    ``"bf16"`` (bf16 planes, plain solves), ``"pallas"`` / ``"pallas_int8"``
+    (only the transposed bf16 / int8 planes of the substitution kernels are
+    kept) or ``"pallas_banded_tail"`` (only the banded+tail hybrid layout,
+    band width ``pivot_band``; see :func:`attach_banded_tail`).
+    ``pivot_rank`` belongs to the ``"banded_lr"`` mode, which is not ported.
+    The slabs live on the stencils' device unless ``device`` says otherwise.
     """
-    if pivot_dtype not in ("full", "pallas", "pallas_banded_tail"):
+    if pivot_dtype not in PIVOT_MODES:
         raise NotImplementedError(
             f"pivot_dtype={pivot_dtype!r} is not ported yet (ROADMAP.md, "
-            "Queue 1: the XLA-side bf16 and banded modes; Queue 2 item 8 for "
-            "pallas_int8)"
+            "Queue 1: the XLA-side banded modes)"
+        )
+    if pivot_rank is not None:
+        raise NotImplementedError(
+            "pivot_rank (the banded_lr pivot mode) is not ported yet (ROADMAP.md, Queue 1)"
         )
     if cache_dir is not None:
         raise NotImplementedError(
@@ -441,11 +482,7 @@ def build_slab_system(
         trace_tail=trace_tail,
         trace_head=trace_head,
     )
-    if pivot_dtype == "pallas":
-        slabs = attach_pallas(slabs, keep_dense=False)
-    elif pivot_dtype == "pallas_banded_tail":
-        slabs = attach_banded_tail(slabs, pivot_band)
-    return slabs
+    return pack_pivots(slabs, pivot_dtype, pivot_band)
 
 
 def partition_source(slabs: SlabSystem, b: torch.Tensor) -> torch.Tensor:

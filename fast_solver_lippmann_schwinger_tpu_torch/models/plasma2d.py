@@ -6,11 +6,15 @@ k = 800, 16 slabs, npml = 10, Greengard-Vico operator,
 ``doublePreconditioner`` with ``maxIter = 0``), parameterized so tests run it
 scaled down.  ``double_sweep=False`` gives the single-direction sweep, which
 with ``n_subdomains=1`` is the exact block-Thomas solve of the sparsified
-system.  Pivots are ``"pallas"`` (bf16 pivot planes through the CUDA
-substitution kernels), ``"pallas_banded_tail"`` (banded head windows and dense
-bf16 tail planes through the hybrid substitution kernels and the fused sweep
-kernels) or ``"full"`` (dense pivots in the working dtype); the other pivot
-formats of the JAX package are not ported yet.
+system.  Pivots are ``"full"`` (dense pivots in the working dtype, the
+default), ``"bf16"`` (bf16 planes, plain solves), ``"pallas"`` /
+``"pallas_int8"`` (bf16 / int8 pivot planes through the CUDA substitution
+kernels), or ``"pallas_banded_tail"`` (banded head windows and dense bf16 tail
+planes through the hybrid substitution kernels and the fused sweep kernels);
+the banded XLA-side pivot formats of the JAX package are not ported yet.
+``use_pallas=True`` attaches bf16 kernel planes beside full or bf16 pivots and
+runs the As b step of every single-RHS preconditioner apply through the
+stencil matvec kernel (``ops/stencil_kernels.py``).
 """
 
 from __future__ import annotations
@@ -24,9 +28,10 @@ import torch
 from fast_solver_lippmann_schwinger_tpu_torch.config import resolve_device
 from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import (
-    attach_banded_tail,
+    PIVOT_MODES,
     attach_pallas,
     build_slab_system,
+    pack_pivots,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import (
     DoubleSweepPreconditioner,
@@ -60,10 +65,12 @@ def build_problem(
     npml: int = 10,
     dtype: torch.dtype = torch.complex64,
     double_sweep: bool = True,
-    pivot_dtype: str = "pallas",
+    pivot_dtype: str = "full",
     pivot_dtype_t: str | None = None,
     pivot_band: int | None = None,
+    pivot_rank: int | None = None,
     use_pallas: bool = False,
+    cache_dir: str | None = None,
     device=None,
 ) -> Plasma2DProblem:
     """Set the plasma problem up on ``device`` (the CUDA card when ``None``;
@@ -75,26 +82,43 @@ def build_problem(
     a different pivot storage for the transposed (x-direction) sweep; ``None``
     means ``pivot_dtype``.  ``pivot_band`` is the kept band width of
     ``"pallas_banded_tail"`` (``None``: the w(n) rule,
-    ``direct.default_band_width``).  ``use_pallas=True`` (the stencil matvec
-    kernel) is not ported yet.
+    ``direct.default_band_width``).  ``pivot_rank`` (the ``"banded_lr"``
+    mode) and ``cache_dir`` are not ported yet and raise unless ``None``.
+
+    ``use_pallas=True``, as in the JAX package, attaches bf16 kernel planes
+    packed from each direction's pivots (which stay) and runs the As b step
+    of every single-RHS preconditioner apply through the stencil matvec
+    kernel; ``msp`` and multi-RHS input keep the plain 9 taps.  It needs full
+    or ``"bf16"`` pivots: with a kernel pivot mode only the bands are kept
+    beside the kernel layout, and the JAX package would re-pack the empty
+    placeholder pivots there, so the port raises ``ValueError``.
 
     Each direction is factored with dense pivots in the working dtype first
-    and, for ``"pallas"`` and ``"pallas_banded_tail"``, packed into the
-    kernels' layout right away, slab by slab, so that the dense pivots of one
-    direction are freed before the other is factored.
+    and then packed into its pivot mode right away, slab by slab, so that the
+    dense pivots of one direction are freed before the other is factored.
     """
-    if use_pallas:
-        raise NotImplementedError(
-            "the stencil matvec kernel is not ported yet (ROADMAP.md, Queue 2 item 5)"
-        )
     if pivot_dtype_t is None:
         pivot_dtype_t = pivot_dtype
     for mode in (pivot_dtype, pivot_dtype_t):
-        if mode not in ("full", "pallas", "pallas_banded_tail"):
+        if mode not in PIVOT_MODES:
             raise NotImplementedError(
                 f"pivot_dtype={mode!r} is not ported yet (ROADMAP.md, Queue 1: "
-                "pallas_int8 next, then the XLA-side bf16 and banded modes)"
+                "the XLA-side banded modes)"
             )
+        if use_pallas and mode.startswith("pallas"):
+            raise ValueError(
+                f"use_pallas=True with pivot_dtype={mode!r}: that mode keeps only "
+                "placeholder pivots beside its kernel layout, and the JAX package "
+                "would re-pack the empty placeholder pivots into bf16 planes"
+            )
+    if pivot_rank is not None:
+        raise NotImplementedError(
+            "pivot_rank (the banded_lr pivot mode) is not ported yet (ROADMAP.md, Queue 1)"
+        )
+    if cache_dir is not None:
+        raise NotImplementedError(
+            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
+        )
     device = resolve_device(device)
 
     def lap(t0):
@@ -129,16 +153,18 @@ def build_problem(
         )
         seconds["factorization" + suffix] = lap(t0)
         t0 = time.perf_counter()
-        if mode == "pallas":
-            slabs = attach_pallas(slabs, keep_dense=False)
-        elif mode == "pallas_banded_tail":
-            slabs = attach_banded_tail(slabs, pivot_band)
+        slabs = pack_pivots(slabs, mode, pivot_band)
+        if use_pallas:
+            slabs = attach_pallas(slabs)
         seconds["packing" + suffix] = lap(t0)
         return slabs
 
+    # the preconditioner's As b step takes the kernel; msp (below) is built
+    # from the plain field, as the JAX package builds it before the flag
+    a_s = dataclasses.replace(a_st, use_pallas=True) if use_pallas else a_st
     slabs = slab_system(a_st, ag_st, nu, grid.x, grid.y, a_np, ag_np, pivot_dtype, "")
     if not double_sweep:
-        precond = SingleSweepPreconditioner(slabs=slabs, a_s=a_st)
+        precond = SingleSweepPreconditioner(slabs=slabs, a_s=a_s)
     else:
         # the x-direction sweep: the same construction on the transposed
         # stencil fields and medium (tests/plasma_example.jl:103-114)
@@ -148,7 +174,7 @@ def build_problem(
         )
         precond = DoubleSweepPreconditioner(
             slabs=slabs, slabs_t=slabs_t,
-            msp=stencils.build_msp_2d(a_st, ag_st, nu, k), a_s=a_st,
+            msp=stencils.build_msp_2d(a_st, ag_st, nu, k), a_s=a_s,
         )
     return Plasma2DProblem(grid=grid, k=k, op=op, precond=precond, nu=nu,
                            setup_seconds=seconds)

@@ -58,6 +58,51 @@ class BlockTridiagFactorization:
         )
 
 
+@dataclasses.dataclass(frozen=True)
+class BlockTridiagFactorizationBF16:
+    """Memory-compressed variant: pivot inverses stored as bfloat16 real and
+    imaginary planes (half the memory of complex64), for preconditioner
+    applies, which tolerate the ~3-digit pivots.  Counterpart of the JAX
+    package's ``BlockTridiagFactorizationBF16`` (``pivot_dtype="bf16"``, no
+    kernel: the pivot apply is two f32 matrix products per line)."""
+
+    cinv_re: torch.Tensor  # (m, n, n) bfloat16
+    cinv_im: torch.Tensor  # (m, n, n) bfloat16
+    lband: torch.Tensor    # (m, n, 3) complex
+    uband: torch.Tensor    # (m, n, 3) complex
+
+    def slab(self, i: int) -> "BlockTridiagFactorizationBF16":
+        """Slab ``i`` of a batched factorization."""
+        return BlockTridiagFactorizationBF16(
+            cinv_re=self.cinv_re[i], cinv_im=self.cinv_im[i],
+            lband=self.lband[i], uband=self.uband[i],
+        )
+
+
+def compress_factorization(fac: BlockTridiagFactorization) -> BlockTridiagFactorizationBF16:
+    """Full-precision pivots -> bf16 planes, rounded complex -> f32 -> bf16
+    as the JAX package's ``compress_factorization``; the bands stay."""
+    return BlockTridiagFactorizationBF16(
+        cinv_re=fac.cinv.real.float().to(torch.bfloat16),
+        cinv_im=fac.cinv.imag.float().to(torch.bfloat16),
+        lband=fac.lband, uband=fac.uband,
+    )
+
+
+def _pivot_apply(fac, j: int, y: torch.Tensor) -> torch.Tensor:
+    """``C_j^{-1} y`` for dense complex pivots or bf16 planes (the JAX
+    package's ``_pivot_apply``: one f32 product per plane against the
+    stacked [re, im] columns of y, which streams each plane once)."""
+    if not hasattr(fac, "cinv_re"):
+        return fac.cinv[j] @ y
+    n = y.shape[0]
+    ys = torch.stack([y.real.float(), y.imag.float()], dim=-1)   # (n, ..., 2)
+    flat = ys.reshape(n, -1)
+    zre = (fac.cinv_re[j].float() @ flat).reshape(ys.shape)
+    zim = (fac.cinv_im[j].float() @ flat).reshape(ys.shape)
+    return torch.complex(zre[..., 0] - zim[..., 1], zre[..., 1] + zim[..., 0]).to(y.dtype)
+
+
 def band_matvec(band: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Tridiagonal band times vector/matrix: out[i] = sum_d band[i,d] v[i+d-1].
 
@@ -172,7 +217,7 @@ def _fwd_scan(fac, bg, start: int = 0, t_start=None, collect_t: bool = False):
     ys, ts = [], []
     for j in range(start, m):
         y_j = bg[j].to(dtype) - band_matvec(fac.lband[j], t_prev)
-        t_prev = fac.cinv[j] @ y_j
+        t_prev = _pivot_apply(fac, j, y_j)
         ys.append(y_j)
         if collect_t:
             ts.append(t_prev)
@@ -193,7 +238,7 @@ def _bwd_scan(fac, y, tail: int = 0):
     x_next = torch.zeros(y.shape[1:], dtype=dtype, device=y.device)
     out = torch.zeros((m,) + tuple(y.shape[1:]), dtype=dtype, device=y.device)
     for j in range(m - 1, start - 1, -1):
-        x_next = fac.cinv[j] @ (y[j] - band_matvec(fac.uband[j], x_next))
+        x_next = _pivot_apply(fac, j, y[j] - band_matvec(fac.uband[j], x_next))
         out[j] = x_next
     return out
 

@@ -34,9 +34,10 @@ im_0..im_{r-1}]``; the in-plane coupling stencils as packed flat weight rows
 (``_pack_sten_rows``) that are zero wherever a tap leaves the plane.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
-plain PyTorch version only for a tensor that lies on the CPU.  On the card the
-kernels take r = 1 or 2 right-hand sides.  Each wrapper counts its launches
-(``.launches``), and those on int8 planes also apart (``.launches_int8``).
+plain PyTorch version only for a tensor that lies on the CPU.  On the card a
+launch takes r = 1 or 2 right-hand sides; the wrappers run more as groups of
+at most two, one launch each.  Each wrapper counts its launches by plane
+storage (``.launches["bf16"]``, ``.launches["int8"]``).
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
     LEAD_MULTIPLE,
     _round_up,
     dense_planes,
+    in_rhs_groups,
     tile_planes,
 )
 
@@ -408,21 +410,13 @@ def _ptr(t: torch.Tensor | None):
 
 
 def _count(fn, stack: PlaneStack):
-    fn.launches += 1
-    if stack.scale is not None:
-        fn.launches_int8 += 1
+    fn.launches["bf16" if stack.scale is None else "int8"] += 1
 
 
 def _check_rhs(rows: torch.Tensor, stack: PlaneStack) -> int:
-    if rows.ndim < 2 or rows.shape[-1] != stack.ld or rows.shape[-2] % 2:
+    if rows.ndim < 2 or rows.shape[-1] != stack.ld or rows.shape[-2] % 2 or rows.shape[-2] < 2:
         raise ValueError(f"rows {tuple(rows.shape)} must be (..., 2r, {stack.ld})")
-    r = rows.shape[-2] // 2
-    if rows.is_cuda and not 1 <= r <= MAX_RHS:
-        raise ValueError(
-            f"the plane kernels take 1..{MAX_RHS} right-hand sides per call on the "
-            f"card, got {r}; more are queued in ROADMAP.md (Queue 2 item 9)"
-        )
-    return r
+    return rows.shape[-2] // 2
 
 
 def _raise_on(err: int, what: str):
@@ -438,6 +432,8 @@ def plane_apply_rows(stack: PlaneStack, idx: int, rows: torch.Tensor) -> torch.T
     _check_stack(stack, rows.device, range(idx, idx + 1))
     if not rows.is_cuda:
         return plane_apply_rows_plain(stack, idx, rows)
+    if r > MAX_RHS:
+        return in_rhs_groups(lambda y: plane_apply_rows(stack, idx, y), r, (rows,))
     out = torch.empty_like(rows)
     err = cuda_build.load("plane_apply")(
         rows.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(), _ptr(stack.scale),
@@ -487,6 +483,10 @@ def plane_forward(stack: PlaneStack, b4: torch.Tensor, w4: torch.Tensor, n: int,
         _check_f32("out[1]", t4, b4.shape, dev)
     if not b4.is_cuda:
         return plane_forward_plain(stack, b4, w4, n, base, start, t_init, out)
+    if r > MAX_RHS:
+        return in_rhs_groups(
+            lambda b, t, out: plane_forward(stack, b, w4, n, base, start, t, out),
+            r, (b4, t_init), out)
     carry = None if t4 is not None else torch.empty((2 * r, stack.ld), dtype=torch.float32,
                                                     device=dev)
     err = cuda_build.load("plane_fwd")(
@@ -522,6 +522,9 @@ def plane_backward(stack: PlaneStack, y4: torch.Tensor, w4: torch.Tensor, n: int
     _check_f32("out", out, y4.shape, dev)
     if not y4.is_cuda:
         return plane_backward_plain(stack, y4, w4, n, base, start, out)
+    if r > MAX_RHS:
+        return in_rhs_groups(lambda y, out: plane_backward(stack, y, w4, n, base, start, out),
+                             r, (y4,), out)
     scratch = torch.empty((2 * r, stack.ld), dtype=torch.float32, device=dev)
     err = cuda_build.load("plane_bwd")(
         y4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
@@ -533,11 +536,9 @@ def plane_backward(stack: PlaneStack, y4: torch.Tensor, w4: torch.Tensor, n: int
     return out
 
 
-# launch counts: one per wrapper call that launched its kernel, in all and on
-# int8 planes
+# launch counts: one per wrapper call that launched its kernel, by plane storage
 for _fn in (plane_apply_rows, plane_forward, plane_backward):
-    _fn.launches = 0
-    _fn.launches_int8 = 0
+    _fn.launches = dict.fromkeys(("bf16", "int8"), 0)
 
 
 # ---------------------------------------------------------------------------

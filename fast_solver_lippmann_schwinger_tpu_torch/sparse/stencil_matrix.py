@@ -6,9 +6,11 @@ CSC matrices (``buildSparseA``/``buildSparseAG``,
 matrices is a 3x3 stencil around its diagonal, so the representation here is
 a dense *stencil field*: a ``(m, n, 3, 3)`` tensor of per-node coefficients.
 A matvec is 9 shifted multiply-adds over the grid, in plain torch (the JAX
-package runs the same 9 taps through its compiler on this path), and the
-block-tridiagonal structure needed by the direct solver can be read off
-directly (``sparse/direct.py``).
+package runs the same 9 taps through its compiler on this path), or with
+``use_pallas=True`` the hand-written stencil kernel (``ops/stencil_kernels.py``,
+the counterpart of the JAX package's Pallas stencil SpMV) for single-RHS
+input; the block-tridiagonal structure needed by the direct solver can be read
+off directly (``sparse/direct.py``).
 
 Offsets convention: ``values[j, i, dj, di]`` is the coefficient coupling node
 (row) ``(j, i)`` to node (column) ``(j + dj - 1, i + di - 1)``; j is the slab
@@ -24,12 +26,22 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from fast_solver_lippmann_schwinger_tpu_torch.ops.stencil_kernels import stencil_matvec_2d
+
 
 @dataclasses.dataclass(frozen=True)
 class StencilMatrix2D:
-    """A sparse matrix whose rows are 3x3 stencils on an (m, n) grid."""
+    """A sparse matrix whose rows are 3x3 stencils on an (m, n) grid.
+
+    ``use_pallas=True`` routes single-RHS matvecs through the stencil kernel
+    (float32 arithmetic, as the JAX package's Pallas kernel); multi-RHS input
+    keeps the 9 shifted multiply-adds, and every derived matrix
+    (``transpose``, ``scale_columns``, sums and multiples) is built without
+    the flag, as in the JAX package.
+    """
 
     values: torch.Tensor   # (m, n, 3, 3) complex
+    use_pallas: bool = False
 
     @property
     def m(self) -> int:
@@ -49,6 +61,8 @@ class StencilMatrix2D:
         m, n = self.m, self.n
         extra = tuple(u.shape[1:] if u.ndim > 1 and u.shape[0] == m * n
                       else u.shape[2:])
+        if self.use_pallas and not extra:
+            return stencil_matvec_2d(self.values, u)
         u2 = u.reshape((m, n) + extra)
         # F.pad lists the last axis first: grid axes 0 and 1 get one zero
         # line each side, the RHS axes none

@@ -25,6 +25,8 @@ so this is also the sweep with the fewest pivot bytes.  Semantics are those of
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
 plain PyTorch version (:func:`sweep_down_plain`, :func:`sweep_up_plain`, a
 Python loop over (slab, line phase)) only for tensors that lie on the CPU.
+More right-hand sides than a launch takes run as groups of at most
+``thomas_kernels.MAX_RHS``, one launch each.
 """
 
 from __future__ import annotations
@@ -160,7 +162,6 @@ def _check(fac, meta, b4, tt: int, cpls, *rows) -> int:
 
 
 def _launch(up: int, fac, meta, b4, cpl_a, cpl_b, y4, t4, unp, u4, scratch, tt: int, r: int):
-    tk._check_rhs_count(r)
     fn = cuda_build.load("sweep_fused")
     err = fn(
         up, b4.data_ptr(), fac.lband.data_ptr(), fac.uband.data_ptr(),
@@ -180,11 +181,12 @@ def sweep_down(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tenso
     ``_down_kernel``): ``b4`` (S, m, 2r, ld) f32 rows of every slab's source,
     ``meta`` and the coupling rows of ``SlabSystem.sweep_tables``, ``tt`` the
     trace tail.  Returns ``(y4, t4, unp)``: the forward passes' y and t stacks
-    and the bottom traces u_np (S, 2r, ld), zero for the last slab.  On the
-    card it takes r = 1 or 2."""
+    and the bottom traces u_np (S, 2r, ld), zero for the last slab."""
     r = _check(fac, meta, b4, tt, (c01, c10))
     if not b4.is_cuda:
         return sweep_down_plain(fac, meta, b4, c01, c10, tt)
+    if r > tk.MAX_RHS:
+        return tk.in_rhs_groups(lambda b: sweep_down(fac, meta, b, c01, c10, tt), r, (b4,))
     y4, t4 = torch.empty_like(b4), torch.empty_like(b4)
     unp = torch.zeros_like(b4[:, 0])
     scratch = b4.new_empty((tt + 1,) + tuple(b4.shape[2:]))
@@ -198,13 +200,16 @@ def sweep_up(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tensor,
              unp: torch.Tensor, tt: int) -> torch.Tensor:
     """The UP sweep of ``gs_sweep`` in one launch (the JAX package's
     ``_up_kernel``), on what :func:`sweep_down` returned for the same ``b4``:
-    returns the volume rows ``u4`` (S, m, 2r, ld).  On the card it takes
-    r = 1 or 2."""
+    returns the volume rows ``u4`` (S, m, 2r, ld)."""
     r = _check(fac, meta, b4, tt, (cnpn, cnnp), y4, t4, unp)
     if y4.shape != b4.shape or t4.shape != b4.shape or unp.shape != b4[:, 0].shape:
         raise ValueError("y4, t4 and unp must be sweep_down's outputs for these rows")
     if not b4.is_cuda:
         return sweep_up_plain(fac, meta, b4, cnpn, cnnp, y4, t4, unp, tt)
+    if r > tk.MAX_RHS:
+        return tk.in_rhs_groups(
+            lambda b, y, t, u: sweep_up(fac, meta, b, cnpn, cnnp, y, t, u, tt),
+            r, (b4, y4, t4, unp))
     u4 = torch.empty_like(b4)
     scratch = b4.new_empty((2 * tt + 2,) + tuple(b4.shape[2:]))
     _launch(1, fac, meta, b4, cnpn, cnnp, y4, t4, unp, u4, scratch, tt, r)

@@ -1,7 +1,7 @@
-"""Block-Thomas substitution on bf16 pivot planes: CUDA kernels + plain twins.
+"""Block-Thomas substitution on bf16 or int8 pivot planes: CUDA kernels + plain twins.
 
-Counterpart of the JAX package's ``sparse/pallas_thomas.py``.  Its dense bf16
-layout: the batched multi-RHS pair ``_fwd_b`` / ``_bwd_b`` behind
+Counterpart of the JAX package's ``sparse/pallas_thomas.py``.  Its dense
+layout, bf16 or int8: the batched multi-RHS pair ``_fwd_b`` / ``_bwd_b`` behind
 ``solve_all``, and the one-slab kernels ``_fwd`` / ``_bwd`` / ``_fwd_bt``
 behind ``solve``, ``solve_cached``, ``solve_resume`` and ``solve_support``
 (the local solves of the multi-slab sweeps).  Its banded+tail hybrid layout
@@ -31,6 +31,26 @@ dense planes for its tail lines, and for its head lines one window per tile:
 ``wt = 8 + 2 half`` input rows that reach the tile when only
 ``|in - out| <= half`` is kept (zero outside ``[0, n)``).
 
+int8 storage (``storage="int8"``, the JAX package's ``pallas_int8``): the same
+dense tile-major planes at the same ``ld`` in int8, with float32 scales per
+(128-row input block, output lane), ``scale[s, j, t, b, part, l]`` for input
+block b, output lane ``8 t + l`` and part 0 (real) or 1 (imaginary); an entry
+counts as ``q * scale``.  The quantization is the JAX package's, bit for bit:
+``scale = absmax / 127`` over the block (1 where it is zero), ``q =
+clip(round_half_even(c / scale), -127, 127)``.  The last block may be partial
+(rows ``[128 (nb - 1), ld)``): the JAX package pads to 128 lanes with zeros,
+which leave the block's absmax as it is, so the scales are the same numbers.
+
+More right-hand sides than one launch takes (``MAX_RHS``) run as groups of at
+most ``MAX_RHS`` columns, one launch each, split from and joined back into the
+stacked rows.
+
+A line must fit one block's shared memory: its rows and the staged plane
+buffers.  The longest lines the kernels take on an H100 at two right-hand
+sides, measured by the card-only test ``test_longest_line_fits``, are n = 1704
+in bf16 and n = 2200 in int8; a longer line is refused at the launch and the
+wrapper raises ``ValueError``.
+
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version only for a tensor that lies on the CPU.  The kernels
 are compiled with ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
@@ -48,12 +68,13 @@ from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 
 LEAD_MULTIPLE = 8      # bf16 values per 16-byte load
 MAX_RHS = 2            # right-hand sides per kernel launch (csrc: kMaxRhs)
+INT8_BLOCK = 128       # input rows per int8 scale (csrc: kScaleBlock)
 
 _P, _I = cuda_build.PTR, cuda_build.INT
 # each launcher takes its pointers, its ints and the stream
-cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 7 + [_I] * 6 + [_P])
-cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 8 + [_I] * 8 + [_P])
-cuda_build.register("thomas_fwd_cached", "thomas_forward_cached", [_P] * 10 + [_I] * 8 + [_P])
+cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 8 + [_I] * 6 + [_P])
+cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 9 + [_I] * 8 + [_P])
+cuda_build.register("thomas_fwd_cached", "thomas_forward_cached", [_P] * 11 + [_I] * 8 + [_P])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -64,13 +85,13 @@ def _round_up(x: int, m: int) -> int:
 class ThomasFactorization:
     """Slab-stacked block-Thomas factors in the kernels' layout.
 
-    Counterpart of the JAX package's ``PallasFactorization`` with bf16
-    storage.  ``ld`` is the padded line length; padding rows/columns are zero
-    so carries stay zero there.
+    Counterpart of the JAX package's ``PallasFactorization``, bf16 storage, or
+    int8 storage when ``scale`` is set.  ``ld`` is the padded line length;
+    padding rows/columns are zero so carries stay zero there.
     """
 
-    cinv_t_re: torch.Tensor   # (S, m, ld/8, ld, 8) bf16, TRANSPOSED pivot
-    cinv_t_im: torch.Tensor   #   inverses, tile-major (see tile_planes)
+    cinv_t_re: torch.Tensor   # (S, m, ld/8, ld, 8) bf16 or int8, TRANSPOSED
+    cinv_t_im: torch.Tensor   #   pivot inverses, tile-major (see tile_planes)
     lband: torch.Tensor       # (S, m, 2, 3, ld) f32 [re, im]
     uband: torch.Tensor       # (S, m, 2, 3, ld) f32
     n: int                    # true line length
@@ -78,6 +99,10 @@ class ThomasFactorization:
     # view ``slab_ids[s:s+1]`` to its kernels instead of copying a fresh index
     # tensor to the card for every local solve of a sweep
     slab_ids: torch.Tensor | None = None
+    # int8 storage: (S, m, ld/8, nb, 2, 8) f32 scales, nb = ceil(ld / 128),
+    # [s, j, t, b, part, l] for input block b and output lane 8 t + l; None
+    # for bf16
+    scale: torch.Tensor | None = None
 
     def __post_init__(self):
         if self.slab_ids is None:
@@ -97,8 +122,14 @@ class ThomasFactorization:
         return self.cinv_t_re.shape[3]
 
     @property
+    def storage(self) -> str:
+        return "bf16" if self.scale is None else "int8"
+
+    @property
     def planes(self) -> tuple:
-        return (self.cinv_t_re, self.cinv_t_im)
+        """The pivot tensors the kernels read (with the int8 scales)."""
+        extra = () if self.scale is None else (self.scale,)
+        return (self.cinv_t_re, self.cinv_t_im) + extra
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,6 +181,10 @@ class BandedTailFactorization:
         return 2 * self.half + 1
 
     @property
+    def storage(self) -> str:
+        return "bf16"
+
+    @property
     def planes(self) -> tuple:
         return (self.head_re, self.head_im, self.tail_re, self.tail_im)
 
@@ -175,38 +210,112 @@ def _band_pack(band: torch.Tensor, ld: int) -> torch.Tensor:
     return F.pad(b, (0, ld - b.shape[-1])).contiguous()
 
 
+def n_scale_blocks(ld: int) -> int:
+    """int8 scale blocks of a line of ``ld`` input rows (the last may be
+    partial)."""
+    return -(-ld // INT8_BLOCK)
+
+
+def quantize_planes(p_t: torch.Tensor, ld: int):
+    """Transposed f32 planes (..., n, n) ``[i_in, o_out]`` -> tile-major int8
+    planes (..., ld/8, ld, 8) and their scales (..., nb, ld) ``[block,
+    o_out]``, bit for bit the JAX package's ``build_pallas_factorization(
+    storage="int8")`` away from its 128-lane padding: per 128-row input block
+    and output lane ``scale = absmax / 127`` (1 where the block is zero) and
+    ``q = clip(round_half_even(c / scale), -127, 127)``; padding entries are
+    zero with scale 1.  Subnormal numbers count as zero, as in the JAX
+    package's float32 arithmetic on its CPU and TPU backends, which flush
+    them: a block of subnormal entries gets scale 1 and zeros, and a block
+    whose absmax / 127 is subnormal gets scale 0 and entries +-127 (0 where
+    the entry is 0)."""
+    n = p_t.shape[-1]
+    nb = n_scale_blocks(ld)
+    lead = tuple(p_t.shape[:-2])
+
+    def flush(x):
+        return torch.where(x.abs() < torch.finfo(torch.float32).tiny, 0.0, x)
+
+    padded = F.pad(flush(p_t), (0, ld - n, 0, nb * INT8_BLOCK - n))
+    blocks = padded.reshape(lead + (nb, INT8_BLOCK, ld))
+    absmax = blocks.abs().amax(dim=-2)                          # (..., nb, ld)
+    scale = torch.where(absmax > 0, flush(absmax / 127.0), torch.ones_like(absmax))
+    q = torch.round(blocks / scale[..., None, :]).nan_to_num_(nan=0.0)
+    q = q.clamp_(-127, 127).to(torch.int8)
+    q = q.reshape(lead + (nb * INT8_BLOCK, ld))[..., :ld, :]
+    return tile_planes(q), scale
+
+
+def tile_scales(sre: torch.Tensor, sim: torch.Tensor) -> torch.Tensor:
+    """Scales (..., nb, ld) of the real and imaginary planes -> the kernels'
+    tile-major (..., ld/8, nb, 2, 8) ``[t, b, part, l]``."""
+    sc = torch.stack([sre, sim], dim=-2)                        # (..., nb, 2, ld)
+    sc = sc.reshape(sc.shape[:-1] + (sc.shape[-1] // LEAD_MULTIPLE, LEAD_MULTIPLE))
+    return sc.movedim(-2, -4).contiguous()                      # (..., ld/8, nb, 2, 8)
+
+
+def dense_scales(scale: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`tile_scales`: (..., ld/8, nb, 2, 8) -> (..., 2, nb,
+    ld) ``[part, block, o_out]``."""
+    sc = scale.movedim(-4, -2)                                  # (..., nb, 2, ld/8, 8)
+    sc = sc.reshape(sc.shape[:-2] + (sc.shape[-2] * sc.shape[-1],))
+    return sc.transpose(-3, -2)
+
+
+def _pivot_parts(fac, batched: bool):
+    """(real, imaginary) transposed pivot planes of a dense or bf16
+    ``BlockTridiagFactorization`` as a function of the slab, in f32."""
+    if hasattr(fac, "cinv_re"):      # the XLA-side bf16 storage
+        cre, cim = fac.cinv_re, fac.cinv_im
+        if not batched:
+            cre, cim = cre[None], cim[None]
+        return cre.shape, lambda s: (cre[s].transpose(-1, -2).float(),
+                                     cim[s].transpose(-1, -2).float())
+    cinv = fac.cinv if batched else fac.cinv[None]
+    cinv_t = cinv.transpose(-1, -2)
+    return cinv.shape, lambda s: (cinv_t[s].real.float(), cinv_t[s].imag.float())
+
+
 def build_thomas_factorization(fac, batched: bool = True,
                                storage: str = "bf16") -> ThomasFactorization:
     """Convert a (slab-batched) ``BlockTridiagFactorization`` with
-    full-precision pivots to the padded, transposed bf16 layout.
+    full-precision pivots, or a ``BlockTridiagFactorizationBF16``, to the
+    padded, transposed kernel layout in ``storage`` "bf16" or "int8".
 
     Counterpart of ``build_pallas_factorization``.  The planes are rounded
-    complex -> f32 -> bf16 as there, so they are bit-equal to the JAX
-    package's away from the padding.
+    complex -> f32 -> bf16, or quantized from the f32 planes
+    (:func:`quantize_planes`), as there, so they are bit-equal to the JAX
+    package's away from the padding.  Slab by slab, which bounds the
+    temporaries.
     """
-    if storage != "bf16":
-        raise NotImplementedError(
-            f"pivot storage {storage!r} is not ported yet; the int8 mode of "
-            "the substitution kernels is queued in ROADMAP.md (Queue 2)"
-        )
-    cinv, lband, uband = fac.cinv, fac.lband, fac.uband
+    if storage not in ("bf16", "int8"):
+        raise ValueError(f"unknown pivot storage {storage!r}")
+    lband, uband = fac.lband, fac.uband
     if not batched:
-        cinv, lband, uband = cinv[None], lband[None], uband[None]
-    S, m, n = cinv.shape[0], cinv.shape[1], cinv.shape[2]
+        lband, uband = lband[None], uband[None]
+    shape, parts = _pivot_parts(fac, batched)
+    S, m, n = shape[0], shape[1], shape[2]
+    dev = lband.device
     ld = _round_up(n, LEAD_MULTIPLE)
     tiles = ld // LEAD_MULTIPLE
-    cre = torch.empty((S, m, tiles, ld, LEAD_MULTIPLE), dtype=torch.bfloat16,
-                      device=cinv.device)
+    dtype = torch.bfloat16 if storage == "bf16" else torch.int8
+    cre = torch.empty((S, m, tiles, ld, LEAD_MULTIPLE), dtype=dtype, device=dev)
     cim = torch.empty_like(cre)
-    cinv_t = cinv.transpose(-1, -2)
-    for s in range(S):      # slab by slab: bounds the temporaries
-        for dst, part in ((cre, cinv_t[s].real), (cim, cinv_t[s].imag)):
-            dense = torch.zeros((m, ld, ld), dtype=torch.bfloat16, device=cinv.device)
-            dense[:, :n, :n] = part.float().to(torch.bfloat16)
+    scale = (None if storage == "bf16" else
+             torch.empty((S, m, tiles, n_scale_blocks(ld), 2, LEAD_MULTIPLE),
+                         dtype=torch.float32, device=dev))
+    for s in range(S):
+        pre, pim = parts(s)
+        if storage == "int8":
+            (cre[s], sre), (cim[s], sim) = quantize_planes(pre, ld), quantize_planes(pim, ld)
+            scale[s] = tile_scales(sre, sim)
+            continue
+        for dst, part in ((cre, pre), (cim, pim)):
+            dense = torch.zeros((m, ld, ld), dtype=torch.bfloat16, device=dev)
+            dense[:, :n, :n] = part.to(torch.bfloat16)
             dst[s] = tile_planes(dense)
     return ThomasFactorization(
         cinv_t_re=cre, cinv_t_im=cim,
-        lband=_band_pack(lband, ld), uband=_band_pack(uband, ld), n=n,
+        lband=_band_pack(lband, ld), uband=_band_pack(uband, ld), n=n, scale=scale,
     )
 
 
@@ -291,17 +400,72 @@ def _check_rows(fac, s_idx: torch.Tensor, rows: torch.Tensor):
         if t.device != rows.device or not t.is_contiguous():
             raise ValueError("factorization, s_idx and rows must be contiguous "
                              "tensors on one device")
-    if any(p.dtype != torch.bfloat16 for p in fac.planes):
+    if fac.storage == "int8":
+        want = (fac.n_slabs, fac.m, fac.ld // LEAD_MULTIPLE, n_scale_blocks(fac.ld), 2,
+                LEAD_MULTIPLE)
+        if (fac.cinv_t_re.dtype != torch.int8 or fac.cinv_t_im.dtype != torch.int8
+                or fac.scale.dtype != torch.float32 or tuple(fac.scale.shape) != want):
+            raise ValueError(f"int8 pivots need int8 planes and float32 scales of shape {want}")
+    elif any(p.dtype != torch.bfloat16 for p in fac.planes):
         raise ValueError("pivot planes must be bfloat16")
     return B, r2 // 2
 
 
-def _check_rhs_count(r: int):
-    if not 1 <= r <= MAX_RHS:
-        raise ValueError(
-            f"the substitution kernels take 1..{MAX_RHS} right-hand sides per "
-            f"call on the card, got {r}; more are queued in ROADMAP.md (Queue 2)"
-        )
+# ---------------------------------------------------------------------------
+# More right-hand sides than a launch takes: groups of at most MAX_RHS columns
+# of the stacked rows [re_0..re_{r-1}; im_0..im_{r-1}] (axis -2)
+# ---------------------------------------------------------------------------
+
+
+def rhs_groups(r: int) -> list:
+    """Column ranges ``[c0, c1)`` of the launches that carry ``r`` right-hand
+    sides."""
+    return [(c0, min(c0 + MAX_RHS, r)) for c0 in range(0, r, MAX_RHS)]
+
+
+def _group_rows(r: int, c0: int, c1: int) -> list:
+    return list(range(c0, c1)) + list(range(r + c0, r + c1))
+
+
+def _rhs_rows(t: torch.Tensor | None, r: int, c0: int, c1: int):
+    """The stacked rows of columns ``[c0, c1)`` of a (..., 2r, ld) tensor as a
+    contiguous (..., 2 (c1 - c0), ld) copy; ``None`` stays ``None``."""
+    return None if t is None else t[..., _group_rows(r, c0, c1), :].contiguous()
+
+
+def _join_rhs(parts: list) -> torch.Tensor:
+    """Stacked rows of consecutive column groups -> one (..., 2r, ld) stack."""
+    halves = [(p[..., : p.shape[-2] // 2, :], p[..., p.shape[-2] // 2 :, :]) for p in parts]
+    return torch.cat([re for re, _ in halves] + [im for _, im in halves], dim=-2)
+
+
+def in_rhs_groups(launch, r: int, rows: tuple, out=None):
+    """Run ``launch`` once per group of :func:`rhs_groups`, on each group's
+    rows of the (..., 2r, ld) tensors ``rows`` (``None`` passes as ``None``).
+
+    Without ``out`` the groups' results, a tensor or a tuple of them, are
+    joined back into 2r rows.  With ``out`` (a stack or a tuple of stacks,
+    some ``None``), ``launch`` also takes ``out=`` the group's copies of those
+    stacks; what it returns for them is written back in place and ``out`` is
+    returned."""
+    single = isinstance(out, torch.Tensor)
+    stacks = (out,) if single else out
+    parts = []
+    for c0, c1 in rhs_groups(r):
+        args = [_rhs_rows(t, r, c0, c1) for t in rows]
+        if stacks is None:
+            parts.append(launch(*args))
+            continue
+        got = launch(*args, out=_rhs_rows(out, r, c0, c1) if single else
+                     tuple(_rhs_rows(t, r, c0, c1) for t in stacks))
+        for dst, src in zip(stacks, (got,) if single else got):
+            if dst is not None:
+                dst[..., _group_rows(r, c0, c1), :] = src
+    if stacks is not None:
+        return out
+    if isinstance(parts[0], tuple):
+        return tuple(_join_rhs(list(p)) for p in zip(*parts))
+    return _join_rhs(parts)
 
 
 _INVALID_VALUE = 1     # cudaErrorInvalidValue
@@ -311,9 +475,8 @@ def _raise_on(err: int, what: str, fac):
     if err == _INVALID_VALUE:
         raise ValueError(
             f"{what} refused its arguments: most likely the line length "
-            f"n={fac.n} is too long for one block's shared memory (the kernels "
-            "take n up to about 1700 on an H100; longer lines are queued in "
-            "ROADMAP.md, Queue 2)"
+            f"n={fac.n} is too long for one block's shared memory (see the "
+            "module note; longer lines are queued in ROADMAP.md, Queue 2)"
         )
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
@@ -352,6 +515,26 @@ def _pivot_dot_rows(y: torch.Tensor, cre: torch.Tensor, cim: torch.Tensor):
     return torch.cat([z1[:, :r] - z2[:, r:], z1[:, r:] + z2[:, :r]], dim=1)
 
 
+def _pivot_dot_rows_int8(y: torch.Tensor, qre: torch.Tensor, qim: torch.Tensor,
+                         scale: torch.Tensor):
+    """[Yr; Yi] @ Cinv^T for (B, 2r, ld) rows and tile-major int8 planes with
+    their scales (B, ld/8, nb, 2, 8), in the order of the JAX package's
+    ``_scaled_dots``: one f32 product per 128-row input block, scaled by its
+    (block, output lane) scales, accumulated block after block."""
+    sc = dense_scales(scale)                                    # (B, 2, nb, ld)
+    nb = sc.shape[-2]
+    dre, dim_ = dense_planes(qre), dense_planes(qim)            # (B, ld, ld) int8
+    z1 = torch.zeros_like(y)
+    z2 = torch.zeros_like(y)
+    for b in range(nb):
+        rows = slice(b * INT8_BLOCK, (b + 1) * INT8_BLOCK)
+        yb = y[..., rows]
+        z1 = z1 + torch.matmul(yb, dre[:, rows].float()) * sc[:, None, 0, b]
+        z2 = z2 + torch.matmul(yb, dim_[:, rows].float()) * sc[:, None, 1, b]
+    r = y.shape[1] // 2
+    return torch.cat([z1[:, :r] - z2[:, r:], z1[:, r:] + z2[:, :r]], dim=1)
+
+
 def forward_substitution_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
                                b4: torch.Tensor, start: int = 0) -> torch.Tensor:
     """Plain version of :func:`forward_substitution`: a Python loop over the
@@ -362,7 +545,7 @@ def forward_substitution_plain(fac: ThomasFactorization, s_idx: torch.Tensor,
     for j in range(start, fac.m):
         y = b4[:, j] - _band_apply_rows(fac.lband[s, j], t)
         y4[:, j] = y
-        t = _pivot_dot_rows(y, fac.cinv_t_re[s, j], fac.cinv_t_im[s, j])
+        t = line_pivot_plain(fac, s, j, y)
     return y4
 
 
@@ -381,9 +564,13 @@ def _head_dot_rows(y: torch.Tensor, hre: torch.Tensor, him: torch.Tensor, half: 
 
 def line_pivot_plain(fac, s: torch.Tensor, j: int, y: torch.Tensor) -> torch.Tensor:
     """``t = C_j^{-1} y`` for (B, 2r, ld) rows of slabs ``s`` (one per batch
-    row), in either layout: a dense plane, or for the hybrid layout the head
-    window (``j < tail_start``) or the tail plane."""
+    row), in either layout: a dense plane (bf16, or int8 with its scales), or
+    for the hybrid layout the head window (``j < tail_start``) or the tail
+    plane."""
     if isinstance(fac, ThomasFactorization):
+        if fac.scale is not None:
+            return _pivot_dot_rows_int8(y, fac.cinv_t_re[s, j], fac.cinv_t_im[s, j],
+                                        fac.scale[s, j])
         return _pivot_dot_rows(y, fac.cinv_t_re[s, j], fac.cinv_t_im[s, j])
     if j < fac.tail_start:
         return _head_dot_rows(y, fac.head_re[s, j], fac.head_im[s, j], fac.half)
@@ -441,8 +628,9 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     ``t_j = C_j^{-1} y_j`` over lines ``start..m-1`` (zero carry at
     ``start``).  ``b4`` is (B, m, 2r, ld) f32 and batch row i uses slab
     ``s_idx[i]``.  Returns the full (B, m, 2r, ld) y stack, zero on lines
-    ``< start``.  Dense layout only (the hybrid one has the cached pass).  On
-    the card it takes r = 1 or 2."""
+    ``< start``.  Dense layout only (the hybrid one has the cached pass), bf16
+    or int8.  On the card more than ``MAX_RHS`` right-hand sides run as
+    groups, one launch each."""
     if not isinstance(fac, ThomasFactorization):
         raise ValueError("forward_substitution takes dense planes; the banded+tail "
                          "layout runs forward_substitution_cached")
@@ -451,7 +639,8 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
         raise ValueError(f"start={start} outside [0, {fac.m})")
     if not b4.is_cuda:
         return forward_substitution_plain(fac, s_idx, b4, start)
-    _check_rhs_count(r)
+    if r > MAX_RHS:
+        return in_rhs_groups(lambda b: forward_substitution(fac, s_idx, b, start), r, (b4,))
     fn = cuda_build.load("thomas_fwd")
     y4 = torch.empty_like(b4)
     if start:
@@ -459,32 +648,41 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     carry = torch.empty((2, B, 2 * r, fac.ld), dtype=torch.float32, device=b4.device)
     err = fn(
         b4.data_ptr(), fac.lband.data_ptr(), fac.cinv_t_re.data_ptr(),
-        fac.cinv_t_im.data_ptr(), s_idx.data_ptr(), y4.data_ptr(),
+        fac.cinv_t_im.data_ptr(), _scale_ptr(fac), s_idx.data_ptr(), y4.data_ptr(),
         carry.data_ptr(), B, fac.m, fac.n, fac.ld, r, start,
         torch.cuda.current_stream(b4.device).cuda_stream,
     )
     _raise_on(err, "thomas_forward", fac)
-    forward_substitution.launches += 1
+    _count_launch(forward_substitution, fac)
     return y4
+
+
+def _scale_ptr(fac) -> int:
+    """The int8 scales' pointer, or 0 (null) for bf16 planes."""
+    return 0 if fac.scale is None else fac.scale.data_ptr()
 
 
 def _pivot_args(fac) -> tuple:
     """The launchers' pivot operands of either layout: (head re, head im,
-    planes re, planes im) pointers, then tail_start and half; the dense layout
-    is tail_start = 0 with no head."""
+    planes re, planes im, int8 scales) pointers, then tail_start and half; the
+    dense layout is tail_start = 0 with no head, the hybrid one has no
+    scales."""
     if isinstance(fac, BandedTailFactorization):
         return (fac.head_re.data_ptr(), fac.head_im.data_ptr(), fac.tail_re.data_ptr(),
-                fac.tail_im.data_ptr()), (fac.tail_start, fac.half)
-    return (0, 0, fac.cinv_t_re.data_ptr(), fac.cinv_t_im.data_ptr()), (0, 0)
+                fac.tail_im.data_ptr(), 0), (fac.tail_start, fac.half)
+    return (0, 0, fac.cinv_t_re.data_ptr(), fac.cinv_t_im.data_ptr(), _scale_ptr(fac)), (0, 0)
 
 
 def _count_launch(fn, fac):
-    """One more launch of ``fn``'s kernel: ``fn.launches`` counts those on
-    dense planes, ``fn.launches_ht`` those on the banded+tail layout."""
-    if isinstance(fac, BandedTailFactorization):
-        fn.launches_ht += 1
-    else:
-        fn.launches += 1
+    """One more launch of ``fn``'s kernel, under the pivot layout it ran on
+    (:func:`layout`)."""
+    fn.launches[layout(fac)] += 1
+
+
+def layout(fac) -> str:
+    """The key of a factorization's launches: "bf16" or "int8" for dense
+    planes, "ht" for the banded+tail layout."""
+    return "ht" if isinstance(fac, BandedTailFactorization) else fac.storage
 
 
 def _cached_operands(fac, s_idx, b4, t_init, start, out):
@@ -526,11 +724,15 @@ def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
     ``>= start`` are written IN PLACE into those and lines ``< start`` keep
     what the caller put there (a resumed pass hands in a copy of the cached y
     stack); without ``out`` both stacks are new and zero on lines ``< start``.
-    On the card it takes r = 1 or 2."""
+    On the card more than ``MAX_RHS`` right-hand sides run as groups, each on
+    copies of its rows of ``out`` that are written back."""
     B, r, t_init, out = _cached_operands(fac, s_idx, b4, t_init, start, out)
     if not b4.is_cuda:
         return forward_substitution_cached_plain(fac, s_idx, b4, t_init, start, out)
-    _check_rhs_count(r)
+    if r > MAX_RHS:
+        return in_rhs_groups(
+            lambda b, t, out: forward_substitution_cached(fac, s_idx, b, t, start, out),
+            r, (b4, t_init), out)
     fn = cuda_build.load("thomas_fwd_cached")
     pivots, layout = _pivot_args(fac)
     err = fn(
@@ -549,11 +751,12 @@ def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
     bottom-up over the FULL (B, m, 2r, ld) y stack; ``0 < tail < m``
     materializes only the last ``tail`` lines.  Returns (B, m_eff, 2r, ld).
     Either layout (the hybrid one is the JAX package's ``_bwd_ht``).  On the
-    card it takes r = 1 or 2."""
+    card more than ``MAX_RHS`` right-hand sides run as groups."""
     B, r = _check_rows(fac, s_idx, y4)
     if not y4.is_cuda:
         return backward_substitution_plain(fac, s_idx, y4, tail)
-    _check_rhs_count(r)
+    if r > MAX_RHS:
+        return in_rhs_groups(lambda y: backward_substitution(fac, s_idx, y, tail), r, (y4,))
     fn = cuda_build.load("thomas_bwd")
     m = fac.m
     m_eff = m if tail <= 0 or tail >= m else tail
@@ -569,13 +772,9 @@ def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
     return x4
 
 
-# launch counts: one per wrapper call that launched its kernel (on the hybrid
-# layout in ``launches_ht``)
-forward_substitution.launches = 0
-forward_substitution_cached.launches = 0
-forward_substitution_cached.launches_ht = 0
-backward_substitution.launches = 0
-backward_substitution.launches_ht = 0
+# launch counts: one per launch of the wrapper's kernel, by pivot layout
+for _fn in (forward_substitution, forward_substitution_cached, backward_substitution):
+    _fn.launches = dict.fromkeys(("bf16", "int8", "ht"), 0)
 
 
 def _to_rows_b(fac: ThomasFactorization, b: torch.Tensor) -> torch.Tensor:
@@ -606,8 +805,8 @@ def solve_all(fac, s_idx, b: torch.Tensor, start: int = 0, tail: int = 0) -> tor
     complex with slab ``s_idx[i]``'s factors applied to batch row i.  ``start``
     asserts the rhs is zero on lines < start (exact head-start); ``tail``
     truncates the backward pass (zeros above the last ``tail`` lines).
-    On the card r is 1 or 2 (``MAX_RHS``).  Either layout: the hybrid one
-    runs the hybrid pair (the JAX package's ``_ht_solve_all``).
+    Either layout: the hybrid one runs the hybrid pair (the JAX package's
+    ``_ht_solve_all``).
     """
     s = torch.as_tensor(s_idx, dtype=torch.int32, device=b.device).reshape(-1)
     m = fac.m

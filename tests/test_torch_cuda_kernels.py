@@ -1,5 +1,6 @@
-"""The CUDA substitution kernels (2D lines, dense and banded+tail, the fused
-2D sweep kernels, and 3D planes) against their plain PyTorch versions.
+"""The CUDA kernels (2D lines on bf16 and int8 planes and on banded+tail
+pivots, the fused 2D sweep kernels, 3D planes, and the stencil matvec)
+against their plain PyTorch versions.
 
 These tests need a CUDA card and ``nvcc`` (a CUDA kernel has no CPU mode) and
 skip without them.  They import nothing of the JAX package, so they run on a
@@ -17,6 +18,7 @@ import dataclasses
 from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import sweeps
 from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, plasma2d
+from fast_solver_lippmann_schwinger_tpu_torch.ops import stencil_kernels
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk
@@ -71,10 +73,10 @@ def test_solve_all_matches_plain(cuda_device, r, start, tail):
     m, n = 9, 45
     fac = _random_factors(rng, 2, m, n, cuda_device)
     b = _rhs(rng, (2, m, n, r), start)
-    before = (tk.forward_substitution.launches, tk.backward_substitution.launches)
+    before = (tk.forward_substitution.launches["bf16"], tk.backward_substitution.launches["bf16"])
     got = tk.solve_all(fac, [1, 0], torch.as_tensor(b, device=cuda_device), start=start, tail=tail)
-    assert tk.forward_substitution.launches == before[0] + 1
-    assert tk.backward_substitution.launches == before[1] + 1
+    assert tk.forward_substitution.launches["bf16"] == before[0] + 1
+    assert tk.backward_substitution.launches["bf16"] == before[1] + 1
     want = tk.solve_all(_to_cpu(fac), [1, 0], torch.as_tensor(b), start=start, tail=tail)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
 
@@ -126,10 +128,10 @@ def test_cached_forward_matches_plain(cuda_device, r, start, carry):
         t_init = torch.zeros((batch, 2 * r, fac.ld), device=cuda_device)
         t_init[..., :n] = torch.as_tensor(rng.standard_normal((batch, 2 * r, n)).astype(np.float32))
     out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
-    before = tk.forward_substitution_cached.launches
+    before = tk.forward_substitution_cached.launches["bf16"]
     y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start, out=out)
     torch.cuda.synchronize()
-    assert tk.forward_substitution_cached.launches == before + 1
+    assert tk.forward_substitution_cached.launches["bf16"] == before + 1
     y_p, t_p = tk.forward_substitution_cached(
         _to_cpu(fac), s_idx.cpu(), b4.cpu(), None if t_init is None else t_init.cpu(), start=start)
     for got, want in ((y4, y_p), (t4, t_p)):
@@ -171,22 +173,36 @@ def test_one_slab_solves_match_plain(cuda_device, r):
 
 
 @pytest.mark.parametrize("entry", ["forward", "forward_cached", "backward", "solve_all"])
-def test_too_many_right_hand_sides_raise(cuda_device, entry):
-    """What the kernels do not take raises instead of falling back."""
+def test_too_many_right_hand_sides_raise(cuda_device, entry, monkeypatch):
+    """More right-hand sides than one launch takes (r = 3 > MAX_RHS) run as
+    groups of the same kernels, one launch each, and agree with the plain
+    versions; nothing falls back to them."""
     rng = np.random.default_rng(0)
-    fac = _random_factors(rng, 1, 4, 24, cuda_device)
+    fac = _random_factors(rng, 2, 6, 24, cuda_device)
+    cpu = _to_cpu(fac)
     r = tk.MAX_RHS + 1
-    s_idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
-    rows = torch.zeros((1, 4, 2 * r, fac.ld), device=cuda_device)
-    with pytest.raises(ValueError, match="right-hand sides"):
-        if entry == "forward":
-            tk.forward_substitution(fac, s_idx, rows)
-        elif entry == "forward_cached":
-            tk.forward_substitution_cached(fac, s_idx, rows)
-        elif entry == "backward":
-            tk.backward_substitution(fac, s_idx, rows)
-        else:
-            tk.solve_all(fac, [0], torch.as_tensor(_rhs(rng, (1, 4, 24, r)), device=cuda_device))
+    s_idx = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    rows = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (2, 6, 24, r)), device=cuda_device))
+    t0 = rows[:, 0].contiguous()
+    calls = {"forward": lambda f, s, b: tk.forward_substitution(f, s, b, start=1),
+             "forward_cached": lambda f, s, b: tk.forward_substitution_cached(
+                 f, s, b, t0.to(b.device), start=2),
+             "backward": lambda f, s, b: tk.backward_substitution(f, s, b, tail=4),
+             "solve_all": lambda f, s, b: tk.solve_all(
+                 f, s, tk._from_rows_b(b, 24, torch.complex64, 6))}
+    want = calls[entry](cpu, s_idx.cpu(), rows.cpu())
+    for name in ("forward_substitution_plain", "forward_substitution_cached_plain",
+                 "backward_substitution_plain"):
+        monkeypatch.setattr(tk, name, None)      # a call would raise TypeError
+    fn = {"forward": tk.forward_substitution, "forward_cached": tk.forward_substitution_cached,
+          "backward": tk.backward_substitution, "solve_all": tk.backward_substitution}[entry]
+    before = fn.launches["bf16"]
+    got = calls[entry](fac, s_idx, rows)
+    torch.cuda.synchronize()
+    assert fn.launches["bf16"] == before + len(tk.rhs_groups(r)) == before + 2
+    for g, w in zip(got if isinstance(got, tuple) else (got,),
+                    want if isinstance(want, tuple) else (want,)):
+        torch.testing.assert_close(g.cpu(), w, rtol=0, atol=TOL * float(w.abs().max()))
 
 
 @pytest.mark.parametrize("entry", ["forward", "forward_cached", "backward"])
@@ -201,7 +217,7 @@ def test_line_too_long_raises(cuda_device, entry):
     rows = torch.zeros((1, 1, 2, n), device=cuda_device)
     fn = {"forward": tk.forward_substitution, "forward_cached": tk.forward_substitution_cached,
           "backward": tk.backward_substitution}[entry]
-    before = fn.launches
+    before = dict(fn.launches)
     with pytest.raises(ValueError, match="too long"):
         fn(fac, s_idx, rows)
     assert fn.launches == before
@@ -266,12 +282,12 @@ def test_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, col
         t0 = torch.zeros((2 * r, ld), device=cuda_device)
         t0[:, : m * n] = torch.as_tensor(rng.standard_normal((2 * r, m * n)).astype(np.float32))
     out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0) if collect else None)
-    before = (pk.plane_forward.launches, pk.plane_backward.launches)
+    before = (pk.plane_forward.launches["bf16"], pk.plane_backward.launches["bf16"])
     y4, t4 = pk.plane_forward(st, b4, view.lrows, n, view.base, start, t0, out=out)
     x4 = pk.plane_backward(st, y4, view.urows, n, view.base, start=tail and l - tail)
     torch.cuda.synchronize()
-    assert (pk.plane_forward.launches, pk.plane_backward.launches) == (before[0] + 1,
-                                                                       before[1] + 1)
+    assert (pk.plane_forward.launches["bf16"], pk.plane_backward.launches["bf16"]) == (
+        before[0] + 1, before[1] + 1)
     y_p, t_p = pk.plane_forward(cpu.stack, b4.cpu(), cpu.lrows, n, cpu.base, start,
                                 None if t0 is None else t0.cpu())
     x_p = pk.plane_backward(cpu.stack, y4.cpu(), cpu.urows, n, cpu.base, start=tail and l - tail)
@@ -294,10 +310,10 @@ def test_plane_apply_matches_plain(cuda_device, r, mn):
     rows = torch.as_tensor(rng.standard_normal((2 * r, view.stack.ld)).astype(np.float32),
                            device=cuda_device)
     rows[:, mn:] = 0
-    before = pk.plane_apply_rows.launches
+    before = pk.plane_apply_rows.launches["bf16"]
     got = pk.plane_apply_rows(view.stack, 0, rows)
     torch.cuda.synchronize()
-    assert pk.plane_apply_rows.launches == before + 1
+    assert pk.plane_apply_rows.launches["bf16"] == before + 1
     _close(got, pk.plane_apply_rows_plain(view.stack, 0, rows).cpu())
     assert pk.fused_fits(view.stack, r) == (mn < 12456 or r == 1)
 
@@ -311,10 +327,11 @@ def test_plane_solve_branches_agree(cuda_device):
     view = _random_view(rng, l, m, n, cuda_device)
     b = torch.as_tensor((rng.standard_normal(l * m * n) + 1j * rng.standard_normal(l * m * n))
                         .astype(np.complex64), device=cuda_device)
-    before = (pk.plane_forward.launches, pk.plane_backward.launches, pk.plane_apply_rows.launches)
+    fns = (pk.plane_forward, pk.plane_backward, pk.plane_apply_rows)
+    before = tuple(f.launches["bf16"] for f in fns)
     x_fused = direct.block_thomas_solve_3d(view, b)
     x_plane = direct.block_thomas_solve_3d(dataclasses.replace(view, fused=False), b)
-    after = (pk.plane_forward.launches, pk.plane_backward.launches, pk.plane_apply_rows.launches)
+    after = tuple(f.launches["bf16"] for f in fns)
     assert tuple(a - b_ for a, b_ in zip(after, before)) == (1, 1, 2 * l)
     torch.testing.assert_close(x_plane, x_fused, rtol=0, atol=TOL * float(x_fused.abs().max()))
     _close(x_fused, direct.block_thomas_solve_3d(_view_to_cpu(view), b.cpu()))
@@ -336,16 +353,24 @@ def test_plane_kernels_never_call_plain_versions(cuda_device, monkeypatch):
 
 @pytest.mark.parametrize("entry", ["forward", "backward", "apply"])
 def test_plane_kernels_refuse_three_right_hand_sides(cuda_device, entry):
+    """Three right-hand sides, more than one launch takes, run as two launches
+    (two columns, then one) that agree with the plain version."""
     rng = np.random.default_rng(0)
     view = _random_view(rng, 2, 4, 5, cuda_device)
-    rows = torch.zeros((2, 6, view.stack.ld), device=cuda_device)
-    with pytest.raises(ValueError, match="right-hand sides"):
-        if entry == "forward":
-            pk.plane_forward(view.stack, rows, view.lrows, 5)
-        elif entry == "backward":
-            pk.plane_backward(view.stack, rows, view.urows, 5)
-        else:
-            pk.plane_apply_rows(view.stack, 0, rows[0])
+    cpu = _view_to_cpu(view)
+    b = rng.standard_normal((2, 3, 20)) + 1j * rng.standard_normal((2, 3, 20))
+    rows = pk._rows_of(torch.as_tensor(b.astype(np.complex64).transpose(0, 2, 1),
+                                       device=cuda_device), view.stack.ld)
+    runs = {"forward": lambda v, x: pk.plane_forward(v.stack, x, v.lrows, 5, start=1)[0],
+            "backward": lambda v, x: pk.plane_backward(v.stack, x, v.urows, 5),
+            "apply": lambda v, x: pk.plane_apply_rows(v.stack, 1, x[0].contiguous())}
+    fn = {"forward": pk.plane_forward, "backward": pk.plane_backward,
+          "apply": pk.plane_apply_rows}[entry]
+    before = fn.launches["bf16"]
+    got = runs[entry](view, rows)
+    torch.cuda.synchronize()
+    assert fn.launches["bf16"] == before + 2
+    _close(got, runs[entry](cpu, rows.cpu()))
 
 
 # ---------------------------------------------------------------------------
@@ -408,11 +433,11 @@ def test_int8_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail
         t0 = torch.zeros((2 * r, ld), device=cuda_device)
         t0[:, : m * n] = torch.as_tensor(rng.standard_normal((2 * r, m * n)).astype(np.float32))
     out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0) if collect else None)
-    before = (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8)
+    before = (pk.plane_forward.launches["int8"], pk.plane_backward.launches["int8"])
     y4, t4 = pk.plane_forward(st, b4, view.lrows, n, view.base, start, t0, out=out)
     x4 = pk.plane_backward(st, y4, view.urows, n, view.base, start=tail and l - tail)
     torch.cuda.synchronize()
-    assert (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8) == (
+    assert (pk.plane_forward.launches["int8"], pk.plane_backward.launches["int8"]) == (
         before[0] + 1, before[1] + 1)
     y_p, t_p = pk.plane_forward(cpu.stack, b4.cpu(), cpu.lrows, n, cpu.base, start,
                                 None if t0 is None else t0.cpu())
@@ -437,10 +462,10 @@ def test_int8_plane_apply_matches_plain(cuda_device, r, mn):
     rows = torch.as_tensor(rng.standard_normal((2 * r, view.stack.ld)).astype(np.float32),
                            device=cuda_device)
     rows[:, mn:] = 0
-    before = pk.plane_apply_rows.launches_int8
+    before = pk.plane_apply_rows.launches["int8"]
     got = pk.plane_apply_rows(view.stack, 0, rows)
     torch.cuda.synchronize()
-    assert pk.plane_apply_rows.launches_int8 == before + 1
+    assert pk.plane_apply_rows.launches["int8"] == before + 1
     _close(got, pk.plane_apply_rows_plain(view.stack, 0, rows).cpu())
     assert pk.fused_fits(view.stack, r) == (mn < 12300 or r == 1)
 
@@ -461,12 +486,11 @@ def test_int8_solve_branches_agree(cuda_device):
     try:
         for name in plain:
             setattr(pk, name, None)      # a call would raise TypeError
-        before = (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8,
-                  pk.plane_apply_rows.launches_int8)
+        fns = (pk.plane_forward, pk.plane_backward, pk.plane_apply_rows)
+        before = tuple(f.launches["int8"] for f in fns)
         x_fused = direct.block_thomas_solve_3d(view, b)
         x_plane = direct.block_thomas_solve_3d(dataclasses.replace(view, fused=False), b)
-        after = (pk.plane_forward.launches_int8, pk.plane_backward.launches_int8,
-                 pk.plane_apply_rows.launches_int8)
+        after = tuple(f.launches["int8"] for f in fns)
     finally:
         for name, fn in plain.items():
             setattr(pk, name, fn)
@@ -480,7 +504,8 @@ def test_int8_solve_branches_agree(cuda_device):
 def test_int8_wrappers_raise_instead_of_falling_back(cuda_device, entry, fault):
     """int8 planes the kernels cannot take raise before any launch: a width
     that is not a multiple of the 128-row scale blocks, scales of the wrong
-    shape, three right-hand sides."""
+    shape; three right-hand sides run as two launches and reach no plain
+    version."""
     rng = np.random.default_rng(0)
     view = _random_int8_view(rng, 2, 4, 40, cuda_device)
     st, r = view.stack, 1
@@ -498,13 +523,24 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda_device, entry, fault):
     w = torch.zeros((2, 2, 9, st.ld), device=cuda_device)
     fn = {"forward": pk.plane_forward, "backward": pk.plane_backward,
           "apply": pk.plane_apply_rows}[entry]
-    before = (fn.launches, fn.launches_int8)
+    before = dict(fn.launches)
+    call = (lambda: fn(st, 0, rows[0])) if entry == "apply" else (lambda: fn(st, rows, w, 40))
+    if fault == "rhs":
+        plain = {name: getattr(pk, name) for name in
+                 ("plane_forward_plain", "plane_backward_plain", "plane_apply_rows_plain")}
+        try:
+            for name in plain:
+                setattr(pk, name, None)      # a call would raise TypeError
+            call()
+            torch.cuda.synchronize()
+        finally:
+            for name, f in plain.items():
+                setattr(pk, name, f)
+        assert fn.launches == dict(before, int8=before["int8"] + 2)
+        return
     with pytest.raises(ValueError):
-        if entry == "apply":
-            fn(st, 0, rows[0])
-        else:
-            fn(st, rows, w, 40)
-    assert (fn.launches, fn.launches_int8) == before
+        call()
+    assert fn.launches == before
 
 
 @pytest.mark.parametrize("mode", ["bf16_pallas", "yblock_int8_pallas"])
@@ -520,12 +556,12 @@ def test_gs_sweep_on_card_matches_cpu(cuda_device, mode):
     rng = np.random.default_rng(1)
     b = (rng.standard_normal((2, problem.grid.size))
          + 1j * rng.standard_normal((2, problem.grid.size))).astype(np.complex64)
-    before = (pk.plane_forward.launches, pk.plane_backward.launches)
+    before = (sum(pk.plane_forward.launches.values()), sum(pk.plane_backward.launches.values()))
     got = pc.apply_batch(torch.as_tensor(b, device=cuda_device))
     torch.cuda.synchronize()
     slab_solves = 2 * pc.slabs.n_subs
-    assert (pk.plane_forward.launches - before[0], pk.plane_backward.launches - before[1]) == (
-        slab_solves, slab_solves)
+    after = (sum(pk.plane_forward.launches.values()), sum(pk.plane_backward.launches.values()))
+    assert (after[0] - before[0], after[1] - before[1]) == (slab_solves, slab_solves)
     _close(got, pc_cpu.apply_batch(torch.as_tensor(b)))
 
 
@@ -565,15 +601,14 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail):
         t_init[..., :n] = torch.as_tensor(rng.standard_normal((2, 2 * r, n)).astype(np.float32))
     out = tuple(torch.full(b4.shape, v, device=cuda_device) for v in (7.0, -7.0))
     fwd, bwd = tk.forward_substitution_cached, tk.backward_substitution
-    before = (fwd.launches_ht, bwd.launches_ht, fwd.launches, bwd.launches)
+    before = (dict(fwd.launches), dict(bwd.launches))
     y4, t4 = fwd(card, s_idx.to(cuda_device), b4.to(cuda_device), t_init.to(cuda_device),
                  start=start, out=out)
     y_p, t_p = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start)
     x4 = tk.backward_substitution(card, s_idx.to(cuda_device), y_p.to(cuda_device), tail=tail)
     torch.cuda.synchronize()
     # one launch each, counted as the hybrid layout's
-    assert (fwd.launches_ht, bwd.launches_ht, fwd.launches, bwd.launches) == (
-        before[0] + 1, before[1] + 1, before[2], before[3])
+    assert (fwd.launches, bwd.launches) == tuple(dict(b, ht=b["ht"] + 1) for b in before)
     for got, want in ((y4[:, start:], y_p[:, start:]), (t4[:, start:], t_p[:, start:]),
                       (x4, tk.backward_substitution(fac, s_idx, y_p, tail=tail))):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
@@ -595,10 +630,10 @@ def test_fused_sweep_matches_plain(cuda_device, r):
     shape = (problem.grid.size,) if r == 1 else (problem.grid.size, r)
     b = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
     fwd = tk.forward_substitution_cached
-    before = (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches_ht)
+    before = (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"])
     got = sweeps.gs_sweep(slabs, torch.as_tensor(b, device=cuda_device))
     torch.cuda.synchronize()
-    assert (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches_ht) == (
+    assert (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"]) == (
         before[0] + 1, before[1] + 1, before[2])
     want = sweeps.gs_sweep(slabs_cpu, torch.as_tensor(b))
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
@@ -608,8 +643,8 @@ def test_fused_sweep_matches_plain(cuda_device, r):
 
 @pytest.mark.parametrize("entry", ["forward", "backward", "down", "up"])
 def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monkeypatch):
-    """Three right-hand sides are refused on the card, and a CUDA tensor never
-    reaches a plain version."""
+    """A CUDA tensor never reaches a plain version (each raises here): three
+    right-hand sides run as two launches of the kernel."""
     def boom(*args, **kwargs):
         raise AssertionError("plain version called for a CUDA tensor")
 
@@ -629,5 +664,122 @@ def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monke
              "down": lambda: sk.sweep_down(fac, meta, rows, cpl, cpl, 4),
              "up": lambda: sk.sweep_up(fac, meta, rows, cpl, cpl, rows, rows,
                                        rows[:, 0].contiguous(), 4)}
-    with pytest.raises(ValueError, match="right-hand sides"):
-        calls[entry]()
+    count = {"forward": lambda: tk.forward_substitution_cached.launches["ht"],
+             "backward": lambda: tk.backward_substitution.launches["ht"],
+             "down": lambda: sk.sweep_down.launches, "up": lambda: sk.sweep_up.launches}[entry]
+    before = count()
+    out = calls[entry]()
+    torch.cuda.synchronize()
+    assert count() == before + 2
+    for t in out if isinstance(out, tuple) else (out,):
+        assert t.shape[-2:] in ((6, fac.ld),) and bool(torch.isfinite(t).all())
+
+
+# ---------------------------------------------------------------------------
+# The int8 mode of the line kernels, and the stencil matvec
+# ---------------------------------------------------------------------------
+
+
+def _random_int8_factors(rng, S, m, n, device):
+    """Contracting random factors (||C|| ||band|| < 1), quantized on the card
+    by the port's own packing into the int8 line layout."""
+    ld = tk._round_up(n, tk.LEAD_MULTIPLE)
+    g = torch.Generator(device=device).manual_seed(int(rng.integers(1 << 30)))
+
+    def plane(diag):
+        p = (0.1 / n ** 0.5) * torch.randn((S * m, n, n), generator=g, device=device)
+        p += diag * torch.eye(n, device=device)
+        q, sc = tk.quantize_planes(p, ld)
+        return q.reshape((S, m) + q.shape[1:]), sc.reshape((S, m) + sc.shape[1:])
+
+    (qre, sre), (qim, sim) = plane(0.2), plane(0.0)
+    bands = [torch.zeros((S, m, 2, 3, ld), device=device) for _ in range(2)]
+    for b in bands:
+        b[..., :n] = torch.as_tensor(rng.uniform(-0.2, 0.2, (S, m, 2, 3, n)).astype(np.float32))
+    return tk.ThomasFactorization(qre, qim, *bands, n, scale=tk.tile_scales(sre, sim))
+
+
+@pytest.mark.parametrize("n", [45, 300])
+@pytest.mark.parametrize("r", [1, 2, 3])
+def test_int8_line_passes_match_plain(cuda_device, n, r):
+    """The three passes on int8 planes (one scale block at n = 45; two full
+    blocks and a partial one at n = 300): forward from a start, cached forward
+    from a carry with its stacks written in place, backward full and
+    truncated; counted as int8 launches (r = 3: two launches each)."""
+    rng = np.random.default_rng(n + r)
+    m = 9
+    fac = _random_int8_factors(rng, 2, m, n, cuda_device)
+    cpu = move_to(fac, "cpu")
+    s_idx = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (2, m, n, r)), device=cuda_device))
+    t0 = b4[:, 3].contiguous()
+    fns = (tk.forward_substitution, tk.forward_substitution_cached, tk.backward_substitution)
+    before = [dict(f.launches) for f in fns]
+    y4 = tk.forward_substitution(fac, s_idx, b4, start=2)
+    out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+    yc, tc = tk.forward_substitution_cached(fac, s_idx, b4, t0, start=4, out=out)
+    x4 = tk.backward_substitution(fac, s_idx, y4)
+    x4t = tk.backward_substitution(fac, s_idx, y4, tail=3)
+    torch.cuda.synchronize()
+    groups = len(tk.rhs_groups(r))
+    assert [f.launches for f in fns] == [
+        dict(b, int8=b["int8"] + k * groups) for b, k in zip(before, (1, 1, 2))]
+    s_cpu = s_idx.cpu()
+    y_p = tk.forward_substitution(cpu, s_cpu, b4.cpu(), start=2)
+    yc_p, tc_p = tk.forward_substitution_cached(cpu, s_cpu, b4.cpu(), t0.cpu(), start=4)
+    for got, want in ((y4, y_p), (yc[:, 4:], yc_p[:, 4:]), (tc[:, 4:], tc_p[:, 4:]),
+                      (x4, tk.backward_substitution(cpu, s_cpu, y4.cpu())),
+                      (x4t, tk.backward_substitution(cpu, s_cpu, y4.cpu(), tail=3))):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+    assert bool((yc[:, :4] == 7.0).all()) and bool((tc[:, :4] == -7.0).all())
+
+
+# the longest lines that fit one block's shared memory at r = 2 on an H100
+LONGEST_LINE = {"bf16": 1704, "int8": 2200}
+
+
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+def test_longest_line_fits(cuda_device, storage):
+    """The line-length limits of the module note: the longest line launches
+    at r = 2, one lane group more is refused before a launch."""
+    n = LONGEST_LINE[storage]
+    fn = tk.backward_substitution
+    for length, fits in ((n, True), (n + tk.LEAD_MULTIPLE, False)):
+        dtype = torch.bfloat16 if storage == "bf16" else torch.int8
+        planes = torch.zeros((1, 1, length // 8, length, 8), dtype=dtype, device=cuda_device)
+        bands = torch.zeros((1, 1, 2, 3, length), device=cuda_device)
+        scale = (None if storage == "bf16" else torch.ones(
+            (1, 1, length // 8, tk.n_scale_blocks(length), 2, 8), device=cuda_device))
+        fac = tk.ThomasFactorization(planes, planes, bands, bands, length, scale=scale)
+        rows = torch.ones((1, 1, 4, length), device=cuda_device)
+        s_idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        if fits:
+            x = fn(fac, s_idx, rows)
+            torch.cuda.synchronize()
+            assert not x.any()
+        else:
+            with pytest.raises(ValueError, match="too long"):
+                fn(fac, s_idx, rows)
+
+
+@pytest.mark.parametrize("shape", [(41, 41), (31, 45), (801, 801)])
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.complex128])
+def test_stencil_matvec_matches_plain(cuda_device, shape, dtype, monkeypatch):
+    """The stencil kernel against its plain version on random fields, flat
+    and gridded u, one launch a call; a complex128 field comes back in
+    complex128 at complex64 accuracy; no plain version runs for a CUDA
+    tensor."""
+    m, n = shape
+    g = torch.Generator(device=cuda_device).manual_seed(m * n)
+    values = torch.randn((m, n, 3, 3), dtype=dtype, generator=g, device=cuda_device)
+    u = torch.randn((m * n,), dtype=dtype, generator=g, device=cuda_device)
+    want = stencil_kernels.stencil_matvec_2d_plain(values.cpu(), u.cpu())
+    monkeypatch.setattr(stencil_kernels, "stencil_matvec_2d_plain", None)
+    before = stencil_kernels.stencil_matvec_2d.launches
+    got = stencil_kernels.stencil_matvec_2d(values, u)
+    got2 = stencil_kernels.stencil_matvec_2d(values, u.reshape(m, n))
+    torch.cuda.synchronize()
+    assert stencil_kernels.stencil_matvec_2d.launches == before + 2
+    assert got.dtype == dtype and tuple(got.shape) == (m * n,) and tuple(got2.shape) == (m, n)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+    assert torch.equal(got2.reshape(-1), got)

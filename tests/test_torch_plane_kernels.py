@@ -156,7 +156,7 @@ def test_kernel_wrappers_in_place(views):
     x4 = pk.plane_backward(st, y4b, tview.urows, N, start=3)
     assert not x4[:3].any() and x4[3:].abs().max() > 0
     # the launch counts move only where a kernel was launched
-    assert pk.plane_forward.launches == pk.plane_backward.launches == 0
+    assert pk.plane_forward.launches == pk.plane_backward.launches == {"bf16": 0, "int8": 0}
     with pytest.raises(ValueError):
         pk.plane_forward(st, b4[:, :, :8], tview.lrows, N)
     with pytest.raises(ValueError):
@@ -223,13 +223,14 @@ def test_fused_limits():
 
 
 def test_int8_storage_raises(views):
-    """int8 plane storage is ported (``tests/test_torch_int8_planes.py``).
-    What still raises: the int8 line pivots of the 2D kernels (ROADMAP.md
-    Queue 2 item 8), bf16 planes handed the scales of int8 storage, and int8
-    planes that are not transposed and padded to the 128-row scale blocks."""
+    """int8 plane storage is ported (``tests/test_torch_int8_planes.py``), as
+    are the int8 line pivots of the 2D kernels (``test_torch_int8_thomas.py``).
+    What raises: a storage that is neither, bf16 planes handed the scales of
+    int8 storage, and int8 planes that are not transposed and padded to the
+    128-row scale blocks."""
     jfac, jview, _ = views
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.build_thomas_factorization(None, storage="int8")
+    with pytest.raises(ValueError, match="storage"):
+        tk.build_thomas_factorization(None, storage="int4")
     st = jview.stack
     with pytest.raises(ValueError, match="all-ones"):
         convert.plane_stack(np.asarray(st.p_re).view(np.uint16), np.asarray(st.p_im).view(np.uint16),

@@ -68,6 +68,22 @@ def test_solve_matches(problems, direction):
     assert float(info.true_residual) < 1e-5
 
 
+def test_solve_batched_three_directions(problems):
+    """More directions than a substitution launch takes (two on the card,
+    where the wrappers run them in groups): the joint solve of three against
+    the JAX package's ``gmres_batched``."""
+    _, jp, tp, tol = problems
+    dirs = DIRS + ((0.6, 0.8),)
+    jX, jinfo = jplasma2d.solve_batched(jp, dirs, **SOLVE)
+    tX, info = plasma2d.solve_batched(tp, dirs, **SOLVE)
+    np.testing.assert_array_equal(info.n_iterations.numpy(), np.asarray(jinfo.n_iterations))
+    for i in range(len(dirs)):
+        _check_history(info.residuals[i], jinfo.residuals[i], int(info.n_iterations[i]), tol)
+    want = np.asarray(jX)
+    assert tuple(tX.shape) == want.shape == (3, tp.grid.size)
+    np.testing.assert_allclose(tX.numpy(), want, rtol=0, atol=tol["sol"] * np.abs(want).max())
+
+
 def test_solve_batched_matches(problems):
     _, jp, tp, tol = problems
     jX, jinfo = jplasma2d.solve_batched(jp, DIRS, **SOLVE)
@@ -164,6 +180,30 @@ def test_double_sweep_solve_batched_matches(sweep_problems):
     assert float(info.true_residual.max()) < 1e-4
 
 
+@pytest.mark.parametrize("name", ["build_problem", "build_slab_system"])
+def test_signatures_match_the_jax_package(name):
+    """``build_problem`` and ``build_slab_system`` take the JAX package's
+    parameters, in its order and with its defaults; the port adds only a
+    trailing ``device``."""
+    import inspect
+
+    from fast_solver_lippmann_schwinger_tpu.ddm import subdomain as jsubdomain
+    from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain
+
+    ours, theirs = {"build_problem": (plasma2d.build_problem, jplasma2d.build_problem),
+                    "build_slab_system": (subdomain.build_slab_system,
+                                          jsubdomain.build_slab_system)}[name]
+    ours = list(inspect.signature(ours).parameters.values())
+    theirs = list(inspect.signature(theirs).parameters.values())
+    assert ours[-1].name == "device" and ours[-1].default is None
+    assert [p.name for p in ours[:-1]] == [p.name for p in theirs]
+    for p, q in zip(ours, theirs):
+        if p.name == "dtype":
+            assert (p.default, q.default) == (torch.complex64, jnp.complex64)
+        else:
+            assert p.default == q.default, p.name
+
+
 def test_pivot_dtype_t_sets_the_transposed_sweep():
     tp = plasma2d.build_problem(dtype=torch.complex64, pivot_dtype="pallas", pivot_dtype_t="full",
                                 device="cpu", **{**KW_SWEEP, "n_subdomains": 2})
@@ -206,9 +246,9 @@ def test_convert_defaults_to_the_card(function, args):
         getattr(convert, function)(*args)
 
 
-@pytest.mark.parametrize("kw", [dict(pivot_dtype="bf16"), dict(use_pallas=True),
-                                dict(pivot_dtype="pallas_int8"),
-                                dict(double_sweep=True, pivot_dtype_t="pallas_int8")])
+@pytest.mark.parametrize("kw", [dict(pivot_dtype="banded"), dict(pivot_rank=24),
+                                dict(cache_dir="slab_cache"),
+                                dict(double_sweep=True, pivot_dtype_t="banded_lr")])
 def test_unported_options_raise(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         plasma2d.build_problem(device="cpu", **{**KW, **kw})

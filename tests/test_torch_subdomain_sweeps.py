@@ -88,7 +88,7 @@ def test_npml_guard_and_unported_modes(setup):
     grid, k, nu, (_, _, a_np, ag_np), (ta, tag) = setup
     with pytest.raises(ValueError, match="npml"):
         subdomain.build_slab_system(ta, tag, nu, grid.x, grid.y, H, k, 1, npml=4)
-    for kw in (dict(pivot_dtype="bf16"), dict(pivot_dtype="pallas_int8"), dict(cache_dir="x")):
+    for kw in (dict(pivot_dtype="banded"), dict(pivot_rank=24), dict(cache_dir="x")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             subdomain.build_slab_system(ta, tag, nu, grid.x, grid.y, H, k, 1, npml=NPML, **kw)
 

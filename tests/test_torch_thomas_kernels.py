@@ -7,6 +7,8 @@ kernels themselves are held against those plain versions on the card
 """
 
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -146,7 +148,7 @@ def test_wrappers_validate_and_count():
     pf = tk.build_thomas_factorization(direct.factor_stencil_values(torch.as_tensor(v)))
     s_idx = torch.zeros(1, dtype=torch.int32)
     rows = torch.zeros((1, M, 2, pf.ld))
-    before = (tk.forward_substitution.launches, tk.backward_substitution.launches)
+    before = (dict(tk.forward_substitution.launches), dict(tk.backward_substitution.launches))
     tk.backward_substitution(pf, s_idx, tk.forward_substitution(pf, s_idx, rows))
     # the plain path launches no kernel, so it counts nothing
     assert (tk.forward_substitution.launches, tk.backward_substitution.launches) == before
@@ -158,15 +160,71 @@ def test_wrappers_validate_and_count():
         tk.forward_substitution(pf, s_idx, rows, start=M)
     with pytest.raises(ValueError):
         tk.backward_substitution(pf, s_idx, rows[..., :-1].contiguous())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tk.build_thomas_factorization(direct.factor_stencil_values(torch.as_tensor(v)), storage="int8")
+    with pytest.raises(ValueError, match="storage"):
+        tk.build_thomas_factorization(direct.factor_stencil_values(torch.as_tensor(v)), storage="int4")
+    # int8 planes need their scales, of the layout's shape
+    p8 = tk.build_thomas_factorization(direct.factor_stencil_values(torch.as_tensor(v)),
+                                       storage="int8")
+    for bad in (None, p8.scale[..., :1, :].contiguous()):
+        with pytest.raises(ValueError):
+            tk.forward_substitution(dataclasses.replace(p8, scale=bad), s_idx, rows)
+
+
+@pytest.mark.parametrize("case", ["rows", "tuple", "out", "one_stack"])
+def test_rhs_groups_give_what_one_call_gives(factors, case):
+    """``in_rhs_groups``, which runs r > MAX_RHS on the card as one launch a
+    group, here with the CPU passes as launches at r = 5: the groups' rows
+    joined (``rows``), a tuple of stacks joined with a ``None`` operand
+    passed through (``tuple``), stacks written back in place with the lines
+    before ``start`` kept (``out``), and one stack written back
+    (``one_stack``), each equal to one call on all columns."""
+    S, _, _, tf = factors
+    pf = tk.build_thomas_factorization(tf)
+    r = 5
+    rng = np.random.default_rng(r)
+    s = torch.arange(S, dtype=torch.int32)
+    b4 = torch.zeros((S, M, 2 * r, pf.ld))
+    b4[..., :N] = torch.as_tensor(rng.standard_normal((S, M, 2 * r, N)).astype(np.float32))
+    t0 = b4[:, 1].contiguous()
+
+    def stacks():
+        return torch.full_like(b4, 7.0), torch.full_like(b4, -7.0)
+
+    if case == "rows":
+        got = tk.in_rhs_groups(lambda b: tk.forward_substitution(pf, s, b, 1), r, (b4,))
+        want = (tk.forward_substitution(pf, s, b4, 1),)
+        got = (got,)
+    elif case == "tuple":
+        got = tk.in_rhs_groups(lambda b, t: tk.forward_substitution_cached(pf, s, b, t, 2),
+                               r, (b4, None))
+        want = tk.forward_substitution_cached(pf, s, b4, None, 2)
+    elif case == "out":
+        out = stacks()
+        got = tk.in_rhs_groups(
+            lambda b, t, out: tk.forward_substitution_cached(pf, s, b, t, 2, out),
+            r, (b4, t0), out)
+        assert got is out
+        want = tk.forward_substitution_cached(pf, s, b4, t0, 2, stacks())
+        assert bool((got[0][:, :2] == 7.0).all()) and bool((got[1][:, :2] == -7.0).all())
+    else:
+        out = torch.empty_like(b4)
+        got = tk.in_rhs_groups(lambda y, out: out.copy_(tk.backward_substitution(pf, s, y)),
+                               r, (b4,), out)
+        assert got is out
+        got, want = (got,), (tk.backward_substitution(pf, s, b4),)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6 * float(w.abs().max()))
 
 
 def test_convert_rejects_int8_scales_and_dirty_padding(factors):
     _, _, jpf, _ = factors
     args = [_bits(jpf.cinv_t_re), _bits(jpf.cinv_t_im), np.asarray(jpf.lband),
             np.asarray(jpf.uband), np.asarray(jpf.scale), jpf.n]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # bf16 planes carry all-ones scales; int8 planes arrive as int8 arrays
+    # (tests/test_torch_int8_thomas.py)
+    with pytest.raises(ValueError, match="all-ones"):
         convert.thomas_factorization(*args[:4], 0.5 * args[4], args[5], device="cpu")
     dirty = args[0].copy()
     dirty[..., -1, -1] = 1
@@ -305,7 +363,7 @@ def test_cached_wrapper_validates_and_counts(slab_factors):
     _, pf = slab_factors
     s_idx = torch.zeros(1, dtype=torch.int32)
     rows = torch.zeros((1, M3, 2, pf.ld))
-    before = tk.forward_substitution_cached.launches
+    before = dict(tk.forward_substitution_cached.launches)
     tk.forward_substitution_cached(pf, s_idx, rows)
     assert tk.forward_substitution_cached.launches == before   # plain path: no launch
     with pytest.raises(ValueError, match="t_init"):

@@ -1,20 +1,36 @@
-"""Where one line of the substitution kernel spends its time.
+"""Where one line of the dense substitution passes spends its time.
 
-    python3 benchmarks_torch/thomas_ablation.py
+    python3 benchmarks_torch/thomas_ablation.py [--trace-only]
 
 Needs one CUDA card and nvcc.  ``ncu`` and ``nsys`` are not always at hand,
 so this script measures by ablation: it builds ``csrc/thomas_fwd.cu`` once per
-case with ``-DTHOMAS_ABLATE=<mask>`` (see ``csrc/thomas_line.cuh``), which
-leaves single phases of a line out (the results are then wrong; only the time
-is read), and times the forward pass at m = n = 801 for r = 1 and 2.  The
-libraries go to ``build/ablation/``.  Prints microseconds per line for every
-case.
+case with ``-DTHOMAS_ABLATE=<mask>`` (see ``csrc/thomas_flow.cuh`` and
+``csrc/thomas_line.cuh``), which leaves single phases of the flag-handoff line
+step out (the results are then wrong; only the time is read): the flag wait,
+the carry's load altogether, the band step, the products, the bulk copies of
+the planes or of the band and right-hand rows.  It also builds whole the
+grid-barrier step (``-DTHOMAS_OLD_STEP=1``), the flag-handoff step with one
+and with two CTAs a tile (``-DTHOMAS_SPLIT=1``, ``2``; the package picks per
+launch) and with one item of look-ahead (``-DTHOMAS_STAGES=2``).  It times the
+forward pass through the package's wrapper at one slab of m = n = 801 lines
+for r = 1 and 2, and at 16 batch rows of 70 lines for r = 1, and prints
+microseconds per line for every case.  The libraries go to
+``build/ablation/``.  Last, a build with ``-DTHOMAS_TRACE=1`` stamps the SM's
+cycle counter at each phase of a line step in every CTA: it prints the median
+of each phase, and at one slab, by the global timer, the handoff (from the
+last publication of a line to a CTA's carry of the next) and the line period.
+(The stamps cost time of their own; the phase after the block's barrier reads
+longer than the code it holds, so the ablation, not the trace, gives the
+breakdown.)
 """
 
+import ctypes
+import json
 import sys
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -27,65 +43,122 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E40
     cuda_time_ms,
 )
 
-# bits of THOMAS_ABLATE, as in csrc/thomas_line.cuh
-NO_BAND_STEP, NO_PRODUCTS, NO_BARRIER, NO_PLANE_COPIES, NO_ROW_COPIES, NO_CARRY_LOAD = (
-    1, 2, 4, 8, 16, 32)
+# bits of THOMAS_ABLATE, as in csrc/thomas_line.cuh and csrc/thomas_flow.cuh
+NO_BAND_STEP, NO_PRODUCTS, NO_PLANE_COPIES, NO_ROW_COPIES, NO_CARRY_LOAD = 1, 2, 8, 16, 32
+NO_FLAG_WAIT = 64
 NO_COPIES = NO_PLANE_COPIES | NO_ROW_COPIES
 CASES = [
-    ("full", 0),
-    ("no carry load + band step", NO_BAND_STEP),
-    ("no carry load", NO_CARRY_LOAD),
-    ("no products", NO_PRODUCTS),
-    ("no grid barrier", NO_BARRIER),
-    ("no plane copies", NO_PLANE_COPIES),
-    ("no band/rhs copies", NO_ROW_COPIES),
-    ("no copies", NO_COPIES),
-    ("no carry, no copies", NO_BAND_STEP | NO_COPIES),
-    ("no carry, copies, products", NO_BAND_STEP | NO_COPIES | NO_PRODUCTS),
-    ("none of them", NO_BAND_STEP | NO_COPIES | NO_PRODUCTS | NO_BARRIER),
+    ("grid-barrier step, whole", {"THOMAS_OLD_STEP": 1}),
+    ("one CTA a tile, whole", {"THOMAS_SPLIT": 1}),
+    ("two CTAs a tile, whole", {"THOMAS_SPLIT": 2}),
+    ("full", {"THOMAS_ABLATE": 0}),
+    ("no flag wait", {"THOMAS_ABLATE": NO_FLAG_WAIT}),
+    ("no carry load", {"THOMAS_ABLATE": NO_CARRY_LOAD}),
+    ("no carry load + band step", {"THOMAS_ABLATE": NO_BAND_STEP}),
+    ("no products", {"THOMAS_ABLATE": NO_PRODUCTS}),
+    ("no plane copies", {"THOMAS_ABLATE": NO_PLANE_COPIES}),
+    ("no band/rhs copies", {"THOMAS_ABLATE": NO_ROW_COPIES}),
+    ("no copies", {"THOMAS_ABLATE": NO_COPIES}),
+    ("no carry, no copies", {"THOMAS_ABLATE": NO_BAND_STEP | NO_COPIES}),
+    ("no carry, copies, products", {"THOMAS_ABLATE": NO_BAND_STEP | NO_COPIES | NO_PRODUCTS}),
+    ("none of them", {"THOMAS_ABLATE": NO_BAND_STEP | NO_COPIES | NO_PRODUCTS}),
+    # one item of look-ahead instead of two
+    ("two stages", {"THOMAS_STAGES": 2}),
 ]
 
 
-def ablated_libraries() -> dict:
-    """One build of the forward kernel per mask, all started together;
-    returns mask -> launcher."""
-    masks = sorted({mask for _, mask in CASES})
-    dirs = {mask: ROOT / "build" / "ablation" / str(mask) for mask in masks}
-    with ThreadPoolExecutor(len(masks)) as pool:     # each build is one nvcc
-        list(pool.map(lambda mask: cuda_build.build_kernels(
-            ["thomas_fwd"], defines={"THOMAS_ABLATE": mask}, build_dir=dirs[mask]), masks))
-    return {mask: cuda_build.load("thomas_fwd", build_dir=dirs[mask]) for mask in masks}
+def ablated_libraries() -> list:
+    """One build of the forward pass per case, all started together; returns
+    the launchers in the order of :data:`CASES`."""
+    dirs = [ROOT / "build" / "ablation" / str(i) for i in range(len(CASES))]
+    with ThreadPoolExecutor(len(CASES)) as pool:     # each build is one nvcc
+        list(pool.map(lambda i: cuda_build.build_kernels(
+            ["thomas_fwd"], defines=CASES[i][1], build_dir=dirs[i]), range(len(CASES))))
+    return [cuda_build.load("thomas_fwd", build_dir=d) for d in dirs]
 
 
-def main():
-    print(card_name_and_power_limit())
-    libs = ablated_libraries()
-    dev = torch.device("cuda", 0)
-    g = torch.Generator(device=dev).manual_seed(0)
-    m = n = 801
+TRACE_SHAPE = (264, 64, 8)     # csrc/thomas_flow.cuh: kTraceCtas, kTraceItems, kTracePoints
+PHASES = ("stage wait", "carry wait + load", "band step + products", "warp sums + barrier",
+          "sum + publish")
+
+
+def trace_library():
+    """The forward pass built with -DTHOMAS_TRACE=1, and its trace reader."""
+    d = ROOT / "build" / "ablation" / "trace"
+    cuda_build.build_kernels(["thomas_fwd"], defines={"THOMAS_TRACE": 1}, build_dir=d)
+    lib = ctypes.CDLL(str(d / "libthomas_fwd.so"))
+    lib.thomas_trace_read.argtypes = [ctypes.c_void_p]
+    lib.thomas_trace_read.restype = ctypes.c_int
+    return cuda_build.load("thomas_fwd", build_dir=d), lib.thomas_trace_read
+
+
+def trace_report(read, run, label, single_tile: bool):
+    """Medians over CTAs and traced items of each phase of a line step (SM
+    cycles), and at one tile a CTA (B = 1) the handoff: from the last
+    publication of line k - 1 to a CTA's carry of line k, and the line
+    period (global timer, ns)."""
+    run()
+    torch.cuda.synchronize()
+    stamps = np.zeros(TRACE_SHAPE, dtype=np.int64)
+    if read(stamps.ctypes.data):
+        raise RuntimeError("thomas_trace_read failed")
+    ctas = np.flatnonzero((stamps[:, :, 0] > 0).all(axis=1))
+    t = stamps[ctas].astype(np.float64)
+    phases = {name: float(np.median(t[:, :, k + 1] - t[:, :, k]))
+              for k, name in enumerate(PHASES)}
+    out = dict(case=label, ctas=len(ctas), phase_cycles=phases,
+               item_cycles=float(np.median(np.diff(t[:, :, 0], axis=1))))
+    if single_tile:
+        published = t[:, :, 7].max(axis=0)                      # last publication, per line
+        out["handoff_ns"] = float(np.median(t[:, 1:, 6] - published[None, :-1]))
+        out["line_period_ns"] = float(np.median(np.diff(published)))
+    print(json.dumps(out), flush=True)
+
+
+def random_factors(g, S, m, n, dev):
     ld = tk._round_up(n, tk.LEAD_MULTIPLE)
     planes = []
     for _ in range(2):
-        p = torch.zeros((1, m, ld, ld), dtype=torch.bfloat16, device=dev)
-        p[:, :, :n, :n] = (0.1 / n ** 0.5) * torch.randn((1, m, n, n), generator=g, device=dev)
+        p = torch.zeros((S, m, ld, ld), dtype=torch.bfloat16, device=dev)
+        p[:, :, :n, :n] = (0.1 / n ** 0.5) * torch.randn((S, m, n, n), generator=g, device=dev)
         planes.append(tk.tile_planes(p))
-    bands = torch.zeros((1, m, 2, 3, ld), device=dev)
-    bands[..., :n] = 0.4 * torch.rand((1, m, 2, 3, n), generator=g, device=dev) - 0.2
-    s_idx = torch.zeros(1, dtype=torch.int32, device=dev)
-    for r in (1, 2):
-        b4 = torch.zeros((1, m, 2 * r, ld), device=dev)
-        b4[..., :n] = torch.randn((1, m, 2 * r, n), generator=g, device=dev)
-        y4 = torch.empty_like(b4)
-        carry = torch.zeros((2, 1, 2 * r, ld), device=dev)
-        for name, mask in CASES:
-            def run():
-                err = libs[mask](
-                    b4.data_ptr(), bands.data_ptr(), planes[0].data_ptr(), planes[1].data_ptr(),
-                    s_idx.data_ptr(), y4.data_ptr(), carry.data_ptr(), 1, m, n, ld, r, 0,
-                    torch.cuda.current_stream().cuda_stream)
-                if err:
-                    raise RuntimeError(f"thomas_forward: CUDA error {err}")
-            print(f"r={r}  {name:32s} {cuda_time_ms(run, 5) / m * 1e3:6.3f} us/line", flush=True)
+    bands = torch.zeros((S, m, 2, 3, ld), device=dev)
+    bands[..., :n] = 0.4 * torch.rand((S, m, 2, 3, n), generator=g, device=dev) - 0.2
+    return tk.ThomasFactorization(planes[0], planes[1], bands, bands, n)
+
+
+def main():
+    print(card_name_and_power_limit(), flush=True)
+    trace_only = "--trace-only" in sys.argv[1:]
+    libs = [] if trace_only else ablated_libraries()
+    trace_lib, read = trace_library()
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    n = 801
+    # one slab of 801 lines (the one-slab solve), and 16 batch rows of 70
+    # lines, one per slab (jacobi_sweep)
+    for S, m, rs in ((1, 801, (1, 2)), (16, 70, (1,))):
+        fac = random_factors(g, S, m, n, dev)
+        for r in rs:
+            b4 = torch.zeros((S, m, 2 * r, fac.ld), device=dev)
+            b4[..., :n] = torch.randn((S, m, 2 * r, n), generator=g, device=dev)
+            for (name, _), lib in zip(CASES, libs):     # none with --trace-only
+                cuda_build._functions["thomas_fwd"] = lib
+                # every case on exchange buffers of its own: the grid-barrier
+                # step keeps a float carry where the others keep flags
+                tk._EXCHANGES = {}
+                ms = cuda_time_ms(lambda: tk.forward_substitution(fac, fac.slab_ids, b4), 5)
+                print(f"B={S:2d} m={m} r={r}  {name:28s} {ms / m * 1e3:7.3f} us/line",
+                      flush=True)
+        for r in rs:
+            b4 = torch.zeros((S, m, 2 * r, fac.ld), device=dev)
+            b4[..., :n] = torch.randn((S, m, 2 * r, n), generator=g, device=dev)
+            cuda_build._functions["thomas_fwd"] = trace_lib
+            tk._EXCHANGES = {}
+            trace_report(read, lambda: tk.forward_substitution(fac, fac.slab_ids, b4),
+                         f"B={S} m={m} r={r}", single_tile=S == 1)
+        del fac
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

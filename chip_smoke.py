@@ -37,9 +37,12 @@ kernels on random int8 factors at r = 1, 2 and 3 and a 3-slab int8 solve on
 the card against the CPU.  The seventh is ``plasma2d.build_problem(
 use_pallas=True)`` with every other argument at its default (full pivots with
 bf16 kernel planes beside them), whose preconditioner applies run the stencil
-matvec kernel; before it that kernel on a random field.  Each phase prints one
-JSON line; any failed check raises, so the exit code is non-zero.  The last
-line is ``{"ok": true, "device": {...}}``.
+matvec kernel; before it that kernel on a random field.  The dense forward
+and backward passes (rows 1, 2, 4 and 1i, 2i, 4i) run the flag-handoff line
+step (``csrc/thomas_flow.cuh``); after the one-slab path the script prints
+their microseconds a line and checks that repeated passes give the same bits.
+Each phase prints one JSON line; any failed check raises, so the exit code is
+non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -105,7 +108,7 @@ _TPU_STENCIL = "fast_solver_lippmann_schwinger_tpu/ops/pallas_stencil.py"
 # replaces at r = 1 and at r = 2 (file:line)
 KERNEL_INFO = {
     "thomas_forward": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, false, false>",
+        route="cuda", kernel="thomas::flow_kernel<R, false, Storage::kBf16, SPLIT>",
         source=_PORT + "thomas_fwd.cu", replaces={1: f"{_TPU}:610", 2: f"{_TPU}:610"},
     ),
     "thomas_forward_cached": dict(
@@ -113,7 +116,7 @@ KERNEL_INFO = {
         source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:221", 2: f"{_TPU}:546"},
     ),
     "thomas_backward": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, true, false>",
+        route="cuda", kernel="thomas::flow_kernel<R, true, Storage::kBf16, SPLIT>",
         source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:626", 2: f"{_TPU}:626"},
     ),
     "plane_forward": dict(
@@ -168,7 +171,7 @@ KERNEL_INFO = {
     # the int8 mode of rows 1-5: the nb > 1 branch of _scaled_dots
     # (pallas_thomas.py:200-211) inside the same bodies
     "thomas_forward_int8": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, false, false, false, Storage::kInt8>",
+        route="cuda", kernel="thomas::flow_kernel<R, false, Storage::kInt8, SPLIT>",
         source=_PORT + "thomas_fwd.cu", replaces={1: f"{_TPU}:610", 2: f"{_TPU}:610"},
     ),
     "thomas_forward_cached_int8": dict(
@@ -176,7 +179,7 @@ KERNEL_INFO = {
         source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:221", 2: f"{_TPU}:546"},
     ),
     "thomas_backward_int8": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, true, false, false, Storage::kInt8>",
+        route="cuda", kernel="thomas::flow_kernel<R, true, Storage::kInt8, SPLIT>",
         source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:626", 2: f"{_TPU}:626"},
     ),
     "stencil_matvec": dict(
@@ -546,6 +549,14 @@ def phase_kernel_times(problem, path_counts: dict) -> list:
                 name, r, path, path_counts[r][name], kernel, plain,
                 pass_bound(m, n, ld, r, stacks=2), library_ms,
                 dict(B=1, S=1, m=m, n=n, ld=ld, r=r)))
+        # the flag-handoff step's line, and no race in its handoff: repeats of
+        # each pass give the same bits (no sum depends on timing)
+        repeats = {name: [kernel() for _ in range(3)] for name, (kernel, _) in runs.items()}
+        identical = {name: all(torch.equal(out, outs[0]) for out in outs[1:])
+                     for name, outs in repeats.items()}
+        emit("line_step", path=path, r=r, m=m, n=n, bit_identical_over_repeats=identical,
+             us_per_line={e["name"]: 1e3 * e["ms"] / m for e in kernels[-2:]})
+        check(all(identical.values()), f"repeated passes give the same bits ({identical})")
     return kernels
 
 

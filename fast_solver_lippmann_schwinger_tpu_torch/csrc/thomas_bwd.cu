@@ -13,13 +13,19 @@
 // wanted.  Dense pivots (tail_start = 0) have a plane pair (tre, tim) on every
 // line; banded+tail pivots (tail_start > 0) apply the dense plane of line j
 // (j >= tail_start, index j - tail_start) or its banded head window (hre, him;
-// j < tail_start).  The two layouts are thomas::pass_kernel<R, true, false>
-// and pass_kernel<R, true, false, true>, and dense int8 planes (scale given)
-// pass_kernel<R, true, false, false, Storage::kInt8>, instantiations of the body in
-// thomas_line.cuh, which also describes the design (one cooperative launch
-// per pass, grid barrier per line, 8-lane tiles, staged plane columns), the
-// limits (r <= 2) and the bound.  The carry needs no scratch here: x_{j+1} is
-// read from the output stack's row j+1 while row j is written.
+// j < tail_start).  Dense planes run thomas::flow_kernel<R, true, S> (bf16,
+// or int8 when scale is given), the backward instantiation of the
+// flag-handoff line step in thomas_flow.cuh, which describes the design (one
+// cooperative launch per pass, one CTA a tile, two on long lines, the carry
+// handed from line to line through flagged words of the exchange buffer
+// `xchg`, bulk-copied stage buffers)
+// and the limits (r <= 2); x is written to the output stack beside.  The
+// banded+tail layout keeps the grid-barrier step of thomas_line.cuh,
+// pass_kernel<R, true, false, true> (one cooperative launch per pass, grid
+// barrier per line, 8-lane tiles, staged plane columns), which reads the
+// carry x_{j+1} from the output stack's row j+1 and ignores xchg and epoch.
+// A build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/thomas_probe.py only)
+// runs dense planes on that step too, pass_kernel<R, true, false, false, S>.
 //
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B, or two head
 // windows, 2 x ld x (8 + 2 half) x 2 B less the rows outside [0, n), against
@@ -27,7 +33,7 @@
 //
 // thomas_backward launches only; it allocates nothing, does not synchronise,
 // and returns the launch's error code (0 on success).
-#include "thomas_line.cuh"
+#include "thomas_flow.cuh"
 
 extern "C" int thomas_backward(
     const float* y,          // (B, m, 2r, ld) forward-pass stack
@@ -40,6 +46,8 @@ extern "C" int thomas_backward(
     const int* s_idx,        // (B,)
     float* x,                // (B, m_eff, 2r, ld): lines m-m_eff .. m-1
     int batch, int m, int n, int ld, int r, int m_eff, int tail_start, int half,
+    void* xchg,              // dense planes: (4, B, ld, 2r, 2) exchange words, zeroed once
+    unsigned epoch,          //   and the flag of line m-1 (lines take epoch .. + m_eff - 1)
     void* stream) {
   if (m_eff < 1 || m_eff > m) return (int)cudaErrorInvalidValue;
   thomas::PassArgs a{};
@@ -60,9 +68,18 @@ extern "C" int thomas_backward(
   a.count = m_eff;
   a.tail_start = tail_start;
   a.half = half;
+#if THOMAS_OLD_STEP
+  (void)xchg;
+  (void)epoch;
   cudaError_t err = tail_start > 0
                         ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)
                         : thomas::run_pass<true>(r, a, (cudaStream_t)stream);
+#else
+  cudaError_t err = tail_start > 0
+                        ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)
+                        : thomas::run_flow_pass<true>(r, a, static_cast<uint2*>(xchg), epoch,
+                                                      (cudaStream_t)stream);
+#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

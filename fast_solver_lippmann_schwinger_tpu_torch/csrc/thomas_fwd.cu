@@ -6,21 +6,25 @@
 //
 //     y_j = b_j - L_j . t_{j-1},     t_j = C_j^{-1} y_j,     t_{start-1} = 0,
 //
-// keeping the y stack.  The kernel is thomas::pass_kernel<R, false, false>, the
-// forward instantiation of the body in thomas_line.cuh, which also describes
-// the design (one cooperative launch per pass, grid barrier per line, 8-lane
-// tiles, staged plane columns), the limits (r <= 2) and the bound.  With
-// scales the planes are int8 (the TPU kernel's nb > 1 branch of _scaled_dots)
-// and the kernel is pass_kernel<R, false, false, false, Storage::kInt8>.  The carry t lives in a two-slot
-// ping-pong buffer in global memory: line j reads slot (j-1)&1 while writing
-// slot j&1, and the barrier between lines keeps the two apart.
+// keeping the y stack.  The kernel is thomas::flow_kernel<R, false, S>, the
+// forward instantiation of the flag-handoff line step in thomas_flow.cuh,
+// which also describes the design (one cooperative launch per pass, one CTA
+// a tile, two on long lines, the carry handed from line to line through
+// flagged words of the exchange buffer `xchg`, bulk-copied stage buffers), the limits (r <= 2) and the bound.
+// With scales the planes are int8 (the TPU kernel's nb > 1 branch of
+// _scaled_dots) and the kernel is flow_kernel<R, false, Storage::kInt8>.
+// The carry t is never stored but in the exchange buffer.  A build with
+// -DTHOMAS_OLD_STEP=1 (benchmarks_torch/thomas_probe.py only) launches the
+// grid-barrier step of thomas_line.cuh instead, pass_kernel<R, false, false,
+// false, S>, which keeps t in a two-slot ping-pong in `xchg` and ignores
+// `epoch`.
 //
-// Bound: bytes.  (m - start) lines x 2 planes x ld^2 x 2 B (int8: 1 B, plus
+// Bound: bytes.  (m - start) lines x 2 planes x n x ld x 2 B (int8: 1 B, plus
 // the scales) against 3.35 TB/s, plus the b and y stacks.
 //
 // thomas_forward launches only; it allocates nothing, does not synchronise,
 // and returns the launch's error code (0 on success).
-#include "thomas_line.cuh"
+#include "thomas_flow.cuh"
 
 extern "C" int thomas_forward(
     const float* b,          // (B, m, 2r, ld) right-hand rows
@@ -30,8 +34,10 @@ extern "C" int thomas_forward(
     const float* scale,      // int8: (S, m, ld/8, nb, 2, 8) scales; bf16: null
     const int* s_idx,        // (B,)
     float* y,                // (B, m, 2r, ld); lines < start are not written
-    float* carry,            // (2, B, 2r, ld) scratch
-    int batch, int m, int n, int ld, int r, int start, void* stream) {
+    void* xchg,              // (4, B, ld, 2r, 2) exchange words of 8 bytes, zeroed once
+    int batch, int m, int n, int ld, int r, int start,
+    unsigned epoch,          // flag of line `start`: lines take epoch .. epoch + m - start - 1
+    void* stream) {
   thomas::PassArgs a{};
   a.rhs = b;
   a.band = lband;
@@ -41,14 +47,28 @@ extern "C" int thomas_forward(
   a.s_idx = s_idx;
   a.t_init = nullptr;
   a.kept = y;
-  a.out = carry;
+  a.out = static_cast<float*>(xchg);
   a.batch = batch;
   a.m = m;
   a.n = n;
   a.ld = ld;
   a.first = start;
   a.count = m - start;
+#if THOMAS_OLD_STEP
+  (void)epoch;
   cudaError_t err = thomas::run_pass<false>(r, a, (cudaStream_t)stream);
+#else
+  cudaError_t err = thomas::run_flow_pass<false>(r, a, static_cast<uint2*>(xchg), epoch,
+                                                 (cudaStream_t)stream);
+#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }
+
+#if THOMAS_TRACE
+// the trace of the last launch (a -DTHOMAS_TRACE=1 build only): kTraceCtas x
+// kTraceItems x kTracePoints global-timer stamps
+extern "C" int thomas_trace_read(void* dst) {
+  return (int)cudaMemcpyFromSymbol(dst, thomas::g_trace, sizeof(thomas::g_trace));
+}
+#endif

@@ -11,7 +11,10 @@
 //     sweep::down_kernel<R>, up_kernel<R>   whole Gauss-Seidel    sweep_fused.cu
 //                                           sweep directions
 //
-// which those files instantiate and launch.  Every one of them is a walk over
+// which those files instantiate and launch; the first two and their int8
+// forms only in a build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/
+// thomas_probe.py): the package's dense forward and backward passes run the
+// flag-handoff step of thomas_flow.cuh.  Every one of them is a walk over
 // line steps; a kernel differs from the others only in the order of its steps
 // and in where each step's operands come from and go to.  So the step is one
 // device routine here, run_steps, and a kernel is a small "step map" that

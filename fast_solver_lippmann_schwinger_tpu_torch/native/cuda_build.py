@@ -23,9 +23,11 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD = Path(__file__).resolve().parents[2] / "build"
 
 # ctypes argument types of a launcher: pointers and the stream travel as
-# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int
+# c_void_p (a bare Python int would be cut to 32 bits), ints as c_int,
+# unsigned 32-bit counters as c_uint
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+UINT = ctypes.c_uint
 
 # source name -> (exported launcher, argument types)
 _REGISTRY: dict[str, tuple[str, list]] = {}

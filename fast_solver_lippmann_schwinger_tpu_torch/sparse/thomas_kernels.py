@@ -12,8 +12,14 @@ kernels are rewritten by hand for Hopper in CUDA C++: ``csrc/thomas_fwd.cu``
 given carry and keeps the t stack: ``_fwd`` and ``_fwd_bt``, and ``_fwd_ht``
 on the hybrid layout), ``csrc/thomas_bwd.cu`` (backward pass: ``_bwd_b``,
 ``_bwd`` at one batch row and one right-hand side, and ``_bwd_ht``); each
-launcher picks the layout's instantiation of the kernel.  The shared line
-step and the design note are in ``csrc/thomas_line.cuh``.
+launcher picks the layout's instantiation of the kernel.  The forward and
+backward passes on dense planes run the flag-handoff line step of
+``csrc/thomas_flow.cuh``: each line's carry is handed to the next through
+flagged words of an exchange buffer (:class:`Exchange`), not a grid barrier,
+one block a tile (two, each on half of its input rows, on long lines).  The
+cached forward pass, the banded+tail passes and the fused sweeps run the
+grid-barrier step of ``csrc/thomas_line.cuh``, which also holds the design
+note of the layouts.
 
 Storage (same numbers as the JAX package): pivot inverses are kept
 TRANSPOSED in bfloat16 real/imag planes, ``Cinv^T[i_in, o_out]``, so the
@@ -46,10 +52,11 @@ most ``MAX_RHS`` columns, one launch each, split from and joined back into the
 stacked rows.
 
 A line must fit one block's shared memory: its rows and the staged plane
-buffers.  The longest lines the kernels take on an H100 at two right-hand
-sides, measured by the card-only test ``test_longest_line_fits``, are n = 1704
-in bf16 and n = 2200 in int8; a longer line is refused at the launch and the
-wrapper raises ``ValueError``.
+buffers (for the flag-handoff passes, three stage buffers of a line's rows,
+or of half a line's on lines too long for one block).  The longest lines the
+kernels take on an H100 at two right-hand sides are measured by the card-only
+test ``test_longest_line_fits`` (``LONGEST_LINE`` there); a longer line is
+refused at the launch and the wrapper raises ``ValueError``.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version only for a tensor that lies on the CPU.  The kernels
@@ -70,10 +77,11 @@ LEAD_MULTIPLE = 8      # bf16 values per 16-byte load
 MAX_RHS = 2            # right-hand sides per kernel launch (csrc: kMaxRhs)
 INT8_BLOCK = 128       # input rows per int8 scale (csrc: kScaleBlock)
 
-_P, _I = cuda_build.PTR, cuda_build.INT
-# each launcher takes its pointers, its ints and the stream
-cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 8 + [_I] * 6 + [_P])
-cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 9 + [_I] * 8 + [_P])
+_P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
+# each launcher takes its pointers, its ints (the flag-handoff passes also an
+# exchange buffer and their first flag) and the stream
+cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 8 + [_I] * 6 + [_U, _P])
+cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 9 + [_I] * 8 + [_P, _U, _P])
 cuda_build.register("thomas_fwd_cached", "thomas_forward_cached", [_P] * 11 + [_I] * 8 + [_P])
 
 
@@ -468,6 +476,70 @@ def in_rhs_groups(launch, r: int, rows: tuple, out=None):
     return _join_rhs(parts)
 
 
+# ---------------------------------------------------------------------------
+# The carry exchange of the flag-handoff passes (csrc/thomas_flow.cuh)
+# ---------------------------------------------------------------------------
+
+FLAG_LIMIT = 2**32 - 1     # flags are 32-bit; 0 marks a word never written
+EXCHANGE_LINES = 4         # lines of the exchange ring (csrc: kSlots)
+LINE_HALVES = 2            # most CTAs a tile, each publishing its own sums (csrc: SPLIT)
+
+
+class Exchange:
+    """The exchange buffer of the flag-handoff passes on one CUDA stream, and
+    the counter that hands each launch its flags.
+
+    A carried value travels as one 8-byte word (its bits, its flag) from
+    each CTA of a tile (one, or :data:`LINE_HALVES` on long lines); a pass
+    with B batch rows of r right-hand sides on lines of ``ld`` lanes needs a
+    ring of :data:`EXCHANGE_LINES` lines of (B, ld, 2r, halves) words, and
+    line step k of a launch given flag ``epoch`` publishes flag ``epoch +
+    k``.  The buffer is zeroed when it is made and only these kernels write
+    it; the counter only grows, so no word left from an earlier launch
+    carries a flag that a later one waits for, and no launch needs a memset.
+    A buffer too small for a launch is replaced by a larger zeroed one, and
+    the counter starts again at 1; so it does when it would pass
+    :data:`FLAG_LIMIT`, after zeroing the buffer once."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.words: torch.Tensor | None = None     # int32, two per word
+        self.next = 1
+
+    @staticmethod
+    def values(batch: int, r: int, ld: int) -> int:
+        """Words of a launch: the ring of (B, ld, 2r, halves) lines."""
+        return EXCHANGE_LINES * batch * ld * LINE_HALVES * 2 * r
+
+    def take(self, batch: int, r: int, ld: int, lines: int):
+        """The buffer for a launch of ``lines`` line steps and its first
+        flag."""
+        need = 2 * self.values(batch, r, ld)
+        if self.words is None or self.words.numel() < need:
+            self.words = torch.zeros(need, dtype=torch.int32, device=self.device)
+            self.next = 1
+        if self.next + lines > FLAG_LIMIT:
+            self.words.zero_()
+            self.next = 1
+        epoch = self.next
+        self.next += lines
+        return self.words, epoch
+
+
+# one exchange per (device, stream), for the life of the process: every
+# launch on a stream must draw its flags from one counter over one buffer
+_EXCHANGES: dict = {}
+
+
+def exchange_for(t: torch.Tensor) -> Exchange:
+    """The exchange of ``t``'s device and current stream (launches on one
+    stream run in order, so they can share one buffer and one counter)."""
+    key = (t.device, torch.cuda.current_stream(t.device).cuda_stream)
+    if key not in _EXCHANGES:
+        _EXCHANGES[key] = Exchange(t.device)
+    return _EXCHANGES[key]
+
+
 _INVALID_VALUE = 1     # cudaErrorInvalidValue
 
 
@@ -645,11 +717,11 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     y4 = torch.empty_like(b4)
     if start:
         y4[:, :start] = 0
-    carry = torch.empty((2, B, 2 * r, fac.ld), dtype=torch.float32, device=b4.device)
+    xchg, epoch = exchange_for(b4).take(B, r, fac.ld, fac.m - start)
     err = fn(
         b4.data_ptr(), fac.lband.data_ptr(), fac.cinv_t_re.data_ptr(),
         fac.cinv_t_im.data_ptr(), _scale_ptr(fac), s_idx.data_ptr(), y4.data_ptr(),
-        carry.data_ptr(), B, fac.m, fac.n, fac.ld, r, start,
+        xchg.data_ptr(), B, fac.m, fac.n, fac.ld, r, start, epoch,
         torch.cuda.current_stream(b4.device).cuda_stream,
     )
     _raise_on(err, "thomas_forward", fac)
@@ -762,9 +834,12 @@ def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
     m_eff = m if tail <= 0 or tail >= m else tail
     x4 = torch.empty((B, m_eff, 2 * r, fac.ld), dtype=torch.float32, device=y4.device)
     pivots, layout = _pivot_args(fac)
+    # dense planes run the flag-handoff step; the banded+tail layout needs no exchange
+    xchg, epoch = ((None, 0) if isinstance(fac, BandedTailFactorization)
+                   else exchange_for(y4).take(B, r, fac.ld, m_eff))
     err = fn(
         y4.data_ptr(), fac.uband.data_ptr(), *pivots, s_idx.data_ptr(), x4.data_ptr(),
-        B, m, fac.n, fac.ld, r, m_eff, *layout,
+        B, m, fac.n, fac.ld, r, m_eff, *layout, 0 if xchg is None else xchg.data_ptr(), epoch,
         torch.cuda.current_stream(y4.device).cuda_stream,
     )
     _raise_on(err, "thomas_backward", fac)

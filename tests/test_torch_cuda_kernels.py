@@ -734,14 +734,18 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
     assert bool((yc[:, :4] == 7.0).all()) and bool((tc[:, :4] == -7.0).all())
 
 
-# the longest lines that fit one block's shared memory at r = 2 on an H100
-LONGEST_LINE = {"bf16": 1704, "int8": 2200}
+# the longest lines whose stage buffers fit one CTA's shared memory at r = 2
+# on an H100: the flag-handoff backward pass (half a line's rows in each of
+# three stage buffers; the grid-barrier step took 1704 and 2200)
+LONGEST_LINE = {"bf16": 1968, "int8": 2448}
 
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
 def test_longest_line_fits(cuda_device, storage):
     """The line-length limits of the module note: the longest line launches
-    at r = 2, one lane group more is refused before a launch."""
+    at r = 2, one lane group more is refused before a launch (the flag-handoff
+    step on two CTAs a tile: 3392 + 232 x rows a slice bytes in bf16, 3392 +
+    184 x rows + 192 x scale blocks in int8, of 232448)."""
     n = LONGEST_LINE[storage]
     fn = tk.backward_substitution
     for length, fits in ((n, True), (n + tk.LEAD_MULTIPLE, False)):
@@ -760,6 +764,81 @@ def test_longest_line_fits(cuda_device, storage):
         else:
             with pytest.raises(ValueError, match="too long"):
                 fn(fac, s_idx, rows)
+
+
+# ---------------------------------------------------------------------------
+# The flag-handoff step of the dense forward and backward passes
+# ---------------------------------------------------------------------------
+
+
+def _factors_of(storage, rng, S, m, n, device):
+    return (_random_factors if storage == "bf16" else _random_int8_factors)(rng, S, m, n, device)
+
+
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("batch", [1, 16])
+@pytest.mark.parametrize("n", [801, 1700])
+def test_flow_passes_match_plain(cuda_device, storage, r, batch, n):
+    """The forward pass from a start and the backward pass, full and
+    truncated, at the main path's width (n = 801: one CTA a tile, its rows in
+    two groups; at 16 batch rows 1616 tiles, several a CTA, which share their
+    carry and w) and on a line too long for one CTA (n = 1700: two CTAs a
+    tile, the halves added by the consumer), batch rows picking slabs out of
+    order; r = 3 as two launches each."""
+    rng = np.random.default_rng(100 * batch + 10 * r + (storage == "int8") + n)
+    S, m = 3, 6
+    fac = _factors_of(storage, rng, S, m, n, cuda_device)
+    cpu = move_to(fac, "cpu")
+    s_idx = torch.as_tensor((np.arange(batch) * 2 + 1) % S, dtype=torch.int32, device=cuda_device)
+    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, m, n, r), start=2),
+                                            device=cuda_device))
+    fns = (tk.forward_substitution, tk.backward_substitution)
+    before = [f.launches[storage] for f in fns]
+    y4 = tk.forward_substitution(fac, s_idx, b4, start=2)
+    x4 = tk.backward_substitution(fac, s_idx, y4)
+    x4t = tk.backward_substitution(fac, s_idx, y4, tail=3)
+    torch.cuda.synchronize()
+    groups = len(tk.rhs_groups(r))
+    assert [f.launches[storage] for f in fns] == [before[0] + groups, before[1] + 2 * groups]
+    s_cpu, y_cpu = s_idx.cpu(), y4.cpu()
+    assert not y_cpu[:, :2].any()
+    for got, want in ((y4, tk.forward_substitution(cpu, s_cpu, b4.cpu(), start=2)),
+                      (x4, tk.backward_substitution(cpu, s_cpu, y_cpu)),
+                      (x4t, tk.backward_substitution(cpu, s_cpu, y_cpu, tail=3))):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+
+
+def test_flow_passes_are_bit_identical_across_repeats(cuda_device):
+    """No race in the carry's handoff: 100 back-to-back pass pairs, the shape
+    (one and two CTAs a tile), the storage and r changing from one to the next
+    and a cached forward pass (the grid-barrier step) between them, each the
+    same bits as the first run at its shape (no sum depends on timing: there
+    is no atomic in any)."""
+    rng = np.random.default_rng(7)
+    cases = []
+    for storage, batch, n, r in (("bf16", 1, 801, 1), ("int8", 16, 300, 2), ("bf16", 4, 801, 2),
+                                 ("int8", 1, 801, 1), ("bf16", 16, 120, 1), ("bf16", 2, 1700, 2),
+                                 ("int8", 1, 1700, 1)):
+        fac = _factors_of(storage, rng, 2, 9, n, cuda_device)
+        s_idx = torch.as_tensor(np.arange(batch) % 2, dtype=torch.int32, device=cuda_device)
+        b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, 9, n, r)), device=cuda_device))
+        cases.append((fac, s_idx, b4))
+    other = cases[2]
+    first = {}
+    for i in range(100):
+        k = i % len(cases)
+        fac, s_idx, b4 = cases[k]
+        y4 = tk.forward_substitution(fac, s_idx, b4, start=i % 3)
+        x4 = tk.backward_substitution(fac, s_idx, y4, tail=0 if i % 2 else 5)
+        tk.forward_substitution_cached(other[0], other[1], other[2])
+        key = (k, i % 3, i % 2)
+        if key not in first:
+            first[key] = (y4, x4)
+        else:
+            assert torch.equal(y4, first[key][0]) and torch.equal(x4, first[key][1]), (i, key)
+    torch.cuda.synchronize()
+    assert len(first) == 42      # each of 42 shapes and modes held twice or more
 
 
 @pytest.mark.parametrize("shape", [(41, 41), (31, 45), (801, 801)])

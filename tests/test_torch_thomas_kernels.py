@@ -170,6 +170,31 @@ def test_wrappers_validate_and_count():
             tk.forward_substitution(dataclasses.replace(p8, scale=bad), s_idx, rows)
 
 
+def test_exchange_hands_out_fresh_flags():
+    """The exchange of the flag-handoff passes (``tk.Exchange``): a ring of
+    four lines of (B, ld, 2r, 2 halves) 8-byte words, zero when made; each
+    launch gets ``lines`` flags that no earlier launch on the buffer used,
+    never 0; a launch that needs more words gets a new zeroed buffer and the
+    counter starts again at 1, and so it does, after zeroing, where the flags
+    would pass 32 bits."""
+    ex = tk.Exchange("cpu")
+    words, epoch = ex.take(1, 1, 808, 801)
+    assert epoch == 1 and words.dtype == torch.int32
+    assert words.numel() == 2 * tk.Exchange.values(1, 1, 808) == 2 * (4 * 1 * 808 * 2 * 2)
+    assert not words.any()
+    assert ex.take(1, 1, 808, 801) == (words, 802)
+    words[:] = 7                                     # as launches leave it
+    same, epoch = ex.take(1, 1, 400, 5)              # fewer words: the same buffer
+    assert same is words and epoch == 1603
+    bigger, epoch = ex.take(16, 2, 808, 70)          # more words: a new one
+    assert bigger.numel() == 2 * (4 * 16 * 808 * 2 * 4) and not bigger.any() and epoch == 1
+    ex.next = tk.FLAG_LIMIT - 10                     # the last flags of 32 bits
+    bigger[:] = 7
+    assert ex.take(16, 2, 808, 10)[1] == tk.FLAG_LIMIT - 10 and bigger.all()
+    assert ex.take(16, 2, 808, 1) == (bigger, 1) and not bigger.any()
+    assert ex.next == 2
+
+
 @pytest.mark.parametrize("case", ["rows", "tuple", "out", "one_stack"])
 def test_rhs_groups_give_what_one_call_gives(factors, case):
     """``in_rhs_groups``, which runs r > MAX_RHS on the card as one launch a

@@ -12,8 +12,9 @@ of the 96^3 bump solve with the z-slab sweep goes on the card.
 Needs one CUDA card and nvcc.  Times the solve and its parts with CUDA
 events, then traces one solve with torch.profiler and prints the device time
 by kernel, the device's idle share of the solve and the host's time per
-preconditioner apply (in all, and by Python function under cProfile).  One
-JSON line per measurement.
+preconditioner apply (in all, and by Python function under cProfile) beside
+the device's (2D: the kernels of one apply under torch.profiler).  One JSON
+line per measurement.
 """
 
 import argparse
@@ -54,6 +55,20 @@ def host_ms(fn, repeats: int) -> float:
     ms = 1e3 * (time.perf_counter() - t0) / repeats
     torch.cuda.synchronize()
     return ms
+
+
+def device_ms(fn) -> float:
+    """Device milliseconds of one ``fn()``: the sum of its kernels' times
+    under torch.profiler (what the card runs, whoever sets the pace)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
 
 
 def host_profile(fn, top: int = 14) -> list:
@@ -272,7 +287,9 @@ def main():
         print(json.dumps(dict(r=r, ms=ms,
                               host_enqueue_ms=dict(
                                   preconditioner_apply=host_ms(parts["preconditioner_apply"], 5),
-                                  operator_apply=host_ms(parts["operator_apply"], 5)))),
+                                  operator_apply=host_ms(parts["operator_apply"], 5)),
+                              device_ms=dict(
+                                  preconditioner_apply=device_ms(parts["preconditioner_apply"])))),
               flush=True)
         print(json.dumps(dict(r=r, host_profile_of_preconditioner_apply=host_profile(
             parts["preconditioner_apply"]))), flush=True)

@@ -1,6 +1,7 @@
-"""Where one line of the dense substitution passes spends its time.
+"""Where one line of the dense substitution passes, or one step of the fused
+sweeps, spends its time.
 
-    python3 benchmarks_torch/thomas_ablation.py [--trace-only]
+    python3 benchmarks_torch/thomas_ablation.py [--trace-only | --sweep]
 
 Needs one CUDA card and nvcc.  ``ncu`` and ``nsys`` are not always at hand,
 so this script measures by ablation: it builds ``csrc/thomas_fwd.cu`` once per
@@ -22,6 +23,18 @@ last publication of a line to a CTA's carry of the next) and the line period.
 (The stamps cost time of their own; the phase after the block's barrier reads
 longer than the code it holds, so the ablation, not the trace, gives the
 breakdown.)
+
+With ``--sweep`` it builds ``csrc/sweep_fused.cu`` and
+``csrc/thomas_fwd_cached.cu`` once per case of :data:`SWEEP_CASES` instead
+(into ``build/ablation/sweep/``): the grid-barrier step whole, the
+flag-handoff step whole, and without one phase of its step each: the flag
+wait, the injection (the trace's words and the coupling products), the
+outputs (y, t, the traces for the next launch and the private y lines), the
+carry's load, the band step, the products, the bulk copies.  It times the
+down and the up kernel on random banded+tail factors at the 801^2 solve's
+shape (16 slabs of 70 lines, width 201, trace tail 22; ``thomas_probe.py``),
+and the cached forward pass at one slab of 70 lines on random bf16 planes
+(rows 3 and 5), for r = 1 and 2, and prints microseconds a step.
 """
 
 import ctypes
@@ -45,7 +58,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E40
 
 # bits of THOMAS_ABLATE, as in csrc/thomas_line.cuh and csrc/thomas_flow.cuh
 NO_BAND_STEP, NO_PRODUCTS, NO_PLANE_COPIES, NO_ROW_COPIES, NO_CARRY_LOAD = 1, 2, 8, 16, 32
-NO_FLAG_WAIT = 64
+NO_FLAG_WAIT, NO_INJECTION, NO_OUTPUTS = 64, 128, 256
 NO_COPIES = NO_PLANE_COPIES | NO_ROW_COPIES
 CASES = [
     ("grid-barrier step, whole", {"THOMAS_OLD_STEP": 1}),
@@ -65,6 +78,59 @@ CASES = [
     # one item of look-ahead instead of two
     ("two stages", {"THOMAS_STAGES": 2}),
 ]
+
+
+SWEEP_CASES = [
+    ("grid-barrier step, whole", {"THOMAS_OLD_STEP": 1}),
+    ("full", {"THOMAS_ABLATE": 0}),
+    ("no flag wait", {"THOMAS_ABLATE": NO_FLAG_WAIT}),
+    ("no injection", {"THOMAS_ABLATE": NO_INJECTION}),
+    ("no outputs", {"THOMAS_ABLATE": NO_OUTPUTS}),
+    ("no carry load", {"THOMAS_ABLATE": NO_CARRY_LOAD}),
+    ("no carry load + band step", {"THOMAS_ABLATE": NO_BAND_STEP}),
+    ("no products", {"THOMAS_ABLATE": NO_PRODUCTS}),
+    ("no plane copies", {"THOMAS_ABLATE": NO_PLANE_COPIES}),
+    ("no band/rhs copies", {"THOMAS_ABLATE": NO_ROW_COPIES}),
+    ("none of them", {"THOMAS_ABLATE": NO_BAND_STEP | NO_COPIES | NO_PRODUCTS | NO_FLAG_WAIT
+                      | NO_INJECTION | NO_OUTPUTS}),
+]
+
+
+def sweep_ablation(dev, g):
+    """Microseconds a step of the fused sweep kernels for each case of
+    :data:`SWEEP_CASES`, every build started at once."""
+    from thomas_probe import TRACE_TAIL, random_banded, sweep_operands, sweep_runs
+
+    sources = ["sweep_fused", "thomas_fwd_cached"]
+    dirs = [ROOT / "build" / "ablation" / "sweep" / str(i) for i in range(len(SWEEP_CASES))]
+    with ThreadPoolExecutor(len(SWEEP_CASES)) as pool:
+        list(pool.map(lambda i: cuda_build.build_kernels(
+            sources, defines=SWEEP_CASES[i][1], build_dir=dirs[i]),
+            range(len(SWEEP_CASES))))
+    cached = [cuda_build.load("thomas_fwd_cached", build_dir=d) for d in dirs]
+    dense = random_factors(g, 16, 70, 801, dev)
+    for r in (1, 2):
+        b4 = torch.zeros((1, 70, 2 * r, dense.ld), device=dev)
+        b4[..., :801] = torch.randn((1, 70, 2 * r, 801), generator=g, device=dev)
+        for (name, _), lib in zip(SWEEP_CASES, cached):
+            cuda_build._functions["thomas_fwd_cached"] = lib
+            tk._EXCHANGES = {}
+            ms = cuda_time_ms(lambda: tk.forward_substitution_cached(
+                dense, dense.slab_ids[8:9], b4), 10)
+            print(f"cached r={r}  {name:28s} {1e3 * ms / 70:7.3f} us/line", flush=True)
+    del dense
+    libs = [cuda_build.load("sweep_fused", build_dir=d) for d in dirs]
+    fac = random_banded(g, 16, 70, dev)
+    steps = fac.n_slabs * (fac.m + TRACE_TAIL)
+    for r in (1, 2):
+        cuda_build._functions["sweep_fused"] = libs[1]       # the up launch's inputs
+        runs = sweep_runs(fac, *sweep_operands(fac, r, g, dev))
+        for (name, _), lib in zip(SWEEP_CASES, libs):
+            cuda_build._functions["sweep_fused"] = lib
+            tk._EXCHANGES = {}
+            us = {k: 1e3 * cuda_time_ms(fn, 5) / steps for k, fn in runs.items()}
+            print(f"sweep r={r}  {name:28s} down {us['down']:7.3f}  up {us['up']:7.3f} us/step",
+                  flush=True)
 
 
 def ablated_libraries() -> list:
@@ -129,6 +195,10 @@ def random_factors(g, S, m, n, dev):
 
 def main():
     print(card_name_and_power_limit(), flush=True)
+    if "--sweep" in sys.argv[1:]:
+        sweep_ablation(torch.device("cuda", 0),
+                       torch.Generator(device="cuda").manual_seed(0))
+        return
     trace_only = "--trace-only" in sys.argv[1:]
     libs = [] if trace_only else ablated_libraries()
     trace_lib, read = trace_library()

@@ -1,21 +1,32 @@
-"""Time the dense forward and backward passes on the flag-handoff step against
-the grid-barrier step they replace, in turns in one process, at every shape
-of rows 1, 2, 4, 1i, 2i and 4i of PERF.md: one slab of 801 lines (the
-one-slab solve, r = 1 and 2), 16 batch rows of 70 lines (``jacobi_sweep``),
-one slab picked among 16 of 70 lines in full and over its last 22 lines (the
-multi-slab sweeps), on random bf16 and int8 factors.  Then the cost of a
-launch: a one-line backward pass through the bare launcher.
+"""Time the line kernels on the flag-handoff step against the grid-barrier
+step they replace, in turns in one process, on random factors:
+
+- the dense forward and backward passes at every shape of rows 1, 2, 4, 1i,
+  2i and 4i of PERF.md: one slab of 801 lines (the one-slab solve, r = 1 and
+  2), 16 batch rows of 70 lines (``jacobi_sweep``), one slab picked among 16
+  of 70 lines in full and over its last 22 lines (the multi-slab sweeps), on
+  bf16 and int8 planes; each case old, new, map, one CTA, two CTAs, two,
+  one, map, new, old;
+- the cached forward pass at every shape of rows 3, 5, 3i and 5i (one slab
+  among 16, 70 lines in full and resumed at line 48, r = 1 and 2) and of row
+  6 (banded+tail pivots of the 801^2 solve: width 201, 44 head and 26 tail
+  lines; one slab in full and resumed, and 16 batch rows), and the fused
+  sweep kernels of rows 8-9 (16 slabs, trace tail 22, r = 1 and 2); each
+  case old, new, new, old.
+
+Then the cost of a launch: a one-line backward pass through the bare launcher.
 
     python3 benchmarks_torch/thomas_probe.py
 
-Needs one CUDA card and nvcc.  Besides the package's build it builds
-``csrc/thomas_fwd.cu`` and ``csrc/thomas_bwd.cu`` three times more, into
-``build/probe/``: with ``-DTHOMAS_OLD_STEP=1`` (the grid-barrier step, the
-parent's kernels), and with ``-DTHOMAS_SPLIT=1`` and ``2`` (the flag-handoff
-step with one and with two CTAs a tile, where the package's build picks one
-per launch).  Each case is timed old, new, one CTA, two CTAs, two, one, new,
-old, and each step's output is held against the grid-barrier step's.
-Prints one JSON line per case.
+Needs one CUDA card and nvcc.  Besides the package's build it builds every
+line source again into ``build/probe/`` with ``-DTHOMAS_OLD_STEP=1`` (the
+grid-barrier step, the parent's kernels), and ``csrc/thomas_fwd.cu`` and
+``csrc/thomas_bwd.cu`` with ``-DTHOMAS_MAP_STEP=1`` (the dense passes
+through the step-map body, ``run_flow``, instead of ``flow_kernel``) and
+with ``-DTHOMAS_SPLIT=1`` and ``2`` (the flag-handoff step with one and with
+two CTAs a tile, where the package's build picks one per launch), all at
+once.  Each step's output is held against the
+grid-barrier step's.  Prints one JSON line per case.
 """
 
 import json
@@ -30,6 +41,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build  # noqa: E402
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E402
     card_name_and_power_limit,
@@ -38,9 +50,15 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E40
 
 N = 801
 M1_MAX, TRACE_TAIL = 70, 22   # of the 16-slab system at npml = 10
-SOURCES = ("thomas_fwd", "thomas_bwd")
-VARIANTS = {"old": {"THOMAS_OLD_STEP": 1}, "split1": {"THOMAS_SPLIT": 1},
-            "split2": {"THOMAS_SPLIT": 2}}
+HALF, TAIL_LINES = 100, 26    # banded+tail pivots of the 801^2 solve (width 201 by the rule)
+TRACES = dict(l0=10, l1=11, ln=58, lnp=59)    # trace lines of an inner slab
+SOURCES = ("thomas_fwd", "thomas_bwd", "thomas_fwd_cached", "sweep_fused")
+# variant -> (defines, sources): the grid-barrier step of every line source,
+# one and two CTAs a tile of the dense passes
+VARIANTS = {"old": ({"THOMAS_OLD_STEP": 1}, SOURCES),
+            "map": ({"THOMAS_MAP_STEP": 1}, SOURCES[:2]),
+            "split1": ({"THOMAS_SPLIT": 1}, SOURCES[:2]),
+            "split2": ({"THOMAS_SPLIT": 2}, SOURCES[:2])}
 
 
 def build_steps() -> dict:
@@ -50,14 +68,25 @@ def build_steps() -> dict:
     dirs = {name: ROOT / "build" / "probe" / name for name in VARIANTS}
     with ThreadPoolExecutor(len(VARIANTS)) as pool:
         list(pool.map(lambda name: cuda_build.build_kernels(
-            list(SOURCES), defines=VARIANTS[name], build_dir=dirs[name]), VARIANTS))
-    steps = {"new": {src: cuda_build.load(src) for src in SOURCES}}
-    for name in VARIANTS:
-        steps[name] = {src: cuda_build.load(src, build_dir=dirs[name]) for src in SOURCES}
+            list(VARIANTS[name][1]), defines=VARIANTS[name][0], build_dir=dirs[name]),
+            VARIANTS))
+    new = {src: cuda_build.load(src) for src in SOURCES}
+    steps = {"new": new}
+    for name, (_, sources) in VARIANTS.items():
+        steps[name] = dict(new, **{src: cuda_build.load(src, build_dir=dirs[name])
+                                   for src in sources})
     return steps
 
 
 _EXCHANGES = {}
+
+
+class SlotPerLine(tk.Exchange):
+    """The exchange of the dense passes through the step-map body: one slot
+    per line step, where ``flow_kernel`` reuses a ring of four."""
+
+    def take(self, batch, r, ld, lines, slots=tk.EXCHANGE_LINES):
+        return super().take(batch, r, ld, lines, max(slots, lines))
 
 
 def use(steps, name):
@@ -65,7 +94,29 @@ def use(steps, name):
     step with exchange buffers of its own (the grid-barrier forward pass keeps
     its float carry where the flag-handoff step keeps its flags)."""
     cuda_build._functions.update(steps[name])
-    tk._EXCHANGES = _EXCHANGES.setdefault(name, {})
+    if name not in _EXCHANGES:
+        dev = torch.device("cuda", 0)
+        key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+        _EXCHANGES[name] = {key: SlotPerLine(dev)} if name == "map" else {}
+    tk._EXCHANGES = _EXCHANGES[name]
+
+
+def in_turns(steps, fn, order, repeats):
+    """Time ``fn`` under each step of ``order`` in turn: mean ms by step, the
+    times of each turn, and each step's output (a tuple of clones)."""
+    times, outs = {}, {}
+    for step in order:
+        use(steps, step)
+        got = fn()
+        outs[step] = tuple(t.clone() for t in (got if isinstance(got, tuple) else (got,)))
+        times.setdefault(step, []).append(time_ms(fn, repeats))
+    torch.cuda.synchronize()
+    use(steps, "new")
+    return {step: sum(t) / len(t) for step, t in times.items()}, times, outs
+
+
+def err_of(outs, step):
+    return max(err(a, b) for a, b in zip(outs[step], outs["old"]))
 
 
 def random_factors(g, S, m, storage, dev):
@@ -109,24 +160,95 @@ def probe(steps, row, storage, fac, s_idx, b4, tail=0, repeats=10):
     runs = {"bwd": lambda: tk.backward_substitution(fac, s_idx, y4, tail=tail)}
     if not tail:
         runs = {"fwd": lambda: tk.forward_substitution(fac, s_idx, b4), **runs}
+    order = ("old", "new", "map", "split1", "split2", "split2", "split1", "map", "new", "old")
     for name, fn in runs.items():
-        times, outs = {}, {}
-        for step in ("old", "new", "split1", "split2", "split2", "split1", "new", "old"):
-            use(steps, step)
-            outs[step] = fn()
-            times.setdefault(step, []).append(time_ms(fn, repeats))
-        torch.cuda.synchronize()
-        ms = {step: sum(t) / len(t) for step, t in times.items()}
+        ms, turns, outs = in_turns(steps, fn, order, repeats)
         print(json.dumps(dict(
             row=row, pass_=name, storage=storage, B=b4.shape[0], S=fac.n_slabs, m=fac.m,
             lines=lines, n=N, r=b4.shape[2] // 2, tail=tail,
-            old_ms=ms["old"], new_ms=ms["new"], split1_ms=ms["split1"], split2_ms=ms["split2"],
-            ms_turns=times,
+            old_ms=ms["old"], new_ms=ms["new"], map_ms=ms["map"], split1_ms=ms["split1"],
+            split2_ms=ms["split2"],
+            ms_turns=turns,
             us_per_line={step: 1e3 * v / lines for step, v in ms.items()},
-            new_vs_old_err=err(outs["new"], outs["old"]),
-            split_vs_old_err=max(err(outs[k], outs["old"]) for k in ("split1", "split2")),
+            new_vs_old_err=err_of(outs, "new"),
+            split_vs_old_err=max(err_of(outs, k) for k in ("map", "split1", "split2")),
         )), flush=True)
-    use(steps, "new")
+
+
+def probe_cached(steps, row, fac, s_idx, b4, start=0, repeats=10):
+    """The cached forward pass (rows 3, 5, 6, 3i, 5i) at one shape, in full
+    or resumed at ``start`` from a carry, old, new, new, old."""
+    t_init = b4[:, start].contiguous() if start else None
+    out = (torch.zeros_like(b4), torch.zeros_like(b4))
+    lines = fac.m - start
+    ms, turns, outs = in_turns(steps, lambda: tk.forward_substitution_cached(
+        fac, s_idx, b4, t_init, start=start, out=out), ("old", "new", "new", "old"), repeats)
+    print(json.dumps(dict(
+        row=row, pass_="fwd_cached", layout=tk.layout(fac), B=b4.shape[0], S=fac.n_slabs,
+        m=fac.m, lines=lines, n=N, r=b4.shape[2] // 2, start=start, old_ms=ms["old"],
+        new_ms=ms["new"], ms_turns=turns,
+        us_per_line={step: 1e3 * v / lines for step, v in ms.items()},
+        new_vs_old_err=err_of(outs, "new"))), flush=True)
+
+
+def random_banded(g, S, m, dev):
+    """Random banded+tail factors at the 801^2 solve's width: head windows
+    and tail planes scaled so that the recurrences contract, output lanes
+    past n zero."""
+    ld = tk._round_up(N, tk.LEAD_MULTIPLE)
+    tiles, wt, ts = ld // tk.LEAD_MULTIPLE, 8 + 2 * HALF, m - TAIL_LINES
+
+    def planes(shape, rows):
+        p = (0.2 / rows ** 0.5) * torch.randn(shape, generator=g, device=dev)
+        p[..., tiles - 1, :, N - (tiles - 1) * 8:] = 0
+        return p.to(torch.bfloat16)
+
+    bands = []
+    for _ in range(2):
+        b = torch.zeros((S, m, 2, 3, ld), device=dev)
+        b[..., :N] = 0.4 * torch.rand((S, m, 2, 3, N), generator=g, device=dev) - 0.2
+        bands.append(b)
+    head = [planes((S, ts, tiles, wt, 8), wt) for _ in range(2)]
+    tail = [planes((S, m - ts, tiles, ld, 8), N) for _ in range(2)]
+    return tk.BandedTailFactorization(*head, *tail, *bands, N, HALF)
+
+
+def sweep_operands(fac, r, g, dev):
+    """Trace metadata of inner slabs (:data:`TRACES`), random source rows and
+    coupling rows for the fused sweeps on ``fac``."""
+    S, m, ld = fac.n_slabs, fac.m, fac.ld
+    tr = TRACES
+    meta = torch.tensor([[0] + [tr["l0"]] * (S - 1), [0] + [tr["l1"]] * (S - 1),
+                         [tr["ln"]] * (S - 1) + [0], [tr["lnp"]] * (S - 1) + [0],
+                         [0] + [1] * (S - 1), [1] * (S - 1) + [0]],
+                        dtype=torch.int32, device=dev)
+    cpl = []
+    for _ in range(4):
+        c = torch.zeros((S, 2, 3, ld), device=dev)
+        c[..., :N] = 0.2 * torch.rand((S, 2, 3, N), generator=g, device=dev) - 0.1
+        cpl.append(c)
+    return meta, rows(g, S, m, r, dev), cpl
+
+
+def sweep_runs(fac, meta, b4, cpl):
+    """The down and the up launch (the up one on the down one's outputs)."""
+    down = sk.sweep_down(fac, meta, b4, cpl[0], cpl[1], TRACE_TAIL)
+    return {"down": lambda: sk.sweep_down(fac, meta, b4, cpl[0], cpl[1], TRACE_TAIL),
+            "up": lambda: sk.sweep_up(fac, meta, b4, cpl[2], cpl[3], *down, TRACE_TAIL)}
+
+
+def probe_sweeps(steps, fac, r, g, dev, repeats=10):
+    """The fused sweep kernels (rows 8-9) over all slabs, old, new, new, old."""
+    S, m = fac.n_slabs, fac.m
+    line_steps = S * (m + TRACE_TAIL)
+    for name, fn in sweep_runs(fac, *sweep_operands(fac, r, g, dev)).items():
+        ms, turns, outs = in_turns(steps, fn, ("old", "new", "new", "old"), repeats)
+        print(json.dumps(dict(
+            row=8 if name == "down" else 9, pass_="sweep_" + name, S=S, m=m, n=N,
+            trace_tail=TRACE_TAIL, r=r, line_steps=line_steps, old_ms=ms["old"],
+            new_ms=ms["new"], ms_turns=turns,
+            us_per_step={step: 1e3 * v / line_steps for step, v in ms.items()},
+            new_vs_old_err=err_of(outs, "new"))), flush=True)
 
 
 def probe_launch_cost(fac, dev):
@@ -189,10 +311,26 @@ def main():
             b4 = rows(g, 1, M1_MAX, r, dev)
             probe(steps, row, storage, fac, s, b4)
             probe(steps, row, storage, fac, s, b4, tail=TRACE_TAIL)
+        # the cached forward pass at one inner slab: rows 3 and 5 (3i, 5i)
+        for r, row in ((1, f"3{i8}"), (2, f"5{i8}")):
+            b4 = rows(g, 1, M1_MAX, r, dev)
+            probe_cached(steps, row, fac, s, b4)
+            probe_cached(steps, row, fac, s, b4, start=M1_MAX - TRACE_TAIL)
         if storage == "bf16":
             probe_launch_cost(fac, dev)
         del fac
         torch.cuda.empty_cache()
+    # banded+tail pivots: row 6 at one inner slab and at 16 batch rows, and
+    # the fused sweeps of rows 8-9
+    fac = random_banded(g, 16, M1_MAX, dev)
+    s = fac.slab_ids[8:9]
+    for r in (1, 2):
+        b4 = rows(g, 1, M1_MAX, r, dev)
+        probe_cached(steps, "6", fac, s, b4)
+        probe_cached(steps, "6", fac, s, b4, start=M1_MAX - TRACE_TAIL)
+    probe_cached(steps, "6", fac, fac.slab_ids, rows(g, 16, M1_MAX, 1, dev))
+    for r in (1, 2):
+        probe_sweeps(steps, fac, r, g, dev)
 
 
 if __name__ == "__main__":

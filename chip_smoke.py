@@ -37,10 +37,13 @@ kernels on random int8 factors at r = 1, 2 and 3 and a 3-slab int8 solve on
 the card against the CPU.  The seventh is ``plasma2d.build_problem(
 use_pallas=True)`` with every other argument at its default (full pivots with
 bf16 kernel planes beside them), whose preconditioner applies run the stencil
-matvec kernel; before it that kernel on a random field.  The dense forward
-and backward passes (rows 1, 2, 4 and 1i, 2i, 4i) run the flag-handoff line
-step (``csrc/thomas_flow.cuh``); after the one-slab path the script prints
-their microseconds a line and checks that repeated passes give the same bits.
+matvec kernel; before it that kernel on a random field.  Every 2D line
+kernel but the backward pass on banded+tail pivots runs the flag-handoff
+line step (``csrc/thomas_flow.cuh``): the dense forward and backward passes
+(rows 1, 2, 4 and 1i, 2i, 4i), the cached forward pass (rows 3, 5, 6, 3i, 5i)
+and the fused sweeps (rows 8-9); after each path the script prints their
+microseconds a line step and checks that repeated launches give the same
+bits.
 Each phase prints one JSON line; any failed check raises, so the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -112,7 +115,7 @@ KERNEL_INFO = {
         source=_PORT + "thomas_fwd.cu", replaces={1: f"{_TPU}:610", 2: f"{_TPU}:610"},
     ),
     "thomas_forward_cached": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, false, true>",
+        route="cuda", kernel="thomas::cached_kernel<R, false, Storage::kBf16, SPLIT>",
         source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:221", 2: f"{_TPU}:546"},
     ),
     "thomas_backward": dict(
@@ -153,7 +156,7 @@ KERNEL_INFO = {
     ),
     # the banded+tail layout: the hybrid pair and the fused sweep kernels
     "thomas_forward_ht": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, false, true, true>",
+        route="cuda", kernel="thomas::cached_kernel<R, true, Storage::kBf16, SPLIT>",
         source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:928", 2: f"{_TPU}:928"},
     ),
     "thomas_backward_ht": dict(
@@ -161,11 +164,11 @@ KERNEL_INFO = {
         source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:957", 2: f"{_TPU}:957"},
     ),
     "sweep_down": dict(
-        route="cuda", kernel="sweep::down_kernel<R>", source=_PORT + "sweep_fused.cu",
+        route="cuda", kernel="sweep::down_kernel<R, SPLIT>", source=_PORT + "sweep_fused.cu",
         replaces={1: f"{_TPU_SWEEP}:86", 2: f"{_TPU_SWEEP}:86"},
     ),
     "sweep_up": dict(
-        route="cuda", kernel="sweep::up_kernel<R>", source=_PORT + "sweep_fused.cu",
+        route="cuda", kernel="sweep::up_kernel<R, SPLIT>", source=_PORT + "sweep_fused.cu",
         replaces={1: f"{_TPU_SWEEP}:157", 2: f"{_TPU_SWEEP}:157"},
     ),
     # the int8 mode of rows 1-5: the nb > 1 branch of _scaled_dots
@@ -175,7 +178,7 @@ KERNEL_INFO = {
         source=_PORT + "thomas_fwd.cu", replaces={1: f"{_TPU}:610", 2: f"{_TPU}:610"},
     ),
     "thomas_forward_cached_int8": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, false, true, false, Storage::kInt8>",
+        route="cuda", kernel="thomas::cached_kernel<R, false, Storage::kInt8, SPLIT>",
         source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:221", 2: f"{_TPU}:546"},
     ),
     "thomas_backward_int8": dict(
@@ -187,6 +190,15 @@ KERNEL_INFO = {
         replaces={1: f"{_TPU_STENCIL}:75"},
     ),
 }
+# the line step of each 2D line kernel: the flag-handoff step of
+# csrc/thomas_flow.cuh (flow_kernel, or run_flow driven by a step map), or the
+# grid-barrier step of csrc/thomas_line.cuh (run_steps)
+FLOW_STEP, BARRIER_STEP = "flag-handoff", "grid-barrier"
+for _name, _info in KERNEL_INFO.items():
+    if _info["source"].rsplit("/", 1)[-1] in ("thomas_fwd.cu", "thomas_bwd.cu",
+                                              "thomas_fwd_cached.cu", "sweep_fused.cu"):
+        _info["step"] = BARRIER_STEP if _name == "thomas_backward_ht" else FLOW_STEP
+
 # the 2D kernels by pivot layout: dense planes, banded+tail, fused sweeps
 DENSE_2D = ("thomas_forward", "thomas_forward_cached", "thomas_backward")
 HT_PAIR = ("thomas_forward_ht", "thomas_backward_ht")
@@ -514,6 +526,25 @@ def kernel_entry(name, r, path, launches, kernel, plain, bound, library_ms, shap
     )
 
 
+def line_step_report(path: str, r: int, entries: list, runs: dict):
+    """Print microseconds a line step of each kernel entry (``entries``:
+    (entry, line steps of one launch) pairs) and check that three more
+    launches of each kernel (``runs``: name -> launch) give the same bits as
+    the first: the flag handoff leaves no sum to timing."""
+    identical = {}
+    for name, fn in runs.items():
+        outs = []
+        for _ in range(4):
+            got = fn()
+            outs.append(tuple(t.clone() for t in got) if isinstance(got, tuple)
+                        else (got.clone(),))
+        identical[name] = all(all(torch.equal(a, b) for a, b in zip(o, outs[0]))
+                              for o in outs[1:])
+    emit("line_step", path=path, r=r, bit_identical_over_repeats=identical,
+         us_per_step={e["name"]: 1e3 * e["ms"] / steps for e, steps in entries})
+    check(all(identical.values()), f"repeated launches give the same bits ({identical})")
+
+
 def phase_kernel_times(problem, path_counts: dict) -> list:
     """Each kernel at the shapes of the one-slab paths (S = 1, m = n = 801;
     r = 1 for ``solve``, r = 2 for ``solve_batched``) on the solve's own pivot
@@ -660,6 +691,10 @@ def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) ->
                 pass_bound(tail, n, ld, r, stacks=2), lib_tail, dict(shape, tail=tail),
                 variant="_slab_tail", replaces=replaces_bwd),
         ]
+        line_step_report(path, r, [(kernels[-4], m), (kernels[-3], tail)], {
+            "thomas_forward_cached": lambda: tk.forward_substitution_cached(fac, s_idx, b4),
+            "thomas_forward_cached_resumed": lambda: resumed(tk.forward_substitution_cached,
+                                                             out_k)})
         # solve_resume against solve on the same right-hand side
         rhs_slab = part[slab]
         _, y_c, t_c = tk.solve_cached(fac, slab, rhs_slab, tail)
@@ -1702,6 +1737,11 @@ def phase_ht_kernel_times(problem, path_counts: dict, sweep_counts: dict) -> lis
                                                    tables.cnnp, y4s, t4s, unps, tt),
                          ht_sweep_bound(fac, r, tt, up=True), lib_up, shape),
         ]
+        line_step_report(path, r, [(kernels[-2], S * (m + tt)), (kernels[-1], S * (tt + m))], {
+            "sweep_down": lambda: sk.sweep_down(fac, tables.meta, b4s, tables.c01,
+                                                tables.c10, tt),
+            "sweep_up": lambda: sk.sweep_up(fac, tables.meta, b4s, tables.cnpn, tables.cnnp,
+                                            y4s, t4s, unps, tt)})
         # the hybrid passes at one inner slab, with jacobi_sweep's launches
         counts = sweep_counts["jacobi_sweep" if r == 1 else "jacobi_sweep_r2"]
         cpath = "ht_jacobi_sweep" if r == 1 else "ht_jacobi_sweep_r2"
@@ -1742,6 +1782,10 @@ def phase_ht_kernel_times(problem, path_counts: dict, sweep_counts: dict) -> lis
                          ht_pass_bound(fac, r, tail_lines, 2), lib_tail, dict(one, tail=tt),
                          variant="_tail"),
         ]
+        line_step_report(cpath, r, [(kernels[-4], m), (kernels[-3], tt)], {
+            "thomas_forward_ht": lambda: tk.forward_substitution_cached(fac, s_idx, b4),
+            "thomas_forward_ht_resumed": lambda: resumed(tk.forward_substitution_cached,
+                                                         out_k)})
         if r == 1:      # jacobi_sweep's solves of all slabs at once
             yall, _ = tk.forward_substitution_cached(fac, fac.slab_ids, b4s)
             counts = sweep_counts["jacobi_sweep"]
@@ -2002,6 +2046,10 @@ def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict) -> 
                 int8_pass_bound(tail, n, ld, r, stacks=2), lib_tail, dict(shape, tail=tail),
                 variant="_slab_tail", replaces=replaces_bwd),
         ]
+        line_step_report(path, r, [(kernels[-4], m), (kernels[-3], tail)], {
+            "thomas_forward_cached_int8": lambda: tk.forward_substitution_cached(fac, s_idx, b4),
+            "thomas_forward_cached_int8_resumed": lambda: resumed(
+                tk.forward_substitution_cached, out_k)})
         # the batched pair with one batch row per slab (jacobi_sweep's solve_all)
         yall = tk.forward_substitution(fac, fac.slab_ids, b4s)
         jc = jacobi_counts[f"jacobi_sweep_y_r{r}"]

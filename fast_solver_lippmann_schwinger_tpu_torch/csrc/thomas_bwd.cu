@@ -25,7 +25,10 @@
 // barrier per line, 8-lane tiles, staged plane columns), which reads the
 // carry x_{j+1} from the output stack's row j+1 and ignores xchg and epoch.
 // A build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/thomas_probe.py only)
-// runs dense planes on that step too, pass_kernel<R, true, false, false, S>.
+// runs dense planes on that step too, pass_kernel<R, true, false, false, S>;
+// one with -DTHOMAS_MAP_STEP=1 runs them through the step-map body of
+// thomas_flow.cuh (run_flow), which measured slower than flow_kernel
+// (PERF.md §6).
 //
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B, or two head
 // windows, 2 x ld x (8 + 2 half) x 2 B less the rows outside [0, n), against
@@ -74,6 +77,11 @@ extern "C" int thomas_backward(
   cudaError_t err = tail_start > 0
                         ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)
                         : thomas::run_pass<true>(r, a, (cudaStream_t)stream);
+#elif THOMAS_MAP_STEP
+  cudaError_t err = tail_start > 0
+                        ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)
+                        : thomas::run_map_pass<true>(r, a, static_cast<uint2*>(xchg), epoch,
+                                                     (cudaStream_t)stream);
 #else
   cudaError_t err = tail_start > 0
                         ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)

@@ -1,14 +1,20 @@
-// Flag-handoff line step: the body of the two dense substitution passes
+// Flag-handoff line step: the body of the 2D substitution kernels on Hopper
 //
-//     flow_kernel<R, false, S>      forward pass     thomas_fwd.cu
-//     flow_kernel<R, true,  S>      backward pass    thomas_bwd.cu
+//     flow_kernel<R, false, S, SPLIT>       forward pass          thomas_fwd.cu
+//     flow_kernel<R, true,  S, SPLIT>       backward pass         thomas_bwd.cu
+//     cached_kernel<R, kBanded, S, SPLIT>   cached forward pass   thomas_fwd_cached.cu
+//                                           (dense or banded+tail pivots)
+//     sweep::down_kernel<R, SPLIT>,         whole Gauss-Seidel    sweep_fused.cu
+//     sweep::up_kernel<R, SPLIT>            sweep directions
 //
-// on bf16 or int8 pivot planes (S).  The cached forward pass, the passes on
-// banded+tail pivots and the fused sweeps keep the grid-barrier step of
-// thomas_line.cuh, whose note describes the layouts, the numerics contract
-// and the bound; this step computes the same function on the same layouts:
+// on bf16 or int8 pivot planes (S).  The dense passes run flow_kernel, the
+// others run_flow, the same step driven by a step map (the second half of
+// this file, which says what it adds).  Only the backward pass on banded+tail
+// pivots keeps the grid-barrier step of thomas_line.cuh, whose note describes
+// the layouts, the numerics contract and the bound; this step computes the
+// same function on the same layouts:
 //
-//     w = rhs_j - band_j . prev,     t = C_j^{-1} w,
+//     w = rhs_j [+- cpl . trace] - band_j . prev,     t = C_j^{-1} w,
 //
 // bf16 or int8 planes widened to f32, f32 carries, bands and sums.
 //
@@ -94,8 +100,9 @@
 // Limits.  r = 1 or 2 (the wrappers run wider batches as groups), and a
 // slice whose kStages stage buffers fit in one CTA's shared memory and whose
 // rows fit flow_groups rows a thread: one CTA a tile up to n = 976 in bf16 at
-// r = 2, two up to n = 1968 in bf16 and 2448 in int8 (measured by
-// test_longest_line_fits).  Anything else is refused with
+// r = 2, two up to n = 1968 in bf16 and 2448 in int8, the cached forward pass
+// too; the fused sweeps, which keep the trace rows beside the carry, 912 and
+// 1840 (measured by test_longest_line_fits).  Anything else is refused with
 // cudaErrorInvalidValue before a launch, and a cooperative launch that does
 // not fit returns its error.
 #pragma once
@@ -210,6 +217,17 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
       ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// The L1 line of p fetched ahead of its load
+__device__ __forceinline__ void prefetch_l1(const void* p) {
+  asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
+}
+
+// Global stores of this thread made visible to the bulk copies (the async
+// proxy) that a later barrier orders after them
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
 // Exchange words (value bits, flag): relaxed accesses at GPU scope, which
@@ -729,6 +747,602 @@ inline cudaError_t run_flow_pass(int r, const PassArgs& a, uint2* xchg, unsigned
                   : launch_flow<2, kBackward, Storage::kInt8>(fa, stream);
   return r == 1 ? launch_flow<1, kBackward, Storage::kBf16>(fa, stream)
                 : launch_flow<2, kBackward, Storage::kBf16>(fa, stream);
+}
+
+
+// ---------------------------------------------------------------------------
+// The step driven by a step map: the cached forward pass (dense bf16, int8 and
+// banded+tail pivots, thomas_fwd_cached.cu) and the fused sweep directions
+// (sweep_fused.cu).  The same handoff, work split, staging and reduction as
+// flow_kernel; a map says, for each tile of each line step, where its
+// operands are (FlowTile), and the step computes for the tile's lanes
+//
+//     w = rhs [+- cpl . (trace - trace_sub)] - band . carry,     t = C^{-1} w.
+//
+// What the map adds to the dense passes (PERF.md §6 measures each):
+//   - Head windows.  A tile's input rows are a window of the line (Cols: i0,
+//     cnt) and the CTA takes their part in its slice, one bulk copy per
+//     plane; the band and right-hand rows come whole, one copy each (with two
+//     CTAs a tile, one copy per row of the item's rows to 16 bytes: fewer
+//     copies to issue paid more than fewer bytes).  It waits only on the
+//     tiles that publish the carry lanes of its rows (at several tiles a CTA,
+//     on those of its slice).
+//   - One slot of exchange words per line step for the whole launch, (steps, B,
+//     ld, 2r, SPLIT) words: no slot is written twice in a launch, so no CTA
+//     can overwrite words another still reads, however far apart narrow
+//     windows let CTAs run (the four-line ring of flow_kernel rests on every
+//     tile reading every tile), and the words of any earlier step stay
+//     readable.  So a sweep's traces are the words of the backward step that
+//     produced them: the injection reads them, less a row written before the
+//     launch (the reflection correction), as it reads a carry.
+//   - A carry handed in (t_init, or the down sweep's t stack): a row written
+//     before the launch, read with plain loads, no flag.
+//   - Private y lines.  A backward step of a sweep needs y of its rows, which
+//     the same CTA formed as w at the forward step of that line: it keeps them
+//     in its own lines of `priv` and stages them with the other operands, so
+//     it waits on no one for them (its threads fence their stores for the
+//     bulk copies, which are issued steps later); the first backward line's y
+//     is w of the step just before, still in the threads' registers.
+//   - The part of w that no later step makes (the right-hand rows, the
+//     injection, whose coupling rows are prefetched into L1 while the trace's
+//     words are read) is formed before the carry's wait.
+//   - Outputs (the t stack, the volume, the down sweep's u_np) are stored by
+//     the publisher from its sums with one CTA a tile; with two, the CTA whose
+//     slice holds the tile reads both halves' words back and stores their sum.
+//     y of the tile's lanes is stored as w is formed.
+// Every wait is on an earlier step, every tile of a step is handled by a
+// resident CTA in step order, so nothing waits forever (and a poll traps after
+// 2^24 tries).  The dense passes through this body (the trivial map, PassMap
+// below, built with -DTHOMAS_MAP_STEP=1) measured up to 16 % slower than
+// flow_kernel, which they keep (PERF.md §6).
+
+// Ablation bits beside those above: no injection (no trace read, no cpl
+// products); no outputs (y, t, traces and private y lines not stored)
+constexpr bool kNoInjection = THOMAS_ABLATE & 128;
+constexpr bool kNoOutputs = THOMAS_ABLATE & 256;
+
+// One work item of a step map: one tile of one line step
+struct FlowTile {
+  Cols cols;               // the tile's input rows i0 .. i0 + cnt - 1 and their pivot run
+  const float* band;       // (6, ld) band applied to the carry; null: no carry term
+  int carry_step;          //   >= 0: the carry is the words of this step
+  const float* carry_row;  //   else this (2R, ld) row written before the launch
+  const float* rhs;        // (2R, ld) right-hand rows written before the launch; null:
+  int rhs_priv;            //   >= 0: the CTA's private y line rhs_priv; else zero
+  int keep_priv;           // >= 0: w of the tile's rows kept in that private line
+  float* kept;             // (2R, ld): w of the tile's own lanes, or null
+  const float* cpl;        // (6, ld) injection band, or null ...
+  int trace_step;          //   ... times the words of this step ...
+  const float* trace_sub;  //   ... less this row written before the launch (or null)
+  float sign;              //   added (+1) or subtracted (-1)
+  float* out;              // (2R, ld): t of the tile's lanes, or null
+};
+
+__device__ __forceinline__ FlowTile flow_tile() {
+  FlowTile ft;
+  ft.band = ft.carry_row = ft.rhs = ft.cpl = ft.trace_sub = nullptr;
+  ft.kept = ft.out = nullptr;
+  ft.carry_step = ft.rhs_priv = ft.keep_priv = ft.trace_step = -1;
+  ft.sign = 1.f;
+  return ft;
+}
+
+// What the tiles of one launch of a step map share
+struct FlowLaunch {
+  int steps;               // line steps; step k publishes flag epoch + k into slot k
+  int batch;               // batch rows; tiles are batch row-major, ld / 8 a row
+  int n, ld;
+  uint2* xchg;             // (steps, batch, ld, 2r, SPLIT) exchange words, zeroed once
+  unsigned epoch;
+  float* priv;             // (grid, priv_lines, 2r, slice rows) private y lines, or null
+  int priv_lines;
+};
+
+// mbarriers, the warps' sums, the carry rows (and the trace rows, kInject),
+// then the stage ring
+template <int R, Storage S, int SPLIT, bool kInject>
+__host__ __device__ constexpr size_t map_smem_bytes(int ld) {
+  return 64 + flow_red_bytes<R, SPLIT>() +
+         (kInject ? 2 : 1) * flow_prev_bytes<R>(slice_rows<SPLIT>(ld)) +
+         kStages * flow_stage_bytes<R, S>(slice_rows<SPLIT>(ld), ld);
+}
+
+template <int R, Storage S, int SPLIT, bool kInject, class Items>
+__device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& fl) {
+  constexpr int kFlowThreads = flow_threads<SPLIT>();
+  constexpr int kFlowWarps = kFlowThreads / 32;
+  constexpr int V = 2 * R * kLanes;     // output values of a tile: rows x lanes
+  constexpr int NW = SPLIT * R;         // 16-byte words a lane: 2R rows x SPLIT halves
+  constexpr int kPollBatch = (SPLIT == 1 ? 2 : 4) * R;
+  constexpr int kGroups = flow_groups<SPLIT>();
+  constexpr int kRowBytes = S == Storage::kInt8 ? 8 : 16;    // a tile's pivot row
+  const int n = fl.n, ld = fl.ld;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = (int)blockIdx.x % SPLIT;
+  const int pair = (int)blockIdx.x / SPLIT;
+  const int npairs = (int)gridDim.x / SPLIT;
+  const int T = ld / kLanes;
+  const int cmax = slice_rows<SPLIT>(ld);
+  const int sbase = rank * cmax;                    // this CTA's slice: rows sbase ..
+  const int send = min(sbase + cmax, n);            //   send - 1
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);                 // [kStages]
+  float* red = reinterpret_cast<float*>(smem + 64);                     // warps' sums
+  float* s_prev = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>());
+  const int pp = cmax + 16;               // row pitch of s_prev: lane sbase - 8 at 0
+  float* s_trace = s_prev + 2 * R * pp;   // kInject: the trace rows, same layout
+  unsigned char* ring =
+      smem + 64 + flow_red_bytes<R, SPLIT>() + (kInject ? 2 : 1) * flow_prev_bytes<R>(cmax);
+  const size_t stage_bytes = flow_stage_bytes<R, S>(cmax, ld);
+  const size_t pbytes = (size_t)cmax * kRowBytes;
+  const unsigned nsc = (unsigned)scale_buf_bytes<S>(ld);
+  float* priv = fl.priv == nullptr
+                    ? nullptr
+                    : fl.priv + (size_t)blockIdx.x * fl.priv_lines * 2 * R * cmax;
+
+  // work items: a run of consecutive tiles (batch row-major) of each step
+  const int total = fl.batch * T;
+  const int tiles_blk = total / npairs + (pair < total % npairs);
+  const int tile0 = pair * (total / npairs) + min(pair, total % npairs);
+  const int nitem = fl.steps * tiles_blk;
+
+  struct Item {
+    int k, b, t, r0, r1;    // step, batch row, tile; its rows in this slice
+    FlowTile ft;
+  };
+  auto item = [&](int q) {
+    Item it;
+    it.k = q / tiles_blk;
+    const int tile = tile0 + (q - it.k * tiles_blk);
+    it.b = tile / T;
+    it.t = tile - it.b * T;
+    it.ft = items.tile(it.k, it.b, it.t);
+    it.r0 = max(it.ft.cols.i0, sbase);
+    it.r1 = max(min(it.ft.cols.i0 + it.ft.cols.cnt, send), it.r0);
+    return it;
+  };
+  // the exchange words of step k, batch row b (lane-major)
+  auto slot = [&](int k, int b) {
+    return fl.xchg + ((size_t)k * fl.batch + b) * ld * NW * 2;
+  };
+  // the words of step k, batch row b, of lanes lo .. hi - 1, both halves
+  // added in rank order, less `sub` (a row written before the launch), into
+  // dst; polled by all threads together
+  auto load_words = [&](int k, int b, int lo, int hi, float* dst, const float* sub) {
+    const uint2* src = slot(k, b);
+    const unsigned want = fl.epoch + (unsigned)k;
+    const int words = (hi - lo) * NW;
+    for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
+      const uint2* ptr[kPollBatch];
+#pragma unroll
+      for (int u = 0; u < kPollBatch; ++u) {
+        const int w = w0 + tid + u * kFlowThreads;
+        ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
+      }
+      uint4 v[kPollBatch];
+      poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
+#pragma unroll
+      for (int u = 0; u < kPollBatch; ++u) {
+        if (ptr[u] == nullptr) continue;
+        const int w = w0 + tid + u * kFlowThreads;
+        const int o = lo + w / NW, h = w % NW, at = o - (sbase - 8);
+        if (SPLIT == 2) {         // word h: row h, halves 0 and 1
+          const float x = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
+          dst[h * pp + at] = sub == nullptr ? x : x - sub[(size_t)h * ld + o];
+        } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
+          const float x0 = __uint_as_float(v[u].x), x1 = __uint_as_float(v[u].z);
+          dst[2 * h * pp + at] = sub == nullptr ? x0 : x0 - sub[(size_t)2 * h * ld + o];
+          dst[(2 * h + 1) * pp + at] = sub == nullptr ? x1 : x1 - sub[(size_t)(2 * h + 1) * ld + o];
+        }
+      }
+    }
+  };
+  // lanes lo .. hi - 1 of a row written before the launch
+  auto load_row = [&](const float* src, int lo, int hi, float* dst) {
+    const int cnt = hi - lo;
+    for (int i = tid; i < 2 * R * cnt && !kNoCarryLoad; i += kFlowThreads) {
+      const int p = i / cnt, o = lo + i - p * cnt;
+      dst[p * pp + o - (sbase - 8)] = __ldcg(src + (size_t)p * ld + o);
+    }
+  };
+
+  // the operands of item q that depend on no step of the launch, into stage
+  // q % kStages (one thread); an item of the same step, batch row and rows as
+  // the one before shares its w and takes no band or right-hand rows
+  int st_k = -1, st_b = -1, st_r0 = -1, st_r1 = -1, st_keep = -1;   // the last staged item's
+  auto stage = [&](int q) {
+    const Item it = item(q);
+    const bool same_rows = it.b == st_b && it.r0 == st_r0 && it.r1 == st_r1;
+    const bool new_w = !(it.k == st_k && same_rows);
+    // the right-hand rows: the map's, or this CTA's private line, unless that
+    // is the line the item before kept (its w is still in the registers)
+    const float* rhs = it.ft.rhs;
+    size_t rhs_pitch = ld;
+    if (rhs == nullptr && it.ft.rhs_priv >= 0 && !kNoOutputs &&
+        !(it.ft.rhs_priv == st_keep && same_rows)) {
+      rhs = priv + (size_t)it.ft.rhs_priv * 2 * R * cmax - sbase;
+      rhs_pitch = cmax;
+    }
+    if (new_w) st_keep = it.ft.keep_priv;
+    st_k = it.k;
+    st_b = it.b;
+    st_r0 = it.r0;
+    st_r1 = it.r1;
+    unsigned char* st = ring + (size_t)(q % kStages) * stage_bytes;
+    uint64_t* bar = full + q % kStages;
+    const int rows = it.r1 - it.r0;
+    const unsigned plane_bytes =
+        S == Storage::kInt8 ? 8u * ((rows + 1) & ~1) : 16u * rows;
+    // band and right-hand rows a0 .. a1 - 1: with one CTA a tile whole rows,
+    // back to back at pitch ld, one copy each kind (fewer copies to issue
+    // pays more than fewer bytes); else the item's rows to 16 bytes
+    const bool whole = cmax == ld;
+    const int a0 = whole ? 0 : it.r0 & ~3, a1 = whole ? ld : min((it.r1 + 3) & ~3, ld);
+    const unsigned row_bytes = 4u * (a1 - a0);
+    const int nrows = new_w && !kNoRowCopies
+                          ? (it.ft.band != nullptr ? 6 : 0) + (rhs != nullptr ? 2 * R : 0)
+                          : 0;
+    unsigned bytes = nrows * row_bytes;
+    if (!kNoPlaneCopies) bytes += 2 * plane_bytes + nsc;
+    if (rows == 0) bytes = 0;
+    mbar_expect_tx(bar, bytes);
+    if (bytes == 0) return;
+    if (!kNoPlaneCopies) {
+      const size_t off = (size_t)(it.r0 - it.ft.cols.i0) * kRowBytes;
+      bulk_copy(st, it.ft.cols.re + off, plane_bytes, bar);
+      bulk_copy(st + pbytes, it.ft.cols.im + off, plane_bytes, bar);
+      if (S == Storage::kInt8) bulk_copy(st + 2 * pbytes, it.ft.cols.scale, nsc, bar);
+    }
+    if (nrows == 0) return;
+    float* rows_at = reinterpret_cast<float*>(st + 2 * pbytes + nsc) + (a0 - sbase);
+    if (it.ft.band != nullptr) {
+      if (whole)
+        bulk_copy(rows_at, it.ft.band, 6 * row_bytes, bar);
+      else
+        for (int d = 0; d < 6; ++d)
+          bulk_copy(rows_at + d * cmax, it.ft.band + (size_t)d * ld + a0, row_bytes, bar);
+    }
+    if (rhs != nullptr) {
+      if (whole && rhs_pitch == (size_t)ld)
+        bulk_copy(rows_at + 6 * cmax, rhs, 2 * R * row_bytes, bar);
+      else
+        for (int p = 0; p < 2 * R; ++p)
+          bulk_copy(rows_at + (6 + p) * cmax, rhs + p * rhs_pitch + a0, row_bytes, bar);
+    }
+  };
+  constexpr int kStager = kFlowWarps - 2, kPublisher = kFlowWarps - 1;
+
+  if (tid == 0) {
+    for (int i = 0; i < kStages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  for (int i = tid; i < (kInject ? 2 : 1) * 2 * R * pp; i += kFlowThreads) s_prev[i] = 0.f;
+  __syncthreads();
+  if (tid == kStager * 32)
+    for (int q = 0; q < kStages - 1 && q < nitem; ++q) stage(q);
+
+  long long have_src = -1LL << 62;      // what s_prev holds: source, lanes
+  int have_lo = 0, have_hi = 0;
+  float wk[kGroups][2 * R];             // w of this thread's rows, of the item key w_*,
+  int w_k = -1, w_b = -1, w_r0 = -1, w_r1 = -1, w_keep = -1;   // kept in private line w_keep
+  for (int q = 0; q < nitem; ++q) {
+    const Item it = item(q);
+    const FlowTile& ft = it.ft;
+    const int o0 = it.t * kLanes;
+    const bool own_tile = o0 >= sbase && o0 < sbase + cmax;   // its lanes lie in the slice
+    const int rows = it.r1 - it.r0;
+    const bool same_w = it.k == w_k && it.b == w_b && it.r0 == w_r0 && it.r1 == w_r1;
+    const bool carry_in = ft.band != nullptr && rows > 0 && !kNoBandStep;
+    const bool inject = kInject && ft.cpl != nullptr && rows > 0 && !kNoInjection;
+    const unsigned char* st = ring + (size_t)(q % kStages) * stage_bytes;
+    const unsigned char* pre = st;
+    const unsigned char* pim = st + pbytes;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * pbytes);
+    const float* s_band = reinterpret_cast<const float*>(st + 2 * pbytes + nsc) - sbase;
+    const float* s_rhs = s_band + 6 * cmax;       // both indexed by the row
+
+    mbar_wait(full + q % kStages, (unsigned)(q / kStages) & 1u);
+    float* const pv = priv == nullptr ? nullptr : priv - sbase;   // indexed by the row
+    // 1. the part of w that waits on no unfinished step, before the carry's
+    // wait: the right-hand rows (staged, or the CTA's own private line) and
+    // the injection of the words of an earlier step
+    const int lo_i = max(it.r0 - 1, 0), hi_i = min(it.r1 + 1, n);
+    if (inject && !same_w) {
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {          // the coupling rows, while the trace is read
+        const int i = it.r0 + g * kFlowThreads + tid;
+        if (i < it.r1)
+          for (int d = 0; d < 6; ++d) prefetch_l1(ft.cpl + (size_t)d * ld + i);
+      }
+      load_words(ft.trace_step, it.b, lo_i, hi_i, s_trace, ft.trace_sub);
+      __syncthreads();                  // s_trace holds the trace lanes of the rows
+    }
+    // y of the private line the item before kept is w in the registers
+    const bool rhs_regs = ft.rhs == nullptr && ft.rhs_priv >= 0 && !kNoOutputs &&
+                          ft.rhs_priv == w_keep && it.b == w_b && it.r0 == w_r0 &&
+                          it.r1 == w_r1;
+    const bool rhs_staged = ft.rhs != nullptr || (ft.rhs_priv >= 0 && !kNoOutputs);
+    if (!same_w) {
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        if (g * kFlowThreads >= rows) break;
+        const int i = it.r0 + g * kFlowThreads + tid;
+        if (i >= it.r1) break;
+        float* w = wk[g];
+        if (!rhs_regs) {
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) w[p] = rhs_staged ? s_rhs[p * cmax + i] : 0.f;
+        }
+        if (inject) {          // + sign . (cpl . trace)
+          float injr[R], inji[R];
+#pragma unroll
+          for (int p = 0; p < R; ++p) injr[p] = inji[p] = 0.f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float br = __ldg(ft.cpl + (size_t)d * ld + i);
+            const float bi = __ldg(ft.cpl + (size_t)(3 + d) * ld + i);
+#pragma unroll
+            for (int p = 0; p < R; ++p) {
+              const float tr = s_trace[p * pp + i - sbase + 7 + d];
+              const float ti = s_trace[(R + p) * pp + i - sbase + 7 + d];
+              injr[p] = injr[p] + br * tr - bi * ti;
+              inji[p] = inji[p] + br * ti + bi * tr;
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < R; ++p) {
+            w[p] = w[p] + ft.sign * injr[p];
+            w[R + p] = w[R + p] + ft.sign * inji[p];
+          }
+        }
+      }
+    }
+    // 2. the carry lanes of the item's rows, i0 - 1 .. i0 + cnt within [0, n)
+    // (of the whole slice at several tiles a CTA, so that they share it)
+    bool loaded = false;
+    if (carry_in && !same_w) {
+      const int lo = tiles_blk > 1 ? max(sbase - 1, 0) : lo_i;
+      const int hi = tiles_blk > 1 ? min(send + 1, n) : hi_i;
+      const long long src = ft.carry_step >= 0
+                                ? (long long)ft.carry_step * fl.batch + it.b
+                                : -1LL - it.b;
+      if (src != have_src || lo < have_lo || hi > have_hi) {
+        if (ft.carry_step >= 0)
+          load_words(ft.carry_step, it.b, lo, hi, s_prev, nullptr);
+        else
+          load_row(ft.carry_row, lo, hi, s_prev);
+        have_src = src;
+        have_lo = lo;
+        have_hi = hi;
+        loaded = true;
+      }
+    }
+    if (loaded) __syncthreads();        // s_prev holds the carry lanes of the rows
+    // the stage that item q - 1 used is free (every thread is past its
+    // products): it takes item q + kStages - 1, issued once this item's
+    // carry is in, so that the copies do not queue before the carry's loads
+    if (tid == kStager * 32 && q + kStages - 1 < nitem) stage(q + kStages - 1);
+
+    // 3. w -= band . carry, and the products
+    float acc[V];
+#pragma unroll
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      if (g * kFlowThreads >= rows) break;
+      const int il = g * kFlowThreads + tid;          // the thread's row of the item
+      const int i = it.r0 + il;
+      const bool live = il < rows;
+      float cr[kLanes], ci[kLanes];
+      if (live && !kNoProducts) {
+        if (S == Storage::kInt8) {
+          widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
+          widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
+          const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
+#pragma unroll
+          for (int l = 0; l < kLanes; ++l) {
+            cr[l] *= sb[l];
+            ci[l] *= sb[kLanes + l];
+          }
+        } else {
+          widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
+          widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
+        }
+      }
+      float* w = wk[g];
+      if (!same_w && live) {
+        if (carry_in) {        // - band . carry
+          float accr[R], acci[R];
+#pragma unroll
+          for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float br = s_band[d * cmax + i];
+            const float bi = s_band[(3 + d) * cmax + i];
+#pragma unroll
+            for (int p = 0; p < R; ++p) {
+              const float tr = s_prev[p * pp + i - sbase + 7 + d];
+              const float ti = s_prev[(R + p) * pp + i - sbase + 7 + d];
+              accr[p] = accr[p] + br * tr - bi * ti;
+              acci[p] = acci[p] + br * ti + bi * tr;
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < R; ++p) {
+            w[p] = w[p] - accr[p];
+            w[R + p] = w[R + p] - acci[p];
+          }
+        }
+        if (ft.keep_priv >= 0 && !kNoOutputs) {
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p)
+            pv[((size_t)ft.keep_priv * 2 * R + p) * cmax + i] = w[p];
+          fence_proxy_async_global();   // for the bulk copy of a backward step
+        }
+      }
+      // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
+      if (live && !kNoProducts) {
+#pragma unroll
+        for (int p = 0; p < R; ++p)
+#pragma unroll
+          for (int l = 0; l < kLanes; ++l) {
+            acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
+            acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
+          }
+      }
+      // y (w) of the tile's own lanes, by the CTA whose slice holds them
+      if (live && own_tile && i >= o0 && i < o0 + kLanes && ft.kept != nullptr && !kNoOutputs) {
+#pragma unroll
+        for (int p = 0; p < 2 * R; ++p) ft.kept[(size_t)p * ld + i] = w[p];
+      }
+    }
+    // the tile's padding lanes (>= n): w is zero there
+    if (ft.kept != nullptr && own_tile && tid < V && o0 + tid % kLanes >= n && !kNoOutputs)
+      ft.kept[(size_t)(tid / kLanes) * ld + o0 + tid % kLanes] = 0.f;
+    if (!same_w) w_keep = ft.keep_priv;
+    w_k = it.k;
+    w_b = it.b;
+    w_r0 = it.r0;
+    w_r1 = it.r1;
+
+    // the warps' sums (a warp past the rows holds zeros), added in warp order
+    // and published as this half's sums of the tile
+    const float sum = warp_transpose_sum<V>(acc);
+    constexpr int kPitch = red_pitch<SPLIT>();
+    float* part = red + (q & 1) * V * kPitch;
+    if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
+    __syncthreads();
+    const int p = lane / kLanes, o = o0 + lane % kLanes;
+    if (warp == kPublisher && lane < V) {
+      const float4* sums = reinterpret_cast<const float4*>(part + lane * kPitch);
+      float v = 0.f;
+#pragma unroll
+      for (int c = 0; c < kFlowWarps / 4; ++c) {     // in warp order
+        const float4 f = sums[c];
+        v += f.x;
+        v += f.y;
+        v += f.z;
+        v += f.w;
+      }
+      st_word(slot(it.k, it.b) + ((size_t)o * 2 * R + p) * SPLIT + rank, v,
+              fl.epoch + (unsigned)it.k);
+      if (SPLIT == 1 && ft.out != nullptr && !kNoOutputs) ft.out[(size_t)p * ld + o] = v;
+    }
+    // two CTAs a tile: the one whose slice holds it stores both halves' sum
+    if (SPLIT == 2 && warp == 0 && lane < V && own_tile && ft.out != nullptr && !kNoOutputs) {
+      const uint2* const ptr[1] = {slot(it.k, it.b) + ((size_t)o * 2 * R + p) * 2};
+      uint4 v[1];
+      poll_words<1, !kNoFlagWait>(ptr, v, fl.epoch + (unsigned)it.k);
+      ft.out[(size_t)p * ld + o] = __uint_as_float(v[0].x) + __uint_as_float(v[0].z);
+    }
+  }
+}
+
+// Launches a step map on the flag-handoff step: kernel1 (one CTA a tile)
+// where a slice of a whole line fits one CTA, else kernel2 (two); a line too
+// long for two is refused.  A cooperative launch of as many tiles' CTAs as can
+// be co-resident, at most one set per tile, so a grid that does not fit is
+// refused instead of spinning.
+template <int R, Storage S, bool kInject, class Map>
+inline cudaError_t launch_map(void (*kernel1)(const Map), void (*kernel2)(const Map),
+                              const Map& map, int tiles, cudaStream_t stream) {
+  int dev = 0, optin = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  const int ld = map.fl.ld;
+  const size_t smem1 = map_smem_bytes<R, S, 1, kInject>(ld);
+  const size_t smem2 = map_smem_bytes<R, S, 2, kInject>(ld);
+  const bool one_fits =
+      smem1 <= (size_t)optin && slice_rows<1>(ld) <= flow_groups<1>() * flow_threads<1>();
+  const bool two_fit =
+      smem2 <= (size_t)optin && slice_rows<2>(ld) <= flow_groups<2>() * flow_threads<2>();
+  const int split = THOMAS_SPLIT != 0 ? THOMAS_SPLIT : (one_fits ? 1 : 2);
+  if ((split == 1 && !one_fits) || (split == 2 && !two_fit))
+    return cudaErrorInvalidValue;                            // line too long
+  void (*kernel)(const Map) = split == 1 ? kernel1 : kernel2;
+  const size_t smem = split == 1 ? smem1 : smem2;
+  const int threads = split == 1 ? flow_threads<1>() : flow_threads<2>();
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  int per_sm = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (err != cudaSuccess) return err;
+  const int sets_fit = per_sm * sms / split;
+  if (sets_fit < 1) return cudaErrorLaunchOutOfResources;
+  const int sets = tiles < sets_fit ? tiles : sets_fit;
+  Map args = map;
+  void* params[] = {&args};
+  return cudaLaunchCooperativeKernel((void*)kernel, dim3(split * sets), dim3(threads), params,
+                                     smem, stream);
+}
+
+// The dense forward and backward passes as a step map (the trivial one):
+// step k is line first +- k of every batch row.  A build with
+// -DTHOMAS_MAP_STEP=1 (benchmarks_torch/thomas_probe.py) launches them so,
+// to time the shared body against flow_kernel.
+template <int R, bool kBackward, Storage S>
+struct PassMap {
+  PassArgs a;
+  FlowLaunch fl;
+
+  __device__ __forceinline__ FlowTile tile(int k, int b, int t) const {
+    const int j = kBackward ? a.first - k : a.first + k;
+    const int s = __ldg(a.s_idx + b);
+    const size_t row = (size_t)2 * R * a.ld;
+    FlowTile ft = flow_tile();
+    if constexpr (S == Storage::kInt8)
+      ft.cols = tile_cols_int8(a.cre, a.cim, a.scale, s, j, t, a.m, a.n, a.ld);
+    else
+      ft.cols = tile_cols(a.cre, a.cim, nullptr, nullptr, s, j, t, a.m, a.n, a.ld, 0, 0);
+    if (k > 0) {
+      ft.band = a.band + ((size_t)s * a.m + j) * 6 * a.ld;
+      ft.carry_step = k - 1;
+    }
+    ft.rhs = a.rhs + ((size_t)b * a.m + j) * row;
+    if (kBackward)           // x stack holds lines first - count + 1 .. first
+      ft.out = a.out + ((size_t)b * a.count + (j - (a.first - a.count + 1))) * row;
+    else
+      ft.kept = a.kept + ((size_t)b * a.m + j) * row;
+    return ft;
+  }
+};
+
+template <int R, bool kBackward, Storage S, int SPLIT>
+__global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLIT>())
+    pass_map_kernel(const PassMap<R, kBackward, S> items) {
+  run_flow<R, S, SPLIT, false>(items, items.fl);
+}
+
+template <int R, bool kBackward, Storage S>
+inline cudaError_t launch_pass_map(const PassArgs& a, uint2* xchg, unsigned epoch,
+                                   cudaStream_t stream) {
+  const PassMap<R, kBackward, S> map{
+      a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0}};
+  return launch_map<R, S, false, PassMap<R, kBackward, S>>(
+      pass_map_kernel<R, kBackward, S, 1>, pass_map_kernel<R, kBackward, S, 2>, map,
+      a.batch * (a.ld / kLanes), stream);
+}
+
+// A dense pass (bf16, or int8 when scales are given) through run_flow; the
+// exchange needs one slot per line (count slots)
+template <bool kBackward>
+inline cudaError_t run_map_pass(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
+                                cudaStream_t stream) {
+  if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 || r < 1 ||
+      r > kMaxRhs || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
+      epoch == 0u || epoch + (unsigned)a.count < epoch)
+    return cudaErrorInvalidValue;
+  if (a.scale != nullptr)
+    return r == 1 ? launch_pass_map<1, kBackward, Storage::kInt8>(a, xchg, epoch, stream)
+                  : launch_pass_map<2, kBackward, Storage::kInt8>(a, xchg, epoch, stream);
+  return r == 1 ? launch_pass_map<1, kBackward, Storage::kBf16>(a, xchg, epoch, stream)
+                : launch_pass_map<2, kBackward, Storage::kBf16>(a, xchg, epoch, stream);
 }
 
 }  // namespace thomas

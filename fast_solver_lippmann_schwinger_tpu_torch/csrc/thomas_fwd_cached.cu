@@ -22,26 +22,90 @@
 // 0): lines j < tail_start apply their banded head window (hre, him: only
 // |in - out| <= half is kept), lines j >= tail_start their dense plane
 // (tre, tim, index j - tail_start); the pass crosses from one layout to the
-// other in mid-pass and its carry goes on as it is, and the cp.async
-// look-ahead stages whichever layout the next line has.  The two layouts are
-// two instantiations, thomas::pass_kernel<R, false, true> and
-// pass_kernel<R, false, true, true>, so a trace names them apart.  Dense int8
-// planes (scale given: the TPU kernels' nb > 1 branch of _scaled_dots) are
-// pass_kernel<R, false, true, false, Storage::kInt8>.  The body
-// is in thomas_line.cuh, which describes the design (one cooperative launch
-// per pass, grid barrier per line, 8-lane tiles, staged plane columns: a head
-// tile stages only the rows of its window that lie in [0, n)), the limits
-// (r <= 2) and the bound.  The t stack is itself the carry: line j reads row
-// j-1 of the stack it writes row j of, so the two-slot scratch of the plain
-// forward kernel is not needed.
+// other in mid-pass and its carry goes on as it is.  Dense int8 planes (scale
+// given: the TPU kernels' nb > 1 branch of _scaled_dots).
 //
-// Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B, or two head
-// windows, 2 x ld x (8 + 2 half) x 2 B less the rows outside [0, n), against
-// 3.35 TB/s, plus the b, y and t stacks.
+// Design.  The kernel is thomas::cached_kernel<R, kBanded, S, SPLIT>, a step
+// map (CachedItems) over the flag-handoff step of thomas_flow.cuh (run_flow),
+// which describes the design: one cooperative launch per pass, one CTA a tile
+// (two on lines too long for one), each line's carry handed to the next
+// through flagged words of the exchange buffer `xchg`, one slot per line;
+// plane runs, band and right-hand rows bulk-copied ahead.  Line `start` takes
+// its carry from t_init, which an earlier launch wrote, with plain loads and
+// no flag; each line writes y (w) and t of its tile's lanes into the stacks.
+// A head tile stages only the rows of its window that lie in [0, n), one bulk
+// copy per plane, and waits only on the tiles that publish their carry lanes.
+// Limits: r <= 2, and the lines of thomas_flow.cuh (n up to 1968 in bf16 and
+// 2448 in int8 at r = 2, test_longest_line_fits).
+//
+// A build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/thomas_probe.py only)
+// launches the grid-barrier step of thomas_line.cuh instead,
+// pass_kernel<R, false, true[, kBanded, S]>, which ignores xchg and epoch.
+//
+// Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B (int8: 1 B and the
+// scales), or two head windows, 2 x ld x (8 + 2 half) x 2 B less the rows
+// outside [0, n), against 3.35 TB/s, plus the b, y and t stacks.
 //
 // thomas_forward_cached launches only; it allocates nothing, does not
 // synchronise, and returns the launch's error code (0 on success).
-#include "thomas_line.cuh"
+#include "thomas_flow.cuh"
+
+namespace thomas {
+
+// The cached forward pass as a step map: step k is line first + k of every
+// batch row; its carry is step k - 1's, or t_init at k = 0
+template <int R, bool kBanded, Storage S>
+struct CachedItems {
+  PassArgs a;
+  FlowLaunch fl;
+
+  __device__ __forceinline__ FlowTile tile(int k, int b, int t) const {
+    const int j = a.first + k;
+    const int s = __ldg(a.s_idx + b);
+    const size_t row = (size_t)2 * R * a.ld;            // floats per (batch row, line)
+    FlowTile ft = flow_tile();
+    if constexpr (S == Storage::kInt8)
+      ft.cols = tile_cols_int8(a.cre, a.cim, a.scale, s, j, t, a.m, a.n, a.ld);
+    else
+      ft.cols = tile_cols(a.cre, a.cim, a.hre, a.him, s, j, t, a.m, a.n, a.ld,
+                          kBanded ? a.tail_start : 0, kBanded ? a.half : 0);
+    ft.band = a.band + ((size_t)s * a.m + j) * 6 * a.ld;
+    if (k > 0)
+      ft.carry_step = k - 1;
+    else
+      ft.carry_row = a.t_init + (size_t)b * row;
+    const size_t at = ((size_t)b * a.m + j) * row;
+    ft.rhs = a.rhs + at;
+    ft.kept = a.kept + at;
+    ft.out = a.out + at;
+    return ft;
+  }
+};
+
+template <int R, bool kBanded, Storage S, int SPLIT>
+__global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLIT>())
+    cached_kernel(const CachedItems<R, kBanded, S> items) {
+  run_flow<R, S, SPLIT, false>(items, items.fl);
+}
+
+template <int R, bool kBanded, Storage S>
+inline cudaError_t launch_cached(const PassArgs& a, uint2* xchg, unsigned epoch,
+                                 cudaStream_t stream) {
+  const CachedItems<R, kBanded, S> map{
+      a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0}};
+  return launch_map<R, S, false, CachedItems<R, kBanded, S>>(
+      cached_kernel<R, kBanded, S, 1>, cached_kernel<R, kBanded, S, 2>, map,
+      a.batch * (a.ld / kLanes), stream);
+}
+
+template <bool kBanded, Storage S>
+inline cudaError_t run_cached(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
+                              cudaStream_t stream) {
+  return r == 1 ? launch_cached<1, kBanded, S>(a, xchg, epoch, stream)
+                : launch_cached<2, kBanded, S>(a, xchg, epoch, stream);
+}
+
+}  // namespace thomas
 
 extern "C" int thomas_forward_cached(
     const float* b,          // (B, m, 2r, ld) right-hand rows
@@ -56,6 +120,8 @@ extern "C" int thomas_forward_cached(
     float* y,                // (B, m, 2r, ld); lines < start are not touched
     float* t,                // (B, m, 2r, ld); lines < start are not touched
     int batch, int m, int n, int ld, int r, int start, int tail_start, int half,
+    void* xchg,              // (m - start, B, ld, 2r, 2) exchange words of 8 bytes, zeroed once
+    unsigned epoch,          // flag of line `start`: lines take epoch .. epoch + m - start - 1
     void* stream) {
   if (t_init == nullptr) return (int)cudaErrorInvalidValue;
   thomas::PassArgs a{};
@@ -78,9 +144,27 @@ extern "C" int thomas_forward_cached(
   a.count = m - start;
   a.tail_start = tail_start;
   a.half = half;
+#if THOMAS_OLD_STEP
+  (void)xchg;
+  (void)epoch;
   cudaError_t err = tail_start > 0
                         ? thomas::run_pass<false, true, true>(r, a, (cudaStream_t)stream)
                         : thomas::run_pass<false, true>(r, a, (cudaStream_t)stream);
+#else
+  cudaError_t err = cudaErrorInvalidValue;
+  const bool banded = tail_start > 0;
+  if (batch >= 1 && m >= 1 && n >= 1 && ld >= n && ld % thomas::kLanes == 0 && r >= 1 &&
+      r <= thomas::kMaxRhs && start >= 0 && start < m && xchg != nullptr && epoch != 0u &&
+      epoch + (unsigned)(m - start) > epoch &&
+      (!banded || (tail_start < m && half >= 0 && scale == nullptr))) {
+    uint2* words = static_cast<uint2*>(xchg);
+    cudaStream_t st = (cudaStream_t)stream;
+    err = banded ? thomas::run_cached<true, thomas::Storage::kBf16>(r, a, words, epoch, st)
+          : scale != nullptr
+              ? thomas::run_cached<false, thomas::Storage::kInt8>(r, a, words, epoch, st)
+              : thomas::run_cached<false, thomas::Storage::kBf16>(r, a, words, epoch, st);
+  }
+#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -1,27 +1,30 @@
-// Block-Thomas line step: the body of the 2D substitution kernels
+// Block-Thomas line step: the grid-barrier step of the 2D substitution kernels
+//
+//     pass_kernel<R, true,  false, true>    backward pass on      thomas_bwd.cu
+//                                           banded+tail pivots
+//
+// and, only in a build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/
+// thomas_probe.py and thomas_ablation.py time old against new), the parent
+// step of every other line kernel, which the package runs on the
+// flag-handoff step of thomas_flow.cuh:
 //
 //     pass_kernel<R, false, false>          forward pass          thomas_fwd.cu
 //     pass_kernel<R, true,  false>          backward pass         thomas_bwd.cu
 //     pass_kernel<R, false, true>           cached forward pass   thomas_fwd_cached.cu
-//     pass_kernel<R, false, true,  true>    the cached forward    thomas_fwd_cached.cu
-//     pass_kernel<R, true,  false, true>      and backward passes   thomas_bwd.cu
-//                                             on banded+tail pivots
-//     pass_kernel<R, ..., false, kInt8>     the three dense passes  (the same files)
-//                                             on int8 pivot planes
+//     pass_kernel<R, false, true,  true>    the same, banded+tail thomas_fwd_cached.cu
+//     pass_kernel<R, ..., false, kInt8>     the dense passes on int8 planes
 //     sweep::down_kernel<R>, up_kernel<R>   whole Gauss-Seidel    sweep_fused.cu
 //                                           sweep directions
 //
-// which those files instantiate and launch; the first two and their int8
-// forms only in a build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/
-// thomas_probe.py): the package's dense forward and backward passes run the
-// flag-handoff step of thomas_flow.cuh.  Every one of them is a walk over
-// line steps; a kernel differs from the others only in the order of its steps
-// and in where each step's operands come from and go to.  So the step is one
-// device routine here, run_steps, and a kernel is a small "step map" that
-// tells it, for each of a block's work items, where the operands are (a
-// Tile).  Direction, caching, the pivot layout and the pivot storage (bf16,
-// or int8 with f32 scales) are template parameters, so that each kernel is a
-// kernel of its own (and has its own name in a profiler's trace).
+// This note also holds what both steps share: the layouts, the numerics
+// contract, the bound.  Every kernel is a walk over line steps; a kernel
+// differs from the others only in the order of its steps and in where each
+// step's operands come from and go to.  So the step is one device routine
+// here, run_steps, and a kernel is a small "step map" that tells it, for each
+// of a block's work items, where the operands are (a Tile).  Direction,
+// caching, the pivot layout and the pivot storage (bf16, or int8 with f32
+// scales) are template parameters, so that each kernel is a kernel of its own
+// (and has its own name in a profiler's trace).
 //
 // Per line j and batch row b (slab s) a step computes
 //
@@ -105,8 +108,7 @@
 // fit in one block's shared memory (64 n bytes of bf16 planes, about 32 n of
 // int8 ones, plus the rows: n up to 1704 in bf16 and 2200 in int8 at r = 2 on
 // an H100 for the passes, about 1300 for the sweep kernels, which also keep
-// the injection's band and trace; measured by the card-only test
-// test_longest_line_fits).  Anything else is refused with
+// the injection's band and trace).  Anything else is refused with
 // cudaErrorInvalidValue before a launch.
 //
 // Bound: bytes.  A dense line must read its two planes once, 2 x ld^2 x 2 B

@@ -12,7 +12,12 @@ over the last ``trace_tail`` lines that yields the bottom traces) and
 down kernel's carry with the bottom injections, then the full backward pass
 that writes the volume and yields the top traces, with the reflection
 correction).  Two launches per sweep, nothing between slabs.  The line step
-is the one of the substitution kernels (``csrc/thomas_line.cuh``).  The
+is the flag-handoff step of the substitution kernels
+(``csrc/thomas_flow.cuh``, ``run_flow``): each step hands its t to the next
+through flagged words of the stream's exchange buffer
+(:class:`~fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels.Exchange`),
+one slot and one flag per step, and the traces travel as the words of the
+backward step that produced them.  The
 kernels read the trace metadata and coupling rows of
 ``ddm.subdomain.SlabSystem.sweep_tables``; ``ddm.sweeps.gs_sweep`` drives them.
 
@@ -41,9 +46,11 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
     line_pivot_plain,
 )
 
-_P, _I = cuda_build.PTR, cuda_build.INT
-# direction flag, 15 pointers, 8 ints and the stream
-cuda_build.register("sweep_fused", "sweep_fused", [_I] + [_P] * 15 + [_I] * 8 + [_P])
+_P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
+# direction flag, 15 pointers, 8 ints, the exchange buffer, its first flag and
+# the stream
+cuda_build.register("sweep_fused", "sweep_fused",
+                    [_I] + [_P] * 15 + [_I] * 8 + [_P, _U, _P])
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU tests; yardstick on the card)
@@ -161,8 +168,25 @@ def _check(fac, meta, b4, tt: int, cpls, *rows) -> int:
     return r2 // 2
 
 
-def _launch(up: int, fac, meta, b4, cpl_a, cpl_b, y4, t4, unp, u4, scratch, tt: int, r: int):
+def steps(fac, tt: int) -> int:
+    """Line steps of one sweep direction: (m + tt) per slab."""
+    return fac.n_slabs * (fac.m + tt)
+
+
+def private_floats(fac, tt: int, r: int) -> int:
+    """Floats of the kernels' scratch: each CTA's private y lines, ``tt``
+    lines of its slice's rows (the CTAs of a tile hold at most ld + 8 rows;
+    ``csrc/sweep_fused.cu``, ``SweepArgs.scratch``), and at least the
+    grid-barrier step's trace rows (2 tt + 2 rows of 2r x ld floats, the
+    probe's old-step build)."""
+    tiles = fac.ld // tk.LEAD_MULTIPLE
+    return max(tiles * tt * 2 * r * (fac.ld + 8), (2 * tt + 2) * 2 * r * fac.ld)
+
+
+def _launch(up: int, fac, meta, b4, cpl_a, cpl_b, y4, t4, unp, u4, tt: int, r: int):
     fn = cuda_build.load("sweep_fused")
+    scratch = b4.new_empty(private_floats(fac, tt, r))
+    xchg, epoch = tk.exchange_for(b4).take(1, r, fac.ld, steps(fac, tt), slots=steps(fac, tt))
     err = fn(
         up, b4.data_ptr(), fac.lband.data_ptr(), fac.uband.data_ptr(),
         fac.head_re.data_ptr(), fac.head_im.data_ptr(), fac.tail_re.data_ptr(),
@@ -170,7 +194,7 @@ def _launch(up: int, fac, meta, b4, cpl_a, cpl_b, y4, t4, unp, u4, scratch, tt: 
         y4.data_ptr(), t4.data_ptr(), unp.data_ptr(),
         0 if u4 is None else u4.data_ptr(), scratch.data_ptr(),
         fac.n_slabs, fac.m, fac.n, fac.ld, r, fac.tail_start, fac.half, tt,
-        torch.cuda.current_stream(b4.device).cuda_stream,
+        xchg.data_ptr(), epoch, torch.cuda.current_stream(b4.device).cuda_stream,
     )
     tk._raise_on(err, "sweep_fused (" + ("up" if up else "down") + ")", fac)
 
@@ -189,8 +213,7 @@ def sweep_down(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tenso
         return tk.in_rhs_groups(lambda b: sweep_down(fac, meta, b, c01, c10, tt), r, (b4,))
     y4, t4 = torch.empty_like(b4), torch.empty_like(b4)
     unp = torch.zeros_like(b4[:, 0])
-    scratch = b4.new_empty((tt + 1,) + tuple(b4.shape[2:]))
-    _launch(0, fac, meta, b4, c01, c10, y4, t4, unp, None, scratch, tt, r)
+    _launch(0, fac, meta, b4, c01, c10, y4, t4, unp, None, tt, r)
     sweep_down.launches += 1
     return y4, t4, unp
 
@@ -211,8 +234,7 @@ def sweep_up(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tensor,
             lambda b, y, t, u: sweep_up(fac, meta, b, cnpn, cnnp, y, t, u, tt),
             r, (b4, y4, t4, unp))
     u4 = torch.empty_like(b4)
-    scratch = b4.new_empty((2 * tt + 2,) + tuple(b4.shape[2:]))
-    _launch(1, fac, meta, b4, cnpn, cnnp, y4, t4, unp, u4, scratch, tt, r)
+    _launch(1, fac, meta, b4, cnpn, cnnp, y4, t4, unp, u4, tt, r)
     sweep_up.launches += 1
     return u4
 

@@ -17,9 +17,10 @@ backward passes on dense planes run the flag-handoff line step of
 ``csrc/thomas_flow.cuh``: each line's carry is handed to the next through
 flagged words of an exchange buffer (:class:`Exchange`), not a grid barrier,
 one block a tile (two, each on half of its input rows, on long lines).  The
-cached forward pass, the banded+tail passes and the fused sweeps run the
-grid-barrier step of ``csrc/thomas_line.cuh``, which also holds the design
-note of the layouts.
+cached forward pass, on every layout, runs the same step driven by a step map
+(``run_flow`` there; the fused sweeps of ``sweep_kernels`` too).  Only the
+backward pass on banded+tail pivots keeps the grid-barrier step of
+``csrc/thomas_line.cuh``, which also holds the design note of the layouts.
 
 Storage (same numbers as the JAX package): pivot inverses are kept
 TRANSPOSED in bfloat16 real/imag planes, ``Cinv^T[i_in, o_out]``, so the
@@ -82,7 +83,8 @@ _P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
 # exchange buffer and their first flag) and the stream
 cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 8 + [_I] * 6 + [_U, _P])
 cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 9 + [_I] * 8 + [_P, _U, _P])
-cuda_build.register("thomas_fwd_cached", "thomas_forward_cached", [_P] * 11 + [_I] * 8 + [_P])
+cuda_build.register("thomas_fwd_cached", "thomas_forward_cached",
+                    [_P] * 11 + [_I] * 8 + [_P, _U, _P])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -481,7 +483,7 @@ def in_rhs_groups(launch, r: int, rows: tuple, out=None):
 # ---------------------------------------------------------------------------
 
 FLAG_LIMIT = 2**32 - 1     # flags are 32-bit; 0 marks a word never written
-EXCHANGE_LINES = 4         # lines of the exchange ring (csrc: kSlots)
+EXCHANGE_LINES = 4         # lines of the dense passes' exchange ring (csrc: kSlots)
 LINE_HALVES = 2            # most CTAs a tile, each publishing its own sums (csrc: SPLIT)
 
 
@@ -490,16 +492,21 @@ class Exchange:
     the counter that hands each launch its flags.
 
     A carried value travels as one 8-byte word (its bits, its flag) from
-    each CTA of a tile (one, or :data:`LINE_HALVES` on long lines); a pass
-    with B batch rows of r right-hand sides on lines of ``ld`` lanes needs a
-    ring of :data:`EXCHANGE_LINES` lines of (B, ld, 2r, halves) words, and
-    line step k of a launch given flag ``epoch`` publishes flag ``epoch +
-    k``.  The buffer is zeroed when it is made and only these kernels write
-    it; the counter only grows, so no word left from an earlier launch
-    carries a flag that a later one waits for, and no launch needs a memset.
-    A buffer too small for a launch is replaced by a larger zeroed one, and
-    the counter starts again at 1; so it does when it would pass
-    :data:`FLAG_LIMIT`, after zeroing the buffer once."""
+    each CTA of a tile (one, or :data:`LINE_HALVES` on long lines); a launch
+    with B batch rows of r right-hand sides on lines of ``ld`` lanes needs
+    ``slots`` slots of (B, ld, 2r, halves) words, and line step k of a launch
+    given flag ``epoch`` publishes flag ``epoch + k`` into slot k (modulo
+    ``slots``).  The dense forward and backward passes reuse a ring of
+    :data:`EXCHANGE_LINES` slots; the cached forward pass and the fused sweeps
+    take one slot per line step, so that no slot is written twice in a launch
+    and the words of every earlier step stay readable
+    (``csrc/thomas_flow.cuh``, ``run_flow``).  The buffer is zeroed when it
+    is made and only these kernels write it; the counter only grows, so no
+    word left from an earlier launch carries a flag that a later one waits
+    for, and no launch needs a memset.  A buffer too small for a launch is
+    replaced by a larger zeroed one, and the counter starts again at 1; so
+    it does when it would pass :data:`FLAG_LIMIT`, after zeroing the buffer
+    once."""
 
     def __init__(self, device):
         self.device = torch.device(device)
@@ -507,14 +514,14 @@ class Exchange:
         self.next = 1
 
     @staticmethod
-    def values(batch: int, r: int, ld: int) -> int:
-        """Words of a launch: the ring of (B, ld, 2r, halves) lines."""
-        return EXCHANGE_LINES * batch * ld * LINE_HALVES * 2 * r
+    def values(batch: int, r: int, ld: int, slots: int = EXCHANGE_LINES) -> int:
+        """Words of a launch: ``slots`` slots of (B, ld, 2r, halves) words."""
+        return slots * batch * ld * LINE_HALVES * 2 * r
 
-    def take(self, batch: int, r: int, ld: int, lines: int):
-        """The buffer for a launch of ``lines`` line steps and its first
-        flag."""
-        need = 2 * self.values(batch, r, ld)
+    def take(self, batch: int, r: int, ld: int, lines: int, slots: int = EXCHANGE_LINES):
+        """The buffer for a launch of ``lines`` line steps on ``slots`` slots
+        and its first flag."""
+        need = 2 * self.values(batch, r, ld, slots)
         if self.words is None or self.words.numel() < need:
             self.words = torch.zeros(need, dtype=torch.int32, device=self.device)
             self.next = 1
@@ -807,10 +814,12 @@ def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
             r, (b4, t_init), out)
     fn = cuda_build.load("thomas_fwd_cached")
     pivots, layout = _pivot_args(fac)
+    lines = fac.m - start                   # one exchange slot per line
+    xchg, epoch = exchange_for(b4).take(B, r, fac.ld, lines, slots=lines)
     err = fn(
         b4.data_ptr(), fac.lband.data_ptr(), *pivots, s_idx.data_ptr(), t_init.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), B, fac.m, fac.n, fac.ld, r, start, *layout,
-        torch.cuda.current_stream(b4.device).cuda_stream,
+        xchg.data_ptr(), epoch, torch.cuda.current_stream(b4.device).cuda_stream,
     )
     _raise_on(err, "thomas_forward_cached", fac)
     _count_launch(forward_substitution_cached, fac)

@@ -113,27 +113,34 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
     assert x.is_cuda and bool(torch.isfinite(torch.view_as_real(x)).all())
 
 
-@pytest.mark.parametrize("r", [1, 2])
-@pytest.mark.parametrize("start,carry", [(0, False), (0, True), (4, True)])
-def test_cached_forward_matches_plain(cuda_device, r, start, carry):
-    """y and t stacks, a carry in (also at start = 0), lines above the start
-    left alone; one launch per call."""
-    rng = np.random.default_rng(10 * r + start)
-    m, n, batch = 9, 45, 2
-    fac = _random_factors(rng, 2, m, n, cuda_device)
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("start,carry", [(0, False), (0, True), (48, True)])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_cached_forward_matches_plain(cuda_device, storage, r, start, carry, batch):
+    """The cached forward pass on the flag-handoff step, dense bf16 and int8
+    planes (the banded+tail layout: test_hybrid_passes_match_plain): y and t
+    stacks of a slab's 70 lines, a carry in (also at start = 0), lines above
+    the start left alone; one CTA a tile, several tiles a CTA at 16 batch rows
+    picking slabs out of order; one launch per call (r = 3: two)."""
+    rng = np.random.default_rng(1000 * batch + 10 * r + start + (storage == "int8"))
+    m, n = 70, 300
+    fac = (_random_factors if storage == "bf16" else _random_int8_factors)(rng, 2, m, n,
+                                                                          cuda_device)
+    cpu = move_to(fac, "cpu")
     b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, m, n, r)), device=cuda_device))
-    s_idx = torch.tensor([1, 0], dtype=torch.int32, device=cuda_device)
+    s_idx = torch.as_tensor((np.arange(batch) + 1) % 2, dtype=torch.int32, device=cuda_device)
     t_init = None
     if carry:
         t_init = torch.zeros((batch, 2 * r, fac.ld), device=cuda_device)
         t_init[..., :n] = torch.as_tensor(rng.standard_normal((batch, 2 * r, n)).astype(np.float32))
     out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
-    before = tk.forward_substitution_cached.launches["bf16"]
+    before = tk.forward_substitution_cached.launches[storage]
     y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start, out=out)
     torch.cuda.synchronize()
-    assert tk.forward_substitution_cached.launches["bf16"] == before + 1
+    assert tk.forward_substitution_cached.launches[storage] == before + len(tk.rhs_groups(r))
     y_p, t_p = tk.forward_substitution_cached(
-        _to_cpu(fac), s_idx.cpu(), b4.cpu(), None if t_init is None else t_init.cpu(), start=start)
+        cpu, s_idx.cpu(), b4.cpu(), None if t_init is None else t_init.cpu(), start=start)
     for got, want in ((y4, y_p), (t4, t_p)):
         torch.testing.assert_close(got[:, start:].cpu(), want[:, start:], rtol=0,
                                    atol=TOL * float(want.abs().max()))
@@ -582,23 +589,25 @@ def _random_hybrid(rng, S, m, n, width, tail_lines):
     return tk.build_banded_tail_factorization(fac, width=width, tail_lines=tail_lines)
 
 
-@pytest.mark.parametrize("r", [1, 2])
-@pytest.mark.parametrize("start,carry,tail", [(0, False, 0), (0, True, 3), (5, True, 7),
-                                              (9, True, 0)])
-def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail):
-    """Forward from a zero carry or t_init, starting in the head or in the
-    tail; backward full, inside the tail lines or across into the head; n
-    not a multiple of 8, batch rows picking slabs out of order; one launch
-    per call, lines above the start left alone."""
-    rng = np.random.default_rng(100 + 10 * r + start)
-    m, n = 12, 45
-    fac = _random_hybrid(rng, 2, m, n, width=9, tail_lines=5)
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("start,carry,tail", [(0, False, 0), (0, True, 3), (5, True, 30),
+                                              (48, True, 0)])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail, batch):
+    """Forward (the flag-handoff step, head windows) from a zero carry or
+    t_init, starting in the head and in the tail; backward full, inside the
+    tail lines or across into the head; n not a multiple of 8, batch rows
+    picking slabs out of order (at 16, several tiles a CTA); one launch per
+    call (r = 3: two), lines above the start left alone."""
+    rng = np.random.default_rng(100 + 10 * r + start + batch)
+    m, n = 56, 45
+    fac = _random_hybrid(rng, 2, m, n, width=9, tail_lines=20)
     card = move_to(fac, cuda_device)
-    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (2, m, n, r))))
-    s_idx = torch.tensor([1, 0], dtype=torch.int32)
-    t_init = torch.zeros((2, 2 * r, fac.ld))
+    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, m, n, r))))
+    s_idx = torch.as_tensor((np.arange(batch) + 1) % 2, dtype=torch.int32)
+    t_init = torch.zeros((batch, 2 * r, fac.ld))
     if carry:
-        t_init[..., :n] = torch.as_tensor(rng.standard_normal((2, 2 * r, n)).astype(np.float32))
+        t_init[..., :n] = torch.as_tensor(rng.standard_normal((batch, 2 * r, n)).astype(np.float32))
     out = tuple(torch.full(b4.shape, v, device=cuda_device) for v in (7.0, -7.0))
     fwd, bwd = tk.forward_substitution_cached, tk.backward_substitution
     before = (dict(fwd.launches), dict(bwd.launches))
@@ -607,20 +616,21 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail):
     y_p, t_p = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start)
     x4 = tk.backward_substitution(card, s_idx.to(cuda_device), y_p.to(cuda_device), tail=tail)
     torch.cuda.synchronize()
-    # one launch each, counted as the hybrid layout's
-    assert (fwd.launches, bwd.launches) == tuple(dict(b, ht=b["ht"] + 1) for b in before)
+    # one launch each (a group each), counted as the hybrid layout's
+    groups = len(tk.rhs_groups(r))
+    assert (fwd.launches, bwd.launches) == tuple(dict(b, ht=b["ht"] + groups) for b in before)
     for got, want in ((y4[:, start:], y_p[:, start:]), (t4[:, start:], t_p[:, start:]),
                       (x4, tk.backward_substitution(fac, s_idx, y_p, tail=tail))):
         torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
     assert bool((y4[:, :start] == 7.0).all()) and bool((t4[:, :start] == -7.0).all())
 
 
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 3])
 def test_fused_sweep_matches_plain(cuda_device, r):
     """The 3-slab double-sweep preconditioner on banded+tail pivots, built on
     the CPU and moved to the card: one ``gs_sweep`` is one launch of each
-    fused kernel and agrees with the plain fused sweep on the CPU and with the
-    per-slab sweep (the hybrid passes) on the card."""
+    fused kernel (r = 3: two) and agrees with the plain fused sweep on the CPU
+    and with the per-slab sweep (the hybrid passes) on the card."""
     problem = plasma2d.build_problem(h=1 / 40, n_subdomains=3, double_sweep=True,
                                      pivot_dtype="pallas_banded_tail", pivot_band=21,
                                      dtype=torch.complex64, device="cpu")
@@ -633,8 +643,9 @@ def test_fused_sweep_matches_plain(cuda_device, r):
     before = (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"])
     got = sweeps.gs_sweep(slabs, torch.as_tensor(b, device=cuda_device))
     torch.cuda.synchronize()
+    groups = len(tk.rhs_groups(r))
     assert (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"]) == (
-        before[0] + 1, before[1] + 1, before[2])
+        before[0] + groups, before[1] + groups, before[2])
     want = sweeps.gs_sweep(slabs_cpu, torch.as_tensor(b))
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
     per_slab = sweeps._gs_sweep_per_slab(slabs, torch.as_tensor(b, device=cuda_device))
@@ -735,35 +746,58 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
 
 
 # the longest lines whose stage buffers fit one CTA's shared memory at r = 2
-# on an H100: the flag-handoff backward pass (half a line's rows in each of
-# three stage buffers; the grid-barrier step took 1704 and 2200)
+# on an H100, with two CTAs a tile: the flag-handoff passes, the cached forward
+# pass among them (half a line's rows in each of three stage buffers; the
+# grid-barrier step took 1704 and 2200), and the fused sweeps, which keep the
+# trace rows beside the carry (the grid-barrier step took about 1300)
 LONGEST_LINE = {"bf16": 1968, "int8": 2448}
+LONGEST_SWEEP_LINE = 1840
 
 
-@pytest.mark.parametrize("storage", ["bf16", "int8"])
-def test_longest_line_fits(cuda_device, storage):
-    """The line-length limits of the module note: the longest line launches
+def _zero_hybrid(length, device):
+    """Zero banded+tail factors of 2 slabs of 3 lines, the last 2 dense."""
+    tiles = length // 8
+    head = torch.zeros((2, 1, tiles, 8, 8), dtype=torch.bfloat16, device=device)
+    tail = torch.zeros((2, 2, tiles, length, 8), dtype=torch.bfloat16, device=device)
+    bands = torch.zeros((2, 3, 2, 3, length), device=device)
+    return tk.BandedTailFactorization(head, head, tail, tail, bands, bands, length, 0)
+
+
+@pytest.mark.parametrize("entry,storage", [("backward", "bf16"), ("backward", "int8"),
+                                           ("forward_cached", "bf16"),
+                                           ("forward_cached", "int8"), ("sweep", "bf16")])
+def test_longest_line_fits(cuda_device, entry, storage):
+    """The line-length limits of the module notes: the longest line launches
     at r = 2, one lane group more is refused before a launch (the flag-handoff
     step on two CTAs a tile: 3392 + 232 x rows a slice bytes in bf16, 3392 +
-    184 x rows + 192 x scale blocks in int8, of 232448)."""
-    n = LONGEST_LINE[storage]
-    fn = tk.backward_substitution
+    184 x rows + 192 x scale blocks in int8, of 232448; the fused sweeps 3648
+    + 248 x rows)."""
+    n = LONGEST_SWEEP_LINE if entry == "sweep" else LONGEST_LINE[storage]
     for length, fits in ((n, True), (n + tk.LEAD_MULTIPLE, False)):
-        dtype = torch.bfloat16 if storage == "bf16" else torch.int8
-        planes = torch.zeros((1, 1, length // 8, length, 8), dtype=dtype, device=cuda_device)
-        bands = torch.zeros((1, 1, 2, 3, length), device=cuda_device)
-        scale = (None if storage == "bf16" else torch.ones(
-            (1, 1, length // 8, tk.n_scale_blocks(length), 2, 8), device=cuda_device))
-        fac = tk.ThomasFactorization(planes, planes, bands, bands, length, scale=scale)
-        rows = torch.ones((1, 1, 4, length), device=cuda_device)
         s_idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
+        if entry == "sweep":
+            fac = _zero_hybrid(length, cuda_device)
+            rows = torch.ones((2, 3, 4, length), device=cuda_device)
+            meta = torch.zeros((6, 2), dtype=torch.int32, device=cuda_device)
+            cpl = torch.zeros((2, 2, 3, length), device=cuda_device)
+            call = lambda: sk.sweep_down(fac, meta, rows, cpl, cpl, 1)[1]   # noqa: E731
+        else:
+            dtype = torch.bfloat16 if storage == "bf16" else torch.int8
+            planes = torch.zeros((1, 1, length // 8, length, 8), dtype=dtype, device=cuda_device)
+            bands = torch.zeros((1, 1, 2, 3, length), device=cuda_device)
+            scale = (None if storage == "bf16" else torch.ones(
+                (1, 1, length // 8, tk.n_scale_blocks(length), 2, 8), device=cuda_device))
+            fac = tk.ThomasFactorization(planes, planes, bands, bands, length, scale=scale)
+            rows = torch.ones((1, 1, 4, length), device=cuda_device)
+            call = ((lambda: tk.backward_substitution(fac, s_idx, rows)) if entry == "backward"
+                    else (lambda: tk.forward_substitution_cached(fac, s_idx, rows)[1]))
         if fits:
-            x = fn(fac, s_idx, rows)
+            x = call()
             torch.cuda.synchronize()
             assert not x.any()
         else:
             with pytest.raises(ValueError, match="too long"):
-                fn(fac, s_idx, rows)
+                call()
 
 
 # ---------------------------------------------------------------------------
@@ -812,7 +846,7 @@ def test_flow_passes_match_plain(cuda_device, storage, r, batch, n):
 def test_flow_passes_are_bit_identical_across_repeats(cuda_device):
     """No race in the carry's handoff: 100 back-to-back pass pairs, the shape
     (one and two CTAs a tile), the storage and r changing from one to the next
-    and a cached forward pass (the grid-barrier step) between them, each the
+    and a cached forward pass (the step-map body) between them, each the
     same bits as the first run at its shape (no sum depends on timing: there
     is no atomic in any)."""
     rng = np.random.default_rng(7)
@@ -839,6 +873,71 @@ def test_flow_passes_are_bit_identical_across_repeats(cuda_device):
             assert torch.equal(y4, first[key][0]) and torch.equal(x4, first[key][1]), (i, key)
     torch.cuda.synchronize()
     assert len(first) == 42      # each of 42 shapes and modes held twice or more
+
+
+def _hybrid_on_card(rng, S, m, n, width, tail_lines, device):
+    """Contracting random banded+tail factors, built on the card."""
+    def cplx(shape, scale):
+        return scale * torch.complex(*(torch.as_tensor(
+            rng.standard_normal(shape).astype(np.float32), device=device) for _ in range(2)))
+
+    cinv = cplx((S, m, n, n), 0.1 / np.sqrt(n)) + 0.2 * torch.eye(n, device=device)
+    bands = [cplx((S, m, n, 3), 0.1) for _ in range(2)]
+    fac = direct.BlockTridiagFactorization(cinv=cinv, lband=bands[0], uband=bands[1])
+    return tk.build_banded_tail_factorization(fac, width=width, tail_lines=tail_lines)
+
+
+def test_map_kernels_are_bit_identical_across_repeats(cuda_device):
+    """No race in the step-map kernels (the cached forward pass and the fused
+    sweeps on the flag-handoff step): 100 rounds of a down/up fused pair and
+    cached forward launches on bf16, int8 and banded+tail pivots, the shape
+    changing from one round to the next, among them a narrow window on a wide
+    line (width 9 at n = 801: a head tile reads 3 tiles' carry, so CTAs at the
+    two ends of a line run far apart); every output the same bits as the first
+    run at its shape."""
+    rng = np.random.default_rng(8)
+    sweeps_ = []
+    for S, m, n, width, tail_lines, r in ((3, 20, 801, 9, 6, 1), (4, 16, 301, 41, 5, 2),
+                                          (3, 12, 45, 9, 4, 1)):
+        fac = _hybrid_on_card(rng, S, m, n, width, tail_lines, cuda_device)
+        tt = tail_lines + 2              # the backward tail reaches into the head
+        ln = m - tt + 1
+        meta = torch.tensor([[0] + [2] * (S - 1), [0] + [3] * (S - 1),
+                             [ln] * (S - 1) + [0], [ln + 1] * (S - 1) + [0],
+                             [0] + [1] * (S - 1), [1] * (S - 1) + [0]],
+                            dtype=torch.int32, device=cuda_device)
+        b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (S, m, n, r)), device=cuda_device))
+        cpl = [torch.zeros((S, 2, 3, fac.ld), device=cuda_device) for _ in range(4)]
+        for c in cpl:
+            c[..., :n] = torch.as_tensor(rng.uniform(-0.1, 0.1, (S, 2, 3, n)).astype(np.float32))
+        sweeps_.append((fac, meta, b4, cpl, tt))
+    passes = []
+    for storage, batch, n, r in (("bf16", 1, 801, 1), ("int8", 16, 300, 2), ("bf16", 2, 1700, 2)):
+        fac = _factors_of(storage, rng, 2, 70, n, cuda_device)
+        s_idx = torch.as_tensor(np.arange(batch) % 2, dtype=torch.int32, device=cuda_device)
+        b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, 70, n, r)), device=cuda_device))
+        passes.append((fac, s_idx, b4))
+    hybrid = sweeps_[0][0]
+    hb4 = sweeps_[0][2]
+    first = {}
+    for i in range(100):
+        k = i % len(sweeps_)
+        fac, meta, b4, cpl, tt = sweeps_[k]
+        down = sk.sweep_down(fac, meta, b4, cpl[0], cpl[1], tt)
+        u4 = sk.sweep_up(fac, meta, b4, cpl[2], cpl[3], *down, tt)
+        p = i % len(passes)
+        pf, ps, pb = passes[p]
+        start = 48 if i % 2 else 0
+        y_c, t_c = tk.forward_substitution_cached(pf, ps, pb, pb[:, 3].contiguous(), start=start)
+        y_h, t_h = tk.forward_substitution_cached(hybrid, hybrid.slab_ids, hb4)
+        outs = {("sweep", k): down + (u4,), ("cached", p, start): (y_c, t_c), ("ht",): (y_h, t_h)}
+        for key, got in outs.items():
+            if key not in first:
+                first[key] = got
+            else:
+                assert all(torch.equal(a, b) for a, b in zip(got, first[key])), (i, key)
+    torch.cuda.synchronize()
+    assert len(first) == 3 + 6 + 1
 
 
 @pytest.mark.parametrize("shape", [(41, 41), (31, 45), (801, 801)])

@@ -8,6 +8,7 @@ kernels themselves are held against those plain versions on the card
 
 
 import dataclasses
+import types
 
 import jax
 import jax.numpy as jnp
@@ -193,6 +194,40 @@ def test_exchange_hands_out_fresh_flags():
     assert ex.take(16, 2, 808, 10)[1] == tk.FLAG_LIMIT - 10 and bigger.all()
     assert ex.take(16, 2, 808, 1) == (bigger, 1) and not bigger.any()
     assert ex.next == 2
+
+
+def _slice_rows(ld, split):
+    """Rows of the largest slice of a tile's input rows with ``split`` CTAs a
+    tile (``csrc/thomas_flow.cuh``, ``slice_rows``)."""
+    return 8 * -(-(ld // 8) // split)
+
+
+@pytest.mark.parametrize("n,r,tt", [(801, 1, 22), (801, 2, 22), (1300, 2, 8), (45, 1, 5)])
+def test_step_maps_get_a_slot_per_step_and_private_lines(n, r, tt):
+    """The cached forward pass and the fused sweeps (``run_flow``) take one
+    exchange slot per line step, so that no slot is written twice in a launch:
+    the launch's flags are fresh and its words fit the buffer; the dense
+    passes' ring of four slots then fits the same buffer.  The fused sweeps'
+    scratch holds every CTA's private y lines, ``tt`` lines of its slice's
+    rows, with one CTA a tile and with two, and the grid-barrier step's trace
+    rows."""
+    from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk
+
+    ld = tk._round_up(n, tk.LEAD_MULTIPLE)
+    fac = types.SimpleNamespace(n=n, ld=ld, m=70, n_slabs=16)    # the shapes they read
+    steps = sk.steps(fac, tt)
+    assert steps == 16 * (70 + tt)
+    ex = tk.Exchange("cpu")
+    words, epoch = ex.take(1, r, ld, steps, slots=steps)
+    assert epoch == 1 and not words.any()
+    assert words.numel() == 2 * steps * ld * tk.LINE_HALVES * 2 * r
+    ring, epoch = ex.take(1, r, ld, 70)             # a dense pass after it: same buffer
+    assert ring is words and epoch == steps + 1
+    tiles = ld // tk.LEAD_MULTIPLE
+    floats = sk.private_floats(fac, tt, r)
+    for split in (1, 2):
+        assert floats >= split * tiles * tt * 2 * r * _slice_rows(ld, split)
+    assert floats >= (2 * tt + 2) * 2 * r * ld
 
 
 @pytest.mark.parametrize("case", ["rows", "tuple", "out", "one_stack"])

@@ -1,22 +1,33 @@
-"""Time the plane kernels of the 3D solves alone, on random planes.
+"""Time the plane kernels of the 3D solves alone, on random planes: the fused
+passes on the flag-handoff plane step against the grid-barrier step they
+replace, in turns in one process.
 
-    python3 benchmarks_torch/plane_probe.py                   # bf16 planes
-    python3 benchmarks_torch/plane_probe.py --storage int8    # int8 planes + scales
+    python3 benchmarks_torch/plane_probe.py                    # bf16 and int8 planes
+    python3 benchmarks_torch/plane_probe.py --storage int8     # one storage
 
-Needs one CUDA card and nvcc.  Prints one JSON line per measurement:
+Needs one CUDA card and nvcc.  Besides the package's build it builds
+``csrc/plane_fwd.cu``, ``plane_bwd.cu`` and ``plane_apply.cu`` again into
+``build/plane_probe/old/`` with ``-DPLANE_OLD_STEP=1`` (the grid-barrier
+step the passes ran before; the plane apply is the same kernel in both
+builds), and ``plane_fwd.cu`` once per ablation mask into
+``build/plane_probe/ablate<mask>/`` with ``-DPLANE_ABLATE=<mask>``, all at
+once.
+Prints one JSON line per measurement:
 
-* the forward and backward passes and the plane apply at l = 48 planes, r = 1
-  and 2, microseconds per plane and the plane bytes' rate.  bf16: plane
-  widths mn = 2112, 2304 (the 48^3 solve) and 2640: at 2112 the 264 tiles of
-  8 output lanes fill the 132 SMs twice over, at 2304 the 288 tiles leave the
-  last round part-empty, at 2640 the 330 tiles fill 2.5 rounds.  int8:
-  mn = 2816, 3072 (the y-planes of the 96^3 sweep) and 3328, 352, 384 and 416
-  tiles, each step half the bytes of a bf16 step of the same width;
-* where a plane step of the forward pass spends its time, by ablation (at
-  2304 in bf16, 3072 in int8): the kernel is built once per case with
-  ``-DPLANE_ABLATE=<mask>`` (see ``csrc/plane_pass.cuh``), which leaves single
-  phases out (the results are then wrong; only the time is read).  The
-  libraries go to ``build/plane_ablation/``.
+* the forward and backward passes at l = 48 planes, r = 1 and 2, in the
+  turns old, new, new, old, and the plane apply (old, new, new, old,
+  twice): microseconds a plane step, the new step's output against the old
+  step's, and each build's share of the byte bound (two planes, and int8
+  scales, over 3.35 TB/s); the plane apply's device time from CUDA graphs
+  of 200 calls.  bf16: plane widths mn = 2112, 2304 (the 48^3 solve) and
+  2640: 264, 288 and 330 tiles of 8 output lanes on the 132 SMs (at most
+  two, three and three tiles a CTA).  int8: mn = 2816, 3072 (the y-planes of
+  the 96^3 sweep) and 3328, 352, 384 and 416 tiles (at most three, three and
+  four a CTA), each step half the bytes of a bf16 step of the same width;
+* where a plane step of the new forward pass spends its time, by ablation
+  (at 2304 in bf16, 3072 in int8): each mask leaves phases out (see
+  ``csrc/plane_pass.cuh``: no flag waits, no stencil, no pivot stream, no y
+  staging, no products); the results are then wrong, only the time is read.
 """
 
 import argparse
@@ -39,19 +50,93 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E40
 )
 
 L = 48
-NO_BARRIER, NO_STENCIL, NO_STREAM = 1, 2, 4
+PEAK_BYTES_PER_S = 3.35e12
+SOURCES = ("plane_fwd", "plane_bwd", "plane_apply")
+NO_WAIT, NO_STENCIL, NO_STREAM, NO_STAGE, NO_PRODUCTS = 1, 2, 4, 8, 16
 CASES = [
     ("all phases", 0),
-    ("no barriers", NO_BARRIER),
-    ("no stencil phase", NO_STENCIL),
-    ("no pivot columns", NO_STREAM),
-    ("no stencil phase, no barriers", NO_STENCIL | NO_BARRIER),
-    ("no pivot columns, no barriers", NO_STREAM | NO_BARRIER),
-    ("none of them", NO_STREAM | NO_STENCIL | NO_BARRIER),
+    ("no flag waits", NO_WAIT),
+    ("no stencil", NO_STENCIL),
+    ("no pivot stream", NO_STREAM),
+    ("no y staging", NO_STAGE),
+    ("no products", NO_PRODUCTS),
+    ("no stream, no products", NO_STREAM | NO_PRODUCTS),
+    ("only the stream", NO_WAIT | NO_STENCIL | NO_STAGE | NO_PRODUCTS),
+    ("only the products", NO_WAIT | NO_STENCIL | NO_STAGE | NO_STREAM),
+    ("only the handoff", NO_STREAM | NO_PRODUCTS),
+    ("none of them", NO_WAIT | NO_STENCIL | NO_STREAM | NO_STAGE | NO_PRODUCTS),
 ]
+# plane widths per storage, and the one whose step is taken apart by ablation
+WIDTHS = {"bf16": ((2112, 2304, 2640), 2304), "int8": ((2816, 3072, 3328), 3072)}
 
 
-def random_view(g, mn: int, dev, storage: str = "bf16") -> pk.PlaneSlabView:
+def build_steps() -> dict:
+    """name -> {source: launcher}: the package's build ("new"), the old step
+    and the ablation masks of the new forward pass, all built at once."""
+    cuda_build.build_kernels(list(SOURCES))
+    variants = {"old": ({"PLANE_OLD_STEP": 1}, SOURCES)}
+    variants.update({f"ablate{mask}": ({"PLANE_ABLATE": mask}, ("plane_fwd",))
+                     for _, mask in CASES if mask})
+    dirs = {name: ROOT / "build" / "plane_probe" / name for name in variants}
+    with ThreadPoolExecutor(len(variants)) as pool:     # each build is one nvcc
+        list(pool.map(lambda name: cuda_build.build_kernels(
+            list(variants[name][1]), defines=variants[name][0], build_dir=dirs[name]),
+            variants))
+    new = {src: cuda_build.load(src) for src in SOURCES}
+    steps = {"new": new, "ablate0": new}
+    for name, (_, sources) in variants.items():
+        steps[name] = dict(new, **{src: cuda_build.load(src, build_dir=dirs[name])
+                                   for src in sources})
+    return steps
+
+
+def use(steps, name):
+    """Route the package's wrappers to the launchers of build ``name``."""
+    cuda_build._functions.update(steps[name])
+
+
+def in_turns(steps, fn, order, repeats):
+    """Mean ms of ``fn`` under each build of ``order`` in turn, and each
+    build's output (clones)."""
+    times, outs = {}, {}
+    for name in order:
+        use(steps, name)
+        got = fn()
+        outs[name] = tuple(t.clone() for t in (got if isinstance(got, tuple) else (got,)))
+        times.setdefault(name, []).append(time_ms(fn, repeats))
+    torch.cuda.synchronize()
+    use(steps, "new")
+    return {name: sum(t) / len(t) for name, t in times.items()}, times, outs
+
+
+def graph_turns(steps, fn, order, launches=200, replays=5):
+    """Device milliseconds of one ``fn()`` under each build of ``order`` in
+    turn: ``launches`` calls captured into a CUDA graph per turn and replayed
+    (a plane apply takes less time on the card than its wrapper on the host,
+    so back-to-back calls would time the host)."""
+    times = {}
+    for name in order:
+        use(steps, name)
+        fn()
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(launches):
+                fn()
+        graph.replay()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.setdefault(name, []).append(start.elapsed_time(end) / (replays * launches))
+        del graph
+    use(steps, "new")
+    return {name: sum(t) / len(t) for name, t in times.items()}, times
+
+
+def random_view(g, mn: int, dev, storage: str) -> pk.PlaneSlabView:
     """l = 48 random planes of width mn (one plane row: a = 1, b = mn, so
     the stencil's flat shifts are +-1 and +-(mn + 1); the kernel reads the
     same weights whatever the shape).  int8: random entries and scales, zero
@@ -77,68 +162,71 @@ def random_view(g, mn: int, dev, storage: str = "bf16") -> pk.PlaneSlabView:
                             usten=sten)
 
 
-def passes(view, g, dev):
+def rel_err(a, ref):
+    return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
+
+
+def passes(steps, view, g, dev):
     st, ld, n = view.stack, view.stack.ld, view.lsten.shape[2]
+    bound_us = 1e6 * (st.nbytes // st.n_planes) / PEAK_BYTES_PER_S    # one plane's bytes
+    order = ("old", "new", "new", "old")
     for r in (1, 2):
         b4 = torch.randn((L, 2 * r, ld), generator=g, device=dev)
         b4[..., st.mn:] = 0
         y4 = pk.plane_forward(st, b4, view.lrows, n)[0]
-        plane_bytes = st.nbytes // st.n_planes
-        ms = dict(
-            forward=time_ms(lambda: pk.plane_forward(st, b4, view.lrows, n), 10),
-            backward=time_ms(lambda: pk.plane_backward(st, y4, view.urows, n), 10),
-            apply=time_ms(lambda: pk.plane_apply_rows(st, 0, b4[0]), 50),
+        runs = dict(
+            forward=(lambda: pk.plane_forward(st, b4, view.lrows, n), L),
+            backward=(lambda: pk.plane_backward(st, y4, view.urows, n), L),
+            apply=(lambda: pk.plane_apply_rows(st, 0, b4[0]), 1),
         )
-        print(json.dumps(dict(
-            storage=st.storage, mn=st.mn, tiles=ld // 8, r=r, ms=ms,
-            us_per_plane={k: 1e3 * v / (1 if k == "apply" else L) for k, v in ms.items()},
-            plane_gb_per_s={k: plane_bytes * (1 if k == "apply" else L) / (1e-3 * v) / 1e9
-                            for k, v in ms.items()},
-        )), flush=True)
+        for kernel, (fn, planes) in runs.items():
+            ms, turns, outs = in_turns(steps, fn, order if planes > 1 else ("old", "new"), 10)
+            if planes == 1:
+                # the plane apply, the same kernel in every build: device time
+                # from CUDA graphs, old and new in turns twice
+                ms, turns = graph_turns(steps, fn, ("old", "new", "new", "old") * 2)
+            us = {name: 1e3 * v / planes for name, v in ms.items()}
+            print(json.dumps(dict(
+                kernel=kernel, storage=st.storage, mn=st.mn, tiles=ld // 8, r=r, planes=planes,
+                old_us_per_plane=us["old"], new_us_per_plane=us["new"],
+                new_over_old=us["new"] / us["old"], bound_us_per_plane=bound_us,
+                share_of_bound={name: bound_us / v for name, v in us.items()},
+                turns_ms={name: t for name, t in turns.items()},
+                new_vs_old_rel_err=max(rel_err(a, b) for a, b in zip(outs["new"], outs["old"])),
+            )), flush=True)
 
 
-def ablation(view, g, dev):
-    masks = sorted({mask for _, mask in CASES})
-    dirs = {mask: ROOT / "build" / "plane_ablation" / str(mask) for mask in masks}
-    with ThreadPoolExecutor(len(masks)) as pool:     # each build is one nvcc
-        list(pool.map(lambda mask: cuda_build.build_kernels(
-            ["plane_fwd"], defines={"PLANE_ABLATE": mask}, build_dir=dirs[mask]), masks))
+def ablation(steps, view, g, dev):
     st, ld, n = view.stack, view.stack.ld, view.lsten.shape[2]
-    packaged = cuda_build.load("plane_fwd")
-    try:
-        for r in (1, 2):
-            b4 = torch.randn((L, 2 * r, ld), generator=g, device=dev)
-            row = {}
-            for name, mask in CASES:
-                # the wrapper launches whatever the loader returns for plane_fwd
-                cuda_build._functions["plane_fwd"] = cuda_build.load("plane_fwd", dirs[mask])
-                row[name] = 1e3 * time_ms(lambda: pk.plane_forward(st, b4, view.lrows, n), 10) / L
-            print(json.dumps(dict(ablation_us_per_plane=row, storage=st.storage, r=r, mn=st.mn)),
-                  flush=True)
-    finally:
-        cuda_build._functions["plane_fwd"] = packaged
-
-
-# plane widths per storage, and the one whose step is split by ablation
-WIDTHS = {"bf16": ((2112, 2304, 2640), 2304), "int8": ((2816, 3072, 3328), 3072)}
+    for r in (1, 2):
+        b4 = torch.randn((L, 2 * r, ld), generator=g, device=dev)
+        row = {}
+        for name, mask in CASES:
+            use(steps, f"ablate{mask}")
+            row[name] = 1e3 * time_ms(lambda: pk.plane_forward(st, b4, view.lrows, n), 10) / L
+        use(steps, "new")
+        print(json.dumps(dict(ablation_us_per_plane=row, kernel="forward", storage=st.storage,
+                              r=r, mn=st.mn)), flush=True)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--storage", choices=sorted(WIDTHS), default="bf16")
+    ap.add_argument("--storage", choices=sorted(WIDTHS), default=None,
+                    help="one plane storage (default: both)")
     args = ap.parse_args()
     dev = torch.device("cuda", 0)
-    print(card_name_and_power_limit())
-    cuda_build.build_kernels()
+    print(card_name_and_power_limit(), flush=True)
+    steps = build_steps()
     g = torch.Generator(device=dev).manual_seed(0)
-    widths, split = WIDTHS[args.storage]
-    for mn in widths:
-        view = random_view(g, mn, dev, args.storage)
-        passes(view, g, dev)
-        if mn == split:
-            ablation(view, g, dev)
-        del view
-        torch.cuda.empty_cache()
+    for storage in [args.storage] if args.storage else sorted(WIDTHS):
+        widths, ablated = WIDTHS[storage]
+        for mn in widths:
+            view = random_view(g, mn, dev, storage)
+            passes(steps, view, g, dev)
+            if mn == ablated:
+                ablation(steps, view, g, dev)
+            del view
+            torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

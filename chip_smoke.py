@@ -43,7 +43,9 @@ line step (``csrc/thomas_flow.cuh``): the dense forward and backward passes
 (rows 1, 2, 4 and 1i, 2i, 4i), the cached forward pass (rows 3, 5, 6, 3i, 5i)
 and the fused sweeps (rows 8-9); after each path the script prints their
 microseconds a line step and checks that repeated launches give the same
-bits.
+bits.  The fused plane passes of the 3D paths (rows 11, 12, 11i, 12i) run the
+flag-handoff plane step (``csrc/plane_pass.cuh``): after the 48^3 and 96^3
+paths the script prints their microseconds a plane step, with the same check.
 Each phase prints one JSON line; any failed check raises, so the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -123,12 +125,12 @@ KERNEL_INFO = {
         source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:626", 2: f"{_TPU}:626"},
     ),
     "plane_forward": dict(
-        route="cuda", kernel="plane::pass_kernel<R, false, Storage::kBf16>",
+        route="cuda", kernel="plane::flow_kernel<R, false, Storage::kBf16>",
         source=_PORT + "plane_fwd.cu",
         replaces={1: f"{_TPU_PLANE}:339", 2: f"{_TPU_PLANE}:339"},
     ),
     "plane_backward": dict(
-        route="cuda", kernel="plane::pass_kernel<R, true, Storage::kBf16>",
+        route="cuda", kernel="plane::flow_kernel<R, true, Storage::kBf16>",
         source=_PORT + "plane_bwd.cu",
         replaces={1: f"{_TPU_PLANE}:366", 2: f"{_TPU_PLANE}:366"},
     ),
@@ -140,12 +142,12 @@ KERNEL_INFO = {
     # the int8 mode of rows 10-12: the TPU kernels' nb > 1 branch of
     # _dot_plane (pallas_plane.py:314-326) inside the same bodies
     "plane_forward_int8": dict(
-        route="cuda", kernel="plane::pass_kernel<R, false, Storage::kInt8>",
+        route="cuda", kernel="plane::flow_kernel<R, false, Storage::kInt8>",
         source=_PORT + "plane_fwd.cu",
         replaces={1: f"{_TPU_PLANE}:339", 2: f"{_TPU_PLANE}:339"},
     ),
     "plane_backward_int8": dict(
-        route="cuda", kernel="plane::pass_kernel<R, true, Storage::kInt8>",
+        route="cuda", kernel="plane::flow_kernel<R, true, Storage::kInt8>",
         source=_PORT + "plane_bwd.cu",
         replaces={1: f"{_TPU_PLANE}:366", 2: f"{_TPU_PLANE}:366"},
     ),
@@ -190,13 +192,15 @@ KERNEL_INFO = {
         replaces={1: f"{_TPU_STENCIL}:75"},
     ),
 }
-# the line step of each 2D line kernel: the flag-handoff step of
-# csrc/thomas_flow.cuh (flow_kernel, or run_flow driven by a step map), or the
-# grid-barrier step of csrc/thomas_line.cuh (run_steps)
+# the step of each 2D line kernel and 3D plane pass: the flag-handoff line
+# step of csrc/thomas_flow.cuh (flow_kernel, or run_flow driven by a step map)
+# or the grid-barrier step of csrc/thomas_line.cuh (run_steps); the
+# flag-handoff plane step of csrc/plane_pass.cuh (plane::flow_kernel)
 FLOW_STEP, BARRIER_STEP = "flag-handoff", "grid-barrier"
 for _name, _info in KERNEL_INFO.items():
     if _info["source"].rsplit("/", 1)[-1] in ("thomas_fwd.cu", "thomas_bwd.cu",
-                                              "thomas_fwd_cached.cu", "sweep_fused.cu"):
+                                              "thomas_fwd_cached.cu", "sweep_fused.cu",
+                                              "plane_fwd.cu", "plane_bwd.cu"):
         _info["step"] = BARRIER_STEP if _name == "thomas_backward_ht" else FLOW_STEP
 
 # the 2D kernels by pivot layout: dense planes, banded+tail, fused sweeps
@@ -493,9 +497,11 @@ def pass_bound(lines: int, n: int, ld: int, r: int, stacks: int):
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
-def library_pass_ms(rows: torch.Tensor, dense_re, dense_im, lines) -> float:
+def library_pass_ms(rows: torch.Tensor, dense_re, dense_im, lines, graph=False) -> float:
     """Yardstick: a loop of library bf16 matrix products of one (2r, ld) row
-    block with the dense planes of ``lines`` (no band term, no dependency)."""
+    block with the dense planes of ``lines`` (no band term, no dependency);
+    ``graph`` times it from a CUDA graph, as :func:`kernel_entry` does the
+    kernel it stands beside."""
     rows_bf16 = rows.to(torch.bfloat16)
 
     def loop():
@@ -503,13 +509,35 @@ def library_pass_ms(rows: torch.Tensor, dense_re, dense_im, lines) -> float:
             torch.matmul(rows_bf16, dense_re[j])
             torch.matmul(rows_bf16, dense_im[j])
 
-    return time_ms(loop, 2)
+    return graph_ms(loop) if graph else time_ms(loop, 2)
+
+
+def graph_ms(fn, launches: int = 200, replays: int = 5) -> float:
+    """Device milliseconds of one ``fn()``: ``launches`` calls captured into a
+    CUDA graph and replayed, for a kernel that takes less time on the card
+    than its wrapper on the host (back-to-back calls would time the host)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * launches)
 
 
 def kernel_entry(name, r, path, launches, kernel, plain, bound, library_ms, shape,
-                 variant="", replaces=None) -> dict:
+                 variant="", replaces=None, graph=False) -> dict:
     """Hold one kernel against its plain version on the same inputs and time
-    both; ``kernel``/``plain`` return the tensor (or tuple) to compare."""
+    both; ``kernel``/``plain`` return the tensor (or tuple) to compare;
+    ``graph`` times both from a CUDA graph (:func:`graph_ms`; pass the
+    library yardstick timed the same way)."""
     got, want = kernel(), plain()
     if isinstance(got, tuple):
         got, want = (torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want))
@@ -521,16 +549,18 @@ def kernel_entry(name, r, path, launches, kernel, plain, bound, library_ms, shap
     return dict(
         name=f"{name}{variant}_r{r}", **info, path=path, launches=launches,
         max_abs_err=abs_err, max_rel_err=err, tolerance_rel=KERNEL_TOL,
-        ms=time_ms(kernel, 5), plain_ms=time_ms(plain, 2),
+        ms=graph_ms(kernel) if graph else time_ms(kernel, 5),
+        plain_ms=graph_ms(plain, launches=20) if graph else time_ms(plain, 2),
         bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms, shape=shape,
     )
 
 
-def line_step_report(path: str, r: int, entries: list, runs: dict):
-    """Print microseconds a line step of each kernel entry (``entries``:
-    (entry, line steps of one launch) pairs) and check that three more
-    launches of each kernel (``runs``: name -> launch) give the same bits as
-    the first: the flag handoff leaves no sum to timing."""
+def line_step_report(path: str, r: int, entries: list, runs: dict, phase: str = "line_step"):
+    """Print microseconds a line step (``phase="plane_step"``: a plane step)
+    of each kernel entry (``entries``: (entry, steps of one launch) pairs)
+    and check that three more launches of each kernel (``runs``: name ->
+    launch) give the same bits as the first: the flag handoff leaves no sum
+    to timing."""
     identical = {}
     for name, fn in runs.items():
         outs = []
@@ -540,7 +570,7 @@ def line_step_report(path: str, r: int, entries: list, runs: dict):
                         else (got.clone(),))
         identical[name] = all(all(torch.equal(a, b) for a, b in zip(o, outs[0]))
                               for o in outs[1:])
-    emit("line_step", path=path, r=r, bit_identical_over_repeats=identical,
+    emit(phase, path=path, r=r, bit_identical_over_repeats=identical,
          us_per_step={e["name"]: 1e3 * e["ms"] / steps for e, steps in entries})
     check(all(identical.values()), f"repeated launches give the same bits ({identical})")
 
@@ -997,9 +1027,13 @@ def phase_plane_kernel_times(problem, path_counts: dict, apply_counts: dict) -> 
                          lambda: pk.plane_apply_rows(st, l // 2, b4[l // 2]),
                          lambda: pk.plane_apply_rows_plain(st, l // 2, b4[l // 2]),
                          plane_bound(1, ld, r, stacks=2, weights=False),
-                         library_pass_ms(b4[0], dense_re, dense_im, range(1)),
-                         dict(shape, plane=l // 2)),
+                         library_pass_ms(b4[0], dense_re, dense_im, range(1), graph=True),
+                         dict(shape, plane=l // 2), graph=True),
         ]
+        line_step_report(path, r, [(kernels[-3], l), (kernels[-2], l)], {
+            "plane_forward": lambda: pk.plane_forward(st, b4, view.lrows, n),
+            "plane_backward": lambda: pk.plane_backward(st, y4, view.urows, n),
+        }, phase="plane_step")
     del dense_re, dense_im
     return kernels
 
@@ -1345,12 +1379,16 @@ def sweep_kernel_times(problem, paths: dict, path_counts: dict, apply_counts=Non
                 lambda: pk.plane_apply_rows(st, base + l // 2, b4[l // 2]),
                 lambda: pk.plane_apply_rows_plain(st, base + l // 2, b4[l // 2]),
                 plane_bound(1, ld, r, stacks=2, weights=False, storage=storage),
-                library_pass_ms(b4[0], dense_re, dense_im, range(1)),
-                dict(shape, plane=l // 2), variant=variant))
+                library_pass_ms(b4[0], dense_re, dense_im, range(1), graph=True),
+                dict(shape, plane=l // 2), variant=variant, graph=True))
         if storage == "int8":
             for e in entries:
                 e["library_call"] = LIBRARY_CALL_INT8
         kernels += entries
+        line_step_report(path, r, [(entries[0], l), (entries[1], l)], {
+            "plane_forward" + suffix: lambda: pk.plane_forward(st, b4, view.lrows, n, base),
+            "plane_backward" + suffix: lambda: pk.plane_backward(st, y4, view.urows, n, base),
+        }, phase="plane_step")
     del dense_re, dense_im
     torch.cuda.empty_cache()
     return kernels

@@ -12,10 +12,14 @@
 // `tail` planes, which is exact: the recursion starts at the true last plane.
 // Planes < start of the x stack belong to the caller.
 //
-// The kernels are plane::pass_kernel<R, true, S>, the backward
+// The kernels are plane::flow_kernel<R, true, S>, the backward
 // instantiations of the body in plane_pass.cuh for S = Storage::kBf16 and
-// Storage::kInt8, which describes the design, the limits and the bound.  The x stack is the carry (plane p reads row p+1); the stencil
-// phase's result lives in a one-plane scratch between the two barriers.
+// Storage::kInt8, which describes the design, the limits and the bound.  The
+// carry x_{p+1} and y_p - S'_p(x_{p+1}) travel as flagged exchange words (the
+// latter double-buffered: a fast CTA forms the next plane's lanes while a
+// slow one still reads this plane's); the x stack is only written.  A build
+// with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py only) launches the
+// grid-barrier step instead, plane::pass_kernel<R, true, S>.
 //
 // Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B in bf16 (0.304 ms for
 // 48 planes at mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (0.56 ms
@@ -32,26 +36,33 @@ extern "C" int plane_backward(
     const void* pre,         // (SL, ld/8, ld, 8) bf16 or int8, tile-major, transposed
     const void* pim,
     const float* scale,      // int8: (SL, ld/8, ld/128, 2, 8) f32 scales; bf16: null
-    float* scratch,          // (2r, ld)
     float* x,                // (l, 2r, ld); planes < start are not touched
-    int l, int mn, int n, int ld, int r, int base, int start, void* stream) {
-  plane::PassArgs a;
+    int l, int mn, int n, int ld, int r, int base, int start,
+    void* xchg,              // exchange words, zeroed once: 2 slots each of y and
+                             //   t words, (ld, 2r) words of (value, flag)
+    unsigned epoch,          // flag of plane l - 1: planes take epoch .. epoch + l - start - 1
+    void* stream) {
+  plane::PassArgs a{};
   a.rhs = y;
   a.w = w;
   a.pre = pre;
   a.pim = pim;
   a.scale = scale;
-  a.t_init = nullptr;
-  a.kept = scratch;
   a.out = x;
-  a.carry = nullptr;
   a.l = l;
   a.mn = mn;
   a.n = n;
   a.ld = ld;
   a.base = base;
   a.start = start;
+#if PLANE_OLD_STEP
+  (void)xchg;
+  (void)epoch;
   cudaError_t err = plane::run_pass<true>(r, a, (cudaStream_t)stream);
+#else
+  cudaError_t err =
+      plane::run_flow<true>(r, a, static_cast<uint2*>(xchg), epoch, (cudaStream_t)stream);
+#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

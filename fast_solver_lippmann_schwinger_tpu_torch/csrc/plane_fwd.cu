@@ -10,20 +10,20 @@
 // against packed weight rows) and P the transposed pivot plane: bf16, or int8
 // with one f32 scale per (128-input-row block, output lane).  It
 // keeps the y stack for the backward pass and, when the caller passes one,
-// the t stack, which is then also where the carry lives (plane p reads row
-// p-1 of the stack it writes row p of), so that a later pass can resume from
-// t_{start-1}; without a t stack the carry lives in a one-plane scratch.
+// the t stack, so that a later pass can resume from t_{start-1}.
 // Planes < start of y and t belong to the caller: the kernel neither reads
 // nor writes them.
 //
-// The kernels are plane::pass_kernel<R, false, S>, the forward instantiations
-// of the body in plane_pass.cuh for S = Storage::kBf16 and Storage::kInt8
-// (the int8 mode of the TPU kernel's _dot_plane, pallas_plane.py:314-326),
-// which describes the design (one cooperative launch per pass, two grid
-// barriers per plane: the stencil phase shared out over the grid, then every
-// block's output tiles against the whole y_p; pivot columns, and int8 scales,
-// streamed through a cp.async ring), the limits (r <= 2, ld <= 12448 at
-// r = 2 in bf16) and the bound.
+// The kernels are plane::flow_kernel<R, false, S>, the forward
+// instantiations of the body in plane_pass.cuh for S = Storage::kBf16 and
+// Storage::kInt8 (the int8 mode of the TPU kernel's _dot_plane,
+// pallas_plane.py:314-326), which describes the design (one cooperative
+// launch of one CTA an SM, a deep ring of bulk-copied pivot chunks, the t
+// tiles and y lanes handed over as flagged exchange words: one grid-wide wait
+// a plane), the limits (r <= 2, ld <= 12448 at r = 2 in bf16) and the bound.
+// The carry travels in the exchange words; the t stack is only written.  A
+// build with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py only) launches the
+// grid-barrier step instead, plane::pass_kernel<R, false, S>.
 //
 // Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B in bf16 (0.304 ms for
 // 48 planes at mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (0.56 ms
@@ -43,9 +43,12 @@ extern "C" int plane_forward(
     const float* t_init,     // (2r, ld) carry into plane `start`, or null (zero)
     float* y,                // (l, 2r, ld); planes < start are not touched
     float* t,                // (l, 2r, ld), or null; planes < start are not touched
-    float* carry,            // (2r, ld) scratch, used when t is null
-    int l, int mn, int n, int ld, int r, int base, int start, void* stream) {
-  plane::PassArgs a;
+    int l, int mn, int n, int ld, int r, int base, int start,
+    void* xchg,              // exchange words, zeroed once: 2 slots each of y and
+                             //   t words, (ld, 2r) words of (value, flag)
+    unsigned epoch,          // flag of plane `start`: planes take epoch .. epoch + l - start - 1
+    void* stream) {
+  plane::PassArgs a{};
   a.rhs = b;
   a.w = w;
   a.pre = pre;
@@ -54,14 +57,20 @@ extern "C" int plane_forward(
   a.t_init = t_init;
   a.kept = y;
   a.out = t;
-  a.carry = carry;
   a.l = l;
   a.mn = mn;
   a.n = n;
   a.ld = ld;
   a.base = base;
   a.start = start;
+#if PLANE_OLD_STEP
+  (void)xchg;
+  (void)epoch;
   cudaError_t err = plane::run_pass<false>(r, a, (cudaStream_t)stream);
+#else
+  cudaError_t err =
+      plane::run_flow<false>(r, a, static_cast<uint2*>(xchg), epoch, (cudaStream_t)stream);
+#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -1,16 +1,19 @@
 // Plane-pivot substitution for the 3D block-Thomas solves: the body of the
 // three plane kernels
 //
-//     plane::pass_kernel<R, false, S>   forward pass over a slab's planes   plane_fwd.cu
-//     plane::pass_kernel<R, true, S>    backward pass                       plane_bwd.cu
+//     plane::flow_kernel<R, false, S>   forward pass over a slab's planes   plane_fwd.cu
+//     plane::flow_kernel<R, true, S>    backward pass                       plane_bwd.cu
 //     plane::apply_kernel<R, S>         one plane apply [Yr; Yi] @ P[k]     plane_apply.cu
 //
 // which those files instantiate and launch, for S = Storage::kBf16 (bf16
-// pivot planes) and S = Storage::kInt8 (int8 planes with f32 scales).  A 3D
-// stencil matrix on an (l, a, b) grid is block tridiagonal over its z-planes:
-// the pivot blocks are dense (mn x mn) inverses, mn = a b, and the couplings
-// between planes are 9-tap in-plane stencils.  Per plane p (forward:
-// start..l-1, backward: l-1..start) a pass computes
+// pivot planes) and S = Storage::kInt8 (int8 planes with f32 scales), and,
+// only in a build with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py
+// times old against new), the grid-barrier step the passes ran before,
+// plane::pass_kernel<R, kBackward, S>.  A 3D stencil matrix on an (l, a, b)
+// grid is block tridiagonal over its z-planes: the pivot blocks are dense
+// (mn x mn) inverses, mn = a b, and the couplings between planes are 9-tap
+// in-plane stencils.  Per plane p (forward: start..l-1, backward: l-1..start)
+// a pass computes
 //
 //     y_p = rhs_p - S_p(carry)            9-tap complex stencil, flat shifts
 //     t_p = y_p . P[base + p]             [Yr; Yi] @ P, bf16 or int8 plane
@@ -18,11 +21,7 @@
 // where carry is the t of the plane before (forward: p-1, backward: p+1).
 // The forward pass takes its first carry from the caller (t_init, zero when
 // absent) and keeps the y stack (for the backward pass) and, when asked, the
-// t stack, which is then also where the carry lives; otherwise the carry
-// lives in a one-plane scratch.  The backward pass keeps its x stack, which
-// is its carry too, and holds y_p - S'_p(x_{p+1}) in a one-plane scratch.
-// One plane of scratch is enough for either: between the phase that reads a
-// plane's carry and the phase that overwrites it there is a grid barrier.
+// t stack; the backward pass keeps its x stack (x_p = t_p).
 //
 // Numerics contract of the JAX package's Pallas kernels
 // (sparse/pallas_plane.py: _sten_apply_rows, _dot_plane): planes widened to
@@ -43,52 +42,71 @@
 // that the scale blocks of 128 input rows align, and the scales are
 // tile-major too, scale[s, t, b, part, l] (part 0: real plane, 1: imaginary)
 // for input block b and output lane 8 t + l.  Padding entries are zero with
-// scale 1, and padding lanes are never read as sources (design note 3).
+// scale 1, and padding lanes are never read as sources (flat shifts: a
+// source index outside [0, mn) has a zero weight and is skipped, where the
+// TPU kernel rolls lanes around the padded row).
 //
-// Design.
+// The flag-handoff plane step (flow_kernel).  A plane step needs the whole
+// y_p in every output tile, and y_p[f] needs the carry only at the lanes
+// f + dj n + di.  The grid-barrier step (pass_kernel, below) shared the
+// stencil out over the grid, met at a grid barrier, had every block stage
+// the whole y_p, and met again: two barriers a plane, during which the pivot
+// stream stopped (its ring held 3 chunks), at 2.8 (r = 1) and 4.1 (r = 2)
+// times the bytes' time on int8 y-planes at ld = 3072 (PERF.md §5).  Here:
 //
-// 1. The stencil is 9 taps wide and the whole y_p feeds every output tile.
-//    The 2D body (thomas_line.cuh) lets every block recompute w from a 3-tap
-//    band that it stages; here one plane's weight rows are 2 x 9 x ld x 4 B
-//    (166 KB at mn = 2304), so every block holding its own copy would read as
-//    many bytes from L2 as the plane itself.  Instead a plane step has two
-//    phases: (A) the threads of the whole grid share out the lanes of y_p,
-//    each forming its lanes from the carry in global memory and its own
-//    weights, and write them to the y stack (an output anyway; the scratch in
-//    the backward pass); then, after a grid barrier, (B) every block loads
-//    the whole y_p (2r x ld floats, from L2) into shared memory and computes
-//    its output tiles of t_p.  A second barrier ends the step.  The whole
-//    pass is ONE COOPERATIVE LAUNCH whose blocks stay resident and meet at
-//    cooperative_groups::this_grid().sync(); the grid is sized from the
-//    occupancy query, so a launch that does not fit is refused, it does not
-//    hang.
+// 1. One persistent CTA an SM (a cooperative launch), owning a fixed run of
+//    consecutive output tiles: tiles / CTAs, one more for the first
+//    tiles % CTAs, so none takes more than ceil(tiles / CTAs): 3 at 384
+//    tiles (ld = 3072, 2.91 on average).  Where that maximum is well above
+//    the average (3 against 2.18 at 288 tiles, mn = 2304; 4 against 3.15 at
+//    416) the step takes the maximum's time: sharing the input rows out
+//    evenly instead (a tile split between two CTAs) measured about even at
+//    288 tiles and slower at 384, and only paid at 416, a width no path
+//    runs (PERF.md §6).  Eight consumer warps compute; a ninth warp streams.
 //
-// 2. Shared memory does not grow with the plane's width: a tile's pivot
-//    columns stream through a ring of kStages chunks of kChunkBytes per plane
-//    (256 input rows in bf16, 512 in int8, with the int8 chunk's 4 x 2 x 8
-//    scales beside it), filled with cp.async kStages - 1 chunks ahead.  The
-//    ring runs on across tiles, planes and barriers: the columns of the next
-//    tile do not depend on the carry, so they are in flight while the block
-//    waits at the barriers.  What grows with mn is the staged y_p (2r x ld
-//    floats), which bounds the fused passes to ld <= 12448 at r = 2 (24928 at
-//    r = 1) in bf16 on an H100; the plane apply reads its rows from global
-//    memory and has no such bound (the wrappers send larger stacks to the
-//    per-plane path).
+// 2. A deep pivot ring filled by bulk copies.  The producer warp walks the
+//    CTA's chunks in order (plane step, tile, chunk of C input rows): one
+//    cp.async.bulk per plane part and one for the chunk's int8 scales, into
+//    slot g % N, completing on the slot's `full` mbarrier; it refills a slot
+//    once each consumer warp has arrived on its `empty` mbarrier.  The pivot
+//    bytes do not depend on the carry, so the producer runs on across tiles
+//    and planes while the consumers wait: N is sized per launch from the
+//    shared memory the staged y_p leaves (at ld = 3072 in int8, 10 to 12
+//    slots of 1024 rows, a whole step's share of a CTA), at least 4 slots at
+//    the widest planes the wrappers send here (sparse/plane_kernels.py,
+//    fused_fits, whose widths are unchanged).  Within a chunk the warps take
+//    64-row segments in turn, two rows a lane, so that they share the rows
+//    evenly and each segment lies in one 128-row scale block (one broadcast
+//    read of its scales).
 //
-// 3. Flat shifts never read outside the plane.  The TPU kernel rolls lanes
-//    around the padded row and relies on the packed weights being exact zeros
-//    wherever a tap leaves the plane; here a source index outside [0, mn) is
-//    skipped (it has a zero weight), so padding lanes are never read and a
-//    non-finite value there cannot leak in.
-//
-// 4. int8 widening.  A thread takes one input row (8 lanes, 8 bytes) of each
-//    plane at a time; with 128 threads and chunks of 4 x 128 rows, pass j of
-//    a chunk lies in scale block j for every thread, so the 2 x 8 scales of a
-//    pass are one broadcast read of shared memory.  The bytes become floats
-//    without a conversion instruction (the card converts 16 values per clock
-//    and SM, fewer than the plane's bytes arrive): q ^ 0x80 is q + 128 as an
-//    unsigned byte, one byte-permute puts it into the mantissa of 2^23, and
-//    one subtraction of 2^23 + 128 leaves q exactly.
+// 3. One grid-wide wait a plane, and the stencil local.  Tiles of t_p and
+//    lanes of y_p travel as 8-byte exchange words (value bits, flag), the
+//    low-latency form of NCCL's LL protocol (as in thomas_flow.cuh): an
+//    aligned 8-byte store is seen whole or not at all, so a reader whose
+//    flag matches has its value.  Per plane step s (flag epoch + s):
+//      (a) each CTA forms y_s of its own lanes from the t_{s-1} words of the
+//          lanes within +-(n + 1) (a local wait on about 13 tiles either
+//          side at n = 96), its weights and its right-hand rows, and
+//          publishes them as y words (and, forward, into the y stack);
+//      (b) every CTA reads all y_s words into shared memory, polling their
+//          flags: the one grid-wide wait;
+//      (c) each CTA computes its tiles of t_s from the ring and publishes
+//          them as t words (and into the t or x stack).
+//    y words live in two slots (slot s & 1): a CTA that writes y_{s+2} has
+//    read t_{s+1} from its neighbours, who read every y_{s+1} word, each
+//    published after its writer had read all of y_s.  t words live in two
+//    slots too.  The grid-wide wait alone would let one do (a CTA writes
+//    t_{s+1} after reading every y_{s+1} word, each published after its
+//    writer had read its taps' t_s words), but the probe's build without y
+//    staging has no grid-wide wait; two slots hold without it: a CTA writes
+//    t_{s+2} after reading t_{s+1} of every neighbour, each written after
+//    that neighbour had read its t_s (the taps are symmetric, so the CTAs
+//    that read a tile are the ones it reads).  Flags come from the
+//    wrapper's launch counter (thomas_kernels.Exchange: a counter that only
+//    grows over a buffer zeroed once), so no stale word carries a current
+//    flag and no memset runs per launch; a poll traps after 2^24 tries
+//    instead of holding the card.  Sums are added in a fixed order (no
+//    atomics), so a pass is bit-identical from run to run.
 //
 // Bound: bytes.  A plane step must read the two planes once: 2 x ld^2 x 2 B
 // in bf16 (21.2 MB at mn = 2304, 6.3 us at the card's 3.35 TB/s), 2 x ld^2 B
@@ -96,18 +114,26 @@
 // the weight rows and the row stacks add about 1 %.  The arithmetic is
 // 2 x 2r x 2 x ld^2 flop, far below the f32 rate; int8 adds a widening and a
 // scaling per element (about 3 ld^2 more operations at r = 1), which stays
-// below it.
+// below it.  The y words add 2r x ld x 8 B of L2 reads per CTA a step.
+//
+// Limits.  r = 1 or 2 (the wrappers run wider batches as groups), and
+// planes whose staged y_p (2r x ld floats) leaves room for 4 slots: the fused
+// passes take ld <= 12448 at r = 2 (24928 at r = 1) in bf16, 12288 (24704)
+// in int8 (fused_fits); the plane apply reads its rows from global memory and
+// has no such bound (the wrappers send larger stacks to the per-plane path).
 #pragma once
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "thomas_flow.cuh"
+
 namespace plane {
 
 namespace cg = cooperative_groups;
 
-constexpr int kThreads = 128;          // threads per block
+constexpr int kThreads = 128;          // threads per block (plane apply, old step)
 constexpr int kWarps = kThreads / 32;
 constexpr int kLanes = 8;              // output lanes per tile
 constexpr int kChunkBytes = 4096;      // bytes of one plane's tile per staged chunk
@@ -134,19 +160,27 @@ static_assert(kThreads == kScaleBlock, "int8 pass j of a chunk is scale block j"
 // Timing by ablation (benchmarks_torch/plane_probe.py): a build with
 // -DPLANE_ABLATE=<mask> leaves single phases of a plane step out.  Its results
 // are wrong and only its time is read; the package always builds with 0.
+// Bits: no synchronisation (the old step's grid barriers; the flag step's
+// flag waits: words read once, flags unchecked), no stencil (old step: no
+// phase A; flag step: y = rhs), no pivot stream (old step: no pivot columns;
+// flag step: no copies, the products read stale slots), and, flag step only,
+// no y staging (no y words read: no grid-wide wait either), no products.
 #ifndef PLANE_ABLATE
 #define PLANE_ABLATE 0
 #endif
-constexpr bool kNoBarrier = PLANE_ABLATE & 1;    // neither grid barrier
-constexpr bool kNoStencil = PLANE_ABLATE & 2;    // no stencil phase (A)
-constexpr bool kNoStream = PLANE_ABLATE & 4;     // no pivot columns: no loads, no products
+constexpr bool kNoSync = PLANE_ABLATE & 1;
+constexpr bool kNoStencil = PLANE_ABLATE & 2;
+constexpr bool kNoStream = PLANE_ABLATE & 4;
+constexpr bool kNoStage = PLANE_ABLATE & 8;
+constexpr bool kNoProducts = PLANE_ABLATE & 16;
 
 template <int R>
 __host__ __device__ constexpr size_t red_bytes() {
   return sizeof(float) * kWarps * 2 * R * kLanes;
 }
 
-// shared memory of a fused pass: the ring, the staged y_p, the reduction
+// shared memory of a pass on the old step: the ring, the staged y_p, the
+// reduction
 template <int R, Storage S>
 __host__ __device__ constexpr size_t pass_smem_bytes(int ld) {
   return Store<S>::kRingBytes + sizeof(float) * (size_t)2 * R * ld + red_bytes<R>();
@@ -165,7 +199,8 @@ __device__ __forceinline__ void widen_bf16x8(const uint4 v, float* f) {
 
 // 8 int8 values -> floats: (q ^ 0x80) = q + 128 as an unsigned byte, placed
 // in the low mantissa bits of 2^23 by one byte-permute; subtracting 2^23 + 128
-// leaves q exactly (design note 4)
+// leaves q exactly.  (The card converts 16 values per clock and SM with its
+// conversion instruction, fewer than the plane's bytes arrive.)
 __device__ __forceinline__ void widen_s8x8(const uint2 v, float* f) {
   const unsigned a = v.x ^ 0x80808080u, b = v.y ^ 0x80808080u;
 #pragma unroll
@@ -180,10 +215,11 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
 
-// The block's stream of pivot-tile chunks.  Work item q is output tile
-// blockIdx.x + k gridDim.x of plane first + dir (q / tiles_blk), k = q %
-// tiles_blk; chunk c of an item covers input rows [c kChunkRows, (c+1)
-// kChunkRows).  Chunk g = q nch + c goes to ring slot g % kStages.
+// The block's stream of pivot-tile chunks (plane apply, old step).  Work item
+// q is output tile blockIdx.x + k gridDim.x of plane first + dir (q /
+// tiles_blk), k = q % tiles_blk; chunk c of an item covers input rows
+// [c kChunkRows, (c+1) kChunkRows).  Chunk g = q nch + c goes to ring slot
+// g % kStages.
 template <Storage S>
 struct TileStream {
   using St = Store<S>;
@@ -229,31 +265,32 @@ struct TileStream {
   }
 };
 
-// One input row's 8 lanes of both planes as floats: bf16 row i of the chunk,
-// or int8 row i (scale block i / 128) dequantized element by element
+// One input row's 8 lanes of both planes as floats: bf16 row i of a chunk
+// whose imaginary plane part lies `im` bytes after the real one, or int8 row
+// i, dequantized element by element with the scales of its 128-row block
+// ([part][lane] floats at `sb`)
 template <Storage S>
-__device__ __forceinline__ void load_row(const unsigned char* sre, int i, float* cr,
-                                         float* ci) {
-  const unsigned char* sim = sre + kChunkBytes;
+__device__ __forceinline__ void load_row(const unsigned char* sre, int im, const float* sb,
+                                         int i, float* cr, float* ci) {
+  const unsigned char* sim = sre + im;
   if (S == Storage::kBf16) {
     widen_bf16x8(reinterpret_cast<const uint4*>(sre)[i], cr);
     widen_bf16x8(reinterpret_cast<const uint4*>(sim)[i], ci);
   } else {
-    const float* sc = reinterpret_cast<const float*>(sim + kChunkBytes) +
-                      (i / kScaleBlock) * 2 * kLanes;
     widen_s8x8(reinterpret_cast<const uint2*>(sre)[i], cr);
     widen_s8x8(reinterpret_cast<const uint2*>(sim)[i], ci);
 #pragma unroll
     for (int l = 0; l < kLanes; ++l) {
-      cr[l] *= sc[l];
-      ci[l] *= sc[kLanes + l];
+      cr[l] *= sb[l];
+      ci[l] *= sb[kLanes + l];
     }
   }
 }
 
-// One output tile: stream its nch chunks (chunk counter g runs on), multiply
-// by the rows y (2R x ld floats, shared or global memory), reduce over the
-// block and write the 2R x 8 results to out[qq ld + o0 + l].
+// One output tile (plane apply, old step): stream its nch chunks (chunk
+// counter g runs on), multiply by the rows y (2R x ld floats, shared or
+// global memory), reduce over the block and write the 2R x 8 results to
+// out[qq ld + o0 + l].
 template <int R, Storage S>
 __device__ __forceinline__ void tile_product(const TileStream<S>& ts, int& g, const float* y,
                                              float* red, float* out, int o0) {
@@ -273,12 +310,13 @@ __device__ __forceinline__ void tile_product(const TileStream<S>& ts, int& g, co
     __syncthreads();
     ts.request(g + kStages - 1);
     const unsigned char* sre = ts.slot(g);
+    const float* sc = reinterpret_cast<const float*>(sre + 2 * kChunkBytes);
     const int row0 = c * St::kChunkRows;
     const int rows = kNoStream ? 0 : min(St::kChunkRows, ld - row0);
 #pragma unroll 2
     for (int i = tid; i < rows; i += kThreads) {
       float cr[kLanes], ci[kLanes];
-      load_row<S>(sre, i, cr, ci);
+      load_row<S>(sre, kChunkBytes, sc + (i / kScaleBlock) * 2 * kLanes, i, cr, ci);
 #pragma unroll
       for (int qq = 0; qq < 2 * R; ++qq) {
         const float wq = y[qq * ld + row0 + i];
@@ -334,15 +372,489 @@ struct PassArgs {
   const float* t_init;     // forward: (2r, ld) carry into plane `start`, or
                            //   null for a zero carry; backward: unused
   float* kept;             // forward: y stack (l, 2r, ld), planes >= start;
-                           //   backward: one-plane scratch (2r, ld)
+                           //   backward: old step only, one-plane scratch (2r, ld)
   float* out;              // t stack (forward; may be null) or x stack
                            //   (backward), (l, 2r, ld), planes >= start
-  float* carry;            // forward without a t stack: one-plane scratch
-                           //   (2r, ld); else unused
+  float* carry;            // old step only, forward without a t stack:
+                           //   one-plane scratch (2r, ld)
   int l, mn, n, ld;        // n: the plane's fast axis, for the flat shifts
   int base;                // pivot plane of plane p is base + p
   int start;               // planes start..l-1 are computed
 };
+
+// ---------------------------------------------------------------------------
+// The flag-handoff plane step (see the note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kFlowWarps = 8;                        // consumer warps
+constexpr int kFlowConsumers = kFlowWarps * 32;
+constexpr int kFlowThreads = kFlowConsumers + 32;    // and the producer warp
+constexpr int kWordSlots = 2;                        // slots of y words, of t words
+constexpr int kMinSlots = 4, kMaxSlots = 64;         // ring slots
+constexpr int kRedPitch = kFlowWarps + 4;            // floats a value's warp sums take
+// rows a warp takes of a chunk at a time, kLaneRows a lane (four measured
+// slower, PERF.md §6); a segment lies within a 128-row scale block
+constexpr int kSegRows = 64;
+constexpr int kLaneRows = kSegRows / 32;
+// 16-byte y words a thread polls at once: all of them at ld = 3072
+template <int R>
+__host__ __device__ constexpr int gather_batch() { return 12 * R; }
+// bytes of one ring slot of `rows` input rows: both plane parts and, int8,
+// the scales of their rows / 128 blocks
+template <Storage S>
+__host__ __device__ constexpr size_t flow_slot_bytes(int rows) {
+  return (size_t)2 * rows * Store<S>::kRowBytes +
+         (S == Storage::kInt8 ? (size_t)rows / kScaleBlock * 2 * kLanes * sizeof(float) : 0);
+}
+
+// the warps' sums of a tile's 2R x 8 values, two parities
+template <int R>
+__host__ __device__ constexpr size_t flow_red_bytes() {
+  return sizeof(float) * 2 * (2 * R * kLanes) * kRedPitch;
+}
+
+__host__ __device__ constexpr size_t flow_bar_bytes(int slots) {
+  return ((size_t)16 * slots + 127) / 128 * 128;      // full and empty mbarriers
+}
+
+// shared memory of a flag-step pass: the mbarriers, the warps' sums, the
+// staged y_p, the ring
+template <int R, Storage S>
+__host__ __device__ constexpr size_t flow_smem_bytes(int ld, int rows, int slots) {
+  return flow_bar_bytes(slots) + flow_red_bytes<R>() + sizeof(float) * (size_t)2 * R * ld +
+         (size_t)slots * flow_slot_bytes<S>(rows);
+}
+
+// The chunk rows and slots of a launch: the largest chunk (a multiple of 32
+// rows, of 128 in int8) whose ring still takes 8 slots, else the smallest,
+// with as many slots as fit (at least kMinSlots, else false: plane too wide)
+template <int R, Storage S>
+inline bool flow_ring(int ld, size_t optin, int& rows, int& slots) {
+  constexpr int kRows[3] = {S == Storage::kInt8 ? 1024 : 512, S == Storage::kInt8 ? 512 : 256,
+                           S == Storage::kInt8 ? 384 : 192};
+  const size_t fixed = flow_red_bytes<R>() + sizeof(float) * (size_t)2 * R * ld + 128;
+  for (int k = 0; k < 3; ++k) {
+    const size_t slot = flow_slot_bytes<S>(kRows[k]);
+    if (fixed + kMinSlots * (slot + 16) > optin) continue;
+    const int fit = (int)((optin - fixed) / (slot + 16));
+    if (fit >= 8 || k == 2) {
+      rows = kRows[k];
+      slots = fit < kMaxSlots ? fit : kMaxSlots;
+      return flow_smem_bytes<R, S>(ld, rows, slots) <= optin;
+    }
+  }
+  return false;
+}
+
+struct FlowArgs {
+  PassArgs a;
+  uint2* xchg;             // (2 slots each of y and t words) x (ld, 2r) words
+  unsigned epoch;          // flag of the first plane step
+  int rows;                // input rows of a ring chunk
+  int slots;               // chunks in the ring
+};
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(thomas::smem_addr(bar))
+               : "memory");
+}
+
+// waits for the phase of `bar` with this parity.  kBounded (the consumers'
+// wait for a chunk's bytes): a wait longer than any copy can take (2^20
+// tries, each suspending the thread for a while) means a copy will never
+// land: the kernel traps instead of holding the card.  The producer's wait
+// for a free slot has no bound of its own: the consumer warps it waits for
+// either arrive or trap in one of their own bounded waits (a poll, a chunk),
+// and a trap ends the grid.
+template <bool kBounded>
+__device__ __forceinline__ void wait_phase(uint64_t* bar, unsigned parity) {
+  for (unsigned tries = 0;; ++tries) {
+    unsigned done = 0;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(thomas::smem_addr(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (kBounded && tries > (1u << 20)) __trap();
+  }
+}
+
+// a barrier of the consumer warps only (the producer warp runs on)
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kFlowConsumers) : "memory");
+}
+
+template <int R, bool kBackward, Storage S>
+__global__ void __launch_bounds__(kFlowThreads, 1) flow_kernel(const FlowArgs fa) {
+  using St = Store<S>;
+  constexpr int V = 2 * R * kLanes;      // output values of a tile: rows x lanes
+  constexpr int NW = 2 * R;              // words a lane: its 2R rows
+  const PassArgs& a = fa.a;
+  const int ld = a.ld, mn = a.mn;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int count = a.l - a.start;
+  const size_t row = (size_t)2 * R * ld;     // floats per plane of a stack
+  const int tiles_row = ld / kLanes;
+
+  // this CTA's tiles tile0 .. tile0 + nt - 1, lanes f0 .. f0 + nf - 1: it
+  // forms their y and publishes their t
+  const int G = (int)gridDim.x, c = (int)blockIdx.x;
+  const int nt = tiles_row / G + (c < tiles_row % G);
+  const int tile0 = c * (tiles_row / G) + min(c, tiles_row % G);
+  const int f0 = tile0 * kLanes, nf = nt * kLanes;
+  const int C = fa.rows, N = fa.slots;
+  const size_t slot_bytes = flow_slot_bytes<S>(C);
+  const int im_off = C * St::kRowBytes;      // imaginary part within a slot
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + N;
+  float* red = reinterpret_cast<float*>(smem + flow_bar_bytes(N));
+  float* s_y = red + 2 * V * kRedPitch;                                  // [2R][ld]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(s_y + 2 * R * ld);
+
+  if (tid == 0) {
+    for (int i = 0; i < N; ++i) {
+      thomas::mbar_init(full + i, 1);
+      thomas::mbar_init(empty + i, kFlowWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // --- the producer warp: every chunk of the launch in order -------------
+  if (warp == kFlowWarps) {
+    if (lane == 0) {
+      const unsigned char* pre = static_cast<const unsigned char*>(a.pre);
+      const unsigned char* pim = static_cast<const unsigned char*>(a.pim);
+      int g = 0;
+      for (int s = 0; s < count; ++s) {
+        const int p = kBackward ? a.l - 1 - s : a.start + s;
+        for (int k = 0; k < nt; ++k) {
+          const size_t tile = (size_t)(a.base + p) * tiles_row + tile0 + k;
+          for (int row0 = 0; row0 < ld; row0 += C, ++g) {
+            const int sl = g % N;
+            if (g >= N) wait_phase<false>(empty + sl, (unsigned)(g / N - 1) & 1u);
+            const int rows = min(C, ld - row0);
+            const unsigned pb = (unsigned)rows * St::kRowBytes;
+            const unsigned sb = S == Storage::kInt8
+                                    ? (unsigned)(rows / kScaleBlock * 2 * kLanes * sizeof(float))
+                                    : 0u;
+            thomas::mbar_expect_tx(full + sl, kNoStream ? 0u : 2 * pb + sb);
+            if (kNoStream) continue;
+            unsigned char* dst = ring + (size_t)sl * slot_bytes;
+            const size_t off = (tile * ld + row0) * St::kRowBytes;
+            thomas::bulk_copy(dst, pre + off, pb, full + sl);
+            thomas::bulk_copy(dst + im_off, pim + off, pb, full + sl);
+            if (S == Storage::kInt8)
+              thomas::bulk_copy(
+                  dst + 2 * im_off,
+                  a.scale + (tile * (ld / kScaleBlock) + row0 / kScaleBlock) * 2 * kLanes, sb,
+                  full + sl);
+          }
+        }
+      }
+    }
+    return;
+  }
+
+  // --- the consumer warps ---------------------------------------------------
+  int offs[kTaps];                         // flat offsets of the taps: dj n + di
+#pragma unroll
+  for (int d = 0; d < kTaps; ++d) offs[d] = (d / 3 - 1) * a.n + (d % 3 - 1);
+  auto y_words = [&](int s) { return fa.xchg + (size_t)(s & 1) * ld * NW; };
+  auto t_words = [&](int s) { return fa.xchg + (size_t)(kWordSlots + (s & 1)) * ld * NW; };
+  auto plane_of = [&](int s) { return kBackward ? a.l - 1 - s : a.start + s; };
+
+  // thread tid < nf forms y of lane f = f0 + tid; what that needs but the
+  // carry (its right-hand rows and weights) it loads one step ahead, before
+  // the products, so that (a) waits on the carry's words alone
+  const int f = f0 + tid;
+  const bool my_lane = tid < nf && f < mn;
+  float rb[2 * R], wr[kTaps], wi[kTaps];
+  auto prefetch = [&](int s) {
+    if (!my_lane || s >= count) return;
+    const int p = plane_of(s);
+    const float* rhs = a.rhs + (size_t)p * row;
+    const float* w = a.w + (size_t)p * 2 * kTaps * ld;
+#pragma unroll
+    for (int rr = 0; rr < 2 * R; ++rr) rb[rr] = __ldg(rhs + rr * ld + f);
+#pragma unroll
+    for (int d = 0; d < kTaps; ++d) {
+      wr[d] = __ldg(w + d * ld + f);
+      wi[d] = __ldg(w + (kTaps + d) * ld + f);
+    }
+  };
+  prefetch(0);
+
+  int g = 0;      // chunk counter
+  int q = 0;      // tile counter (parity of the warps' sums)
+  for (int s = 0; s < count; ++s) {
+    const int p = plane_of(s);
+    const unsigned flag = fa.epoch + (unsigned)s;
+
+    // (a) y_s of this CTA's lanes, from the right-hand rows and the carry:
+    //     t_{s-1} words of the lanes within +-(n + 1), or t_init at s = 0
+    if (tid < nf) {
+      float y[2 * R];
+#pragma unroll
+      for (int rr = 0; rr < 2 * R; ++rr) y[rr] = my_lane ? rb[rr] : 0.f;
+      const bool from_init = s == 0 && !kBackward && a.t_init != nullptr;
+      if (my_lane && (s > 0 || from_init) && !kNoStencil) {
+        // the carry's rows at each tap (zero weight outside the plane)
+        float cv[kTaps][2 * R];
+        if (from_init) {
+#pragma unroll
+          for (int d = 0; d < kTaps; ++d) {
+            const int src = f + offs[d];
+#pragma unroll
+            for (int rr = 0; rr < 2 * R; ++rr)
+              cv[d][rr] = src >= 0 && src < mn ? __ldg(a.t_init + rr * ld + src) : 0.f;
+          }
+        } else {
+          const uint2* tw = t_words(s - 1);
+          const uint2* ptr[kTaps * R];
+#pragma unroll
+          for (int d = 0; d < kTaps; ++d) {
+            const int src = f + offs[d];
+#pragma unroll
+            for (int h = 0; h < R; ++h)
+              ptr[d * R + h] = src >= 0 && src < mn ? tw + ((size_t)src * NW + 2 * h) : nullptr;
+          }
+          uint4 v[kTaps * R];
+          thomas::poll_words<kTaps * R, !kNoSync>(ptr, v, flag - 1u);
+#pragma unroll
+          for (int d = 0; d < kTaps; ++d)
+#pragma unroll
+            for (int h = 0; h < R; ++h) {
+              const bool in = ptr[d * R + h] != nullptr;
+              cv[d][2 * h] = in ? __uint_as_float(v[d * R + h].x) : 0.f;
+              cv[d][2 * h + 1] = in ? __uint_as_float(v[d * R + h].z) : 0.f;
+            }
+        }
+        float accr[R], acci[R];
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) accr[rr] = acci[rr] = 0.f;
+#pragma unroll
+        for (int d = 0; d < kTaps; ++d) {
+          const int src = f + offs[d];
+          if (src < 0 || src >= mn) continue;      // zero weight: never read
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr) {
+            const float tr = cv[d][rr], ti = cv[d][R + rr];
+            accr[rr] = accr[rr] + wr[d] * tr - wi[d] * ti;
+            acci[rr] = acci[rr] + wr[d] * ti + wi[d] * tr;
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < R; ++rr) {
+          y[rr] -= accr[rr];
+          y[R + rr] -= acci[rr];
+        }
+      }
+      uint2* yw = y_words(s) + (size_t)f * NW;
+#pragma unroll
+      for (int rr = 0; rr < 2 * R; ++rr) thomas::st_word(yw + rr, y[rr], flag);
+      if (!kBackward) {
+        float* yk = a.kept + (size_t)p * row;
+#pragma unroll
+        for (int rr = 0; rr < 2 * R; ++rr) yk[rr * ld + f] = y[rr];
+      }
+    }
+    __syncwarp();       // a warp's lanes past (a) poll together in (b)
+
+    // (b) the whole y_s into shared memory: every CTA's words, polled until
+    //     their flags match (the one grid-wide wait of the step).  Every
+    //     consumer warp is past the last tile of step s - 1: s_y is free.
+    {
+      const uint2* yw = y_words(s);
+      const int loads = kNoStage ? 0 : ld * R;     // 16-byte loads: lane f, rows 2h, 2h + 1
+      constexpr int kBatch = gather_batch<R>();
+      for (int i0 = 0; i0 < loads; i0 += kFlowConsumers * kBatch) {
+        uint4 v[kBatch];
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int i = i0 + tid + u * kFlowConsumers;
+          v[u] = i < loads ? thomas::ld_words(yw + 2 * (size_t)i) : make_uint4(0u, flag, 0u, flag);
+        }
+        for (unsigned polls = 0; !kNoSync; ++polls) {
+          bool ready = true;
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) ready = ready && thomas::words_ready(v[u], flag);
+          if (ready) break;
+          if (polls > (1u << 24)) __trap();
+#pragma unroll
+          for (int u = 0; u < kBatch; ++u) {
+            const int i = i0 + tid + u * kFlowConsumers;
+            if (!thomas::words_ready(v[u], flag)) v[u] = thomas::ld_words(yw + 2 * (size_t)i);
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < kBatch; ++u) {
+          const int i = i0 + tid + u * kFlowConsumers;
+          if (i >= loads) continue;
+          const int fi = i / R, h = i - fi * R;
+          s_y[(2 * h) * ld + fi] = __uint_as_float(v[u].x);
+          s_y[(2 * h + 1) * ld + fi] = __uint_as_float(v[u].z);
+        }
+      }
+    }
+    consumer_sync();
+    prefetch(s + 1);
+
+    // (c) this CTA's tiles of t_s: chunks from the ring, the warps' sums
+    //     added in warp order, published as t words and into the t / x stack
+    float* t_out = a.out != nullptr ? a.out + (size_t)p * row : nullptr;
+    for (int k = 0; k < nt; ++k, ++q) {
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
+      for (int row0 = 0; row0 < ld; row0 += C, ++g) {
+        const int sl = g % N;
+        wait_phase<true>(full + sl, (unsigned)(g / N) & 1u);
+        const unsigned char* sre = ring + (size_t)sl * slot_bytes;
+        const float* sc = reinterpret_cast<const float*>(sre + 2 * im_off);
+        const int rows = min(C, ld - row0);
+        // this warp's segments of the chunk, kSegRows rows each, in turn with
+        // the chunk counter, so that a chunk of fewer segments than warps
+        // leaves another warp idle each time; a lane takes rows lane and
+        // lane + 32 of a segment (one 128-row scale block in int8: chunks
+        // start at multiples of 128)
+        const int seg0 = ((warp - g) % kFlowWarps + kFlowWarps) % kFlowWarps * kSegRows;
+        for (int il = seg0 + lane; il - lane < rows && !kNoProducts;
+             il += kSegRows * kFlowWarps) {
+          const float* sb = sc + (il - lane) / kScaleBlock * 2 * kLanes;
+          float cr[kLaneRows][kLanes], ci[kLaneRows][kLanes];
+#pragma unroll
+          for (int u = 0; u < kLaneRows; ++u) {
+            const int iu = il + 32 * u;
+            if (iu < rows) {
+              load_row<S>(sre, im_off, sb, iu, cr[u], ci[u]);
+            } else {
+#pragma unroll
+              for (int l = 0; l < kLanes; ++l) cr[u][l] = ci[u][l] = 0.f;
+            }
+          }
+#pragma unroll
+          for (int u = 0; u < kLaneRows; ++u) {
+            const float* yi = s_y + min(row0 + il + 32 * u, ld - 1);
+#pragma unroll
+            for (int rr = 0; rr < R; ++rr) {
+              const float yr = yi[rr * ld], yim = yi[(R + rr) * ld];
+#pragma unroll
+              for (int l = 0; l < kLanes; ++l) {    // two fused multiply-adds a value
+                float& tr = acc[rr * kLanes + l];
+                float& ti = acc[(R + rr) * kLanes + l];
+                tr = fmaf(yr, cr[u][l], tr);
+                tr = fmaf(-yim, ci[u][l], tr);
+                ti = fmaf(yim, cr[u][l], ti);
+                ti = fmaf(yr, ci[u][l], ti);
+              }
+            }
+          }
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(empty + sl);       // this warp is done with the slot
+      }
+      const float sum = thomas::warp_transpose_sum<V>(acc);
+      float* part = red + (q & 1) * V * kRedPitch;
+      if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kRedPitch + warp] = sum;
+      consumer_sync();
+      // the last warp adds the warps' sums and publishes the tile
+      if (warp == kFlowWarps - 1 && lane < V) {
+        const float4* sums = reinterpret_cast<const float4*>(part + lane * kRedPitch);
+        float v = 0.f;
+#pragma unroll
+        for (int c4 = 0; c4 < kFlowWarps / 4; ++c4) {     // in warp order
+          const float4 f4 = sums[c4];
+          v += f4.x;
+          v += f4.y;
+          v += f4.z;
+          v += f4.w;
+        }
+        const int rr = lane / kLanes, o = (tile0 + k) * kLanes + lane % kLanes;
+        if (t_out != nullptr) t_out[rr * ld + o] = v;
+        thomas::st_word(t_words(s) + (size_t)o * NW + rr, v, flag);
+      }
+    }
+  }
+}
+
+// Launches a pass on the flag-handoff step: a cooperative launch of one CTA
+// an SM (none without a tile)
+template <int R, bool kBackward, Storage S>
+inline cudaError_t launch_flow(const PassArgs& a, uint2* xchg, unsigned epoch,
+                               cudaStream_t stream) {
+  auto kernel = flow_kernel<R, kBackward, S>;
+  int dev = 0, sms = 0, per_sm = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return err;
+  FlowArgs fa{a, xchg, epoch, 0, 0};
+  if (!flow_ring<R, S>(a.ld, (size_t)optin, fa.rows, fa.slots))
+    return cudaErrorInvalidValue;                            // plane too wide
+  const size_t smem = flow_smem_bytes<R, S>(a.ld, fa.rows, fa.slots);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFlowThreads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  // whole tiles, ceil(tiles / CTAs) at most a CTA; a CTA forms the y of at
+  // most kFlowConsumers lanes (32 tiles)
+  const int tiles = a.ld / kLanes;
+  const int grid = tiles < sms ? tiles : sms;
+  if ((tiles + grid - 1) / grid * kLanes > kFlowConsumers) return cudaErrorInvalidValue;
+  void* params[] = {&fa};
+  return cudaLaunchCooperativeKernel((void*)kernel, dim3(grid), dim3(kFlowThreads), params, smem,
+                                     stream);
+}
+
+// the storage is int8 when scales are given (ld a multiple of 128), else
+// bf16 (ld a multiple of 8)
+inline bool valid(int mn, int ld, int r, const float* scale) {
+  const int mult = scale != nullptr ? kScaleBlock : kLanes;
+  return mn >= 1 && ld >= mn && ld % mult == 0 && r >= 1 && r <= kMaxRhs;
+}
+
+inline bool valid_pass(int r, const PassArgs& a) {
+  return valid(a.mn, a.ld, r, a.scale) && a.l >= 1 && a.n >= 1 && a.base >= 0 && a.start >= 0 &&
+         a.start < a.l && (a.kept != nullptr || a.out != nullptr);
+}
+
+// A pass on the flag-handoff step: forward (y stack in `kept`) or backward
+template <bool kBackward>
+inline cudaError_t run_flow(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
+                            cudaStream_t stream) {
+  const unsigned steps = (unsigned)(a.l - a.start);
+  if (!valid_pass(r, a) || (!kBackward && a.kept == nullptr) || (kBackward && a.out == nullptr) ||
+      xchg == nullptr || epoch == 0u || epoch + steps < epoch)
+    return cudaErrorInvalidValue;
+  if (a.scale != nullptr)
+    return r == 1 ? launch_flow<1, kBackward, Storage::kInt8>(a, xchg, epoch, stream)
+                  : launch_flow<2, kBackward, Storage::kInt8>(a, xchg, epoch, stream);
+  return r == 1 ? launch_flow<1, kBackward, Storage::kBf16>(a, xchg, epoch, stream)
+                : launch_flow<2, kBackward, Storage::kBf16>(a, xchg, epoch, stream);
+}
+
+// ---------------------------------------------------------------------------
+// The grid-barrier step (old step: built only with -DPLANE_OLD_STEP=1)
+// ---------------------------------------------------------------------------
+//
+// Per plane two phases: (A) the threads of the whole grid share out the
+// lanes of y_p, each forming its lanes from the carry in global memory and
+// its own weights, and write them to the y stack (the scratch in the
+// backward pass); then, after a grid barrier, (B) every block of 128
+// threads loads the whole y_p into shared memory and computes its output
+// tiles of t_p, streaming their pivot columns through a ring of kStages
+// chunks filled with cp.async.  A second barrier ends the step.  The carry
+// lives in the t stack, the x stack or a one-plane scratch, written in (B)
+// and read in (A) across a barrier.
 
 // R = number of right-hand sides r (rows are 2R); kBackward = top-down pass;
 // S = storage of the pivot planes.
@@ -418,7 +930,7 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
         ydst[(R + q) * ld + f] = f < mn ? __ldg(rhs + (R + q) * ld + f) - acci[q] : 0.f;
       }
     }
-    if (!kNoBarrier) cg::this_grid().sync();
+    if (!kNoSync) cg::this_grid().sync();
 
     // (B) the whole y_p into shared memory, then this block's tiles of t_p
     for (int i = tid; i < 2 * R * ld / 4; i += kThreads)
@@ -428,41 +940,15 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
       tile_product<R, S>(ts, g, s_y, red, t_out, ((int)blockIdx.x + k * (int)gridDim.x) * kLanes);
 
     // all tiles of t_p are complete before any block forms y_{p+1}
-    if (s + 1 < count && !kNoBarrier) cg::this_grid().sync();
+    if (s + 1 < count && !kNoSync) cg::this_grid().sync();
   }
 }
 
-// One plane apply: block t computes output tile t of [Yr; Yi] @ P[idx], rows
-// read from global memory as the chunks stream (no bound on ld).
-template <int R, Storage S>
-__global__ void __launch_bounds__(kThreads)
-    apply_kernel(const float* rows, const void* pre, const void* pim, const float* scale,
-                 float* out, int ld, int idx) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  TileStream<S> ts;
-  ts.pre = static_cast<const unsigned char*>(pre);
-  ts.pim = static_cast<const unsigned char*>(pim);
-  ts.scale = scale;
-  ts.ring = smem_raw;
-  ts.ld = ld;
-  ts.tiles_row = ld / kLanes;
-  ts.nch = (ld + Store<S>::kChunkRows - 1) / Store<S>::kChunkRows;
-  ts.total = ts.nch;
-  ts.first = idx;
-  ts.dir = 0;
-  ts.tiles_blk = 1;
-  float* red = reinterpret_cast<float*>(smem_raw + Store<S>::kRingBytes);
-  for (int g = 0; g < kStages - 1; ++g) ts.request(g);
-  int g = 0;
-  tile_product<R, S>(ts, g, rows, red, out, (int)blockIdx.x * kLanes);
-}
-
-// the storage is int8 when scales are given (ld a multiple of 128), else
-// bf16 (ld a multiple of 8)
-inline bool valid(int mn, int ld, int r, const float* scale) {
-  const int mult = scale != nullptr ? kScaleBlock : kLanes;
-  return mn >= 1 && ld >= mn && ld % mult == 0 && r >= 1 && r <= kMaxRhs;
-}
+#if PLANE_OLD_STEP
+// the old step's one-plane scratch (the y'_p of the backward pass, the carry
+// of a forward pass without a t stack), for planes up to the widest fused one
+constexpr int kOldMaxLd = 24928;
+__device__ float g_old_scratch[2][2 * kMaxRhs * kOldMaxLd];
 
 template <int R, bool kBackward, Storage S>
 inline cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
@@ -489,18 +975,46 @@ inline cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
                                      stream);
 }
 
-template <bool kBackward, Storage S>
-inline cudaError_t launch_pass_r(int r, const PassArgs& a, cudaStream_t stream) {
-  return r == 1 ? launch_pass<1, kBackward, S>(a, stream) : launch_pass<2, kBackward, S>(a, stream);
-}
-
+// A pass on the grid-barrier step, its scratch in g_old_scratch
 template <bool kBackward>
-inline cudaError_t run_pass(int r, const PassArgs& a, cudaStream_t stream) {
-  if (!valid(a.mn, a.ld, r, a.scale) || a.l < 1 || a.n < 1 || a.base < 0 || a.start < 0 ||
-      a.start >= a.l || a.kept == nullptr || (a.out == nullptr && a.carry == nullptr))
-    return cudaErrorInvalidValue;
-  return a.scale != nullptr ? launch_pass_r<kBackward, Storage::kInt8>(r, a, stream)
-                            : launch_pass_r<kBackward, Storage::kBf16>(r, a, stream);
+inline cudaError_t run_pass(int r, PassArgs a, cudaStream_t stream) {
+  if (!valid_pass(r, a) || a.ld > kOldMaxLd) return cudaErrorInvalidValue;
+  float* scratch = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(reinterpret_cast<void**>(&scratch), g_old_scratch);
+  if (err != cudaSuccess) return err;
+  if (kBackward) a.kept = scratch;
+  a.carry = scratch + 2 * kMaxRhs * kOldMaxLd;
+  if (a.scale != nullptr)
+    return r == 1 ? launch_pass<1, kBackward, Storage::kInt8>(a, stream)
+                  : launch_pass<2, kBackward, Storage::kInt8>(a, stream);
+  return r == 1 ? launch_pass<1, kBackward, Storage::kBf16>(a, stream)
+                : launch_pass<2, kBackward, Storage::kBf16>(a, stream);
+}
+#endif
+
+// One plane apply: block t computes output tile t of [Yr; Yi] @ P[idx], rows
+// read from global memory as the chunks stream (no bound on ld).
+template <int R, Storage S>
+__global__ void __launch_bounds__(kThreads)
+    apply_kernel(const float* rows, const void* pre, const void* pim, const float* scale,
+                 float* out, int ld, int idx) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TileStream<S> ts;
+  ts.pre = static_cast<const unsigned char*>(pre);
+  ts.pim = static_cast<const unsigned char*>(pim);
+  ts.scale = scale;
+  ts.ring = smem_raw;
+  ts.ld = ld;
+  ts.tiles_row = ld / kLanes;
+  ts.nch = (ld + Store<S>::kChunkRows - 1) / Store<S>::kChunkRows;
+  ts.total = ts.nch;
+  ts.first = idx;
+  ts.dir = 0;
+  ts.tiles_blk = 1;
+  float* red = reinterpret_cast<float*>(smem_raw + Store<S>::kRingBytes);
+  for (int g = 0; g < kStages - 1; ++g) ts.request(g);
+  int g = 0;
+  tile_product<R, S>(ts, g, rows, red, out, (int)blockIdx.x * kLanes);
 }
 
 template <int R, Storage S>

@@ -12,6 +12,11 @@ by hand for Hopper in CUDA C++:
   (``_fwd_slab_kernel``), with ``start``, an initial carry and the t stack;
 * ``csrc/plane_bwd.cu``: one whole backward pass (``_bwd_slab_kernel``),
   with ``tail``;
+
+  both on the flag-handoff plane step: one CTA an SM, whose t tiles and y
+  lanes travel as flagged words of the stream's exchange buffer
+  (:func:`take_words`, the buffer and launch counter of
+  :func:`~.thomas_kernels.exchange_for`);
 * ``csrc/plane_apply.cu``: one plane apply ``[Yr; Yi] @ P[k]``
   (``_plane_kernel``), the per-plane branch of the scans for stacks too wide
   for the fused passes.
@@ -51,8 +56,10 @@ import torch.nn.functional as F
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
     LEAD_MULTIPLE,
+    Exchange,
     _round_up,
     dense_planes,
+    exchange_for,
     in_rhs_groups,
     tile_planes,
 )
@@ -60,16 +67,24 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
 MAX_RHS = 2                  # right-hand sides per launch (csrc: kMaxRhs)
 TAPS = 9
 INT8_BLOCK = 128             # input rows per int8 scale (csrc: kScaleBlock)
-# shared memory a block of the fused passes needs (csrc: pass_smem_bytes): the
-# ring of 4 chunks x 2 planes x 4096 B (with 4 x 2 x 8 f32 scales per int8
-# chunk), the staged y_p (2r x ld floats) and the reduction; an H100 grants a
-# block at most 232,448 bytes
+# the widths the fused passes take, by the shared memory budget of a block of
+# the grid-barrier step they ran before (csrc: pass_smem_bytes): the ring of
+# 4 chunks x 2 planes x 4096 B (with 4 x 2 x 8 f32 scales per int8 chunk),
+# the staged y_p (2r x ld floats) and the reduction; an H100 grants a block
+# at most 232,448 bytes.  The flag-handoff step keeps these widths: at each
+# its ring, sized per launch, still takes at least 4 chunks
 _RING_BYTES = {"bf16": 4 * 2 * 4096, "int8": 4 * (2 * 4096 + 4 * 2 * 8 * 4)}
 SMEM_PER_BLOCK = 232_448
 
-_P, _I = cuda_build.PTR, cuda_build.INT
-cuda_build.register("plane_fwd", "plane_forward", [_P] * 9 + [_I] * 7 + [_P])
-cuda_build.register("plane_bwd", "plane_backward", [_P] * 7 + [_I] * 7 + [_P])
+# slots of each kind of word in a fused pass's exchange buffer (y lanes and
+# t tiles; csrc: kWordSlots): a fast CTA writes plane s + 1's words while a
+# slow one still reads plane s's
+WORD_SLOTS = 2
+WORD_KINDS = 2
+
+_P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
+cuda_build.register("plane_fwd", "plane_forward", [_P] * 8 + [_I] * 7 + [_P, _U, _P])
+cuda_build.register("plane_bwd", "plane_backward", [_P] * 6 + [_I] * 7 + [_P, _U, _P])
 cuda_build.register("plane_apply", "plane_apply", [_P] * 5 + [_I] * 4 + [_P])
 
 
@@ -424,6 +439,16 @@ def _raise_on(err: int, what: str):
         raise RuntimeError(f"{what}: CUDA error {err}")
 
 
+def take_words(ex: Exchange, ld: int, r: int, planes: int):
+    """The exchange buffer of one fused pass over ``planes`` plane steps of
+    width ``ld`` and its first flag.  The pass reads and writes
+    :data:`WORD_SLOTS` slots each of y words and t words, one word (value,
+    flag) per lane and row, (ld, 2r) each; plane step s publishes
+    flag ``epoch + s``, so every launch takes ``planes`` fresh flags from
+    the counter that the stream's line kernels draw from too."""
+    return ex.take(1, r, ld, planes, slots=WORD_KINDS * WORD_SLOTS)
+
+
 def plane_apply_rows(stack: PlaneStack, idx: int, rows: torch.Tensor) -> torch.Tensor:
     """``[Yr; Yi] @ P[idx]`` with complex recombination: rows (2r, ld) f32 ->
     (2r, ld) f32.  ``idx`` is the flat plane index in the stack."""
@@ -454,9 +479,8 @@ def plane_forward(stack: PlaneStack, b4: torch.Tensor, w4: torch.Tensor, n: int,
 
     ``b4`` (l, 2r, ld) f32 rows, ``w4`` (l, 2, 9, ld) packed couplings to the
     plane before, ``n`` the plane's fast axis.  Returns ``(y4, t4)``, each
-    (l, 2r, ld); ``t4`` is ``None`` unless ``collect_t`` (the kernel then
-    keeps its carry in a one-plane scratch).  Planes ``< start``: the kernel
-    neither reads nor writes them; with ``out=(y4, t4)`` (``t4`` a stack or
+    (l, 2r, ld); ``t4`` is ``None`` unless ``collect_t``.  Planes
+    ``< start``: the kernel neither reads nor writes them; with ``out=(y4, t4)`` (``t4`` a stack or
     ``None``, which decides ``collect_t``) planes ``>= start`` are written IN
     PLACE and the others keep what the caller put there, without ``out`` the
     stacks are new and zero there.  Padding lanes of ``t_init`` count as
@@ -487,12 +511,12 @@ def plane_forward(stack: PlaneStack, b4: torch.Tensor, w4: torch.Tensor, n: int,
         return in_rhs_groups(
             lambda b, t, out: plane_forward(stack, b, w4, n, base, start, t, out),
             r, (b4, t_init), out)
-    carry = None if t4 is not None else torch.empty((2 * r, stack.ld), dtype=torch.float32,
-                                                    device=dev)
+    xchg, epoch = take_words(exchange_for(b4), stack.ld, r, l - start)
     err = cuda_build.load("plane_fwd")(
         b4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
-        _ptr(stack.scale), _ptr(t_init), y4.data_ptr(), _ptr(t4), _ptr(carry),
-        l, stack.mn, n, stack.ld, r, base, start, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(stack.scale), _ptr(t_init), y4.data_ptr(), _ptr(t4),
+        l, stack.mn, n, stack.ld, r, base, start, xchg.data_ptr(), epoch,
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "plane_forward")
     _count(plane_forward, stack)
@@ -525,11 +549,11 @@ def plane_backward(stack: PlaneStack, y4: torch.Tensor, w4: torch.Tensor, n: int
     if r > MAX_RHS:
         return in_rhs_groups(lambda y, out: plane_backward(stack, y, w4, n, base, start, out),
                              r, (y4,), out)
-    scratch = torch.empty((2 * r, stack.ld), dtype=torch.float32, device=dev)
+    xchg, epoch = take_words(exchange_for(y4), stack.ld, r, l - start)
     err = cuda_build.load("plane_bwd")(
         y4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
-        _ptr(stack.scale), scratch.data_ptr(), out.data_ptr(), l, stack.mn, n, stack.ld, r,
-        base, start, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(stack.scale), out.data_ptr(), l, stack.mn, n, stack.ld, r, base, start,
+        xchg.data_ptr(), epoch, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "plane_backward")
     _count(plane_backward, stack)

@@ -268,15 +268,19 @@ def _close(got, want):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("shape", [(5, 5, 7), (3, 48, 48)])
+@pytest.mark.parametrize("shape", [(5, 5, 7), (3, 48, 48), (3, 32, 96), (3, 1, 12448)])
 @pytest.mark.parametrize("r", [1, 2])
 @pytest.mark.parametrize("start,carry,tail,collect", [(0, False, 0, True), (0, True, 2, False),
                                                       (2, True, 0, True), (2, False, 1, False)])
 def test_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, collect):
-    """Both fused passes at a small and at the 48^3 plane width (mn = 2304),
-    from a slab that is not the first of its stack, with and without the t
-    stack; planes above ``start`` of caller-given stacks are left alone; one
-    launch per call."""
+    """Both fused passes at a small width (mn = 35: five tiles, one CTA
+    each), the 48^3 plane width (mn = 2304: 288 tiles, two or three a CTA),
+    the 96^3 width (mn = 3072: two or three tiles a CTA) and the widest plane
+    they take at r = 2
+    (mn = 12448: twelve tiles a CTA, a ring of four chunks), from a slab that
+    is not the first of its stack, with and without the t stack; planes
+    above ``start`` of caller-given stacks are left alone; one launch per
+    call."""
     rng = np.random.default_rng(r + 10 * start)
     l, m, n = shape
     view = _random_view(rng, l, m, n, cuda_device, slabs=2)
@@ -418,15 +422,19 @@ def _int8_view_to_cpu(view):
         base=view.base)
 
 
-@pytest.mark.parametrize("shape", [(5, 5, 7), (3, 10, 30), (3, 32, 96)])
+@pytest.mark.parametrize("shape", [(5, 5, 7), (3, 10, 30), (3, 32, 96), (3, 26, 128),
+                                   (3, 1, 12288)])
 @pytest.mark.parametrize("r", [1, 2])
 @pytest.mark.parametrize("start,carry,tail,collect", [(0, False, 0, True), (0, True, 2, False),
                                                       (2, True, 0, True), (2, False, 1, False)])
 def test_int8_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, collect):
     """Both fused passes on int8 planes: padded widths (mn = 35 and 300 in
-    one and three 128-row scale blocks) and the 96^3 y-plane width
-    (mn = 3072 = 24 blocks), from the second slab of the stack, with and
-    without the t stack; one launch per call, counted as int8."""
+    one and three 128-row scale blocks; one tile a CTA), the 96^3 y-plane
+    width (mn = 3072 = 24 blocks, two or three tiles a CTA), mn = 3328 (416
+    tiles: three or four a CTA) and the widest plane they take at r = 2
+    (ld = 12288: eleven or twelve tiles a CTA), from the second slab of the
+    stack, with and without the t stack; one launch per call, counted as
+    int8."""
     rng = np.random.default_rng(r + 10 * start + shape[1])
     l, m, n = shape
     view = _random_int8_view(rng, l, m, n, cuda_device, slabs=2)
@@ -457,6 +465,38 @@ def test_int8_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail
         assert bool((t4[:start] == -7.0).all())
     else:
         assert t4 is None
+
+
+@pytest.mark.parametrize("storage,m,n", [("bf16", 32, 96), ("bf16", 48, 48), ("int8", 32, 96),
+                                         ("int8", 26, 128)])
+@pytest.mark.parametrize("r", [1, 2])
+def test_plane_passes_are_bit_identical_across_repeats(cuda_device, storage, m, n, r):
+    """The fused passes hand their t tiles and y lanes from CTA to CTA by
+    flagged words: 100 launches of each (forward resumed at plane 1 from a
+    carry into a t stack, and a backward tail) give the same bits as the
+    first, so no sum depends on timing; at the 96^3 width, the 48^3 width
+    and mn = 3328 (two to four tiles a CTA)."""
+    rng = np.random.default_rng(r)
+    l = 6
+    make = _random_int8_view if storage == "int8" else _random_view
+    view = make(rng, l, m, n, cuda_device, slabs=2)
+    st, ld = view.stack, view.stack.ld
+    b4 = torch.zeros((l, 2 * r, ld), device=cuda_device)
+    b4[..., : m * n] = torch.as_tensor(rng.standard_normal((l, 2 * r, m * n)).astype(np.float32))
+    t0 = torch.zeros((2 * r, ld), device=cuda_device)
+    t0[:, : m * n] = torch.as_tensor(rng.standard_normal((2 * r, m * n)).astype(np.float32))
+
+    def forward():
+        return pk.plane_forward(st, b4, view.lrows, n, view.base, 1, t0)
+
+    def backward():
+        return (pk.plane_backward(st, b4, view.urows, n, view.base, start=2),)
+
+    for run in (forward, backward):
+        first = tuple(t.clone() for t in run())
+        for _ in range(99):
+            got = run()
+            assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
 @pytest.mark.parametrize("r", [1, 2])

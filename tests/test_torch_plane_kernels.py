@@ -222,6 +222,28 @@ def test_fused_limits():
     assert not pk.fused_fits(stack(64), 3)
 
 
+@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("ld", [40, 3072, 12448])
+def test_fused_passes_take_fresh_flags_and_double_buffered_words(r, ld):
+    """A fused pass on the card hands t tiles and y lanes over as flagged
+    exchange words: two slots of each kind, (ld, 2r) words each, in the
+    stream's exchange buffer, which is zeroed once; each launch takes one
+    fresh flag per plane step from the counter that the line kernels draw
+    from too, so no word of an earlier launch carries a flag that a later one
+    waits for."""
+    ex = tk.Exchange("cpu")
+    words, first = pk.take_words(ex, ld, r, 96)
+    assert first == 1 and not words.any()
+    # y and t words, WORD_SLOTS = 2 slots each of (ld, 2r) words, two int32
+    # a word
+    assert (pk.WORD_KINDS, pk.WORD_SLOTS) == (2, 2)
+    assert words.numel() >= 2 * (2 * 2 * ld * 2 * r)
+    again, second = pk.take_words(ex, ld, r, 10)               # the next launch
+    assert again is words and second == first + 96
+    line, third = ex.take(1, r, ld, 70)                        # a line kernel after it
+    assert line is words and third == second + 10
+
+
 def test_int8_storage_raises(views):
     """int8 plane storage is ported (``tests/test_torch_int8_planes.py``), as
     are the int8 line pivots of the 2D kernels (``test_torch_int8_thomas.py``).

@@ -5,14 +5,13 @@ sweeps, spends its time.
 
 Needs one CUDA card and nvcc.  ``ncu`` and ``nsys`` are not always at hand,
 so this script measures by ablation: it builds ``csrc/thomas_fwd.cu`` once per
-case with ``-DTHOMAS_ABLATE=<mask>`` (see ``csrc/thomas_flow.cuh`` and
-``csrc/thomas_line.cuh``), which leaves single phases of the flag-handoff line
-step out (the results are then wrong; only the time is read): the flag wait,
-the carry's load altogether, the band step, the products, the bulk copies of
-the planes or of the band and right-hand rows.  It also builds whole the
-grid-barrier step (``-DTHOMAS_OLD_STEP=1``), the flag-handoff step with one
-and with two CTAs a tile (``-DTHOMAS_SPLIT=1``, ``2``; the package picks per
-launch) and with one item of look-ahead (``-DTHOMAS_STAGES=2``).  It times the
+case with ``-DTHOMAS_ABLATE=<mask>`` (see ``csrc/thomas_flow.cuh``),
+which leaves single phases of the flag-handoff line step out (the results
+are then wrong; only the time is read): the flag wait, the carry's load
+altogether, the band step, the products, the bulk copies of the planes or of
+the band and right-hand rows.  It also builds whole the flag-handoff step
+with one and with two CTAs a tile (``-DTHOMAS_SPLIT=1``, ``2``; the package
+picks per launch) and with one item of look-ahead (``-DTHOMAS_STAGES=2``).  It times the
 forward pass through the package's wrapper at one slab of m = n = 801 lines
 for r = 1 and 2, and at 16 batch rows of 70 lines for r = 1, and prints
 microseconds per line for every case.  The libraries go to
@@ -26,8 +25,8 @@ breakdown.)
 
 With ``--sweep`` it builds ``csrc/sweep_fused.cu`` and
 ``csrc/thomas_fwd_cached.cu`` once per case of :data:`SWEEP_CASES` instead
-(into ``build/ablation/sweep/``): the grid-barrier step whole, the
-flag-handoff step whole, and without one phase of its step each: the flag
+(into ``build/ablation/sweep/``): the flag-handoff step whole, and without
+one phase of its step each: the flag
 wait, the injection (the trace's words and the coupling products), the
 outputs (y, t, the traces for the next launch and the private y lines), the
 carry's load, the band step, the products, the bulk copies.  It times the
@@ -56,12 +55,11 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E40
     cuda_time_ms,
 )
 
-# bits of THOMAS_ABLATE, as in csrc/thomas_line.cuh and csrc/thomas_flow.cuh
+# bits of THOMAS_ABLATE, as in csrc/thomas_flow.cuh
 NO_BAND_STEP, NO_PRODUCTS, NO_PLANE_COPIES, NO_ROW_COPIES, NO_CARRY_LOAD = 1, 2, 8, 16, 32
 NO_FLAG_WAIT, NO_INJECTION, NO_OUTPUTS = 64, 128, 256
 NO_COPIES = NO_PLANE_COPIES | NO_ROW_COPIES
 CASES = [
-    ("grid-barrier step, whole", {"THOMAS_OLD_STEP": 1}),
     ("one CTA a tile, whole", {"THOMAS_SPLIT": 1}),
     ("two CTAs a tile, whole", {"THOMAS_SPLIT": 2}),
     ("full", {"THOMAS_ABLATE": 0}),
@@ -81,7 +79,6 @@ CASES = [
 
 
 SWEEP_CASES = [
-    ("grid-barrier step, whole", {"THOMAS_OLD_STEP": 1}),
     ("full", {"THOMAS_ABLATE": 0}),
     ("no flag wait", {"THOMAS_ABLATE": NO_FLAG_WAIT}),
     ("no injection", {"THOMAS_ABLATE": NO_INJECTION}),
@@ -123,7 +120,7 @@ def sweep_ablation(dev, g):
     fac = random_banded(g, 16, 70, dev)
     steps = fac.n_slabs * (fac.m + TRACE_TAIL)
     for r in (1, 2):
-        cuda_build._functions["sweep_fused"] = libs[1]       # the up launch's inputs
+        cuda_build._functions["sweep_fused"] = libs[0]       # the up launch's inputs
         runs = sweep_runs(fac, *sweep_operands(fac, r, g, dev))
         for (name, _), lib in zip(SWEEP_CASES, libs):
             cuda_build._functions["sweep_fused"] = lib
@@ -214,9 +211,7 @@ def main():
             b4[..., :n] = torch.randn((S, m, 2 * r, n), generator=g, device=dev)
             for (name, _), lib in zip(CASES, libs):     # none with --trace-only
                 cuda_build._functions["thomas_fwd"] = lib
-                # every case on exchange buffers of its own: the grid-barrier
-                # step keeps a float carry where the others keep flags
-                tk._EXCHANGES = {}
+                tk._EXCHANGES = {}      # every case on exchange buffers of its own
                 ms = cuda_time_ms(lambda: tk.forward_substitution(fac, fac.slab_ids, b4), 5)
                 print(f"B={S:2d} m={m} r={r}  {name:28s} {ms / m * 1e3:7.3f} us/line",
                       flush=True)

@@ -1,32 +1,33 @@
-"""Time the line kernels on the flag-handoff step against the grid-barrier
-step they replace, in turns in one process, on random factors:
+"""Time the line kernels alone on random factors, the dense passes against
+the variants of their step, in turns in one process:
 
 - the dense forward and backward passes at every shape of rows 1, 2, 4, 1i,
   2i and 4i of PERF.md: one slab of 801 lines (the one-slab solve, r = 1 and
   2), 16 batch rows of 70 lines (``jacobi_sweep``), one slab picked among 16
   of 70 lines in full and over its last 22 lines (the multi-slab sweeps), on
-  bf16 and int8 planes; each case old, new, map, one CTA, two CTAs, two,
-  one, map, new, old;
+  bf16 and int8 planes; each case new, map, one CTA, two CTAs, two, one, map,
+  new;
 - the cached forward pass at every shape of rows 3, 5, 3i and 5i (one slab
   among 16, 70 lines in full and resumed at line 48, r = 1 and 2) and of row
   6 (banded+tail pivots of the 801^2 solve: width 201, 44 head and 26 tail
-  lines; one slab in full and resumed, and 16 batch rows), and the fused
-  sweep kernels of rows 8-9 (16 slabs, trace tail 22, r = 1 and 2); each
-  case old, new, new, old.
+  lines; one slab in full and resumed, and 16 batch rows), the backward pass
+  on the same pivots (row 7: one slab in full and over its last 22 lines, and
+  16 batch rows, r = 1 and 2), and the fused sweep kernels of rows 8-9 (16
+  slabs, trace tail 22, r = 1 and 2); each case alone, against its plain
+  version.
 
 Then the cost of a launch: a one-line backward pass through the bare launcher.
 
-    python3 benchmarks_torch/thomas_probe.py
+    python3 benchmarks_torch/thomas_probe.py [--banded]
 
-Needs one CUDA card and nvcc.  Besides the package's build it builds every
-line source again into ``build/probe/`` with ``-DTHOMAS_OLD_STEP=1`` (the
-grid-barrier step, the parent's kernels), and ``csrc/thomas_fwd.cu`` and
-``csrc/thomas_bwd.cu`` with ``-DTHOMAS_MAP_STEP=1`` (the dense passes
-through the step-map body, ``run_flow``, instead of ``flow_kernel``) and
-with ``-DTHOMAS_SPLIT=1`` and ``2`` (the flag-handoff step with one and with
-two CTAs a tile, where the package's build picks one per launch), all at
-once.  Each step's output is held against the
-grid-barrier step's.  Prints one JSON line per case.
+``--banded`` runs the banded+tail cases only (rows 6-9).  Needs one CUDA card
+and nvcc.  Besides the package's build it builds ``csrc/thomas_fwd.cu`` and
+``csrc/thomas_bwd.cu`` again into ``build/probe/`` with
+``-DTHOMAS_MAP_STEP=1`` (the dense passes through the step-map body,
+``run_flow``, instead of ``flow_kernel``) and with ``-DTHOMAS_SPLIT=1`` and
+``2`` (the flag-handoff step with one and with two CTAs a tile, where the
+package's build picks one per launch), all at once.  Each variant's output is
+held against the package's.  Prints one JSON line per case.
 """
 
 import json
@@ -53,10 +54,9 @@ M1_MAX, TRACE_TAIL = 70, 22   # of the 16-slab system at npml = 10
 HALF, TAIL_LINES = 100, 26    # banded+tail pivots of the 801^2 solve (width 201 by the rule)
 TRACES = dict(l0=10, l1=11, ln=58, lnp=59)    # trace lines of an inner slab
 SOURCES = ("thomas_fwd", "thomas_bwd", "thomas_fwd_cached", "sweep_fused")
-# variant -> (defines, sources): the grid-barrier step of every line source,
-# one and two CTAs a tile of the dense passes
-VARIANTS = {"old": ({"THOMAS_OLD_STEP": 1}, SOURCES),
-            "map": ({"THOMAS_MAP_STEP": 1}, SOURCES[:2]),
+# variant -> (defines, sources): the dense passes through the step-map body,
+# and with one and two CTAs a tile
+VARIANTS = {"map": ({"THOMAS_MAP_STEP": 1}, SOURCES[:2]),
             "split1": ({"THOMAS_SPLIT": 1}, SOURCES[:2]),
             "split2": ({"THOMAS_SPLIT": 2}, SOURCES[:2])}
 
@@ -91,8 +91,8 @@ class SlotPerLine(tk.Exchange):
 
 def use(steps, name):
     """Route the package's wrappers to the launchers of step ``name``, each
-    step with exchange buffers of its own (the grid-barrier forward pass keeps
-    its float carry where the flag-handoff step keeps its flags)."""
+    step with exchange buffers of its own (the step-map variant takes one
+    slot per line step)."""
     cuda_build._functions.update(steps[name])
     if name not in _EXCHANGES:
         dev = torch.device("cuda", 0)
@@ -116,7 +116,7 @@ def in_turns(steps, fn, order, repeats):
 
 
 def err_of(outs, step):
-    return max(err(a, b) for a, b in zip(outs[step], outs["old"]))
+    return max(err(a, b) for a, b in zip(outs[step], outs["new"]))
 
 
 def random_factors(g, S, m, storage, dev):
@@ -160,35 +160,53 @@ def probe(steps, row, storage, fac, s_idx, b4, tail=0, repeats=10):
     runs = {"bwd": lambda: tk.backward_substitution(fac, s_idx, y4, tail=tail)}
     if not tail:
         runs = {"fwd": lambda: tk.forward_substitution(fac, s_idx, b4), **runs}
-    order = ("old", "new", "map", "split1", "split2", "split2", "split1", "map", "new", "old")
+    order = ("new", "map", "split1", "split2", "split2", "split1", "map", "new")
     for name, fn in runs.items():
         ms, turns, outs = in_turns(steps, fn, order, repeats)
         print(json.dumps(dict(
             row=row, pass_=name, storage=storage, B=b4.shape[0], S=fac.n_slabs, m=fac.m,
             lines=lines, n=N, r=b4.shape[2] // 2, tail=tail,
-            old_ms=ms["old"], new_ms=ms["new"], map_ms=ms["map"], split1_ms=ms["split1"],
-            split2_ms=ms["split2"],
+            new_ms=ms["new"], map_ms=ms["map"], split1_ms=ms["split1"], split2_ms=ms["split2"],
             ms_turns=turns,
             us_per_line={step: 1e3 * v / lines for step, v in ms.items()},
-            new_vs_old_err=err_of(outs, "new"),
-            split_vs_old_err=max(err_of(outs, k) for k in ("map", "split1", "split2")),
+            variants_vs_new_err=max(err_of(outs, k) for k in ("map", "split1", "split2")),
         )), flush=True)
 
 
-def probe_cached(steps, row, fac, s_idx, b4, start=0, repeats=10):
+def probe_alone(fn, plain, lines, repeats=10, pick=lambda out: out, **fields):
+    """One kernel at one shape, alone: its time, microseconds a line step and
+    the part of its output that ``pick`` takes against its plain version's
+    (taken outside the timed calls: the shortest passes are not far above
+    their wrapper's host time)."""
+    got, want = pick(fn()), pick(plain())
+    if not isinstance(got, tuple):
+        got, want = (got,), (want,)
+    ms = time_ms(fn, repeats)
+    print(json.dumps(dict(**fields, lines=lines, n=N, new_ms=ms, us_per_line=1e3 * ms / lines,
+                          vs_plain_err=max(err(a, b) for a, b in zip(got, want)))),
+          flush=True)
+
+
+def probe_cached(row, fac, s_idx, b4, start=0):
     """The cached forward pass (rows 3, 5, 6, 3i, 5i) at one shape, in full
-    or resumed at ``start`` from a carry, old, new, new, old."""
-    t_init = b4[:, start].contiguous() if start else None
+    or resumed at ``start`` from a carry."""
+    t_init = b4[:, start].contiguous() if start else torch.zeros_like(b4[:, 0])
     out = (torch.zeros_like(b4), torch.zeros_like(b4))
-    lines = fac.m - start
-    ms, turns, outs = in_turns(steps, lambda: tk.forward_substitution_cached(
-        fac, s_idx, b4, t_init, start=start, out=out), ("old", "new", "new", "old"), repeats)
-    print(json.dumps(dict(
-        row=row, pass_="fwd_cached", layout=tk.layout(fac), B=b4.shape[0], S=fac.n_slabs,
-        m=fac.m, lines=lines, n=N, r=b4.shape[2] // 2, start=start, old_ms=ms["old"],
-        new_ms=ms["new"], ms_turns=turns,
-        us_per_line={step: 1e3 * v / lines for step, v in ms.items()},
-        new_vs_old_err=err_of(outs, "new"))), flush=True)
+    probe_alone(lambda: tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start,
+                                                       out=out),
+                lambda: tk.forward_substitution_cached_plain(fac, s_idx, b4, t_init, start),
+                fac.m - start, pick=lambda stacks: tuple(t[:, start:] for t in stacks),
+                row=row, pass_="fwd_cached", layout=tk.layout(fac), B=b4.shape[0],
+                S=fac.n_slabs, m=fac.m, r=b4.shape[2] // 2, start=start)
+
+
+def probe_backward_banded(fac, s_idx, y4, tail=0):
+    """The backward pass on banded+tail pivots (row 7) at one shape, in full
+    or over the last ``tail`` lines."""
+    probe_alone(lambda: tk.backward_substitution(fac, s_idx, y4, tail=tail),
+                lambda: tk.backward_substitution_ht_plain(fac, s_idx, y4, tail),
+                tail or fac.m, row="7", pass_="bwd", layout=tk.layout(fac), B=y4.shape[0],
+                S=fac.n_slabs, m=fac.m, r=y4.shape[2] // 2, tail=tail)
 
 
 def random_banded(g, S, m, dev):
@@ -231,24 +249,21 @@ def sweep_operands(fac, r, g, dev):
 
 
 def sweep_runs(fac, meta, b4, cpl):
-    """The down and the up launch (the up one on the down one's outputs)."""
+    """The down and the up launch (the up one on the down one's outputs), each
+    with its plain version."""
     down = sk.sweep_down(fac, meta, b4, cpl[0], cpl[1], TRACE_TAIL)
-    return {"down": lambda: sk.sweep_down(fac, meta, b4, cpl[0], cpl[1], TRACE_TAIL),
-            "up": lambda: sk.sweep_up(fac, meta, b4, cpl[2], cpl[3], *down, TRACE_TAIL)}
+    return {"down": (lambda: sk.sweep_down(fac, meta, b4, cpl[0], cpl[1], TRACE_TAIL),
+                     lambda: sk.sweep_down_plain(fac, meta, b4, cpl[0], cpl[1], TRACE_TAIL)),
+            "up": (lambda: sk.sweep_up(fac, meta, b4, cpl[2], cpl[3], *down, TRACE_TAIL),
+                   lambda: sk.sweep_up_plain(fac, meta, b4, cpl[2], cpl[3], *down, TRACE_TAIL))}
 
 
-def probe_sweeps(steps, fac, r, g, dev, repeats=10):
-    """The fused sweep kernels (rows 8-9) over all slabs, old, new, new, old."""
+def probe_sweeps(fac, r, g, dev):
+    """The fused sweep kernels (rows 8-9) over all slabs."""
     S, m = fac.n_slabs, fac.m
-    line_steps = S * (m + TRACE_TAIL)
-    for name, fn in sweep_runs(fac, *sweep_operands(fac, r, g, dev)).items():
-        ms, turns, outs = in_turns(steps, fn, ("old", "new", "new", "old"), repeats)
-        print(json.dumps(dict(
-            row=8 if name == "down" else 9, pass_="sweep_" + name, S=S, m=m, n=N,
-            trace_tail=TRACE_TAIL, r=r, line_steps=line_steps, old_ms=ms["old"],
-            new_ms=ms["new"], ms_turns=turns,
-            us_per_step={step: 1e3 * v / line_steps for step, v in ms.items()},
-            new_vs_old_err=err_of(outs, "new"))), flush=True)
+    for name, (fn, plain) in sweep_runs(fac, *sweep_operands(fac, r, g, dev)).items():
+        probe_alone(fn, plain, S * (m + TRACE_TAIL), row=8 if name == "down" else 9,
+                    pass_="sweep_" + name, S=S, m=m, trace_tail=TRACE_TAIL, r=r)
 
 
 def probe_launch_cost(fac, dev):
@@ -289,9 +304,10 @@ def probe_launch_cost(fac, dev):
 def main():
     dev = torch.device("cuda", 0)
     print(card_name_and_power_limit(), flush=True)
-    steps = build_steps()
+    banded_only = "--banded" in sys.argv[1:]
+    steps = None if banded_only else build_steps()
     g = torch.Generator(device=dev).manual_seed(0)
-    for storage in ("bf16", "int8"):
+    for storage in () if banded_only else ("bf16", "int8"):
         i8 = "i" if storage == "int8" else ""
         # rows 1-2 (1i-2i): one slab of 801 lines, r = 1 and 2
         fac = random_factors(g, 1, N, storage, dev)
@@ -314,23 +330,29 @@ def main():
         # the cached forward pass at one inner slab: rows 3 and 5 (3i, 5i)
         for r, row in ((1, f"3{i8}"), (2, f"5{i8}")):
             b4 = rows(g, 1, M1_MAX, r, dev)
-            probe_cached(steps, row, fac, s, b4)
-            probe_cached(steps, row, fac, s, b4, start=M1_MAX - TRACE_TAIL)
+            probe_cached(row, fac, s, b4)
+            probe_cached(row, fac, s, b4, start=M1_MAX - TRACE_TAIL)
         if storage == "bf16":
             probe_launch_cost(fac, dev)
         del fac
         torch.cuda.empty_cache()
-    # banded+tail pivots: row 6 at one inner slab and at 16 batch rows, and
-    # the fused sweeps of rows 8-9
+    # banded+tail pivots: rows 6 and 7 at one inner slab and at 16 batch rows,
+    # and the fused sweeps of rows 8-9
     fac = random_banded(g, 16, M1_MAX, dev)
     s = fac.slab_ids[8:9]
     for r in (1, 2):
         b4 = rows(g, 1, M1_MAX, r, dev)
-        probe_cached(steps, "6", fac, s, b4)
-        probe_cached(steps, "6", fac, s, b4, start=M1_MAX - TRACE_TAIL)
-    probe_cached(steps, "6", fac, fac.slab_ids, rows(g, 16, M1_MAX, 1, dev))
+        probe_cached("6", fac, s, b4)
+        probe_cached("6", fac, s, b4, start=M1_MAX - TRACE_TAIL)
+        y4 = tk.forward_substitution_cached(fac, s, b4)[0]
+        probe_backward_banded(fac, s, y4)
+        probe_backward_banded(fac, s, y4, tail=TRACE_TAIL)
+        b4 = rows(g, 16, M1_MAX, r, dev)
+        probe_cached("6", fac, fac.slab_ids, b4)
+        probe_backward_banded(fac, fac.slab_ids, tk.forward_substitution_cached(
+            fac, fac.slab_ids, b4)[0])
     for r in (1, 2):
-        probe_sweeps(steps, fac, r, g, dev)
+        probe_sweeps(fac, r, g, dev)
 
 
 if __name__ == "__main__":

@@ -38,10 +38,10 @@ the card against the CPU.  The seventh is ``plasma2d.build_problem(
 use_pallas=True)`` with every other argument at its default (full pivots with
 bf16 kernel planes beside them), whose preconditioner applies run the stencil
 matvec kernel; before it that kernel on a random field.  Every 2D line
-kernel but the backward pass on banded+tail pivots runs the flag-handoff
-line step (``csrc/thomas_flow.cuh``): the dense forward and backward passes
-(rows 1, 2, 4 and 1i, 2i, 4i), the cached forward pass (rows 3, 5, 6, 3i, 5i)
-and the fused sweeps (rows 8-9); after each path the script prints their
+kernel runs the flag-handoff line step (``csrc/thomas_flow.cuh``): the dense
+forward and backward passes (rows 1, 2, 4 and 1i, 2i, 4i), the cached
+forward pass (rows 3, 5, 6, 3i, 5i), the backward pass on banded+tail pivots
+(row 7) and the fused sweeps (rows 8-9); after each path the script prints their
 microseconds a line step and checks that repeated launches give the same
 bits.  The fused plane passes of the 3D paths (rows 11, 12, 11i, 12i) run the
 flag-handoff plane step (``csrc/plane_pass.cuh``): after the 48^3 and 96^3
@@ -162,7 +162,7 @@ KERNEL_INFO = {
         source=_PORT + "thomas_fwd_cached.cu", replaces={1: f"{_TPU}:928", 2: f"{_TPU}:928"},
     ),
     "thomas_backward_ht": dict(
-        route="cuda", kernel="thomas::pass_kernel<R, true, false, true>",
+        route="cuda", kernel="thomas::pass_map_kernel<R, true, Storage::kBf16, true, SPLIT>",
         source=_PORT + "thomas_bwd.cu", replaces={1: f"{_TPU}:957", 2: f"{_TPU}:957"},
     ),
     "sweep_down": dict(
@@ -194,14 +194,13 @@ KERNEL_INFO = {
 }
 # the step of each 2D line kernel and 3D plane pass: the flag-handoff line
 # step of csrc/thomas_flow.cuh (flow_kernel, or run_flow driven by a step map)
-# or the grid-barrier step of csrc/thomas_line.cuh (run_steps); the
-# flag-handoff plane step of csrc/plane_pass.cuh (plane::flow_kernel)
-FLOW_STEP, BARRIER_STEP = "flag-handoff", "grid-barrier"
-for _name, _info in KERNEL_INFO.items():
+# and the flag-handoff plane step of csrc/plane_pass.cuh (plane::flow_kernel)
+FLOW_STEP = "flag-handoff"
+for _info in KERNEL_INFO.values():
     if _info["source"].rsplit("/", 1)[-1] in ("thomas_fwd.cu", "thomas_bwd.cu",
                                               "thomas_fwd_cached.cu", "sweep_fused.cu",
                                               "plane_fwd.cu", "plane_bwd.cu"):
-        _info["step"] = BARRIER_STEP if _name == "thomas_backward_ht" else FLOW_STEP
+        _info["step"] = FLOW_STEP
 
 # the 2D kernels by pivot layout: dense planes, banded+tail, fused sweeps
 DENSE_2D = ("thomas_forward", "thomas_forward_cached", "thomas_backward")
@@ -1820,10 +1819,14 @@ def phase_ht_kernel_times(problem, path_counts: dict, sweep_counts: dict) -> lis
                          ht_pass_bound(fac, r, tail_lines, 2), lib_tail, dict(one, tail=tt),
                          variant="_tail"),
         ]
-        line_step_report(cpath, r, [(kernels[-4], m), (kernels[-3], tt)], {
+        line_step_report(cpath, r, [(kernels[-4], m), (kernels[-3], tt), (kernels[-2], m),
+                                    (kernels[-1], tt)], {
             "thomas_forward_ht": lambda: tk.forward_substitution_cached(fac, s_idx, b4),
             "thomas_forward_ht_resumed": lambda: resumed(tk.forward_substitution_cached,
-                                                         out_k)})
+                                                         out_k),
+            "thomas_backward_ht": lambda: tk.backward_substitution(fac, s_idx, y4),
+            "thomas_backward_ht_tail": lambda: tk.backward_substitution(fac, s_idx, y4,
+                                                                        tail=tt)})
         if r == 1:      # jacobi_sweep's solves of all slabs at once
             yall, _ = tk.forward_substitution_cached(fac, fac.slab_ids, b4s)
             counts = sweep_counts["jacobi_sweep"]
@@ -2149,14 +2152,27 @@ def stencil_csr(values: torch.Tensor) -> torch.Tensor:
     return coo.coalesce().to_sparse_csr()
 
 
+def library_stencil_ms(csr: torch.Tensor, u_col: torch.Tensor) -> tuple:
+    """The cuSPARSE CSR matvec of the stencil's matrix, from a CUDA graph as
+    the kernel beside it; back to back where it cannot be captured.
+    Returns (ms, how it was timed)."""
+    try:
+        return graph_ms(lambda: csr @ u_col), "graph"
+    except RuntimeError as exc:
+        torch.cuda.synchronize()
+        emit("stencil_library_not_captured", error=str(exc)[:300])
+        return time_ms(lambda: csr @ u_col, 20), "back-to-back"
+
+
 def stencil_entry(values, u, path: str, launches: int) -> dict:
     """The stencil kernel held against its plain version on ``values`` and
-    ``u``, both timed, with the bound and the cuSPARSE CSR matvec of the same
-    matrix as the library yardstick."""
+    ``u``, both timed from a CUDA graph (the kernel is shorter than its
+    wrapper's host work), with the bound and the cuSPARSE CSR matvec of the
+    same matrix as the library yardstick."""
     m, n = values.shape[:2]
     csr = stencil_csr(values)
     u_col = u.reshape(-1, 1).to(torch.complex64)
-    library_ms = time_ms(lambda: csr @ u_col, 20)
+    library_ms, library_timing = library_stencil_ms(csr, u_col)
     # the same matrix: the sums cancel (|S u| is far below |S| |u| for the
     # annihilator stencils), so two summation orders differ near 2e-5
     _, err = rel_err((csr @ u_col).reshape(-1), stk.stencil_matvec_2d_plain(values, u).reshape(-1))
@@ -2165,13 +2181,17 @@ def stencil_entry(values, u, path: str, launches: int) -> dict:
     return kernel_entry("stencil_matvec", 1, path, launches,
                         lambda: stk.stencil_matvec_2d(values, u),
                         lambda: stk.stencil_matvec_2d_plain(values, u),
-                        stencil_bound(m, n), library_ms, dict(m=m, n=n, dtype=str(values.dtype)))
+                        stencil_bound(m, n), library_ms,
+                        dict(m=m, n=n, dtype=str(values.dtype), library_timing=library_timing),
+                        graph=True)
 
 
 def phase_stencil_kernel(device):
     """The stencil kernel against its plain version on a random complex64
     field and u at 801^2, and on a complex128 one (computed in complex64,
-    returned in complex128)."""
+    returned in complex128); each timed from a CUDA graph and back to back
+    (the wrapper's host work), the complex64 one beside the cuSPARSE CSR
+    matvec of the same matrix."""
     g = torch.Generator(device=device).manual_seed(13)
     out = {}
     for dtype in (torch.complex64, torch.complex128):
@@ -2182,7 +2202,14 @@ def phase_stencil_kernel(device):
         _, err = rel_err(got, stk.stencil_matvec_2d_plain(values, u))
         check(got.dtype == dtype and tuple(got.shape) == (801 * 801,), "stencil output shape")
         check(err <= KERNEL_TOL, f"stencil kernel within {KERNEL_TOL} ({dtype}: {err})")
-        out[str(dtype)] = dict(max_rel_err=err, ms=time_ms(lambda: stk.stencil_matvec_2d(values, u), 20))
+        out[str(dtype)] = dict(
+            max_rel_err=err, graph_ms=graph_ms(lambda: stk.stencil_matvec_2d(values, u)),
+            back_to_back_ms=time_ms(lambda: stk.stencil_matvec_2d(values, u), 20))
+        if dtype == torch.complex64:
+            csr = stencil_csr(values)
+            out[str(dtype)]["library_ms"], out[str(dtype)]["library_timing"] = (
+                library_stencil_ms(csr, u.reshape(-1, 1)))
+            del csr
     emit("stencil_kernel", m=801, n=801, tolerance=KERNEL_TOL, cases=out,
          bound_ms=stencil_bound(801, 801)[0])
 

@@ -47,10 +47,7 @@
 //     launch's t stack at line j0 - 1, a plain load.
 // So a step waits only on the words of earlier steps, never on a row another
 // CTA stored.  At slab 0 (down) and slab S-1 (up) the flags keep every trace
-// read away.  A build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/
-// thomas_probe.py only) launches the grid-barrier step of thomas_line.cuh
-// instead (run_steps, a barrier after each step, the traces and the y tail as
-// rows of `scratch`), which ignores xchg and epoch.
+// read away.
 //
 // Limits.  r = 1 or 2; the slab count of the rows is the factorization's
 // (slab s uses planes s); 0 < tt < m; lines as the flag-handoff step with the
@@ -92,158 +89,9 @@ struct SweepArgs {
                            //   beforehand), up reads
   float* u;                // (S, m, 2r, ld) volume solution: up writes
   float* scratch;          // the CTAs' private y lines: tt lines of each CTA's slice
-                           //   rows, ld / 8 x tt x 2r x (ld + 8) floats at most (the
-                           //   grid-barrier step: down (tt + 1), up (2 tt + 2) rows of
-                           //   (2r, ld))
+                           //   rows, ld / 8 x tt x 2r x (ld + 8) floats at most
   int S, m, n, ld, tail_start, half, tt;
 };
-
-#if THOMAS_OLD_STEP
-// ---- the grid-barrier step (the probe's build only) ------------------------
-
-using thomas::Tile;
-
-template <int R>
-struct DownItems {
-  SweepArgs a;
-  int tiles_blk;
-
-  __device__ __forceinline__ Tile tile(int q) const {
-    const int k = q / tiles_blk;
-    const int t = blockIdx.x + (q - k * tiles_blk) * gridDim.x;
-    const int per = a.m + a.tt;
-    const int s = k / per, g = k - s * per;
-    const size_t row = (size_t)2 * R * a.ld;
-    float* xt = a.scratch;                   // backward carry, line m-1-k at row k
-    float* un = a.scratch + a.tt * row;      // u_n of the slab above
-    const int* meta = a.meta;
-    Tile tl = thomas::plain_tile(t * kLanes, k);
-    const int j = g < a.m ? g : a.m - 1 - (g - a.m);
-    tl.cols = thomas::tile_cols(a.tre, a.tim, a.hre, a.him, s, j, t, a.m, a.n, a.ld,
-                                a.tail_start, a.half);
-    const size_t at = (size_t)s * a.m + j;
-    if (g < a.m) {           // forward pass with the top injections
-      tl.band = a.lband + at * 6 * a.ld;
-      tl.rhs = a.b + at * row;
-      tl.prev = j > 0 ? a.t + (at - 1) * row : nullptr;
-      tl.kept = a.y + at * row;
-      tl.out = a.t + at * row;
-      if (__ldg(meta + 4 * a.S + s) != 0) {
-        if (j == __ldg(meta + s)) {
-          tl.cpl = a.cpl_a + (size_t)s * 6 * a.ld;
-          tl.trace = a.unp + (size_t)(s - 1) * row;
-        } else if (j == __ldg(meta + a.S + s)) {
-          tl.cpl = a.cpl_b + (size_t)s * 6 * a.ld;
-          tl.trace = un;
-          tl.sign = -1.f;
-        }
-      }
-    } else {                 // backward pass over the last tt lines
-      const int kk = g - a.m;
-      tl.band = a.uband + at * 6 * a.ld;
-      tl.rhs = a.y + at * row;
-      tl.rhs_late = kk == 0;                 // y of line m-1: written in the step before
-      tl.prev = kk > 0 ? xt + (size_t)(kk - 1) * row : nullptr;
-      tl.out = xt + (size_t)kk * row;
-      if (__ldg(meta + 5 * a.S + s) != 0) {
-        if (j == __ldg(meta + 2 * a.S + s))
-          tl.out2 = un;
-        else if (j == __ldg(meta + 3 * a.S + s))
-          tl.out2 = a.unp + (size_t)s * row;
-      }
-    }
-    return tl;
-  }
-};
-
-template <int R>
-struct UpItems {
-  SweepArgs a;
-  int tiles_blk;
-
-  __device__ __forceinline__ Tile tile(int q) const {
-    const int k = q / tiles_blk;
-    const int t = blockIdx.x + (q - k * tiles_blk) * gridDim.x;
-    const int per = a.tt + a.m;
-    const int i = k / per, g = k - i * per;
-    const int s = a.S - 1 - i;               // slabs in reverse
-    const int j0 = a.m - a.tt;
-    const size_t row = (size_t)2 * R * a.ld;
-    float* ytail = a.scratch;                // y of lines j0.. of this pass
-    float* tstk = ytail + a.tt * row;        // its carry
-    float* u0 = tstk + a.tt * row;           // u_0 and u_1 of the slab below
-    float* u1 = u0 + row;
-    const int* meta = a.meta;
-    Tile tl = thomas::plain_tile(t * kLanes, k);
-    const int j = g < a.tt ? j0 + g : a.m - 1 - (g - a.tt);
-    tl.cols = thomas::tile_cols(a.tre, a.tim, a.hre, a.him, s, j, t, a.m, a.n, a.ld,
-                                a.tail_start, a.half);
-    const size_t at = (size_t)s * a.m + j;
-    if (g < a.tt) {          // forward pass resumed at j0, bottom injections
-      tl.band = a.lband + at * 6 * a.ld;
-      tl.rhs = a.b + at * row;
-      tl.prev = g > 0 ? tstk + (size_t)(g - 1) * row : a.t + ((size_t)s * a.m + j0 - 1) * row;
-      tl.kept = ytail + (size_t)g * row;
-      tl.out = tstk + (size_t)g * row;
-      if (__ldg(meta + 5 * a.S + s) != 0) {
-        if (j == __ldg(meta + 3 * a.S + s)) {
-          tl.cpl = a.cpl_a + (size_t)s * 6 * a.ld;
-          tl.trace = u0;
-        } else if (j == __ldg(meta + 2 * a.S + s)) {
-          tl.cpl = a.cpl_b + (size_t)s * 6 * a.ld;
-          tl.trace = u1;
-          tl.sign = -1.f;
-        }
-      }
-    } else {                 // full backward pass: the volume and the top traces
-      tl.band = a.uband + at * 6 * a.ld;
-      if (j >= j0) {
-        tl.rhs = ytail + (size_t)(j - j0) * row;
-        tl.rhs_late = j == a.m - 1;          // written in the step before
-      } else {
-        tl.rhs = a.y + at * row;             // the down launch's: staged ahead
-      }
-      tl.prev = j < a.m - 1 ? a.u + (at + 1) * row : nullptr;
-      tl.out = a.u + at * row;
-      if (__ldg(meta + 4 * a.S + s) != 0) {
-        if (j == __ldg(meta + s)) {
-          tl.out2 = u0;
-        } else if (j == __ldg(meta + a.S + s)) {
-          tl.out2 = u1;                      // reflection correction
-          tl.sub2 = a.unp + (size_t)(s - 1) * row;
-        }
-      }
-    }
-    return tl;
-  }
-};
-
-template <int R>
-__global__ void __launch_bounds__(thomas::kThreads) down_kernel(const SweepArgs a) {
-  const int tiles = a.ld / kLanes;
-  const int tiles_blk = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const DownItems<R> items{a, tiles_blk};
-  thomas::run_steps<R, true>(items, a.S * (a.m + a.tt) * tiles_blk, a.n, a.ld);
-}
-
-template <int R>
-__global__ void __launch_bounds__(thomas::kThreads) up_kernel(const SweepArgs a) {
-  const int tiles = a.ld / kLanes;
-  const int tiles_blk = (tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-  const UpItems<R> items{a, tiles_blk};
-  thomas::run_steps<R, true>(items, a.S * (a.tt + a.m) * tiles_blk, a.n, a.ld);
-}
-
-template <int R>
-inline cudaError_t launch(bool up, const SweepArgs& a, uint2*, unsigned, cudaStream_t stream) {
-  const size_t smem = thomas::smem_bytes<R, true>(a.n, a.ld);
-  const int tiles = a.ld / kLanes;
-  return up ? thomas::launch_cooperative(up_kernel<R>, a, smem, tiles, stream)
-            : thomas::launch_cooperative(down_kernel<R>, a, smem, tiles, stream);
-}
-
-#else
-// ---- the flag-handoff step ---------------------------------------------------
 
 using thomas::FlowTile;
 
@@ -382,7 +230,6 @@ inline cudaError_t launch(bool up, const SweepArgs& a, uint2* xchg, unsigned epo
   return thomas::launch_map<R, kBf16, true, DownItems<R>>(down_kernel<R, 1>, down_kernel<R, 2>,
                                                           DownItems<R>{a, fl}, tiles, stream);
 }
-#endif
 
 }  // namespace sweep
 

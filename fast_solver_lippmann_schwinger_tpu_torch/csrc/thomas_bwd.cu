@@ -13,21 +13,22 @@
 // wanted.  Dense pivots (tail_start = 0) have a plane pair (tre, tim) on every
 // line; banded+tail pivots (tail_start > 0) apply the dense plane of line j
 // (j >= tail_start, index j - tail_start) or its banded head window (hre, him;
-// j < tail_start).  Dense planes run thomas::flow_kernel<R, true, S> (bf16,
-// or int8 when scale is given), the backward instantiation of the
-// flag-handoff line step in thomas_flow.cuh, which describes the design (one
-// cooperative launch per pass, one CTA a tile, two on long lines, the carry
-// handed from line to line through flagged words of the exchange buffer
-// `xchg`, bulk-copied stage buffers)
-// and the limits (r <= 2); x is written to the output stack beside.  The
-// banded+tail layout keeps the grid-barrier step of thomas_line.cuh,
-// pass_kernel<R, true, false, true> (one cooperative launch per pass, grid
-// barrier per line, 8-lane tiles, staged plane columns), which reads the
-// carry x_{j+1} from the output stack's row j+1 and ignores xchg and epoch.
-// A build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/thomas_probe.py only)
-// runs dense planes on that step too, pass_kernel<R, true, false, false, S>;
-// one with -DTHOMAS_MAP_STEP=1 runs them through the step-map body of
-// thomas_flow.cuh (run_flow), which measured slower than flow_kernel
+// j < tail_start).  Both run the flag-handoff line step of thomas_flow.cuh,
+// which describes the design (one cooperative launch per pass, one CTA a tile,
+// two on long lines, the carry handed from line to line through flagged words
+// of the exchange buffer `xchg`, bulk-copied stage buffers) and the limits
+// (r <= 2):
+//   - dense planes run thomas::flow_kernel<R, true, S> (bf16, or int8 when
+//     scale is given) on a ring of four exchange slots; x of a line is written
+//     from the carry the next line reads;
+//   - banded+tail pivots run thomas::pass_map_kernel<R, true, kBf16, true>, the
+//     backward pass as a step map through run_flow, the body of the cached
+//     forward pass on the same layout: a head tile stages only the rows of its
+//     window that lie in [0, n) and waits only on the tiles that publish its
+//     carry lanes; one exchange slot per line step; x is stored by the
+//     publisher of each tile.
+// One with -DTHOMAS_MAP_STEP=1 (benchmarks_torch/thomas_probe.py only) runs
+// dense planes through run_flow too, which measured slower than flow_kernel
 // (PERF.md §6).
 //
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B, or two head
@@ -49,8 +50,9 @@ extern "C" int thomas_backward(
     const int* s_idx,        // (B,)
     float* x,                // (B, m_eff, 2r, ld): lines m-m_eff .. m-1
     int batch, int m, int n, int ld, int r, int m_eff, int tail_start, int half,
-    void* xchg,              // dense planes: (4, B, ld, 2r, 2) exchange words, zeroed once
-    unsigned epoch,          //   and the flag of line m-1 (lines take epoch .. + m_eff - 1)
+    void* xchg,              // exchange words of 8 bytes, zeroed once: dense planes
+                             //   (4, B, ld, 2r, 2), banded+tail (m_eff, B, ld, 2r, 2)
+    unsigned epoch,          // flag of line m-1 (lines take epoch .. + m_eff - 1)
     void* stream) {
   if (m_eff < 1 || m_eff > m) return (int)cudaErrorInvalidValue;
   thomas::PassArgs a{};
@@ -71,22 +73,14 @@ extern "C" int thomas_backward(
   a.count = m_eff;
   a.tail_start = tail_start;
   a.half = half;
-#if THOMAS_OLD_STEP
-  (void)xchg;
-  (void)epoch;
-  cudaError_t err = tail_start > 0
-                        ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)
-                        : thomas::run_pass<true>(r, a, (cudaStream_t)stream);
-#elif THOMAS_MAP_STEP
-  cudaError_t err = tail_start > 0
-                        ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)
-                        : thomas::run_map_pass<true>(r, a, static_cast<uint2*>(xchg), epoch,
-                                                     (cudaStream_t)stream);
+  uint2* words = static_cast<uint2*>(xchg);
+  cudaStream_t st = (cudaStream_t)stream;
+#if THOMAS_MAP_STEP
+  cudaError_t err = tail_start > 0 ? thomas::run_map_pass<true, true>(r, a, words, epoch, st)
+                                   : thomas::run_map_pass<true>(r, a, words, epoch, st);
 #else
-  cudaError_t err = tail_start > 0
-                        ? thomas::run_pass<true, false, true>(r, a, (cudaStream_t)stream)
-                        : thomas::run_flow_pass<true>(r, a, static_cast<uint2*>(xchg), epoch,
-                                                      (cudaStream_t)stream);
+  cudaError_t err = tail_start > 0 ? thomas::run_map_pass<true, true>(r, a, words, epoch, st)
+                                   : thomas::run_flow_pass<true>(r, a, words, epoch, st);
 #endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;

@@ -4,28 +4,29 @@
 //     flow_kernel<R, true,  S, SPLIT>       backward pass         thomas_bwd.cu
 //     cached_kernel<R, kBanded, S, SPLIT>   cached forward pass   thomas_fwd_cached.cu
 //                                           (dense or banded+tail pivots)
+//     pass_map_kernel<R, true, kBf16, true, SPLIT>
+//                                           backward pass on      thomas_bwd.cu
+//                                           banded+tail pivots
 //     sweep::down_kernel<R, SPLIT>,         whole Gauss-Seidel    sweep_fused.cu
 //     sweep::up_kernel<R, SPLIT>            sweep directions
 //
 // on bf16 or int8 pivot planes (S).  The dense passes run flow_kernel, the
 // others run_flow, the same step driven by a step map (the second half of
-// this file, which says what it adds).  Only the backward pass on banded+tail
-// pivots keeps the grid-barrier step of thomas_line.cuh, whose note describes
-// the layouts, the numerics contract and the bound; this step computes the
-// same function on the same layouts:
+// this file, which says what it adds).  thomas_line.cuh describes the
+// layouts, the numerics contract and the bound; the step computes
 //
 //     w = rhs_j [+- cpl . trace] - band_j . prev,     t = C_j^{-1} w,
 //
 // bf16 or int8 planes widened to f32, f32 carries, bands and sums.
 //
-// Why a new step.  A line of the grid-barrier step at n = 801 takes 4.5 us
-// against 0.78 us of bytes (PERF.md §5): it ends in a grid barrier (a fence,
-// an atomic and a spin through L2), only then do all blocks issue a second L2
-// round trip for the whole carry, and each block recomputes the band step for
-// all n lanes and reduces all n input rows with 128 threads.  Here a line
-// waits on latency, so the step is built to shorten the chain from one
-// line's last product to the next line's first (PERF.md §6 measures each
-// point):
+// Why this step.  A line of the grid-barrier step these kernels ran before
+// took 4.5 us at n = 801 against 0.78 us of bytes (PERF.md §5-6): it ended in
+// a grid barrier (a fence, an atomic and a spin through L2), only then did
+// all blocks issue a second L2 round trip for the whole carry, and each block
+// recomputed the band step for all n lanes and reduced all n input rows with
+// 128 threads.  Here a line waits on latency, so the step is built to
+// shorten the chain from one line's last product to the next line's first
+// (PERF.md §6 measures each point):
 //
 // 1. Hand the carry over with flags, not a grid barrier.  The producer of a
 //    tile publishes its sums for its 8 output lanes of each row as 8-byte
@@ -101,10 +102,11 @@
 // slice whose kStages stage buffers fit in one CTA's shared memory and whose
 // rows fit flow_groups rows a thread: one CTA a tile up to n = 976 in bf16 at
 // r = 2, two up to n = 1968 in bf16 and 2448 in int8, the cached forward pass
-// too; the fused sweeps, which keep the trace rows beside the carry, 912 and
-// 1840 (measured by test_longest_line_fits).  Anything else is refused with
-// cudaErrorInvalidValue before a launch, and a cooperative launch that does
-// not fit returns its error.
+// and the backward pass on banded+tail pivots (step maps without the trace
+// rows) too; the fused sweeps, which keep the trace rows beside the carry,
+// 912 and 1840 (measured by test_longest_line_fits).  Anything else is
+// refused with cudaErrorInvalidValue before a launch, and a cooperative
+// launch that does not fit returns its error.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -140,12 +142,20 @@ __host__ __device__ constexpr int flow_groups() {
 constexpr int kStages = THOMAS_STAGES;
 static_assert(kStages >= 2, "a stage being computed and one in flight at least");
 
-// Ablation of the flag-handoff step (benchmarks_torch/thomas_ablation.py),
-// bits of THOMAS_ABLATE beside those of the grid-barrier step: a line without
-// the flag wait (the words are read once, flags unchecked); the bits of the
-// grid-barrier step leave out the carry's load, the band step, the products
-// and the bulk copies of the planes or of the band and right-hand rows.
-// Results are wrong; only the time is read.
+// Timing by ablation (benchmarks_torch/thomas_ablation.py): a build with
+// -DTHOMAS_ABLATE=<mask> leaves single phases of a line step out: the carry's
+// load (with or without the band step), the products, the bulk copies of the
+// planes or of the band and right-hand rows, the flag wait (the words are
+// read once, flags unchecked).  Its results are wrong and only its time is
+// read; the package always builds with 0.
+#ifndef THOMAS_ABLATE
+#define THOMAS_ABLATE 0
+#endif
+constexpr bool kNoBandStep = THOMAS_ABLATE & 1;     // neither carry load nor band step
+constexpr bool kNoProducts = THOMAS_ABLATE & 2;
+constexpr bool kNoPlaneCopies = THOMAS_ABLATE & 8;
+constexpr bool kNoRowCopies = THOMAS_ABLATE & 16;   // band and right-hand rows
+constexpr bool kNoCarryLoad = THOMAS_ABLATE & 32;
 constexpr bool kNoFlagWait = THOMAS_ABLATE & 64;
 
 // Timing by trace (benchmarks_torch/thomas_ablation.py): a build with
@@ -353,7 +363,7 @@ __host__ __device__ constexpr size_t flow_smem_bytes(int ld) {
 constexpr int kSlots = 4;              // lines of the exchange ring
 
 struct FlowArgs {
-  PassArgs a;              // operands as for pass_kernel (dense layout)
+  PassArgs a;              // operands (dense layout)
   uint2* xchg;             // (kSlots, B, ld, 2r, SPLIT) exchange words (value, flag)
   unsigned epoch;          // flag of the pass's first line step
 };
@@ -752,7 +762,8 @@ inline cudaError_t run_flow_pass(int r, const PassArgs& a, uint2* xchg, unsigned
 
 // ---------------------------------------------------------------------------
 // The step driven by a step map: the cached forward pass (dense bf16, int8 and
-// banded+tail pivots, thomas_fwd_cached.cu) and the fused sweep directions
+// banded+tail pivots, thomas_fwd_cached.cu), the backward pass on banded+tail
+// pivots (PassMap below, thomas_bwd.cu) and the fused sweep directions
 // (sweep_fused.cu).  The same handoff, work split, staging and reduction as
 // flow_kernel; a map says, for each tile of each line step, where its
 // operands are (FlowTile), and the step computes for the tile's lanes
@@ -794,7 +805,8 @@ inline cudaError_t run_flow_pass(int r, const PassArgs& a, uint2* xchg, unsigned
 // resident CTA in step order, so nothing waits forever (and a poll traps after
 // 2^24 tries).  The dense passes through this body (the trivial map, PassMap
 // below, built with -DTHOMAS_MAP_STEP=1) measured up to 16 % slower than
-// flow_kernel, which they keep (PERF.md §6).
+// flow_kernel, which they keep (PERF.md §6); flow_kernel stages the same rows
+// (its slice) for every tile, which head windows do not share.
 
 // Ablation bits beside those above: no injection (no trace read, no cpl
 // products); no outputs (y, t, traces and private y lines not stored)
@@ -1282,11 +1294,13 @@ inline cudaError_t launch_map(void (*kernel1)(const Map), void (*kernel2)(const 
                                      smem, stream);
 }
 
-// The dense forward and backward passes as a step map (the trivial one):
-// step k is line first +- k of every batch row.  A build with
-// -DTHOMAS_MAP_STEP=1 (benchmarks_torch/thomas_probe.py) launches them so,
-// to time the shared body against flow_kernel.
-template <int R, bool kBackward, Storage S>
+// A whole pass as a step map (the trivial one): step k is line first +- k of
+// every batch row, its carry the words of step k - 1.  It is the backward
+// pass on banded+tail pivots (kBanded: head windows on lines < tail_start,
+// thomas_bwd.cu); a build with -DTHOMAS_MAP_STEP=1
+// (benchmarks_torch/thomas_probe.py) also launches the dense forward and
+// backward passes so, to time the shared body against flow_kernel.
+template <int R, bool kBackward, Storage S, bool kBanded>
 struct PassMap {
   PassArgs a;
   FlowLaunch fl;
@@ -1299,7 +1313,8 @@ struct PassMap {
     if constexpr (S == Storage::kInt8)
       ft.cols = tile_cols_int8(a.cre, a.cim, a.scale, s, j, t, a.m, a.n, a.ld);
     else
-      ft.cols = tile_cols(a.cre, a.cim, nullptr, nullptr, s, j, t, a.m, a.n, a.ld, 0, 0);
+      ft.cols = tile_cols(a.cre, a.cim, a.hre, a.him, s, j, t, a.m, a.n, a.ld,
+                          kBanded ? a.tail_start : 0, kBanded ? a.half : 0);
     if (k > 0) {
       ft.band = a.band + ((size_t)s * a.m + j) * 6 * a.ld;
       ft.carry_step = k - 1;
@@ -1313,36 +1328,44 @@ struct PassMap {
   }
 };
 
-template <int R, bool kBackward, Storage S, int SPLIT>
+template <int R, bool kBackward, Storage S, bool kBanded, int SPLIT>
 __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLIT>())
-    pass_map_kernel(const PassMap<R, kBackward, S> items) {
+    pass_map_kernel(const PassMap<R, kBackward, S, kBanded> items) {
   run_flow<R, S, SPLIT, false>(items, items.fl);
 }
 
-template <int R, bool kBackward, Storage S>
+template <int R, bool kBackward, Storage S, bool kBanded>
 inline cudaError_t launch_pass_map(const PassArgs& a, uint2* xchg, unsigned epoch,
                                    cudaStream_t stream) {
-  const PassMap<R, kBackward, S> map{
-      a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0}};
-  return launch_map<R, S, false, PassMap<R, kBackward, S>>(
-      pass_map_kernel<R, kBackward, S, 1>, pass_map_kernel<R, kBackward, S, 2>, map,
-      a.batch * (a.ld / kLanes), stream);
+  using Map = PassMap<R, kBackward, S, kBanded>;
+  const Map map{a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0}};
+  return launch_map<R, S, false, Map>(pass_map_kernel<R, kBackward, S, kBanded, 1>,
+                                      pass_map_kernel<R, kBackward, S, kBanded, 2>, map,
+                                      a.batch * (a.ld / kLanes), stream);
 }
 
-// A dense pass (bf16, or int8 when scales are given) through run_flow; the
-// exchange needs one slot per line (count slots)
-template <bool kBackward>
+// A pass through run_flow: on banded+tail pivots (kBanded: bf16, 0 <
+// tail_start < m, half >= 0, no scales), else on dense planes (bf16, or int8
+// when scales are given).  The exchange needs one slot per line (count slots)
+template <bool kBackward, bool kBanded = false>
 inline cudaError_t run_map_pass(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                                 cudaStream_t stream) {
   if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 || r < 1 ||
       r > kMaxRhs || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
       epoch == 0u || epoch + (unsigned)a.count < epoch)
     return cudaErrorInvalidValue;
-  if (a.scale != nullptr)
-    return r == 1 ? launch_pass_map<1, kBackward, Storage::kInt8>(a, xchg, epoch, stream)
-                  : launch_pass_map<2, kBackward, Storage::kInt8>(a, xchg, epoch, stream);
-  return r == 1 ? launch_pass_map<1, kBackward, Storage::kBf16>(a, xchg, epoch, stream)
-                : launch_pass_map<2, kBackward, Storage::kBf16>(a, xchg, epoch, stream);
+  if constexpr (kBanded) {
+    if (a.tail_start < 1 || a.tail_start >= a.m || a.half < 0 || a.scale != nullptr)
+      return cudaErrorInvalidValue;
+    return r == 1 ? launch_pass_map<1, kBackward, Storage::kBf16, true>(a, xchg, epoch, stream)
+                  : launch_pass_map<2, kBackward, Storage::kBf16, true>(a, xchg, epoch, stream);
+  } else {
+    if (a.scale != nullptr)
+      return r == 1 ? launch_pass_map<1, kBackward, Storage::kInt8, false>(a, xchg, epoch, stream)
+                    : launch_pass_map<2, kBackward, Storage::kInt8, false>(a, xchg, epoch, stream);
+    return r == 1 ? launch_pass_map<1, kBackward, Storage::kBf16, false>(a, xchg, epoch, stream)
+                  : launch_pass_map<2, kBackward, Storage::kBf16, false>(a, xchg, epoch, stream);
+  }
 }
 
 }  // namespace thomas

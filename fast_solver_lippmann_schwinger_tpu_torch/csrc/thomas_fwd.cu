@@ -14,12 +14,9 @@
 // With scales the planes are int8 (the TPU kernel's nb > 1 branch of
 // _scaled_dots) and the kernel is flow_kernel<R, false, Storage::kInt8>.
 // The carry t is never stored but in the exchange buffer.  A build with
-// -DTHOMAS_OLD_STEP=1 (benchmarks_torch/thomas_probe.py only) launches the
-// grid-barrier step of thomas_line.cuh instead, pass_kernel<R, false, false,
-// false, S>, which keeps t in a two-slot ping-pong in `xchg` and ignores
-// `epoch`; one with -DTHOMAS_MAP_STEP=1 drives the same pass through the
-// step-map body of thomas_flow.cuh (run_flow, one exchange slot per line),
-// which measured slower than flow_kernel (PERF.md §6).
+// -DTHOMAS_MAP_STEP=1 (benchmarks_torch/thomas_probe.py only) drives the same
+// pass through the step-map body of thomas_flow.cuh (run_flow, one exchange
+// slot per line), which measured slower than flow_kernel (PERF.md §6).
 //
 // Bound: bytes.  (m - start) lines x 2 planes x n x ld x 2 B (int8: 1 B, plus
 // the scales) against 3.35 TB/s, plus the b and y stacks.
@@ -49,17 +46,13 @@ extern "C" int thomas_forward(
   a.s_idx = s_idx;
   a.t_init = nullptr;
   a.kept = y;
-  a.out = static_cast<float*>(xchg);
   a.batch = batch;
   a.m = m;
   a.n = n;
   a.ld = ld;
   a.first = start;
   a.count = m - start;
-#if THOMAS_OLD_STEP
-  (void)epoch;
-  cudaError_t err = thomas::run_pass<false>(r, a, (cudaStream_t)stream);
-#elif THOMAS_MAP_STEP
+#if THOMAS_MAP_STEP
   cudaError_t err = thomas::run_map_pass<false>(r, a, static_cast<uint2*>(xchg), epoch,
                                                 (cudaStream_t)stream);
 #else

@@ -38,10 +38,6 @@
 // Limits: r <= 2, and the lines of thomas_flow.cuh (n up to 1968 in bf16 and
 // 2448 in int8 at r = 2, test_longest_line_fits).
 //
-// A build with -DTHOMAS_OLD_STEP=1 (benchmarks_torch/thomas_probe.py only)
-// launches the grid-barrier step of thomas_line.cuh instead,
-// pass_kernel<R, false, true[, kBanded, S]>, which ignores xchg and epoch.
-//
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B (int8: 1 B and the
 // scales), or two head windows, 2 x ld x (8 + 2 half) x 2 B less the rows
 // outside [0, n), against 3.35 TB/s, plus the b, y and t stacks.
@@ -144,13 +140,6 @@ extern "C" int thomas_forward_cached(
   a.count = m - start;
   a.tail_start = tail_start;
   a.half = half;
-#if THOMAS_OLD_STEP
-  (void)xchg;
-  (void)epoch;
-  cudaError_t err = tail_start > 0
-                        ? thomas::run_pass<false, true, true>(r, a, (cudaStream_t)stream)
-                        : thomas::run_pass<false, true>(r, a, (cudaStream_t)stream);
-#else
   cudaError_t err = cudaErrorInvalidValue;
   const bool banded = tail_start > 0;
   if (batch >= 1 && m >= 1 && n >= 1 && ld >= n && ld % thomas::kLanes == 0 && r >= 1 &&
@@ -164,7 +153,6 @@ extern "C" int thomas_forward_cached(
               ? thomas::run_cached<false, thomas::Storage::kInt8>(r, a, words, epoch, st)
               : thomas::run_cached<false, thomas::Storage::kBf16>(r, a, words, epoch, st);
   }
-#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -176,11 +176,8 @@ def steps(fac, tt: int) -> int:
 def private_floats(fac, tt: int, r: int) -> int:
     """Floats of the kernels' scratch: each CTA's private y lines, ``tt``
     lines of its slice's rows (the CTAs of a tile hold at most ld + 8 rows;
-    ``csrc/sweep_fused.cu``, ``SweepArgs.scratch``), and at least the
-    grid-barrier step's trace rows (2 tt + 2 rows of 2r x ld floats, the
-    probe's old-step build)."""
-    tiles = fac.ld // tk.LEAD_MULTIPLE
-    return max(tiles * tt * 2 * r * (fac.ld + 8), (2 * tt + 2) * 2 * r * fac.ld)
+    ``csrc/sweep_fused.cu``, ``SweepArgs.scratch``)."""
+    return fac.ld // tk.LEAD_MULTIPLE * tt * 2 * r * (fac.ld + 8)
 
 
 def _launch(up: int, fac, meta, b4, cpl_a, cpl_b, y4, t4, unp, u4, tt: int, r: int):

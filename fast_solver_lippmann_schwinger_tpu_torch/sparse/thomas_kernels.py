@@ -12,15 +12,15 @@ kernels are rewritten by hand for Hopper in CUDA C++: ``csrc/thomas_fwd.cu``
 given carry and keeps the t stack: ``_fwd`` and ``_fwd_bt``, and ``_fwd_ht``
 on the hybrid layout), ``csrc/thomas_bwd.cu`` (backward pass: ``_bwd_b``,
 ``_bwd`` at one batch row and one right-hand side, and ``_bwd_ht``); each
-launcher picks the layout's instantiation of the kernel.  The forward and
-backward passes on dense planes run the flag-handoff line step of
-``csrc/thomas_flow.cuh``: each line's carry is handed to the next through
-flagged words of an exchange buffer (:class:`Exchange`), not a grid barrier,
-one block a tile (two, each on half of its input rows, on long lines).  The
-cached forward pass, on every layout, runs the same step driven by a step map
-(``run_flow`` there; the fused sweeps of ``sweep_kernels`` too).  Only the
-backward pass on banded+tail pivots keeps the grid-barrier step of
-``csrc/thomas_line.cuh``, which also holds the design note of the layouts.
+launcher picks the layout's instantiation of the kernel.  Every pass runs the
+flag-handoff line step of ``csrc/thomas_flow.cuh``: each line's carry is
+handed to the next through flagged words of an exchange buffer
+(:class:`Exchange`), not a grid barrier, one block a tile (two, each on half
+of its input rows, on long lines).  The forward and backward passes on dense
+planes run it as ``flow_kernel``; the cached forward pass on every layout and
+the backward pass on the banded+tail layout run the same step driven by a
+step map (``run_flow`` there; the fused sweeps of ``sweep_kernels`` too).
+``csrc/thomas_line.cuh`` holds the design note of the layouts.
 
 Storage (same numbers as the JAX package): pivot inverses are kept
 TRANSPOSED in bfloat16 real/imag planes, ``Cinv^T[i_in, o_out]``, so the
@@ -497,9 +497,10 @@ class Exchange:
     ``slots`` slots of (B, ld, 2r, halves) words, and line step k of a launch
     given flag ``epoch`` publishes flag ``epoch + k`` into slot k (modulo
     ``slots``).  The dense forward and backward passes reuse a ring of
-    :data:`EXCHANGE_LINES` slots; the cached forward pass and the fused sweeps
-    take one slot per line step, so that no slot is written twice in a launch
-    and the words of every earlier step stay readable
+    :data:`EXCHANGE_LINES` slots; the step maps (the cached forward pass, the
+    backward pass on banded+tail pivots and the fused sweeps) take one slot
+    per line step, so that no slot is written twice in a launch and the words
+    of every earlier step stay readable
     (``csrc/thomas_flow.cuh``, ``run_flow``).  The buffer is zeroed when it
     is made and only these kernels write it; the counter only grows, so no
     word left from an earlier launch carries a flag that a later one waits
@@ -826,6 +827,13 @@ def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
     return out
 
 
+def backward_slots(fac, m_eff: int) -> int:
+    """Exchange slots of a backward pass over ``m_eff`` lines: on dense planes
+    (``flow_kernel``) the ring of :data:`EXCHANGE_LINES`; on the banded+tail
+    layout (a step map through ``run_flow``) one slot per line step."""
+    return m_eff if isinstance(fac, BandedTailFactorization) else EXCHANGE_LINES
+
+
 def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
                           tail: int = 0) -> torch.Tensor:
     """Batched backward substitution ``x_j = C_j^{-1}(y_j - U_j x_{j+1})``
@@ -843,12 +851,10 @@ def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
     m_eff = m if tail <= 0 or tail >= m else tail
     x4 = torch.empty((B, m_eff, 2 * r, fac.ld), dtype=torch.float32, device=y4.device)
     pivots, layout = _pivot_args(fac)
-    # dense planes run the flag-handoff step; the banded+tail layout needs no exchange
-    xchg, epoch = ((None, 0) if isinstance(fac, BandedTailFactorization)
-                   else exchange_for(y4).take(B, r, fac.ld, m_eff))
+    xchg, epoch = exchange_for(y4).take(B, r, fac.ld, m_eff, slots=backward_slots(fac, m_eff))
     err = fn(
         y4.data_ptr(), fac.uband.data_ptr(), *pivots, s_idx.data_ptr(), x4.data_ptr(),
-        B, m, fac.n, fac.ld, r, m_eff, *layout, 0 if xchg is None else xchg.data_ptr(), epoch,
+        B, m, fac.n, fac.ld, r, m_eff, *layout, xchg.data_ptr(), epoch,
         torch.cuda.current_stream(y4.device).cuda_stream,
     )
     _raise_on(err, "thomas_backward", fac)

@@ -726,6 +726,109 @@ def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monke
         assert t.shape[-2:] in ((6, fac.ld),) and bool(torch.isfinite(t).all())
 
 
+BANDED_TAIL = 22                 # the sweeps' trace tail: it reaches into the head
+
+
+@pytest.fixture(scope="module")
+def banded():
+    """Banded+tail factors at the 801^2 solve's width for the backward pass
+    (row 7): w = 201 (half = 100), 16 slabs, fewer lines than the solve's 70
+    (10 of them dense), built on the card once for the tests below."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the substitution kernels have no CPU mode")
+    return _hybrid_on_card(np.random.default_rng(70), 16, 30, 801, 201, 10,
+                           torch.device("cuda", 0))
+
+
+def _banded_rows(fac, batch, r, seed):
+    rng = np.random.default_rng(seed)
+    y4 = torch.zeros((batch, fac.m, 2 * r, fac.ld), device=fac.lband.device)
+    y4[..., :fac.n] = torch.as_tensor(rng.standard_normal((batch, fac.m, 2 * r, fac.n))
+                                      .astype(np.float32), device=y4.device)
+    return y4
+
+
+def _banded_batch(fac, batch):
+    """One inner slab (B = 1) or every slab in order (B = 16, ``jacobi_sweep``)."""
+    return fac.slab_ids[8:9] if batch == 1 else fac.slab_ids
+
+
+@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("tail", [0, BANDED_TAIL])
+@pytest.mark.parametrize("batch", [1, 16])
+def test_banded_backward_matches_plain(banded, r, tail, batch):
+    """The backward pass on banded+tail pivots at the 801^2 solve's width,
+    full and over the last 22 lines (across into the head windows), one inner
+    slab and all 16 (several tiles a CTA), against its plain version; one
+    launch each (r = 3: two), counted as the hybrid layout's."""
+    fac = banded
+    s_idx = _banded_batch(fac, batch)
+    y4 = _banded_rows(fac, batch, r, 10 * r + tail + batch)
+    before = tk.backward_substitution.launches["ht"]
+    x4 = tk.backward_substitution(fac, s_idx, y4, tail=tail)
+    torch.cuda.synchronize()
+    assert tk.backward_substitution.launches["ht"] == before + len(tk.rhs_groups(r))
+    want = tk.backward_substitution_ht_plain(fac, s_idx, y4, tail)
+    assert x4.shape == want.shape == (batch, tail or fac.m, 2 * r, fac.ld)
+    torch.testing.assert_close(x4, want, rtol=0, atol=TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("batch,r,tail", [(1, 1, 0), (1, 2, BANDED_TAIL), (16, 2, 0)])
+def test_banded_backward_is_bit_identical_across_repeats(banded, batch, r, tail):
+    """No race in the handoff of the banded backward pass: 20 launches give
+    the same bits (no sum depends on timing; there is no atomic)."""
+    fac = banded
+    s_idx = _banded_batch(fac, batch)
+    y4 = _banded_rows(fac, batch, r, 3)
+    first = tk.backward_substitution(fac, s_idx, y4, tail=tail)
+    for i in range(19):
+        assert torch.equal(tk.backward_substitution(fac, s_idx, y4, tail=tail), first), i
+
+
+def test_banded_backward_after_the_flags_wrap(banded):
+    """A launch whose flags would pass the 32-bit limit: the wrapper zeroes the
+    exchange buffer (which holds the words of the launches before, flags and
+    all) and starts again at flag 1; the pass is right."""
+    fac = banded
+    s_idx = _banded_batch(fac, 1)
+    y4 = _banded_rows(fac, 1, 2, 5)
+    want = tk.backward_substitution_ht_plain(fac, s_idx, y4)
+    tk.backward_substitution(fac, s_idx, y4)
+    ex = tk.exchange_for(y4)
+    ex.next = tk.FLAG_LIMIT - 3                  # fewer flags left than lines
+    x4 = tk.backward_substitution(fac, s_idx, y4)
+    torch.cuda.synchronize()
+    assert ex.next == 1 + fac.m
+    torch.testing.assert_close(x4, want, rtol=0, atol=TOL * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("fault", ["int8_scales", "tail_start_at_m", "epoch_zero",
+                                   "epoch_wraps"])
+def test_banded_backward_refuses_bad_arguments(banded, fault):
+    """The launcher refuses banded arguments it cannot run before a launch
+    (cudaErrorInvalidValue = 1): int8 scales beside head windows, a tail that
+    starts at or past the last line, and a first flag that is 0 or whose
+    lines would wrap."""
+    from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
+
+    fac = banded
+    s_idx = _banded_batch(fac, 1)
+    y4 = _banded_rows(fac, 1, 1, 6)
+    x4 = torch.empty_like(y4)
+    xchg, epoch = tk.exchange_for(y4).take(1, 1, fac.ld, fac.m, slots=fac.m)
+    scale = torch.ones(16, device=y4.device)
+    tail_start = fac.m if fault == "tail_start_at_m" else fac.tail_start
+    epoch = {"epoch_zero": 0, "epoch_wraps": tk.FLAG_LIMIT - 2}.get(fault, epoch)
+    err = cuda_build.load("thomas_bwd")(
+        y4.data_ptr(), fac.uband.data_ptr(), fac.head_re.data_ptr(), fac.head_im.data_ptr(),
+        fac.tail_re.data_ptr(), fac.tail_im.data_ptr(),
+        scale.data_ptr() if fault == "int8_scales" else 0, s_idx.data_ptr(), x4.data_ptr(),
+        1, fac.m, fac.n, fac.ld, 1, fac.m, tail_start, fac.half, xchg.data_ptr(), epoch,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 1
+
+
 # ---------------------------------------------------------------------------
 # The int8 mode of the line kernels, and the stencil matvec
 # ---------------------------------------------------------------------------
@@ -805,13 +908,15 @@ def _zero_hybrid(length, device):
 
 @pytest.mark.parametrize("entry,storage", [("backward", "bf16"), ("backward", "int8"),
                                            ("forward_cached", "bf16"),
-                                           ("forward_cached", "int8"), ("sweep", "bf16")])
+                                           ("forward_cached", "int8"), ("sweep", "bf16"),
+                                           ("backward_ht", "bf16")])
 def test_longest_line_fits(cuda_device, entry, storage):
     """The line-length limits of the module notes: the longest line launches
     at r = 2, one lane group more is refused before a launch (the flag-handoff
     step on two CTAs a tile: 3392 + 232 x rows a slice bytes in bf16, 3392 +
     184 x rows + 192 x scale blocks in int8, of 232448; the fused sweeps 3648
-    + 248 x rows)."""
+    + 248 x rows; the backward pass on banded+tail pivots, a step map without
+    the trace rows, as the cached forward pass)."""
     n = LONGEST_SWEEP_LINE if entry == "sweep" else LONGEST_LINE[storage]
     for length, fits in ((n, True), (n + tk.LEAD_MULTIPLE, False)):
         s_idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
@@ -821,6 +926,10 @@ def test_longest_line_fits(cuda_device, entry, storage):
             meta = torch.zeros((6, 2), dtype=torch.int32, device=cuda_device)
             cpl = torch.zeros((2, 2, 3, length), device=cuda_device)
             call = lambda: sk.sweep_down(fac, meta, rows, cpl, cpl, 1)[1]   # noqa: E731
+        elif entry == "backward_ht":
+            fac = _zero_hybrid(length, cuda_device)
+            rows = torch.ones((1, 3, 4, length), device=cuda_device)
+            call = lambda: tk.backward_substitution(fac, s_idx, rows)        # noqa: E731
         else:
             dtype = torch.bfloat16 if storage == "bf16" else torch.int8
             planes = torch.zeros((1, 1, length // 8, length, 8), dtype=dtype, device=cuda_device)

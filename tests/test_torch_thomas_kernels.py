@@ -209,8 +209,7 @@ def test_step_maps_get_a_slot_per_step_and_private_lines(n, r, tt):
     the launch's flags are fresh and its words fit the buffer; the dense
     passes' ring of four slots then fits the same buffer.  The fused sweeps'
     scratch holds every CTA's private y lines, ``tt`` lines of its slice's
-    rows, with one CTA a tile and with two, and the grid-barrier step's trace
-    rows."""
+    rows, with one CTA a tile and with two."""
     from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk
 
     ld = tk._round_up(n, tk.LEAD_MULTIPLE)
@@ -227,7 +226,40 @@ def test_step_maps_get_a_slot_per_step_and_private_lines(n, r, tt):
     floats = sk.private_floats(fac, tt, r)
     for split in (1, 2):
         assert floats >= split * tiles * tt * 2 * r * _slice_rows(ld, split)
-    assert floats >= (2 * tt + 2) * 2 * r * ld
+
+
+@pytest.mark.parametrize("batch,tail", [(1, 0), (1, 22), (2, 0), (2, 22)])
+def test_banded_backward_takes_a_slot_per_line_step(batch, tail):
+    """The backward pass on banded+tail pivots is a step map (``run_flow``),
+    which never writes a slot twice in a launch: it takes one exchange slot
+    per line step, in full (70 lines) and over the last ``tail`` lines, with
+    fresh flags and words that fit the buffer; a dense backward pass after it
+    takes the ring of four slots from the same buffer, and the next banded
+    pass fresh flags again.  The 801^2 solve's shapes: 44 head lines of width
+    201 and 26 dense ones (expanded zeros: only the shapes are read)."""
+    S, m, n, half, head_lines, r = 16, 70, 801, 100, 44, 2
+    ld = tk._round_up(n, tk.LEAD_MULTIPLE)
+    tiles = ld // tk.LEAD_MULTIPLE
+
+    def zeros(*shape, dtype=torch.float32):
+        return torch.zeros((), dtype=dtype).expand(shape)
+
+    head = zeros(S, head_lines, tiles, 8 + 2 * half, 8, dtype=torch.bfloat16)
+    planes = zeros(S, m - head_lines, tiles, ld, 8, dtype=torch.bfloat16)
+    bands = zeros(S, m, 2, 3, ld)
+    fac = tk.BandedTailFactorization(head, head, planes, planes, bands, bands, n, half)
+    dense = types.SimpleNamespace(n=n, ld=ld, m=m)
+    m_eff = tail or m
+    assert tk.backward_slots(fac, m_eff) == m_eff
+    assert tk.backward_slots(dense, m) == tk.EXCHANGE_LINES
+    ex = tk.Exchange("cpu")
+    words, epoch = ex.take(batch, r, ld, m_eff, slots=tk.backward_slots(fac, m_eff))
+    assert epoch == 1 and not words.any()
+    assert words.numel() == 2 * m_eff * batch * ld * tk.LINE_HALVES * 2 * r
+    ring, epoch = ex.take(batch, r, ld, m, slots=tk.backward_slots(dense, m))
+    assert ring is words and epoch == 1 + m_eff
+    again, epoch = ex.take(batch, r, ld, m_eff, slots=tk.backward_slots(fac, m_eff))
+    assert again is words and epoch == 1 + m_eff + m
 
 
 @pytest.mark.parametrize("case", ["rows", "tuple", "out", "one_stack"])

@@ -37,7 +37,15 @@ kernels on random int8 factors at r = 1, 2 and 3 and a 3-slab int8 solve on
 the card against the CPU.  The seventh is ``plasma2d.build_problem(
 use_pallas=True)`` with every other argument at its default (full pivots with
 bf16 kernel planes beside them), whose preconditioner applies run the stencil
-matvec kernel; before it that kernel on a random field.  Every 2D line
+matvec kernel; before it that kernel on a random field.  The eighth is the
+reference's second headline example, the 401 x 401, k = 400 polarized-traces
+integral system (``tests/plasma_integral_system_example.jl``:
+``plasma_integral2d.build_problem(h=1/400, n_subdomains=8, npml=10, n_it=2,
+pivot_dtype="pallas")``, the trapezoidal operator), one and two directions at
+nIt = 2 and one at nIt = 1, whose local solves run the dense line kernels
+with head starts and tails; after it every local-solve shape of that path,
+timed from a CUDA graph, and the same solve on dense complex128 pivots as the
+reference.  Every 2D line
 kernel runs the flag-handoff line step (``csrc/thomas_flow.cuh``): the dense
 forward and backward passes (rows 1, 2, 4 and 1i, 2i, 4i), the cached
 forward pass (rows 3, 5, 6, 3i, 5i), the backward pass on banded+tail pivots
@@ -61,8 +69,13 @@ import numpy as np
 import torch
 
 from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
-from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, subdomain3d, sweeps
-from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, media, plasma2d
+from fast_solver_lippmann_schwinger_tpu_torch.ddm import polarized, subdomain, subdomain3d, sweeps
+from fast_solver_lippmann_schwinger_tpu_torch.models import (
+    bump3d,
+    media,
+    plasma2d,
+    plasma_integral2d,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 from fast_solver_lippmann_schwinger_tpu_torch.ops import stencil_kernels as stk
 from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched
@@ -508,17 +521,25 @@ def library_pass_ms(rows: torch.Tensor, dense_re, dense_im, lines, graph=False) 
             torch.matmul(rows_bf16, dense_re[j])
             torch.matmul(rows_bf16, dense_im[j])
 
-    return graph_ms(loop) if graph else time_ms(loop, 2)
+    # a graph of 200 loops of a long pass would hold hundreds of thousands of
+    # nodes: a few loops, as many products in all as 200 launches of one line
+    return graph_ms(loop, launches=max(1, 200 // len(lines))) if graph else time_ms(loop, 2)
 
 
 def graph_ms(fn, launches: int = 200, replays: int = 5) -> float:
     """Device milliseconds of one ``fn()``: ``launches`` calls captured into a
     CUDA graph and replayed, for a kernel that takes less time on the card
-    than its wrapper on the host (back-to-back calls would time the host)."""
+    than its wrapper on the host (back-to-back calls would time the host).
+    The capture runs on a stream of its own whose exchange buffer starts
+    fresh (``thomas_kernels.reset_exchange``): the graph then zeroes it and
+    every replay of the flag-handoff passes waits on flags no earlier replay
+    left."""
     fn()
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    stream = torch.cuda.Stream()
+    tk.reset_exchange(stream)
+    with torch.cuda.graph(graph, stream=stream):
         for _ in range(launches):
             fn()
     graph.replay()
@@ -2280,12 +2301,277 @@ def phase_pallas_stencil_solve(device, repeats: int = 3) -> list:
     return [entry]
 
 
+# ---------------------------------------------------------------------------
+# Path 8: the 401^2 polarized-traces solve on the dense line kernels
+# ---------------------------------------------------------------------------
+
+# tests/plasma_integral_system_example.jl at full size: h = 1/400, k = 400,
+# 8 slabs, npml = 10, the trapezoidal operator (build_problem's default)
+POLARIZED = dict(h=1.0 / 400.0, n_subdomains=8, npml=10)
+JAX_POLARIZED_ITERATIONS = {2: 6, 1: 5}     # RESULTS.md, by nIt
+
+
+class InnerSolves:
+    """Counts the inner GMRES solves of the polarized preconditioner and their
+    iterations (the joint solve's: the most any direction took) while it is
+    entered, by wrapping ``polarized.gmres`` and ``polarized.gmres_batched``."""
+
+    def __init__(self):
+        self.solves = self.iterations = 0
+
+    def reset(self):
+        self.solves = self.iterations = 0
+
+    def _counted(self, fn):
+        def run(*args, **kwargs):
+            x, info = fn(*args, **kwargs)
+            self.solves += 1
+            self.iterations += int(info.n_iterations.max())
+            return x, info
+        return run
+
+    def __enter__(self):
+        self._saved = (polarized.gmres, polarized.gmres_batched)
+        polarized.gmres, polarized.gmres_batched = map(self._counted, self._saved)
+        return self
+
+    def __exit__(self, *exc):
+        polarized.gmres, polarized.gmres_batched = self._saved
+
+
+def phase_polarized_solve(device, repeats: int = 3):
+    """``plasma_integral2d.build_problem`` at the reference configuration on
+    bf16 kernel planes, then ``solve`` (nIt = 2), ``solve_batched`` over two
+    directions, and ``solve`` with the same slabs at nIt = 1; each timed
+    (median of ``repeats`` after a warm-up) with its iterations beside the JAX
+    record, its inner GMRES iterations per outer apply and its launches.  Only
+    the dense bf16 line kernels may launch.  Returns the problem and the
+    launch counts of the single and the joint solve, and the single solve's
+    solution."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = plasma_integral2d.build_problem(**POLARIZED, n_it=2, dtype=torch.complex64,
+                                              pivot_dtype="pallas", device=device)
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    slabs = problem.precond.slabs
+    check(polarized.pallas_only(slabs) and slabs.pfac.storage == "bf16",
+          "the polarized slabs keep bf16 kernel planes only")
+    # the local solves: solve_all (the forward and backward passes) and
+    # solve_support (at r = 1 the cached forward and the backward pass, at
+    # r = 2 solve_all's pair); the joint solve runs r = 2 only
+    absent = tuple(k for k in COUNTERS if k not in DENSE_2D)
+    runs = (
+        ("polarized_solve", problem, 2, DENSE_2D,
+         lambda p: plasma_integral2d.solve(p, DIRECTIONS[0], **SOLVE_KW)),
+        ("polarized_solve_batched", problem, 2, ("thomas_forward", "thomas_backward"),
+         lambda p: plasma_integral2d.solve_batched(p, DIRECTIONS, **SOLVE_KW)),
+        ("polarized_solve_nit1",
+         dataclasses.replace(problem, precond=dataclasses.replace(problem.precond, n_it=1)),
+         1, DENSE_2D, lambda p: plasma_integral2d.solve(p, DIRECTIONS[0], **SOLVE_KW)),
+    )
+    counts, solutions = {}, {}
+    for name, prob, n_it, path_kernels, run in runs:
+        with InnerSolves() as inner:
+            run(prob)                                          # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (x, info), times, c = timed_solves(lambda: run(prob), repeats, inner.reset)
+        batched = info.n_iterations.ndim == 1
+        its = [int(v) for v in info.n_iterations.reshape(-1)]
+        true_res = [float(v) for v in info.true_residual.reshape(-1)]
+        emit(name, grid=[prob.grid.m, prob.grid.n], k=prob.k, n_subdomains=slabs.n_subs,
+             npml=POLARIZED["npml"], n_it=n_it, quad_rule=prob.op.quad_rule,
+             pivot_dtype="pallas", m1_max=slabs.m1_max, trace_head=slabs.trace_head,
+             trace_tail=slabs.trace_tail, directions=DIRECTIONS if batched else DIRECTIONS[:1],
+             solve_ms=sorted(times)[len(times) // 2], solve_ms_runs=times, iterations=its,
+             jax_tpu_iterations=[JAX_POLARIZED_ITERATIONS[n_it]] * len(its),
+             converged=[bool(v) for v in info.converged.reshape(-1)], true_residual=true_res,
+             inner_solves=inner.solves,
+             inner_iterations_per_apply=inner.iterations / max(inner.solves, 1),
+             setup_seconds=problem.setup_seconds, setup_total_seconds=setup_s,
+             setup_peak_memory_bytes=setup_peak,
+             peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=c)
+        want = (len(DIRECTIONS), prob.grid.size) if batched else (prob.grid.size,)
+        check(tuple(x.shape) == want, f"{name} solution shape")
+        check(bool(torch.isfinite(torch.view_as_real(x)).all()), f"{name} solution is finite")
+        check(bool(info.converged.all()), f"401^2 {name} converged")
+        check(max(true_res) <= 1e-3, f"{name} true residual <= 1e-3 ({true_res})")
+        check(all(c[k] > 0 for k in path_kernels),
+              f"every kernel of the path launched in {name} ({c})")
+        check(not any(c[k] for k in absent), f"no kernel of {absent} launched in {name}")
+        counts[name], solutions[name] = c, x
+    return problem, counts, solutions["polarized_solve"]
+
+
+def phase_polarized_reference(device, x_kernel: torch.Tensor):
+    """The same configuration on dense complex128 pivots (``"full"``, the
+    plain block-Thomas solves of ``sparse/direct.py``, no kernel): its
+    iterations beside the kernel path's, and the kernel path's complex64
+    solution against its solution."""
+    t0 = time.perf_counter()
+    problem = plasma_integral2d.build_problem(**POLARIZED, n_it=2, dtype=torch.complex128,
+                                              pivot_dtype="full", device=device)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    x, info = plasma_integral2d.solve(problem, DIRECTIONS[0], **SOLVE_KW)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    _, err = rel_err(x_kernel.to(torch.complex128), x)
+    n_it = int(info.n_iterations)
+    emit("polarized_reference", pivot_dtype="full", dtype="complex128", iterations=n_it,
+         jax_tpu_iterations=JAX_POLARIZED_ITERATIONS[2], converged=bool(info.converged),
+         residuals=[float(v) for v in info.residuals[: n_it + 1]],
+         true_residual=float(info.true_residual), setup_total_seconds=setup_s,
+         solve_seconds=solve_s, kernel_path_rel_err=err, tolerance=1e-4)
+    check(bool(info.converged), "the dense complex128 polarized solve converged")
+    check(not any(counts.values()), f"the dense pivots launch no kernel ({counts})")
+    check(err <= 1e-4, f"the kernel path's solution within 1e-4 of the dense one ({err})")
+    del problem
+    torch.cuda.empty_cache()
+
+
+def profiled_device_ms(fn) -> float:
+    """Device milliseconds of one ``fn()``: the sum of its kernels' times
+    under torch.profiler, whoever sets the pace."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
+
+
+def phase_polarized_enqueue(problem):
+    """One preconditioner apply (its inner GMRES reads one number an
+    iteration), one inner block Gauss-Seidel (no read) and one MM apply: the
+    host's milliseconds to enqueue each beside the device's (its kernels'
+    sum under torch.profiler) and the stream's (CUDA events)."""
+    pc = problem.precond
+    slabs = pc.slabs
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
+    f_pol = pc._polarized_rhs(pc.a_s.matvec(rhs))
+    v = polarized.permute_to_pairs(slabs, f_pol)
+    parts = {
+        "apply": lambda: pc.apply(rhs),
+        "inner_gauss_seidel": lambda: polarized.precond_gauss_seidel(slabs, v, pc.n_it),
+        "apply_mm": lambda: polarized.apply_mm(slabs, f_pol),
+    }
+    out = {}
+    for name, fn in parts.items():
+        out[name] = dict(enqueue_ms=enqueue_ms(fn, 3), device_ms=profiled_device_ms(fn),
+                         events_ms=time_ms(fn, 3))
+        out[name]["device_idle_share"] = 1.0 - out[name]["device_ms"] / out[name]["events_ms"]
+    emit("polarized_enqueue", trace_unknowns=int(f_pol.shape[0]), parts=out)
+
+
+def phase_polarized_kernel_times(problem, counts: dict) -> list:
+    """Each local-solve shape of the polarized path on the solve's own planes
+    and right-hand sides (the traces of the two incident fields' sources),
+    held against its plain version and timed from a CUDA graph: ``solve_all``
+    over the 8 slabs with the head start at ``trace_head`` (``block_apply``,
+    r = 2) and with none (the partitioned sources, r = 1); ``solve_support``
+    on an inner slab with the head start and the tail of the down recursion
+    and with the head start of the up recursion, r = 1 (the cached forward
+    and the single-batch-row backward pass) and r = 2 (``solve_all``'s
+    pair).  ``launches`` is the kernel's count in one nIt = 2 solve;
+    ``launches_solve_batched`` in the two-direction solve."""
+    pc = problem.precond
+    slabs = pc.slabs
+    fac = slabs.pfac
+    S, m, n, ld = fac.n_slabs, fac.m, fac.n, fac.ld
+    head, tail = slabs.trace_head, slabs.trace_tail
+    up = m - tail
+    slab = S // 2
+    s_one, s_all = fac.slab_ids[slab : slab + 1], fac.slab_ids
+    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS))           # (2, N)
+    asb = pc.a_s.matvec(rhs.T.contiguous())                                # (N, 2)
+    traces = polarized.extract_rhs_traces(slabs, asb)                     # (S, n, 2) each
+    single, joint = counts["polarized_solve"], counts["polarized_solve_batched"]
+    dense_re = tk.dense_planes(fac.cinv_t_re[slab])      # (m, ld, ld) copies for
+    dense_im = tk.dense_planes(fac.cinv_t_im[slab])      # the library yardstick
+
+    def cols(t, r):
+        return t[..., 0] if r == 1 else t[..., :r]
+
+    def rows(b):
+        return tk._to_rows_b(fac, b)
+
+    def fwd(s_idx, b4, start):
+        return (lambda: tk.forward_substitution(fac, s_idx, b4, start=start),
+                lambda: tk.forward_substitution_plain(fac, s_idx, b4, start))
+
+    def fwd_cached(s_idx, b4, start):
+        zero = b4.new_zeros((1, b4.shape[2], ld))
+        return (lambda: tk.forward_substitution_cached(fac, s_idx, b4, start=start),
+                lambda: tk.forward_substitution_cached_plain(fac, s_idx, b4, zero, start))
+
+    def bwd(s_idx, y4, t):
+        return (lambda: tk.backward_substitution(fac, s_idx, y4, tail=t),
+                lambda: tk.backward_substitution_plain(fac, s_idx, y4, t))
+
+    kernels = []
+
+    def add(name, variant, r, fns, b4, lines, stacks, shape, replaces=None):
+        # yardstick: the same count of library products of the same shapes,
+        # on one slab's planes, timed from a CUDA graph as the kernel
+        library_ms = library_pass_ms(b4[0, 0], dense_re, dense_im,
+                                     [j % m for j in range(lines)], graph=True)
+        kernels.append(dict(kernel_entry(
+            name, r, "polarized_solve", single[name], *fns,
+            pass_bound(lines, n, ld, r, stacks), library_ms, dict(shape, r=r),
+            variant=variant, replaces=replaces, graph=True),
+            launches_solve_batched=joint[name]))
+
+    # all slabs: block_apply's trace sources (r = 2, head start) and the
+    # partitioned sources of extract_rhs_traces / reconstruction (r = 1)
+    b_head = rows(polarized._block_rhs(slabs, *(cols(t, 2) for t in traces)))
+    b_src = rows(subdomain.partition_source(slabs, asb[:, 0]))
+    for r, b4, start in ((2, b_head, head), (1, b_src, 0)):
+        shape = dict(B=S, S=S, m=m, n=n, ld=ld, start=start)
+        variant = "_pt_all_slabs" + ("_head" if start else "")
+        y4 = tk.forward_substitution(fac, s_all, b4, start=start)
+        add("thomas_forward", variant, r, fwd(s_all, b4, start), b4, S * (m - start), 2, shape)
+        add("thomas_backward", variant, r, bwd(s_all, y4, 0), b4, S * m, 2, shape)
+    # one inner slab: the down recursion drives its top traces and reads its
+    # bottom ones (head start and tail), the up recursion the mirror image
+    for r in (1, 2):
+        v = [cols(t, r)[slab] for t in traces]
+        for direction, srcs, start, t in (("down", (v[0], v[1], None, None), head, tail),
+                                          ("up", (None, None, v[2], v[3]), up, 0)):
+            b4 = rows(polarized._slab_rhs(slabs, slab, *srcs)[None])
+            shape = dict(B=1, S=S, slab=slab, m=m, n=n, ld=ld, start=start, tail=t)
+            variant = f"_pt_{direction}"
+            if r == 1:
+                y4, _ = tk.forward_substitution_cached(fac, s_one, b4, start=start)
+                add("thomas_forward_cached", variant, r, fwd_cached(s_one, b4, start), b4,
+                    m - start, 3, shape)
+            else:
+                y4 = tk.forward_substitution(fac, s_one, b4, start=start)
+                add("thomas_forward", variant, r, fwd(s_one, b4, start), b4, m - start, 2,
+                    shape)
+            add("thomas_backward", variant + ("_tail" if t else ""), r, bwd(s_one, y4, t), b4,
+                t or m, 2, shape, replaces=SWEEP_BACKWARD_R1 if r == 1 else None)
+    emit("polarized_kernels", tolerance=KERNEL_TOL, timing="cuda_graph",
+         cases=[{k: e[k] for k in ("name", "ms", "bound_ms", "plain_ms", "max_rel_err",
+                                   "launches", "launches_solve_batched", "shape")}
+                for e in kernels])
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs one CUDA card", file=sys.stderr)
         return 1
     device = torch.device("cuda", 0)
+    # wall seconds from the start to each path's first phase and to the end
+    marks = [("start", time.perf_counter())]
     smi = phase_device()
     phase_build()
     phase_kernels(device)
@@ -2294,6 +2580,7 @@ def main() -> int:
     # rounding floor of an apply at 1e-6: its last iteration would be noise
     phase_small_reference(device, n_subdomains=3, double_sweep=True, rtol=1e-5)
 
+    marks.append(("path 1", time.perf_counter()))
     # path 1: one slab, the sweep is the exact solve of the sparsified system
     pair = ("thomas_forward", "thomas_backward")
     problem, counts = phase_solve(device, "solve", 1, False, pair, repeats=3)
@@ -2302,6 +2589,7 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
+    marks.append(("path 2", time.perf_counter()))
     # path 2: 16 slabs, alternating bi-directional sweep
     pair = ("thomas_forward_cached", "thomas_backward")
     problem, counts = phase_solve(device, "sweep_solve", 16, True, pair, repeats=3)
@@ -2311,6 +2599,7 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
+    marks.append(("path 3", time.perf_counter()))
     # path 3: the 48^3 bump solve through the fused plane kernels
     phase_plane_kernels(device)
     phase_small_reference_3d(device)
@@ -2320,6 +2609,7 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
+    marks.append(("path 4", time.perf_counter()))
     # path 4: the 96^3 z-slab sweep through the int8 plane kernels
     phase_plane_kernels_int8(device)
     phase_small_reference_gs3d(device)
@@ -2332,6 +2622,7 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
+    marks.append(("path 5", time.perf_counter()))
     # path 5: 16 slabs, double sweep, banded+tail pivots: each sweep direction
     # is one launch of a fused sweep kernel
     phase_ht_kernels(device)
@@ -2347,6 +2638,7 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
+    marks.append(("path 6", time.perf_counter()))
     # path 6: 16 slabs, double sweep, int8 line pivots: every local solve runs
     # the int8 mode of the line kernels
     phase_int8_line_kernels(device)
@@ -2363,10 +2655,23 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
 
+    marks.append(("path 7", time.perf_counter()))
     # path 7: build_problem(use_pallas=True): the stencil matvec kernel
     phase_stencil_kernel(device)
     kernels += phase_pallas_stencil_solve(device)
 
+    marks.append(("path 8", time.perf_counter()))
+    # path 8: the 401^2 polarized-traces solve, 8 slabs: its local solves run
+    # the dense bf16 line kernels with head starts and tails
+    problem, counts, x = phase_polarized_solve(device)
+    phase_polarized_enqueue(problem)
+    kernels += phase_polarized_kernel_times(problem, counts)
+    del problem
+    torch.cuda.empty_cache()
+    phase_polarized_reference(device, x)
+
+    marks.append(("end", time.perf_counter()))
+    emit("timeline", seconds_from_start={name: t - marks[0][1] for name, t in marks[1:]})
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,12 +7,27 @@ reader finds each module's twin (``ops/fastconv.py`` <-> ``ops/fastconv.py``,
 ``sparse/pallas_thomas.py`` <-> ``sparse/thomas_kernels.py``,
 ``sparse/pallas_plane.py`` <-> ``sparse/plane_kernels.py``).
 
-Ported so far: the 801 x 801 plasma scattering solve (``models/plasma2d.py``)
-on one slab and with 16 slabs and the bi-directional sweep, whose
-block-Thomas substitution passes run as hand-written CUDA kernels, and the
-48^3 bump scattering solve with the sparsifying preconditioner
-(``models/bump3d.py``), whose plane substitution passes run as three more
-(``csrc/``, built by ``native/cuda_build.py``), on an NVIDIA Hopper card.
+Ported so far (``ROADMAP.md`` lists what is not):
+
+* the 2D Lippmann-Schwinger operator on both quadratures (``ops/fastconv.py``;
+  the Duan-Rokhlin trapezoidal rule is the default, as in the JAX package),
+  the annihilator stencils and the block-Thomas factorization;
+* the 801 x 801 plasma scattering solve (``models/plasma2d.py``) on one slab
+  and with 16 slabs and the bi-directional sweep (``ddm/sweeps.py``), on
+  dense, bf16, int8 and banded+tail pivots, with the stencil matvec kernel
+  under ``use_pallas=True``;
+* the polarized-traces integral system (``ddm/polarized.py``) and its 401 x
+  401 plasma solve (``models/plasma_integral2d.py``);
+* the 3D bump scattering solve (``models/bump3d.py``) with the sparsifying
+  preconditioner and with the z-slab Gauss-Seidel sweep
+  (``ddm/subdomain3d.py``) on dense, bf16 and int8 plane pivots.
+
+The substitution passes run as hand-written CUDA kernels on an NVIDIA Hopper
+card (``csrc/``, built by ``native/cuda_build.py``): the line passes of
+``sparse/thomas_kernels.py``, the fused sweeps of ``sparse/sweep_kernels.py``,
+the plane passes of ``sparse/plane_kernels.py`` and the stencil matvec of
+``ops/stencil_kernels.py``.  ``convert.py`` carries the JAX package's objects
+across for the tests.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

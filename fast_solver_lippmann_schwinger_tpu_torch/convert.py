@@ -25,6 +25,9 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import (
     resolve_device,
     to_tensor,
 )
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized import (
+    PolarizedTracesPreconditioner,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import SlabSystem
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain3d import SlabSystem3D
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import DoubleSweepPreconditioner
@@ -281,6 +284,21 @@ def double_sweep_preconditioner(slabs: dict, slabs_t: dict, msp_values, a_s_valu
         slabs_t=slab_system(slabs_t, device=device),
         msp=stencil_matrix_2d(msp_values, device=device),
         a_s=stencil_matrix_2d(a_s_values, device=device),
+    )
+
+
+def polarized_traces_preconditioner(slabs: dict, a_s_values, n_it, inner_tol, inner_maxiter,
+                                    precond_type, device=None) -> PolarizedTracesPreconditioner:
+    """``PolarizedTracesPreconditioner`` from the JAX one's parts: its slab
+    system as a dict for :func:`slab_system` (with its ``fac`` and ``pfac``
+    entries, either kernel layout), the (m, n, 3, 3) stencil field of
+    ``a_s`` and its four scalar settings."""
+    device = resolve_device(device)
+    return PolarizedTracesPreconditioner(
+        slabs=slab_system(slabs, device=device),
+        a_s=stencil_matrix_2d(a_s_values, device=device),
+        n_it=int(n_it), inner_tol=float(inner_tol), inner_maxiter=int(inner_maxiter),
+        precond_type=str(precond_type),
     )
 
 

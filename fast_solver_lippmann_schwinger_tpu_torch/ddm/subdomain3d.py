@@ -228,7 +228,10 @@ def build_slab_system_3d(
     n_subs: int,
     npml: int = 5,
     shift_factor: float = 2.0,
+    a_host: np.ndarray | None = None,
+    ag_host: np.ndarray | None = None,
     pivot_dtype: str = "full",
+    pivot_band: int | None = None,
     cache_dir: str | None = None,
     fac_provider=None,
     timings: dict | None = None,
@@ -245,6 +248,12 @@ def build_slab_system_3d(
     (``sparse/plane_kernels.py``), and the local solves run the fused plane
     kernels.  Slabs are factored one at a time and, with a stack, packed into
     it before the next one is factored, so the stack is never held twice.
+
+    ``a_host``/``ag_host``, when both are given, are host copies of the
+    stencil values (l, m, n, 3, 3, 3) and are read instead of copying
+    ``a_st``/``ag_st`` back from the device.  ``pivot_band`` is passed to
+    ``factor_stencil_3d``, which accepts and ignores it, as the JAX package
+    does.
 
     ``timings``, when given, receives the wall seconds of the parts:
     ``slab_fields`` (host stencil fields), ``factorization`` and ``packing``
@@ -269,7 +278,10 @@ def build_slab_system_3d(
     device = a_st.values.device
     nu = np.asarray(nu).reshape(l, m, n)
     z = np.asarray(z)
-    a_vals, ag_vals = a_st.values.cpu().numpy(), ag_st.values.cpu().numpy()
+    if a_host is not None and ag_host is not None:
+        a_vals, ag_vals = np.asarray(a_host), np.asarray(ag_host)
+    else:
+        a_vals, ag_vals = a_st.values.cpu().numpy(), ag_st.values.cpu().numpy()
     seconds = {"slab_fields": 0.0, "factorization": 0.0, "packing": 0.0}
 
     def lap(part, t0):
@@ -324,7 +336,8 @@ def build_slab_system_3d(
         lap("slab_fields", t0)
 
         t0 = time.perf_counter()
-        fac_s = factor_stencil_3d(StencilMatrix3D(values=v), pivot_dtype=storage)
+        fac_s = factor_stencil_3d(StencilMatrix3D(values=v), pivot_dtype=storage,
+                                  pivot_band=pivot_band)
         del v
         lap("factorization", t0)
 

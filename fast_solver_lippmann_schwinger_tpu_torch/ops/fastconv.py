@@ -108,7 +108,7 @@ def build_fast_convolution_2d(
     h: float,
     k: float,
     nu,
-    quad_rule: QuadRule | str = QuadRule.GREENGARD_VICO,
+    quad_rule: QuadRule | str = QuadRule.TRAPEZOIDAL,
     dtype: torch.dtype = torch.complex64,
     pad_to_friendly: bool = True,
     prefer_pow2: bool = False,
@@ -116,20 +116,19 @@ def build_fast_convolution_2d(
     device=None,
 ) -> LippmannSchwinger2D:
     """Build the 2D fast operator (reference ``buildFastConvolution``,
-    ``src/FastConvolution.jl:170-236``) on its Greengard-Vico branch.
+    ``src/FastConvolution.jl:170-236``): the Duan-Rokhlin corrected
+    trapezoidal rule by default, as in the JAX package, or the
+    Greengard-Vico truncated kernel.
 
     ``nu`` is either a callable ``nu(X, Y)`` over coordinate meshes or an
-    ``(m, n)`` array.  ``prefer_pow2`` picks the extended-grid size class
-    (power of two instead of 5-smooth).  The symbol is computed on the host
-    in float64 and moved to ``device`` in ``dtype``.
+    ``(m, n)`` array.  ``pad_to_friendly=False`` keeps the reference's exact
+    extended sizes (``2n-1`` trapezoidal, ``4n`` Greengard-Vico);
+    ``prefer_pow2`` picks the size class of the friendly ones (power of two
+    instead of 5-smooth).  The symbol is computed on the host in float64 and
+    moved to ``device`` in ``dtype``.
     """
     device = resolve_device(device)
     quad_rule = QuadRule(quad_rule)
-    if quad_rule != QuadRule.GREENGARD_VICO:
-        raise NotImplementedError(
-            "the trapezoidal quadrature branch is not ported yet "
-            "(ROADMAP.md, Queue 1, slice 2)"
-        )
     if cache_dir is not None:
         raise NotImplementedError(
             "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
@@ -138,7 +137,14 @@ def build_fast_convolution_2d(
     X, Y = np.meshgrid(np.asarray(x), np.asarray(y), indexing="xy")
     nu_arr = nu(X, Y) if callable(nu) else np.asarray(nu).reshape(m, n)
 
-    if pad_to_friendly:
+    if quad_rule == QuadRule.TRAPEZOIDAL:
+        sym, _, _ = greens.trapezoidal_kernel_2d(
+            n, m, h, k,
+            ne=None if pad_to_friendly else 2 * n - 1,
+            me=None if pad_to_friendly else 2 * m - 1,
+            prefer_pow2=prefer_pow2,
+        )
+    elif pad_to_friendly:
         # exact compact re-embedding of the GV quadrature: ~2n extended
         # grid instead of 4n (see greens.gv_compact_kernel_2d)
         sym, _, _ = greens.gv_compact_kernel_2d(

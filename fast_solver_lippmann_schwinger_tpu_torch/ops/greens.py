@@ -8,12 +8,10 @@ evaluates a Bessel function.
 Reference counterparts:
 
 * Duan-Rokhlin diagonal-correction table — ``src/FastConvolution.jl:407-415``
+* extended trapezoidal kernel table ``buildGConv`` — ``src/FastConvolution.jl:425-469``
 * Greengard-Vico truncated-kernel symbol ``Gtruncated2D`` —
   ``src/Functions.jl:40-42``, used at ``src/FastConvolution.jl:185-235``
 * dense row sampling ``sampleG`` — ``src/FastConvolution.jl:239-275``
-
-The trapezoidal circulant kernel of the JAX package's ``ops/greens.py`` is
-not ported yet (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -110,6 +108,54 @@ def good_fft_size(minimum: int, multiple_of: int = 1,
             "(multiple_of must itself be 5-smooth)"
         )
     return best
+
+
+# -----------------------------------------------------------------------------
+# Trapezoidal-rule circulant kernel (2D)
+# -----------------------------------------------------------------------------
+
+def trapezoidal_kernel_2d(n: int, m: int, h: float, k: float,
+                          d0: complex | None = None,
+                          ne: int | None = None, me: int | None = None,
+                          prefer_pow2: bool = False):
+    """Circulant-embedded Duan-Rokhlin kernel table, in Fourier space.
+
+    Builds the displacement table ``K[dy, dx] = (i/4) h^2 H0^(1)(k r)`` for
+    displacements dx in [-(n-1), n-1], dy in [-(m-1), m-1] with the corrected
+    diagonal ``(i/4) D0 h^2`` (reference ``buildGConv``,
+    ``src/FastConvolution.jl:425-469``), embeds it in a circulant of size
+    ``(me, ne)`` in wrap-around order, and returns its 2D FFT.
+
+    The wrap-around layout puts the convolution output at slice ``[0:m, 0:n]``
+    and permits any ``ne >= 2n-1``: the default is :func:`good_fft_size` of
+    ``2n-1`` (the reference's exact size, frequently prime, is
+    ``ne=2n-1``).
+
+    Returns (symbol (me, ne) complex128, ne, me).
+    """
+    if d0 is None:
+        d0 = duan_rokhlin_d0(k * h)
+    ne = good_fft_size(2 * n - 1, prefer_pow2=prefer_pow2) if ne is None else ne
+    me = good_fft_size(2 * m - 1, prefer_pow2=prefer_pow2) if me is None else me
+    if ne < 2 * n - 1 or me < 2 * m - 1:
+        raise ValueError(
+            f"circulant embedding needs ne >= {2 * n - 1}, me >= {2 * m - 1}; "
+            f"got ({ne}, {me})"
+        )
+
+    dx = h * np.arange(-(n - 1), n)          # (2n-1,)
+    dy = h * np.arange(-(m - 1), m)          # (2m-1,)
+    r = np.sqrt(dx[None, :] ** 2 + dy[:, None] ** 2)
+    r[m - 1, n - 1] = 1.0                    # dodge the singularity
+    tab = hankel_kernel_table(k, r, h)       # (i/4) h^2 H0(k r)
+    tab[m - 1, n - 1] = 0.25j * d0 * h ** 2
+
+    circ = np.zeros((me, ne), dtype=np.complex128)
+    # wrap displacement (dyi - (m-1), dxi - (n-1)) to circulant index
+    iy = (np.arange(2 * m - 1) - (m - 1)) % me
+    ix = (np.arange(2 * n - 1) - (n - 1)) % ne
+    circ[np.ix_(iy, ix)] = tab
+    return np.fft.fft2(circ), ne, me
 
 
 # -----------------------------------------------------------------------------

@@ -548,6 +548,15 @@ def exchange_for(t: torch.Tensor) -> Exchange:
     return _EXCHANGES[key]
 
 
+def reset_exchange(stream: torch.cuda.Stream) -> None:
+    """Forget the exchange of ``stream``: its next launch takes a new zeroed
+    buffer and hands out flags from 1 again.  A CUDA graph captured on
+    ``stream`` right after this makes that buffer inside the capture, so each
+    replay zeroes it before the flags it captured are handed out again and no
+    word left by an earlier replay carries a flag that a launch waits for."""
+    _EXCHANGES.pop((torch.device(stream.device), stream.cuda_stream), None)
+
+
 _INVALID_VALUE = 1     # cudaErrorInvalidValue
 
 

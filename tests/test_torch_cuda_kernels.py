@@ -179,6 +179,28 @@ def test_one_slab_solves_match_plain(cuda_device, r):
     torch.testing.assert_close(got, full, rtol=0, atol=TOL * float(full.abs().max()))
 
 
+@pytest.mark.parametrize("r", [None, 2])
+def test_solve_support_head_start_and_tail_match_plain(cuda_device, r):
+    """``solve_support`` as the polarized traces' recursions run it, on a
+    401-wide random factor (ld = 408): the down recursion's head start and
+    tail together, and the up recursion's head start alone, against the
+    plain versions on the CPU; zeros above the tail."""
+    rng = np.random.default_rng(17)
+    m, n, start, tail = 71, 401, 9, 22
+    fac = _random_factors(rng, 2, m, n, cuda_device)
+    cpu = _to_cpu(fac)
+    shape = (m, n) if r is None else (m, n, r)
+    for first, last in ((start, tail), (m - tail, 0)):
+        b = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+        b[:first] = 0
+        got = tk.solve_support(fac, 1, torch.as_tensor(b, device=cuda_device), start=first,
+                               tail=last)
+        want = tk.solve_support(cpu, 1, torch.as_tensor(b), start=first, tail=last)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+        if last:
+            assert not bool(got[: m - last].any())
+
+
 @pytest.mark.parametrize("entry", ["forward", "forward_cached", "backward", "solve_all"])
 def test_too_many_right_hand_sides_raise(cuda_device, entry, monkeypatch):
     """More right-hand sides than one launch takes (r = 3 > MAX_RHS) run as

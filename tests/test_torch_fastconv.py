@@ -127,12 +127,65 @@ def test_converted_operator_matches(operators):
 
 
 def test_unported_branches_raise():
+    """``cache_dir`` (checkpointing, slice 9) still raises; the trapezoidal
+    branch is ported (``test_trapezoidal_operator_matches``)."""
     grid = Grid2D(a=1.0, h=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fastconv.build_fast_convolution_2d(
-            grid.x, grid.y, 0.1, 10.0, media.plasma_2d, quad_rule="trapezoidal", device="cpu"
-        )
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         fastconv.build_fast_convolution_2d(
             grid.x, grid.y, 0.1, 10.0, media.plasma_2d, cache_dir="x", device="cpu"
         )
+
+
+@pytest.mark.parametrize("n,m", [(41, 41), (21, 33)])
+def test_trapezoidal_kernel_matches(n, m):
+    """Host float64 on both sides at equal extended sizes; the Hankel tables
+    may come from the JAX package's C++ sampler, whose last digits differ
+    from SciPy's: 1e-10 of the max."""
+    h = 1.0 / (n - 1)
+    ne, me = greens.good_fft_size(2 * n - 1), greens.good_fft_size(2 * m - 1)
+    sym, tne, tme = greens.trapezoidal_kernel_2d(n, m, h, 1.0 / h, ne=ne, me=me)
+    jsym, jne, jme = jgreens.trapezoidal_kernel_2d(n, m, h, 1.0 / h, ne=ne, me=me)
+    assert (tne, tme) == (jne, jme) == (ne, me)
+    np.testing.assert_allclose(sym, jsym, rtol=0, atol=1e-10 * np.abs(jsym).max())
+    with pytest.raises(ValueError, match="circulant"):
+        greens.trapezoidal_kernel_2d(n, m, h, 1.0 / h, ne=2 * n - 2)
+
+
+@pytest.mark.parametrize("pad_to_friendly", [True, False])
+def test_trapezoidal_operator_matches(pad_to_friendly):
+    """The trapezoidal operator in complex128 against the JAX package's on
+    the same grid and medium, with the size class pinned on both sides: the
+    same extended grid, and ``apply`` within 1e-10."""
+    grid = Grid2D(a=1.0, h=H)
+    k = 1.0 / H
+    kw = dict(quad_rule="trapezoidal", pad_to_friendly=pad_to_friendly, prefer_pow2=False)
+    jop = jfastconv.build_fast_convolution_2d(grid.x, grid.y, H, k, jmedia.plasma_2d,
+                                              dtype=jnp.complex128, **kw)
+    op = fastconv.build_fast_convolution_2d(grid.x, grid.y, H, k, media.plasma_2d,
+                                            dtype=torch.complex128, device="cpu", **kw)
+    assert op.symbol.shape == jop.symbol.shape and op.quad_rule == jop.quad_rule
+    if not pad_to_friendly:
+        assert op.symbol.shape == (2 * grid.m - 1, 2 * grid.n - 1)
+    rng = np.random.default_rng(4)
+    u = rng.standard_normal(grid.size) + 1j * rng.standard_normal(grid.size)
+    want = np.asarray(jop.apply(jnp.asarray(u)))
+    got = op.apply(torch.as_tensor(u)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-10, atol=1e-10 * np.abs(want).max())
+
+
+def test_default_quadrature_is_trapezoidal():
+    """Leaving ``quad_rule`` out gives the JAX package's default operator, the
+    Duan-Rokhlin trapezoidal rule."""
+    import inspect
+
+    ours = inspect.signature(fastconv.build_fast_convolution_2d).parameters["quad_rule"]
+    theirs = inspect.signature(jfastconv.build_fast_convolution_2d).parameters["quad_rule"]
+    assert ours.default == theirs.default == "trapezoidal"
+    grid = Grid2D(a=1.0, h=0.1)
+    op = fastconv.build_fast_convolution_2d(grid.x, grid.y, 0.1, 10.0, media.plasma_2d,
+                                            dtype=torch.complex128, device="cpu")
+    trap = fastconv.build_fast_convolution_2d(grid.x, grid.y, 0.1, 10.0, media.plasma_2d,
+                                              quad_rule="trapezoidal", dtype=torch.complex128,
+                                              device="cpu")
+    assert op.quad_rule == "trapezoidal"
+    assert torch.equal(op.symbol, trap.symbol)

@@ -180,26 +180,41 @@ def test_double_sweep_solve_batched_matches(sweep_problems):
     assert float(info.true_residual.max()) < 1e-4
 
 
-@pytest.mark.parametrize("name", ["build_problem", "build_slab_system"])
+@pytest.mark.parametrize("name", ["build_problem", "build_slab_system",
+                                  "build_fast_convolution_2d", "build_slab_system_3d",
+                                  "plasma_integral2d.build_problem"])
 def test_signatures_match_the_jax_package(name):
-    """``build_problem`` and ``build_slab_system`` take the JAX package's
-    parameters, in its order and with its defaults; the port adds only a
-    trailing ``device``."""
+    """The port's build functions take the JAX package's parameters, in its order
+    and with its defaults; the port adds only trailing parameters of its own
+    (``device``; ``timings`` in 3D).  The one default that differs is the
+    ground rule's: ``prefer_pow2`` is ``False`` where the JAX package's
+    ``None`` sniffs the TPU backend."""
+    import importlib
     import inspect
 
-    from fast_solver_lippmann_schwinger_tpu.ddm import subdomain as jsubdomain
-    from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain
+    def pair(module, function):
+        return tuple(getattr(importlib.import_module(f"{pkg}.{module}"), function)
+                     for pkg in ("fast_solver_lippmann_schwinger_tpu_torch",
+                                 "fast_solver_lippmann_schwinger_tpu"))
 
-    ours, theirs = {"build_problem": (plasma2d.build_problem, jplasma2d.build_problem),
-                    "build_slab_system": (subdomain.build_slab_system,
-                                          jsubdomain.build_slab_system)}[name]
+    (ours, theirs), extras = {
+        "build_problem": (pair("models.plasma2d", "build_problem"), ["device"]),
+        "build_slab_system": (pair("ddm.subdomain", "build_slab_system"), ["device"]),
+        "build_fast_convolution_2d": (pair("ops.fastconv", "build_fast_convolution_2d"),
+                                      ["device"]),
+        "build_slab_system_3d": (pair("ddm.subdomain3d", "build_slab_system_3d"), ["timings"]),
+        "plasma_integral2d.build_problem": (pair("models.plasma_integral2d", "build_problem"),
+                                            ["device"]),
+    }[name]
     ours = list(inspect.signature(ours).parameters.values())
     theirs = list(inspect.signature(theirs).parameters.values())
-    assert ours[-1].name == "device" and ours[-1].default is None
-    assert [p.name for p in ours[:-1]] == [p.name for p in theirs]
+    assert [p.name for p in ours] == [p.name for p in theirs] + extras
+    assert all(p.default is None for p in ours[len(theirs):])
     for p, q in zip(ours, theirs):
         if p.name == "dtype":
             assert (p.default, q.default) == (torch.complex64, jnp.complex64)
+        elif p.name == "prefer_pow2":
+            assert (p.default, q.default) == (False, None)
         else:
             assert p.default == q.default, p.name
 
@@ -236,6 +251,8 @@ def test_device_rule():
     ("slab_system", ({}, None)),
     ("double_sweep_preconditioner", ({}, {}, np.ones((2, 2, 3, 3), np.complex64),
                                      np.ones((2, 2, 3, 3), np.complex64))),
+    ("polarized_traces_preconditioner", ({}, np.ones((2, 2, 3, 3), np.complex64), 2, 1e-2,
+                                         40, "GS")),
 ])
 def test_convert_defaults_to_the_card(function, args):
     """The functions that carry JAX objects across follow the device rule too:

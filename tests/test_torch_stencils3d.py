@@ -168,7 +168,8 @@ def test_conv_op_branch_in_2d():
     nu = media.plasma_2d(X, Y)
     jop = build_fast_convolution_2d(grid.x, grid.y, grid.h, k, nu, quad_rule="greengard_vico",
                                     dtype=jnp.complex128, prefer_pow2=False)
-    top = tbuild(grid.x, grid.y, grid.h, k, nu, dtype=torch.complex128, device="cpu")
+    top = tbuild(grid.x, grid.y, grid.h, k, nu, quad_rule="greengard_vico",
+                 dtype=torch.complex128, device="cpu")
     ja = jstencils.build_sparse_a_ag_2d(k, grid.x, grid.y, grid.h, conv_op=jop,
                                         dtype=jnp.complex128)
     ta = stencils.build_sparse_a_ag_2d(k, grid.x, grid.y, grid.h, conv_op=top,

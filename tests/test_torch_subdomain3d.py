@@ -141,6 +141,28 @@ def test_slab_system_fields_match(setup, mode):
     assert _relerr(ts.fac.cinv, want) < 1e-10
 
 
+def test_host_stencils_give_the_same_slabs(setup):
+    """``a_host``/``ag_host`` (with ``pivot_band``, which is accepted and
+    ignored) in the JAX package's order: the host copies are read instead of
+    the device fields, here zeroed to show it, and the slabs are those of the
+    call without them, bit for bit."""
+    s = setup
+    want = _port_system(setup, "full")
+    blank = lambda st: dataclasses.replace(st, values=torch.zeros_like(st.values))  # noqa: E731
+    got = sd.build_slab_system_3d(
+        blank(s["ta"]), blank(s["tag"]), s["nu"], s["x"], s["h"], K, 2, 5, 2.0,
+        s["ta"].values.numpy(), s["tag"].values.numpy(), "full", 33)
+    for f in dataclasses.fields(want):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if f.name == "fac":
+            for g in dataclasses.fields(b):
+                assert torch.equal(getattr(a, g.name), getattr(b, g.name)), g.name
+        elif isinstance(b, torch.Tensor):
+            assert torch.equal(a, b), f.name
+        else:
+            assert a == b, f.name
+
+
 def test_partition_gather_roundtrip(setup):
     ts = _port_system(setup, "full")
     for r in (None, 2):

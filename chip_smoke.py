@@ -45,7 +45,16 @@ pivot_dtype="pallas")``, the trapezoidal operator), one and two directions at
 nIt = 2 and one at nIt = 1, whose local solves run the dense line kernels
 with head starts and tails; after it every local-solve shape of that path,
 timed from a CUDA graph, and the same solve on dense complex128 pivots as the
-reference.  Every 2D line
+reference.  The ninth is the JAX package's record of the 3D polarized traces
+(``RESULTS.md``, "3D polarized traces at 48^3": ``bump3d.build_problem(
+h=1/48, precond="polarized_traces", n_subdomains=4, npml=6,
+pivot_dtype="bf16_pallas")``), at nIt = 2 and 1 and through ``apply_batch``,
+whose local solves run the fused bf16 plane passes with head starts and
+tails; before it a 16^3 solve against its dense complex128 path, after it the
+same 48^3 solve on dense complex128 pivots, one apply's host time beside its
+device time, and the plane passes at the path's shapes, graph-timed.  The
+same preconditioner also runs inside path 4, on the 96^3 problem's own int8
+y-plane slabs.  Every 2D line
 kernel runs the flag-handoff line step (``csrc/thomas_flow.cuh``): the dense
 forward and backward passes (rows 1, 2, 4 and 1i, 2i, 4i), the cached
 forward pass (rows 3, 5, 6, 3i, 5i), the backward pass on banded+tail pivots
@@ -69,7 +78,13 @@ import numpy as np
 import torch
 
 from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
-from fast_solver_lippmann_schwinger_tpu_torch.ddm import polarized, subdomain, subdomain3d, sweeps
+from fast_solver_lippmann_schwinger_tpu_torch.ddm import (
+    polarized,
+    polarized3d,
+    subdomain,
+    subdomain3d,
+    sweeps,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.models import (
     bump3d,
     media,
@@ -1355,13 +1370,15 @@ def phase_plane_apply_path_int8(problem) -> dict:
     return counts
 
 
-def sweep_kernel_times(problem, paths: dict, path_counts: dict, apply_counts=None) -> list:
+def sweep_kernel_times(problem, paths: dict, path_counts: dict, apply_counts=None,
+                       variant=None) -> list:
     """Each plane kernel of the problem's stack storage at the 96^3 path's
     shapes (an inner slab's 96 y-planes of mn = ld = 3072) on the solve's own
     planes and right-hand sides: the fused passes for each ``r`` of ``paths``
     (r -> path name) with that path's launches ``path_counts[r]``; with
     ``apply_counts``, the plane apply at one plane with the launches of the
-    per-plane solves."""
+    per-plane solves.  ``variant`` names the entries (default: none for int8
+    planes, ``"_gs96"`` for bf16 ones)."""
     slabs = problem.precond.slabs
     s = slabs.n_subs // 2
     view = slabs.slab_facs[s]
@@ -1369,7 +1386,8 @@ def sweep_kernel_times(problem, paths: dict, path_counts: dict, apply_counts=Non
     l, ld, storage = view.lsten.shape[0], st.ld, st.storage
     # int8 kernels have names of their own; the bf16 passes are those of the
     # 48^3 path, here at the 96^3 sweep's shape
-    suffix, variant = ("_int8", "") if storage == "int8" else ("", "_gs96")
+    suffix, default = ("_int8", "") if storage == "int8" else ("", "_gs96")
+    variant = default if variant is None else variant
     # the library yardstick's dense bf16 planes, of the same shape
     dense_re = tk.dense_planes(st.p_re[base : base + l]).to(torch.bfloat16)
     dense_im = tk.dense_planes(st.p_im[base : base + l]).to(torch.bfloat16)
@@ -2312,11 +2330,13 @@ JAX_POLARIZED_ITERATIONS = {2: 6, 1: 5}     # RESULTS.md, by nIt
 
 
 class InnerSolves:
-    """Counts the inner GMRES solves of the polarized preconditioner and their
+    """Counts the inner GMRES solves of a polarized preconditioner and their
     iterations (the joint solve's: the most any direction took) while it is
-    entered, by wrapping ``polarized.gmres`` and ``polarized.gmres_batched``."""
+    entered, by wrapping ``gmres`` and ``gmres_batched`` of its module
+    (``polarized`` in 2D, ``polarized3d`` in 3D)."""
 
-    def __init__(self):
+    def __init__(self, module=polarized):
+        self.module = module
         self.solves = self.iterations = 0
 
     def reset(self):
@@ -2331,12 +2351,12 @@ class InnerSolves:
         return run
 
     def __enter__(self):
-        self._saved = (polarized.gmres, polarized.gmres_batched)
-        polarized.gmres, polarized.gmres_batched = map(self._counted, self._saved)
+        self._saved = (self.module.gmres, self.module.gmres_batched)
+        self.module.gmres, self.module.gmres_batched = map(self._counted, self._saved)
         return self
 
     def __exit__(self, *exc):
-        polarized.gmres, polarized.gmres_batched = self._saved
+        self.module.gmres, self.module.gmres_batched = self._saved
 
 
 def phase_polarized_solve(device, repeats: int = 3):
@@ -2447,27 +2467,31 @@ def profiled_device_ms(fn) -> float:
                if e.device_type.name == "CUDA") / 1e3
 
 
-def phase_polarized_enqueue(problem):
+def phase_polarized_enqueue(problem, module=polarized, rhs=None, phase="polarized_enqueue"):
     """One preconditioner apply (its inner GMRES reads one number an
-    iteration), one inner block Gauss-Seidel (no read) and one MM apply: the
-    host's milliseconds to enqueue each beside the device's (its kernels'
-    sum under torch.profiler) and the stream's (CUDA events)."""
+    iteration), one inner block Gauss-Seidel (the D-inverse recursions and
+    the couplings; no read) and one MM apply: the host's milliseconds to
+    enqueue each beside the device's (its kernels' sum under torch.profiler)
+    and the stream's (CUDA events).  ``module`` is the trace system's
+    (``polarized3d`` in 3D) and ``rhs`` the source (default: the 2D path's
+    first incident direction)."""
     pc = problem.precond
     slabs = pc.slabs
-    rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
+    if rhs is None:
+        rhs = plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:1]))[0]
     f_pol = pc._polarized_rhs(pc.a_s.matvec(rhs))
-    v = polarized.permute_to_pairs(slabs, f_pol)
+    v = module.permute_to_pairs(slabs, f_pol)
     parts = {
         "apply": lambda: pc.apply(rhs),
-        "inner_gauss_seidel": lambda: polarized.precond_gauss_seidel(slabs, v, pc.n_it),
-        "apply_mm": lambda: polarized.apply_mm(slabs, f_pol),
+        "inner_gauss_seidel": lambda: module.precond_gauss_seidel(slabs, v, pc.n_it),
+        "apply_mm": lambda: module.apply_mm(slabs, f_pol),
     }
     out = {}
     for name, fn in parts.items():
         out[name] = dict(enqueue_ms=enqueue_ms(fn, 3), device_ms=profiled_device_ms(fn),
                          events_ms=time_ms(fn, 3))
         out[name]["device_idle_share"] = 1.0 - out[name]["device_ms"] / out[name]["events_ms"]
-    emit("polarized_enqueue", trace_unknowns=int(f_pol.shape[0]), parts=out)
+    emit(phase, trace_unknowns=int(f_pol.shape[0]), parts=out)
 
 
 def phase_polarized_kernel_times(problem, counts: dict) -> list:
@@ -2564,6 +2588,264 @@ def phase_polarized_kernel_times(problem, counts: dict) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Path 9: the 48^3 polarized-traces solve on the fused plane kernels
+# ---------------------------------------------------------------------------
+
+# RESULTS.md:318-323, "3D polarized traces at 48^3": k = 48, 4 z-slabs, npml
+# = 6, nIt = 2, complex64, rtol 1e-6; the JAX package took 5 outer iterations
+# (printed for information; its time is a TPU time and no target)
+POLARIZED3D = dict(h=1.0 / 48.0, n_subdomains=4, npml=6)
+POLARIZED3D_SOLVE_KW = dict(rtol=1e-6, restart=20, maxiter=40)
+JAX_POLARIZED3D_ITERATIONS = 5
+NO_JAX_RECORD = "no JAX record exists for this configuration"
+PLANE_PAIR = ("plane_forward", "plane_backward")
+INT8_PLANE_PAIR = ("plane_forward_int8", "plane_backward_int8")
+# the kernel path's complex64 solution on bf16 planes against the dense
+# complex128 one at 48^3: path 3's bound between bf16 and full pivots
+POLARIZED3D_DENSE_TOL = 1e-3
+
+
+def polarized3d_checks(name, c, pair, true_res, info, x, size):
+    """The checks every 3D polarized solve meets: shape, finite, converged,
+    true residual <= 1e-3, the fused passes of ``pair`` launched and no other
+    kernel (the per-plane apply and every 2D line kernel absent)."""
+    absent = tuple(k for k in COUNTERS if k not in pair)
+    check(tuple(x.shape) == (size,), f"{name} solution shape")
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), f"{name} solution is finite")
+    check(bool(info.converged), f"{name} converged")
+    check(true_res <= 1e-3, f"{name} true residual <= 1e-3 ({true_res})")
+    check(all(c[k] > 0 for k in pair), f"both fused plane passes launched in {name} ({c})")
+    check(not any(c[k] for k in absent), f"no kernel of {absent} launched in {name} ({c})")
+
+
+def phase_small_reference_polarized3d(device):
+    """The 3D polarized kernel path (complex64, bf16 planes, the plane kernels)
+    against its dense path (complex128, full pivots, no kernel) on a 16^3
+    grid with 3 slabs and npml = 5, so the recursions run an inner slab.  The
+    complex64 solve stops at rtol 1e-5 (its float32 floor on this grid, as in
+    ``small_reference_3d``)."""
+    kw = dict(h=1 / 16, precond="polarized_traces", n_subdomains=3, npml=5, device=device)
+    p_k = bump3d.build_problem(dtype=torch.complex64, pivot_dtype="bf16_pallas", **kw)
+    p_f = bump3d.build_problem(dtype=torch.complex128, pivot_dtype="full", **kw)
+    reset_counts()
+    x_k, i_k = bump3d.solve(p_k, rtol=1e-5, restart=20, maxiter=16)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    x_f, i_f = bump3d.solve(p_f, rtol=1e-8, restart=20, maxiter=16)
+    _, err = rel_err(x_k.to(torch.complex128), x_f)
+    slabs = p_k.precond.slabs
+    emit("small_reference_polarized3d", n=p_k.grid.n, n_subdomains=3, npml=5,
+         rtol=[1e-5, 1e-8], l1_max=slabs.l1_max, trace_head=slabs.trace_head,
+         trace_tail=slabs.trace_tail, iterations=[int(i_k.n_iterations), int(i_f.n_iterations)],
+         true_residual=[float(i_k.true_residual), float(i_f.true_residual)],
+         rel_err_vs_dense_complex128=err, tolerance=1e-4, launches=counts)
+    check(bool(i_k.converged) and bool(i_f.converged), "small 3D polarized solves converged")
+    check(all(counts[k] > 0 for k in PLANE_PAIR), f"the small kernel path ran the passes ({counts})")
+    check(err <= 1e-4, f"3D polarized kernel path within 1e-4 of the dense path ({err})")
+
+
+def phase_polarized3d_solve(device, repeats: int = 3):
+    """``bump3d.build_problem(h=1/48, complex64, precond="polarized_traces",
+    n_subdomains=4, npml=6, pivot_dtype="bf16_pallas")``, the JAX record's
+    configuration at full size: ``solve`` at nIt = 2, then with the same slabs
+    at nIt = 1, each timed (median of ``repeats`` after a warm-up) with its
+    iterations, inner GMRES iterations an apply and launches; then the joint
+    apply of the two plane waves' sources through ``apply_batch`` (r = 2;
+    its MM apply carries 4 columns, two groups of two) held row by row
+    against single applies.  Returns the problem, the nIt = 2
+    solve's launches and its solution."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = bump3d.build_problem(dtype=torch.complex64, precond="polarized_traces",
+                                   pivot_dtype="bf16_pallas", device=device, **POLARIZED3D)
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    pc = problem.precond
+    slabs = pc.slabs
+    check(slabs.pfac is not None and slabs.pfac.storage == "bf16"
+          and slabs.fac.cinv.shape[-1] == 0
+          and all(isinstance(f, pk.PlaneSlabView) for f in slabs.slab_facs),
+          "the 3D polarized slabs keep bf16 plane stacks only, a view per slab")
+    runs = (("polarized3d_solve", pc, JAX_POLARIZED3D_ITERATIONS),
+            ("polarized3d_solve_nit1", dataclasses.replace(pc, n_it=1), NO_JAX_RECORD))
+    out = {}
+    for name, pcx, record in runs:
+        prob = dataclasses.replace(problem, precond=pcx)
+        with InnerSolves(polarized3d) as inner:
+            bump3d.solve(prob, **POLARIZED3D_SOLVE_KW)          # warm-up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            (x, info), times, c = timed_solves(
+                lambda: bump3d.solve(prob, **POLARIZED3D_SOLVE_KW), repeats, inner.reset)
+        n_it = int(info.n_iterations)
+        true_res = float(info.true_residual)
+        emit(name, grid=list(problem.grid.shape), k=problem.k, unknowns=problem.grid.size,
+             n_subdomains=slabs.n_subs, npml=POLARIZED3D["npml"], n_it=pcx.n_it,
+             pivot_dtype="bf16_pallas", l1_max=slabs.l1_max, trace_head=slabs.trace_head,
+             trace_tail=slabs.trace_tail, up_recursion_start=slabs.l1_max - slabs.trace_tail,
+             solve_ms=sorted(times)[len(times) // 2], solve_ms_runs=times, iterations=n_it,
+             jax_package_iterations=record, converged=bool(info.converged),
+             residuals=[float(v) for v in info.residuals[: n_it + 1]], true_residual=true_res,
+             inner_solves=inner.solves,
+             inner_iterations_per_apply=inner.iterations / max(inner.solves, 1),
+             setup_seconds=problem.setup_seconds, setup_total_seconds=setup_s,
+             setup_peak_memory_bytes=setup_peak, stack_bytes=slabs.pfac.nbytes,
+             peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=c)
+        polarized3d_checks(name, c, PLANE_PAIR, true_res, info, x, problem.grid.size)
+        out[name] = (c, x)
+
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    reset_counts()
+    joint = pc.apply_batch(rhs2)
+    torch.cuda.synchronize()
+    c2 = read_counts()
+    errs = [rel_err(joint[r], pc.apply(rhs2[r]))[1] for r in range(2)]
+    emit("polarized3d_apply_batch", directions=["x", "y"], rel_err_vs_single_apply=errs,
+         tolerance=1e-4, launches=c2)
+    check(bool(torch.isfinite(torch.view_as_real(joint)).all()), "joint 3D apply is finite")
+    check(max(errs) <= 1e-4, f"each row of the joint 3D apply within 1e-4 of its apply ({errs})")
+    check(all(c2[k] > 0 for k in PLANE_PAIR) and not any(
+        c2[k] for k in COUNTERS if k not in PLANE_PAIR),
+        f"the joint apply (R x 2 columns in groups of two) ran the fused passes only ({c2})")
+    return problem, out["polarized3d_solve"][0], out["polarized3d_solve"][1]
+
+
+def phase_polarized3d_reference(device, x_kernel: torch.Tensor):
+    """The same 48^3 configuration on dense complex128 pivots (``"full"``,
+    96 planes of 2304^2, the plain block-Thomas solves of
+    ``sparse/direct.py``, no kernel): its iterations beside the kernel
+    path's and the JAX record, and the kernel path's complex64 solution
+    against its solution.  Freed before path 9's kernel timings."""
+    t0 = time.perf_counter()
+    problem = bump3d.build_problem(dtype=torch.complex128, precond="polarized_traces",
+                                   pivot_dtype="full", device=device, **POLARIZED3D)
+    setup_s = time.perf_counter() - t0
+    reset_counts()
+    t0 = time.perf_counter()
+    x, info = bump3d.solve(problem, **POLARIZED3D_SOLVE_KW)
+    torch.cuda.synchronize()
+    solve_s = time.perf_counter() - t0
+    counts = read_counts()
+    _, err = rel_err(x_kernel.to(torch.complex128), x)
+    n_it = int(info.n_iterations)
+    emit("polarized3d_reference", pivot_dtype="full", dtype="complex128", iterations=n_it,
+         jax_package_iterations=JAX_POLARIZED3D_ITERATIONS, converged=bool(info.converged),
+         residuals=[float(v) for v in info.residuals[: n_it + 1]],
+         true_residual=float(info.true_residual), setup_seconds=problem.setup_seconds,
+         setup_total_seconds=setup_s, solve_seconds=solve_s,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), kernel_path_rel_err=err,
+         tolerance=POLARIZED3D_DENSE_TOL)
+    check(bool(info.converged), "the dense complex128 3D polarized solve converged")
+    check(float(info.true_residual) <= 1e-3, "dense 3D polarized true residual <= 1e-3")
+    check(not any(counts.values()), f"the dense pivots launch no kernel ({counts})")
+    check(err <= POLARIZED3D_DENSE_TOL,
+          f"the kernel path within {POLARIZED3D_DENSE_TOL} of the dense complex128 one ({err})")
+    del problem, x
+    torch.cuda.empty_cache()
+
+
+def phase_polarized3d_kernel_times(problem, counts: dict) -> list:
+    """The plane passes at the shapes of the 48^3 polarized path, on an inner
+    slab's own planes and the traces of the two plane waves' sources, held
+    against their plain versions and timed from a CUDA graph: the down
+    recursion's forward pass from ``trace_head`` (no carry, no t stack) and
+    its backward pass over the last ``trace_tail`` planes (r = 1); the block
+    apply's passes at r = 2 (its forward from ``trace_head``, its backward
+    whole); the up recursion's forward pass from ``l1_max - trace_tail``
+    (r = 1).  ``launches`` is the kernel's count in one nIt = 2 solve."""
+    pc = problem.precond
+    slabs = pc.slabs
+    s = 1
+    view = slabs.slab_facs[s]
+    st, n, base = view.stack, view.lsten.shape[2], view.base
+    l, ld, mn = view.lsten.shape[0], st.ld, st.mn
+    head, tail = slabs.trace_head, slabs.trace_tail
+    up = l - tail
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    traces = polarized3d.extract_rhs_traces(slabs, pc.a_s.matvec(rhs2.T.contiguous()))
+    dense_re = tk.dense_planes(st.p_re[base : base + l])   # (l, ld, ld) copies for
+    dense_im = tk.dense_planes(st.p_im[base : base + l])   # the library yardstick
+
+    def fwd(b4, start):
+        return (lambda: pk.plane_forward(st, b4, view.lrows, n, base, start,
+                                         collect_t=False)[0][start:],
+                lambda: pk.plane_forward_plain(st, b4, view.lrows, n, base, start,
+                                               collect_t=False)[0][start:])
+
+    def bwd(y4, start):
+        return (lambda: pk.plane_backward(st, y4, view.urows, n, base, start),
+                lambda: pk.plane_backward_plain(st, y4, view.urows, n, base, start))
+
+    down = [t[s, :, 0] for t in traces]
+    block = polarized3d._trace_sources(
+        slabs, traces[0].new_zeros((slabs.n_subs, l, mn, 2)), *traces, add=False)[s]
+    cases = (
+        ("_pt_down_head", 1, slab_rows(slabs, polarized3d._slab_rhs(
+            slabs, s, down[0], down[1], None, None)), head, tail),
+        ("_pt_block_head", 2, slab_rows(slabs, block), head, 0),
+        ("_pt_up", 1, slab_rows(slabs, polarized3d._slab_rhs(
+            slabs, s, None, None, down[2], down[3])), up, None),
+    )
+    kernels = []
+    for variant, r, b4, start, bwd_tail in cases:
+        shape = dict(slab=s, l=l, mn=mn, ld=ld, r=r, start=start)
+        y4 = pk.plane_forward(st, b4, view.lrows, n, base, start, collect_t=False)[0]
+        kernels.append(kernel_entry(
+            "plane_forward", r, "polarized3d_solve", counts["plane_forward"], *fwd(b4, start),
+            plane_bound(l - start, ld, r, stacks=2),
+            library_pass_ms(b4[0], dense_re, dense_im, range(start, l), graph=True),
+            shape, variant=variant, graph=True))
+        if bwd_tail is None:
+            continue
+        b_start = l - bwd_tail if bwd_tail else 0
+        kernels.append(kernel_entry(
+            "plane_backward", r, "polarized3d_solve", counts["plane_backward"],
+            *bwd(y4, b_start), plane_bound(l - b_start, ld, r, stacks=2),
+            library_pass_ms(b4[0], dense_re, dense_im, range(b_start, l), graph=True),
+            dict(shape, start=b_start, tail=bwd_tail), graph=True,
+            variant=variant.replace("_head", "") + ("_tail" if bwd_tail else "")))
+    emit("polarized3d_kernels", tolerance=KERNEL_TOL, timing="cuda_graph",
+         trace_head=head, trace_tail=tail, l1_max=l,
+         cases=[{k: e[k] for k in ("name", "ms", "bound_ms", "plain_ms", "library_ms",
+                                   "max_rel_err", "launches", "shape")} for e in kernels])
+    del dense_re, dense_im
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_polarized3d_96(problem) -> list:
+    """The 3D polarized traces at 96^3 on path 4's own slab system (6 slabs,
+    npml = 8, int8 y-planes; no second setup): ``solve`` at rtol 1e-6 (one
+    warm-up, one timed run), the int8 fused passes the only kernels
+    launched; then those passes at r = 1 on an inner slab's planes with this
+    solve's launches."""
+    pc = polarized3d.PolarizedTracesPreconditioner3D(slabs=problem.precond.slabs,
+                                                     a_s=problem.a_s)
+    prob = dataclasses.replace(problem, precond=pc)
+    slabs = pc.slabs
+    torch.cuda.reset_peak_memory_stats()
+    with InnerSolves(polarized3d) as inner:
+        bump3d.solve(prob, **POLARIZED3D_SOLVE_KW)                # warm-up
+        torch.cuda.synchronize()
+        (x, info), times, c = timed_solves(
+            lambda: bump3d.solve(prob, **POLARIZED3D_SOLVE_KW), 1, inner.reset)
+    n_it = int(info.n_iterations)
+    true_res = float(info.true_residual)
+    emit("polarized3d_96", grid=list(problem.grid.shape), k=problem.k,
+         unknowns=problem.grid.size, n_subdomains=slabs.n_subs, npml=GS96["npml"],
+         pivot_dtype="yblock_int8_pallas", pivot_layout=slabs.pivot_layout,
+         l1_max=slabs.l1_max, n_it=pc.n_it, solve_ms=times[-1], iterations=n_it,
+         jax_package_iterations=NO_JAX_RECORD, converged=bool(info.converged),
+         residuals=[float(v) for v in info.residuals[: n_it + 1]], true_residual=true_res,
+         inner_solves=inner.solves,
+         inner_iterations_per_apply=inner.iterations / max(inner.solves, 1),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=c)
+    polarized3d_checks("polarized3d_96", c, INT8_PLANE_PAIR, true_res, info, x,
+                       problem.grid.size)
+    return sweep_kernel_times(prob, {1: "polarized3d_96"}, {1: c}, variant="_pt96")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2618,6 +2900,10 @@ def main() -> int:
     apply_counts = phase_plane_apply_path_int8(problem)
     kernels += sweep_kernel_times(problem, {1: "gs3d_96_solve", 2: "gs3d_96_apply_batch"},
                                   counts96, apply_counts)
+    marks.append(("path 4 polarized", time.perf_counter()))
+    # the 3D polarized traces on the same int8 y-plane slabs (path 9's module)
+    kernels += phase_polarized3d_96(problem)
+    marks.append(("path 4 bf16", time.perf_counter()))
     kernels += phase_gs3d_96_bf16(problem)
     del problem
     torch.cuda.empty_cache()
@@ -2669,6 +2955,17 @@ def main() -> int:
     del problem
     torch.cuda.empty_cache()
     phase_polarized_reference(device, x)
+
+    marks.append(("path 9", time.perf_counter()))
+    # path 9: the 48^3 polarized-traces solve, 4 z-slabs: its local solves run
+    # the fused bf16 plane passes with head starts and tails
+    phase_small_reference_polarized3d(device)
+    problem, counts, x = phase_polarized3d_solve(device)
+    phase_polarized3d_reference(device, x)
+    phase_polarized_enqueue(problem, polarized3d, problem.rhs, "polarized3d_enqueue")
+    kernels += phase_polarized3d_kernel_times(problem, counts)
+    del problem, x
+    torch.cuda.empty_cache()
 
     marks.append(("end", time.perf_counter()))
     emit("timeline", seconds_from_start={name: t - marks[0][1] for name, t in marks[1:]})

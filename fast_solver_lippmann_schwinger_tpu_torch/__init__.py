@@ -19,8 +19,10 @@ Ported so far (``ROADMAP.md`` lists what is not):
 * the polarized-traces integral system (``ddm/polarized.py``) and its 401 x
   401 plasma solve (``models/plasma_integral2d.py``);
 * the 3D bump scattering solve (``models/bump3d.py``) with the sparsifying
-  preconditioner and with the z-slab Gauss-Seidel sweep
-  (``ddm/subdomain3d.py``) on dense, bf16 and int8 plane pivots.
+  preconditioner, with the z-slab Gauss-Seidel sweep
+  (``ddm/subdomain3d.py``) and with the 3D polarized traces
+  (``ddm/polarized3d.py``, the plane-trace integral system on the same slab
+  systems) on dense, bf16 and int8 plane pivots.
 
 The substitution passes run as hand-written CUDA kernels on an NVIDIA Hopper
 card (``csrc/``, built by ``native/cuda_build.py``): the line passes of

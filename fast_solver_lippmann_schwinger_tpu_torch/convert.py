@@ -28,6 +28,9 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import (
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized import (
     PolarizedTracesPreconditioner,
 )
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized3d import (
+    PolarizedTracesPreconditioner3D,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import SlabSystem
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain3d import SlabSystem3D
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import DoubleSweepPreconditioner
@@ -442,3 +445,17 @@ def slab_system_3d(fields: dict, device=None) -> SlabSystem3D:
         else:
             out[f.name] = torch.tensor(np.asarray(v, np.int64), device=device)
     return SlabSystem3D(fac=fac, pfac=pfac, **out)
+
+
+def polarized_traces_preconditioner_3d(slabs: dict, a_s_values, n_it, inner_tol, inner_maxiter,
+                                       device=None) -> PolarizedTracesPreconditioner3D:
+    """``PolarizedTracesPreconditioner3D`` from the JAX one's parts: its slab
+    system as a dict for :func:`slab_system_3d` (with its ``fac`` and
+    ``pfac`` entries), the (l, m, n, 3, 3, 3) stencil field of ``a_s`` and
+    its three scalar settings."""
+    device = resolve_device(device)
+    return PolarizedTracesPreconditioner3D(
+        slabs=slab_system_3d(slabs, device=device),
+        a_s=stencil_matrix_3d(a_s_values, device=device),
+        n_it=int(n_it), inner_tol=float(inner_tol), inner_maxiter=int(inner_maxiter),
+    )

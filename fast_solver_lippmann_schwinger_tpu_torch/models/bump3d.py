@@ -1,14 +1,15 @@
-"""3D Gaussian-bump scattering with the sparsifying preconditioner or the
-z-slab Gauss-Seidel sweep.
+"""3D Gaussian-bump scattering with the sparsifying preconditioner, the
+z-slab Gauss-Seidel sweep or the 3D polarized traces.
 
 Counterpart of the JAX package's ``models/bump3d.py``, the equivalent of the
 reference's ``examples/example3D.jl`` (h = 1/48, k = 48, half-open grid,
 Greengard-Vico quadrature, impulse-sampled sparsifying preconditioner with
 PARDISO there; here the z-plane block-Thomas factorization), and the JAX
-package's z-slab sweep (``precond="gs"``, ``ddm/subdomain3d.py``), which is
-what it runs at 96^3.  With ``pivot_dtype`` ending in ``"_pallas"`` every
-plane substitution runs through the CUDA plane kernels
-(``sparse/plane_kernels.py``).
+package's two z-slab preconditioners: the sweep (``precond="gs"``,
+``ddm/subdomain3d.py``), which is what it runs at 96^3, and the plane-trace
+integral system (``precond="polarized_traces"``, ``ddm/polarized3d.py``).
+With ``pivot_dtype`` ending in ``"_pallas"`` every plane substitution runs
+through the CUDA plane kernels (``sparse/plane_kernels.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +22,9 @@ import torch
 
 from fast_solver_lippmann_schwinger_tpu_torch.config import resolve_device
 from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid3D
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized3d import (
+    PolarizedTracesPreconditioner3D,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain3d import (
     SingleSweepPreconditioner3D,
     build_slab_system_3d,
@@ -45,12 +49,14 @@ class Bump3DProblem:
     grid: Grid3D
     k: float
     op: LippmannSchwinger3D
-    precond: Optional[SparsifyingPreconditioner3D | SingleSweepPreconditioner3D]
+    precond: Optional[SparsifyingPreconditioner3D | SingleSweepPreconditioner3D
+                      | PolarizedTracesPreconditioner3D]
     rhs: torch.Tensor
     u_inc: torch.Tensor
     # wall seconds of each setup phase, synchronised on the device at each
     # boundary: symbol, stencils, then msp, factorization, packing
-    # (sparsifying) or slabs, made of slab_fields, factorization, packing (gs)
+    # (sparsifying) or slabs, made of slab_fields, factorization, packing (gs
+    # and polarized_traces)
     setup_seconds: dict = dataclasses.field(default_factory=dict)
     # the sparsifying stencils A and AG, kept so that a sweep can be rebuilt
     # on another pivot storage (``build_slab_system_3d``) without setting the
@@ -88,15 +94,15 @@ def build_problem(
       ``"int8"``/``"int8_pallas"``; a ``"_pallas"`` suffix runs the plane
       kernels on bf16 or int8 planes.  The JAX package's 96^3 benchmark is
       ``h=1/96, n_subdomains=6, npml=8, pivot_dtype="yblock_int8_pallas"``.
+    * ``"polarized_traces"``: the plane-trace integral system on the same
+      slab system as ``"gs"`` (the same ``n_subdomains``, ``npml`` and
+      ``pivot_dtype``), with the JAX package's inner settings (``n_it=2``,
+      ``inner_tol=1e-2``, ``inner_maxiter=40``).  The JAX package's record
+      is ``h=1/48, n_subdomains=4, npml=6, pivot_dtype="bf16_pallas"``.
 
-    Polarized traces (``"polarized_traces"``, ROADMAP.md Queue 1 slice 6) and
-    ``cache_dir`` (slice 9) are not ported yet and raise.
+    ``cache_dir`` (ROADMAP.md, Queue 1 slice 9) is not ported yet and raises.
     """
-    if precond == "polarized_traces":
-        raise NotImplementedError(
-            "precond='polarized_traces' is not ported yet (ROADMAP.md, Queue 1 slice 6)"
-        )
-    if precond not in ("sparsifying", "gs"):
+    if precond not in ("sparsifying", "gs", "polarized_traces"):
         raise ValueError(f"unknown precond {precond!r}")
     if cache_dir is not None:
         raise NotImplementedError(
@@ -125,9 +131,9 @@ def build_problem(
         t0 = time.perf_counter()
         a_st, ag_st = stencils.build_sparse_a_ag_3d(k, op, dtype=dtype, device=device)
         seconds["stencils"] = lap(t0)
-        if precond == "gs":
-            pc = _sweep(a_st, ag_st, nu, grid, k, n_subdomains, npml, pivot_dtype, seconds,
-                        lap)
+        if precond in ("gs", "polarized_traces"):
+            pc = _slab_preconditioner(precond, a_st, ag_st, nu, grid, k, n_subdomains, npml,
+                                      pivot_dtype, seconds, lap)
         else:
             pc = _sparsifying(a_st, ag_st, nu, k, pivot_dtype, seconds, lap)
 
@@ -137,15 +143,19 @@ def build_problem(
                          setup_seconds=seconds, a_s=a_st, ag_s=ag_st)
 
 
-def _sweep(a_st, ag_st, nu, grid, k, n_subdomains, npml, pivot_dtype, seconds, lap):
-    """The z-slab sweep preconditioner; ``seconds`` receives ``slabs`` and
-    its parts (``build_slab_system_3d``'s ``timings``)."""
+def _slab_preconditioner(precond, a_st, ag_st, nu, grid, k, n_subdomains, npml, pivot_dtype,
+                         seconds, lap):
+    """The z-slab sweep or polarized-traces preconditioner on one slab
+    system; ``seconds`` receives ``slabs`` and its parts
+    (``build_slab_system_3d``'s ``timings``)."""
     t0 = time.perf_counter()
     parts = {}
     slabs = build_slab_system_3d(a_st, ag_st, nu, grid.x, grid.h, k, n_subdomains, npml=npml,
                                  pivot_dtype=pivot_dtype, timings=parts)
     seconds["slabs"] = lap(t0)
     seconds.update(parts)
+    if precond == "polarized_traces":
+        return PolarizedTracesPreconditioner3D(slabs=slabs, a_s=a_st)
     return SingleSweepPreconditioner3D(slabs=slabs, a_s=a_st)
 
 

@@ -289,9 +289,11 @@ def fused_fits(stack: PlaneStack, r: int) -> bool:
     """Whether the fused passes take ``r`` right-hand sides on this stack:
     r <= 2, and the staged y_p with the pivot-column ring (and its int8
     scales) fits one block's shared memory on an H100 (bf16: ld <= 12448 at
-    r = 2, 24928 at r = 1; int8: 12288 and 24704).  Other stacks go through
-    the per-plane branch, which takes any width.  The answer depends on shapes
-    only, so the CPU and the card take the same branch."""
+    r = 2, 24928 at r = 1; int8: 12288 and 24704).  The scans run a wider
+    batch on a stack that fits at r = 2 as groups of two fused launches
+    (``direct._fused``); other stacks go through the per-plane branch, which
+    takes any width.  The answer depends on shapes only, so the CPU and the
+    card take the same branch."""
     smem = _RING_BYTES[stack.storage] + 4 * 2 * r * stack.ld + 4 * 4 * 2 * r * LEAD_MULTIPLE
     return r <= MAX_RHS and smem <= SMEM_PER_BLOCK
 

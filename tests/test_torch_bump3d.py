@@ -137,7 +137,8 @@ def test_defaults_are_the_jax_packages():
 
 
 @pytest.mark.parametrize("kw,slice_", [(dict(precond="gs", cache_dir="x"), "slice 9"),
-                                       (dict(precond="polarized_traces"), "slice 6"),
+                                       (dict(precond="polarized_traces", cache_dir="x"),
+                                        "slice 9"),
                                        (dict(cache_dir="x"), "slice 9")])
 def test_unported_options_raise(kw, slice_):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{slice_}"):

@@ -334,6 +334,53 @@ def test_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, col
         assert t4 is None
 
 
+@pytest.mark.parametrize("r", [None, 2])
+def test_polarized_head_and_tail_passes_match_plain(cuda_device, r):
+    """The shapes of the 3D polarized traces at 48^3 with 4 z-slabs: the
+    forward pass of the down recursion from ``trace_head`` = 5 with no carry
+    and its backward pass over the last ``trace_tail`` = 14 planes, on a
+    random stack of 24 planes of 2304, through the scans' entry points."""
+    rng = np.random.default_rng(24 + (r or 1))
+    l, m, n, head, tail = 24, 48, 48, 5, 14
+    view = _random_view(rng, l, m, n, cuda_device, slabs=2)
+    cpu = _view_to_cpu(view)
+    shape = (l, m * n) + (() if r is None else (r,))
+    bg = (rng.standard_normal(shape) + 1j * rng.standard_normal(shape)).astype(np.complex64)
+    bg[:head] = 0
+    bg = torch.as_tensor(bg, device=cuda_device)
+    before = (pk.plane_forward.launches["bf16"], pk.plane_backward.launches["bf16"])
+    y, t = pk.fwd_scan_fused(view, bg, start=head)
+    y = torch.cat([y.new_zeros((head,) + tuple(y.shape[1:])), y])
+    x = pk.bwd_scan_fused(view, y, tail=tail)
+    torch.cuda.synchronize()
+    assert t is None
+    assert (pk.plane_forward.launches["bf16"], pk.plane_backward.launches["bf16"]) == (
+        before[0] + 1, before[1] + 1)
+    y_p, _ = pk.fwd_scan_fused(cpu, bg.cpu(), start=head)
+    _close(y[head:], y_p)
+    x_p = pk.bwd_scan_fused(cpu, y.cpu(), tail=tail)
+    _close(x[l - tail:], x_p[l - tail:])
+    assert bool((x[: l - tail] == 0).all())
+
+
+def test_wide_batches_run_grouped_fused_passes(cuda_device):
+    """A solve of four right-hand sides on a stack the fused passes take runs
+    two fused launches a pass (columns 0-1, then 2-3), no plane apply, and
+    agrees with the plain versions."""
+    rng = np.random.default_rng(7)
+    l, m, n = 4, 6, 8
+    view = _random_view(rng, l, m, n, cuda_device)
+    b = torch.as_tensor((rng.standard_normal((l * m * n, 4))
+                         + 1j * rng.standard_normal((l * m * n, 4))).astype(np.complex64),
+                        device=cuda_device)
+    fns = (pk.plane_forward, pk.plane_backward, pk.plane_apply_rows)
+    before = tuple(f.launches["bf16"] for f in fns)
+    x = direct.block_thomas_solve_3d(view, b)
+    torch.cuda.synchronize()
+    assert tuple(f.launches["bf16"] - b_ for f, b_ in zip(fns, before)) == (2, 2, 0)
+    _close(x, direct.block_thomas_solve_3d(_view_to_cpu(view), b.cpu()))
+
+
 @pytest.mark.parametrize("r", [1, 2])
 @pytest.mark.parametrize("mn", [35, 2304, 12456])
 def test_plane_apply_matches_plain(cuda_device, r, mn):

@@ -187,8 +187,8 @@ def test_base_indexes_a_slab_of_a_batched_stack(views):
 def test_scan_variants_match(views, r, fused):
     """Every entry point the sweeps use, through the port's view (fused or
     per-plane branch), against the JAX view: support (start/tail), cached +
-    resume, multi-RHS.  At r = 3 the port takes the per-plane branch either
-    way (``fused_fits``)."""
+    resume, multi-RHS.  At r = 3 the fused branch runs groups of at most two
+    right-hand sides (``fused_fits`` takes no more in one launch)."""
     _, jview, tview = views
     view = dataclasses.replace(tview, fused=fused)
     assert pk.fused_fits(tview.stack, r) == (r <= 2)

@@ -182,10 +182,12 @@ def test_double_sweep_solve_batched_matches(sweep_problems):
 
 @pytest.mark.parametrize("name", ["build_problem", "build_slab_system",
                                   "build_fast_convolution_2d", "build_slab_system_3d",
-                                  "plasma_integral2d.build_problem"])
+                                  "plasma_integral2d.build_problem",
+                                  "PolarizedTracesPreconditioner3D"])
 def test_signatures_match_the_jax_package(name):
-    """The port's build functions take the JAX package's parameters, in its order
-    and with its defaults; the port adds only trailing parameters of its own
+    """The port's build functions (and the 3D polarized preconditioner's
+    fields) take the JAX package's parameters, in its order and with its
+    defaults; the port adds only trailing parameters of its own
     (``device``; ``timings`` in 3D).  The one default that differs is the
     ground rule's: ``prefer_pow2`` is ``False`` where the JAX package's
     ``None`` sniffs the TPU backend."""
@@ -205,6 +207,8 @@ def test_signatures_match_the_jax_package(name):
         "build_slab_system_3d": (pair("ddm.subdomain3d", "build_slab_system_3d"), ["timings"]),
         "plasma_integral2d.build_problem": (pair("models.plasma_integral2d", "build_problem"),
                                             ["device"]),
+        "PolarizedTracesPreconditioner3D": (pair("ddm.polarized3d",
+                                                 "PolarizedTracesPreconditioner3D"), []),
     }[name]
     ours = list(inspect.signature(ours).parameters.values())
     theirs = list(inspect.signature(theirs).parameters.values())

@@ -26,6 +26,9 @@ from fast_solver_lippmann_schwinger_tpu.sparse.direct import (
 )
 from fast_solver_lippmann_schwinger_tpu_torch import convert
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain3d as sd
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized3d import (
+    PolarizedTracesPreconditioner3D,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.plane_kernels import PlaneSlabView
 from torch_threads import few_threads  # noqa: F401
@@ -249,9 +252,9 @@ def test_one_slab_is_the_exact_solve(setup):
 
 
 def test_unported_and_invalid_options_raise(setup):
-    """Polarized traces and ``cache_dir`` still raise, naming their slices;
-    ``fac_provider`` too; bad modes and too thin absorbing layers are
-    refused as in the JAX package."""
+    """``cache_dir`` still raises, naming its slice; ``fac_provider`` too;
+    bad modes and too thin absorbing layers are refused as in the JAX
+    package.  Polarized traces build on the z layout."""
     s = setup
     args = (s["ta"], s["tag"], s["nu"], s["x"], s["h"], K, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 9"):
@@ -262,7 +265,9 @@ def test_unported_and_invalid_options_raise(setup):
         sd.build_slab_system_3d(*args, pivot_dtype="yblock_fp8")
     with pytest.raises(ValueError, match="npml"):
         sd.build_slab_system_3d(*args, npml=4)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 6"):
-        bump3d.build_problem(h=1 / 10, precond="polarized_traces", device="cpu")
+    pc = bump3d.build_problem(h=1 / 10, precond="polarized_traces", n_subdomains=2,
+                              device="cpu").precond
+    assert isinstance(pc, PolarizedTracesPreconditioner3D)
+    assert pc.slabs.pivot_layout == "z" and pc.slabs.n_subs == 2
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 9"):
         bump3d.build_problem(h=1 / 10, precond="gs", cache_dir="x", device="cpu")

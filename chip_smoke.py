@@ -54,7 +54,18 @@ tails; before it a 16^3 solve against its dense complex128 path, after it the
 same 48^3 solve on dense complex128 pivots, one apply's host time beside its
 device time, and the plane passes at the path's shapes, graph-timed.  The
 same preconditioner also runs inside path 4, on the 96^3 problem's own int8
-y-plane slabs.  Every 2D line
+y-plane slabs.  The tenth is the reference's canonical example script
+``examples/example.jl`` (``bump2d.build_problem()``: 201 x 201, k = 200, the
+Greengard-Vico operator, the 2D sparsifying preconditioner on dense pivots):
+the complex64 solve at rtol 1e-6, the complex128 solves with and without the
+preconditioner (their count held to the JAX package's), the joint
+two-direction solve, and the adjoint (the transpose pairing, the nu-gradient
+of ``differentiable_solve`` against central differences).  The eleventh is
+the JAX package's plain banded pivot modes: the 801 x 801 16-slab double
+sweep on ``"banded_tail"`` pivots beside path 5's kernel layout of the same
+pivots, and ``tests/test_banded_pivots.py``'s configuration in each mode, in
+complex64 and complex128 (counts held to the JAX package's in complex128).
+No hand-written kernel may launch on paths 10-11.  Every 2D line
 kernel runs the flag-handoff line step (``csrc/thomas_flow.cuh``): the dense
 forward and backward passes (rows 1, 2, 4 and 1i, 2i, 4i), the cached
 forward pass (rows 3, 5, 6, 3i, 5i), the backward pass on banded+tail pivots
@@ -86,15 +97,20 @@ from fast_solver_lippmann_schwinger_tpu_torch.ddm import (
     sweeps,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.models import (
+    bump2d,
     bump3d,
     media,
     plasma2d,
     plasma_integral2d,
 )
-from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
+from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build, sampler
 from fast_solver_lippmann_schwinger_tpu_torch.ops import stencil_kernels as stk
-from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched
-from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
+from fast_solver_lippmann_schwinger_tpu_torch.precond.sparsifying import (
+    SparsifyingPreconditionerT,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.solver import adjoint
+from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres, gmres_batched
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct, stencils
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
@@ -331,7 +347,11 @@ def phase_build():
         line.strip() for log in logs.values() for line in log.splitlines()
         if "registers" in line or "spill" in line
     })
-    emit("build", seconds=seconds, sources=sorted(logs), ptxas=usage)
+    # the host's OpenMP Hankel sampler of every 2D setup (g++, native/sampler.py)
+    t0 = time.perf_counter()
+    sampler.load_library()
+    emit("build", seconds=seconds, sources=sorted(logs), ptxas=usage,
+         sampler_seconds=time.perf_counter() - t0, sampler=str(sampler.library_path().name))
 
 
 def random_factorization(rng, S: int, m: int, n: int, device) -> tk.ThomasFactorization:
@@ -462,6 +482,7 @@ def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_k
     (x, info), times, counts = timed_solves(
         lambda: plasma2d.solve(problem, (1.0, 0.0), **SOLVE_KW), repeats)
     n_it = int(info.n_iterations)
+    SOLVE_RESULTS[name] = dict(ms=sorted(times)[len(times) // 2], iterations=n_it)
     emit(
         name, grid=[problem.grid.m, problem.grid.n], k=problem.k,
         n_subdomains=n_subdomains, double_sweep=double_sweep, pivot_dtype=pivot_dtype,
@@ -483,6 +504,8 @@ def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_k
 
 
 DIRECTIONS = ((1.0, 0.0), (0.0, 1.0))
+# median solve milliseconds and iterations of each phase_solve, by phase name
+SOLVE_RESULTS: dict = {}
 
 
 def phase_solve_batched(problem, name: str, path_kernels, repeats: int,
@@ -2846,6 +2869,263 @@ def phase_polarized3d_96(problem) -> list:
     return sweep_kernel_times(prob, {1: "polarized3d_96"}, {1: c}, variant="_pt96")
 
 
+# Path 10: examples/example.jl, the 201^2 bump with the sparsifying preconditioner
+# ---------------------------------------------------------------------------
+
+BUMP2D_H = 0.005                # k = 200, 201 x 201: bump2d.build_problem's default
+# the JAX package's counts for this problem on the CPU in complex128 at rtol
+# 1e-8 (models/bump2d.solve: preconditioned; unpreconditioned at maxiter 400):
+# no TPU record of them exists
+JAX_BUMP2D_ITERATIONS = 5
+JAX_BUMP2D_ITERATIONS_PLAIN = 20
+# no kernel runs on paths 10-11: every counter must stay at 0
+ALL_KERNELS = tuple(COUNTERS)
+
+
+def check_no_launch(counts: dict, what: str):
+    check(all(counts[k] == 0 for k in ALL_KERNELS),
+          f"no hand-written kernel launched in {what} ({counts})")
+
+
+def phase_bump2d_solve(device, repeats: int = 3):
+    """``bump2d.build_problem()`` at the reference's size in complex64 and a
+    preconditioned ``solve`` at rtol 1e-6."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = bump2d.build_problem(h=BUMP2D_H, dtype=torch.complex64, device=device)
+    setup_s = time.perf_counter() - t0
+    bump2d.solve(problem, rtol=1e-6)                         # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(lambda: bump2d.solve(problem, rtol=1e-6), repeats)
+    n_it = int(info.n_iterations)
+    emit(
+        "bump2d_solve", grid=[problem.grid.m, problem.grid.n], k=problem.k,
+        quad_rule=problem.op.quad_rule, setup_seconds=problem.setup_seconds,
+        setup_total_seconds=setup_s, solve_ms=sorted(times)[len(times) // 2],
+        solve_ms_runs=times, iterations=n_it, converged=bool(info.converged),
+        residuals=[float(v) for v in info.residuals[: n_it + 1]],
+        true_residual=float(info.true_residual),
+        peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts,
+    )
+    check(tuple(x.shape) == (problem.grid.size,), "bump2d solution shape")
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), "bump2d solution is finite")
+    check(bool(info.converged), "bump2d converged")
+    check(float(info.true_residual) <= 1e-3, "bump2d true residual <= 1e-3")
+    check_no_launch(counts, "bump2d_solve")
+
+
+def phase_bump2d_batched(problem, n_it: int, rtol: float, repeats: int = 3):
+    """Both directions of :data:`DIRECTIONS` in one ``gmres_batched`` through
+    ``apply_batch``: each direction takes its single solve's iterations
+    (``n_it`` for direction (1, 0), solved before at the same ``rtol``)."""
+    pc, op = problem.precond, problem.op
+    rhs = torch.stack([bump2d.incident_rhs(problem.op, problem.grid, problem.k, d)[0]
+                       for d in DIRECTIONS])
+    check(float((rhs[0] - problem.rhs).abs().max()) == 0.0, "bump2d rhs of direction (1, 0)")
+    reset_counts()
+    _, single = gmres(op.apply, rhs[1], preconditioner=pc.apply, rtol=rtol)
+    singles = [n_it, int(single.n_iterations)]
+
+    def joint():
+        return gmres_batched(op.apply, rhs, preconditioner=pc.apply_batch, rtol=rtol,
+                             restart=20, maxiter=200)
+
+    joint()                                                   # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(joint, repeats)
+    ms = sorted(times)[len(times) // 2]
+    emit("bump2d_solve_batched", dtype=str(rhs.dtype), rtol=rtol, directions=DIRECTIONS,
+         solve_ms=ms, solve_ms_runs=times,
+         ms_per_direction=ms / len(DIRECTIONS), iterations=[int(v) for v in info.n_iterations],
+         single_iterations=singles, converged=[bool(v) for v in info.converged],
+         true_residual=[float(v) for v in info.true_residual], launches=counts)
+    check(tuple(x.shape) == (2, problem.grid.size), "bump2d batched solution shape")
+    check(bool(info.converged.all()), "bump2d batched converged")
+    check([int(v) for v in info.n_iterations] == singles,
+          f"each direction takes its single solve's iterations ({singles})")
+    check(float(info.true_residual.max()) <= 1e-3, "bump2d batched true residuals <= 1e-3")
+    check_no_launch(counts, "bump2d_solve_batched")
+
+
+def phase_bump2d_c128(device):
+    """The same problem in complex128 at the module's rtol 1e-8: the
+    preconditioned and the unpreconditioned solve (``maxiter=400``, as
+    ``examples/example2d.py``), against each other and the JAX count."""
+    problem = bump2d.build_problem(h=BUMP2D_H, dtype=torch.complex128, device=device)
+    reset_counts()
+    ms, out = [], []
+    for kw in (dict(), dict(preconditioned=False, maxiter=400)):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out.append(bump2d.solve(problem, **kw))
+        end.record()
+        torch.cuda.synchronize()
+        ms.append(start.elapsed_time(end))
+    counts = read_counts()
+    (xp, ip), (xu, iu) = out
+    agree = float(torch.linalg.vector_norm(xp - xu) / torch.linalg.vector_norm(xp))
+    its = [int(ip.n_iterations), int(iu.n_iterations)]
+    emit("bump2d_c128", setup_seconds=problem.setup_seconds, solve_ms=ms,
+         iterations=its, jax_cpu_iterations=[JAX_BUMP2D_ITERATIONS, JAX_BUMP2D_ITERATIONS_PLAIN],
+         converged=[bool(ip.converged), bool(iu.converged)],
+         true_residual=[float(ip.true_residual), float(iu.true_residual)],
+         residuals=[float(v) for v in ip.residuals[: its[0] + 1]],
+         solutions_rel_diff=agree, launches=counts)
+    check(bool(ip.converged) and bool(iu.converged), "bump2d complex128 solves converged")
+    check(agree <= 1e-5, f"preconditioned and plain solutions agree ({agree})")
+    check(its[0] < its[1], f"the preconditioner saves iterations ({its})")
+    check(its[0] == JAX_BUMP2D_ITERATIONS,
+          f"the JAX package's count at this size ({its[0]} != {JAX_BUMP2D_ITERATIONS})")
+    check_no_launch(counts, "bump2d_c128")
+    return problem, its[0]
+
+
+def phase_bump2d_adjoint(problem, nodes=((100, 100), (90, 112), (118, 86)), eps: float = 1e-6):
+    """The adjoint at the reference's size in complex128: the transpose
+    pairing, and the nu-gradient of ``sum(w |u|^2)`` from
+    ``differentiable_solve`` with both sparsifying preconditioners against
+    central differences at three nodes."""
+    op, grid, k = problem.op, problem.grid, problem.k
+    device = op.symbol.device
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def crandn():
+        return torch.complex(torch.randn(grid.size, generator=gen, dtype=torch.float64),
+                             torch.randn(grid.size, generator=gen, dtype=torch.float64)).to(device)
+
+    x, y = crandn(), crandn()
+    lhs = (op.apply(x) * y).sum()
+    rhs = (x * adjoint.apply_transpose(op, y)).sum()
+    pairing = float((lhs - rhs).abs() / lhs.abs())
+
+    reset_counts()
+    t0 = time.perf_counter()
+    a_st, ag_st = stencils.build_sparse_a_ag_2d(k, grid.x, grid.y, grid.h,
+                                                dtype=torch.complex128, device=device)
+    nu_host = media.gaussian_bump_2d(*grid.mesh())
+    pc_t = SparsifyingPreconditionerT.build(stencils.build_msp_2d(a_st, ag_st, nu_host, k), a_st)
+    torch.cuda.synchronize()
+    setup_t = time.perf_counter() - t0
+    w = torch.randn(grid.size, generator=gen, dtype=torch.float64).to(device)
+    solve_kw = dict(rtol=1e-12, restart=20, maxiter=200)
+
+    t0 = time.perf_counter()
+    nu = op.nu.clone().requires_grad_()
+    u = adjoint.differentiable_solve(dataclasses.replace(op, nu=nu), problem.rhs,
+                                     problem.precond.apply, pc_t.apply, **solve_kw)
+    (w * u.abs() ** 2).sum().backward()
+    torch.cuda.synchronize()
+    grad_s = time.perf_counter() - t0
+
+    def loss(nu_arr):
+        v, _ = gmres(dataclasses.replace(op, nu=nu_arr).apply, problem.rhs,
+                     preconditioner=problem.precond.apply, **solve_kw)
+        return float((w * v.abs() ** 2).sum())
+
+    grads, fds = [], []
+    for j, i in nodes:
+        e = torch.zeros_like(op.nu)
+        e[j, i] = eps
+        fds.append((loss(op.nu + e) - loss(op.nu - e)) / (2 * eps))
+        grads.append(float(nu.grad[j, i]))
+    rel = [abs(g - f) / abs(f) for g, f in zip(grads, fds)]
+    counts = read_counts()
+    emit("bump2d_adjoint", pairing_rel_err=pairing, transposed_setup_seconds=setup_t,
+         gradient_seconds=grad_s, nodes=nodes, gradient=grads, central_differences=fds,
+         rel_err=rel, eps=eps, launches=counts)
+    check(pairing <= 1e-10, f"<M x, y> = <x, M^T y> ({pairing})")
+    check(all(r <= 1e-3 for r in rel), f"nu-gradient against central differences ({rel})")
+    check(bool(torch.isfinite(nu.grad).all()), "the nu-gradient is finite")
+    check_no_launch(counts, "bump2d_adjoint")
+
+
+# Path 11: the plain banded pivot modes (the JAX package's XLA-side ones)
+# ---------------------------------------------------------------------------
+
+# tests/test_banded_pivots.py's configuration (pivot_band 51, pivot_rank 24)
+BANDED_KW = dict(h=1.0 / 100.0, n_subdomains=4, npml=8)
+BANDED_SOLVE = dict(rtol=1e-6, restart=20, maxiter=40)
+BANDED_MODES = ("full", "banded", "banded_tail", "banded_lr")
+# the JAX package's counts there on the CPU.  In complex64 (the JAX test's
+# dtype) float32's floor of the Arnoldi estimate decides them (the port's
+# own CPU run takes 22 for full, the card 5); complex128 is the comparison
+JAX_BANDED_ITERATIONS = {
+    torch.complex64: {"full": 9, "banded": 7, "banded_tail": 15, "banded_lr": 6},
+    torch.complex128: {"full": 5, "banded": 6, "banded_tail": 5, "banded_lr": 6},
+}
+# the JAX test's pins, iterations over full pivots: banded <= full + 3,
+# banded_tail <= full + 2; held where the JAX package's own counts keep them
+JAX_BANDED_PINS = {"banded": 3, "banded_tail": 2}
+
+
+def phase_banded_801(device):
+    """801^2, 16 slabs, double sweep on the plain ``"banded_tail"`` pivots
+    (w = 201 by the rule): one warm-up and one timed solve, no kernel; the
+    milliseconds beside path 5's kernel layout of the same pivots."""
+    problem, counts = phase_solve(device, "banded_tail_solve", 16, True, (), repeats=1,
+                                  pivot_dtype="banded_tail", jax_iterations=JAX_HT_ITERATIONS,
+                                  absent=ALL_KERNELS)
+    fac = problem.precond.slabs.fac
+    info = dict(width=int(fac.band_re.shape[-1]), tail_start=fac.tail_start,
+                m1_max=problem.precond.slabs.m1_max)
+    del problem
+    plain, kernels = SOLVE_RESULTS["banded_tail_solve"], SOLVE_RESULTS.get("ht_solve")
+    emit("banded_tail_vs_kernels", plain_ms=plain["ms"], iterations=plain["iterations"],
+         kernel_layout_ms=kernels and kernels["ms"],
+         kernel_layout_iterations=kernels and kernels["iterations"],
+         ratio=kernels and plain["ms"] / kernels["ms"], **info)
+    check(info["width"] == direct.default_band_width(801) == 201, "the w(n) rule's 201")
+    check(8 <= plain["iterations"] <= 10,
+          f"{plain['iterations']} iterations within 8-10 (the JAX record 9, path 5 9)")
+
+
+def phase_banded_modes(device):
+    """The JAX test's configuration in each plain mode, in complex64 and
+    complex128: every solve converges and launches no kernel; in complex128
+    each count lies within 1 of the JAX package's, and the JAX test's pins
+    hold where the JAX package's own counts keep them."""
+    for dtype in (torch.complex64, torch.complex128):
+        its, want = {}, JAX_BANDED_ITERATIONS[dtype]
+        for mode in BANDED_MODES:
+            extra = {} if mode == "full" else dict(pivot_band=51)
+            if mode == "banded_lr":
+                extra["pivot_rank"] = 24
+            t0 = time.perf_counter()
+            problem = plasma2d.build_problem(**BANDED_KW, dtype=dtype, pivot_dtype=mode,
+                                             device=device, **extra)
+            setup_s = time.perf_counter() - t0
+            reset_counts()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            x, info = plasma2d.solve(problem, (1.0, 0.0), **BANDED_SOLVE)
+            end.record()
+            torch.cuda.synchronize()
+            counts = read_counts()
+            its[mode] = n_it = int(info.n_iterations)
+            emit("banded_modes", dtype=str(dtype), pivot_dtype=mode, setup_seconds=setup_s,
+                 solve_ms=start.elapsed_time(end), iterations=n_it,
+                 jax_cpu_iterations=want[mode], converged=bool(info.converged),
+                 true_residual=float(info.true_residual),
+                 residuals=[float(v) for v in info.residuals[: n_it + 1]], launches=counts)
+            check(bool(torch.isfinite(torch.view_as_real(x)).all()), f"{mode} solution is finite")
+            check(bool(info.converged), f"{mode} {dtype} converged")
+            check(float(info.true_residual) <= 1e-3, f"{mode} true residual <= 1e-3")
+            if dtype == torch.complex128:
+                check(abs(n_it - want[mode]) <= 1,
+                      f"{mode}: {n_it} iterations within 1 of the JAX package's {want[mode]}")
+            check_no_launch(counts, f"banded_modes {mode}")
+            del problem
+        pins = {}
+        for mode, extra in JAX_BANDED_PINS.items():
+            jax_keeps = want[mode] <= want["full"] + extra
+            pins[mode] = dict(port=its[mode] <= its["full"] + extra, jax_cpu=jax_keeps)
+            if dtype == torch.complex128 and jax_keeps:
+                check(pins[mode]["port"], f"{mode} <= full + {extra} ({its})")
+        emit("banded_pins", dtype=str(dtype), iterations=its, jax_cpu_iterations=want, pins=pins)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2966,6 +3246,26 @@ def main() -> int:
     kernels += phase_polarized3d_kernel_times(problem, counts)
     del problem, x
     torch.cuda.empty_cache()
+
+    marks.append(("path 10", time.perf_counter()))
+    # path 10: examples/example.jl, the 201^2 bump with the sparsifying
+    # preconditioner, and the adjoint solves: no hand-written kernel
+    phase_bump2d_solve(device)
+    # complex128 at rtol 1e-8: the complex64 solve at 1e-6 runs into the
+    # float32 floor of its Arnoldi estimate (restart-driven counts), where
+    # two directions' counts are noise
+    problem, n_it = phase_bump2d_c128(device)
+    phase_bump2d_batched(problem, n_it, rtol=1e-8)
+    phase_bump2d_adjoint(problem)
+    del problem
+    torch.cuda.empty_cache()
+
+    marks.append(("path 11", time.perf_counter()))
+    # path 11: the plain banded pivot modes (banded, banded_tail, banded_lr):
+    # no hand-written kernel
+    phase_banded_801(device)
+    torch.cuda.empty_cache()
+    phase_banded_modes(device)
 
     marks.append(("end", time.perf_counter()))
     emit("timeline", seconds_from_start={name: t - marks[0][1] for name, t in marks[1:]})

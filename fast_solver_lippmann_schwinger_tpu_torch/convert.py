@@ -38,11 +38,18 @@ from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import (
     LippmannSchwinger2D,
     LippmannSchwinger3D,
 )
+from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D
+from fast_solver_lippmann_schwinger_tpu_torch.models.bump2d import Bump2DProblem
 from fast_solver_lippmann_schwinger_tpu_torch.precond.sparsifying import (
+    SparsifyingPreconditioner,
     SparsifyingPreconditioner3D,
+    SparsifyingPreconditionerT,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     BlockTridiagFactorization,
+    BlockTridiagFactorizationBanded,
+    BlockTridiagFactorizationBandedLR,
+    BlockTridiagFactorizationBandedTail,
     BlockTridiagFactorizationBF16,
     BlockTridiagFactorization3D,
     BlockTridiagFactorization3DBF16,
@@ -115,6 +122,60 @@ def block_tridiag_factorization_bf16(cinv_re, cinv_im, lband, uband,
         cinv_re=_bf16(cinv_re).to(device), cinv_im=_bf16(cinv_im).to(device),
         lband=to_tensor(lband, dtype, device), uband=to_tensor(uband, dtype, device),
     )
+
+
+def block_tridiag_factorization_banded(band_re, band_im, lband, uband,
+                                       device=None) -> BlockTridiagFactorizationBanded:
+    """Band-compressed factorization (``pivot_dtype="banded"``) from the JAX
+    one's fields: the (..., m, n, w) band planes as uint16 bit patterns, the
+    bands complex; leading slab axes are kept as they are."""
+    device = resolve_device(device)
+    dtype = _complex_dtype(lband)
+    return BlockTridiagFactorizationBanded(
+        band_re=_bf16(band_re).to(device), band_im=_bf16(band_im).to(device),
+        lband=to_tensor(lband, dtype, device), uband=to_tensor(uband, dtype, device),
+    )
+
+
+def block_tridiag_factorization_banded_lr(band_re, band_im, u_re, u_im, v_re, v_im, lband,
+                                          uband, device=None) -> BlockTridiagFactorizationBandedLR:
+    """Band + low-rank factorization (``pivot_dtype="banded_lr"``) from the
+    JAX one's fields, every bf16 plane as uint16 bit patterns."""
+    device = resolve_device(device)
+    dtype = _complex_dtype(lband)
+    planes = dict(band_re=band_re, band_im=band_im, u_re=u_re, u_im=u_im, v_re=v_re, v_im=v_im)
+    return BlockTridiagFactorizationBandedLR(
+        **{name: _bf16(bits).to(device) for name, bits in planes.items()},
+        lband=to_tensor(lband, dtype, device), uband=to_tensor(uband, dtype, device),
+    )
+
+
+def block_tridiag_factorization_banded_tail(band_re, band_im, tail_re, tail_im, lband, uband,
+                                            tail_start, device=None
+                                            ) -> BlockTridiagFactorizationBandedTail:
+    """Tail-dense hybrid factorization (``pivot_dtype="banded_tail"``) from
+    the JAX one's fields, every bf16 plane as uint16 bit patterns."""
+    device = resolve_device(device)
+    dtype = _complex_dtype(lband)
+    return BlockTridiagFactorizationBandedTail(
+        band_re=_bf16(band_re).to(device), band_im=_bf16(band_im).to(device),
+        tail_re=_bf16(tail_re).to(device), tail_im=_bf16(tail_im).to(device),
+        lband=to_tensor(lband, dtype, device), uband=to_tensor(uband, dtype, device),
+        tail_start=int(tail_start),
+    )
+
+
+def factorization_2d(fields: dict, device=None):
+    """A 2D factorization in any plain pivot storage from a dict of the JAX
+    one's fields, told apart by their names: ``tail_re`` (banded_tail),
+    ``u_re`` (banded_lr), ``band_re`` (banded), ``cinv_re`` (bf16), else
+    dense (``cinv``)."""
+    make = (block_tridiag_factorization_banded_tail if "tail_re" in fields
+            else block_tridiag_factorization_banded_lr if "u_re" in fields
+            else block_tridiag_factorization_banded if "band_re" in fields
+            else block_tridiag_factorization_bf16 if "cinv_re" in fields
+            else block_tridiag_factorization)
+    return make(**fields, device=device)
 
 
 def _bf16(bits: np.ndarray) -> torch.Tensor:
@@ -241,19 +302,15 @@ def slab_system(fields: dict, fac: BlockTridiagFactorization | None = None,
     arrays / Python scalars.
 
     ``fac`` and ``pfac`` are either converted separately and passed in, or
-    ride in the dict: ``fields["fac"]`` a dict of the arguments of
-    :func:`block_tridiag_factorization` (``cinv``, ``lband``, ``uband``) or,
-    for bf16 pivots (a dict with ``cinv_re``), of
-    :func:`block_tridiag_factorization_bf16`, and ``fields["pfac"]`` ``None``
+    ride in the dict: ``fields["fac"]`` a dict of the fields of any plain
+    pivot storage (:func:`factorization_2d`), and ``fields["pfac"]`` ``None``
     or a dict of those of :func:`thomas_factorization` (bf16 or int8) or, for
     the banded+tail layout (a dict with ``head_re``), of
     :func:`banded_tail_factorization`.
     """
     device = resolve_device(device)
     if fac is None:
-        make_fac = (block_tridiag_factorization_bf16 if "cinv_re" in fields["fac"]
-                    else block_tridiag_factorization)
-        fac = make_fac(**fields["fac"], device=device)
+        fac = factorization_2d(fields["fac"], device=device)
         p = fields.get("pfac")
         if p is not None:
             make = banded_tail_factorization if "head_re" in p else thomas_factorization
@@ -303,6 +360,47 @@ def polarized_traces_preconditioner(slabs: dict, a_s_values, n_it, inner_tol, in
         n_it=int(n_it), inner_tol=float(inner_tol), inner_maxiter=int(inner_maxiter),
         precond_type=str(precond_type),
     )
+
+
+def sparsifying_preconditioner(factorization: dict, a_s_values,
+                               device=None) -> SparsifyingPreconditioner:
+    """The 2D ``SparsifyingPreconditioner`` from the JAX one's parts: its
+    dense factorization's fields as a dict for
+    :func:`block_tridiag_factorization` and the (m, n, 3, 3) field of
+    ``a_s``."""
+    device = resolve_device(device)
+    return SparsifyingPreconditioner(
+        factorization=block_tridiag_factorization(**factorization, device=device),
+        a_s=stencil_matrix_2d(a_s_values, device=device),
+    )
+
+
+def sparsifying_preconditioner_t(factorization: dict, a_s_t_values,
+                                 device=None) -> SparsifyingPreconditionerT:
+    """``SparsifyingPreconditionerT`` from the JAX one's parts: the dense
+    factorization of ``Msp^T`` as a dict and the (m, n, 3, 3) field of
+    ``a_s_t`` (the matrix transpose of ``a_s``)."""
+    device = resolve_device(device)
+    return SparsifyingPreconditionerT(
+        factorization=block_tridiag_factorization(**factorization, device=device),
+        a_s_t=stencil_matrix_2d(a_s_t_values, device=device),
+    )
+
+
+def bump2d_problem(op: dict, factorization: dict | None, a_s_values, rhs, u_inc, h, k,
+                   device=None) -> Bump2DProblem:
+    """``Bump2DProblem`` from the JAX one's parts: the operator's fields as a
+    dict for :func:`lippmann_schwinger_2d`, the preconditioner's parts as for
+    :func:`sparsifying_preconditioner` (``factorization=None``: no
+    preconditioner), the rhs and incident field, and the grid step and
+    wavenumber."""
+    device = resolve_device(device)
+    op = lippmann_schwinger_2d(**op, device=device)
+    precond = (None if factorization is None
+               else sparsifying_preconditioner(factorization, a_s_values, device=device))
+    dtype = op.symbol.dtype
+    return Bump2DProblem(grid=Grid2D(a=1.0, h=float(h)), k=float(k), op=op, precond=precond,
+                         rhs=to_tensor(rhs, dtype, device), u_inc=to_tensor(u_inc, dtype, device))
 
 
 # -----------------------------------------------------------------------------

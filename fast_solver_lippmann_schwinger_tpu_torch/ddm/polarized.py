@@ -60,8 +60,9 @@ def pallas_only(slabs: SlabSystem) -> bool:
     (``pivot_dtype="pallas*"``: ``fac`` carries an empty placeholder pivot
     stack).  A system built with full pivots and given bf16 kernel planes
     beside them (``attach_pallas``) keeps its full-precision local solves
-    here, as in the JAX package; bf16 XLA-side pivots (``cinv_re``) are not
-    kernel-only either."""
+    here, as in the JAX package; the plain bf16 and banded pivots
+    (``"bf16"``, ``"banded"``, ``"banded_tail"``, ``"banded_lr"``) have no
+    kernel layout and no ``cinv``, and run the plain solves too."""
     cinv = getattr(slabs.fac, "cinv", None)
     return slabs.pfac is not None and cinv is not None and cinv.shape[-1] == 0
 

@@ -30,8 +30,15 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import resolve_device, to_t
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     BlockTridiagFactorization,
+    BlockTridiagFactorizationBanded,
+    BlockTridiagFactorizationBandedLR,
+    BlockTridiagFactorizationBandedTail,
     BlockTridiagFactorizationBF16,
     compress_factorization,
+    compress_factorization_banded,
+    compress_factorization_banded_lr,
+    compress_factorization_banded_tail,
+    default_band_width,
     factor_stencil_values,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
@@ -117,8 +124,11 @@ class SlabSystem:
     """All slabs of one sweep direction, batched and end-padded."""
 
     h_stencils: torch.Tensor        # (S, m1_max, n, 3, 3) local matrices
-    # batched: cinv (S, m1_max, n, n), ...; or bf16 planes (pivot_dtype="bf16")
-    fac: BlockTridiagFactorization | BlockTridiagFactorizationBF16
+    # batched: cinv (S, m1_max, n, n), ...; or bf16 planes (pivot_dtype="bf16"),
+    # or the banded storages ("banded", "banded_lr", "banded_tail")
+    fac: (BlockTridiagFactorization | BlockTridiagFactorizationBF16
+          | BlockTridiagFactorizationBanded | BlockTridiagFactorizationBandedLR
+          | BlockTridiagFactorizationBandedTail)
     # trace-line indices (0-based local lines); 0 where absent (see has_*)
     l0: torch.Tensor                # (S,)
     l1: torch.Tensor
@@ -245,40 +255,61 @@ def attach_banded_tail(slabs: SlabSystem, pivot_band: int | None = None) -> Slab
     """Return a copy of ``slabs`` whose pivots are ONLY the banded+tail hybrid
     layout of the kernels (``pivot_dtype="pallas_banded_tail"``): band width
     ``pivot_band`` (``None``: the w(n) rule, ``direct.default_band_width``)
-    on the head lines, dense bf16 planes on the last ``min(m1_max,
-    max(trace_tail + 4, 8))`` lines, whose pivot inverses are effectively
-    dense interface Green's functions; ``fac`` keeps the bands only.  The
+    on the head lines, dense bf16 planes on the last :func:`tail_lines`
+    lines; ``fac`` keeps the bands only.  The
     sweeps then run the fused sweep kernels (``gs_sweep``) and the hybrid
     substitution kernels (every other solve)."""
-    tail_keep = min(slabs.m1_max, max(slabs.trace_tail + 4, 8))
     pfac = thomas_kernels.build_banded_tail_factorization(
-        slabs.fac, width=pivot_band, tail_lines=tail_keep)
+        slabs.fac, width=pivot_band, tail_lines=tail_lines(slabs))
     return dataclasses.replace(slabs, fac=_bands_only(slabs.fac), pfac=pfac)
 
 
-# pivot modes of build_slab_system; the others of the JAX package are queued
-# in ROADMAP.md (Queue 1)
-PIVOT_MODES = ("full", "bf16", "pallas", "pallas_int8", "pallas_banded_tail")
+# pivot modes of build_slab_system: the JAX package's, every one
+PIVOT_MODES = ("full", "bf16", "banded", "banded_tail", "banded_lr", "pallas", "pallas_int8",
+               "pallas_banded_tail")
+# rank of the low-rank term of "banded_lr" when pivot_rank is None
+DEFAULT_PIVOT_RANK = 24
 
 
-def pack_pivots(slabs: SlabSystem, pivot_dtype: str, pivot_band: int | None = None) -> SlabSystem:
+def tail_lines(slabs: SlabSystem) -> int:
+    """Lines that keep dense pivot planes in the tail-dense layouts
+    (``"banded_tail"``, ``"pallas_banded_tail"``): the deepest bottom-trace
+    line and below, whose pivot inverses are effectively dense interface
+    Green's functions, with a margin of four, at least 8."""
+    return min(slabs.m1_max, max(slabs.trace_tail + 4, 8))
+
+
+def pack_pivots(slabs: SlabSystem, pivot_dtype: str, pivot_band: int | None = None,
+                pivot_rank: int | None = None) -> SlabSystem:
     """The slab system of ``pivot_dtype`` from one with full pivots: as it
-    is (``"full"``), bf16 planes for the plain solves (``"bf16"``), only the
-    bf16 or int8 planes of the substitution kernels (``"pallas"``,
-    ``"pallas_int8"``), or only the banded+tail layout
-    (``"pallas_banded_tail"``, band width ``pivot_band``)."""
+    is (``"full"``), bf16 planes for the plain solves (``"bf16"``), the
+    central ``pivot_band`` diagonals of each pivot inverse (``"banded"``),
+    those plus a rank-``pivot_rank`` term (``"banded_lr"``, rank 24 when
+    ``None``), the band with dense bf16 planes on the last
+    :func:`tail_lines` lines (``"banded_tail"``), only the bf16 or int8
+    planes of the substitution kernels (``"pallas"``, ``"pallas_int8"``), or
+    only the kernels' banded+tail layout (``"pallas_banded_tail"``).  A band
+    width of ``None`` is the w(n) rule, ``direct.default_band_width``."""
     if pivot_dtype not in PIVOT_MODES:
-        raise NotImplementedError(
-            f"pivot_dtype={pivot_dtype!r} is not ported yet (ROADMAP.md, Queue 1: "
-            "the XLA-side banded modes)")
-    if pivot_dtype == "bf16":
-        return dataclasses.replace(slabs, fac=compress_factorization(slabs.fac))
+        raise ValueError(f"unknown pivot_dtype {pivot_dtype!r}; one of {PIVOT_MODES}")
+    if pivot_dtype == "full":
+        return slabs
     if pivot_dtype in ("pallas", "pallas_int8"):
         storage = "int8" if pivot_dtype == "pallas_int8" else "bf16"
         return attach_pallas(slabs, storage=storage, keep_dense=False)
     if pivot_dtype == "pallas_banded_tail":
         return attach_banded_tail(slabs, pivot_band)
-    return slabs
+    width = pivot_band if pivot_band is not None else default_band_width(slabs.n)
+    if pivot_dtype == "bf16":
+        fac = compress_factorization(slabs.fac)
+    elif pivot_dtype == "banded":
+        fac = compress_factorization_banded(slabs.fac, width)
+    elif pivot_dtype == "banded_tail":
+        fac = compress_factorization_banded_tail(slabs.fac, width, tail_lines(slabs))
+    else:
+        rank = DEFAULT_PIVOT_RANK if pivot_rank is None else pivot_rank
+        fac = compress_factorization_banded_lr(slabs.fac, width, rank)
+    return dataclasses.replace(slabs, fac=fac)
 
 
 def build_slab_system(
@@ -307,22 +338,16 @@ def build_slab_system(
     ``Msp[1:2n,1:2n]`` overwrite at ``src/subdomains.jl:79-86``), ``nu`` is
     the (m, n) medium.  ``pivot_dtype`` is one of :data:`PIVOT_MODES`, see
     :func:`pack_pivots`: ``"full"`` (dense pivots in the working dtype),
-    ``"bf16"`` (bf16 planes, plain solves), ``"pallas"`` / ``"pallas_int8"``
-    (only the transposed bf16 / int8 planes of the substitution kernels are
-    kept) or ``"pallas_banded_tail"`` (only the banded+tail hybrid layout,
-    band width ``pivot_band``; see :func:`attach_banded_tail`).
-    ``pivot_rank`` belongs to the ``"banded_lr"`` mode, which is not ported.
-    The slabs live on the stencils' device unless ``device`` says otherwise.
+    ``"bf16"`` (bf16 planes, plain solves), ``"banded"``, ``"banded_tail"``
+    and ``"banded_lr"`` (band width ``pivot_band``, rank ``pivot_rank``;
+    plain solves), ``"pallas"`` / ``"pallas_int8"`` (only the transposed
+    bf16 / int8 planes of the substitution kernels are kept) or
+    ``"pallas_banded_tail"`` (only the banded+tail hybrid layout of the
+    kernels; see :func:`attach_banded_tail`).  The slabs live on the
+    stencils' device unless ``device`` says otherwise.
     """
     if pivot_dtype not in PIVOT_MODES:
-        raise NotImplementedError(
-            f"pivot_dtype={pivot_dtype!r} is not ported yet (ROADMAP.md, "
-            "Queue 1: the XLA-side banded modes)"
-        )
-    if pivot_rank is not None:
-        raise NotImplementedError(
-            "pivot_rank (the banded_lr pivot mode) is not ported yet (ROADMAP.md, Queue 1)"
-        )
+        raise ValueError(f"unknown pivot_dtype {pivot_dtype!r}; one of {PIVOT_MODES}")
     if cache_dir is not None:
         raise NotImplementedError(
             "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
@@ -482,7 +507,7 @@ def build_slab_system(
         trace_tail=trace_tail,
         trace_head=trace_head,
     )
-    return pack_pivots(slabs, pivot_dtype, pivot_band)
+    return pack_pivots(slabs, pivot_dtype, pivot_band, pivot_rank)
 
 
 def partition_source(slabs: SlabSystem, b: torch.Tensor) -> torch.Tensor:

@@ -3,14 +3,28 @@
 These are the "model families" of the reference's example scripts, as pure functions of
 coordinates (numpy, float64 — they are setup-time quantities):
 
-* ``plasma_2d``         — tokamak-shaped plasma profile,
-                          ``tests/plasma_example.jl:53-68``
-* ``gaussian_bump_3d``  — truncated Gaussian bump, ``examples/example3D.jl``
+* ``gaussian_bump_2d``      — ``examples/example.jl:48``
+* ``plasma_2d``             — tokamak-shaped plasma profile,
+                              ``tests/plasma_example.jl:53-68``
+* ``plasma_2d_transposed``  — the same profile on swapped axes,
+                              ``tests/plasma_example.jl:70``
+* ``gaussian_bump_3d``      — truncated Gaussian bump, ``examples/example3D.jl``
 """
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def gaussian_bump_2d(x, y, amplitude: float = 0.3, width: float = 40.0,
+                     cutoff: float = 0.48):
+    """Smooth compactly-supported Gaussian bump (``examples/example.jl:48``)."""
+    return (
+        amplitude
+        * np.exp(-width * (x ** 2 + y ** 2))
+        * (np.abs(x) < cutoff)
+        * (np.abs(y) < cutoff)
+    )
 
 
 def _plasma_phi(x, y, c: float = 0.4987):
@@ -37,6 +51,11 @@ def plasma_2d(x, y):
     phi = _plasma_phi(xs, ys)
     inner = -1.5 * (phi - 0.05) - _plasma_gaussians(xs, ys) * np.cos(0.9 * ys)
     return -np.where(phi > 0.05, inner, 0.0)
+
+
+def plasma_2d_transposed(x, y):
+    """``nuT(x,y) = nu(y,x)`` (``tests/plasma_example.jl:70``)."""
+    return plasma_2d(y, x)
 
 
 def gaussian_bump_3d(x, y, z, amplitude: float = 0.3, width: float = 40.0,

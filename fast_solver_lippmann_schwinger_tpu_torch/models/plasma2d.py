@@ -7,12 +7,14 @@ k = 800, 16 slabs, npml = 10, Greengard-Vico operator,
 scaled down.  ``double_sweep=False`` gives the single-direction sweep, which
 with ``n_subdomains=1`` is the exact block-Thomas solve of the sparsified
 system.  Pivots are ``"full"`` (dense pivots in the working dtype, the
-default), ``"bf16"`` (bf16 planes, plain solves), ``"pallas"`` /
-``"pallas_int8"`` (bf16 / int8 pivot planes through the CUDA substitution
-kernels), or ``"pallas_banded_tail"`` (banded head windows and dense bf16 tail
-planes through the hybrid substitution kernels and the fused sweep kernels);
-the banded XLA-side pivot formats of the JAX package are not ported yet.
-``use_pallas=True`` attaches bf16 kernel planes beside full or bf16 pivots and
+default), ``"bf16"`` (bf16 planes), ``"banded"``, ``"banded_tail"`` and
+``"banded_lr"`` (the central band of each pivot inverse; with dense bf16
+planes on the interface lines; with a low-rank term), all four through the
+plain substitution loops of ``sparse/direct.py`` as the JAX package runs them
+outside its kernels, ``"pallas"`` / ``"pallas_int8"`` (bf16 / int8 pivot
+planes through the CUDA substitution kernels), or ``"pallas_banded_tail"``
+(banded head windows and dense bf16 tail planes through the hybrid
+substitution kernels and the fused sweep kernels).  ``use_pallas=True`` attaches bf16 kernel planes beside full or bf16 pivots and
 runs the As b step of every single-RHS preconditioner apply through the
 stencil matvec kernel (``ops/stencil_kernels.py``).
 """
@@ -80,18 +82,19 @@ def build_problem(
     (reference ``Preconditioner``/``GSPreconditioner`` family): half the
     factorization memory, a few more GMRES iterations.  ``pivot_dtype_t`` sets
     a different pivot storage for the transposed (x-direction) sweep; ``None``
-    means ``pivot_dtype``.  ``pivot_band`` is the kept band width of
-    ``"pallas_banded_tail"`` (``None``: the w(n) rule,
-    ``direct.default_band_width``).  ``pivot_rank`` (the ``"banded_lr"``
-    mode) and ``cache_dir`` are not ported yet and raise unless ``None``.
+    means ``pivot_dtype``.  ``pivot_band`` is the kept band width of the
+    banded modes (``None``: the w(n) rule, ``direct.default_band_width``),
+    ``pivot_rank`` the rank of ``"banded_lr"`` (``None``: 24).  ``cache_dir``
+    is not ported yet and raises unless ``None``.
 
     ``use_pallas=True``, as in the JAX package, attaches bf16 kernel planes
     packed from each direction's pivots (which stay) and runs the As b step
     of every single-RHS preconditioner apply through the stencil matvec
     kernel; ``msp`` and multi-RHS input keep the plain 9 taps.  It needs full
-    or ``"bf16"`` pivots: with a kernel pivot mode only the bands are kept
-    beside the kernel layout, and the JAX package would re-pack the empty
-    placeholder pivots there, so the port raises ``ValueError``.
+    or ``"bf16"`` pivots: a kernel pivot mode keeps only the bands beside its
+    layout, and a banded mode no dense planes; the JAX package would pack
+    the kernel planes from those and fail or re-pack empty placeholders, so
+    the port raises ``ValueError``.
 
     Each direction is factored with dense pivots in the working dtype first
     and then packed into its pivot mode right away, slab by slab, so that the
@@ -101,20 +104,18 @@ def build_problem(
         pivot_dtype_t = pivot_dtype
     for mode in (pivot_dtype, pivot_dtype_t):
         if mode not in PIVOT_MODES:
-            raise NotImplementedError(
-                f"pivot_dtype={mode!r} is not ported yet (ROADMAP.md, Queue 1: "
-                "the XLA-side banded modes)"
-            )
+            raise ValueError(f"unknown pivot_dtype {mode!r}; one of {PIVOT_MODES}")
         if use_pallas and mode.startswith("pallas"):
             raise ValueError(
                 f"use_pallas=True with pivot_dtype={mode!r}: that mode keeps only "
                 "placeholder pivots beside its kernel layout, and the JAX package "
                 "would re-pack the empty placeholder pivots into bf16 planes"
             )
-    if pivot_rank is not None:
-        raise NotImplementedError(
-            "pivot_rank (the banded_lr pivot mode) is not ported yet (ROADMAP.md, Queue 1)"
-        )
+        if use_pallas and mode.startswith("banded"):
+            raise ValueError(
+                f"use_pallas=True with pivot_dtype={mode!r}: the kernel planes are "
+                "packed from full or bf16 pivots, and a banded mode keeps neither"
+            )
     if cache_dir is not None:
         raise NotImplementedError(
             "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
@@ -153,7 +154,7 @@ def build_problem(
         )
         seconds["factorization" + suffix] = lap(t0)
         t0 = time.perf_counter()
-        slabs = pack_pivots(slabs, mode, pivot_band)
+        slabs = pack_pivots(slabs, mode, pivot_band, pivot_rank)
         if use_pallas:
             slabs = attach_pallas(slabs)
         seconds["packing" + suffix] = lap(t0)

@@ -5,8 +5,9 @@ equivalent of ``tests/plasma_integral_system_example.jl`` (h = 1/400,
 k = 400, 8 slabs, npml = 10, trapezoidal operator, inner GMRES on the
 polarized trace system with nIt = 2 block Gauss-Seidel).  Its local solves
 run the substitution kernels with a kernel pivot mode (``pivot_dtype="pallas"``,
-``"pallas_int8"`` or ``"pallas_banded_tail"``), the dense factorization with
-``"full"`` (the default, as in the JAX package) or ``"bf16"``.
+``"pallas_int8"`` or ``"pallas_banded_tail"``), and the plain substitution
+loops of ``sparse/direct.py`` with ``"full"`` (the default, as in the JAX
+package), ``"bf16"``, ``"banded"``, ``"banded_tail"`` or ``"banded_lr"``.
 """
 
 from __future__ import annotations
@@ -57,8 +58,8 @@ def build_problem(
 ) -> PlasmaIntegral2DProblem:
     """Set the problem up on ``device`` (the CUDA card when ``None``; raises
     without one).  ``pivot_dtype`` and ``pivot_band`` are those of
-    ``subdomain.build_slab_system``; the pivot modes it does not port yet
-    raise ``NotImplementedError`` there."""
+    ``subdomain.build_slab_system`` (``"banded_lr"`` takes its default rank,
+    as in the JAX package)."""
     device = resolve_device(device)
 
     def lap(t0):

@@ -1,7 +1,8 @@
 """Setup-time Green's-function kernel tables and Fourier symbols.
 
 All artifacts here are computed once per problem on the host in float64
-(special functions via SciPy), then moved to the device in the working
+(the Hankel tables by the native sampler, ``native/sampler.py``; the other
+special functions via SciPy), then moved to the device in the working
 complex dtype.  The hot loop (``ops/fastconv.py``) never
 evaluates a Bessel function.
 
@@ -12,6 +13,8 @@ Reference counterparts:
 * Greengard-Vico truncated-kernel symbol ``Gtruncated2D`` —
   ``src/Functions.jl:40-42``, used at ``src/FastConvolution.jl:185-235``
 * dense row sampling ``sampleG`` — ``src/FastConvolution.jl:239-275``
+* the dense quadrature matrix ``buildConvMatrix`` (a test oracle) —
+  ``src/FastConvolution.jl:497-513``
 """
 
 from __future__ import annotations
@@ -343,3 +346,12 @@ def sample_g_rows_2d(k: float, X: np.ndarray, Y: np.ndarray,
     g = hankel_kernel_table(k, r, h)
     g[rows, ind_s] = 0.25j * d0 * h ** 2
     return g
+
+
+def dense_conv_matrix_2d(k: float, X: np.ndarray, Y: np.ndarray,
+                         d0: complex, h: float) -> np.ndarray:
+    """Full dense quadrature matrix G (test oracle).
+
+    Mirrors ``buildConvMatrix`` (``src/FastConvolution.jl:497-513``).
+    """
+    return sample_g_rows_2d(k, X, Y, np.arange(X.shape[0]), d0, h)

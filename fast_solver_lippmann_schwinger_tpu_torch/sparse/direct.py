@@ -1,4 +1,4 @@
-"""Block-Thomas direct solver for stencil matrices (full precision).
+"""Block-Thomas direct solver for stencil matrices.
 
 Replaces the reference's native factorization backends (UMFPACK ``lu`` at
 ``src/preconditioner.jl:35`` / ``src/subdomains.jl:114`` and MKL PARDISO at
@@ -11,11 +11,15 @@ dense full-precision factorization.
 The factorization is a Python loop over grid lines whose per-step work is one
 dense n x n inversion (``torch.linalg.inv``; a library call in the JAX
 package too) and runs once at setup.  The substitution loops here are the
-full-precision oracle and the ``pivot_dtype="full"`` path of the sweeps (with
-the tail, support, cached and resumed solves that the multi-slab sweeps need);
-the hot path runs the bf16 kernels of ``sparse/thomas_kernels.py``.  Every 2D
-function takes optional leading batch axes on the factorization (all slabs of
-a sweep are factored at once).
+full-precision oracle and the plain path of the sweeps (with the tail,
+support, cached and resumed solves that the multi-slab sweeps need) on every
+pivot storage the JAX package has beside its kernels: dense pivots in the
+working dtype, bf16 planes, the central band of each pivot inverse, band plus
+a low-rank term, and the tail-dense hybrid (``pivot_dtype`` ``"full"``,
+``"bf16"``, ``"banded"``, ``"banded_lr"``, ``"banded_tail"``); the kernel
+modes run the CUDA kernels of ``sparse/thomas_kernels.py``.  Every 2D
+factorization and compression takes optional leading batch axes (all slabs
+of a sweep are factored at once).
 
 The 3D part blocks over z-planes: one dense (mn, mn) pivot inverse per plane
 (``factor_stencil_3d``) and 9-tap in-plane couplings between planes.  Its
@@ -26,6 +30,7 @@ scans run on dense, bf16 or int8 pivots here, or, for a plane view of
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
@@ -79,28 +84,249 @@ class BlockTridiagFactorizationBF16:
         )
 
 
+def _to_bf16(part: torch.Tensor) -> torch.Tensor:
+    """A real or imaginary part rounded to bf16 through f32, as the JAX
+    package's pivot planes are (bit for bit on the factorizations the tests
+    carry across)."""
+    return part.float().to(torch.bfloat16)
+
+
 def compress_factorization(fac: BlockTridiagFactorization) -> BlockTridiagFactorizationBF16:
     """Full-precision pivots -> bf16 planes, rounded complex -> f32 -> bf16
     as the JAX package's ``compress_factorization``; the bands stay."""
     return BlockTridiagFactorizationBF16(
-        cinv_re=fac.cinv.real.float().to(torch.bfloat16),
-        cinv_im=fac.cinv.imag.float().to(torch.bfloat16),
+        cinv_re=_to_bf16(fac.cinv.real), cinv_im=_to_bf16(fac.cinv.imag),
         lband=fac.lband, uband=fac.uband,
     )
 
 
-def _pivot_apply(fac, j: int, y: torch.Tensor) -> torch.Tensor:
-    """``C_j^{-1} y`` for dense complex pivots or bf16 planes (the JAX
-    package's ``_pivot_apply``: one f32 product per plane against the
-    stacked [re, im] columns of y, which streams each plane once)."""
-    if not hasattr(fac, "cinv_re"):
-        return fac.cinv[j] @ y
+@dataclasses.dataclass(frozen=True)
+class BlockTridiagFactorizationBanded:
+    """Band-compressed pivot inverses (``pivot_dtype="banded"``): only the
+    ``w`` central diagonals of each ``C_j^{-1}`` are kept, ``band[j, i, d] =
+    Cinv_j[i, i + d - w//2]`` (zero where that column is off the line), as
+    bf16 real and imaginary planes.  The pivot inverses are discrete line
+    Green's functions whose entries decay away from the diagonal under the
+    slabs' absorbing layers, so the band perturbs only the preconditioner.
+    Counterpart of the JAX package's class of the same name; no kernel: the
+    apply is one windowed product per line (:func:`_banded_pivot_apply`)."""
+
+    band_re: torch.Tensor  # (m, n, w) bfloat16
+    band_im: torch.Tensor  # (m, n, w) bfloat16
+    lband: torch.Tensor    # (m, n, 3) complex
+    uband: torch.Tensor    # (m, n, 3) complex
+
+    def slab(self, i: int) -> "BlockTridiagFactorizationBanded":
+        """Slab ``i`` of a batched factorization."""
+        return BlockTridiagFactorizationBanded(
+            band_re=self.band_re[i], band_im=self.band_im[i],
+            lband=self.lband[i], uband=self.uband[i],
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTridiagFactorizationBandedLR:
+    """Band + low-rank pivot inverses (``pivot_dtype="banded_lr"``):
+    ``Cinv_j ~ band_w(Cinv_j) + U_j V_j^H`` with rank-r bf16 factors, the
+    rank term catching the smooth off-band part that a band alone drops.
+    Counterpart of the JAX package's class of the same name."""
+
+    band_re: torch.Tensor  # (m, n, w) bfloat16
+    band_im: torch.Tensor
+    u_re: torch.Tensor     # (m, n, r) bfloat16
+    u_im: torch.Tensor
+    v_re: torch.Tensor     # (m, n, r) bfloat16
+    v_im: torch.Tensor
+    lband: torch.Tensor    # (m, n, 3) complex
+    uband: torch.Tensor    # (m, n, 3) complex
+
+    def slab(self, i: int) -> "BlockTridiagFactorizationBandedLR":
+        """Slab ``i`` of a batched factorization."""
+        return BlockTridiagFactorizationBandedLR(
+            **{f.name: getattr(self, f.name)[i] for f in dataclasses.fields(self)}
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTridiagFactorizationBandedTail:
+    """Tail-dense hybrid pivots (``pivot_dtype="banded_tail"``): lines
+    ``< tail_start`` keep the ``w`` central diagonals, lines ``>= tail_start``
+    the full bf16 plane.  The near-interface lines' pivot inverses are
+    effectively dense interface Green's functions: banding them lets the
+    substitution recursions amplify the error, so only the interior lines are
+    banded.  Counterpart of the JAX package's class of the same name, in
+    its layout (the kernels' banded+tail layout is
+    ``thomas_kernels.BandedTailFactorization``)."""
+
+    band_re: torch.Tensor  # (m, n, w) bfloat16 (lines >= tail_start unused)
+    band_im: torch.Tensor
+    tail_re: torch.Tensor  # (m - tail_start, n, n) bfloat16
+    tail_im: torch.Tensor
+    lband: torch.Tensor    # (m, n, 3) complex
+    uband: torch.Tensor    # (m, n, 3) complex
+    tail_start: int
+
+    def slab(self, i: int) -> "BlockTridiagFactorizationBandedTail":
+        """Slab ``i`` of a batched factorization."""
+        return BlockTridiagFactorizationBandedTail(
+            band_re=self.band_re[i], band_im=self.band_im[i],
+            tail_re=self.tail_re[i], tail_im=self.tail_im[i],
+            lband=self.lband[i], uband=self.uband[i], tail_start=self.tail_start,
+        )
+
+
+def _clamp_width(width: int | None, n: int) -> int:
+    """The kept band width: the w(n) rule for ``None``, made odd and at most
+    ``2 n - 1``."""
+    if width is None:
+        width = default_band_width(n)
+    return min(int(width) | 1, 2 * n - 1)
+
+
+def _central_band(cinv: torch.Tensor, width: int) -> torch.Tensor:
+    """(..., n, n) pivot inverses -> (..., n, w) central diagonals,
+    ``band[..., i, d] = cinv[..., i, i + d - w//2]``, zero off the line."""
+    n = cinv.shape[-1]
+    i = torch.arange(n, device=cinv.device)[:, None]
+    d = torch.arange(width, device=cinv.device)[None, :]
+    col = i + d - width // 2
+    valid = (col >= 0) & (col < n)
+    index = col.clamp(0, n - 1).expand(tuple(cinv.shape[:-1]) + (width,))
+    return torch.where(valid, torch.gather(cinv, -1, index), torch.zeros((), dtype=cinv.dtype,
+                                                                          device=cinv.device))
+
+
+def compress_factorization_banded(
+    fac: BlockTridiagFactorization, width: int | None = None
+) -> BlockTridiagFactorizationBanded:
+    """Extract the central ``width`` diagonals of each pivot inverse
+    (``width=None`` applies the measured :func:`default_band_width` rule);
+    leading slab axes are kept."""
+    band = _central_band(fac.cinv, _clamp_width(width, fac.cinv.shape[-1]))
+    return BlockTridiagFactorizationBanded(
+        band_re=_to_bf16(band.real), band_im=_to_bf16(band.imag),
+        lband=fac.lband, uband=fac.uband,
+    )
+
+
+def _golden_probe(n: int, rank: int, dtype: torch.dtype, device) -> torch.Tensor:
+    """The deterministic (n, rank) probe of the range finder, in float32
+    arithmetic as the JAX package builds it: unit phases on a golden-ratio
+    grid, ``exp(2 pi i frac((p + 1) (q + 1) phi)) / sqrt(rank)``."""
+    p = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    q = torch.arange(rank, dtype=torch.float32, device=device)[None, :]
+    phase = 2.0 * math.pi * torch.remainder((p + 1.0) * (q + 1.0) * 0.6180339887498949, 1.0)
+    scale = torch.sqrt(torch.tensor(float(rank), dtype=torch.float32, device=device))
+    return (torch.complex(torch.cos(phase), torch.sin(phase)) / scale).to(dtype)
+
+
+def compress_factorization_banded_lr(
+    fac: BlockTridiagFactorization, width: int, rank: int, oversample: int = 8,
+) -> BlockTridiagFactorizationBandedLR:
+    """Band + rank-``rank`` split of each pivot inverse.
+
+    The off-band residual ``R = Cinv - band`` of every line is compressed by
+    a QR range finder: ``Q = qr(R Omega)`` with the golden-ratio probe
+    (:func:`_golden_probe`), ``U = Q``, ``V = R^H Q``, so ``R ~ U V^H``.  The
+    QR fixes each column of Q only up to a phase, which cancels in ``U V^H``.
+    ``oversample`` is accepted for the JAX signature and unused there too.
+    """
+    del oversample
+    banded = compress_factorization_banded(fac, width)
+    n = fac.cinv.shape[-1]
+    half = _clamp_width(width, n) // 2
+    idx = torch.arange(n, device=fac.cinv.device)
+    off_band = (idx[:, None] - idx[None, :]).abs() > half
+    R = torch.where(off_band, fac.cinv, torch.zeros((), dtype=fac.cinv.dtype,
+                                                     device=fac.cinv.device))
+    omega = _golden_probe(n, min(rank, n), fac.cinv.dtype, fac.cinv.device)
+    Q, _ = torch.linalg.qr(R @ omega)                       # (..., n, r)
+    V = R.mH @ Q                                            # (..., n, r)
+    return BlockTridiagFactorizationBandedLR(
+        band_re=banded.band_re, band_im=banded.band_im,
+        u_re=_to_bf16(Q.real), u_im=_to_bf16(Q.imag),
+        v_re=_to_bf16(V.real), v_im=_to_bf16(V.imag),
+        lband=fac.lband, uband=fac.uband,
+    )
+
+
+def compress_factorization_banded_tail(
+    fac: BlockTridiagFactorization, width: int | None, tail_lines: int
+) -> BlockTridiagFactorizationBandedTail:
+    """Band the head lines, keep full bf16 planes for the last
+    ``tail_lines`` lines (``width=None``: :func:`default_band_width`).
+    ``tail_lines`` is clamped to ``1 .. m - 1`` so that the banded head is
+    never empty (an all-dense request is :func:`compress_factorization`)."""
+    m = fac.cinv.shape[-3]
+    ts = m - int(min(max(tail_lines, 1), m - 1))
+    banded = compress_factorization_banded(fac, width)
+    tail = fac.cinv[..., ts:, :, :]
+    return BlockTridiagFactorizationBandedTail(
+        band_re=banded.band_re, band_im=banded.band_im,
+        tail_re=_to_bf16(tail.real), tail_im=_to_bf16(tail.imag),
+        lband=fac.lband, uband=fac.uband, tail_start=ts,
+    )
+
+
+def _bf16_plane_apply(cinv_re: torch.Tensor, cinv_im: torch.Tensor,
+                      y: torch.Tensor) -> torch.Tensor:
+    """``C^{-1} y`` with one bf16 pivot plane pair: one f32 product per plane
+    against the stacked [re, im] columns of y, which streams each plane
+    once."""
     n = y.shape[0]
     ys = torch.stack([y.real.float(), y.imag.float()], dim=-1)   # (n, ..., 2)
     flat = ys.reshape(n, -1)
-    zre = (fac.cinv_re[j].float() @ flat).reshape(ys.shape)
-    zim = (fac.cinv_im[j].float() @ flat).reshape(ys.shape)
+    zre = (cinv_re.float() @ flat).reshape(ys.shape)
+    zim = (cinv_im.float() @ flat).reshape(ys.shape)
     return torch.complex(zre[..., 0] - zim[..., 1], zre[..., 1] + zim[..., 0]).to(y.dtype)
+
+
+def _banded_pivot_apply(band_re: torch.Tensor, band_im: torch.Tensor,
+                        y: torch.Tensor) -> torch.Tensor:
+    """``C^{-1} y`` with a band-compressed pivot, (n, w) bf16 planes, in
+    complex64 (float32 arithmetic, as the JAX package): one window view of
+    the padded columns of y and one product with the band over the w
+    diagonals (the JAX package's w shifted multiply-adds, which would be w
+    launches a line here)."""
+    n, w = band_re.shape
+    cols = y.to(torch.complex64).reshape(n, -1)                  # (n, K)
+    # windows[i, c, d] = cols[i + d - w//2, c] (zero off the line)
+    windows = F.pad(cols, (0, 0, w // 2, w // 2)).unfold(0, w, 1)
+    band = torch.complex(band_re.float(), band_im.float())
+    return torch.einsum("nd,ncd->nc", band, windows).reshape(y.shape).to(y.dtype)
+
+
+def _lowrank_pivot_correction(u_re, u_im, v_re, v_im, y: torch.Tensor) -> torch.Tensor:
+    """``U (V^H y)``, the rank-r correction on top of the banded apply, in
+    complex64 as the JAX package computes it."""
+    u = torch.complex(u_re.float(), u_im.float())
+    v = torch.complex(v_re.float(), v_im.float())
+    n = y.shape[0]
+    yc = y.to(u.dtype).reshape(n, -1)
+    return (u @ (v.mH @ yc)).reshape(y.shape).to(y.dtype)
+
+
+def _pivot_apply(fac, j: int, y: torch.Tensor) -> torch.Tensor:
+    """``C_j^{-1} y`` for every pivot storage: dense complex, bf16 planes,
+    band (+ low rank), or the tail-dense hybrid, whose line ``j`` is banded
+    below ``tail_start`` and a dense bf16 plane from there on (the JAX
+    package runs the two segments as two chained scans; a Python loop over
+    the lines picks the storage line by line, so the carries cross the
+    boundary as they are)."""
+    if hasattr(fac, "tail_start"):
+        ts = fac.tail_start
+        if j >= ts:
+            return _bf16_plane_apply(fac.tail_re[j - ts], fac.tail_im[j - ts], y)
+        return _banded_pivot_apply(fac.band_re[j], fac.band_im[j], y)
+    if hasattr(fac, "band_re"):
+        out = _banded_pivot_apply(fac.band_re[j], fac.band_im[j], y)
+        if hasattr(fac, "u_re"):
+            out = out + _lowrank_pivot_correction(fac.u_re[j], fac.u_im[j], fac.v_re[j],
+                                                  fac.v_im[j], y)
+        return out
+    if hasattr(fac, "cinv_re"):
+        return _bf16_plane_apply(fac.cinv_re[j], fac.cinv_im[j], y)
+    return fac.cinv[j] @ y
 
 
 def band_matvec(band: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -187,9 +413,9 @@ def default_band_width(n: int) -> int:
     ``direct.default_band_width``): the band a line's pivot inverse keeps must
     widen with the line length (w = 101 holds iteration parity at n = 201,
     w = 201 is needed at n = 801, RESULTS.md round 4), so w ~ n/4, odd, at
-    least 33.  ``width=None`` of the banded+tail layout routes here.  The
-    XLA-side banded pivot modes that also use it are not ported (ROADMAP.md,
-    Queue 1 slice 7)."""
+    least 33.  ``width=None`` of every banded pivot mode routes here: the
+    kernels' banded+tail layout (``pivot_dtype="pallas_banded_tail"``) and
+    the plain ``"banded"``, ``"banded_tail"`` and ``"banded_lr"`` modes."""
     return min(max(n // 4, 33) | 1, 2 * n - 1)
 
 

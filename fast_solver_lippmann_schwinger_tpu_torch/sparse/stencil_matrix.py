@@ -36,8 +36,8 @@ class StencilMatrix2D:
     ``use_pallas=True`` routes single-RHS matvecs through the stencil kernel
     (float32 arithmetic, as the JAX package's Pallas kernel); multi-RHS input
     keeps the 9 shifted multiply-adds, and every derived matrix
-    (``transpose``, ``scale_columns``, sums and multiples) is built without
-    the flag, as in the JAX package.
+    (``transpose``, ``matrix_transpose``, ``scale_columns``, sums and
+    multiples) is built without the flag, as in the JAX package.
     """
 
     values: torch.Tensor   # (m, n, 3, 3) complex
@@ -84,6 +84,19 @@ class StencilMatrix2D:
         grid axes and stencil offset axes yields exactly the permuted matrix
         (the x/y swap of ``tests/plasma_example.jl:103-112``)."""
         return StencilMatrix2D(values=self.values.permute(1, 0, 3, 2).contiguous())
+
+    def matrix_transpose(self) -> "StencilMatrix2D":
+        """The true matrix transpose ``S^T`` (NOT the grid x/y swap of
+        :meth:`transpose`): row (j, i) of ``S^T`` collects, from each
+        neighbor, the coefficient of that neighbor's stencil pointing back
+        at (j, i).  Used for adjoint solves (``solver/adjoint.py``)."""
+        m, n = self.m, self.n
+        vp = F.pad(self.values, (0, 0, 0, 0, 1, 1, 1, 1))
+        out = torch.empty_like(self.values)
+        for dj in range(3):
+            for di in range(3):
+                out[:, :, dj, di] = vp[dj : dj + m, di : di + n, 2 - dj, 2 - di]
+        return StencilMatrix2D(values=out)
 
     def scale_columns(self, d: torch.Tensor) -> "StencilMatrix2D":
         """``S @ diag(d)`` for a grid field d (m, n): column scaling.

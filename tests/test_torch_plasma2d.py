@@ -13,6 +13,7 @@ import torch
 from fast_solver_lippmann_schwinger_tpu.models import plasma2d as jplasma2d
 from fast_solver_lippmann_schwinger_tpu_torch import convert, resolve_device
 from fast_solver_lippmann_schwinger_tpu_torch.models import plasma2d
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from torch_threads import few_threads  # noqa: F401
 
 KW = dict(h=1.0 / 40.0, n_subdomains=1, npml=6, double_sweep=False)
@@ -183,7 +184,11 @@ def test_double_sweep_solve_batched_matches(sweep_problems):
 @pytest.mark.parametrize("name", ["build_problem", "build_slab_system",
                                   "build_fast_convolution_2d", "build_slab_system_3d",
                                   "plasma_integral2d.build_problem",
-                                  "PolarizedTracesPreconditioner3D"])
+                                  "PolarizedTracesPreconditioner3D",
+                                  "bump2d.build_problem", "bump2d.solve",
+                                  "differentiable_solve", "compress_factorization_banded",
+                                  "compress_factorization_banded_lr",
+                                  "compress_factorization_banded_tail"])
 def test_signatures_match_the_jax_package(name):
     """The port's build functions (and the 3D polarized preconditioner's
     fields) take the JAX package's parameters, in its order and with its
@@ -209,6 +214,15 @@ def test_signatures_match_the_jax_package(name):
                                             ["device"]),
         "PolarizedTracesPreconditioner3D": (pair("ddm.polarized3d",
                                                  "PolarizedTracesPreconditioner3D"), []),
+        "bump2d.build_problem": (pair("models.bump2d", "build_problem"), ["device"]),
+        "bump2d.solve": (pair("models.bump2d", "solve"), []),
+        "differentiable_solve": (pair("solver.adjoint", "differentiable_solve"), []),
+        "compress_factorization_banded": (pair("sparse.direct", "compress_factorization_banded"),
+                                          []),
+        "compress_factorization_banded_lr": (pair("sparse.direct",
+                                                  "compress_factorization_banded_lr"), []),
+        "compress_factorization_banded_tail": (pair("sparse.direct",
+                                                    "compress_factorization_banded_tail"), []),
     }[name]
     ours = list(inspect.signature(ours).parameters.values())
     theirs = list(inspect.signature(theirs).parameters.values())
@@ -271,8 +285,22 @@ def test_convert_defaults_to_the_card(function, args):
                                 dict(cache_dir="slab_cache"),
                                 dict(double_sweep=True, pivot_dtype_t="banded_lr")])
 def test_unported_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        plasma2d.build_problem(device="cpu", **{**KW, **kw})
+    """The options the port once lacked: the banded pivot modes and
+    ``pivot_rank`` now build and solve (``tests/test_torch_banded_pivots.py``
+    holds them against the JAX package); ``cache_dir`` (ROADMAP.md, Queue 1
+    slice 9) still raises."""
+    if "cache_dir" in kw:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            plasma2d.build_problem(device="cpu", **{**KW, **kw})
+        return
+    tp = plasma2d.build_problem(dtype=torch.complex128, device="cpu", **{**KW, **kw})
+    if kw.get("pivot_dtype_t") == "banded_lr":
+        assert isinstance(tp.precond.slabs_t.fac, direct.BlockTridiagFactorizationBandedLR)
+        assert isinstance(tp.precond.slabs.fac, direct.BlockTridiagFactorization)
+    elif "pivot_dtype" in kw:
+        assert isinstance(tp.precond.slabs.fac, direct.BlockTridiagFactorizationBanded)
+    _, info = plasma2d.solve(tp, **SOLVE)
+    assert bool(info.converged) and float(info.true_residual) < 1e-5
 
 
 def test_package_imports_no_jax():

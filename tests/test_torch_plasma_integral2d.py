@@ -15,8 +15,12 @@ import torch
 
 from fast_solver_lippmann_schwinger_tpu.models import plasma_integral2d as jpi
 from fast_solver_lippmann_schwinger_tpu_torch import resolve_device
-from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized import PolarizedTracesPreconditioner
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized import (
+    PolarizedTracesPreconditioner,
+    pallas_only,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.models import plasma_integral2d as pi
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from torch_threads import few_threads  # noqa: F401
 
 KW = dict(h=1.0 / 40.0, n_subdomains=4, npml=6, n_it=2)
@@ -90,12 +94,43 @@ def test_solve_batched_matches_single_solves(problems, single_solves):
     assert float(info.true_residual.max()) < 1e-4
 
 
-def test_device_rule_and_unported_modes():
-    """No ``device`` means the card (an error without one); a pivot mode the
-    port does not have yet raises, naming the roadmap."""
+def _check_against_full(problems, tp, extra_iterations=None):
+    """A solve on plain banded pivots: converged to the JAX package's
+    full-pivot solution, within ``extra_iterations`` of its count where
+    given."""
+    _, _, jx, jinfo = problems
+    assert not pallas_only(tp.precond.slabs) and tp.precond.slabs.pfac is None
+    tx, info = pi.solve(tp, DIRS[0], **SOLVE)
+    assert bool(info.converged)
+    if extra_iterations is not None:
+        assert int(info.n_iterations) <= int(jinfo.n_iterations) + extra_iterations
+    np.testing.assert_allclose(tx.numpy(), jx, rtol=0, atol=1e-4 * np.abs(jx).max())
+    assert float(info.true_residual) < 1e-4
+
+
+def test_device_rule_and_unported_modes(problems):
+    """No ``device`` means the card (an error without one).  The
+    ``"banded"`` pivots, once a mode the port did not have, build and solve;
+    an unknown mode raises."""
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             pi.build_problem(**KW)
     assert resolve_device("cpu") == torch.device("cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        pi.build_problem(pivot_dtype="banded", device="cpu", **KW)
+    tp = pi.build_problem(dtype=torch.complex128, pivot_dtype="banded", pivot_band=21,
+                          device="cpu", **KW)
+    assert isinstance(tp.precond.slabs.fac, direct.BlockTridiagFactorizationBanded)
+    # the band drops the interface lines' dense Green's functions: 10
+    # iterations against the full pivots' 5 here, so no count is held
+    _check_against_full(problems, tp)
+    with pytest.raises(ValueError, match="unknown pivot_dtype"):
+        pi.build_problem(pivot_dtype="banded_nonsense", device="cpu", **KW)
+
+
+def test_banded_tail_pivots(problems):
+    """The local solves on the tail-dense hybrid (``slabs.fac.slab(s)``, the
+    dense bf16 tail lines after the band): within two iterations of the full
+    pivots, the margin ``tests/test_banded_pivots.py`` pins for this mode."""
+    tp = pi.build_problem(dtype=torch.complex128, pivot_dtype="banded_tail", pivot_band=21,
+                          device="cpu", **KW)
+    assert isinstance(tp.precond.slabs.fac, direct.BlockTridiagFactorizationBandedTail)
+    _check_against_full(problems, tp, 2)

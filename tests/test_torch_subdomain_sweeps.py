@@ -19,6 +19,7 @@ from fast_solver_lippmann_schwinger_tpu_torch import convert
 from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, sweeps
 from fast_solver_lippmann_schwinger_tpu_torch.models import media
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import direct
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk
 from torch_threads import few_threads  # noqa: F401
 
@@ -88,9 +89,18 @@ def test_npml_guard_and_unported_modes(setup):
     grid, k, nu, (_, _, a_np, ag_np), (ta, tag) = setup
     with pytest.raises(ValueError, match="npml"):
         subdomain.build_slab_system(ta, tag, nu, grid.x, grid.y, H, k, 1, npml=4)
-    for kw in (dict(pivot_dtype="banded"), dict(pivot_rank=24), dict(cache_dir="x")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            subdomain.build_slab_system(ta, tag, nu, grid.x, grid.y, H, k, 1, npml=NPML, **kw)
+    # the banded modes, once unported, build; pivot_rank belongs to banded_lr
+    # and is ignored by the other modes, as in the JAX package
+    for kw, kind in ((dict(pivot_dtype="banded"), direct.BlockTridiagFactorizationBanded),
+                     (dict(pivot_rank=24), direct.BlockTridiagFactorization),
+                     (dict(pivot_dtype="banded_lr", pivot_rank=4),
+                      direct.BlockTridiagFactorizationBandedLR)):
+        slabs = subdomain.build_slab_system(ta, tag, nu, grid.x, grid.y, H, k, 1, npml=NPML, **kw)
+        assert isinstance(slabs.fac, kind) and slabs.pfac is None
+    assert slabs.fac.u_re.shape[-1] == 4
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        subdomain.build_slab_system(ta, tag, nu, grid.x, grid.y, H, k, 1, npml=NPML,
+                                    cache_dir="x")
 
 
 @pytest.mark.parametrize("n_subs", [1, 2])

@@ -65,7 +65,14 @@ the JAX package's plain banded pivot modes: the 801 x 801 16-slab double
 sweep on ``"banded_tail"`` pivots beside path 5's kernel layout of the same
 pivots, and ``tests/test_banded_pivots.py``'s configuration in each mode, in
 complex64 and complex128 (counts held to the JAX package's in complex128).
-No hand-written kernel may launch on paths 10-11.  Every 2D line
+No hand-written kernel may launch on paths 10-11.  The twelfth is the user
+surface: path 2's and path 9's problems as ``ProblemConfig``s through
+``api.build_problem`` with a ``cache_dir`` under a fresh temporary directory
+(removed at the end): cold, writing the checkpoints; the joint solve; the
+CLI (``python -m fast_solver_lippmann_schwinger_tpu_torch``) in a subprocess
+on the same directory, warm; a warm build in this process whose loaded
+pivots must equal the built ones bit for bit; the 48^3 polarized solve cold,
+then warm.  Each takes its path's count and kernels.  Every 2D line
 kernel runs the flag-handoff line step (``csrc/thomas_flow.cuh``): the dense
 forward and backward passes (rows 1, 2, 4 and 1i, 2i, 4i), the cached
 forward pass (rows 3, 5, 6, 3i, 5i), the backward pass on banded+tail pivots
@@ -82,13 +89,23 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
+import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
-from fast_solver_lippmann_schwinger_tpu_torch.config import move_to
+from fast_solver_lippmann_schwinger_tpu_torch import api
+from fast_solver_lippmann_schwinger_tpu_torch.config import (
+    DDMConfig,
+    ProblemConfig,
+    SolverConfig,
+    move_to,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.ddm import (
     polarized,
     polarized3d,
@@ -482,7 +499,8 @@ def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_k
     (x, info), times, counts = timed_solves(
         lambda: plasma2d.solve(problem, (1.0, 0.0), **SOLVE_KW), repeats)
     n_it = int(info.n_iterations)
-    SOLVE_RESULTS[name] = dict(ms=sorted(times)[len(times) // 2], iterations=n_it)
+    SOLVE_RESULTS[name] = dict(ms=sorted(times)[len(times) // 2], iterations=n_it,
+                               x=x.cpu())
     emit(
         name, grid=[problem.grid.m, problem.grid.n], k=problem.k,
         n_subdomains=n_subdomains, double_sweep=double_sweep, pivot_dtype=pivot_dtype,
@@ -504,7 +522,8 @@ def phase_solve(device, name: str, n_subdomains: int, double_sweep: bool, path_k
 
 
 DIRECTIONS = ((1.0, 0.0), (0.0, 1.0))
-# median solve milliseconds and iterations of each phase_solve, by phase name
+# median solve milliseconds, iterations and the solution (on the host) of each
+# phase_solve, by phase name; path 9's iterations under "polarized3d_solve"
 SOLVE_RESULTS: dict = {}
 
 
@@ -2717,6 +2736,7 @@ def phase_polarized3d_solve(device, repeats: int = 3):
              peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=c)
         polarized3d_checks(name, c, PLANE_PAIR, true_res, info, x, problem.grid.size)
         out[name] = (c, x)
+        SOLVE_RESULTS[name] = dict(ms=sorted(times)[len(times) // 2], iterations=n_it)
 
     rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
     reset_counts()
@@ -3126,6 +3146,252 @@ def phase_banded_modes(device):
         emit("banded_pins", dtype=str(dtype), iterations=its, jax_cpu_iterations=want, pins=pins)
 
 
+# Path 12: the user surface, api.py, the CLI and cache_dir checkpoints
+# ---------------------------------------------------------------------------
+
+# path 2's problem (the reference's configuration) as a ProblemConfig
+API_2D = dict(dim=2, medium="plasma", h=1.0 / 800.0, precond="double_sweep",
+              pivot_dtype="pallas")
+API_2D_DDM = dict(n_subdomains=16, npml=10)
+# path 9's problem (the JAX package's 3D polarized record)
+API_3D = dict(dim=3, h=1.0 / 48.0, precond="polarized_traces", pivot_dtype="bf16_pallas")
+API_3D_DDM = dict(n_subdomains=4, npml=6, n_inner_iters=2)
+API_SOLVER = dict(rtol=1e-6)
+# the rows path 12 runs: the 801^2 double sweep's line kernels, the 48^3
+# polarized traces' fused plane passes
+API_2D_PAIR = ("thomas_forward_cached", "thomas_backward")
+# launches of each path 12 phase, by phase (for the kernels line)
+API_LAUNCHES: dict = {}
+
+
+def api_config(cache_dir: str, dim: int) -> ProblemConfig:
+    if dim == 2:
+        return ProblemConfig(**API_2D, cache_dir=cache_dir, ddm=DDMConfig(**API_2D_DDM),
+                             solver=SolverConfig(**API_SOLVER, dtype=torch.complex64))
+    return ProblemConfig(**API_3D, cache_dir=cache_dir, ddm=DDMConfig(**API_3D_DDM),
+                         solver=SolverConfig(**API_SOLVER))
+
+
+def cache_files(cache_dir: str) -> dict:
+    """Bytes of each checkpoint file, by name."""
+    return {name: os.path.getsize(os.path.join(cache_dir, name))
+            for name in sorted(os.listdir(cache_dir))}
+
+
+def cache_kinds(files: dict) -> dict:
+    """Bytes by artifact kind (the file prefix: symbol, stencils, slabfac,
+    slabfac3d)."""
+    kinds = {}
+    for name, size in files.items():
+        kind = name.rsplit("_", 1)[0]
+        kinds[kind] = kinds.get(kind, 0) + size
+    return kinds
+
+
+def timed_build(cfg, device):
+    """``api.build_problem`` and its wall seconds, synchronised."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    problem = api.build_problem(cfg, device=device)
+    torch.cuda.synchronize()
+    return problem, time.perf_counter() - t0
+
+
+def solve_tensors(problem) -> dict:
+    """Every tensor of the problem's slab systems (both sweep directions or
+    the 3D slabs): factorizations and kernel layouts, by field path."""
+    out = {}
+
+    def walk(obj, prefix):
+        if isinstance(obj, torch.Tensor):
+            out[prefix] = obj
+        elif dataclasses.is_dataclass(obj):
+            for f in dataclasses.fields(obj):
+                walk(getattr(obj, f.name), f"{prefix}.{f.name}")
+
+    pc = problem.precond
+    for name in ("slabs", "slabs_t"):
+        if hasattr(pc, name):
+            walk(getattr(pc, name).fac, f"{name}.fac")
+            walk(getattr(pc, name).pfac, f"{name}.pfac")
+    return out
+
+
+def phase_api_solve(device, cache_dir: str, smi: str, repeats: int = 3):
+    """Path 2's problem through ``api.build_problem`` on an empty
+    ``cache_dir`` (cold: it writes the checkpoints), then ``solve_problem``
+    timed as path 2 times its solve: the same count, a solution within 1e-5
+    of path 2's, and only path 2's line kernels."""
+    free = shutil.disk_usage(cache_dir).free
+    torch.cuda.reset_peak_memory_stats()
+    problem, setup_s = timed_build(api_config(cache_dir, 2), device)
+    files = cache_files(cache_dir)
+    api.solve_problem(problem)                                # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(lambda: api.solve_problem(problem), repeats)
+    API_LAUNCHES["api_solve"] = counts
+    n_it = int(info.n_iterations)
+    ref = SOLVE_RESULTS["sweep_solve"]
+    _, err = rel_err(x.cpu(), ref["x"])
+    absent = tuple(k for k in COUNTERS if k not in API_2D_PAIR)
+    emit("api_solve", card=smi, config=dict(API_2D, ddm=API_2D_DDM, solver=API_SOLVER),
+         setup_seconds_cold=setup_s, cache_free_bytes_before=free, cache_files_bytes=files,
+         cache_bytes_by_kind=cache_kinds(files), solve_ms=sorted(times)[len(times) // 2],
+         solve_ms_runs=times, path2_solve_ms=ref["ms"], iterations=n_it,
+         path2_iterations=ref["iterations"], converged=bool(info.converged),
+         residuals=[float(v) for v in info.residuals[: n_it + 1]],
+         true_residual=float(info.true_residual), rel_err_vs_path2=err,
+         peak_memory_bytes=torch.cuda.max_memory_allocated(), launches=counts)
+    check(sorted(cache_kinds(files)) == ["slabfac", "stencils", "symbol"]
+          and sum(k.startswith("slabfac") for k in files) == 2,
+          f"the cold build wrote the symbol, the stencils and both directions ({files})")
+    check(tuple(x.shape) == (problem.grid.size,), "api solution shape")
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), "api solution is finite")
+    check(n_it == ref["iterations"], f"api_solve takes path 2's count ({n_it}, {ref['iterations']})")
+    check(err <= 1e-5, f"api_solve within 1e-5 of path 2's solution ({err})")
+    check(float(info.true_residual) <= 1e-3, "api_solve true residual <= 1e-3")
+    check(all(counts[k] > 0 for k in API_2D_PAIR) and not any(counts[k] for k in absent),
+          f"api_solve launched path 2's line kernels and no other ({counts})")
+    return problem, x, setup_s
+
+
+def phase_api_solve_batched(problem, smi: str, repeats: int = 3):
+    """``solve_problem_batched`` on the two directions: each takes the count
+    of its single ``solve_problem``, on path 2's line kernels only."""
+    singles = []
+    for d in DIRECTIONS:
+        single = dataclasses.replace(problem, config=dataclasses.replace(
+            problem.config, incident_direction=d))
+        singles.append(int(api.solve_problem(single)[1].n_iterations))
+    api.solve_problem_batched(problem, DIRECTIONS)            # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(
+        lambda: api.solve_problem_batched(problem, DIRECTIONS), repeats)
+    API_LAUNCHES["api_solve_batched"] = counts
+    its = [int(v) for v in info.n_iterations]
+    absent = tuple(k for k in COUNTERS if k not in API_2D_PAIR)
+    ms = sorted(times)[len(times) // 2]
+    emit("api_solve_batched", card=smi, directions=DIRECTIONS, solve_ms=ms, solve_ms_runs=times,
+         ms_per_direction=ms / len(DIRECTIONS), iterations=its, single_iterations=singles,
+         converged=[bool(v) for v in info.converged],
+         true_residual=[float(v) for v in info.true_residual], launches=counts)
+    check(tuple(x.shape) == (len(DIRECTIONS), problem.grid.size), "api batched solution shape")
+    check(its == singles, f"each direction takes its single count ({its}, {singles})")
+    check(float(info.true_residual.max()) <= 1e-3, "api batched true residuals <= 1e-3")
+    check(all(counts[k] > 0 for k in API_2D_PAIR) and not any(counts[k] for k in absent),
+          f"api_solve_batched launched path 2's line kernels and no other ({counts})")
+
+
+def phase_cli_warm(device, problem, x, tmp: str, cold_s: float, smi: str):
+    """The CLI in a subprocess on the same ``cache_dir`` (warm: it loads the
+    checkpoints), then a warm ``build_problem`` in this process: the same
+    count, the CLI's field within 1e-6 of ``api_solve``'s solution, and every
+    loaded pivot tensor bit-identical to the built one."""
+    cfg_path, base = os.path.join(tmp, "cfg.json"), os.path.join(tmp, "u")
+    cfg = dict(API_2D, cache_dir=os.path.join(tmp, "cache"), ddm=API_2D_DDM,
+               solver=dict(API_SOLVER, dtype="complex64"))
+    with open(cfg_path, "w") as fh:
+        json.dump(cfg, fh)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "fast_solver_lippmann_schwinger_tpu_torch", "--config", cfg_path,
+         "--save-field", base], cwd=os.path.dirname(os.path.abspath(__file__)),
+        capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    check(out.returncode == 0, f"the CLI ran ({out.returncode}): {out.stderr[-2000:]}")
+    timer = json.loads(out.stderr.strip().splitlines()[-1])
+    (line,) = [ln for ln in out.stdout.splitlines() if ln.startswith("iterations to")]
+    cli_its = int(line.split(":")[1])
+    u = torch.from_numpy(np.load(base + ".npz")["u"]).reshape(-1)
+    _, err = rel_err(u, x.cpu())
+
+    warm, warm_s = timed_build(problem.config, device)
+    built, loaded = solve_tensors(problem), solve_tensors(warm)
+    identical = {k: built[k].dtype == loaded[k].dtype and torch.equal(built[k], loaded[k])
+                 for k in built}
+    x_warm, info_warm = api.solve_problem(warm)
+    emit("cli_warm", card=smi, setup_seconds_cold=cold_s, setup_seconds_cli_warm=timer["phases_s"]
+         ["setup"], cli_phases_s=timer["phases_s"], cli_process_seconds=cli_s,
+         setup_seconds_in_process_warm=warm_s, iterations=cli_its,
+         in_process_warm_iterations=int(info_warm.n_iterations), cli_rel_err_vs_api_solve=err,
+         pivot_tensors=len(built), pivot_bytes=sum(t.numel() * t.element_size()
+                                                   for t in built.values()),
+         pivots_bit_identical=all(identical.values()) and built.keys() == loaded.keys(),
+         warm_solution_bit_identical=bool(torch.equal(x_warm, x)))
+    check(cli_its == int(info_warm.n_iterations) == SOLVE_RESULTS["sweep_solve"]["iterations"],
+          f"the warm CLI and in-process solves take path 2's count ({cli_its})")
+    check(err <= 1e-6, f"the CLI's field within 1e-6 of api_solve's solution ({err})")
+    check(built.keys() == loaded.keys() and all(identical.values()),
+          f"loaded pivot tensors bit-identical to the built ones "
+          f"({[k for k, v in identical.items() if not v]})")
+    check(len(cache_files(cfg["cache_dir"])) == 4, "the warm runs wrote no new checkpoint")
+
+
+def phase_api_3d(device, cache_dir: str, smi: str, repeats: int = 3):
+    """Path 9's configuration through the API, cold on an empty directory and
+    then warm in the same process: path 9's count on the fused plane passes
+    and no other kernel, and the warm build's plane stack bit-identical."""
+    cfg = api_config(cache_dir, 3)
+    problem, cold_s = timed_build(cfg, device)
+    files = cache_files(cache_dir)
+    api.solve_problem(problem)                                # warm-up
+    torch.cuda.synchronize()
+    (x, info), times, counts = timed_solves(lambda: api.solve_problem(problem), repeats)
+    API_LAUNCHES["api_3d"] = counts
+    built = solve_tensors(problem)
+    warm, warm_s = timed_build(cfg, device)
+    loaded = solve_tensors(warm)
+    identical = built.keys() == loaded.keys() and all(
+        built[k].dtype == loaded[k].dtype and torch.equal(built[k], loaded[k]) for k in built)
+    n_it = int(info.n_iterations)
+    want = SOLVE_RESULTS["polarized3d_solve"]["iterations"]
+    emit("api_3d", card=smi, config=dict(API_3D, ddm=API_3D_DDM, solver=API_SOLVER),
+         setup_seconds_cold=cold_s, setup_seconds_warm=warm_s, cache_files_bytes=files,
+         cache_bytes_by_kind=cache_kinds(files), solve_ms=sorted(times)[len(times) // 2],
+         solve_ms_runs=times, iterations=n_it, path9_iterations=want,
+         converged=bool(info.converged), residuals=[float(v) for v in info.residuals[: n_it + 1]],
+         true_residual=float(info.true_residual), stack_bit_identical=identical,
+         stack_bytes=problem.precond.slabs.pfac.nbytes, launches=counts)
+    polarized3d_checks("api_3d", counts, PLANE_PAIR, float(info.true_residual), info, x,
+                       problem.grid.size)
+    check(n_it == want, f"api_3d takes path 9's count ({n_it}, {want})")
+    check(identical, "the warm 3D build loads a bit-identical plane stack")
+    check(sorted(cache_kinds(files)) == ["slabfac3d", "stencils", "symbol"],
+          f"the cold 3D build wrote its checkpoints ({files})")
+
+
+def path12(device, smi: str):
+    """Path 12: the user surface at full width, with its cache under a fresh
+    temporary directory, removed at the end."""
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cache_")
+    try:
+        cache = os.path.join(tmp, "cache")
+        os.makedirs(cache)
+        problem, x, cold_s = phase_api_solve(device, cache, smi)
+        phase_api_solve_batched(problem, smi)
+        phase_cli_warm(device, problem, x, tmp, cold_s, smi)
+        del problem, x
+        torch.cuda.empty_cache()
+        cache3d = os.path.join(tmp, "cache3d")
+        os.makedirs(cache3d)
+        phase_api_3d(device, cache3d, smi)
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def with_api_launches(kernels: list) -> list:
+    """Each kernel entry of a row that path 12 ran gains ``api_launches``: its
+    launches in each path 12 phase that launched it."""
+    names = {info["kernel"]: name for name, info in KERNEL_INFO.items()}
+    for entry in kernels:
+        name = names[entry["kernel"]]
+        runs = {phase: c[name] for phase, c in API_LAUNCHES.items() if c[name]}
+        if runs:
+            entry["api_launches"] = runs
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3266,6 +3532,12 @@ def main() -> int:
     phase_banded_801(device)
     torch.cuda.empty_cache()
     phase_banded_modes(device)
+
+    marks.append(("path 12", time.perf_counter()))
+    # path 12: the user surface (api.py, the CLI, cache_dir) on path 2's and
+    # path 9's problems
+    path12(device, smi)
+    kernels = with_api_launches(kernels)
 
     marks.append(("end", time.perf_counter()))
     emit("timeline", seconds_from_start={name: t - marks[0][1] for name, t in marks[1:]})

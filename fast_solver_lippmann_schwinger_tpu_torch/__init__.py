@@ -7,9 +7,16 @@ reader finds each module's twin (``ops/fastconv.py`` <-> ``ops/fastconv.py``,
 ``sparse/pallas_thomas.py`` <-> ``sparse/thomas_kernels.py``,
 ``sparse/pallas_plane.py`` <-> ``sparse/plane_kernels.py``).
 
-Ported so far (``ROADMAP.md`` lists what is not: the user surface of
-``config.py``/``api.py`` with checkpoints, and the multi-device layouts):
+Ported so far (``ROADMAP.md`` lists what is not: the multi-device layouts
+of ``parallel/`` and the example scripts of ``examples/``):
 
+* the user surface: the typed configuration (``config.py``:
+  ``ProblemConfig``, ``SolverConfig``, ``DDMConfig``), the config-driven API
+  (``api.py``: ``build_problem``, ``solve_problem``,
+  ``solve_problem_batched``), the CLI (``python -m
+  fast_solver_lippmann_schwinger_tpu_torch``), checkpoints of the setup
+  artifacts under ``cache_dir`` (``utils/checkpoint.py``), field output
+  (``utils/fields.py``) and phase timing (``utils/timing.py``);
 * the 2D Lippmann-Schwinger operator on both quadratures (``ops/fastconv.py``;
   the Duan-Rokhlin trapezoidal rule is the default, as in the JAX package),
   the annihilator stencils and the block-Thomas factorization;
@@ -42,23 +49,91 @@ across for the tests.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 
-from fast_solver_lippmann_schwinger_tpu_torch.config import QuadRule, resolve_device
+from fast_solver_lippmann_schwinger_tpu_torch.config import (
+    DDMConfig,
+    ProblemConfig,
+    QuadRule,
+    SolverConfig,
+    resolve_device,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.core.grids import Grid2D, Grid3D
+from fast_solver_lippmann_schwinger_tpu_torch.ops.fastconv import (
+    LippmannSchwinger2D,
+    LippmannSchwinger3D,
+    build_fast_convolution_2d,
+    build_fast_convolution_3d,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres
+from fast_solver_lippmann_schwinger_tpu_torch.solver.adjoint import (
+    apply_transpose,
+    differentiable_solve,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencils import (
+    build_sparse_a_2d,
+    build_sparse_a_ag_2d,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
+    BlockTridiagFactorization,
+    factor_stencil_2d,
+    block_thomas_solve,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.precond.sparsifying import (
     SparsifyingPreconditioner,
     SparsifyingPreconditioner3D,
     SparsifyingPreconditionerT,
 )
-from fast_solver_lippmann_schwinger_tpu_torch.solver.adjoint import (
-    apply_transpose,
-    differentiable_solve,
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import (
+    SlabSystem,
+    build_slab_system,
 )
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import (
+    DoubleSweepPreconditioner,
+    GSPreconditioner,
+    InnerGMRESPreconditioner,
+    gs_sweep,
+    jacobi_sweep,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized import (
+    PolarizedTracesPreconditioner,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.utils.fields import save_field
+from fast_solver_lippmann_schwinger_tpu_torch import api
+
+__version__ = "0.1.0"
 
 __all__ = [
     "QuadRule",
+    "SolverConfig",
+    "DDMConfig",
+    "ProblemConfig",
     "resolve_device",
+    "Grid2D",
+    "Grid3D",
+    "LippmannSchwinger2D",
+    "LippmannSchwinger3D",
+    "build_fast_convolution_2d",
+    "build_fast_convolution_3d",
+    "gmres",
+    "apply_transpose",
+    "differentiable_solve",
+    "StencilMatrix2D",
+    "build_sparse_a_2d",
+    "build_sparse_a_ag_2d",
+    "BlockTridiagFactorization",
+    "factor_stencil_2d",
+    "block_thomas_solve",
     "SparsifyingPreconditioner",
     "SparsifyingPreconditioner3D",
     "SparsifyingPreconditionerT",
-    "apply_transpose",
-    "differentiable_solve",
+    "SlabSystem",
+    "build_slab_system",
+    "DoubleSweepPreconditioner",
+    "GSPreconditioner",
+    "InnerGMRESPreconditioner",
+    "gs_sweep",
+    "jacobi_sweep",
+    "PolarizedTracesPreconditioner",
+    "save_field",
+    "api",
 ]

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import time
 from typing import NamedTuple
 
 import numpy as np
@@ -42,6 +43,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     factor_stencil_values,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix2D
+from fast_solver_lippmann_schwinger_tpu_torch.utils import checkpoint
 
 
 def subdomain_limits(m: int, n_subs: int):
@@ -267,6 +269,20 @@ def attach_banded_tail(slabs: SlabSystem, pivot_band: int | None = None) -> Slab
 # pivot modes of build_slab_system: the JAX package's, every one
 PIVOT_MODES = ("full", "bf16", "banded", "banded_tail", "banded_lr", "pallas", "pallas_int8",
                "pallas_banded_tail")
+# what each pivot mode keeps: the class of ``fac`` and that of the kernel
+# layout ``pfac`` with its storage (None: no kernel layout); a checkpoint
+# that holds anything else is recomputed
+_MODE_LAYOUT = {
+    "full": (BlockTridiagFactorization, None, None),
+    "bf16": (BlockTridiagFactorizationBF16, None, None),
+    "banded": (BlockTridiagFactorizationBanded, None, None),
+    "banded_tail": (BlockTridiagFactorizationBandedTail, None, None),
+    "banded_lr": (BlockTridiagFactorizationBandedLR, None, None),
+    "pallas": (BlockTridiagFactorization, thomas_kernels.ThomasFactorization, "bf16"),
+    "pallas_int8": (BlockTridiagFactorization, thomas_kernels.ThomasFactorization, "int8"),
+    "pallas_banded_tail": (BlockTridiagFactorization, thomas_kernels.BandedTailFactorization,
+                           "bf16"),
+}
 # rank of the low-rank term of "banded_lr" when pivot_rank is None
 DEFAULT_PIVOT_RANK = 24
 
@@ -330,6 +346,7 @@ def build_slab_system(
     pivot_rank: int | None = None,
     cache_dir: str | None = None,
     device=None,
+    timings: dict | None = None,
 ) -> SlabSystem:
     """Construct and factor all slabs of one sweep direction.
 
@@ -345,18 +362,27 @@ def build_slab_system(
     ``"pallas_banded_tail"`` (only the banded+tail hybrid layout of the
     kernels; see :func:`attach_banded_tail`).  The slabs live on the
     stencils' device unless ``device`` says otherwise.
+
+    ``cache_dir`` checkpoints the factorization in its final pivot mode
+    (``slabfac_<key>.pt``, ``utils/checkpoint.py``), never the dense pivots
+    it is packed from, keyed as in the JAX package (a digest of the local
+    stencils, their shape, ``pivot_dtype``, ``pivot_band``, ``pivot_rank``
+    and the dtype) and on the version of the kernels' pivot layouts.  A
+    checkpoint is written from whatever device the slabs were built on.
+
+    ``timings``, when given, receives the wall seconds of ``factorization``
+    (the local stencils and their dense factorization), ``packing`` (into
+    ``pivot_dtype``) and, with a ``cache_dir``, ``checkpoint`` (the load, or
+    the miss and the save), synchronised on the device.
     """
     if pivot_dtype not in PIVOT_MODES:
         raise ValueError(f"unknown pivot_dtype {pivot_dtype!r}; one of {PIVOT_MODES}")
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
-        )
     if npml < 5:
         # absorbing_nu indexes y1[ndelta - 3] / y1[m1 - ndelta + 1]; below 5
         # the cutoff knots mis-order and the spline clamp silently produces a
         # useless (blowing-up) absorbing profile
         raise ValueError(f"npml must be >= 5 for ordered cutoff knots, got {npml}")
+    t_start = time.perf_counter()
     m, n = a_st.m, a_st.n
     dtype = a_st.values.dtype
     device = a_st.values.device if device is None else resolve_device(device)
@@ -485,7 +511,7 @@ def build_slab_system(
 
     slabs = SlabSystem(
         h_stencils=h_dev,
-        fac=factor_stencil_values(h_dev),
+        fac=None,                   # factored, or loaded, below
         l0=index(np.maximum(l0, 0)),
         l1=index(np.maximum(l1, 0)),
         ln=index(np.maximum(ln, 0)),
@@ -507,7 +533,57 @@ def build_slab_system(
         trace_tail=trace_tail,
         trace_head=trace_head,
     )
-    return pack_pivots(slabs, pivot_dtype, pivot_band, pivot_rank)
+    seconds = {"factorization": 0.0, "packing": 0.0}
+
+    def lap(part, t0):
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        seconds[part] = seconds.get(part, 0.0) + time.perf_counter() - t0
+
+    lap("factorization", t_start)
+    path = None
+    if cache_dir is not None:
+        t0 = time.perf_counter()
+        path = checkpoint.path_for(
+            cache_dir, "slabfac", h_digest=checkpoint.digest(h_sten), shape=list(h_sten.shape),
+            pivot_dtype=pivot_dtype, pivot_band=pivot_band, pivot_rank=pivot_rank,
+            dtype=str(dtype), layout=thomas_kernels.LAYOUT_VERSION,
+        )
+        loaded = checkpoint.load(path, device, check=lambda facs: _fits(
+            facs, pivot_dtype, (S, m1_max, n, 3), dtype))
+        lap("checkpoint", t0)
+        if loaded is not None:
+            slabs = dataclasses.replace(slabs, fac=loaded[0], pfac=loaded[1])
+    if slabs.fac is None:
+        t0 = time.perf_counter()
+        slabs = dataclasses.replace(slabs, fac=factor_stencil_values(h_dev))
+        lap("factorization", t0)
+        t0 = time.perf_counter()
+        slabs = pack_pivots(slabs, pivot_dtype, pivot_band, pivot_rank)
+        lap("packing", t0)
+        if path is not None:
+            t0 = time.perf_counter()
+            checkpoint.save(path, (slabs.fac, slabs.pfac))
+            lap("checkpoint", t0)
+    if timings is not None:
+        timings.update(seconds)
+    return slabs
+
+
+def _fits(facs, pivot_dtype: str, band_shape: tuple, dtype: torch.dtype) -> bool:
+    """Whether a loaded ``(fac, pfac)`` is what ``pivot_dtype`` keeps for
+    slab stencils whose bands are ``band_shape`` (S, m1_max, n, 3) in
+    ``dtype``."""
+    fac, pfac = facs
+    fac_kind, pfac_kind, storage = _MODE_LAYOUT[pivot_dtype]
+    if type(fac) is not fac_kind or tuple(fac.lband.shape) != band_shape \
+            or fac.lband.dtype != dtype:
+        return False
+    if pfac_kind is None:
+        return pfac is None
+    S, m1, n, _ = band_shape
+    return (type(pfac) is pfac_kind and pfac.storage == storage and pfac.n == n
+            and tuple(pfac.lband.shape[:2]) == (S, m1))
 
 
 def partition_source(slabs: SlabSystem, b: torch.Tensor) -> torch.Tensor:

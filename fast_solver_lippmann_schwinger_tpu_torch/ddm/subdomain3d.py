@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import hashlib
 import time
 
 import numpy as np
@@ -55,6 +56,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.direct import (
     factor_stencil_3d,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix3D
+from fast_solver_lippmann_schwinger_tpu_torch.utils import checkpoint
 
 # pivot modes of build_slab_system_3d without the "_pallas" suffix: layout and
 # storage of the plane pivots
@@ -255,16 +257,19 @@ def build_slab_system_3d(
     ``factor_stencil_3d``, which accepts and ignores it, as the JAX package
     does.
 
+    ``cache_dir`` checkpoints the factorization and the plane stack in the
+    final storage (``slabfac3d_<key>.pt``, ``utils/checkpoint.py``), keyed as
+    in the JAX package (a digest of the local stencils, their shape,
+    ``pivot_dtype``, ``pivot_band``, the dtype) and on the version of the
+    plane kernels' stack layout.
+
     ``timings``, when given, receives the wall seconds of the parts:
     ``slab_fields`` (host stencil fields), ``factorization`` and ``packing``
-    (synchronised on the device).  ``cache_dir`` (ROADMAP.md, Queue 1
-    slice 9) and ``fac_provider`` (slice 10, the beyond-one-device capacity
-    path) are not ported yet and raise.
+    and, with a ``cache_dir``, ``checkpoint`` (the load, or the miss and the
+    save), synchronised on the device.  ``fac_provider`` (ROADMAP.md, Queue 1
+    slice 10, the beyond-one-device capacity path) is not ported yet and
+    raises.
     """
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1 slice 9)"
-        )
     if fac_provider is not None:
         raise NotImplementedError(
             "fac_provider is not ported yet (ROADMAP.md, Queue 1 slice 10)"
@@ -287,7 +292,7 @@ def build_slab_system_3d(
     def lap(part, t0):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
-        seconds[part] += time.perf_counter() - t0
+        seconds[part] = seconds.get(part, 0.0) + time.perf_counter() - t0
 
     ind1, indn = subdomain_limits(l, n_subs)
     kstart = np.maximum(ind1 - npml, 0)
@@ -307,11 +312,12 @@ def build_slab_system_3d(
     cpl = {name: np.zeros((S, m, n, 3, 3), np.complex128)
            for name in ("cpl_01", "cpl_10", "cpl_n_np", "cpl_np_n")}
 
-    batched = stack = None
+    h_slabs = []
     for s in range(S):
         t0 = time.perf_counter()
         h_s = _slab_stencil(s, a_vals, ag_vals, nu, z, h, k, npml, shift_factor, ind1, indn,
                             kstart, kend, l1_max)
+        h_slabs.append(h_s)
         lsl = int(l1[s])
         if ind1[s] != 0:
             pl0[s], pl1[s] = npml - 1, npml
@@ -327,8 +333,31 @@ def build_slab_system_3d(
             src_valid[s, ell] = True
             owner[kstart[s] + ell] = s
             owner_plane[kstart[s] + ell] = ell
+        lap("slab_fields", t0)
+
+    fac = stack = path = None
+    if cache_dir is not None:
+        t0 = time.perf_counter()
+        digest = hashlib.sha256()
+        for h_s in h_slabs:         # the bytes of the (S, l1_max, ...) stack
+            digest.update(h_s.tobytes())
+        path = checkpoint.path_for(
+            cache_dir, "slabfac3d", h_digest=digest.hexdigest(), shape=[S, *h_slabs[0].shape],
+            pivot_dtype=pivot_dtype, pivot_band=pivot_band, dtype=str(dtype),
+            layout=plane_kernels.LAYOUT_VERSION,
+        )
+        loaded = checkpoint.load(path, device, check=lambda facs: _fits(
+            facs, layout, storage, use_pallas, S, (l1_max, m, n), dtype))
+        if loaded is not None:
+            fac, stack = loaded
+            h_slabs.clear()
+        lap("checkpoint", t0)
+
+    batched = None
+    for s, h_s in enumerate(h_slabs):
+        t0 = time.perf_counter()
         v = to_tensor(h_s, dtype, device)
-        del h_s
+        h_slabs[s] = None
         if layout == "y":
             # block over y: grid axes (l, m, n) -> (m, l, n) and the stencil
             # offset axes to match; the factorization is axis-agnostic
@@ -359,12 +388,16 @@ def build_slab_system_3d(
         del fac_s
         lap("packing", t0)
 
-    if use_pallas:
+    if batched is not None and use_pallas:
         lsten = batched["lsten"]
         fac = BlockTridiagFactorization3D(
             cinv=lsten.new_zeros(tuple(lsten.shape[:2]) + (0, 0)), **batched)
-    else:
+    elif batched is not None:
         fac = kind(**batched)
+    if path is not None and batched is not None:
+        t0 = time.perf_counter()
+        checkpoint.save(path, (fac, stack))
+        lap("checkpoint", t0)
     if timings is not None:
         timings.update(seconds)
 
@@ -390,6 +423,23 @@ def build_slab_system_3d(
         trace_head=int(pl0[pl0 >= 0].min()) if (pl0 >= 0).any() else 0,
         pfac=stack,
     )
+
+
+def _fits(facs, layout: str, storage: str, use_pallas: bool, S: int, zmn: tuple,
+          dtype: torch.dtype) -> bool:
+    """Whether a loaded ``(fac, stack)`` holds ``S`` slabs of (l1_max, m, n)
+    planes ``zmn`` in ``layout`` and ``storage``, with a plane stack exactly
+    when ``use_pallas``."""
+    fac, stack = facs
+    l1, m, n = zmn
+    planes = (l1, m, n) if layout == "z" else (m, l1, n)
+    if tuple(fac.lsten.shape) != (S, *planes, 3, 3) or fac.lsten.dtype != dtype:
+        return False
+    if not use_pallas:
+        pivots = {"full": "cinv", "bf16": "cinv_re", "int8": "q_re"}[storage]
+        return stack is None and hasattr(fac, pivots)
+    return (isinstance(stack, plane_kernels.PlaneStack) and stack.storage == storage
+            and stack.n_planes == S * planes[0] and stack.mn == planes[1] * planes[2])
 
 
 def slab_solve_3d(slabs: SlabSystem3D, fac_slice, rhs: torch.Tensor, start: int = 0,

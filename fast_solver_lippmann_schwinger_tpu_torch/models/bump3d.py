@@ -100,14 +100,14 @@ def build_problem(
       ``inner_tol=1e-2``, ``inner_maxiter=40``).  The JAX package's record
       is ``h=1/48, n_subdomains=4, npml=6, pivot_dtype="bf16_pallas"``.
 
-    ``cache_dir`` (ROADMAP.md, Queue 1 slice 9) is not ported yet and raises.
+    ``cache_dir`` checkpoints the stencil fields and, for the slab
+    preconditioners, the slab factorization in its pivot storage
+    (``utils/checkpoint.py``), as the JAX package's ``bump3d`` does; the
+    symbol and the sparsifying preconditioner's full-grid factorization are
+    recomputed.
     """
     if precond not in ("sparsifying", "gs", "polarized_traces"):
         raise ValueError(f"unknown precond {precond!r}")
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1 slice 9)"
-        )
     device = resolve_device(device)
 
     def lap(t0):
@@ -129,11 +129,12 @@ def build_problem(
     pc = a_st = ag_st = None
     if with_preconditioner:
         t0 = time.perf_counter()
-        a_st, ag_st = stencils.build_sparse_a_ag_3d(k, op, dtype=dtype, device=device)
+        a_st, ag_st = stencils.build_sparse_a_ag_3d(k, op, dtype=dtype, cache_dir=cache_dir,
+                                                    device=device)
         seconds["stencils"] = lap(t0)
         if precond in ("gs", "polarized_traces"):
             pc = _slab_preconditioner(precond, a_st, ag_st, nu, grid, k, n_subdomains, npml,
-                                      pivot_dtype, seconds, lap)
+                                      pivot_dtype, cache_dir, seconds, lap)
         else:
             pc = _sparsifying(a_st, ag_st, nu, k, pivot_dtype, seconds, lap)
 
@@ -144,14 +145,14 @@ def build_problem(
 
 
 def _slab_preconditioner(precond, a_st, ag_st, nu, grid, k, n_subdomains, npml, pivot_dtype,
-                         seconds, lap):
+                         cache_dir, seconds, lap):
     """The z-slab sweep or polarized-traces preconditioner on one slab
     system; ``seconds`` receives ``slabs`` and its parts
     (``build_slab_system_3d``'s ``timings``)."""
     t0 = time.perf_counter()
     parts = {}
     slabs = build_slab_system_3d(a_st, ag_st, nu, grid.x, grid.h, k, n_subdomains, npml=npml,
-                                 pivot_dtype=pivot_dtype, timings=parts)
+                                 pivot_dtype=pivot_dtype, cache_dir=cache_dir, timings=parts)
     seconds["slabs"] = lap(t0)
     seconds.update(parts)
     if precond == "polarized_traces":

@@ -33,7 +33,6 @@ from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain import (
     PIVOT_MODES,
     attach_pallas,
     build_slab_system,
-    pack_pivots,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import (
     DoubleSweepPreconditioner,
@@ -56,8 +55,9 @@ class Plasma2DProblem:
     precond: SingleSweepPreconditioner | DoubleSweepPreconditioner
     nu: np.ndarray
     # wall seconds of each setup phase (symbol, stencils, factorization,
-    # packing, and with the double sweep factorization_t and packing_t of the
-    # transposed slab system), synchronised on the device at each boundary
+    # packing, with a cache_dir checkpoint, and with the double sweep the same
+    # of the transposed slab system with a suffix _t), synchronised on the
+    # device at each boundary
     setup_seconds: dict = dataclasses.field(default_factory=dict)
 
 
@@ -85,7 +85,9 @@ def build_problem(
     means ``pivot_dtype``.  ``pivot_band`` is the kept band width of the
     banded modes (``None``: the w(n) rule, ``direct.default_band_width``),
     ``pivot_rank`` the rank of ``"banded_lr"`` (``None``: 24).  ``cache_dir``
-    is not ported yet and raises unless ``None``.
+    checkpoints the symbol, the stencil fields and each direction's slab
+    factorization in its pivot mode (``utils/checkpoint.py``); the kernel
+    planes of ``use_pallas`` are packed from the pivots after a load too.
 
     ``use_pallas=True``, as in the JAX package, attaches bf16 kernel planes
     packed from each direction's pivots (which stay) and runs the As b step
@@ -97,8 +99,11 @@ def build_problem(
     the port raises ``ValueError``.
 
     Each direction is factored with dense pivots in the working dtype first
-    and then packed into its pivot mode right away, slab by slab, so that the
-    dense pivots of one direction are freed before the other is factored.
+    and then packed into its pivot mode right away, so that the dense pivots
+    of one direction are freed before the other is factored.
+    ``setup_seconds`` splits the setup into ``symbol``, ``stencils`` and, per
+    direction, ``factorization`` and ``packing`` (with ``checkpoint`` where
+    ``cache_dir`` is given); the transposed direction's carry ``_t``.
     """
     if pivot_dtype_t is None:
         pivot_dtype_t = pivot_dtype
@@ -116,10 +121,6 @@ def build_problem(
                 f"use_pallas=True with pivot_dtype={mode!r}: the kernel planes are "
                 "packed from full or bf16 pivots, and a banded mode keeps neither"
             )
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
-        )
     device = resolve_device(device)
 
     def lap(t0):
@@ -136,28 +137,30 @@ def build_problem(
     t0 = time.perf_counter()
     op = build_fast_convolution_2d(
         grid.x, grid.y, h, k, nu, quad_rule="greengard_vico", dtype=dtype,
-        device=device,
+        cache_dir=cache_dir, device=device,
     )
     seconds["symbol"] = lap(t0)
 
     t0 = time.perf_counter()
     a_st, ag_st, a_np, ag_np = stencils.build_sparse_a_ag_2d(
-        k, grid.x, grid.y, h, dtype=dtype, return_host=True, device=device,
+        k, grid.x, grid.y, h, dtype=dtype, return_host=True, cache_dir=cache_dir,
+        device=device,
     )
     seconds["stencils"] = lap(t0)
 
     def slab_system(a, ag, nu_dir, x, y, a_host, ag_host, mode, suffix):
-        t0 = time.perf_counter()
+        parts = {}
         slabs = build_slab_system(
             a, ag, nu_dir, x, y, h, k, n_subdomains, npml=npml,
-            a_host=a_host, ag_host=ag_host, pivot_dtype="full", device=device,
+            a_host=a_host, ag_host=ag_host, pivot_dtype=mode, pivot_band=pivot_band,
+            pivot_rank=pivot_rank, cache_dir=cache_dir, device=device, timings=parts,
         )
-        seconds["factorization" + suffix] = lap(t0)
         t0 = time.perf_counter()
-        slabs = pack_pivots(slabs, mode, pivot_band, pivot_rank)
         if use_pallas:
             slabs = attach_pallas(slabs)
-        seconds["packing" + suffix] = lap(t0)
+        parts["packing"] += lap(t0)
+        for part, sec in parts.items():
+            seconds[part + suffix] = sec
         return slabs
 
     # the preconditioner's As b step takes the kernel; msp (below) is built

@@ -36,6 +36,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.config import (
     to_tensor,
 )
 from fast_solver_lippmann_schwinger_tpu_torch.ops import greens
+from fast_solver_lippmann_schwinger_tpu_torch.utils import checkpoint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,6 +103,27 @@ class LippmannSchwinger2D:
         return self.apply(u)
 
 
+def _cached_symbol(compute, cache_dir, **key_fields) -> np.ndarray:
+    """The host spectral symbol (``GFFT``) from ``compute()``, which returns
+    ``(sym, *extents)``, or from its checkpoint in ``cache_dir`` keyed on the
+    quadrature configuration (the JAX package's ``_cached_symbol``; the size
+    class ``pow2`` is resolved before it enters the key)."""
+    if cache_dir is None:
+        return compute()[0]
+
+    def computed():
+        sym, *extents = compute()
+        return (sym, *map(int, extents))
+
+    def fits(out):
+        sym, *extents = out
+        return (sym.dtype == np.complex128 and sym.ndim == key_fields["dim"]
+                and sym.shape == tuple(reversed(extents)))
+
+    return checkpoint.cached(checkpoint.path_for(cache_dir, "symbol", **key_fields),
+                             computed, fits)[0]
+
+
 def build_fast_convolution_2d(
     x: np.ndarray,
     y: np.ndarray,
@@ -125,33 +147,33 @@ def build_fast_convolution_2d(
     extended sizes (``2n-1`` trapezoidal, ``4n`` Greengard-Vico);
     ``prefer_pow2`` picks the size class of the friendly ones (power of two
     instead of 5-smooth).  The symbol is computed on the host in float64 and
-    moved to ``device`` in ``dtype``.
+    moved to ``device`` in ``dtype``; ``cache_dir`` checkpoints it
+    (``utils/checkpoint.py``), keyed on the quadrature configuration.
     """
     device = resolve_device(device)
     quad_rule = QuadRule(quad_rule)
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
-        )
     n, m = len(x), len(y)
     X, Y = np.meshgrid(np.asarray(x), np.asarray(y), indexing="xy")
     nu_arr = nu(X, Y) if callable(nu) else np.asarray(nu).reshape(m, n)
 
-    if quad_rule == QuadRule.TRAPEZOIDAL:
-        sym, _, _ = greens.trapezoidal_kernel_2d(
-            n, m, h, k,
-            ne=None if pad_to_friendly else 2 * n - 1,
-            me=None if pad_to_friendly else 2 * m - 1,
-            prefer_pow2=prefer_pow2,
-        )
-    elif pad_to_friendly:
-        # exact compact re-embedding of the GV quadrature: ~2n extended
-        # grid instead of 4n (see greens.gv_compact_kernel_2d)
-        sym, _, _ = greens.gv_compact_kernel_2d(
-            n, m, h, k, prefer_pow2=prefer_pow2
-        )
-    else:
-        sym, _, _ = greens.gv_symbol_2d(n, m, h, k, ne=4 * n, me=4 * m)
+    def _symbol():
+        if quad_rule == QuadRule.TRAPEZOIDAL:
+            return greens.trapezoidal_kernel_2d(
+                n, m, h, k,
+                ne=None if pad_to_friendly else 2 * n - 1,
+                me=None if pad_to_friendly else 2 * m - 1,
+                prefer_pow2=prefer_pow2,
+            )
+        if pad_to_friendly:
+            # exact compact re-embedding of the GV quadrature: ~2n extended
+            # grid instead of 4n (see greens.gv_compact_kernel_2d)
+            return greens.gv_compact_kernel_2d(n, m, h, k, prefer_pow2=prefer_pow2)
+        return greens.gv_symbol_2d(n, m, h, k, ne=4 * n, me=4 * m)
+
+    sym = _cached_symbol(
+        _symbol, cache_dir, dim=2, quad=quad_rule.value, n=n, m=m, h=h, k=k,
+        pad=pad_to_friendly, pow2=bool(prefer_pow2) if pad_to_friendly else None,
+    )
 
     return LippmannSchwinger2D(
         symbol=to_tensor(sym, dtype, device),
@@ -234,22 +256,25 @@ def build_fast_convolution_3d(
     """3D fast operator (reference ``buildFastConvolution3D``,
     ``src/FastConvolution3D.jl:68-132``; Greengard-Vico only, as in the
     reference's working path).  ``nu`` is a callable ``nu(X, Y, Z)`` or an
-    (l, m, n) array; ``prefer_pow2`` picks the extended-grid size class."""
+    (l, m, n) array; ``prefer_pow2`` picks the extended-grid size class;
+    ``cache_dir`` checkpoints the symbol."""
     device = resolve_device(device)
     quad_rule = QuadRule(quad_rule)
     if quad_rule != QuadRule.GREENGARD_VICO:
         raise NotImplementedError("3D supports the Greengard-Vico rule")
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1 slice 9)"
-        )
     n, m, l = len(x), len(y), len(z)
     Z, Y, X = np.meshgrid(np.asarray(z), np.asarray(y), np.asarray(x), indexing="ij")
     nu_arr = nu(X, Y, Z) if callable(nu) else np.asarray(nu).reshape(l, m, n)
-    if pad_to_friendly:
-        sym, _, _, _ = greens.gv_compact_kernel_3d(n, m, l, h, k, prefer_pow2=prefer_pow2)
-    else:
-        sym, _, _, _ = greens.gv_symbol_3d(n, m, l, h, k, ne=4 * n, me=4 * m, le=4 * l)
+
+    def _symbol():
+        if pad_to_friendly:
+            return greens.gv_compact_kernel_3d(n, m, l, h, k, prefer_pow2=prefer_pow2)
+        return greens.gv_symbol_3d(n, m, l, h, k, ne=4 * n, me=4 * m, le=4 * l)
+
+    sym = _cached_symbol(
+        _symbol, cache_dir, dim=3, quad=quad_rule.value, n=n, m=m, l=l, h=h, k=k,
+        pad=pad_to_friendly, pow2=bool(prefer_pow2) if pad_to_friendly else None,
+    )
     return LippmannSchwinger3D(
         symbol=to_tensor(sym, dtype, device),
         nu=to_tensor(nu_arr, real_dtype_of(dtype), device),

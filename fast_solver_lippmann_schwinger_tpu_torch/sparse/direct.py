@@ -544,6 +544,21 @@ def block_thomas_solve_resume(fac: BlockTridiagFactorization, b: torch.Tensor,
     return _bwd_scan(fac, y).reshape(b.shape)
 
 
+# Batched variants (leading slab axis), the JAX package's ``jax.vmap``s of the
+# two functions above: the factorization is one call over the batch (its
+# pivot inversions are batched), the solve a loop over the slabs.
+def factor_stencil_2d_batched(v: torch.Tensor) -> BlockTridiagFactorization:
+    """Factor a batch of stencil fields ``v`` (B, m, n, 3, 3); every field of
+    the result carries the leading batch axis."""
+    return factor_stencil_values(v)
+
+
+def block_thomas_solve_batched(fac: BlockTridiagFactorization, b: torch.Tensor) -> torch.Tensor:
+    """:func:`block_thomas_solve` of each slab of a batched factorization on
+    the matching row of ``b`` (B, ...); returns (B, ...)."""
+    return torch.stack([block_thomas_solve(fac.slab(i), b[i]) for i in range(b.shape[0])])
+
+
 # -----------------------------------------------------------------------------
 # 3D: planes as blocks
 # -----------------------------------------------------------------------------

@@ -88,6 +88,11 @@ cuda_build.register("plane_bwd", "plane_backward", [_P] * 6 + [_I] * 7 + [_P, _U
 cuda_build.register("plane_apply", "plane_apply", [_P] * 5 + [_I] * 4 + [_P])
 
 
+# version of the PlaneStack layout below; checkpoints of slab plane stacks
+# are keyed on it, so a change of layout must bump it
+LAYOUT_VERSION = 1
+
+
 @dataclasses.dataclass(frozen=True)
 class PlaneStack:
     """Flat (slab * plane) stack of transposed plane-pivot inverses.

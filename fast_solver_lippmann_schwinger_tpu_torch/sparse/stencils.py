@@ -36,6 +36,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import (
     StencilMatrix2D,
     StencilMatrix3D,
 )
+from fast_solver_lippmann_schwinger_tpu_torch.utils import checkpoint
 
 # per-axis categories: (name, allowed offsets, representative index fn,
 # node indicator fn)
@@ -239,6 +240,22 @@ def _assemble_fields(classes, shape, stencil_extent=3):
 # 2D stencil fields
 # -----------------------------------------------------------------------------
 
+def _cached_fields(compute, cache_dir, field_shape: tuple, /, **key_fields):
+    """The host stencil fields ``(A, AG)`` from ``compute()`` or from their
+    checkpoint in ``cache_dir`` (``stencils_<key>.pt``, keyed on the sampling
+    configuration, as in the JAX package); a checkpoint must hold two
+    complex128 fields of ``field_shape``."""
+    if cache_dir is None:
+        return compute()
+
+    def fits(out):
+        return len(out) == 2 and all(f.shape == field_shape and f.dtype == np.complex128
+                                     for f in out)
+
+    return checkpoint.cached(checkpoint.path_for(cache_dir, "stencils", **key_fields),
+                             lambda: tuple(compute()), fits)
+
+
 def _sampler_2d_trapezoidal(k, X, Y, d0, h):
     return lambda idx: greens.sample_g_rows_2d(k, X.ravel(), Y.ravel(), idx, d0, h)
 
@@ -265,30 +282,45 @@ def build_sparse_a_ag_2d(
 
     With ``return_host=True`` also returns the host numpy fields
     ``(A, AG, a_np, ag_np)``, used by the DDM layer to avoid a device
-    round-trip when building slab systems.
+    round-trip when building slab systems.  ``cache_dir`` checkpoints the
+    host fields (``utils/checkpoint.py``), so a repeat setup skips the
+    sampling.
 
     Returns (A, AG) as ``StencilMatrix2D`` on ``device``.
     """
     device = resolve_device(device)
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1)"
-        )
     n, m = len(x), len(y)
-    if conv_op is not None:
-        classes = build_annihilator_classes_conv(conv_op, (m, n))
-    else:
-        if d0 is None:
-            d0 = greens.duan_rokhlin_d0(k * h)
-        X, Y = np.meshgrid(np.asarray(x), np.asarray(y), indexing="xy")
-        sampler = _sampler_2d_trapezoidal(k, X, Y, d0, h)
-        classes = build_annihilator_classes(sampler, (m, n))
-    a_field, ag_field = _assemble_fields(classes, (m, n))
+    if conv_op is None and d0 is None:
+        d0 = greens.duan_rokhlin_d0(k * h)
+
+    def fields():
+        if conv_op is not None:
+            classes = build_annihilator_classes_conv(conv_op, (m, n))
+        else:
+            X, Y = np.meshgrid(np.asarray(x), np.asarray(y), indexing="xy")
+            sampler = _sampler_2d_trapezoidal(k, X, Y, d0, h)
+            classes = build_annihilator_classes(sampler, (m, n))
+        return _assemble_fields(classes, (m, n))
+
+    a_field, ag_field = _cached_fields(
+        fields, cache_dir, (m, n, 3, 3), kind="a_ag_2d", k=k, h=h, n=n, m=m,
+        sampling=(f"conv_{conv_op.quad_rule}_{tuple(conv_op.symbol.shape)}"
+                  if conv_op is not None else "d0"),
+        d0=str(d0),
+    )
     out = (
         StencilMatrix2D(values=to_tensor(a_field, dtype, device)),
         StencilMatrix2D(values=to_tensor(ag_field, dtype, device)),
     )
     return out + (a_field, ag_field) if return_host else out
+
+
+def build_sparse_a_2d(k, x, y, h, d0=None, conv_op=None, dtype: torch.dtype = torch.complex64,
+                      device=None) -> StencilMatrix2D:
+    """``A`` only (reference ``buildSparseA``,
+    ``src/SparsifyingMatrix2D.jl:806-884``)."""
+    return build_sparse_a_ag_2d(k, x, y, h, d0=d0, conv_op=conv_op, dtype=dtype,
+                                device=device)[0]
 
 
 def build_msp_2d(a: StencilMatrix2D, ag: StencilMatrix2D, nu, k: float):
@@ -312,16 +344,16 @@ def build_sparse_a_ag_3d(
     operator (reference ``entriesSparseA3D``/``buildSparseA3DConv``/
     ``buildSparseAG3DConv``, ``src/SparsifyingMatrix3D.jl:963-1659``).
 
-    Returns (A, AG) as ``StencilMatrix3D`` on ``device`` (the operator's
-    device when ``None``)."""
-    if cache_dir is not None:
-        raise NotImplementedError(
-            "cache_dir checkpointing is not ported yet (ROADMAP.md, Queue 1 slice 9)"
-        )
+    ``cache_dir`` checkpoints the host fields, so a repeat setup skips the
+    impulse sampling.  Returns (A, AG) as ``StencilMatrix3D`` on ``device``
+    (the operator's device when ``None``)."""
     device = conv_op.symbol.device if device is None else resolve_device(device)
     shape = (conv_op.l, conv_op.m, conv_op.n)
-    classes = build_annihilator_classes_conv(conv_op, shape)
-    a_field, ag_field = _assemble_fields(classes, shape)
+    a_field, ag_field = _cached_fields(
+        lambda: _assemble_fields(build_annihilator_classes_conv(conv_op, shape), shape),
+        cache_dir, shape + (3, 3, 3), kind="a_ag_3d", k=k, shape=shape,
+        sampling=f"conv_{conv_op.quad_rule}_{tuple(conv_op.symbol.shape)}",
+    )
     return (
         StencilMatrix3D(values=to_tensor(a_field, dtype, device)),
         StencilMatrix3D(values=to_tensor(ag_field, dtype, device)),

@@ -91,6 +91,12 @@ def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
 
+# version of the pivot layouts of ThomasFactorization and
+# BandedTailFactorization below; checkpoints of packed slab pivots are keyed
+# on it, so a change of layout must bump it
+LAYOUT_VERSION = 1
+
+
 @dataclasses.dataclass(frozen=True)
 class ThomasFactorization:
     """Slab-stacked block-Thomas factors in the kernels' layout.

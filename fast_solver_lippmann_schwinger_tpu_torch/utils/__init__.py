@@ -1,1 +1,1 @@
-"""Helpers shared by the port's scripts: timing on the card."""
+"""Helpers shared by the port: checkpoints, field output, timing on the card."""

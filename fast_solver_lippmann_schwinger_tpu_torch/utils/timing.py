@@ -1,15 +1,68 @@
-"""Timing on the card with CUDA events.
+"""Phase timing, profiling and timing on the card with CUDA events.
 
-Counterpart of the JAX package's ``utils/timing.py``.  Device work is
-asynchronous, so wall-clock time around a call measures only its launch;
-events recorded on the stream measure what the card did.
+Counterpart of the JAX package's ``utils/timing.py``, which replaces the
+reference's ad-hoc ``@time`` / ``tic()``/``toc()`` / ``println`` progress
+markers (SURVEY.md section 5) with a structured per-phase timing registry.
+Device work is asynchronous, so wall-clock time around a call measures only
+its launch: :class:`PhaseTimer` synchronises a CUDA device at the end of each
+phase, and events recorded on the stream measure what the card did.
 """
 
 from __future__ import annotations
 
+import contextlib
+import json
+import os
 import subprocess
+import sys
+import time
+from collections import OrderedDict
 
 import torch
+
+
+class PhaseTimer:
+    """Collects wall-clock seconds per named phase and prints them as one
+    JSON line to ``stream`` (``sys.stderr`` as it is when :meth:`log` runs,
+    where ``None``); on a CUDA ``device`` each phase ends with a
+    ``torch.cuda.synchronize``, so its time includes the device work it
+    enqueued."""
+
+    def __init__(self, stream=None, device=None):
+        self.durations = OrderedDict()
+        self.stream = stream
+        self.device = None if device is None else torch.device(device)
+
+    @contextlib.contextmanager
+    def phase(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.device is not None and self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.durations[name] = self.durations.get(name, 0.0) + time.perf_counter() - t0
+
+    def log(self, **extra) -> None:
+        print(json.dumps({"phases_s": dict(self.durations), **extra}),
+              file=self.stream or sys.stderr)
+
+
+@contextlib.contextmanager
+def profiled(logdir: str | None = None):
+    """Trace a region with ``torch.profiler`` (the host and, where there is a
+    card, its kernels) when ``logdir`` is given, and write the Chrome trace
+    to ``<logdir>/trace.json``; yields the profiler, or ``None``."""
+    if logdir is None:
+        yield None
+        return
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield prof
+    os.makedirs(logdir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
 def cuda_time_ms(fn, repeats: int) -> float:

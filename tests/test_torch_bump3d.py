@@ -6,6 +6,7 @@ options."""
 
 import dataclasses
 import inspect
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -140,9 +141,24 @@ def test_defaults_are_the_jax_packages():
                                        (dict(precond="polarized_traces", cache_dir="x"),
                                         "slice 9"),
                                        (dict(cache_dir="x"), "slice 9")])
-def test_unported_options_raise(kw, slice_):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{slice_}"):
-        bump3d.build_problem(h=H, device="cpu", **kw)
+def test_unported_options_raise(tmp_path, kw, slice_):
+    """``cache_dir`` (ROADMAP.md, Queue 1 slice 9), once unported, now
+    checkpoints: a second build from the same directory loads the stencil
+    fields and, for the slab preconditioners, the slab factorization, as the
+    JAX package's ``bump3d`` does, and holds bit-identical tensors."""
+    kw = {**kw, "cache_dir": str(tmp_path / kw["cache_dir"])}
+    p1, p2 = (bump3d.build_problem(h=H, device="cpu", **kw) for _ in range(2))
+    for a, b in ((p1.a_s, p2.a_s), (p1.ag_s, p2.ag_s)):
+        assert torch.equal(a.values, b.values)
+    kinds = sorted(name.split("_")[0] for name in os.listdir(kw["cache_dir"]))
+    if "precond" not in kw:
+        assert kinds == ["stencils"], slice_
+        return
+    assert kinds == ["slabfac3d", "stencils"], slice_
+    assert p2.setup_seconds["factorization"] == 0.0 < p2.setup_seconds["checkpoint"]
+    f1, f2 = p1.precond.slabs.fac, p2.precond.slabs.fac
+    for f in dataclasses.fields(f1):
+        assert torch.equal(getattr(f1, f.name), getattr(f2, f.name)), f.name
 
 
 def test_device_rule():

@@ -1,5 +1,7 @@
 """The port's Green's symbols and fast operator against the JAX package."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,14 +128,24 @@ def test_converted_operator_matches(operators):
     )
 
 
-def test_unported_branches_raise():
-    """``cache_dir`` (checkpointing, slice 9) still raises; the trapezoidal
-    branch is ported (``test_trapezoidal_operator_matches``)."""
+def test_unported_branches_raise(tmp_path):
+    """``cache_dir`` (checkpointing, slice 9), once unported, checkpoints the
+    symbol: a second build loads it bit-identically, and the Greengard-Vico
+    rule keys apart from the trapezoidal default (both branches are ported:
+    ``test_trapezoidal_operator_matches``)."""
     grid = Grid2D(a=1.0, h=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fastconv.build_fast_convolution_2d(
-            grid.x, grid.y, 0.1, 10.0, media.plasma_2d, cache_dir="x", device="cpu"
+
+    def build(**kw):
+        return fastconv.build_fast_convolution_2d(
+            grid.x, grid.y, 0.1, 10.0, media.plasma_2d, cache_dir=str(tmp_path),
+            device="cpu", **kw
         )
+
+    op1, op2 = build(), build()
+    assert op1.quad_rule == "trapezoidal" and len(os.listdir(tmp_path)) == 1
+    assert torch.equal(op1.symbol, op2.symbol)
+    gv = build(quad_rule="greengard_vico")
+    assert len(os.listdir(tmp_path)) == 2 and gv.quad_rule == "greengard_vico"
 
 
 @pytest.mark.parametrize("n,m", [(41, 41), (21, 33)])

@@ -1,6 +1,8 @@
 """The port's 3D grid, medium, Greengard-Vico symbol, fast operator and
 impulse sampler against the JAX package (complex128, 10^3 grid)."""
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -111,11 +113,14 @@ def test_sample_g_columns_matches(ops, chunk):
     np.testing.assert_allclose(got[:, idx], got[:, idx].T, rtol=0, atol=1e-12 * np.abs(got).max())
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
+    """``cache_dir``, once unported, checkpoints the 3D symbol (a second build
+    loads it bit-identically); the trapezoidal rule still raises in 3D."""
     grid = Grid3D(a=1.0, h=H)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fastconv.build_fast_convolution_3d(grid.x, grid.x, grid.x, H, 10.0, lambda x, y, z: x,
-                                           cache_dir="x", device="cpu")
+    op1, op2 = (fastconv.build_fast_convolution_3d(grid.x, grid.x, grid.x, H, 10.0,
+                                                   lambda x, y, z: x, cache_dir=str(tmp_path),
+                                                   device="cpu") for _ in range(2))
+    assert len(os.listdir(tmp_path)) == 1 and torch.equal(op1.symbol, op2.symbol)
     with pytest.raises(NotImplementedError):
         fastconv.build_fast_convolution_3d(grid.x, grid.x, grid.x, H, 10.0, lambda x, y, z: x,
                                            quad_rule="trapezoidal", device="cpu")

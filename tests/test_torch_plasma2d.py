@@ -2,6 +2,7 @@
 one-slab plasma solve, the 3-slab bi-directional sweep solve, and the
 package's device and import rules."""
 
+import os
 import subprocess
 import sys
 
@@ -181,6 +182,19 @@ def test_double_sweep_solve_batched_matches(sweep_problems):
     assert float(info.true_residual.max()) < 1e-4
 
 
+# the eight build functions that take ``cache_dir`` (module, function)
+CACHE_FUNCTIONS = {
+    "fastconv.2d": ("ops.fastconv", "build_fast_convolution_2d"),
+    "fastconv.3d": ("ops.fastconv", "build_fast_convolution_3d"),
+    "stencils.2d": ("sparse.stencils", "build_sparse_a_ag_2d"),
+    "stencils.3d": ("sparse.stencils", "build_sparse_a_ag_3d"),
+    "subdomain": ("ddm.subdomain", "build_slab_system"),
+    "subdomain3d": ("ddm.subdomain3d", "build_slab_system_3d"),
+    "plasma2d": ("models.plasma2d", "build_problem"),
+    "bump3d": ("models.bump3d", "build_problem"),
+}
+
+
 @pytest.mark.parametrize("name", ["build_problem", "build_slab_system",
                                   "build_fast_convolution_2d", "build_slab_system_3d",
                                   "plasma_integral2d.build_problem",
@@ -188,14 +202,25 @@ def test_double_sweep_solve_batched_matches(sweep_problems):
                                   "bump2d.build_problem", "bump2d.solve",
                                   "differentiable_solve", "compress_factorization_banded",
                                   "compress_factorization_banded_lr",
-                                  "compress_factorization_banded_tail"])
+                                  "compress_factorization_banded_tail",
+                                  "SolverConfig", "DDMConfig", "ProblemConfig",
+                                  "api.build_problem", "api.solve_problem",
+                                  "api.solve_problem_batched", "save_field", "config_key",
+                                  "build_sparse_a_2d", "factor_stencil_2d_batched",
+                                  "block_thomas_solve_batched"]
+                         + [f"cache_dir:{b}" for b in CACHE_FUNCTIONS])
 def test_signatures_match_the_jax_package(name):
     """The port's build functions (and the 3D polarized preconditioner's
-    fields) take the JAX package's parameters, in its order and with its
-    defaults; the port adds only trailing parameters of its own
-    (``device``; ``timings`` in 3D).  The one default that differs is the
-    ground rule's: ``prefer_pow2`` is ``False`` where the JAX package's
-    ``None`` sniffs the TPU backend."""
+    fields, and the fields of the three config dataclasses) take the JAX
+    package's parameters, in its order and with its defaults; the port adds
+    only trailing parameters of its own (``device``; ``timings`` where the
+    setup is split by part).  Two ground rules differ: the working ``dtype``
+    is a torch dtype (``torch.complex64`` for ``jnp.complex64``), and
+    ``prefer_pow2`` never sniffs a TPU backend: a build function's ``False`` stands
+    for the JAX package's ``None``, and the config's ``None`` means the
+    5-smooth sizes.  Each of the eight build functions with a ``cache_dir`` takes it
+    (``None`` by default) and no longer refuses it."""
+    import dataclasses
     import importlib
     import inspect
 
@@ -204,9 +229,30 @@ def test_signatures_match_the_jax_package(name):
                      for pkg in ("fast_solver_lippmann_schwinger_tpu_torch",
                                  "fast_solver_lippmann_schwinger_tpu"))
 
+    if name.startswith("cache_dir:"):
+        module, function = CACHE_FUNCTIONS[name.split(":", 1)[1]]
+        ours, _ = pair(module, function)
+        assert inspect.signature(ours).parameters["cache_dir"].default is None
+        assert "cache_dir checkpointing is not ported" not in inspect.getsource(ours)
+        return
+    if name.endswith("Config"):
+        ours, theirs = pair("config", name)
+        fo, ft = dataclasses.fields(ours), dataclasses.fields(theirs)
+        assert [f.name for f in fo] == [f.name for f in ft]
+        for f, g in zip(fo, ft):
+            if f.name == "dtype":
+                assert (f.type, g.type) == ("torch.dtype", "jnp.dtype")
+                assert (f.default, g.default) == (torch.complex64, jnp.complex64)
+            elif f.default_factory is not dataclasses.MISSING:
+                assert type(f.default_factory()).__name__ == type(g.default_factory()).__name__
+            else:
+                # prefer_pow2: None in both, the port's None the 5-smooth sizes
+                assert (f.type, f.default) == (g.type, g.default), f.name
+        return
+
     (ours, theirs), extras = {
         "build_problem": (pair("models.plasma2d", "build_problem"), ["device"]),
-        "build_slab_system": (pair("ddm.subdomain", "build_slab_system"), ["device"]),
+        "build_slab_system": (pair("ddm.subdomain", "build_slab_system"), ["device", "timings"]),
         "build_fast_convolution_2d": (pair("ops.fastconv", "build_fast_convolution_2d"),
                                       ["device"]),
         "build_slab_system_3d": (pair("ddm.subdomain3d", "build_slab_system_3d"), ["timings"]),
@@ -223,12 +269,21 @@ def test_signatures_match_the_jax_package(name):
                                                   "compress_factorization_banded_lr"), []),
         "compress_factorization_banded_tail": (pair("sparse.direct",
                                                     "compress_factorization_banded_tail"), []),
+        "api.build_problem": (pair("api", "build_problem"), ["device"]),
+        "api.solve_problem": (pair("api", "solve_problem"), []),
+        "api.solve_problem_batched": (pair("api", "solve_problem_batched"), []),
+        "save_field": (pair("utils.fields", "save_field"), []),
+        "config_key": (pair("utils.checkpoint", "config_key"), []),
+        "build_sparse_a_2d": (pair("sparse.stencils", "build_sparse_a_2d"), ["device"]),
+        "factor_stencil_2d_batched": (pair("sparse.direct", "factor_stencil_2d_batched"), []),
+        "block_thomas_solve_batched": (pair("sparse.direct", "block_thomas_solve_batched"), []),
     }[name]
     ours = list(inspect.signature(ours).parameters.values())
     theirs = list(inspect.signature(theirs).parameters.values())
     assert [p.name for p in ours] == [p.name for p in theirs] + extras
     assert all(p.default is None for p in ours[len(theirs):])
     for p, q in zip(ours, theirs):
+        assert p.kind == q.kind, p.name
         if p.name == "dtype":
             assert (p.default, q.default) == (torch.complex64, jnp.complex64)
         elif p.name == "prefer_pow2":
@@ -284,14 +339,24 @@ def test_convert_defaults_to_the_card(function, args):
 @pytest.mark.parametrize("kw", [dict(pivot_dtype="banded"), dict(pivot_rank=24),
                                 dict(cache_dir="slab_cache"),
                                 dict(double_sweep=True, pivot_dtype_t="banded_lr")])
-def test_unported_options_raise(kw):
+def test_unported_options_raise(tmp_path, kw):
     """The options the port once lacked: the banded pivot modes and
     ``pivot_rank`` now build and solve (``tests/test_torch_banded_pivots.py``
     holds them against the JAX package); ``cache_dir`` (ROADMAP.md, Queue 1
-    slice 9) still raises."""
+    slice 9) checkpoints the symbol, the stencil fields and the slab
+    factorization, which a second build loads bit-identically and solves
+    with bit-identically (``tests/test_torch_checkpoint.py`` has the rest)."""
     if "cache_dir" in kw:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            plasma2d.build_problem(device="cpu", **{**KW, **kw})
+        cache = str(tmp_path / kw["cache_dir"])
+        p1, p2 = (plasma2d.build_problem(device="cpu", **{**KW, "cache_dir": cache})
+                  for _ in range(2))
+        assert sorted(f.split("_")[0] for f in os.listdir(cache)) == ["slabfac", "stencils",
+                                                                      "symbol"]
+        assert torch.equal(p1.op.symbol, p2.op.symbol)
+        f1, f2 = p1.precond.slabs.fac, p2.precond.slabs.fac
+        assert all(torch.equal(getattr(f1, n), getattr(f2, n)) for n in ("cinv", "lband", "uband"))
+        (x1, _), (x2, _) = plasma2d.solve(p1, **SOLVE), plasma2d.solve(p2, **SOLVE)
+        assert torch.equal(x1, x2)
         return
     tp = plasma2d.build_problem(dtype=torch.complex128, device="cpu", **{**KW, **kw})
     if kw.get("pivot_dtype_t") == "banded_lr":

@@ -136,9 +136,16 @@ def test_msp_matches_on_carried_over_fields(fields):
     np.testing.assert_allclose(tmsp.values.numpy(), np.asarray(jmsp.values), rtol=1e-13, atol=1e-13)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     """``conv_op=`` sampling is ported (``tests/test_torch_stencils3d.py``);
-    ``cache_dir`` checkpointing is not."""
+    ``cache_dir``, once unported, checkpoints the host fields: a second build
+    loads them bit-identically, host arrays and device fields alike."""
     grid = Grid2D(a=1.0, h=0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stencils.build_sparse_a_ag_2d(10.0, grid.x, grid.y, 0.1, cache_dir="x", device="cpu")
+    first, second = (stencils.build_sparse_a_ag_2d(10.0, grid.x, grid.y, 0.1, return_host=True,
+                                                   cache_dir=str(tmp_path), device="cpu")
+                     for _ in range(2))
+    assert len(list(tmp_path.iterdir())) == 1
+    for a, b in zip(first[:2], second[:2]):
+        assert torch.equal(a.values, b.values)
+    for a, b in zip(first[2:], second[2:]):
+        np.testing.assert_array_equal(a, b)

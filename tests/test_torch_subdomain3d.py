@@ -251,14 +251,18 @@ def test_one_slab_is_the_exact_solve(setup):
                    jsd.gs_sweep_3d(js, jnp.asarray(b))) < 1e-10
 
 
-def test_unported_and_invalid_options_raise(setup):
-    """``cache_dir`` still raises, naming its slice; ``fac_provider`` too;
-    bad modes and too thin absorbing layers are refused as in the JAX
-    package.  Polarized traces build on the z layout."""
+def test_unported_and_invalid_options_raise(setup, tmp_path):
+    """``cache_dir``, once unported, checkpoints the slab factorization (a
+    second build loads it bit-identically, also through ``bump3d``);
+    ``fac_provider`` still raises, naming its slice; bad modes and too thin
+    absorbing layers are refused as in the JAX package.  Polarized traces
+    build on the z layout."""
     s = setup
     args = (s["ta"], s["tag"], s["nu"], s["x"], s["h"], K, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 9"):
-        sd.build_slab_system_3d(*args, cache_dir="x")
+    built = [sd.build_slab_system_3d(*args, cache_dir=str(tmp_path / "slabs"))
+             for _ in range(2)]
+    for f in dataclasses.fields(built[0].fac):
+        assert torch.equal(getattr(built[0].fac, f.name), getattr(built[1].fac, f.name))
     with pytest.raises(NotImplementedError, match="ROADMAP.*slice 10"):
         sd.build_slab_system_3d(*args, fac_provider=lambda *a: None)
     with pytest.raises(ValueError, match="pivot_dtype"):
@@ -269,5 +273,7 @@ def test_unported_and_invalid_options_raise(setup):
                               device="cpu").precond
     assert isinstance(pc, PolarizedTracesPreconditioner3D)
     assert pc.slabs.pivot_layout == "z" and pc.slabs.n_subs == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 9"):
-        bump3d.build_problem(h=1 / 10, precond="gs", cache_dir="x", device="cpu")
+    p1, p2 = (bump3d.build_problem(h=1 / 10, precond="gs", cache_dir=str(tmp_path / "bump"),
+                                   device="cpu") for _ in range(2))
+    assert p2.setup_seconds["factorization"] == 0.0
+    assert torch.equal(p1.precond.slabs.fac.cinv, p2.precond.slabs.fac.cinv)

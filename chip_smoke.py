@@ -72,7 +72,20 @@ surface: path 2's and path 9's problems as ``ProblemConfig``s through
 CLI (``python -m fast_solver_lippmann_schwinger_tpu_torch``) in a subprocess
 on the same directory, warm; a warm build in this process whose loaded
 pivots must equal the built ones bit for bit; the 48^3 polarized solve cold,
-then warm.  Each takes its path's count and kernels.  Every 2D line
+then warm.  Each takes its path's count and kernels.  The thirteenth is
+the multi-device layer (``parallel/``) on a mesh of one rank: an NCCL process
+group on a ``FileStore`` under a fresh temporary directory and
+``init_device_mesh("cuda", (1,), mesh_dim_names=("slab",))``; every leg is
+held against the one-device solve of the same problem (the same iterations,
+solutions within 1e-5, true residuals within 1e-3): path 2's 801^2 problem
+on dense pivots through the masked sharded double sweep (one direction) and
+through ``DistributedLS2D`` with the pipelined sweep (two), path 9's 48^3
+problem through ``DistributedLS3D`` with the pipelined z-slab sweep and with
+the sharded 3D polarized traces, path 8's 401^2 polarized traces, and the
+96^3 capacity solve of ``benchmarks/capacity3d.py`` (8 z-slabs of bf16
+y-planes, 22.2 GB, built slab by slab through ``fac_provider`` on path 4's
+operator and stencils); no hand-written kernel may launch there, and a
+system whose only pivots are a kernel layout is refused.  Every 2D line
 kernel runs the flag-handoff line step (``csrc/thomas_flow.cuh``): the dense
 forward and backward passes (rows 1, 2, 4 and 1i, 2i, 4i), the cached
 forward pass (rows 3, 5, 6, 3i, 5i), the backward pass on banded+tail pivots
@@ -122,6 +135,10 @@ from fast_solver_lippmann_schwinger_tpu_torch.models import (
 )
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build, sampler
 from fast_solver_lippmann_schwinger_tpu_torch.ops import stencil_kernels as stk
+from fast_solver_lippmann_schwinger_tpu_torch.parallel import fft as pfft
+from fast_solver_lippmann_schwinger_tpu_torch.parallel import polarized as ppolarized
+from fast_solver_lippmann_schwinger_tpu_torch.parallel import polarized3d as ppolarized3d
+from fast_solver_lippmann_schwinger_tpu_torch.parallel import sharded, sharded3d
 from fast_solver_lippmann_schwinger_tpu_torch.precond.sparsifying import (
     SparsifyingPreconditionerT,
 )
@@ -3392,6 +3409,397 @@ def with_api_launches(kernels: list) -> list:
     return kernels
 
 
+# ---------------------------------------------------------------------------
+# Path 13: the multi-device layouts of parallel/ at world size 1 over NCCL
+# ---------------------------------------------------------------------------
+
+# the one card runs the sharded code as a mesh of one rank; the exchanges
+# between ranks are held by the CPU tests (gloo, 2 and 4 ranks)
+SHARDED_SOLUTION_LIMIT = 1e-5
+SHARDED_TRUE_RESIDUAL_LIMIT = 1e-3
+# benchmarks/capacity3d.py: 96^3 on [0, 1)^3, k = 96, 8 z-slabs, npml 8,
+# y-blocked bf16 plane pivots, gmres(rtol=1e-4, restart=10, maxiter=10)
+CAPACITY = dict(nn=96, n_subs=8, npml=8, pivot_dtype="yblock_bf16")
+CAPACITY_SOLVE_KW = dict(rtol=1e-4, restart=10, maxiter=10)
+# RESULTS.md, "Beyond-HBM capacity demonstration" (a virtual CPU mesh of the
+# JAX package, slabs factored on its TPU): 12 iterations, true residual
+# 1.2e-5, 22.49 GB of pivots; the JAX counts on its TPU run 1-3 above the
+# card's (ROADMAP.md, Queue 3), so the record bounds the count from above
+JAX_CAPACITY_ITERATIONS = 12
+JAX_CAPACITY_TRUE_RESIDUAL = 1.2e-5
+JAX_CAPACITY_PIVOT_BYTES = 22.49e9
+# path 4's 96^3 operator and stencils, kept for the capacity solve: the
+# annihilator stencils and the symbol depend on (n, h, k) only, not on the
+# medium or the grid's offset
+CAPACITY_PARTS = {}
+# path 2's configuration, the reference's tests/plasma_example.jl
+SHARDED_2D = dict(h=1.0 / 800.0, n_subdomains=16, npml=10)
+
+
+def sharded_world(device, tmp: str):
+    """A process group of one rank over NCCL on a ``FileStore`` under
+    ``tmp`` and its 1-D ``("slab",)`` device mesh."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(tmp, "store"), 1),
+                            rank=0, world_size=1)
+    mesh = init_device_mesh("cuda", (1,), mesh_dim_names=("slab",))
+    emit("sharded_world", backend=str(dist.get_backend()), world_size=dist.get_world_size(),
+         nccl=str(torch.cuda.nccl.version()), mesh_shape=list(mesh.shape),
+         mesh_dim_names=list(mesh.mesh_dim_names), device=str(sharded.shard_device(mesh)))
+    return mesh
+
+
+def one_timed(fn, warm):
+    """``fn()`` timed once by CUDA events after ``warm()`` (one
+    preconditioner apply: the first call's allocations and library set-up
+    stay out of the solve's time).  Returns the result and milliseconds."""
+    warm()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def sharded_leg(name: str, one, sharded_run, what: dict):
+    """One leg of path 13: the one-device solve ``one = (x, info, ms)`` and
+    the sharded one (``sharded_run() -> (x, info, ms)``), held to the same
+    iterations, a relative solution difference within
+    :data:`SHARDED_SOLUTION_LIMIT` and true residuals within
+    :data:`SHARDED_TRUE_RESIDUAL_LIMIT`; no kernel may launch."""
+    x1, info1, ms1 = one
+    reset_counts()
+    x, info, ms = sharded_run()
+    torch.cuda.synchronize()
+    counts = read_counts()
+    its, its1 = info.n_iterations.reshape(-1).tolist(), info1.n_iterations.reshape(-1).tolist()
+    diff = float(torch.linalg.vector_norm(x - x1) / torch.linalg.vector_norm(x1))
+    true_res = info.true_residual.reshape(-1).tolist()
+    emit(name, **what, iterations=its, one_device_iterations=its1,
+         converged=info.converged.reshape(-1).tolist(), true_residual=true_res,
+         one_device_true_residual=info1.true_residual.reshape(-1).tolist(),
+         rel_solution_diff=diff, rel_solution_limit=SHARDED_SOLUTION_LIMIT,
+         solve_ms=ms, one_device_solve_ms=ms1, launches=counts)
+    check(bool(torch.isfinite(torch.view_as_real(x)).all()), f"{name} solution is finite")
+    check(tuple(x.shape) == tuple(x1.shape), f"{name} solution shape")
+    check(bool(info.converged.all()), f"{name} converged")
+    check(its == its1, f"{name} takes the one-device iterations ({its} vs {its1})")
+    check(diff <= SHARDED_SOLUTION_LIMIT, f"{name} solution within 1e-5 of one device ({diff})")
+    check(max(true_res) <= SHARDED_TRUE_RESIDUAL_LIMIT, f"{name} true residual ({true_res})")
+    check_no_launch(counts, name)
+    return counts
+
+
+def apply_host_device(name: str, fns: dict):
+    """Host milliseconds to enqueue one apply beside its device
+    milliseconds (CUDA events), for each of ``fns``."""
+    out = {}
+    for label, fn in fns.items():
+        out[label] = dict(host_enqueue_ms=enqueue_ms(fn, repeats=2), device_ms=time_ms(fn, 2))
+    emit(name, **out)
+
+
+def phase_sharded_2d(device, mesh):
+    """13a: the reference's 801^2 plasma configuration, 16 slabs, the double
+    sweep on dense complex64 pivots (``pivot_dtype="full"``, the
+    Greengard-Vico operator): the masked ``make_sharded_double_sweep`` with
+    ``gmres`` on one direction, and the production path,
+    ``DistributedLS2D.apply_batch`` + ``make_sharded_double_sweep_pipelined(
+    rhs_block=2)`` + ``gmres_batched`` on two, each against the one-device
+    solve of the same problem."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = plasma2d.build_problem(**SHARDED_2D, dtype=torch.complex64, double_sweep=True,
+                                     pivot_dtype="full", device=device)
+    setup_s = time.perf_counter() - t0
+    pc, op = problem.precond, problem.op
+    pivot_bytes = sum(s.fac.cinv.numel() * s.fac.cinv.element_size()
+                      for s in (pc.slabs, pc.slabs_t))
+    what = dict(grid=list(problem.grid.shape), n_subdomains=pc.slabs.n_subs,
+                npml=SHARDED_2D["npml"], pivot_dtype="full",
+                pivot_bytes=pivot_bytes, setup_seconds=setup_s)
+    rhs = plasma2d.incident_rhs(problem, DIRECTIONS[:1])[0]
+    one = one_timed(lambda: gmres(op.apply, rhs, preconditioner=pc.apply, **SOLVE_KW),
+                    lambda: pc.apply(rhs))
+    masked = sharded.make_sharded_double_sweep(pc.slabs, pc.slabs_t, pc.msp, pc.a_s, mesh)
+
+    def run_masked():
+        (x, info), ms = one_timed(
+            lambda: gmres(op.apply, rhs, preconditioner=masked, **SOLVE_KW),
+            lambda: masked(rhs))
+        return x, info, ms
+
+    counts = sharded_leg("sharded_2d_masked", (*one[0], one[1]), run_masked,
+                         dict(what, directions=1))
+    apply_host_device("sharded_2d_apply", {"one_device": lambda: pc.apply(rhs),
+                                           "sharded_masked": lambda: masked(rhs)})
+
+    rhs2 = plasma2d.incident_rhs(problem, DIRECTIONS)
+    one2 = one_timed(lambda: gmres_batched(op.apply, rhs2, preconditioner=pc.apply_batch,
+                                           **SOLVE_KW),
+                     lambda: pc.apply_batch(rhs2))
+    grid = problem.grid
+    op_d = pfft.build_distributed_fast_convolution_2d(
+        grid.x, grid.y, grid.h, problem.k, op.nu.cpu().numpy(), mesh, dtype=torch.complex64)
+    op_err = rel_err(op_d.apply_batch(rhs2), op.apply(rhs2))[1]
+    pipe = sharded.make_sharded_double_sweep_pipelined(pc.slabs, pc.slabs_t, pc.msp, pc.a_s,
+                                                        mesh, rhs_block=2)
+
+    def run_pipelined():
+        (x, info), ms = one_timed(
+            lambda: gmres_batched(op_d.apply_batch, rhs2, preconditioner=pipe, **SOLVE_KW),
+            lambda: pipe(rhs2))
+        return x, info, ms
+
+    counts2 = sharded_leg("sharded_2d_pipelined", (*one2[0], one2[1]), run_pipelined,
+                          dict(what, directions=2, rhs_block=2,
+                               operator_rel_err_vs_one_device=op_err,
+                               peak_memory_bytes=torch.cuda.max_memory_allocated()))
+    apply_host_device("sharded_2d_apply_batch", {
+        "one_device": lambda: pc.apply_batch(rhs2), "sharded_pipelined": lambda: pipe(rhs2),
+        "operator_one_device": lambda: op.apply(rhs2),
+        "operator_distributed": lambda: op_d.apply_batch(rhs2)})
+    check(op_err <= 1e-5, f"the distributed 801^2 operator matches the one-device one ({op_err})")
+    return [counts, counts2]
+
+
+def phase_sharded_3d(device, mesh):
+    """13b: path 9's configuration (48^3, 4 z-slabs, npml 6) on dense
+    complex64 z-plane pivots: ``DistributedLS3D.apply_batch`` +
+    ``make_sharded_sweep_preconditioner_3d_pipelined(rhs_block=2)`` and
+    ``make_sharded_polarized_preconditioner_3d`` (nIt = 2), each with
+    ``gmres_batched`` on two sources, against the one-device ``precond="gs"``
+    and ``precond="polarized_traces"`` solves on the same slabs."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = bump3d.build_problem(dtype=torch.complex64, precond="gs", pivot_dtype="full",
+                                   device=device, **POLARIZED3D)
+    setup_s = time.perf_counter() - t0
+    slabs, a_s, op = problem.precond.slabs, problem.a_s, problem.op
+    what = dict(grid=list(problem.grid.shape), n_subdomains=slabs.n_subs,
+                npml=POLARIZED3D["npml"],
+                pivot_dtype="full", pivot_layout=slabs.pivot_layout, sources=2,
+                pivot_bytes=slabs.fac.cinv.numel() * slabs.fac.cinv.element_size(),
+                setup_seconds=setup_s)
+    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
+    x = problem.grid.x
+    op_d = pfft.build_distributed_fast_convolution_3d(x, x, x, problem.grid.h, problem.k,
+                                                      op.nu.cpu().numpy(), mesh,
+                                                      dtype=torch.complex64)
+    op_err = rel_err(op_d.apply_batch(rhs2), op.apply(rhs2))[1]
+    check(op_err <= 1e-5, f"the distributed 48^3 operator matches the one-device one ({op_err})")
+    counts = []
+    legs = (
+        ("sharded_3d_gs", problem.precond.apply_batch,
+         sharded3d.make_sharded_sweep_preconditioner_3d_pipelined(slabs, a_s, mesh, rhs_block=2),
+         dict(rhs_block=2)),
+        ("sharded_3d_polarized",
+         polarized3d.PolarizedTracesPreconditioner3D(slabs=slabs, a_s=a_s, n_it=2).apply_batch,
+         ppolarized3d.make_sharded_polarized_preconditioner_3d(slabs, a_s, mesh, n_it=2),
+         dict(n_it=2)),
+    )
+    for name, one_pc, sharded_pc, extra in legs:
+        one = one_timed(lambda: gmres_batched(op.apply, rhs2, preconditioner=one_pc,
+                                              **POLARIZED3D_SOLVE_KW),
+                        lambda: one_pc(rhs2))
+
+        def run(sharded_pc=sharded_pc):
+            (xs, info), ms = one_timed(
+                lambda: gmres_batched(op_d.apply_batch, rhs2, preconditioner=sharded_pc,
+                                      **POLARIZED3D_SOLVE_KW),
+                lambda: sharded_pc(rhs2))
+            return xs, info, ms
+
+        counts.append(sharded_leg(name, (*one[0], one[1]), run,
+                                  dict(what, **extra, operator_rel_err_vs_one_device=op_err)))
+    apply_host_device("sharded_3d_apply", {
+        "one_device_gs": lambda: legs[0][1](rhs2), "sharded_gs_pipelined": lambda: legs[0][2](rhs2)})
+    emit("sharded_3d_memory", peak_memory_bytes=torch.cuda.max_memory_allocated())
+    return counts
+
+
+def phase_sharded_polarized_2d(device, mesh):
+    """13c: path 8's configuration (401^2, 8 slabs, npml 10, nIt = 2, the
+    trapezoidal operator) on dense complex64 pivots:
+    ``make_sharded_polarized_preconditioner`` with the distributed
+    trapezoidal operator and ``gmres_batched`` on two directions, against
+    ``plasma_integral2d.solve_batched`` on the same problem."""
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    problem = plasma_integral2d.build_problem(**POLARIZED, n_it=2, dtype=torch.complex64,
+                                              pivot_dtype="full", device=device)
+    setup_s = time.perf_counter() - t0
+    pc, op, grid = problem.precond, problem.op, problem.grid
+    rhs2 = plasma2d.incident_rhs(problem, DIRECTIONS)
+    one = one_timed(lambda: plasma_integral2d.solve_batched(problem, DIRECTIONS, **SOLVE_KW),
+                    lambda: pc.apply_batch(rhs2))
+    op_d = pfft.build_distributed_fast_convolution_2d(
+        grid.x, grid.y, grid.h, problem.k, op.nu.cpu().numpy(), mesh,
+        quad_rule="trapezoidal", dtype=torch.complex64)
+    op_err = rel_err(op_d.apply_batch(rhs2), op.apply(rhs2))[1]
+    check(op_err <= 1e-5, f"the distributed 401^2 operator matches the one-device one ({op_err})")
+    spc = ppolarized.make_sharded_polarized_preconditioner(pc.slabs, pc.a_s, mesh, n_it=2)
+
+    def run():
+        (x, info), ms = one_timed(
+            lambda: gmres_batched(op_d.apply_batch, rhs2, preconditioner=spc, **SOLVE_KW),
+            lambda: spc(rhs2))
+        return x, info, ms
+
+    counts = sharded_leg("sharded_polarized_2d", (*one[0], one[1]), run, dict(
+        grid=list(grid.shape), n_subdomains=pc.slabs.n_subs, npml=POLARIZED["npml"], n_it=2,
+        pivot_dtype="full",
+        quad_rule="trapezoidal", directions=2, setup_seconds=setup_s,
+        operator_rel_err_vs_one_device=op_err,
+        peak_memory_bytes=torch.cuda.max_memory_allocated()))
+    apply_host_device("sharded_polarized_2d_apply", {"one_device": lambda: pc.apply_batch(rhs2),
+                                                      "sharded": lambda: spc(rhs2)})
+    return counts
+
+
+def phase_capacity(device, mesh):
+    """13d: ``benchmarks/capacity3d.py`` on the card: 96^3 on [0, 1)^3, k = 96,
+    8 z-slabs, npml 8, y-blocked bf16 pivots built through ``fac_provider``
+    (a provider that factors one slab at a time with the ``factor_one`` it
+    is given and fills the stacked factorization slab by slab), solved by the
+    masked ``make_sharded_sweep_preconditioner_3d`` with ``gmres(rtol=1e-4,
+    restart=10, maxiter=10)``, against the one-device sweep on the same
+    slabs."""
+    parts = CAPACITY_PARTS
+    nn = CAPACITY["nn"]
+    h, k = 1.0 / nn, float(nn)
+    x = np.arange(nn) * h
+    Z, Y, X = np.meshgrid(x, x, x, indexing="ij")
+    nu = media.gaussian_bump_3d(X, Y, Z)
+    op = dataclasses.replace(parts["op"], nu=torch.as_tensor(nu, dtype=torch.float32,
+                                                             device=device))
+    check((op.n, op.m, op.l) == (nn, nn, nn), "path 4's operator is the 96^3 one")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    provided = []
+
+    def provider(h_sten, dtype, factor_one):
+        kind, fields = None, None
+        for s in range(h_sten.shape[0]):
+            t0 = time.perf_counter()
+            fac_s = factor_one(torch.as_tensor(h_sten[s]).to(device=device, dtype=dtype))
+            if fields is None:
+                kind = type(fac_s)
+                fields = {f.name: getattr(fac_s, f.name).new_empty(
+                    (h_sten.shape[0],) + tuple(getattr(fac_s, f.name).shape))
+                    for f in dataclasses.fields(fac_s)}
+            for name, t in fields.items():
+                t[s] = getattr(fac_s, name)
+            del fac_s
+            torch.cuda.synchronize()
+            provided.append(time.perf_counter() - t0)
+        return kind(**fields), None
+
+    t0 = time.perf_counter()
+    timings = {}
+    slabs = subdomain3d.build_slab_system_3d(
+        parts["a_s"], parts["ag_s"], nu, x, h, k, CAPACITY["n_subs"], npml=CAPACITY["npml"],
+        pivot_dtype=CAPACITY["pivot_dtype"], fac_provider=provider, timings=timings)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    setup_peak = torch.cuda.max_memory_allocated()
+    pivot_bytes = sum(getattr(slabs.fac, f.name).numel() * getattr(slabs.fac, f.name).element_size()
+                      for f in dataclasses.fields(slabs.fac) if f.name.startswith("cinv"))
+    u_inc = torch.exp(1j * k * torch.as_tensor(X.ravel(), device=device)).to(torch.complex64)
+    rhs = -(op.apply(u_inc) - u_inc)
+    a_s = parts["a_s"]
+
+    def one_pc(v):
+        return subdomain3d.gs_sweep_3d(slabs, a_s.matvec(v))
+
+    one = one_timed(lambda: gmres(op.apply, rhs, preconditioner=one_pc, **CAPACITY_SOLVE_KW),
+                    lambda: one_pc(rhs))
+    spc = sharded3d.make_sharded_sweep_preconditioner_3d(slabs, a_s, mesh)
+
+    def run():
+        (xs, info), ms = one_timed(
+            lambda: gmres(op.apply, rhs, preconditioner=spc, **CAPACITY_SOLVE_KW),
+            lambda: spc(rhs))
+        return xs, info, ms
+
+    counts = sharded_leg("capacity_96", (*one[0], one[1]), run, dict(
+        grid=[nn] * 3, k=k, n_subdomains=CAPACITY["n_subs"], npml=CAPACITY["npml"],
+        pivot_dtype=CAPACITY["pivot_dtype"], pivot_layout=slabs.pivot_layout,
+        l1_max=slabs.l1_max, pivot_bytes=pivot_bytes,
+        jax_package_pivot_bytes=JAX_CAPACITY_PIVOT_BYTES,
+        setup_seconds=setup_s, setup_seconds_by_part=timings,
+        seconds_per_provided_slab=provided, peak_memory_setup_bytes=setup_peak,
+        peak_memory_bytes=torch.cuda.max_memory_allocated(),
+        jax_package_iterations=JAX_CAPACITY_ITERATIONS,
+        jax_package_true_residual=JAX_CAPACITY_TRUE_RESIDUAL, solve_kw=CAPACITY_SOLVE_KW))
+    its = int(one[0][1].n_iterations)
+    check(its <= JAX_CAPACITY_ITERATIONS,
+          f"capacity solve within the JAX record's {JAX_CAPACITY_ITERATIONS} iterations ({its})")
+    check(len(provided) == CAPACITY["n_subs"], "the provider factored every slab")
+    return counts
+
+
+def path13(device, smi: str) -> dict:
+    """Path 13: the sharded code of ``parallel/`` on a mesh of one rank over
+    NCCL, under a fresh temporary directory (the store), removed at the end.
+    Returns each kernel's launches summed over the path's sharded legs, all
+    0."""
+    import torch.distributed as dist
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    counts = []
+    try:
+        mesh = sharded_world(device, tmp)
+        marks = [("13a", time.perf_counter())]
+        counts += phase_sharded_2d(device, mesh)
+        torch.cuda.empty_cache()
+        marks.append(("13b", time.perf_counter()))
+        counts += phase_sharded_3d(device, mesh)
+        torch.cuda.empty_cache()
+        marks.append(("13c", time.perf_counter()))
+        counts.append(phase_sharded_polarized_2d(device, mesh))
+        torch.cuda.empty_cache()
+        marks.append(("13d", time.perf_counter()))
+        counts.append(phase_capacity(device, mesh))
+        torch.cuda.empty_cache()
+        marks.append(("end", time.perf_counter()))
+        # a system whose only pivots are a kernel layout is refused
+        small = plasma2d.build_problem(h=1.0 / 40.0, n_subdomains=2, npml=6,
+                                       dtype=torch.complex64, pivot_dtype="pallas",
+                                       device=device).precond.slabs
+        try:
+            sharded.sharded_gs_sweep(small, torch.zeros(41 * 41, dtype=torch.complex64,
+                                                        device=device), mesh)
+            refused = ""
+        except ValueError as e:
+            refused = str(e)
+        emit("sharded_kernel_layout_refused", message=refused, card=smi,
+             seconds={a[0]: b[1] - a[1] for a, b in zip(marks, marks[1:])})
+        check("pivot_dtype='pallas'" in refused, "a pallas-only slab system is refused")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = {name: sum(c[name] for c in counts) for name in COUNTERS}
+    check_no_launch(total, "path 13")
+    return total
+
+
+def with_path13_launches(kernels: list, total: dict) -> list:
+    """Each kernel entry gains ``path13_launches``: its launches over path
+    13's sharded legs (0: no hand-written kernel lies on the sharded path)."""
+    names = {info["kernel"]: name for name, info in KERNEL_INFO.items()}
+    for entry in kernels:
+        entry["path13_launches"] = total[names[entry["kernel"]]]
+    return kernels
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3451,6 +3859,8 @@ def main() -> int:
     kernels += phase_polarized3d_96(problem)
     marks.append(("path 4 bf16", time.perf_counter()))
     kernels += phase_gs3d_96_bf16(problem)
+    # path 13's capacity solve reuses the 96^3 operator and stencils
+    CAPACITY_PARTS.update(op=problem.op, a_s=problem.a_s, ag_s=problem.ag_s)
     del problem
     torch.cuda.empty_cache()
 
@@ -3538,6 +3948,11 @@ def main() -> int:
     # path 9's problems
     path12(device, smi)
     kernels = with_api_launches(kernels)
+
+    marks.append(("path 13", time.perf_counter()))
+    # path 13: the multi-device layouts (parallel/) on a mesh of one rank
+    # over NCCL; no hand-written kernel
+    kernels = with_path13_launches(kernels, path13(device, smi))
 
     marks.append(("end", time.perf_counter()))
     emit("timeline", seconds_from_start={name: t - marks[0][1] for name, t in marks[1:]})

@@ -7,8 +7,8 @@ reader finds each module's twin (``ops/fastconv.py`` <-> ``ops/fastconv.py``,
 ``sparse/pallas_thomas.py`` <-> ``sparse/thomas_kernels.py``,
 ``sparse/pallas_plane.py`` <-> ``sparse/plane_kernels.py``).
 
-Ported so far (``ROADMAP.md`` lists what is not: the multi-device layouts
-of ``parallel/`` and the example scripts of ``examples/``):
+Ported: everything the JAX package does but its TPU machinery
+(``utils/host.py``) and its benchmark folders (``ROADMAP.md``):
 
 * the user surface: the typed configuration (``config.py``:
   ``ProblemConfig``, ``SolverConfig``, ``DDMConfig``), the config-driven API
@@ -37,7 +37,12 @@ of ``parallel/`` and the example scripts of ``examples/``):
   preconditioner, with the z-slab Gauss-Seidel sweep
   (``ddm/subdomain3d.py``) and with the 3D polarized traces
   (``ddm/polarized3d.py``, the plane-trace integral system on the same slab
-  systems) on dense, bf16 and int8 plane pivots.
+  systems) on dense, bf16 and int8 plane pivots;
+* the multi-device layouts (``parallel/``): the slab sweeps (masked and
+  wavefront-pipelined, 2D and 3D), the polarized traces and the FFT
+  operators over a 1-D ``torch.distributed`` device mesh, one process per
+  device, on plain pivots; and the six example scripts of ``examples/``
+  (``python -m fast_solver_lippmann_schwinger_tpu_torch.examples.<name>``).
 
 The substitution passes run as hand-written CUDA kernels on an NVIDIA Hopper
 card (``csrc/``, built by ``native/cuda_build.py``): the line passes of
@@ -97,6 +102,22 @@ from fast_solver_lippmann_schwinger_tpu_torch.ddm.sweeps import (
 from fast_solver_lippmann_schwinger_tpu_torch.ddm.polarized import (
     PolarizedTracesPreconditioner,
 )
+from fast_solver_lippmann_schwinger_tpu_torch.parallel.fft import (
+    DistributedLS2D,
+    DistributedLS3D,
+    build_distributed_fast_convolution_2d,
+    build_distributed_fast_convolution_3d,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.parallel.polarized import (
+    make_sharded_polarized_preconditioner,
+)
+from fast_solver_lippmann_schwinger_tpu_torch.parallel.sharded import (
+    make_sharded_double_sweep,
+    make_sharded_double_sweep_pipelined,
+    shard_slab_system,
+    sharded_gs_sweep,
+    sharded_gs_sweep_pipelined,
+)
 from fast_solver_lippmann_schwinger_tpu_torch.utils.fields import save_field
 from fast_solver_lippmann_schwinger_tpu_torch import api
 
@@ -134,6 +155,16 @@ __all__ = [
     "gs_sweep",
     "jacobi_sweep",
     "PolarizedTracesPreconditioner",
+    "DistributedLS2D",
+    "DistributedLS3D",
+    "build_distributed_fast_convolution_2d",
+    "build_distributed_fast_convolution_3d",
+    "make_sharded_polarized_preconditioner",
+    "make_sharded_double_sweep",
+    "make_sharded_double_sweep_pipelined",
+    "shard_slab_system",
+    "sharded_gs_sweep",
+    "sharded_gs_sweep_pipelined",
     "save_field",
     "api",
 ]

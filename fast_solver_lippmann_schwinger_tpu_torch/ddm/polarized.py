@@ -417,9 +417,16 @@ def extract_rhs_traces(slabs: SlabSystem, b: torch.Tensor):
 
 
 def reconstruction(slabs: SlabSystem, b: torch.Tensor, v0, v1, vn, vnp) -> torch.Tensor:
-    """Volume reconstruction from interface traces: one local solve per slab
-    with the trace-driven equivalent sources ADDED to the partitioned source
-    (``reconstruction``, ``src/subdomains.jl:893-943``)."""
+    """Volume reconstruction from interface traces (``reconstruction``,
+    ``src/subdomains.jl:893-943``): :func:`reconstruction_fields` gathered
+    to the global vector."""
+    return gather_interior(slabs, reconstruction_fields(slabs, b, v0, v1, vn, vnp))
+
+
+def reconstruction_fields(slabs: SlabSystem, b: torch.Tensor, v0, v1, vn, vnp) -> torch.Tensor:
+    """The per-slab (S, m1_max, n[, r]) solutions of :func:`reconstruction`:
+    one local solve per slab with the trace-driven equivalent sources ADDED
+    to the partitioned source."""
     rhs = partition_source(slabs, b)
     dtype = rhs.dtype
     S = slabs.n_subs
@@ -436,7 +443,7 @@ def reconstruction(slabs: SlabSystem, b: torch.Tensor, v0, v1, vn, vnp) -> torch
     rhs[slab, slabs.l0] += source(top, slabs.cpl_01, v1, 1)
     rhs[slab, slabs.lnp] += source(bot, slabs.cpl_np_n, vn, 1)
     rhs[slab, slabs.ln] += source(bot, slabs.cpl_n_np, vnp, -1)
-    return gather_interior(slabs, _solve_batched(slabs, rhs))
+    return _solve_batched(slabs, rhs)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -44,9 +44,17 @@ from fast_solver_lippmann_schwinger_tpu_torch.ddm.subdomain3d import (
 from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres, gmres_batched
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.stencil_matrix import StencilMatrix3D
 
+
+def _cpl_multi(sten: torch.Tensor, plane: torch.Tensor, m: int, n: int) -> torch.Tensor:
+    """Apply an (m, n, 3, 3) coupling stencil to a flat plane (mn[, r]): the
+    JAX package's helper of this name, which its sharded 3D trace algebra
+    imports (``ddm.subdomain3d._cpl_apply``)."""
+    return _cpl_apply(sten, plane, m, n)
+
+
 # the coupling stencils of every slab at once: sten (S, m, n, 3, 3), planes
 # (S, mn[, ...]) (the JAX package's ``_cpl_multi`` under ``vmap``)
-_cpl_slabs = torch.func.vmap(_cpl_apply, in_dims=(0, 0, None, None))
+_cpl_slabs = torch.func.vmap(_cpl_multi, in_dims=(0, 0, None, None))
 
 
 def _devectorize(slabs: SlabSystem3D, u_gamma: torch.Tensor):
@@ -292,12 +300,19 @@ def extract_rhs_traces(slabs: SlabSystem3D, b: torch.Tensor):
             torch.where(bot, u[slab, slabs.ln], zero), torch.where(bot, u[slab, slabs.lnp], zero))
 
 
-def reconstruction(slabs: SlabSystem3D, b: torch.Tensor, v0, v1, vn, vnp) -> torch.Tensor:
-    """Volume reconstruction from plane traces: one local solve per slab with
-    the trace-driven equivalent sources ADDED to the partitioned source
-    (``reconstruction``, ``src/subdomains.jl:893-943``)."""
+def reconstruction_fields(slabs: SlabSystem3D, b: torch.Tensor, v0, v1, vn, vnp) -> torch.Tensor:
+    """The per-slab (S, l1_max, mn[, r]) solutions of :func:`reconstruction`:
+    one local solve per slab with the trace-driven equivalent sources ADDED
+    to the partitioned source."""
     rhs = _trace_sources(slabs, partition_source_3d(slabs, b), v0, v1, vn, vnp, add=True)
-    return gather_interior_3d(slabs, _solve_batched_3d(slabs, rhs))
+    return _solve_batched_3d(slabs, rhs)
+
+
+def reconstruction(slabs: SlabSystem3D, b: torch.Tensor, v0, v1, vn, vnp) -> torch.Tensor:
+    """Volume reconstruction from plane traces (``reconstruction``,
+    ``src/subdomains.jl:893-943``): :func:`reconstruction_fields` gathered
+    to the global vector."""
+    return gather_interior_3d(slabs, reconstruction_fields(slabs, b, v0, v1, vn, vnp))
 
 
 @dataclasses.dataclass(frozen=True)

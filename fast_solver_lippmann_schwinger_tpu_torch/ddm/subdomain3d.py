@@ -266,14 +266,18 @@ def build_slab_system_3d(
     ``timings``, when given, receives the wall seconds of the parts:
     ``slab_fields`` (host stencil fields), ``factorization`` and ``packing``
     and, with a ``cache_dir``, ``checkpoint`` (the load, or the miss and the
-    save), synchronised on the device.  ``fac_provider`` (ROADMAP.md, Queue 1
-    slice 10, the beyond-one-device capacity path) is not ported yet and
-    raises.
+    save), synchronised on the device.
+
+    ``fac_provider(h_sten, dtype, factor_one)``, when given, supplies the
+    ``(fac, pfac)`` pair after a checkpoint miss, in place of the
+    in-process factorization: ``h_sten`` is the host (S, l1_max, m, n, 3, 3,
+    3) complex128 stack of slab stencil fields, ``dtype`` the working dtype
+    and ``factor_one(v)`` factors one slab's field ``v`` (a tensor of that
+    shape, on any device) in this pivot mode's layout and storage.  A
+    provider can factor slab by slab where the whole stack would not fit at
+    once (the capacity path of ``benchmarks/capacity3d.py``); what it
+    returns is not checkpointed, as in the JAX package.
     """
-    if fac_provider is not None:
-        raise NotImplementedError(
-            "fac_provider is not ported yet (ROADMAP.md, Queue 1 slice 10)"
-        )
     if npml < 5:
         # see build_slab_system: the cutoff knots need >= 5 absorbing planes
         raise ValueError(f"npml must be >= 5 for ordered cutoff knots, got {npml}")
@@ -353,20 +357,33 @@ def build_slab_system_3d(
             h_slabs.clear()
         lap("checkpoint", t0)
 
+    def factor_one(v: torch.Tensor):
+        """One slab's (l1_max, m, n, 3, 3, 3) stencil field -> its
+        factorization in this mode's layout and storage."""
+        if layout == "y":
+            # block over y: grid axes (l, m, n) -> (m, l, n) and the stencil
+            # offset axes to match; the factorization is axis-agnostic
+            v = v.permute(1, 0, 2, 4, 3, 5).contiguous()
+        return factor_stencil_3d(StencilMatrix3D(values=v), pivot_dtype=storage,
+                                 pivot_band=pivot_band)
+
+    if fac is None and fac_provider is not None:
+        t0 = time.perf_counter()
+        h_sten = np.stack(h_slabs)
+        h_slabs.clear()
+        fac, stack = fac_provider(h_sten, dtype, factor_one)
+        del h_sten
+        lap("factorization", t0)
+
     batched = None
     for s, h_s in enumerate(h_slabs):
         t0 = time.perf_counter()
         v = to_tensor(h_s, dtype, device)
         h_slabs[s] = None
-        if layout == "y":
-            # block over y: grid axes (l, m, n) -> (m, l, n) and the stencil
-            # offset axes to match; the factorization is axis-agnostic
-            v = v.permute(1, 0, 2, 4, 3, 5).contiguous()
         lap("slab_fields", t0)
 
         t0 = time.perf_counter()
-        fac_s = factor_stencil_3d(StencilMatrix3D(values=v), pivot_dtype=storage,
-                                  pivot_band=pivot_band)
+        fac_s = factor_one(v)
         del v
         lap("factorization", t0)
 

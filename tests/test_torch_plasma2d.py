@@ -195,6 +195,23 @@ CACHE_FUNCTIONS = {
 }
 
 
+# the functions, builders and operators of parallel/, by module
+PARALLEL_FUNCTIONS = [
+    ("sharded", f) for f in ("slab_sharding_specs", "shard_slab_system", "sharded_gs_sweep",
+                             "sharded_gs_sweep_pipelined", "make_sharded_double_sweep",
+                             "make_sharded_double_sweep_pipelined")
+] + [
+    ("sharded3d", f) for f in ("sharded_gs_sweep_3d", "sharded_gs_sweep_3d_pipelined",
+                               "make_sharded_sweep_preconditioner_3d",
+                               "make_sharded_sweep_preconditioner_3d_pipelined")
+] + [("polarized", "make_sharded_polarized_preconditioner"),
+     ("polarized3d", "make_sharded_polarized_preconditioner_3d")] + [
+    ("fft", f) for f in ("DistributedLS2D", "DistributedLS3D",
+                         "build_distributed_fast_convolution_2d",
+                         "build_distributed_fast_convolution_3d")
+]
+
+
 @pytest.mark.parametrize("name", ["build_problem", "build_slab_system",
                                   "build_fast_convolution_2d", "build_slab_system_3d",
                                   "plasma_integral2d.build_problem",
@@ -208,7 +225,8 @@ CACHE_FUNCTIONS = {
                                   "api.solve_problem_batched", "save_field", "config_key",
                                   "build_sparse_a_2d", "factor_stencil_2d_batched",
                                   "block_thomas_solve_batched"]
-                         + [f"cache_dir:{b}" for b in CACHE_FUNCTIONS])
+                         + [f"cache_dir:{b}" for b in CACHE_FUNCTIONS]
+                         + [f"parallel:{m}.{f}" for m, f in PARALLEL_FUNCTIONS])
 def test_signatures_match_the_jax_package(name):
     """The port's build functions (and the 3D polarized preconditioner's
     fields, and the fields of the three config dataclasses) take the JAX
@@ -219,7 +237,10 @@ def test_signatures_match_the_jax_package(name):
     ``prefer_pow2`` never sniffs a TPU backend: a build function's ``False`` stands
     for the JAX package's ``None``, and the config's ``None`` means the
     5-smooth sizes.  Each of the eight build functions with a ``cache_dir`` takes it
-    (``None`` by default) and no longer refuses it."""
+    (``None`` by default) and no longer refuses it.  The functions, builders
+    and operators of ``parallel/`` take the JAX parameters in the JAX order
+    and add none; there ``mesh`` is a ``torch.distributed`` ``DeviceMesh``
+    (a ground rule, as the dtype is)."""
     import dataclasses
     import importlib
     import inspect
@@ -250,7 +271,12 @@ def test_signatures_match_the_jax_package(name):
                 assert (f.type, f.default) == (g.type, g.default), f.name
         return
 
-    (ours, theirs), extras = {
+    if name.startswith("parallel:"):
+        module, function = name.split(":", 1)[1].split(".")
+        pairs, extras = pair(f"parallel.{module}", function), []
+    else:
+        pairs, extras = None, None
+    (ours, theirs), extras = (pairs, extras) if pairs else {
         "build_problem": (pair("models.plasma2d", "build_problem"), ["device"]),
         "build_slab_system": (pair("ddm.subdomain", "build_slab_system"), ["device", "timings"]),
         "build_fast_convolution_2d": (pair("ops.fastconv", "build_fast_convolution_2d"),

@@ -254,17 +254,26 @@ def test_one_slab_is_the_exact_solve(setup):
 def test_unported_and_invalid_options_raise(setup, tmp_path):
     """``cache_dir``, once unported, checkpoints the slab factorization (a
     second build loads it bit-identically, also through ``bump3d``);
-    ``fac_provider`` still raises, naming its slice; bad modes and too thin
-    absorbing layers are refused as in the JAX package.  Polarized traces
-    build on the z layout."""
+    ``fac_provider``, once unported, supplies the factorization: a provider
+    that factors slab by slab with the ``factor_one`` it is given gives the
+    built system's sweep to 1e-12; bad modes and too thin absorbing layers
+    are refused as in the JAX package.  Polarized traces build on the z
+    layout."""
     s = setup
     args = (s["ta"], s["tag"], s["nu"], s["x"], s["h"], K, 2)
     built = [sd.build_slab_system_3d(*args, cache_dir=str(tmp_path / "slabs"))
              for _ in range(2)]
     for f in dataclasses.fields(built[0].fac):
         assert torch.equal(getattr(built[0].fac, f.name), getattr(built[1].fac, f.name))
-    with pytest.raises(NotImplementedError, match="ROADMAP.*slice 10"):
-        sd.build_slab_system_3d(*args, fac_provider=lambda *a: None)
+    def provider(h_sten, dtype, factor_one):
+        assert h_sten.shape[0] == 2 and h_sten.dtype == np.complex128
+        facs = [factor_one(torch.as_tensor(h_sten[i]).to(dtype)) for i in range(2)]
+        return type(facs[0])(**{f.name: torch.stack([getattr(x, f.name) for x in facs])
+                                for f in dataclasses.fields(facs[0])}), None
+
+    provided = sd.build_slab_system_3d(*args, fac_provider=provider)
+    b = torch.as_tensor(_rhs(9))
+    assert _relerr(sd.gs_sweep_3d(provided, b), sd.gs_sweep_3d(built[0], b)) < 1e-12
     with pytest.raises(ValueError, match="pivot_dtype"):
         sd.build_slab_system_3d(*args, pivot_dtype="yblock_fp8")
     with pytest.raises(ValueError, match="npml"):

@@ -1,7 +1,7 @@
 """Where one line of the dense substitution passes, or one step of the fused
 sweeps, spends its time.
 
-    python3 benchmarks_torch/thomas_ablation.py [--trace-only | --sweep]
+    python3 benchmarks_torch/thomas_ablation.py [--trace-only | --sweep] [--r 1,2,8]
 
 Needs one CUDA card and nvcc.  ``ncu`` and ``nsys`` are not always at hand,
 so this script measures by ablation: it builds ``csrc/thomas_fwd.cu`` once per
@@ -13,8 +13,9 @@ the band and right-hand rows.  It also builds whole the flag-handoff step
 with one and with two CTAs a tile (``-DTHOMAS_SPLIT=1``, ``2``; the package
 picks per launch) and with one item of look-ahead (``-DTHOMAS_STAGES=2``).  It times the
 forward pass through the package's wrapper at one slab of m = n = 801 lines
-for r = 1 and 2, and at 16 batch rows of 70 lines for r = 1, and prints
-microseconds per line for every case.  The libraries go to
+for r = 1 and 2, and at 16 batch rows of 70 lines for r = 1 (``--r`` gives
+the right-hand sides of both shapes instead, e.g. ``--r 2,8`` for the wide
+step), and prints microseconds per line for every case.  The libraries go to
 ``build/ablation/``.  Last, a build with ``-DTHOMAS_TRACE=1`` stamps the SM's
 cycle counter at each phase of a line step in every CTA: it prints the median
 of each phase, and at one slab, by the global timer, the handoff (from the
@@ -202,9 +203,11 @@ def main():
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     n = 801
+    argv = sys.argv[1:]
+    wanted = tuple(int(r) for r in argv[argv.index("--r") + 1].split(",")) if "--r" in argv else None
     # one slab of 801 lines (the one-slab solve), and 16 batch rows of 70
     # lines, one per slab (jacobi_sweep)
-    for S, m, rs in ((1, 801, (1, 2)), (16, 70, (1,))):
+    for S, m, rs in ((1, 801, wanted or (1, 2)), (16, 70, wanted or (1,))):
         fac = random_factors(g, S, m, n, dev)
         for r in rs:
             b4 = torch.zeros((S, m, 2 * r, fac.ld), device=dev)
@@ -212,7 +215,11 @@ def main():
             for (name, _), lib in zip(CASES, libs):     # none with --trace-only
                 cuda_build._functions["thomas_fwd"] = lib
                 tk._EXCHANGES = {}      # every case on exchange buffers of its own
-                ms = cuda_time_ms(lambda: tk.forward_substitution(fac, fac.slab_ids, b4), 5)
+                try:
+                    ms = cuda_time_ms(lambda: tk.forward_substitution(fac, fac.slab_ids, b4), 5)
+                except ValueError:      # a forced split whose stage buffers do not fit
+                    print(f"B={S:2d} m={m} r={r}  {name:28s} refused", flush=True)
+                    continue
                 print(f"B={S:2d} m={m} r={r}  {name:28s} {ms / m * 1e3:7.3f} us/line",
                       flush=True)
         for r in rs:

@@ -94,6 +94,14 @@ microseconds a line step and checks that repeated launches give the same
 bits.  The fused plane passes of the 3D paths (rows 11, 12, 11i, 12i) run the
 flag-handoff plane step (``csrc/plane_pass.cuh``): after the 48^3 and 96^3
 paths the script prints their microseconds a plane step, with the same check.
+The dense line passes and the plane kernels take up to eight right-hand sides
+a launch: paths 1, 2 and 6 also solve eight plane-wave directions (angles
+2 pi k / 8) jointly, the 48^3 z-layout sweep four and eight sources and path 4
+eight, each through ``gmres_batched`` with one launch of r = 8 (or 4) a pass,
+against the same directions solved as joint pairs (the same counts, the
+solutions close, an apply of R directions making one direction's launches),
+with ms per direction at R = 1, 2 and 8; the kernels line holds every dense
+line, plane and plane-apply kernel at r = 3, 4 and 8 on those solves' planes.
 Each phase prints one JSON line; any failed check raises, so the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -156,6 +164,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (
 # H100 SXM data-sheet peaks used for the bounds
 PEAK_BYTES_PER_S = 3.35e12     # HBM3
 PEAK_F32_FLOPS = 67e12         # float32 outside the tensor cores
+PEAK_BF16_TENSOR_FLOPS = 989e12  # bf16 on the tensor cores, dense
 
 KERNEL_TOL = 1e-4              # of the max-norm; f32 summation order only
 JAX_TPU_ITERATIONS = 6         # recorded by the JAX package for either solve
@@ -552,6 +561,7 @@ def phase_solve_batched(problem, name: str, path_kernels, repeats: int,
     (x, info), times, counts = timed_solves(
         lambda: plasma2d.solve_batched(problem, dirs, **SOLVE_KW), repeats)
     ms = sorted(times)[len(times) // 2]
+    SOLVE_RESULTS[name] = dict(ms=ms, iterations=[int(v) for v in info.n_iterations])
     emit(
         name, directions=dirs, solve_ms=ms, solve_ms_runs=times,
         ms_per_direction=ms / len(dirs),
@@ -569,17 +579,24 @@ def phase_solve_batched(problem, name: str, path_kernels, repeats: int,
     return counts
 
 
+def product_ms(flops: float, r: int) -> float:
+    """Least milliseconds of a pass's products of ``flops`` operations: f32
+    multiply-adds at r <= 2 (the card's float32 rate), tensor-core products
+    at r = 4 and 8, where the rows enter as three bf16 terms
+    (``csrc/wide_mma.cuh``: three times the operations at the bf16 rate)."""
+    return 1e3 * (flops / PEAK_F32_FLOPS if r <= 2 else 3 * flops / PEAK_BF16_TENSOR_FLOPS)
+
+
 def pass_bound(lines: int, n: int, ld: int, r: int, stacks: int):
     """Least time for ``lines`` lines of a substitution pass: the n input rows
     of two bf16 planes of ld output lanes (the kernels read no padding row),
     the band and ``stacks`` row stacks of 2r x ld floats per line (right-hand
     rows in, y/t/x rows out), plus the carry and the slab index, against the
-    card's memory rate; the products of those entries against its float32
-    rate."""
+    card's memory rate; the products of those entries (:func:`product_ms`)."""
     row = 2 * r * ld * 4
     line_bytes = 2 * n * ld * 2 + 2 * 3 * ld * 4 + stacks * row
     bytes_ms = 1e3 * (lines * line_bytes + row + 4) / PEAK_BYTES_PER_S
-    flops_ms = 1e3 * lines * 2 * (2 * (2 * r) * n * ld) / PEAK_F32_FLOPS
+    flops_ms = product_ms(lines * 2 * (2 * (2 * r) * n * ld), r)
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
@@ -631,20 +648,29 @@ def kernel_entry(name, r, path, launches, kernel, plain, bound, library_ms, shap
     """Hold one kernel against its plain version on the same inputs and time
     both; ``kernel``/``plain`` return the tensor (or tuple) to compare;
     ``graph`` times both from a CUDA graph (:func:`graph_ms`; pass the
-    library yardstick timed the same way)."""
-    got, want = kernel(), plain()
+    library yardstick timed the same way).  Otherwise the plain version's
+    time is that of the call the comparison makes (CUDA events; a Python loop
+    over lines or planes, whose warm-up changes nothing measurable)."""
+    got = kernel()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain()
+    end.record()
+    torch.cuda.synchronize()
+    plain_once_ms = start.elapsed_time(end)
     if isinstance(got, tuple):
         got, want = (torch.cat([t.reshape(-1) for t in ts]) for ts in (got, want))
     abs_err, err = rel_err(got, want)
     check(err <= KERNEL_TOL,
           f"{name}{variant} at the shape of {path} (r={r}) within {KERNEL_TOL} ({err})")
     info = dict(KERNEL_INFO[name])
-    info["replaces"] = replaces or info["replaces"][r]
+    # r > 2 runs the body of the r = 2 TPU kernel (which takes any r)
+    info["replaces"] = replaces or info["replaces"][min(r, 2)]
     return dict(
         name=f"{name}{variant}_r{r}", **info, path=path, launches=launches,
         max_abs_err=abs_err, max_rel_err=err, tolerance_rel=KERNEL_TOL,
         ms=graph_ms(kernel) if graph else time_ms(kernel, 5),
-        plain_ms=graph_ms(plain, launches=20) if graph else time_ms(plain, 2),
+        plain_ms=graph_ms(plain, launches=20) if graph else plain_once_ms,
         bound_ms=bound[0], bound_by=bound[1], library_ms=library_ms, shape=shape,
     )
 
@@ -851,6 +877,176 @@ def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) ->
     return kernels
 
 # ---------------------------------------------------------------------------
+# Wide batches: up to eight right-hand sides in one launch (the joint solves
+# of paths 1, 2, 4 and 6)
+# ---------------------------------------------------------------------------
+
+WIDE_R = 8
+# plane-wave directions at angles 2 pi k / 8 (examples/example_multisource2d.py;
+# in 3D in the x-y plane)
+WIDE_DIRECTIONS = tuple((float(np.cos(2 * np.pi * k / WIDE_R)),
+                         float(np.sin(2 * np.pi * k / WIDE_R))) for k in range(WIDE_R))
+WIDE_RS = (3, 4, 8)                 # the wide entries of the kernels line
+# each direction's solution against its joint-pair solve: 1e-5, or twice the
+# spread between the path's own r = 1 and r = 2 solves of the first direction
+# where that is larger.  Launches of different widths sum in different orders
+# (at 801 lanes r = 8 takes two CTAs a tile, r <= 2 one), and a complex64
+# solve stopped at rtol 1e-6 carries such rounding into its solution: at
+# 801^2 the r = 1 and r = 2 solves of one direction differ by 2.6e-4 on the
+# parent's kernels (PERF.md, PR 16), the 48^3 ones by 4.6e-6
+WIDE_SOLUTION_LIMIT = 1e-5
+WIDE_TRUE_RESIDUAL_LIMIT = 1e-3
+
+
+def launches_of(fn) -> dict:
+    """Launches of one ``fn()``: the counts set to 0 just before it and read
+    just after."""
+    reset_counts()
+    fn()
+    torch.cuda.synchronize()
+    return read_counts()
+
+
+def phase_wide_solves(name: str, solve, rhs: torch.Tensor, apply_one, apply_batch, widths,
+                      ms_per_direction: dict, path_kernels, allowed=(), repeats: int = 3,
+                      true_residual_limit: float = WIDE_TRUE_RESIDUAL_LIMIT) -> dict:
+    """The joint solve of the first R wide directions for each R of
+    ``widths`` (``solve(a, b)``: directions a .. b - 1 in one
+    ``gmres_batched``; warm-up, median of ``repeats``), every substitution
+    pass one launch of R right-hand sides; then the same directions again as
+    joint pairs (the r = 2 launches).  Checks every direction converged with
+    a true residual within the limit, its iteration count equal to the pair
+    solve's and its solution within 1e-5 of it (or within twice the spread
+    between the r = 1 and r = 2 solves of the first direction,
+    ``WIDE_SOLUTION_LIMIT``); and, from the wrapper
+    counters, that one preconditioner apply of R directions (``apply_batch``
+    of ``rhs[:R]``) launches exactly what the apply of a pair does, kernel by
+    kernel, and as many kernels as the single-direction apply
+    (``apply_one(rhs[0])``): one launch a pass.  ``ms_per_direction`` holds
+    the path's R = 1 and 2 figures; every kernel of ``path_kernels`` must
+    launch, no kernel outside them and ``allowed``.  Returns the launch counts
+    of each width's joint solve."""
+    top = max(widths)
+    allowed = tuple(path_kernels) + tuple(allowed)
+    (pairs, times_pairs, _) = timed_solves(
+        lambda: [solve(i, i + 2) for i in range(0, top, 2)], 1)
+    x_pairs = torch.cat([x for x, _ in pairs])
+    its_pairs = [int(v) for _, info in pairs for v in info.n_iterations]
+    x_one, _ = solve(0, 1)
+    spread = rel_err(x_one[0], x_pairs[0])[1]
+    limit = max(WIDE_SOLUTION_LIMIT, 2 * spread)
+    applies = {1: launches_of(lambda: apply_one(rhs[0])),
+               2: launches_of(lambda: apply_batch(rhs[:2]))}
+    out, report = {}, {}
+    for width in widths:
+        solve(0, width)                                       # warm-up
+        torch.cuda.synchronize()
+        (x, info), times, counts = timed_solves(lambda: solve(0, width), repeats)
+        applies[width] = launches_of(lambda: apply_batch(rhs[:width]))
+        ms = sorted(times)[len(times) // 2]
+        its = [int(v) for v in info.n_iterations]
+        errs = [rel_err(x[q], x_pairs[q])[1] for q in range(width)]
+        report[width] = dict(
+            solve_ms=ms, solve_ms_runs=times, ms_per_direction=ms / width, iterations=its,
+            converged=[bool(v) for v in info.converged],
+            true_residual=[float(v) for v in info.true_residual],
+            rel_err_vs_pairs=errs, launches=counts)
+        out[width] = counts
+        check(tuple(x.shape) == (width, x_pairs.shape[1]), f"{name}: solution shape (R={width})")
+        check(bool(torch.isfinite(torch.view_as_real(x)).all()), f"{name}: solution is finite")
+        check(bool(info.converged.all()), f"{name}: every direction converged (R={width}: {its})")
+        check(float(info.true_residual.max()) <= true_residual_limit,
+              f"{name}: true residuals <= {true_residual_limit} (R={width})")
+        check(its == its_pairs[:width],
+              f"{name}: each direction takes its joint-pair count ({its}, {its_pairs[:width]})")
+        check(max(errs) <= limit,
+              f"{name}: solutions within {limit} of the pair solves ({errs})")
+        check(all(counts[k] > 0 for k in path_kernels)
+              and not any(counts[k] for k in COUNTERS if k not in allowed),
+              f"{name}: the path's kernels launched, and no other (R={width}: {counts})")
+        check(applies[width] == applies[2]
+              and sum(applies[width].values()) == sum(applies[1].values()),
+              f"{name}: an apply of {width} directions makes the launches of one direction's "
+              f"({applies[width]}, {applies[2]}, {applies[1]})")
+    pair_ms = sorted(times_pairs)[len(times_pairs) // 2]
+    per_direction = dict(ms_per_direction)
+    per_direction.update({w: report[w]["ms_per_direction"] for w in widths})
+    emit(name, directions=[list(d) for d in WIDE_DIRECTIONS[:top]], widths=list(widths),
+         ms_per_direction=per_direction,
+         pairs=dict(solve_ms=pair_ms, ms_per_direction=pair_ms / top, iterations=its_pairs),
+         runs={w: report[w] for w in widths}, apply_launches=applies,
+         r1_vs_r2_spread=spread, solution_limit=limit, true_residual_limit=true_residual_limit)
+    return out
+
+
+def phase_wide_2d(problem, name: str, single: str, batched: str, path_kernels,
+                  allowed=()) -> dict:
+    """Path 1's, 2's or 6's problem: ``plasma2d.solve_batched`` over the
+    eight wide directions (R = 8), beside the path's single and two-direction
+    solves (``single``, ``batched``: their phases)."""
+    rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS))
+    ms = {1: SOLVE_RESULTS[single]["ms"], 2: SOLVE_RESULTS[batched]["ms"] / 2}
+    return phase_wide_solves(
+        name, lambda a, b: plasma2d.solve_batched(problem, WIDE_DIRECTIONS[a:b], **SOLVE_KW),
+        rhs, problem.precond.apply, problem.precond.apply_batch, (WIDE_R,), ms, path_kernels,
+        allowed)
+
+
+def wide_line_entries(problem, path: str, counts: dict) -> list:
+    """The dense line kernels of a 2D path at r = 3, 4 and 8 (one launch
+    each: r = 3 padded to four) on the solve's own planes and right-hand
+    sides (As b of the first r wide directions): on one slab the forward and
+    backward passes over its 801 lines; with 16 slabs the cached forward pass
+    and the backward pass on an inner slab's lines, in the path's storage.
+    ``counts`` are the launches of the path's R = 8 joint solve."""
+    pc = problem.precond
+    slabs = pc.slabs
+    fac = slabs.pfac
+    S, m, n, ld = fac.n_slabs, fac.m, fac.n, fac.ld
+    slab = S // 2
+    s_idx = fac.slab_ids[slab : slab + 1]
+    int8 = fac.storage == "int8"
+    suffix = "_int8" if int8 else ""
+    bound = int8_pass_bound if int8 else pass_bound
+    dense_re = tk.dense_planes(fac.cinv_t_re[slab]).to(torch.bfloat16)
+    dense_im = tk.dense_planes(fac.cinv_t_im[slab]).to(torch.bfloat16)
+    kernels = []
+    for r in WIDE_RS:
+        rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS[:r]))   # (r, N)
+        b = pc.a_s.matvec(rhs.T.contiguous())
+        part = (b.reshape(1, m, n, r) if S == 1 else subdomain.partition_source(slabs, b))
+        b4 = tk._to_rows_b(fac, part[slab : slab + 1])
+        shape = dict(B=1, S=S, slab=slab, m=m, n=n, ld=ld, r=r,
+                     launch_width=tk.line_width(fac, r))
+        lib = library_pass_ms(b4[0, 0], dense_re, dense_im, range(m))
+        if S == 1:
+            y4 = tk.forward_substitution(fac, s_idx, b4)
+            runs = (("thomas_forward", "",
+                     lambda: tk.forward_substitution(fac, s_idx, b4),
+                     lambda: tk.forward_substitution_plain(fac, s_idx, b4), 2),
+                    ("thomas_backward", "",
+                     lambda: tk.backward_substitution(fac, s_idx, y4),
+                     lambda: tk.backward_substitution_plain(fac, s_idx, y4), 2))
+        else:
+            y4, _ = tk.forward_substitution_cached(fac, s_idx, b4)
+            zero = torch.zeros_like(b4[:, 0])
+            runs = (("thomas_forward_cached" + suffix, "",
+                     lambda: tk.forward_substitution_cached(fac, s_idx, b4),
+                     lambda: tk.forward_substitution_cached_plain(fac, s_idx, b4, zero), 3),
+                    ("thomas_backward" + suffix, "_slab",
+                     lambda: tk.backward_substitution(fac, s_idx, y4),
+                     lambda: tk.backward_substitution_plain(fac, s_idx, y4), 2))
+        for kname, variant, kernel, plain, stacks in runs:
+            entry = kernel_entry(kname, r, path, counts[kname], kernel, plain,
+                                 bound(m, n, ld, r, stacks=stacks), lib, shape, variant=variant)
+            if int8:
+                entry["library_call"] = LIBRARY_CALL_INT8
+            kernels.append(entry)
+    del dense_re, dense_im
+    return kernels
+
+
+# ---------------------------------------------------------------------------
 # The 3D path: the 48^3 bump solve on bf16 plane pivots
 # ---------------------------------------------------------------------------
 
@@ -979,6 +1175,33 @@ def plane_wave_rhs(problem, axis: int) -> torch.Tensor:
     return -(problem.op.apply(u) - u)
 
 
+def plane_waves_3d(problem, r: int) -> torch.Tensor:
+    """``-(M u - u)`` for the plane waves ``exp(i k d . x)`` of the first r
+    wide directions d (in the x-y plane; the first is the problem's own x
+    wave), as an (r, N) batch."""
+    X, Y, _ = problem.grid.mesh()
+    out = []
+    for dx, dy in WIDE_DIRECTIONS[:r]:
+        phase = torch.as_tensor((dx * X + dy * Y).ravel(), device=problem.rhs.device)
+        u = torch.exp(1j * problem.k * phase).to(problem.rhs.dtype)
+        out.append(-(problem.op.apply(u) - u))
+    return torch.stack(out)
+
+
+def phase_wide_3d(problem, name: str, widths, ms_per_direction: dict, path_kernels,
+                  solve_kw: dict) -> dict:
+    """``gmres_batched`` of the first R wide plane waves over the problem's
+    preconditioner ``apply_batch``, the route of ``api.solve_problem_batched``
+    (``SingleSweepPreconditioner3D``: As b, then the z-slab sweep, the body
+    of ``GSPreconditioner3D.apply_batch``), for each R of ``widths``."""
+    pc = problem.precond
+    rhs = plane_waves_3d(problem, max(widths))
+    return phase_wide_solves(
+        name, lambda a, b: gmres_batched(problem.op.apply, rhs[a:b],
+                                         preconditioner=pc.apply_batch, **solve_kw),
+        rhs, pc.apply, pc.apply_batch, widths, ms_per_direction, path_kernels)
+
+
 def phase_bump3d_solve(device, repeats: int = 3):
     """``bump3d.build_problem(h=1/48, complex64, "sparsifying", "bf16_pallas")``
     and ``bump3d.solve`` at rtol 1e-6: three timed solves after a warm-up,
@@ -1047,16 +1270,21 @@ def phase_bump3d_solve(device, repeats: int = 3):
     return problem, {1: counts, 2: counts2}
 
 
+PLANE_APPLY_RS = (1, 2) + WIDE_RS
+
+
 def phase_plane_apply_path(problem) -> dict:
     """One ``block_thomas_solve_3d`` at 48^3 through the per-plane branch
     (``fused=False``: one plane apply per plane and pass) against the fused
-    branch on the same planes and right-hand sides, for r = 1 and 2.
-    Returns the launch counts of the per-plane solves by r."""
+    branch on the same planes and right-hand sides, for r = 1, 2 (the x and
+    y waves) and 3, 4, 8 (wide directions: one apply launch a plane and
+    pass).  Returns the launch counts of the per-plane solves by r."""
     view = problem.precond.factorization
     rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
     counts, errs = {}, {}
-    for r in (1, 2):
-        b = problem.precond.a_s.matvec(rhs2[:r].T.contiguous())[:, : r]
+    for r in PLANE_APPLY_RS:
+        sources = rhs2[:r] if r <= 2 else plane_waves_3d(problem, r)
+        b = problem.precond.a_s.matvec(sources.T.contiguous())[:, : r]
         b = b[:, 0] if r == 1 else b
         x_fused = direct.block_thomas_solve_3d(view, b)
         reset_counts()
@@ -1066,7 +1294,7 @@ def phase_plane_apply_path(problem) -> dict:
         _, errs[r] = rel_err(x_plane, x_fused)
     emit("plane_apply_path", planes=view.stack.l1, launches=counts, max_rel_err=errs,
          tolerance=KERNEL_TOL)
-    for r in (1, 2):
+    for r in PLANE_APPLY_RS:
         check(counts[r]["plane_apply"] == 2 * view.stack.l1,
               f"the per-plane branch launched plane_apply once per plane and pass ({counts})")
         check(errs[r] <= KERNEL_TOL,
@@ -1079,13 +1307,13 @@ def plane_bound(planes: int, ld: int, r: int, stacks: int, weights: bool = True,
     """Least time for ``planes`` plane steps: two bf16 planes (or two int8
     planes and their f32 scales, one per 128 input rows and output lane), the
     packed weight rows and ``stacks`` row stacks of 2r x ld floats per plane,
-    plus the carry, against the card's memory rate; the products against its
-    float32 rate."""
+    plus the carry, against the card's memory rate; the products
+    (:func:`product_ms`)."""
     row = 2 * r * ld * 4
     pivots = 2 * ld * ld * 2 if storage == "bf16" else 2 * ld * ld + 2 * (ld // 128) * ld * 4
     plane_bytes = pivots + (2 * 9 * ld * 4 if weights else 0) + stacks * row
     bytes_ms = 1e3 * (planes * plane_bytes + row) / PEAK_BYTES_PER_S
-    flops_ms = 1e3 * planes * 2 * (2 * (2 * r) * ld * ld) / PEAK_F32_FLOPS
+    flops_ms = product_ms(planes * 2 * (2 * (2 * r) * ld * ld), r)
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
@@ -1128,6 +1356,18 @@ def phase_plane_kernel_times(problem, path_counts: dict, apply_counts: dict) -> 
             "plane_forward": lambda: pk.plane_forward(st, b4, view.lrows, n),
             "plane_backward": lambda: pk.plane_backward(st, y4, view.urows, n),
         }, phase="plane_step")
+    # the plane apply at r = 3, 4 and 8 (one launch each, tensor cores), on
+    # the wide directions' rows
+    for r in WIDE_RS:
+        b = problem.precond.a_s.matvec(plane_waves_3d(problem, r).T.contiguous())
+        b4 = pk._rows_of(b.reshape(l, mn, r), ld)
+        kernels.append(kernel_entry(
+            "plane_apply", r, "plane_apply_path", apply_counts[r]["plane_apply"],
+            lambda: pk.plane_apply_rows(st, l // 2, b4[l // 2]),
+            lambda: pk.plane_apply_rows_plain(st, l // 2, b4[l // 2]),
+            plane_bound(1, ld, r, stacks=2, weights=False),
+            library_pass_ms(b4[0], dense_re, dense_im, range(1), graph=True),
+            dict(l=l, mn=mn, ld=ld, r=r, plane=l // 2), graph=True))
     del dense_re, dense_im
     return kernels
 
@@ -1324,7 +1564,16 @@ def phase_gs3d_48_z(device, repeats: int = 3) -> list:
           f"the z-layout sweep ran both fused passes ({counts})")
     check(err_resume <= KERNEL_TOL,
           f"resumed slab solve within {KERNEL_TOL} of the full one ({err_resume})")
-    del problem, dense_re, dense_im
+    del dense_re, dense_im
+    # four and eight plane waves in one joint solve (path (c) of the wide
+    # batches), and the fused passes at r = 3, 4 and 8 on an inner slab
+    wide = phase_wide_3d(problem, "gs3d_48_wide", (4, WIDE_R),
+                         {1: sorted(times)[len(times) // 2]}, ("plane_forward", "plane_backward"),
+                         GS48_SOLVE_KW)
+    kernels += sweep_kernel_times(problem, {r: "gs3d_48_wide" for r in WIDE_RS},
+                                  {r: wide[4 if r <= 4 else WIDE_R] for r in WIDE_RS},
+                                  variant="_gs48")
+    del problem
     torch.cuda.empty_cache()
     return kernels
 
@@ -1352,6 +1601,8 @@ def phase_gs3d_96_solve(device, repeats: int = 3):
         lambda: gmres_batched(problem.op.apply, rhs2, preconditioner=pc.apply_batch,
                               **GS96_SOLVE_KW), repeats)
     slabs = pc.slabs
+    SOLVE_RESULTS["gs3d_96_solve"] = dict(ms=sorted(times)[len(times) // 2], iterations=n_it)
+    SOLVE_RESULTS["gs3d_96_apply_batch"] = dict(ms=sorted(times2)[len(times2) // 2])
     emit(
         "gs3d_96_solve", grid=list(problem.grid.shape), k=problem.k, unknowns=problem.grid.size,
         pivot_dtype="yblock_int8_pallas", pivot_layout=slabs.pivot_layout,
@@ -1392,10 +1643,12 @@ def phase_gs3d_96_solve(device, repeats: int = 3):
 
 def slab_rhs(problem, r: int, s: int):
     """Slab ``s``'s share of the sweep's right-hand side ``As b`` for the
-    x-wave (r = 1) or the x- and y-waves (r = 2), and the slab's rows."""
+    x-wave (r = 1), the x- and y-waves (r = 2) or the first r wide
+    directions (r > 2), and the slab's rows."""
     pc = problem.precond
-    rhs2 = torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])
-    b = pc.a_s.matvec(rhs2[:r].T.contiguous())
+    sources = (torch.stack([problem.rhs, plane_wave_rhs(problem, 1)])[:r] if r <= 2
+               else plane_waves_3d(problem, r))
+    b = pc.a_s.matvec(sources.T.contiguous())
     rhs_s = subdomain3d.partition_source_3d(pc.slabs, b[:, 0] if r == 1 else b)[s]
     return rhs_s, slab_rows(pc.slabs, rhs_s)
 
@@ -1403,13 +1656,13 @@ def slab_rhs(problem, r: int, s: int):
 def phase_plane_apply_path_int8(problem) -> dict:
     """One slab solve of the 96^3 sweep (an inner slab, 96 y-planes) through
     the per-plane branch (``fused=False``: the int8 plane apply once per
-    plane and pass) against the fused branch on the same planes, r = 1 and
-    2.  Returns the launch counts of the per-plane solves by r."""
+    plane and pass) against the fused branch on the same planes, r = 1, 2
+    and 3, 4, 8.  Returns the launch counts of the per-plane solves by r."""
     slabs = problem.precond.slabs
     s = slabs.n_subs // 2
     view = slabs.slab_facs[s]
     counts, errs = {}, {}
-    for r in (1, 2):
+    for r in PLANE_APPLY_RS:
         rhs_s, _ = slab_rhs(problem, r, s)
         x_fused = subdomain3d.slab_solve_3d(slabs, view, rhs_s)
         reset_counts()
@@ -1420,7 +1673,7 @@ def phase_plane_apply_path_int8(problem) -> dict:
     planes = view.lsten.shape[0]
     emit("plane_apply_path_int8", slab=s, planes=planes, launches=counts, max_rel_err=errs,
          tolerance=KERNEL_TOL)
-    for r in (1, 2):
+    for r in PLANE_APPLY_RS:
         check(counts[r]["plane_apply_int8"] == 2 * planes,
               f"the per-plane branch launched the int8 plane apply once per plane and pass "
               f"({counts})")
@@ -2112,14 +2365,15 @@ def int8_pass_bound(lines: int, n: int, ld: int, r: int, stacks: int, batch: int
     distinct slabs: the n input rows of two int8 planes of ld output lanes
     (the kernels read no padding row) and their scales, the band and
     ``stacks`` row stacks per line, plus the carry, against the card's memory
-    rate; the products and the dequantization (one multiply per entry)
-    against its float32 rate."""
+    rate; the products (:func:`product_ms`) and the dequantization (one
+    operation per entry) against its float32 rate."""
     row = 2 * r * ld * 4
     nb = tk.n_scale_blocks(ld)
     line_bytes = 2 * n * ld + 2 * nb * ld * 4 + 2 * 3 * ld * 4 + stacks * row
-    nbytes = batch * (lines * line_bytes + row)
-    flops = batch * lines * (2 * 2 * (2 * r) * n * ld + 2 * n * ld)
-    return bound_of(nbytes, flops)
+    bytes_ms = 1e3 * batch * (lines * line_bytes + row) / PEAK_BYTES_PER_S
+    ops_ms = (product_ms(batch * lines * 2 * 2 * (2 * r) * n * ld, r)
+              + 1e3 * batch * lines * 2 * n * ld / PEAK_F32_FLOPS)
+    return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
 def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict) -> list:
@@ -3498,10 +3752,11 @@ def sharded_leg(name: str, one, sharded_run, what: dict):
 
 def apply_host_device(name: str, fns: dict):
     """Host milliseconds to enqueue one apply beside its device
-    milliseconds (CUDA events), for each of ``fns``."""
+    milliseconds (CUDA events), for each of ``fns``: one timed apply of
+    each after a warm-up (these applies run the plain loops, seconds each)."""
     out = {}
     for label, fn in fns.items():
-        out[label] = dict(host_enqueue_ms=enqueue_ms(fn, repeats=2), device_ms=time_ms(fn, 2))
+        out[label] = dict(host_enqueue_ms=enqueue_ms(fn, repeats=1), device_ms=time_ms(fn, 1))
     emit(name, **out)
 
 
@@ -3822,6 +4077,9 @@ def main() -> int:
     problem, counts = phase_solve(device, "solve", 1, False, pair, repeats=3)
     counts_batched = phase_solve_batched(problem, "solve_batched", pair, repeats=3)
     kernels = phase_kernel_times(problem, {1: counts, 2: counts_batched})
+    # (a) eight directions in one joint solve: r = 8 a launch
+    wide = phase_wide_2d(problem, "wide_solve", "solve", "solve_batched", pair)
+    kernels += wide_line_entries(problem, "wide_solve", wide[WIDE_R])
     del problem
     torch.cuda.empty_cache()
 
@@ -3830,6 +4088,10 @@ def main() -> int:
     pair = ("thomas_forward_cached", "thomas_backward")
     problem, counts = phase_solve(device, "sweep_solve", 16, True, pair, repeats=3)
     counts_batched = phase_solve_batched(problem, "sweep_solve_batched", pair, repeats=3)
+    # (b) eight directions through the 16-slab double sweep
+    wide = phase_wide_2d(problem, "sweep_wide", "sweep_solve", "sweep_solve_batched", pair,
+                         allowed=DENSE_2D)
+    kernels += wide_line_entries(problem, "sweep_wide", wide[WIDE_R])
     jacobi_counts = phase_sweeps(problem)
     kernels += phase_sweep_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts)
     del problem
@@ -3851,9 +4113,16 @@ def main() -> int:
     phase_small_reference_gs3d(device)
     kernels += phase_gs3d_48_z(device)
     problem, counts96 = phase_gs3d_96_solve(device)
+    # (d) eight plane waves in one joint solve on the int8 y-planes
+    wide = phase_wide_3d(problem, "gs3d_96_wide", (WIDE_R,),
+                         {1: SOLVE_RESULTS["gs3d_96_solve"]["ms"],
+                          2: SOLVE_RESULTS["gs3d_96_apply_batch"]["ms"] / 2},
+                         ("plane_forward_int8", "plane_backward_int8"), GS96_SOLVE_KW)
     apply_counts = phase_plane_apply_path_int8(problem)
     kernels += sweep_kernel_times(problem, {1: "gs3d_96_solve", 2: "gs3d_96_apply_batch"},
                                   counts96, apply_counts)
+    kernels += sweep_kernel_times(problem, {r: "gs3d_96_wide" for r in WIDE_RS},
+                                  {r: wide[WIDE_R] for r in WIDE_RS}, apply_counts)
     marks.append(("path 4 polarized", time.perf_counter()))
     # the 3D polarized traces on the same int8 y-plane slabs (path 9's module)
     kernels += phase_polarized3d_96(problem)
@@ -3892,6 +4161,10 @@ def main() -> int:
                                   jax_iterations=JAX_INT8_ITERATIONS, absent=absent)
     counts_batched = phase_solve_batched(problem, "int8_sweep_solve_batched", pair, repeats=3,
                                          jax_iterations=JAX_INT8_ITERATIONS, absent=absent)
+    # (b) the same eight directions on the int8 line planes
+    wide = phase_wide_2d(problem, "int8_sweep_wide", "int8_sweep_solve",
+                         "int8_sweep_solve_batched", pair, allowed=INT8_2D)
+    kernels += wide_line_entries(problem, "int8_sweep_wide", wide[WIDE_R])
     jacobi_counts = phase_int8_sweeps(problem)
     kernels += phase_int8_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts)
     del problem

@@ -18,7 +18,8 @@
 // (ld / 8 blocks, no barrier), the tile's pivot columns (and int8 scales)
 // streamed through the same cp.async ring as the fused passes, the rows read
 // from global memory chunk by chunk, so shared memory does not depend on ld.
-// r <= 2 right-hand sides per launch.  The int8 entries are dequantized
+// r = 1, 2, 4 or 8 right-hand sides per launch (r = 4 and 8 as tensor-core
+// products, plane_pass.cuh note 4).  The int8 entries are dequantized
 // before the product, the fused kernels' order, where the TPU kernel scales
 // each 128-row partial product: f32 rounding apart, the same numbers.
 //

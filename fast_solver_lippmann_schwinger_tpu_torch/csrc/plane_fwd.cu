@@ -20,7 +20,8 @@
 // pallas_plane.py:314-326), which describes the design (one cooperative
 // launch of one CTA an SM, a deep ring of bulk-copied pivot chunks, the t
 // tiles and y lanes handed over as flagged exchange words: one grid-wide wait
-// a plane), the limits (r <= 2, ld <= 12448 at r = 2 in bf16) and the bound.
+// a plane; r = 4 and 8 on tensor cores), the limits (r = 1, 2, 4 or 8; ld <= 12448 at
+// r = 2 and 3104 at r = 8 in bf16) and the bound.
 // The carry travels in the exchange words; the t stack is only written.  A
 // build with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py only) launches the
 // grid-barrier step instead, plane::pass_kernel<R, false, S>.

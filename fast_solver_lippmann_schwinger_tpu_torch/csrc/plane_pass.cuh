@@ -116,10 +116,42 @@
 // scaling per element (about 3 ld^2 more operations at r = 1), which stays
 // below it.  The y words add 2r x ld x 8 B of L2 reads per CTA a step.
 //
-// Limits.  r = 1 or 2 (the wrappers run wider batches as groups), and
-// planes whose staged y_p (2r x ld floats) leaves room for 4 slots: the fused
-// passes take ld <= 12448 at r = 2 (24928 at r = 1) in bf16, 12288 (24704)
-// in int8 (fused_fits); the plane apply reads its rows from global memory and
+// 4. Wide batches: r = 4 and 8 in one launch, on tensor cores.  The TPU
+//    kernels take any r in one pass, each pivot plane read once for all of
+//    them (pallas_plane.py, _fwd_slab_call: (Pe, r2, npad) rows).  The step
+//    above keeps a thread's partial sums of all 2r x 8 outputs of a tile in
+//    registers (acc[V]) and its products are what holds it (PERF.md §5): at
+//    r = 8 that is 128 sums a thread and 16 f32 products per pivot entry.
+//    So at r = 4 and 8 each warp multiplies its 64-row segments as
+//    mma.sync.m16n8k16 (bf16 in, f32 sums; wide_mma.cuh, shared with the
+//    line kernels): M = the 2r stacked rows (re_p in
+//    row p, im_p in row 8 + p, zero rows where p >= r), N = the tile's 8
+//    output lanes, K = 16 input rows a step.  The B operand is the staged
+//    plane run as it lies in the ring (a row-major K x 8 tile, bf16, or int8
+//    widened to bf16 exactly); the A operand is y_p from shared memory, split
+//    into three bf16 terms y = h + m + l (about 24 bits, f32's precision) so
+//    that the products keep the f32 numbers of the contract (two terms would
+//    leave about 16 bits; TF32 10).  int8: each segment lies in one 128-row
+//    scale block, and its partial is multiplied by the block's scale of each
+//    output lane before it is added (the TPU kernel's order, _dot_plane:
+//    f32 rounding apart, the numbers of the plain version, which dequantizes
+//    each entry).  With re_p and im_p in rows p and 8 + p, a lane holds both
+//    halves of its outputs (t_re = Y.Pre - Yi.Pim, t_im = Yi.Pre + Yr.Pim
+//    are local), and the warps' sums meet in shared memory as before.  A
+//    thread keeps 8 sums; the y rows are read from shared memory at a row
+//    pitch of ld + 8 (no bank conflicts between the 8 rows a fragment
+//    reads), and the stencil of (a) takes a pair of right-hand sides at a
+//    time (18 words in flight a thread).  r = 1 and 2 keep the f32 step
+//    above.  The plane apply (apply_kernel) takes the same products at
+//    r = 4 and 8.
+//
+// Limits.  r = 1, 2, 4 or 8 (the wrappers pad r = 3 to 4 and r = 5..7 to 8
+// with zero columns and run more than 8 as groups of 8), and planes whose
+// staged y_p (2r x ld floats, 2r x (ld + 8) at r >= 4) leaves room for 4
+// slots: the fused passes take ld <= 12448 at r = 2 (24928 at r = 1) in
+// bf16, 12288 (24704) in int8, 6352 and 3104 at r = 4 and 8 in bf16, 6272
+// and 3072 in int8 (fused_fits, which stays with the grid-barrier step's
+// widths at r <= 2); the plane apply reads its rows from global memory and
 // has no such bound (the wrappers send larger stacks to the per-plane path).
 #pragma once
 
@@ -138,7 +170,7 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kLanes = 8;              // output lanes per tile
 constexpr int kChunkBytes = 4096;      // bytes of one plane's tile per staged chunk
 constexpr int kStages = 4;             // chunks in the ring
-constexpr int kMaxRhs = 2;             // right-hand sides per launch
+constexpr int kMaxRhs = 8;             // right-hand sides per launch: 1, 2, 4 or 8
 constexpr int kTaps = 9;
 constexpr int kScaleBlock = 128;       // input rows per int8 scale
 
@@ -396,9 +428,19 @@ constexpr int kRedPitch = kFlowWarps + 4;            // floats a value's warp su
 // slower, PERF.md §6); a segment lies within a 128-row scale block
 constexpr int kSegRows = 64;
 constexpr int kLaneRows = kSegRows / 32;
-// 16-byte y words a thread polls at once: all of them at ld = 3072
+// 16-byte y words a thread polls at once: all of them at ld = 3072 for
+// r <= 2, at most 24 (96 registers of values) for wide batches
 template <int R>
-__host__ __device__ constexpr int gather_batch() { return 12 * R; }
+__host__ __device__ constexpr int gather_batch() { return 12 * R < 24 ? 12 * R : 24; }
+// wide batches (note 4): tensor-core products, y_p at a row pitch of ld + 8,
+// the warps' sums at a pitch of kFlowWarps floats (no padding: the ring
+// keeps its 4 slots at ld = 3072, r = 8)
+template <int R>
+__host__ __device__ constexpr bool wide() { return R > 2; }
+template <int R>
+__host__ __device__ constexpr int y_pitch(int ld) { return wide<R>() ? ld + 8 : ld; }
+template <int R>
+__host__ __device__ constexpr int flow_red_pitch() { return wide<R>() ? kFlowWarps : kRedPitch; }
 // bytes of one ring slot of `rows` input rows: both plane parts and, int8,
 // the scales of their rows / 128 blocks
 template <Storage S>
@@ -410,7 +452,7 @@ __host__ __device__ constexpr size_t flow_slot_bytes(int rows) {
 // the warps' sums of a tile's 2R x 8 values, two parities
 template <int R>
 __host__ __device__ constexpr size_t flow_red_bytes() {
-  return sizeof(float) * 2 * (2 * R * kLanes) * kRedPitch;
+  return sizeof(float) * 2 * (2 * R * kLanes) * flow_red_pitch<R>();
 }
 
 __host__ __device__ constexpr size_t flow_bar_bytes(int slots) {
@@ -421,8 +463,8 @@ __host__ __device__ constexpr size_t flow_bar_bytes(int slots) {
 // staged y_p, the ring
 template <int R, Storage S>
 __host__ __device__ constexpr size_t flow_smem_bytes(int ld, int rows, int slots) {
-  return flow_bar_bytes(slots) + flow_red_bytes<R>() + sizeof(float) * (size_t)2 * R * ld +
-         (size_t)slots * flow_slot_bytes<S>(rows);
+  return flow_bar_bytes(slots) + flow_red_bytes<R>() +
+         sizeof(float) * (size_t)2 * R * y_pitch<R>(ld) + (size_t)slots * flow_slot_bytes<S>(rows);
 }
 
 // The chunk rows and slots of a launch: the largest chunk (a multiple of 32
@@ -432,7 +474,7 @@ template <int R, Storage S>
 inline bool flow_ring(int ld, size_t optin, int& rows, int& slots) {
   constexpr int kRows[3] = {S == Storage::kInt8 ? 1024 : 512, S == Storage::kInt8 ? 512 : 256,
                            S == Storage::kInt8 ? 384 : 192};
-  const size_t fixed = flow_red_bytes<R>() + sizeof(float) * (size_t)2 * R * ld + 128;
+  const size_t fixed = flow_red_bytes<R>() + sizeof(float) * (size_t)2 * R * y_pitch<R>(ld) + 128;
   for (int k = 0; k < 3; ++k) {
     const size_t slot = flow_slot_bytes<S>(kRows[k]);
     if (fixed + kMinSlots * (slot + 16) > optin) continue;
@@ -492,8 +534,11 @@ __global__ void __launch_bounds__(kFlowThreads, 1) flow_kernel(const FlowArgs fa
   using St = Store<S>;
   constexpr int V = 2 * R * kLanes;      // output values of a tile: rows x lanes
   constexpr int NW = 2 * R;              // words a lane: its 2R rows
+  constexpr bool kWide = wide<R>();      // tensor-core products (note 4)
+  constexpr int kPitch = flow_red_pitch<R>();
   const PassArgs& a = fa.a;
   const int ld = a.ld, mn = a.mn;
+  const int yp = y_pitch<R>(ld);         // row pitch of the staged y_p
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int count = a.l - a.start;
   const size_t row = (size_t)2 * R * ld;     // floats per plane of a stack
@@ -513,8 +558,8 @@ __global__ void __launch_bounds__(kFlowThreads, 1) flow_kernel(const FlowArgs fa
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);
   uint64_t* empty = full + N;
   float* red = reinterpret_cast<float*>(smem + flow_bar_bytes(N));
-  float* s_y = red + 2 * V * kRedPitch;                                  // [2R][ld]
-  unsigned char* ring = reinterpret_cast<unsigned char*>(s_y + 2 * R * ld);
+  float* s_y = red + 2 * V * kPitch;                                     // [2R][yp]
+  unsigned char* ring = reinterpret_cast<unsigned char*>(s_y + 2 * R * yp);
 
   if (tid == 0) {
     for (int i = 0; i < N; ++i) {
@@ -604,55 +649,112 @@ __global__ void __launch_bounds__(kFlowThreads, 1) flow_kernel(const FlowArgs fa
       for (int rr = 0; rr < 2 * R; ++rr) y[rr] = my_lane ? rb[rr] : 0.f;
       const bool from_init = s == 0 && !kBackward && a.t_init != nullptr;
       if (my_lane && (s > 0 || from_init) && !kNoStencil) {
-        // the carry's rows at each tap (zero weight outside the plane)
-        float cv[kTaps][2 * R];
-        if (from_init) {
+        if constexpr (kWide) {
+          // a pair of right-hand sides at a time: rows c, c + 1 (re) and
+          // R + c, R + c + 1 (im) at each tap, two 16-byte words a tap
+#pragma unroll 1
+          for (int c = 0; c < R; c += 2) {
+            float cv[kTaps][4];
+            if (from_init) {
 #pragma unroll
-          for (int d = 0; d < kTaps; ++d) {
-            const int src = f + offs[d];
+              for (int d = 0; d < kTaps; ++d) {
+                const int src = f + offs[d];
 #pragma unroll
-            for (int rr = 0; rr < 2 * R; ++rr)
-              cv[d][rr] = src >= 0 && src < mn ? __ldg(a.t_init + rr * ld + src) : 0.f;
+                for (int e = 0; e < 4; ++e) {
+                  const int rr = e < 2 ? c + e : R + c + e - 2;
+                  cv[d][e] = src >= 0 && src < mn ? __ldg(a.t_init + rr * ld + src) : 0.f;
+                }
+              }
+            } else {
+              const uint2* tw = t_words(s - 1);
+              const uint2* ptr[2 * kTaps];
+#pragma unroll
+              for (int d = 0; d < kTaps; ++d) {
+                const int src = f + offs[d];
+                const bool in = src >= 0 && src < mn;
+                ptr[2 * d] = in ? tw + ((size_t)src * NW + c) : nullptr;
+                ptr[2 * d + 1] = in ? tw + ((size_t)src * NW + R + c) : nullptr;
+              }
+              uint4 v[2 * kTaps];
+              thomas::poll_words<2 * kTaps, !kNoSync>(ptr, v, flag - 1u);
+#pragma unroll
+              for (int d = 0; d < kTaps; ++d) {
+                const bool in = ptr[2 * d] != nullptr;
+                cv[d][0] = in ? __uint_as_float(v[2 * d].x) : 0.f;
+                cv[d][1] = in ? __uint_as_float(v[2 * d].z) : 0.f;
+                cv[d][2] = in ? __uint_as_float(v[2 * d + 1].x) : 0.f;
+                cv[d][3] = in ? __uint_as_float(v[2 * d + 1].z) : 0.f;
+              }
+            }
+            float accr[2] = {0.f, 0.f}, acci[2] = {0.f, 0.f};
+#pragma unroll
+            for (int d = 0; d < kTaps; ++d) {
+              const int src = f + offs[d];
+              if (src < 0 || src >= mn) continue;      // zero weight: never read
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const float tr = cv[d][e], ti = cv[d][2 + e];
+                accr[e] = accr[e] + wr[d] * tr - wi[d] * ti;
+                acci[e] = acci[e] + wr[d] * ti + wi[d] * tr;
+              }
+            }
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              y[c + e] -= accr[e];
+              y[R + c + e] -= acci[e];
+            }
           }
         } else {
-          const uint2* tw = t_words(s - 1);
-          const uint2* ptr[kTaps * R];
+          // the carry's rows at each tap (zero weight outside the plane)
+          float cv[kTaps][2 * R];
+          if (from_init) {
+#pragma unroll
+            for (int d = 0; d < kTaps; ++d) {
+              const int src = f + offs[d];
+#pragma unroll
+              for (int rr = 0; rr < 2 * R; ++rr)
+                cv[d][rr] = src >= 0 && src < mn ? __ldg(a.t_init + rr * ld + src) : 0.f;
+            }
+          } else {
+            const uint2* tw = t_words(s - 1);
+            const uint2* ptr[kTaps * R];
+#pragma unroll
+            for (int d = 0; d < kTaps; ++d) {
+              const int src = f + offs[d];
+#pragma unroll
+              for (int h = 0; h < R; ++h)
+                ptr[d * R + h] = src >= 0 && src < mn ? tw + ((size_t)src * NW + 2 * h) : nullptr;
+            }
+            uint4 v[kTaps * R];
+            thomas::poll_words<kTaps * R, !kNoSync>(ptr, v, flag - 1u);
+#pragma unroll
+            for (int d = 0; d < kTaps; ++d)
+#pragma unroll
+              for (int h = 0; h < R; ++h) {
+                const bool in = ptr[d * R + h] != nullptr;
+                cv[d][2 * h] = in ? __uint_as_float(v[d * R + h].x) : 0.f;
+                cv[d][2 * h + 1] = in ? __uint_as_float(v[d * R + h].z) : 0.f;
+              }
+          }
+          float accr[R], acci[R];
+#pragma unroll
+          for (int rr = 0; rr < R; ++rr) accr[rr] = acci[rr] = 0.f;
 #pragma unroll
           for (int d = 0; d < kTaps; ++d) {
             const int src = f + offs[d];
+            if (src < 0 || src >= mn) continue;      // zero weight: never read
 #pragma unroll
-            for (int h = 0; h < R; ++h)
-              ptr[d * R + h] = src >= 0 && src < mn ? tw + ((size_t)src * NW + 2 * h) : nullptr;
-          }
-          uint4 v[kTaps * R];
-          thomas::poll_words<kTaps * R, !kNoSync>(ptr, v, flag - 1u);
-#pragma unroll
-          for (int d = 0; d < kTaps; ++d)
-#pragma unroll
-            for (int h = 0; h < R; ++h) {
-              const bool in = ptr[d * R + h] != nullptr;
-              cv[d][2 * h] = in ? __uint_as_float(v[d * R + h].x) : 0.f;
-              cv[d][2 * h + 1] = in ? __uint_as_float(v[d * R + h].z) : 0.f;
+            for (int rr = 0; rr < R; ++rr) {
+              const float tr = cv[d][rr], ti = cv[d][R + rr];
+              accr[rr] = accr[rr] + wr[d] * tr - wi[d] * ti;
+              acci[rr] = acci[rr] + wr[d] * ti + wi[d] * tr;
             }
-        }
-        float accr[R], acci[R];
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) accr[rr] = acci[rr] = 0.f;
-#pragma unroll
-        for (int d = 0; d < kTaps; ++d) {
-          const int src = f + offs[d];
-          if (src < 0 || src >= mn) continue;      // zero weight: never read
+          }
 #pragma unroll
           for (int rr = 0; rr < R; ++rr) {
-            const float tr = cv[d][rr], ti = cv[d][R + rr];
-            accr[rr] = accr[rr] + wr[d] * tr - wi[d] * ti;
-            acci[rr] = acci[rr] + wr[d] * ti + wi[d] * tr;
+            y[rr] -= accr[rr];
+            y[R + rr] -= acci[rr];
           }
-        }
-#pragma unroll
-        for (int rr = 0; rr < R; ++rr) {
-          y[rr] -= accr[rr];
-          y[R + rr] -= acci[rr];
         }
       }
       uint2* yw = y_words(s) + (size_t)f * NW;
@@ -697,8 +799,8 @@ __global__ void __launch_bounds__(kFlowThreads, 1) flow_kernel(const FlowArgs fa
           const int i = i0 + tid + u * kFlowConsumers;
           if (i >= loads) continue;
           const int fi = i / R, h = i - fi * R;
-          s_y[(2 * h) * ld + fi] = __uint_as_float(v[u].x);
-          s_y[(2 * h + 1) * ld + fi] = __uint_as_float(v[u].z);
+          s_y[(2 * h) * yp + fi] = __uint_as_float(v[u].x);
+          s_y[(2 * h + 1) * yp + fi] = __uint_as_float(v[u].z);
         }
       }
     }
@@ -709,75 +811,98 @@ __global__ void __launch_bounds__(kFlowThreads, 1) flow_kernel(const FlowArgs fa
     //     added in warp order, published as t words and into the t / x stack
     float* t_out = a.out != nullptr ? a.out + (size_t)p * row : nullptr;
     for (int k = 0; k < nt; ++k, ++q) {
-      float acc[V];
+      float* part = red + (q & 1) * V * kPitch;
+      if constexpr (kWide) {
+        // each warp's 64-row segments as tensor-core products (note 4), in
+        // turn with the chunk counter as below
+        float z1[4] = {0.f, 0.f, 0.f, 0.f}, z2[4] = {0.f, 0.f, 0.f, 0.f};
+        for (int row0 = 0; row0 < ld; row0 += C, ++g) {
+          const int sl = g % N;
+          wait_phase<true>(full + sl, (unsigned)(g / N) & 1u);
+          const unsigned char* sre = ring + (size_t)sl * slot_bytes;
+          const float* sc = reinterpret_cast<const float*>(sre + 2 * im_off);
+          const int rows = min(C, ld - row0);
+          const int seg0 = ((warp - g) % kFlowWarps + kFlowWarps) % kFlowWarps * kSegRows;
+          for (int s0 = seg0; s0 < rows && !kNoProducts; s0 += kSegRows * kFlowWarps)
+            wide::seg_products<R, S == Storage::kInt8>(sre, im_off,
+                                                       sc + s0 / kScaleBlock * 2 * kLanes,
+                                                       s_y + row0, yp, s0, rows, z1, z2);
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + sl);       // this warp is done with the slot
+        }
+        wide::store_part<R>(z1, z2, part, kPitch, warp);
+      } else {
+        float acc[V];
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = 0.f;
-      for (int row0 = 0; row0 < ld; row0 += C, ++g) {
-        const int sl = g % N;
-        wait_phase<true>(full + sl, (unsigned)(g / N) & 1u);
-        const unsigned char* sre = ring + (size_t)sl * slot_bytes;
-        const float* sc = reinterpret_cast<const float*>(sre + 2 * im_off);
-        const int rows = min(C, ld - row0);
-        // this warp's segments of the chunk, kSegRows rows each, in turn with
-        // the chunk counter, so that a chunk of fewer segments than warps
-        // leaves another warp idle each time; a lane takes rows lane and
-        // lane + 32 of a segment (one 128-row scale block in int8: chunks
-        // start at multiples of 128)
-        const int seg0 = ((warp - g) % kFlowWarps + kFlowWarps) % kFlowWarps * kSegRows;
-        for (int il = seg0 + lane; il - lane < rows && !kNoProducts;
-             il += kSegRows * kFlowWarps) {
-          const float* sb = sc + (il - lane) / kScaleBlock * 2 * kLanes;
-          float cr[kLaneRows][kLanes], ci[kLaneRows][kLanes];
+        for (int v = 0; v < V; ++v) acc[v] = 0.f;
+        for (int row0 = 0; row0 < ld; row0 += C, ++g) {
+          const int sl = g % N;
+          wait_phase<true>(full + sl, (unsigned)(g / N) & 1u);
+          const unsigned char* sre = ring + (size_t)sl * slot_bytes;
+          const float* sc = reinterpret_cast<const float*>(sre + 2 * im_off);
+          const int rows = min(C, ld - row0);
+          // this warp's segments of the chunk, kSegRows rows each, in turn with
+          // the chunk counter, so that a chunk of fewer segments than warps
+          // leaves another warp idle each time; a lane takes rows lane and
+          // lane + 32 of a segment (one 128-row scale block in int8: chunks
+          // start at multiples of 128)
+          const int seg0 = ((warp - g) % kFlowWarps + kFlowWarps) % kFlowWarps * kSegRows;
+          for (int il = seg0 + lane; il - lane < rows && !kNoProducts;
+               il += kSegRows * kFlowWarps) {
+            const float* sb = sc + (il - lane) / kScaleBlock * 2 * kLanes;
+            float cr[kLaneRows][kLanes], ci[kLaneRows][kLanes];
 #pragma unroll
-          for (int u = 0; u < kLaneRows; ++u) {
-            const int iu = il + 32 * u;
-            if (iu < rows) {
-              load_row<S>(sre, im_off, sb, iu, cr[u], ci[u]);
-            } else {
+            for (int u = 0; u < kLaneRows; ++u) {
+              const int iu = il + 32 * u;
+              if (iu < rows) {
+                load_row<S>(sre, im_off, sb, iu, cr[u], ci[u]);
+              } else {
 #pragma unroll
-              for (int l = 0; l < kLanes; ++l) cr[u][l] = ci[u][l] = 0.f;
+                for (int l = 0; l < kLanes; ++l) cr[u][l] = ci[u][l] = 0.f;
+              }
             }
-          }
 #pragma unroll
-          for (int u = 0; u < kLaneRows; ++u) {
-            const float* yi = s_y + min(row0 + il + 32 * u, ld - 1);
+            for (int u = 0; u < kLaneRows; ++u) {
+              const float* yi = s_y + min(row0 + il + 32 * u, ld - 1);
 #pragma unroll
-            for (int rr = 0; rr < R; ++rr) {
-              const float yr = yi[rr * ld], yim = yi[(R + rr) * ld];
+              for (int rr = 0; rr < R; ++rr) {
+                const float yr = yi[rr * ld], yim = yi[(R + rr) * ld];
 #pragma unroll
-              for (int l = 0; l < kLanes; ++l) {    // two fused multiply-adds a value
-                float& tr = acc[rr * kLanes + l];
-                float& ti = acc[(R + rr) * kLanes + l];
-                tr = fmaf(yr, cr[u][l], tr);
-                tr = fmaf(-yim, ci[u][l], tr);
-                ti = fmaf(yim, cr[u][l], ti);
-                ti = fmaf(yr, ci[u][l], ti);
+                for (int l = 0; l < kLanes; ++l) {    // two fused multiply-adds a value
+                  float& tr = acc[rr * kLanes + l];
+                  float& ti = acc[(R + rr) * kLanes + l];
+                  tr = fmaf(yr, cr[u][l], tr);
+                  tr = fmaf(-yim, ci[u][l], tr);
+                  ti = fmaf(yim, cr[u][l], ti);
+                  ti = fmaf(yr, ci[u][l], ti);
+                }
               }
             }
           }
+          __syncwarp();
+          if (lane == 0) mbar_arrive(empty + sl);       // this warp is done with the slot
         }
-        __syncwarp();
-        if (lane == 0) mbar_arrive(empty + sl);       // this warp is done with the slot
+        const float sum = thomas::warp_transpose_sum<V>(acc);
+        if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
       }
-      const float sum = thomas::warp_transpose_sum<V>(acc);
-      float* part = red + (q & 1) * V * kRedPitch;
-      if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kRedPitch + warp] = sum;
       consumer_sync();
       // the last warp adds the warps' sums and publishes the tile
-      if (warp == kFlowWarps - 1 && lane < V) {
-        const float4* sums = reinterpret_cast<const float4*>(part + lane * kRedPitch);
-        float v = 0.f;
+      if (warp == kFlowWarps - 1) {
+        for (int vi = lane; vi < V; vi += 32) {
+          const float4* sums = reinterpret_cast<const float4*>(part + vi * kPitch);
+          float v = 0.f;
 #pragma unroll
-        for (int c4 = 0; c4 < kFlowWarps / 4; ++c4) {     // in warp order
-          const float4 f4 = sums[c4];
-          v += f4.x;
-          v += f4.y;
-          v += f4.z;
-          v += f4.w;
+          for (int c4 = 0; c4 < kFlowWarps / 4; ++c4) {     // in warp order
+            const float4 f4 = sums[c4];
+            v += f4.x;
+            v += f4.y;
+            v += f4.z;
+            v += f4.w;
+          }
+          const int rr = vi / kLanes, o = (tile0 + k) * kLanes + vi % kLanes;
+          if (t_out != nullptr) t_out[rr * ld + o] = v;
+          thomas::st_word(t_words(s) + (size_t)o * NW + rr, v, flag);
         }
-        const int rr = lane / kLanes, o = (tile0 + k) * kLanes + lane % kLanes;
-        if (t_out != nullptr) t_out[rr * ld + o] = v;
-        thomas::st_word(t_words(s) + (size_t)o * NW + rr, v, flag);
       }
     }
   }
@@ -819,12 +944,24 @@ inline cudaError_t launch_flow(const PassArgs& a, uint2* xchg, unsigned epoch,
 // bf16 (ld a multiple of 8)
 inline bool valid(int mn, int ld, int r, const float* scale) {
   const int mult = scale != nullptr ? kScaleBlock : kLanes;
-  return mn >= 1 && ld >= mn && ld % mult == 0 && r >= 1 && r <= kMaxRhs;
+  return mn >= 1 && ld >= mn && ld % mult == 0 && thomas::launch_width(r);
 }
 
 inline bool valid_pass(int r, const PassArgs& a) {
   return valid(a.mn, a.ld, r, a.scale) && a.l >= 1 && a.n >= 1 && a.base >= 0 && a.start >= 0 &&
          a.start < a.l && (a.kept != nullptr || a.out != nullptr);
+}
+
+template <bool kBackward, Storage S>
+inline cudaError_t launch_flow_r(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
+                                 cudaStream_t stream) {
+  switch (r) {
+    case 1: return launch_flow<1, kBackward, S>(a, xchg, epoch, stream);
+    case 2: return launch_flow<2, kBackward, S>(a, xchg, epoch, stream);
+    case 4: return launch_flow<4, kBackward, S>(a, xchg, epoch, stream);
+    case 8: return launch_flow<8, kBackward, S>(a, xchg, epoch, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // A pass on the flag-handoff step: forward (y stack in `kept`) or backward
@@ -835,11 +972,8 @@ inline cudaError_t run_flow(int r, const PassArgs& a, uint2* xchg, unsigned epoc
   if (!valid_pass(r, a) || (!kBackward && a.kept == nullptr) || (kBackward && a.out == nullptr) ||
       xchg == nullptr || epoch == 0u || epoch + steps < epoch)
     return cudaErrorInvalidValue;
-  if (a.scale != nullptr)
-    return r == 1 ? launch_flow<1, kBackward, Storage::kInt8>(a, xchg, epoch, stream)
-                  : launch_flow<2, kBackward, Storage::kInt8>(a, xchg, epoch, stream);
-  return r == 1 ? launch_flow<1, kBackward, Storage::kBf16>(a, xchg, epoch, stream)
-                : launch_flow<2, kBackward, Storage::kBf16>(a, xchg, epoch, stream);
+  if (a.scale != nullptr) return launch_flow_r<kBackward, Storage::kInt8>(r, a, xchg, epoch, stream);
+  return launch_flow_r<kBackward, Storage::kBf16>(r, a, xchg, epoch, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -948,7 +1082,8 @@ __global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
 // the old step's one-plane scratch (the y'_p of the backward pass, the carry
 // of a forward pass without a t stack), for planes up to the widest fused one
 constexpr int kOldMaxLd = 24928;
-__device__ float g_old_scratch[2][2 * kMaxRhs * kOldMaxLd];
+constexpr int kOldMaxRhs = 2;
+__device__ float g_old_scratch[2][2 * kOldMaxRhs * kOldMaxLd];
 
 template <int R, bool kBackward, Storage S>
 inline cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
@@ -978,12 +1113,12 @@ inline cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
 // A pass on the grid-barrier step, its scratch in g_old_scratch
 template <bool kBackward>
 inline cudaError_t run_pass(int r, PassArgs a, cudaStream_t stream) {
-  if (!valid_pass(r, a) || a.ld > kOldMaxLd) return cudaErrorInvalidValue;
+  if (!valid_pass(r, a) || r > kOldMaxRhs || a.ld > kOldMaxLd) return cudaErrorInvalidValue;
   float* scratch = nullptr;
   cudaError_t err = cudaGetSymbolAddress(reinterpret_cast<void**>(&scratch), g_old_scratch);
   if (err != cudaSuccess) return err;
   if (kBackward) a.kept = scratch;
-  a.carry = scratch + 2 * kMaxRhs * kOldMaxLd;
+  a.carry = scratch + 2 * kOldMaxRhs * kOldMaxLd;
   if (a.scale != nullptr)
     return r == 1 ? launch_pass<1, kBackward, Storage::kInt8>(a, stream)
                   : launch_pass<2, kBackward, Storage::kInt8>(a, stream);
@@ -991,6 +1126,40 @@ inline cudaError_t run_pass(int r, PassArgs a, cudaStream_t stream) {
                 : launch_pass<2, kBackward, Storage::kBf16>(a, stream);
 }
 #endif
+
+// tile_product at r = 4 and 8: each warp's 64-row segments of every chunk as
+// tensor-core products (note 4), the rows y (2R x ld floats) read from
+// global memory, the warps' sums added in warp order
+template <int R, Storage S>
+__device__ __forceinline__ void tile_product_wide(const TileStream<S>& ts, int& g, const float* y,
+                                                  float* red, float* out, int o0) {
+  using St = Store<S>;
+  constexpr int V = 2 * R * kLanes;
+  const int tid = threadIdx.x, warp = tid >> 5;
+  const int ld = ts.ld;
+  float z1[4] = {0.f, 0.f, 0.f, 0.f}, z2[4] = {0.f, 0.f, 0.f, 0.f};
+  for (int c = 0; c < ts.nch; ++c, ++g) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 2));
+    __syncthreads();
+    ts.request(g + kStages - 1);
+    const unsigned char* sre = ts.slot(g);
+    const float* sc = reinterpret_cast<const float*>(sre + 2 * kChunkBytes);
+    const int row0 = c * St::kChunkRows;
+    const int rows = kNoStream ? 0 : min(St::kChunkRows, ld - row0);
+    for (int s0 = warp * kSegRows; s0 < rows; s0 += kSegRows * kWarps)
+      wide::seg_products<R, S == Storage::kInt8>(sre, kChunkBytes,
+                                                 sc + s0 / kScaleBlock * 2 * kLanes, y + row0,
+                                                 ld, s0, min(s0 + kSegRows, rows), z1, z2);
+  }
+  wide::store_part<R>(z1, z2, red, kWarps, warp);
+  __syncthreads();
+  for (int v = tid; v < V; v += kThreads) {
+    float sum = 0.f;
+#pragma unroll
+    for (int wi = 0; wi < kWarps; ++wi) sum += red[v * kWarps + wi];
+    out[(v / kLanes) * ld + o0 + v % kLanes] = sum;
+  }
+}
 
 // One plane apply: block t computes output tile t of [Yr; Yi] @ P[idx], rows
 // read from global memory as the chunks stream (no bound on ld).
@@ -1014,7 +1183,10 @@ __global__ void __launch_bounds__(kThreads)
   float* red = reinterpret_cast<float*>(smem_raw + Store<S>::kRingBytes);
   for (int g = 0; g < kStages - 1; ++g) ts.request(g);
   int g = 0;
-  tile_product<R, S>(ts, g, rows, red, out, (int)blockIdx.x * kLanes);
+  if constexpr (wide<R>())
+    tile_product_wide<R, S>(ts, g, rows, red, out, (int)blockIdx.x * kLanes);
+  else
+    tile_product<R, S>(ts, g, rows, red, out, (int)blockIdx.x * kLanes);
 }
 
 template <int R, Storage S>
@@ -1031,8 +1203,13 @@ template <Storage S>
 inline cudaError_t launch_apply_r(int r, const float* rows, const void* pre, const void* pim,
                                   const float* scale, float* out, int ld, int idx,
                                   cudaStream_t stream) {
-  return r == 1 ? launch_apply<1, S>(rows, pre, pim, scale, out, ld, idx, stream)
-                : launch_apply<2, S>(rows, pre, pim, scale, out, ld, idx, stream);
+  switch (r) {
+    case 1: return launch_apply<1, S>(rows, pre, pim, scale, out, ld, idx, stream);
+    case 2: return launch_apply<2, S>(rows, pre, pim, scale, out, ld, idx, stream);
+    case 4: return launch_apply<4, S>(rows, pre, pim, scale, out, ld, idx, stream);
+    case 8: return launch_apply<8, S>(rows, pre, pim, scale, out, ld, idx, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace plane

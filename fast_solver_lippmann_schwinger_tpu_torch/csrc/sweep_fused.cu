@@ -243,7 +243,7 @@ extern "C" int sweep_fused(
     unsigned epoch,          // flag of the first step: steps take epoch .. + S (m + tt) - 1
     void* stream) {
   if (S < 1 || m < 2 || n < 1 || ld < n || ld % thomas::kLanes != 0 || r < 1 ||
-      r > thomas::kMaxRhs || tt < 1 || tt >= m || tail_start < 1 || tail_start >= m ||
+      r > thomas::kMaxRhsBanded || tt < 1 || tt >= m || tail_start < 1 || tail_start >= m ||
       half < 0 || xchg == nullptr || epoch == 0u ||
       epoch + (unsigned)(S * (m + tt)) < epoch)
     return (int)cudaErrorInvalidValue;

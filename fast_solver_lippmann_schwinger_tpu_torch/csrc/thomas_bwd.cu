@@ -17,7 +17,7 @@
 // which describes the design (one cooperative launch per pass, one CTA a tile,
 // two on long lines, the carry handed from line to line through flagged words
 // of the exchange buffer `xchg`, bulk-copied stage buffers) and the limits
-// (r <= 2):
+// (r = 1, 2, 4 or 8 on dense planes, 1 or 2 on banded+tail pivots):
 //   - dense planes run thomas::flow_kernel<R, true, S> (bf16, or int8 when
 //     scale is given) on a ring of four exchange slots; x of a line is written
 //     from the carry the next line reads;

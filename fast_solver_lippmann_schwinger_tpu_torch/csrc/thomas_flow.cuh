@@ -98,21 +98,49 @@
 // y as w is formed, x from the carry it reads one line later (the last
 // line's after the loop).
 //
-// Limits.  r = 1 or 2 (the wrappers run wider batches as groups), and a
-// slice whose kStages stage buffers fit in one CTA's shared memory and whose
-// rows fit flow_groups rows a thread: one CTA a tile up to n = 976 in bf16 at
-// r = 2, two up to n = 1968 in bf16 and 2448 in int8, the cached forward pass
-// and the backward pass on banded+tail pivots (step maps without the trace
-// rows) too; the fused sweeps, which keep the trace rows beside the carry,
-// 912 and 1840 (measured by test_longest_line_fits).  Anything else is
-// refused with cudaErrorInvalidValue before a launch, and a cooperative
-// launch that does not fit returns its error.
+// Wide batches.  On dense planes a launch takes r = 1, 2, 4 or 8 right-hand
+// sides (the wrappers pad r = 3 to 4 and r = 5..7 to 8 with zero columns, and
+// run more than 8 as groups of 8), so that each pivot plane is read once for
+// the whole batch, as the TPU kernels do for any r (pallas_thomas.py,
+// _solve_cached_multi).  r = 1 and 2 keep the step above unchanged.  Wider,
+// a thread's partial sums of all 2r x 8 outputs and w of its rows (wk) would
+// not fit the 128 registers a thread has; a first version that kept w in
+// shared memory and took f32 products a pair of right-hand sides at a time
+// spent 4.5 of a 12.5 us line step on its products and needed two CTAs a
+// tile at n = 801 (its stage buffers carried 16 right-hand rows), which
+// doubles the carry's words (thomas_ablation.py --r 8, PERF.md §6).  So at
+// r = 4 and 8:
+//   - a thread copies the right-hand and band rows of its rows of the line
+//     straight into w and a band buffer in shared memory (cp.async, 4 bytes
+//     each, while the carry is polled) and forms w there; the stage buffers
+//     carry the plane runs only, so a line up to 848 lanes takes one CTA a
+//     tile at r = 8;
+//   - each warp multiplies 64-row segments of the staged plane run by w on
+//     tensor cores (wide_mma.cuh: mma.sync m16n8k16, w split into three bf16
+//     terms, f32 sums; a warp ends with 8 sums a lane, stored on the warps'
+//     sums as before), after a barrier of the block (a segment holds other
+//     threads' rows of w);
+//   - the carry's words are polled 16 a thread at once (poll_strided).
+//
+// Limits.  r = 1, 2, 4 or 8 on dense planes (1 or 2 on banded+tail pivots and
+// in the fused sweeps), and a slice whose kStages stage buffers fit in one
+// CTA's shared memory and whose rows fit flow_groups rows a thread: one CTA a
+// tile up to n = 976 in bf16 at r = 2, two up to n = 1968 in bf16 and 2448 in
+// int8, the cached forward pass and the backward pass on banded+tail pivots
+// (step maps without the trace rows) too; the fused sweeps, which keep the
+// trace rows beside the carry, 912 and 1840; at r = 8 one CTA a tile up to
+// n = 848 in bf16, two up to 1760 in bf16 and 2144 in int8, at r = 4 up to
+// 2448 and 2560 (test_longest_line_fits; the Python mirror is
+// thomas_kernels.line_fits).  Anything else is refused with
+// cudaErrorInvalidValue before a launch, and a cooperative launch that does
+// not fit returns its error.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "thomas_line.cuh"
+#include "wide_mma.cuh"
 
 namespace thomas {
 
@@ -284,6 +312,33 @@ __device__ __forceinline__ void poll_words(const uint2* const (&ptr)[K], uint4 (
   }
 }
 
+// poll_words over the words base + 2 (first + u step), u < K, that lie below
+// `words` (the others read as ready), their addresses computed again at each
+// poll instead of kept in registers: a wide batch polls 16 words a thread at
+// once
+template <int K, bool kWait>
+__device__ __forceinline__ void poll_strided(const uint2* base, int first, int step, int words,
+                                             uint4 (&v)[K], unsigned want) {
+#pragma unroll
+  for (int u = 0; u < K; ++u) {
+    const int w = first + u * step;
+    v[u] = w < words ? ld_words(base + 2 * (size_t)w) : make_uint4(0u, want, 0u, want);
+  }
+  if (!kWait) return;
+  for (unsigned polls = 0;; ++polls) {
+    bool ready = true;
+#pragma unroll
+    for (int u = 0; u < K; ++u) ready = ready && words_ready(v[u], want);
+    if (ready) return;
+    if (polls > (1u << 24)) __trap();
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      const int w = first + u * step;
+      if (w < words && !words_ready(v[u], want)) v[u] = ld_words(base + 2 * (size_t)w);
+    }
+  }
+}
+
 // Sum of v[0..V) over the warp's 32 lanes by transpose-reduce: each round
 // trades half the values with the lane O apart and keeps the other half, so
 // after log2(V) rounds lane L holds the sum of value L / (32 / V) (lanes
@@ -322,13 +377,20 @@ __host__ __device__ constexpr int slice_rows(int ld) {
   return kLanes * ((ld / kLanes + SPLIT - 1) / SPLIT);
 }
 
+// Wide batches (r = 4, 8; note above)
+template <int R>
+__host__ __device__ constexpr bool wide() {
+  return R > 2;
+}
+
 // One stage buffer of a slice of cmax rows: the two plane runs (16 B a row in
-// bf16, 8 B in int8), the int8 scales of the tile, the 6 band rows and the 2R
-// right-hand rows of the slice
+// bf16, 8 B in int8), the int8 scales of the tile, and, r <= 2, the 6 band
+// rows and the 2R right-hand rows of the slice (wide batches copy those
+// straight into their rows of w and of the band, below)
 template <int R, Storage S>
 __host__ __device__ constexpr size_t flow_stage_bytes(int cmax, int ld) {
   return (size_t)2 * cmax * (S == Storage::kInt8 ? 8 : 16) + scale_buf_bytes<S>(ld) +
-         sizeof(float) * (size_t)(6 + 2 * R) * cmax;
+         (wide<R>() ? 0 : sizeof(float) * (size_t)(6 + 2 * R) * cmax);
 }
 
 // Floats of the carry rows: [2R][cmax + 16], lanes i0 - 8 .. i0 + cmax + 8
@@ -352,10 +414,42 @@ __host__ __device__ constexpr size_t flow_red_bytes() {
   return sizeof(float) * 2 * 2 * R * kLanes * red_pitch<SPLIT>();
 }
 
+// Wide batches: w of the slice's rows, [2R][cmax], then the 6 band rows of the
+// line, [6][cmax]; a thread copies its rows of both in (cp.async) and forms
+// its rows of w there, and every warp reads w for its products
+template <int R>
+__host__ __device__ constexpr size_t flow_w_bytes(int cmax) {
+  return wide<R>() ? sizeof(float) * (2 * R + 6) * (size_t)cmax : 0;
+}
+
+// 4 bytes global -> this thread's shared memory, asynchronously (the
+// right-hand and band rows of a wide batch's w, while the carry is polled)
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 template <int R, Storage S, int SPLIT>
 __host__ __device__ constexpr size_t flow_smem_bytes(int ld) {
   return 64 + flow_red_bytes<R, SPLIT>() + flow_prev_bytes<R>(slice_rows<SPLIT>(ld)) +
+         flow_w_bytes<R>(slice_rows<SPLIT>(ld)) +
          kStages * flow_stage_bytes<R, S>(slice_rows<SPLIT>(ld), ld);
+}
+
+// 16-byte exchange words a thread polls at once: all of its words at n = 801
+// for r <= 2; 16 for wide batches (poll_strided: two rounds of the 26 words a
+// thread reads at r = 8 with two CTAs a tile, one of the 7 at n = 401)
+template <int R, int SPLIT>
+__host__ __device__ constexpr int poll_batch() {
+  return R > 2 ? 16 : (SPLIT == 1 ? 2 : 4) * R;
 }
 
 // --- the pass -----------------------------------------------------------------
@@ -376,8 +470,8 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
   constexpr int kFlowWarps = kFlowThreads / 32;
   constexpr int V = 2 * R * kLanes;     // output values of a tile: rows x lanes
   constexpr int NW = kSplit * R;        // 16-byte words a lane: 2R rows x kSplit halves
-  // 16-byte words a thread polls at once: all of its words at n = 801
-  constexpr int kPollBatch = (kSplit == 1 ? 2 : 4) * R;
+  constexpr int kPollBatch = poll_batch<R, SPLIT>();
+  constexpr bool kWide = wide<R>();
   const PassArgs a = fa.a;
   const int n = a.n, ld = a.ld, m = a.m;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -404,7 +498,12 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
   float* red = reinterpret_cast<float*>(smem + 64);                   // warps' sums
   float* s_prev = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>());
   const int pp = cmax + 16;                                          // its row pitch
-  unsigned char* ring = smem + 64 + flow_red_bytes<R, SPLIT>() + flow_prev_bytes<R>(cmax);
+  // wide batches: w of the slice's rows, [2R][cmax], and the band rows [6][cmax]
+  float* s_w = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>() +
+                                        flow_prev_bytes<R>(cmax));
+  float* s_bw = s_w + 2 * R * cmax;
+  unsigned char* ring = smem + 64 + flow_red_bytes<R, SPLIT>() + flow_prev_bytes<R>(cmax) +
+                        flow_w_bytes<R>(cmax);
   const size_t stage_bytes = flow_stage_bytes<R, S>(cmax, ld);
   const size_t pbytes = (size_t)cmax * (S == Storage::kInt8 ? 8 : 16);
 
@@ -445,25 +544,46 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
     const uint2* src = slot(k, b);
     const unsigned want = fa.epoch + (unsigned)k;
     const int words = (hi - lo) * NW;
-    for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
-      const uint2* ptr[kPollBatch];
+    if constexpr (kWide) {
+      const int nw = kNoCarryLoad ? 0 : words;
+      for (int w0 = 0; w0 < nw; w0 += kFlowThreads * kPollBatch) {
+        uint4 v[kPollBatch];
+        poll_strided<kPollBatch, !kNoFlagWait>(src + (size_t)lo * NW * 2, w0 + tid,
+                                                kFlowThreads, nw, v, want);
 #pragma unroll
-      for (int u = 0; u < kPollBatch; ++u) {
-        const int w = w0 + tid + u * kFlowThreads;
-        ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
+        for (int u = 0; u < kPollBatch; ++u) {
+          const int w = w0 + tid + u * kFlowThreads;
+          if (w >= nw) continue;
+          const int at = lo + w / NW - (i0 - 8), h = w % NW;
+          if (kSplit == 2) {
+            s_prev[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
+          } else {
+            s_prev[2 * h * pp + at] = __uint_as_float(v[u].x);
+            s_prev[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
+          }
+        }
       }
-      uint4 v[kPollBatch];
-      poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
+    } else {
+      for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
+        const uint2* ptr[kPollBatch];
 #pragma unroll
-      for (int u = 0; u < kPollBatch; ++u) {
-        if (ptr[u] == nullptr) continue;
-        const int w = w0 + tid + u * kFlowThreads;
-        const int at = lo + w / NW - (i0 - 8), h = w % NW;
-        if (kSplit == 2) {        // word h: row h, halves 0 and 1
-          s_prev[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
-        } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
-          s_prev[2 * h * pp + at] = __uint_as_float(v[u].x);
-          s_prev[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
+        for (int u = 0; u < kPollBatch; ++u) {
+          const int w = w0 + tid + u * kFlowThreads;
+          ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
+        }
+        uint4 v[kPollBatch];
+        poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
+#pragma unroll
+        for (int u = 0; u < kPollBatch; ++u) {
+          if (ptr[u] == nullptr) continue;
+          const int w = w0 + tid + u * kFlowThreads;
+          const int at = lo + w / NW - (i0 - 8), h = w % NW;
+          if (kSplit == 2) {        // word h: row h, halves 0 and 1
+            s_prev[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
+          } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
+            s_prev[2 * h * pp + at] = __uint_as_float(v[u].x);
+            s_prev[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
+          }
         }
       }
     }
@@ -474,8 +594,9 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
   auto stage = [&](int q) {
     const Item it = item(q);
     // an item of the same batch row and line as the one before uses its w:
-    // no band or right-hand rows
-    const bool new_w = !kNoRowCopies && (q == 0 || item(q - 1).k != it.k || item(q - 1).b != it.b);
+    // no band or right-hand rows (wide batches copy those in themselves)
+    const bool new_w = !kWide && !kNoRowCopies &&
+                       (q == 0 || item(q - 1).k != it.k || item(q - 1).b != it.b);
     unsigned char* st = ring + (size_t)(q % kStages) * stage_bytes;
     uint64_t* bar = full + q % kStages;
     const size_t tile = ((size_t)it.s * m + it.j) * T + it.t;
@@ -547,6 +668,24 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
     trace_point(q, 0);
     mbar_wait(full + q % kStages, (unsigned)(q / kStages) & 1u);
     trace_point(q, 1);
+    if constexpr (kWide) {
+      // a new w: this thread's rows of the right-hand and band rows, copied
+      // into w and the band buffer while the carry is polled (every warp is
+      // past the products of the item before: s_w is free)
+      if (!(it.k == w_k && it.b == w_b) && !kNoRowCopies) {
+        const float* band = a.band + ((size_t)it.s * m + it.j) * 6 * ld + i0;
+        const float* rhs = a.rhs + ((size_t)it.b * m + it.j) * row + i0;
+        for (int il = tid; il < cnt; il += kFlowThreads) {
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) cp_async4(s_w + p * cmax + il, rhs + (size_t)p * ld + il);
+          if (carry_in) {
+#pragma unroll
+            for (int d = 0; d < 6; ++d) cp_async4(s_bw + d * cmax + il, band + (size_t)d * ld + il);
+          }
+        }
+        cp_async_commit();
+      }
+    }
     // the carry of line k - 1 of this batch row, unless the item before read it
     // (every thread is past that item's band step: s_prev is free)
     const bool fresh = carry_in && (it.k - 1 != have_k || it.b != have_b);
@@ -562,115 +701,176 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
     // carry is in, so that the copies do not queue before the carry's loads
     if (tid == kStager * 32 && q + kStages - 1 < nitem) stage(q + kStages - 1);
 
-    float acc[V];
-#pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = 0.f;
     // w depends on the batch row and the line only: the item before computed it
     const bool same_w = it.k == w_k && it.b == w_b;
-
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      const int base = g * kFlowThreads;
-      if (base >= cnt) break;
-      const int il = base + tid;                        // slice row of this thread
-      const int i = i0 + il;                            // its lane / input row
-      const bool tile_lane = own_tile && i >= o0 && i < o0 + kLanes;
-      // the row's plane entries first: they do not wait on the band step
-      float cr[kLanes], ci[kLanes];
-      if (il < cnt && !kNoProducts) {
-        if (S == Storage::kInt8) {
-          widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
-          widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
-          const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
-#pragma unroll
-          for (int l = 0; l < kLanes; ++l) {
-            cr[l] *= sb[l];
-            ci[l] *= sb[kLanes + l];
-          }
-        } else {
-          widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
-          widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
-        }
-      }
-      float* w = wk[g];
-      if (!same_w) {
-#pragma unroll
-        for (int p = 0; p < 2 * R; ++p) w[p] = il < cnt ? s_rhs[p * cmax + il] : 0.f;
-      }
-      if (!same_w && carry_in && il < cnt) {
-        float accr[R], acci[R];
-#pragma unroll
-        for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
-#pragma unroll
-        for (int d = 0; d < 3; ++d) {
-          const float br = s_band[d * cmax + il];
-          const float bi = s_band[(3 + d) * cmax + il];
-#pragma unroll
-          for (int p = 0; p < R; ++p) {
-            const float tr = s_prev[p * pp + il + 7 + d];
-            const float ti = s_prev[(R + p) * pp + il + 7 + d];
-            accr[p] = accr[p] + br * tr - bi * ti;
-            acci[p] = acci[p] + br * ti + bi * tr;
-          }
-        }
-#pragma unroll
-        for (int p = 0; p < R; ++p) {
-          w[p] = w[p] - accr[p];
-          w[R + p] = w[R + p] - acci[p];
-        }
-      }
-      // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
-      if (il < cnt && !kNoProducts) {
-#pragma unroll
-        for (int p = 0; p < R; ++p)
-#pragma unroll
-          for (int l = 0; l < kLanes; ++l) {
-            acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
-            acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
-          }
-      }
-      if (tile_lane) {
-        // the tile's own lanes, by the CTA whose slice holds them (zero on
-        // the padding lanes): y (forward) is w; x (backward) of the line
-        // before is the carry just read
-        if (!kBackward) {
-#pragma unroll
-          for (int p = 0; p < 2 * R; ++p) kept[p * ld + i] = il < cnt ? w[p] : 0.f;
-        } else if (carry_in) {
-          float* x = x_row(it.k - 1, it.b);
-#pragma unroll
-          for (int p = 0; p < 2 * R; ++p) x[p * ld + i] = s_prev[p * pp + il + 8];
-        }
-      }
-    }
-    w_k = it.k;
-    w_b = it.b;
-    trace_point(q, 3);
-
-    // the warps' sums (a warp past the slice holds zeros), added in warp order
-    // and published as this half's sums of the tile
-    const float sum = warp_transpose_sum<V>(acc);
     constexpr int kPitch = red_pitch<SPLIT>();
     float* part = red + (q & 1) * V * kPitch;
-    if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
+    if constexpr (kWide) {
+      // w of the thread's rows, in place in s_w (note "Wide batches"), then
+      // the tensor-core products of 64-row segments (wide_mma.cuh)
+      if (!same_w) cp_async_wait_all();  // this thread's rows of w and of the band
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int base = g * kFlowThreads;
+        if (base >= cnt) break;
+        const int il = base + tid;                        // slice row of this thread
+        const int i = i0 + il;                            // its lane / input row
+        const bool tile_lane = own_tile && i >= o0 && i < o0 + kLanes;
+        if (!same_w && il < cnt) {
+          float w[2 * R];
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) w[p] = s_w[p * cmax + il];
+          if (carry_in) {
+            float accr[R], acci[R];
+#pragma unroll
+            for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const float br = s_bw[d * cmax + il];
+              const float bi = s_bw[(3 + d) * cmax + il];
+#pragma unroll
+              for (int p = 0; p < R; ++p) {
+                const float tr = s_prev[p * pp + il + 7 + d];
+                const float ti = s_prev[(R + p) * pp + il + 7 + d];
+                accr[p] = accr[p] + br * tr - bi * ti;
+                acci[p] = acci[p] + br * ti + bi * tr;
+              }
+            }
+#pragma unroll
+            for (int p = 0; p < R; ++p) {
+              w[p] = w[p] - accr[p];
+              w[R + p] = w[R + p] - acci[p];
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) s_w[p * cmax + il] = w[p];
+        }
+        if (tile_lane) {
+          if (!kBackward) {
+#pragma unroll
+            for (int p = 0; p < 2 * R; ++p) kept[p * ld + i] = il < cnt ? s_w[p * cmax + il] : 0.f;
+          } else if (carry_in) {
+            float* x = x_row(it.k - 1, it.b);
+#pragma unroll
+            for (int p = 0; p < 2 * R; ++p) x[p * ld + i] = s_prev[p * pp + il + 8];
+          }
+        }
+      }
+      if (!same_w) __syncthreads();      // a warp's segments hold other threads' rows of w
+      wide::line_products<R, S == Storage::kInt8, kFlowWarps>(
+          pre, (int)pbytes, sc, s_w, cmax, cnt, i0, part, kPitch, !kNoProducts);
+      w_k = it.k;
+      w_b = it.b;
+      trace_point(q, 3);
+    } else {
+      float acc[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
+
+#pragma unroll
+      for (int g = 0; g < kGroups; ++g) {
+        const int base = g * kFlowThreads;
+        if (base >= cnt) break;
+        const int il = base + tid;                        // slice row of this thread
+        const int i = i0 + il;                            // its lane / input row
+        const bool tile_lane = own_tile && i >= o0 && i < o0 + kLanes;
+        // the row's plane entries first: they do not wait on the band step
+        float cr[kLanes], ci[kLanes];
+        if (il < cnt && !kNoProducts) {
+          if (S == Storage::kInt8) {
+            widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
+            widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
+            const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
+#pragma unroll
+            for (int l = 0; l < kLanes; ++l) {
+              cr[l] *= sb[l];
+              ci[l] *= sb[kLanes + l];
+            }
+          } else {
+            widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
+            widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
+          }
+        }
+        float* w = wk[g];
+        if (!same_w) {
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) w[p] = il < cnt ? s_rhs[p * cmax + il] : 0.f;
+        }
+        if (!same_w && carry_in && il < cnt) {
+          float accr[R], acci[R];
+#pragma unroll
+          for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
+#pragma unroll
+          for (int d = 0; d < 3; ++d) {
+            const float br = s_band[d * cmax + il];
+            const float bi = s_band[(3 + d) * cmax + il];
+#pragma unroll
+            for (int p = 0; p < R; ++p) {
+              const float tr = s_prev[p * pp + il + 7 + d];
+              const float ti = s_prev[(R + p) * pp + il + 7 + d];
+              accr[p] = accr[p] + br * tr - bi * ti;
+              acci[p] = acci[p] + br * ti + bi * tr;
+            }
+          }
+#pragma unroll
+          for (int p = 0; p < R; ++p) {
+            w[p] = w[p] - accr[p];
+            w[R + p] = w[R + p] - acci[p];
+          }
+        }
+        // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
+        if (il < cnt && !kNoProducts) {
+#pragma unroll
+          for (int p = 0; p < R; ++p)
+#pragma unroll
+            for (int l = 0; l < kLanes; ++l) {
+              acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
+              acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
+            }
+        }
+        if (tile_lane) {
+          // the tile's own lanes, by the CTA whose slice holds them (zero on
+          // the padding lanes): y (forward) is w; x (backward) of the line
+          // before is the carry just read
+          if (!kBackward) {
+#pragma unroll
+            for (int p = 0; p < 2 * R; ++p) kept[p * ld + i] = il < cnt ? w[p] : 0.f;
+          } else if (carry_in) {
+            float* x = x_row(it.k - 1, it.b);
+#pragma unroll
+            for (int p = 0; p < 2 * R; ++p) x[p * ld + i] = s_prev[p * pp + il + 8];
+          }
+        }
+      }
+      w_k = it.k;
+      w_b = it.b;
+      trace_point(q, 3);
+
+      // the warps' sums (a warp past the slice holds zeros), added in warp
+      // order and published as this half's sums of the tile
+      const float sum = warp_transpose_sum<V>(acc);
+      if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
+    }
     __syncthreads();
     trace_point(q, 4);
     // the last warp, which has the fewest rows, adds the warps' sums and
     // publishes
-    if (warp == kPublisher && lane < V) {
-      const float4* sums = reinterpret_cast<const float4*>(part + lane * kPitch);
-      float v = 0.f;
+    if (warp == kPublisher) {
+      for (int vi = lane; vi < V; vi += 32) {
+        const float4* sums = reinterpret_cast<const float4*>(part + vi * kPitch);
+        float v = 0.f;
 #pragma unroll
-      for (int c = 0; c < kFlowWarps / 4; ++c) {     // in warp order
-        const float4 f = sums[c];
-        v += f.x;
-        v += f.y;
-        v += f.z;
-        v += f.w;
+        for (int c = 0; c < kFlowWarps / 4; ++c) {     // in warp order
+          const float4 f = sums[c];
+          v += f.x;
+          v += f.y;
+          v += f.z;
+          v += f.w;
+        }
+        const int p = vi / kLanes, o = o0 + vi % kLanes;
+        st_word(slot(it.k, it.b) + ((size_t)o * 2 * R + p) * kSplit + rank, v,
+                fa.epoch + (unsigned)it.k);
       }
-      const int p = lane / kLanes, o = o0 + lane % kLanes;
-      st_word(slot(it.k, it.b) + ((size_t)o * 2 * R + p) * kSplit + rank, v,
-              fa.epoch + (unsigned)it.k);
       trace_point(q, 5, kPublisher * 32);
     }
   }
@@ -743,20 +943,29 @@ inline cudaError_t launch_flow(const FlowArgs& fa, cudaStream_t stream) {
                     : launch_flow_split<R, kBackward, S, 2>(fa, sms, stream);
 }
 
-// A dense pass (bf16, or int8 when scales are given) on the flag-handoff step
+// A dense pass (bf16, or int8 when scales are given) of r = 1, 2, 4 or 8
+// right-hand sides on the flag-handoff step
+template <bool kBackward, Storage S>
+inline cudaError_t launch_flow_r(int r, const FlowArgs& fa, cudaStream_t stream) {
+  switch (r) {
+    case 1: return launch_flow<1, kBackward, S>(fa, stream);
+    case 2: return launch_flow<2, kBackward, S>(fa, stream);
+    case 4: return launch_flow<4, kBackward, S>(fa, stream);
+    case 8: return launch_flow<8, kBackward, S>(fa, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kBackward>
 inline cudaError_t run_flow_pass(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                                  cudaStream_t stream) {
-  if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 || r < 1 ||
-      r > kMaxRhs || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
+  if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 ||
+      !launch_width(r) || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
       epoch == 0u || epoch + (unsigned)a.count < epoch)
     return cudaErrorInvalidValue;
   const FlowArgs fa{a, xchg, epoch};
-  if (a.scale != nullptr)
-    return r == 1 ? launch_flow<1, kBackward, Storage::kInt8>(fa, stream)
-                  : launch_flow<2, kBackward, Storage::kInt8>(fa, stream);
-  return r == 1 ? launch_flow<1, kBackward, Storage::kBf16>(fa, stream)
-                : launch_flow<2, kBackward, Storage::kBf16>(fa, stream);
+  if (a.scale != nullptr) return launch_flow_r<kBackward, Storage::kInt8>(r, fa, stream);
+  return launch_flow_r<kBackward, Storage::kBf16>(r, fa, stream);
 }
 
 
@@ -856,6 +1065,7 @@ template <int R, Storage S, int SPLIT, bool kInject>
 __host__ __device__ constexpr size_t map_smem_bytes(int ld) {
   return 64 + flow_red_bytes<R, SPLIT>() +
          (kInject ? 2 : 1) * flow_prev_bytes<R>(slice_rows<SPLIT>(ld)) +
+         flow_w_bytes<R>(slice_rows<SPLIT>(ld)) +
          kStages * flow_stage_bytes<R, S>(slice_rows<SPLIT>(ld), ld);
 }
 
@@ -865,9 +1075,13 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
   constexpr int kFlowWarps = kFlowThreads / 32;
   constexpr int V = 2 * R * kLanes;     // output values of a tile: rows x lanes
   constexpr int NW = SPLIT * R;         // 16-byte words a lane: 2R rows x SPLIT halves
-  constexpr int kPollBatch = (SPLIT == 1 ? 2 : 4) * R;
+  constexpr int kPollBatch = poll_batch<R, SPLIT>();
   constexpr int kGroups = flow_groups<SPLIT>();
   constexpr int kRowBytes = S == Storage::kInt8 ? 8 : 16;    // a tile's pivot row
+  // wide batches (note "Wide batches"): w in shared memory, no injection and
+  // no private lines (the fused sweeps take r <= 2)
+  constexpr bool kWide = wide<R>();
+  static_assert(!(kWide && kInject), "the fused sweeps take r = 1 or 2");
   const int n = fl.n, ld = fl.ld;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)blockIdx.x % SPLIT;
@@ -884,8 +1098,13 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
   float* s_prev = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>());
   const int pp = cmax + 16;               // row pitch of s_prev: lane sbase - 8 at 0
   float* s_trace = s_prev + 2 * R * pp;   // kInject: the trace rows, same layout
-  unsigned char* ring =
-      smem + 64 + flow_red_bytes<R, SPLIT>() + (kInject ? 2 : 1) * flow_prev_bytes<R>(cmax);
+  // wide batches: w of the slice's rows, [2R][cmax], and the band rows
+  // [6][cmax], indexed by row - sbase
+  float* s_w = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>() +
+                                        (kInject ? 2 : 1) * flow_prev_bytes<R>(cmax));
+  float* s_bw = s_w + 2 * R * cmax;
+  unsigned char* ring = smem + 64 + flow_red_bytes<R, SPLIT>() +
+                        (kInject ? 2 : 1) * flow_prev_bytes<R>(cmax) + flow_w_bytes<R>(cmax);
   const size_t stage_bytes = flow_stage_bytes<R, S>(cmax, ld);
   const size_t pbytes = (size_t)cmax * kRowBytes;
   const unsigned nsc = (unsigned)scale_buf_bytes<S>(ld);
@@ -925,27 +1144,48 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     const uint2* src = slot(k, b);
     const unsigned want = fl.epoch + (unsigned)k;
     const int words = (hi - lo) * NW;
-    for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
-      const uint2* ptr[kPollBatch];
+    if constexpr (kWide) {          // (no trace rows: sub is null)
+      const int nw = kNoCarryLoad ? 0 : words;
+      for (int w0 = 0; w0 < nw; w0 += kFlowThreads * kPollBatch) {
+        uint4 v[kPollBatch];
+        poll_strided<kPollBatch, !kNoFlagWait>(src + (size_t)lo * NW * 2, w0 + tid,
+                                                kFlowThreads, nw, v, want);
 #pragma unroll
-      for (int u = 0; u < kPollBatch; ++u) {
-        const int w = w0 + tid + u * kFlowThreads;
-        ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
+        for (int u = 0; u < kPollBatch; ++u) {
+          const int w = w0 + tid + u * kFlowThreads;
+          if (w >= nw) continue;
+          const int at = lo + w / NW - (sbase - 8), h = w % NW;
+          if (SPLIT == 2) {
+            dst[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
+          } else {
+            dst[2 * h * pp + at] = __uint_as_float(v[u].x);
+            dst[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
+          }
+        }
       }
-      uint4 v[kPollBatch];
-      poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
+    } else {
+      for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
+        const uint2* ptr[kPollBatch];
 #pragma unroll
-      for (int u = 0; u < kPollBatch; ++u) {
-        if (ptr[u] == nullptr) continue;
-        const int w = w0 + tid + u * kFlowThreads;
-        const int o = lo + w / NW, h = w % NW, at = o - (sbase - 8);
-        if (SPLIT == 2) {         // word h: row h, halves 0 and 1
-          const float x = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
-          dst[h * pp + at] = sub == nullptr ? x : x - sub[(size_t)h * ld + o];
-        } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
-          const float x0 = __uint_as_float(v[u].x), x1 = __uint_as_float(v[u].z);
-          dst[2 * h * pp + at] = sub == nullptr ? x0 : x0 - sub[(size_t)2 * h * ld + o];
-          dst[(2 * h + 1) * pp + at] = sub == nullptr ? x1 : x1 - sub[(size_t)(2 * h + 1) * ld + o];
+        for (int u = 0; u < kPollBatch; ++u) {
+          const int w = w0 + tid + u * kFlowThreads;
+          ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
+        }
+        uint4 v[kPollBatch];
+        poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
+#pragma unroll
+        for (int u = 0; u < kPollBatch; ++u) {
+          if (ptr[u] == nullptr) continue;
+          const int w = w0 + tid + u * kFlowThreads;
+          const int o = lo + w / NW, h = w % NW, at = o - (sbase - 8);
+          if (SPLIT == 2) {         // word h: row h, halves 0 and 1
+            const float x = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
+            dst[h * pp + at] = sub == nullptr ? x : x - sub[(size_t)h * ld + o];
+          } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
+            const float x0 = __uint_as_float(v[u].x), x1 = __uint_as_float(v[u].z);
+            dst[2 * h * pp + at] = sub == nullptr ? x0 : x0 - sub[(size_t)2 * h * ld + o];
+            dst[(2 * h + 1) * pp + at] = sub == nullptr ? x1 : x1 - sub[(size_t)(2 * h + 1) * ld + o];
+          }
         }
       }
     }
@@ -992,7 +1232,7 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     const bool whole = cmax == ld;
     const int a0 = whole ? 0 : it.r0 & ~3, a1 = whole ? ld : min((it.r1 + 3) & ~3, ld);
     const unsigned row_bytes = 4u * (a1 - a0);
-    const int nrows = new_w && !kNoRowCopies
+    const int nrows = new_w && !kNoRowCopies && !kWide      // (wide: copied in by the threads)
                           ? (it.ft.band != nullptr ? 6 : 0) + (rhs != nullptr ? 2 * R : 0)
                           : 0;
     unsigned bytes = nrows * row_bytes;
@@ -1075,37 +1315,60 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
                           ft.rhs_priv == w_keep && it.b == w_b && it.r0 == w_r0 &&
                           it.r1 == w_r1;
     const bool rhs_staged = ft.rhs != nullptr || (ft.rhs_priv >= 0 && !kNoOutputs);
-    if (!same_w) {
+    if constexpr (kWide) {
+      // w starts as the right-hand rows (and the band rows): each thread's
+      // rows copied into s_w and s_bw while the carry is polled (every warp
+      // is past the products of the item before: both are free)
+      if (!same_w && !kNoRowCopies) {
+        for (int i = it.r0 + tid; i < it.r1; i += kFlowThreads) {
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        if (g * kFlowThreads >= rows) break;
-        const int i = it.r0 + g * kFlowThreads + tid;
-        if (i >= it.r1) break;
-        float* w = wk[g];
-        if (!rhs_regs) {
+          for (int p = 0; p < 2 * R; ++p) {
+            if (ft.rhs != nullptr)
+              cp_async4(s_w + p * cmax + i - sbase, ft.rhs + (size_t)p * ld + i);
+            else
+              s_w[p * cmax + i - sbase] = 0.f;
+          }
+          if (carry_in) {
 #pragma unroll
-          for (int p = 0; p < 2 * R; ++p) w[p] = rhs_staged ? s_rhs[p * cmax + i] : 0.f;
+            for (int d = 0; d < 6; ++d)
+              cp_async4(s_bw + d * cmax + i - sbase, ft.band + (size_t)d * ld + i);
+          }
         }
-        if (inject) {          // + sign . (cpl . trace)
-          float injr[R], inji[R];
+        cp_async_commit();
+      }
+    } else {
+      if (!same_w) {
 #pragma unroll
-          for (int p = 0; p < R; ++p) injr[p] = inji[p] = 0.f;
+        for (int g = 0; g < kGroups; ++g) {
+          if (g * kFlowThreads >= rows) break;
+          const int i = it.r0 + g * kFlowThreads + tid;
+          if (i >= it.r1) break;
+          float* w = wk[g];
+          if (!rhs_regs) {
 #pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float br = __ldg(ft.cpl + (size_t)d * ld + i);
-            const float bi = __ldg(ft.cpl + (size_t)(3 + d) * ld + i);
+            for (int p = 0; p < 2 * R; ++p) w[p] = rhs_staged ? s_rhs[p * cmax + i] : 0.f;
+          }
+          if (inject) {          // + sign . (cpl . trace)
+            float injr[R], inji[R];
+#pragma unroll
+            for (int p = 0; p < R; ++p) injr[p] = inji[p] = 0.f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const float br = __ldg(ft.cpl + (size_t)d * ld + i);
+              const float bi = __ldg(ft.cpl + (size_t)(3 + d) * ld + i);
+#pragma unroll
+              for (int p = 0; p < R; ++p) {
+                const float tr = s_trace[p * pp + i - sbase + 7 + d];
+                const float ti = s_trace[(R + p) * pp + i - sbase + 7 + d];
+                injr[p] = injr[p] + br * tr - bi * ti;
+                inji[p] = inji[p] + br * ti + bi * tr;
+              }
+            }
 #pragma unroll
             for (int p = 0; p < R; ++p) {
-              const float tr = s_trace[p * pp + i - sbase + 7 + d];
-              const float ti = s_trace[(R + p) * pp + i - sbase + 7 + d];
-              injr[p] = injr[p] + br * tr - bi * ti;
-              inji[p] = inji[p] + br * ti + bi * tr;
+              w[p] = w[p] + ft.sign * injr[p];
+              w[R + p] = w[R + p] + ft.sign * inji[p];
             }
-          }
-#pragma unroll
-          for (int p = 0; p < R; ++p) {
-            w[p] = w[p] + ft.sign * injr[p];
-            w[R + p] = w[R + p] + ft.sign * inji[p];
           }
         }
       }
@@ -1137,42 +1400,26 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     if (tid == kStager * 32 && q + kStages - 1 < nitem) stage(q + kStages - 1);
 
     // 3. w -= band . carry, and the products
-    float acc[V];
+    constexpr int kPitch = red_pitch<SPLIT>();
+    float* part = red + (q & 1) * V * kPitch;
+    float acc[kWide ? 1 : V];           // r <= 2: this thread's partial sums
+    if constexpr (kWide) {     // (no private lines: r <= 2 only)
+      if (!same_w) cp_async_wait_all();  // this thread's rows of w and of the band
 #pragma unroll
-    for (int v = 0; v < V; ++v) acc[v] = 0.f;
-
-#pragma unroll
-    for (int g = 0; g < kGroups; ++g) {
-      if (g * kFlowThreads >= rows) break;
-      const int il = g * kFlowThreads + tid;          // the thread's row of the item
-      const int i = it.r0 + il;
-      const bool live = il < rows;
-      float cr[kLanes], ci[kLanes];
-      if (live && !kNoProducts) {
-        if (S == Storage::kInt8) {
-          widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
-          widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
-          const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
-#pragma unroll
-          for (int l = 0; l < kLanes; ++l) {
-            cr[l] *= sb[l];
-            ci[l] *= sb[kLanes + l];
-          }
-        } else {
-          widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
-          widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
-        }
-      }
-      float* w = wk[g];
-      if (!same_w && live) {
-        if (carry_in) {        // - band . carry
+      for (int g = 0; g < kGroups; ++g) {
+        if (g * kFlowThreads >= rows) break;
+        const int il = g * kFlowThreads + tid;
+        const int i = it.r0 + il;
+        if (il >= rows) break;
+        float* w = s_w + i - sbase;                   // w[p * cmax]
+        if (!same_w && carry_in) {        // - band . carry
           float accr[R], acci[R];
 #pragma unroll
           for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
-            const float br = s_band[d * cmax + i];
-            const float bi = s_band[(3 + d) * cmax + i];
+            const float br = s_bw[d * cmax + i - sbase];
+            const float bi = s_bw[(3 + d) * cmax + i - sbase];
 #pragma unroll
             for (int p = 0; p < R; ++p) {
               const float tr = s_prev[p * pp + i - sbase + 7 + d];
@@ -1183,31 +1430,92 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
           }
 #pragma unroll
           for (int p = 0; p < R; ++p) {
-            w[p] = w[p] - accr[p];
-            w[R + p] = w[R + p] - acci[p];
+            w[p * cmax] = w[p * cmax] - accr[p];
+            w[(R + p) * cmax] = w[(R + p) * cmax] - acci[p];
           }
         }
-        if (ft.keep_priv >= 0 && !kNoOutputs) {
+        // y (w) of the tile's own lanes, by the CTA whose slice holds them
+        if (own_tile && i >= o0 && i < o0 + kLanes && ft.kept != nullptr && !kNoOutputs) {
 #pragma unroll
-          for (int p = 0; p < 2 * R; ++p)
-            pv[((size_t)ft.keep_priv * 2 * R + p) * cmax + i] = w[p];
-          fence_proxy_async_global();   // for the bulk copy of a backward step
+          for (int p = 0; p < 2 * R; ++p) ft.kept[(size_t)p * ld + i] = w[p * cmax];
         }
       }
-      // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
-      if (live && !kNoProducts) {
+      if (!same_w) __syncthreads();      // a warp's segments hold other threads' rows of w
+      wide::line_products<R, S == Storage::kInt8, kFlowWarps>(
+          pre, (int)pbytes, sc, s_w + it.r0 - sbase, cmax, rows, it.r0, part, kPitch,
+          !kNoProducts);
+    } else {
 #pragma unroll
-        for (int p = 0; p < R; ++p)
+      for (int v = 0; v < V; ++v) acc[v] = 0.f;
+
 #pragma unroll
-          for (int l = 0; l < kLanes; ++l) {
-            acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
-            acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
+      for (int g = 0; g < kGroups; ++g) {
+        if (g * kFlowThreads >= rows) break;
+        const int il = g * kFlowThreads + tid;          // the thread's row of the item
+        const int i = it.r0 + il;
+        const bool live = il < rows;
+        float cr[kLanes], ci[kLanes];
+        if (live && !kNoProducts) {
+          if (S == Storage::kInt8) {
+            widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
+            widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
+            const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
+#pragma unroll
+            for (int l = 0; l < kLanes; ++l) {
+              cr[l] *= sb[l];
+              ci[l] *= sb[kLanes + l];
+            }
+          } else {
+            widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
+            widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
           }
-      }
-      // y (w) of the tile's own lanes, by the CTA whose slice holds them
-      if (live && own_tile && i >= o0 && i < o0 + kLanes && ft.kept != nullptr && !kNoOutputs) {
+        }
+        float* w = wk[g];
+        if (!same_w && live) {
+          if (carry_in) {        // - band . carry
+            float accr[R], acci[R];
 #pragma unroll
-        for (int p = 0; p < 2 * R; ++p) ft.kept[(size_t)p * ld + i] = w[p];
+            for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const float br = s_band[d * cmax + i];
+              const float bi = s_band[(3 + d) * cmax + i];
+#pragma unroll
+              for (int p = 0; p < R; ++p) {
+                const float tr = s_prev[p * pp + i - sbase + 7 + d];
+                const float ti = s_prev[(R + p) * pp + i - sbase + 7 + d];
+                accr[p] = accr[p] + br * tr - bi * ti;
+                acci[p] = acci[p] + br * ti + bi * tr;
+              }
+            }
+#pragma unroll
+            for (int p = 0; p < R; ++p) {
+              w[p] = w[p] - accr[p];
+              w[R + p] = w[R + p] - acci[p];
+            }
+          }
+          if (ft.keep_priv >= 0 && !kNoOutputs) {
+#pragma unroll
+            for (int p = 0; p < 2 * R; ++p)
+              pv[((size_t)ft.keep_priv * 2 * R + p) * cmax + i] = w[p];
+            fence_proxy_async_global();   // for the bulk copy of a backward step
+          }
+        }
+        // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
+        if (live && !kNoProducts) {
+#pragma unroll
+          for (int p = 0; p < R; ++p)
+#pragma unroll
+            for (int l = 0; l < kLanes; ++l) {
+              acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
+              acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
+            }
+        }
+        // y (w) of the tile's own lanes, by the CTA whose slice holds them
+        if (live && own_tile && i >= o0 && i < o0 + kLanes && ft.kept != nullptr && !kNoOutputs) {
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) ft.kept[(size_t)p * ld + i] = w[p];
+        }
       }
     }
     // the tile's padding lanes (>= n): w is zero there
@@ -1220,34 +1528,40 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     w_r1 = it.r1;
 
     // the warps' sums (a warp past the rows holds zeros), added in warp order
-    // and published as this half's sums of the tile
-    const float sum = warp_transpose_sum<V>(acc);
-    constexpr int kPitch = red_pitch<SPLIT>();
-    float* part = red + (q & 1) * V * kPitch;
-    if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
+    // and published as this half's sums of the tile (wide batches stored
+    // theirs in line_products)
+    if constexpr (!kWide) {
+      const float sum = warp_transpose_sum<V>(acc);
+      if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
+    }
     __syncthreads();
-    const int p = lane / kLanes, o = o0 + lane % kLanes;
-    if (warp == kPublisher && lane < V) {
-      const float4* sums = reinterpret_cast<const float4*>(part + lane * kPitch);
-      float v = 0.f;
+    if (warp == kPublisher) {
+      for (int vi = lane; vi < V; vi += 32) {
+        const int p = vi / kLanes, o = o0 + vi % kLanes;
+        const float4* sums = reinterpret_cast<const float4*>(part + vi * kPitch);
+        float v = 0.f;
 #pragma unroll
-      for (int c = 0; c < kFlowWarps / 4; ++c) {     // in warp order
-        const float4 f = sums[c];
-        v += f.x;
-        v += f.y;
-        v += f.z;
-        v += f.w;
+        for (int c = 0; c < kFlowWarps / 4; ++c) {     // in warp order
+          const float4 f = sums[c];
+          v += f.x;
+          v += f.y;
+          v += f.z;
+          v += f.w;
+        }
+        st_word(slot(it.k, it.b) + ((size_t)o * 2 * R + p) * SPLIT + rank, v,
+                fl.epoch + (unsigned)it.k);
+        if (SPLIT == 1 && ft.out != nullptr && !kNoOutputs) ft.out[(size_t)p * ld + o] = v;
       }
-      st_word(slot(it.k, it.b) + ((size_t)o * 2 * R + p) * SPLIT + rank, v,
-              fl.epoch + (unsigned)it.k);
-      if (SPLIT == 1 && ft.out != nullptr && !kNoOutputs) ft.out[(size_t)p * ld + o] = v;
     }
     // two CTAs a tile: the one whose slice holds it stores both halves' sum
-    if (SPLIT == 2 && warp == 0 && lane < V && own_tile && ft.out != nullptr && !kNoOutputs) {
-      const uint2* const ptr[1] = {slot(it.k, it.b) + ((size_t)o * 2 * R + p) * 2};
-      uint4 v[1];
-      poll_words<1, !kNoFlagWait>(ptr, v, fl.epoch + (unsigned)it.k);
-      ft.out[(size_t)p * ld + o] = __uint_as_float(v[0].x) + __uint_as_float(v[0].z);
+    if (SPLIT == 2 && warp == 0 && own_tile && ft.out != nullptr && !kNoOutputs) {
+      for (int vi = lane; vi < V; vi += 32) {
+        const int p = vi / kLanes, o = o0 + vi % kLanes;
+        const uint2* const ptr[1] = {slot(it.k, it.b) + ((size_t)o * 2 * R + p) * 2};
+        uint4 v[1];
+        poll_words<1, !kNoFlagWait>(ptr, v, fl.epoch + (unsigned)it.k);
+        ft.out[(size_t)p * ld + o] = __uint_as_float(v[0].x) + __uint_as_float(v[0].z);
+      }
     }
   }
 }
@@ -1347,24 +1661,34 @@ inline cudaError_t launch_pass_map(const PassArgs& a, uint2* xchg, unsigned epoc
 // A pass through run_flow: on banded+tail pivots (kBanded: bf16, 0 <
 // tail_start < m, half >= 0, no scales), else on dense planes (bf16, or int8
 // when scales are given).  The exchange needs one slot per line (count slots)
+template <bool kBackward, Storage S>
+inline cudaError_t launch_pass_map_r(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
+                                     cudaStream_t stream) {
+  switch (r) {
+    case 1: return launch_pass_map<1, kBackward, S, false>(a, xchg, epoch, stream);
+    case 2: return launch_pass_map<2, kBackward, S, false>(a, xchg, epoch, stream);
+    case 4: return launch_pass_map<4, kBackward, S, false>(a, xchg, epoch, stream);
+    case 8: return launch_pass_map<8, kBackward, S, false>(a, xchg, epoch, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 template <bool kBackward, bool kBanded = false>
 inline cudaError_t run_map_pass(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                                 cudaStream_t stream) {
-  if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 || r < 1 ||
-      r > kMaxRhs || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
+  if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 ||
+      !launch_width(r) || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
       epoch == 0u || epoch + (unsigned)a.count < epoch)
     return cudaErrorInvalidValue;
   if constexpr (kBanded) {
-    if (a.tail_start < 1 || a.tail_start >= a.m || a.half < 0 || a.scale != nullptr)
+    if (r > kMaxRhsBanded || a.tail_start < 1 || a.tail_start >= a.m || a.half < 0 ||
+        a.scale != nullptr)
       return cudaErrorInvalidValue;
     return r == 1 ? launch_pass_map<1, kBackward, Storage::kBf16, true>(a, xchg, epoch, stream)
                   : launch_pass_map<2, kBackward, Storage::kBf16, true>(a, xchg, epoch, stream);
   } else {
-    if (a.scale != nullptr)
-      return r == 1 ? launch_pass_map<1, kBackward, Storage::kInt8, false>(a, xchg, epoch, stream)
-                    : launch_pass_map<2, kBackward, Storage::kInt8, false>(a, xchg, epoch, stream);
-    return r == 1 ? launch_pass_map<1, kBackward, Storage::kBf16, false>(a, xchg, epoch, stream)
-                  : launch_pass_map<2, kBackward, Storage::kBf16, false>(a, xchg, epoch, stream);
+    if (a.scale != nullptr) return launch_pass_map_r<kBackward, Storage::kInt8>(r, a, xchg, epoch, stream);
+    return launch_pass_map_r<kBackward, Storage::kBf16>(r, a, xchg, epoch, stream);
   }
 }
 

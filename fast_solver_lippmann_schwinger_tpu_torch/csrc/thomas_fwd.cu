@@ -10,7 +10,7 @@
 // forward instantiation of the flag-handoff line step in thomas_flow.cuh,
 // which also describes the design (one cooperative launch per pass, one CTA
 // a tile, two on long lines, the carry handed from line to line through
-// flagged words of the exchange buffer `xchg`, bulk-copied stage buffers), the limits (r <= 2) and the bound.
+// flagged words of the exchange buffer `xchg`, bulk-copied stage buffers), the limits (r = 1, 2, 4 or 8) and the bound.
 // With scales the planes are int8 (the TPU kernel's nb > 1 branch of
 // _scaled_dots) and the kernel is flow_kernel<R, false, Storage::kInt8>.
 // The carry t is never stored but in the exchange buffer.  A build with

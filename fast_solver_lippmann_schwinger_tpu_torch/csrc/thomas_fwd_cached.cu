@@ -35,8 +35,9 @@
 // no flag; each line writes y (w) and t of its tile's lanes into the stacks.
 // A head tile stages only the rows of its window that lie in [0, n), one bulk
 // copy per plane, and waits only on the tiles that publish their carry lanes.
-// Limits: r <= 2, and the lines of thomas_flow.cuh (n up to 1968 in bf16 and
-// 2448 in int8 at r = 2, test_longest_line_fits).
+// Limits: r = 1, 2, 4 or 8 on dense planes (1 or 2 on banded+tail pivots), and
+// the lines of thomas_flow.cuh (n up to 1968 in bf16 and 2448 in int8 at
+// r = 2, 1760 and 2144 at r = 8: test_longest_line_fits).
 //
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B (int8: 1 B and the
 // scales), or two head windows, 2 x ld x (8 + 2 half) x 2 B less the rows
@@ -94,11 +95,23 @@ inline cudaError_t launch_cached(const PassArgs& a, uint2* xchg, unsigned epoch,
       a.batch * (a.ld / kLanes), stream);
 }
 
+// r = 1 or 2 on banded+tail pivots; 1, 2, 4 or 8 on dense planes
 template <bool kBanded, Storage S>
 inline cudaError_t run_cached(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                               cudaStream_t stream) {
-  return r == 1 ? launch_cached<1, kBanded, S>(a, xchg, epoch, stream)
-                : launch_cached<2, kBanded, S>(a, xchg, epoch, stream);
+  if constexpr (kBanded) {
+    return r == 1   ? launch_cached<1, kBanded, S>(a, xchg, epoch, stream)
+           : r == 2 ? launch_cached<2, kBanded, S>(a, xchg, epoch, stream)
+                    : cudaErrorInvalidValue;
+  } else {
+    switch (r) {
+      case 1: return launch_cached<1, kBanded, S>(a, xchg, epoch, stream);
+      case 2: return launch_cached<2, kBanded, S>(a, xchg, epoch, stream);
+      case 4: return launch_cached<4, kBanded, S>(a, xchg, epoch, stream);
+      case 8: return launch_cached<8, kBanded, S>(a, xchg, epoch, stream);
+      default: return cudaErrorInvalidValue;
+    }
+  }
 }
 
 }  // namespace thomas
@@ -142,8 +155,8 @@ extern "C" int thomas_forward_cached(
   a.half = half;
   cudaError_t err = cudaErrorInvalidValue;
   const bool banded = tail_start > 0;
-  if (batch >= 1 && m >= 1 && n >= 1 && ld >= n && ld % thomas::kLanes == 0 && r >= 1 &&
-      r <= thomas::kMaxRhs && start >= 0 && start < m && xchg != nullptr && epoch != 0u &&
+  if (batch >= 1 && m >= 1 && n >= 1 && ld >= n && ld % thomas::kLanes == 0 &&
+      thomas::launch_width(r) && start >= 0 && start < m && xchg != nullptr && epoch != 0u &&
       epoch + (unsigned)(m - start) > epoch &&
       (!banded || (tail_start < m && half >= 0 && scale == nullptr))) {
     uint2* words = static_cast<uint2*>(xchg);

@@ -67,7 +67,8 @@
 // an int8 line 2 x ld^2 B plus its scales (1.31 MB, 0.39 us); a head line its
 // two windows, 2 x ld x wt x 2 B (0.67 MB at half = 100).  The
 // arithmetic (2 x 2r x 2 x rows x ld flop) is far below the f32 rate.  Each
-// plane byte is read exactly once per pass and serves all r right-hand sides.
+// plane byte is read exactly once per pass and serves all r right-hand sides
+// (up to 8 in one launch on dense planes: thomas_flow.cuh, "Wide batches").
 #pragma once
 
 #include <cuda_runtime.h>
@@ -76,7 +77,15 @@
 namespace thomas {
 
 constexpr int kLanes = 8;              // output lanes per tile (16 B of bf16)
-constexpr int kMaxRhs = 2;             // right-hand sides per launch
+constexpr int kMaxRhs = 8;             // right-hand sides per launch: 1, 2, 4 or 8
+                                       //   (dense planes; banded+tail pivots 1 or 2)
+constexpr int kMaxRhsBanded = 2;
+
+// The widths a launch is instantiated for; the wrappers pad other r up to the
+// next one with zero right-hand sides (sparse/thomas_kernels.py)
+__host__ __device__ constexpr bool launch_width(int r) {
+  return r == 1 || r == 2 || r == 4 || r == 8;
+}
 constexpr int kScaleBlock = 128;       // input rows per int8 scale
 
 enum class Storage : int { kBf16 = 0, kInt8 = 1 };

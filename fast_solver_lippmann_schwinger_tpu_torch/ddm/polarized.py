@@ -502,7 +502,7 @@ class PolarizedTracesPreconditioner:
         ONE batched local-solve pass for the partitioned sources, ONE
         ``gmres_batched`` inner solve on the trace system whose MM applies and
         D-inverse recursions stream each slab's pivots once per step for all
-        R columns (in groups of two a launch on the card), and ONE batched
+        R columns (up to eight a launch on the card), and ONE batched
         reconstruction (the reference solves directions serially,
         ``tests/plasma_integral_system_example.jl:115-134``)."""
         slabs = self.slabs

@@ -363,7 +363,7 @@ class PolarizedTracesPreconditioner3D:
     def apply_batch(self, b_batch: torch.Tensor) -> torch.Tensor:
         """(R, l*m*n) joint batch apply (``gmres_batched`` convention): the R
         directions ride every plane solve of the trace pipeline as a trailing
-        axis (in groups of two a launch on the card) and the inner trace solve
+        axis (up to eight columns a launch on the card) and the inner trace solve
         runs as one ``gmres_batched``."""
         slabs = self.slabs
         asb = self.a_s.matvec(b_batch.T)                   # (N, R)

@@ -776,18 +776,18 @@ def _n_rhs(bg: torch.Tensor) -> int:
 
 def _fused(fac, bg) -> bool:
     """Whether a scan runs as fused kernel passes: a plane view whose stack
-    the fused passes take (``plane_kernels.fused_fits``) at up to
-    ``plane_kernels.MAX_RHS`` right-hand sides; a wider batch runs as groups
-    of that many, one fused launch each."""
-    r = min(_n_rhs(bg), plane_kernels.MAX_RHS)
-    return hasattr(fac, "stack") and fac.fused and plane_kernels.fused_fits(fac.stack, r)
+    the fused passes take at one right-hand side at least
+    (``plane_kernels.fused_width``); the batch runs in launches of the widest
+    width that fits, up to ``plane_kernels.MAX_RHS`` columns each."""
+    return (hasattr(fac, "stack") and fac.fused
+            and plane_kernels.fused_width(fac.stack, _n_rhs(bg)) > 0)
 
 
 def _fwd_scan_3d(fac, bg, start: int = 0, t_start=None, collect_t: bool = False):
     """3D forward substitution over z-planes ``start..l-1`` (see
     :func:`_fwd_scan`); ``bg`` (l, mn[, r]).  A plane view runs the whole
-    pass as ONE fused kernel launch (one a group of two right-hand sides)
-    when its stack fits (``plane_kernels.fwd_scan_fused``), else one
+    pass as ONE fused kernel launch (one a group of up to eight right-hand
+    sides) when its stack fits (``plane_kernels.fwd_scan_fused``), else one
     ``plane_apply`` per plane."""
     if _fused(fac, bg):
         return plane_kernels.fwd_scan_fused(fac, bg, start=start, t_start=t_start,

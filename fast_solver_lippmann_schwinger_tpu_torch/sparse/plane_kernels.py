@@ -40,9 +40,12 @@ im_0..im_{r-1}]``; the in-plane coupling stencils as packed flat weight rows
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version only for a tensor that lies on the CPU.  On the card a
-launch takes r = 1 or 2 right-hand sides; the wrappers run more as groups of
-at most two, one launch each.  Each wrapper counts its launches by plane
-storage (``.launches["bf16"]``, ``.launches["int8"]``).
+launch takes r = 1, 2, 4 or 8 right-hand sides, each pivot plane read once for
+all of them (r = 4 and 8 multiply on tensor cores: ``csrc/plane_pass.cuh``,
+note 4); the wrappers pad other r up to 8 with zero columns and run more, or
+more than a fused pass takes on the stack (:func:`fused_width`), as groups,
+one launch each (``thomas_kernels.in_rhs_groups``).  Each wrapper counts its
+launches by plane storage (``.launches["bf16"]``, ``.launches["int8"]``).
 """
 
 from __future__ import annotations
@@ -56,15 +59,17 @@ import torch.nn.functional as F
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
     LEAD_MULTIPLE,
+    SMEM_PER_BLOCK,
     Exchange,
     _round_up,
     dense_planes,
     exchange_for,
     in_rhs_groups,
+    launch_width,
     tile_planes,
 )
 
-MAX_RHS = 2                  # right-hand sides per launch (csrc: kMaxRhs)
+MAX_RHS = 8                  # right-hand sides per launch (csrc: kMaxRhs)
 TAPS = 9
 INT8_BLOCK = 128             # input rows per int8 scale (csrc: kScaleBlock)
 # the widths the fused passes take, by the shared memory budget of a block of
@@ -74,7 +79,13 @@ INT8_BLOCK = 128             # input rows per int8 scale (csrc: kScaleBlock)
 # at most 232,448 bytes.  The flag-handoff step keeps these widths: at each
 # its ring, sized per launch, still takes at least 4 chunks
 _RING_BYTES = {"bf16": 4 * 2 * 4096, "int8": 4 * (2 * 4096 + 4 * 2 * 8 * 4)}
-SMEM_PER_BLOCK = 232_448
+# wide launches (r = 4, 8) exist on the flag-handoff step only, and fit by its
+# own sizing (csrc: flow_ring): the warps' sums (8 warps), y_p at a row pitch
+# of ld + 8, 128 bytes of mbarriers and at least 4 ring slots of the smallest
+# chunk (192 rows in bf16, 384 with 3 blocks of scales in int8)
+_FLOW_WARPS = 8
+_MIN_SLOT_BYTES = {"bf16": 2 * 192 * 16, "int8": 2 * 384 * 8 + 3 * 2 * 8 * 4}
+_MIN_SLOTS = 4
 
 # slots of each kind of word in a fused pass's exchange buffer (y lanes and
 # t tiles; csrc: kWordSlots): a fast CTA writes plane s + 1's words while a
@@ -291,16 +302,32 @@ def _unrows(rows: torch.Tensor, mn: int, dtype, shape) -> torch.Tensor:
 
 
 def fused_fits(stack: PlaneStack, r: int) -> bool:
-    """Whether the fused passes take ``r`` right-hand sides on this stack:
-    r <= 2, and the staged y_p with the pivot-column ring (and its int8
-    scales) fits one block's shared memory on an H100 (bf16: ld <= 12448 at
-    r = 2, 24928 at r = 1; int8: 12288 and 24704).  The scans run a wider
-    batch on a stack that fits at r = 2 as groups of two fused launches
-    (``direct._fused``); other stacks go through the per-plane branch, which
-    takes any width.  The answer depends on shapes only, so the CPU and the
-    card take the same branch."""
-    smem = _RING_BYTES[stack.storage] + 4 * 2 * r * stack.ld + 4 * 4 * 2 * r * LEAD_MULTIPLE
-    return r <= MAX_RHS and smem <= SMEM_PER_BLOCK
+    """Whether one fused pass takes ``r <= MAX_RHS`` right-hand sides on this
+    stack (at the launch width of r): the staged y_p with the pivot-column
+    ring (and its int8 scales) fits one block's shared memory on an H100
+    (bf16: ld <= 24928, 12448, 6352 and 3104 at widths 1, 2, 4 and 8; int8:
+    24704, 12288, 6272 and 3072)."""
+    if r > MAX_RHS:
+        return False
+    w = launch_width(r)
+    if w <= 2:
+        smem = _RING_BYTES[stack.storage] + 4 * 2 * w * stack.ld + 4 * 4 * 2 * w * LEAD_MULTIPLE
+    else:
+        smem = (4 * 2 * (2 * w * LEAD_MULTIPLE) * _FLOW_WARPS + 4 * 2 * w * (stack.ld + 8) + 128
+                + _MIN_SLOTS * (_MIN_SLOT_BYTES[stack.storage] + 16))
+    return smem <= SMEM_PER_BLOCK
+
+
+def fused_width(stack: PlaneStack, r: int) -> int:
+    """Right-hand sides of one fused launch for a batch of ``r`` on this
+    stack: the launch width of ``min(r, MAX_RHS)``, halved while a pass does
+    not fit it; 0 where not even one fits (the scans then take the per-plane
+    branch, which takes any width).  The answer depends on shapes only, so
+    the CPU and the card take the same branch (``direct._fused``)."""
+    width = launch_width(min(r, MAX_RHS))
+    while width and not fused_fits(stack, width):
+        width //= 2
+    return width
 
 
 # ---------------------------------------------------------------------------
@@ -464,8 +491,9 @@ def plane_apply_rows(stack: PlaneStack, idx: int, rows: torch.Tensor) -> torch.T
     _check_stack(stack, rows.device, range(idx, idx + 1))
     if not rows.is_cuda:
         return plane_apply_rows_plain(stack, idx, rows)
-    if r > MAX_RHS:
-        return in_rhs_groups(lambda y: plane_apply_rows(stack, idx, y), r, (rows,))
+    width = launch_width(min(r, MAX_RHS))
+    if width != r:
+        return in_rhs_groups(lambda y: plane_apply_rows(stack, idx, y), r, (rows,), width=width)
     out = torch.empty_like(rows)
     err = cuda_build.load("plane_apply")(
         rows.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(), _ptr(stack.scale),
@@ -514,10 +542,11 @@ def plane_forward(stack: PlaneStack, b4: torch.Tensor, w4: torch.Tensor, n: int,
         _check_f32("out[1]", t4, b4.shape, dev)
     if not b4.is_cuda:
         return plane_forward_plain(stack, b4, w4, n, base, start, t_init, out)
-    if r > MAX_RHS:
+    width = fused_width(stack, r) or 1
+    if width != r:
         return in_rhs_groups(
             lambda b, t, out: plane_forward(stack, b, w4, n, base, start, t, out),
-            r, (b4, t_init), out)
+            r, (b4, t_init), out, width=width)
     xchg, epoch = take_words(exchange_for(b4), stack.ld, r, l - start)
     err = cuda_build.load("plane_fwd")(
         b4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
@@ -553,9 +582,10 @@ def plane_backward(stack: PlaneStack, y4: torch.Tensor, w4: torch.Tensor, n: int
     _check_f32("out", out, y4.shape, dev)
     if not y4.is_cuda:
         return plane_backward_plain(stack, y4, w4, n, base, start, out)
-    if r > MAX_RHS:
+    width = fused_width(stack, r) or 1
+    if width != r:
         return in_rhs_groups(lambda y, out: plane_backward(stack, y, w4, n, base, start, out),
-                             r, (y4,), out)
+                             r, (y4,), out, width=width)
     xchg, epoch = take_words(exchange_for(y4), stack.ld, r, l - start)
     err = cuda_build.load("plane_bwd")(
         y4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),

@@ -138,6 +138,20 @@ class StencilMatrix2D:
                             out[row, jj * n + ii] = vals[j, i, dj, di]
         return out
 
+    def to_coo(self):
+        """COO triplets ``(rows, cols, vals)`` of the assembled sparse matrix,
+        host numpy, in the JAX package's order (node-major, then dj, di;
+        taps that leave the grid dropped): the export counterpart of the
+        reference's ``createIndices`` kron-expansion
+        (``src/Functions.jl:7-29``), for ``scipy.sparse.coo_matrix``."""
+        m, n = self.m, self.n
+        vals = self.values.detach().cpu().numpy()
+        j, i, dj, di = np.meshgrid(np.arange(m), np.arange(n), np.arange(3), np.arange(3),
+                                   indexing="ij")
+        jj, ii = j + dj - 1, i + di - 1
+        keep = (jj >= 0) & (jj < m) & (ii >= 0) & (ii < n)
+        return (j * n + i)[keep], (jj * n + ii)[keep], vals[keep]
+
 
 @dataclasses.dataclass(frozen=True)
 class StencilMatrix3D:
@@ -238,3 +252,15 @@ class StencilMatrix3D:
                     out[((p * m + j) * n + i)[keep], ((pp * m + jj) * n + ii)[keep]] = (
                         vals[:, :, :, dk, dj, di][keep])
         return out
+
+    def to_coo(self):
+        """COO triplets ``(rows, cols, vals)``, host numpy, in the JAX
+        package's order (see the 2D version)."""
+        l, m, n = self.l, self.m, self.n
+        vals = self.values.detach().cpu().numpy()
+        p, j, i, dk, dj, di = np.meshgrid(np.arange(l), np.arange(m), np.arange(n),
+                                          np.arange(3), np.arange(3), np.arange(3),
+                                          indexing="ij")
+        pp, jj, ii = p + dk - 1, j + dj - 1, i + di - 1
+        keep = (pp >= 0) & (pp < l) & (jj >= 0) & (jj < m) & (ii >= 0) & (ii < n)
+        return ((p * m + j) * n + i)[keep], ((pp * m + jj) * n + ii)[keep], vals[keep]

@@ -31,7 +31,7 @@ Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
 plain PyTorch version (:func:`sweep_down_plain`, :func:`sweep_up_plain`, a
 Python loop over (slab, line phase)) only for tensors that lie on the CPU.
 More right-hand sides than a launch takes run as groups of at most
-``thomas_kernels.MAX_RHS``, one launch each.
+``thomas_kernels.MAX_RHS_BANDED`` (two), one launch each.
 """
 
 from __future__ import annotations
@@ -206,8 +206,9 @@ def sweep_down(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tenso
     r = _check(fac, meta, b4, tt, (c01, c10))
     if not b4.is_cuda:
         return sweep_down_plain(fac, meta, b4, c01, c10, tt)
-    if r > tk.MAX_RHS:
-        return tk.in_rhs_groups(lambda b: sweep_down(fac, meta, b, c01, c10, tt), r, (b4,))
+    if r > tk.MAX_RHS_BANDED:
+        return tk.in_rhs_groups(lambda b: sweep_down(fac, meta, b, c01, c10, tt), r, (b4,),
+                                width=tk.MAX_RHS_BANDED)
     y4, t4 = torch.empty_like(b4), torch.empty_like(b4)
     unp = torch.zeros_like(b4[:, 0])
     _launch(0, fac, meta, b4, c01, c10, y4, t4, unp, None, tt, r)
@@ -226,10 +227,10 @@ def sweep_up(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tensor,
         raise ValueError("y4, t4 and unp must be sweep_down's outputs for these rows")
     if not b4.is_cuda:
         return sweep_up_plain(fac, meta, b4, cnpn, cnnp, y4, t4, unp, tt)
-    if r > tk.MAX_RHS:
+    if r > tk.MAX_RHS_BANDED:
         return tk.in_rhs_groups(
             lambda b, y, t, u: sweep_up(fac, meta, b, cnpn, cnnp, y, t, u, tt),
-            r, (b4, y4, t4, unp))
+            r, (b4, y4, t4, unp), width=tk.MAX_RHS_BANDED)
     u4 = torch.empty_like(b4)
     _launch(1, fac, meta, b4, cnpn, cnnp, y4, t4, unp, u4, tt, r)
     sweep_up.launches += 1

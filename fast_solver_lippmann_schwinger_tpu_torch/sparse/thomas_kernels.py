@@ -48,16 +48,23 @@ clip(round_half_even(c / scale), -127, 127)``.  The last block may be partial
 (rows ``[128 (nb - 1), ld)``): the JAX package pads to 128 lanes with zeros,
 which leave the block's absmax as it is, so the scales are the same numbers.
 
-More right-hand sides than one launch takes (``MAX_RHS``) run as groups of at
-most ``MAX_RHS`` columns, one launch each, split from and joined back into the
-stacked rows.
+Right-hand sides in one launch: on dense planes r = 1, 2, 4 or 8
+(:data:`LAUNCH_WIDTHS`), each pivot plane read once for all of them; other r
+up to 8 are padded to the next width with zero columns, and more than
+``MAX_RHS`` run as groups of at most ``MAX_RHS`` columns, one launch each,
+split from and joined back into the stacked rows (:func:`in_rhs_groups`).
+The banded+tail layout (and the fused sweeps of ``sweep_kernels``) take r = 1
+or 2 (``MAX_RHS_BANDED``).
 
 A line must fit one block's shared memory: its rows and the staged plane
 buffers (for the flag-handoff passes, three stage buffers of a line's rows,
-or of half a line's on lines too long for one block).  The longest lines the
-kernels take on an H100 at two right-hand sides are measured by the card-only
-test ``test_longest_line_fits`` (``LONGEST_LINE`` there); a longer line is
-refused at the launch and the wrapper raises ``ValueError``.
+or of half a line's on lines too long for one block), which grow with r.
+:func:`line_fits` mirrors the kernels' sizing; a batch runs in launches of
+the widest width that fits the line (:func:`line_width`).  The longest lines
+the kernels take on an H100 for each width are measured by the card-only test
+``test_longest_line_fits`` (``LONGEST_LINE`` there); a line too long for one
+right-hand side is refused at the launch and the wrapper raises
+``ValueError``.
 
 Each wrapper launches its kernel for a CUDA tensor, or raises; it takes the
 plain PyTorch version only for a tensor that lies on the CPU.  The kernels
@@ -75,7 +82,9 @@ import torch.nn.functional as F
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 
 LEAD_MULTIPLE = 8      # bf16 values per 16-byte load
-MAX_RHS = 2            # right-hand sides per kernel launch (csrc: kMaxRhs)
+MAX_RHS = 8            # right-hand sides per kernel launch (csrc: kMaxRhs)
+LAUNCH_WIDTHS = (1, 2, 4, 8)   # the instantiated widths (csrc: launch_width)
+MAX_RHS_BANDED = 2     # banded+tail pivots and fused sweeps (csrc: kMaxRhsBanded)
 INT8_BLOCK = 128       # input rows per int8 scale (csrc: kScaleBlock)
 
 _P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
@@ -429,24 +438,52 @@ def _check_rows(fac, s_idx: torch.Tensor, rows: torch.Tensor):
 
 # ---------------------------------------------------------------------------
 # More right-hand sides than a launch takes: groups of at most MAX_RHS columns
-# of the stacked rows [re_0..re_{r-1}; im_0..im_{r-1}] (axis -2)
+# of the stacked rows [re_0..re_{r-1}; im_0..im_{r-1}] (axis -2), each padded
+# with zero columns to a launch width
 # ---------------------------------------------------------------------------
 
 
-def rhs_groups(r: int) -> list:
+def launch_width(r: int) -> int:
+    """The narrowest launch width that takes ``r <= MAX_RHS`` right-hand
+    sides (r = 3 runs as 4, r = 5..7 as 8)."""
+    return next(w for w in LAUNCH_WIDTHS if w >= r)
+
+
+def rhs_groups(r: int, width: int = MAX_RHS) -> list:
     """Column ranges ``[c0, c1)`` of the launches that carry ``r`` right-hand
-    sides."""
-    return [(c0, min(c0 + MAX_RHS, r)) for c0 in range(0, r, MAX_RHS)]
+    sides in groups of at most ``width``."""
+    return [(c0, min(c0 + width, r)) for c0 in range(0, r, width)]
 
 
-def _group_rows(r: int, c0: int, c1: int) -> list:
-    return list(range(c0, c1)) + list(range(r + c0, r + c1))
+def _group_rows(t: torch.Tensor, r: int, c0: int, c1: int) -> tuple:
+    """The real and the imaginary rows of columns ``[c0, c1)`` of stacked
+    rows (..., 2r, ld), as two views (slices, so that a CUDA graph can
+    capture their copies)."""
+    return t[..., c0:c1, :], t[..., r + c0 : r + c1, :]
 
 
-def _rhs_rows(t: torch.Tensor | None, r: int, c0: int, c1: int):
+def _rhs_rows(t: torch.Tensor | None, r: int, c0: int, c1: int, width: int | None = None):
     """The stacked rows of columns ``[c0, c1)`` of a (..., 2r, ld) tensor as a
-    contiguous (..., 2 (c1 - c0), ld) copy; ``None`` stays ``None``."""
-    return None if t is None else t[..., _group_rows(r, c0, c1), :].contiguous()
+    contiguous (..., 2 width, ld) copy (``width`` defaults to ``c1 - c0``),
+    zero in the padding columns ``c1 - c0 .. width - 1``; ``None`` stays
+    ``None``."""
+    if t is None:
+        return None
+    k = c1 - c0
+    width = k if width is None else width
+    re, im = _group_rows(t, r, c0, c1)
+    if width == k:
+        return torch.cat([re, im], dim=-2)
+    padded = t.new_zeros(t.shape[:-2] + (2 * width, t.shape[-1]))
+    padded[..., :k, :] = re
+    padded[..., width : width + k, :] = im
+    return padded
+
+
+def _unpad(t: torch.Tensor, k: int) -> torch.Tensor:
+    """The first ``k`` columns of stacked rows (..., 2 width, ld)."""
+    width = t.shape[-2] // 2
+    return t if width == k else torch.cat(_group_rows(t, width, 0, k), dim=-2)
 
 
 def _join_rhs(parts: list) -> torch.Tensor:
@@ -455,9 +492,11 @@ def _join_rhs(parts: list) -> torch.Tensor:
     return torch.cat([re for re, _ in halves] + [im for _, im in halves], dim=-2)
 
 
-def in_rhs_groups(launch, r: int, rows: tuple, out=None):
-    """Run ``launch`` once per group of :func:`rhs_groups`, on each group's
-    rows of the (..., 2r, ld) tensors ``rows`` (``None`` passes as ``None``).
+def in_rhs_groups(launch, r: int, rows: tuple, out=None, width: int = MAX_RHS):
+    """Run ``launch`` once per group of :func:`rhs_groups` (``width`` columns
+    at most), on each group's rows of the (..., 2r, ld) tensors ``rows``
+    (``None`` passes as ``None``), padded with zero columns to the group's
+    :func:`launch_width`.
 
     Without ``out`` the groups' results, a tensor or a tuple of them, are
     joined back into 2r rows.  With ``out`` (a stack or a tuple of stacks,
@@ -467,21 +506,81 @@ def in_rhs_groups(launch, r: int, rows: tuple, out=None):
     single = isinstance(out, torch.Tensor)
     stacks = (out,) if single else out
     parts = []
-    for c0, c1 in rhs_groups(r):
-        args = [_rhs_rows(t, r, c0, c1) for t in rows]
+    for c0, c1 in rhs_groups(r, width):
+        k = c1 - c0
+        pad = launch_width(k)
+        args = [_rhs_rows(t, r, c0, c1, pad) for t in rows]
         if stacks is None:
-            parts.append(launch(*args))
+            got = launch(*args)
+            parts.append(tuple(_unpad(g, k) for g in got) if isinstance(got, tuple)
+                         else _unpad(got, k))
             continue
-        got = launch(*args, out=_rhs_rows(out, r, c0, c1) if single else
-                     tuple(_rhs_rows(t, r, c0, c1) for t in stacks))
+        got = launch(*args, out=_rhs_rows(out, r, c0, c1, pad) if single else
+                     tuple(_rhs_rows(t, r, c0, c1, pad) for t in stacks))
         for dst, src in zip(stacks, (got,) if single else got):
             if dst is not None:
-                dst[..., _group_rows(r, c0, c1), :] = src
+                re, im = _group_rows(dst, r, c0, c1)
+                re.copy_(src[..., :k, :])
+                im.copy_(src[..., pad : pad + k, :])
     if stacks is not None:
         return out
     if isinstance(parts[0], tuple):
         return tuple(_join_rhs(list(p)) for p in zip(*parts))
     return _join_rhs(parts)
+
+
+# ---------------------------------------------------------------------------
+# What a line kernel's block holds in shared memory (csrc/thomas_flow.cuh,
+# flow_smem_bytes and map_smem_bytes): the Python mirror that picks a launch
+# width from shapes alone
+# ---------------------------------------------------------------------------
+
+SMEM_PER_BLOCK = 232_448   # shared memory an H100 grants one block (opt-in)
+LINE_STAGES = 3            # stage buffers of the flag-handoff step (csrc: kStages)
+
+
+def _slice_rows(ld: int, split: int) -> int:
+    """Rows of the largest slice of a tile's input rows with ``split`` CTAs a
+    tile (csrc: slice_rows)."""
+    return LEAD_MULTIPLE * -(-(ld // LEAD_MULTIPLE) // split)
+
+
+def line_smem_bytes(ld: int, r: int, storage: str = "bf16", split: int = 1,
+                    inject: bool = False) -> int:
+    """Shared memory of one block of a line kernel on lines of ``ld`` lanes at
+    ``r`` right-hand sides with ``split`` CTAs a tile (``inject``: the fused
+    sweeps, which keep the trace rows beside the carry): the mbarriers, the
+    warps' sums, the carry rows (and trace rows), at r > 2 w and the band rows
+    of the slice, and the stage ring (plane runs and scales; at r <= 2 also
+    the band and right-hand rows)."""
+    cmax = _slice_rows(ld, split)
+    pitch = (512 if split == 1 else 256) // 32 + 4
+    red = 4 * 2 * (2 * r * LEAD_MULTIPLE) * pitch
+    prev = (2 if inject else 1) * 4 * 2 * r * (cmax + 16)
+    rows = 4 * (6 + 2 * r) * cmax            # the band and right-hand rows of the slice
+    scales = 4 * 2 * LEAD_MULTIPLE * n_scale_blocks(ld) if storage == "int8" else 0
+    stage = 2 * cmax * (8 if storage == "int8" else 16) + scales + (0 if r > 2 else rows)
+    return 64 + red + prev + (rows if r > 2 else 0) + LINE_STAGES * stage
+
+
+def line_fits(ld: int, r: int, storage: str = "bf16", inject: bool = False) -> bool:
+    """Whether a line kernel takes lines of ``ld`` lanes at ``r`` right-hand
+    sides: one CTA a tile (512 threads, 3 rows a thread) or two (256, 5)."""
+    return any(line_smem_bytes(ld, r, storage, split, inject) <= SMEM_PER_BLOCK
+               and _slice_rows(ld, split) <= groups * threads
+               for split, threads, groups in ((1, 512, 3), (2, 256, 5)))
+
+
+def line_width(fac, r: int) -> int:
+    """Right-hand sides of one launch for a batch of ``r`` on ``fac``'s
+    lines: the launch width of ``min(r, MAX_RHS)`` (``MAX_RHS_BANDED`` on
+    the banded+tail layout), halved while the line does not fit it (a line
+    that does not fit one right-hand side is refused at the launch)."""
+    cap = MAX_RHS_BANDED if isinstance(fac, BandedTailFactorization) else MAX_RHS
+    width = launch_width(min(r, cap))
+    while width > 1 and not line_fits(fac.ld, width, fac.storage):
+        width //= 2
+    return width
 
 
 # ---------------------------------------------------------------------------
@@ -724,8 +823,8 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     ``start``).  ``b4`` is (B, m, 2r, ld) f32 and batch row i uses slab
     ``s_idx[i]``.  Returns the full (B, m, 2r, ld) y stack, zero on lines
     ``< start``.  Dense layout only (the hybrid one has the cached pass), bf16
-    or int8.  On the card more than ``MAX_RHS`` right-hand sides run as
-    groups, one launch each."""
+    or int8.  On the card a batch that one launch does not take runs in
+    launches of :func:`line_width` columns (:func:`in_rhs_groups`)."""
     if not isinstance(fac, ThomasFactorization):
         raise ValueError("forward_substitution takes dense planes; the banded+tail "
                          "layout runs forward_substitution_cached")
@@ -734,8 +833,10 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
         raise ValueError(f"start={start} outside [0, {fac.m})")
     if not b4.is_cuda:
         return forward_substitution_plain(fac, s_idx, b4, start)
-    if r > MAX_RHS:
-        return in_rhs_groups(lambda b: forward_substitution(fac, s_idx, b, start), r, (b4,))
+    width = line_width(fac, r)
+    if width != r:
+        return in_rhs_groups(lambda b: forward_substitution(fac, s_idx, b, start), r, (b4,),
+                             width=width)
     fn = cuda_build.load("thomas_fwd")
     y4 = torch.empty_like(b4)
     if start:
@@ -819,15 +920,17 @@ def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
     ``>= start`` are written IN PLACE into those and lines ``< start`` keep
     what the caller put there (a resumed pass hands in a copy of the cached y
     stack); without ``out`` both stacks are new and zero on lines ``< start``.
-    On the card more than ``MAX_RHS`` right-hand sides run as groups, each on
-    copies of its rows of ``out`` that are written back."""
+    On the card a batch that one launch does not take runs in launches of
+    :func:`line_width` columns, each on copies of its rows of ``out`` that
+    are written back."""
     B, r, t_init, out = _cached_operands(fac, s_idx, b4, t_init, start, out)
     if not b4.is_cuda:
         return forward_substitution_cached_plain(fac, s_idx, b4, t_init, start, out)
-    if r > MAX_RHS:
+    width = line_width(fac, r)
+    if width != r:
         return in_rhs_groups(
             lambda b, t, out: forward_substitution_cached(fac, s_idx, b, t, start, out),
-            r, (b4, t_init), out)
+            r, (b4, t_init), out, width=width)
     fn = cuda_build.load("thomas_fwd_cached")
     pivots, layout = _pivot_args(fac)
     lines = fac.m - start                   # one exchange slot per line
@@ -855,12 +958,15 @@ def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
     bottom-up over the FULL (B, m, 2r, ld) y stack; ``0 < tail < m``
     materializes only the last ``tail`` lines.  Returns (B, m_eff, 2r, ld).
     Either layout (the hybrid one is the JAX package's ``_bwd_ht``).  On the
-    card more than ``MAX_RHS`` right-hand sides run as groups."""
+    card a batch that one launch does not take runs in launches of
+    :func:`line_width` columns."""
     B, r = _check_rows(fac, s_idx, y4)
     if not y4.is_cuda:
         return backward_substitution_plain(fac, s_idx, y4, tail)
-    if r > MAX_RHS:
-        return in_rhs_groups(lambda y: backward_substitution(fac, s_idx, y, tail), r, (y4,))
+    width = line_width(fac, r)
+    if width != r:
+        return in_rhs_groups(lambda y: backward_substitution(fac, s_idx, y, tail), r, (y4,),
+                             width=width)
     fn = cuda_build.load("thomas_bwd")
     m = fac.m
     m_eff = m if tail <= 0 or tail >= m else tail

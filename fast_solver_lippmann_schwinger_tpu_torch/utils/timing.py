@@ -21,6 +21,18 @@ from collections import OrderedDict
 import torch
 
 
+def _cuda_devices(tree) -> set:
+    """The CUDA devices of the tensors in ``tree``: a tensor, or a tuple,
+    list or dict of them, nested (the JAX package's pytrees)."""
+    if isinstance(tree, torch.Tensor):
+        return {tree.device} if tree.is_cuda else set()
+    if isinstance(tree, dict):
+        tree = tree.values()
+    elif not isinstance(tree, (tuple, list)):
+        return set()
+    return set().union(*(_cuda_devices(t) for t in tree))
+
+
 class PhaseTimer:
     """Collects wall-clock seconds per named phase and prints them as one
     JSON line to ``stream`` (``sys.stderr`` as it is when :meth:`log` runs,
@@ -34,11 +46,17 @@ class PhaseTimer:
         self.device = None if device is None else torch.device(device)
 
     @contextlib.contextmanager
-    def phase(self, name: str):
+    def phase(self, name: str, block_on=None):
+        """Time the block as phase ``name``.  Before the clock stops it waits
+        for the devices of ``block_on`` (a tensor, or a tuple, list or dict of
+        them, as the JAX package's ``block_until_ready``): each CUDA device a
+        tensor lies on is synchronised, host tensors need no wait."""
         t0 = time.perf_counter()
         try:
             yield
         finally:
+            for device in _cuda_devices(block_on):
+                torch.cuda.synchronize(device)
             if self.device is not None and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             self.durations[name] = self.durations.get(name, 0.0) + time.perf_counter() - t0

@@ -138,6 +138,23 @@ def test_main_without_cpu_needs_the_card(capsys):
         cli.main(FLAGS)
 
 
+def test_phase_timer_blocks_on_what_the_jax_method_takes():
+    """``PhaseTimer.phase(name, block_on=...)`` takes the JAX method's
+    argument: a tensor, or a tuple (list, dict) of them, nested, with other
+    leaves ignored; host tensors need no wait, and each phase is recorded,
+    repeats added up."""
+    timer = PhaseTimer(device="cpu")
+    x = torch.ones(8)
+    with timer.phase("one", block_on=x):
+        x = x * 2
+    with timer.phase("many", block_on=(x, [x, None], {"y": x, "n": 3})):
+        x = x + 1
+    with timer.phase("one", block_on=x):
+        pass
+    assert list(timer.durations) == ["one", "many"]
+    assert all(seconds >= 0.0 for seconds in timer.durations.values())
+
+
 def test_phase_timer_and_profiled(tmp_path, capsys):
     """``PhaseTimer`` adds up repeated phases and prints one JSON line on
     stderr; ``profiled`` writes a Chrome trace of its region, and without a

@@ -114,7 +114,7 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
 
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("start,carry", [(0, False), (0, True), (48, True)])
 @pytest.mark.parametrize("batch", [1, 16])
 def test_cached_forward_matches_plain(cuda_device, storage, r, start, carry, batch):
@@ -122,7 +122,7 @@ def test_cached_forward_matches_plain(cuda_device, storage, r, start, carry, bat
     planes (the banded+tail layout: test_hybrid_passes_match_plain): y and t
     stacks of a slab's 70 lines, a carry in (also at start = 0), lines above
     the start left alone; one CTA a tile, several tiles a CTA at 16 batch rows
-    picking slabs out of order; one launch per call (r = 3: two)."""
+    picking slabs out of order; one launch per call (r = 3 padded to four)."""
     rng = np.random.default_rng(1000 * batch + 10 * r + start + (storage == "int8"))
     m, n = 70, 300
     fac = (_random_factors if storage == "bf16" else _random_int8_factors)(rng, 2, m, n,
@@ -138,7 +138,7 @@ def test_cached_forward_matches_plain(cuda_device, storage, r, start, carry, bat
     before = tk.forward_substitution_cached.launches[storage]
     y4, t4 = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start, out=out)
     torch.cuda.synchronize()
-    assert tk.forward_substitution_cached.launches[storage] == before + len(tk.rhs_groups(r))
+    assert tk.forward_substitution_cached.launches[storage] == before + 1
     y_p, t_p = tk.forward_substitution_cached(
         cpu, s_idx.cpu(), b4.cpu(), None if t_init is None else t_init.cpu(), start=start)
     for got, want in ((y4, y_p), (t4, t_p)):
@@ -290,8 +290,21 @@ def _close(got, want):
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
 
 
+# the widest plane each launch width of the fused passes takes (the module
+# note of csrc/plane_pass.cuh, Limits)
+WIDEST_PLANE = {"bf16": ((3104, 8), (6352, 4), (12448, 2), (24928, 1)),
+                "int8": ((3072, 8), (6272, 4), (12288, 2), (24704, 1))}
+
+
+def _fused_launches(storage, ld, r):
+    """Fused launches a pass of r right-hand sides takes on planes of ld lanes:
+    one of the widest width that fits, per group of that many columns."""
+    width = next(w for limit, w in WIDEST_PLANE[storage] if ld <= limit)
+    return -(-r // min(r, width))
+
+
 @pytest.mark.parametrize("shape", [(5, 5, 7), (3, 48, 48), (3, 32, 96), (3, 1, 12448)])
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
 @pytest.mark.parametrize("start,carry,tail,collect", [(0, False, 0, True), (0, True, 2, False),
                                                       (2, True, 0, True), (2, False, 1, False)])
 def test_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, collect):
@@ -302,7 +315,8 @@ def test_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, col
     (mn = 12448: twelve tiles a CTA, a ring of four chunks), from a slab that
     is not the first of its stack, with and without the t stack; planes
     above ``start`` of caller-given stacks are left alone; one launch per
-    call."""
+    call, r = 4 and 8 on tensor cores (at mn = 12448, wider than they take,
+    in launches of two: plane_kernels.fused_width)."""
     rng = np.random.default_rng(r + 10 * start)
     l, m, n = shape
     view = _random_view(rng, l, m, n, cuda_device, slabs=2)
@@ -319,8 +333,10 @@ def test_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, col
     y4, t4 = pk.plane_forward(st, b4, view.lrows, n, view.base, start, t0, out=out)
     x4 = pk.plane_backward(st, y4, view.urows, n, view.base, start=tail and l - tail)
     torch.cuda.synchronize()
+    groups = len(tk.rhs_groups(r, pk.fused_width(st, r)))
+    assert groups == _fused_launches("bf16", ld, r)
     assert (pk.plane_forward.launches["bf16"], pk.plane_backward.launches["bf16"]) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + groups, before[1] + groups)
     y_p, t_p = pk.plane_forward(cpu.stack, b4.cpu(), cpu.lrows, n, cpu.base, start,
                                 None if t0 is None else t0.cpu())
     x_p = pk.plane_backward(cpu.stack, y4.cpu(), cpu.urows, n, cpu.base, start=tail and l - tail)
@@ -364,14 +380,15 @@ def test_polarized_head_and_tail_passes_match_plain(cuda_device, r):
 
 
 def test_wide_batches_run_grouped_fused_passes(cuda_device):
-    """A solve of four right-hand sides on a stack the fused passes take runs
-    two fused launches a pass (columns 0-1, then 2-3), no plane apply, and
-    agrees with the plain versions."""
+    """A solve of nine right-hand sides, more than a launch takes, on a stack
+    the fused passes take runs two fused launches a pass (columns 0-7, then
+    8 alone), no plane apply, and agrees with the plain versions."""
     rng = np.random.default_rng(7)
     l, m, n = 4, 6, 8
+    r = pk.MAX_RHS + 1
     view = _random_view(rng, l, m, n, cuda_device)
-    b = torch.as_tensor((rng.standard_normal((l * m * n, 4))
-                         + 1j * rng.standard_normal((l * m * n, 4))).astype(np.complex64),
+    b = torch.as_tensor((rng.standard_normal((l * m * n, r))
+                         + 1j * rng.standard_normal((l * m * n, r))).astype(np.complex64),
                         device=cuda_device)
     fns = (pk.plane_forward, pk.plane_backward, pk.plane_apply_rows)
     before = tuple(f.launches["bf16"] for f in fns)
@@ -381,10 +398,11 @@ def test_wide_batches_run_grouped_fused_passes(cuda_device):
     _close(x, direct.block_thomas_solve_3d(_view_to_cpu(view), b.cpu()))
 
 
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 3, 8])
 @pytest.mark.parametrize("mn", [35, 2304, 12456])
 def test_plane_apply_matches_plain(cuda_device, r, mn):
-    """One plane apply, also at a width the fused passes refuse at r = 2."""
+    """One plane apply, also at a width the fused passes refuse at r = 2; r = 3
+    (padded to four) and 8 in one launch on tensor cores."""
     rng = np.random.default_rng(mn + r)
     view = _random_view(rng, 1, 1, mn, cuda_device)
     rows = torch.as_tensor(rng.standard_normal((2 * r, view.stack.ld)).astype(np.float32),
@@ -433,12 +451,13 @@ def test_plane_kernels_never_call_plain_versions(cuda_device, monkeypatch):
 
 @pytest.mark.parametrize("entry", ["forward", "backward", "apply"])
 def test_plane_kernels_refuse_three_right_hand_sides(cuda_device, entry):
-    """Three right-hand sides, more than one launch takes, run as two launches
-    (two columns, then one) that agree with the plain version."""
+    """Nine right-hand sides, more than one launch takes (eight), run as two
+    launches (eight columns, then one) that agree with the plain version."""
     rng = np.random.default_rng(0)
     view = _random_view(rng, 2, 4, 5, cuda_device)
     cpu = _view_to_cpu(view)
-    b = rng.standard_normal((2, 3, 20)) + 1j * rng.standard_normal((2, 3, 20))
+    r = pk.MAX_RHS + 1
+    b = rng.standard_normal((2, r, 20)) + 1j * rng.standard_normal((2, r, 20))
     rows = pk._rows_of(torch.as_tensor(b.astype(np.complex64).transpose(0, 2, 1),
                                        device=cuda_device), view.stack.ld)
     runs = {"forward": lambda v, x: pk.plane_forward(v.stack, x, v.lrows, 5, start=1)[0],
@@ -493,7 +512,7 @@ def _int8_view_to_cpu(view):
 
 @pytest.mark.parametrize("shape", [(5, 5, 7), (3, 10, 30), (3, 32, 96), (3, 26, 128),
                                    (3, 1, 12288)])
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
 @pytest.mark.parametrize("start,carry,tail,collect", [(0, False, 0, True), (0, True, 2, False),
                                                       (2, True, 0, True), (2, False, 1, False)])
 def test_int8_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail, collect):
@@ -503,7 +522,7 @@ def test_int8_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail
     tiles: three or four a CTA) and the widest plane they take at r = 2
     (ld = 12288: eleven or twelve tiles a CTA), from the second slab of the
     stack, with and without the t stack; one launch per call, counted as
-    int8."""
+    int8 (r = 4 and 8 on tensor cores; at ld = 12288 in launches of two)."""
     rng = np.random.default_rng(r + 10 * start + shape[1])
     l, m, n = shape
     view = _random_int8_view(rng, l, m, n, cuda_device, slabs=2)
@@ -521,8 +540,10 @@ def test_int8_plane_passes_match_plain(cuda_device, shape, r, start, carry, tail
     y4, t4 = pk.plane_forward(st, b4, view.lrows, n, view.base, start, t0, out=out)
     x4 = pk.plane_backward(st, y4, view.urows, n, view.base, start=tail and l - tail)
     torch.cuda.synchronize()
+    groups = len(tk.rhs_groups(r, pk.fused_width(st, r)))
+    assert groups == _fused_launches("int8", ld, r)
     assert (pk.plane_forward.launches["int8"], pk.plane_backward.launches["int8"]) == (
-        before[0] + 1, before[1] + 1)
+        before[0] + groups, before[1] + groups)
     y_p, t_p = pk.plane_forward(cpu.stack, b4.cpu(), cpu.lrows, n, cpu.base, start,
                                 None if t0 is None else t0.cpu())
     x_p = pk.plane_backward(cpu.stack, y4.cpu(), cpu.urows, n, cpu.base, start=tail and l - tail)
@@ -568,11 +589,11 @@ def test_plane_passes_are_bit_identical_across_repeats(cuda_device, storage, m, 
             assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 3, 8])
 @pytest.mark.parametrize("mn", [35, 3072, 12300])
 def test_int8_plane_apply_matches_plain(cuda_device, r, mn):
     """One int8 plane apply, also at a width the fused int8 passes refuse at
-    r = 2 (ld = 12416 > 12288)."""
+    r = 2 (ld = 12416 > 12288); r = 3 (padded to four) and 8 in one launch."""
     rng = np.random.default_rng(mn + r)
     view = _random_int8_view(rng, 1, 1, mn, cuda_device)
     rows = torch.as_tensor(rng.standard_normal((2 * r, view.stack.ld)).astype(np.float32),
@@ -620,8 +641,8 @@ def test_int8_solve_branches_agree(cuda_device):
 def test_int8_wrappers_raise_instead_of_falling_back(cuda_device, entry, fault):
     """int8 planes the kernels cannot take raise before any launch: a width
     that is not a multiple of the 128-row scale blocks, scales of the wrong
-    shape; three right-hand sides run as two launches and reach no plain
-    version."""
+    shape; more right-hand sides than a launch takes (nine) run as two
+    launches and reach no plain version."""
     rng = np.random.default_rng(0)
     view = _random_int8_view(rng, 2, 4, 40, cuda_device)
     st, r = view.stack, 1
@@ -634,7 +655,7 @@ def test_int8_wrappers_raise_instead_of_falling_back(cuda_device, entry, fault):
     elif fault == "scales":
         st = dataclasses.replace(st, scale=st.scale[:, :, :, :1].contiguous())
     else:
-        r = 3
+        r = pk.MAX_RHS + 1
     rows = torch.zeros((2, 2 * r, st.ld), device=cuda_device)
     w = torch.zeros((2, 2, 9, st.ld), device=cuda_device)
     fn = {"forward": pk.plane_forward, "backward": pk.plane_backward,
@@ -726,7 +747,7 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail, batch):
     x4 = tk.backward_substitution(card, s_idx.to(cuda_device), y_p.to(cuda_device), tail=tail)
     torch.cuda.synchronize()
     # one launch each (a group each), counted as the hybrid layout's
-    groups = len(tk.rhs_groups(r))
+    groups = len(tk.rhs_groups(r, tk.MAX_RHS_BANDED))
     assert (fwd.launches, bwd.launches) == tuple(dict(b, ht=b["ht"] + groups) for b in before)
     for got, want in ((y4[:, start:], y_p[:, start:]), (t4[:, start:], t_p[:, start:]),
                       (x4, tk.backward_substitution(fac, s_idx, y_p, tail=tail))):
@@ -752,7 +773,7 @@ def test_fused_sweep_matches_plain(cuda_device, r):
     before = (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"])
     got = sweeps.gs_sweep(slabs, torch.as_tensor(b, device=cuda_device))
     torch.cuda.synchronize()
-    groups = len(tk.rhs_groups(r))
+    groups = len(tk.rhs_groups(r, tk.MAX_RHS_BANDED))
     assert (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"]) == (
         before[0] + groups, before[1] + groups, before[2])
     want = sweeps.gs_sweep(slabs_cpu, torch.as_tensor(b))
@@ -836,7 +857,8 @@ def test_banded_backward_matches_plain(banded, r, tail, batch):
     before = tk.backward_substitution.launches["ht"]
     x4 = tk.backward_substitution(fac, s_idx, y4, tail=tail)
     torch.cuda.synchronize()
-    assert tk.backward_substitution.launches["ht"] == before + len(tk.rhs_groups(r))
+    assert tk.backward_substitution.launches["ht"] == before + len(
+        tk.rhs_groups(r, tk.MAX_RHS_BANDED))
     want = tk.backward_substitution_ht_plain(fac, s_idx, y4, tail)
     assert x4.shape == want.shape == (batch, tail or fac.m, 2 * r, fac.ld)
     torch.testing.assert_close(x4, want, rtol=0, atol=TOL * float(want.abs().max()))
@@ -928,7 +950,8 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
     """The three passes on int8 planes (one scale block at n = 45; two full
     blocks and a partial one at n = 300): forward from a start, cached forward
     from a carry with its stacks written in place, backward full and
-    truncated; counted as int8 launches (r = 3: two launches each)."""
+    truncated; counted as int8 launches (r = 3: one launch each, padded to
+    four)."""
     rng = np.random.default_rng(n + r)
     m = 9
     fac = _random_int8_factors(rng, 2, m, n, cuda_device)
@@ -944,7 +967,7 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
     x4 = tk.backward_substitution(fac, s_idx, y4)
     x4t = tk.backward_substitution(fac, s_idx, y4, tail=3)
     torch.cuda.synchronize()
-    groups = len(tk.rhs_groups(r))
+    groups = len(tk.rhs_groups(r, tk.line_width(fac, r)))
     assert [f.launches for f in fns] == [
         dict(b, int8=b["int8"] + k * groups) for b, k in zip(before, (1, 1, 2))]
     s_cpu = s_idx.cpu()
@@ -957,12 +980,17 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
     assert bool((yc[:, :4] == 7.0).all()) and bool((tc[:, :4] == -7.0).all())
 
 
-# the longest lines whose stage buffers fit one CTA's shared memory at r = 2
-# on an H100, with two CTAs a tile: the flag-handoff passes, the cached forward
-# pass among them (half a line's rows in each of three stage buffers; the
-# grid-barrier step took 1704 and 2200), and the fused sweeps, which keep the
-# trace rows beside the carry (the grid-barrier step took about 1300)
-LONGEST_LINE = {"bf16": 1968, "int8": 2448}
+# the longest lines whose stage buffers fit one CTA's shared memory on an H100,
+# by storage and right-hand sides of a launch, with two CTAs a tile: the
+# flag-handoff passes, the cached forward pass among them (half a line's rows
+# in each of three stage buffers, with the band and 2r right-hand rows at
+# r <= 2, the plane runs only at r = 4 and 8, which keep w and the band rows
+# of the slice once; the grid-barrier step took 1704 and 2200 at r = 2; a
+# slice holds at most 1280 rows), and the fused sweeps, which keep the trace
+# rows beside the carry (the grid-barrier step took about 1300);
+# thomas_kernels.line_fits mirrors them
+LONGEST_LINE = {("bf16", 1): 2304, ("bf16", 2): 1968, ("bf16", 4): 2448, ("bf16", 8): 1760,
+                ("int8", 1): 2560, ("int8", 2): 2448, ("int8", 4): 2560, ("int8", 8): 2144}
 LONGEST_SWEEP_LINE = 1840
 
 
@@ -975,19 +1003,25 @@ def _zero_hybrid(length, device):
     return tk.BandedTailFactorization(head, head, tail, tail, bands, bands, length, 0)
 
 
-@pytest.mark.parametrize("entry,storage", [("backward", "bf16"), ("backward", "int8"),
-                                           ("forward_cached", "bf16"),
-                                           ("forward_cached", "int8"), ("sweep", "bf16"),
-                                           ("backward_ht", "bf16")])
-def test_longest_line_fits(cuda_device, entry, storage):
-    """The line-length limits of the module notes: the longest line launches
-    at r = 2, one lane group more is refused before a launch (the flag-handoff
-    step on two CTAs a tile: 3392 + 232 x rows a slice bytes in bf16, 3392 +
-    184 x rows + 192 x scale blocks in int8, of 232448; the fused sweeps 3648
-    + 248 x rows; the backward pass on banded+tail pivots, a step map without
-    the trace rows, as the cached forward pass)."""
-    n = LONGEST_SWEEP_LINE if entry == "sweep" else LONGEST_LINE[storage]
+@pytest.mark.parametrize("entry,storage,r", [
+    ("backward", "bf16", 2), ("backward", "int8", 2), ("forward_cached", "bf16", 2),
+    ("forward_cached", "int8", 2), ("sweep", "bf16", 2), ("backward_ht", "bf16", 2)] + [
+    (entry, storage, r) for entry in ("backward", "forward_cached")
+    for storage in ("bf16", "int8") for r in (1, 4, 8)])
+def test_longest_line_fits(cuda_device, entry, storage, r, monkeypatch):
+    """The line-length limits of the module notes, for each launch width: the
+    longest line launches once at r, one lane group more is refused before a
+    launch (the flag-handoff step on two CTAs a tile: 64 + the warps' sums +
+    the carry rows [+ w at r > 2] + three stage buffers, of 232448 bytes; the
+    fused sweeps with the trace rows beside the carry; the backward pass on
+    banded+tail pivots, a step map without the trace rows, as the cached
+    forward pass).  The Python mirror (thomas_kernels.line_fits) says the
+    same; a longer line would run in narrower launches, so the wrapper is
+    held to width r there: the kernel refuses it and the wrapper raises,
+    with no launch of another width."""
+    n = LONGEST_SWEEP_LINE if entry == "sweep" else LONGEST_LINE[storage, r]
     for length, fits in ((n, True), (n + tk.LEAD_MULTIPLE, False)):
+        assert tk.line_fits(length, r, storage, inject=entry == "sweep") == fits
         s_idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
         if entry == "sweep":
             fac = _zero_hybrid(length, cuda_device)
@@ -995,10 +1029,12 @@ def test_longest_line_fits(cuda_device, entry, storage):
             meta = torch.zeros((6, 2), dtype=torch.int32, device=cuda_device)
             cpl = torch.zeros((2, 2, 3, length), device=cuda_device)
             call = lambda: sk.sweep_down(fac, meta, rows, cpl, cpl, 1)[1]   # noqa: E731
+            fn, key = sk.sweep_down, None
         elif entry == "backward_ht":
             fac = _zero_hybrid(length, cuda_device)
             rows = torch.ones((1, 3, 4, length), device=cuda_device)
             call = lambda: tk.backward_substitution(fac, s_idx, rows)        # noqa: E731
+            fn, key = tk.backward_substitution, "ht"
         else:
             dtype = torch.bfloat16 if storage == "bf16" else torch.int8
             planes = torch.zeros((1, 1, length // 8, length, 8), dtype=dtype, device=cuda_device)
@@ -1006,16 +1042,24 @@ def test_longest_line_fits(cuda_device, entry, storage):
             scale = (None if storage == "bf16" else torch.ones(
                 (1, 1, length // 8, tk.n_scale_blocks(length), 2, 8), device=cuda_device))
             fac = tk.ThomasFactorization(planes, planes, bands, bands, length, scale=scale)
-            rows = torch.ones((1, 1, 4, length), device=cuda_device)
+            rows = torch.ones((1, 1, 2 * r, length), device=cuda_device)
             call = ((lambda: tk.backward_substitution(fac, s_idx, rows)) if entry == "backward"
                     else (lambda: tk.forward_substitution_cached(fac, s_idx, rows)[1]))
+            fn = (tk.backward_substitution if entry == "backward"
+                  else tk.forward_substitution_cached)
+            key = storage
+        before = fn.launches if key is None else fn.launches[key]
         if fits:
             x = call()
             torch.cuda.synchronize()
             assert not x.any()
+            assert (fn.launches if key is None else fn.launches[key]) == before + 1
         else:
+            monkeypatch.setattr(tk, "line_width", lambda fac, r: r)
             with pytest.raises(ValueError, match="too long"):
                 call()
+            monkeypatch.undo()
+            assert (fn.launches if key is None else fn.launches[key]) == before
 
 
 # ---------------------------------------------------------------------------
@@ -1028,7 +1072,7 @@ def _factors_of(storage, rng, S, m, n, device):
 
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("batch", [1, 16])
 @pytest.mark.parametrize("n", [801, 1700])
 def test_flow_passes_match_plain(cuda_device, storage, r, batch, n):
@@ -1037,7 +1081,8 @@ def test_flow_passes_match_plain(cuda_device, storage, r, batch, n):
     two groups; at 16 batch rows 1616 tiles, several a CTA, which share their
     carry and w) and on a line too long for one CTA (n = 1700: two CTAs a
     tile, the halves added by the consumer), batch rows picking slabs out of
-    order; r = 3 as two launches each."""
+    order; r = 3 (padded to four), 4 and 8 in one launch each (at n = 801 one
+    CTA a tile, at 1700 two)."""
     rng = np.random.default_rng(100 * batch + 10 * r + (storage == "int8") + n)
     S, m = 3, 6
     fac = _factors_of(storage, rng, S, m, n, cuda_device)
@@ -1051,7 +1096,8 @@ def test_flow_passes_match_plain(cuda_device, storage, r, batch, n):
     x4 = tk.backward_substitution(fac, s_idx, y4)
     x4t = tk.backward_substitution(fac, s_idx, y4, tail=3)
     torch.cuda.synchronize()
-    groups = len(tk.rhs_groups(r))
+    groups = len(tk.rhs_groups(r, tk.line_width(fac, r)))
+    assert groups == 1
     assert [f.launches[storage] for f in fns] == [before[0] + groups, before[1] + 2 * groups]
     s_cpu, y_cpu = s_idx.cpu(), y4.cpu()
     assert not y_cpu[:, :2].any()

@@ -242,12 +242,13 @@ def test_int8_wrappers_check_their_stack(int8):
     bf16 = pk.empty_plane_stack(1, MN, 1, "bf16", "cpu")
     with pytest.raises(ValueError, match="cannot be packed"):
         pk.pack_planes(bf16, 0, int8[2])
-    assert pk.fused_fits(st, 2) and not pk.fused_fits(st, 3)
+    assert pk.fused_fits(st, 8) and not pk.fused_fits(st, pk.MAX_RHS + 1)
 
 
 def test_fused_limits_of_int8_stacks():
     """The int8 ring carries its scales: 1 KB less room for the staged y_p
-    than bf16 (ld <= 12288 at r = 2, 24704 at r = 1, in steps of 128)."""
+    than bf16 (ld <= 12288 at r = 2, 24704 at r = 1, 6272 at r = 4 and 3072,
+    the 96^3 y-planes, at r = 8, in steps of 128)."""
     def stack(ld):
         return pk.PlaneStack(p_re=torch.empty((1, 1, ld, 8), dtype=torch.int8), p_im=None,
                              mn=ld, l1=1, scale=torch.empty(0))
@@ -255,3 +256,5 @@ def test_fused_limits_of_int8_stacks():
     assert pk.fused_fits(stack(3072), 1) and pk.fused_fits(stack(3072), 2)
     assert pk.fused_fits(stack(12288), 2) and not pk.fused_fits(stack(12416), 2)
     assert pk.fused_fits(stack(24576), 1) and not pk.fused_fits(stack(24832), 1)
+    assert pk.fused_fits(stack(6272), 4) and not pk.fused_fits(stack(6400), 4)
+    assert pk.fused_fits(stack(3072), 8) and not pk.fused_fits(stack(3200), 8)

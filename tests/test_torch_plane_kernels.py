@@ -90,7 +90,7 @@ def test_stack_layout(views):
     assert torch.equal(packed.p_im.view(torch.int16), tview.stack.p_im[:2].view(torch.int16))
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 8])
 @pytest.mark.parametrize("k", [0, L - 1])
 def test_plane_apply_matches(views, r, k):
     """Row 10: one plane apply, multi- and single-RHS."""
@@ -102,7 +102,7 @@ def test_plane_apply_matches(views, r, k):
     assert got.shape == y.shape and _relerr(got, want) < TOL
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 8])
 @pytest.mark.parametrize("start,with_t0", [(0, False), (0, True), (2, False), (3, True)])
 def test_forward_pass_matches(views, r, start, with_t0):
     """Row 11: the fused forward pass, from ``start`` with and without a
@@ -122,7 +122,7 @@ def test_forward_pass_matches(views, r, start, with_t0):
     assert none is None and torch.equal(y_only, ty)
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 8])
 @pytest.mark.parametrize("tail", [0, 2, L])
 def test_backward_pass_matches(views, r, tail):
     """Row 12: the fused backward pass, full and truncated to ``tail``."""
@@ -182,16 +182,16 @@ def test_base_indexes_a_slab_of_a_batched_stack(views):
         assert _relerr(direct.block_thomas_solve_3d(v, b), want) < TOL
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 8])
 @pytest.mark.parametrize("fused", [True, False])
 def test_scan_variants_match(views, r, fused):
     """Every entry point the sweeps use, through the port's view (fused or
     per-plane branch), against the JAX view: support (start/tail), cached +
-    resume, multi-RHS.  At r = 3 the fused branch runs groups of at most two
-    right-hand sides (``fused_fits`` takes no more in one launch)."""
+    resume, multi-RHS.  The fused branch takes every r here in one launch
+    (r = 3 padded to four: ``fused_width``)."""
     _, jview, tview = views
     view = dataclasses.replace(tview, fused=fused)
-    assert pk.fused_fits(tview.stack, r) == (r <= 2)
+    assert pk.fused_fits(tview.stack, r) and pk.fused_width(tview.stack, r) == tk.launch_width(r)
     rng = np.random.default_rng(11 + r)
     shape = (L * MN,) if r == 1 else (L * MN, r)
     b = _rand(rng, shape)
@@ -211,15 +211,28 @@ def test_scan_variants_match(views, r, fused):
 
 
 def test_fused_limits():
-    """The fused passes take r <= 2 and the widths whose staged y_p fits one
-    block's shared memory on an H100; 48^3 (mn = 2304) is well inside."""
-    def stack(ld):
-        return pk.PlaneStack(p_re=torch.empty((1, ld // 8, ld, 8)), p_im=None, mn=ld, l1=1)
+    """The fused passes take r <= 8 (a launch width of 1, 2, 4 or 8) and the
+    widths whose staged y_p fits one block's shared memory on an H100 beside
+    a ring of four slots; 48^3 (mn = 2304) and the 96^3 y-planes (3072) take
+    eight right-hand sides in bf16 and int8; a batch the stack does not take
+    at its width runs in launches of the widest that fits (``fused_width``)."""
+    def stack(ld, int8=False):
+        return pk.PlaneStack(p_re=torch.empty((1, ld // 8, ld, 8)), p_im=None, mn=ld, l1=1,
+                             scale=torch.ones(1) if int8 else None)
 
     assert pk.fused_fits(stack(2304), 1) and pk.fused_fits(stack(2304), 2)
     assert pk.fused_fits(stack(12448), 2) and not pk.fused_fits(stack(12456), 2)
     assert pk.fused_fits(stack(24928), 1) and not pk.fused_fits(stack(24936), 1)
-    assert not pk.fused_fits(stack(64), 3)
+    assert pk.fused_fits(stack(64), 3) and not pk.fused_fits(stack(64), 9)
+    for ld in (2304, 3072):
+        assert pk.fused_fits(stack(ld), 8) and pk.fused_fits(stack(ld, int8=True), 8)
+    assert pk.fused_fits(stack(3104), 8) and not pk.fused_fits(stack(3112), 8)
+    assert pk.fused_fits(stack(6352), 4) and not pk.fused_fits(stack(6360), 4)
+    assert not pk.fused_fits(stack(3200, int8=True), 8)
+    assert pk.fused_fits(stack(6272, int8=True), 4) and not pk.fused_fits(stack(6400, int8=True), 4)
+    assert [pk.fused_width(stack(12448), r) for r in (1, 2, 3, 8, 20)] == [1, 2, 2, 2, 2]
+    assert [pk.fused_width(stack(3072), r) for r in (1, 3, 5, 8, 20)] == [1, 4, 8, 8, 8]
+    assert pk.fused_width(stack(24936), 1) == 0
 
 
 @pytest.mark.parametrize("r", [1, 2])

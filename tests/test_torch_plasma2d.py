@@ -71,9 +71,9 @@ def test_solve_matches(problems, direction):
 
 
 def test_solve_batched_three_directions(problems):
-    """More directions than a substitution launch takes (two on the card,
-    where the wrappers run them in groups): the joint solve of three against
-    the JAX package's ``gmres_batched``."""
+    """Three directions, which a substitution launch on the card takes padded
+    to four (the launch widths are 1, 2, 4 and 8): the joint solve of three
+    against the JAX package's ``gmres_batched``."""
     _, jp, tp, tol = problems
     dirs = DIRS + ((0.6, 0.8),)
     jX, jinfo = jplasma2d.solve_batched(jp, dirs, **SOLVE)
@@ -224,7 +224,7 @@ PARALLEL_FUNCTIONS = [
                                   "api.build_problem", "api.solve_problem",
                                   "api.solve_problem_batched", "save_field", "config_key",
                                   "build_sparse_a_2d", "factor_stencil_2d_batched",
-                                  "block_thomas_solve_batched"]
+                                  "block_thomas_solve_batched", "PhaseTimer.phase"]
                          + [f"cache_dir:{b}" for b in CACHE_FUNCTIONS]
                          + [f"parallel:{m}.{f}" for m, f in PARALLEL_FUNCTIONS])
 def test_signatures_match_the_jax_package(name):
@@ -303,6 +303,7 @@ def test_signatures_match_the_jax_package(name):
         "build_sparse_a_2d": (pair("sparse.stencils", "build_sparse_a_2d"), ["device"]),
         "factor_stencil_2d_batched": (pair("sparse.direct", "factor_stencil_2d_batched"), []),
         "block_thomas_solve_batched": (pair("sparse.direct", "block_thomas_solve_batched"), []),
+        "PhaseTimer.phase": (tuple(c.phase for c in pair("utils.timing", "PhaseTimer")), []),
     }[name]
     ours = list(inspect.signature(ours).parameters.values())
     theirs = list(inspect.signature(theirs).parameters.values())

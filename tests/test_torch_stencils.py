@@ -136,6 +136,39 @@ def test_msp_matches_on_carried_over_fields(fields):
     np.testing.assert_allclose(tmsp.values.numpy(), np.asarray(jmsp.values), rtol=1e-13, atol=1e-13)
 
 
+@pytest.fixture(scope="module")
+def annihilator_h40():
+    """The port's complex128 annihilator field at h = 1/40, as numpy values."""
+    grid = Grid2D(a=1.0, h=1.0 / 40.0)
+    a = stencils.build_sparse_a_2d(1.0 / grid.h, grid.x, grid.y, grid.h,
+                                   dtype=torch.complex128, device="cpu")
+    return a.values.numpy()
+
+
+def test_to_coo_matches_the_jax_triplets(annihilator_h40):
+    """``StencilMatrix2D.to_coo`` against the JAX package's on the h = 1/40
+    annihilator, both matrices built from the same values (so the
+    annihilator's phase plays no part): the same indices, values within
+    1e-12 in complex128, and scipy's COO matrix of the triplets times a
+    random vector is the matvec."""
+    import scipy.sparse as sp
+
+    v = annihilator_h40
+    ts = StencilMatrix2D(values=torch.as_tensor(v))
+    rows, cols, vals = ts.to_coo()
+    jrows, jcols, jvals = JStencilMatrix2D(values=jnp.asarray(v)).to_coo()
+    for got, want in ((rows, jrows), (cols, jcols)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert isinstance(vals, np.ndarray) and vals.dtype == np.complex128
+    np.testing.assert_allclose(vals, np.asarray(jvals), rtol=0, atol=1e-12)
+    size = v.shape[0] * v.shape[1]
+    assert len(rows) == 9 * size - 6 * (v.shape[0] + v.shape[1]) + 4   # taps inside the grid
+    u = _rand(np.random.default_rng(4), (size,))
+    coo = sp.coo_matrix((vals, (rows, cols)), shape=(size, size))
+    np.testing.assert_allclose(coo @ u, ts.matvec(torch.as_tensor(u)).numpy(), rtol=1e-12,
+                               atol=1e-12 * np.abs(v).max())
+
+
 def test_unported_options_raise(tmp_path):
     """``conv_op=`` sampling is ported (``tests/test_torch_stencils3d.py``);
     ``cache_dir``, once unported, checkpoints the host fields: a second build

@@ -180,6 +180,29 @@ def test_conv_op_branch_in_2d():
         np.testing.assert_allclose(ph * t.values.numpy(), j, rtol=0, atol=1e-8 * np.abs(j).max())
 
 
+def test_to_coo_matches_the_jax_triplets(fields):
+    """``StencilMatrix3D.to_coo`` against the JAX package's on the h = 1/10
+    annihilator (the port's field, so that the annihilator's phase plays no
+    part, in both packages' matrices): the same indices, values within 1e-12
+    in complex128, and scipy's COO matrix of the triplets times a random
+    vector is the matvec."""
+    import scipy.sparse as sp
+
+    ta = fields[-1][0]
+    v = ta.values.numpy()
+    rows, cols, vals = ta.to_coo()
+    jrows, jcols, jvals = JStencilMatrix3D(values=jnp.asarray(v)).to_coo()
+    for got, want in ((rows, jrows), (cols, jcols)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert isinstance(vals, np.ndarray) and vals.dtype == np.complex128
+    np.testing.assert_allclose(vals, np.asarray(jvals), rtol=0, atol=1e-12)
+    size = v.shape[0] * v.shape[1] * v.shape[2]
+    u = _rand(np.random.default_rng(5), (size,))
+    coo = sp.coo_matrix((vals, (rows, cols)), shape=(size, size))
+    np.testing.assert_allclose(coo @ u, ta.matvec(torch.as_tensor(u)).numpy(), rtol=1e-12,
+                               atol=1e-12 * np.abs(v).max())
+
+
 def test_unported_options_raise_3d(fields, tmp_path):
     """``cache_dir``, once unported, checkpoints the 3D fields: a first build
     writes what the uncached one computes, a second loads it bit-identically."""

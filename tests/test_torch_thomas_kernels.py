@@ -84,7 +84,7 @@ def test_layout_is_bit_equal(factors):
                        built.cinv_t_re[0].view(torch.int16))
 
 
-@pytest.mark.parametrize("r", [None, 1, 2, 5])
+@pytest.mark.parametrize("r", [None, 1, 2, 5, 8])
 @pytest.mark.parametrize("start,tail", [(0, 0), (2, 0), (0, 3), (2, 2)])
 def test_solve_all_matches_interpret_kernels(factors, r, start, tail):
     """Same factors, same f32 arithmetic; only the summation order differs:
@@ -103,7 +103,7 @@ def test_solve_all_matches_interpret_kernels(factors, r, start, tail):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 8])
 def test_passes_match_interpret_kernels(factors, r):
     """The forward and the backward wrapper separately, on the row layout."""
     S, _, jpf, _ = factors
@@ -202,7 +202,8 @@ def _slice_rows(ld, split):
     return 8 * -(-(ld // 8) // split)
 
 
-@pytest.mark.parametrize("n,r,tt", [(801, 1, 22), (801, 2, 22), (1300, 2, 8), (45, 1, 5)])
+@pytest.mark.parametrize("n,r,tt", [(801, 1, 22), (801, 2, 22), (1300, 2, 8), (45, 1, 5),
+                                    (801, 8, 22)])
 def test_step_maps_get_a_slot_per_step_and_private_lines(n, r, tt):
     """The cached forward pass and the fused sweeps (``run_flow``) take one
     exchange slot per line step, so that no slot is written twice in a launch:
@@ -262,17 +263,20 @@ def test_banded_backward_takes_a_slot_per_line_step(batch, tail):
     assert again is words and epoch == 1 + m_eff + m
 
 
+@pytest.mark.parametrize("r,width", [(5, 2), (5, 8), (8, 8), (11, 8), (8, 4)])
 @pytest.mark.parametrize("case", ["rows", "tuple", "out", "one_stack"])
-def test_rhs_groups_give_what_one_call_gives(factors, case):
-    """``in_rhs_groups``, which runs r > MAX_RHS on the card as one launch a
-    group, here with the CPU passes as launches at r = 5: the groups' rows
+def test_rhs_groups_give_what_one_call_gives(factors, case, r, width):
+    """``in_rhs_groups``, which runs a batch on the card as one launch a
+    group of at most ``width`` columns, each padded with zero columns to a
+    launch width (r = 5 as one launch of eight, r = 11 as eight and three
+    padded to four), here with the CPU passes as launches: the groups' rows
     joined (``rows``), a tuple of stacks joined with a ``None`` operand
     passed through (``tuple``), stacks written back in place with the lines
     before ``start`` kept (``out``), and one stack written back
-    (``one_stack``), each equal to one call on all columns."""
+    (``one_stack``), each equal to one call on all columns; every launch
+    sees a launch width of rows."""
     S, _, _, tf = factors
     pf = tk.build_thomas_factorization(tf)
-    r = 5
     rng = np.random.default_rng(r)
     s = torch.arange(S, dtype=torch.int32)
     b4 = torch.zeros((S, M, 2 * r, pf.ld))
@@ -282,28 +286,40 @@ def test_rhs_groups_give_what_one_call_gives(factors, case):
     def stacks():
         return torch.full_like(b4, 7.0), torch.full_like(b4, -7.0)
 
+    widths = []
+
+    def seen(b):
+        widths.append(b.shape[-2] // 2)
+        return b
+
     if case == "rows":
-        got = tk.in_rhs_groups(lambda b: tk.forward_substitution(pf, s, b, 1), r, (b4,))
+        got = tk.in_rhs_groups(lambda b: tk.forward_substitution(pf, s, seen(b), 1), r, (b4,),
+                               width=width)
         want = (tk.forward_substitution(pf, s, b4, 1),)
         got = (got,)
     elif case == "tuple":
-        got = tk.in_rhs_groups(lambda b, t: tk.forward_substitution_cached(pf, s, b, t, 2),
-                               r, (b4, None))
+        got = tk.in_rhs_groups(
+            lambda b, t: tk.forward_substitution_cached(pf, s, seen(b), t, 2), r, (b4, None),
+            width=width)
         want = tk.forward_substitution_cached(pf, s, b4, None, 2)
     elif case == "out":
         out = stacks()
         got = tk.in_rhs_groups(
-            lambda b, t, out: tk.forward_substitution_cached(pf, s, b, t, 2, out),
-            r, (b4, t0), out)
+            lambda b, t, out: tk.forward_substitution_cached(pf, s, seen(b), t, 2, out),
+            r, (b4, t0), out, width=width)
         assert got is out
         want = tk.forward_substitution_cached(pf, s, b4, t0, 2, stacks())
         assert bool((got[0][:, :2] == 7.0).all()) and bool((got[1][:, :2] == -7.0).all())
     else:
         out = torch.empty_like(b4)
-        got = tk.in_rhs_groups(lambda y, out: out.copy_(tk.backward_substitution(pf, s, y)),
-                               r, (b4,), out)
+        got = tk.in_rhs_groups(
+            lambda y, out: out.copy_(tk.backward_substitution(pf, s, seen(y))), r, (b4,), out,
+            width=width)
         assert got is out
         got, want = (got,), (tk.backward_substitution(pf, s, b4),)
+    groups = tk.rhs_groups(r, width)
+    assert widths == [tk.launch_width(c1 - c0) for c0, c1 in groups]
+    assert all(w in tk.LAUNCH_WIDTHS for w in widths)
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -361,7 +377,7 @@ def _near(got, want, what=""):
     np.testing.assert_allclose(got, want, rtol=0, atol=1e-5 * np.abs(want).max(), err_msg=what)
 
 
-@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("r", [None, 2, 8])
 @pytest.mark.parametrize("tail", [0, 5, M3])
 def test_solve_matches_interpret_kernels(slab_factors, r, tail):
     jpf, pf = slab_factors
@@ -374,7 +390,7 @@ def test_solve_matches_interpret_kernels(slab_factors, r, tail):
     _near(tk.solve(pf, torch.tensor(2), torch.as_tensor(b), tail=tail), want)
 
 
-@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("r", [None, 2, 8])
 @pytest.mark.parametrize("start,tail", [(0, 0), (3, 0), (3, 5), (M3 - 1, 0), (M3, 4)])
 def test_solve_support_matches_interpret_kernels(slab_factors, r, start, tail):
     jpf, pf = slab_factors
@@ -385,7 +401,7 @@ def test_solve_support_matches_interpret_kernels(slab_factors, r, start, tail):
     _near(tk.solve_support(pf, 1, torch.as_tensor(b), start=start, tail=tail), want)
 
 
-@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("r", [None, 2, 8])
 @pytest.mark.parametrize("tail", [0, 5])
 def test_solve_cached_matches_interpret_kernels(slab_factors, r, tail):
     """x and both caches; the caches are compared on the true lanes."""
@@ -401,7 +417,7 @@ def test_solve_cached_matches_interpret_kernels(slab_factors, r, tail):
     assert not y[..., N3:].any() and not t[..., N3:].any()
 
 
-@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("r", [None, 2, 8])
 @pytest.mark.parametrize("resume", [0, 1, 4, M3 - 1, M3])
 def test_solve_resume_matches_interpret_kernels(slab_factors, r, resume):
     """The resumed solve against the JAX package's, and against a full solve
@@ -423,7 +439,7 @@ def test_solve_resume_matches_interpret_kernels(slab_factors, r, resume):
     assert torch.equal(y, y0) and torch.equal(t, t0)
 
 
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 8])
 def test_cached_forward_pass_starts_from_a_carry_and_owns_its_lines_only(slab_factors, r):
     """``start = 0`` with a non-zero ``t_init``, and a later start writing in
     place into the caller's stacks: against the JAX package's ``_fwd_bt``."""

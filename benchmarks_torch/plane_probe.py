@@ -1,31 +1,44 @@
-"""Time the plane kernels of the 3D solves alone, on random planes: the fused
-passes on the flag-handoff plane step against the grid-barrier step they
-replace, in turns in one process.
+"""Time the plane kernels of the 3D solves alone, on random planes, for one
+checkout of the package: the fused passes on the flag-handoff plane step
+against the grid-barrier step they replace (r = 1, 2), in turns in one
+process, and the wide launches (r = 4, 8) alone.
 
     python3 benchmarks_torch/plane_probe.py                    # bf16 and int8 planes
     python3 benchmarks_torch/plane_probe.py --storage int8     # one storage
+    python3 benchmarks_torch/plane_probe.py --r 4,8 [--tree DIR] [--tag NAME]
+                                                               # wide launches
+
+``--tree`` is the root of the checkout whose package is timed (default: the
+one that holds this script); its kernels are built under its own
+``build/``.  To compare a change with its parent on one card, unpack the
+parent into a git-ignored directory and run this script once per tree, in
+turns (parent, change, change, parent), in one call: the inputs come from
+one seed, so each run sees the same planes and right-hand sides.
 
 Needs one CUDA card and nvcc.  Besides the package's build it builds
 ``csrc/plane_fwd.cu``, ``plane_bwd.cu`` and ``plane_apply.cu`` again into
 ``build/plane_probe/old/`` with ``-DPLANE_OLD_STEP=1`` (the grid-barrier
 step the passes ran before; the plane apply is the same kernel in both
-builds), and ``plane_fwd.cu`` once per ablation mask into
-``build/plane_probe/ablate<mask>/`` with ``-DPLANE_ABLATE=<mask>``, all at
-once.
-Prints one JSON line per measurement:
+builds), and ``plane_fwd.cu`` and ``plane_apply.cu`` once per ablation mask
+into ``build/plane_probe/ablate<mask>/`` with ``-DPLANE_ABLATE=<mask>``, all
+at once.
+Prints one JSON line per measurement, with ``--tree`` and ``--tag``:
 
-* the forward and backward passes at l = 48 planes, r = 1 and 2, in the
-  turns old, new, new, old, and the plane apply (old, new, new, old,
-  twice): microseconds a plane step, the new step's output against the old
-  step's, and each build's share of the byte bound (two planes, and int8
-  scales, over 3.35 TB/s); the plane apply's device time from CUDA graphs
-  of 200 calls.  bf16: plane widths mn = 2112, 2304 (the 48^3 solve) and
+* the forward and backward passes at l = 48 planes, for each r of ``--r``
+  (default 1 and 2), in the turns old, new, new, old (r = 1, 2; new alone
+  at 4, 8), and the plane apply (the same turns, twice): microseconds a
+  plane step, the new step's output against the old step's, and each
+  build's share of the byte bound (two planes, and int8 scales, over
+  3.35 TB/s); the plane apply's device time from CUDA graphs of 200 calls.
+  bf16: plane widths mn = 2112, 2304 (the 48^3 solve) and
   2640: 264, 288 and 330 tiles of 8 output lanes on the 132 SMs (at most
   two, three and three tiles a CTA).  int8: mn = 2816, 3072 (the y-planes of
   the 96^3 sweep) and 3328, 352, 384 and 416 tiles (at most three, three and
   four a CTA), each step half the bytes of a bf16 step of the same width;
-* where a plane step of the new forward pass spends its time, by ablation
-  (at 2304 in bf16, 3072 in int8): each mask leaves phases out (see
+* where a plane step of the new forward pass, and a plane apply, spend
+  their time at each r, by ablation (at 2304 in bf16, 3072 in int8; the
+  apply has no handoff, so only the masks without flag waits or stencil
+  apply to it): each mask leaves phases out (see
   ``csrc/plane_pass.cuh``: no flag waits, no stencil, no pivot stream, no y
   staging, no products); the results are then wrong, only the time is read.
 """
@@ -38,7 +51,16 @@ from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+ARGS.add_argument("--storage", choices=("bf16", "int8"), default=None,
+                  help="one plane storage (default: both)")
+ARGS.add_argument("--r", default="1,2",
+                  help="right-hand sides a launch, comma-separated, of 1, 2, 4 and 8")
+ARGS.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]),
+                  help="root of the checkout whose package is timed")
+ARGS.add_argument("--tag", default="")
+OPTS = ARGS.parse_args()
+ROOT = Path(OPTS.tree).resolve()
 sys.path.insert(0, str(ROOT))
 
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build  # noqa: E402
@@ -72,10 +94,11 @@ WIDTHS = {"bf16": ((2112, 2304, 2640), 2304), "int8": ((2816, 3072, 3328), 3072)
 
 def build_steps() -> dict:
     """name -> {source: launcher}: the package's build ("new"), the old step
-    and the ablation masks of the new forward pass, all built at once."""
+    and the ablation masks of the new forward pass and plane apply, all built
+    at once."""
     cuda_build.build_kernels(list(SOURCES))
     variants = {"old": ({"PLANE_OLD_STEP": 1}, SOURCES)}
-    variants.update({f"ablate{mask}": ({"PLANE_ABLATE": mask}, ("plane_fwd",))
+    variants.update({f"ablate{mask}": ({"PLANE_ABLATE": mask}, ("plane_fwd", "plane_apply"))
                      for _, mask in CASES if mask})
     dirs = {name: ROOT / "build" / "plane_probe" / name for name in variants}
     with ThreadPoolExecutor(len(variants)) as pool:     # each build is one nvcc
@@ -162,15 +185,20 @@ def random_view(g, mn: int, dev, storage: str) -> pk.PlaneSlabView:
                             usten=sten)
 
 
+def emit(rec: dict):
+    print(json.dumps(dict(rec, tree=str(ROOT), tag=OPTS.tag)), flush=True)
+
+
 def rel_err(a, ref):
     return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
 
 
-def passes(steps, view, g, dev):
+def passes(steps, view, g, dev, rs):
     st, ld, n = view.stack, view.stack.ld, view.lsten.shape[2]
     bound_us = 1e6 * (st.nbytes // st.n_planes) / PEAK_BYTES_PER_S    # one plane's bytes
-    order = ("old", "new", "new", "old")
-    for r in (1, 2):
+    for r in rs:
+        other = "old" if r <= 2 else None        # the grid-barrier step takes r <= 2
+        order = (other, "new", "new", other) if other else ("new", "new")
         b4 = torch.randn((L, 2 * r, ld), generator=g, device=dev)
         b4[..., st.mn:] = 0
         y4 = pk.plane_forward(st, b4, view.lrows, n)[0]
@@ -180,51 +208,58 @@ def passes(steps, view, g, dev):
             apply=(lambda: pk.plane_apply_rows(st, 0, b4[0]), 1),
         )
         for kernel, (fn, planes) in runs.items():
-            ms, turns, outs = in_turns(steps, fn, order if planes > 1 else ("old", "new"), 10)
+            ms, turns, outs = in_turns(steps, fn, order, 10)
             if planes == 1:
-                # the plane apply, the same kernel in every build: device time
-                # from CUDA graphs, old and new in turns twice
-                ms, turns = graph_turns(steps, fn, ("old", "new", "new", "old") * 2)
+                # the plane apply (the same kernel in the old build): device
+                # time from CUDA graphs, in turns twice
+                ms, turns = graph_turns(steps, fn, order * 2)
             us = {name: 1e3 * v / planes for name, v in ms.items()}
-            print(json.dumps(dict(
-                kernel=kernel, storage=st.storage, mn=st.mn, tiles=ld // 8, r=r, planes=planes,
-                old_us_per_plane=us["old"], new_us_per_plane=us["new"],
-                new_over_old=us["new"] / us["old"], bound_us_per_plane=bound_us,
-                share_of_bound={name: bound_us / v for name, v in us.items()},
-                turns_ms={name: t for name, t in turns.items()},
-                new_vs_old_rel_err=max(rel_err(a, b) for a, b in zip(outs["new"], outs["old"])),
-            )), flush=True)
+            rec = dict(kernel=kernel, storage=st.storage, mn=st.mn, tiles=ld // 8, r=r,
+                       planes=planes, new_us_per_plane=us["new"], bound_us_per_plane=bound_us,
+                       share_of_bound={name: bound_us / v for name, v in us.items()},
+                       turns_ms={name: t for name, t in turns.items()})
+            if other:
+                rec.update({f"{other}_us_per_plane": us[other],
+                            f"new_over_{other}": us["new"] / us[other],
+                            f"new_vs_{other}_rel_err": max(
+                                rel_err(a, b) for a, b in zip(outs["new"], outs[other]))})
+            emit(rec)
 
 
-def ablation(steps, view, g, dev):
+def ablation(steps, view, g, dev, rs):
     st, ld, n = view.stack, view.stack.ld, view.lsten.shape[2]
-    for r in (1, 2):
+    for r in rs:
         b4 = torch.randn((L, 2 * r, ld), generator=g, device=dev)
-        row = {}
+        row, apply_row = {}, {}
         for name, mask in CASES:
             use(steps, f"ablate{mask}")
             row[name] = 1e3 * time_ms(lambda: pk.plane_forward(st, b4, view.lrows, n), 10) / L
+            if not mask & (NO_WAIT | NO_STENCIL):       # the apply has no handoff
+                apply_row[name] = 1e3 * graph_turns(
+                    steps, lambda: pk.plane_apply_rows(st, 0, b4[0]), (f"ablate{mask}",))[0][
+                        f"ablate{mask}"]
         use(steps, "new")
-        print(json.dumps(dict(ablation_us_per_plane=row, kernel="forward", storage=st.storage,
-                              r=r, mn=st.mn)), flush=True)
+        emit(dict(ablation_us_per_plane=row, kernel="forward", storage=st.storage, r=r,
+                  mn=st.mn))
+        emit(dict(ablation_us_per_plane=apply_row, kernel="apply", storage=st.storage, r=r,
+                  mn=st.mn))
 
 
 def main():
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--storage", choices=sorted(WIDTHS), default=None,
-                    help="one plane storage (default: both)")
-    args = ap.parse_args()
+    rs = [int(v) for v in OPTS.r.split(",")]
+    if any(r not in tk.LAUNCH_WIDTHS for r in rs):
+        ARGS.error(f"--r takes {tk.LAUNCH_WIDTHS}")
     dev = torch.device("cuda", 0)
     print(card_name_and_power_limit(), flush=True)
     steps = build_steps()
     g = torch.Generator(device=dev).manual_seed(0)
-    for storage in [args.storage] if args.storage else sorted(WIDTHS):
+    for storage in [OPTS.storage] if OPTS.storage else sorted(WIDTHS):
         widths, ablated = WIDTHS[storage]
         for mn in widths:
             view = random_view(g, mn, dev, storage)
-            passes(steps, view, g, dev)
+            passes(steps, view, g, dev, rs)
             if mn == ablated:
-                ablation(steps, view, g, dev)
+                ablation(steps, view, g, dev, rs)
             del view
             torch.cuda.empty_cache()
 

@@ -3,7 +3,7 @@ right-hand sides, and the dense line and plane passes of their paths at
 r = 1, 2 and 8 on the solves' own planes, for one checkout of the package.
 
     python3 benchmarks_torch/wide_rhs_probe.py [--tree DIR] [--paths a,b,b8,c,d]
-                                               [--repeats 3] [--tag NAME]
+                                               [--repeats 3] [--tag NAME] [--device-time]
 
 ``--tree`` is the root of the checkout whose package is timed (default: the
 one that holds this script).  To compare a change with its parent on one
@@ -21,7 +21,10 @@ setup, then the solve of one plane wave, the joint solve of two and of eight
 (``plasma2d.solve_batched``; in 3D ``gmres_batched`` over the
 preconditioner's ``apply_batch``), each after a warm-up, the median of
 ``--repeats`` by CUDA events, with ms per direction, iterations and the
-launches of each substitution wrapper in the R = 8 solve; then the path's
+launches of each substitution wrapper in the R = 8 solve (``--device-time``:
+also the device time of one more solve at each R, the sum of its kernels'
+times under torch.profiler, so that a solve whose wall time moves between
+runs can be told host from device); then the path's
 passes (one slab's lines or planes) at r = 1, 2 and 8 on the solve's own
 planes and right-hand sides (As b of the plane waves), the mean of 20
 back-to-back launches.  On a tree whose launches take at most two right-hand
@@ -44,6 +47,7 @@ ARGS.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ARGS.add_argument("--paths", default="a,b,b8,c,d")
 ARGS.add_argument("--repeats", type=int, default=3)
 ARGS.add_argument("--tag", default="")
+ARGS.add_argument("--device-time", action="store_true")
 OPTS = ARGS.parse_args()
 sys.path.insert(0, str(Path(OPTS.tree).resolve()))
 
@@ -96,6 +100,20 @@ def mean_ms(fn, launches: int = 20) -> float:
     return start.elapsed_time(end) / launches
 
 
+def device_ms(fn) -> float:
+    """Device milliseconds of one ``fn()``: the sum of its kernels' times
+    under torch.profiler (after a warm-up)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if e.device_type.name == "CUDA") / 1e3
+
+
 def joint_solves(solve, repeats: int) -> dict:
     """ms, ms per direction and iterations of the joint solves of 1, 2 and 8
     directions, and the launches of the 8-direction one."""
@@ -112,6 +130,8 @@ def joint_solves(solve, repeats: int) -> dict:
             out[width]["launches_per_solve"] = {
                 name: {k: (after[name][k] - before[name][k]) / (repeats + 1) for k in after[name]}
                 for name in after}
+        if OPTS.device_time:
+            out[width]["device_ms"] = device_ms(lambda: solve(width))
     return out
 
 

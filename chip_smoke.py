@@ -2376,15 +2376,18 @@ def int8_pass_bound(lines: int, n: int, ld: int, r: int, stacks: int, batch: int
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict) -> list:
+def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict,
+                            wide_counts: dict) -> list:
     """Each int8 kernel on the solve's own planes and right-hand sides: at one
     inner slab among 16 (m = 70), the cached forward pass in full and resumed
     at ``m - trace_tail``, the backward pass in full and truncated to
     ``trace_tail``, r = 1 (``int8_sweep_solve``) and r = 2
     (``int8_sweep_solve_batched``); then the forward and backward passes at
     one batch row per slab (``jacobi_sweep``'s solves of all slabs), r = 1
-    and 2.  The library yardstick is the bf16 ``torch.matmul`` of the same
-    rows with planes of the same shape."""
+    and 2, and the forward pass there at r = 3, 4 and 8, its launches read
+    from ``int8_sweep_wide``'s R = 8 joint solve (``wide_counts``).  The
+    library yardstick is the bf16 ``torch.matmul`` of the same rows with
+    planes of the same shape."""
     pc = problem.precond
     slabs = pc.slabs
     fac = slabs.pfac
@@ -2463,6 +2466,21 @@ def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict) -> 
                          lambda: tk.backward_substitution_plain(fac, fac.slab_ids, yall),
                          bound, lib_all, shape_all),
         ]
+    # the forward pass at r = 3, 4 and 8 (one launch each) on the same 16
+    # batch rows, As b of the first r wide directions
+    for r in WIDE_RS:
+        rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS[:r]))
+        b4s = tk._to_rows_b(fac, subdomain.partition_source(slabs, pc.a_s.matvec(
+            rhs.T.contiguous())))
+        entry = kernel_entry(
+            "thomas_forward_int8", r, "int8_sweep_wide", wide_counts["thomas_forward_int8"],
+            lambda: tk.forward_substitution(fac, fac.slab_ids, b4s),
+            lambda: tk.forward_substitution_plain(fac, fac.slab_ids, b4s),
+            int8_pass_bound(m, n, ld, r, stacks=2, batch=S),
+            library_pass_ms(b4s[0, 0], dense_re, dense_im, list(range(m)) * S),
+            dict(B=S, S=S, m=m, n=n, ld=ld, r=r, launch_width=tk.line_width(fac, r)))
+        entry["library_call"] = LIBRARY_CALL_INT8
+        kernels.append(entry)
     del dense_re, dense_im
     torch.cuda.empty_cache()
     return kernels
@@ -4166,7 +4184,8 @@ def main() -> int:
                          "int8_sweep_solve_batched", pair, allowed=INT8_2D)
     kernels += wide_line_entries(problem, "int8_sweep_wide", wide[WIDE_R])
     jacobi_counts = phase_int8_sweeps(problem)
-    kernels += phase_int8_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts)
+    kernels += phase_int8_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts,
+                                       wide[WIDE_R])
     del problem
     torch.cuda.empty_cache()
 

@@ -146,8 +146,11 @@ def main(argv=None):
                   f"precond={cfg.precond}",
         )
         print("field artifacts:", " ".join(files))
+    # on the card, the peak of the device memory PyTorch allocated
+    peak = ({"peak_memory_bytes": torch.cuda.max_memory_allocated(device)}
+            if device.type == "cuda" else {})
     timer.log(grid=list(problem.grid.shape), k=problem.k,
-              precond=cfg.precond)
+              precond=cfg.precond, **peak)
 
 
 if __name__ == "__main__":

@@ -14,14 +14,16 @@
 // PyTorch there, as in the JAX package.
 //
 // The kernels are plane::apply_kernel<R, S> in plane_pass.cuh, for
-// S = Storage::kBf16 and Storage::kInt8: one block per tile of 8 output lanes
-// (ld / 8 blocks, no barrier), the tile's pivot columns (and int8 scales)
-// streamed through the same cp.async ring as the fused passes, the rows read
-// from global memory chunk by chunk, so shared memory does not depend on ld.
-// r = 1, 2, 4 or 8 right-hand sides per launch (r = 4 and 8 as tensor-core
-// products, plane_pass.cuh note 4).  The int8 entries are dequantized
-// before the product, the fused kernels' order, where the TPU kernel scales
-// each 128-row partial product: f32 rounding apart, the same numbers.
+// S = Storage::kBf16 and Storage::kInt8.  r = 1, 2: one block per tile of 8
+// output lanes (ld / 8 blocks, no barrier), the tile's pivot columns (and
+// int8 scales) streamed through a cp.async ring, the rows read from global
+// memory chunk by chunk, so shared memory does not depend on ld; the int8
+// entries are dequantized before the product, where the TPU kernel scales
+// each 128-row partial product: f32 rounding apart, the same numbers.  r = 4
+// and 8 (plane_pass.cuh note 4): one wave of blocks of up to max_tiles
+// consecutive tiles, a producer warp bulk-copying their chunks, 8 warps
+// multiplying each k-step of the rows, split once, into all of them on tensor
+// cores; int8 partials scaled per 16-row k-step before they are added.
 //
 // Bound: bytes.  2 x ld^2 x 2 B of bf16 planes (21.2 MB, 6.3 us at
 // mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (19.5 MB, 5.8 us at

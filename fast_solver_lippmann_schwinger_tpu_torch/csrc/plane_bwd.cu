@@ -17,7 +17,9 @@
 // Storage::kInt8, which describes the design, the limits and the bound.  The
 // carry x_{p+1} and y_p - S'_p(x_{p+1}) travel as flagged exchange words (the
 // latter double-buffered: a fast CTA forms the next plane's lanes while a
-// slow one still reads this plane's); the x stack is only written.  A build
+// slow one still reads this plane's); at r = 4 and 8 the latter as plain rows
+// in the caller's two-plane scratch, each CTA flagging its lanes (note 4);
+// the x stack is only written.  A build
 // with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py only) launches the
 // grid-barrier step instead, plane::pass_kernel<R, true, S>.
 //
@@ -37,6 +39,8 @@ extern "C" int plane_backward(
     const void* pim,
     const float* scale,      // int8: (SL, ld/8, ld/128, 2, 8) f32 scales; bf16: null
     float* x,                // (l, 2r, ld); planes < start are not touched
+    float* scratch,          // r = 4, 8: (2, 2r, ld) floats for the planes' rows
+                             //   y_p - S'_p(x_{p+1}); else null
     int l, int mn, int n, int ld, int r, int base, int start,
     void* xchg,              // exchange words, zeroed once: 2 slots each of y and
                              //   t words, (ld, 2r) words of (value, flag)
@@ -49,6 +53,7 @@ extern "C" int plane_backward(
   a.pim = pim;
   a.scale = scale;
   a.out = x;
+  a.kept = scratch;
   a.l = l;
   a.mn = mn;
   a.n = n;

@@ -190,4 +190,144 @@ __device__ __forceinline__ void line_products(const unsigned char* pre, int im, 
   store_part<R>(z1, z2, part, kPitch, warp);
 }
 
+// ---------------------------------------------------------------------------
+// The plane kernels' step at r = 4 and 8 (plane_pass.cuh, note 4).  The line
+// kernels above do not use what follows.
+//
+// A warp splits the 16 columns of a k-step of y once and multiplies them into
+// every tile of its CTA (or block); the B fragments come whole from shared
+// memory: bf16 runs by ldmatrix.trans (the 16-byte rows of a run are 8 x 8
+// core matrices), int8 runs a byte an entry, widened by a byte permute and a
+// subtraction (no conversion instruction).  M holds the 2r stacked rows: at
+// r = 8 re_p in fragment row p and im_p in row 8 + p, as above; at r = 4,
+// whose 8 rows fill half of M, rows 0-7 take the h term of the y rows and
+// rows 8-15 their m term, a second product the l term (two products a part
+// instead of three), and a lane adds its two row halves.
+// ---------------------------------------------------------------------------
+
+// y rows of a k-step staged by a warp: 2R rows of 16 columns at a pitch of 24
+// floats (the fragment loads of a half-warp meet no bank twice)
+constexpr int kYPitch = 24;
+
+// The A fragments of a k-step from a warp's staged y (row q at y + q *
+// kYPitch, 16 columns, zero past the plane).  R = 8: the three terms of rows
+// g (re_g) and 8 + g (im_g).  R = 4: a[0] = {h, m} of row g (fragment rows g
+// and 8 + g), a[1] = {l, 0}; a[2] unused.
+template <int R>
+__device__ __forceinline__ void plane_a_frags(const float* y, int g, int t, unsigned (&a)[3][4]) {
+  auto pair = [&](int row, int col) {
+    return *reinterpret_cast<const float2*>(y + row * kYPitch + col);
+  };
+  if constexpr (R == 8) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 v = pair((q & 1) ? R + g : g, 2 * t + (q >= 2 ? 8 : 0));
+      split3(v.x, v.y, a[0][q], a[1][q], a[2][q]);
+    }
+  } else {
+    static_assert(R == 4, "wide plane step: r = 4 or 8");
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const float2 v = pair(g, 2 * t + 8 * q);
+      unsigned h, m, l;
+      split3(v.x, v.y, h, m, l);
+      a[0][2 * q] = h;
+      a[0][2 * q + 1] = m;
+      a[1][2 * q] = l;
+      a[1][2 * q + 1] = 0u;
+    }
+  }
+}
+
+// The B fragments of rows k0 .. k0 + 15 of a staged bf16 run (16-byte rows,
+// the imaginary part `im` bytes after the real one): {re b0, re b1, im b0,
+// im b1}, by one ldmatrix.x4.trans (lanes 8j .. 8j + 7 address the rows of
+// matrix j: re rows k0..k0+7, re k0+8.., im k0.., im k0+8..)
+__device__ __forceinline__ void ldsm_b_bf16(const unsigned char* run, int im, int k0, int lane,
+                                            unsigned (&b)[4]) {
+  const int mat = lane >> 3;
+  const unsigned char* p = run + (mat >> 1) * im + (k0 + (mat & 1) * 8 + (lane & 7)) * 16;
+  const unsigned addr = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(b[0]), "=r"(b[1]), "=r"(b[2]), "=r"(b[3])
+               : "r"(addr));
+}
+
+// int8 entry byte (two's complement) -> its value as f32, exactly: the byte
+// + 128 in the low mantissa bits of 2^23, less 2^23 + 128
+__device__ __forceinline__ unsigned s8_as_f32_bits(unsigned byte) {
+  return __float_as_uint(__uint_as_float(0x4B000000u | (byte ^ 0x80u)) - 8388736.f);
+}
+
+// bf16x2 of two int8 entries (|q| <= 127 keeps 7 bits: the f32's upper
+// halves are exact), lo in the low half
+__device__ __forceinline__ unsigned s8x2_as_bf16x2(unsigned lo, unsigned hi) {
+  return __byte_perm(s8_as_f32_bits(lo), s8_as_f32_bits(hi), 0x7632);
+}
+
+// The same fragments of a staged int8 run (8-byte rows): lane (g, t) reads
+// rows k0 + 2t, + 1, + 8, + 9 of output lane g, a byte each
+__device__ __forceinline__ void lds_b_int8(const unsigned char* run, int im, int k0, int g,
+                                           int t, unsigned (&b)[4]) {
+#pragma unroll
+  for (int part = 0; part < 2; ++part) {
+    const unsigned char* p = run + part * im + (k0 + 2 * t) * kLanes + g;
+    b[2 * part] = s8x2_as_bf16x2(p[0], p[kLanes]);
+    b[2 * part + 1] = s8x2_as_bf16x2(p[8 * kLanes], p[9 * kLanes]);
+  }
+}
+
+// One k-step of one tile: the products of the A fragments with the tile's
+// B fragments on fresh sums (the small terms first), folded to a lane's
+// values: R = 8, e1 = Y . Pre and e2 = Y . Pim as m16n8k16 accumulators (rows
+// g, 8 + g); R = 4, e[0..1] row g's values at output lanes 2t, 2t + 1 (the
+// two row halves added), e[2..3] zero
+template <int R>
+__device__ __forceinline__ void plane_kstep(const unsigned (&a)[3][4], const unsigned (&b)[4],
+                                            float (&e1)[4], float (&e2)[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) e1[q] = e2[q] = 0.f;
+  if constexpr (R == 8) {
+#pragma unroll
+    for (int term = 2; term >= 0; --term) {
+      mma16816(e1, a[term], b[0], b[1]);
+      mma16816(e2, a[term], b[2], b[3]);
+    }
+  } else {
+    mma16816(e1, a[1], b[0], b[1]);
+    mma16816(e2, a[1], b[2], b[3]);
+    mma16816(e1, a[0], b[0], b[1]);
+    mma16816(e2, a[0], b[2], b[3]);
+    e1[0] += e1[2];
+    e1[1] += e1[3];
+    e2[0] += e2[2];
+    e2[1] += e2[3];
+  }
+}
+
+// A lane's part of a tile's 2R x 8 values (value v = row * 8 + lane at
+// part[v * pitch]) from its sums z1 = Y . Pre, z2 = Y . Pim: R = 8 as
+// store_part; R = 4 lane (g, t) holds y row g (re_g for g < 4, im_{g-4}
+// above), whose partner row is four lanes of g away (lane ^ 16)
+template <int R>
+__device__ __forceinline__ void plane_store_part(const float (&z1)[4], const float (&z2)[4],
+                                                 float* part, int pitch) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  if constexpr (R == 8) {
+    const int re = g * kLanes + 2 * t, imv = (R + g) * kLanes + 2 * t;
+    part[re * pitch] = z1[0] - z2[2];
+    part[(re + 1) * pitch] = z1[1] - z2[3];
+    part[imv * pitch] = z1[2] + z2[0];
+    part[(imv + 1) * pitch] = z1[3] + z2[1];
+  } else {
+    // row g = p (re_p, g < 4) or R + p (im_p): t_re = Yr.Pre - Yi.Pim,
+    // t_im = Yi.Pre + Yr.Pim
+    const float o0 = __shfl_xor_sync(0xffffffffu, z2[0], 16);
+    const float o1 = __shfl_xor_sync(0xffffffffu, z2[1], 16);
+    const int v = g * kLanes + 2 * t;
+    part[v * pitch] = g < R ? z1[0] - o0 : z1[0] + o0;
+    part[(v + 1) * pitch] = g < R ? z1[1] - o1 : z1[1] + o1;
+  }
+}
+
 }  // namespace wide

@@ -79,13 +79,11 @@ INT8_BLOCK = 128             # input rows per int8 scale (csrc: kScaleBlock)
 # at most 232,448 bytes.  The flag-handoff step keeps these widths: at each
 # its ring, sized per launch, still takes at least 4 chunks
 _RING_BYTES = {"bf16": 4 * 2 * 4096, "int8": 4 * (2 * 4096 + 4 * 2 * 8 * 4)}
-# wide launches (r = 4, 8) exist on the flag-handoff step only, and fit by its
-# own sizing (csrc: flow_ring): the warps' sums (8 warps), y_p at a row pitch
-# of ld + 8, 128 bytes of mbarriers and at least 4 ring slots of the smallest
-# chunk (192 rows in bf16, 384 with 3 blocks of scales in int8)
-_FLOW_WARPS = 8
-_MIN_SLOT_BYTES = {"bf16": 2 * 192 * 16, "int8": 2 * 384 * 8 + 3 * 2 * 8 * 4}
-_MIN_SLOTS = 4
+# the widest plane of a wide launch (r = 4, 8), by storage and launch width.
+# The wide step takes more (csrc: max_tiles, wide_ring: at most 4 tiles a
+# CTA at r = 8 and 8 at r = 4 over an H100's 132 CTAs, ld <= 4224 and 8448);
+# the widths stay fixed so that the CPU and the card take the same branch
+_WIDE_WIDEST = {"bf16": {4: 6352, 8: 3104}, "int8": {4: 6272, 8: 3072}}
 
 # slots of each kind of word in a fused pass's exchange buffer (y lanes and
 # t tiles; csrc: kWordSlots): a fast CTA writes plane s + 1's words while a
@@ -95,7 +93,7 @@ WORD_KINDS = 2
 
 _P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
 cuda_build.register("plane_fwd", "plane_forward", [_P] * 8 + [_I] * 7 + [_P, _U, _P])
-cuda_build.register("plane_bwd", "plane_backward", [_P] * 6 + [_I] * 7 + [_P, _U, _P])
+cuda_build.register("plane_bwd", "plane_backward", [_P] * 7 + [_I] * 7 + [_P, _U, _P])
 cuda_build.register("plane_apply", "plane_apply", [_P] * 5 + [_I] * 4 + [_P])
 
 
@@ -303,18 +301,17 @@ def _unrows(rows: torch.Tensor, mn: int, dtype, shape) -> torch.Tensor:
 
 def fused_fits(stack: PlaneStack, r: int) -> bool:
     """Whether one fused pass takes ``r <= MAX_RHS`` right-hand sides on this
-    stack (at the launch width of r): the staged y_p with the pivot-column
-    ring (and its int8 scales) fits one block's shared memory on an H100
-    (bf16: ld <= 24928, 12448, 6352 and 3104 at widths 1, 2, 4 and 8; int8:
-    24704, 12288, 6272 and 3072)."""
+    stack (at the launch width of r): at widths 1 and 2 the staged y_p with
+    the pivot-column ring (and its int8 scales) fits one block's shared
+    memory on an H100, at widths 4 and 8 the plane is no wider than
+    ``_WIDE_WIDEST`` (bf16: ld <= 24928, 12448, 6352 and 3104 at widths 1,
+    2, 4 and 8; int8: 24704, 12288, 6272 and 3072)."""
     if r > MAX_RHS:
         return False
     w = launch_width(r)
-    if w <= 2:
-        smem = _RING_BYTES[stack.storage] + 4 * 2 * w * stack.ld + 4 * 4 * 2 * w * LEAD_MULTIPLE
-    else:
-        smem = (4 * 2 * (2 * w * LEAD_MULTIPLE) * _FLOW_WARPS + 4 * 2 * w * (stack.ld + 8) + 128
-                + _MIN_SLOTS * (_MIN_SLOT_BYTES[stack.storage] + 16))
+    if w > 2:
+        return stack.ld <= _WIDE_WIDEST[stack.storage][w]
+    smem = _RING_BYTES[stack.storage] + 4 * 2 * w * stack.ld + 4 * 4 * 2 * w * LEAD_MULTIPLE
     return smem <= SMEM_PER_BLOCK
 
 
@@ -587,10 +584,13 @@ def plane_backward(stack: PlaneStack, y4: torch.Tensor, w4: torch.Tensor, n: int
         return in_rhs_groups(lambda y, out: plane_backward(stack, y, w4, n, base, start, out),
                              r, (y4,), out, width=width)
     xchg, epoch = take_words(exchange_for(y4), stack.ld, r, l - start)
+    # wide launches hand each plane's rows y_p - S'_p(x_{p+1}) over in a
+    # two-plane scratch (csrc/plane_pass.cuh, note 4)
+    scratch = y4.new_empty((2, 2 * r, stack.ld)) if r > 2 else None
     err = cuda_build.load("plane_bwd")(
         y4.data_ptr(), w4.data_ptr(), stack.p_re.data_ptr(), stack.p_im.data_ptr(),
-        _ptr(stack.scale), out.data_ptr(), l, stack.mn, n, stack.ld, r, base, start,
-        xchg.data_ptr(), epoch, torch.cuda.current_stream(dev).cuda_stream,
+        _ptr(stack.scale), out.data_ptr(), _ptr(scratch), l, stack.mn, n, stack.ld, r, base,
+        start, xchg.data_ptr(), epoch, torch.cuda.current_stream(dev).cuda_stream,
     )
     _raise_on(err, "plane_backward")
     _count(plane_backward, stack)

@@ -589,6 +589,59 @@ def test_plane_passes_are_bit_identical_across_repeats(cuda_device, storage, m, 
             assert all(torch.equal(a, b) for a, b in zip(got, first))
 
 
+# (m, n) planes of the wide step's cases: 2, 3 and 4 tiles a CTA on 132 SMs at
+# the widths of benchmarks_torch/plane_probe.py (bf16 mn = 2112, 2304, 2640:
+# at most 2, 3, 3 tiles; int8 2816, 3072, 3328: 3, 3, 4), and the widest
+# plane the fused passes take at each wide launch width (WIDEST_PLANE)
+WIDE_PLANES = {"bf16": ((32, 66), (48, 48), (40, 66)), "int8": ((32, 88), (32, 96), (26, 128))}
+WIDEST_WIDE = {("bf16", 8): (32, 97), ("bf16", 4): (16, 397), ("int8", 8): (32, 96),
+               ("int8", 4): (64, 98)}
+
+
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [4, 8])
+@pytest.mark.parametrize("case", [0, 1, 2, "widest"])
+def test_wide_plane_step_matches_plain(cuda_device, storage, r, case):
+    """The tensor-core step of the fused passes and the plane apply at r = 4
+    and 8 (csrc/plane_pass.cuh, note 4) on bf16 and int8 planes: a forward
+    pass resumed at plane 1 from a given carry into a t stack, a backward tail
+    of two planes and a whole backward pass, and a plane apply, each against
+    its plain version; a second run gives the same bits (the flags and the
+    warps' sums leave nothing to timing)."""
+    m, n = WIDEST_WIDE[storage, r] if case == "widest" else WIDE_PLANES[storage][case]
+    mn, l, start, tail = m * n, 4, 1, 2
+    rng = np.random.default_rng(mn + r)
+    make, to_cpu = ((_random_int8_view, _int8_view_to_cpu) if storage == "int8"
+                    else (_random_view, _view_to_cpu))
+    view = make(rng, l, m, n, cuda_device, slabs=2)
+    cpu = to_cpu(view)
+    st, ld = view.stack, view.stack.ld
+    if case == "widest":
+        assert pk.fused_width(st, r) == r
+    b4 = torch.zeros((l, 2 * r, ld), device=cuda_device)
+    b4[..., :mn] = torch.as_tensor(rng.standard_normal((l, 2 * r, mn)).astype(np.float32))
+    t0 = torch.zeros((2 * r, ld), device=cuda_device)
+    t0[:, :mn] = torch.as_tensor(rng.standard_normal((2 * r, mn)).astype(np.float32))
+
+    def run():
+        y4, t4 = pk.plane_forward(st, b4, view.lrows, n, view.base, start, t0)
+        return (y4, t4, pk.plane_backward(st, y4, view.urows, n, view.base, start=l - tail),
+                pk.plane_backward(st, y4, view.urows, n, view.base),
+                pk.plane_apply_rows(st, view.base + 1, b4[1]))
+
+    first = tuple(t.clone() for t in run())
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(run(), first))
+    y4, t4, x_tail, x4, applied = first
+    y_p, t_p = pk.plane_forward(cpu.stack, b4.cpu(), cpu.lrows, n, cpu.base, start, t0.cpu())
+    _close(y4[start:], y_p[start:])
+    _close(t4[start:], t_p[start:])
+    x_p = pk.plane_backward(cpu.stack, y4.cpu(), cpu.urows, n, cpu.base, start=l - tail)
+    _close(x_tail[l - tail:], x_p[l - tail:])
+    _close(x4, pk.plane_backward(cpu.stack, y4.cpu(), cpu.urows, n, cpu.base))
+    _close(applied, pk.plane_apply_rows_plain(cpu.stack, cpu.base + 1, b4[1].cpu()))
+
+
 @pytest.mark.parametrize("r", [1, 2, 3, 8])
 @pytest.mark.parametrize("mn", [35, 3072, 12300])
 def test_int8_plane_apply_matches_plain(cuda_device, r, mn):

@@ -10,6 +10,8 @@ is f32, so the packages differ in summation order only: 1e-5 of the
 max-norm for one apply or pass, 2e-5 for a solve."""
 
 import dataclasses
+import re
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -233,6 +235,49 @@ def test_fused_limits():
     assert [pk.fused_width(stack(12448), r) for r in (1, 2, 3, 8, 20)] == [1, 2, 2, 2, 2]
     assert [pk.fused_width(stack(3072), r) for r in (1, 3, 5, 8, 20)] == [1, 4, 8, 8, 8]
     assert pk.fused_width(stack(24936), 1) == 0
+
+
+def _csrc_ints(pattern: str, name: str = "plane_pass.cuh") -> list:
+    src = (Path(pk.__file__).resolve().parents[1] / "csrc" / name).read_text()
+    return [int(v) for v in re.search(pattern, src).groups()]
+
+
+H100_SMS, H100_SMEM = 132, 232_448
+
+
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [4, 8])
+@pytest.mark.parametrize("ld", [128, 2304, 3072, "widest"])
+def test_wide_launcher_takes_what_fused_fits_takes(storage, r, ld):
+    """Every plane ``fused_fits`` sends to a wide launch (r = 4, 8) is one
+    the wide launcher admits on an H100 (132 SMs, 232,448 bytes of shared
+    memory a block): at most ``max_tiles`` tiles a CTA, whose lanes' y the
+    consumer threads form (a thread per lane and pair of right-hand sides),
+    and a ring of at least two slots of the smallest chunk beside the warps'
+    sums and staged y (csrc/plane_pass.cuh: ``flow_wide``, ``wide_ring``,
+    ``wide_smem_bytes``), the constants read from the sources."""
+    if ld == "widest":
+        ld = pk._WIDE_WIDEST[storage][r]
+    st = pk.PlaneStack(p_re=torch.empty((1, ld // 8, ld, 8)), p_im=None, mn=ld, l1=1,
+                       scale=torch.ones(1) if storage == "int8" else None)
+    assert pk.fused_fits(st, r)
+    lanes, = _csrc_ints(r"constexpr int kLanes = (\d+);")
+    warps, = _csrc_ints(r"constexpr int kFlowWarps = (\d+);")
+    depth, = _csrc_ints(r"constexpr int kYDepth = (\d+);")
+    pitch, = _csrc_ints(r"constexpr int kYPitch = (\d+);", "wide_mma.cuh")
+    tiles8, tiles4 = _csrc_ints(r"max_tiles\(\) \{ return R == 8 \? (\d+) : (\d+); \}")
+    max_tiles = tiles8 if r == 8 else tiles4
+    tiles = ld // lanes
+    grid = min(tiles, H100_SMS)
+    nt = -(-tiles // grid)
+    assert nt <= max_tiles and nt * lanes * (r // 2) <= warps * 32 and grid <= 160
+    # the smallest chunk: 16 rows of 16-byte (bf16) tile rows, 128 of 8-byte
+    # int8 rows with their block's 2 x 8 f32 scales
+    slot = 2 * 16 * 16 if storage == "bf16" else 2 * 128 * 8 + 2 * lanes * 4
+    slots = 2
+    smem = (-(-16 * slots // 128) * 128 + 4 * 2 * nt * 2 * r * lanes * warps
+            + 4 * warps * depth * 2 * r * pitch + slots * nt * slot)
+    assert smem <= H100_SMEM
 
 
 @pytest.mark.parametrize("r", [1, 2])

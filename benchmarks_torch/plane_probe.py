@@ -1,7 +1,6 @@
 """Time the plane kernels of the 3D solves alone, on random planes, for one
 checkout of the package: the fused passes on the flag-handoff plane step
-against the grid-barrier step they replace (r = 1, 2), in turns in one
-process, and the wide launches (r = 4, 8) alone.
+and the plane apply, at r = 1, 2 (the narrow step) and 4, 8 (the wide one).
 
     python3 benchmarks_torch/plane_probe.py                    # bf16 and int8 planes
     python3 benchmarks_torch/plane_probe.py --storage int8     # one storage
@@ -16,20 +15,15 @@ turns (parent, change, change, parent), in one call: the inputs come from
 one seed, so each run sees the same planes and right-hand sides.
 
 Needs one CUDA card and nvcc.  Besides the package's build it builds
-``csrc/plane_fwd.cu``, ``plane_bwd.cu`` and ``plane_apply.cu`` again into
-``build/plane_probe/old/`` with ``-DPLANE_OLD_STEP=1`` (the grid-barrier
-step the passes ran before; the plane apply is the same kernel in both
-builds), and ``plane_fwd.cu`` and ``plane_apply.cu`` once per ablation mask
-into ``build/plane_probe/ablate<mask>/`` with ``-DPLANE_ABLATE=<mask>``, all
-at once.
-Prints one JSON line per measurement, with ``--tree`` and ``--tag``:
+``plane_fwd.cu`` and ``plane_apply.cu`` once per ablation mask into
+``build/plane_probe/ablate<mask>/`` with ``-DPLANE_ABLATE=<mask>``, all at
+once.  Prints one JSON line per measurement, with ``--tree`` and ``--tag``:
 
 * the forward and backward passes at l = 48 planes, for each r of ``--r``
-  (default 1 and 2), in the turns old, new, new, old (r = 1, 2; new alone
-  at 4, 8), and the plane apply (the same turns, twice): microseconds a
-  plane step, the new step's output against the old step's, and each
-  build's share of the byte bound (two planes, and int8 scales, over
-  3.35 TB/s); the plane apply's device time from CUDA graphs of 200 calls.
+  (default 1 and 2), timed twice, and the plane apply (twice more):
+  microseconds a plane step and the share of the byte bound (two planes,
+  and int8 scales, over 3.35 TB/s); the plane apply's device time from CUDA
+  graphs of 200 calls.
   bf16: plane widths mn = 2112, 2304 (the 48^3 solve) and
   2640: 264, 288 and 330 tiles of 8 output lanes on the 132 SMs (at most
   two, three and three tiles a CTA).  int8: mn = 2816, 3072 (the y-planes of
@@ -93,13 +87,11 @@ WIDTHS = {"bf16": ((2112, 2304, 2640), 2304), "int8": ((2816, 3072, 3328), 3072)
 
 
 def build_steps() -> dict:
-    """name -> {source: launcher}: the package's build ("new"), the old step
-    and the ablation masks of the new forward pass and plane apply, all built
-    at once."""
+    """name -> {source: launcher}: the package's build ("new") and the
+    ablation masks of its forward pass and plane apply, all built at once."""
     cuda_build.build_kernels(list(SOURCES))
-    variants = {"old": ({"PLANE_OLD_STEP": 1}, SOURCES)}
-    variants.update({f"ablate{mask}": ({"PLANE_ABLATE": mask}, ("plane_fwd", "plane_apply"))
-                     for _, mask in CASES if mask})
+    variants = {f"ablate{mask}": ({"PLANE_ABLATE": mask}, ("plane_fwd", "plane_apply"))
+                for _, mask in CASES if mask}
     dirs = {name: ROOT / "build" / "plane_probe" / name for name in variants}
     with ThreadPoolExecutor(len(variants)) as pool:     # each build is one nvcc
         list(pool.map(lambda name: cuda_build.build_kernels(
@@ -189,16 +181,11 @@ def emit(rec: dict):
     print(json.dumps(dict(rec, tree=str(ROOT), tag=OPTS.tag)), flush=True)
 
 
-def rel_err(a, ref):
-    return float((a - ref).abs().max()) / max(float(ref.abs().max()), 1e-30)
-
-
 def passes(steps, view, g, dev, rs):
     st, ld, n = view.stack, view.stack.ld, view.lsten.shape[2]
     bound_us = 1e6 * (st.nbytes // st.n_planes) / PEAK_BYTES_PER_S    # one plane's bytes
     for r in rs:
-        other = "old" if r <= 2 else None        # the grid-barrier step takes r <= 2
-        order = (other, "new", "new", other) if other else ("new", "new")
+        order = ("new", "new")
         b4 = torch.randn((L, 2 * r, ld), generator=g, device=dev)
         b4[..., st.mn:] = 0
         y4 = pk.plane_forward(st, b4, view.lrows, n)[0]
@@ -208,21 +195,15 @@ def passes(steps, view, g, dev, rs):
             apply=(lambda: pk.plane_apply_rows(st, 0, b4[0]), 1),
         )
         for kernel, (fn, planes) in runs.items():
-            ms, turns, outs = in_turns(steps, fn, order, 10)
+            ms, turns, _ = in_turns(steps, fn, order, 10)
             if planes == 1:
-                # the plane apply (the same kernel in the old build): device
-                # time from CUDA graphs, in turns twice
+                # the plane apply: device time from CUDA graphs, twice more
                 ms, turns = graph_turns(steps, fn, order * 2)
             us = {name: 1e3 * v / planes for name, v in ms.items()}
             rec = dict(kernel=kernel, storage=st.storage, mn=st.mn, tiles=ld // 8, r=r,
                        planes=planes, new_us_per_plane=us["new"], bound_us_per_plane=bound_us,
                        share_of_bound={name: bound_us / v for name, v in us.items()},
                        turns_ms={name: t for name, t in turns.items()})
-            if other:
-                rec.update({f"{other}_us_per_plane": us[other],
-                            f"new_over_{other}": us["new"] / us[other],
-                            f"new_vs_{other}_rel_err": max(
-                                rel_err(a, b) for a, b in zip(outs["new"], outs[other]))})
             emit(rec)
 
 

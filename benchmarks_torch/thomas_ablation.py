@@ -1,7 +1,7 @@
 """Where one line of the dense substitution passes, or one step of the fused
 sweeps, spends its time.
 
-    python3 benchmarks_torch/thomas_ablation.py [--trace-only | --sweep] [--r 1,2,8]
+    python3 benchmarks_torch/thomas_ablation.py [--trace-only | --sweep] [--r 1,2,4,8]
 
 Needs one CUDA card and nvcc.  ``ncu`` and ``nsys`` are not always at hand,
 so this script measures by ablation: it builds ``csrc/thomas_fwd.cu`` once per
@@ -23,6 +23,18 @@ last publication of a line to a CTA's carry of the next) and the line period.
 (The stamps cost time of their own; the phase after the block's barrier reads
 longer than the code it holds, so the ablation, not the trace, gives the
 breakdown.)
+
+At r = 4 and 8 (the wide step, ``csrc/thomas_flow.cuh`` note "Wide
+batches") the masks of :data:`WIDE_CASES` take the new step's phases apart
+instead: the handoff (no flag wait: flags unchecked; no release fences: the
+producers' fences before their flags; no rows copy: neither flags nor the
+rows' copy and edge terms, w stale; no edge terms), the band step (the producer's, on its
+tile's lanes; the consumers have none), the products, the plane copies, the
+producer's loads of the next line's band and right-hand rows, the outputs (y
+and t); also the step whole with one and with two CTAs a tile.  The
+trace's phases there: stage wait, the rows' flags, copy, edge terms and
+split, the products, the warps' sums and barrier, the sums, band step and
+publication.
 
 With ``--sweep`` it builds ``csrc/sweep_fused.cu`` and
 ``csrc/thomas_fwd_cached.cu`` once per case of :data:`SWEEP_CASES` instead
@@ -58,7 +70,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.utils.timing import (  # noqa: E40
 
 # bits of THOMAS_ABLATE, as in csrc/thomas_flow.cuh
 NO_BAND_STEP, NO_PRODUCTS, NO_PLANE_COPIES, NO_ROW_COPIES, NO_CARRY_LOAD = 1, 2, 8, 16, 32
-NO_FLAG_WAIT, NO_INJECTION, NO_OUTPUTS = 64, 128, 256
+NO_FLAG_WAIT, NO_INJECTION, NO_OUTPUTS, NO_FENCES, NO_EDGES = 64, 128, 256, 512, 1024
 NO_COPIES = NO_PLANE_COPIES | NO_ROW_COPIES
 CASES = [
     ("one CTA a tile, whole", {"THOMAS_SPLIT": 1}),
@@ -76,6 +88,25 @@ CASES = [
     ("none of them", {"THOMAS_ABLATE": NO_BAND_STEP | NO_COPIES | NO_PRODUCTS}),
     # one item of look-ahead instead of two
     ("two stages", {"THOMAS_STAGES": 2}),
+]
+# the wide step's phases (r = 4, 8)
+WIDE_CASES = [
+    ("one CTA a tile, whole", {"THOMAS_SPLIT": 1}),
+    ("two CTAs a tile, whole", {"THOMAS_SPLIT": 2}),
+    ("full", {"THOMAS_ABLATE": 0}),
+    ("no flag wait", {"THOMAS_ABLATE": NO_FLAG_WAIT}),
+    ("no release fences", {"THOMAS_ABLATE": NO_FENCES}),
+    ("no rows copy (no handoff)", {"THOMAS_ABLATE": NO_CARRY_LOAD}),
+    ("no edge terms", {"THOMAS_ABLATE": NO_EDGES}),
+    ("no band step", {"THOMAS_ABLATE": NO_BAND_STEP}),
+    ("no products", {"THOMAS_ABLATE": NO_PRODUCTS}),
+    ("no plane copies", {"THOMAS_ABLATE": NO_PLANE_COPIES}),
+    ("no band/rhs loads", {"THOMAS_ABLATE": NO_ROW_COPIES}),
+    ("no outputs", {"THOMAS_ABLATE": NO_OUTPUTS}),
+    ("no handoff, no products", {"THOMAS_ABLATE": NO_CARRY_LOAD | NO_PRODUCTS}),
+    ("no handoff, copies, products", {"THOMAS_ABLATE": NO_CARRY_LOAD | NO_COPIES | NO_PRODUCTS}),
+    ("none of them", {"THOMAS_ABLATE": NO_CARRY_LOAD | NO_COPIES | NO_PRODUCTS | NO_BAND_STEP
+                      | NO_OUTPUTS}),
 ]
 
 
@@ -131,19 +162,23 @@ def sweep_ablation(dev, g):
                   flush=True)
 
 
-def ablated_libraries() -> list:
-    """One build of the forward pass per case, all started together; returns
-    the launchers in the order of :data:`CASES`."""
-    dirs = [ROOT / "build" / "ablation" / str(i) for i in range(len(CASES))]
-    with ThreadPoolExecutor(len(CASES)) as pool:     # each build is one nvcc
+def ablated_libraries(cases) -> dict:
+    """One build of the forward pass per set of defines among ``cases``, all
+    started together; returns the launchers by case name."""
+    keys = list(dict.fromkeys(tuple(sorted(defines.items())) for _, defines in cases))
+    dirs = [ROOT / "build" / "ablation" / "_".join(f"{k}{v}" for k, v in key) for key in keys]
+    with ThreadPoolExecutor(len(keys)) as pool:     # each build is one nvcc
         list(pool.map(lambda i: cuda_build.build_kernels(
-            ["thomas_fwd"], defines=CASES[i][1], build_dir=dirs[i]), range(len(CASES))))
-    return [cuda_build.load("thomas_fwd", build_dir=d) for d in dirs]
+            ["thomas_fwd"], defines=dict(keys[i]), build_dir=dirs[i]), range(len(keys))))
+    built = {key: cuda_build.load("thomas_fwd", build_dir=d) for key, d in zip(keys, dirs)}
+    return {name: built[tuple(sorted(defines.items()))] for name, defines in cases}
 
 
 TRACE_SHAPE = (264, 64, 8)     # csrc/thomas_flow.cuh: kTraceCtas, kTraceItems, kTracePoints
 PHASES = ("stage wait", "carry wait + load", "band step + products", "warp sums + barrier",
           "sum + publish")
+WIDE_PHASES = ("stage wait", "rows wait + copy + split", "products", "warp sums + barrier",
+               "sum + band step + publish")
 
 
 def trace_library():
@@ -156,7 +191,7 @@ def trace_library():
     return cuda_build.load("thomas_fwd", build_dir=d), lib.thomas_trace_read
 
 
-def trace_report(read, run, label, single_tile: bool):
+def trace_report(read, run, label, single_tile: bool, phase_names=PHASES):
     """Medians over CTAs and traced items of each phase of a line step (SM
     cycles), and at one tile a CTA (B = 1) the handoff: from the last
     publication of line k - 1 to a CTA's carry of line k, and the line
@@ -169,7 +204,7 @@ def trace_report(read, run, label, single_tile: bool):
     ctas = np.flatnonzero((stamps[:, :, 0] > 0).all(axis=1))
     t = stamps[ctas].astype(np.float64)
     phases = {name: float(np.median(t[:, :, k + 1] - t[:, :, k]))
-              for k, name in enumerate(PHASES)}
+              for k, name in enumerate(phase_names)}
     out = dict(case=label, ctas=len(ctas), phase_cycles=phases,
                item_cycles=float(np.median(np.diff(t[:, :, 0], axis=1))))
     if single_tile:
@@ -198,13 +233,18 @@ def main():
                        torch.Generator(device="cuda").manual_seed(0))
         return
     trace_only = "--trace-only" in sys.argv[1:]
-    libs = [] if trace_only else ablated_libraries()
+    argv = sys.argv[1:]
+    wanted = tuple(int(r) for r in argv[argv.index("--r") + 1].split(",")) if "--r" in argv else None
+    narrow = any(r <= 2 for r in wanted or (1,))
+    wide = any(r > 2 for r in wanted or ())
+    libs = {}                   # (wide, case name) -> launcher
+    for is_wide, cases in ((False, CASES), (True, WIDE_CASES)):
+        if not trace_only and (wide if is_wide else narrow):
+            libs.update({(is_wide, name): lib for name, lib in ablated_libraries(cases).items()})
     trace_lib, read = trace_library()
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     n = 801
-    argv = sys.argv[1:]
-    wanted = tuple(int(r) for r in argv[argv.index("--r") + 1].split(",")) if "--r" in argv else None
     # one slab of 801 lines (the one-slab solve), and 16 batch rows of 70
     # lines, one per slab (jacobi_sweep)
     for S, m, rs in ((1, 801, wanted or (1, 2)), (16, 70, wanted or (1,))):
@@ -212,7 +252,10 @@ def main():
         for r in rs:
             b4 = torch.zeros((S, m, 2 * r, fac.ld), device=dev)
             b4[..., :n] = torch.randn((S, m, 2 * r, n), generator=g, device=dev)
-            for (name, _), lib in zip(CASES, libs):     # none with --trace-only
+            for name, _ in WIDE_CASES if r > 2 else CASES:
+                lib = libs.get((r > 2, name))
+                if lib is None:         # --trace-only
+                    continue
                 cuda_build._functions["thomas_fwd"] = lib
                 tk._EXCHANGES = {}      # every case on exchange buffers of its own
                 try:
@@ -228,7 +271,8 @@ def main():
             cuda_build._functions["thomas_fwd"] = trace_lib
             tk._EXCHANGES = {}
             trace_report(read, lambda: tk.forward_substitution(fac, fac.slab_ids, b4),
-                         f"B={S} m={m} r={r}", single_tile=S == 1)
+                         f"B={S} m={m} r={r}", single_tile=S == 1,
+                         phase_names=WIDE_PHASES if r > 2 else PHASES)
         del fac
         torch.cuda.empty_cache()
 

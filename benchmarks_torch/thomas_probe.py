@@ -18,18 +18,33 @@ the variants of their step, in turns in one process:
 
 Then the cost of a launch: a one-line backward pass through the bare launcher.
 
-    python3 benchmarks_torch/thomas_probe.py [--banded]
+    python3 benchmarks_torch/thomas_probe.py [--banded] [--r 1,2,4,8]
+                                             [--tree DIR] [--tag NAME] [--step-only]
 
-``--banded`` runs the banded+tail cases only (rows 6-9).  Needs one CUDA card
-and nvcc.  Besides the package's build it builds ``csrc/thomas_fwd.cu`` and
-``csrc/thomas_bwd.cu`` again into ``build/probe/`` with
-``-DTHOMAS_MAP_STEP=1`` (the dense passes through the step-map body,
-``run_flow``, instead of ``flow_kernel``) and with ``-DTHOMAS_SPLIT=1`` and
-``2`` (the flag-handoff step with one and with two CTAs a tile, where the
-package's build picks one per launch), all at once.  Each variant's output is
-held against the package's.  Prints one JSON line per case.
+``--banded`` runs the banded+tail cases only (rows 6-9).  ``--r`` gives the
+right-hand sides of a launch (default 1 and 2): at r = 4 and 8 (the wide
+step) the dense passes run at the shapes of rows 1-2 and 1i-2i, the backward
+pass on an inner slab in full and over its tail and the cached forward pass
+in full and resumed (rows 2, 3, 2i, 3i); the banded+tail rows run at r = 1,
+2 only.  ``--tree`` is the root of the checkout whose package is timed
+(default: the one that holds this script), built under its own ``build/``;
+``--step-only`` times that package's build alone (no variants, no launch
+cost: what runs across trees).  To compare a change with its parent on one
+card, unpack the parent into a git-ignored directory and run this script
+once per tree, in turns (parent, change, change, parent), in one call: the
+inputs come from one seed, so each run sees the same factors.
+
+Needs one CUDA card and nvcc.  Besides the package's build it builds
+``csrc/thomas_fwd.cu`` and ``csrc/thomas_bwd.cu`` again into
+``build/probe/`` with ``-DTHOMAS_MAP_STEP=1`` (the dense passes through the
+step-map body, ``run_flow``, instead of ``flow_kernel``; at r = 4 and 8 the
+same wide step) and with ``-DTHOMAS_SPLIT=1`` and ``2`` (the flag-handoff
+step with one and with two CTAs a tile, where the package's build picks one
+per launch), all at once.  Each variant's output is held against the
+package's.  Prints one JSON line per case, with ``--tree`` and ``--tag``.
 """
 
+import argparse
 import json
 import sys
 import time
@@ -38,7 +53,17 @@ from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[1]
+ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+ARGS.add_argument("--banded", action="store_true", help="the banded+tail rows 6-9 only")
+ARGS.add_argument("--r", default="1,2",
+                  help="right-hand sides a launch, comma-separated, of 1, 2, 4 and 8")
+ARGS.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]),
+                  help="root of the checkout whose package is timed")
+ARGS.add_argument("--tag", default="")
+ARGS.add_argument("--step-only", action="store_true",
+                  help="the package's build alone: no variants, no launch cost")
+OPTS = ARGS.parse_args()
+ROOT = Path(OPTS.tree).resolve()
 sys.path.insert(0, str(ROOT))
 
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build  # noqa: E402
@@ -59,20 +84,23 @@ SOURCES = ("thomas_fwd", "thomas_bwd", "thomas_fwd_cached", "sweep_fused")
 VARIANTS = {"map": ({"THOMAS_MAP_STEP": 1}, SOURCES[:2]),
             "split1": ({"THOMAS_SPLIT": 1}, SOURCES[:2]),
             "split2": ({"THOMAS_SPLIT": 2}, SOURCES[:2])}
+STEPS = ("new",) if OPTS.step_only else ("new",) + tuple(VARIANTS)
 
 
 def build_steps() -> dict:
     """step -> {source: launcher}: the package's build ("new") and the
-    variants of :data:`VARIANTS`, all built at once."""
+    variants of :data:`VARIANTS` (none with ``--step-only``), all built at
+    once."""
     cuda_build.build_kernels(list(SOURCES))
-    dirs = {name: ROOT / "build" / "probe" / name for name in VARIANTS}
-    with ThreadPoolExecutor(len(VARIANTS)) as pool:
+    variants = {} if OPTS.step_only else VARIANTS
+    dirs = {name: ROOT / "build" / "probe" / name for name in variants}
+    with ThreadPoolExecutor(max(len(variants), 1)) as pool:
         list(pool.map(lambda name: cuda_build.build_kernels(
-            list(VARIANTS[name][1]), defines=VARIANTS[name][0], build_dir=dirs[name]),
-            VARIANTS))
+            list(variants[name][1]), defines=variants[name][0], build_dir=dirs[name]),
+            variants))
     new = {src: cuda_build.load(src) for src in SOURCES}
     steps = {"new": new}
-    for name, (_, sources) in VARIANTS.items():
+    for name, (_, sources) in variants.items():
         steps[name] = dict(new, **{src: cuda_build.load(src, build_dir=dirs[name])
                                    for src in sources})
     return steps
@@ -119,6 +147,10 @@ def err_of(outs, step):
     return max(err(a, b) for a, b in zip(outs[step], outs["new"]))
 
 
+def emit(rec: dict):
+    print(json.dumps(dict(rec, tree=str(ROOT), tag=OPTS.tag)), flush=True)
+
+
 def random_factors(g, S, m, storage, dev):
     ld = tk._round_up(N, tk.LEAD_MULTIPLE)
 
@@ -160,17 +192,17 @@ def probe(steps, row, storage, fac, s_idx, b4, tail=0, repeats=10):
     runs = {"bwd": lambda: tk.backward_substitution(fac, s_idx, y4, tail=tail)}
     if not tail:
         runs = {"fwd": lambda: tk.forward_substitution(fac, s_idx, b4), **runs}
-    order = ("new", "map", "split1", "split2", "split2", "split1", "map", "new")
+    others = STEPS[1:]
+    order = ("new",) + others + others[::-1] + ("new",)
     for name, fn in runs.items():
         ms, turns, outs = in_turns(steps, fn, order, repeats)
-        print(json.dumps(dict(
+        emit(dict(
             row=row, pass_=name, storage=storage, B=b4.shape[0], S=fac.n_slabs, m=fac.m,
             lines=lines, n=N, r=b4.shape[2] // 2, tail=tail,
-            new_ms=ms["new"], map_ms=ms["map"], split1_ms=ms["split1"], split2_ms=ms["split2"],
-            ms_turns=turns,
+            **{f"{step}_ms": v for step, v in ms.items()}, ms_turns=turns,
             us_per_line={step: 1e3 * v / lines for step, v in ms.items()},
-            variants_vs_new_err=max(err_of(outs, k) for k in ("map", "split1", "split2")),
-        )), flush=True)
+            variants_vs_new_err=max((err_of(outs, k) for k in others), default=0.0),
+        ))
 
 
 def probe_alone(fn, plain, lines, repeats=10, pick=lambda out: out, **fields):
@@ -182,9 +214,8 @@ def probe_alone(fn, plain, lines, repeats=10, pick=lambda out: out, **fields):
     if not isinstance(got, tuple):
         got, want = (got,), (want,)
     ms = time_ms(fn, repeats)
-    print(json.dumps(dict(**fields, lines=lines, n=N, new_ms=ms, us_per_line=1e3 * ms / lines,
-                          vs_plain_err=max(err(a, b) for a, b in zip(got, want)))),
-          flush=True)
+    emit(dict(**fields, lines=lines, n=N, new_ms=ms, us_per_line=1e3 * ms / lines,
+              vs_plain_err=max(err(a, b) for a, b in zip(got, want))))
 
 
 def probe_cached(row, fac, s_idx, b4, start=0):
@@ -283,7 +314,8 @@ def probe_launch_cost(fac, dev):
         _, epoch = ex.take(1, 1, ld, 1)
         if fn(y4.data_ptr(), fac.uband.data_ptr(), 0, 0, fac.cinv_t_re.data_ptr(),
               fac.cinv_t_im.data_ptr(), 0, fac.slab_ids.data_ptr(), x4.data_ptr(), 1, m, N,
-              ld, 1, 1, 0, 0, xchg.data_ptr(), epoch, torch.cuda.current_stream().cuda_stream):
+              ld, 1, 1, 0, 0, xchg.data_ptr(), 0, epoch,
+              torch.cuda.current_stream().cuda_stream):
             raise RuntimeError("thomas_backward failed")
 
     launch()
@@ -295,52 +327,60 @@ def probe_launch_cost(fac, dev):
             launch()
         host += time.perf_counter() - t0
         torch.cuda.synchronize()
-    print(json.dumps(dict(launch_cost_one_line_backward=dict(
+    emit(dict(launch_cost_one_line_backward=dict(
         host_us_per_launch=1e6 * host / 1000,
         device_us_per_launch=1e3 * time_ms(launch, 50),
-    ))), flush=True)
+    )))
 
 
 def main():
+    rs = [int(v) for v in OPTS.r.split(",")]
+    if any(r not in tk.LAUNCH_WIDTHS for r in rs):
+        ARGS.error(f"--r takes {tk.LAUNCH_WIDTHS}")
     dev = torch.device("cuda", 0)
     print(card_name_and_power_limit(), flush=True)
-    banded_only = "--banded" in sys.argv[1:]
-    steps = None if banded_only else build_steps()
+    steps = None if OPTS.banded else build_steps()
     g = torch.Generator(device=dev).manual_seed(0)
-    for storage in () if banded_only else ("bf16", "int8"):
+    for storage in () if OPTS.banded else ("bf16", "int8"):
         i8 = "i" if storage == "int8" else ""
-        # rows 1-2 (1i-2i): one slab of 801 lines, r = 1 and 2
+        # rows 1-2 (1i-2i): one slab of 801 lines
         fac = random_factors(g, 1, N, storage, dev)
-        for r in (1, 2):
+        for r in rs:
             probe(steps, f"1{i8}-2{i8}", storage, fac, fac.slab_ids, rows(g, 1, N, r, dev),
                   repeats=5)
         del fac
         torch.cuda.empty_cache()
         # 16 slabs of 70 lines: all of them at once (jacobi_sweep, rows 1-2 and
         # 1i-2i), and one inner slab in full and over its last 22 lines (rows
-        # 2 and 2i at r = 2, rows 4 and 4i at r = 1)
+        # 2 and 2i at r = 2 and wider, rows 4 and 4i at r = 1)
         fac = random_factors(g, 16, M1_MAX, storage, dev)
-        for r in (1, 2):
+        for r in rs:
             probe(steps, f"1{i8}-2{i8}", storage, fac, fac.slab_ids, rows(g, 16, M1_MAX, r, dev))
         s = fac.slab_ids[8:9]
-        for r, row in ((1, f"4{i8}"), (2, f"2{i8}")):
+        for r in rs:
+            row = f"4{i8}" if r == 1 else f"2{i8}"
             b4 = rows(g, 1, M1_MAX, r, dev)
             probe(steps, row, storage, fac, s, b4)
             probe(steps, row, storage, fac, s, b4, tail=TRACE_TAIL)
-        # the cached forward pass at one inner slab: rows 3 and 5 (3i, 5i)
-        for r, row in ((1, f"3{i8}"), (2, f"5{i8}")):
+        # the cached forward pass at one inner slab: rows 3 and 5 (3i, 5i; row
+        # 3 at r = 4 and 8)
+        for r in rs:
+            row = f"5{i8}" if r == 2 else f"3{i8}"
             b4 = rows(g, 1, M1_MAX, r, dev)
             probe_cached(row, fac, s, b4)
             probe_cached(row, fac, s, b4, start=M1_MAX - TRACE_TAIL)
-        if storage == "bf16":
+        if storage == "bf16" and not OPTS.step_only:
             probe_launch_cost(fac, dev)
         del fac
         torch.cuda.empty_cache()
+    narrow = [r for r in rs if r <= 2]
+    if not narrow:
+        return
     # banded+tail pivots: rows 6 and 7 at one inner slab and at 16 batch rows,
-    # and the fused sweeps of rows 8-9
+    # and the fused sweeps of rows 8-9 (r = 1, 2)
     fac = random_banded(g, 16, M1_MAX, dev)
     s = fac.slab_ids[8:9]
-    for r in (1, 2):
+    for r in narrow:
         b4 = rows(g, 1, M1_MAX, r, dev)
         probe_cached("6", fac, s, b4)
         probe_cached("6", fac, s, b4, start=M1_MAX - TRACE_TAIL)
@@ -351,7 +391,7 @@ def main():
         probe_cached("6", fac, fac.slab_ids, b4)
         probe_backward_banded(fac, fac.slab_ids, tk.forward_substitution_cached(
             fac, fac.slab_ids, b4)[0])
-    for r in (1, 2):
+    for r in narrow:
         probe_sweeps(fac, r, g, dev)
 
 

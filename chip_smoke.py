@@ -1042,6 +1042,12 @@ def wide_line_entries(problem, path: str, counts: dict) -> list:
             if int8:
                 entry["library_call"] = LIBRARY_CALL_INT8
             kernels.append(entry)
+        if r in (4, 8):
+            # the wide step's line (PERF.md section 6), and no race in its
+            # handoff: repeats of each pass give the same bits
+            line_step_report(path, r, [(e, m) for e in kernels[-len(runs):]],
+                             {kname + variant: kernel
+                              for kname, variant, kernel, _, _ in runs})
     del dense_re, dense_im
     return kernels
 

@@ -19,9 +19,7 @@
 // latter double-buffered: a fast CTA forms the next plane's lanes while a
 // slow one still reads this plane's); at r = 4 and 8 the latter as plain rows
 // in the caller's two-plane scratch, each CTA flagging its lanes (note 4);
-// the x stack is only written.  A build
-// with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py only) launches the
-// grid-barrier step instead, plane::pass_kernel<R, true, S>.
+// the x stack is only written.
 //
 // Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B in bf16 (0.304 ms for
 // 48 planes at mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (0.56 ms
@@ -60,14 +58,8 @@ extern "C" int plane_backward(
   a.ld = ld;
   a.base = base;
   a.start = start;
-#if PLANE_OLD_STEP
-  (void)xchg;
-  (void)epoch;
-  cudaError_t err = plane::run_pass<true>(r, a, (cudaStream_t)stream);
-#else
   cudaError_t err =
       plane::run_flow<true>(r, a, static_cast<uint2*>(xchg), epoch, (cudaStream_t)stream);
-#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -22,9 +22,7 @@
 // tiles and y lanes handed over as flagged exchange words: one grid-wide wait
 // a plane; r = 4 and 8 on tensor cores), the limits (r = 1, 2, 4 or 8; ld <= 12448 at
 // r = 2 and 3104 at r = 8 in bf16) and the bound.
-// The carry travels in the exchange words; the t stack is only written.  A
-// build with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py only) launches the
-// grid-barrier step instead, plane::pass_kernel<R, false, S>.
+// The carry travels in the exchange words; the t stack is only written.
 //
 // Bound: bytes.  (l - start) planes x 2 x ld^2 x 2 B in bf16 (0.304 ms for
 // 48 planes at mn = 2304), 2 x ld^2 x 1 B plus the scales in int8 (0.56 ms
@@ -64,14 +62,8 @@ extern "C" int plane_forward(
   a.ld = ld;
   a.base = base;
   a.start = start;
-#if PLANE_OLD_STEP
-  (void)xchg;
-  (void)epoch;
-  cudaError_t err = plane::run_pass<false>(r, a, (cudaStream_t)stream);
-#else
   cudaError_t err =
       plane::run_flow<false>(r, a, static_cast<uint2*>(xchg), epoch, (cudaStream_t)stream);
-#endif
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -6,10 +6,8 @@
 //     plane::apply_kernel<R, S>         one plane apply [Yr; Yi] @ P[k]     plane_apply.cu
 //
 // which those files instantiate and launch, for S = Storage::kBf16 (bf16
-// pivot planes) and S = Storage::kInt8 (int8 planes with f32 scales), and,
-// only in a build with -DPLANE_OLD_STEP=1 (benchmarks_torch/plane_probe.py
-// times old against new), the grid-barrier step the passes ran before,
-// plane::pass_kernel<R, kBackward, S>.  A 3D stencil matrix on an (l, a, b)
+// pivot planes) and S = Storage::kInt8 (int8 planes with f32 scales).  A 3D
+// stencil matrix on an (l, a, b)
 // grid is block tridiagonal over its z-planes: the pivot blocks are dense
 // (mn x mn) inverses, mn = a b, and the couplings between planes are 9-tap
 // in-plane stencils.  Per plane p (forward: start..l-1, backward: l-1..start)
@@ -48,7 +46,7 @@
 //
 // The flag-handoff plane step (flow_kernel).  A plane step needs the whole
 // y_p in every output tile, and y_p[f] needs the carry only at the lanes
-// f + dj n + di.  The grid-barrier step (pass_kernel, below) shared the
+// f + dj n + di.  The grid-barrier step these passes ran before shared the
 // stencil out over the grid, met at a grid barrier, had every block stage
 // the whole y_p, and met again: two barriers a plane, during which the pivot
 // stream stopped (its ring held 3 chunks), at 2.8 (r = 1) and 4.1 (r = 2)
@@ -177,7 +175,6 @@
 // stacks to the per-plane path).
 #pragma once
 
-#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -185,9 +182,7 @@
 
 namespace plane {
 
-namespace cg = cooperative_groups;
-
-constexpr int kThreads = 128;          // threads per block (plane apply, old step)
+constexpr int kThreads = 128;          // threads per block (plane apply)
 constexpr int kWarps = kThreads / 32;
 constexpr int kLanes = 8;              // output lanes per tile
 constexpr int kChunkBytes = 4096;      // bytes of one plane's tile per staged chunk
@@ -214,11 +209,10 @@ static_assert(kThreads == kScaleBlock, "int8 pass j of a chunk is scale block j"
 // Timing by ablation (benchmarks_torch/plane_probe.py): a build with
 // -DPLANE_ABLATE=<mask> leaves single phases of a plane step out.  Its results
 // are wrong and only its time is read; the package always builds with 0.
-// Bits: no synchronisation (the old step's grid barriers; the flag step's
-// flag waits: words read once, flags unchecked), no stencil (old step: no
-// phase A; flag step: y = rhs), no pivot stream (old step: no pivot columns;
-// flag step: no copies, the products read stale slots), and, flag step only,
-// no y staging (no y words read: no grid-wide wait either), no products.
+// Bits: no synchronisation (the flag waits: words read once, flags
+// unchecked), no stencil (y = rhs), no pivot stream (no copies, the products
+// read stale slots), no y staging (no y words read: no grid-wide wait
+// either), no products.
 #ifndef PLANE_ABLATE
 #define PLANE_ABLATE 0
 #endif
@@ -233,12 +227,6 @@ __host__ __device__ constexpr size_t red_bytes() {
   return sizeof(float) * kWarps * 2 * R * kLanes;
 }
 
-// shared memory of a pass on the old step: the ring, the staged y_p, the
-// reduction
-template <int R, Storage S>
-__host__ __device__ constexpr size_t pass_smem_bytes(int ld) {
-  return Store<S>::kRingBytes + sizeof(float) * (size_t)2 * R * ld + red_bytes<R>();
-}
 
 __device__ __forceinline__ void widen_bf16x8(const uint4 v, float* f) {
   f[0] = __uint_as_float(v.x << 16);
@@ -269,7 +257,7 @@ __device__ __forceinline__ void cp_async16(void* smem_dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src));
 }
 
-// The block's stream of pivot-tile chunks (plane apply, old step).  Work item
+// The block's stream of pivot-tile chunks (plane apply).  Work item
 // q is output tile blockIdx.x + k gridDim.x of plane first + dir (q /
 // tiles_blk), k = q % tiles_blk; chunk c of an item covers input rows
 // [c kChunkRows, (c+1) kChunkRows).  Chunk g = q nch + c goes to ring slot
@@ -341,7 +329,7 @@ __device__ __forceinline__ void load_row(const unsigned char* sre, int im, const
   }
 }
 
-// One output tile (plane apply, old step): stream its nch chunks (chunk
+// One output tile (plane apply): stream its nch chunks (chunk
 // counter g runs on), multiply by the rows y (2R x ld floats, shared or
 // global memory), reduce over the block and write the 2R x 8 results to
 // out[qq ld + o0 + l].
@@ -427,11 +415,9 @@ struct PassArgs {
                            //   null for a zero carry; backward: unused
   float* kept;             // forward: y stack (l, 2r, ld), planes >= start;
                            //   backward: r = 4, 8: two-plane scratch (2, 2r, ld)
-                           //   of the planes' y rows (old step: one plane)
+                           //   of the planes' y rows
   float* out;              // t stack (forward; may be null) or x stack
                            //   (backward), (l, 2r, ld), planes >= start
-  float* carry;            // old step only, forward without a t stack:
-                           //   one-plane scratch (2r, ld)
   int l, mn, n, ld;        // n: the plane's fast axis, for the flat shifts
   int base;                // pivot plane of plane p is base + p
   int start;               // planes start..l-1 are computed
@@ -1442,157 +1428,6 @@ inline cudaError_t run_flow(int r, const PassArgs& a, uint2* xchg, unsigned epoc
   if (a.scale != nullptr) return launch_flow_r<kBackward, Storage::kInt8>(r, a, xchg, epoch, stream);
   return launch_flow_r<kBackward, Storage::kBf16>(r, a, xchg, epoch, stream);
 }
-
-// ---------------------------------------------------------------------------
-// The grid-barrier step (old step: built only with -DPLANE_OLD_STEP=1)
-// ---------------------------------------------------------------------------
-//
-// Per plane two phases: (A) the threads of the whole grid share out the
-// lanes of y_p, each forming its lanes from the carry in global memory and
-// its own weights, and write them to the y stack (the scratch in the
-// backward pass); then, after a grid barrier, (B) every block of 128
-// threads loads the whole y_p into shared memory and computes its output
-// tiles of t_p, streaming their pivot columns through a ring of kStages
-// chunks filled with cp.async.  A second barrier ends the step.  The carry
-// lives in the t stack, the x stack or a one-plane scratch, written in (B)
-// and read in (A) across a barrier.
-
-// R = number of right-hand sides r (rows are 2R); kBackward = top-down pass;
-// S = storage of the pivot planes.
-template <int R, bool kBackward, Storage S>
-__global__ void __launch_bounds__(kThreads) pass_kernel(const PassArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* s_y = reinterpret_cast<float*>(smem_raw + Store<S>::kRingBytes);   // [2R][ld]
-  float* red = s_y + (size_t)2 * R * a.ld;                          // [kWarps][2R*8]
-
-  const int tid = threadIdx.x;
-  const int ld = a.ld, mn = a.mn;
-  const size_t row = (size_t)2 * R * ld;         // floats per plane of a stack
-  const int tiles_row = ld / kLanes;
-  const int count = a.l - a.start;
-  const int tiles_blk = (tiles_row - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
-
-  TileStream<S> ts;
-  ts.pre = static_cast<const unsigned char*>(a.pre);
-  ts.pim = static_cast<const unsigned char*>(a.pim);
-  ts.scale = a.scale;
-  ts.ring = smem_raw;
-  ts.ld = ld;
-  ts.tiles_row = tiles_row;
-  ts.nch = (ld + Store<S>::kChunkRows - 1) / Store<S>::kChunkRows;
-  ts.total = count * tiles_blk * ts.nch;
-  ts.first = a.base + (kBackward ? a.l - 1 : a.start);
-  ts.dir = kBackward ? -1 : 1;
-  ts.tiles_blk = tiles_blk;
-  for (int g = 0; g < kStages - 1; ++g) ts.request(g);
-  int g = 0;
-
-  // flat offsets of the taps: (dj, di) -> dj n + di
-  int offs[kTaps];
-#pragma unroll
-  for (int d = 0; d < kTaps; ++d) offs[d] = (d / 3 - 1) * a.n + (d % 3 - 1);
-
-  for (int s = 0; s < count; ++s) {
-    const int p = kBackward ? a.l - 1 - s : a.start + s;
-    const float* carry =
-        kBackward ? (s == 0 ? nullptr : a.out + (size_t)(p + 1) * row)
-                  : (s == 0 ? a.t_init : a.out ? a.out + (size_t)(p - 1) * row : a.carry);
-    float* ydst = kBackward ? a.kept : a.kept + (size_t)p * row;
-    float* t_out = kBackward || a.out ? a.out + (size_t)p * row : a.carry;
-
-    // (A) y_p = rhs_p - S_p(carry), lanes shared out over the whole grid; the
-    //     carry was written by other blocks: read it past the (incoherent) L1
-    const float* rhs = a.rhs + (size_t)p * row;
-    const float* w = a.w + (size_t)p * 2 * kTaps * ld;
-    for (int f = blockIdx.x * kThreads + tid; f < (kNoStencil ? 0 : ld);
-         f += gridDim.x * kThreads) {
-      float accr[R], acci[R];
-#pragma unroll
-      for (int q = 0; q < R; ++q) accr[q] = acci[q] = 0.f;
-      if (carry != nullptr && f < mn) {
-#pragma unroll
-        for (int d = 0; d < kTaps; ++d) {
-          const int src = f + offs[d];
-          if (src < 0 || src >= mn) continue;      // zero weight: never read
-          const float wr = __ldg(w + d * ld + f);
-          const float wi = __ldg(w + (kTaps + d) * ld + f);
-#pragma unroll
-          for (int q = 0; q < R; ++q) {
-            const float tr = __ldcg(carry + q * ld + src);
-            const float ti = __ldcg(carry + (R + q) * ld + src);
-            accr[q] = accr[q] + wr * tr - wi * ti;
-            acci[q] = acci[q] + wr * ti + wi * tr;
-          }
-        }
-      }
-#pragma unroll
-      for (int q = 0; q < R; ++q) {
-        ydst[q * ld + f] = f < mn ? __ldg(rhs + q * ld + f) - accr[q] : 0.f;
-        ydst[(R + q) * ld + f] = f < mn ? __ldg(rhs + (R + q) * ld + f) - acci[q] : 0.f;
-      }
-    }
-    if (!kNoSync) cg::this_grid().sync();
-
-    // (B) the whole y_p into shared memory, then this block's tiles of t_p
-    for (int i = tid; i < 2 * R * ld / 4; i += kThreads)
-      reinterpret_cast<float4*>(s_y)[i] = __ldcg(reinterpret_cast<const float4*>(ydst) + i);
-    __syncthreads();
-    for (int k = 0; k < tiles_blk; ++k)
-      tile_product<R, S>(ts, g, s_y, red, t_out, ((int)blockIdx.x + k * (int)gridDim.x) * kLanes);
-
-    // all tiles of t_p are complete before any block forms y_{p+1}
-    if (s + 1 < count && !kNoSync) cg::this_grid().sync();
-  }
-}
-
-#if PLANE_OLD_STEP
-// the old step's one-plane scratch (the y'_p of the backward pass, the carry
-// of a forward pass without a t stack), for planes up to the widest fused one
-constexpr int kOldMaxLd = 24928;
-constexpr int kOldMaxRhs = 2;
-__device__ float g_old_scratch[2][2 * kOldMaxRhs * kOldMaxLd];
-
-template <int R, bool kBackward, Storage S>
-inline cudaError_t launch_pass(const PassArgs& a, cudaStream_t stream) {
-  auto kernel = pass_kernel<R, kBackward, S>;
-  const size_t smem = pass_smem_bytes<R, S>(a.ld);
-  int dev = 0, sms = 0, per_sm = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  if (smem > (size_t)optin) return cudaErrorInvalidValue;   // plane too wide
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  const int tiles = a.ld / kLanes;
-  const int grid = tiles < per_sm * sms ? tiles : per_sm * sms;
-  PassArgs args = a;
-  void* params[] = {&args};
-  return cudaLaunchCooperativeKernel((void*)kernel, dim3(grid), dim3(kThreads), params, smem,
-                                     stream);
-}
-
-// A pass on the grid-barrier step, its scratch in g_old_scratch
-template <bool kBackward>
-inline cudaError_t run_pass(int r, PassArgs a, cudaStream_t stream) {
-  if (!valid_pass(r, a) || r > kOldMaxRhs || a.ld > kOldMaxLd) return cudaErrorInvalidValue;
-  float* scratch = nullptr;
-  cudaError_t err = cudaGetSymbolAddress(reinterpret_cast<void**>(&scratch), g_old_scratch);
-  if (err != cudaSuccess) return err;
-  if (kBackward) a.kept = scratch;
-  a.carry = scratch + 2 * kOldMaxRhs * kOldMaxLd;
-  if (a.scale != nullptr)
-    return r == 1 ? launch_pass<1, kBackward, Storage::kInt8>(a, stream)
-                  : launch_pass<2, kBackward, Storage::kInt8>(a, stream);
-  return r == 1 ? launch_pass<1, kBackward, Storage::kBf16>(a, stream)
-                : launch_pass<2, kBackward, Storage::kBf16>(a, stream);
-}
-#endif
 
 // One plane apply: block t computes output tile t of [Yr; Yi] @ P[idx], rows
 // read from global memory as the chunks stream (no bound on ld).

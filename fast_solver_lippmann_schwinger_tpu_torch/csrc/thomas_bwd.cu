@@ -52,6 +52,7 @@ extern "C" int thomas_backward(
     int batch, int m, int n, int ld, int r, int m_eff, int tail_start, int half,
     void* xchg,              // exchange words of 8 bytes, zeroed once: dense planes
                              //   (4, B, ld, 2r, 2), banded+tail (m_eff, B, ld, 2r, 2)
+    float* rows,             // r = 4, 8: 4 x B slots of the wide step's rows; else null
     unsigned epoch,          // flag of line m-1 (lines take epoch .. + m_eff - 1)
     void* stream) {
   if (m_eff < 1 || m_eff > m) return (int)cudaErrorInvalidValue;
@@ -73,6 +74,7 @@ extern "C" int thomas_backward(
   a.count = m_eff;
   a.tail_start = tail_start;
   a.half = half;
+  a.rows = rows;
   uint2* words = static_cast<uint2*>(xchg);
   cudaStream_t st = (cudaStream_t)stream;
 #if THOMAS_MAP_STEP

@@ -102,25 +102,62 @@
 // sides (the wrappers pad r = 3 to 4 and r = 5..7 to 8 with zero columns, and
 // run more than 8 as groups of 8), so that each pivot plane is read once for
 // the whole batch, as the TPU kernels do for any r (pallas_thomas.py,
-// _solve_cached_multi).  r = 1 and 2 keep the step above unchanged.  Wider,
-// a thread's partial sums of all 2r x 8 outputs and w of its rows (wk) would
-// not fit the 128 registers a thread has; a first version that kept w in
-// shared memory and took f32 products a pair of right-hand sides at a time
-// spent 4.5 of a 12.5 us line step on its products and needed two CTAs a
-// tile at n = 801 (its stage buffers carried 16 right-hand rows), which
-// doubles the carry's words (thomas_ablation.py --r 8, PERF.md §6).  So at
-// r = 4 and 8:
-//   - a thread copies the right-hand and band rows of its rows of the line
-//     straight into w and a band buffer in shared memory (cp.async, 4 bytes
-//     each, while the carry is polled) and forms w there; the stage buffers
-//     carry the plane runs only, so a line up to 848 lanes takes one CTA a
-//     tile at r = 8;
-//   - each warp multiplies 64-row segments of the staged plane run by w on
-//     tensor cores (wide_mma.cuh: mma.sync m16n8k16, w split into three bf16
-//     terms, f32 sums; a warp ends with 8 sums a lane, stored on the warps'
-//     sums as before), after a barrier of the block (a segment holds other
-//     threads' rows of w);
-//   - the carry's words are polled 16 a thread at once (poll_strided).
+// _solve_cached_multi).  r = 1 and 2 keep the step above.  Wider, a thread's
+// 2r x 8 partial sums would not fit its registers, so the products run on
+// tensor cores, and the step is built around them (run_wide, below; the
+// dense passes and the cached forward pass share it).  A first version kept
+// the step above otherwise: at n = 801 and r = 8 a line took 7.2 us,
+// of it 2.2 in the carry's words (every CTA read the whole line's 2r x 810
+// flagged words, 104 KB, about 10.5 MB of L2 a line), 1.2 in the band step
+// (every one of the 101 CTAs formed w for all 801 lanes) and 1.9 in the
+// products (w split again for every 64-row segment, B fragments an entry at a
+// time; thomas_ablation.py --r 8, PERF.md §5).  The wide step:
+//   - Pre-added rows.  The CTA that finishes a tile of line k also forms its
+//     part of line k + 1's w, w = rhs - band . t, from the tile's 8 lanes: the
+//     full value on the lanes whose three taps lie in the tile, and on the two
+//     edge lanes (8t - 1 and 8t + 8) the one tap it holds, as an edge term.
+//     The band step runs once a lane, not once a CTA, off the consumers'
+//     chain: a consumer adds the edge terms to the rows, nothing else.  With
+//     two CTAs a tile, the one that does not hold the tile's lanes hands its
+//     partial sums over (X rows behind a flag of their own) and the other adds
+//     them in rank order and publishes the tile alone.
+//   - Plain rows behind flags.  The rows go to a rows buffer as plain f32
+//     (half the bytes of flagged words), then one flag word a tile (a
+//     release: the publishing warp's stores, __syncwarp, a fence and the
+//     flag; one CTA a tile flags its tiles of a line and batch row together
+//     after the last).  Flags lie in the exchange words 32 bytes apart, rows
+//     in a buffer of their own (thomas_kernels.Exchange), so no stale row is
+//     ever read as a flag.
+//   - One copy of the rows a CTA.  One warp polls the flags of the tiles its
+//     slice needs (acquire loads), and one thread bulk-copies the slice's 2r
+//     rows into shared memory and its tiles' edge terms into the stage buffer
+//     that the item before used (cp.async.bulk, after a proxy fence); once
+//     they are in, each warp adds the edge terms to its k-steps' columns and
+//     splits their w (16 input rows, the first aligned to 16: a slice of two
+//     CTAs a tile may start 8 rows into one, and an int8 k-step then lies in
+//     one scale block) once into three bf16 terms (wide_mma.cuh), kept in
+//     shared memory as fragments for every tile of the line and batch row
+//     that the CTA takes.  Lanes of the CTA's own tiles write y (w).  (Every
+//     thread adding the edge terms into the copied rows met the same banks
+//     eight at a time; the loads of a warp's own k-steps straight from
+//     global memory, eight cache lines a load, cost more than the copy.)
+//   - The products of wide_mma.cuh's plane section: B fragments by one
+//     ldmatrix.x4.trans (bf16) or a byte permute (int8) from the staged
+//     plane run, each k-step on fresh sums, int8 k-steps scaled by their
+//     block before they are added, at r = 4 the h and m terms stacked in M
+//     (two products a part, not three).
+//   - Two stage buffers (plane runs and int8 scales only), one item ahead: w
+//     of the slice takes the shared memory of a third.
+//   - Outputs (the cached pass's t stack, the backward pass's x stack) by the
+//     publisher of the CTA that holds the tile's lanes.
+// By ablation (thomas_ablation.py --r 4,8, PERF.md §6) a first form of this
+// step, where every warp polled the flags of its own k-steps and loaded
+// their rows straight from global memory, lost most of its line there; the
+// same rows as flagged words (flags beside the values, no fence) lost more.
+// No atomics: a pass is bit-identical from
+// run to run.  The four-slot ring of the dense passes holds as before (every
+// CTA reads every tile of its slice, and publishes line k only after it read
+// line k - 1).
 //
 // Limits.  r = 1, 2, 4 or 8 on dense planes (1 or 2 on banded+tail pivots and
 // in the fused sweeps), and a slice whose kStages stage buffers fit in one
@@ -128,9 +165,10 @@
 // tile up to n = 976 in bf16 at r = 2, two up to n = 1968 in bf16 and 2448 in
 // int8, the cached forward pass and the backward pass on banded+tail pivots
 // (step maps without the trace rows) too; the fused sweeps, which keep the
-// trace rows beside the carry, 912 and 1840; at r = 8 one CTA a tile up to
-// n = 848 in bf16, two up to 1760 in bf16 and 2144 in int8, at r = 4 up to
-// 2448 and 2560 (test_longest_line_fits; the Python mirror is
+// trace rows beside the carry, 912 and 1840; the wide step (w of the slice,
+// its A fragments and the plane runs) at r = 8 one CTA a tile up to n = 912
+// in bf16 and 1064 in int8, two up to 1904 in bf16 and 2192 in int8, at r = 4
+// up to 1352 and 1536 on one, 2560 on two (test_longest_line_fits; the Python mirror is
 // thomas_kernels.line_fits).  Anything else is refused with
 // cudaErrorInvalidValue before a launch, and a cooperative launch that does
 // not fit returns its error.
@@ -174,8 +212,13 @@ static_assert(kStages >= 2, "a stage being computed and one in flight at least")
 // -DTHOMAS_ABLATE=<mask> leaves single phases of a line step out: the carry's
 // load (with or without the band step), the products, the bulk copies of the
 // planes or of the band and right-hand rows, the flag wait (the words are
-// read once, flags unchecked).  Its results are wrong and only its time is
-// read; the package always builds with 0.
+// read once, flags unchecked); the wide step (r = 4, 8) reads the bits as
+// its own phases: no band step (the producer's), no rows copy (neither
+// flags nor the copy of w's rows and edge terms), no flag wait, no
+// producer's loads of the next line's band and right-hand rows (the row
+// copies' bit), plus the releases' fences and the edge terms (below).  Its
+// results are wrong and only its time is read; the package always builds
+// with 0.
 #ifndef THOMAS_ABLATE
 #define THOMAS_ABLATE 0
 #endif
@@ -257,6 +300,11 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// the cp.async copies issued so far as one group (plane_pass.cuh's y staging)
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
 // The L1 line of p fetched ahead of its load
 __device__ __forceinline__ void prefetch_l1(const void* p) {
   asm volatile("prefetch.global.L1 [%0];\n" ::"l"(p));
@@ -312,33 +360,6 @@ __device__ __forceinline__ void poll_words(const uint2* const (&ptr)[K], uint4 (
   }
 }
 
-// poll_words over the words base + 2 (first + u step), u < K, that lie below
-// `words` (the others read as ready), their addresses computed again at each
-// poll instead of kept in registers: a wide batch polls 16 words a thread at
-// once
-template <int K, bool kWait>
-__device__ __forceinline__ void poll_strided(const uint2* base, int first, int step, int words,
-                                             uint4 (&v)[K], unsigned want) {
-#pragma unroll
-  for (int u = 0; u < K; ++u) {
-    const int w = first + u * step;
-    v[u] = w < words ? ld_words(base + 2 * (size_t)w) : make_uint4(0u, want, 0u, want);
-  }
-  if (!kWait) return;
-  for (unsigned polls = 0;; ++polls) {
-    bool ready = true;
-#pragma unroll
-    for (int u = 0; u < K; ++u) ready = ready && words_ready(v[u], want);
-    if (ready) return;
-    if (polls > (1u << 24)) __trap();
-#pragma unroll
-    for (int u = 0; u < K; ++u) {
-      const int w = first + u * step;
-      if (w < words && !words_ready(v[u], want)) v[u] = ld_words(base + 2 * (size_t)w);
-    }
-  }
-}
-
 // Sum of v[0..V) over the warp's 32 lanes by transpose-reduce: each round
 // trades half the values with the lane O apart and keeps the other half, so
 // after log2(V) rounds lane L holds the sum of value L / (32 / V) (lanes
@@ -384,13 +405,12 @@ __host__ __device__ constexpr bool wide() {
 }
 
 // One stage buffer of a slice of cmax rows: the two plane runs (16 B a row in
-// bf16, 8 B in int8), the int8 scales of the tile, and, r <= 2, the 6 band
-// rows and the 2R right-hand rows of the slice (wide batches copy those
-// straight into their rows of w and of the band, below)
+// bf16, 8 B in int8), the int8 scales of the tile, the 6 band rows and the 2R
+// right-hand rows of the slice (r <= 2; the wide step's stages: wide_smem_bytes)
 template <int R, Storage S>
 __host__ __device__ constexpr size_t flow_stage_bytes(int cmax, int ld) {
   return (size_t)2 * cmax * (S == Storage::kInt8 ? 8 : 16) + scale_buf_bytes<S>(ld) +
-         (wide<R>() ? 0 : sizeof(float) * (size_t)(6 + 2 * R) * cmax);
+         sizeof(float) * (size_t)(6 + 2 * R) * cmax;
 }
 
 // Floats of the carry rows: [2R][cmax + 16], lanes i0 - 8 .. i0 + cmax + 8
@@ -414,42 +434,54 @@ __host__ __device__ constexpr size_t flow_red_bytes() {
   return sizeof(float) * 2 * 2 * R * kLanes * red_pitch<SPLIT>();
 }
 
-// Wide batches: w of the slice's rows, [2R][cmax], then the 6 band rows of the
-// line, [6][cmax]; a thread copies its rows of both in (cp.async) and forms
-// its rows of w there, and every warp reads w for its products
+// The wide step (r = 4, 8; note "Wide batches"): the k-steps (16 input rows)
+// of a slice of cmax rows, its first k-step aligned to 16 rows (a slice may
+// start 8 rows into one); the 16-byte groups of a lane's A fragments of a
+// k-step (three bf16 terms at r = 8, two at r = 4); the rows a stage buffer
+// holds of each plane part (the slice from its 16-row boundary to the end of
+// its last k-step)
+__host__ __device__ constexpr int wide_ksteps(int cmax) { return (cmax + 23) / 16; }
 template <int R>
-__host__ __device__ constexpr size_t flow_w_bytes(int cmax) {
-  return wide<R>() ? sizeof(float) * (2 * R + 6) * (size_t)cmax : 0;
+__host__ __device__ constexpr int wide_groups() { return R == 8 ? 3 : 2; }
+__host__ __device__ constexpr int wide_stage_rows(int cmax) { return cmax + 24; }
+// stage buffers of the wide step: one item ahead (w of the slice takes the
+// shared memory of a third)
+constexpr int kWideStages = 2;
+// the row pitch of w of a slice in shared memory, in floats: 8 more than a
+// multiple of 32, so that a half-warp's fragment loads meet no bank twice
+__host__ __device__ constexpr int wide_spitch(int cmax) {
+  return (16 * wide_ksteps(cmax) + 31) / 32 * 32 + 8;
 }
+// the publisher's next-step operands, parked during an item: kPubFloats
+// floats a lane of one warp
+constexpr int kPubFloats = 20;
+__host__ __device__ constexpr size_t wide_pub_bytes() { return sizeof(float) * 32 * kPubFloats; }
 
-// 4 bytes global -> this thread's shared memory, asynchronously (the
-// right-hand and band rows of a wide batch's w, while the carry is polled)
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_addr(dst)), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+// mbarriers (64 B), the warps' sums, the publisher's operands, w of the
+// slice (2R rows at wide_spitch), the A fragments of the slice's k-steps (a
+// lane's groups side by side: [k-step][group][lane] x 16 B), then the stage
+// ring (plane runs and scales only)
+template <int R, Storage S, int SPLIT>
+__host__ __device__ constexpr size_t wide_smem_bytes(int ld) {
+  return 64 + flow_red_bytes<R, SPLIT>() + wide_pub_bytes() +
+         sizeof(float) * 2 * R * (size_t)wide_spitch(slice_rows<SPLIT>(ld)) +
+         (size_t)wide_ksteps(slice_rows<SPLIT>(ld)) * wide_groups<R>() * 32 * 16 +
+         kWideStages * ((size_t)2 * wide_stage_rows(slice_rows<SPLIT>(ld)) *
+                            (S == Storage::kInt8 ? 8 : 16) +
+                        scale_buf_bytes<S>(ld));
 }
 
 template <int R, Storage S, int SPLIT>
 __host__ __device__ constexpr size_t flow_smem_bytes(int ld) {
-  return 64 + flow_red_bytes<R, SPLIT>() + flow_prev_bytes<R>(slice_rows<SPLIT>(ld)) +
-         flow_w_bytes<R>(slice_rows<SPLIT>(ld)) +
-         kStages * flow_stage_bytes<R, S>(slice_rows<SPLIT>(ld), ld);
+  return wide<R>() ? wide_smem_bytes<R, S, SPLIT>(ld)
+                   : 64 + flow_red_bytes<R, SPLIT>() + flow_prev_bytes<R>(slice_rows<SPLIT>(ld)) +
+                         kStages * flow_stage_bytes<R, S>(slice_rows<SPLIT>(ld), ld);
 }
 
 // 16-byte exchange words a thread polls at once: all of its words at n = 801
-// for r <= 2; 16 for wide batches (poll_strided: two rounds of the 26 words a
-// thread reads at r = 8 with two CTAs a tile, one of the 7 at n = 401)
 template <int R, int SPLIT>
 __host__ __device__ constexpr int poll_batch() {
-  return R > 2 ? 16 : (SPLIT == 1 ? 2 : 4) * R;
+  return (SPLIT == 1 ? 2 : 4) * R;
 }
 
 // --- the pass -----------------------------------------------------------------
@@ -458,20 +490,24 @@ constexpr int kSlots = 4;              // lines of the exchange ring
 
 struct FlowArgs {
   PassArgs a;              // operands (dense layout)
-  uint2* xchg;             // (kSlots, B, ld, 2r, SPLIT) exchange words (value, flag)
+  uint2* xchg;             // (kSlots, B, ld, 2r, SPLIT) exchange words (value, flag);
+                           //   the wide step: its flags, as FlowLaunch::rows says
   unsigned epoch;          // flag of the pass's first line step
 };
 
+// the wide step of a dense pass (r = 4, 8), below
 template <int R, bool kBackward, Storage S, int SPLIT>
-__global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLIT>())
-    flow_kernel(const FlowArgs fa) {
+__device__ __forceinline__ void flow_wide(const FlowArgs& fa);
+
+// The dense pass at r = 1, 2
+template <int R, bool kBackward, Storage S, int SPLIT>
+__device__ __forceinline__ void flow_narrow(const FlowArgs& fa) {
   constexpr int kSplit = SPLIT;         // CTAs a tile
   constexpr int kFlowThreads = flow_threads<SPLIT>();
   constexpr int kFlowWarps = kFlowThreads / 32;
   constexpr int V = 2 * R * kLanes;     // output values of a tile: rows x lanes
   constexpr int NW = kSplit * R;        // 16-byte words a lane: 2R rows x kSplit halves
   constexpr int kPollBatch = poll_batch<R, SPLIT>();
-  constexpr bool kWide = wide<R>();
   const PassArgs a = fa.a;
   const int n = a.n, ld = a.ld, m = a.m;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -498,12 +534,7 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
   float* red = reinterpret_cast<float*>(smem + 64);                   // warps' sums
   float* s_prev = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>());
   const int pp = cmax + 16;                                          // its row pitch
-  // wide batches: w of the slice's rows, [2R][cmax], and the band rows [6][cmax]
-  float* s_w = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>() +
-                                        flow_prev_bytes<R>(cmax));
-  float* s_bw = s_w + 2 * R * cmax;
-  unsigned char* ring = smem + 64 + flow_red_bytes<R, SPLIT>() + flow_prev_bytes<R>(cmax) +
-                        flow_w_bytes<R>(cmax);
+  unsigned char* ring = smem + 64 + flow_red_bytes<R, SPLIT>() + flow_prev_bytes<R>(cmax);
   const size_t stage_bytes = flow_stage_bytes<R, S>(cmax, ld);
   const size_t pbytes = (size_t)cmax * (S == Storage::kInt8 ? 8 : 16);
 
@@ -544,46 +575,25 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
     const uint2* src = slot(k, b);
     const unsigned want = fa.epoch + (unsigned)k;
     const int words = (hi - lo) * NW;
-    if constexpr (kWide) {
-      const int nw = kNoCarryLoad ? 0 : words;
-      for (int w0 = 0; w0 < nw; w0 += kFlowThreads * kPollBatch) {
-        uint4 v[kPollBatch];
-        poll_strided<kPollBatch, !kNoFlagWait>(src + (size_t)lo * NW * 2, w0 + tid,
-                                                kFlowThreads, nw, v, want);
+    for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
+      const uint2* ptr[kPollBatch];
 #pragma unroll
-        for (int u = 0; u < kPollBatch; ++u) {
-          const int w = w0 + tid + u * kFlowThreads;
-          if (w >= nw) continue;
-          const int at = lo + w / NW - (i0 - 8), h = w % NW;
-          if (kSplit == 2) {
-            s_prev[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
-          } else {
-            s_prev[2 * h * pp + at] = __uint_as_float(v[u].x);
-            s_prev[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
-          }
-        }
+      for (int u = 0; u < kPollBatch; ++u) {
+        const int w = w0 + tid + u * kFlowThreads;
+        ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
       }
-    } else {
-      for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
-        const uint2* ptr[kPollBatch];
+      uint4 v[kPollBatch];
+      poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
 #pragma unroll
-        for (int u = 0; u < kPollBatch; ++u) {
-          const int w = w0 + tid + u * kFlowThreads;
-          ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
-        }
-        uint4 v[kPollBatch];
-        poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
-#pragma unroll
-        for (int u = 0; u < kPollBatch; ++u) {
-          if (ptr[u] == nullptr) continue;
-          const int w = w0 + tid + u * kFlowThreads;
-          const int at = lo + w / NW - (i0 - 8), h = w % NW;
-          if (kSplit == 2) {        // word h: row h, halves 0 and 1
-            s_prev[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
-          } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
-            s_prev[2 * h * pp + at] = __uint_as_float(v[u].x);
-            s_prev[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
-          }
+      for (int u = 0; u < kPollBatch; ++u) {
+        if (ptr[u] == nullptr) continue;
+        const int w = w0 + tid + u * kFlowThreads;
+        const int at = lo + w / NW - (i0 - 8), h = w % NW;
+        if (kSplit == 2) {        // word h: row h, halves 0 and 1
+          s_prev[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
+        } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
+          s_prev[2 * h * pp + at] = __uint_as_float(v[u].x);
+          s_prev[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
         }
       }
     }
@@ -594,8 +604,8 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
   auto stage = [&](int q) {
     const Item it = item(q);
     // an item of the same batch row and line as the one before uses its w:
-    // no band or right-hand rows (wide batches copy those in themselves)
-    const bool new_w = !kWide && !kNoRowCopies &&
+    // no band or right-hand rows
+    const bool new_w = !kNoRowCopies &&
                        (q == 0 || item(q - 1).k != it.k || item(q - 1).b != it.b);
     unsigned char* st = ring + (size_t)(q % kStages) * stage_bytes;
     uint64_t* bar = full + q % kStages;
@@ -668,24 +678,6 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
     trace_point(q, 0);
     mbar_wait(full + q % kStages, (unsigned)(q / kStages) & 1u);
     trace_point(q, 1);
-    if constexpr (kWide) {
-      // a new w: this thread's rows of the right-hand and band rows, copied
-      // into w and the band buffer while the carry is polled (every warp is
-      // past the products of the item before: s_w is free)
-      if (!(it.k == w_k && it.b == w_b) && !kNoRowCopies) {
-        const float* band = a.band + ((size_t)it.s * m + it.j) * 6 * ld + i0;
-        const float* rhs = a.rhs + ((size_t)it.b * m + it.j) * row + i0;
-        for (int il = tid; il < cnt; il += kFlowThreads) {
-#pragma unroll
-          for (int p = 0; p < 2 * R; ++p) cp_async4(s_w + p * cmax + il, rhs + (size_t)p * ld + il);
-          if (carry_in) {
-#pragma unroll
-            for (int d = 0; d < 6; ++d) cp_async4(s_bw + d * cmax + il, band + (size_t)d * ld + il);
-          }
-        }
-        cp_async_commit();
-      }
-    }
     // the carry of line k - 1 of this batch row, unless the item before read it
     // (every thread is past that item's band step: s_prev is free)
     const bool fresh = carry_in && (it.k - 1 != have_k || it.b != have_b);
@@ -705,152 +697,93 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
     const bool same_w = it.k == w_k && it.b == w_b;
     constexpr int kPitch = red_pitch<SPLIT>();
     float* part = red + (q & 1) * V * kPitch;
-    if constexpr (kWide) {
-      // w of the thread's rows, in place in s_w (note "Wide batches"), then
-      // the tensor-core products of 64-row segments (wide_mma.cuh)
-      if (!same_w) cp_async_wait_all();  // this thread's rows of w and of the band
+    float acc[V];
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const int base = g * kFlowThreads;
-        if (base >= cnt) break;
-        const int il = base + tid;                        // slice row of this thread
-        const int i = i0 + il;                            // its lane / input row
-        const bool tile_lane = own_tile && i >= o0 && i < o0 + kLanes;
-        if (!same_w && il < cnt) {
-          float w[2 * R];
-#pragma unroll
-          for (int p = 0; p < 2 * R; ++p) w[p] = s_w[p * cmax + il];
-          if (carry_in) {
-            float accr[R], acci[R];
-#pragma unroll
-            for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
-#pragma unroll
-            for (int d = 0; d < 3; ++d) {
-              const float br = s_bw[d * cmax + il];
-              const float bi = s_bw[(3 + d) * cmax + il];
-#pragma unroll
-              for (int p = 0; p < R; ++p) {
-                const float tr = s_prev[p * pp + il + 7 + d];
-                const float ti = s_prev[(R + p) * pp + il + 7 + d];
-                accr[p] = accr[p] + br * tr - bi * ti;
-                acci[p] = acci[p] + br * ti + bi * tr;
-              }
-            }
-#pragma unroll
-            for (int p = 0; p < R; ++p) {
-              w[p] = w[p] - accr[p];
-              w[R + p] = w[R + p] - acci[p];
-            }
-          }
-#pragma unroll
-          for (int p = 0; p < 2 * R; ++p) s_w[p * cmax + il] = w[p];
-        }
-        if (tile_lane) {
-          if (!kBackward) {
-#pragma unroll
-            for (int p = 0; p < 2 * R; ++p) kept[p * ld + i] = il < cnt ? s_w[p * cmax + il] : 0.f;
-          } else if (carry_in) {
-            float* x = x_row(it.k - 1, it.b);
-#pragma unroll
-            for (int p = 0; p < 2 * R; ++p) x[p * ld + i] = s_prev[p * pp + il + 8];
-          }
-        }
-      }
-      if (!same_w) __syncthreads();      // a warp's segments hold other threads' rows of w
-      wide::line_products<R, S == Storage::kInt8, kFlowWarps>(
-          pre, (int)pbytes, sc, s_w, cmax, cnt, i0, part, kPitch, !kNoProducts);
-      w_k = it.k;
-      w_b = it.b;
-      trace_point(q, 3);
-    } else {
-      float acc[V];
-#pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = 0.f;
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
 
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        const int base = g * kFlowThreads;
-        if (base >= cnt) break;
-        const int il = base + tid;                        // slice row of this thread
-        const int i = i0 + il;                            // its lane / input row
-        const bool tile_lane = own_tile && i >= o0 && i < o0 + kLanes;
-        // the row's plane entries first: they do not wait on the band step
-        float cr[kLanes], ci[kLanes];
-        if (il < cnt && !kNoProducts) {
-          if (S == Storage::kInt8) {
-            widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
-            widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
-            const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
+    for (int g = 0; g < kGroups; ++g) {
+      const int base = g * kFlowThreads;
+      if (base >= cnt) break;
+      const int il = base + tid;                        // slice row of this thread
+      const int i = i0 + il;                            // its lane / input row
+      const bool tile_lane = own_tile && i >= o0 && i < o0 + kLanes;
+      // the row's plane entries first: they do not wait on the band step
+      float cr[kLanes], ci[kLanes];
+      if (il < cnt && !kNoProducts) {
+        if (S == Storage::kInt8) {
+          widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
+          widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
+          const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
 #pragma unroll
-            for (int l = 0; l < kLanes; ++l) {
-              cr[l] *= sb[l];
-              ci[l] *= sb[kLanes + l];
-            }
-          } else {
-            widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
-            widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
+          for (int l = 0; l < kLanes; ++l) {
+            cr[l] *= sb[l];
+            ci[l] *= sb[kLanes + l];
           }
+        } else {
+          widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
+          widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
         }
-        float* w = wk[g];
-        if (!same_w) {
+      }
+      float* w = wk[g];
+      if (!same_w) {
 #pragma unroll
-          for (int p = 0; p < 2 * R; ++p) w[p] = il < cnt ? s_rhs[p * cmax + il] : 0.f;
-        }
-        if (!same_w && carry_in && il < cnt) {
-          float accr[R], acci[R];
+        for (int p = 0; p < 2 * R; ++p) w[p] = il < cnt ? s_rhs[p * cmax + il] : 0.f;
+      }
+      if (!same_w && carry_in && il < cnt) {
+        float accr[R], acci[R];
 #pragma unroll
-          for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
+        for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
 #pragma unroll
-          for (int d = 0; d < 3; ++d) {
-            const float br = s_band[d * cmax + il];
-            const float bi = s_band[(3 + d) * cmax + il];
-#pragma unroll
-            for (int p = 0; p < R; ++p) {
-              const float tr = s_prev[p * pp + il + 7 + d];
-              const float ti = s_prev[(R + p) * pp + il + 7 + d];
-              accr[p] = accr[p] + br * tr - bi * ti;
-              acci[p] = acci[p] + br * ti + bi * tr;
-            }
-          }
+        for (int d = 0; d < 3; ++d) {
+          const float br = s_band[d * cmax + il];
+          const float bi = s_band[(3 + d) * cmax + il];
 #pragma unroll
           for (int p = 0; p < R; ++p) {
-            w[p] = w[p] - accr[p];
-            w[R + p] = w[R + p] - acci[p];
+            const float tr = s_prev[p * pp + il + 7 + d];
+            const float ti = s_prev[(R + p) * pp + il + 7 + d];
+            accr[p] = accr[p] + br * tr - bi * ti;
+            acci[p] = acci[p] + br * ti + bi * tr;
           }
         }
-        // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
-        if (il < cnt && !kNoProducts) {
 #pragma unroll
-          for (int p = 0; p < R; ++p)
-#pragma unroll
-            for (int l = 0; l < kLanes; ++l) {
-              acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
-              acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
-            }
-        }
-        if (tile_lane) {
-          // the tile's own lanes, by the CTA whose slice holds them (zero on
-          // the padding lanes): y (forward) is w; x (backward) of the line
-          // before is the carry just read
-          if (!kBackward) {
-#pragma unroll
-            for (int p = 0; p < 2 * R; ++p) kept[p * ld + i] = il < cnt ? w[p] : 0.f;
-          } else if (carry_in) {
-            float* x = x_row(it.k - 1, it.b);
-#pragma unroll
-            for (int p = 0; p < 2 * R; ++p) x[p * ld + i] = s_prev[p * pp + il + 8];
-          }
+        for (int p = 0; p < R; ++p) {
+          w[p] = w[p] - accr[p];
+          w[R + p] = w[R + p] - acci[p];
         }
       }
-      w_k = it.k;
-      w_b = it.b;
-      trace_point(q, 3);
-
-      // the warps' sums (a warp past the slice holds zeros), added in warp
-      // order and published as this half's sums of the tile
-      const float sum = warp_transpose_sum<V>(acc);
-      if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
+      // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
+      if (il < cnt && !kNoProducts) {
+#pragma unroll
+        for (int p = 0; p < R; ++p)
+#pragma unroll
+          for (int l = 0; l < kLanes; ++l) {
+            acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
+            acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
+          }
+      }
+      if (tile_lane) {
+        // the tile's own lanes, by the CTA whose slice holds them (zero on
+        // the padding lanes): y (forward) is w; x (backward) of the line
+        // before is the carry just read
+        if (!kBackward) {
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) kept[p * ld + i] = il < cnt ? w[p] : 0.f;
+        } else if (carry_in) {
+          float* x = x_row(it.k - 1, it.b);
+#pragma unroll
+          for (int p = 0; p < 2 * R; ++p) x[p * ld + i] = s_prev[p * pp + il + 8];
+        }
+      }
     }
+    w_k = it.k;
+    w_b = it.b;
+    trace_point(q, 3);
+
+    // the warps' sums (a warp past the slice holds zeros), added in warp
+    // order and published as this half's sums of the tile
+    const float sum = warp_transpose_sum<V>(acc);
+    if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
     __syncthreads();
     trace_point(q, 4);
     // the last warp, which has the fewest rows, adds the warps' sums and
@@ -895,6 +828,15 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
       }
     }
   }
+}
+
+template <int R, bool kBackward, Storage S, int SPLIT>
+__global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLIT>())
+    flow_kernel(const FlowArgs fa) {
+  if constexpr (wide<R>())
+    flow_wide<R, kBackward, S, SPLIT>(fa);
+  else
+    flow_narrow<R, kBackward, S, SPLIT>(fa);
 }
 
 // Launches a flag-handoff pass with SPLIT CTAs a tile: a cooperative launch
@@ -961,7 +903,7 @@ inline cudaError_t run_flow_pass(int r, const PassArgs& a, uint2* xchg, unsigned
                                  cudaStream_t stream) {
   if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 ||
       !launch_width(r) || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
-      epoch == 0u || epoch + (unsigned)a.count < epoch)
+      epoch == 0u || epoch + (unsigned)a.count < epoch || (r > 2 && a.rows == nullptr))
     return cudaErrorInvalidValue;
   const FlowArgs fa{a, xchg, epoch};
   if (a.scale != nullptr) return launch_flow_r<kBackward, Storage::kInt8>(r, fa, stream);
@@ -1021,6 +963,8 @@ inline cudaError_t run_flow_pass(int r, const PassArgs& a, uint2* xchg, unsigned
 // products); no outputs (y, t, traces and private y lines not stored)
 constexpr bool kNoInjection = THOMAS_ABLATE & 128;
 constexpr bool kNoOutputs = THOMAS_ABLATE & 256;
+constexpr bool kNoFences = THOMAS_ABLATE & 512;     // the wide step's releases
+constexpr bool kNoEdges = THOMAS_ABLATE & 1024;     // the wide step's edge terms
 
 // One work item of a step map: one tile of one line step
 struct FlowTile {
@@ -1041,6 +985,7 @@ struct FlowTile {
 
 __device__ __forceinline__ FlowTile flow_tile() {
   FlowTile ft;
+  ft.cols = Cols{nullptr, nullptr, nullptr, 0, 0};
   ft.band = ft.carry_row = ft.rhs = ft.cpl = ft.trace_sub = nullptr;
   ft.kept = ft.out = nullptr;
   ft.carry_step = ft.rhs_priv = ft.keep_priv = ft.trace_step = -1;
@@ -1057,20 +1002,25 @@ struct FlowLaunch {
   unsigned epoch;
   float* priv;             // (grid, priv_lines, 2r, slice rows) private y lines, or null
   int priv_lines;
+  int slots;               // the wide step: slot k % slots holds step k (0: one a step)
+  float* rows;             // the wide step's rows (slots x batch x wide_slot_bytes), its
+                           //   flags in xchg, (slots, batch, 2, ld / 8, kFlagStride) words
 };
 
 // mbarriers, the warps' sums, the carry rows (and the trace rows, kInject),
 // then the stage ring
+// then the stage ring; the wide step's layout: wide_smem_bytes
 template <int R, Storage S, int SPLIT, bool kInject>
 __host__ __device__ constexpr size_t map_smem_bytes(int ld) {
-  return 64 + flow_red_bytes<R, SPLIT>() +
-         (kInject ? 2 : 1) * flow_prev_bytes<R>(slice_rows<SPLIT>(ld)) +
-         flow_w_bytes<R>(slice_rows<SPLIT>(ld)) +
-         kStages * flow_stage_bytes<R, S>(slice_rows<SPLIT>(ld), ld);
+  return wide<R>() ? wide_smem_bytes<R, S, SPLIT>(ld)
+                   : 64 + flow_red_bytes<R, SPLIT>() +
+                         (kInject ? 2 : 1) * flow_prev_bytes<R>(slice_rows<SPLIT>(ld)) +
+                         kStages * flow_stage_bytes<R, S>(slice_rows<SPLIT>(ld), ld);
 }
 
+// A step map at r = 1, 2
 template <int R, Storage S, int SPLIT, bool kInject, class Items>
-__device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& fl) {
+__device__ __forceinline__ void run_narrow(const Items& items, const FlowLaunch& fl) {
   constexpr int kFlowThreads = flow_threads<SPLIT>();
   constexpr int kFlowWarps = kFlowThreads / 32;
   constexpr int V = 2 * R * kLanes;     // output values of a tile: rows x lanes
@@ -1078,10 +1028,6 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
   constexpr int kPollBatch = poll_batch<R, SPLIT>();
   constexpr int kGroups = flow_groups<SPLIT>();
   constexpr int kRowBytes = S == Storage::kInt8 ? 8 : 16;    // a tile's pivot row
-  // wide batches (note "Wide batches"): w in shared memory, no injection and
-  // no private lines (the fused sweeps take r <= 2)
-  constexpr bool kWide = wide<R>();
-  static_assert(!(kWide && kInject), "the fused sweeps take r = 1 or 2");
   const int n = fl.n, ld = fl.ld;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int rank = (int)blockIdx.x % SPLIT;
@@ -1098,13 +1044,8 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
   float* s_prev = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>());
   const int pp = cmax + 16;               // row pitch of s_prev: lane sbase - 8 at 0
   float* s_trace = s_prev + 2 * R * pp;   // kInject: the trace rows, same layout
-  // wide batches: w of the slice's rows, [2R][cmax], and the band rows
-  // [6][cmax], indexed by row - sbase
-  float* s_w = reinterpret_cast<float*>(smem + 64 + flow_red_bytes<R, SPLIT>() +
-                                        (kInject ? 2 : 1) * flow_prev_bytes<R>(cmax));
-  float* s_bw = s_w + 2 * R * cmax;
   unsigned char* ring = smem + 64 + flow_red_bytes<R, SPLIT>() +
-                        (kInject ? 2 : 1) * flow_prev_bytes<R>(cmax) + flow_w_bytes<R>(cmax);
+                        (kInject ? 2 : 1) * flow_prev_bytes<R>(cmax);
   const size_t stage_bytes = flow_stage_bytes<R, S>(cmax, ld);
   const size_t pbytes = (size_t)cmax * kRowBytes;
   const unsigned nsc = (unsigned)scale_buf_bytes<S>(ld);
@@ -1144,48 +1085,27 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     const uint2* src = slot(k, b);
     const unsigned want = fl.epoch + (unsigned)k;
     const int words = (hi - lo) * NW;
-    if constexpr (kWide) {          // (no trace rows: sub is null)
-      const int nw = kNoCarryLoad ? 0 : words;
-      for (int w0 = 0; w0 < nw; w0 += kFlowThreads * kPollBatch) {
-        uint4 v[kPollBatch];
-        poll_strided<kPollBatch, !kNoFlagWait>(src + (size_t)lo * NW * 2, w0 + tid,
-                                                kFlowThreads, nw, v, want);
+    for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
+      const uint2* ptr[kPollBatch];
 #pragma unroll
-        for (int u = 0; u < kPollBatch; ++u) {
-          const int w = w0 + tid + u * kFlowThreads;
-          if (w >= nw) continue;
-          const int at = lo + w / NW - (sbase - 8), h = w % NW;
-          if (SPLIT == 2) {
-            dst[h * pp + at] = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
-          } else {
-            dst[2 * h * pp + at] = __uint_as_float(v[u].x);
-            dst[(2 * h + 1) * pp + at] = __uint_as_float(v[u].z);
-          }
-        }
+      for (int u = 0; u < kPollBatch; ++u) {
+        const int w = w0 + tid + u * kFlowThreads;
+        ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
       }
-    } else {
-      for (int w0 = 0; w0 < words; w0 += kFlowThreads * kPollBatch) {
-        const uint2* ptr[kPollBatch];
+      uint4 v[kPollBatch];
+      poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
 #pragma unroll
-        for (int u = 0; u < kPollBatch; ++u) {
-          const int w = w0 + tid + u * kFlowThreads;
-          ptr[u] = w < words && !kNoCarryLoad ? src + ((size_t)lo * NW + w) * 2 : nullptr;
-        }
-        uint4 v[kPollBatch];
-        poll_words<kPollBatch, !kNoFlagWait>(ptr, v, want);
-#pragma unroll
-        for (int u = 0; u < kPollBatch; ++u) {
-          if (ptr[u] == nullptr) continue;
-          const int w = w0 + tid + u * kFlowThreads;
-          const int o = lo + w / NW, h = w % NW, at = o - (sbase - 8);
-          if (SPLIT == 2) {         // word h: row h, halves 0 and 1
-            const float x = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
-            dst[h * pp + at] = sub == nullptr ? x : x - sub[(size_t)h * ld + o];
-          } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
-            const float x0 = __uint_as_float(v[u].x), x1 = __uint_as_float(v[u].z);
-            dst[2 * h * pp + at] = sub == nullptr ? x0 : x0 - sub[(size_t)2 * h * ld + o];
-            dst[(2 * h + 1) * pp + at] = sub == nullptr ? x1 : x1 - sub[(size_t)(2 * h + 1) * ld + o];
-          }
+      for (int u = 0; u < kPollBatch; ++u) {
+        if (ptr[u] == nullptr) continue;
+        const int w = w0 + tid + u * kFlowThreads;
+        const int o = lo + w / NW, h = w % NW, at = o - (sbase - 8);
+        if (SPLIT == 2) {         // word h: row h, halves 0 and 1
+          const float x = __uint_as_float(v[u].x) + __uint_as_float(v[u].z);
+          dst[h * pp + at] = sub == nullptr ? x : x - sub[(size_t)h * ld + o];
+        } else {                  // words 2h, 2h + 1: rows 2h, 2h + 1
+          const float x0 = __uint_as_float(v[u].x), x1 = __uint_as_float(v[u].z);
+          dst[2 * h * pp + at] = sub == nullptr ? x0 : x0 - sub[(size_t)2 * h * ld + o];
+          dst[(2 * h + 1) * pp + at] = sub == nullptr ? x1 : x1 - sub[(size_t)(2 * h + 1) * ld + o];
         }
       }
     }
@@ -1232,7 +1152,7 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     const bool whole = cmax == ld;
     const int a0 = whole ? 0 : it.r0 & ~3, a1 = whole ? ld : min((it.r1 + 3) & ~3, ld);
     const unsigned row_bytes = 4u * (a1 - a0);
-    const int nrows = new_w && !kNoRowCopies && !kWide      // (wide: copied in by the threads)
+    const int nrows = new_w && !kNoRowCopies
                           ? (it.ft.band != nullptr ? 6 : 0) + (rhs != nullptr ? 2 * R : 0)
                           : 0;
     unsigned bytes = nrows * row_bytes;
@@ -1315,60 +1235,37 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
                           ft.rhs_priv == w_keep && it.b == w_b && it.r0 == w_r0 &&
                           it.r1 == w_r1;
     const bool rhs_staged = ft.rhs != nullptr || (ft.rhs_priv >= 0 && !kNoOutputs);
-    if constexpr (kWide) {
-      // w starts as the right-hand rows (and the band rows): each thread's
-      // rows copied into s_w and s_bw while the carry is polled (every warp
-      // is past the products of the item before: both are free)
-      if (!same_w && !kNoRowCopies) {
-        for (int i = it.r0 + tid; i < it.r1; i += kFlowThreads) {
+    if (!same_w) {
 #pragma unroll
-          for (int p = 0; p < 2 * R; ++p) {
-            if (ft.rhs != nullptr)
-              cp_async4(s_w + p * cmax + i - sbase, ft.rhs + (size_t)p * ld + i);
-            else
-              s_w[p * cmax + i - sbase] = 0.f;
-          }
-          if (carry_in) {
+      for (int g = 0; g < kGroups; ++g) {
+        if (g * kFlowThreads >= rows) break;
+        const int i = it.r0 + g * kFlowThreads + tid;
+        if (i >= it.r1) break;
+        float* w = wk[g];
+        if (!rhs_regs) {
 #pragma unroll
-            for (int d = 0; d < 6; ++d)
-              cp_async4(s_bw + d * cmax + i - sbase, ft.band + (size_t)d * ld + i);
-          }
+          for (int p = 0; p < 2 * R; ++p) w[p] = rhs_staged ? s_rhs[p * cmax + i] : 0.f;
         }
-        cp_async_commit();
-      }
-    } else {
-      if (!same_w) {
+        if (inject) {          // + sign . (cpl . trace)
+          float injr[R], inji[R];
 #pragma unroll
-        for (int g = 0; g < kGroups; ++g) {
-          if (g * kFlowThreads >= rows) break;
-          const int i = it.r0 + g * kFlowThreads + tid;
-          if (i >= it.r1) break;
-          float* w = wk[g];
-          if (!rhs_regs) {
+          for (int p = 0; p < R; ++p) injr[p] = inji[p] = 0.f;
 #pragma unroll
-            for (int p = 0; p < 2 * R; ++p) w[p] = rhs_staged ? s_rhs[p * cmax + i] : 0.f;
-          }
-          if (inject) {          // + sign . (cpl . trace)
-            float injr[R], inji[R];
-#pragma unroll
-            for (int p = 0; p < R; ++p) injr[p] = inji[p] = 0.f;
-#pragma unroll
-            for (int d = 0; d < 3; ++d) {
-              const float br = __ldg(ft.cpl + (size_t)d * ld + i);
-              const float bi = __ldg(ft.cpl + (size_t)(3 + d) * ld + i);
-#pragma unroll
-              for (int p = 0; p < R; ++p) {
-                const float tr = s_trace[p * pp + i - sbase + 7 + d];
-                const float ti = s_trace[(R + p) * pp + i - sbase + 7 + d];
-                injr[p] = injr[p] + br * tr - bi * ti;
-                inji[p] = inji[p] + br * ti + bi * tr;
-              }
-            }
+          for (int d = 0; d < 3; ++d) {
+            const float br = __ldg(ft.cpl + (size_t)d * ld + i);
+            const float bi = __ldg(ft.cpl + (size_t)(3 + d) * ld + i);
 #pragma unroll
             for (int p = 0; p < R; ++p) {
-              w[p] = w[p] + ft.sign * injr[p];
-              w[R + p] = w[R + p] + ft.sign * inji[p];
+              const float tr = s_trace[p * pp + i - sbase + 7 + d];
+              const float ti = s_trace[(R + p) * pp + i - sbase + 7 + d];
+              injr[p] = injr[p] + br * tr - bi * ti;
+              inji[p] = inji[p] + br * ti + bi * tr;
             }
+          }
+#pragma unroll
+          for (int p = 0; p < R; ++p) {
+            w[p] = w[p] + ft.sign * injr[p];
+            w[R + p] = w[R + p] + ft.sign * inji[p];
           }
         }
       }
@@ -1402,24 +1299,42 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     // 3. w -= band . carry, and the products
     constexpr int kPitch = red_pitch<SPLIT>();
     float* part = red + (q & 1) * V * kPitch;
-    float acc[kWide ? 1 : V];           // r <= 2: this thread's partial sums
-    if constexpr (kWide) {     // (no private lines: r <= 2 only)
-      if (!same_w) cp_async_wait_all();  // this thread's rows of w and of the band
+    float acc[V];                       // this thread's partial sums
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        if (g * kFlowThreads >= rows) break;
-        const int il = g * kFlowThreads + tid;
-        const int i = it.r0 + il;
-        if (il >= rows) break;
-        float* w = s_w + i - sbase;                   // w[p * cmax]
-        if (!same_w && carry_in) {        // - band . carry
+    for (int v = 0; v < V; ++v) acc[v] = 0.f;
+
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      if (g * kFlowThreads >= rows) break;
+      const int il = g * kFlowThreads + tid;          // the thread's row of the item
+      const int i = it.r0 + il;
+      const bool live = il < rows;
+      float cr[kLanes], ci[kLanes];
+      if (live && !kNoProducts) {
+        if (S == Storage::kInt8) {
+          widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
+          widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
+          const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
+#pragma unroll
+          for (int l = 0; l < kLanes; ++l) {
+            cr[l] *= sb[l];
+            ci[l] *= sb[kLanes + l];
+          }
+        } else {
+          widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
+          widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
+        }
+      }
+      float* w = wk[g];
+      if (!same_w && live) {
+        if (carry_in) {        // - band . carry
           float accr[R], acci[R];
 #pragma unroll
           for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
 #pragma unroll
           for (int d = 0; d < 3; ++d) {
-            const float br = s_bw[d * cmax + i - sbase];
-            const float bi = s_bw[(3 + d) * cmax + i - sbase];
+            const float br = s_band[d * cmax + i];
+            const float bi = s_band[(3 + d) * cmax + i];
 #pragma unroll
             for (int p = 0; p < R; ++p) {
               const float tr = s_prev[p * pp + i - sbase + 7 + d];
@@ -1430,92 +1345,31 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
           }
 #pragma unroll
           for (int p = 0; p < R; ++p) {
-            w[p * cmax] = w[p * cmax] - accr[p];
-            w[(R + p) * cmax] = w[(R + p) * cmax] - acci[p];
+            w[p] = w[p] - accr[p];
+            w[R + p] = w[R + p] - acci[p];
           }
         }
-        // y (w) of the tile's own lanes, by the CTA whose slice holds them
-        if (own_tile && i >= o0 && i < o0 + kLanes && ft.kept != nullptr && !kNoOutputs) {
+        if (ft.keep_priv >= 0 && !kNoOutputs) {
 #pragma unroll
-          for (int p = 0; p < 2 * R; ++p) ft.kept[(size_t)p * ld + i] = w[p * cmax];
+          for (int p = 0; p < 2 * R; ++p)
+            pv[((size_t)ft.keep_priv * 2 * R + p) * cmax + i] = w[p];
+          fence_proxy_async_global();   // for the bulk copy of a backward step
         }
       }
-      if (!same_w) __syncthreads();      // a warp's segments hold other threads' rows of w
-      wide::line_products<R, S == Storage::kInt8, kFlowWarps>(
-          pre, (int)pbytes, sc, s_w + it.r0 - sbase, cmax, rows, it.r0, part, kPitch,
-          !kNoProducts);
-    } else {
+      // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
+      if (live && !kNoProducts) {
 #pragma unroll
-      for (int v = 0; v < V; ++v) acc[v] = 0.f;
-
+        for (int p = 0; p < R; ++p)
 #pragma unroll
-      for (int g = 0; g < kGroups; ++g) {
-        if (g * kFlowThreads >= rows) break;
-        const int il = g * kFlowThreads + tid;          // the thread's row of the item
-        const int i = it.r0 + il;
-        const bool live = il < rows;
-        float cr[kLanes], ci[kLanes];
-        if (live && !kNoProducts) {
-          if (S == Storage::kInt8) {
-            widen_s8x8(reinterpret_cast<const uint2*>(pre)[il], cr);
-            widen_s8x8(reinterpret_cast<const uint2*>(pim)[il], ci);
-            const float* sb = sc + (i / kScaleBlock) * 2 * kLanes;
-#pragma unroll
-            for (int l = 0; l < kLanes; ++l) {
-              cr[l] *= sb[l];
-              ci[l] *= sb[kLanes + l];
-            }
-          } else {
-            widen_bf16x8(reinterpret_cast<const uint4*>(pre)[il], cr);
-            widen_bf16x8(reinterpret_cast<const uint4*>(pim)[il], ci);
+          for (int l = 0; l < kLanes; ++l) {
+            acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
+            acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
           }
-        }
-        float* w = wk[g];
-        if (!same_w && live) {
-          if (carry_in) {        // - band . carry
-            float accr[R], acci[R];
+      }
+      // y (w) of the tile's own lanes, by the CTA whose slice holds them
+      if (live && own_tile && i >= o0 && i < o0 + kLanes && ft.kept != nullptr && !kNoOutputs) {
 #pragma unroll
-            for (int p = 0; p < R; ++p) accr[p] = acci[p] = 0.f;
-#pragma unroll
-            for (int d = 0; d < 3; ++d) {
-              const float br = s_band[d * cmax + i];
-              const float bi = s_band[(3 + d) * cmax + i];
-#pragma unroll
-              for (int p = 0; p < R; ++p) {
-                const float tr = s_prev[p * pp + i - sbase + 7 + d];
-                const float ti = s_prev[(R + p) * pp + i - sbase + 7 + d];
-                accr[p] = accr[p] + br * tr - bi * ti;
-                acci[p] = acci[p] + br * ti + bi * tr;
-              }
-            }
-#pragma unroll
-            for (int p = 0; p < R; ++p) {
-              w[p] = w[p] - accr[p];
-              w[R + p] = w[R + p] - acci[p];
-            }
-          }
-          if (ft.keep_priv >= 0 && !kNoOutputs) {
-#pragma unroll
-            for (int p = 0; p < 2 * R; ++p)
-              pv[((size_t)ft.keep_priv * 2 * R + p) * cmax + i] = w[p];
-            fence_proxy_async_global();   // for the bulk copy of a backward step
-          }
-        }
-        // this row's products, both planes: t_re += wr cr - wi ci, t_im += wi cr + wr ci
-        if (live && !kNoProducts) {
-#pragma unroll
-          for (int p = 0; p < R; ++p)
-#pragma unroll
-            for (int l = 0; l < kLanes; ++l) {
-              acc[p * kLanes + l] += w[p] * cr[l] - w[R + p] * ci[l];
-              acc[(R + p) * kLanes + l] += w[R + p] * cr[l] + w[p] * ci[l];
-            }
-        }
-        // y (w) of the tile's own lanes, by the CTA whose slice holds them
-        if (live && own_tile && i >= o0 && i < o0 + kLanes && ft.kept != nullptr && !kNoOutputs) {
-#pragma unroll
-          for (int p = 0; p < 2 * R; ++p) ft.kept[(size_t)p * ld + i] = w[p];
-        }
+        for (int p = 0; p < 2 * R; ++p) ft.kept[(size_t)p * ld + i] = w[p];
       }
     }
     // the tile's padding lanes (>= n): w is zero there
@@ -1528,12 +1382,9 @@ __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& f
     w_r1 = it.r1;
 
     // the warps' sums (a warp past the rows holds zeros), added in warp order
-    // and published as this half's sums of the tile (wide batches stored
-    // theirs in line_products)
-    if constexpr (!kWide) {
-      const float sum = warp_transpose_sum<V>(acc);
-      if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
-    }
+    // and published as this half's sums of the tile
+    const float sum = warp_transpose_sum<V>(acc);
+    if (lane % (32 / V) == 0) part[(lane / (32 / V)) * kPitch + warp] = sum;
     __syncthreads();
     if (warp == kPublisher) {
       for (int vi = lane; vi < V; vi += 32) {
@@ -1642,6 +1493,578 @@ struct PassMap {
   }
 };
 
+// ---------------------------------------------------------------------------
+// The wide step (r = 4, 8): note "Wide batches" at the top of this file.  The
+// dense passes (flow_kernel, through PassMap) and the cached forward pass
+// (cached_kernel, CachedItems) run it; a map's step k takes its carry from
+// step k - 1 (or from the row carry_row, or none, at k = 0).
+// ---------------------------------------------------------------------------
+
+// Bytes of one slot (line step, batch row) of the wide step's rows buffer
+// (thomas_kernels.Exchange.wide_rows: 64 R ld)
+__host__ __device__ constexpr size_t wide_slot_bytes(int r, int ld) {
+  return (size_t)64 * r * ld;
+}
+
+// Flag words a slot and batch row takes in the exchange words: the P flags
+// of the T tiles, then their X flags, kFlagStride words (32 bytes) apart, so
+// that no two tiles' flags share a sector of L2
+constexpr int kFlagStride = 4;
+
+
+// A slot of the rows buffer, in f32 cells: the rows of the next step's w of
+// each tile's lanes, P[2R][ld]; its two edge terms, E[2R][Tp][2] (Tp = T
+// rounded up to even; side 0: tile t's term of lane 8t - 1, side 1: of lane
+// 8t + 8); with two CTAs a tile, X[2R][ld], the partial sums of the CTA that
+// does not hold the tile's lanes
+template <int R>
+struct WideSlot {
+  float* base;
+  int ld, Tp;
+  __device__ __forceinline__ float* p(int row, int col) const {
+    return base + (size_t)row * ld + col;
+  }
+  __device__ __forceinline__ float* e(int row, int tile) const {
+    return base + (size_t)2 * R * ld + ((size_t)row * Tp + tile) * 2;
+  }
+  __device__ __forceinline__ float* x(int row, int col) const {
+    return base + (size_t)2 * R * ld + (size_t)4 * R * Tp + (size_t)row * ld + col;
+  }
+};
+
+// an f32 load at GPU scope (past the incoherent L1), issued once its flag has
+// been seen
+__device__ __forceinline__ float ld_rows1(const void* p) {
+  float v;
+  asm volatile("ld.relaxed.gpu.global.f32 %0, [%1];\n" : "=f"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// the flag half of an exchange word, by an acquire load
+__device__ __forceinline__ unsigned ld_flag(const uint2* p) {
+  unsigned v;
+  asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
+               : "=r"(v)
+               : "l"(reinterpret_cast<const unsigned*>(p) + 1)
+               : "memory");
+  return v;
+}
+
+// The release of a publication: the stores this warp made, ordered before it
+// by __syncwarp, then the flag
+__device__ __forceinline__ void fence_acq_rel_gpu() {
+  asm volatile("fence.acq_rel.gpu;\n" ::: "memory");
+}
+
+// waits until the flag halves of the words at ptr[u] (nullptr: none), polled
+// by this lane, all carry `want`; a wait longer than any step takes traps
+template <int K>
+__device__ __forceinline__ void wait_flag_words(const uint2* const (&ptr)[K], unsigned want) {
+  bool ready[K];
+#pragma unroll
+  for (int u = 0; u < K; ++u) ready[u] = ptr[u] == nullptr;
+  for (unsigned polls = 0;; ++polls) {
+    unsigned got[K];
+#pragma unroll
+    for (int u = 0; u < K; ++u) got[u] = ready[u] ? want : ld_flag(ptr[u]);
+    bool all = true;
+#pragma unroll
+    for (int u = 0; u < K; ++u) {
+      ready[u] = got[u] == want;
+      all = all && ready[u];
+    }
+    if (all) return;
+    if (polls > (1u << 24)) __trap();
+  }
+}
+
+// all threads of the CTA but the barrier of __syncthreads (barrier 1)
+template <int kThreads>
+__device__ __forceinline__ void bar_sync1() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
+}
+
+template <int R, Storage S, int SPLIT, class Items>
+__device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& fl) {
+  static_assert(R == 4 || R == 8, "the wide step: r = 4 or 8");
+  constexpr int kThreads = flow_threads<SPLIT>();
+  constexpr int kWarps = kThreads / 32;
+  constexpr int V = 2 * R * kLanes;             // output values of a tile
+  constexpr int NG = wide_groups<R>();          // 16-byte fragment groups a lane and k-step
+  constexpr int NQ = R == 8 ? 4 : 2;            // f32 pairs of a lane's A fragments
+  constexpr int kRowBytes = S == Storage::kInt8 ? 8 : 16;
+  constexpr int kPitch = red_pitch<SPLIT>();
+  constexpr int kPoller = kWarps - 3, kStager = kWarps - 2, kPublisher = kWarps - 1;
+  constexpr int kRedWarps = V / 32;             // the warps that add the warps' sums
+  constexpr int LPR = 32 / R;                   // publisher lanes a right-hand side
+  constexpr int TL = kLanes / LPR;              // tile lanes a publisher lane
+  const int n = fl.n, ld = fl.ld, T = ld / kLanes, Tp = T + (T & 1);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
+  const int rank = (int)blockIdx.x % SPLIT;
+  const int pair = (int)blockIdx.x / SPLIT;
+  const int npairs = (int)gridDim.x / SPLIT;
+
+  // this CTA's slice: input rows i0 .. iend - 1 (lanes i0 .. ilim - 1 are its
+  // tiles'), staged from row sb0 (a multiple of 16) as sr plane rows; its
+  // k-steps ku0 .. ku0 + nks - 1 of 16 rows (int8: each in one scale block);
+  // the tiles whose rows and edge terms w of its rows takes, tlo .. thi
+  const int cmax = slice_rows<SPLIT>(ld);
+  const int i0 = rank * cmax;
+  const int ilim = min(i0 + cmax, ld);
+  const int iend = max(min(ilim, n), i0);
+  const int sb0 = i0 & ~15;
+  const int sr = iend > i0 ? ((iend + 7) & ~7) - sb0 : 0;
+  const int ku0 = sb0 / 16;
+  const int nks = iend > i0 ? (iend + 15) / 16 - ku0 : 0;
+  const int tlo = max((i0 - 1) >> 3, 0), thi = min(iend >> 3, T - 1);
+  // the edge terms staged: tiles etlo .. etlo + ece - 1 of each row (an even
+  // run from an even tile: 16-byte copies; with one CTA a tile whole rows)
+  const int etlo = SPLIT == 1 ? 0 : tlo & ~1;
+  const int ece = SPLIT == 1 ? Tp : (thi - etlo + 2) & ~1;
+  const int slots = fl.slots > 0 ? fl.slots : fl.steps;
+
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);               // [kWideStages]
+  uint64_t* sbar = full + kWideStages;                                // the w rows' copies
+  float* red = reinterpret_cast<float*>(smem + 64);                   // warps' sums
+  float* pub = red + flow_red_bytes<R, SPLIT>() / sizeof(float);      // [kPubFloats][32]
+  float* stg = pub + wide_pub_bytes() / sizeof(float);                // [2R][spitch]: w
+  const int spitch = wide_spitch(cmax);
+  uint4* frags = reinterpret_cast<uint4*>(stg + (size_t)2 * R * spitch);
+  unsigned char* ring = reinterpret_cast<unsigned char*>(frags) +
+                        (size_t)wide_ksteps(cmax) * NG * 32 * 16;
+  const size_t pbytes = (size_t)wide_stage_rows(cmax) * kRowBytes;
+  const unsigned nsc = (unsigned)scale_buf_bytes<S>(ld);
+  const size_t stage_bytes = 2 * pbytes + nsc;
+
+  // work items: a run of consecutive tiles (batch row-major) of each step
+  const int total = fl.batch * T;
+  const int tiles_blk = total / npairs + (pair < total % npairs);
+  const int tile0 = pair * (total / npairs) + min(pair, total % npairs);
+  const int nitem = fl.steps * tiles_blk;
+  auto where = [&](int q, int& k, int& b, int& t) {
+    k = q / tiles_blk;
+    const int tile = tile0 + (q - k * tiles_blk);
+    b = tile / T;
+    t = tile - b * T;
+  };
+  // the rows of step k, batch row b; their flags (P: tile t, X: T + t)
+  auto slot = [&](int k, int b) {
+    WideSlot<R> sl;
+    sl.base = reinterpret_cast<float*>(reinterpret_cast<unsigned char*>(fl.rows) +
+                                       ((size_t)(k % slots) * fl.batch + b) *
+                                           wide_slot_bytes(R, ld));
+    sl.ld = ld;
+    sl.Tp = Tp;
+    return sl;
+  };
+  auto flag_word = [&](int k, int b, int f) {
+    return fl.xchg + (((size_t)(k % slots) * fl.batch + b) * 2 * T + f) * kFlagStride;
+  };
+
+  // the plane runs (and scales) of item q's slice, into stage q % kWideStages
+  // (one thread)
+  auto stage = [&](int q) {
+    int k, b, t;
+    where(q, k, b, t);
+    const Cols cols = items.tile(k, b, t).cols;
+    unsigned char* st = ring + (size_t)(q % kWideStages) * stage_bytes;
+    uint64_t* bar = full + q % kWideStages;
+    const unsigned pb = (unsigned)sr * kRowBytes;
+    const unsigned bytes = sr > 0 && !kNoPlaneCopies ? 2 * pb + nsc : 0u;
+    mbar_expect_tx(bar, bytes);
+    if (bytes == 0) return;
+    const size_t off = (size_t)(sb0 - cols.i0) * kRowBytes;
+    bulk_copy(st, cols.re + off, pb, bar);
+    bulk_copy(st + pbytes, cols.im + off, pb, bar);
+    if (S == Storage::kInt8) bulk_copy(st + 2 * pbytes, cols.scale, nsc, bar);
+  };
+
+  // w of a step and batch row b (ft: its first item) in stg, row rr at stg +
+  // rr spitch, columns sb0 .. sb0 + 16 nks - 1: the producers' rows, bulk-
+  // copied once one warp has seen their flags, with the edge terms of the
+  // slice's tiles (copied beside them); at the first step (no carry step)
+  // the right-hand rows less band . carry_row, if the map gives a carry row.
+  // Then each warp adds the edge terms to its own k-steps (i = warp, warp +
+  // kWarps, ...) and splits them into frags; y (w) of the lanes of the CTA's
+  // tiles ta .. tb - 1 into ft.kept.
+  const int scols = 16 * nks;
+  unsigned sphase = 0;                  // parity of the rows' copies
+  auto prep = [&](int q, int b, const FlowTile& ft, int ta, int tb) {
+    const bool from_step = ft.carry_step >= 0;
+    // the edge terms, [2R][ece][2] floats, in the stage buffer that item q - 1
+    // used (refilled for item q + 1 once every warp has split its w)
+    const float* estg = reinterpret_cast<const float*>(
+        ring + (size_t)((q + 1) % kWideStages) * stage_bytes);
+    const bool edges = from_step && nks > 0 && !kNoCarryLoad && !kNoEdges;
+    if (from_step && nks > 0 && !kNoCarryLoad) {
+      const unsigned want = fl.epoch + (unsigned)ft.carry_step;
+      const WideSlot<R> sl = slot(ft.carry_step, b);
+      if (warp == kPoller) {
+        constexpr int kPer = 4;
+        for (int u0 = tlo; u0 <= thi; u0 += 32 * kPer) {
+          const uint2* ptr[kPer];
+#pragma unroll
+          for (int u = 0; u < kPer; ++u) {
+            const int tile = u0 + lane + 32 * u;
+            ptr[u] = tile <= thi && !kNoFlagWait ? flag_word(ft.carry_step, b, tile) : nullptr;
+          }
+          wait_flag_words<kPer>(ptr, want);
+        }
+        __syncwarp();
+        if (lane == 0) {
+          // the rows the acquires made visible, for the async proxy's copies:
+          // the slice's w rows (each CTA starting at its own row) and the
+          // edge terms of its tiles
+          fence_proxy_async_global();
+          const unsigned bytes = 4u * scols;
+          const unsigned ebytes = 8u * ece;
+          mbar_expect_tx(sbar, 2 * R * bytes + (edges ? 2 * R * ebytes : 0u));
+          for (int i = 0; i < 2 * R; ++i) {
+            const int rr = (i + (int)blockIdx.x) % (2 * R);
+            bulk_copy(stg + rr * spitch, sl.p(rr, sb0), bytes, sbar);
+          }
+          if (edges) {
+            float* ed = const_cast<float*>(estg);
+            if (SPLIT == 1)
+              bulk_copy(ed, sl.e(0, 0), 2 * R * ebytes, sbar);
+            else
+              for (int rr = 0; rr < 2 * R; ++rr)
+                bulk_copy(ed + rr * ece * 2, sl.e(rr, etlo), ebytes, sbar);
+          }
+        }
+      }
+      mbar_wait(sbar, sphase);          // (the poller arrives on it with the bytes)
+      sphase ^= 1u;
+    } else if (!from_step) {
+      for (int e = tid; e < 2 * R * scols; e += kThreads) {
+        const int rr = e / scols, cl = e - rr * scols, c = sb0 + cl;
+        float w = 0.f;
+        if (c >= i0 && c < iend) {
+          if (ft.rhs != nullptr) w = __ldg(ft.rhs + (size_t)rr * ld + c);
+          if (ft.band != nullptr && ft.carry_row != nullptr && !kNoBandStep) {
+            const int p = rr % R;
+            float acc = 0.f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const int src = c + d - 1;
+              if (src < 0 || src >= n) continue;
+              const float br = __ldg(ft.band + (size_t)d * ld + c);
+              const float bi = __ldg(ft.band + (size_t)(3 + d) * ld + c);
+              const float tr = __ldg(ft.carry_row + (size_t)p * ld + src);
+              const float ti = __ldg(ft.carry_row + (size_t)(R + p) * ld + src);
+              acc = rr < R ? acc + br * tr - bi * ti : acc + br * ti + bi * tr;
+            }
+            w -= acc;
+          }
+        }
+        stg[rr * spitch + cl] = w;
+      }
+    }
+    __syncthreads();                    // w is in stg
+#pragma unroll 2
+    for (int i = warp; i < nks; i += kWarps) {
+      const int kb = 16 * (ku0 + i);
+      float2 vq[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) vq[q] = make_float2(0.f, 0.f);
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const int rr = R == 8 && (q & 1) ? 8 + g : g;
+        const int c = kb + 2 * t4 + 8 * (R == 8 ? q >> 1 : q);
+        float2 w = *reinterpret_cast<const float2*>(stg + rr * spitch + c - sb0);
+        const bool nx = c >= i0 && c < iend, ny = nx && c + 1 < iend;
+        // the neighbouring tile's edge term: E+ of the tile before a tile's
+        // first lane (t = 0), E- of the tile after its last (t = 3)
+        if (edges && t4 == 0 && nx && c >= kLanes)
+          w.x += estg[(rr * ece + (c >> 3) - 1 - etlo) * 2 + 1];
+        if (edges && t4 == 3 && ny && (c >> 3) + 1 < T)
+          w.y += estg[(rr * ece + (c >> 3) + 1 - etlo) * 2];
+        vq[q] = make_float2(nx ? w.x : 0.f, ny ? w.y : 0.f);
+        if (ft.kept != nullptr && !kNoOutputs && c >= i0 && c < ilim && (c >> 3) >= ta &&
+            (c >> 3) < tb) {
+          ft.kept[(size_t)rr * ld + c] = vq[q].x;
+          ft.kept[(size_t)rr * ld + c + 1] = vq[q].y;
+        }
+      }
+      unsigned a[3][4];
+      wide::a_frags_of<R>(vq, a);
+      uint4* fr = frags + (size_t)i * NG * 32 + lane;
+#pragma unroll
+      for (int grp = 0; grp < NG; ++grp)
+        fr[grp * 32] = make_uint4(a[grp][0], a[grp][1], a[grp][2], a[grp][3]);
+    }
+    if (edges) bar_sync1<kThreads>();   // every warp is past the edge terms' buffer
+  };
+
+  // The publisher's operands of an item's next step: its right-hand side pp
+  // and tile lanes li0 .. li0 + TL - 1, their right-hand rows and band rows,
+  // and the band of the edge lane it serves (o0 - 1 or o0 + 8); zero where
+  // the item has no next step.  Loaded at the item's start, parked in pub
+  // once the warp's own w is in (pub[f * 32 + lane]: f = c TL + i rhs, 2 TL
+  // + (c 3 + d) TL + i band, 8 TL + c edge band), read after the products.
+  const int pp = lane / LPR, li0 = (lane % LPR) * TL;
+  constexpr int kPub = 8 * TL + 2;
+  static_assert(kPub <= kPubFloats, "the publisher's operands fit pub");
+
+  if (tid == 0) {
+    for (int i = 0; i <= kWideStages; ++i) mbar_init(full + i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == kStager * 32)
+    for (int q = 0; q < kWideStages - 1 && q < nitem; ++q) stage(q);
+
+  int w_k = -1, w_b = -1;               // the step and batch row whose w frags holds
+  for (int q = 0; q < nitem; ++q) {
+    int k, b, t;
+    where(q, k, b, t);
+    const FlowTile ft = items.tile(k, b, t);
+    const int o0 = t * kLanes;
+    const bool has_next = k + 1 < fl.steps;
+    const int ta = max(tile0, b * T) - b * T;      // the CTA's tiles of this step and row
+    const int tb = min(tile0 + tiles_blk, (b + 1) * T) - b * T;
+    trace_point(q, 0);
+    float pv[kPub];                     // the publisher's operands, in flight
+#pragma unroll
+    for (int f = 0; f < kPub; ++f) pv[f] = 0.f;
+    if (warp == kPublisher && has_next && !kNoRowCopies) {
+      const FlowTile nx = items.tile(k + 1, b, t);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+#pragma unroll
+        for (int i = 0; i < TL; ++i) {
+          const int o = o0 + li0 + i;
+          if (nx.rhs != nullptr) pv[c * TL + i] = __ldg(nx.rhs + (size_t)(c * R + pp) * ld + o);
+          if (nx.band != nullptr)
+#pragma unroll
+            for (int d = 0; d < 3; ++d)
+              pv[2 * TL + (c * 3 + d) * TL + i] = __ldg(nx.band + (size_t)(c * 3 + d) * ld + o);
+        }
+        if (nx.band != nullptr && li0 == 0 && o0 >= 1)
+          pv[8 * TL + c] = __ldg(nx.band + (size_t)(c * 3 + 2) * ld + o0 - 1);
+        if (nx.band != nullptr && li0 + TL == kLanes && o0 + kLanes < ld)
+          pv[8 * TL + c] = __ldg(nx.band + (size_t)(c * 3) * ld + o0 + kLanes);
+      }
+    }
+    mbar_wait(full + q % kWideStages, (unsigned)(q / kWideStages) & 1u);
+    trace_point(q, 1);
+    // w of the item's step and batch row, unless the item before had them
+    if (k != w_k || b != w_b) {
+      prep(q, b, ft, ta, tb);
+      w_k = k;
+      w_b = b;
+    }
+    trace_point(q, 2);
+    // the stage that item q - 1 used is free (every warp is past its
+    // products and the edge terms prep staged in it): it takes item q + 1
+    if (tid == kStager * 32 && q + 1 < nitem) stage(q + 1);
+    if (warp == kPublisher) {
+#pragma unroll
+      for (int f = 0; f < kPub; ++f) pub[f * 32 + lane] = pv[f];
+    }
+
+    // the products of this warp's k-steps, each on fresh sums (wide_mma.cuh)
+    float z1[4] = {0.f, 0.f, 0.f, 0.f}, z2[4] = {0.f, 0.f, 0.f, 0.f};
+    const unsigned char* st = ring + (size_t)(q % kWideStages) * stage_bytes;
+    for (int i = warp; i < nks && !kNoProducts; i += kWarps) {
+      unsigned a[3][4];
+      const uint4* fr = frags + (size_t)i * NG * 32 + lane;
+#pragma unroll
+      for (int grp = 0; grp < NG; ++grp) {
+        const uint4 u = fr[grp * 32];
+        a[grp][0] = u.x;
+        a[grp][1] = u.y;
+        a[grp][2] = u.z;
+        a[grp][3] = u.w;
+      }
+      const int k0 = 16 * (ku0 + i) - sb0;        // the k-step's first staged row
+      unsigned bf[4];
+      if constexpr (S == Storage::kBf16) {
+        wide::ldsm_b_bf16(st, (int)pbytes, k0, lane, bf);
+        if (k0 + 8 >= sr) bf[1] = bf[3] = 0u;     // rows past the staged ones
+      } else {
+        wide::lds_b_int8(st, (int)pbytes, k0, g, t4, bf);
+      }
+      float e1[4], e2[4];
+      wide::plane_kstep<R>(a, bf, e1, e2);
+      if constexpr (S == Storage::kInt8) {
+        // the scales of the k-step's block, output lanes 2t, 2t + 1
+        const float* sb = reinterpret_cast<const float*>(st + 2 * pbytes) +
+                          (16 * (ku0 + i)) / kScaleBlock * 2 * kLanes;
+        const float2 sre = *reinterpret_cast<const float2*>(sb + 2 * t4);
+        const float2 sim = *reinterpret_cast<const float2*>(sb + kLanes + 2 * t4);
+#pragma unroll
+        for (int qq = 0; qq < (R == 8 ? 4 : 2); ++qq) {
+          z1[qq] = fmaf(qq & 1 ? sre.y : sre.x, e1[qq], z1[qq]);
+          z2[qq] = fmaf(qq & 1 ? sim.y : sim.x, e2[qq], z2[qq]);
+        }
+      } else {
+#pragma unroll
+        for (int qq = 0; qq < (R == 8 ? 4 : 2); ++qq) {
+          z1[qq] += e1[qq];
+          z2[qq] += e2[qq];
+        }
+      }
+    }
+    trace_point(q, 3);
+    float* part = red + (q & 1) * V * kPitch;
+    wide::plane_store_part<R>(z1, z2, part + warp, kPitch);
+    __syncthreads();
+    trace_point(q, 4);
+    // the tile's sums, value v by thread v of the last V / 32 warps, in warp
+    // order, into the pad of its row of part (part[v * kPitch + kWarps])
+    if (warp >= kWarps - kRedWarps) {
+      const int v = tid - (kWarps - kRedWarps) * 32;
+      const float4* sums = reinterpret_cast<const float4*>(part + v * kPitch);
+      float sum = 0.f;
+#pragma unroll
+      for (int c4 = 0; c4 < kWarps / 4; ++c4) {
+        const float4 f4 = sums[c4];
+        sum += f4.x;
+        sum += f4.y;
+        sum += f4.z;
+        sum += f4.w;
+      }
+      part[v * kPitch + kWarps] = sum;
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kRedWarps * 32) : "memory");
+    }
+
+    // the publisher: the tile's sums in warp order; with two CTAs a tile, the
+    // one that does not hold the tile's lanes hands its partial sums over,
+    // the other adds them (rank order); the next step's rows of the tile's
+    // lanes (w less the band's taps inside the tile) and its two edge terms;
+    // the outputs; the flags
+    if (warp == kPublisher) {
+      float tv[2][TL];
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+#pragma unroll
+        for (int i = 0; i < TL; ++i) tv[c][i] = part[((c * R + pp) * kLanes + li0 + i) * kPitch + kWarps];
+      const WideSlot<R> so = slot(k, b);
+      const unsigned flag = fl.epoch + (unsigned)k;
+      const bool own = o0 >= i0 && o0 < ilim;       // the tile's lanes lie in this slice
+      const bool needed = has_next || (ft.out != nullptr && !kNoOutputs);
+      if (SPLIT == 2 && needed) {
+        if (!own) {
+#pragma unroll
+          for (int i = 0; i < TL; ++i) {
+            *so.x(pp, o0 + li0 + i) = tv[0][i];
+            *so.x(R + pp, o0 + li0 + i) = tv[1][i];
+          }
+          __syncwarp();
+          if (!kNoFences) fence_acq_rel_gpu();
+          if (lane == 0) st_word(flag_word(k, b, T + t), 0.f, flag);
+        } else {
+          const uint2* const ptr[1] = {lane == 0 && !kNoFlagWait ? flag_word(k, b, T + t)
+                                                                 : nullptr};
+          wait_flag_words<1>(ptr, flag);
+          __syncwarp();
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+#pragma unroll
+            for (int i = 0; i < TL; ++i) {
+              const float ov = ld_rows1(so.x(c * R + pp, o0 + li0 + i));
+              tv[c][i] = rank == 0 ? tv[c][i] + ov : ov + tv[c][i];
+            }
+        }
+      }
+      if (own && needed) {
+        if (has_next) {
+          float nr[2][TL], nb[2][3][TL], eb[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+#pragma unroll
+            for (int i = 0; i < TL; ++i) {
+              nr[c][i] = pub[(c * TL + i) * 32 + lane];
+#pragma unroll
+              for (int d = 0; d < 3; ++d) nb[c][d][i] = pub[(2 * TL + (c * 3 + d) * TL + i) * 32 + lane];
+            }
+            eb[c] = pub[(8 * TL + c) * 32 + lane];
+          }
+          float lf[2], rt[2];                        // the neighbouring lanes' values
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            lf[c] = __shfl_up_sync(0xffffffffu, tv[c][TL - 1], 1);
+            rt[c] = __shfl_down_sync(0xffffffffu, tv[c][0], 1);
+          }
+          // the value of tile lane li0 + m (m = -1 .. TL)
+          auto tap = [&](int c, int m) {
+            return m < 0 ? lf[c] : m >= TL ? rt[c] : tv[c][m < 0 ? 0 : (m >= TL ? TL - 1 : m)];
+          };
+#pragma unroll
+          for (int i = 0; i < TL; ++i) {
+            const int l = li0 + i;
+            float ar = 0.f, ai = 0.f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              if (l + d - 1 < 0 || l + d - 1 >= kLanes || kNoBandStep) continue;
+              const float tr = tap(0, i + d - 1), ti = tap(1, i + d - 1);
+              ar = ar + nb[0][d][i] * tr - nb[1][d][i] * ti;
+              ai = ai + nb[0][d][i] * ti + nb[1][d][i] * tr;
+            }
+            *so.p(pp, o0 + l) = nr[0][i] - ar;
+            *so.p(R + pp, o0 + l) = nr[1][i] - ai;
+          }
+          // lane o0 - 1: tap 2 of it; lane o0 + 8: tap 0 of it (zero past the line)
+          const int side = li0 == 0 ? 0 : 1;
+          if (li0 == 0 || li0 + TL == kLanes) {
+            const float tr = tv[0][side ? TL - 1 : 0], ti = tv[1][side ? TL - 1 : 0];
+            *(so.e(pp, t) + side) = kNoBandStep ? 0.f : -(eb[0] * tr - eb[1] * ti);
+            *(so.e(R + pp, t) + side) = kNoBandStep ? 0.f : -(eb[0] * ti + eb[1] * tr);
+          }
+        }
+        if (ft.out != nullptr && !kNoOutputs) {
+#pragma unroll
+          for (int i = 0; i < TL; ++i) {
+            ft.out[(size_t)pp * ld + o0 + li0 + i] = tv[0][i];
+            ft.out[(size_t)(R + pp) * ld + o0 + li0 + i] = tv[1][i];
+          }
+        }
+        // the P flags, once the warp's rows are out: with one CTA a tile,
+        // those of the CTA's tiles of a step and batch row together after the
+        // last of them (the consumers wait for every tile of the line)
+        if (has_next) {
+          int fa = t, fb = t + 1;
+          bool last = true;
+          if (SPLIT == 1) {
+            fa = ta;
+            fb = tb;
+            int k1 = -1, b1 = -1, t1 = 0;
+            if (q + 1 < nitem) where(q + 1, k1, b1, t1);
+            last = !(k1 == k && b1 == b);
+          }
+          if (last) {
+            __syncwarp();
+            if (!kNoFences) fence_acq_rel_gpu();
+            for (int tt = fa + lane; tt < fb; tt += 32) st_word(flag_word(k, b, tt), 0.f, flag);
+          }
+        }
+      }
+      trace_point(q, 5, kPublisher * 32);
+    }
+  }
+}
+
+// A step map: the wide step at r = 4, 8, else the narrow one
+template <int R, Storage S, int SPLIT, bool kInject, class Items>
+__device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& fl) {
+  if constexpr (wide<R>()) {
+    static_assert(!kInject, "the fused sweeps take r = 1 or 2");
+    run_wide<R, S, SPLIT>(items, fl);
+  } else {
+    run_narrow<R, S, SPLIT, kInject>(items, fl);
+  }
+}
+
+template <int R, bool kBackward, Storage S, int SPLIT>
+__device__ __forceinline__ void flow_wide(const FlowArgs& fa) {
+  const PassArgs& a = fa.a;
+  const PassMap<R, kBackward, S, false> map{
+      a, FlowLaunch{a.count, a.batch, a.n, a.ld, fa.xchg, fa.epoch, nullptr, 0, kSlots, a.rows}};
+  run_wide<R, S, SPLIT>(map, map.fl);
+}
+
 template <int R, bool kBackward, Storage S, bool kBanded, int SPLIT>
 __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLIT>())
     pass_map_kernel(const PassMap<R, kBackward, S, kBanded> items) {
@@ -1652,7 +2075,8 @@ template <int R, bool kBackward, Storage S, bool kBanded>
 inline cudaError_t launch_pass_map(const PassArgs& a, uint2* xchg, unsigned epoch,
                                    cudaStream_t stream) {
   using Map = PassMap<R, kBackward, S, kBanded>;
-  const Map map{a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0}};
+  const Map map{a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0,
+                              kBanded ? 0 : kSlots, a.rows}};
   return launch_map<R, S, false, Map>(pass_map_kernel<R, kBackward, S, kBanded, 1>,
                                       pass_map_kernel<R, kBackward, S, kBanded, 2>, map,
                                       a.batch * (a.ld / kLanes), stream);
@@ -1678,7 +2102,7 @@ inline cudaError_t run_map_pass(int r, const PassArgs& a, uint2* xchg, unsigned 
                                 cudaStream_t stream) {
   if (a.batch < 1 || a.m < 1 || a.n < 1 || a.ld < a.n || a.ld % kLanes != 0 ||
       !launch_width(r) || a.count < 1 || a.first < 0 || a.first >= a.m || xchg == nullptr ||
-      epoch == 0u || epoch + (unsigned)a.count < epoch)
+      epoch == 0u || epoch + (unsigned)a.count < epoch || (r > 2 && a.rows == nullptr))
     return cudaErrorInvalidValue;
   if constexpr (kBanded) {
     if (r > kMaxRhsBanded || a.tail_start < 1 || a.tail_start >= a.m || a.half < 0 ||

@@ -34,6 +34,7 @@ extern "C" int thomas_forward(
     const int* s_idx,        // (B,)
     float* y,                // (B, m, 2r, ld); lines < start are not written
     void* xchg,              // (4, B, ld, 2r, 2) exchange words of 8 bytes, zeroed once
+    float* rows,             // r = 4, 8: 4 x B slots of the wide step's rows; else null
     int batch, int m, int n, int ld, int r, int start,
     unsigned epoch,          // flag of line `start`: lines take epoch .. epoch + m - start - 1
     void* stream) {
@@ -52,6 +53,7 @@ extern "C" int thomas_forward(
   a.ld = ld;
   a.first = start;
   a.count = m - start;
+  a.rows = rows;
 #if THOMAS_MAP_STEP
   cudaError_t err = thomas::run_map_pass<false>(r, a, static_cast<uint2*>(xchg), epoch,
                                                 (cudaStream_t)stream);

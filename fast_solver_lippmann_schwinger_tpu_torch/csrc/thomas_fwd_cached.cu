@@ -35,9 +35,12 @@
 // no flag; each line writes y (w) and t of its tile's lanes into the stacks.
 // A head tile stages only the rows of its window that lie in [0, n), one bulk
 // copy per plane, and waits only on the tiles that publish their carry lanes.
+// At r = 4 and 8 the map runs the wide step of thomas_flow.cuh (run_wide,
+// note "Wide batches"), the one the dense passes run: line `start`'s w from
+// t_init, each later line's from the rows its producers handed over.
 // Limits: r = 1, 2, 4 or 8 on dense planes (1 or 2 on banded+tail pivots), and
 // the lines of thomas_flow.cuh (n up to 1968 in bf16 and 2448 in int8 at
-// r = 2, 1760 and 2144 at r = 8: test_longest_line_fits).
+// r = 2, 1904 and 2192 at r = 8: test_longest_line_fits).
 //
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B (int8: 1 B and the
 // scales), or two head windows, 2 x ld x (8 + 2 half) x 2 B less the rows
@@ -89,7 +92,7 @@ template <int R, bool kBanded, Storage S>
 inline cudaError_t launch_cached(const PassArgs& a, uint2* xchg, unsigned epoch,
                                  cudaStream_t stream) {
   const CachedItems<R, kBanded, S> map{
-      a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0}};
+      a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0, 0, a.rows}};
   return launch_map<R, S, false, CachedItems<R, kBanded, S>>(
       cached_kernel<R, kBanded, S, 1>, cached_kernel<R, kBanded, S, 2>, map,
       a.batch * (a.ld / kLanes), stream);
@@ -130,9 +133,10 @@ extern "C" int thomas_forward_cached(
     float* t,                // (B, m, 2r, ld); lines < start are not touched
     int batch, int m, int n, int ld, int r, int start, int tail_start, int half,
     void* xchg,              // (m - start, B, ld, 2r, 2) exchange words of 8 bytes, zeroed once
+    float* rows,             // r = 4, 8: (m - start) x B slots of the wide step's rows
     unsigned epoch,          // flag of line `start`: lines take epoch .. epoch + m - start - 1
     void* stream) {
-  if (t_init == nullptr) return (int)cudaErrorInvalidValue;
+  if (t_init == nullptr || (r > 2 && rows == nullptr)) return (int)cudaErrorInvalidValue;
   thomas::PassArgs a{};
   a.rhs = b;
   a.band = lband;
@@ -153,6 +157,7 @@ extern "C" int thomas_forward_cached(
   a.count = m - start;
   a.tail_start = tail_start;
   a.half = half;
+  a.rows = rows;
   cudaError_t err = cudaErrorInvalidValue;
   const bool banded = tail_start > 0;
   if (batch >= 1 && m >= 1 && n >= 1 && ld >= n && ld % thomas::kLanes == 0 &&

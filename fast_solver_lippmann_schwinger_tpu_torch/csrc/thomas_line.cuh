@@ -204,6 +204,8 @@ struct PassArgs {
                            //   pass, first, first-1, ... in a backward pass
   int tail_start;          // banded+tail: first line with a dense plane; else 0
   int half;                // banded+tail: kept band half-width; else 0
+  float* rows;             // r = 4, 8: the wide step's rows buffer (thomas_flow.cuh,
+                           //   wide_slot_bytes a slot and batch row); else unused
 };
 
 }  // namespace thomas

@@ -5,11 +5,14 @@
 // A warp multiplies a run of staged pivot rows by the batch's rows as
 // mma.sync.aligned.m16n8k16 products, bf16 operands and f32 sums:
 //
-//     M = the 2r stacked rows: re_p in fragment row p, im_p in row 8 + p
-//         (zero rows where p >= r), so that a lane holds both halves of its
-//         outputs and the complex recombination is lane-local;
+//     M = the 2r stacked rows: at r = 8 re_p in fragment row p, im_p in row
+//         8 + p, so that a lane holds both halves of its outputs and the
+//         complex recombination is lane-local; at r = 4, whose 8 rows fill
+//         half of M, rows 0-7 take the h term of the rows and rows 8-15 their
+//         m term, a second product the l term (two products a part instead of
+//         three), and a lane adds its two row halves;
 //     N = the tile's 8 output lanes;
-//     K = 16 input rows a step.
+//     K = 16 input rows a step (a k-step).
 //
 // The B operand is a pivot run as it lies in shared memory: a row-major
 // K x 8 tile, 16 bytes a row in bf16, or 8 in int8, widened to bf16 exactly
@@ -18,10 +21,19 @@
 // f32's own precision; two terms would keep about 16, TF32 10), so that the
 // products keep the f32 numbers of the numerics contract (thomas_line.cuh,
 // plane_pass.cuh): against the plain versions' f32 products the difference
-// is summation order.  int8: a segment of rows lies in one 128-row scale
-// block, and its partial sums are multiplied by the block's scale of each
-// output lane before they are added (the TPU kernels' order, _scaled_dots /
+// is summation order.  Each k-step's products run on fresh sums, added to
+// the running ones in f32.  int8: a k-step lies in one 128-row scale block,
+// and its partial sums are multiplied by the block's scale of each output
+// lane before they are added (the TPU kernels' order, _scaled_dots /
 // _dot_plane).
+//
+// A warp splits the 16 columns of a k-step once and multiplies them into
+// every tile it takes (the plane kernels: every tile of its CTA; the line
+// kernels: every tile of a line and batch row that its CTA takes, from
+// fragments kept in shared memory); the B fragments come whole from shared
+// memory: bf16 runs by ldmatrix.trans (the 16-byte rows of a run are 8 x 8
+// core matrices), int8 runs a byte an entry, widened by a byte permute and a
+// subtraction (no conversion instruction).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -30,7 +42,6 @@
 namespace wide {
 
 constexpr int kLanes = 8;              // output lanes of a tile (N)
-constexpr int kSegRows = 64;           // input rows of a segment
 constexpr int kScaleBlock = 128;       // input rows per int8 scale
 
 // two floats as bf16x2, rounded to nearest: lo in the low half
@@ -59,184 +70,46 @@ __device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// bf16 bits of input row k, output lane n of a staged pivot run (bf16: 16 B a
-// row; int8: 8 B a row, widened exactly); zero from row `end` on
-template <bool kInt8>
-__device__ __forceinline__ unsigned pivot_bits(const unsigned char* run, int k, int n, int end) {
-  if (k >= end) return 0u;
-  if (!kInt8) return reinterpret_cast<const uint16_t*>(run)[k * kLanes + n];
-  const int q = reinterpret_cast<const signed char*>(run)[k * kLanes + n];
-  return __float_as_uint((float)q) >> 16;
-}
-
-// The B fragment of input rows kb .. kb + 15 of a run: lane (g, t) holds rows
-// kb + 2t, + 1 and kb + 2t + 8, + 9 of output lane g
-template <bool kInt8>
-__device__ __forceinline__ void b_frag(const unsigned char* run, int kb, int end, int g, int t,
-                                       unsigned& b0, unsigned& b1) {
-  const int k = kb + 2 * t;
-  b0 = pivot_bits<kInt8>(run, k, g, end) | (pivot_bits<kInt8>(run, k + 1, g, end) << 16);
-  b1 = pivot_bits<kInt8>(run, k + 8, g, end) | (pivot_bits<kInt8>(run, k + 9, g, end) << 16);
-}
-
-// The A fragments (three bf16 terms) of columns kb .. kb + 15 of the f32 rows
-// (row q at y + q * yp, 8-byte aligned at even columns; columns from `end` on
-// read as zero): fragment row g is re_g (y row g), row 8 + g is im_g (y row
-// R + g), zero for g >= R
-template <int R>
-__device__ __forceinline__ void a_frags(const float* y, int yp, int kb, int end, int g, int t,
-                                        unsigned (&ah)[4], unsigned (&am)[4], unsigned (&al)[4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int row = (q & 1) ? R + g : g;
-    const int col = kb + 2 * t + (q >= 2 ? 8 : 0);      // even
-    float2 v = make_float2(0.f, 0.f);
-    if (g < R && col + 1 < end)
-      v = *reinterpret_cast<const float2*>(y + (size_t)row * yp + col);
-    else if (g < R && col < end)
-      v.x = y[(size_t)row * yp + col];
-    split3(v.x, v.y, ah[q], am[q], al[q]);
-  }
-}
-
-// One warp's products of the input rows s0 .. min(s0 + kSegRows, end) - 1 of
-// a staged run (both pivot parts, the imaginary `im` bytes after the real;
-// y holding the same rows' columns): z1 += Y . Pre, z2 += Y . Pim as m16n8k16
-// accumulator fragments (lane (g, t): rows g and 8 + g, output lanes 2t and
-// 2t + 1).  int8: the rows lie in one scale block, whose scales ([part][lane]
-// floats at sb) multiply the partial sums before they are added.
-template <int R, bool kInt8>
-__device__ __forceinline__ void seg_products(const unsigned char* sre, int im, const float* sb,
-                                             const float* y, int yp, int s0, int end,
-                                             float (&z1)[4], float (&z2)[4]) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  auto steps = [&](float (&d1)[4], float (&d2)[4]) {
-#pragma unroll
-    for (int kk = 0; kk < kSegRows; kk += 16) {
-      const int kb = s0 + kk;
-      if (kb >= end) break;
-      unsigned ah[4], am[4], al[4], br0, br1, bi0, bi1;
-      a_frags<R>(y, yp, kb, end, g, t, ah, am, al);
-      b_frag<kInt8>(sre, kb, end, g, t, br0, br1);
-      b_frag<kInt8>(sre + im, kb, end, g, t, bi0, bi1);
-      // the step's three terms (the small ones first) on fresh sums, added
-      // to the running ones in f32 (rounded to nearest), so that no chain of
-      // the tensor cores' own f32 sums runs longer than one step
-      float e1[4] = {0.f, 0.f, 0.f, 0.f}, e2[4] = {0.f, 0.f, 0.f, 0.f};
-      mma16816(e1, al, br0, br1);
-      mma16816(e2, al, bi0, bi1);
-      mma16816(e1, am, br0, br1);
-      mma16816(e2, am, bi0, bi1);
-      mma16816(e1, ah, br0, br1);
-      mma16816(e2, ah, bi0, bi1);
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        d1[q] += e1[q];
-        d2[q] += e2[q];
-      }
-    }
-  };
-  if constexpr (kInt8) {
-    float p1[4] = {0.f, 0.f, 0.f, 0.f}, p2[4] = {0.f, 0.f, 0.f, 0.f};
-    steps(p1, p2);
-    const float r0 = sb[2 * t], r1 = sb[2 * t + 1];
-    const float i0 = sb[kLanes + 2 * t], i1 = sb[kLanes + 2 * t + 1];
-    z1[0] += r0 * p1[0];
-    z1[1] += r1 * p1[1];
-    z1[2] += r0 * p1[2];
-    z1[3] += r1 * p1[3];
-    z2[0] += i0 * p2[0];
-    z2[1] += i1 * p2[1];
-    z2[2] += i0 * p2[2];
-    z2[3] += i1 * p2[3];
-  } else {
-    steps(z1, z2);
-  }
-}
-
-// This warp's part of a tile's 2R x 8 values from its fragments: t_re of
-// right-hand side g = z1[g] - z2[8 + g], t_im = z1[8 + g] + z2[g] (lane-local),
-// value v = row * 8 + lane at part[v * pitch + warp]
-template <int R>
-__device__ __forceinline__ void store_part(const float (&z1)[4], const float (&z2)[4],
-                                           float* part, int pitch, int warp) {
-  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  if (g >= R) return;
-  const int re = g * kLanes + 2 * t, imv = (R + g) * kLanes + 2 * t;
-  part[re * pitch + warp] = z1[0] - z2[2];
-  part[(re + 1) * pitch + warp] = z1[1] - z2[3];
-  part[imv * pitch + warp] = z1[2] + z2[0];
-  part[(imv + 1) * pitch + warp] = z1[3] + z2[1];
-}
-
-// One item of a line kernel (thomas_flow.cuh): the rows row0 .. row0 + rows -
-// 1 of a tile's staged pivot run (both parts, the imaginary `im` bytes after
-// the real; int8: the tile's scales sc, [block][part][lane] by absolute
-// block) times w (w[p * pitch + i - row0]), each warp taking the 64-row
-// segments of the absolute rows in turn (a segment lies in one 128-row
-// block), its part of the 2R x 8 values stored at part[v * kPitch + warp]
-template <int R, bool kInt8, int kWarps>
-__device__ __forceinline__ void line_products(const unsigned char* pre, int im, const float* sc,
-                                              const float* w, int pitch, int rows, int row0,
-                                              float* part, int kPitch, bool products) {
-  const int warp = threadIdx.x >> 5;
-  float z1[4] = {0.f, 0.f, 0.f, 0.f}, z2[4] = {0.f, 0.f, 0.f, 0.f};
-  const int end = row0 + rows;
-  for (int j = row0 / kSegRows + warp; products && j * kSegRows < end; j += kWarps) {
-    const int a = max(j * kSegRows, row0), b = min((j + 1) * kSegRows, end);
-    seg_products<R, kInt8>(pre, im, sc + (j * kSegRows / kScaleBlock) * 2 * kLanes, w, pitch,
-                           a - row0, b - row0, z1, z2);
-  }
-  store_part<R>(z1, z2, part, kPitch, warp);
-}
-
-// ---------------------------------------------------------------------------
-// The plane kernels' step at r = 4 and 8 (plane_pass.cuh, note 4).  The line
-// kernels above do not use what follows.
-//
-// A warp splits the 16 columns of a k-step of y once and multiplies them into
-// every tile of its CTA (or block); the B fragments come whole from shared
-// memory: bf16 runs by ldmatrix.trans (the 16-byte rows of a run are 8 x 8
-// core matrices), int8 runs a byte an entry, widened by a byte permute and a
-// subtraction (no conversion instruction).  M holds the 2r stacked rows: at
-// r = 8 re_p in fragment row p and im_p in row 8 + p, as above; at r = 4,
-// whose 8 rows fill half of M, rows 0-7 take the h term of the y rows and
-// rows 8-15 their m term, a second product the l term (two products a part
-// instead of three), and a lane adds its two row halves.
-// ---------------------------------------------------------------------------
-
 // y rows of a k-step staged by a warp: 2R rows of 16 columns at a pitch of 24
 // floats (the fragment loads of a half-warp meet no bank twice)
 constexpr int kYPitch = 24;
 
-// The A fragments of a k-step from a warp's staged y (row q at y + q *
-// kYPitch, 16 columns, zero past the plane).  R = 8: the three terms of rows
-// g (re_g) and 8 + g (im_g).  R = 4: a[0] = {h, m} of row g (fragment rows g
-// and 8 + g), a[1] = {l, 0}; a[2] unused.
+// The A fragments of a k-step from the f32 pairs a lane holds: R = 8, v[q]
+// the columns 2t, 2t + 1 (q < 2) or 2t + 8, + 9 (q >= 2) of row g (q even,
+// re_g) or 8 + g (q odd, im_g), three terms each.  R = 4, v[q] (q < 2) the
+// columns 2t + 8q, + 1 of row g: a[0] = {h, m} of row g (fragment rows g and
+// 8 + g), a[1] = {l, 0}; a[2] unused.
 template <int R>
-__device__ __forceinline__ void plane_a_frags(const float* y, int g, int t, unsigned (&a)[3][4]) {
-  auto pair = [&](int row, int col) {
-    return *reinterpret_cast<const float2*>(y + row * kYPitch + col);
-  };
+__device__ __forceinline__ void a_frags_of(const float2 (&v)[4], unsigned (&a)[3][4]) {
   if constexpr (R == 8) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float2 v = pair((q & 1) ? R + g : g, 2 * t + (q >= 2 ? 8 : 0));
-      split3(v.x, v.y, a[0][q], a[1][q], a[2][q]);
-    }
+    for (int q = 0; q < 4; ++q) split3(v[q].x, v[q].y, a[0][q], a[1][q], a[2][q]);
   } else {
-    static_assert(R == 4, "wide plane step: r = 4 or 8");
+    static_assert(R == 4, "wide step: r = 4 or 8");
 #pragma unroll
     for (int q = 0; q < 2; ++q) {
-      const float2 v = pair(g, 2 * t + 8 * q);
       unsigned h, m, l;
-      split3(v.x, v.y, h, m, l);
+      split3(v[q].x, v[q].y, h, m, l);
       a[0][2 * q] = h;
       a[0][2 * q + 1] = m;
       a[1][2 * q] = l;
       a[1][2 * q + 1] = 0u;
     }
   }
+}
+
+// The A fragments of a k-step from a warp's staged y (row q at y + q *
+// kYPitch, 16 columns, zero past the plane), as a_frags_of
+template <int R>
+__device__ __forceinline__ void plane_a_frags(const float* y, int g, int t, unsigned (&a)[3][4]) {
+  auto pair = [&](int row, int col) {
+    return *reinterpret_cast<const float2*>(y + row * kYPitch + col);
+  };
+  float2 v[4];
+#pragma unroll
+  for (int q = 0; q < (R == 8 ? 4 : 2); ++q)
+    v[q] = R == 8 ? pair((q & 1) ? R + g : g, 2 * t + (q >= 2 ? 8 : 0)) : pair(g, 2 * t + 8 * q);
+  a_frags_of<R>(v, a);
 }
 
 // The B fragments of rows k0 .. k0 + 15 of a staged bf16 run (16-byte rows,
@@ -306,8 +179,9 @@ __device__ __forceinline__ void plane_kstep(const unsigned (&a)[3][4], const uns
 }
 
 // A lane's part of a tile's 2R x 8 values (value v = row * 8 + lane at
-// part[v * pitch]) from its sums z1 = Y . Pre, z2 = Y . Pim: R = 8 as
-// store_part; R = 4 lane (g, t) holds y row g (re_g for g < 4, im_{g-4}
+// part[v * pitch]) from its sums z1 = Y . Pre, z2 = Y . Pim: R = 8, t_re of
+// right-hand side g = z1[g] - z2[8 + g], t_im = z1[8 + g] + z2[g]
+// (lane-local); R = 4 lane (g, t) holds y row g (re_g for g < 4, im_{g-4}
 // above), whose partner row is four lanes of g away (lane ^ 16)
 template <int R>
 __device__ __forceinline__ void plane_store_part(const float (&z1)[4], const float (&z2)[4],

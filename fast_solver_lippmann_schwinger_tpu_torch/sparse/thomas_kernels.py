@@ -89,11 +89,12 @@ INT8_BLOCK = 128       # input rows per int8 scale (csrc: kScaleBlock)
 
 _P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
 # each launcher takes its pointers, its ints (the flag-handoff passes also an
-# exchange buffer and their first flag) and the stream
-cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 8 + [_I] * 6 + [_U, _P])
-cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 9 + [_I] * 8 + [_P, _U, _P])
+# exchange buffer, at r = 4 and 8 the wide step's rows buffer, and their first
+# flag) and the stream
+cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 9 + [_I] * 6 + [_U, _P])
+cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 9 + [_I] * 8 + [_P, _P, _U, _P])
 cuda_build.register("thomas_fwd_cached", "thomas_forward_cached",
-                    [_P] * 11 + [_I] * 8 + [_P, _U, _P])
+                    [_P] * 11 + [_I] * 8 + [_P, _P, _U, _P])
 
 
 def _round_up(x: int, m: int) -> int:
@@ -537,6 +538,8 @@ def in_rhs_groups(launch, r: int, rows: tuple, out=None, width: int = MAX_RHS):
 
 SMEM_PER_BLOCK = 232_448   # shared memory an H100 grants one block (opt-in)
 LINE_STAGES = 3            # stage buffers of the flag-handoff step (csrc: kStages)
+WIDE_PUB_BYTES = 4 * 32 * 20   # the wide step's publisher's operands (csrc: wide_pub_bytes)
+WIDE_STAGES = 2            # stage buffers of the wide step (csrc: kWideStages)
 
 
 def _slice_rows(ld: int, split: int) -> int:
@@ -545,22 +548,40 @@ def _slice_rows(ld: int, split: int) -> int:
     return LEAD_MULTIPLE * -(-(ld // LEAD_MULTIPLE) // split)
 
 
+def wide_ksteps(cmax: int) -> int:
+    """k-steps (16 input rows) of the wide step on a slice of ``cmax`` rows,
+    the first aligned to 16 rows (csrc: wide_ksteps)."""
+    return (cmax + 23) // 16
+
+
 def line_smem_bytes(ld: int, r: int, storage: str = "bf16", split: int = 1,
                     inject: bool = False) -> int:
     """Shared memory of one block of a line kernel on lines of ``ld`` lanes at
     ``r`` right-hand sides with ``split`` CTAs a tile (``inject``: the fused
-    sweeps, which keep the trace rows beside the carry): the mbarriers, the
-    warps' sums, the carry rows (and trace rows), at r > 2 w and the band rows
-    of the slice, and the stage ring (plane runs and scales; at r <= 2 also
-    the band and right-hand rows)."""
+    sweeps, which keep the trace rows beside the carry): the mbarriers and the
+    warps' sums; at r <= 2 the carry rows (and trace rows) and the stage ring
+    of :data:`LINE_STAGES` buffers (plane runs, scales, band and right-hand
+    rows); at r = 4 and 8 (the wide step, csrc/thomas_flow.cuh:
+    wide_smem_bytes) the publisher's operands of the next line
+    (:data:`WIDE_PUB_BYTES`), w of the slice's k-steps (2r rows at a pitch of
+    8 more than a multiple of 32 floats), their A fragments, 16 bytes a lane
+    and group (three groups at r = 8, two at r = 4), and a stage ring of
+    :data:`WIDE_STAGES` buffers of plane runs and scales only, each run 24
+    rows longer than the slice."""
     cmax = _slice_rows(ld, split)
     pitch = (512 if split == 1 else 256) // 32 + 4
     red = 4 * 2 * (2 * r * LEAD_MULTIPLE) * pitch
+    scales = 4 * 2 * LEAD_MULTIPLE * n_scale_blocks(ld) if storage == "int8" else 0
+    row_bytes = 8 if storage == "int8" else 16
+    if r > 2:
+        ksteps = wide_ksteps(cmax)
+        w = 4 * 2 * r * (-(-16 * ksteps // 32) * 32 + 8)
+        frags = ksteps * (3 if r == 8 else 2) * 32 * 16
+        return (64 + red + WIDE_PUB_BYTES + w + frags
+                + WIDE_STAGES * (2 * (cmax + 24) * row_bytes + scales))
     prev = (2 if inject else 1) * 4 * 2 * r * (cmax + 16)
     rows = 4 * (6 + 2 * r) * cmax            # the band and right-hand rows of the slice
-    scales = 4 * 2 * LEAD_MULTIPLE * n_scale_blocks(ld) if storage == "int8" else 0
-    stage = 2 * cmax * (8 if storage == "int8" else 16) + scales + (0 if r > 2 else rows)
-    return 64 + red + prev + (rows if r > 2 else 0) + LINE_STAGES * stage
+    return 64 + red + prev + LINE_STAGES * (2 * cmax * row_bytes + scales + rows)
 
 
 def line_fits(ld: int, r: int, storage: str = "bf16", inject: bool = False) -> bool:
@@ -590,6 +611,7 @@ def line_width(fac, r: int) -> int:
 FLAG_LIMIT = 2**32 - 1     # flags are 32-bit; 0 marks a word never written
 EXCHANGE_LINES = 4         # lines of the dense passes' exchange ring (csrc: kSlots)
 LINE_HALVES = 2            # most CTAs a tile, each publishing its own sums (csrc: SPLIT)
+WIDE_SLOT_BYTES = 64       # x r x ld: a slot of the wide step's rows (csrc: wide_slot_bytes)
 
 
 class Exchange:
@@ -612,11 +634,21 @@ class Exchange:
     for, and no launch needs a memset.  A buffer too small for a launch is
     replaced by a larger zeroed one, and the counter starts again at 1; so
     it does when it would pass :data:`FLAG_LIMIT`, after zeroing the buffer
-    once."""
+    once.
+
+    The wide step (r = 4, 8; ``csrc/thomas_flow.cuh``) hands its rows over
+    as plain f32 rows in a second buffer (:meth:`wide_rows`), behind flag
+    words in the words above, two a tile (its rows, and with two CTAs a tile
+    the partial sums one hands the other) 32 bytes apart, (slots, B, 2, ld /
+    8, 4) words: no more than :meth:`values`, so the words buffer never grows
+    for them, and the rows buffer holds only rows, so no stale row is ever
+    read as a flag.
+    """
 
     def __init__(self, device):
         self.device = torch.device(device)
         self.words: torch.Tensor | None = None     # int32, two per word
+        self.rows: torch.Tensor | None = None      # float32, the wide step's rows
         self.next = 1
 
     @staticmethod
@@ -631,12 +663,32 @@ class Exchange:
         if self.words is None or self.words.numel() < need:
             self.words = torch.zeros(need, dtype=torch.int32, device=self.device)
             self.next = 1
+            self.rows = None
         if self.next + lines > FLAG_LIMIT:
             self.words.zero_()
             self.next = 1
+            self.rows = None
         epoch = self.next
         self.next += lines
         return self.words, epoch
+
+    @staticmethod
+    def row_values(batch: int, r: int, ld: int, slots: int = EXCHANGE_LINES) -> int:
+        """Floats of a wide launch's rows: ``slots`` slots of
+        :data:`WIDE_SLOT_BYTES` x r x ld bytes a batch row."""
+        return slots * batch * WIDE_SLOT_BYTES * r * ld // 4
+
+    def wide_rows(self, batch: int, r: int, ld: int, slots: int = EXCHANGE_LINES):
+        """The rows buffer of a wide launch (r = 4, 8), zero when made (a
+        build that hands the rows over as flagged words needs that) and made
+        anew whenever the flags start again at 1; a null pointer's tensor
+        (None) at r <= 2."""
+        if r <= 2:
+            return None
+        need = self.row_values(batch, r, ld, slots)
+        if self.rows is None or self.rows.numel() < need:
+            self.rows = torch.zeros(need, dtype=torch.float32, device=self.device)
+        return self.rows
 
 
 # one exchange per (device, stream), for the life of the process: every
@@ -841,16 +893,23 @@ def forward_substitution(fac: ThomasFactorization, s_idx: torch.Tensor,
     y4 = torch.empty_like(b4)
     if start:
         y4[:, :start] = 0
-    xchg, epoch = exchange_for(b4).take(B, r, fac.ld, fac.m - start)
+    ex = exchange_for(b4)
+    xchg, epoch = ex.take(B, r, fac.ld, fac.m - start)
     err = fn(
         b4.data_ptr(), fac.lband.data_ptr(), fac.cinv_t_re.data_ptr(),
         fac.cinv_t_im.data_ptr(), _scale_ptr(fac), s_idx.data_ptr(), y4.data_ptr(),
-        xchg.data_ptr(), B, fac.m, fac.n, fac.ld, r, start, epoch,
+        xchg.data_ptr(), _ptr(ex.wide_rows(B, r, fac.ld)), B, fac.m, fac.n, fac.ld, r, start,
+        epoch,
         torch.cuda.current_stream(b4.device).cuda_stream,
     )
     _raise_on(err, "thomas_forward", fac)
     _count_launch(forward_substitution, fac)
     return y4
+
+
+def _ptr(t: torch.Tensor | None) -> int:
+    """A tensor's pointer, or 0 (null) for None."""
+    return 0 if t is None else t.data_ptr()
 
 
 def _scale_ptr(fac) -> int:
@@ -934,11 +993,13 @@ def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
     fn = cuda_build.load("thomas_fwd_cached")
     pivots, layout = _pivot_args(fac)
     lines = fac.m - start                   # one exchange slot per line
-    xchg, epoch = exchange_for(b4).take(B, r, fac.ld, lines, slots=lines)
+    ex = exchange_for(b4)
+    xchg, epoch = ex.take(B, r, fac.ld, lines, slots=lines)
     err = fn(
         b4.data_ptr(), fac.lband.data_ptr(), *pivots, s_idx.data_ptr(), t_init.data_ptr(),
         out[0].data_ptr(), out[1].data_ptr(), B, fac.m, fac.n, fac.ld, r, start, *layout,
-        xchg.data_ptr(), epoch, torch.cuda.current_stream(b4.device).cuda_stream,
+        xchg.data_ptr(), _ptr(ex.wide_rows(B, r, fac.ld, slots=lines)), epoch,
+        torch.cuda.current_stream(b4.device).cuda_stream,
     )
     _raise_on(err, "thomas_forward_cached", fac)
     _count_launch(forward_substitution_cached, fac)
@@ -972,10 +1033,13 @@ def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
     m_eff = m if tail <= 0 or tail >= m else tail
     x4 = torch.empty((B, m_eff, 2 * r, fac.ld), dtype=torch.float32, device=y4.device)
     pivots, layout = _pivot_args(fac)
-    xchg, epoch = exchange_for(y4).take(B, r, fac.ld, m_eff, slots=backward_slots(fac, m_eff))
+    ex = exchange_for(y4)
+    slots = backward_slots(fac, m_eff)
+    xchg, epoch = ex.take(B, r, fac.ld, m_eff, slots=slots)
     err = fn(
         y4.data_ptr(), fac.uband.data_ptr(), *pivots, s_idx.data_ptr(), x4.data_ptr(),
-        B, m, fac.n, fac.ld, r, m_eff, *layout, xchg.data_ptr(), epoch,
+        B, m, fac.n, fac.ld, r, m_eff, *layout, xchg.data_ptr(),
+        _ptr(ex.wide_rows(B, r, fac.ld, slots=slots)), epoch,
         torch.cuda.current_stream(y4.device).cuda_stream,
     )
     _raise_on(err, "thomas_backward", fac)

@@ -967,7 +967,7 @@ def test_banded_backward_refuses_bad_arguments(banded, fault):
         y4.data_ptr(), fac.uband.data_ptr(), fac.head_re.data_ptr(), fac.head_im.data_ptr(),
         fac.tail_re.data_ptr(), fac.tail_im.data_ptr(),
         scale.data_ptr() if fault == "int8_scales" else 0, s_idx.data_ptr(), x4.data_ptr(),
-        1, fac.m, fac.n, fac.ld, 1, fac.m, tail_start, fac.half, xchg.data_ptr(), epoch,
+        1, fac.m, fac.n, fac.ld, 1, fac.m, tail_start, fac.half, xchg.data_ptr(), 0, epoch,
         torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 1
@@ -1037,13 +1037,14 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
 # by storage and right-hand sides of a launch, with two CTAs a tile: the
 # flag-handoff passes, the cached forward pass among them (half a line's rows
 # in each of three stage buffers, with the band and 2r right-hand rows at
-# r <= 2, the plane runs only at r = 4 and 8, which keep w and the band rows
-# of the slice once; the grid-barrier step took 1704 and 2200 at r = 2; a
-# slice holds at most 1280 rows), and the fused sweeps, which keep the trace
+# r <= 2, the plane runs only at r = 4 and 8, two of them, which keep w of
+# the slice and its A fragments once; the grid-barrier step took 1704 and
+# 2200 at r = 2;
+# a slice holds at most 1280 rows), and the fused sweeps, which keep the trace
 # rows beside the carry (the grid-barrier step took about 1300);
 # thomas_kernels.line_fits mirrors them
-LONGEST_LINE = {("bf16", 1): 2304, ("bf16", 2): 1968, ("bf16", 4): 2448, ("bf16", 8): 1760,
-                ("int8", 1): 2560, ("int8", 2): 2448, ("int8", 4): 2560, ("int8", 8): 2144}
+LONGEST_LINE = {("bf16", 1): 2304, ("bf16", 2): 1968, ("bf16", 4): 2560, ("bf16", 8): 1904,
+                ("int8", 1): 2560, ("int8", 2): 2448, ("int8", 4): 2560, ("int8", 8): 2192}
 LONGEST_SWEEP_LINE = 1840
 
 
@@ -1168,16 +1169,19 @@ def test_flow_passes_are_bit_identical_across_repeats(cuda_device):
     is no atomic in any)."""
     rng = np.random.default_rng(7)
     cases = []
+    # the narrow step (r = 1, 2), then the wide one (r = 4, 8) on one and on
+    # two CTAs a tile
     for storage, batch, n, r in (("bf16", 1, 801, 1), ("int8", 16, 300, 2), ("bf16", 4, 801, 2),
                                  ("int8", 1, 801, 1), ("bf16", 16, 120, 1), ("bf16", 2, 1700, 2),
-                                 ("int8", 1, 1700, 1)):
+                                 ("int8", 1, 1700, 1), ("bf16", 1, 801, 8), ("int8", 16, 300, 4),
+                                 ("bf16", 2, 1700, 4), ("int8", 1, 1700, 8)):
         fac = _factors_of(storage, rng, 2, 9, n, cuda_device)
         s_idx = torch.as_tensor(np.arange(batch) % 2, dtype=torch.int32, device=cuda_device)
         b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, 9, n, r)), device=cuda_device))
         cases.append((fac, s_idx, b4))
     other = cases[2]
     first = {}
-    for i in range(100):
+    for i in range(140):
         k = i % len(cases)
         fac, s_idx, b4 = cases[k]
         y4 = tk.forward_substitution(fac, s_idx, b4, start=i % 3)
@@ -1189,7 +1193,60 @@ def test_flow_passes_are_bit_identical_across_repeats(cuda_device):
         else:
             assert torch.equal(y4, first[key][0]) and torch.equal(x4, first[key][1]), (i, key)
     torch.cuda.synchronize()
-    assert len(first) == 42      # each of 42 shapes and modes held twice or more
+    assert len(first) == 66      # each of 66 shapes and modes held twice or more
+
+
+def _longest_line(storage, r, split):
+    """The longest line the line kernels take at width r with ``split`` CTAs
+    a tile (thomas_kernels.line_smem_bytes, the mirror of the kernels'
+    sizing; test_longest_line_fits holds the two-CTA ones to the card)."""
+    rows = 3 * 512 if split == 1 else 5 * 256
+    return max(ld for ld in range(8, 4096, 8)
+               if tk.line_smem_bytes(ld, r, storage, split) <= tk.SMEM_PER_BLOCK
+               and tk._slice_rows(ld, split) <= rows)
+
+
+@pytest.mark.parametrize("storage", ["bf16", "int8"])
+@pytest.mark.parametrize("r", [4, 8])
+@pytest.mark.parametrize("n,batch", [(401, 1), (401, 16), (801, 1), (801, 16), ("one", 1),
+                                     ("two", 1)])
+def test_wide_line_step_matches_plain(cuda_device, storage, r, n, batch):
+    """The wide step (r = 4, 8) of the dense line kernels against the plain
+    versions, to 1e-4 of the max-norm: the forward pass from a start, the
+    backward pass whole and over its last lines, and the cached forward pass
+    from a carry at line 48, one launch each, on bf16 and int8 planes, at one
+    and sixteen batch rows (several tiles a CTA, slabs out of order) of 401
+    and 801 lanes, and at the longest lines of one CTA a tile and of two."""
+    if n in ("one", "two"):
+        n = _longest_line(storage, r, 1 if n == "one" else 2)
+    rng = np.random.default_rng(1000 * r + 10 * batch + (storage == "int8") + n)
+    S, m, start = 2, 52, 48
+    fac = _factors_of(storage, rng, S, m, n, cuda_device)
+    cpu = move_to(fac, "cpu")
+    assert tk.line_width(fac, r) == r
+    s_idx = torch.as_tensor((np.arange(batch) + 1) % S, dtype=torch.int32, device=cuda_device)
+    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, m, n, r), start=2),
+                                            device=cuda_device))
+    t_init = torch.zeros((batch, 2 * r, fac.ld), device=cuda_device)
+    t_init[..., :n] = torch.as_tensor(rng.standard_normal((batch, 2 * r, n)).astype(np.float32))
+    fns = (tk.forward_substitution, tk.backward_substitution, tk.forward_substitution_cached)
+    before = [f.launches[storage] for f in fns]
+    y4 = tk.forward_substitution(fac, s_idx, b4, start=2)
+    x4 = tk.backward_substitution(fac, s_idx, y4)
+    x4t = tk.backward_substitution(fac, s_idx, y4, tail=3)
+    out = (torch.full_like(b4, 7.0), torch.full_like(b4, -7.0))
+    yc, tc = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start, out=out)
+    torch.cuda.synchronize()
+    assert [f.launches[storage] for f in fns] == [before[0] + 1, before[1] + 2, before[2] + 1]
+    s_cpu, y_cpu, b_cpu = s_idx.cpu(), y4.cpu(), b4.cpu()
+    assert not y_cpu[:, :2].any()
+    yc_p, tc_p = tk.forward_substitution_cached(cpu, s_cpu, b_cpu, t_init.cpu(), start=start)
+    for got, want in ((y4, tk.forward_substitution(cpu, s_cpu, b_cpu, start=2)),
+                      (x4, tk.backward_substitution(cpu, s_cpu, y_cpu)),
+                      (x4t, tk.backward_substitution(cpu, s_cpu, y_cpu, tail=3)),
+                      (yc[:, start:], yc_p[:, start:]), (tc[:, start:], tc_p[:, start:])):
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=TOL * float(want.abs().max()))
+    assert bool((yc[:, :start] == 7.0).all()) and bool((tc[:, :start] == -7.0).all())
 
 
 def _hybrid_on_card(rng, S, m, n, width, tail_lines, device):

@@ -147,9 +147,9 @@ def test_eight_right_hand_sides_fit_the_solves_shapes(storage):
         # one CTA a tile holds a whole line of either, at r = 2 and at r = 8
         for r in (2, R):
             assert tk.line_smem_bytes(ld, r, storage, split=1) <= tk.SMEM_PER_BLOCK
-    assert tk.line_smem_bytes(856, R, "bf16", split=1) > tk.SMEM_PER_BLOCK
-    longest = {"bf16": {1: 2304, 2: 1968, 4: 2448, 8: 1760},
-               "int8": {1: 2560, 2: 2448, 4: 2560, 8: 2144}}[storage]
+    assert tk.line_smem_bytes(920, R, "bf16", split=1) > tk.SMEM_PER_BLOCK
+    longest = {"bf16": {1: 2304, 2: 1968, 4: 2560, 8: 1904},
+               "int8": {1: 2560, 2: 2448, 4: 2560, 8: 2192}}[storage]
     for r, n in longest.items():
         assert tk.line_fits(n, r, storage) and not tk.line_fits(n + 8, r, storage)
     for ld in (2304, 3072):

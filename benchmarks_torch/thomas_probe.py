@@ -25,8 +25,9 @@ Then the cost of a launch: a one-line backward pass through the bare launcher.
 right-hand sides of a launch (default 1 and 2): at r = 4 and 8 (the wide
 step) the dense passes run at the shapes of rows 1-2 and 1i-2i, the backward
 pass on an inner slab in full and over its tail and the cached forward pass
-in full and resumed (rows 2, 3, 2i, 3i); the banded+tail rows run at r = 1,
-2 only.  ``--tree`` is the root of the checkout whose package is timed
+in full and resumed (rows 2, 3, 2i, 3i); the banded+tail rows 6-9 run at
+every r given (on a tree whose banded+tail launches take at most two
+right-hand sides, as its groups of two).  ``--tree`` is the root of the checkout whose package is timed
 (default: the one that holds this script), built under its own ``build/``;
 ``--step-only`` times that package's build alone (no variants, no launch
 cost: what runs across trees).  To compare a change with its parent on one
@@ -373,14 +374,11 @@ def main():
             probe_launch_cost(fac, dev)
         del fac
         torch.cuda.empty_cache()
-    narrow = [r for r in rs if r <= 2]
-    if not narrow:
-        return
     # banded+tail pivots: rows 6 and 7 at one inner slab and at 16 batch rows,
-    # and the fused sweeps of rows 8-9 (r = 1, 2)
+    # and the fused sweeps of rows 8-9
     fac = random_banded(g, 16, M1_MAX, dev)
     s = fac.slab_ids[8:9]
-    for r in narrow:
+    for r in rs:
         b4 = rows(g, 1, M1_MAX, r, dev)
         probe_cached("6", fac, s, b4)
         probe_cached("6", fac, s, b4, start=M1_MAX - TRACE_TAIL)
@@ -391,7 +389,7 @@ def main():
         probe_cached("6", fac, fac.slab_ids, b4)
         probe_backward_banded(fac, fac.slab_ids, tk.forward_substitution_cached(
             fac, fac.slab_ids, b4)[0])
-    for r in narrow:
+    for r in rs:
         probe_sweeps(fac, r, g, dev)
 
 

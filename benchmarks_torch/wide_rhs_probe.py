@@ -2,7 +2,7 @@
 right-hand sides, and the dense line and plane passes of their paths at
 r = 1, 2 and 8 on the solves' own planes, for one checkout of the package.
 
-    python3 benchmarks_torch/wide_rhs_probe.py [--tree DIR] [--paths a,b,b8,c,d]
+    python3 benchmarks_torch/wide_rhs_probe.py [--tree DIR] [--paths a,b,b8,c,d,e]
                                                [--repeats 3] [--tag NAME] [--device-time]
 
 ``--tree`` is the root of the checkout whose package is timed (default: the
@@ -13,7 +13,9 @@ once per tree, in turns (parent, change, change, parent), in one call.
 The paths are the joint solves of ``chip_smoke.py``: ``a`` the 801^2 one-slab
 solve (``plasma2d.build_problem(h=1/800, n_subdomains=1, npml=10,
 pivot_dtype="pallas")``), ``b`` the 16-slab double sweep on bf16 line pivots
-(``tests/plasma_example.jl``), ``b8`` the same on int8 line pivots, ``c`` the
+(``tests/plasma_example.jl``), ``b8`` the same on int8 line pivots, ``e`` the
+same on banded+tail pivots (``pivot_dtype="pallas_banded_tail"``, w = 201 by
+the rule: each sweep direction one launch of a fused sweep kernel), ``c`` the
 48^3 z-slab Gauss-Seidel sweep (``bump3d.build_problem(h=1/48, precond="gs",
 n_subdomains=4, npml=5, pivot_dtype="bf16_pallas")``) and ``d`` the 96^3 one
 on int8 y-planes (6 slabs, npml 8, ``"yblock_int8_pallas"``).  For each: the
@@ -27,9 +29,11 @@ times under torch.profiler, so that a solve whose wall time moves between
 runs can be told host from device); then the path's
 passes (one slab's lines or planes) at r = 1, 2 and 8 on the solve's own
 planes and right-hand sides (As b of the plane waves), the mean of 20
-back-to-back launches.  On a tree whose launches take at most two right-hand
-sides the r = 8 figures are its groups of two.  Prints one JSON line per
-path, with the card's name and power limit.  Needs one CUDA card and nvcc.
+back-to-back launches (path ``e``: the cached forward and backward passes on
+the hybrid layout, and the two fused sweep kernels over the 16 slabs).  On a
+tree whose launches take at most two right-hand sides the r = 8 figures are
+its groups of two.  Prints one JSON line per path, with the card's name and
+power limit.  Needs one CUDA card and nvcc.
 """
 
 import argparse
@@ -44,7 +48,7 @@ import torch
 
 ARGS = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 ARGS.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
-ARGS.add_argument("--paths", default="a,b,b8,c,d")
+ARGS.add_argument("--paths", default="a,b,b8,c,d,e")
 ARGS.add_argument("--repeats", type=int, default=3)
 ARGS.add_argument("--tag", default="")
 ARGS.add_argument("--device-time", action="store_true")
@@ -55,6 +59,7 @@ from fast_solver_lippmann_schwinger_tpu_torch.ddm import subdomain, subdomain3d 
 from fast_solver_lippmann_schwinger_tpu_torch.models import bump3d, plasma2d  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.solver.gmres import gmres_batched  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk  # noqa: E402
+from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk  # noqa: E402
 
 R = 8
@@ -65,11 +70,15 @@ SOLVE_48 = dict(rtol=1e-6, restart=20, maxiter=16)
 SOLVE_96 = dict(rtol=1e-6, restart=20, maxiter=12)
 WRAPPERS = {"forward": tk.forward_substitution, "forward_cached": tk.forward_substitution_cached,
             "backward": tk.backward_substitution, "plane_forward": pk.plane_forward,
-            "plane_backward": pk.plane_backward}
+            "plane_backward": pk.plane_backward, "sweep_down": sk.sweep_down,
+            "sweep_up": sk.sweep_up}
 
 
 def launches() -> dict:
-    return {name: dict(fn.launches) for name, fn in WRAPPERS.items()}
+    """Each wrapper's launch counts, by layout ({"all": n} for the fused
+    sweeps' single count)."""
+    return {name: dict(fn.launches) if isinstance(fn.launches, dict) else {"all": fn.launches}
+            for name, fn in WRAPPERS.items()}
 
 
 def median_ms(fn, repeats: int):
@@ -174,11 +183,35 @@ def path_2d(name: str, n_subdomains: int, pivot_dtype: str) -> dict:
         return tk._to_rows_b(fac, part[slab : slab + 1].contiguous())
 
     passes = line_passes(fac, rows, cached=fac.n_slabs > 1)
+    extra = {}
+    if isinstance(fac, tk.BandedTailFactorization):
+        extra = dict(sweeps=fused_sweeps(problem), shape_ht=dict(
+            width=fac.width, tail_start=fac.tail_start, trace_tail=slabs.trace_tail))
     del problem
     torch.cuda.empty_cache()
     return dict(path=name, pivot_dtype=pivot_dtype, n_subdomains=n_subdomains,
                 setup_seconds=setup_s, solves=solves, passes=passes,
-                shape=dict(m=m, n=n, ld=fac.ld))
+                shape=dict(m=m, n=n, ld=fac.ld), **extra)
+
+
+def fused_sweeps(problem) -> dict:
+    """The two fused sweep kernels over all slabs (one launch each at r = 1,
+    2 and 8 on this tree's kernels) on the solve's own rows: ms a call."""
+    pc = problem.precond
+    slabs = pc.slabs
+    fac, tt, tables = slabs.pfac, slabs.trace_tail, slabs.sweep_tables
+    out = {}
+    for r in (1, 2, R):
+        b = pc.a_s.matvec(plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:r])).T.contiguous())
+        b4 = tk._to_rows_b(fac, subdomain.partition_source(slabs, b))
+        down = sk.sweep_down(fac, tables.meta, b4, tables.c01, tables.c10, tt)
+        out[r] = dict(
+            down_ms=mean_ms(lambda: sk.sweep_down(fac, tables.meta, b4, tables.c01,
+                                                  tables.c10, tt), 10),
+            up_ms=mean_ms(lambda: sk.sweep_up(fac, tables.meta, b4, tables.cnpn, tables.cnnp,
+                                              *down, tt), 10),
+            steps=fac.n_slabs * (fac.m + tt))
+    return out
 
 
 def plane_waves(problem, r: int) -> torch.Tensor:
@@ -235,6 +268,7 @@ def main() -> int:
         "a": lambda: path_2d("a", 1, "pallas"),
         "b": lambda: path_2d("b", 16, "pallas"),
         "b8": lambda: path_2d("b8", 16, "pallas_int8"),
+        "e": lambda: path_2d("e", 16, "pallas_banded_tail"),
         "c": lambda: path_3d("c", dict(h=1.0 / 48.0, n_subdomains=4, npml=5), "bf16_pallas",
                              SOLVE_48),
         "d": lambda: path_3d("d", dict(h=1.0 / 96.0, n_subdomains=6, npml=8),

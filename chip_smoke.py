@@ -94,14 +94,16 @@ microseconds a line step and checks that repeated launches give the same
 bits.  The fused plane passes of the 3D paths (rows 11, 12, 11i, 12i) run the
 flag-handoff plane step (``csrc/plane_pass.cuh``): after the 48^3 and 96^3
 paths the script prints their microseconds a plane step, with the same check.
-The dense line passes and the plane kernels take up to eight right-hand sides
-a launch: paths 1, 2 and 6 also solve eight plane-wave directions (angles
-2 pi k / 8) jointly, the 48^3 z-layout sweep four and eight sources and path 4
-eight, each through ``gmres_batched`` with one launch of r = 8 (or 4) a pass,
-against the same directions solved as joint pairs (the same counts, the
-solutions close, an apply of R directions making one direction's launches),
-with ms per direction at R = 1, 2 and 8; the kernels line holds every dense
-line, plane and plane-apply kernel at r = 3, 4 and 8 on those solves' planes.
+Every line and plane kernel takes up to eight right-hand sides a launch:
+paths 1, 2, 5 and 6 also solve eight plane-wave directions (angles 2 pi k /
+8) jointly, the 48^3 z-layout sweep four and eight sources and path 4 eight,
+each through ``gmres_batched`` with one launch of r = 8 (or 4) a pass or
+sweep direction, against the same directions solved as joint pairs (the
+same counts, the solutions close, an apply of R directions making one
+direction's launches), with ms per direction at R = 1, 2 and 8; path 5 also
+runs one ``jacobi_sweep`` of the eight (the hybrid passes at one launch a
+pass); the kernels line holds every line, sweep, plane and plane-apply
+kernel at r = 3, 4 and 8 on those solves' pivots.
 Each phase prints one JSON line; any failed check raises, so the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1832,11 +1834,12 @@ def random_rows(rng, shape, n: int, device) -> torch.Tensor:
 
 def phase_ht_kernels(device):
     """The four kernels of the banded+tail path against their plain versions on
-    random hybrid factors (S = 3, m = 20, n = 301, width 41, 6 tail lines), r =
-    1 and 2: the forward pass from a zero carry and from t_init, starting in
-    the head and in the tail; the backward pass full and truncated (inside the
-    tail lines and across into the head); the down and up sweep kernels on a
-    3-slab chain whose backward tail (8 lines) reaches into the head."""
+    random hybrid factors (S = 3, m = 20, n = 301, width 41, 6 tail lines: the
+    windows start at both parities of a 16-row k-step), r = 1, 2, 4 and 8: the
+    forward pass from a zero carry and from t_init, starting in the head and
+    in the tail; the backward pass full and truncated (inside the tail lines
+    and across into the head); the down and up sweep kernels on a 3-slab
+    chain whose backward tail (8 lines) reaches into the head."""
     rng = np.random.default_rng(3)
     S, m, n, width, tail_lines = HT_RANDOM
     fac = random_banded_tail(rng, S, m, n, width, tail_lines, device)
@@ -1850,7 +1853,7 @@ def phase_ht_kernels(device):
     worst = dict.fromkeys(HT_PAIR + SWEEP_PAIR, 0.0)
     cases = []
     reset_counts()
-    for r in (1, 2):
+    for r in (1, 2, 4, 8):
         b4 = random_rows(rng, (2, m, 2 * r, ld), n, device)
         t_init = random_rows(rng, (2, 2 * r, ld), n, device)
         zero = torch.zeros_like(t_init)
@@ -2038,9 +2041,11 @@ def ht_flops(fac, r: int, lines) -> int:
     return sum(2 * 2 * 2 * r * (head if j < fac.tail_start else tail) for j in lines)
 
 
-def bound_of(nbytes: int, flops: int):
+def bound_of(nbytes: int, flops: int, r: int = 1):
+    """The larger of the bytes' time and the products' (:func:`product_ms`:
+    f32 at r <= 2, three bf16 terms on the tensor cores at r = 4 and 8)."""
     bytes_ms = 1e3 * nbytes / PEAK_BYTES_PER_S
-    flops_ms = 1e3 * flops / PEAK_F32_FLOPS
+    flops_ms = product_ms(flops, r)
     return max(bytes_ms, flops_ms), "bytes" if bytes_ms >= flops_ms else "operations"
 
 
@@ -2049,7 +2054,7 @@ def ht_pass_bound(fac, r: int, lines, stacks: int, batch: int = 1):
     line's pivots and band once, ``stacks`` row stacks per line, the carry."""
     row = 2 * r * fac.ld * 4
     nbytes = batch * (ht_plane_bytes(fac, lines) + len(lines) * (24 * fac.ld + stacks * row) + row)
-    return bound_of(nbytes, batch * ht_flops(fac, r, lines))
+    return bound_of(nbytes, batch * ht_flops(fac, r, lines), r)
 
 
 def ht_sweep_bound(fac, r: int, tt: int, up: bool):
@@ -2066,7 +2071,7 @@ def ht_sweep_bound(fac, r: int, tt: int, up: bool):
         per_slab = (m + tt) * 24 * ld + 3 * m * row
         flops = ht_flops(fac, r, lines) + ht_flops(fac, r, range(m - tt, m))
     nbytes = S * (ht_plane_bytes(fac, lines) + per_slab + row + 2 * 24 * ld) + 6 * S * 4
-    return bound_of(nbytes, S * flops)
+    return bound_of(nbytes, S * flops, r)
 
 
 def library_ht_ms(fac, rows: torch.Tensor, slab_lines, dense_re, dense_im) -> float:
@@ -2203,6 +2208,120 @@ def phase_ht_kernel_times(problem, path_counts: dict, sweep_counts: dict) -> lis
                              ht_pass_bound(fac, r, lines, 2, batch=S), lib_all,
                              dict(shape, B=S), variant="_all_slabs"),
             ]
+    del dense_re, dense_im
+    torch.cuda.empty_cache()
+    return kernels
+
+
+def phase_ht_wide(problem, sweep_counts: dict) -> list:
+    """Path 5 (e): the eight wide directions in one joint solve on
+    banded+tail pivots, every sweep direction one launch of eight (the fused
+    kernels only: no hybrid pass and no dense line kernel may launch), beside
+    the same directions as joint pairs; then one ``jacobi_sweep`` of the
+    eight on the same problem, the hybrid passes at one launch a pass (as
+    many launches as its r = 1 sweep); then rows 6–9 at r = 3, 4 and 8 on
+    the solve's own pivots and right-hand sides (As b of the first r wide
+    directions; r = 3 one launch of four): the fused sweep kernels over the
+    16 slabs with the R = 8 solve's launches, the hybrid passes on an inner
+    slab (full; the backward pass also over the last trace_tail lines) and,
+    at r = 8, on all 16 slabs as batch rows (``jacobi_sweep``'s shapes),
+    with the r = 8 ``jacobi_sweep``'s launches; repeats of each at r = 4 and
+    8 bit-identical."""
+    wide = phase_wide_2d(problem, "ht_sweep_wide", "ht_solve", "ht_solve_batched", SWEEP_PAIR)
+    pc = problem.precond
+    slabs = pc.slabs
+    fac = slabs.pfac
+    S, m, n, ld, tt = fac.n_slabs, fac.m, fac.n, fac.ld, slabs.trace_tail
+    rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS))
+    b8 = pc.a_s.matvec(rhs.T.contiguous())
+    jacobi = launches_of(lambda: sweeps.jacobi_sweep(slabs, b8))
+    r1 = sweep_counts["jacobi_sweep"]
+    emit("ht_jacobi_sweep_wide", r=WIDE_R, launches=jacobi, launches_r1=r1)
+    check(all(jacobi[k] == r1[k] > 0 for k in HT_PAIR)
+          and not any(jacobi[k] for k in SWEEP_PAIR + DENSE_2D),
+          f"jacobi_sweep of {WIDE_R} runs the hybrid passes at one launch a pass "
+          f"({jacobi}, r = 1: {r1})")
+    tables = slabs.sweep_tables
+    slab = S // 2
+    s_idx = fac.slab_ids[slab : slab + 1]
+    dense_re, dense_im = tk.dense_planes(fac.tail_re), tk.dense_planes(fac.tail_im)
+    all_lines = [(s, j) for s in range(S) for j in range(m)]
+    tail_all = [(s, j) for s in range(S) for j in range(m - tt, m)]
+    lines, tail_lines = range(m), range(m - tt, m)
+    kernels = []
+    for r in WIDE_RS:
+        b = pc.a_s.matvec(rhs[:r].T.contiguous())
+        b4s = tk._to_rows_b(fac, subdomain.partition_source(slabs, b))
+        shape = dict(S=S, m=m, n=n, ld=ld, width=fac.width, tail_start=fac.tail_start,
+                     trace_tail=tt, r=r, launch_width=tk.line_width(fac, r, inject=True))
+        y4s, t4s, unps = sk.sweep_down(fac, tables.meta, b4s, tables.c01, tables.c10, tt)
+        down = lambda: sk.sweep_down(fac, tables.meta, b4s, tables.c01, tables.c10, tt)  # noqa: E731
+        up = lambda: sk.sweep_up(fac, tables.meta, b4s, tables.cnpn, tables.cnnp,  # noqa: E731
+                                 y4s, t4s, unps, tt)
+        path = "ht_sweep_wide"
+        kernels += [
+            kernel_entry("sweep_down", r, path, wide[WIDE_R]["sweep_down"], down,
+                         lambda: sk.sweep_down_plain(fac, tables.meta, b4s, tables.c01,
+                                                     tables.c10, tt),
+                         ht_sweep_bound(fac, r, tt, up=False),
+                         library_ht_ms(fac, b4s[0, 0], all_lines + tail_all, dense_re, dense_im),
+                         shape),
+            kernel_entry("sweep_up", r, path, wide[WIDE_R]["sweep_up"], up,
+                         lambda: sk.sweep_up_plain(fac, tables.meta, b4s, tables.cnpn,
+                                                   tables.cnnp, y4s, t4s, unps, tt),
+                         ht_sweep_bound(fac, r, tt, up=True),
+                         library_ht_ms(fac, b4s[0, 0], tail_all + all_lines, dense_re, dense_im),
+                         shape),
+        ]
+        runs = {"sweep_down": down, "sweep_up": up}
+        steps = [(kernels[-2], S * (m + tt)), (kernels[-1], S * (tt + m))]
+        # the hybrid passes on an inner slab, with the r = 8 jacobi_sweep's launches
+        b4 = b4s[slab : slab + 1].contiguous()
+        y4, _ = tk.forward_substitution_cached(fac, s_idx, b4)
+        zero = torch.zeros_like(b4[:, 0])
+        one = dict(shape, B=1, slab=slab, launch_width=tk.line_width(fac, r))
+        cpath = "ht_jacobi_sweep_wide"
+        lib_full = library_ht_ms(fac, b4[0, 0], [(slab, j) for j in lines], dense_re, dense_im)
+        lib_tail = library_ht_ms(fac, b4[0, 0], [(slab, j) for j in tail_lines],
+                                 dense_re, dense_im)
+        fwd = lambda: tk.forward_substitution_cached(fac, s_idx, b4)  # noqa: E731
+        bwd = lambda: tk.backward_substitution(fac, s_idx, y4)  # noqa: E731
+        bwd_tail = lambda: tk.backward_substitution(fac, s_idx, y4, tail=tt)  # noqa: E731
+        kernels += [
+            kernel_entry("thomas_forward_ht", r, cpath, jacobi["thomas_forward_ht"], fwd,
+                         lambda: tk.forward_substitution_ht_plain(fac, s_idx, b4, zero),
+                         ht_pass_bound(fac, r, lines, 3), lib_full, one),
+            kernel_entry("thomas_backward_ht", r, cpath, jacobi["thomas_backward_ht"], bwd,
+                         lambda: tk.backward_substitution_ht_plain(fac, s_idx, y4),
+                         ht_pass_bound(fac, r, lines, 2), lib_full, one),
+            kernel_entry("thomas_backward_ht", r, cpath, jacobi["thomas_backward_ht"], bwd_tail,
+                         lambda: tk.backward_substitution_ht_plain(fac, s_idx, y4, tail=tt),
+                         ht_pass_bound(fac, r, tail_lines, 2), lib_tail, dict(one, tail=tt),
+                         variant="_tail"),
+        ]
+        runs.update(thomas_forward_ht=fwd, thomas_backward_ht=bwd,
+                    thomas_backward_ht_tail=bwd_tail)
+        steps += [(kernels[-3], m), (kernels[-2], m), (kernels[-1], tt)]
+        if r == WIDE_R:       # jacobi_sweep's solves of all slabs at once
+            yall, _ = tk.forward_substitution_cached(fac, fac.slab_ids, b4s)
+            lib_all = library_ht_ms(fac, b4s[0, 0], all_lines, dense_re, dense_im)
+            kernels += [
+                kernel_entry("thomas_forward_ht", r, cpath, jacobi["thomas_forward_ht"],
+                             lambda: tk.forward_substitution_cached(fac, fac.slab_ids, b4s),
+                             lambda: tk.forward_substitution_ht_plain(
+                                 fac, fac.slab_ids, b4s, torch.zeros_like(b4s[:, 0])),
+                             ht_pass_bound(fac, r, lines, 3, batch=S), lib_all,
+                             dict(shape, B=S), variant="_all_slabs"),
+                kernel_entry("thomas_backward_ht", r, cpath, jacobi["thomas_backward_ht"],
+                             lambda: tk.backward_substitution(fac, fac.slab_ids, yall),
+                             lambda: tk.backward_substitution_ht_plain(fac, fac.slab_ids, yall),
+                             ht_pass_bound(fac, r, lines, 2, batch=S), lib_all,
+                             dict(shape, B=S), variant="_all_slabs"),
+            ]
+        if r in (4, 8):
+            # the wide step's line on this layout (PERF.md section 6), and no
+            # race in its handoff: repeats of each kernel give the same bits
+            line_step_report(path, r, steps, runs)
     del dense_re, dense_im
     torch.cuda.empty_cache()
     return kernels
@@ -4170,6 +4289,9 @@ def main() -> int:
                                          absent=HT_PAIR + DENSE_2D)
     sweep_counts = phase_ht_sweeps(problem)
     kernels += phase_ht_kernel_times(problem, {1: counts, 2: counts_batched}, sweep_counts)
+    # (e) eight directions in one joint solve: each sweep direction one
+    # launch of eight; one jacobi_sweep of eight; rows 6-9 at r = 3, 4, 8
+    kernels += phase_ht_wide(problem, sweep_counts)
     del problem
     torch.cuda.empty_cache()
 

@@ -49,11 +49,24 @@
 // CTA stored.  At slab 0 (down) and slab S-1 (up) the flags keep every trace
 // read away.
 //
-// Limits.  r = 1 or 2; the slab count of the rows is the factorization's
-// (slab s uses planes s); 0 < tt < m; lines as the flag-handoff step with the
-// trace rows beside the carry (one CTA a tile up to n = 912 at r = 2, two up
-// to 1840; test_longest_line_fits).  Anything else is refused with
-// cudaErrorInvalidValue before a launch.
+// Wide batches (r = 4, 8).  The same maps drive the wide step of
+// thomas_flow.cuh (run_wide; note "Wide batches on banded+tail pivots"),
+// which hands the next line's pre-added w over instead of t, on a ring of
+// four slots of the rows buffer `rows`: a trace is then a row that the
+// publisher of each tile stores at the backward step that makes it (the down
+// kernel's u_np into unp and u_n into `u`, which it does not otherwise use;
+// the up kernel's u_0 and u_1 are lines of its volume u), and the publisher
+// of the step before the injected line adds the coupling band's taps on it,
+// as it adds the band's on t; y of a backward line is the CTA's own w of the
+// forward step, kept in its private lines of `scratch` (the tile's lanes read
+// back by the publisher, the slice's by a step without a carry).
+//
+// Limits.  r = 1, 2, 4 or 8; the slab count of the rows is the
+// factorization's (slab s uses planes s); 0 < tt < m; lines as the
+// flag-handoff step with the trace rows beside the carry at r <= 2 (one CTA a
+// tile up to n = 912 at r = 2, two up to 1840), as the dense passes' wide step
+// at r = 4, 8 (2560 and 1904 on two CTAs a tile; test_longest_line_fits).
+// Anything else is refused with cudaErrorInvalidValue before a launch.
 //
 // Bound: bytes, as chip_smoke.py:ht_sweep_bound computes it: each input read
 // once and each output written once.  Every line's pivots once (head windows,
@@ -87,9 +100,11 @@ struct SweepArgs {
   float* t;                // (S, m, 2r, ld) t stack: down writes, up reads line j0-1
   float* unp;              // (S, 2r, ld) bottom traces u_np: down writes (zero
                            //   beforehand), up reads
-  float* u;                // (S, m, 2r, ld) volume solution: up writes
+  float* u;                // (S, m, 2r, ld) volume solution: up writes; r = 4, 8, down:
+                           //   (S, 2r, ld) bottom traces u_n, which it writes
   float* scratch;          // the CTAs' private y lines: tt lines of each CTA's slice
                            //   rows, ld / 8 x tt x 2r x (ld + 8) floats at most
+  float* rows;             // r = 4, 8: the wide step's rows, kSlots x wide_slot_bytes
   int S, m, n, ld, tail_start, half, tt;
 };
 
@@ -104,6 +119,7 @@ __device__ __forceinline__ int meta_of(const SweepArgs& a, int row, int s) {
 // step m + kk is backward line m - 1 - kk, kk < tt
 template <int R>
 struct DownItems {
+  static constexpr bool kWindows = true;         // head windows (run_wide)
   SweepArgs a;
   thomas::FlowLaunch fl;
 
@@ -135,6 +151,7 @@ struct DownItems {
         if (src >= jt && src < a.m) {
           ft.cpl = (top ? a.cpl_a : a.cpl_b) + (size_t)s * 6 * a.ld;
           ft.trace_step = (s - 1) * per + a.m + (a.m - 1 - src);
+          ft.trace_row = (top ? a.unp : a.u) + (size_t)(s - 1) * row;
           ft.sign = top ? 1.f : -1.f;
         }
       }
@@ -144,7 +161,10 @@ struct DownItems {
         ft.band = a.uband + at * 6 * a.ld;
         ft.carry_step = k - 1;
       }
-      if (meta_of(a, 5, s) != 0 && j == meta_of(a, 3, s)) ft.out = a.unp + (size_t)s * row;
+      if (meta_of(a, 5, s) != 0 && j == meta_of(a, 3, s))
+        ft.out = a.unp + (size_t)s * row;
+      else if (thomas::wide<R>() && meta_of(a, 5, s) != 0 && j == meta_of(a, 2, s))
+        ft.out = a.u + (size_t)s * row;         // u_n, the wide step's trace row
     }
     return ft;
   }
@@ -154,6 +174,7 @@ struct DownItems {
 // j0 + g (j0 = m - tt), then step tt + kk is backward line m - 1 - kk, kk < m
 template <int R>
 struct UpItems {
+  static constexpr bool kWindows = true;         // head windows (run_wide)
   SweepArgs a;
   thomas::FlowLaunch fl;
 
@@ -185,6 +206,7 @@ struct UpItems {
         if (src >= 0 && src < a.m) {
           ft.cpl = (first ? a.cpl_a : a.cpl_b) + (size_t)s * 6 * a.ld;
           ft.trace_step = (i - 1) * per + a.tt + (a.m - 1 - src);
+          ft.trace_row = a.u + ((size_t)(s + 1) * a.m + src) * row;   // its volume line
           if (!first) {
             ft.trace_sub = a.unp + (size_t)s * row;   // reflection correction
             ft.sign = -1.f;
@@ -218,10 +240,13 @@ __global__ void __launch_bounds__(thomas::flow_threads<SPLIT>(), 512 / thomas::f
   thomas::run_flow<R, thomas::Storage::kBf16, SPLIT, true>(items, items.fl);
 }
 
+// the narrow step: one exchange slot per step (the traces are words of the
+// backward steps); the wide step: a ring of kSlots slots of words and rows
 template <int R>
 inline cudaError_t launch(bool up, const SweepArgs& a, uint2* xchg, unsigned epoch,
                           cudaStream_t stream) {
-  const thomas::FlowLaunch fl{a.S * (a.m + a.tt), 1, a.n, a.ld, xchg, epoch, a.scratch, a.tt};
+  const thomas::FlowLaunch fl{a.S * (a.m + a.tt), 1, a.n, a.ld, xchg, epoch, a.scratch, a.tt,
+                              thomas::wide<R>() ? thomas::kSlots : 0, a.rows};
   const int tiles = a.ld / kLanes;
   constexpr auto kBf16 = thomas::Storage::kBf16;
   if (up)
@@ -238,14 +263,17 @@ extern "C" int sweep_fused(
     const uint16_t* hre, const uint16_t* him, const uint16_t* tre, const uint16_t* tim,
     const int* meta, const float* cpl_a, const float* cpl_b,
     float* y, float* t, float* unp, float* u, float* scratch,
+    float* rows,             // r = 4, 8: the wide step's rows (kSlots slots); else null
     int S, int m, int n, int ld, int r, int tail_start, int half, int tt,
-    void* xchg,              // (S (m + tt), 1, ld, 2r, 2) exchange words of 8 bytes, zeroed once
+    void* xchg,              // exchange words of 8 bytes, zeroed once: r = 1, 2 (S (m + tt),
+                             //   1, ld, 2r, 2), r = 4, 8 (kSlots, 1, ld, 2r, 2)
     unsigned epoch,          // flag of the first step: steps take epoch .. + S (m + tt) - 1
     void* stream) {
-  if (S < 1 || m < 2 || n < 1 || ld < n || ld % thomas::kLanes != 0 || r < 1 ||
-      r > thomas::kMaxRhsBanded || tt < 1 || tt >= m || tail_start < 1 || tail_start >= m ||
+  if (S < 1 || m < 2 || n < 1 || ld < n || ld % thomas::kLanes != 0 ||
+      !thomas::launch_width(r) || tt < 1 || tt >= m || tail_start < 1 || tail_start >= m ||
       half < 0 || xchg == nullptr || epoch == 0u ||
-      epoch + (unsigned)(S * (m + tt)) < epoch)
+      epoch + (unsigned)(S * (m + tt)) < epoch ||
+      (r > 2 && (rows == nullptr || u == nullptr)))
     return (int)cudaErrorInvalidValue;
   sweep::SweepArgs a{};
   a.b = b;
@@ -263,6 +291,7 @@ extern "C" int sweep_fused(
   a.unp = unp;
   a.u = u;
   a.scratch = scratch;
+  a.rows = rows;
   a.S = S;
   a.m = m;
   a.n = n;
@@ -271,8 +300,11 @@ extern "C" int sweep_fused(
   a.half = half;
   a.tt = tt;
   uint2* words = static_cast<uint2*>(xchg);
-  cudaError_t err = r == 1 ? sweep::launch<1>(up != 0, a, words, epoch, (cudaStream_t)stream)
-                           : sweep::launch<2>(up != 0, a, words, epoch, (cudaStream_t)stream);
+  const cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = r == 1   ? sweep::launch<1>(up != 0, a, words, epoch, st)
+                    : r == 2 ? sweep::launch<2>(up != 0, a, words, epoch, st)
+                    : r == 4 ? sweep::launch<4>(up != 0, a, words, epoch, st)
+                             : sweep::launch<8>(up != 0, a, words, epoch, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -17,7 +17,7 @@
 // which describes the design (one cooperative launch per pass, one CTA a tile,
 // two on long lines, the carry handed from line to line through flagged words
 // of the exchange buffer `xchg`, bulk-copied stage buffers) and the limits
-// (r = 1, 2, 4 or 8 on dense planes, 1 or 2 on banded+tail pivots):
+// (r = 1, 2, 4 or 8 on either layout):
 //   - dense planes run thomas::flow_kernel<R, true, S> (bf16, or int8 when
 //     scale is given) on a ring of four exchange slots; x of a line is written
 //     from the carry the next line reads;
@@ -25,8 +25,9 @@
 //     backward pass as a step map through run_flow, the body of the cached
 //     forward pass on the same layout: a head tile stages only the rows of its
 //     window that lie in [0, n) and waits only on the tiles that publish its
-//     carry lanes; one exchange slot per line step; x is stored by the
-//     publisher of each tile.
+//     carry lanes; one exchange slot per line step at r = 1, 2, the ring of
+//     four at r = 4, 8 (the wide step, whose tiles multiply only their
+//     windows' k-steps); x is stored by the publisher of each tile.
 // One with -DTHOMAS_MAP_STEP=1 (benchmarks_torch/thomas_probe.py only) runs
 // dense planes through run_flow too, which measured slower than flow_kernel
 // (PERF.md §6).
@@ -51,7 +52,8 @@ extern "C" int thomas_backward(
     float* x,                // (B, m_eff, 2r, ld): lines m-m_eff .. m-1
     int batch, int m, int n, int ld, int r, int m_eff, int tail_start, int half,
     void* xchg,              // exchange words of 8 bytes, zeroed once: dense planes
-                             //   (4, B, ld, 2r, 2), banded+tail (m_eff, B, ld, 2r, 2)
+                             //   and r = 4, 8 (4, B, ld, 2r, 2), banded+tail at r = 1, 2
+                             //   (m_eff, B, ld, 2r, 2)
     float* rows,             // r = 4, 8: 4 x B slots of the wide step's rows; else null
     unsigned epoch,          // flag of line m-1 (lines take epoch .. + m_eff - 1)
     void* stream) {

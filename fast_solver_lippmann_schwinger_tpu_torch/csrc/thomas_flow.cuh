@@ -98,14 +98,16 @@
 // y as w is formed, x from the carry it reads one line later (the last
 // line's after the loop).
 //
-// Wide batches.  On dense planes a launch takes r = 1, 2, 4 or 8 right-hand
-// sides (the wrappers pad r = 3 to 4 and r = 5..7 to 8 with zero columns, and
-// run more than 8 as groups of 8), so that each pivot plane is read once for
-// the whole batch, as the TPU kernels do for any r (pallas_thomas.py,
-// _solve_cached_multi).  r = 1 and 2 keep the step above.  Wider, a thread's
-// 2r x 8 partial sums would not fit its registers, so the products run on
-// tensor cores, and the step is built around them (run_wide, below; the
-// dense passes and the cached forward pass share it).  A first version kept
+// Wide batches.  A launch takes r = 1, 2, 4 or 8 right-hand sides, on dense
+// planes and on banded+tail pivots, in the passes and in the fused sweeps (the
+// wrappers pad r = 3 to 4 and r = 5..7 to 8 with zero columns, and run more
+// than 8 as groups of 8), so that each pivot plane or head window is read once
+// for the whole batch, as the TPU kernels do for any r (pallas_thomas.py,
+// _solve_cached_multi, _fwd_ht / _bwd_ht; pallas_sweep.py, _sweep_fused).
+// r = 1 and 2 keep the step above.  Wider, a thread's 2r x 8 partial sums
+// would not fit its registers, so the products run on tensor cores, and the
+// step is built around them (run_wide, below; every line kernel shares it,
+// head windows and the sweeps as the next part says).  A first version kept
 // the step above otherwise: at n = 801 and r = 8 a line took 7.2 us,
 // of it 2.2 in the carry's words (every CTA read the whole line's 2r x 810
 // flagged words, 104 KB, about 10.5 MB of L2 a line), 1.2 in the band step
@@ -159,19 +161,72 @@
 // CTA reads every tile of its slice, and publishes line k only after it read
 // line k - 1).
 //
-// Limits.  r = 1, 2, 4 or 8 on dense planes (1 or 2 on banded+tail pivots and
-// in the fused sweeps), and a slice whose kStages stage buffers fit in one
-// CTA's shared memory and whose rows fit flow_groups rows a thread: one CTA a
-// tile up to n = 976 in bf16 at r = 2, two up to n = 1968 in bf16 and 2448 in
-// int8, the cached forward pass and the backward pass on banded+tail pivots
-// (step maps without the trace rows) too; the fused sweeps, which keep the
-// trace rows beside the carry, 912 and 1840; the wide step (w of the slice,
-// its A fragments and the plane runs) at r = 8 one CTA a tile up to n = 912
-// in bf16 and 1064 in int8, two up to 1904 in bf16 and 2192 in int8, at r = 4
-// up to 1352 and 1536 on one, 2560 on two (test_longest_line_fits; the Python mirror is
-// thomas_kernels.line_fits).  Anything else is refused with
-// cudaErrorInvalidValue before a launch, and a cooperative launch that does
-// not fit returns its error.
+// Wide batches on banded+tail pivots.  The cached forward pass, the backward
+// pass and the two fused sweep directions run the same wide step at r = 4, 8
+// (run_wide, driven by their step maps); what head windows and the sweeps add:
+//   - Head windows meet the k-steps.  A tile's window, input rows 8t - half ..
+//     8t + 7 + half within [0, n), starts 4 or 12 rows past a 16-row boundary
+//     at half = 100 (by the parity of t), while the k-steps of w stay aligned
+//     to 16 rows of the line, so that one split of w serves every tile of the
+//     CTA.  The stager copies the window's rows in the CTA's slice to their
+//     own rows' places in the stage buffer (ldmatrix takes a row address per
+//     lane, so the offset costs nothing), a tile's products take only the
+//     k-steps its window meets, and the B fragments' rows outside the window
+//     are masked to zero bits after the ldmatrix (the rest of the buffer
+//     holds other runs, whose bits may be anything): no k-step reads past
+//     the run into the sums.
+//   - The rows copy is cut to the windows.  A CTA copies and splits only the
+//     k-steps of the union of its tiles' windows (of a step and batch row;
+//     208 of 808 rows at half = 100 with one tile a CTA, about 300 with 13),
+//     with the edge terms of their tiles; dense tail lines take the whole
+//     slice.  It still waits on the flags of every tile of its slice, so
+//     that every CTA publishes step k only after every tile published step
+//     k - 1: the four-slot ring of the dense passes then holds as it is (a
+//     narrower wait would let CTAs at the two ends of a line drift apart by
+//     up to T / window steps, and the ring would have to grow with it).
+//   - Where the traces live.  The narrow step's traces are the words of the
+//     backward step that made them; the wide step hands over pre-added w,
+//     not t, so no such words exist.  A CTA holds the same tiles for the
+//     whole launch (batch 1, the same run of tiles at every step), so the
+//     publisher of a tile stores the tile's lanes of a trace as an output row
+//     at the step that makes it (u_np and u_n in the down sweep, u_0 and u_1
+//     as lines of the up sweep's volume), and at the step before an injected
+//     line the same thread reads them back and adds the coupling band's taps
+//     to the rows and the edge terms, as it adds the band's taps on t:
+//     program order of one thread orders the store before the load, however
+//     many steps lie between.  A step without a carry step (the first line
+//     of a slab's phase) forms its w itself, the injection from the trace
+//     row's lanes that other CTAs stored (loads at GPU scope); it waits on
+//     the flags of the step before like any other step, and every trace was
+//     stored before its publisher's release of a flag of that step or an
+//     earlier one (acquire, then a barrier of the CTA, then the loads).
+//   - y of a backward line is w of that line's forward step, which the CTA
+//     formed for its slice: it keeps it in its private lines of the sweep's
+//     scratch (private_floats), and reads back its tiles' lanes (the
+//     publisher, for the next step's rows) or its slice (a step without a
+//     carry step), plain loads of its own stores behind barriers of the CTA.
+//   - The rows buffer is a ring.  A step's rows are read only by the next
+//     step, and every step waits on the step before, so the sweeps take the
+//     dense passes' four slots of rows (64 r ld bytes a slot, 1.66 MB at r = 8,
+//     ld = 808) and of flag words, not one a step (1472 slots a launch at the
+//     801^2 headline, 609 MB of rows at r = 8); the backward pass on
+//     banded+tail pivots too.  The private y lines stay as the narrow step
+//     has them (101 x 22 x 16 x 816 floats, 116 MB at r = 8), and the up
+//     sweep reads the down sweep's y stack.
+//
+// Limits.  r = 1, 2, 4 or 8 on either layout and in the fused sweeps, and a
+// slice whose stage buffers fit in one CTA's shared memory and whose rows fit
+// flow_groups rows a thread: one CTA a tile up to n = 976 in bf16 at r = 2,
+// two up to n = 1968 in bf16 and 2448 in int8, the cached forward pass and the
+// backward pass on banded+tail pivots (step maps without the trace rows) too;
+// the fused sweeps at r <= 2, which keep the trace rows beside the carry, 912
+// and 1840; the wide step (w of the slice, its A fragments and the plane
+// runs; the fused sweeps add no shared memory to it) at r = 8 one CTA a tile
+// up to n = 912 in bf16 and 1064 in int8, two up to 1904 in bf16 and 2192 in
+// int8, at r = 4 up to 1352 and 1536 on one, 2560 on two
+// (test_longest_line_fits; the Python mirror is thomas_kernels.line_fits).
+// Anything else is refused with cudaErrorInvalidValue before a launch, and a
+// cooperative launch that does not fit returns its error.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -398,7 +453,7 @@ __host__ __device__ constexpr int slice_rows(int ld) {
   return kLanes * ((ld / kLanes + SPLIT - 1) / SPLIT);
 }
 
-// Wide batches (r = 4, 8; note above)
+// Wide batches (r = 4, 8; notes above)
 template <int R>
 __host__ __device__ constexpr bool wide() {
   return R > 2;
@@ -929,7 +984,8 @@ inline cudaError_t run_flow_pass(int r, const PassArgs& a, uint2* xchg, unsigned
 //     copies to issue paid more than fewer bytes).  It waits only on the
 //     tiles that publish the carry lanes of its rows (at several tiles a CTA,
 //     on those of its slice).
-//   - One slot of exchange words per line step for the whole launch, (steps, B,
+//   - One slot of exchange words per line step for the whole launch at r <= 2
+//     (the wide step: note "Wide batches on banded+tail pivots"), (steps, B,
 //     ld, 2r, SPLIT) words: no slot is written twice in a launch, so no CTA
 //     can overwrite words another still reads, however far apart narrow
 //     windows let CTAs run (the four-line ring of flow_kernel rests on every
@@ -977,7 +1033,8 @@ struct FlowTile {
   int keep_priv;           // >= 0: w of the tile's rows kept in that private line
   float* kept;             // (2R, ld): w of the tile's own lanes, or null
   const float* cpl;        // (6, ld) injection band, or null ...
-  int trace_step;          //   ... times the words of this step ...
+  int trace_step;          //   ... times the words of this step (r <= 2) ...
+  const float* trace_row;  //   ... or this (2R, ld) row, an out row of that step (r = 4, 8) ...
   const float* trace_sub;  //   ... less this row written before the launch (or null)
   float sign;              //   added (+1) or subtracted (-1)
   float* out;              // (2R, ld): t of the tile's lanes, or null
@@ -986,7 +1043,7 @@ struct FlowTile {
 __device__ __forceinline__ FlowTile flow_tile() {
   FlowTile ft;
   ft.cols = Cols{nullptr, nullptr, nullptr, 0, 0};
-  ft.band = ft.carry_row = ft.rhs = ft.cpl = ft.trace_sub = nullptr;
+  ft.band = ft.carry_row = ft.rhs = ft.cpl = ft.trace_row = ft.trace_sub = nullptr;
   ft.kept = ft.out = nullptr;
   ft.carry_step = ft.rhs_priv = ft.keep_priv = ft.trace_step = -1;
   ft.sign = 1.f;
@@ -1467,6 +1524,7 @@ inline cudaError_t launch_map(void (*kernel1)(const Map), void (*kernel2)(const 
 // backward passes so, to time the shared body against flow_kernel.
 template <int R, bool kBackward, Storage S, bool kBanded>
 struct PassMap {
+  static constexpr bool kWindows = kBanded;      // head windows (run_wide)
   PassArgs a;
   FlowLaunch fl;
 
@@ -1494,10 +1552,13 @@ struct PassMap {
 };
 
 // ---------------------------------------------------------------------------
-// The wide step (r = 4, 8): note "Wide batches" at the top of this file.  The
-// dense passes (flow_kernel, through PassMap) and the cached forward pass
-// (cached_kernel, CachedItems) run it; a map's step k takes its carry from
-// step k - 1 (or from the row carry_row, or none, at k = 0).
+// The wide step (r = 4, 8): notes "Wide batches" and "Wide batches on
+// banded+tail pivots" at the top of this file.  The dense passes
+// (flow_kernel, through PassMap), the cached forward pass (cached_kernel,
+// CachedItems), the backward pass on banded+tail pivots (PassMap) and the
+// fused sweeps (DownItems, UpItems; kInject) run it; a map's step k takes its
+// carry from step k - 1 (or from the row carry_row, or none); a map whose
+// kWindows is set has head windows.
 // ---------------------------------------------------------------------------
 
 // Bytes of one slot (line step, batch row) of the wide step's rows buffer
@@ -1584,9 +1645,10 @@ __device__ __forceinline__ void bar_sync1() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(kThreads) : "memory");
 }
 
-template <int R, Storage S, int SPLIT, class Items>
+template <int R, Storage S, int SPLIT, bool kInject, class Items>
 __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& fl) {
   static_assert(R == 4 || R == 8, "the wide step: r = 4 or 8");
+  constexpr bool kWindows = Items::kWindows;    // head windows: each tile its own input rows
   constexpr int kThreads = flow_threads<SPLIT>();
   constexpr int kWarps = kThreads / 32;
   constexpr int V = 2 * R * kLanes;             // output values of a tile
@@ -1598,6 +1660,7 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
   constexpr int kRedWarps = V / 32;             // the warps that add the warps' sums
   constexpr int LPR = 32 / R;                   // publisher lanes a right-hand side
   constexpr int TL = kLanes / LPR;              // tile lanes a publisher lane
+  static_assert((kWarps & (kWarps - 1)) == 0, "k-step i belongs to warp i % kWarps");
   const int n = fl.n, ld = fl.ld, T = ld / kLanes, Tp = T + (T & 1);
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, g = lane >> 2, t4 = lane & 3;
   const int rank = (int)blockIdx.x % SPLIT;
@@ -1622,6 +1685,9 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
   const int etlo = SPLIT == 1 ? 0 : tlo & ~1;
   const int ece = SPLIT == 1 ? Tp : (thi - etlo + 2) & ~1;
   const int slots = fl.slots > 0 ? fl.slots : fl.steps;
+  // k-step i of the slice (ku0 + i of the line) is warp i % kWarps's: the
+  // first of a run of k-steps from a that this warp takes
+  auto first_kstep = [&](int a) { return a + ((warp - a) & (kWarps - 1)); };
 
   extern __shared__ __align__(128) unsigned char smem[];
   uint64_t* full = reinterpret_cast<uint64_t*>(smem);               // [kWideStages]
@@ -1636,6 +1702,11 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
   const size_t pbytes = (size_t)wide_stage_rows(cmax) * kRowBytes;
   const unsigned nsc = (unsigned)scale_buf_bytes<S>(ld);
   const size_t stage_bytes = 2 * pbytes + nsc;
+  // the sweeps' private y lines of this CTA: line L, stacked row rr, column
+  // c at priv[(L 2R + rr) cmax + c - i0] (columns of the slice)
+  float* const priv = kInject && fl.priv != nullptr
+                          ? fl.priv + (size_t)blockIdx.x * fl.priv_lines * 2 * R * cmax
+                          : nullptr;
 
   // work items: a run of consecutive tiles (batch row-major) of each step
   const int total = fl.batch * T;
@@ -1661,45 +1732,80 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
   auto flag_word = [&](int k, int b, int f) {
     return fl.xchg + (((size_t)(k % slots) * fl.batch + b) * 2 * T + f) * kFlagStride;
   };
+  // the input rows of a tile's columns that its products take, lo .. hi - 1:
+  // the staged run on dense planes; a head window's rows in the slice
+  auto window = [&](const Cols& cols, int& lo, int& hi) {
+    lo = sb0;
+    hi = sb0 + sr;
+    if constexpr (Items::kWindows) {
+      lo = max(cols.i0, i0);
+      hi = max(min(cols.i0 + cols.cnt, iend), lo);
+    }
+  };
 
-  // the plane runs (and scales) of item q's slice, into stage q % kWideStages
-  // (one thread)
+  // the plane runs (and scales) of item q's slice (a head window's rows in
+  // it), into stage q % kWideStages at their rows' places (one thread)
   auto stage = [&](int q) {
     int k, b, t;
     where(q, k, b, t);
     const Cols cols = items.tile(k, b, t).cols;
+    int lo, hi;
+    window(cols, lo, hi);
     unsigned char* st = ring + (size_t)(q % kWideStages) * stage_bytes;
     uint64_t* bar = full + q % kWideStages;
-    const unsigned pb = (unsigned)sr * kRowBytes;
-    const unsigned bytes = sr > 0 && !kNoPlaneCopies ? 2 * pb + nsc : 0u;
+    const unsigned pb = (unsigned)(hi - lo) * kRowBytes;
+    const unsigned bytes = pb > 0 && !kNoPlaneCopies ? 2 * pb + nsc : 0u;
     mbar_expect_tx(bar, bytes);
     if (bytes == 0) return;
-    const size_t off = (size_t)(sb0 - cols.i0) * kRowBytes;
-    bulk_copy(st, cols.re + off, pb, bar);
-    bulk_copy(st + pbytes, cols.im + off, pb, bar);
+    const size_t off = (size_t)(lo - cols.i0) * kRowBytes;
+    unsigned char* dst = st + (size_t)(lo - sb0) * kRowBytes;
+    bulk_copy(dst, cols.re + off, pb, bar);
+    bulk_copy(dst + pbytes, cols.im + off, pb, bar);
     if (S == Storage::kInt8) bulk_copy(st + 2 * pbytes, cols.scale, nsc, bar);
   };
 
-  // w of a step and batch row b (ft: its first item) in stg, row rr at stg +
-  // rr spitch, columns sb0 .. sb0 + 16 nks - 1: the producers' rows, bulk-
-  // copied once one warp has seen their flags, with the edge terms of the
-  // slice's tiles (copied beside them); at the first step (no carry step)
-  // the right-hand rows less band . carry_row, if the map gives a carry row.
-  // Then each warp adds the edge terms to its own k-steps (i = warp, warp +
-  // kWarps, ...) and splits them into frags; y (w) of the lanes of the CTA's
-  // tiles ta .. tb - 1 into ft.kept.
-  const int scols = 16 * nks;
+  // w of a step k and batch row b (ft: its first item) in stg, row rr at stg
+  // + rr spitch, column c at c - sb0, on the k-steps kc0 .. kc1 - 1 of the
+  // slice that the CTA's tiles ta .. tb - 1 multiply (all of them on dense
+  // planes, the union of the tiles' windows on head windows): the
+  // producers' rows, bulk-copied once one warp has seen their flags, with
+  // the edge terms of their tiles (copied beside them).  A step without a
+  // carry step (the first of a pass, or of a sweep's phase) forms w itself:
+  // the right-hand rows (or the CTA's private y line) less band . carry_row,
+  // plus the injection; it too waits on the flags of step k - 1, so that
+  // every step of a launch waits on the one before (the ring of slots rests
+  // on that), and a trace row written at an earlier step is visible.  Then
+  // each warp adds the edge terms to its own k-steps and splits them into
+  // frags; y (w) of the lanes of the CTA's tiles into ft.kept, w of the
+  // slice into the private line ft.keep_priv.
   unsigned sphase = 0;                  // parity of the rows' copies
-  auto prep = [&](int q, int b, const FlowTile& ft, int ta, int tb) {
+  auto prep = [&](int q, int k, int b, const FlowTile& ft, int ta, int tb) {
     const bool from_step = ft.carry_step >= 0;
-    // the edge terms, [2R][ece][2] floats, in the stage buffer that item q - 1
+    int kc0 = 0, kc1 = nks, e_lo = etlo, e_n = ece;
+    if constexpr (Items::kWindows) {
+      // windows grow with the tile and each holds its tile's lanes, so the
+      // union is one run: from the first tile's window to the last one's,
+      // in the slice (empty where the tiles' windows lie past it)
+      const Cols ca = items.tile(k, b, ta).cols, cb = items.tile(k, b, tb - 1).cols;
+      const int lo = max(ca.i0, i0), hi = min(cb.i0 + cb.cnt, iend);
+      const bool any = hi > lo;
+      kc0 = any ? lo / 16 - ku0 : 0;
+      kc1 = any ? (hi + 15) / 16 - ku0 : 0;
+      // the tiles of the k-steps' lanes and their neighbours
+      const int e0 = max(2 * (ku0 + kc0) - 1, tlo), e1 = min(2 * (ku0 + kc1), thi);
+      e_lo = e0 & ~1;
+      e_n = any && e1 >= e0 ? (e1 - e_lo + 2) & ~1 : 0;
+    }
+    const int c0 = sb0 + 16 * kc0, ncols = 16 * (kc1 - kc0);
+    // the edge terms, [2R][e_n][2] floats, in the stage buffer that item q - 1
     // used (refilled for item q + 1 once every warp has split its w)
     const float* estg = reinterpret_cast<const float*>(
         ring + (size_t)((q + 1) % kWideStages) * stage_bytes);
-    const bool edges = from_step && nks > 0 && !kNoCarryLoad && !kNoEdges;
-    if (from_step && nks > 0 && !kNoCarryLoad) {
-      const unsigned want = fl.epoch + (unsigned)ft.carry_step;
-      const WideSlot<R> sl = slot(ft.carry_step, b);
+    const bool edges = from_step && ncols > 0 && e_n > 0 && !kNoCarryLoad && !kNoEdges;
+    if (k > 0 && !kNoCarryLoad) {
+      const int ks = from_step ? ft.carry_step : k - 1;
+      const unsigned want = fl.epoch + (unsigned)ks;
+      const WideSlot<R> sl = slot(ks, b);
       if (warp == kPoller) {
         constexpr int kPer = 4;
         for (int u0 = tlo; u0 <= thi; u0 += 32 * kPer) {
@@ -1707,43 +1813,53 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
 #pragma unroll
           for (int u = 0; u < kPer; ++u) {
             const int tile = u0 + lane + 32 * u;
-            ptr[u] = tile <= thi && !kNoFlagWait ? flag_word(ft.carry_step, b, tile) : nullptr;
+            ptr[u] = tile <= thi && !kNoFlagWait ? flag_word(ks, b, tile) : nullptr;
           }
           wait_flag_words<kPer>(ptr, want);
         }
         __syncwarp();
-        if (lane == 0) {
+        if (from_step && lane == 0) {
           // the rows the acquires made visible, for the async proxy's copies:
-          // the slice's w rows (each CTA starting at its own row) and the
-          // edge terms of its tiles
+          // the k-steps' w rows (each CTA starting at its own row) and the
+          // edge terms of their tiles
           fence_proxy_async_global();
-          const unsigned bytes = 4u * scols;
-          const unsigned ebytes = 8u * ece;
-          mbar_expect_tx(sbar, 2 * R * bytes + (edges ? 2 * R * ebytes : 0u));
-          for (int i = 0; i < 2 * R; ++i) {
-            const int rr = (i + (int)blockIdx.x) % (2 * R);
-            bulk_copy(stg + rr * spitch, sl.p(rr, sb0), bytes, sbar);
+          const unsigned bytes = 4u * ncols;
+          const unsigned ebytes = 8u * e_n;
+          mbar_expect_tx(sbar, ncols > 0 ? 2 * R * bytes + (edges ? 2 * R * ebytes : 0u) : 0u);
+          if (ncols > 0) {
+            for (int i = 0; i < 2 * R; ++i) {
+              const int rr = (i + (int)blockIdx.x) % (2 * R);
+              bulk_copy(stg + rr * spitch + (c0 - sb0), sl.p(rr, c0), bytes, sbar);
+            }
           }
           if (edges) {
             float* ed = const_cast<float*>(estg);
-            if (SPLIT == 1)
+            if (SPLIT == 1 && e_lo == 0 && e_n == Tp)
               bulk_copy(ed, sl.e(0, 0), 2 * R * ebytes, sbar);
             else
               for (int rr = 0; rr < 2 * R; ++rr)
-                bulk_copy(ed + rr * ece * 2, sl.e(rr, etlo), ebytes, sbar);
+                bulk_copy(ed + rr * e_n * 2, sl.e(rr, e_lo), ebytes, sbar);
           }
         }
       }
-      mbar_wait(sbar, sphase);          // (the poller arrives on it with the bytes)
-      sphase ^= 1u;
-    } else if (!from_step) {
-      for (int e = tid; e < 2 * R * scols; e += kThreads) {
-        const int rr = e / scols, cl = e - rr * scols, c = sb0 + cl;
+      if (from_step) {
+        mbar_wait(sbar, sphase);        // (the poller arrives on it with the bytes)
+        sphase ^= 1u;
+      } else {
+        __syncthreads();                // the flags of step k - 1 are seen
+      }
+    }
+    if (!from_step) {
+      for (int e = tid; e < 2 * R * ncols; e += kThreads) {
+        const int rr = e / ncols, c = c0 + (e - rr * ncols);
+        const int p = rr % R;
         float w = 0.f;
         if (c >= i0 && c < iend) {
-          if (ft.rhs != nullptr) w = __ldg(ft.rhs + (size_t)rr * ld + c);
+          if (ft.rhs != nullptr)
+            w = __ldg(ft.rhs + (size_t)rr * ld + c);
+          else if (kInject && priv != nullptr && ft.rhs_priv >= 0 && !kNoOutputs)
+            w = priv[((size_t)ft.rhs_priv * 2 * R + rr) * cmax + c - i0];
           if (ft.band != nullptr && ft.carry_row != nullptr && !kNoBandStep) {
-            const int p = rr % R;
             float acc = 0.f;
 #pragma unroll
             for (int d = 0; d < 3; ++d) {
@@ -1757,13 +1873,33 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
             }
             w -= acc;
           }
+          // + sign . cpl . (trace - trace_sub): the trace row was stored at
+          // an earlier step by the tiles' publishers (loads at GPU scope)
+          if (kInject && ft.cpl != nullptr && !kNoInjection) {
+            float acc = 0.f;
+#pragma unroll
+            for (int d = 0; d < 3; ++d) {
+              const int src = c + d - 1;
+              if (src < 0 || src >= n) continue;
+              const float br = __ldg(ft.cpl + (size_t)d * ld + c);
+              const float bi = __ldg(ft.cpl + (size_t)(3 + d) * ld + c);
+              float tr = ld_rows1(ft.trace_row + (size_t)p * ld + src);
+              float ti = ld_rows1(ft.trace_row + (size_t)(R + p) * ld + src);
+              if (ft.trace_sub != nullptr) {
+                tr -= __ldg(ft.trace_sub + (size_t)p * ld + src);
+                ti -= __ldg(ft.trace_sub + (size_t)(R + p) * ld + src);
+              }
+              acc = rr < R ? acc + br * tr - bi * ti : acc + br * ti + bi * tr;
+            }
+            w += ft.sign * acc;
+          }
         }
-        stg[rr * spitch + cl] = w;
+        stg[rr * spitch + (c - sb0)] = w;
       }
     }
     __syncthreads();                    // w is in stg
 #pragma unroll 2
-    for (int i = warp; i < nks; i += kWarps) {
+    for (int i = first_kstep(kc0); i < kc1; i += kWarps) {
       const int kb = 16 * (ku0 + i);
       float2 vq[4];
 #pragma unroll
@@ -1777,14 +1913,19 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
         // the neighbouring tile's edge term: E+ of the tile before a tile's
         // first lane (t = 0), E- of the tile after its last (t = 3)
         if (edges && t4 == 0 && nx && c >= kLanes)
-          w.x += estg[(rr * ece + (c >> 3) - 1 - etlo) * 2 + 1];
+          w.x += estg[(rr * e_n + (c >> 3) - 1 - e_lo) * 2 + 1];
         if (edges && t4 == 3 && ny && (c >> 3) + 1 < T)
-          w.y += estg[(rr * ece + (c >> 3) + 1 - etlo) * 2];
+          w.y += estg[(rr * e_n + (c >> 3) + 1 - e_lo) * 2];
         vq[q] = make_float2(nx ? w.x : 0.f, ny ? w.y : 0.f);
         if (ft.kept != nullptr && !kNoOutputs && c >= i0 && c < ilim && (c >> 3) >= ta &&
             (c >> 3) < tb) {
           ft.kept[(size_t)rr * ld + c] = vq[q].x;
           ft.kept[(size_t)rr * ld + c + 1] = vq[q].y;
+        }
+        if (kInject && priv != nullptr && ft.keep_priv >= 0 && !kNoOutputs && nx) {
+          float* pr = priv + ((size_t)ft.keep_priv * 2 * R + rr) * cmax + c - i0;
+          pr[0] = vq[q].x;
+          if (ny) pr[1] = vq[q].y;
         }
       }
       unsigned a[3][4];
@@ -1830,28 +1971,44 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
     for (int f = 0; f < kPub; ++f) pv[f] = 0.f;
     if (warp == kPublisher && has_next && !kNoRowCopies) {
       const FlowTile nx = items.tile(k + 1, b, t);
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-#pragma unroll
-        for (int i = 0; i < TL; ++i) {
-          const int o = o0 + li0 + i;
-          if (nx.rhs != nullptr) pv[c * TL + i] = __ldg(nx.rhs + (size_t)(c * R + pp) * ld + o);
-          if (nx.band != nullptr)
-#pragma unroll
-            for (int d = 0; d < 3; ++d)
-              pv[2 * TL + (c * 3 + d) * TL + i] = __ldg(nx.band + (size_t)(c * 3 + d) * ld + o);
+      // a next step without a carry step forms its w itself (prep)
+      if (!kInject || nx.carry_step >= 0) {
+        // its right-hand rows: the map's, or this CTA's private y line (its
+        // own w of an earlier step, plain loads)
+        const float* nrhs = nx.rhs;
+        size_t npitch = ld;
+        bool own_line = false;
+        if (kInject && nrhs == nullptr && nx.rhs_priv >= 0 && priv != nullptr && !kNoOutputs) {
+          nrhs = priv + (size_t)nx.rhs_priv * 2 * R * cmax - i0;
+          npitch = cmax;
+          own_line = true;
         }
-        if (nx.band != nullptr && li0 == 0 && o0 >= 1)
-          pv[8 * TL + c] = __ldg(nx.band + (size_t)(c * 3 + 2) * ld + o0 - 1);
-        if (nx.band != nullptr && li0 + TL == kLanes && o0 + kLanes < ld)
-          pv[8 * TL + c] = __ldg(nx.band + (size_t)(c * 3) * ld + o0 + kLanes);
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+#pragma unroll
+          for (int i = 0; i < TL; ++i) {
+            const int o = o0 + li0 + i;
+            if (nrhs != nullptr && (!own_line || o < iend)) {
+              const float* at = nrhs + (size_t)(c * R + pp) * npitch + o;
+              pv[c * TL + i] = own_line ? *at : __ldg(at);
+            }
+            if (nx.band != nullptr)
+#pragma unroll
+              for (int d = 0; d < 3; ++d)
+                pv[2 * TL + (c * 3 + d) * TL + i] = __ldg(nx.band + (size_t)(c * 3 + d) * ld + o);
+          }
+          if (nx.band != nullptr && li0 == 0 && o0 >= 1)
+            pv[8 * TL + c] = __ldg(nx.band + (size_t)(c * 3 + 2) * ld + o0 - 1);
+          if (nx.band != nullptr && li0 + TL == kLanes && o0 + kLanes < ld)
+            pv[8 * TL + c] = __ldg(nx.band + (size_t)(c * 3) * ld + o0 + kLanes);
+        }
       }
     }
     mbar_wait(full + q % kWideStages, (unsigned)(q / kWideStages) & 1u);
     trace_point(q, 1);
     // w of the item's step and batch row, unless the item before had them
     if (k != w_k || b != w_b) {
-      prep(q, b, ft, ta, tb);
+      prep(q, k, b, ft, ta, tb);
       w_k = k;
       w_b = b;
     }
@@ -1864,10 +2021,15 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
       for (int f = 0; f < kPub; ++f) pub[f * 32 + lane] = pv[f];
     }
 
-    // the products of this warp's k-steps, each on fresh sums (wide_mma.cuh)
+    // the products of this warp's k-steps, each on fresh sums (wide_mma.cuh):
+    // on a head window those of its rows, the rows outside it masked
+    int wlo, whi;
+    window(ft.cols, wlo, whi);
+    const int ka = kWindows ? (whi > wlo ? wlo / 16 - ku0 : 0) : 0;
+    const int kz = kWindows ? (whi > wlo ? (whi + 15) / 16 - ku0 : 0) : nks;
     float z1[4] = {0.f, 0.f, 0.f, 0.f}, z2[4] = {0.f, 0.f, 0.f, 0.f};
     const unsigned char* st = ring + (size_t)(q % kWideStages) * stage_bytes;
-    for (int i = warp; i < nks && !kNoProducts; i += kWarps) {
+    for (int i = first_kstep(ka); i < kz && !kNoProducts; i += kWarps) {
       unsigned a[3][4];
       const uint4* fr = frags + (size_t)i * NG * 32 + lane;
 #pragma unroll
@@ -1882,7 +2044,23 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
       unsigned bf[4];
       if constexpr (S == Storage::kBf16) {
         wide::ldsm_b_bf16(st, (int)pbytes, k0, lane, bf);
-        if (k0 + 8 >= sr) bf[1] = bf[3] = 0u;     // rows past the staged ones
+        if constexpr (kWindows) {
+          // rows k0 + 2 t4 (+1) in bf[0] and bf[2], 8 rows on in bf[1] and
+          // bf[3], low half first: only the window's rows count (the rest
+          // of the stage buffer holds other runs)
+          const int row = sb0 + k0 + 2 * t4;
+          auto half_mask = [&](int r0) {
+            return (r0 >= wlo && r0 < whi ? 0x0000ffffu : 0u) |
+                   (r0 + 1 >= wlo && r0 + 1 < whi ? 0xffff0000u : 0u);
+          };
+          const unsigned m0 = half_mask(row), m1 = half_mask(row + 8);
+          bf[0] &= m0;
+          bf[2] &= m0;
+          bf[1] &= m1;
+          bf[3] &= m1;
+        } else if (k0 + 8 >= sr) {
+          bf[1] = bf[3] = 0u;                       // rows past the staged ones
+        }
       } else {
         wide::lds_b_int8(st, (int)pbytes, k0, g, t4, bf);
       }
@@ -1932,9 +2110,9 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
 
     // the publisher: the tile's sums in warp order; with two CTAs a tile, the
     // one that does not hold the tile's lanes hands its partial sums over,
-    // the other adds them (rank order); the next step's rows of the tile's
-    // lanes (w less the band's taps inside the tile) and its two edge terms;
-    // the outputs; the flags
+    // the other adds them (rank order); the outputs; the next step's rows of
+    // the tile's lanes (w less the band's taps inside the tile, plus the
+    // injection's) and its two edge terms; the flags
     if (warp == kPublisher) {
       float tv[2][TL];
 #pragma unroll
@@ -1970,6 +2148,15 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
         }
       }
       if (own && needed) {
+        // the outputs first: a trace row that this step stores is read back
+        // by this thread when the next step injects it
+        if (ft.out != nullptr && !kNoOutputs) {
+#pragma unroll
+          for (int i = 0; i < TL; ++i) {
+            ft.out[(size_t)pp * ld + o0 + li0 + i] = tv[0][i];
+            ft.out[(size_t)(R + pp) * ld + o0 + li0 + i] = tv[1][i];
+          }
+        }
         if (has_next) {
           float nr[2][TL], nb[2][3][TL], eb[2];
 #pragma unroll
@@ -1981,6 +2168,72 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
               for (int d = 0; d < 3; ++d) nb[c][d][i] = pub[(2 * TL + (c * 3 + d) * TL + i) * 32 + lane];
             }
             eb[c] = pub[(8 * TL + c) * 32 + lane];
+          }
+          // the injection of the next step, + sign . cpl . (trace - trace_sub),
+          // as the band's taps: inside the tile into the rows, across its
+          // ends into the edge terms.  The trace row's lanes of this tile
+          // were stored by this thread at the step that made them (the
+          // outputs above): plain loads, program order
+          float ir[2][TL], ie[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            ie[c] = 0.f;
+#pragma unroll
+            for (int i = 0; i < TL; ++i) ir[c][i] = 0.f;
+          }
+          if constexpr (kInject) {
+            const FlowTile nx = items.tile(k + 1, b, t);
+            if (nx.cpl != nullptr && nx.carry_step >= 0 && !kNoInjection) {
+              float tw[2][TL];
+#pragma unroll
+              for (int c = 0; c < 2; ++c)
+#pragma unroll
+                for (int i = 0; i < TL; ++i) {
+                  const int o = o0 + li0 + i;
+                  float v = 0.f;
+                  if (o < n) {
+                    v = nx.trace_row[(size_t)(c * R + pp) * ld + o];
+                    if (nx.trace_sub != nullptr)
+                      v -= __ldg(nx.trace_sub + (size_t)(c * R + pp) * ld + o);
+                  }
+                  tw[c][i] = v;
+                }
+              float lw[2], rw[2];
+#pragma unroll
+              for (int c = 0; c < 2; ++c) {
+                lw[c] = __shfl_up_sync(0xffffffffu, tw[c][TL - 1], 1);
+                rw[c] = __shfl_down_sync(0xffffffffu, tw[c][0], 1);
+              }
+#pragma unroll
+              for (int i = 0; i < TL; ++i) {
+                const int l = li0 + i, o = o0 + l;
+                float ar = 0.f, ai = 0.f;
+#pragma unroll
+                for (int d = 0; d < 3; ++d) {
+                  if (l + d - 1 < 0 || l + d - 1 >= kLanes) continue;
+                  const int m = i + d - 1, mc = m < 0 ? 0 : (m >= TL ? TL - 1 : m);
+                  const float tr = m < 0 ? lw[0] : m >= TL ? rw[0] : tw[0][mc];
+                  const float ti = m < 0 ? lw[1] : m >= TL ? rw[1] : tw[1][mc];
+                  const float br = __ldg(nx.cpl + (size_t)d * ld + o);
+                  const float bi = __ldg(nx.cpl + (size_t)(3 + d) * ld + o);
+                  ar = ar + br * tr - bi * ti;
+                  ai = ai + br * ti + bi * tr;
+                }
+                ir[0][i] = nx.sign * ar;
+                ir[1][i] = nx.sign * ai;
+              }
+              // lane o0 - 1: tap 2 of it on this tile's lane 0; lane o0 + 8:
+              // tap 0 of it on lane 7
+              if ((li0 == 0 && o0 >= 1) || (li0 + TL == kLanes && o0 + kLanes < ld)) {
+                const bool lo_side = li0 == 0;
+                const int o = lo_side ? o0 - 1 : o0 + kLanes, d = lo_side ? 2 : 0;
+                const float tr = tw[0][lo_side ? 0 : TL - 1], ti = tw[1][lo_side ? 0 : TL - 1];
+                const float br = __ldg(nx.cpl + (size_t)d * ld + o);
+                const float bi = __ldg(nx.cpl + (size_t)(3 + d) * ld + o);
+                ie[0] = nx.sign * (br * tr - bi * ti);
+                ie[1] = nx.sign * (br * ti + bi * tr);
+              }
+            }
           }
           float lf[2], rt[2];                        // the neighbouring lanes' values
 #pragma unroll
@@ -2003,22 +2256,17 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
               ar = ar + nb[0][d][i] * tr - nb[1][d][i] * ti;
               ai = ai + nb[0][d][i] * ti + nb[1][d][i] * tr;
             }
-            *so.p(pp, o0 + l) = nr[0][i] - ar;
-            *so.p(R + pp, o0 + l) = nr[1][i] - ai;
+            *so.p(pp, o0 + l) = (kInject ? nr[0][i] + ir[0][i] : nr[0][i]) - ar;
+            *so.p(R + pp, o0 + l) = (kInject ? nr[1][i] + ir[1][i] : nr[1][i]) - ai;
           }
           // lane o0 - 1: tap 2 of it; lane o0 + 8: tap 0 of it (zero past the line)
           const int side = li0 == 0 ? 0 : 1;
           if (li0 == 0 || li0 + TL == kLanes) {
             const float tr = tv[0][side ? TL - 1 : 0], ti = tv[1][side ? TL - 1 : 0];
-            *(so.e(pp, t) + side) = kNoBandStep ? 0.f : -(eb[0] * tr - eb[1] * ti);
-            *(so.e(R + pp, t) + side) = kNoBandStep ? 0.f : -(eb[0] * ti + eb[1] * tr);
-          }
-        }
-        if (ft.out != nullptr && !kNoOutputs) {
-#pragma unroll
-          for (int i = 0; i < TL; ++i) {
-            ft.out[(size_t)pp * ld + o0 + li0 + i] = tv[0][i];
-            ft.out[(size_t)(R + pp) * ld + o0 + li0 + i] = tv[1][i];
+            const float er = kNoBandStep ? 0.f : eb[0] * tr - eb[1] * ti;
+            const float ei = kNoBandStep ? 0.f : eb[0] * ti + eb[1] * tr;
+            *(so.e(pp, t) + side) = kInject ? ie[0] - er : -er;
+            *(so.e(R + pp, t) + side) = kInject ? ie[1] - ei : -ei;
           }
         }
         // the P flags, once the warp's rows are out: with one CTA a tile,
@@ -2049,12 +2297,10 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
 // A step map: the wide step at r = 4, 8, else the narrow one
 template <int R, Storage S, int SPLIT, bool kInject, class Items>
 __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& fl) {
-  if constexpr (wide<R>()) {
-    static_assert(!kInject, "the fused sweeps take r = 1 or 2");
-    run_wide<R, S, SPLIT>(items, fl);
-  } else {
+  if constexpr (wide<R>())
+    run_wide<R, S, SPLIT, kInject>(items, fl);
+  else
     run_narrow<R, S, SPLIT, kInject>(items, fl);
-  }
 }
 
 template <int R, bool kBackward, Storage S, int SPLIT>
@@ -2062,7 +2308,7 @@ __device__ __forceinline__ void flow_wide(const FlowArgs& fa) {
   const PassArgs& a = fa.a;
   const PassMap<R, kBackward, S, false> map{
       a, FlowLaunch{a.count, a.batch, a.n, a.ld, fa.xchg, fa.epoch, nullptr, 0, kSlots, a.rows}};
-  run_wide<R, S, SPLIT>(map, map.fl);
+  run_wide<R, S, SPLIT, false>(map, map.fl);
 }
 
 template <int R, bool kBackward, Storage S, bool kBanded, int SPLIT>
@@ -2071,12 +2317,15 @@ __global__ void __launch_bounds__(flow_threads<SPLIT>(), 512 / flow_threads<SPLI
   run_flow<R, S, SPLIT, false>(items, items.fl);
 }
 
+// The narrow step on banded+tail pivots takes one exchange slot per line
+// step (windows let CTAs run apart); the wide step, whose every CTA waits on
+// its slice's tiles of the step before, the ring of kSlots
 template <int R, bool kBackward, Storage S, bool kBanded>
 inline cudaError_t launch_pass_map(const PassArgs& a, uint2* xchg, unsigned epoch,
                                    cudaStream_t stream) {
   using Map = PassMap<R, kBackward, S, kBanded>;
   const Map map{a, FlowLaunch{a.count, a.batch, a.n, a.ld, xchg, epoch, nullptr, 0,
-                              kBanded ? 0 : kSlots, a.rows}};
+                              kBanded && !wide<R>() ? 0 : kSlots, a.rows}};
   return launch_map<R, S, false, Map>(pass_map_kernel<R, kBackward, S, kBanded, 1>,
                                       pass_map_kernel<R, kBackward, S, kBanded, 2>, map,
                                       a.batch * (a.ld / kLanes), stream);
@@ -2084,15 +2333,16 @@ inline cudaError_t launch_pass_map(const PassArgs& a, uint2* xchg, unsigned epoc
 
 // A pass through run_flow: on banded+tail pivots (kBanded: bf16, 0 <
 // tail_start < m, half >= 0, no scales), else on dense planes (bf16, or int8
-// when scales are given).  The exchange needs one slot per line (count slots)
-template <bool kBackward, Storage S>
+// when scales are given); r = 1, 2, 4 or 8.  The exchange needs one slot per
+// line (count slots) at r <= 2 on banded+tail pivots, else kSlots
+template <bool kBackward, Storage S, bool kBanded>
 inline cudaError_t launch_pass_map_r(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                                      cudaStream_t stream) {
   switch (r) {
-    case 1: return launch_pass_map<1, kBackward, S, false>(a, xchg, epoch, stream);
-    case 2: return launch_pass_map<2, kBackward, S, false>(a, xchg, epoch, stream);
-    case 4: return launch_pass_map<4, kBackward, S, false>(a, xchg, epoch, stream);
-    case 8: return launch_pass_map<8, kBackward, S, false>(a, xchg, epoch, stream);
+    case 1: return launch_pass_map<1, kBackward, S, kBanded>(a, xchg, epoch, stream);
+    case 2: return launch_pass_map<2, kBackward, S, kBanded>(a, xchg, epoch, stream);
+    case 4: return launch_pass_map<4, kBackward, S, kBanded>(a, xchg, epoch, stream);
+    case 8: return launch_pass_map<8, kBackward, S, kBanded>(a, xchg, epoch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -2105,14 +2355,13 @@ inline cudaError_t run_map_pass(int r, const PassArgs& a, uint2* xchg, unsigned 
       epoch == 0u || epoch + (unsigned)a.count < epoch || (r > 2 && a.rows == nullptr))
     return cudaErrorInvalidValue;
   if constexpr (kBanded) {
-    if (r > kMaxRhsBanded || a.tail_start < 1 || a.tail_start >= a.m || a.half < 0 ||
-        a.scale != nullptr)
+    if (a.tail_start < 1 || a.tail_start >= a.m || a.half < 0 || a.scale != nullptr)
       return cudaErrorInvalidValue;
-    return r == 1 ? launch_pass_map<1, kBackward, Storage::kBf16, true>(a, xchg, epoch, stream)
-                  : launch_pass_map<2, kBackward, Storage::kBf16, true>(a, xchg, epoch, stream);
+    return launch_pass_map_r<kBackward, Storage::kBf16, true>(r, a, xchg, epoch, stream);
   } else {
-    if (a.scale != nullptr) return launch_pass_map_r<kBackward, Storage::kInt8>(r, a, xchg, epoch, stream);
-    return launch_pass_map_r<kBackward, Storage::kBf16>(r, a, xchg, epoch, stream);
+    if (a.scale != nullptr)
+      return launch_pass_map_r<kBackward, Storage::kInt8, false>(r, a, xchg, epoch, stream);
+    return launch_pass_map_r<kBackward, Storage::kBf16, false>(r, a, xchg, epoch, stream);
   }
 }
 

@@ -37,10 +37,11 @@
 // copy per plane, and waits only on the tiles that publish their carry lanes.
 // At r = 4 and 8 the map runs the wide step of thomas_flow.cuh (run_wide,
 // note "Wide batches"), the one the dense passes run: line `start`'s w from
-// t_init, each later line's from the rows its producers handed over.
-// Limits: r = 1, 2, 4 or 8 on dense planes (1 or 2 on banded+tail pivots), and
-// the lines of thomas_flow.cuh (n up to 1968 in bf16 and 2448 in int8 at
-// r = 2, 1904 and 2192 at r = 8: test_longest_line_fits).
+// t_init, each later line's from the rows its producers handed over; on head
+// windows a tile multiplies only its window's k-steps (note "Wide batches on
+// banded+tail pivots").  Limits: r = 1, 2, 4 or 8 on either layout, and the
+// lines of thomas_flow.cuh (n up to 1968 in bf16 and 2448 in int8 at r = 2,
+// 1904 and 2192 at r = 8: test_longest_line_fits).
 //
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B (int8: 1 B and the
 // scales), or two head windows, 2 x ld x (8 + 2 half) x 2 B less the rows
@@ -56,6 +57,7 @@ namespace thomas {
 // batch row; its carry is step k - 1's, or t_init at k = 0
 template <int R, bool kBanded, Storage S>
 struct CachedItems {
+  static constexpr bool kWindows = kBanded;      // head windows (run_wide)
   PassArgs a;
   FlowLaunch fl;
 
@@ -98,22 +100,16 @@ inline cudaError_t launch_cached(const PassArgs& a, uint2* xchg, unsigned epoch,
       a.batch * (a.ld / kLanes), stream);
 }
 
-// r = 1 or 2 on banded+tail pivots; 1, 2, 4 or 8 on dense planes
+// r = 1, 2, 4 or 8 on either layout
 template <bool kBanded, Storage S>
 inline cudaError_t run_cached(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                               cudaStream_t stream) {
-  if constexpr (kBanded) {
-    return r == 1   ? launch_cached<1, kBanded, S>(a, xchg, epoch, stream)
-           : r == 2 ? launch_cached<2, kBanded, S>(a, xchg, epoch, stream)
-                    : cudaErrorInvalidValue;
-  } else {
-    switch (r) {
-      case 1: return launch_cached<1, kBanded, S>(a, xchg, epoch, stream);
-      case 2: return launch_cached<2, kBanded, S>(a, xchg, epoch, stream);
-      case 4: return launch_cached<4, kBanded, S>(a, xchg, epoch, stream);
-      case 8: return launch_cached<8, kBanded, S>(a, xchg, epoch, stream);
-      default: return cudaErrorInvalidValue;
-    }
+  switch (r) {
+    case 1: return launch_cached<1, kBanded, S>(a, xchg, epoch, stream);
+    case 2: return launch_cached<2, kBanded, S>(a, xchg, epoch, stream);
+    case 4: return launch_cached<4, kBanded, S>(a, xchg, epoch, stream);
+    case 8: return launch_cached<8, kBanded, S>(a, xchg, epoch, stream);
+    default: return cudaErrorInvalidValue;
   }
 }
 

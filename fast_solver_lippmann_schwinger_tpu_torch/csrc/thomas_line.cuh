@@ -68,7 +68,7 @@
 // two windows, 2 x ld x wt x 2 B (0.67 MB at half = 100).  The
 // arithmetic (2 x 2r x 2 x rows x ld flop) is far below the f32 rate.  Each
 // plane byte is read exactly once per pass and serves all r right-hand sides
-// (up to 8 in one launch on dense planes: thomas_flow.cuh, "Wide batches").
+// (up to 8 in one launch on either layout: thomas_flow.cuh, "Wide batches").
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,8 +78,6 @@ namespace thomas {
 
 constexpr int kLanes = 8;              // output lanes per tile (16 B of bf16)
 constexpr int kMaxRhs = 8;             // right-hand sides per launch: 1, 2, 4 or 8
-                                       //   (dense planes; banded+tail pivots 1 or 2)
-constexpr int kMaxRhsBanded = 2;
 
 // The widths a launch is instantiated for; the wrappers pad other r up to the
 // next one with zero right-hand sides (sparse/thomas_kernels.py)

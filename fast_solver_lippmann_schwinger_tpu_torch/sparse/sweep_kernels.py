@@ -13,11 +13,13 @@ down kernel's carry with the bottom injections, then the full backward pass
 that writes the volume and yields the top traces, with the reflection
 correction).  Two launches per sweep, nothing between slabs.  The line step
 is the flag-handoff step of the substitution kernels
-(``csrc/thomas_flow.cuh``, ``run_flow``): each step hands its t to the next
-through flagged words of the stream's exchange buffer
+(``csrc/thomas_flow.cuh``, ``run_flow``): at r = 1, 2 each step hands its t
+to the next through flagged words of the stream's exchange buffer
 (:class:`~fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels.Exchange`),
 one slot and one flag per step, and the traces travel as the words of the
-backward step that produced them.  The
+backward step that produced them; at r = 4, 8 (the wide step) each step
+hands the next line's w over as rows on a ring of four slots, and the traces
+are rows that the tiles' publishers store and read back.  The
 kernels read the trace metadata and coupling rows of
 ``ddm.subdomain.SlabSystem.sweep_tables``; ``ddm.sweeps.gs_sweep`` drives them.
 
@@ -30,8 +32,11 @@ so this is also the sweep with the fewest pivot bytes.  Semantics are those of
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
 plain PyTorch version (:func:`sweep_down_plain`, :func:`sweep_up_plain`, a
 Python loop over (slab, line phase)) only for tensors that lie on the CPU.
-More right-hand sides than a launch takes run as groups of at most
-``thomas_kernels.MAX_RHS_BANDED`` (two), one launch each.
+A launch takes r = 1, 2, 4 or 8 right-hand sides (r = 3 padded to four, 5-7
+to eight), each head window and tail plane read once for all of them; a
+batch that one launch does not take runs in launches of
+``thomas_kernels.line_width(fac, r, inject=True)`` columns, eight at most
+(``thomas_kernels.in_rhs_groups``).
 """
 
 from __future__ import annotations
@@ -47,10 +52,10 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels import (
 )
 
 _P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
-# direction flag, 15 pointers, 8 ints, the exchange buffer, its first flag and
-# the stream
+# direction flag, 16 pointers (the wide step's rows last), 8 ints, the
+# exchange buffer, its first flag and the stream
 cuda_build.register("sweep_fused", "sweep_fused",
-                    [_I] + [_P] * 15 + [_I] * 8 + [_P, _U, _P])
+                    [_I] + [_P] * 16 + [_I] * 8 + [_P, _U, _P])
 
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU tests; yardstick on the card)
@@ -180,16 +185,30 @@ def private_floats(fac, tt: int, r: int) -> int:
     return fac.ld // tk.LEAD_MULTIPLE * tt * 2 * r * (fac.ld + 8)
 
 
+def exchange_slots(fac, tt: int, r: int) -> int:
+    """Exchange slots of one sweep launch at ``r`` right-hand sides: one per
+    line step at r = 1, 2 (the traces are words of the backward steps); the
+    ring of ``thomas_kernels.EXCHANGE_LINES`` at r = 4, 8 (the wide step, whose
+    every step waits on the one before and whose traces are rows)."""
+    return steps(fac, tt) if r <= 2 else tk.EXCHANGE_LINES
+
+
 def _launch(up: int, fac, meta, b4, cpl_a, cpl_b, y4, t4, unp, u4, tt: int, r: int):
+    """One launch; the down kernel at r = 4, 8 stores its bottom traces u_n
+    into a scratch row stack passed as ``u4``."""
     fn = cuda_build.load("sweep_fused")
     scratch = b4.new_empty(private_floats(fac, tt, r))
-    xchg, epoch = tk.exchange_for(b4).take(1, r, fac.ld, steps(fac, tt), slots=steps(fac, tt))
+    if u4 is None and r > 2:
+        u4 = torch.empty_like(unp)
+    slots = exchange_slots(fac, tt, r)
+    ex = tk.exchange_for(b4)
+    xchg, epoch = ex.take(1, r, fac.ld, steps(fac, tt), slots=slots)
     err = fn(
         up, b4.data_ptr(), fac.lband.data_ptr(), fac.uband.data_ptr(),
         fac.head_re.data_ptr(), fac.head_im.data_ptr(), fac.tail_re.data_ptr(),
         fac.tail_im.data_ptr(), meta.data_ptr(), cpl_a.data_ptr(), cpl_b.data_ptr(),
-        y4.data_ptr(), t4.data_ptr(), unp.data_ptr(),
-        0 if u4 is None else u4.data_ptr(), scratch.data_ptr(),
+        y4.data_ptr(), t4.data_ptr(), unp.data_ptr(), tk._ptr(u4), scratch.data_ptr(),
+        tk._ptr(ex.wide_rows(1, r, fac.ld, slots=slots)),
         fac.n_slabs, fac.m, fac.n, fac.ld, r, fac.tail_start, fac.half, tt,
         xchg.data_ptr(), epoch, torch.cuda.current_stream(b4.device).cuda_stream,
     )
@@ -206,9 +225,10 @@ def sweep_down(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tenso
     r = _check(fac, meta, b4, tt, (c01, c10))
     if not b4.is_cuda:
         return sweep_down_plain(fac, meta, b4, c01, c10, tt)
-    if r > tk.MAX_RHS_BANDED:
+    width = tk.line_width(fac, r, inject=True)
+    if width != r:
         return tk.in_rhs_groups(lambda b: sweep_down(fac, meta, b, c01, c10, tt), r, (b4,),
-                                width=tk.MAX_RHS_BANDED)
+                                width=width)
     y4, t4 = torch.empty_like(b4), torch.empty_like(b4)
     unp = torch.zeros_like(b4[:, 0])
     _launch(0, fac, meta, b4, c01, c10, y4, t4, unp, None, tt, r)
@@ -227,10 +247,11 @@ def sweep_up(fac: BandedTailFactorization, meta: torch.Tensor, b4: torch.Tensor,
         raise ValueError("y4, t4 and unp must be sweep_down's outputs for these rows")
     if not b4.is_cuda:
         return sweep_up_plain(fac, meta, b4, cnpn, cnnp, y4, t4, unp, tt)
-    if r > tk.MAX_RHS_BANDED:
+    width = tk.line_width(fac, r, inject=True)
+    if width != r:
         return tk.in_rhs_groups(
             lambda b, y, t, u: sweep_up(fac, meta, b, cnpn, cnnp, y, t, u, tt),
-            r, (b4, y4, t4, unp), width=tk.MAX_RHS_BANDED)
+            r, (b4, y4, t4, unp), width=width)
     u4 = torch.empty_like(b4)
     _launch(1, fac, meta, b4, cnpn, cnnp, y4, t4, unp, u4, tt, r)
     sweep_up.launches += 1

@@ -48,13 +48,12 @@ clip(round_half_even(c / scale), -127, 127)``.  The last block may be partial
 (rows ``[128 (nb - 1), ld)``): the JAX package pads to 128 lanes with zeros,
 which leave the block's absmax as it is, so the scales are the same numbers.
 
-Right-hand sides in one launch: on dense planes r = 1, 2, 4 or 8
-(:data:`LAUNCH_WIDTHS`), each pivot plane read once for all of them; other r
-up to 8 are padded to the next width with zero columns, and more than
-``MAX_RHS`` run as groups of at most ``MAX_RHS`` columns, one launch each,
-split from and joined back into the stacked rows (:func:`in_rhs_groups`).
-The banded+tail layout (and the fused sweeps of ``sweep_kernels``) take r = 1
-or 2 (``MAX_RHS_BANDED``).
+Right-hand sides in one launch: r = 1, 2, 4 or 8 (:data:`LAUNCH_WIDTHS`) on
+either layout and in the fused sweeps of ``sweep_kernels``, each pivot plane
+or head window read once for all of them; other r up to 8 are padded to the
+next width with zero columns, and more than ``MAX_RHS`` run as groups of at
+most ``MAX_RHS`` columns, one launch each, split from and joined back into
+the stacked rows (:func:`in_rhs_groups`).
 
 A line must fit one block's shared memory: its rows and the staged plane
 buffers (for the flag-handoff passes, three stage buffers of a line's rows,
@@ -84,7 +83,6 @@ from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 LEAD_MULTIPLE = 8      # bf16 values per 16-byte load
 MAX_RHS = 8            # right-hand sides per kernel launch (csrc: kMaxRhs)
 LAUNCH_WIDTHS = (1, 2, 4, 8)   # the instantiated widths (csrc: launch_width)
-MAX_RHS_BANDED = 2     # banded+tail pivots and fused sweeps (csrc: kMaxRhsBanded)
 INT8_BLOCK = 128       # input rows per int8 scale (csrc: kScaleBlock)
 
 _P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
@@ -558,7 +556,8 @@ def line_smem_bytes(ld: int, r: int, storage: str = "bf16", split: int = 1,
                     inject: bool = False) -> int:
     """Shared memory of one block of a line kernel on lines of ``ld`` lanes at
     ``r`` right-hand sides with ``split`` CTAs a tile (``inject``: the fused
-    sweeps, which keep the trace rows beside the carry): the mbarriers and the
+    sweeps, which keep the trace rows beside the carry at r <= 2 and add
+    nothing to the wide step): the mbarriers and the
     warps' sums; at r <= 2 the carry rows (and trace rows) and the stage ring
     of :data:`LINE_STAGES` buffers (plane runs, scales, band and right-hand
     rows); at r = 4 and 8 (the wide step, csrc/thomas_flow.cuh:
@@ -592,14 +591,13 @@ def line_fits(ld: int, r: int, storage: str = "bf16", inject: bool = False) -> b
                for split, threads, groups in ((1, 512, 3), (2, 256, 5)))
 
 
-def line_width(fac, r: int) -> int:
+def line_width(fac, r: int, inject: bool = False) -> int:
     """Right-hand sides of one launch for a batch of ``r`` on ``fac``'s
-    lines: the launch width of ``min(r, MAX_RHS)`` (``MAX_RHS_BANDED`` on
-    the banded+tail layout), halved while the line does not fit it (a line
-    that does not fit one right-hand side is refused at the launch)."""
-    cap = MAX_RHS_BANDED if isinstance(fac, BandedTailFactorization) else MAX_RHS
-    width = launch_width(min(r, cap))
-    while width > 1 and not line_fits(fac.ld, width, fac.storage):
+    lines (``inject``: of a fused sweep): the launch width of ``min(r,
+    MAX_RHS)``, halved while the line does not fit it (a line that does not
+    fit one right-hand side is refused at the launch)."""
+    width = launch_width(min(r, MAX_RHS))
+    while width > 1 and not line_fits(fac.ld, width, fac.storage, inject):
         width //= 2
     return width
 
@@ -626,9 +624,11 @@ class Exchange:
     ``slots``).  The dense forward and backward passes reuse a ring of
     :data:`EXCHANGE_LINES` slots; the step maps (the cached forward pass, the
     backward pass on banded+tail pivots and the fused sweeps) take one slot
-    per line step, so that no slot is written twice in a launch and the words
-    of every earlier step stay readable
-    (``csrc/thomas_flow.cuh``, ``run_flow``).  The buffer is zeroed when it
+    per line step at r = 1, 2, so that no slot is written twice in a launch
+    and the words of every earlier step stay readable
+    (``csrc/thomas_flow.cuh``, ``run_flow``); at r = 4, 8 the backward pass
+    on banded+tail pivots and the fused sweeps take the ring too (the wide
+    step's every step waits on the one before).  The buffer is zeroed when it
     is made and only these kernels write it; the counter only grows, so no
     word left from an earlier launch carries a flag that a later one waits
     for, and no launch needs a memset.  A buffer too small for a launch is
@@ -1006,11 +1006,15 @@ def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
     return out
 
 
-def backward_slots(fac, m_eff: int) -> int:
-    """Exchange slots of a backward pass over ``m_eff`` lines: on dense planes
-    (``flow_kernel``) the ring of :data:`EXCHANGE_LINES`; on the banded+tail
-    layout (a step map through ``run_flow``) one slot per line step."""
-    return m_eff if isinstance(fac, BandedTailFactorization) else EXCHANGE_LINES
+def backward_slots(fac, m_eff: int, r: int = 1) -> int:
+    """Exchange slots of a backward pass over ``m_eff`` lines at ``r``
+    right-hand sides: on dense planes (``flow_kernel``) and at r = 4, 8 (the
+    wide step, whose every step waits on the one before) the ring of
+    :data:`EXCHANGE_LINES`; on the banded+tail layout at r = 1, 2 (a step map
+    through ``run_flow``) one slot per line step."""
+    if isinstance(fac, BandedTailFactorization) and r <= 2:
+        return m_eff
+    return EXCHANGE_LINES
 
 
 def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
@@ -1034,7 +1038,7 @@ def backward_substitution(fac, s_idx: torch.Tensor, y4: torch.Tensor,
     x4 = torch.empty((B, m_eff, 2 * r, fac.ld), dtype=torch.float32, device=y4.device)
     pivots, layout = _pivot_args(fac)
     ex = exchange_for(y4)
-    slots = backward_slots(fac, m_eff)
+    slots = backward_slots(fac, m_eff, r)
     xchg, epoch = ex.take(B, r, fac.ld, m_eff, slots=slots)
     err = fn(
         y4.data_ptr(), fac.uband.data_ptr(), *pivots, s_idx.data_ptr(), x4.data_ptr(),

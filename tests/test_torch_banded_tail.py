@@ -10,7 +10,12 @@ against the JAX package's, whose Pallas kernels run in interpret mode.
     ``test_gs_sweep_pallas_banded_tail_dispatch``, and against the port's
     per-slab sweep on the same layout;
 (d) the slice whole at h = 1/40, port against JAX, with the port's own
-    preconditioner and with the JAX one carried over.
+    preconditioner and with the JAX one carried over, and the joint solve of
+    eight directions at once.
+
+On the card a launch takes r = 1, 2, 4 or 8 right-hand sides on this layout
+too; here the wrappers take their plain versions, held at r = 8 (and 4 in the
+fused sweep) against the JAX kernels, which take any r.
 
 Same bf16 entries and f32 arithmetic on both sides, so only the summation
 order differs: 1e-5 of the max-norm.
@@ -115,7 +120,7 @@ def test_layout_is_bit_equal(factors, width):
     assert float(built.head_re[1, 0, t, v, l].float()) == float(ct[1, 0, 8 * t + 3, 8 * t + l])
 
 
-@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("r", [None, 2, 8])
 @pytest.mark.parametrize("tail", [0, 3])
 def test_solve(banded, r, tail):
     jp, tp = banded
@@ -128,7 +133,8 @@ def test_solve(banded, r, tail):
 
 def test_solve_all_with_slab_permutation(banded):
     """The slab of each batch row through the index (permuted), start and
-    tail; three right-hand sides run the plain versions (the card takes 2)."""
+    tail; three right-hand sides (the card takes them as one launch of
+    four)."""
     jp, tp = banded
     rng = np.random.default_rng(7)
     bb = (rng.standard_normal((2, M, N, 3)) + 1j * rng.standard_normal((2, M, N, 3))).astype(
@@ -142,7 +148,7 @@ def test_solve_all_with_slab_permutation(banded):
           jpt.solve_all(jp, jnp.asarray(perm), jnp.asarray(b1), start=3, tail=5, interpret=True))
 
 
-@pytest.mark.parametrize("r", [None, 2])
+@pytest.mark.parametrize("r", [None, 2, 8])
 def test_solve_cached_and_resume(banded, r):
     """The cached solve and its caches, then the resumed solve from them; the
     caches are left as they were."""
@@ -230,7 +236,7 @@ def sweep_system():
     return js, convert.slab_system(slab_fields(js), device="cpu")
 
 
-@pytest.mark.parametrize("r", [1, 2])
+@pytest.mark.parametrize("r", [1, 2, 4, 8])
 def test_fused_sweep_matches_jax(sweep_system, r):
     js, ts = sweep_system
     assert isinstance(ts.pfac, tk.BandedTailFactorization) and ts.pfac.width == 21
@@ -320,3 +326,39 @@ def test_slice_matches_jax(slice_problems, precond):
     want = np.asarray(jx)
     np.testing.assert_allclose(tx.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
     assert float(info.true_residual) < 1e-4
+
+
+R = 8
+# eight plane-wave directions at angles 2 pi k / 8 (chip_smoke.WIDE_DIRECTIONS)
+WIDE_DIRECTIONS = tuple((float(np.cos(2 * np.pi * k / R)), float(np.sin(2 * np.pi * k / R)))
+                        for k in range(R))
+
+
+def test_eight_directions_joint_solve_matches_jax(slice_problems):
+    """``solve_batched`` of eight directions at once on the banded+tail
+    layout (the port's problem with the JAX preconditioner carried over, so
+    both solve with the same bf16 entries; the fused sweep at r = 8, one
+    launch a direction on the card), against the JAX ``solve_batched``,
+    whose fused sweep runs in interpret mode: the same iteration count for
+    every direction, the residual histories within 1e-5 above the float32
+    floor, the solutions within 1e-4.  The joint solve stops at rtol 1e-4:
+    at 1e-5 the last residual of some directions is 2e-6 of the first,
+    within a factor two of the float32 floor of an apply, where the two
+    packages' summation orders alone move it by 1.7e-7 of the first."""
+    jp, problems = slice_problems
+    tp = problems["carried"]
+    solve = dict(SOLVE, rtol=1e-4)
+    jX, jinfo = jplasma2d.solve_batched(jp, WIDE_DIRECTIONS, **solve)
+    tX, info = plasma2d.solve_batched(tp, WIDE_DIRECTIONS, **solve)
+    counts = np.asarray(jinfo.n_iterations)
+    np.testing.assert_array_equal(info.n_iterations.numpy(), counts)
+    assert counts.shape == (R,) and counts.min() > 0
+    assert bool(info.converged.all()) and bool(np.asarray(jinfo.converged).all())
+    for i in range(R):
+        want = np.asarray(jinfo.residuals[i])[: counts[i] + 1]
+        np.testing.assert_allclose(info.residuals[i].numpy()[: counts[i] + 1], want,
+                                   rtol=1e-5, atol=1e-7 * want[0])
+    want = np.asarray(jX)
+    assert tuple(tX.shape) == want.shape == (R, tp.grid.size)
+    np.testing.assert_allclose(tX.numpy(), want, rtol=0, atol=1e-4 * np.abs(want).max())
+    assert float(info.true_residual.max()) < 1e-3

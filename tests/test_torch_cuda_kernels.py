@@ -772,7 +772,7 @@ def _random_hybrid(rng, S, m, n, width, tail_lines):
     return tk.build_banded_tail_factorization(fac, width=width, tail_lines=tail_lines)
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8])
 @pytest.mark.parametrize("start,carry,tail", [(0, False, 0), (0, True, 3), (5, True, 30),
                                               (48, True, 0)])
 @pytest.mark.parametrize("batch", [1, 16])
@@ -781,7 +781,8 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail, batch):
     t_init, starting in the head and in the tail; backward full, inside the
     tail lines or across into the head; n not a multiple of 8, batch rows
     picking slabs out of order (at 16, several tiles a CTA); one launch per
-    call (r = 3: two), lines above the start left alone."""
+    call at every r (r = 3 padded to four, 5 to eight; 4 and 8 the wide
+    step), lines above the start left alone."""
     rng = np.random.default_rng(100 + 10 * r + start + batch)
     m, n = 56, 45
     fac = _random_hybrid(rng, 2, m, n, width=9, tail_lines=20)
@@ -799,8 +800,9 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail, batch):
     y_p, t_p = tk.forward_substitution_cached(fac, s_idx, b4, t_init, start=start)
     x4 = tk.backward_substitution(card, s_idx.to(cuda_device), y_p.to(cuda_device), tail=tail)
     torch.cuda.synchronize()
-    # one launch each (a group each), counted as the hybrid layout's
-    groups = len(tk.rhs_groups(r, tk.MAX_RHS_BANDED))
+    # one launch each, counted as the hybrid layout's
+    groups = len(tk.rhs_groups(r, tk.line_width(fac, r)))
+    assert groups == 1
     assert (fwd.launches, bwd.launches) == tuple(dict(b, ht=b["ht"] + groups) for b in before)
     for got, want in ((y4[:, start:], y_p[:, start:]), (t4[:, start:], t_p[:, start:]),
                       (x4, tk.backward_substitution(fac, s_idx, y_p, tail=tail))):
@@ -808,12 +810,13 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail, batch):
     assert bool((y4[:, :start] == 7.0).all()) and bool((t4[:, :start] == -7.0).all())
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8])
 def test_fused_sweep_matches_plain(cuda_device, r):
     """The 3-slab double-sweep preconditioner on banded+tail pivots, built on
     the CPU and moved to the card: one ``gs_sweep`` is one launch of each
-    fused kernel (r = 3: two) and agrees with the plain fused sweep on the CPU
-    and with the per-slab sweep (the hybrid passes) on the card."""
+    fused kernel at every r (r = 3 padded to four, 5 to eight) and agrees
+    with the plain fused sweep on the CPU and with the per-slab sweep (the
+    hybrid passes) on the card."""
     problem = plasma2d.build_problem(h=1 / 40, n_subdomains=3, double_sweep=True,
                                      pivot_dtype="pallas_banded_tail", pivot_band=21,
                                      dtype=torch.complex64, device="cpu")
@@ -826,7 +829,8 @@ def test_fused_sweep_matches_plain(cuda_device, r):
     before = (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"])
     got = sweeps.gs_sweep(slabs, torch.as_tensor(b, device=cuda_device))
     torch.cuda.synchronize()
-    groups = len(tk.rhs_groups(r, tk.MAX_RHS_BANDED))
+    groups = len(tk.rhs_groups(r, tk.line_width(slabs.pfac, r, inject=True)))
+    assert groups == 1
     assert (sk.sweep_down.launches, sk.sweep_up.launches, fwd.launches["ht"]) == (
         before[0] + groups, before[1] + groups, before[2])
     want = sweeps.gs_sweep(slabs_cpu, torch.as_tensor(b))
@@ -835,10 +839,43 @@ def test_fused_sweep_matches_plain(cuda_device, r):
     torch.testing.assert_close(got, per_slab, rtol=0, atol=TOL * float(per_slab.abs().max()))
 
 
+@pytest.mark.parametrize("r", [2, 4, 8])
+def test_fused_sweep_injects_at_a_carry_free_line(cuda_device, r):
+    """Injections at lines whose step takes no carry from the step before:
+    the down sweep's top trace line at line 0 of each slab (l0 = 0), and the
+    up sweep's second bottom injection at the first line of its resumed
+    forward pass (trace tail m - ln, so ln = m - tt); the wide step forms
+    such a line's w itself, from trace rows that other CTAs stored.  The
+    other two injections of each direction follow a carried step.  801 lanes
+    (one CTA a tile), windows of width 41, a backward tail that reaches into
+    the head; against the plain sweeps, one launch each."""
+    rng = np.random.default_rng(40 + r)
+    S, m, n = 3, 20, 801
+    fac = _hybrid_on_card(rng, S, m, n, 41, 6, cuda_device)
+    ln = 13
+    tt = m - ln
+    meta = torch.tensor([[0, 0, 0], [0, 1, 1], [ln, ln, 0], [ln + 1, ln + 1, 0],
+                         [0, 1, 1], [1, 1, 0]], dtype=torch.int32, device=cuda_device)
+    b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (S, m, n, r)), device=cuda_device))
+    cpl = [torch.zeros((S, 2, 3, fac.ld), device=cuda_device) for _ in range(4)]
+    for c in cpl:
+        c[..., :n] = torch.as_tensor(rng.uniform(-0.2, 0.2, (S, 2, 3, n)).astype(np.float32))
+    before = (sk.sweep_down.launches, sk.sweep_up.launches)
+    down = sk.sweep_down(fac, meta, b4, cpl[0], cpl[1], tt)
+    u4 = sk.sweep_up(fac, meta, b4, cpl[2], cpl[3], *down, tt)
+    torch.cuda.synchronize()
+    assert (sk.sweep_down.launches, sk.sweep_up.launches) == (before[0] + 1, before[1] + 1)
+    want = sk.sweep_down_plain(fac, meta, b4, cpl[0], cpl[1], tt)
+    for got, ref in zip(down, want):
+        torch.testing.assert_close(got, ref, rtol=0, atol=TOL * float(ref.abs().max()))
+    want = sk.sweep_up_plain(fac, meta, b4, cpl[2], cpl[3], *down, tt)
+    torch.testing.assert_close(u4, want, rtol=0, atol=TOL * float(want.abs().max()))
+
+
 @pytest.mark.parametrize("entry", ["forward", "backward", "down", "up"])
 def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monkeypatch):
-    """A CUDA tensor never reaches a plain version (each raises here): three
-    right-hand sides run as two launches of the kernel."""
+    """A CUDA tensor never reaches a plain version (each raises here): nine
+    right-hand sides run as two launches of the kernel (eight, and one)."""
     def boom(*args, **kwargs):
         raise AssertionError("plain version called for a CUDA tensor")
 
@@ -848,7 +885,7 @@ def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monke
     monkeypatch.setattr(sk, "sweep_up_plain", boom)
     rng = np.random.default_rng(4)
     fac = move_to(_random_hybrid(rng, 3, 8, 24, width=5, tail_lines=3), cuda_device)
-    rows = torch.zeros((3, 8, 6, fac.ld), device=cuda_device)
+    rows = torch.zeros((3, 8, 18, fac.ld), device=cuda_device)
     s_idx = fac.slab_ids
     meta = torch.tensor([[0, 1, 1], [0, 2, 2], [5, 5, 0], [6, 6, 0], [0, 1, 1], [1, 1, 0]],
                         dtype=torch.int32, device=cuda_device)
@@ -866,7 +903,7 @@ def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monke
     torch.cuda.synchronize()
     assert count() == before + 2
     for t in out if isinstance(out, tuple) else (out,):
-        assert t.shape[-2:] in ((6, fac.ld),) and bool(torch.isfinite(t).all())
+        assert t.shape[-2:] in ((18, fac.ld),) and bool(torch.isfinite(t).all())
 
 
 BANDED_TAIL = 22                 # the sweeps' trace tail: it reaches into the head
@@ -896,28 +933,28 @@ def _banded_batch(fac, batch):
     return fac.slab_ids[8:9] if batch == 1 else fac.slab_ids
 
 
-@pytest.mark.parametrize("r", [1, 2, 3])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
 @pytest.mark.parametrize("tail", [0, BANDED_TAIL])
 @pytest.mark.parametrize("batch", [1, 16])
 def test_banded_backward_matches_plain(banded, r, tail, batch):
     """The backward pass on banded+tail pivots at the 801^2 solve's width,
     full and over the last 22 lines (across into the head windows), one inner
     slab and all 16 (several tiles a CTA), against its plain version; one
-    launch each (r = 3: two), counted as the hybrid layout's."""
+    launch each (r = 3 padded to four), counted as the hybrid layout's."""
     fac = banded
     s_idx = _banded_batch(fac, batch)
     y4 = _banded_rows(fac, batch, r, 10 * r + tail + batch)
     before = tk.backward_substitution.launches["ht"]
     x4 = tk.backward_substitution(fac, s_idx, y4, tail=tail)
     torch.cuda.synchronize()
-    assert tk.backward_substitution.launches["ht"] == before + len(
-        tk.rhs_groups(r, tk.MAX_RHS_BANDED))
+    assert tk.backward_substitution.launches["ht"] == before + 1
     want = tk.backward_substitution_ht_plain(fac, s_idx, y4, tail)
     assert x4.shape == want.shape == (batch, tail or fac.m, 2 * r, fac.ld)
     torch.testing.assert_close(x4, want, rtol=0, atol=TOL * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("batch,r,tail", [(1, 1, 0), (1, 2, BANDED_TAIL), (16, 2, 0)])
+@pytest.mark.parametrize("batch,r,tail", [(1, 1, 0), (1, 2, BANDED_TAIL), (16, 2, 0),
+                                         (1, 8, BANDED_TAIL), (16, 8, 0), (16, 4, 0)])
 def test_banded_backward_is_bit_identical_across_repeats(banded, batch, r, tail):
     """No race in the handoff of the banded backward pass: 20 launches give
     the same bits (no sum depends on timing; there is no atomic)."""
@@ -1041,11 +1078,12 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
 # the slice and its A fragments once; the grid-barrier step took 1704 and
 # 2200 at r = 2;
 # a slice holds at most 1280 rows), and the fused sweeps, which keep the trace
-# rows beside the carry (the grid-barrier step took about 1300);
+# rows beside the carry at r = 2 (the grid-barrier step took about 1300) and
+# at r = 4 and 8 run the wide step with nothing added to its shared memory;
 # thomas_kernels.line_fits mirrors them
 LONGEST_LINE = {("bf16", 1): 2304, ("bf16", 2): 1968, ("bf16", 4): 2560, ("bf16", 8): 1904,
                 ("int8", 1): 2560, ("int8", 2): 2448, ("int8", 4): 2560, ("int8", 8): 2192}
-LONGEST_SWEEP_LINE = 1840
+LONGEST_SWEEP_LINE = {2: 1840, 4: 2560, 8: 1904}
 
 
 def _zero_hybrid(length, device):
@@ -1061,7 +1099,8 @@ def _zero_hybrid(length, device):
     ("backward", "bf16", 2), ("backward", "int8", 2), ("forward_cached", "bf16", 2),
     ("forward_cached", "int8", 2), ("sweep", "bf16", 2), ("backward_ht", "bf16", 2)] + [
     (entry, storage, r) for entry in ("backward", "forward_cached")
-    for storage in ("bf16", "int8") for r in (1, 4, 8)])
+    for storage in ("bf16", "int8") for r in (1, 4, 8)] + [
+    (entry, "bf16", r) for entry in ("sweep", "backward_ht") for r in (4, 8)])
 def test_longest_line_fits(cuda_device, entry, storage, r, monkeypatch):
     """The line-length limits of the module notes, for each launch width: the
     longest line launches once at r, one lane group more is refused before a
@@ -1069,24 +1108,25 @@ def test_longest_line_fits(cuda_device, entry, storage, r, monkeypatch):
     the carry rows [+ w at r > 2] + three stage buffers, of 232448 bytes; the
     fused sweeps with the trace rows beside the carry; the backward pass on
     banded+tail pivots, a step map without the trace rows, as the cached
-    forward pass).  The Python mirror (thomas_kernels.line_fits) says the
-    same; a longer line would run in narrower launches, so the wrapper is
-    held to width r there: the kernel refuses it and the wrapper raises,
+    forward pass; at r = 4 and 8 every one of them runs the wide step, the
+    same shared memory).  The Python mirror (thomas_kernels.line_fits) says
+    the same; a longer line would run in narrower launches, so the wrapper
+    is held to width r there: the kernel refuses it and the wrapper raises,
     with no launch of another width."""
-    n = LONGEST_SWEEP_LINE if entry == "sweep" else LONGEST_LINE[storage, r]
+    n = LONGEST_SWEEP_LINE[r] if entry == "sweep" else LONGEST_LINE[storage, r]
     for length, fits in ((n, True), (n + tk.LEAD_MULTIPLE, False)):
         assert tk.line_fits(length, r, storage, inject=entry == "sweep") == fits
         s_idx = torch.zeros(1, dtype=torch.int32, device=cuda_device)
         if entry == "sweep":
             fac = _zero_hybrid(length, cuda_device)
-            rows = torch.ones((2, 3, 4, length), device=cuda_device)
+            rows = torch.ones((2, 3, 2 * r, length), device=cuda_device)
             meta = torch.zeros((6, 2), dtype=torch.int32, device=cuda_device)
             cpl = torch.zeros((2, 2, 3, length), device=cuda_device)
             call = lambda: sk.sweep_down(fac, meta, rows, cpl, cpl, 1)[1]   # noqa: E731
             fn, key = sk.sweep_down, None
         elif entry == "backward_ht":
             fac = _zero_hybrid(length, cuda_device)
-            rows = torch.ones((1, 3, 4, length), device=cuda_device)
+            rows = torch.ones((1, 3, 2 * r, length), device=cuda_device)
             call = lambda: tk.backward_substitution(fac, s_idx, rows)        # noqa: E731
             fn, key = tk.backward_substitution, "ht"
         else:
@@ -1109,7 +1149,7 @@ def test_longest_line_fits(cuda_device, entry, storage, r, monkeypatch):
             assert not x.any()
             assert (fn.launches if key is None else fn.launches[key]) == before + 1
         else:
-            monkeypatch.setattr(tk, "line_width", lambda fac, r: r)
+            monkeypatch.setattr(tk, "line_width", lambda fac, r, inject=False: r)
             with pytest.raises(ValueError, match="too long"):
                 call()
             monkeypatch.undo()
@@ -1267,12 +1307,14 @@ def test_map_kernels_are_bit_identical_across_repeats(cuda_device):
     cached forward launches on bf16, int8 and banded+tail pivots, the shape
     changing from one round to the next, among them a narrow window on a wide
     line (width 9 at n = 801: a head tile reads 3 tiles' carry, so CTAs at the
-    two ends of a line run far apart); every output the same bits as the first
-    run at its shape."""
+    two ends of a line run far apart), the wide step of the sweeps at r = 4
+    and 8 and of the hybrid forward pass at r = 8; every output the same bits
+    as the first run at its shape."""
     rng = np.random.default_rng(8)
     sweeps_ = []
     for S, m, n, width, tail_lines, r in ((3, 20, 801, 9, 6, 1), (4, 16, 301, 41, 5, 2),
-                                          (3, 12, 45, 9, 4, 1)):
+                                          (3, 12, 45, 9, 4, 1), (4, 16, 801, 41, 5, 8),
+                                          (3, 12, 801, 9, 4, 4)):
         fac = _hybrid_on_card(rng, S, m, n, width, tail_lines, cuda_device)
         tt = tail_lines + 2              # the backward tail reaches into the head
         ln = m - tt + 1
@@ -1293,6 +1335,7 @@ def test_map_kernels_are_bit_identical_across_repeats(cuda_device):
         passes.append((fac, s_idx, b4))
     hybrid = sweeps_[0][0]
     hb4 = sweeps_[0][2]
+    hybrid8, hb8 = sweeps_[3][0], sweeps_[3][2]
     first = {}
     for i in range(100):
         k = i % len(sweeps_)
@@ -1304,14 +1347,16 @@ def test_map_kernels_are_bit_identical_across_repeats(cuda_device):
         start = 48 if i % 2 else 0
         y_c, t_c = tk.forward_substitution_cached(pf, ps, pb, pb[:, 3].contiguous(), start=start)
         y_h, t_h = tk.forward_substitution_cached(hybrid, hybrid.slab_ids, hb4)
-        outs = {("sweep", k): down + (u4,), ("cached", p, start): (y_c, t_c), ("ht",): (y_h, t_h)}
+        y_8, t_8 = tk.forward_substitution_cached(hybrid8, hybrid8.slab_ids, hb8)
+        outs = {("sweep", k): down + (u4,), ("cached", p, start): (y_c, t_c), ("ht",): (y_h, t_h),
+                ("ht8",): (y_8, t_8)}
         for key, got in outs.items():
             if key not in first:
                 first[key] = got
             else:
                 assert all(torch.equal(a, b) for a, b in zip(got, first[key])), (i, key)
     torch.cuda.synchronize()
-    assert len(first) == 3 + 6 + 1
+    assert len(first) == 5 + 6 + 2
 
 
 @pytest.mark.parametrize("shape", [(41, 41), (31, 45), (801, 801)])

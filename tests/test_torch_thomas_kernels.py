@@ -205,10 +205,12 @@ def _slice_rows(ld, split):
 @pytest.mark.parametrize("n,r,tt", [(801, 1, 22), (801, 2, 22), (1300, 2, 8), (45, 1, 5),
                                     (801, 8, 22)])
 def test_step_maps_get_a_slot_per_step_and_private_lines(n, r, tt):
-    """The cached forward pass and the fused sweeps (``run_flow``) take one
-    exchange slot per line step, so that no slot is written twice in a launch:
-    the launch's flags are fresh and its words fit the buffer; the dense
-    passes' ring of four slots then fits the same buffer.  The fused sweeps'
+    """The cached forward pass and the fused sweeps at r = 1, 2 (``run_flow``)
+    take one exchange slot per line step, so that no slot is written twice in
+    a launch: the launch's flags are fresh and its words fit the buffer; the
+    dense passes' ring of four slots then fits the same buffer.  The fused
+    sweeps at r = 4, 8 (the wide step, every step waiting on the one before)
+    take that ring too, and its rows buffer of four slots.  The fused sweeps'
     scratch holds every CTA's private y lines, ``tt`` lines of its slice's
     rows, with one CTA a tile and with two."""
     from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk
@@ -217,10 +219,16 @@ def test_step_maps_get_a_slot_per_step_and_private_lines(n, r, tt):
     fac = types.SimpleNamespace(n=n, ld=ld, m=70, n_slabs=16)    # the shapes they read
     steps = sk.steps(fac, tt)
     assert steps == 16 * (70 + tt)
+    slots = sk.exchange_slots(fac, tt, r)
+    assert slots == (steps if r <= 2 else tk.EXCHANGE_LINES)
     ex = tk.Exchange("cpu")
-    words, epoch = ex.take(1, r, ld, steps, slots=steps)
+    words, epoch = ex.take(1, r, ld, steps, slots=slots)
     assert epoch == 1 and not words.any()
-    assert words.numel() == 2 * steps * ld * tk.LINE_HALVES * 2 * r
+    assert words.numel() == 2 * slots * ld * tk.LINE_HALVES * 2 * r
+    rows = ex.wide_rows(1, r, ld, slots=slots)
+    assert (rows is None) == (r <= 2)
+    if rows is not None:
+        assert rows.numel() == slots * tk.WIDE_SLOT_BYTES * r * ld // 4
     ring, epoch = ex.take(1, r, ld, 70)             # a dense pass after it: same buffer
     assert ring is words and epoch == steps + 1
     tiles = ld // tk.LEAD_MULTIPLE
@@ -232,12 +240,13 @@ def test_step_maps_get_a_slot_per_step_and_private_lines(n, r, tt):
 @pytest.mark.parametrize("batch,tail", [(1, 0), (1, 22), (2, 0), (2, 22)])
 def test_banded_backward_takes_a_slot_per_line_step(batch, tail):
     """The backward pass on banded+tail pivots is a step map (``run_flow``),
-    which never writes a slot twice in a launch: it takes one exchange slot
-    per line step, in full (70 lines) and over the last ``tail`` lines, with
-    fresh flags and words that fit the buffer; a dense backward pass after it
-    takes the ring of four slots from the same buffer, and the next banded
-    pass fresh flags again.  The 801^2 solve's shapes: 44 head lines of width
-    201 and 26 dense ones (expanded zeros: only the shapes are read)."""
+    which never writes a slot twice in a launch: at r = 1, 2 it takes one
+    exchange slot per line step, in full (70 lines) and over the last
+    ``tail`` lines, with fresh flags and words that fit the buffer (at r = 4,
+    8, the wide step, the ring of four); a dense backward pass after it takes
+    the ring of four slots from the same buffer, and the next banded pass
+    fresh flags again.  The 801^2 solve's shapes: 44 head lines of width 201
+    and 26 dense ones (expanded zeros: only the shapes are read)."""
     S, m, n, half, head_lines, r = 16, 70, 801, 100, 44, 2
     ld = tk._round_up(n, tk.LEAD_MULTIPLE)
     tiles = ld // tk.LEAD_MULTIPLE
@@ -251,8 +260,9 @@ def test_banded_backward_takes_a_slot_per_line_step(batch, tail):
     fac = tk.BandedTailFactorization(head, head, planes, planes, bands, bands, n, half)
     dense = types.SimpleNamespace(n=n, ld=ld, m=m)
     m_eff = tail or m
-    assert tk.backward_slots(fac, m_eff) == m_eff
-    assert tk.backward_slots(dense, m) == tk.EXCHANGE_LINES
+    assert tk.backward_slots(fac, m_eff) == tk.backward_slots(fac, m_eff, r) == m_eff
+    assert tk.backward_slots(fac, m_eff, 4) == tk.backward_slots(fac, m_eff, 8) == tk.EXCHANGE_LINES
+    assert tk.backward_slots(dense, m) == tk.backward_slots(dense, m, 8) == tk.EXCHANGE_LINES
     ex = tk.Exchange("cpu")
     words, epoch = ex.take(batch, r, ld, m_eff, slots=tk.backward_slots(fac, m_eff))
     assert epoch == 1 and not words.any()

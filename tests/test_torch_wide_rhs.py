@@ -163,7 +163,7 @@ def test_eight_right_hand_sides_fit_the_solves_shapes(storage):
 def test_line_widths_follow_the_line():
     """A batch runs in launches of the widest width the line takes: the dense
     layout up to eight (padded: three as four, five as eight), halved on
-    lines too long for a width, the banded+tail layout two."""
+    lines too long for a width, the banded+tail layout likewise."""
     def fac(n, storage="bf16"):
         ld = tk._round_up(n, 8)
         planes = torch.zeros((), dtype=torch.bfloat16).expand(1, 1, ld // 8, ld, 8)
@@ -181,7 +181,7 @@ def test_line_widths_follow_the_line():
     tail = torch.zeros((), dtype=torch.bfloat16).expand(1, 1, 101, 808, 8)
     bands = torch.zeros(()).expand(1, 2, 2, 3, 808)
     banded = tk.BandedTailFactorization(head, head, tail, tail, bands, bands, 801, half)
-    assert [tk.line_width(banded, r) for r in (1, 2, 3, 8)] == [1, 2, 2, 2]
+    assert [tk.line_width(banded, r) for r in (1, 2, 3, 8)] == [1, 2, 4, 8]
     assert [tk.launch_width(r) for r in range(1, 9)] == [1, 2, 4, 4, 8, 8, 8, 8]
     assert tk.rhs_groups(11) == [(0, 8), (8, 11)] and tk.rhs_groups(5, 2) == [(0, 2), (2, 4),
                                                                               (4, 5)]

@@ -24,7 +24,7 @@ last publication of a line to a CTA's carry of the next) and the line period.
 longer than the code it holds, so the ablation, not the trace, gives the
 breakdown.)
 
-At r = 4 and 8 (the wide step, ``csrc/thomas_flow.cuh`` note "Wide
+At r = 4, 8 and 16 (the wide step, ``csrc/thomas_flow.cuh`` note "Wide
 batches") the masks of :data:`WIDE_CASES` take the new step's phases apart
 instead: the handoff (no flag wait: flags unchecked; no release fences: the
 producers' fences before their flags; no rows copy: neither flags nor the

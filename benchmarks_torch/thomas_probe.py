@@ -18,12 +18,12 @@ the variants of their step, in turns in one process:
 
 Then the cost of a launch: a one-line backward pass through the bare launcher.
 
-    python3 benchmarks_torch/thomas_probe.py [--banded] [--r 1,2,4,8]
+    python3 benchmarks_torch/thomas_probe.py [--banded] [--r 1,2,4,8,16]
                                              [--tree DIR] [--tag NAME] [--step-only]
 
 ``--banded`` runs the banded+tail cases only (rows 6-9).  ``--r`` gives the
-right-hand sides of a launch (default 1 and 2): at r = 4 and 8 (the wide
-step) the dense passes run at the shapes of rows 1-2 and 1i-2i, the backward
+right-hand sides of a launch (default 1 and 2): at r = 4, 8 and 16 (the
+wide step) the dense passes run at the shapes of rows 1-2 and 1i-2i, the backward
 pass on an inner slab in full and over its tail and the cached forward pass
 in full and resumed (rows 2, 3, 2i, 3i); the banded+tail rows 6-9 run at
 every r given (on a tree whose banded+tail launches take at most two
@@ -57,7 +57,7 @@ import torch
 ARGS = argparse.ArgumentParser(description=__doc__.split("\n")[0])
 ARGS.add_argument("--banded", action="store_true", help="the banded+tail rows 6-9 only")
 ARGS.add_argument("--r", default="1,2",
-                  help="right-hand sides a launch, comma-separated, of 1, 2, 4 and 8")
+                  help="right-hand sides a launch, comma-separated, of 1, 2, 4, 8 and 16")
 ARGS.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]),
                   help="root of the checkout whose package is timed")
 ARGS.add_argument("--tag", default="")

@@ -1,9 +1,10 @@
-"""Time the joint multi-direction solves of the port at R = 1, 2 and 8
+"""Time the joint multi-direction solves of the port at R = 1, 2, 8 and 16
 right-hand sides, and the dense line and plane passes of their paths at
-r = 1, 2 and 8 on the solves' own planes, for one checkout of the package.
+r = 1, 2, 8 and 16 on the solves' own planes, for one checkout of the package.
 
     python3 benchmarks_torch/wide_rhs_probe.py [--tree DIR] [--paths a,b,b8,c,d,e]
-                                               [--repeats 3] [--tag NAME] [--device-time]
+                                               [--widths 1,2,8,16] [--repeats 3]
+                                               [--tag NAME] [--device-time]
 
 ``--tree`` is the root of the checkout whose package is timed (default: the
 one that holds this script).  To compare a change with its parent on one
@@ -19,21 +20,24 @@ the rule: each sweep direction one launch of a fused sweep kernel), ``c`` the
 48^3 z-slab Gauss-Seidel sweep (``bump3d.build_problem(h=1/48, precond="gs",
 n_subdomains=4, npml=5, pivot_dtype="bf16_pallas")``) and ``d`` the 96^3 one
 on int8 y-planes (6 slabs, npml 8, ``"yblock_int8_pallas"``).  For each: the
-setup, then the solve of one plane wave, the joint solve of two and of eight
-(``plasma2d.solve_batched``; in 3D ``gmres_batched`` over the
+setup, then the solve of one plane wave and the joint solves of two, eight
+and sixteen (``--widths``; plane waves at angles 2 pi k / 16, those at 2 pi k
+/ 8 first; ``plasma2d.solve_batched``; in 3D ``gmres_batched`` over the
 preconditioner's ``apply_batch``), each after a warm-up, the median of
 ``--repeats`` by CUDA events, with ms per direction, iterations and the
-launches of each substitution wrapper in the R = 8 solve (``--device-time``:
+launches of each substitution wrapper in the solves of more than two
+(``--device-time``:
 also the device time of one more solve at each R, the sum of its kernels'
 times under torch.profiler, so that a solve whose wall time moves between
 runs can be told host from device); then the path's
-passes (one slab's lines or planes) at r = 1, 2 and 8 on the solve's own
+passes (one slab's lines or planes) at the same widths on the solve's own
 planes and right-hand sides (As b of the plane waves), the mean of 20
 back-to-back launches (path ``e``: the cached forward and backward passes on
 the hybrid layout, and the two fused sweep kernels over the 16 slabs).  On a
-tree whose launches take at most two right-hand sides the r = 8 figures are
-its groups of two.  Prints one JSON line per path, with the card's name and
-power limit.  Needs one CUDA card and nvcc.
+tree whose launches take fewer right-hand sides (``max_rhs`` in the output)
+the wider figures are its groups; the 3D plane passes take at most eight.
+Prints one JSON line per path, with the card's name and power limit.  Needs
+one CUDA card and nvcc.
 """
 
 import argparse
@@ -49,6 +53,7 @@ import torch
 ARGS = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
 ARGS.add_argument("--tree", default=str(Path(__file__).resolve().parents[1]))
 ARGS.add_argument("--paths", default="a,b,b8,c,d,e")
+ARGS.add_argument("--widths", default="1,2,8,16")
 ARGS.add_argument("--repeats", type=int, default=3)
 ARGS.add_argument("--tag", default="")
 ARGS.add_argument("--device-time", action="store_true")
@@ -62,9 +67,9 @@ from fast_solver_lippmann_schwinger_tpu_torch.sparse import plane_kernels as pk 
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import sweep_kernels as sk  # noqa: E402
 from fast_solver_lippmann_schwinger_tpu_torch.sparse import thomas_kernels as tk  # noqa: E402
 
-R = 8
-DIRECTIONS = tuple((float(np.cos(2 * np.pi * k / R)), float(np.sin(2 * np.pi * k / R)))
-                   for k in range(R))
+WIDTHS = tuple(int(w) for w in OPTS.widths.split(","))
+DIRECTIONS = tuple((float(np.cos(2 * np.pi * k / 16)), float(np.sin(2 * np.pi * k / 16)))
+                   for k in tuple(range(0, 16, 2)) + tuple(range(1, 16, 2)))
 SOLVE_2D = dict(rtol=1e-6, restart=20, maxiter=12)
 SOLVE_48 = dict(rtol=1e-6, restart=20, maxiter=16)
 SOLVE_96 = dict(rtol=1e-6, restart=20, maxiter=12)
@@ -123,18 +128,18 @@ def device_ms(fn) -> float:
                if e.device_type.name == "CUDA") / 1e3
 
 
-def joint_solves(solve, repeats: int) -> dict:
-    """ms, ms per direction and iterations of the joint solves of 1, 2 and 8
-    directions, and the launches of the 8-direction one."""
+def joint_solves(solve, repeats: int, widths=WIDTHS) -> dict:
+    """ms, ms per direction and iterations of the joint solves of ``widths``
+    directions, and the launches of those of more than two."""
     out = {}
-    for width in (1, 2, R):
+    for width in widths:
         before = launches()
         ms, runs, (_, info) = median_ms(lambda: solve(width), repeats)
         after = launches()
         its = info.n_iterations
         out[width] = dict(ms=ms, ms_runs=runs, ms_per_direction=ms / width,
                           iterations=[int(v) for v in its.reshape(-1)])
-        if width == R:
+        if width > 2:
             # the counters moved over warm-up and repeats: one solve's share
             out[width]["launches_per_solve"] = {
                 name: {k: (after[name][k] - before[name][k]) / (repeats + 1) for k in after[name]}
@@ -146,11 +151,11 @@ def joint_solves(solve, repeats: int) -> dict:
 
 def line_passes(fac, b_of, cached: bool) -> dict:
     """The dense passes of one slab (``b_of(r)``: its (1, m, 2r, ld) rows) at
-    r = 1, 2 and 8: ms a call."""
+    each width: ms a call."""
     slab = fac.n_slabs // 2
     s_idx = fac.slab_ids[slab : slab + 1]
     out = {}
-    for r in (1, 2, R):
+    for r in WIDTHS:
         b4 = b_of(r)
         if cached:
             y4, _ = tk.forward_substitution_cached(fac, s_idx, b4)
@@ -195,13 +200,13 @@ def path_2d(name: str, n_subdomains: int, pivot_dtype: str) -> dict:
 
 
 def fused_sweeps(problem) -> dict:
-    """The two fused sweep kernels over all slabs (one launch each at r = 1,
-    2 and 8 on this tree's kernels) on the solve's own rows: ms a call."""
+    """The two fused sweep kernels over all slabs (one launch each up to
+    this tree's widest width) on the solve's own rows: ms a call."""
     pc = problem.precond
     slabs = pc.slabs
     fac, tt, tables = slabs.pfac, slabs.trace_tail, slabs.sweep_tables
     out = {}
-    for r in (1, 2, R):
+    for r in WIDTHS:
         b = pc.a_s.matvec(plasma2d.incident_rhs(problem, np.asarray(DIRECTIONS[:r])).T.contiguous())
         b4 = tk._to_rows_b(fac, subdomain.partition_source(slabs, b))
         down = sk.sweep_down(fac, tables.meta, b4, tables.c01, tables.c10, tt)
@@ -230,16 +235,17 @@ def path_3d(name: str, kw: dict, pivot_dtype: str, solve_kw: dict) -> dict:
                                    device="cuda", **kw)
     setup_s = time.perf_counter() - t0
     pc = problem.precond
-    rhs = plane_waves(problem, R)
+    widths = tuple(w for w in WIDTHS if w <= pk.MAX_RHS)
+    rhs = plane_waves(problem, max(widths))
     solves = joint_solves(
         lambda w: gmres_batched(problem.op.apply, rhs[:w], preconditioner=pc.apply_batch,
-                                **solve_kw), OPTS.repeats)
+                                **solve_kw), OPTS.repeats, widths)
     slabs = pc.slabs
     s = slabs.n_subs // 2
     view = slabs.slab_facs[s]
     st, n, base = view.stack, view.lsten.shape[2], view.base
     passes = {}
-    for r in (1, 2, R):
+    for r in widths:
         b = pc.a_s.matvec(rhs[:r].T.contiguous())
         rhs_s = subdomain3d.partition_source_3d(slabs, b)[s]
         bl = rhs_s.reshape((slabs.l1_max, slabs.m, slabs.n, -1))

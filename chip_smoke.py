@@ -94,16 +94,18 @@ microseconds a line step and checks that repeated launches give the same
 bits.  The fused plane passes of the 3D paths (rows 11, 12, 11i, 12i) run the
 flag-handoff plane step (``csrc/plane_pass.cuh``): after the 48^3 and 96^3
 paths the script prints their microseconds a plane step, with the same check.
-Every line and plane kernel takes up to eight right-hand sides a launch:
-paths 1, 2, 5 and 6 also solve eight plane-wave directions (angles 2 pi k /
-8) jointly, the 48^3 z-layout sweep four and eight sources and path 4 eight,
-each through ``gmres_batched`` with one launch of r = 8 (or 4) a pass or
+Every line kernel takes up to sixteen right-hand sides a launch and every
+plane kernel up to eight: paths 1, 2, 5 and 6 also solve eight and sixteen
+plane-wave directions (angles 2 pi k / 8, then all sixteen at 2 pi k / 16)
+jointly, the 48^3 z-layout sweep four and eight sources and path 4 eight,
+each through ``gmres_batched`` with one launch of r = 16, 8 (or 4) a pass or
 sweep direction, against the same directions solved as joint pairs (the
 same counts, the solutions close, an apply of R directions making one
-direction's launches), with ms per direction at R = 1, 2 and 8; path 5 also
-runs one ``jacobi_sweep`` of the eight (the hybrid passes at one launch a
-pass); the kernels line holds every line, sweep, plane and plane-apply
-kernel at r = 3, 4 and 8 on those solves' pivots.
+direction's launches), with ms per direction at R = 1, 2, 8 and 16; path 5
+also runs one ``jacobi_sweep`` of the eight (the hybrid passes at one launch
+a pass); the kernels line holds every line and sweep kernel at r = 3, 4, 8,
+12 and 16 and every plane and plane-apply kernel at r = 3, 4 and 8 on those
+solves' pivots.
 Each phase prints one JSON line; any failed check raises, so the exit code is
 non-zero.  The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -879,16 +881,28 @@ def phase_sweep_kernel_times(problem, path_counts: dict, jacobi_counts: dict) ->
     return kernels
 
 # ---------------------------------------------------------------------------
-# Wide batches: up to eight right-hand sides in one launch (the joint solves
-# of paths 1, 2, 4 and 6)
+# Wide batches: up to eight right-hand sides in one launch of a plane kernel
+# and sixteen in one of a line kernel (the joint solves of paths 1, 2, 4, 5
+# and 6)
 # ---------------------------------------------------------------------------
 
 WIDE_R = 8
-# plane-wave directions at angles 2 pi k / 8 (examples/example_multisource2d.py;
-# in 3D in the x-y plane)
-WIDE_DIRECTIONS = tuple((float(np.cos(2 * np.pi * k / WIDE_R)),
-                         float(np.sin(2 * np.pi * k / WIDE_R))) for k in range(WIDE_R))
+LINE_R = 16                         # the widest launch of the line kernels
+# plane-wave directions at angles 2 pi k / 16 (examples/example_multisource2d.py;
+# in 3D in the x-y plane), those at 2 pi k / 8 first: the R = 8 solves take
+# the first eight, the R = 16 ones all sixteen
+WIDE_DIRECTIONS = tuple((float(np.cos(2 * np.pi * k / LINE_R)),
+                         float(np.sin(2 * np.pi * k / LINE_R)))
+                        for k in tuple(range(0, LINE_R, 2)) + tuple(range(1, LINE_R, 2)))
 WIDE_RS = (3, 4, 8)                 # the wide entries of the kernels line
+LINE_RS = WIDE_RS + (12, LINE_R)    # ... of the line kernels (r = 12 one launch of 16)
+LINE_STEP_RS = (4, 8, LINE_R)       # the launch widths of the wide step
+
+
+def wide_counts_of(wide: dict, r: int) -> dict:
+    """The launches of the joint solve whose launch width carries ``r``
+    right-hand sides (R = 8 up to eight, R = 16 above)."""
+    return wide[WIDE_R if r <= WIDE_R else LINE_R]
 # each direction's solution against its joint-pair solve: 1e-5, or twice the
 # spread between the path's own r = 1 and r = 2 solves of the first direction
 # where that is larger.  Launches of different widths sum in different orders
@@ -983,24 +997,26 @@ def phase_wide_solves(name: str, solve, rhs: torch.Tensor, apply_one, apply_batc
 
 def phase_wide_2d(problem, name: str, single: str, batched: str, path_kernels,
                   allowed=()) -> dict:
-    """Path 1's, 2's or 6's problem: ``plasma2d.solve_batched`` over the
-    eight wide directions (R = 8), beside the path's single and two-direction
+    """Path 1's, 2's, 5's or 6's problem: ``plasma2d.solve_batched`` over the
+    first eight wide directions (R = 8) and over all sixteen (R = 16, one
+    launch of sixteen a pass), beside the path's single and two-direction
     solves (``single``, ``batched``: their phases)."""
     rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS))
     ms = {1: SOLVE_RESULTS[single]["ms"], 2: SOLVE_RESULTS[batched]["ms"] / 2}
     return phase_wide_solves(
         name, lambda a, b: plasma2d.solve_batched(problem, WIDE_DIRECTIONS[a:b], **SOLVE_KW),
-        rhs, problem.precond.apply, problem.precond.apply_batch, (WIDE_R,), ms, path_kernels,
-        allowed)
+        rhs, problem.precond.apply, problem.precond.apply_batch, (WIDE_R, LINE_R), ms,
+        path_kernels, allowed)
 
 
-def wide_line_entries(problem, path: str, counts: dict) -> list:
-    """The dense line kernels of a 2D path at r = 3, 4 and 8 (one launch
-    each: r = 3 padded to four) on the solve's own planes and right-hand
-    sides (As b of the first r wide directions): on one slab the forward and
-    backward passes over its 801 lines; with 16 slabs the cached forward pass
-    and the backward pass on an inner slab's lines, in the path's storage.
-    ``counts`` are the launches of the path's R = 8 joint solve."""
+def wide_line_entries(problem, path: str, wide: dict) -> list:
+    """The dense line kernels of a 2D path at r = 3, 4, 8, 12 and 16 (one
+    launch each: r = 3 padded to four, 12 to sixteen) on the solve's own
+    planes and right-hand sides (As b of the first r wide directions): on one
+    slab the forward and backward passes over its 801 lines; with 16 slabs
+    the cached forward pass and the backward pass on an inner slab's lines,
+    in the path's storage.  ``wide`` holds the launches of the path's R = 8
+    and R = 16 joint solves (:func:`wide_counts_of`)."""
     pc = problem.precond
     slabs = pc.slabs
     fac = slabs.pfac
@@ -1013,7 +1029,8 @@ def wide_line_entries(problem, path: str, counts: dict) -> list:
     dense_re = tk.dense_planes(fac.cinv_t_re[slab]).to(torch.bfloat16)
     dense_im = tk.dense_planes(fac.cinv_t_im[slab]).to(torch.bfloat16)
     kernels = []
-    for r in WIDE_RS:
+    for r in LINE_RS:
+        counts = wide_counts_of(wide, r)
         rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS[:r]))   # (r, N)
         b = pc.a_s.matvec(rhs.T.contiguous())
         part = (b.reshape(1, m, n, r) if S == 1 else subdomain.partition_source(slabs, b))
@@ -1044,7 +1061,7 @@ def wide_line_entries(problem, path: str, counts: dict) -> list:
             if int8:
                 entry["library_call"] = LIBRARY_CALL_INT8
             kernels.append(entry)
-        if r in (4, 8):
+        if r in LINE_STEP_RS:
             # the wide step's line (PERF.md section 6), and no race in its
             # handoff: repeats of each pass give the same bits
             line_step_report(path, r, [(e, m) for e in kernels[-len(runs):]],
@@ -2214,26 +2231,27 @@ def phase_ht_kernel_times(problem, path_counts: dict, sweep_counts: dict) -> lis
 
 
 def phase_ht_wide(problem, sweep_counts: dict) -> list:
-    """Path 5 (e): the eight wide directions in one joint solve on
-    banded+tail pivots, every sweep direction one launch of eight (the fused
-    kernels only: no hybrid pass and no dense line kernel may launch), beside
-    the same directions as joint pairs; then one ``jacobi_sweep`` of the
-    eight on the same problem, the hybrid passes at one launch a pass (as
-    many launches as its r = 1 sweep); then rows 6–9 at r = 3, 4 and 8 on
-    the solve's own pivots and right-hand sides (As b of the first r wide
-    directions; r = 3 one launch of four): the fused sweep kernels over the
-    16 slabs with the R = 8 solve's launches, the hybrid passes on an inner
-    slab (full; the backward pass also over the last trace_tail lines) and,
-    at r = 8, on all 16 slabs as batch rows (``jacobi_sweep``'s shapes),
-    with the r = 8 ``jacobi_sweep``'s launches; repeats of each at r = 4 and
-    8 bit-identical."""
+    """Path 5 (e): the first eight wide directions in one joint solve on
+    banded+tail pivots, every sweep direction one launch of eight, and all
+    sixteen, one launch of sixteen (the fused kernels only: no hybrid pass
+    and no dense line kernel may launch), beside the same directions as joint
+    pairs; then one ``jacobi_sweep`` of the eight on the same problem, the
+    hybrid passes at one launch a pass (as many launches as its r = 1 sweep);
+    then rows 6–9 at r = 3, 4, 8, 12 and 16 on the solve's own pivots and
+    right-hand sides (As b of the first r wide directions; r = 3 one launch
+    of four, 12 of sixteen): the fused sweep kernels over the 16 slabs with
+    the joint solve's launches, the hybrid passes on an inner slab (full; the
+    backward pass also over the last trace_tail lines) and, at r = 8, on all
+    16 slabs as batch rows (``jacobi_sweep``'s shapes), with the r = 8
+    ``jacobi_sweep``'s launches; repeats of each at r = 4, 8 and 16
+    bit-identical."""
     wide = phase_wide_2d(problem, "ht_sweep_wide", "ht_solve", "ht_solve_batched", SWEEP_PAIR)
     pc = problem.precond
     slabs = pc.slabs
     fac = slabs.pfac
     S, m, n, ld, tt = fac.n_slabs, fac.m, fac.n, fac.ld, slabs.trace_tail
     rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS))
-    b8 = pc.a_s.matvec(rhs.T.contiguous())
+    b8 = pc.a_s.matvec(rhs[:WIDE_R].T.contiguous())
     jacobi = launches_of(lambda: sweeps.jacobi_sweep(slabs, b8))
     r1 = sweep_counts["jacobi_sweep"]
     emit("ht_jacobi_sweep_wide", r=WIDE_R, launches=jacobi, launches_r1=r1)
@@ -2249,7 +2267,8 @@ def phase_ht_wide(problem, sweep_counts: dict) -> list:
     tail_all = [(s, j) for s in range(S) for j in range(m - tt, m)]
     lines, tail_lines = range(m), range(m - tt, m)
     kernels = []
-    for r in WIDE_RS:
+    for r in LINE_RS:
+        counts = wide_counts_of(wide, r)
         b = pc.a_s.matvec(rhs[:r].T.contiguous())
         b4s = tk._to_rows_b(fac, subdomain.partition_source(slabs, b))
         shape = dict(S=S, m=m, n=n, ld=ld, width=fac.width, tail_start=fac.tail_start,
@@ -2260,13 +2279,13 @@ def phase_ht_wide(problem, sweep_counts: dict) -> list:
                                  y4s, t4s, unps, tt)
         path = "ht_sweep_wide"
         kernels += [
-            kernel_entry("sweep_down", r, path, wide[WIDE_R]["sweep_down"], down,
+            kernel_entry("sweep_down", r, path, counts["sweep_down"], down,
                          lambda: sk.sweep_down_plain(fac, tables.meta, b4s, tables.c01,
                                                      tables.c10, tt),
                          ht_sweep_bound(fac, r, tt, up=False),
                          library_ht_ms(fac, b4s[0, 0], all_lines + tail_all, dense_re, dense_im),
                          shape),
-            kernel_entry("sweep_up", r, path, wide[WIDE_R]["sweep_up"], up,
+            kernel_entry("sweep_up", r, path, counts["sweep_up"], up,
                          lambda: sk.sweep_up_plain(fac, tables.meta, b4s, tables.cnpn,
                                                    tables.cnnp, y4s, t4s, unps, tt),
                          ht_sweep_bound(fac, r, tt, up=True),
@@ -2318,7 +2337,7 @@ def phase_ht_wide(problem, sweep_counts: dict) -> list:
                              ht_pass_bound(fac, r, lines, 2, batch=S), lib_all,
                              dict(shape, B=S), variant="_all_slabs"),
             ]
-        if r in (4, 8):
+        if r in LINE_STEP_RS:
             # the wide step's line on this layout (PERF.md section 6), and no
             # race in its handoff: repeats of each kernel give the same bits
             line_step_report(path, r, steps, runs)
@@ -2509,8 +2528,9 @@ def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict,
     ``trace_tail``, r = 1 (``int8_sweep_solve``) and r = 2
     (``int8_sweep_solve_batched``); then the forward and backward passes at
     one batch row per slab (``jacobi_sweep``'s solves of all slabs), r = 1
-    and 2, and the forward pass there at r = 3, 4 and 8, its launches read
-    from ``int8_sweep_wide``'s R = 8 joint solve (``wide_counts``).  The
+    and 2, and the forward pass there at r = 3, 4, 8, 12 and 16, its launches
+    read from ``int8_sweep_wide``'s R = 8 and R = 16 joint solves
+    (``wide_counts``, by width: :func:`wide_counts_of`).  The
     library yardstick is the bf16 ``torch.matmul`` of the same rows with
     planes of the same shape."""
     pc = problem.precond
@@ -2591,14 +2611,15 @@ def phase_int8_kernel_times(problem, path_counts: dict, jacobi_counts: dict,
                          lambda: tk.backward_substitution_plain(fac, fac.slab_ids, yall),
                          bound, lib_all, shape_all),
         ]
-    # the forward pass at r = 3, 4 and 8 (one launch each) on the same 16
-    # batch rows, As b of the first r wide directions
-    for r in WIDE_RS:
+    # the forward pass at r = 3, 4, 8, 12 and 16 (one launch each) on the
+    # same 16 batch rows, As b of the first r wide directions
+    for r in LINE_RS:
         rhs = plasma2d.incident_rhs(problem, np.asarray(WIDE_DIRECTIONS[:r]))
         b4s = tk._to_rows_b(fac, subdomain.partition_source(slabs, pc.a_s.matvec(
             rhs.T.contiguous())))
         entry = kernel_entry(
-            "thomas_forward_int8", r, "int8_sweep_wide", wide_counts["thomas_forward_int8"],
+            "thomas_forward_int8", r, "int8_sweep_wide",
+            wide_counts_of(wide_counts, r)["thomas_forward_int8"],
             lambda: tk.forward_substitution(fac, fac.slab_ids, b4s),
             lambda: tk.forward_substitution_plain(fac, fac.slab_ids, b4s),
             int8_pass_bound(m, n, ld, r, stacks=2, batch=S),
@@ -4220,9 +4241,9 @@ def main() -> int:
     problem, counts = phase_solve(device, "solve", 1, False, pair, repeats=3)
     counts_batched = phase_solve_batched(problem, "solve_batched", pair, repeats=3)
     kernels = phase_kernel_times(problem, {1: counts, 2: counts_batched})
-    # (a) eight directions in one joint solve: r = 8 a launch
+    # (a) eight and sixteen directions in one joint solve: r = 8, 16 a launch
     wide = phase_wide_2d(problem, "wide_solve", "solve", "solve_batched", pair)
-    kernels += wide_line_entries(problem, "wide_solve", wide[WIDE_R])
+    kernels += wide_line_entries(problem, "wide_solve", wide)
     del problem
     torch.cuda.empty_cache()
 
@@ -4231,10 +4252,10 @@ def main() -> int:
     pair = ("thomas_forward_cached", "thomas_backward")
     problem, counts = phase_solve(device, "sweep_solve", 16, True, pair, repeats=3)
     counts_batched = phase_solve_batched(problem, "sweep_solve_batched", pair, repeats=3)
-    # (b) eight directions through the 16-slab double sweep
+    # (b) eight and sixteen directions through the 16-slab double sweep
     wide = phase_wide_2d(problem, "sweep_wide", "sweep_solve", "sweep_solve_batched", pair,
                          allowed=DENSE_2D)
-    kernels += wide_line_entries(problem, "sweep_wide", wide[WIDE_R])
+    kernels += wide_line_entries(problem, "sweep_wide", wide)
     jacobi_counts = phase_sweeps(problem)
     kernels += phase_sweep_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts)
     del problem
@@ -4289,8 +4310,9 @@ def main() -> int:
                                          absent=HT_PAIR + DENSE_2D)
     sweep_counts = phase_ht_sweeps(problem)
     kernels += phase_ht_kernel_times(problem, {1: counts, 2: counts_batched}, sweep_counts)
-    # (e) eight directions in one joint solve: each sweep direction one
-    # launch of eight; one jacobi_sweep of eight; rows 6-9 at r = 3, 4, 8
+    # (e) eight and sixteen directions in one joint solve: each sweep
+    # direction one launch of eight or sixteen; one jacobi_sweep of eight;
+    # rows 6-9 at r = 3, 4, 8, 12, 16
     kernels += phase_ht_wide(problem, sweep_counts)
     del problem
     torch.cuda.empty_cache()
@@ -4307,13 +4329,13 @@ def main() -> int:
                                   jax_iterations=JAX_INT8_ITERATIONS, absent=absent)
     counts_batched = phase_solve_batched(problem, "int8_sweep_solve_batched", pair, repeats=3,
                                          jax_iterations=JAX_INT8_ITERATIONS, absent=absent)
-    # (b) the same eight directions on the int8 line planes
+    # (b) the same eight and sixteen directions on the int8 line planes
     wide = phase_wide_2d(problem, "int8_sweep_wide", "int8_sweep_solve",
                          "int8_sweep_solve_batched", pair, allowed=INT8_2D)
-    kernels += wide_line_entries(problem, "int8_sweep_wide", wide[WIDE_R])
+    kernels += wide_line_entries(problem, "int8_sweep_wide", wide)
     jacobi_counts = phase_int8_sweeps(problem)
     kernels += phase_int8_kernel_times(problem, {1: counts, 2: counts_batched}, jacobi_counts,
-                                       wide[WIDE_R])
+                                       wide)
     del problem
     torch.cuda.empty_cache()
 

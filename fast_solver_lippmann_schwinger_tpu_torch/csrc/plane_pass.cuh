@@ -188,6 +188,12 @@ constexpr int kLanes = 8;              // output lanes per tile
 constexpr int kChunkBytes = 4096;      // bytes of one plane's tile per staged chunk
 constexpr int kStages = 4;             // chunks in the ring
 constexpr int kMaxRhs = 8;             // right-hand sides per launch: 1, 2, 4 or 8
+
+// The widths a plane launch is instantiated for: the line kernels' own
+// predicate (thomas::launch_width) also takes 16, which no plane kernel has
+__host__ __device__ constexpr bool launch_width(int r) {
+  return r == 1 || r == 2 || r == 4 || r == 8;
+}
 constexpr int kTaps = 9;
 constexpr int kScaleBlock = 128;       // input rows per int8 scale
 
@@ -1394,7 +1400,7 @@ inline cudaError_t launch_flow(const PassArgs& a, uint2* xchg, unsigned epoch,
 // bf16 (ld a multiple of 8)
 inline bool valid(int mn, int ld, int r, const float* scale) {
   const int mult = scale != nullptr ? kScaleBlock : kLanes;
-  return mn >= 1 && ld >= mn && ld % mult == 0 && thomas::launch_width(r);
+  return mn >= 1 && ld >= mn && ld % mult == 0 && launch_width(r);
 }
 
 inline bool valid_pass(int r, const PassArgs& a) {

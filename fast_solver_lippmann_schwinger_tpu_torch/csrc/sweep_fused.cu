@@ -49,7 +49,7 @@
 // CTA stored.  At slab 0 (down) and slab S-1 (up) the flags keep every trace
 // read away.
 //
-// Wide batches (r = 4, 8).  The same maps drive the wide step of
+// Wide batches (r = 4, 8, 16).  The same maps drive the wide step of
 // thomas_flow.cuh (run_wide; note "Wide batches on banded+tail pivots"),
 // which hands the next line's pre-added w over instead of t, on a ring of
 // four slots of the rows buffer `rows`: a trace is then a row that the
@@ -61,11 +61,11 @@
 // forward step, kept in its private lines of `scratch` (the tile's lanes read
 // back by the publisher, the slice's by a step without a carry).
 //
-// Limits.  r = 1, 2, 4 or 8; the slab count of the rows is the
+// Limits.  r = 1, 2, 4, 8 or 16; the slab count of the rows is the
 // factorization's (slab s uses planes s); 0 < tt < m; lines as the
 // flag-handoff step with the trace rows beside the carry at r <= 2 (one CTA a
 // tile up to n = 912 at r = 2, two up to 1840), as the dense passes' wide step
-// at r = 4, 8 (2560 and 1904 on two CTAs a tile; test_longest_line_fits).
+// at r = 4, 8, 16 (thomas_flow.cuh, note "Limits"; test_longest_line_fits).
 // Anything else is refused with cudaErrorInvalidValue before a launch.
 //
 // Bound: bytes, as chip_smoke.py:ht_sweep_bound computes it: each input read
@@ -100,11 +100,11 @@ struct SweepArgs {
   float* t;                // (S, m, 2r, ld) t stack: down writes, up reads line j0-1
   float* unp;              // (S, 2r, ld) bottom traces u_np: down writes (zero
                            //   beforehand), up reads
-  float* u;                // (S, m, 2r, ld) volume solution: up writes; r = 4, 8, down:
+  float* u;                // (S, m, 2r, ld) volume solution: up writes; r = 4, 8, 16, down:
                            //   (S, 2r, ld) bottom traces u_n, which it writes
   float* scratch;          // the CTAs' private y lines: tt lines of each CTA's slice
                            //   rows, ld / 8 x tt x 2r x (ld + 8) floats at most
-  float* rows;             // r = 4, 8: the wide step's rows, kSlots x wide_slot_bytes
+  float* rows;             // r = 4, 8, 16: the wide step's rows, kSlots x wide_slot_bytes
   int S, m, n, ld, tail_start, half, tt;
 };
 
@@ -263,10 +263,10 @@ extern "C" int sweep_fused(
     const uint16_t* hre, const uint16_t* him, const uint16_t* tre, const uint16_t* tim,
     const int* meta, const float* cpl_a, const float* cpl_b,
     float* y, float* t, float* unp, float* u, float* scratch,
-    float* rows,             // r = 4, 8: the wide step's rows (kSlots slots); else null
+    float* rows,             // r = 4, 8, 16: the wide step's rows (kSlots slots); else null
     int S, int m, int n, int ld, int r, int tail_start, int half, int tt,
     void* xchg,              // exchange words of 8 bytes, zeroed once: r = 1, 2 (S (m + tt),
-                             //   1, ld, 2r, 2), r = 4, 8 (kSlots, 1, ld, 2r, 2)
+                             //   1, ld, 2r, 2), r >= 4 (kSlots, 1, ld, 2r, 2)
     unsigned epoch,          // flag of the first step: steps take epoch .. + S (m + tt) - 1
     void* stream) {
   if (S < 1 || m < 2 || n < 1 || ld < n || ld % thomas::kLanes != 0 ||
@@ -304,7 +304,8 @@ extern "C" int sweep_fused(
   cudaError_t err = r == 1   ? sweep::launch<1>(up != 0, a, words, epoch, st)
                     : r == 2 ? sweep::launch<2>(up != 0, a, words, epoch, st)
                     : r == 4 ? sweep::launch<4>(up != 0, a, words, epoch, st)
-                             : sweep::launch<8>(up != 0, a, words, epoch, st);
+                    : r == 8 ? sweep::launch<8>(up != 0, a, words, epoch, st)
+                             : sweep::launch<16>(up != 0, a, words, epoch, st);
   if (err == cudaSuccess) err = cudaGetLastError();
   return (int)err;
 }

@@ -17,7 +17,7 @@
 // which describes the design (one cooperative launch per pass, one CTA a tile,
 // two on long lines, the carry handed from line to line through flagged words
 // of the exchange buffer `xchg`, bulk-copied stage buffers) and the limits
-// (r = 1, 2, 4 or 8 on either layout):
+// (r = 1, 2, 4, 8 or 16 on either layout):
 //   - dense planes run thomas::flow_kernel<R, true, S> (bf16, or int8 when
 //     scale is given) on a ring of four exchange slots; x of a line is written
 //     from the carry the next line reads;
@@ -26,7 +26,7 @@
 //     forward pass on the same layout: a head tile stages only the rows of its
 //     window that lie in [0, n) and waits only on the tiles that publish its
 //     carry lanes; one exchange slot per line step at r = 1, 2, the ring of
-//     four at r = 4, 8 (the wide step, whose tiles multiply only their
+//     four at r = 4, 8, 16 (the wide step, whose tiles multiply only their
 //     windows' k-steps); x is stored by the publisher of each tile.
 // One with -DTHOMAS_MAP_STEP=1 (benchmarks_torch/thomas_probe.py only) runs
 // dense planes through run_flow too, which measured slower than flow_kernel
@@ -52,9 +52,9 @@ extern "C" int thomas_backward(
     float* x,                // (B, m_eff, 2r, ld): lines m-m_eff .. m-1
     int batch, int m, int n, int ld, int r, int m_eff, int tail_start, int half,
     void* xchg,              // exchange words of 8 bytes, zeroed once: dense planes
-                             //   and r = 4, 8 (4, B, ld, 2r, 2), banded+tail at r = 1, 2
+                             //   and r >= 4 (4, B, ld, 2r, 2), banded+tail at r = 1, 2
                              //   (m_eff, B, ld, 2r, 2)
-    float* rows,             // r = 4, 8: 4 x B slots of the wide step's rows; else null
+    float* rows,             // r = 4, 8, 16: 4 x B slots of the wide step's rows; else null
     unsigned epoch,          // flag of line m-1 (lines take epoch .. + m_eff - 1)
     void* stream) {
   if (m_eff < 1 || m_eff > m) return (int)cudaErrorInvalidValue;

@@ -98,11 +98,12 @@
 // y as w is formed, x from the carry it reads one line later (the last
 // line's after the loop).
 //
-// Wide batches.  A launch takes r = 1, 2, 4 or 8 right-hand sides, on dense
-// planes and on banded+tail pivots, in the passes and in the fused sweeps (the
-// wrappers pad r = 3 to 4 and r = 5..7 to 8 with zero columns, and run more
-// than 8 as groups of 8), so that each pivot plane or head window is read once
-// for the whole batch, as the TPU kernels do for any r (pallas_thomas.py,
+// Wide batches.  A launch takes r = 1, 2, 4, 8 or 16 right-hand sides, on
+// dense planes and on banded+tail pivots, in the passes and in the fused
+// sweeps (the wrappers pad r = 3 to 4, r = 5..7 to 8 and r = 9..15 to 16 with
+// zero columns, and run more than 16 as groups of 16), so that each pivot
+// plane or head window is read once for the whole batch, as the TPU kernels
+// do for any r (pallas_thomas.py,
 // _solve_cached_multi, _fwd_ht / _bwd_ht; pallas_sweep.py, _sweep_fused).
 // r = 1 and 2 keep the step above.  Wider, a thread's 2r x 8 partial sums
 // would not fit its registers, so the products run on tensor cores, and the
@@ -214,16 +215,46 @@
 //     has them (101 x 22 x 16 x 816 floats, 116 MB at r = 8), and the up
 //     sweep reads the down sweep's y stack.
 //
-// Limits.  r = 1, 2, 4 or 8 on either layout and in the fused sweeps, and a
-// slice whose stage buffers fit in one CTA's shared memory and whose rows fit
-// flow_groups rows a thread: one CTA a tile up to n = 976 in bf16 at r = 2,
-// two up to n = 1968 in bf16 and 2448 in int8, the cached forward pass and the
-// backward pass on banded+tail pivots (step maps without the trace rows) too;
-// the fused sweeps at r <= 2, which keep the trace rows beside the carry, 912
-// and 1840; the wide step (w of the slice, its A fragments and the plane
-// runs; the fused sweeps add no shared memory to it) at r = 8 one CTA a tile
-// up to n = 912 in bf16 and 1064 in int8, two up to 1904 in bf16 and 2192 in
-// int8, at r = 4 up to 1352 and 1536 on one, 2560 on two
+// Sixteen right-hand sides.  Every line kernel takes r = 16 on the same wide
+// step, so that two launches of eight, each paying the step's latencies
+// (the flag wait, the rows' copy, the publisher's chain), become one.  The
+// 32 stacked rows are two m16 tiles of the r = 8 layout, right-hand sides
+// 0-7 and 8-15 (wide_mma.cuh), multiplied by one load of each B fragment
+// (ldmatrix or the int8 byte permute).  Parked A fragments would double to
+// 156 KB at n = 801 (three bf16 terms of 32 rows a k-step) and push a
+// block past the card's shared memory with one CTA a tile, and to 80 KB with
+// two, one block an SM: a grid of 66 sets for 101 tiles.  So at r = 16 no
+// fragment is parked: prep finishes w in place (edge terms added, columns
+// outside the slice zeroed, y and the private lines written) and each warp
+// splits its k-steps' w into the three terms again for each tile it
+// multiplies, one m16 tile at a time (on the main path a CTA takes one tile
+// of a line, so nothing is split twice; at 16 batch rows a CTA's tiles of a
+// line split their w once each).  A block then holds the warps' sums of 256
+// values, the publisher's operands (34 floats a lane: four tile lanes of a
+// right-hand side), w of the slice and two stage buffers, 206,144 bytes at
+// n = 801 with one CTA a tile: the r = 8 grid of 101 CTAs.  A stage buffer
+// is at least the edge terms that the rows' copy stages in it (32 rows of
+// two floats a tile, more than the int8 runs).  Each k-step's products run
+// on fresh sums in f32, three bf16 terms, as at r = 8.  Two things keep the
+// step within 128 registers a thread without spills (without them it
+// spills up to 308 bytes and an r = 16 pass takes up to 28 % longer;
+// PERF.md §6): the publisher parks its 34 next-step operands in shared
+// memory as soon as they are loaded (their loads overlap the flag wait)
+// instead of keeping them in registers over prep, and each of the poller's
+// 32 lanes issues the bulk copies of one of the 32 rows (after lane 0's
+// expect_tx) instead of one thread issuing all of them.
+//
+// Limits.  r = 1, 2, 4, 8 or 16 on either layout and in the fused sweeps, and
+// a slice whose stage buffers fit in one CTA's shared memory and whose rows
+// fit flow_groups rows a thread: one CTA a tile up to n = 976 in bf16 at
+// r = 2, two up to n = 1968 in bf16 and 2448 in int8, the cached forward pass
+// and the backward pass on banded+tail pivots (step maps without the trace
+// rows) too; the fused sweeps at r <= 2, which keep the trace rows beside the
+// carry, 912 and 1840; the wide step (w of the slice, its A fragments and the
+// plane runs; the fused sweeps add no shared memory to it) at r = 8 one CTA
+// a tile up to n = 912 in bf16 and 1064 in int8, two up to 1904 in bf16 and
+// 2192 in int8, at r = 4 up to 1352 and 1536 on one, 2560 on two, at r = 16
+// (no parked fragments) up to 952 on one and 2032 on two in either storage
 // (test_longest_line_fits; the Python mirror is thomas_kernels.line_fits).
 // Anything else is refused with cudaErrorInvalidValue before a launch, and a
 // cooperative launch that does not fit returns its error.
@@ -267,7 +298,7 @@ static_assert(kStages >= 2, "a stage being computed and one in flight at least")
 // -DTHOMAS_ABLATE=<mask> leaves single phases of a line step out: the carry's
 // load (with or without the band step), the products, the bulk copies of the
 // planes or of the band and right-hand rows, the flag wait (the words are
-// read once, flags unchecked); the wide step (r = 4, 8) reads the bits as
+// read once, flags unchecked); the wide step (r = 4, 8, 16) reads the bits as
 // its own phases: no band step (the producer's), no rows copy (neither
 // flags nor the copy of w's rows and edge terms), no flag wait, no
 // producer's loads of the next line's band and right-hand rows (the row
@@ -453,7 +484,7 @@ __host__ __device__ constexpr int slice_rows(int ld) {
   return kLanes * ((ld / kLanes + SPLIT - 1) / SPLIT);
 }
 
-// Wide batches (r = 4, 8; notes above)
+// Wide batches (r = 4, 8, 16; notes above)
 template <int R>
 __host__ __device__ constexpr bool wide() {
   return R > 2;
@@ -489,15 +520,16 @@ __host__ __device__ constexpr size_t flow_red_bytes() {
   return sizeof(float) * 2 * 2 * R * kLanes * red_pitch<SPLIT>();
 }
 
-// The wide step (r = 4, 8; note "Wide batches"): the k-steps (16 input rows)
-// of a slice of cmax rows, its first k-step aligned to 16 rows (a slice may
-// start 8 rows into one); the 16-byte groups of a lane's A fragments of a
-// k-step (three bf16 terms at r = 8, two at r = 4); the rows a stage buffer
-// holds of each plane part (the slice from its 16-row boundary to the end of
-// its last k-step)
+// The wide step (r = 4, 8, 16; note "Wide batches"): the k-steps (16 input
+// rows) of a slice of cmax rows, its first k-step aligned to 16 rows (a slice
+// may start 8 rows into one); the 16-byte groups of a lane's A fragments of a
+// k-step kept in shared memory (three bf16 terms at r = 8, two at r = 4; none
+// at r = 16, whose warps split w again for each tile: note "Sixteen right-hand
+// sides"); the rows a stage buffer holds of each plane part (the slice from
+// its 16-row boundary to the end of its last k-step)
 __host__ __device__ constexpr int wide_ksteps(int cmax) { return (cmax + 23) / 16; }
 template <int R>
-__host__ __device__ constexpr int wide_groups() { return R == 8 ? 3 : 2; }
+__host__ __device__ constexpr int wide_groups() { return R == 16 ? 0 : R == 8 ? 3 : 2; }
 __host__ __device__ constexpr int wide_stage_rows(int cmax) { return cmax + 24; }
 // stage buffers of the wide step: one item ahead (w of the slice takes the
 // shared memory of a third)
@@ -507,23 +539,40 @@ constexpr int kWideStages = 2;
 __host__ __device__ constexpr int wide_spitch(int cmax) {
   return (16 * wide_ksteps(cmax) + 31) / 32 * 32 + 8;
 }
-// the publisher's next-step operands, parked during an item: kPubFloats
-// floats a lane of one warp
-constexpr int kPubFloats = 20;
-__host__ __device__ constexpr size_t wide_pub_bytes() { return sizeof(float) * 32 * kPubFloats; }
+// the publisher's next-step operands, parked during an item: 2R + 2 floats
+// a lane of one warp (rows and band taps of R / 4 tile lanes, an edge band),
+// kept at 20 for r <= 8
+template <int R>
+__host__ __device__ constexpr int wide_pub_floats() { return R == 16 ? 34 : 20; }
+template <int R>
+__host__ __device__ constexpr size_t wide_pub_bytes() {
+  return sizeof(float) * 32 * wide_pub_floats<R>();
+}
+// One stage buffer of the wide step: the two plane runs and the scales; at
+// r = 16 at least the edge terms that the rows' copy stages in it ([2R][e_n]
+// [2] floats, e_n at most Tp with one CTA a tile, cmax / 8 + 4 with two),
+// which at r <= 8 always fit
+template <int R, Storage S, int SPLIT>
+__host__ __device__ constexpr size_t wide_stage_bytes(int ld) {
+  const size_t runs = (size_t)2 * wide_stage_rows(slice_rows<SPLIT>(ld)) *
+                          (S == Storage::kInt8 ? 8 : 16) +
+                      scale_buf_bytes<S>(ld);
+  const int T = ld / kLanes;
+  const size_t edges = (size_t)8 * 2 * R *
+                       (SPLIT == 1 ? T + (T & 1) : slice_rows<SPLIT>(ld) / kLanes + 4);
+  return R == 16 && edges > runs ? edges : runs;
+}
 
 // mbarriers (64 B), the warps' sums, the publisher's operands, w of the
 // slice (2R rows at wide_spitch), the A fragments of the slice's k-steps (a
-// lane's groups side by side: [k-step][group][lane] x 16 B), then the stage
-// ring (plane runs and scales only)
+// lane's groups side by side: [k-step][group][lane] x 16 B; none at r = 16),
+// then the stage ring (plane runs and scales only)
 template <int R, Storage S, int SPLIT>
 __host__ __device__ constexpr size_t wide_smem_bytes(int ld) {
-  return 64 + flow_red_bytes<R, SPLIT>() + wide_pub_bytes() +
+  return 64 + flow_red_bytes<R, SPLIT>() + wide_pub_bytes<R>() +
          sizeof(float) * 2 * R * (size_t)wide_spitch(slice_rows<SPLIT>(ld)) +
          (size_t)wide_ksteps(slice_rows<SPLIT>(ld)) * wide_groups<R>() * 32 * 16 +
-         kWideStages * ((size_t)2 * wide_stage_rows(slice_rows<SPLIT>(ld)) *
-                            (S == Storage::kInt8 ? 8 : 16) +
-                        scale_buf_bytes<S>(ld));
+         kWideStages * wide_stage_bytes<R, S, SPLIT>(ld);
 }
 
 template <int R, Storage S, int SPLIT>
@@ -550,7 +599,7 @@ struct FlowArgs {
   unsigned epoch;          // flag of the pass's first line step
 };
 
-// the wide step of a dense pass (r = 4, 8), below
+// the wide step of a dense pass (r = 4, 8, 16), below
 template <int R, bool kBackward, Storage S, int SPLIT>
 __device__ __forceinline__ void flow_wide(const FlowArgs& fa);
 
@@ -940,7 +989,7 @@ inline cudaError_t launch_flow(const FlowArgs& fa, cudaStream_t stream) {
                     : launch_flow_split<R, kBackward, S, 2>(fa, sms, stream);
 }
 
-// A dense pass (bf16, or int8 when scales are given) of r = 1, 2, 4 or 8
+// A dense pass (bf16, or int8 when scales are given) of r = 1, 2, 4, 8 or 16
 // right-hand sides on the flag-handoff step
 template <bool kBackward, Storage S>
 inline cudaError_t launch_flow_r(int r, const FlowArgs& fa, cudaStream_t stream) {
@@ -949,6 +998,7 @@ inline cudaError_t launch_flow_r(int r, const FlowArgs& fa, cudaStream_t stream)
     case 2: return launch_flow<2, kBackward, S>(fa, stream);
     case 4: return launch_flow<4, kBackward, S>(fa, stream);
     case 8: return launch_flow<8, kBackward, S>(fa, stream);
+    case 16: return launch_flow<16, kBackward, S>(fa, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1034,7 +1084,7 @@ struct FlowTile {
   float* kept;             // (2R, ld): w of the tile's own lanes, or null
   const float* cpl;        // (6, ld) injection band, or null ...
   int trace_step;          //   ... times the words of this step (r <= 2) ...
-  const float* trace_row;  //   ... or this (2R, ld) row, an out row of that step (r = 4, 8) ...
+  const float* trace_row;  //   ... or this (2R, ld) row, an out row of that step (r >= 4) ...
   const float* trace_sub;  //   ... less this row written before the launch (or null)
   float sign;              //   added (+1) or subtracted (-1)
   float* out;              // (2R, ld): t of the tile's lanes, or null
@@ -1552,7 +1602,7 @@ struct PassMap {
 };
 
 // ---------------------------------------------------------------------------
-// The wide step (r = 4, 8): notes "Wide batches" and "Wide batches on
+// The wide step (r = 4, 8, 16): notes "Wide batches" and "Wide batches on
 // banded+tail pivots" at the top of this file.  The dense passes
 // (flow_kernel, through PassMap), the cached forward pass (cached_kernel,
 // CachedItems), the backward pass on banded+tail pivots (PassMap) and the
@@ -1647,13 +1697,14 @@ __device__ __forceinline__ void bar_sync1() {
 
 template <int R, Storage S, int SPLIT, bool kInject, class Items>
 __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& fl) {
-  static_assert(R == 4 || R == 8, "the wide step: r = 4 or 8");
+  static_assert(R == 4 || R == 8 || R == 16, "the wide step: r = 4, 8 or 16");
   constexpr bool kWindows = Items::kWindows;    // head windows: each tile its own input rows
   constexpr int kThreads = flow_threads<SPLIT>();
   constexpr int kWarps = kThreads / 32;
   constexpr int V = 2 * R * kLanes;             // output values of a tile
   constexpr int NG = wide_groups<R>();          // 16-byte fragment groups a lane and k-step
-  constexpr int NQ = R == 8 ? 4 : 2;            // f32 pairs of a lane's A fragments
+  constexpr int NQ = R == 4 ? 2 : 4;            // f32 pairs of a lane's A fragments (of a
+                                                //   tile of 16 rows at r = 16)
   constexpr int kRowBytes = S == Storage::kInt8 ? 8 : 16;
   constexpr int kPitch = red_pitch<SPLIT>();
   constexpr int kPoller = kWarps - 3, kStager = kWarps - 2, kPublisher = kWarps - 1;
@@ -1694,14 +1745,14 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
   uint64_t* sbar = full + kWideStages;                                // the w rows' copies
   float* red = reinterpret_cast<float*>(smem + 64);                   // warps' sums
   float* pub = red + flow_red_bytes<R, SPLIT>() / sizeof(float);      // [kPubFloats][32]
-  float* stg = pub + wide_pub_bytes() / sizeof(float);                // [2R][spitch]: w
+  float* stg = pub + wide_pub_bytes<R>() / sizeof(float);             // [2R][spitch]: w
   const int spitch = wide_spitch(cmax);
   uint4* frags = reinterpret_cast<uint4*>(stg + (size_t)2 * R * spitch);
   unsigned char* ring = reinterpret_cast<unsigned char*>(frags) +
                         (size_t)wide_ksteps(cmax) * NG * 32 * 16;
   const size_t pbytes = (size_t)wide_stage_rows(cmax) * kRowBytes;
   const unsigned nsc = (unsigned)scale_buf_bytes<S>(ld);
-  const size_t stage_bytes = 2 * pbytes + nsc;
+  const size_t stage_bytes = wide_stage_bytes<R, S, SPLIT>(ld);
   // the sweeps' private y lines of this CTA: line L, stacked row rr, column
   // c at priv[(L 2R + rr) cmax + c - i0] (columns of the slice)
   float* const priv = kInject && fl.priv != nullptr
@@ -1818,27 +1869,34 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
           wait_flag_words<kPer>(ptr, want);
         }
         __syncwarp();
-        if (from_step && lane == 0) {
+        // one lane issues the copies; at r = 16 each lane those of one of
+        // the 32 rows, after lane 0's expect_tx
+        constexpr int kRowsALane = R == 16 ? 1 : 2 * R;
+        if (from_step && (R == 16 || lane == 0)) {
           // the rows the acquires made visible, for the async proxy's copies:
           // the k-steps' w rows (each CTA starting at its own row) and the
           // edge terms of their tiles
           fence_proxy_async_global();
           const unsigned bytes = 4u * ncols;
           const unsigned ebytes = 8u * e_n;
-          mbar_expect_tx(sbar, ncols > 0 ? 2 * R * bytes + (edges ? 2 * R * ebytes : 0u) : 0u);
+          if (lane == 0)
+            mbar_expect_tx(sbar, ncols > 0 ? 2 * R * bytes + (edges ? 2 * R * ebytes : 0u) : 0u);
+          if constexpr (R == 16) __syncwarp();
+          const int first_row = R == 16 ? lane : 0;
           if (ncols > 0) {
-            for (int i = 0; i < 2 * R; ++i) {
+            for (int i = first_row; i < first_row + kRowsALane; ++i) {
               const int rr = (i + (int)blockIdx.x) % (2 * R);
               bulk_copy(stg + rr * spitch + (c0 - sb0), sl.p(rr, c0), bytes, sbar);
             }
           }
           if (edges) {
             float* ed = const_cast<float*>(estg);
-            if (SPLIT == 1 && e_lo == 0 && e_n == Tp)
-              bulk_copy(ed, sl.e(0, 0), 2 * R * ebytes, sbar);
-            else
-              for (int rr = 0; rr < 2 * R; ++rr)
+            if (SPLIT == 1 && e_lo == 0 && e_n == Tp) {
+              if (lane == 0) bulk_copy(ed, sl.e(0, 0), 2 * R * ebytes, sbar);
+            } else {
+              for (int rr = first_row; rr < first_row + kRowsALane; ++rr)
                 bulk_copy(ed + rr * e_n * 2, sl.e(rr, e_lo), ebytes, sbar);
+            }
           }
         }
       }
@@ -1898,42 +1956,60 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
       }
     }
     __syncthreads();                    // w is in stg
+    // columns c, c + 1 of stacked row rr of w: with the neighbouring tiles'
+    // edge terms, zero outside the slice; y (w) of the lanes of the CTA's
+    // tiles into ft.kept, w of the slice into the private line ft.keep_priv
+    auto w_pair = [&](int rr, int c) {
+      float2 w = *reinterpret_cast<const float2*>(stg + rr * spitch + c - sb0);
+      const bool nx = c >= i0 && c < iend, ny = nx && c + 1 < iend;
+      // the neighbouring tile's edge term: E+ of the tile before a tile's
+      // first lane (t = 0), E- of the tile after its last (t = 3)
+      if (edges && t4 == 0 && nx && c >= kLanes)
+        w.x += estg[(rr * e_n + (c >> 3) - 1 - e_lo) * 2 + 1];
+      if (edges && t4 == 3 && ny && (c >> 3) + 1 < T)
+        w.y += estg[(rr * e_n + (c >> 3) + 1 - e_lo) * 2];
+      const float2 v = make_float2(nx ? w.x : 0.f, ny ? w.y : 0.f);
+      if (ft.kept != nullptr && !kNoOutputs && c >= i0 && c < ilim && (c >> 3) >= ta &&
+          (c >> 3) < tb) {
+        ft.kept[(size_t)rr * ld + c] = v.x;
+        ft.kept[(size_t)rr * ld + c + 1] = v.y;
+      }
+      if (kInject && priv != nullptr && ft.keep_priv >= 0 && !kNoOutputs && nx) {
+        float* pr = priv + ((size_t)ft.keep_priv * 2 * R + rr) * cmax + c - i0;
+        pr[0] = v.x;
+        if (ny) pr[1] = v.y;
+      }
+      return v;
+    };
 #pragma unroll 2
     for (int i = first_kstep(kc0); i < kc1; i += kWarps) {
       const int kb = 16 * (ku0 + i);
-      float2 vq[4];
+      if constexpr (R == 16) {
+        // w stays in stg, finished in place: the products split it for each
+        // tile (pair q of the lane: m16 tile q >> 2, where the products read it)
 #pragma unroll
-      for (int q = 0; q < 4; ++q) vq[q] = make_float2(0.f, 0.f);
+        for (int q = 0; q < 2 * NQ; ++q) {
+          const int rr = (q & 1 ? R : 0) + 8 * (q >> 2) + g;
+          const int c = kb + 2 * t4 + 8 * ((q >> 1) & 1);
+          *reinterpret_cast<float2*>(stg + rr * spitch + c - sb0) = w_pair(rr, c);
+        }
+      } else {
+        float2 vq[4];
 #pragma unroll
-      for (int q = 0; q < NQ; ++q) {
-        const int rr = R == 8 && (q & 1) ? 8 + g : g;
-        const int c = kb + 2 * t4 + 8 * (R == 8 ? q >> 1 : q);
-        float2 w = *reinterpret_cast<const float2*>(stg + rr * spitch + c - sb0);
-        const bool nx = c >= i0 && c < iend, ny = nx && c + 1 < iend;
-        // the neighbouring tile's edge term: E+ of the tile before a tile's
-        // first lane (t = 0), E- of the tile after its last (t = 3)
-        if (edges && t4 == 0 && nx && c >= kLanes)
-          w.x += estg[(rr * e_n + (c >> 3) - 1 - e_lo) * 2 + 1];
-        if (edges && t4 == 3 && ny && (c >> 3) + 1 < T)
-          w.y += estg[(rr * e_n + (c >> 3) + 1 - e_lo) * 2];
-        vq[q] = make_float2(nx ? w.x : 0.f, ny ? w.y : 0.f);
-        if (ft.kept != nullptr && !kNoOutputs && c >= i0 && c < ilim && (c >> 3) >= ta &&
-            (c >> 3) < tb) {
-          ft.kept[(size_t)rr * ld + c] = vq[q].x;
-          ft.kept[(size_t)rr * ld + c + 1] = vq[q].y;
+        for (int q = 0; q < 4; ++q) vq[q] = make_float2(0.f, 0.f);
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int rr = R == 8 && (q & 1) ? 8 + g : g;
+          const int c = kb + 2 * t4 + 8 * (R == 8 ? q >> 1 : q);
+          vq[q] = w_pair(rr, c);
         }
-        if (kInject && priv != nullptr && ft.keep_priv >= 0 && !kNoOutputs && nx) {
-          float* pr = priv + ((size_t)ft.keep_priv * 2 * R + rr) * cmax + c - i0;
-          pr[0] = vq[q].x;
-          if (ny) pr[1] = vq[q].y;
-        }
+        unsigned a[3][4];
+        wide::a_frags_of<R>(vq, a);
+        uint4* fr = frags + (size_t)i * NG * 32 + lane;
+#pragma unroll
+        for (int grp = 0; grp < NG; ++grp)
+          fr[grp * 32] = make_uint4(a[grp][0], a[grp][1], a[grp][2], a[grp][3]);
       }
-      unsigned a[3][4];
-      wide::a_frags_of<R>(vq, a);
-      uint4* fr = frags + (size_t)i * NG * 32 + lane;
-#pragma unroll
-      for (int grp = 0; grp < NG; ++grp)
-        fr[grp * 32] = make_uint4(a[grp][0], a[grp][1], a[grp][2], a[grp][3]);
     }
     if (edges) bar_sync1<kThreads>();   // every warp is past the edge terms' buffer
   };
@@ -1942,11 +2018,12 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
   // and tile lanes li0 .. li0 + TL - 1, their right-hand rows and band rows,
   // and the band of the edge lane it serves (o0 - 1 or o0 + 8); zero where
   // the item has no next step.  Loaded at the item's start, parked in pub
-  // once the warp's own w is in (pub[f * 32 + lane]: f = c TL + i rhs, 2 TL
-  // + (c 3 + d) TL + i band, 8 TL + c edge band), read after the products.
+  // once the warp's own w is in (at r = 16 at once; pub[f * 32 + lane]: f =
+  // c TL + i rhs, 2 TL + (c 3 + d) TL + i band, 8 TL + c edge band), read
+  // after the products.
   const int pp = lane / LPR, li0 = (lane % LPR) * TL;
   constexpr int kPub = 8 * TL + 2;
-  static_assert(kPub <= kPubFloats, "the publisher's operands fit pub");
+  static_assert(kPub <= wide_pub_floats<R>(), "the publisher's operands fit pub");
 
   if (tid == 0) {
     for (int i = 0; i <= kWideStages; ++i) mbar_init(full + i, 1);
@@ -2004,6 +2081,16 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
         }
       }
     }
+    // r = 16: parked at once, so that no operand stays in flight over prep
+    // (34 registers a lane); its loads overlap the flag wait
+    constexpr bool kParkEarly = R == 16;
+    auto park = [&] {
+      if (warp == kPublisher) {
+#pragma unroll
+        for (int f = 0; f < kPub; ++f) pub[f * 32 + lane] = pv[f];
+      }
+    };
+    if (kParkEarly) park();
     mbar_wait(full + q % kWideStages, (unsigned)(q / kWideStages) & 1u);
     trace_point(q, 1);
     // w of the item's step and batch row, unless the item before had them
@@ -2016,10 +2103,7 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
     // the stage that item q - 1 used is free (every warp is past its
     // products and the edge terms prep staged in it): it takes item q + 1
     if (tid == kStager * 32 && q + 1 < nitem) stage(q + 1);
-    if (warp == kPublisher) {
-#pragma unroll
-      for (int f = 0; f < kPub; ++f) pub[f * 32 + lane] = pv[f];
-    }
+    if (!kParkEarly) park();
 
     // the products of this warp's k-steps, each on fresh sums (wide_mma.cuh):
     // on a head window those of its rows, the rows outside it masked
@@ -2027,21 +2111,10 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
     window(ft.cols, wlo, whi);
     const int ka = kWindows ? (whi > wlo ? wlo / 16 - ku0 : 0) : 0;
     const int kz = kWindows ? (whi > wlo ? (whi + 15) / 16 - ku0 : 0) : nks;
-    float z1[4] = {0.f, 0.f, 0.f, 0.f}, z2[4] = {0.f, 0.f, 0.f, 0.f};
     const unsigned char* st = ring + (size_t)(q % kWideStages) * stage_bytes;
-    for (int i = first_kstep(ka); i < kz && !kNoProducts; i += kWarps) {
-      unsigned a[3][4];
-      const uint4* fr = frags + (size_t)i * NG * 32 + lane;
-#pragma unroll
-      for (int grp = 0; grp < NG; ++grp) {
-        const uint4 u = fr[grp * 32];
-        a[grp][0] = u.x;
-        a[grp][1] = u.y;
-        a[grp][2] = u.z;
-        a[grp][3] = u.w;
-      }
+    // the B fragments of k-step i from the staged run
+    auto b_frags = [&](int i, unsigned (&bf)[4]) {
       const int k0 = 16 * (ku0 + i) - sb0;        // the k-step's first staged row
-      unsigned bf[4];
       if constexpr (S == Storage::kBf16) {
         wide::ldsm_b_bf16(st, (int)pbytes, k0, lane, bf);
         if constexpr (kWindows) {
@@ -2064,8 +2137,11 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
       } else {
         wide::lds_b_int8(st, (int)pbytes, k0, g, t4, bf);
       }
-      float e1[4], e2[4];
-      wide::plane_kstep<R>(a, bf, e1, e2);
+    };
+    // a k-step's products added to the running sums (int8: scaled by the
+    // k-step's block)
+    auto add_sums = [&](int i, const float (&e1)[4], const float (&e2)[4], float (&z1)[4],
+                        float (&z2)[4]) {
       if constexpr (S == Storage::kInt8) {
         // the scales of the k-step's block, output lanes 2t, 2t + 1
         const float* sb = reinterpret_cast<const float*>(st + 2 * pbytes) +
@@ -2073,21 +2149,66 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
         const float2 sre = *reinterpret_cast<const float2*>(sb + 2 * t4);
         const float2 sim = *reinterpret_cast<const float2*>(sb + kLanes + 2 * t4);
 #pragma unroll
-        for (int qq = 0; qq < (R == 8 ? 4 : 2); ++qq) {
+        for (int qq = 0; qq < NQ; ++qq) {
           z1[qq] = fmaf(qq & 1 ? sre.y : sre.x, e1[qq], z1[qq]);
           z2[qq] = fmaf(qq & 1 ? sim.y : sim.x, e2[qq], z2[qq]);
         }
       } else {
 #pragma unroll
-        for (int qq = 0; qq < (R == 8 ? 4 : 2); ++qq) {
+        for (int qq = 0; qq < NQ; ++qq) {
           z1[qq] += e1[qq];
           z2[qq] += e2[qq];
         }
       }
-    }
-    trace_point(q, 3);
+    };
     float* part = red + (q & 1) * V * kPitch;
-    wide::plane_store_part<R>(z1, z2, part + warp, kPitch);
+    if constexpr (R == 16) {
+      // two m16 tiles of the stacked rows (right-hand sides 0-7 and 8-15),
+      // each as at r = 8, on one load of the B fragments; w split here, for
+      // this tile (note "Sixteen right-hand sides")
+      float z1[2][4] = {}, z2[2][4] = {};
+      for (int i = first_kstep(ka); i < kz && !kNoProducts; i += kWarps) {
+        const int kb = 16 * (ku0 + i) - sb0;
+        unsigned bf[4];
+        b_frags(i, bf);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float2 v[4];
+#pragma unroll
+          for (int qq = 0; qq < 4; ++qq)
+            v[qq] = *reinterpret_cast<const float2*>(
+                stg + ((qq & 1 ? R : 0) + 8 * h + g) * spitch + kb + 2 * t4 + 8 * (qq >> 1));
+          unsigned a[3][4];
+          wide::a_frags_of<8>(v, a);
+          float e1[4], e2[4];
+          wide::plane_kstep<8>(a, bf, e1, e2);
+          add_sums(i, e1, e2, z1[h], z2[h]);
+        }
+      }
+      trace_point(q, 3);
+      wide::plane_store_part16(z1, z2, part + warp, kPitch);
+    } else {
+      float z1[4] = {0.f, 0.f, 0.f, 0.f}, z2[4] = {0.f, 0.f, 0.f, 0.f};
+      for (int i = first_kstep(ka); i < kz && !kNoProducts; i += kWarps) {
+        unsigned a[3][4];
+        const uint4* fr = frags + (size_t)i * NG * 32 + lane;
+#pragma unroll
+        for (int grp = 0; grp < NG; ++grp) {
+          const uint4 u = fr[grp * 32];
+          a[grp][0] = u.x;
+          a[grp][1] = u.y;
+          a[grp][2] = u.z;
+          a[grp][3] = u.w;
+        }
+        unsigned bf[4];
+        b_frags(i, bf);
+        float e1[4], e2[4];
+        wide::plane_kstep<R>(a, bf, e1, e2);
+        add_sums(i, e1, e2, z1, z2);
+      }
+      trace_point(q, 3);
+      wide::plane_store_part<R>(z1, z2, part + warp, kPitch);
+    }
     __syncthreads();
     trace_point(q, 4);
     // the tile's sums, value v by thread v of the last V / 32 warps, in warp
@@ -2294,7 +2415,7 @@ __device__ __forceinline__ void run_wide(const Items& items, const FlowLaunch& f
   }
 }
 
-// A step map: the wide step at r = 4, 8, else the narrow one
+// A step map: the wide step at r = 4, 8, 16, else the narrow one
 template <int R, Storage S, int SPLIT, bool kInject, class Items>
 __device__ __forceinline__ void run_flow(const Items& items, const FlowLaunch& fl) {
   if constexpr (wide<R>())
@@ -2333,8 +2454,8 @@ inline cudaError_t launch_pass_map(const PassArgs& a, uint2* xchg, unsigned epoc
 
 // A pass through run_flow: on banded+tail pivots (kBanded: bf16, 0 <
 // tail_start < m, half >= 0, no scales), else on dense planes (bf16, or int8
-// when scales are given); r = 1, 2, 4 or 8.  The exchange needs one slot per
-// line (count slots) at r <= 2 on banded+tail pivots, else kSlots
+// when scales are given); r = 1, 2, 4, 8 or 16.  The exchange needs one slot
+// per line (count slots) at r <= 2 on banded+tail pivots, else kSlots
 template <bool kBackward, Storage S, bool kBanded>
 inline cudaError_t launch_pass_map_r(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                                      cudaStream_t stream) {
@@ -2343,6 +2464,7 @@ inline cudaError_t launch_pass_map_r(int r, const PassArgs& a, uint2* xchg, unsi
     case 2: return launch_pass_map<2, kBackward, S, kBanded>(a, xchg, epoch, stream);
     case 4: return launch_pass_map<4, kBackward, S, kBanded>(a, xchg, epoch, stream);
     case 8: return launch_pass_map<8, kBackward, S, kBanded>(a, xchg, epoch, stream);
+    case 16: return launch_pass_map<16, kBackward, S, kBanded>(a, xchg, epoch, stream);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,7 @@
 // forward instantiation of the flag-handoff line step in thomas_flow.cuh,
 // which also describes the design (one cooperative launch per pass, one CTA
 // a tile, two on long lines, the carry handed from line to line through
-// flagged words of the exchange buffer `xchg`, bulk-copied stage buffers), the limits (r = 1, 2, 4 or 8) and the bound.
+// flagged words of the exchange buffer `xchg`, bulk-copied stage buffers), the limits (r = 1, 2, 4, 8 or 16) and the bound.
 // With scales the planes are int8 (the TPU kernel's nb > 1 branch of
 // _scaled_dots) and the kernel is flow_kernel<R, false, Storage::kInt8>.
 // The carry t is never stored but in the exchange buffer.  A build with
@@ -34,7 +34,7 @@ extern "C" int thomas_forward(
     const int* s_idx,        // (B,)
     float* y,                // (B, m, 2r, ld); lines < start are not written
     void* xchg,              // (4, B, ld, 2r, 2) exchange words of 8 bytes, zeroed once
-    float* rows,             // r = 4, 8: 4 x B slots of the wide step's rows; else null
+    float* rows,             // r = 4, 8, 16: 4 x B slots of the wide step's rows; else null
     int batch, int m, int n, int ld, int r, int start,
     unsigned epoch,          // flag of line `start`: lines take epoch .. epoch + m - start - 1
     void* stream) {

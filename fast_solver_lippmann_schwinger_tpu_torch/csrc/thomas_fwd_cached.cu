@@ -35,13 +35,13 @@
 // no flag; each line writes y (w) and t of its tile's lanes into the stacks.
 // A head tile stages only the rows of its window that lie in [0, n), one bulk
 // copy per plane, and waits only on the tiles that publish their carry lanes.
-// At r = 4 and 8 the map runs the wide step of thomas_flow.cuh (run_wide,
+// At r = 4, 8 and 16 the map runs the wide step of thomas_flow.cuh (run_wide,
 // note "Wide batches"), the one the dense passes run: line `start`'s w from
 // t_init, each later line's from the rows its producers handed over; on head
 // windows a tile multiplies only its window's k-steps (note "Wide batches on
-// banded+tail pivots").  Limits: r = 1, 2, 4 or 8 on either layout, and the
-// lines of thomas_flow.cuh (n up to 1968 in bf16 and 2448 in int8 at r = 2,
-// 1904 and 2192 at r = 8: test_longest_line_fits).
+// banded+tail pivots"); at r = 16 as note "Sixteen right-hand sides" says.
+// Limits: r = 1, 2, 4, 8 or 16 on either layout, and the lines of
+// thomas_flow.cuh (its note "Limits"; test_longest_line_fits).
 //
 // Bound: bytes.  Per line two dense planes, 2 x ld^2 x 2 B (int8: 1 B and the
 // scales), or two head windows, 2 x ld x (8 + 2 half) x 2 B less the rows
@@ -100,7 +100,7 @@ inline cudaError_t launch_cached(const PassArgs& a, uint2* xchg, unsigned epoch,
       a.batch * (a.ld / kLanes), stream);
 }
 
-// r = 1, 2, 4 or 8 on either layout
+// r = 1, 2, 4, 8 or 16 on either layout
 template <bool kBanded, Storage S>
 inline cudaError_t run_cached(int r, const PassArgs& a, uint2* xchg, unsigned epoch,
                               cudaStream_t stream) {
@@ -109,6 +109,7 @@ inline cudaError_t run_cached(int r, const PassArgs& a, uint2* xchg, unsigned ep
     case 2: return launch_cached<2, kBanded, S>(a, xchg, epoch, stream);
     case 4: return launch_cached<4, kBanded, S>(a, xchg, epoch, stream);
     case 8: return launch_cached<8, kBanded, S>(a, xchg, epoch, stream);
+    case 16: return launch_cached<16, kBanded, S>(a, xchg, epoch, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -129,7 +130,7 @@ extern "C" int thomas_forward_cached(
     float* t,                // (B, m, 2r, ld); lines < start are not touched
     int batch, int m, int n, int ld, int r, int start, int tail_start, int half,
     void* xchg,              // (m - start, B, ld, 2r, 2) exchange words of 8 bytes, zeroed once
-    float* rows,             // r = 4, 8: (m - start) x B slots of the wide step's rows
+    float* rows,             // r = 4, 8, 16: (m - start) x B slots of the wide step's rows
     unsigned epoch,          // flag of line `start`: lines take epoch .. epoch + m - start - 1
     void* stream) {
   if (t_init == nullptr || (r > 2 && rows == nullptr)) return (int)cudaErrorInvalidValue;

@@ -68,7 +68,7 @@
 // two windows, 2 x ld x wt x 2 B (0.67 MB at half = 100).  The
 // arithmetic (2 x 2r x 2 x rows x ld flop) is far below the f32 rate.  Each
 // plane byte is read exactly once per pass and serves all r right-hand sides
-// (up to 8 in one launch on either layout: thomas_flow.cuh, "Wide batches").
+// (up to 16 in one launch on either layout: thomas_flow.cuh, "Wide batches").
 #pragma once
 
 #include <cuda_runtime.h>
@@ -77,12 +77,14 @@
 namespace thomas {
 
 constexpr int kLanes = 8;              // output lanes per tile (16 B of bf16)
-constexpr int kMaxRhs = 8;             // right-hand sides per launch: 1, 2, 4 or 8
+constexpr int kMaxRhs = 16;            // right-hand sides per launch: 1, 2, 4, 8 or 16
 
-// The widths a launch is instantiated for; the wrappers pad other r up to the
-// next one with zero right-hand sides (sparse/thomas_kernels.py)
+// The widths a line kernel's launch is instantiated for; the wrappers pad
+// other r up to the next one with zero right-hand sides
+// (sparse/thomas_kernels.py).  The plane kernels stop at 8 (plane_pass.cuh:
+// plane::launch_width).
 __host__ __device__ constexpr bool launch_width(int r) {
-  return r == 1 || r == 2 || r == 4 || r == 8;
+  return r == 1 || r == 2 || r == 4 || r == 8 || r == 16;
 }
 constexpr int kScaleBlock = 128;       // input rows per int8 scale
 
@@ -202,7 +204,7 @@ struct PassArgs {
                            //   pass, first, first-1, ... in a backward pass
   int tail_start;          // banded+tail: first line with a dense plane; else 0
   int half;                // banded+tail: kept band half-width; else 0
-  float* rows;             // r = 4, 8: the wide step's rows buffer (thomas_flow.cuh,
+  float* rows;             // r = 4, 8, 16: the wide step's rows buffer (thomas_flow.cuh,
                            //   wide_slot_bytes a slot and batch row); else unused
 };
 

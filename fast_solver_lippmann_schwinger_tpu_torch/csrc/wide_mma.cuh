@@ -1,13 +1,15 @@
 // Tensor-core products of wide batches: what the line kernels
-// (thomas_flow.cuh, "Wide batches") and the plane kernels (plane_pass.cuh,
-// note 4) take at r = 4 and 8 right-hand sides.
+// (thomas_flow.cuh, "Wide batches") take at r = 4, 8 and 16 right-hand sides
+// and the plane kernels (plane_pass.cuh, note 4) at r = 4 and 8.
 //
 // A warp multiplies a run of staged pivot rows by the batch's rows as
 // mma.sync.aligned.m16n8k16 products, bf16 operands and f32 sums:
 //
 //     M = the 2r stacked rows: at r = 8 re_p in fragment row p, im_p in row
 //         8 + p, so that a lane holds both halves of its outputs and the
-//         complex recombination is lane-local; at r = 4, whose 8 rows fill
+//         complex recombination is lane-local; at r = 16 two such tiles,
+//         right-hand sides 0-7 and 8-15, each multiplied by the same B
+//         fragments (loaded once); at r = 4, whose 8 rows fill
 //         half of M, rows 0-7 take the h term of the rows and rows 8-15 their
 //         m term, a second product the l term (two products a part instead of
 //         three), and a lane adds its two row halves;
@@ -201,6 +203,24 @@ __device__ __forceinline__ void plane_store_part(const float (&z1)[4], const flo
     const int v = g * kLanes + 2 * t;
     part[v * pitch] = g < R ? z1[0] - o0 : z1[0] + o0;
     part[(v + 1) * pitch] = g < R ? z1[1] - o1 : z1[1] + o1;
+  }
+}
+
+// r = 16: a lane's part of a tile's 32 x 8 values from the sums of the two
+// m16 tiles, tile h holding right-hand sides 8h .. 8h + 7 as R = 8 holds its
+// eight (re_p in fragment row p, im_p in row 8 + p): the stacked row of re_p
+// is p, of im_p 16 + p
+__device__ __forceinline__ void plane_store_part16(const float (&z1)[2][4],
+                                                   const float (&z2)[2][4], float* part,
+                                                   int pitch) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int re = (8 * h + g) * kLanes + 2 * t, imv = (16 + 8 * h + g) * kLanes + 2 * t;
+    part[re * pitch] = z1[h][0] - z2[h][2];
+    part[(re + 1) * pitch] = z1[h][1] - z2[h][3];
+    part[imv * pitch] = z1[h][2] + z2[h][0];
+    part[(imv + 1) * pitch] = z1[h][3] + z2[h][1];
   }
 }
 

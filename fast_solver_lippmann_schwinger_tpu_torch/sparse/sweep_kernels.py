@@ -17,7 +17,7 @@ is the flag-handoff step of the substitution kernels
 to the next through flagged words of the stream's exchange buffer
 (:class:`~fast_solver_lippmann_schwinger_tpu_torch.sparse.thomas_kernels.Exchange`),
 one slot and one flag per step, and the traces travel as the words of the
-backward step that produced them; at r = 4, 8 (the wide step) each step
+backward step that produced them; at r = 4, 8, 16 (the wide step) each step
 hands the next line's w over as rows on a ring of four slots, and the traces
 are rows that the tiles' publishers store and read back.  The
 kernels read the trace metadata and coupling rows of
@@ -32,10 +32,10 @@ so this is also the sweep with the fewest pivot bytes.  Semantics are those of
 Each wrapper launches its kernel for CUDA tensors, or raises; it takes the
 plain PyTorch version (:func:`sweep_down_plain`, :func:`sweep_up_plain`, a
 Python loop over (slab, line phase)) only for tensors that lie on the CPU.
-A launch takes r = 1, 2, 4 or 8 right-hand sides (r = 3 padded to four, 5-7
-to eight), each head window and tail plane read once for all of them; a
-batch that one launch does not take runs in launches of
-``thomas_kernels.line_width(fac, r, inject=True)`` columns, eight at most
+A launch takes r = 1, 2, 4, 8 or 16 right-hand sides (r = 3 padded to four,
+5-7 to eight, 9-15 to sixteen), each head window and tail plane read once for
+all of them; a batch that one launch does not take runs in launches of
+``thomas_kernels.line_width(fac, r, inject=True)`` columns, sixteen at most
 (``thomas_kernels.in_rhs_groups``).
 """
 
@@ -188,13 +188,13 @@ def private_floats(fac, tt: int, r: int) -> int:
 def exchange_slots(fac, tt: int, r: int) -> int:
     """Exchange slots of one sweep launch at ``r`` right-hand sides: one per
     line step at r = 1, 2 (the traces are words of the backward steps); the
-    ring of ``thomas_kernels.EXCHANGE_LINES`` at r = 4, 8 (the wide step, whose
+    ring of ``thomas_kernels.EXCHANGE_LINES`` at r >= 4 (the wide step, whose
     every step waits on the one before and whose traces are rows)."""
     return steps(fac, tt) if r <= 2 else tk.EXCHANGE_LINES
 
 
 def _launch(up: int, fac, meta, b4, cpl_a, cpl_b, y4, t4, unp, u4, tt: int, r: int):
-    """One launch; the down kernel at r = 4, 8 stores its bottom traces u_n
+    """One launch; the down kernel at r >= 4 stores its bottom traces u_n
     into a scratch row stack passed as ``u4``."""
     fn = cuda_build.load("sweep_fused")
     scratch = b4.new_empty(private_floats(fac, tt, r))

@@ -48,12 +48,13 @@ clip(round_half_even(c / scale), -127, 127)``.  The last block may be partial
 (rows ``[128 (nb - 1), ld)``): the JAX package pads to 128 lanes with zeros,
 which leave the block's absmax as it is, so the scales are the same numbers.
 
-Right-hand sides in one launch: r = 1, 2, 4 or 8 (:data:`LAUNCH_WIDTHS`) on
-either layout and in the fused sweeps of ``sweep_kernels``, each pivot plane
-or head window read once for all of them; other r up to 8 are padded to the
-next width with zero columns, and more than ``MAX_RHS`` run as groups of at
-most ``MAX_RHS`` columns, one launch each, split from and joined back into
-the stacked rows (:func:`in_rhs_groups`).
+Right-hand sides in one launch: r = 1, 2, 4, 8 or 16 (:data:`LAUNCH_WIDTHS`)
+on either layout and in the fused sweeps of ``sweep_kernels``, each pivot
+plane or head window read once for all of them; other r up to 16 are padded
+to the next width with zero columns, and more than ``MAX_RHS`` run as groups
+of at most ``MAX_RHS`` columns, one launch each, split from and joined back
+into the stacked rows (:func:`in_rhs_groups`).  The plane kernels of
+``plane_kernels`` stop at 8.
 
 A line must fit one block's shared memory: its rows and the staged plane
 buffers (for the flag-handoff passes, three stage buffers of a line's rows,
@@ -81,13 +82,13 @@ import torch.nn.functional as F
 from fast_solver_lippmann_schwinger_tpu_torch.native import cuda_build
 
 LEAD_MULTIPLE = 8      # bf16 values per 16-byte load
-MAX_RHS = 8            # right-hand sides per kernel launch (csrc: kMaxRhs)
-LAUNCH_WIDTHS = (1, 2, 4, 8)   # the instantiated widths (csrc: launch_width)
+MAX_RHS = 16           # right-hand sides per kernel launch (csrc: kMaxRhs)
+LAUNCH_WIDTHS = (1, 2, 4, 8, 16)   # the instantiated widths (csrc: launch_width)
 INT8_BLOCK = 128       # input rows per int8 scale (csrc: kScaleBlock)
 
 _P, _I, _U = cuda_build.PTR, cuda_build.INT, cuda_build.UINT
 # each launcher takes its pointers, its ints (the flag-handoff passes also an
-# exchange buffer, at r = 4 and 8 the wide step's rows buffer, and their first
+# exchange buffer, at r = 4, 8 and 16 the wide step's rows buffer, and their first
 # flag) and the stream
 cuda_build.register("thomas_fwd", "thomas_forward", [_P] * 9 + [_I] * 6 + [_U, _P])
 cuda_build.register("thomas_bwd", "thomas_backward", [_P] * 9 + [_I] * 8 + [_P, _P, _U, _P])
@@ -444,7 +445,7 @@ def _check_rows(fac, s_idx: torch.Tensor, rows: torch.Tensor):
 
 def launch_width(r: int) -> int:
     """The narrowest launch width that takes ``r <= MAX_RHS`` right-hand
-    sides (r = 3 runs as 4, r = 5..7 as 8)."""
+    sides (r = 3 runs as 4, r = 5..7 as 8, r = 9..15 as 16)."""
     return next(w for w in LAUNCH_WIDTHS if w >= r)
 
 
@@ -536,7 +537,6 @@ def in_rhs_groups(launch, r: int, rows: tuple, out=None, width: int = MAX_RHS):
 
 SMEM_PER_BLOCK = 232_448   # shared memory an H100 grants one block (opt-in)
 LINE_STAGES = 3            # stage buffers of the flag-handoff step (csrc: kStages)
-WIDE_PUB_BYTES = 4 * 32 * 20   # the wide step's publisher's operands (csrc: wide_pub_bytes)
 WIDE_STAGES = 2            # stage buffers of the wide step (csrc: kWideStages)
 
 
@@ -552,6 +552,12 @@ def wide_ksteps(cmax: int) -> int:
     return (cmax + 23) // 16
 
 
+def wide_pub_bytes(r: int) -> int:
+    """The wide step's publisher's operands of the next line: 2r + 2 floats a
+    lane of one warp, kept at 20 for r <= 8 (csrc: wide_pub_bytes)."""
+    return 4 * 32 * (34 if r == 16 else 20)
+
+
 def line_smem_bytes(ld: int, r: int, storage: str = "bf16", split: int = 1,
                     inject: bool = False) -> int:
     """Shared memory of one block of a line kernel on lines of ``ld`` lanes at
@@ -560,13 +566,16 @@ def line_smem_bytes(ld: int, r: int, storage: str = "bf16", split: int = 1,
     nothing to the wide step): the mbarriers and the
     warps' sums; at r <= 2 the carry rows (and trace rows) and the stage ring
     of :data:`LINE_STAGES` buffers (plane runs, scales, band and right-hand
-    rows); at r = 4 and 8 (the wide step, csrc/thomas_flow.cuh:
+    rows); at r = 4, 8 and 16 (the wide step, csrc/thomas_flow.cuh:
     wide_smem_bytes) the publisher's operands of the next line
-    (:data:`WIDE_PUB_BYTES`), w of the slice's k-steps (2r rows at a pitch of
+    (:func:`wide_pub_bytes`), w of the slice's k-steps (2r rows at a pitch of
     8 more than a multiple of 32 floats), their A fragments, 16 bytes a lane
-    and group (three groups at r = 8, two at r = 4), and a stage ring of
-    :data:`WIDE_STAGES` buffers of plane runs and scales only, each run 24
-    rows longer than the slice."""
+    and group (three groups at r = 8, two at r = 4, none at r = 16, which
+    splits w again for each tile), and a stage ring of :data:`WIDE_STAGES`
+    buffers of plane runs and scales only, each run 24 rows longer than the
+    slice; at r = 16 a buffer is at least the edge terms the rows' copy
+    stages in it (2r rows of 2 floats a tile: ld / 8 rounded up to even tiles
+    with one CTA a tile, cmax / 8 + 4 with two)."""
     cmax = _slice_rows(ld, split)
     pitch = (512 if split == 1 else 256) // 32 + 4
     red = 4 * 2 * (2 * r * LEAD_MULTIPLE) * pitch
@@ -575,9 +584,13 @@ def line_smem_bytes(ld: int, r: int, storage: str = "bf16", split: int = 1,
     if r > 2:
         ksteps = wide_ksteps(cmax)
         w = 4 * 2 * r * (-(-16 * ksteps // 32) * 32 + 8)
-        frags = ksteps * (3 if r == 8 else 2) * 32 * 16
-        return (64 + red + WIDE_PUB_BYTES + w + frags
-                + WIDE_STAGES * (2 * (cmax + 24) * row_bytes + scales))
+        frags = ksteps * {4: 2, 8: 3, 16: 0}[r] * 32 * 16
+        stage = 2 * (cmax + 24) * row_bytes + scales
+        if r == 16:
+            tiles = ld // LEAD_MULTIPLE
+            edge_tiles = tiles + tiles % 2 if split == 1 else cmax // LEAD_MULTIPLE + 4
+            stage = max(stage, 8 * 2 * r * edge_tiles)
+        return 64 + red + wide_pub_bytes(r) + w + frags + WIDE_STAGES * stage
     prev = (2 if inject else 1) * 4 * 2 * r * (cmax + 16)
     rows = 4 * (6 + 2 * r) * cmax            # the band and right-hand rows of the slice
     return 64 + red + prev + LINE_STAGES * (2 * cmax * row_bytes + scales + rows)
@@ -626,7 +639,7 @@ class Exchange:
     backward pass on banded+tail pivots and the fused sweeps) take one slot
     per line step at r = 1, 2, so that no slot is written twice in a launch
     and the words of every earlier step stay readable
-    (``csrc/thomas_flow.cuh``, ``run_flow``); at r = 4, 8 the backward pass
+    (``csrc/thomas_flow.cuh``, ``run_flow``); at r = 4, 8, 16 the backward pass
     on banded+tail pivots and the fused sweeps take the ring too (the wide
     step's every step waits on the one before).  The buffer is zeroed when it
     is made and only these kernels write it; the counter only grows, so no
@@ -636,7 +649,7 @@ class Exchange:
     it does when it would pass :data:`FLAG_LIMIT`, after zeroing the buffer
     once.
 
-    The wide step (r = 4, 8; ``csrc/thomas_flow.cuh``) hands its rows over
+    The wide step (r = 4, 8, 16; ``csrc/thomas_flow.cuh``) hands its rows over
     as plain f32 rows in a second buffer (:meth:`wide_rows`), behind flag
     words in the words above, two a tile (its rows, and with two CTAs a tile
     the partial sums one hands the other) 32 bytes apart, (slots, B, 2, ld /
@@ -679,7 +692,7 @@ class Exchange:
         return slots * batch * WIDE_SLOT_BYTES * r * ld // 4
 
     def wide_rows(self, batch: int, r: int, ld: int, slots: int = EXCHANGE_LINES):
-        """The rows buffer of a wide launch (r = 4, 8), zero when made (a
+        """The rows buffer of a wide launch (r = 4, 8, 16), zero when made (a
         build that hands the rows over as flagged words needs that) and made
         anew whenever the flags start again at 1; a null pointer's tensor
         (None) at r <= 2."""
@@ -1008,7 +1021,7 @@ def forward_substitution_cached(fac, s_idx: torch.Tensor, b4: torch.Tensor,
 
 def backward_slots(fac, m_eff: int, r: int = 1) -> int:
     """Exchange slots of a backward pass over ``m_eff`` lines at ``r``
-    right-hand sides: on dense planes (``flow_kernel``) and at r = 4, 8 (the
+    right-hand sides: on dense planes (``flow_kernel``) and at r = 4, 8, 16 (the
     wide step, whose every step waits on the one before) the ring of
     :data:`EXCHANGE_LINES`; on the banded+tail layout at r = 1, 2 (a step map
     through ``run_flow``) one slot per line step."""

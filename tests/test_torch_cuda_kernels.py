@@ -114,7 +114,7 @@ def test_cuda_tensors_never_reach_the_plain_version(cuda_device, monkeypatch):
 
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
-@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8, 12, 16])
 @pytest.mark.parametrize("start,carry", [(0, False), (0, True), (48, True)])
 @pytest.mark.parametrize("batch", [1, 16])
 def test_cached_forward_matches_plain(cuda_device, storage, r, start, carry, batch):
@@ -122,7 +122,8 @@ def test_cached_forward_matches_plain(cuda_device, storage, r, start, carry, bat
     planes (the banded+tail layout: test_hybrid_passes_match_plain): y and t
     stacks of a slab's 70 lines, a carry in (also at start = 0), lines above
     the start left alone; one CTA a tile, several tiles a CTA at 16 batch rows
-    picking slabs out of order; one launch per call (r = 3 padded to four)."""
+    picking slabs out of order; one launch per call (r = 3 padded to four, 12
+    to sixteen)."""
     rng = np.random.default_rng(1000 * batch + 10 * r + start + (storage == "int8"))
     m, n = 70, 300
     fac = (_random_factors if storage == "bf16" else _random_int8_factors)(rng, 2, m, n,
@@ -772,7 +773,7 @@ def _random_hybrid(rng, S, m, n, width, tail_lines):
     return tk.build_banded_tail_factorization(fac, width=width, tail_lines=tail_lines)
 
 
-@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8, 12, 16])
 @pytest.mark.parametrize("start,carry,tail", [(0, False, 0), (0, True, 3), (5, True, 30),
                                               (48, True, 0)])
 @pytest.mark.parametrize("batch", [1, 16])
@@ -781,8 +782,8 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail, batch):
     t_init, starting in the head and in the tail; backward full, inside the
     tail lines or across into the head; n not a multiple of 8, batch rows
     picking slabs out of order (at 16, several tiles a CTA); one launch per
-    call at every r (r = 3 padded to four, 5 to eight; 4 and 8 the wide
-    step), lines above the start left alone."""
+    call at every r (r = 3 padded to four, 5 to eight, 12 to sixteen; 4, 8
+    and 16 the wide step), lines above the start left alone."""
     rng = np.random.default_rng(100 + 10 * r + start + batch)
     m, n = 56, 45
     fac = _random_hybrid(rng, 2, m, n, width=9, tail_lines=20)
@@ -810,11 +811,12 @@ def test_hybrid_passes_match_plain(cuda_device, r, start, carry, tail, batch):
     assert bool((y4[:, :start] == 7.0).all()) and bool((t4[:, :start] == -7.0).all())
 
 
-@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 5, 8, 12, 16])
 def test_fused_sweep_matches_plain(cuda_device, r):
     """The 3-slab double-sweep preconditioner on banded+tail pivots, built on
     the CPU and moved to the card: one ``gs_sweep`` is one launch of each
-    fused kernel at every r (r = 3 padded to four, 5 to eight) and agrees
+    fused kernel at every r (r = 3 padded to four, 5 to eight, 12 to
+    sixteen) and agrees
     with the plain fused sweep on the CPU and with the per-slab sweep (the
     hybrid passes) on the card."""
     problem = plasma2d.build_problem(h=1 / 40, n_subdomains=3, double_sweep=True,
@@ -839,7 +841,7 @@ def test_fused_sweep_matches_plain(cuda_device, r):
     torch.testing.assert_close(got, per_slab, rtol=0, atol=TOL * float(per_slab.abs().max()))
 
 
-@pytest.mark.parametrize("r", [2, 4, 8])
+@pytest.mark.parametrize("r", [2, 4, 8, 16])
 def test_fused_sweep_injects_at_a_carry_free_line(cuda_device, r):
     """Injections at lines whose step takes no carry from the step before:
     the down sweep's top trace line at line 0 of each slab (l0 = 0), and the
@@ -874,8 +876,9 @@ def test_fused_sweep_injects_at_a_carry_free_line(cuda_device, r):
 
 @pytest.mark.parametrize("entry", ["forward", "backward", "down", "up"])
 def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monkeypatch):
-    """A CUDA tensor never reaches a plain version (each raises here): nine
-    right-hand sides run as two launches of the kernel (eight, and one)."""
+    """A CUDA tensor never reaches a plain version (each raises here):
+    seventeen right-hand sides run as two launches of the kernel (sixteen,
+    and one)."""
     def boom(*args, **kwargs):
         raise AssertionError("plain version called for a CUDA tensor")
 
@@ -885,7 +888,7 @@ def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monke
     monkeypatch.setattr(sk, "sweep_up_plain", boom)
     rng = np.random.default_rng(4)
     fac = move_to(_random_hybrid(rng, 3, 8, 24, width=5, tail_lines=3), cuda_device)
-    rows = torch.zeros((3, 8, 18, fac.ld), device=cuda_device)
+    rows = torch.zeros((3, 8, 2 * (tk.MAX_RHS + 1), fac.ld), device=cuda_device)
     s_idx = fac.slab_ids
     meta = torch.tensor([[0, 1, 1], [0, 2, 2], [5, 5, 0], [6, 6, 0], [0, 1, 1], [1, 1, 0]],
                         dtype=torch.int32, device=cuda_device)
@@ -903,7 +906,7 @@ def test_hybrid_wrappers_raise_instead_of_falling_back(cuda_device, entry, monke
     torch.cuda.synchronize()
     assert count() == before + 2
     for t in out if isinstance(out, tuple) else (out,):
-        assert t.shape[-2:] in ((18, fac.ld),) and bool(torch.isfinite(t).all())
+        assert t.shape[-2:] == (2 * (tk.MAX_RHS + 1), fac.ld) and bool(torch.isfinite(t).all())
 
 
 BANDED_TAIL = 22                 # the sweeps' trace tail: it reaches into the head
@@ -933,14 +936,15 @@ def _banded_batch(fac, batch):
     return fac.slab_ids[8:9] if batch == 1 else fac.slab_ids
 
 
-@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8, 12, 16])
 @pytest.mark.parametrize("tail", [0, BANDED_TAIL])
 @pytest.mark.parametrize("batch", [1, 16])
 def test_banded_backward_matches_plain(banded, r, tail, batch):
     """The backward pass on banded+tail pivots at the 801^2 solve's width,
     full and over the last 22 lines (across into the head windows), one inner
     slab and all 16 (several tiles a CTA), against its plain version; one
-    launch each (r = 3 padded to four), counted as the hybrid layout's."""
+    launch each (r = 3 padded to four, 12 to sixteen), counted as the hybrid
+    layout's."""
     fac = banded
     s_idx = _banded_batch(fac, batch)
     y4 = _banded_rows(fac, batch, r, 10 * r + tail + batch)
@@ -954,7 +958,8 @@ def test_banded_backward_matches_plain(banded, r, tail, batch):
 
 
 @pytest.mark.parametrize("batch,r,tail", [(1, 1, 0), (1, 2, BANDED_TAIL), (16, 2, 0),
-                                         (1, 8, BANDED_TAIL), (16, 8, 0), (16, 4, 0)])
+                                         (1, 8, BANDED_TAIL), (16, 8, 0), (16, 4, 0),
+                                         (1, 16, BANDED_TAIL), (16, 16, 0)])
 def test_banded_backward_is_bit_identical_across_repeats(banded, batch, r, tail):
     """No race in the handoff of the banded backward pass: 20 launches give
     the same bits (no sum depends on timing; there is no atomic)."""
@@ -1082,8 +1087,9 @@ def test_int8_line_passes_match_plain(cuda_device, n, r):
 # at r = 4 and 8 run the wide step with nothing added to its shared memory;
 # thomas_kernels.line_fits mirrors them
 LONGEST_LINE = {("bf16", 1): 2304, ("bf16", 2): 1968, ("bf16", 4): 2560, ("bf16", 8): 1904,
-                ("int8", 1): 2560, ("int8", 2): 2448, ("int8", 4): 2560, ("int8", 8): 2192}
-LONGEST_SWEEP_LINE = {2: 1840, 4: 2560, 8: 1904}
+                ("bf16", 16): 2032, ("int8", 1): 2560, ("int8", 2): 2448, ("int8", 4): 2560,
+                ("int8", 8): 2192, ("int8", 16): 2032}
+LONGEST_SWEEP_LINE = {2: 1840, 4: 2560, 8: 1904, 16: 2032}
 
 
 def _zero_hybrid(length, device):
@@ -1099,8 +1105,8 @@ def _zero_hybrid(length, device):
     ("backward", "bf16", 2), ("backward", "int8", 2), ("forward_cached", "bf16", 2),
     ("forward_cached", "int8", 2), ("sweep", "bf16", 2), ("backward_ht", "bf16", 2)] + [
     (entry, storage, r) for entry in ("backward", "forward_cached")
-    for storage in ("bf16", "int8") for r in (1, 4, 8)] + [
-    (entry, "bf16", r) for entry in ("sweep", "backward_ht") for r in (4, 8)])
+    for storage in ("bf16", "int8") for r in (1, 4, 8, 16)] + [
+    (entry, "bf16", r) for entry in ("sweep", "backward_ht") for r in (4, 8, 16)])
 def test_longest_line_fits(cuda_device, entry, storage, r, monkeypatch):
     """The line-length limits of the module notes, for each launch width: the
     longest line launches once at r, one lane group more is refused before a
@@ -1108,8 +1114,8 @@ def test_longest_line_fits(cuda_device, entry, storage, r, monkeypatch):
     the carry rows [+ w at r > 2] + three stage buffers, of 232448 bytes; the
     fused sweeps with the trace rows beside the carry; the backward pass on
     banded+tail pivots, a step map without the trace rows, as the cached
-    forward pass; at r = 4 and 8 every one of them runs the wide step, the
-    same shared memory).  The Python mirror (thomas_kernels.line_fits) says
+    forward pass; at r = 4, 8 and 16 every one of them runs the wide step,
+    the same shared memory).  The Python mirror (thomas_kernels.line_fits) says
     the same; a longer line would run in narrower launches, so the wrapper
     is held to width r there: the kernel refuses it and the wrapper raises,
     with no launch of another width."""
@@ -1166,7 +1172,7 @@ def _factors_of(storage, rng, S, m, n, device):
 
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
-@pytest.mark.parametrize("r", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 8, 12, 16])
 @pytest.mark.parametrize("batch", [1, 16])
 @pytest.mark.parametrize("n", [801, 1700])
 def test_flow_passes_match_plain(cuda_device, storage, r, batch, n):
@@ -1175,8 +1181,8 @@ def test_flow_passes_match_plain(cuda_device, storage, r, batch, n):
     two groups; at 16 batch rows 1616 tiles, several a CTA, which share their
     carry and w) and on a line too long for one CTA (n = 1700: two CTAs a
     tile, the halves added by the consumer), batch rows picking slabs out of
-    order; r = 3 (padded to four), 4 and 8 in one launch each (at n = 801 one
-    CTA a tile, at 1700 two)."""
+    order; r = 3 (padded to four), 4, 8, 12 (padded to sixteen) and 16 in one
+    launch each (at n = 801 one CTA a tile, at 1700 two)."""
     rng = np.random.default_rng(100 * batch + 10 * r + (storage == "int8") + n)
     S, m = 3, 6
     fac = _factors_of(storage, rng, S, m, n, cuda_device)
@@ -1209,19 +1215,20 @@ def test_flow_passes_are_bit_identical_across_repeats(cuda_device):
     is no atomic in any)."""
     rng = np.random.default_rng(7)
     cases = []
-    # the narrow step (r = 1, 2), then the wide one (r = 4, 8) on one and on
-    # two CTAs a tile
+    # the narrow step (r = 1, 2), then the wide one (r = 4, 8, 16) on one and
+    # on two CTAs a tile
     for storage, batch, n, r in (("bf16", 1, 801, 1), ("int8", 16, 300, 2), ("bf16", 4, 801, 2),
                                  ("int8", 1, 801, 1), ("bf16", 16, 120, 1), ("bf16", 2, 1700, 2),
                                  ("int8", 1, 1700, 1), ("bf16", 1, 801, 8), ("int8", 16, 300, 4),
-                                 ("bf16", 2, 1700, 4), ("int8", 1, 1700, 8)):
+                                 ("bf16", 2, 1700, 4), ("int8", 1, 1700, 8), ("bf16", 1, 801, 16),
+                                 ("int8", 2, 1700, 16)):
         fac = _factors_of(storage, rng, 2, 9, n, cuda_device)
         s_idx = torch.as_tensor(np.arange(batch) % 2, dtype=torch.int32, device=cuda_device)
         b4 = tk._to_rows_b(fac, torch.as_tensor(_rhs(rng, (batch, 9, n, r)), device=cuda_device))
         cases.append((fac, s_idx, b4))
     other = cases[2]
     first = {}
-    for i in range(140):
+    for i in range(170):
         k = i % len(cases)
         fac, s_idx, b4 = cases[k]
         y4 = tk.forward_substitution(fac, s_idx, b4, start=i % 3)
@@ -1233,7 +1240,7 @@ def test_flow_passes_are_bit_identical_across_repeats(cuda_device):
         else:
             assert torch.equal(y4, first[key][0]) and torch.equal(x4, first[key][1]), (i, key)
     torch.cuda.synchronize()
-    assert len(first) == 66      # each of 66 shapes and modes held twice or more
+    assert len(first) == 78      # each of 78 shapes and modes held twice or more
 
 
 def _longest_line(storage, r, split):
@@ -1247,11 +1254,11 @@ def _longest_line(storage, r, split):
 
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
-@pytest.mark.parametrize("r", [4, 8])
+@pytest.mark.parametrize("r", [4, 8, 16])
 @pytest.mark.parametrize("n,batch", [(401, 1), (401, 16), (801, 1), (801, 16), ("one", 1),
                                      ("two", 1)])
 def test_wide_line_step_matches_plain(cuda_device, storage, r, n, batch):
-    """The wide step (r = 4, 8) of the dense line kernels against the plain
+    """The wide step (r = 4, 8, 16) of the dense line kernels against the plain
     versions, to 1e-4 of the max-norm: the forward pass from a start, the
     backward pass whole and over its last lines, and the cached forward pass
     from a carry at line 48, one launch each, on bf16 and int8 planes, at one
@@ -1307,14 +1314,14 @@ def test_map_kernels_are_bit_identical_across_repeats(cuda_device):
     cached forward launches on bf16, int8 and banded+tail pivots, the shape
     changing from one round to the next, among them a narrow window on a wide
     line (width 9 at n = 801: a head tile reads 3 tiles' carry, so CTAs at the
-    two ends of a line run far apart), the wide step of the sweeps at r = 4
-    and 8 and of the hybrid forward pass at r = 8; every output the same bits
-    as the first run at its shape."""
+    two ends of a line run far apart), the wide step of the sweeps at r = 4,
+    8 and 16 and of the hybrid forward pass at r = 8 and 16; every output the
+    same bits as the first run at its shape."""
     rng = np.random.default_rng(8)
     sweeps_ = []
     for S, m, n, width, tail_lines, r in ((3, 20, 801, 9, 6, 1), (4, 16, 301, 41, 5, 2),
                                           (3, 12, 45, 9, 4, 1), (4, 16, 801, 41, 5, 8),
-                                          (3, 12, 801, 9, 4, 4)):
+                                          (3, 12, 801, 9, 4, 4), (3, 12, 801, 41, 4, 16)):
         fac = _hybrid_on_card(rng, S, m, n, width, tail_lines, cuda_device)
         tt = tail_lines + 2              # the backward tail reaches into the head
         ln = m - tt + 1
@@ -1336,6 +1343,7 @@ def test_map_kernels_are_bit_identical_across_repeats(cuda_device):
     hybrid = sweeps_[0][0]
     hb4 = sweeps_[0][2]
     hybrid8, hb8 = sweeps_[3][0], sweeps_[3][2]
+    hybrid16, hb16 = sweeps_[5][0], sweeps_[5][2]
     first = {}
     for i in range(100):
         k = i % len(sweeps_)
@@ -1348,15 +1356,16 @@ def test_map_kernels_are_bit_identical_across_repeats(cuda_device):
         y_c, t_c = tk.forward_substitution_cached(pf, ps, pb, pb[:, 3].contiguous(), start=start)
         y_h, t_h = tk.forward_substitution_cached(hybrid, hybrid.slab_ids, hb4)
         y_8, t_8 = tk.forward_substitution_cached(hybrid8, hybrid8.slab_ids, hb8)
+        y_16, t_16 = tk.forward_substitution_cached(hybrid16, hybrid16.slab_ids, hb16)
         outs = {("sweep", k): down + (u4,), ("cached", p, start): (y_c, t_c), ("ht",): (y_h, t_h),
-                ("ht8",): (y_8, t_8)}
+                ("ht8",): (y_8, t_8), ("ht16",): (y_16, t_16)}
         for key, got in outs.items():
             if key not in first:
                 first[key] = got
             else:
                 assert all(torch.equal(a, b) for a, b in zip(got, first[key])), (i, key)
     torch.cuda.synchronize()
-    assert len(first) == 5 + 6 + 2
+    assert len(first) == 6 + 6 + 3
 
 
 @pytest.mark.parametrize("shape", [(41, 41), (31, 45), (801, 801)])

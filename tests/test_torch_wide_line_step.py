@@ -1,9 +1,10 @@
-"""The sizing of the wide step (r = 4, 8) of the dense line kernels, on the
+"""The sizing of the wide step (r = 4, 8, 16) of the dense line kernels, on the
 CPU: the Python mirrors that pick a launch width from shapes alone
 (``thomas_kernels.line_smem_bytes``, ``line_fits``, ``line_width``) and the
 exchange buffers a launch takes (``Exchange.values``, ``row_values``) held
 to the constants read from ``csrc/thomas_flow.cuh`` (``wide_smem_bytes``,
-``wide_ksteps``, ``wide_groups``, ``wide_stage_rows``, ``wide_slot_bytes``),
+``wide_ksteps``, ``wide_groups``, ``wide_stage_rows``, ``wide_stage_bytes``,
+``wide_pub_floats``, ``wide_slot_bytes``),
 at the lines of the 401^2 and 801^2 solves (ld 408, 808) and at two long
 ones (1760, 2144).  The kernels themselves run only on the card
 (``tests/test_torch_cuda_kernels.py``: ``test_wide_line_step_matches_plain``,
@@ -34,13 +35,14 @@ def _kernel_sizing():
     groups1, groups2 = _csrc(r"flow_groups\(\) \{\n  return SPLIT == 1 \? (\d+) : (\d+);")
     pitch_add, = _csrc(r"return flow_threads<SPLIT>\(\) / 32 \+ (\d+);")
     ks_add, ks_div = _csrc(r"wide_ksteps\(int cmax\) \{ return \(cmax \+ (\d+)\) / (\d+); \}")
-    g8, g4 = _csrc(r"wide_groups\(\) \{ return R == 8 \? (\d+) : (\d+); \}")
+    g16, g8, g4 = _csrc(r"wide_groups\(\) \{ return R == 16 \? (\d+) : R == 8 \? (\d+) : (\d+); \}")
     extra, = _csrc(r"wide_stage_rows\(int cmax\) \{ return cmax \+ (\d+); \}")
     slot, = _csrc(r"return \(size_t\)(\d+) \* r \* ld;")
     lanes, = _csrc(r"constexpr int kLanes = (\d+);", "thomas_line.cuh")
     block, = _csrc(r"constexpr int kScaleBlock = (\d+);", "thomas_line.cuh")
     ring, = _csrc(r"constexpr int kSlots = (\d+);")
-    pub, = _csrc(r"constexpr int kPubFloats = (\d+);")
+    pub16, pub = _csrc(r"wide_pub_floats\(\) \{ return R == 16 \? (\d+) : (\d+); \}")
+    edge_pad, = _csrc(r"slice_rows<SPLIT>\(ld\) / kLanes \+ (\d+)\);")
     wide_stages, = _csrc(r"constexpr int kWideStages = (\d+);")
     sp_round, sp_add = _csrc(r"return \(16 \* wide_ksteps\(cmax\) \+ 31\) / 32 \* (\d+) \+ (\d+);")
 
@@ -52,11 +54,15 @@ def _kernel_sizing():
         cmax = slice_rows(ld, split)
         red = 4 * 2 * (2 * r * lanes) * (threads // 32 + pitch_add)
         ksteps = (cmax + ks_add) // ks_div
-        frags = ksteps * (g8 if r == 8 else g4) * 32 * 16
+        frags = ksteps * {16: g16, 8: g8, 4: g4}[r] * 32 * 16
         w = 4 * 2 * r * (-(-16 * ksteps // 32) * sp_round + sp_add)
         scales = 4 * 2 * lanes * -(-ld // block) if storage == "int8" else 0
-        rows = 2 * (cmax + extra) * (8 if storage == "int8" else 16)
-        return 64 + red + 4 * 32 * pub + w + frags + wide_stages * (rows + scales)
+        stage = 2 * (cmax + extra) * (8 if storage == "int8" else 16) + scales
+        if r == 16:      # the edge terms the rows' copy stages in a stage buffer
+            tiles = ld // lanes
+            stage = max(stage, 8 * 2 * r * (tiles + tiles % 2 if split == 1
+                                            else cmax // lanes + edge_pad))
+        return 64 + red + 4 * 32 * (pub16 if r == 16 else pub) + w + frags + wide_stages * stage
 
     def fits(ld, r, storage, split):
         rows = (groups1 * threads1) if split == 1 else (groups2 * threads2)
@@ -66,14 +72,14 @@ def _kernel_sizing():
 
 
 @pytest.mark.parametrize("storage", ["bf16", "int8"])
-@pytest.mark.parametrize("r", [4, 8])
+@pytest.mark.parametrize("r", [4, 8, 16])
 @pytest.mark.parametrize("ld", [408, 808, 1760, 2144])
 def test_wide_sizing_mirrors_the_kernels(storage, r, ld):
     """``line_smem_bytes`` and ``line_fits`` say what the kernels' own sizing
     says, on one CTA a tile and on two; the 401^2 and 801^2 lines take one
-    CTA a tile at r = 4 and 8 (as the launcher picks: one where one fits);
-    ``line_width`` launches the widest width the kernels' sizing takes (at
-    2144 lanes in bf16, four of eight)."""
+    CTA a tile at r = 4, 8 and 16 (as the launcher picks: one where one
+    fits); ``line_width`` launches the widest width the kernels' sizing takes
+    (at 2144 lanes in bf16, four of eight and of sixteen)."""
     smem, fits, _, _, _ = _kernel_sizing()
     assert tk.SMEM_PER_BLOCK == H100_SMEM
     for split in (1, 2):
@@ -86,12 +92,12 @@ def test_wide_sizing_mirrors_the_kernels(storage, r, ld):
     bands = torch.zeros(()).expand(1, 1, 2, 3, ld)
     scale = None if storage == "bf16" else torch.ones((1, 1, ld // 8, tk.n_scale_blocks(ld), 2, 8))
     fac = tk.ThomasFactorization(planes, planes, bands, bands, ld - 7, scale=scale)
-    widest = next(w for w in (8, 4, 2, 1) if w <= r and (fits(ld, w, storage, 1) or fits(
+    widest = next(w for w in (16, 8, 4, 2, 1) if w <= r and (fits(ld, w, storage, 1) or fits(
         ld, w, storage, 2) or w <= 2))
     assert tk.line_width(fac, r) == widest
 
 
-@pytest.mark.parametrize("r", [4, 8])
+@pytest.mark.parametrize("r", [4, 8, 16])
 @pytest.mark.parametrize("ld", [408, 808, 1760, 2144])
 @pytest.mark.parametrize("batch,slots", [(1, tk.EXCHANGE_LINES), (16, tk.EXCHANGE_LINES),
                                          (1, 70)])
